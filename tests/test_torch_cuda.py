@@ -1,0 +1,74 @@
+"""The port on an NVIDIA GPU: the packet-traversal CUDA kernel against its
+plain PyTorch version, and a small render on the card against the same
+render on the CPU.  Every test needs a card and skips without one; this
+file imports no JAX, so it runs where only the port is installed:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from tpu_pathtracer_torch.accel.build import build_accel  # noqa: E402
+from tpu_pathtracer_torch.config import RenderConfig  # noqa: E402
+from tpu_pathtracer_torch.ops import intersect_cluster as ic  # noqa: E402
+from tpu_pathtracer_torch.render.camera import Camera, camera_arrays  # noqa: E402
+from tpu_pathtracer_torch.render.film import post_process  # noqa: E402
+from tpu_pathtracer_torch.render.integrator import render_frame_stats  # noqa: E402
+from tpu_pathtracer_torch.scene import procedural  # noqa: E402
+from tpu_pathtracer_torch.utils.ssim import ssim  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def rays(seed, n, parked):
+    """Rays toward the three-spheres scene, a quarter in random
+    directions, the last `parked` parked at (3e37, 0, 0) pointing +x."""
+    rs = np.random.RandomState(seed)
+    o = (rs.randn(n, 3) * [5.0, 2.0, 5.0] + [0.0, 2.5, 0.0]).astype(np.float32)
+    target = (rs.rand(n, 3) * [8.0, 2.0, 2.0] - [4.0, 0.0, 1.0]).astype(np.float32)
+    d = target - o
+    d[: n // 4] = rs.randn(n // 4, 3)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    o[n - parked :] = [3.0e37, 0.0, 0.0]
+    d[n - parked :] = [1.0, 0.0, 0.0]
+    return torch.as_tensor(o), torch.as_tensor(d)
+
+
+@pytest.mark.parametrize("rays_per_tile", [1024, 256, 32])
+def test_kernel_matches_plain(cuda, rays_per_tile):
+    """Bit-equal t, prim and uv; one launch counted per call."""
+    acc = build_accel(procedural.three_spheres_scene(12, 24, device=cuda)).accel
+    o, d = (x.to(cuda) for x in rays(0, 70_000, parked=1000))
+    args = (acc.tris16bw, acc.aabb8, acc.order, o, d, 0.01, 1e16, rays_per_tile)
+    before = ic.intersect_clusters.launches
+    tk, pk, uvk = ic.intersect_clusters(*args)
+    tp, pp, uvp = ic.intersect_clusters_plain(*args)
+    torch.cuda.synchronize()
+    assert ic.intersect_clusters.launches == before + 1
+    assert torch.equal(pk, pp) and torch.equal(tk, tp) and torch.equal(uvk, uvp)
+    assert (pk != ic.MISS_PRIM).sum() > 10_000
+
+
+def test_render_matches_cpu(cuda):
+    """A 64x48 render through the kernel against the plain versions on
+    the CPU: segment counts within 0.5%, SSIM above 0.995."""
+    cfg = RenderConfig(width=64, height=48, samples_per_launch=4, max_depth=6, dof=False,
+                       stream_lanes=512, intersector="cluster", env_mode="sunsky")
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        scene = build_accel(procedural.three_spheres_scene(8, 16, device=dev))
+        img, stats = render_frame_stats(scene, camera_arrays(Camera(), cfg, dev), cfg, 0)
+        out[dev.type] = (post_process(img, cfg).cpu().numpy(), int(stats["segments"]))
+    (gpu, seg_gpu), (cpu, seg_cpu) = out["cuda"], out["cpu"]
+    assert abs(seg_gpu - seg_cpu) <= 0.005 * seg_cpu
+    assert ssim(gpu, cpu) > 0.995

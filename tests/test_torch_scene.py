@@ -1,0 +1,176 @@
+"""The PyTorch port's host-side builders against the JAX package: config,
+procedural scenes, material tables, environment maps, the cluster accel,
+and the bridge that carries a JAX scene across leaf by leaf."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# The suite runs in several worker processes: one intra-op thread each
+# keeps them from oversubscribing the cores.
+torch.set_num_threads(1)
+
+from tpu_pathtracer.accel.build import build_accel as j_build_accel  # noqa: E402
+from tpu_pathtracer.config import RenderConfig as JConfig  # noqa: E402
+from tpu_pathtracer.scene import procedural as j_proc  # noqa: E402
+from tpu_pathtracer.scene import scene as j_scene  # noqa: E402
+from tpu_pathtracer.utils.image import procedural_hdr as j_hdr  # noqa: E402
+
+from tpu_pathtracer_torch.accel.build import build_accel  # noqa: E402
+from tpu_pathtracer_torch.bridge import scene_from_numpy  # noqa: E402
+from tpu_pathtracer_torch.config import RenderConfig  # noqa: E402
+from tpu_pathtracer_torch.scene import procedural, scene  # noqa: E402
+from tpu_pathtracer_torch.utils.image import procedural_hdr  # noqa: E402
+
+LEAF_FIELDS = {
+    "": ("vertices", "normals", "uvs", "mat_ids", "tri_attrs"),
+    "materials": ("attrs", "texture_quads", "texture_bundles", "bundled",
+                  "bundled_morton", "bundled_scrambled", "bundled_pow2_dims"),
+    "env": ("data", "quads", "quads_scrambled"),
+    "accel": ("tris16bw", "aabb8", "order", "scene_lo", "scene_hi", "cluster_size"),
+}
+
+
+def jax_scene_leaves(obj) -> dict:
+    """Flatten a JAX Scene (or the port's) to {field path: numpy array}."""
+    leaves = {}
+    for group, names in LEAF_FIELDS.items():
+        holder = getattr(obj, group) if group else obj
+        if holder is None:
+            continue
+        for name in names:
+            value = getattr(holder, name)
+            if isinstance(value, torch.Tensor):
+                value = value.cpu().numpy()
+            leaves[f"{group}.{name}" if group else name] = np.asarray(value)
+    return leaves
+
+
+def assert_leaves_equal(port_scene, jax_leaves):
+    port = jax_scene_leaves(port_scene)
+    assert port.keys() == jax_leaves.keys()
+    for key, want in jax_leaves.items():
+        got = port[key]
+        if want.dtype == np.uint32:
+            want = want.astype(np.int64)  # the port holds u32 words in int64
+        np.testing.assert_array_equal(got, want, err_msg=key)
+        assert got.shape == want.shape, key
+
+
+def textured_materials(rs, dims):
+    """Material dicts plus a quad pool: one textured material per (w, h)
+    in `dims` with all four maps, and one plain material."""
+    pool, mats, off = [], [], 0
+    for w, h in dims:
+        maps = {}
+        for kind in ("albedo", "roughness", "normal", "metallic"):
+            pool.append(j_scene.make_texture_quads(rs.rand(h, w, 3)))
+            maps[kind] = (off, w, h)
+            off += w * h
+        mats.append(dict(color=(0.6, 0.5, 0.4), roughness=0.4, maps=maps))
+    mats.append(dict(color=(0.2, 0.3, 0.9), roughness=0.9, metallic=True))
+    return mats, np.concatenate(pool)
+
+
+def test_procedural_hdr_matches_jax():
+    np.testing.assert_array_equal(procedural_hdr(32, 64), j_hdr(32, 64))
+
+
+@pytest.mark.parametrize("shape", [(32, 64), (12, 20)])
+def test_make_env_matches_jax(shape):
+    hdr = j_hdr(*shape)
+    got = scene.make_env(hdr)
+    want = j_scene.make_env(hdr)
+    np.testing.assert_array_equal(got.data.numpy(), np.asarray(want.data))
+    np.testing.assert_array_equal(got.quads.numpy(), np.asarray(want.quads))
+    assert got.quads_scrambled == want.quads_scrambled
+
+
+def test_three_spheres_with_accel_matches_jax():
+    hdr = j_hdr(32, 64)
+    want = j_build_accel(
+        j_proc.three_spheres_scene(8, 16).replace(env=j_scene.make_env(hdr)),
+        kind="cluster",
+    )
+    got = build_accel(procedural.three_spheres_scene(8, 16).replace(env=scene.make_env(hdr)))
+    assert_leaves_equal(got, jax_scene_leaves(want))
+
+
+@pytest.mark.parametrize(
+    "make",
+    [
+        lambda m: m.single_sphere_scene(stacks=6, slices=12),
+        lambda m: m.high_poly_scene(total_tris=2000, n_objects=3, seed=3),
+    ],
+    ids=["single_sphere", "high_poly"],
+)
+def test_other_procedural_scenes_match_jax(make):
+    want = j_build_accel(make(j_proc), kind="cluster", cluster_size=64)
+    got = build_accel(make(procedural), kind="cluster", cluster_size=64)
+    assert_leaves_equal(got, jax_scene_leaves(want))
+
+
+@pytest.mark.parametrize(
+    "dims",
+    [[(8, 8), (8, 8)], [(16, 4)], [(6, 10)], [(8, 8), (4, 4)]],
+    ids=["bundled_scrambled", "bundled_pow2_rect", "bundled_rowmajor", "per_material_dims"],
+)
+def test_material_table_matches_jax(dims):
+    mats, pool = textured_materials(np.random.RandomState(7), dims)
+    want = j_scene.make_material_table(mats, pool)
+    got = scene.make_material_table(mats, pool)
+    np.testing.assert_array_equal(got.attrs.numpy(), np.asarray(want.attrs))
+    np.testing.assert_array_equal(got.texture_quads.numpy(), np.asarray(want.texture_quads).astype(np.int64))
+    np.testing.assert_array_equal(got.texture_bundles.numpy(), np.asarray(want.texture_bundles).astype(np.int64))
+    for flag in ("bundled", "bundled_morton", "bundled_scrambled", "bundled_pow2_dims"):
+        assert getattr(got, flag) == getattr(want, flag), flag
+
+
+def test_bridge_round_trip():
+    want = j_build_accel(
+        j_proc.three_spheres_scene(6, 12).replace(env=j_scene.make_env(j_hdr(16, 32))),
+        kind="cluster",
+    )
+    leaves = jax_scene_leaves(want)
+    carried = scene_from_numpy(leaves, "cpu")
+    assert_leaves_equal(carried, leaves)
+    assert carried.accel.num_clusters == want.accel.num_clusters
+    assert carried.tri_attrs.dtype == torch.float32
+    assert carried.materials.texture_quads.dtype == torch.int64
+
+
+def test_bridge_without_accel():
+    want = j_proc.single_sphere_scene(stacks=4, slices=8)
+    leaves = jax_scene_leaves(want)
+    assert not any(k.startswith("accel.") for k in leaves)
+    assert scene_from_numpy(leaves, "cpu").accel is None
+
+
+def test_config_defaults_match_jax():
+    got, want = RenderConfig(), JConfig()
+    for field in dataclasses.fields(RenderConfig):
+        assert getattr(got, field.name) == getattr(want, field.name), field.name
+
+
+@pytest.mark.parametrize(
+    "bad",
+    [
+        dict(rr_mode="bogus"),
+        dict(env_mode="hdr"),
+        dict(intersector="bvh"),
+        dict(sort_rays="sideways"),
+        dict(tri_test="xyz"),
+        dict(sort_spatial_bits=10),
+        dict(sort_dir_bits=5),
+        dict(hier_min_clusters=1),
+        dict(stream_lanes=-1),
+        dict(env_importance_sampling=True),
+    ],
+)
+def test_config_validation_matches_jax(bad):
+    with pytest.raises(ValueError):
+        JConfig(**bad)
+    with pytest.raises(ValueError):
+        RenderConfig(**bad)

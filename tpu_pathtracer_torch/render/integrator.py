@@ -1,0 +1,428 @@
+"""The wavefront path-tracing integrator: closest-hit shading, one bounce
+for every lane, and the streaming work-queue schedule.
+
+Counterpart of `tpu_pathtracer/render/integrator.py` on the main path:
+`_shade`, the NEE-off branch of `_trace_bounce`, `render_pixels_stream`,
+the stream branch of `render_pixels`, `render_frame` and
+`render_frame_stats`.  The estimator is the reference's
+(cfg.rr_mode="reference": the whole path's radiance divided by the last
+survival probability, a deterministic two-lobe BSDF blend, glass bounces
+that skip the attenuation update) or textbook Russian roulette
+("standard").
+
+The schedule runs eagerly: a Python loop over iterations that reads one
+flag from the device per iteration (whether any lane is still live).
+Branches of the JAX integrator that are not ported raise
+NotImplementedError naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from tpu_pathtracer_torch.config import RenderConfig
+from tpu_pathtracer_torch.ops.intersect import Hit, intersect_scene
+from tpu_pathtracer_torch.render import bsdf
+from tpu_pathtracer_torch.render.camera import generate_camera_rays
+from tpu_pathtracer_torch.render.envmap import eval_env
+from tpu_pathtracer_torch.render.texsample import material_property, sample_bundle
+from tpu_pathtracer_torch.scene import scene as S
+from tpu_pathtracer_torch.scene.scene import Scene
+from tpu_pathtracer_torch.utils import math as vm
+from tpu_pathtracer_torch.utils import rng
+
+
+def _interp(w: torch.Tensor, corners: torch.Tensor) -> torch.Tensor:
+    """Barycentric blend: w [N,3] of corners [N,3,C] -> [N,C]."""
+    return (
+        w[:, 0:1] * corners[:, 0] + w[:, 1:2] * corners[:, 1]
+    ) + w[:, 2:3] * corners[:, 2]
+
+
+# ---------------------------------------------------------------------------
+# Closest-hit shading
+# ---------------------------------------------------------------------------
+
+def _shade(scene: Scene, cfg: RenderConfig, hit: Hit, origins, directions, seeds, depth):
+    """Closest-hit program for every lane; callers select with the hit and
+    termination masks.  Returns a dict: new_origin, new_direction,
+    att_factor ([N,3], multiplied into the attenuation where att_ok),
+    att_ok, emission, emissive, degenerate, done, seeds."""
+    prim = torch.clamp_min(hit.prim, 0).long()  # miss lanes read row 0
+    ta = scene.tri_attrs[prim]                                  # [N,32]
+    tri_v = ta[:, S.TRI_V].reshape(-1, 3, 3)
+    tri_n = ta[:, S.TRI_N].reshape(-1, 3, 3)
+    tri_uv = ta[:, S.TRI_UV].reshape(-1, 3, 2)
+    mat = ta[:, S.TRI_MAT].to(torch.int32).long()
+    m = scene.materials
+    ma = m.attrs[mat]                                           # [N,40]
+    n_lanes = ma.shape[0]
+
+    ray_dir = directions
+    v0, v1, v2 = tri_v[:, 0], tri_v[:, 1], tri_v[:, 2]
+
+    # Flat geometric normal, face-forwarded against the ray.
+    flat_n = vm.normalize(vm.cross(v1 - v0, v2 - v0))
+    flat_n = vm.faceforward(flat_n, -ray_dir, flat_n)
+
+    beta = hit.bary[:, 0]
+    gamma = hit.bary[:, 1]
+    w_interp = torch.stack([1.0 - beta - gamma, beta, gamma], dim=-1)
+
+    uv = _interp(w_interp, tri_uv)
+    tex_u = uv[:, 0]
+    tex_v = (1.0 - uv[:, 1]) if cfg.flip_v else uv[:, 1]
+
+    normal_raw = _interp(w_interp, tri_n)
+    degenerate = vm.length(normal_raw) <= 0.01
+    normal = vm.normalize(normal_raw)
+    # A backfacing smooth normal falls back to the flat normal.
+    normal = torch.where((vm.dot(normal, ray_dir) > 0.0)[:, None], flat_n, normal)
+
+    hit_pos = origins + hit.t[:, None] * ray_dir
+
+    # ---- texture-driven material properties --------------------------
+    has_map = ma[:, S.MAT_HAS_MAP] > 0.5                        # [N,4]
+    if m.bundled:
+        samples = sample_bundle(
+            m.texture_bundles,
+            ma[:, S.MAT_BUNDLE_OFFSET].to(torch.int32),
+            ma[:, S.MAT_BUNDLE_WIDTH].to(torch.int32),
+            ma[:, S.MAT_BUNDLE_HEIGHT].to(torch.int32),
+            tex_u, tex_v,
+            morton=m.bundled_morton,
+            scrambled=m.bundled_scrambled,
+            pow2_dims=m.bundled_pow2_dims,
+        )
+
+        def prop(kind: int, fallback):
+            return torch.where(has_map[:, kind][:, None], samples[kind], fallback)
+
+    else:
+        map_off = ma[:, S.MAT_MAP_OFFSET].to(torch.int32)
+        map_w = ma[:, S.MAT_MAP_WIDTH].to(torch.int32)
+        map_h = ma[:, S.MAT_MAP_HEIGHT].to(torch.int32)
+
+        def prop(kind: int, fallback):
+            return material_property(
+                m.texture_quads, has_map[:, kind], map_off[:, kind],
+                map_w[:, kind], map_h[:, kind], fallback, tex_u, tex_v,
+            )
+
+    diffuse_albedo = prop(0, ma[:, S.MAT_DIFFUSE])
+
+    nmap_fallback = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=ma.device).expand(n_lanes, 3)
+    nmap = prop(2, nmap_fallback)
+    # Decode 2n-1 and swap the Y/Z channels.
+    decoded = vm.normalize(2.0 * nmap - 1.0)
+    decoded = torch.stack([decoded[..., 0], decoded[..., 2], decoded[..., 1]], dim=-1)
+    nmap = torch.where(has_map[:, 2][:, None], decoded, nmap)
+    # Rotate into the shading frame and blend at a fixed strength.
+    tang, binorm = vm.onb_from_normal(normal)
+    nmap_world = vm.onb_transform(nmap, tang, normal, binorm)
+    s = cfg.normal_map_strength
+    normal = vm.normalize(s * nmap_world + (1.0 - s) * normal)
+
+    specular_albedo = diffuse_albedo
+    emission_color = ma[:, S.MAT_EMISSION]
+
+    roughness = prop(1, ma[:, S.MAT_ROUGHNESS, None].expand(n_lanes, 3))[:, 0]
+    metallicity = prop(3, ma[:, S.MAT_METALLIC, None].expand(n_lanes, 3))[:, 0]
+    transparency = ma[:, S.MAT_TRANSPARENT]
+    mat_ior = ma[:, S.MAT_IOR]
+    ior = torch.where(mat_ior > 0.0, mat_ior, cfg.ior)
+
+    # An emissive hit terminates the path.
+    emissive = vm.length(emission_color) > 0.0001
+
+    if cfg.seed_advance_quirk:
+        seeds, _ = rng.random_in_unit_sphere(seeds)
+
+    roughness = torch.clamp(roughness, cfg.roughness_min, cfg.roughness_max)
+    depth_done = depth <= 0
+
+    # ---- GGX importance sampling ---------------------------------------
+    seeds, r1, r2 = rng.uniform2(seeds)
+    alpha = roughness * roughness
+    half_local = bsdf.ggx_importance_sample(r1, r2, alpha)
+    tang2, binorm2 = vm.onb_from_normal(normal)
+    half_vec = vm.onb_transform(half_local, tang2, normal, binorm2)
+
+    light_dir = vm.reflect(ray_dir, half_vec)
+    seeds, r3, r4 = rng.uniform2(seeds)
+    light_dir_diffuse = vm.onb_transform(
+        rng.cosine_sample_hemisphere(r3, r4), tang2, normal, binorm2
+    )
+
+    # ---- specular BRDF ----------------------------------------------------
+    f0_scalar = ((1.0 - ior) / (1.0 + ior)) ** 2
+    f0 = f0_scalar[:, None].expand_as(diffuse_albedo)
+    f0 = vm.lerp(f0, specular_albedo, metallicity[:, None])
+    ndotv_raw = vm.dot(normal, -ray_dir)
+    f_vec = bsdf.fresnel_schlick(torch.clamp_min(ndotv_raw, 0.0), f0)
+    d_term = bsdf.d_ggx(normal, half_vec, alpha)
+    g_term = bsdf.g_smith(alpha, normal, -ray_dir, light_dir)
+    denom = 4.0 * torch.abs(ndotv_raw) * torch.abs(vm.dot(normal, light_dir))
+    brdf_specular = f_vec * (d_term * g_term / torch.clamp_min(denom, 1e-10))[:, None]
+
+    ndoth = torch.clamp_min(vm.dot(normal, half_vec), 1e-10)
+    vdoth = torch.clamp_min(vm.dot(-ray_dir, half_vec), 1e-10)
+    ndotv = torch.clamp_min(ndotv_raw, 0.0)
+    # The throughput cosine is always taken against the specular direction.
+    idotn = torch.abs(vm.dot(normal, vm.normalize(light_dir)))
+    f_blend = bsdf.fresnel_schlick_scalar(ndotv, ior)
+
+    # ---- lobe selection ----------------------------------------------------
+    spec_prob = metallicity + (1.0 - metallicity) * f_blend
+    spdf = bsdf.ggx_pdf(d_term, ndoth, vdoth)
+    dpdf = 1.0 / math.pi
+    seeds, u_lobe = rng.uniform(seeds)
+    choose_spec = u_lobe < spec_prob
+    dir_surface = torch.where(
+        choose_spec[:, None], vm.normalize(light_dir), vm.normalize(light_dir_diffuse)
+    )
+    # Deterministic two-lobe blend, the same whichever lobe was sampled.
+    brdf_combined = spec_prob[:, None] * (
+        brdf_specular / torch.clamp_min(spdf, 1e-20)[:, None]
+    ) + (1.0 - spec_prob)[:, None] * (diffuse_albedo / dpdf)
+
+    # ---- glass branch -------------------------------------------------------
+    glass = transparency > 0.5
+    cos_theta_i = vm.dot(normal, -ray_dir)
+    inside = cos_theta_i < 0.0
+    cos_i = torch.abs(cos_theta_i)
+    n_glass = torch.where(inside[:, None], -normal, normal)
+    eta_passed = torch.where(inside, 1.0 / ior, ior)
+    reflectance = bsdf.fresnel_schlick_scalar(cos_i, ior)
+    seeds, u_reflect = rng.uniform(seeds)
+    # Reflection reuses the GGX half-vector, i.e. exactly `light_dir`.
+    refr_dir, _ = vm.refract(ray_dir, n_glass, eta_passed)
+    seeds, sphere_pt = rng.random_in_unit_sphere(seeds)
+    # The reference leaves the perturbed refraction unnormalized.
+    refr_perturbed = refr_dir + cfg.glass_roughness_perturb * alpha[:, None] * sphere_pt
+    glass_dir = torch.where((u_reflect < reflectance)[:, None], light_dir, refr_perturbed)
+
+    # ---- combine ------------------------------------------------------------
+    new_direction = torch.where(glass[:, None], glass_dir, dir_surface)
+    brdf_ok = vm.length(brdf_combined) >= 1e-10
+    att_factor = brdf_combined * idotn[:, None]
+    att_ok = brdf_ok & ~glass & ~emissive & ~degenerate
+
+    return dict(
+        new_origin=hit_pos,
+        new_direction=new_direction,
+        att_factor=att_factor,
+        att_ok=att_ok,
+        emission=emission_color,
+        emissive=emissive & ~degenerate,
+        degenerate=degenerate,
+        done=degenerate | emissive | depth_done,
+        seeds=seeds,
+    )
+
+
+# ---------------------------------------------------------------------------
+# One bounce for every lane
+# ---------------------------------------------------------------------------
+
+def _trace_bounce(scene, cfg, origin, direction, attenuation, radiance, seeds, depth):
+    """One path segment for every lane: intersect, then closest-hit shade
+    or miss.  Returns the post-trace payload before Russian roulette."""
+    if cfg.env_importance_sampling:
+        raise NotImplementedError("NEE is not ported yet (ROADMAP, modules to port: NEE)")
+    if cfg.deferred_shade:
+        raise NotImplementedError(
+            "deferred shading is not ported yet (ROADMAP, modules to port: "
+            "AOV/denoise and opt-in shading paths)"
+        )
+    hit = intersect_scene(scene, origin, direction, cfg.t_min, cfg.t_max, cfg)
+
+    # Miss program: radiance += attenuation * env; the path ends.
+    radiance_miss = radiance + attenuation * eval_env(scene.env, direction, cfg)
+
+    sh = _shade(scene, cfg, hit, origin, direction, seeds, depth)
+    hit_m = hit.hit
+    radiance_hit = torch.where(
+        sh["emissive"][:, None], radiance + attenuation * sh["emission"], radiance
+    )
+    hm = hit_m[:, None]
+    return dict(
+        radiance=torch.where(hm, radiance_hit, radiance_miss),
+        attenuation=torch.where(
+            (hit_m & sh["att_ok"])[:, None], attenuation * sh["att_factor"], attenuation
+        ),
+        origin=torch.where(hm, sh["new_origin"], origin),
+        direction=torch.where(hm, sh["new_direction"], direction),
+        done=torch.where(hit_m, sh["done"], True),
+        seeds=torch.where(hit_m, sh["seeds"], seeds),
+        hit=hit_m,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Streaming work-queue schedule
+# ---------------------------------------------------------------------------
+
+def resolve_stream_lanes(cfg: RenderConfig, n_pix: int) -> int:
+    """cfg.stream_lanes, with 0 = auto: the nearest power of two to
+    n_pix/16, clamped to [16384, 131072]."""
+    if cfg.stream_lanes:
+        return cfg.stream_lanes
+    target = max(1, n_pix // 16)
+    lanes = 1 << max(0, target.bit_length() - 1)
+    if target - lanes > 2 * lanes - target:
+        lanes *= 2
+    return min(131072, max(16384, lanes))
+
+
+def render_pixels_stream(scene: Scene, cam: dict, cfg: RenderConfig, subframe, sample_offset: int, spp: int, lanes: int, return_stats: bool = False):
+    """A fixed pool of `lanes` persistent lanes consumes the whole frame.
+
+    A lane traces its pixel's samples one after another; when a pixel's
+    last sample ends, the lane adds the pixel's mean into the image and
+    takes the next pixel off a queue whose head advances by a prefix sum
+    over the lanes that finished, in lane order.  Seeds are the global
+    (pixel, sample, subframe) counters, so the image does not depend on
+    the pool size.
+
+    Retired pixels go into the image every iteration with one
+    `index_add_`; lanes that retire nothing add zeros into a sink row.
+    Each pixel row receives exactly one non-zero add, so the sum is exact
+    in any order, atomics included, and equals the JAX schedule's
+    FIFO-batched scatter bit for bit.
+
+    return_stats=True also returns {"iters", "segments",
+    "shadow_segments"}: iterations run and ray segments traced."""
+    n_pix = cfg.width * cfg.height
+    lanes = min(lanes, n_pix)
+    dev = scene.device
+
+    def make_path(pix, sample_i):
+        seeds0 = rng.make_seeds(pix, sample_offset + sample_i, subframe)
+        return generate_camera_rays(cam, pix % cfg.width, pix // cfg.width, seeds0, cfg)
+
+    slot = torch.arange(lanes, dtype=torch.int32, device=dev)  # n_pix = retired
+    pix = slot.clone()
+    sample_i = torch.zeros(lanes, dtype=torch.int32, device=dev)
+    origin, direction, seeds = make_path(pix, sample_i)
+    attenuation = torch.ones_like(origin)
+    radiance = torch.zeros_like(origin)
+    depth = torch.full((lanes,), cfg.max_depth, dtype=torch.int32, device=dev)
+    lane_accum = torch.zeros_like(origin)
+    out = torch.zeros((n_pix + 1, 3), dtype=torch.float32, device=dev)  # +1 = sink
+    head = torch.tensor(lanes, dtype=torch.int32, device=dev)
+    segments = torch.zeros((), dtype=torch.int64, device=dev)
+    inv_spp = 1.0 / spp
+    max_iters = (n_pix * spp * (cfg.max_depth + 2)) // lanes + cfg.max_depth + 16
+
+    it = 0
+    while it < max_iters:
+        live = slot < n_pix
+        if not bool(live.any()):
+            break
+        tb = _trace_bounce(scene, cfg, origin, direction, attenuation, radiance, seeds, depth)
+        seeds_new, u_rr = rng.uniform(tb["seeds"])
+        att_new = tb["attenuation"]
+        p = att_new.amax(dim=-1)
+        rr_done = tb["done"] | (u_rr > p)
+        newly = live & rr_done
+        adv = live & ~rr_done
+        p_safe = torch.where(p > 0.0, p, 1.0)
+        if cfg.rr_mode == "reference":
+            result = tb["radiance"] / p_safe[:, None]
+        else:
+            # Survival probability is min(p, 1).
+            result = tb["radiance"]
+            p_div = torch.clamp_max(p_safe, 1.0)
+            att_new = torch.where(adv[:, None], att_new / p_div[:, None], att_new)
+
+        lane_accum = lane_accum + torch.where(newly[:, None], result, 0.0)
+        sample_i = sample_i + newly.to(torch.int32)
+        pixel_done = newly & (sample_i >= spp)
+
+        # -- retire finished pixels straight into the image ----------------
+        retire_row = torch.where(pixel_done, slot, n_pix).long()
+        retire_rgb = torch.where(pixel_done[:, None], lane_accum * inv_spp, 0.0)
+        out.index_add_(0, retire_row, retire_rgb)
+
+        # -- work queue: pull the next pixel via a prefix sum --------------
+        inc = torch.cumsum(pixel_done.to(torch.int32), dim=0, dtype=torch.int32)
+        slot = torch.where(pixel_done, head + inc - 1, slot)
+        head = head + inc[-1]
+        live_next = slot < n_pix
+        pix = torch.where(pixel_done, slot, pix)
+        sample_i = torch.where(pixel_done, 0, sample_i)
+        lane_accum = torch.where(pixel_done[:, None], 0.0, lane_accum)
+
+        # -- respawn: next sample of the same or a freshly pulled pixel ----
+        regen = newly & live_next
+        o_r, d_r, s_r = make_path(pix, torch.clamp_max(sample_i, spp - 1))
+        rg = regen[:, None]
+        av = adv[:, None]
+        origin = torch.where(rg, o_r, torch.where(av, tb["origin"], origin))
+        direction = torch.where(rg, d_r, torch.where(av, tb["direction"], direction))
+        seeds = torch.where(regen, s_r, torch.where(live, seeds_new, seeds))
+        attenuation = torch.where(rg, 1.0, torch.where(av, att_new, attenuation))
+        radiance = torch.where(rg, 0.0, torch.where(av, tb["radiance"], radiance))
+        depth = torch.where(regen, cfg.max_depth, torch.where(adv, depth - 1, depth))
+        segments = segments + live.sum()
+        it += 1
+
+    img = out[:n_pix]
+    if return_stats:
+        return img, dict(iters=it, segments=segments, shadow_segments=torch.zeros_like(segments))
+    return img
+
+
+# ---------------------------------------------------------------------------
+# Frame rendering
+# ---------------------------------------------------------------------------
+
+def render_pixels(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids=None, subframe=0, sample_offset: int = 0, spp: int | None = None, return_stats: bool = False):
+    """Render one launch of `spp` samples for every pixel of the frame;
+    returns the sample-averaged radiance [W*H,3] (and stats)."""
+    if spp is None:
+        spp = cfg.samples_per_launch
+    if pixel_ids is not None:
+        raise NotImplementedError(
+            "pixel subsets are not ported yet (ROADMAP, modules to port: sharding)"
+        )
+    n_pix = cfg.width * cfg.height
+    if not (cfg.regenerate and spp > 1):
+        raise NotImplementedError(
+            "the one-lane-per-sample schedule (render_rays) is not ported yet "
+            "(ROADMAP, modules to port: render_pixels_regen/render_rays)"
+        )
+    lanes = resolve_stream_lanes(cfg, n_pix)
+    if n_pix <= lanes:
+        raise NotImplementedError(
+            "frames no larger than the lane pool take render_pixels_regen, not "
+            "ported yet (ROADMAP, modules to port: render_pixels_regen/render_rays)"
+        )
+    return render_pixels_stream(
+        scene, cam, cfg, subframe, sample_offset, spp, lanes, return_stats=return_stats
+    )
+
+
+def _check_untiled(cfg: RenderConfig):
+    if cfg.tile_pixels and cfg.tile_pixels < cfg.width * cfg.height:
+        raise NotImplementedError(
+            "tile_pixels is not ported yet (ROADMAP, modules to port: "
+            "render_pixels_regen/render_rays)"
+        )
+
+
+def render_frame(scene: Scene, cam: dict, cfg: RenderConfig, subframe) -> torch.Tensor:
+    """One full launch: radiance image [H,W,3] (row 0 is the bottom)."""
+    _check_untiled(cfg)
+    return render_pixels(scene, cam, cfg, None, subframe).reshape(cfg.height, cfg.width, 3)
+
+
+def render_frame_stats(scene: Scene, cam: dict, cfg: RenderConfig, subframe):
+    """render_frame plus the schedule's own accounting: returns
+    (image [H,W,3], {"iters", "segments", "shadow_segments"})."""
+    _check_untiled(cfg)
+    img, stats = render_pixels(scene, cam, cfg, None, subframe, return_stats=True)
+    return img.reshape(cfg.height, cfg.width, 3), stats
