@@ -1,6 +1,7 @@
-"""The port on an NVIDIA GPU: the packet-traversal CUDA kernel against its
-plain PyTorch version, and a small render on the card against the same
-render on the CPU.  Every test needs a card and skips without one; this
+"""The port on an NVIDIA GPU: the packet-traversal CUDA kernels (flat,
+two-level, streamed; Baldwin-Weber and Moller-Trumbore) against their
+plain PyTorch versions, and small renders on the card against the same
+renders on the CPU.  Every test needs a card and skips without one; this
 file imports no JAX, so it runs where only the port is installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -59,6 +60,45 @@ def test_kernel_matches_plain(cuda, rays_per_tile):
     assert (pk != ic.MISS_PRIM).sum() > 10_000
 
 
+def test_kernel_mt_matches_plain(cuda):
+    """The flat kernel's Moller-Trumbore arm, bit-equal."""
+    acc = build_accel(procedural.three_spheres_scene(12, 24, device=cuda)).accel
+    o, d = (x.to(cuda) for x in rays(0, 70_000, parked=1000))
+    args = (acc.tris16, acc.aabb8, acc.order, o, d, 0.01, 1e16, 1024, "mt")
+    tk, pk, uvk = ic.intersect_clusters(*args)
+    tp, pp, uvp = ic.intersect_clusters_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pp) and torch.equal(tk, tp) and torch.equal(uvk, uvp)
+    assert (pk != ic.MISS_PRIM).sum() > 10_000
+
+
+@pytest.mark.parametrize("rays_per_tile", [512, 256, 32])
+@pytest.mark.parametrize("tri_test", ["bw", "mt"])
+@pytest.mark.parametrize("route", ["hier", "streamed"])
+def test_two_level_kernel_matches_plain(cuda, route, tri_test, rays_per_tile):
+    """Kernels 2 and 3 on three spheres in clusters of 8 (217 clusters):
+    bit-equal t, prim and uv, parked rays included; one launch counted
+    per call."""
+    acc = build_accel(procedural.three_spheres_scene(12, 24, device=cuda), cluster_size=8).accel
+    o, d = (x.to(cuda) for x in rays(1, 70_000, parked=1000))
+    tris = acc.tris16bw if tri_test == "bw" else acc.tris16
+    if route == "hier":
+        wrapper, plain = ic.intersect_clusters_hier, ic.intersect_clusters_hier_plain
+        args = (tris, acc.aabb8_child, acc.aabb8_super, acc.order_super, o, d, 0.01, 1e16,
+                rays_per_tile, acc.super_branch, tri_test)
+    else:
+        wrapper, plain = ic.intersect_clusters_streamed, ic.intersect_clusters_streamed_plain
+        args = (tris, *ic.streamed_pads(acc.aabb8), o, d, 0.01, 1e16, rays_per_tile, 16, tri_test)
+    before = wrapper.launches
+    tk, pk, uvk = wrapper(*args)
+    tp, pp, uvp = plain(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert torch.equal(pk, pp) and torch.equal(tk, tp) and torch.equal(uvk, uvp)
+    assert (pk != ic.MISS_PRIM).sum() > 10_000
+    assert (pk[-1000:] == ic.MISS_PRIM).all()
+
+
 def test_render_matches_cpu(cuda):
     """A 64x48 render through the kernel against the plain versions on
     the CPU: segment counts within 0.5%, SSIM above 0.995."""
@@ -67,6 +107,21 @@ def test_render_matches_cpu(cuda):
     out = {}
     for dev in (cuda, torch.device("cpu")):
         scene = build_accel(procedural.three_spheres_scene(8, 16, device=dev))
+        img, stats = render_frame_stats(scene, camera_arrays(Camera(), cfg, dev), cfg, 0)
+        out[dev.type] = (post_process(img, cfg).cpu().numpy(), int(stats["segments"]))
+    (gpu, seg_gpu), (cpu, seg_cpu) = out["cuda"], out["cpu"]
+    assert abs(seg_gpu - seg_cpu) <= 0.005 * seg_cpu
+    assert ssim(gpu, cpu) > 0.995
+
+
+def test_render_hier_matches_cpu(cuda):
+    """The same on the two-level route (97 clusters of 8)."""
+    cfg = RenderConfig(width=64, height=48, samples_per_launch=4, max_depth=6, dof=False,
+                       stream_lanes=512, intersector="cluster", env_mode="sunsky")
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        scene = build_accel(procedural.three_spheres_scene(8, 16, device=dev), cluster_size=8)
+        assert scene.accel.route(cfg) == "hier"
         img, stats = render_frame_stats(scene, camera_arrays(Camera(), cfg, dev), cfg, 0)
         out[dev.type] = (post_process(img, cfg).cpu().numpy(), int(stats["segments"]))
     (gpu, seg_gpu), (cpu, seg_cpu) = out["cuda"], out["cpu"]

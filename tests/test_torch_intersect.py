@@ -1,8 +1,9 @@
 """The PyTorch port's intersectors against the JAX package: the coherence
-sort key and permutation, the cluster packet traversal (plain version vs
-the Pallas kernel in interpret mode), ClusterAccel.intersect and brute
-force.  The CUDA kernel is compared with its plain version on the card by
-tests/test_torch_cuda.py."""
+sort key and permutation, the flat, two-level and streamed packet
+traversals (plain versions vs the Pallas kernels in interpret mode, with
+both triangle tests), ClusterAccel.intersect on each route and brute
+force.  The CUDA kernels are compared with their plain versions on the
+card by tests/test_torch_cuda.py."""
 
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ from tpu_pathtracer.ops import intersect as j_isect  # noqa: E402
 from tpu_pathtracer.ops import intersect_pallas as j_pallas  # noqa: E402
 from tpu_pathtracer.scene import procedural as j_proc  # noqa: E402
 
+from tpu_pathtracer_torch.accel import cluster as cluster_mod  # noqa: E402
 from tpu_pathtracer_torch.accel.build import build_accel  # noqa: E402
 from tpu_pathtracer_torch.config import RenderConfig  # noqa: E402
 from tpu_pathtracer_torch.ops import intersect as isect  # noqa: E402
@@ -28,6 +30,7 @@ from tpu_pathtracer_torch.scene import procedural  # noqa: E402
 
 T_MIN, T_MAX = 0.01, 1e16
 RPT = 1024  # the JAX accel's rays per packet on flat-kernel scenes
+RPT_HIER = 512  # ... and from cfg.hier_min_clusters clusters up
 
 
 def assert_close_fma(got, want, rtol=0.0, atol=0.0, loose=30.0, share=0.995):
@@ -53,6 +56,17 @@ def scenes():
     clusters of 128."""
     j = j_build_accel(j_proc.three_spheres_scene(12, 24), kind="cluster")
     t = build_accel(procedural.three_spheres_scene(12, 24))
+    return j, t
+
+
+@pytest.fixture(scope="module")
+def many():
+    """(JAX scene, port scene): three spheres (8, 16), 770 triangles in 97
+    clusters of 8, which takes the two-level route; 13 supers of 8, the
+    last with one real child and seven padding children."""
+    j = j_build_accel(j_proc.three_spheres_scene(8, 16), kind="cluster", cluster_size=8)
+    t = build_accel(procedural.three_spheres_scene(8, 16), cluster_size=8)
+    assert t.accel.num_clusters == 97
     return j, t
 
 
@@ -200,20 +214,6 @@ def test_intersect_scene_auto_routes(scenes):
         isect.intersect_scene(t.replace(accel=None), o, d, T_MIN, T_MAX, RenderConfig(intersector="cluster"))
 
 
-@pytest.mark.parametrize(
-    "cfg,what",
-    [
-        (dict(tri_test="mt"), "tri_test"),
-        (dict(hier_min_clusters=8), "two-level"),
-    ],
-)
-def test_unported_kernel_routes_raise(scenes, cfg, what):
-    _, t = scenes
-    o, d = random_rays(7, 64)
-    with pytest.raises(NotImplementedError, match=what):
-        t.accel.intersect(t.vertices, torch.as_tensor(o), torch.as_tensor(d), T_MIN, T_MAX, RenderConfig(**cfg))
-
-
 def test_cuda_wrapper_refuses_cpu_tensors(scenes):
     """The kernel's entry never falls back to the plain version: CPU
     tensors are refused before anything is built."""
@@ -225,3 +225,250 @@ def test_cuda_wrapper_refuses_cpu_tensors(scenes):
             acc.tris16bw, acc.aabb8, acc.order, torch.as_tensor(o),
             torch.as_tensor(d), T_MIN, T_MAX, RPT,
         )
+
+
+# ---------------------------------------------------------------------------
+# Moller-Trumbore arm, two-level and streamed traversal
+# ---------------------------------------------------------------------------
+
+RAYS = pytest.mark.parametrize("n,parked", [(4096, 0), (3000, 500)], ids=["random", "parked_padded"])
+TRI = pytest.mark.parametrize("tri_test", ["bw", "mt"])
+
+
+def rows(acc, tri_test):
+    return acc.tris16bw if tri_test == "bw" else acc.tris16
+
+
+def assert_hits_match(got, want, n, parked):
+    """The port's (t, prim, uv) against the JAX kernel's: prim exact, t and
+    uv as assert_close_fma; enough hits, and parked rays never hit."""
+    bt_t, bp_t, buv_t = (x.numpy() for x in got)
+    bt_j, bp_j, buv_j = (np.asarray(x) for x in want)
+    np.testing.assert_array_equal(bp_t, bp_j)
+    assert_close_fma(bt_t, bt_j, rtol=1e-6)
+    assert_close_fma(buv_t, buv_j, atol=1e-5, loose=10.0)
+    hit = bp_j != ic.MISS_PRIM
+    assert 0.2 * n < hit.sum() < n - parked
+    if parked:
+        assert (bp_t[-parked:] == ic.MISS_PRIM).all()
+
+
+@RAYS
+def test_plain_cluster_intersect_mt_matches_pallas(scenes, n, parked):
+    """The flat traversal with tri_test="mt" against the Pallas kernel's
+    Moller-Trumbore arm."""
+    j, t = scenes
+    o, d = random_rays(2, n, parked)
+    want = j_pallas.intersect_clusters_pallas(
+        j.accel.tris16, j.accel.aabb8, j.accel.order, jnp.asarray(o), jnp.asarray(d),
+        T_MIN, T_MAX, rays_per_tile=RPT, interpret=True, tri_test="mt",
+    )
+    got = ic.intersect_clusters(
+        t.accel.tris16, t.accel.aabb8, t.accel.order, torch.as_tensor(o), torch.as_tensor(d),
+        T_MIN, T_MAX, RPT, "mt",
+    )
+    assert_hits_match(got, want, n, parked)
+
+
+@RAYS
+@TRI
+def test_plain_hier_matches_pallas(many, n, parked, tri_test):
+    """The two-level plain version against intersect_clusters_pallas_hier
+    at the JAX accel's packet size and branch."""
+    j, t = many
+    ja, ta = j.accel, t.accel
+    o, d = random_rays(10, n, parked)
+    want = j_pallas.intersect_clusters_pallas_hier(
+        rows(ja, tri_test), ja.aabb8_child, ja.aabb8_super, ja.order_super,
+        jnp.asarray(o), jnp.asarray(d), T_MIN, T_MAX, rays_per_tile=RPT_HIER,
+        branch=ja.super_branch, interpret=True, tri_test=tri_test,
+    )
+    got = ic.intersect_clusters_hier(
+        rows(ta, tri_test), ta.aabb8_child, ta.aabb8_super, ta.order_super,
+        torch.as_tensor(o), torch.as_tensor(d), T_MIN, T_MAX, RPT_HIER, ta.super_branch, tri_test,
+    )
+    assert_hits_match(got, want, n, parked)
+
+
+STREAMED_PADS = pytest.mark.parametrize(
+    "block_clusters,branch", [(96, 16), (4, 2)], ids=["path_branch16", "jax_test_branch2"]
+)
+
+
+@STREAMED_PADS
+@TRI
+def test_plain_streamed_matches_pallas(many, block_clusters, branch, tri_test):
+    """The streamed plain version, over the port's streamed_pads, against
+    intersect_clusters_pallas_streamed: at the render path's branch 16 and
+    at the JAX kernel test's block_clusters=4, branch=2."""
+    j, t = many
+    ja, ta = j.accel, t.accel
+    n, parked = 3000, 500
+    o, d = random_rays(11, n, parked)
+    want = j_pallas.intersect_clusters_pallas_streamed(
+        rows(ja, tri_test), ja.aabb8, jnp.asarray(o), jnp.asarray(d), T_MIN, T_MAX,
+        rays_per_tile=RPT_HIER, block_clusters=block_clusters, branch=branch,
+        interpret=True, tri_test=tri_test,
+    )
+    child, supers = ic.streamed_pads(ta.aabb8, block_clusters, branch)
+    got = ic.intersect_clusters_streamed(
+        rows(ta, tri_test), child, supers, torch.as_tensor(o), torch.as_tensor(d),
+        T_MIN, T_MAX, RPT_HIER, branch, tri_test,
+    )
+    assert_hits_match(got, want, n, parked)
+
+
+@pytest.mark.parametrize("block_clusters,branch", [(96, 16), (4, 2), (40, 8), (8, 8)])
+def test_streamed_pads_match_jax(many, block_clusters, branch):
+    j, t = many
+    _, aabbs, supers, _, _ = j_pallas._streamed_pads(j.accel.tris16bw, j.accel.aabb8, block_clusters, branch)
+    child, sup = ic.streamed_pads(t.accel.aabb8, block_clusters, branch)
+    np.testing.assert_array_equal(child.numpy(), np.asarray(aabbs))
+    np.testing.assert_array_equal(sup.numpy(), np.asarray(supers))
+
+
+def test_streamed_independent_of_block_clusters(many):
+    """block_clusters sets only how far the cluster range is padded, and
+    padding children are never tested: the results are the same bits."""
+    _, t = many
+    ta = t.accel
+    o, d = (torch.as_tensor(x) for x in random_rays(12, 2000, 100))
+    outs = [
+        ic.intersect_clusters_streamed(ta.tris16bw, *ic.streamed_pads(ta.aabb8, bc, 8), o, d,
+                                       T_MIN, T_MAX, RPT_HIER, 8)
+        for bc in (8, 40, 96)
+    ]
+    assert len({ic.streamed_pads(ta.aabb8, bc, 8)[0].shape[0] for bc in (8, 40, 96)}) == 3
+    for other in outs[1:]:
+        for x, y in zip(outs[0], other):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("route", ["hier", "streamed"])
+def test_plain_two_level_matches_brute(many, route):
+    """At a small packet size only exact ties in t could differ: the
+    closest hit equals brute force."""
+    _, t = many
+    ta = t.accel
+    o, d = (torch.as_tensor(x) for x in random_rays(13, 2000))
+    if route == "hier":
+        bt, bp, buv = ic.intersect_clusters_hier(
+            ta.tris16bw, ta.aabb8_child, ta.aabb8_super, ta.order_super, o, d, T_MIN, T_MAX, 32, 8)
+    else:
+        bt, bp, buv = ic.intersect_clusters_streamed(
+            ta.tris16bw, *ic.streamed_pads(ta.aabb8), o, d, T_MIN, T_MAX, 32, 16)
+    h = isect.intersect_brute(t.vertices, o, d, T_MIN, T_MAX)
+    prim = torch.where(bp == ic.MISS_PRIM, -1, bp)
+    np.testing.assert_array_equal(prim.numpy(), h.prim.numpy())
+    hit = prim >= 0
+    assert hit.sum() > 400
+    np.testing.assert_allclose(bt[hit].numpy(), h.t[hit].numpy(), rtol=1e-4)
+    np.testing.assert_allclose(buv[hit].numpy(), h.bary[hit].numpy(), rtol=1e-3, atol=1e-4)
+
+
+def port_hit_matches_jax(ht, hj):
+    np.testing.assert_array_equal(ht.prim.numpy(), np.asarray(hj.prim))
+    np.testing.assert_array_equal(ht.hit.numpy(), np.asarray(hj.hit))
+    assert_close_fma(ht.t.numpy(), np.asarray(hj.t), rtol=1e-6)
+    assert_close_fma(ht.bary.numpy(), np.asarray(hj.bary), atol=1e-5, loose=10.0)
+
+
+@pytest.mark.parametrize(
+    "sort_rays,tri_test", [("auto", "auto"), ("off", "auto"), ("octant", "bw"), ("auto", "mt")]
+)
+def test_cluster_accel_intersect_hier_matches_jax(many, monkeypatch, sort_rays, tri_test):
+    """ClusterAccel.intersect on the two-level route, sort and restore
+    included, against the JAX accel through the Pallas kernel in
+    interpret mode."""
+    monkeypatch.setenv("TPU_PT_PALLAS_INTERPRET", "1")
+    j, t = many
+    cfg = RenderConfig(sort_rays=sort_rays, tri_test=tri_test, intersector="cluster")
+    assert t.accel.route(cfg) == "hier"
+    o, d = random_rays(14, 3000, parked=100)
+    hj = j.accel.intersect(
+        j.vertices, jnp.asarray(o), jnp.asarray(d), T_MIN, T_MAX,
+        JConfig(sort_rays=sort_rays, tri_test=tri_test, intersector="cluster"),
+    )
+    ht = t.accel.intersect(t.vertices, torch.as_tensor(o), torch.as_tensor(d), T_MIN, T_MAX, cfg)
+    port_hit_matches_jax(ht, hj)
+
+
+@pytest.mark.parametrize("which,tri_test", [("scenes", "auto"), ("many", "auto"), ("many", "mt")])
+def test_cluster_accel_intersect_streamed_matches_jax(request, monkeypatch, which, tri_test):
+    """ClusterAccel.intersect on the streamed route (the port's 6 MB line
+    patched low) against the JAX accel's streamed branch composed by hand,
+    since its line is fixed: octant_sort, intersect_clusters_pallas_streamed
+    at twice the super branch, restore."""
+    j, t = request.getfixturevalue(which)
+    ja = j.accel
+    monkeypatch.setattr(cluster_mod, "_FLAT_MAX_BYTES", 1024)
+    cfg = RenderConfig(tri_test=tri_test, intersector="cluster")
+    jcfg = JConfig(tri_test=tri_test, intersector="cluster")
+    assert t.accel.route(cfg) == "streamed"
+    o, d = random_rays(15, 3000, parked=100)
+    o_s, d_s, back = j_pallas.octant_sort(
+        jnp.asarray(o), jnp.asarray(d), ja.scene_lo, ja.scene_hi,
+        spatial_bits=7 if ja.num_clusters < 256 else 5, dir_bits=ja._dir_bits(jcfg),
+    )
+    name, tris = ja._tri(jcfg)
+    bt, bp, buv = j_pallas.intersect_clusters_pallas_streamed(
+        tris, ja.aabb8, o_s, d_s, T_MIN, T_MAX, rays_per_tile=ja._rpt(jcfg),
+        branch=2 * ja.super_branch, interpret=True, tri_test=name,
+    )
+    bt, bp, buv = np.asarray(back(bt)), np.asarray(back(bp)), np.asarray(back(buv))
+    hit = bp != ic.MISS_PRIM
+    want = isect.Hit(t=bt, prim=np.where(hit, bp, -1), bary=np.where(hit[:, None], buv, 0.0), hit=hit)
+    ht = t.accel.intersect(t.vertices, torch.as_tensor(o), torch.as_tensor(d), T_MIN, T_MAX, cfg)
+    port_hit_matches_jax(ht, want)
+
+
+@pytest.mark.parametrize(
+    "which,kw,small_line,want",
+    [
+        ("scenes", {}, False, ("flat", 1024, None, "bw")),
+        ("scenes", dict(hier_min_clusters=8, tri_test="mt"), False, ("hier", 512, 8, "mt")),
+        ("many", {}, False, ("hier", 512, 8, "bw")),
+        ("many", {}, True, ("streamed", 512, 16, "bw")),
+        ("scenes", dict(tri_test="mt"), True, ("streamed", 1024, 16, "mt")),
+    ],
+    ids=["flat", "hier_by_threshold", "hier", "streamed_many", "streamed_flat_sized"],
+)
+def test_cluster_accel_dispatch(request, monkeypatch, which, kw, small_line, want):
+    """Which kernel ClusterAccel.intersect takes, with which packet size,
+    super branch and triangle rows, as the JAX accel decides."""
+    _, t = request.getfixturevalue(which)
+    if small_line:
+        monkeypatch.setattr(cluster_mod, "_FLAT_MAX_BYTES", 1024)
+    calls = []
+
+    def spy(route, n_lead):
+        def call(*args):
+            tris, rest = args[0], args[n_lead:]
+            branch = rest[5] if route != "flat" else None
+            calls.append((route, rest[4], branch, rest[-1]))
+            assert tris is (t.accel.tris16 if rest[-1] == "mt" else t.accel.tris16bw)
+            n = rest[0].shape[0]
+            return (torch.zeros(n), torch.full((n,), ic.MISS_PRIM, dtype=torch.int32), torch.zeros(n, 2))
+        return call
+
+    monkeypatch.setattr(cluster_mod, "intersect_clusters", spy("flat", 3))
+    monkeypatch.setattr(cluster_mod, "intersect_clusters_hier", spy("hier", 4))
+    monkeypatch.setattr(cluster_mod, "intersect_clusters_streamed", spy("streamed", 3))
+    o, d = random_rays(16, 64)
+    h = t.accel.intersect(t.vertices, torch.as_tensor(o), torch.as_tensor(d), T_MIN, T_MAX, RenderConfig(**kw))
+    assert calls == [want]
+    assert not h.hit.any()
+
+
+@pytest.mark.parametrize("route", ["hier", "streamed"])
+def test_two_level_cuda_wrappers_refuse_cpu_tensors(many, route):
+    _, t = many
+    ta = t.accel
+    o, d = (torch.as_tensor(x) for x in random_rays(17, 32))
+    with pytest.raises(ValueError, match="CUDA"):
+        if route == "hier":
+            ic.intersect_clusters_hier_cuda(ta.tris16bw, ta.aabb8_child, ta.aabb8_super, ta.order_super,
+                                            o, d, T_MIN, T_MAX, RPT_HIER, 8)
+        else:
+            ic.intersect_clusters_streamed_cuda(ta.tris16bw, *ic.streamed_pads(ta.aabb8), o, d,
+                                                T_MIN, T_MAX, RPT_HIER, 16)

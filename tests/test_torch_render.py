@@ -106,6 +106,49 @@ def test_to_uint8_and_accumulate_match_jax(renders):
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
 
 
+@pytest.fixture(scope="module")
+def hier_renders():
+    """The `renders` frame on the two-level route: three spheres (8, 16)
+    in clusters of 8 give 97 clusters, at or above hier_min_clusters.
+    (port image, port stats, JAX image, JAX stats) for subframe 1."""
+    hdr = procedural_hdr(32, 64)
+    j = j_build_accel(j_proc.three_spheres_scene(8, 16).replace(env=j_scene.make_env(hdr)),
+                      kind="cluster", cluster_size=8)
+    t = build_accel(procedural.three_spheres_scene(8, 16).replace(env=scene.make_env(hdr)), cluster_size=8)
+    jcfg, tcfg = JConfig(**CFG), RenderConfig(**CFG)
+    assert t.accel.num_clusters == 97 and t.accel.route(tcfg) == "hier"
+    mp = pytest.MonkeyPatch()
+    mp.setenv("TPU_PT_PALLAS_INTERPRET", "1")
+    try:
+        jax.clear_caches()
+        jimg, jstats = j_integ.render_frame_stats(
+            j, j_integ.camera_arrays(JCamera(**EYE), jcfg), jcfg, jnp.int32(1)
+        )
+        jimg = np.asarray(jimg)
+        jstats = {k: int(v) for k, v in jstats.items()}
+    finally:
+        mp.undo()
+        jax.clear_caches()
+    timg, tstats = integrator.render_frame_stats(t, camera_arrays(Camera(**EYE), tcfg, "cpu"), tcfg, 1)
+    return timg.numpy(), tstats, jimg, jstats
+
+
+def test_render_frame_hier_matches_jax(hier_renders):
+    """The render_frame_matches_jax rule on the two-level route."""
+    timg, _, jimg, _ = hier_renders
+    close = np.isclose(timg, jimg, rtol=1e-3, atol=1e-4)
+    assert close.mean() >= 0.99, f"only {close.mean():.4%} of values agree"
+    np.testing.assert_allclose(timg.mean(axis=(0, 1)), jimg.mean(axis=(0, 1)), rtol=0.01)
+    assert np.isfinite(timg).all() and timg.max() > 0
+
+
+def test_render_segments_hier_match_jax(hier_renders):
+    _, tstats, _, jstats = hier_renders
+    seg_t, seg_j = int(tstats["segments"]), jstats["segments"]
+    assert abs(seg_t - seg_j) <= 0.005 * seg_j
+    assert tstats["iters"] > 1
+
+
 def test_render_dof_standard_rr_matches_jax(monkeypatch):
     """Thin-lens camera (its discarded local chain and double sqrt),
     textbook Russian roulette and the sun+sky environment, at 32x24."""

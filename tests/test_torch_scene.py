@@ -29,7 +29,8 @@ LEAF_FIELDS = {
     "materials": ("attrs", "texture_quads", "texture_bundles", "bundled",
                   "bundled_morton", "bundled_scrambled", "bundled_pow2_dims"),
     "env": ("data", "quads", "quads_scrambled"),
-    "accel": ("tris16bw", "aabb8", "order", "scene_lo", "scene_hi", "cluster_size"),
+    "accel": ("tris16bw", "aabb8", "order", "scene_lo", "scene_hi", "aabb8_child",
+              "aabb8_super", "order_super", "tris16", "cluster_size", "super_branch"),
 }
 
 
@@ -128,6 +129,26 @@ def test_material_table_matches_jax(dims):
         assert getattr(got, flag) == getattr(want, flag), flag
 
 
+@pytest.mark.parametrize(
+    "make,cluster_size",
+    [
+        (lambda m: m.three_spheres_scene(8, 16), 8),
+        (lambda m: m.high_poly_scene(total_tris=13_000), 128),
+    ],
+    ids=["three_spheres_97_clusters", "high_poly_98_clusters"],
+)
+def test_two_level_accel_matches_jax(make, cluster_size):
+    """Scenes on the two-level route: the supercluster arrays (child boxes
+    with far point padding, super boxes from real children only, super
+    visit orders) and the Moller-Trumbore rows, bit for bit."""
+    want = j_build_accel(make(j_proc), kind="cluster", cluster_size=cluster_size)
+    got = build_accel(make(procedural), kind="cluster", cluster_size=cluster_size)
+    acc = got.accel
+    assert acc.num_clusters >= RenderConfig().hier_min_clusters
+    assert acc.num_clusters % acc.super_branch != 0  # a part-padded last super
+    assert_leaves_equal(got, jax_scene_leaves(want))
+
+
 def test_bridge_round_trip():
     want = j_build_accel(
         j_proc.three_spheres_scene(6, 12).replace(env=j_scene.make_env(j_hdr(16, 32))),
@@ -139,6 +160,26 @@ def test_bridge_round_trip():
     assert carried.accel.num_clusters == want.accel.num_clusters
     assert carried.tri_attrs.dtype == torch.float32
     assert carried.materials.texture_quads.dtype == torch.int64
+
+
+def test_bridge_two_level_scene_intersects():
+    """A JAX scene on the two-level route carried across: its arrays are
+    the port's own, and its accel gives the port-built accel's hits."""
+    want = j_build_accel(j_proc.three_spheres_scene(8, 16), kind="cluster", cluster_size=8)
+    leaves = jax_scene_leaves(want)
+    carried = scene_from_numpy(leaves, "cpu")
+    assert_leaves_equal(carried, leaves)
+    assert carried.accel.super_branch == want.accel.super_branch == 8
+    cfg = RenderConfig()
+    assert carried.accel.route(cfg) == "hier"
+    built = build_accel(procedural.three_spheres_scene(8, 16), cluster_size=8)
+    rs = np.random.RandomState(3)
+    o = torch.as_tensor((rs.randn(1000, 3) * 3).astype(np.float32))
+    d = torch.as_tensor(rs.randn(1000, 3).astype(np.float32))
+    a = carried.accel.intersect(carried.vertices, o, d, 0.01, 1e16, cfg)
+    b = built.accel.intersect(built.vertices, o, d, 0.01, 1e16, cfg)
+    assert torch.equal(a.prim, b.prim) and torch.equal(a.t, b.t) and torch.equal(a.bary, b.bary)
+    assert a.hit.sum() > 100
 
 
 def test_bridge_without_accel():

@@ -1,10 +1,12 @@
 """Cluster accel: Morton-ordered triangle clusters with per-octant visit
-orders, traversed by the packet kernel (`ops.intersect_cluster`).
+orders and a supercluster level, traversed by the packet kernels
+(`ops.intersect_cluster`).
 
-Counterpart of `tpu_pathtracer/accel/cluster.py` (flat-kernel branch of
+Counterpart of `tpu_pathtracer/accel/cluster.py` (the Pallas branches of
 `ClusterAccel.intersect`, `build_cluster_accel`) and of
-`pack_cluster_tris_bw` / `octant_orders` in `ops/intersect_pallas.py`.
-The build runs in numpy and gives the JAX package's arrays bit for bit.
+`pack_cluster_tris`, `pack_cluster_tris_bw` and `octant_orders` in
+`ops/intersect_pallas.py`.  The build runs in numpy and gives the JAX
+package's arrays bit for bit.
 """
 
 from __future__ import annotations
@@ -18,25 +20,37 @@ from tpu_pathtracer_torch.ops.intersect import Hit
 from tpu_pathtracer_torch.ops.intersect_cluster import (
     MISS_PRIM,
     intersect_clusters,
+    intersect_clusters_hier,
+    intersect_clusters_streamed,
     octant_sort,
     restore,
+    streamed_pads,
 )
 
-# Cluster rows above this many bytes go to the streamed kernel, at or
-# above cfg.hier_min_clusters to the two-level kernel (both not ported).
+# Scenes with more rows than this take the streamed kernel; at or below
+# it, the two-level kernel from cfg.hier_min_clusters clusters up and the
+# flat kernel under that.
 _FLAT_MAX_BYTES = 6 * 1024 * 1024
-# Rays per packet: the JAX accel's choice for flat-kernel scenes.
-RAYS_PER_PACKET = 1024
 
 
 @dataclasses.dataclass
 class ClusterAccel:
-    tris16bw: torch.Tensor   # [C,K,16] f32 Baldwin-Weber rows
-    aabb8: torch.Tensor      # [C,8] f32: min xyz, max xyz, pad, pad
-    order: torch.Tensor      # [8,C] i32 front-to-back order per octant
-    scene_lo: torch.Tensor   # [3] f32
-    scene_hi: torch.Tensor   # [3] f32
+    tris16bw: torch.Tensor      # [C,K,16] f32 Baldwin-Weber rows
+    aabb8: torch.Tensor         # [C,8] f32: min xyz, max xyz, pad, pad
+    order: torch.Tensor         # [8,C] i32 front-to-back order per octant
+    scene_lo: torch.Tensor      # [3] f32
+    scene_hi: torch.Tensor      # [3] f32
+    # Supercluster level: groups of `super_branch` Morton-consecutive
+    # clusters with their own boxes and visit orders; child boxes padded to
+    # S*branch rows with far point boxes.
+    aabb8_child: torch.Tensor   # [S*B,8] f32
+    aabb8_super: torch.Tensor   # [S,8] f32
+    order_super: torch.Tensor   # [8,S] i32
+    tris16: torch.Tensor        # [C,K,16] f32 Moller-Trumbore rows (v0, e1, e2)
     cluster_size: int = 128
+    super_branch: int = 8
+    # streamed_pads per branch, made at the first streamed call.
+    _pads: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @property
     def num_clusters(self) -> int:
@@ -60,37 +74,66 @@ class ClusterAccel:
             return cfg.sort_spatial_bits
         return 7 if self.num_clusters < 256 else 5
 
+    def _rpt(self, cfg) -> int:
+        """Rays per packet: 512 from the two-level threshold up, else 1024."""
+        return 512 if self.num_clusters >= cfg.hier_min_clusters else 1024
+
+    def _tri(self, cfg):
+        """cfg.tri_test resolved to (name, rows); "auto" is Baldwin-Weber."""
+        mode = "bw" if cfg.tri_test == "auto" else cfg.tri_test
+        return mode, (self.tris16bw if mode == "bw" else self.tris16)
+
+    def route(self, cfg) -> str:
+        """The kernel this scene takes: "flat", "hier" or "streamed"."""
+        if self.tris16bw.numel() * 4 > _FLAT_MAX_BYTES:
+            return "streamed"
+        return "hier" if self.num_clusters >= cfg.hier_min_clusters else "flat"
+
+    def streamed_pads(self, branch: int):
+        if branch not in self._pads:
+            self._pads[branch] = streamed_pads(self.aabb8, branch=branch)
+        return self._pads[branch]
+
+    def sort(self, origins, directions, cfg):
+        """The coherence sort cfg.sort_rays asks for: (origins, directions,
+        perm), with perm None when the rays stay in caller order."""
+        mode = self._want_sort(cfg)
+        if not mode:
+            return origins, directions, None
+        return octant_sort(
+            origins, directions,
+            scene_lo=self.scene_lo, scene_hi=self.scene_hi,
+            spatial_bits=self._spatial_bits(cfg) if mode == "spatial" else 0,
+            dir_bits=self._dir_bits(cfg),
+        )
+
+    def traversal(self, origins, directions, t_min, t_max, cfg):
+        """(route, arguments of the route's wrapper in
+        ops.intersect_cluster) for rays in the order given."""
+        tri_test, tris = self._tri(cfg)
+        rays = (origins, directions, float(t_min), float(t_max), self._rpt(cfg))
+        route = self.route(cfg)
+        if route == "flat":
+            return route, (tris, self.aabb8, self.order, *rays, tri_test)
+        if route == "hier":
+            return route, (tris, self.aabb8_child, self.aabb8_super, self.order_super, *rays,
+                           self.super_branch, tri_test)
+        # The streamed supers are the kernel's own groups, twice as wide.
+        branch = 2 * self.super_branch
+        return route, (tris, *self.streamed_pads(branch), *rays, branch, tri_test)
+
     def intersect(self, vertices, origins, directions, t_min, t_max, cfg) -> Hit:
         """Closest hit over all clusters: sort the rays for coherence, run
-        the packet kernel, put the results back in caller order."""
-        if cfg.tri_test == "mt":
-            raise NotImplementedError(
-                "tri_test='mt' in the packet kernel is not ported (ROADMAP, "
-                "modules to port: the Moller-Trumbore kernel arm)"
-            )
-        if self.tris16bw.numel() * 4 > _FLAT_MAX_BYTES:
-            raise NotImplementedError(
-                "scenes with more than 6 MB of cluster rows need the streamed "
-                "kernel, not ported yet (ROADMAP, TPU kernels 3 and 6)"
-            )
-        if self.num_clusters >= cfg.hier_min_clusters:
-            raise NotImplementedError(
-                f"scenes with >= {cfg.hier_min_clusters} clusters need the "
-                "two-level kernel, not ported yet (ROADMAP, TPU kernels 2 and 5)"
-            )
-        sort = self._want_sort(cfg)
-        if sort:
-            origins, directions, perm = octant_sort(
-                origins, directions,
-                scene_lo=self.scene_lo, scene_hi=self.scene_hi,
-                spatial_bits=self._spatial_bits(cfg) if sort == "spatial" else 0,
-                dir_bits=self._dir_bits(cfg),
-            )
-        t, prim, uv = intersect_clusters(
-            self.tris16bw, self.aabb8, self.order, origins, directions,
-            float(t_min), float(t_max), RAYS_PER_PACKET,
-        )
-        if sort:
+        the route's packet kernel, put the results back in caller order."""
+        origins, directions, perm = self.sort(origins, directions, cfg)
+        route, args = self.traversal(origins, directions, t_min, t_max, cfg)
+        wrapper = {
+            "flat": intersect_clusters,
+            "hier": intersect_clusters_hier,
+            "streamed": intersect_clusters_streamed,
+        }[route]
+        t, prim, uv = wrapper(*args)
+        if perm is not None:
             t, prim, uv = restore(t, perm), restore(prim, perm), restore(uv, perm)
         hit = prim != MISS_PRIM
         return Hit(
@@ -113,6 +156,21 @@ def octant_orders(aabbs: np.ndarray) -> np.ndarray:
         near_corner = np.where(sign > 0, amin, amax)
         orders.append(np.argsort(near_corner @ sign, kind="stable"))
     return np.stack(orders).astype(np.int32)
+
+
+def pack_cluster_tris(vertices: np.ndarray, cluster_size: int) -> np.ndarray:
+    """[T,3,3] Morton-permuted vertices -> [C,K,16] Moller-Trumbore rows:
+    v0 (0:3), e1 = v1 - v0 (3:6), e2 = v2 - v0 (6:9), rest zero; padding
+    rows are all zero and fail the det test."""
+    t = vertices.shape[0]
+    k = cluster_size
+    c = max(1, -(-t // k))
+    out = np.zeros((c * k, 16), np.float32)
+    v0 = vertices[:, 0, :]
+    out[:t, 0:3] = v0
+    out[:t, 3:6] = vertices[:, 1, :] - v0
+    out[:t, 6:9] = vertices[:, 2, :] - v0
+    return np.ascontiguousarray(out.reshape(c, k, 16))
 
 
 def pack_cluster_tris_bw(vertices: np.ndarray, cluster_size: int) -> np.ndarray:
@@ -144,9 +202,28 @@ def pack_cluster_tris_bw(vertices: np.ndarray, cluster_size: int) -> np.ndarray:
     return np.ascontiguousarray(out.reshape(c, k, 16))
 
 
-def build_cluster_accel(vertices: np.ndarray, cluster_size: int = 128, device="cpu") -> ClusterAccel:
-    """Cluster boxes, visit orders and rows over Morton-permuted [T,3,3]
-    vertices."""
+def super_boxes(aabb8: np.ndarray, branch: int):
+    """Supercluster level over [C,8] cluster boxes: (child [S*branch,8],
+    super [S,8]).  Padding children are point boxes at 3e37, which no ray
+    overlaps (a box with min > max would not fail the order-agnostic slab
+    test); super bounds come from the real children only."""
+    c = aabb8.shape[0]
+    s = -(-c // branch)
+    child = np.zeros((s * branch, 8), np.float32)
+    child[:, 0:6] = 3.0e37
+    child[:c] = aabb8
+    super8 = np.zeros((s, 8), np.float32)
+    for g in range(s):
+        real = aabb8[g * branch : min((g + 1) * branch, c)]
+        super8[g, 0:3] = real[:, 0:3].min(axis=0)
+        super8[g, 3:6] = real[:, 3:6].max(axis=0)
+    return child, super8
+
+
+def build_cluster_accel(vertices: np.ndarray, cluster_size: int = 128, super_branch: int = 8,
+                        device="cpu") -> ClusterAccel:
+    """Cluster boxes, visit orders, supers and rows over Morton-permuted
+    [T,3,3] vertices."""
     t_count = vertices.shape[0]
     c = max(1, -(-t_count // cluster_size))
     pad = c * cluster_size - t_count
@@ -160,6 +237,7 @@ def build_cluster_accel(vertices: np.ndarray, cluster_size: int = 128, device="c
     aabb8 = np.zeros((c, 8), np.float32)
     aabb8[:, 0:3] = blocks.min(axis=1)
     aabb8[:, 3:6] = blocks.max(axis=1)
+    child, super8 = super_boxes(aabb8, super_branch)
     flat = vertices.reshape(-1, 3) if t_count else np.zeros((1, 3), np.float32)
 
     def up(a):
@@ -171,5 +249,10 @@ def build_cluster_accel(vertices: np.ndarray, cluster_size: int = 128, device="c
         order=up(octant_orders(aabb8)),
         scene_lo=up(flat.min(axis=0).astype(np.float32)),
         scene_hi=up(flat.max(axis=0).astype(np.float32)),
+        aabb8_child=up(child),
+        aabb8_super=up(super8),
+        order_super=up(octant_orders(super8)),
+        tris16=up(pack_cluster_tris(vertices, cluster_size)),
         cluster_size=cluster_size,
+        super_branch=super_branch,
     )

@@ -3,9 +3,10 @@
 The JAX package's `Scene` is a pytree of arrays.  Its caller flattens it
 to a dict of numpy arrays named by field path ("vertices",
 "materials.attrs", "env.quads", "accel.tris16bw", ...), with each static
-field (the texture-layout flags, the accel's cluster size) as a 0-d
-array, and hands that dict over: the port never sees a JAX object.  The
-layouts are the same on both sides, so every leaf is a plain copy.
+field (the texture-layout flags, the accel's cluster size and super
+branch) as a 0-d array, and hands that dict over: the port never sees a
+JAX object.  The layouts are the same on both sides, so every leaf is a
+plain copy.
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ SCENE_KEYS = ("vertices", "normals", "uvs", "mat_ids", "tri_attrs")
 MATERIAL_KEYS = ("attrs", "texture_quads", "texture_bundles")
 MATERIAL_FLAGS = ("bundled", "bundled_morton", "bundled_scrambled", "bundled_pow2_dims")
 ENV_KEYS = ("data", "quads")
-ACCEL_KEYS = ("tris16bw", "aabb8", "order", "scene_lo", "scene_hi")
+ACCEL_KEYS = ("tris16bw", "aabb8", "order", "scene_lo", "scene_hi",
+              "aabb8_child", "aabb8_super", "order_super", "tris16")
+ACCEL_STATICS = ("cluster_size", "super_branch")
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -48,7 +51,7 @@ def scene_from_numpy(leaves: dict, device) -> Scene:
     if "accel.tris16bw" in leaves:
         accel = ClusterAccel(
             **{k: t(f"accel.{k}") for k in ACCEL_KEYS},
-            cluster_size=int(leaves["accel.cluster_size"]),
+            **{k: int(leaves[f"accel.{k}"]) for k in ACCEL_STATICS},
         )
     return Scene(
         **{k: t(k) for k in SCENE_KEYS}, materials=materials, env=env, accel=accel

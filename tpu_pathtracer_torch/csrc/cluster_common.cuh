@@ -1,0 +1,268 @@
+// Device code shared by the closest-hit cluster traversal kernels
+// (cluster_intersect.cu, cluster_hier.cu, cluster_streamed.cu): the
+// counterparts of _packet_rays, _octant_of, _slab_hits, _bw_tests,
+// _mt_tests and _mt_best in tpu_pathtracer/ops/intersect_pallas.py, and the
+// two-level body that cluster_hier.cu and cluster_streamed.cu instantiate.
+//
+// Every kernel builds with -fmad=false and IEEE division, and computes in
+// the operation order of its plain PyTorch version
+// (tpu_pathtracer_torch/ops/intersect_cluster.py), so the two give the same
+// bits.
+//
+// Packet semantics, the same in every kernel: one thread per ray, one block
+// per packet of blockDim.x rays.  Per box, every ray slab-tests the box
+// against its own running best t, and the block skips the box when no ray
+// of the packet overlaps it (__syncthreads_or, the counterpart of the TPU
+// kernels' pl.when(jnp.any(overlap))).  A cluster that is not skipped is
+// staged once into shared memory and every ray of the packet, including
+// those whose own slab test failed, tests all K triangles.  Within a
+// cluster the smallest t wins and equal t goes to the lowest triangle id;
+// across clusters a strictly smaller t wins, in visit order.
+//
+// Triangle rows ([C,K,16] f32, four float4 per triangle):
+//   Baldwin-Weber: n (0:3), d0 = n.v0 (3), p1 (4:7), c1 = -p1.v0 (7),
+//                  p2 (8:11), c2 = -p2.v0 (11), 12..15 unused;
+//   Moller-Trumbore: v0 (0:3), e1 (3:6), e2 (6:9), 9..15 unused.
+// Padding rows are all zero and fail the den / det test.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace cluster_traversal {
+
+constexpr int kMissPrim = 0x7FFFFFFF;
+// The tri_test argument of every launch function.
+constexpr int kBaldwinWeber = 0;
+constexpr int kMollerTrumbore = 1;
+
+// XLA's minimum/maximum propagate NaN; fminf/fmaxf would drop it.
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (a != a) ? a : ((b != b) ? b : fminf(a, b));
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
+}
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz;
+  float ix, iy, iz;  // guarded inverse direction
+};
+
+// Ray i; past the end (i >= n) a padding ray that starts far out on +x and
+// points away, so it overlaps no box.
+__device__ __forceinline__ Ray load_ray(const float* origins, const float* dirs, int i, int n) {
+  Ray r;
+  r.ox = 3.0e37f;
+  r.oy = 0.0f;
+  r.oz = 0.0f;
+  r.dx = 1.0f;
+  r.dy = 0.0f;
+  r.dz = 0.0f;
+  if (i < n) {
+    r.ox = origins[3 * i];
+    r.oy = origins[3 * i + 1];
+    r.oz = origins[3 * i + 2];
+    r.dx = dirs[3 * i];
+    r.dy = dirs[3 * i + 1];
+    r.dz = dirs[3 * i + 2];
+  }
+  const float big = 3.4e38f;
+  r.ix = fabsf(r.dx) > 1e-12f ? 1.0f / r.dx : big;
+  r.iy = fabsf(r.dy) > 1e-12f ? 1.0f / r.dy : big;
+  r.iz = fabsf(r.dz) > 1e-12f ? 1.0f / r.dz : big;
+  return r;
+}
+
+__device__ __forceinline__ int octant_of(const Ray& r) {
+  return (r.dx > 0.0f ? 1 : 0) + (r.dy > 0.0f ? 2 : 0) + (r.dz > 0.0f ? 4 : 0);
+}
+
+// Does the ray's segment [t_min, t_limit] overlap box b (min xyz, max xyz)?
+__device__ __forceinline__ bool slab_hits(const float* b, const Ray& r, float t_min, float t_limit) {
+  const float tx0 = (b[0] - r.ox) * r.ix;
+  const float tx1 = (b[3] - r.ox) * r.ix;
+  const float ty0 = (b[1] - r.oy) * r.iy;
+  const float ty1 = (b[4] - r.oy) * r.iy;
+  const float tz0 = (b[2] - r.oz) * r.iz;
+  const float tz1 = (b[5] - r.oz) * r.iz;
+  const float tnear = max_nan(max_nan(min_nan(tx0, tx1), min_nan(ty0, ty1)), min_nan(tz0, tz1));
+  const float tfar = min_nan(min_nan(max_nan(tx0, tx1), max_nan(ty0, ty1)), max_nan(tz0, tz1));
+  return (tnear <= tfar) && (tfar >= t_min) && (tnear <= t_limit);
+}
+
+// One ray against one triangle's rows; `ok` is false where the test fails.
+__device__ __forceinline__ void bw_test(const float4* tri, const Ray& r, float t_min, float t_max,
+                                        float& t, float& u, float& v, bool& ok) {
+  const float4 r0 = tri[0];  // n.xyz, d0
+  const float4 r1 = tri[1];  // p1.xyz, c1
+  const float4 r2 = tri[2];  // p2.xyz, c2
+  const float den = r0.x * r.dx + r0.y * r.dy + r0.z * r.dz;
+  const float num = r0.w - (r0.x * r.ox + r0.y * r.oy + r0.z * r.oz);
+  const float rcp = fabsf(den) > 1e-12f ? 1.0f / den : 0.0f;
+  t = num * rcp;
+  const float hx = r.ox + t * r.dx;
+  const float hy = r.oy + t * r.dy;
+  const float hz = r.oz + t * r.dz;
+  u = r1.x * hx + r1.y * hy + r1.z * hz + r1.w;
+  v = r2.x * hx + r2.y * hy + r2.z * hz + r2.w;
+  // min(min(u, v), 1-(u+v)) >= 0 with NaN propagation: a NaN fails.
+  ok = u >= 0.0f && v >= 0.0f && (1.0f - (u + v)) >= 0.0f && t > t_min && t < t_max &&
+       rcp != 0.0f;
+}
+
+__device__ __forceinline__ void mt_test(const float4* tri, const Ray& r, float t_min, float t_max,
+                                        float& t, float& u, float& v, bool& ok) {
+  const float4 r0 = tri[0];  // v0.xyz, e1.x
+  const float4 r1 = tri[1];  // e1.yz, e2.xy
+  const float4 r2 = tri[2];  // e2.z
+  const float v0x = r0.x, v0y = r0.y, v0z = r0.z;
+  const float e1x = r0.w, e1y = r1.x, e1z = r1.y;
+  const float e2x = r1.z, e2y = r1.w, e2z = r2.x;
+  const float px = r.dy * e2z - r.dz * e2y;
+  const float py = r.dz * e2x - r.dx * e2z;
+  const float pz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const float inv_det = fabsf(det) > 1e-12f ? 1.0f / det : 0.0f;
+  const float tx = r.ox - v0x;
+  const float ty = r.oy - v0y;
+  const float tz = r.oz - v0z;
+  u = (tx * px + ty * py + tz * pz) * inv_det;
+  const float qx = ty * e1z - tz * e1y;
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+  t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  ok = fabsf(det) > 1e-12f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > t_min &&
+       t < t_max;
+}
+
+struct Best {
+  float t;
+  int prim;
+  float u, v;
+};
+
+// Cluster c's K triangles, staged in `rows`, against the ray: the closest
+// valid hit (lowest index on equal t) replaces `best` if strictly closer.
+template <int kTest>
+__device__ __forceinline__ void test_cluster(const float4* rows, int cluster_k, int c, const Ray& r,
+                                             float t_min, float t_max, Best& best) {
+  float t_blk = __int_as_float(0x7f800000);  // +inf
+  int k_blk = 0;
+  float u_blk = 0.0f, v_blk = 0.0f;
+  for (int k = 0; k < cluster_k; ++k) {
+    float t, u, v;
+    bool ok;
+    if (kTest == kMollerTrumbore) {
+      mt_test(rows + 4 * k, r, t_min, t_max, t, u, v, ok);
+    } else {
+      bw_test(rows + 4 * k, r, t_min, t_max, t, u, v, ok);
+    }
+    if (ok && t < t_blk) {  // strict: equal t keeps the lower id
+      t_blk = t;
+      k_blk = k;
+      u_blk = u;
+      v_blk = v;
+    }
+  }
+  if (t_blk < best.t) {
+    best.t = t_blk;
+    best.prim = c * cluster_k + k_blk;
+    best.u = u_blk;
+    best.v = v_blk;
+  }
+}
+
+// The block copies one cluster's K rows (4K float4) into shared memory.
+__device__ __forceinline__ void stage_rows(float4* rows, const float4* tris, int row, int cluster_k) {
+  const float4* src = tris + static_cast<size_t>(row) * cluster_k * 4;
+  for (int j = threadIdx.x; j < cluster_k * 4; j += blockDim.x) rows[j] = src[j];
+}
+
+__device__ __forceinline__ void store_best(const Best& best, int i, int n, float* t_out,
+                                           int* prim_out, float* uv_out) {
+  if (i < n) {
+    t_out[i] = best.t;
+    prim_out[i] = best.prim;
+    uv_out[2 * i] = best.u;
+    uv_out[2 * i + 1] = best.v;
+  }
+}
+
+// Two-level traversal: supers of `branch` consecutive children.  A packet
+// slab-tests each super, and for a super some ray overlaps, each of its
+// children in index order; a child some ray overlaps is staged and tested.
+//   kStreamed = false (cluster_hier.cu): supers in the packet octant's
+//     front-to-back order `order_super`; padding children are far point
+//     boxes that no ray overlaps, and the row index is clamped to C-1 all
+//     the same.
+//   kStreamed = true (cluster_streamed.cu): supers in ascending id (the
+//     identity order, order_super unused), and children at or past
+//     num_clusters are skipped (the c < num_clusters gate).
+template <bool kStreamed, int kTest>
+__global__ void __launch_bounds__(1024) two_level_kernel(const float4* __restrict__ tris,        // [C,K,4] float4
+                                 const float* __restrict__ aabb_child,   // [S*branch,8]
+                                 const float* __restrict__ aabb_super,   // [S,8]
+                                 const int* __restrict__ order_super,    // [8,S]
+                                 const float* __restrict__ origins,      // [N,3]
+                                 const float* __restrict__ dirs,         // [N,3]
+                                 int n, int num_supers, int branch, int num_clusters, int cluster_k,
+                                 float t_min, float t_max,
+                                 float* __restrict__ t_out,              // [N]
+                                 int* __restrict__ prim_out,             // [N]
+                                 float* __restrict__ uv_out) {           // [N,2]
+  extern __shared__ float4 rows[];  // [K,4] float4: one cluster
+  __shared__ int octant;
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const Ray r = load_ray(origins, dirs, i, n);
+  if (!kStreamed) {
+    if (threadIdx.x == 0) octant = octant_of(r);  // the packet's first ray
+    __syncthreads();
+  }
+  Best best = {t_max, kMissPrim, 0.0f, 0.0f};
+
+  for (int pos = 0; pos < num_supers; ++pos) {
+    const int s = kStreamed ? pos : order_super[octant * num_supers + pos];
+    if (!__syncthreads_or(slab_hits(aabb_super + 8 * s, r, t_min, best.t))) continue;
+    for (int j = 0; j < branch; ++j) {
+      const int c = s * branch + j;
+      if (kStreamed && c >= num_clusters) break;  // the same c for every thread
+      if (!__syncthreads_or(slab_hits(aabb_child + 8 * c, r, t_min, best.t))) continue;
+      stage_rows(rows, tris, kStreamed ? c : min(c, num_clusters - 1), cluster_k);
+      __syncthreads();
+      test_cluster<kTest>(rows, cluster_k, c, r, t_min, t_max, best);
+      __syncthreads();  // the next child overwrites the rows
+    }
+  }
+  store_best(best, i, n, t_out, prim_out, uv_out);
+}
+
+// Launches one block of `rays_per_packet` threads per packet on `stream`.
+// Returns cudaGetLastError() after the launch (0 = launched).
+template <bool kStreamed>
+int launch_two_level(const float* tris, const float* aabb_child, const float* aabb_super,
+                     const int* order_super, const float* origins, const float* dirs, int n,
+                     int num_supers, int branch, int num_clusters, int cluster_k, float t_min,
+                     float t_max, int rays_per_packet, int tri_test, float* t_out, int* prim_out,
+                     float* uv_out, void* stream) {
+  if (n <= 0) return 0;
+  const int packets = (n + rays_per_packet - 1) / rays_per_packet;
+  const size_t smem = static_cast<size_t>(cluster_k) * 16 * sizeof(float);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float4* rows = reinterpret_cast<const float4*>(tris);
+  if (tri_test == kMollerTrumbore) {
+    two_level_kernel<kStreamed, kMollerTrumbore><<<packets, rays_per_packet, smem, st>>>(
+        rows, aabb_child, aabb_super, order_super, origins, dirs, n, num_supers, branch,
+        num_clusters, cluster_k, t_min, t_max, t_out, prim_out, uv_out);
+  } else {
+    two_level_kernel<kStreamed, kBaldwinWeber><<<packets, rays_per_packet, smem, st>>>(
+        rows, aabb_child, aabb_super, order_super, origins, dirs, n, num_supers, branch,
+        num_clusters, cluster_k, t_min, t_max, t_out, prim_out, uv_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace cluster_traversal

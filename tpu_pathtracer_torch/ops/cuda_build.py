@@ -1,11 +1,12 @@
-"""Build a CUDA source of this package into a shared library and load it.
+"""Build the CUDA sources of this package into shared libraries and load them.
 
 The sources in `tpu_pathtracer_torch/csrc/` have a plain C interface, so
 they compile with `nvcc` alone in seconds (no PyTorch headers) and bind
 with `ctypes`.  Libraries go to `build/tpu_pathtracer_torch/` at the root
-of the checkout, named by a hash of the source and the flags, and are
-built at first use.  `nvcc`'s `-Xptxas -v` report (registers, shared
-memory, spills) is kept beside each library as a `.log` file.
+of the checkout, named by a hash of every file in `csrc/` (a source and
+the headers it includes) and the flags, and are built at first use.
+`nvcc`'s `-Xptxas -v` report (registers, shared memory, spills) is kept
+beside each library as a `.log` file.
 """
 
 from __future__ import annotations
@@ -41,25 +42,49 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def sources() -> list[str]:
+    """Every kernel source (`*.cu`) in csrc/."""
+    return sorted(p.name for p in CSRC_DIR.glob("*.cu"))
+
+
 def library_path(source: str) -> Path:
-    """Where the library built from csrc/`source` goes."""
-    src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    """Where the library built from csrc/`source` goes.  The name hashes
+    every file in csrc/, so an edit to a shared header rebuilds each
+    source that may include it."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC_DIR.iterdir()):
+        if p.is_file():
+            h.update(p.name.encode() + b"\0" + p.read_bytes())
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_libraries(names=None) -> None:
+    """Compile each csrc/ source in `names` (default: all) that has no
+    up-to-date library, one nvcc process per source, all started at once."""
+    todo = [s for s in (sources() if names is None else names) if not library_path(s).exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    jobs = []
+    for s in todo:
+        out = library_path(s)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / s)]
+        jobs.append((s, out, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for s, out, tmp, proc in jobs:
+        stdout, stderr = proc.communicate()
+        out.with_suffix(".log").write_text(stdout + stderr)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {s}:\n{stderr}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def build_library(source: str) -> ctypes.CDLL:
     """Compile csrc/`source` unless an up-to-date library exists; load it."""
-    out = library_path(source)
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)],
-            capture_output=True, text=True,
-        )
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
-        os.replace(tmp, out)
-    return ctypes.CDLL(str(out))
+    build_libraries([source])
+    return ctypes.CDLL(str(library_path(source)))

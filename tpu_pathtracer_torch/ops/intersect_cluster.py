@@ -1,13 +1,18 @@
 """Packet traversal over Morton triangle clusters: the coherence sort, the
-CUDA kernel's wrapper and its plain PyTorch version.
+CUDA kernels' wrappers and their plain PyTorch versions.
 
 Counterpart of `tpu_pathtracer/ops/intersect_pallas.py`: `ray_sort_key`,
-`octant_sort`/`sort_by_key` and `intersect_clusters_pallas` with its
-Baldwin-Weber test.  The kernel is `csrc/cluster_intersect.cu`;
-`intersect_clusters` launches it for CUDA tensors and runs
-`intersect_clusters_plain` for CPU tensors.  Both take the packet size as
-a parameter: a packet takes its cluster visit order from its first ray,
-so the packet size can change which cluster wins an exact tie in t.
+`octant_sort`/`sort_by_key`, `_streamed_pads`, and the closest-hit entries
+`intersect_clusters_pallas` (flat), `intersect_clusters_pallas_hier`
+(two-level) and `intersect_clusters_pallas_streamed` (scenes beyond 6 MB
+of rows), each with its Baldwin-Weber ("bw") and Moller-Trumbore ("mt")
+triangle test.  The kernels are `csrc/cluster_intersect.cu`,
+`csrc/cluster_hier.cu` and `csrc/cluster_streamed.cu`; each wrapper
+launches its kernel for CUDA tensors and runs its plain version for CPU
+tensors.  All take the packet size as a parameter: a packet takes its
+visit order from its first ray and tests a cluster when any of its rays
+overlaps it, so the packet size can change which cluster wins an exact
+tie in t.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch
 MISS_PRIM = 0x7FFFFFFF
 _PAD_ORIGIN_X = 3.0e37
 _BIG_INV = 3.4e38
+_TRI_TEST_IDS = {"bw": 0, "mt": 1}
 
 
 # ---------------------------------------------------------------------------
@@ -82,7 +88,7 @@ def octant_sort(origins, directions, scene_lo=None, scene_hi=None, spatial_bits:
 
 
 # ---------------------------------------------------------------------------
-# Plain version
+# Plain versions
 # ---------------------------------------------------------------------------
 
 def _pad_rays(origins, directions, rays_per_tile):
@@ -106,41 +112,88 @@ def _inv(d):
     return torch.where(torch.abs(d) > 1e-12, 1.0 / d, _BIG_INV)
 
 
-def intersect_clusters_plain(tris, aabb8, order, origins, directions, t_min: float, t_max: float, rays_per_tile: int):
-    """Closest hit with the kernel's packet semantics, in PyTorch.
+def _bw_tests(tri, ox, oy, oz, dx, dy, dz, t_min, t_max):
+    """Baldwin-Weber rows [M,K,16] against rays [M,1,R]: (tc, u, v), each
+    [M,K,R], tc = t where the test passes and +inf elsewhere."""
+    nx, ny, nz, d0, p1x, p1y, p1z, c1, p2x, p2y, p2z, c2 = (tri[:, :, j : j + 1] for j in range(12))
+    den = nx * dx + ny * dy + nz * dz
+    num = d0 - (nx * ox + ny * oy + nz * oz)
+    rcp = torch.where(torch.abs(den) > 1e-12, 1.0 / den, 0.0)
+    t = num * rcp
+    hx = ox + t * dx
+    hy = oy + t * dy
+    hz = oz + t * dz
+    u = p1x * hx + p1y * hy + p1z * hz + c1
+    v = p2x * hx + p2y * hy + p2z * hz + c2
+    bary_ok = torch.minimum(torch.minimum(u, v), 1.0 - (u + v)) >= 0.0
+    ok = bary_ok & (t > t_min) & (t < t_max) & (rcp != 0.0)
+    return torch.where(ok, t, torch.inf), u, v
 
-    Rays are cut into [P,R] packets.  At each visit position every packet
-    gathers its cluster, slab-tests it against each ray's running best t,
-    and keeps the triangle results only where some ray of the packet
-    overlaps; the [P,K,R] Baldwin-Weber test and its tie rules are those
-    of the kernel.  Returns (t [N], prim [N] i32 with MISS_PRIM on a
-    miss, uv [N,2])."""
-    n = origins.shape[0]
-    c_count, k, _ = tris.shape
-    (ox, oy, oz), (dx, dy, dz) = _pad_rays(origins, directions, rays_per_tile)
-    ix, iy, iz = _inv(dx), _inv(dy), _inv(dz)
-    p = ox.shape[0]
-    dev = origins.device
 
-    octant = (dx[:, 0] > 0).long() + 2 * (dy[:, 0] > 0).long() + 4 * (dz[:, 0] > 0).long()
-    best_t = torch.full((p, rays_per_tile), t_max, dtype=torch.float32, device=dev)
-    best_p = torch.full((p, rays_per_tile), MISS_PRIM, dtype=torch.int32, device=dev)
-    best_u = torch.zeros((p, rays_per_tile), dtype=torch.float32, device=dev)
-    best_v = torch.zeros_like(best_u)
-    lane = torch.arange(k, dtype=torch.int32, device=dev)
-    # Triangle-test operands broadcast as [P,K,1] against rays [P,1,R].
-    rox, roy, roz = ox[:, None], oy[:, None], oz[:, None]
-    rdx, rdy, rdz = dx[:, None], dy[:, None], dz[:, None]
+def _mt_tests(tri, ox, oy, oz, dx, dy, dz, t_min, t_max):
+    """Moller-Trumbore rows (v0, e1, e2) [M,K,16] against rays [M,1,R], in
+    the operation order of the JAX package's `_mt_tests`; returns as
+    `_bw_tests`."""
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (tri[:, :, j : j + 1] for j in range(9))
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    inv_det = torch.where(torch.abs(det) > 1e-12, 1.0 / det, 0.0)
+    tx = ox - v0x
+    ty = oy - v0y
+    tz = oz - v0z
+    u = (tx * px + ty * py + tz * pz) * inv_det
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    ok = (torch.abs(det) > 1e-12) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > t_min) & (t < t_max)
+    return torch.where(ok, t, torch.inf), u, v
 
-    for pos in range(c_count):
-        c = order[octant, pos]                                  # [P]
-        b = aabb8[c]                                            # [P,8]
-        tx0 = (b[:, 0:1] - ox) * ix
-        tx1 = (b[:, 3:4] - ox) * ix
-        ty0 = (b[:, 1:2] - oy) * iy
-        ty1 = (b[:, 4:5] - oy) * iy
-        tz0 = (b[:, 2:3] - oz) * iz
-        tz1 = (b[:, 5:6] - oz) * iz
+
+_TRI_TESTS = {"bw": _bw_tests, "mt": _mt_tests}
+
+
+class _Packets:
+    """The plain versions' state: the rays cut into [P,R] packets, padded
+    as the kernels pad them, and each ray's running winner.  Both methods
+    work on a subset `idx` of the packets, so a traversal computes only
+    for the packets that a box gate lets through, as the kernels do."""
+
+    def __init__(self, tris, origins, directions, t_min, t_max, rays_per_tile, tri_test):
+        if tri_test not in _TRI_TESTS:
+            raise ValueError(f"unknown tri_test {tri_test!r}")
+        self.n = origins.shape[0]
+        self.o, self.d = _pad_rays(origins, directions, rays_per_tile)
+        self.inv = [_inv(x) for x in self.d]
+        p = self.o[0].shape[0]
+        dev = origins.device
+        self.all = torch.arange(p, device=dev)
+        dx, dy, dz = self.d
+        # The packet's visit order comes from its first ray.
+        self.octant = (dx[:, 0] > 0).long() + 2 * (dy[:, 0] > 0).long() + 4 * (dz[:, 0] > 0).long()
+        self.best_t = torch.full((p, rays_per_tile), t_max, dtype=torch.float32, device=dev)
+        self.best_p = torch.full((p, rays_per_tile), MISS_PRIM, dtype=torch.int32, device=dev)
+        self.best_u = torch.zeros((p, rays_per_tile), dtype=torch.float32, device=dev)
+        self.best_v = torch.zeros_like(self.best_u)
+        self.tris = tris
+        self.lane = torch.arange(tris.shape[1], dtype=torch.int32, device=dev)
+        self.t_min, self.t_max = t_min, t_max
+        self.test = _TRI_TESTS[tri_test]
+
+    def overlaps(self, boxes, idx):
+        """[M] bool: does any ray of packet idx[m] overlap boxes[m] ([M,8],
+        or [1,8] for one box) before its running best t?"""
+        ox, oy, oz = (x[idx] for x in self.o)
+        ix, iy, iz = (x[idx] for x in self.inv)
+        tx0 = (boxes[:, 0:1] - ox) * ix
+        tx1 = (boxes[:, 3:4] - ox) * ix
+        ty0 = (boxes[:, 1:2] - oy) * iy
+        ty1 = (boxes[:, 4:5] - oy) * iy
+        tz0 = (boxes[:, 2:3] - oz) * iz
+        tz1 = (boxes[:, 5:6] - oz) * iz
         tnear = torch.maximum(
             torch.maximum(torch.minimum(tx0, tx1), torch.minimum(ty0, ty1)),
             torch.minimum(tz0, tz1),
@@ -149,60 +202,160 @@ def intersect_clusters_plain(tris, aabb8, order, origins, directions, t_min: flo
             torch.minimum(torch.maximum(tx0, tx1), torch.maximum(ty0, ty1)),
             torch.maximum(tz0, tz1),
         )
-        overlap = (tnear <= tfar) & (tfar >= t_min) & (tnear <= best_t)
-        packet_on = overlap.any(dim=1, keepdim=True)           # [P,1]
+        overlap = (tnear <= tfar) & (tfar >= self.t_min) & (tnear <= self.best_t[idx])
+        return overlap.any(dim=1)
 
-        tri = tris[c]                                           # [P,K,16]
-        col = [tri[:, :, j : j + 1] for j in range(12)]         # [P,K,1]
-        nx, ny, nz, d0, p1x, p1y, p1z, c1, p2x, p2y, p2z, c2 = col
-        den = nx * rdx + ny * rdy + nz * rdz
-        num = d0 - (nx * rox + ny * roy + nz * roz)
-        rcp = torch.where(torch.abs(den) > 1e-12, 1.0 / den, 0.0)
-        t = num * rcp
-        hx = rox + t * rdx
-        hy = roy + t * rdy
-        hz = roz + t * rdz
-        u = p1x * hx + p1y * hy + p1z * hz + c1
-        v = p2x * hx + p2y * hy + p2z * hz + c2
-        bary_ok = torch.minimum(torch.minimum(u, v), 1.0 - (u + v)) >= 0.0
-        ok = bary_ok & (t > t_min) & (t < t_max) & (rcp != 0.0)
-        tc = torch.where(ok, t, torch.inf)                      # [P,K,R]
-
-        t_blk = tc.amin(dim=1)                                  # [P,R]
-        gid = (c[:, None] * k + lane[None, :]).to(torch.int32)[:, :, None]
+    def visit(self, idx, c, row):
+        """Every ray of packet idx[m] tests cluster c[m], whose rows are
+        tris[row[m]]; a strictly closer winner replaces the ray's best.
+        Within the cluster the smallest t wins, equal t the lowest id."""
+        if idx.numel() == 0:
+            return
+        rays = [x[idx][:, None] for x in (*self.o, *self.d)]             # [M,1,R]
+        tc, u, v = self.test(self.tris[row], *rays, self.t_min, self.t_max)  # [M,K,R]
+        t_blk = tc.amin(dim=1)
+        gid = (c[:, None] * self.lane.shape[0] + self.lane[None, :]).to(torch.int32)[:, :, None]
         prim_blk = torch.where(tc == t_blk[:, None], gid, MISS_PRIM).amin(dim=1)
         win = gid == prim_blk[:, None]
         u_blk = torch.where(win, u, torch.inf).amin(dim=1)
         v_blk = torch.where(win, v, torch.inf).amin(dim=1)
+        best = self.best_t[idx]
+        improved = t_blk < best
+        self.best_t[idx] = torch.where(improved, t_blk, best)
+        self.best_p[idx] = torch.where(improved, prim_blk, self.best_p[idx])
+        self.best_u[idx] = torch.where(improved, u_blk, self.best_u[idx])
+        self.best_v[idx] = torch.where(improved, v_blk, self.best_v[idx])
 
-        improved = packet_on & (t_blk < best_t)
-        best_t = torch.where(improved, t_blk, best_t)
-        best_p = torch.where(improved, prim_blk, best_p)
-        best_u = torch.where(improved, u_blk, best_u)
-        best_v = torch.where(improved, v_blk, best_v)
+    def result(self):
+        n = self.n
+        uv = torch.stack([self.best_u.reshape(-1)[:n], self.best_v.reshape(-1)[:n]], dim=-1)
+        return self.best_t.reshape(-1)[:n], self.best_p.reshape(-1)[:n], uv
 
-    uv = torch.stack([best_u.reshape(-1)[:n], best_v.reshape(-1)[:n]], dim=-1)
-    return best_t.reshape(-1)[:n], best_p.reshape(-1)[:n], uv
+
+def intersect_clusters_plain(tris, aabb8, order, origins, directions, t_min: float, t_max: float,
+                             rays_per_tile: int, tri_test: str = "bw"):
+    """Flat closest hit with the kernel's packet semantics, in PyTorch.
+
+    Rays are cut into [P,R] packets; each packet visits the clusters in
+    its octant's front-to-back `order` and tests a cluster when some ray
+    of the packet overlaps its box.  Returns (t [N], prim [N] i32 with
+    MISS_PRIM on a miss, uv [N,2])."""
+    pk = _Packets(tris, origins, directions, t_min, t_max, rays_per_tile, tri_test)
+    for pos in range(tris.shape[0]):
+        c = order[pk.octant, pos]
+        on = pk.overlaps(aabb8[c], pk.all)
+        pk.visit(pk.all[on], c[on], c[on])
+    return pk.result()
+
+
+def intersect_clusters_hier_plain(tris, aabb_child, aabb_super, order_super, origins, directions,
+                                  t_min: float, t_max: float, rays_per_tile: int, branch: int,
+                                  tri_test: str = "bw"):
+    """Two-level closest hit with the kernel's packet semantics: each
+    packet visits the supers in its octant's front-to-back `order_super`,
+    and for a super some ray overlaps, its `branch` children in index
+    order, testing a child some ray overlaps.  Padding children are far
+    point boxes; the row index is clamped to C-1 all the same.  Returns
+    as `intersect_clusters_plain`."""
+    pk = _Packets(tris, origins, directions, t_min, t_max, rays_per_tile, tri_test)
+    last = tris.shape[0] - 1
+    for pos in range(aabb_super.shape[0]):
+        s = order_super[pk.octant, pos]
+        on = pk.overlaps(aabb_super[s], pk.all)
+        live, s = pk.all[on], s[on]
+        for j in range(branch):
+            if live.numel() == 0:
+                break
+            c = s * branch + j
+            on = pk.overlaps(aabb_child[c], live)
+            pk.visit(live[on], c[on], torch.clamp(c[on], max=last))
+    return pk.result()
+
+
+def intersect_clusters_streamed_plain(tris, aabb_child, aabb_super, origins, directions,
+                                      t_min: float, t_max: float, rays_per_tile: int, branch: int,
+                                      tri_test: str = "bw"):
+    """Streamed closest hit with the kernel's packet semantics: the supers
+    of `streamed_pads` in ascending id, each super's `branch` children in
+    index order, children at or past the cluster count never tested.
+    Returns as `intersect_clusters_plain`."""
+    pk = _Packets(tris, origins, directions, t_min, t_max, rays_per_tile, tri_test)
+    num_clusters = tris.shape[0]
+    for s in range(aabb_super.shape[0]):
+        live = pk.all[pk.overlaps(aabb_super[s : s + 1], pk.all)]
+        for c in range(s * branch, min((s + 1) * branch, num_clusters)):
+            if live.numel() == 0:
+                break
+            on = live[pk.overlaps(aabb_child[c : c + 1], live)]
+            cc = torch.full_like(on, c, dtype=torch.int32)
+            pk.visit(on, cc, cc)
+    return pk.result()
+
+
+def streamed_pads(aabbs, block_clusters: int = 96, branch: int = 16):
+    """The supers of the streamed route, as the JAX package's
+    `_streamed_pads`: pad the cluster boxes to a multiple of the block size
+    with far point boxes (3e37) and group them by `branch` over the padded
+    range.  A boundary group that mixes real and padding children gets a
+    huge box; its children are gated one by one.  The triangle rows need no
+    padding: a child at or past the cluster count is never tested.
+    Returns (aabb_child [Sp*branch,8], aabb_super [Sp,8])."""
+    c = aabbs.shape[0]
+    cb = min(block_clusters, max(branch, -(-c // branch) * branch))
+    cb = max(cb, branch)
+    if cb % branch:
+        cb = -(-cb // branch) * branch
+    c_pad = -(-c // cb) * cb
+    child = torch.full((c_pad, 8), 3.0e37, dtype=aabbs.dtype, device=aabbs.device)
+    child[:c] = aabbs
+    groups = child.reshape(c_pad // branch, branch, 8)
+    supers = torch.cat(
+        [groups[:, :, 0:3].amin(dim=1), groups[:, :, 3:6].amax(dim=1),
+         torch.zeros((groups.shape[0], 2), dtype=aabbs.dtype, device=aabbs.device)],
+        dim=-1,
+    )
+    return child, supers
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernel
+# CUDA kernels
 # ---------------------------------------------------------------------------
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# source: (launch function, its argument types)
+_LAUNCHERS = {
+    "cluster_intersect.cu": (
+        "cluster_intersect_launch",
+        [_P] * 5 + [_I] * 3 + [_F] * 2 + [_I] * 2 + [_P] * 4,
+    ),
+    "cluster_hier.cu": (
+        "cluster_hier_launch",
+        [_P] * 6 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 4,
+    ),
+    "cluster_streamed.cu": (
+        "cluster_streamed_launch",
+        [_P] * 5 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 4,
+    ),
+}
+
 
 @functools.lru_cache(maxsize=None)
-def library():
-    """The kernel's library, compiled at first use; launch signatures set."""
+def library(source: str):
+    """The library of csrc/`source`, compiled at first use; its launch
+    signature set."""
     from tpu_pathtracer_torch.ops.cuda_build import build_library
 
-    lib = build_library("cluster_intersect.cu")
-    fn = lib.cluster_intersect_launch
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, f32, i32, ptr, ptr, ptr, ptr]
+    lib = build_library(source)
+    name, argtypes = _LAUNCHERS[source]
+    fn = getattr(lib, name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return lib
 
 
-def _check(name, x, dtype, shape):
+def _check(name, x, dtype, shape, dev):
+    if x.device != dev:
+        raise ValueError(f"{name} is on {x.device}, origins on {dev}")
     if x.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
@@ -211,37 +364,51 @@ def _check(name, x, dtype, shape):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def intersect_clusters_cuda(tris, aabb8, order, origins, directions, t_min: float, t_max: float, rays_per_tile: int):
-    """Launch the kernel on CUDA tensors; same contract as the plain version."""
-    c_count, k, cols = tris.shape
-    n = origins.shape[0]
+def _prepare(tris, origins, directions, rays_per_tile, tri_test, boxes):
+    """Check what every kernel takes, then allocate (t, prim, uv)."""
     dev = origins.device
     if not origins.is_cuda:
         raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
-    for name, x in (("tris", tris), ("aabb8", aabb8), ("order", order), ("directions", directions)):
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, origins on {dev}")
-    _check("tris", tris, torch.float32, (c_count, k, 16))
-    _check("aabb8", aabb8, torch.float32, (c_count, 8))
-    _check("order", order, torch.int32, (8, c_count))
-    _check("origins", origins, torch.float32, (n, 3))
-    _check("directions", directions, torch.float32, (n, 3))
+    c_count, k, _ = tris.shape
+    n = origins.shape[0]
+    _check("tris", tris, torch.float32, (c_count, k, 16), dev)
+    _check("origins", origins, torch.float32, (n, 3), dev)
+    _check("directions", directions, torch.float32, (n, 3), dev)
+    for name, (x, dtype, shape) in boxes.items():
+        _check(name, x, dtype, shape, dev)
+    if tri_test not in _TRI_TEST_IDS:
+        raise ValueError(f"unknown tri_test {tri_test!r}")
     if not (32 <= rays_per_tile <= 1024 and rays_per_tile % 32 == 0):
         raise ValueError(f"rays_per_tile must be a multiple of 32 in [32, 1024]: {rays_per_tile}")
     if k * 16 * 4 > 48 * 1024:
         raise ValueError(f"cluster of {k} rows exceeds 48 KB of shared memory")
     if tris.data_ptr() % 16:
         raise ValueError("tris must be 16-byte aligned")
+    return (
+        torch.empty(n, dtype=torch.float32, device=dev),
+        torch.empty(n, dtype=torch.int32, device=dev),
+        torch.empty((n, 2), dtype=torch.float32, device=dev),
+    )
 
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    prim = torch.empty(n, dtype=torch.int32, device=dev)
-    uv = torch.empty((n, 2), dtype=torch.float32, device=dev)
-    err = library().cluster_intersect_launch(
+
+def _stream(origins):
+    return torch.cuda.current_stream(origins.device).cuda_stream
+
+
+def intersect_clusters_cuda(tris, aabb8, order, origins, directions, t_min: float, t_max: float,
+                            rays_per_tile: int, tri_test: str = "bw"):
+    """Launch the flat kernel on CUDA tensors; same contract as the plain
+    version."""
+    c_count, k, _ = tris.shape
+    t, prim, uv = _prepare(tris, origins, directions, rays_per_tile, tri_test, {
+        "aabb8": (aabb8, torch.float32, (c_count, 8)),
+        "order": (order, torch.int32, (8, c_count)),
+    })
+    err = library("cluster_intersect.cu").cluster_intersect_launch(
         tris.data_ptr(), aabb8.data_ptr(), order.data_ptr(),
-        origins.data_ptr(), directions.data_ptr(), n, c_count, k,
-        float(t_min), float(t_max), rays_per_tile,
-        t.data_ptr(), prim.data_ptr(), uv.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        origins.data_ptr(), directions.data_ptr(), origins.shape[0], c_count, k,
+        float(t_min), float(t_max), rays_per_tile, _TRI_TEST_IDS[tri_test],
+        t.data_ptr(), prim.data_ptr(), uv.data_ptr(), _stream(origins),
     )
     if err:
         raise RuntimeError(f"cluster_intersect_kernel launch failed: CUDA error {err}")
@@ -249,15 +416,92 @@ def intersect_clusters_cuda(tris, aabb8, order, origins, directions, t_min: floa
     return t, prim, uv
 
 
-def intersect_clusters(tris, aabb8, order, origins, directions, t_min: float, t_max: float, rays_per_tile: int):
-    """Closest hit over the clusters: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors.  Returns (t, prim, uv) as above."""
+def intersect_clusters_hier_cuda(tris, aabb_child, aabb_super, order_super, origins, directions,
+                                 t_min: float, t_max: float, rays_per_tile: int, branch: int,
+                                 tri_test: str = "bw"):
+    """Launch the two-level kernel on CUDA tensors; same contract as the
+    plain version."""
+    c_count, k, _ = tris.shape
+    s = aabb_super.shape[0]
+    t, prim, uv = _prepare(tris, origins, directions, rays_per_tile, tri_test, {
+        "aabb_child": (aabb_child, torch.float32, (s * branch, 8)),
+        "aabb_super": (aabb_super, torch.float32, (s, 8)),
+        "order_super": (order_super, torch.int32, (8, s)),
+    })
+    err = library("cluster_hier.cu").cluster_hier_launch(
+        tris.data_ptr(), aabb_child.data_ptr(), aabb_super.data_ptr(), order_super.data_ptr(),
+        origins.data_ptr(), directions.data_ptr(), origins.shape[0], s, branch, c_count, k,
+        float(t_min), float(t_max), rays_per_tile, _TRI_TEST_IDS[tri_test],
+        t.data_ptr(), prim.data_ptr(), uv.data_ptr(), _stream(origins),
+    )
+    if err:
+        raise RuntimeError(f"two_level_kernel (hier) launch failed: CUDA error {err}")
+    intersect_clusters_hier.launches += 1
+    return t, prim, uv
+
+
+def intersect_clusters_streamed_cuda(tris, aabb_child, aabb_super, origins, directions,
+                                     t_min: float, t_max: float, rays_per_tile: int, branch: int,
+                                     tri_test: str = "bw"):
+    """Launch the streamed kernel on CUDA tensors; same contract as the
+    plain version."""
+    c_count, k, _ = tris.shape
+    s = aabb_super.shape[0]
+    if s * branch < c_count:
+        raise ValueError(f"{s} supers of {branch} do not cover {c_count} clusters")
+    t, prim, uv = _prepare(tris, origins, directions, rays_per_tile, tri_test, {
+        "aabb_child": (aabb_child, torch.float32, (s * branch, 8)),
+        "aabb_super": (aabb_super, torch.float32, (s, 8)),
+    })
+    err = library("cluster_streamed.cu").cluster_streamed_launch(
+        tris.data_ptr(), aabb_child.data_ptr(), aabb_super.data_ptr(),
+        origins.data_ptr(), directions.data_ptr(), origins.shape[0], s, branch, c_count, k,
+        float(t_min), float(t_max), rays_per_tile, _TRI_TEST_IDS[tri_test],
+        t.data_ptr(), prim.data_ptr(), uv.data_ptr(), _stream(origins),
+    )
+    if err:
+        raise RuntimeError(f"two_level_kernel (streamed) launch failed: CUDA error {err}")
+    intersect_clusters_streamed.launches += 1
+    return t, prim, uv
+
+
+def _route(origins, kernel, plain, *args, **kw):
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
     if origins.is_cuda:
-        return intersect_clusters_cuda(tris, aabb8, order, origins, directions, t_min, t_max, rays_per_tile)
+        return kernel(*args, **kw)
     if origins.device.type != "cpu":
         raise ValueError(f"no cluster-intersect kernel for device {origins.device}")
-    return intersect_clusters_plain(tris, aabb8, order, origins, directions, t_min, t_max, rays_per_tile)
+    return plain(*args, **kw)
 
 
-# Kernel launches since the count was last set to 0.
+def intersect_clusters(tris, aabb8, order, origins, directions, t_min: float, t_max: float,
+                       rays_per_tile: int, tri_test: str = "bw"):
+    """Flat closest hit over the clusters (TPU kernel 1's contract).
+    Returns (t, prim, uv) as `intersect_clusters_plain`."""
+    return _route(origins, intersect_clusters_cuda, intersect_clusters_plain,
+                  tris, aabb8, order, origins, directions, t_min, t_max, rays_per_tile, tri_test)
+
+
+def intersect_clusters_hier(tris, aabb_child, aabb_super, order_super, origins, directions,
+                            t_min: float, t_max: float, rays_per_tile: int, branch: int,
+                            tri_test: str = "bw"):
+    """Two-level closest hit (TPU kernel 2's contract)."""
+    return _route(origins, intersect_clusters_hier_cuda, intersect_clusters_hier_plain,
+                  tris, aabb_child, aabb_super, order_super, origins, directions,
+                  t_min, t_max, rays_per_tile, branch, tri_test)
+
+
+def intersect_clusters_streamed(tris, aabb_child, aabb_super, origins, directions,
+                                t_min: float, t_max: float, rays_per_tile: int, branch: int,
+                                tri_test: str = "bw"):
+    """Streamed closest hit (TPU kernel 3's contract) over the supers of
+    `streamed_pads`."""
+    return _route(origins, intersect_clusters_streamed_cuda, intersect_clusters_streamed_plain,
+                  tris, aabb_child, aabb_super, origins, directions,
+                  t_min, t_max, rays_per_tile, branch, tri_test)
+
+
+# Kernel launches since each count was last set to 0.
 intersect_clusters.launches = 0
+intersect_clusters_hier.launches = 0
+intersect_clusters_streamed.launches = 0
