@@ -1,6 +1,7 @@
 """The port on an NVIDIA GPU: the packet-traversal CUDA kernels (flat,
-two-level, streamed; Baldwin-Weber and Moller-Trumbore) against their
-plain PyTorch versions, and small renders on the card against the same
+two-level, streamed; closest hit and any hit; Baldwin-Weber and
+Moller-Trumbore) against their plain PyTorch versions, and small renders
+on the card, with and without next-event estimation, against the same
 renders on the CPU.  Every test needs a card and skips without one; this
 file imports no JAX, so it runs where only the port is installed:
 
@@ -126,4 +127,62 @@ def test_render_hier_matches_cpu(cuda):
         out[dev.type] = (post_process(img, cfg).cpu().numpy(), int(stats["segments"]))
     (gpu, seg_gpu), (cpu, seg_cpu) = out["cuda"], out["cpu"]
     assert abs(seg_gpu - seg_cpu) <= 0.005 * seg_cpu
+    assert ssim(gpu, cpu) > 0.995
+
+
+@pytest.mark.parametrize("rays_per_tile", [1024, 256, 32])
+@pytest.mark.parametrize("tri_test", ["bw", "mt"])
+@pytest.mark.parametrize("route", ["flat", "hier", "streamed"])
+def test_occluded_kernel_matches_plain(cuda, route, tri_test, rays_per_tile):
+    """Kernels 4, 5 and 6 (any hit) against their plain versions: the same
+    flags on every ray, parked rays never occluded; one launch counted per
+    call.  Flat on three spheres in clusters of 128, the two-level routes
+    in clusters of 8 (217 clusters)."""
+    acc = build_accel(procedural.three_spheres_scene(12, 24, device=cuda),
+                      cluster_size=128 if route == "flat" else 8).accel
+    o, d = (x.to(cuda) for x in rays(2, 70_000, parked=1000))
+    tris = acc.tris16bw if tri_test == "bw" else acc.tris16
+    if route == "flat":
+        wrapper, plain = ic.occluded_clusters, ic.occluded_clusters_plain
+        args = (tris, acc.aabb8, acc.order, o, d, 0.01, 1e16, rays_per_tile, tri_test)
+    elif route == "hier":
+        wrapper, plain = ic.occluded_clusters_hier, ic.occluded_clusters_hier_plain
+        args = (tris, acc.aabb8_child, acc.aabb8_super, acc.order_super, o, d, 0.01, 1e16,
+                rays_per_tile, acc.super_branch, tri_test)
+    else:
+        wrapper, plain = ic.occluded_clusters_streamed, ic.occluded_clusters_streamed_plain
+        args = (tris, *ic.streamed_pads(acc.aabb8), o, d, 0.01, 1e16, rays_per_tile, 16, tri_test)
+    before = wrapper.launches
+    occ_k = wrapper(*args)
+    occ_p = plain(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert torch.equal(occ_k, occ_p)
+    assert 10_000 < int(occ_k.sum()) < 69_000
+    assert not occ_k[-1000:].any()
+
+
+@pytest.mark.parametrize("cluster_size", [128, 8], ids=["flat", "hier"])
+def test_render_nee_matches_cpu(cuda, cluster_size):
+    """An NEE render (alias-table light draws, shadow rays through the
+    any-hit kernel) on the card against the plain versions on the CPU:
+    segments and shadow segments within 0.5%, SSIM above 0.995."""
+    from tpu_pathtracer_torch.render.envmap import with_importance_sampling
+    from tpu_pathtracer_torch.scene.scene import make_env
+    from tpu_pathtracer_torch.utils.image import procedural_hdr
+
+    cfg = RenderConfig(width=64, height=48, samples_per_launch=4, max_depth=6, dof=False,
+                       stream_lanes=512, intersector="cluster", env_mode="equirect",
+                       rr_mode="standard", env_importance_sampling=True)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        env = with_importance_sampling(make_env(procedural_hdr(32, 64), dev))
+        scene = build_accel(procedural.three_spheres_scene(8, 16, device=dev).replace(env=env),
+                            cluster_size=cluster_size)
+        img, stats = render_frame_stats(scene, camera_arrays(Camera(), cfg, dev), cfg, 0)
+        out[dev.type] = (post_process(img, cfg).cpu().numpy(), int(stats["segments"]),
+                         int(stats["shadow_segments"]))
+    (gpu, seg_gpu, sh_gpu), (cpu, seg_cpu, sh_cpu) = out["cuda"], out["cpu"]
+    assert abs(seg_gpu - seg_cpu) <= 0.005 * seg_cpu
+    assert abs(sh_gpu - sh_cpu) <= 0.005 * sh_cpu and sh_cpu > 0
     assert ssim(gpu, cpu) > 0.995

@@ -2,8 +2,10 @@
 sort key and permutation, the flat, two-level and streamed packet
 traversals (plain versions vs the Pallas kernels in interpret mode, with
 both triangle tests), ClusterAccel.intersect on each route and brute
-force.  The CUDA kernels are compared with their plain versions on the
-card by tests/test_torch_cuda.py."""
+force, and the same for the any-hit side (the three occlusion kernels,
+ClusterAccel.occluded with parked lanes, occluded_brute).  The CUDA
+kernels are compared with their plain versions on the card by
+tests/test_torch_cuda.py."""
 
 import numpy as np
 import pytest
@@ -55,7 +57,7 @@ def scenes():
     """(JAX scene, port scene): three spheres, 1730 triangles in 14
     clusters of 128."""
     j = j_build_accel(j_proc.three_spheres_scene(12, 24), kind="cluster")
-    t = build_accel(procedural.three_spheres_scene(12, 24))
+    t = build_accel(procedural.three_spheres_scene(12, 24, device="cpu"))
     return j, t
 
 
@@ -65,7 +67,7 @@ def many():
     clusters of 8, which takes the two-level route; 13 supers of 8, the
     last with one real child and seven padding children."""
     j = j_build_accel(j_proc.three_spheres_scene(8, 16), kind="cluster", cluster_size=8)
-    t = build_accel(procedural.three_spheres_scene(8, 16), cluster_size=8)
+    t = build_accel(procedural.three_spheres_scene(8, 16, device="cpu"), cluster_size=8)
     assert t.accel.num_clusters == 97
     return j, t
 
@@ -472,3 +474,229 @@ def test_two_level_cuda_wrappers_refuse_cpu_tensors(many, route):
         else:
             ic.intersect_clusters_streamed_cuda(ta.tris16bw, *ic.streamed_pads(ta.aabb8), o, d,
                                                 T_MIN, T_MAX, RPT_HIER, 16)
+
+
+# ---------------------------------------------------------------------------
+# Any hit: the shadow rays of next-event estimation
+# ---------------------------------------------------------------------------
+
+def assert_flags_match(got, want, n, parked):
+    """The port's occluded flags against the JAX kernel's, on every ray
+    (no flag flipped by XLA:CPU's fused multiply-adds on these rays); some
+    rays occluded and some not, and parked rays never occluded."""
+    got, want = got.numpy(), np.asarray(want)
+    np.testing.assert_array_equal(got, want)
+    assert 0.1 * n < want.sum() < n - parked - 0.1 * n
+    if parked:
+        assert not got[-parked:].any()
+
+
+@RAYS
+@TRI
+def test_plain_occluded_matches_pallas(scenes, n, parked, tri_test):
+    """The flat any-hit plain version against occluded_clusters_pallas
+    (kernel 4) at the JAX packet size; 3000 rays leave a ragged last
+    packet."""
+    j, t = scenes
+    o, d = random_rays(20, n, parked)
+    want = j_pallas.occluded_clusters_pallas(
+        rows(j.accel, tri_test), j.accel.aabb8, j.accel.order, jnp.asarray(o), jnp.asarray(d),
+        T_MIN, T_MAX, rays_per_tile=RPT, interpret=True, tri_test=tri_test,
+    )
+    got = ic.occluded_clusters(
+        rows(t.accel, tri_test), t.accel.aabb8, t.accel.order, torch.as_tensor(o), torch.as_tensor(d),
+        T_MIN, T_MAX, RPT, tri_test,
+    )
+    assert_flags_match(got, want, n, parked)
+
+
+@RAYS
+@TRI
+def test_plain_occluded_hier_matches_pallas(many, n, parked, tri_test):
+    """The two-level any-hit plain version against
+    occluded_clusters_pallas_hier (kernel 5) at the JAX packet size and
+    branch, with the part-padded last super."""
+    j, t = many
+    ja, ta = j.accel, t.accel
+    o, d = random_rays(21, n, parked)
+    want = j_pallas.occluded_clusters_pallas_hier(
+        rows(ja, tri_test), ja.aabb8_child, ja.aabb8_super, ja.order_super,
+        jnp.asarray(o), jnp.asarray(d), T_MIN, T_MAX, rays_per_tile=RPT_HIER,
+        branch=ja.super_branch, interpret=True, tri_test=tri_test,
+    )
+    got = ic.occluded_clusters_hier(
+        rows(ta, tri_test), ta.aabb8_child, ta.aabb8_super, ta.order_super,
+        torch.as_tensor(o), torch.as_tensor(d), T_MIN, T_MAX, RPT_HIER, ta.super_branch, tri_test,
+    )
+    assert_flags_match(got, want, n, parked)
+
+
+@STREAMED_PADS
+@TRI
+def test_plain_occluded_streamed_matches_pallas(many, block_clusters, branch, tri_test):
+    """The streamed any-hit plain version over the port's streamed_pads
+    against occluded_clusters_pallas_streamed (kernel 6), at the render
+    path's branch 16 and at block_clusters=4, branch=2."""
+    j, t = many
+    ja, ta = j.accel, t.accel
+    n, parked = 3000, 500
+    o, d = random_rays(22, n, parked)
+    want = j_pallas.occluded_clusters_pallas_streamed(
+        rows(ja, tri_test), ja.aabb8, jnp.asarray(o), jnp.asarray(d), T_MIN, T_MAX,
+        rays_per_tile=RPT_HIER, block_clusters=block_clusters, branch=branch,
+        interpret=True, tri_test=tri_test,
+    )
+    child, supers = ic.streamed_pads(ta.aabb8, block_clusters, branch)
+    got = ic.occluded_clusters_streamed(
+        rows(ta, tri_test), child, supers, torch.as_tensor(o), torch.as_tensor(d),
+        T_MIN, T_MAX, RPT_HIER, branch, tri_test,
+    )
+    assert_flags_match(got, want, n, parked)
+
+
+def test_occluded_streamed_independent_of_block_clusters(many):
+    """As for the closest hit: block_clusters only pads, so the flags are
+    the same whatever it is."""
+    _, t = many
+    ta = t.accel
+    o, d = (torch.as_tensor(x) for x in random_rays(23, 2000, 100))
+    outs = [
+        ic.occluded_clusters_streamed(ta.tris16bw, *ic.streamed_pads(ta.aabb8, bc, 8), o, d,
+                                      T_MIN, T_MAX, RPT_HIER, 8)
+        for bc in (8, 40, 96)
+    ]
+    for other in outs[1:]:
+        assert torch.equal(outs[0], other)
+    assert outs[0].any() and not outs[0].all()
+
+
+def test_occluded_brute_matches_jax(scenes):
+    j, t = scenes
+    o, d = random_rays(24, 1000)
+    for t_max in (T_MAX, 3.0):
+        want = j_isect.occluded_brute(j.vertices, jnp.asarray(o), jnp.asarray(d), T_MIN, t_max)
+        got = isect.occluded_brute(t.vertices, torch.as_tensor(o), torch.as_tensor(d), T_MIN, t_max)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("route", ["flat", "hier", "streamed"])
+@pytest.mark.parametrize("t_max", [T_MAX, 3.0], ids=["infinite", "segment"])
+def test_plain_occluded_matches_brute(scenes, many, route, t_max):
+    """At a small packet size, the any-hit flags equal brute force: a
+    segment is blocked exactly when some triangle meets it (over the whole
+    ray, and over a finite segment, where the box votes use t_max)."""
+    _, t = scenes if route == "flat" else many
+    ta = t.accel
+    o, d = (torch.as_tensor(x) for x in random_rays(25, 2000))
+    if route == "flat":
+        got = ic.occluded_clusters(ta.tris16bw, ta.aabb8, ta.order, o, d, T_MIN, t_max, 32)
+    elif route == "hier":
+        got = ic.occluded_clusters_hier(ta.tris16bw, ta.aabb8_child, ta.aabb8_super, ta.order_super,
+                                        o, d, T_MIN, t_max, 32, 8)
+    else:
+        got = ic.occluded_clusters_streamed(ta.tris16bw, *ic.streamed_pads(ta.aabb8), o, d, T_MIN, t_max, 32, 16)
+    want = isect.occluded_brute(t.vertices, o, d, T_MIN, t_max)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert 200 < int(want.sum()) < 1800
+
+
+def jax_occluded_streamed(ja, o, d, active, jcfg):
+    """The JAX accel's streamed any-hit branch composed by hand (its 6 MB
+    line is fixed): park the inactive lanes, octant_sort,
+    occluded_clusters_pallas_streamed at twice the super branch, restore."""
+    park = ja.scene_hi + (ja.scene_hi - ja.scene_lo) + 1.0
+    o = jnp.where(active[:, None], jnp.asarray(o), park[None, :])
+    d = jnp.where(active[:, None], jnp.asarray(d), jnp.array([1.0, 0.0, 0.0], jnp.float32))
+    o_s, d_s, back = j_pallas.octant_sort(
+        o, d, ja.scene_lo, ja.scene_hi,
+        spatial_bits=7 if ja.num_clusters < 256 else 5, dir_bits=ja._dir_bits(jcfg),
+    )
+    name, tris = ja._tri(jcfg)
+    occ = j_pallas.occluded_clusters_pallas_streamed(
+        tris, ja.aabb8, o_s, d_s, T_MIN, T_MAX, rays_per_tile=ja._rpt(jcfg),
+        branch=2 * ja.super_branch, interpret=True, tri_test=name,
+    )
+    return np.asarray(back(occ))
+
+
+@pytest.mark.parametrize(
+    "which,route,sort_rays,tri_test",
+    [
+        ("scenes", "flat", "auto", "auto"),
+        ("scenes", "flat", "off", "mt"),
+        ("many", "hier", "auto", "auto"),
+        ("many", "hier", "octant", "mt"),
+        ("many", "streamed", "auto", "auto"),
+        ("scenes", "streamed", "auto", "mt"),
+    ],
+)
+def test_cluster_accel_occluded_matches_jax(request, monkeypatch, which, route, sort_rays, tri_test):
+    """ClusterAccel.occluded (parking, sort, the route's any-hit kernel,
+    restore) against the JAX accel through the Pallas kernels in
+    interpret mode, with a third of the lanes inactive: flags equal on
+    the active lanes."""
+    j, t = request.getfixturevalue(which)
+    monkeypatch.setenv("TPU_PT_PALLAS_INTERPRET", "1")
+    if route == "streamed":
+        monkeypatch.setattr(cluster_mod, "_FLAT_MAX_BYTES", 1024)
+    cfg = RenderConfig(sort_rays=sort_rays, tri_test=tri_test, intersector="cluster")
+    jcfg = JConfig(sort_rays=sort_rays, tri_test=tri_test, intersector="cluster")
+    assert t.accel.route(cfg) == route
+    o, d = random_rays(26, 3000)
+    active = np.random.RandomState(27).rand(3000) < 0.67
+    if route == "streamed":
+        want = jax_occluded_streamed(j.accel, o, d, jnp.asarray(active), jcfg)
+    else:
+        want = np.asarray(j.accel.occluded(j.vertices, jnp.asarray(o), jnp.asarray(d), T_MIN, T_MAX, jcfg,
+                                           active=jnp.asarray(active)))
+    got = t.accel.occluded(t.vertices, torch.as_tensor(o), torch.as_tensor(d), T_MIN, T_MAX, cfg,
+                           active=torch.as_tensor(active)).numpy()
+    np.testing.assert_array_equal(got[active], want[active])
+    assert 300 < got[active].sum() < active.sum() - 300
+
+
+def test_occluded_scene_routes(scenes):
+    """occluded_scene takes brute force without an accel and the accel's
+    any-hit with one; both agree on the active lanes."""
+    _, t = scenes
+    o, d = (torch.as_tensor(x) for x in random_rays(28, 500))
+    active = torch.as_tensor(np.random.RandomState(29).rand(500) < 0.5)
+    cfg = RenderConfig(intersector="auto")
+    acc = isect.occluded_scene(t, o, d, T_MIN, T_MAX, cfg, active=active)
+    brute = isect.occluded_scene(t.replace(accel=None), o, d, T_MIN, T_MAX, cfg, active=active)
+    assert torch.equal(acc[active], brute[active])
+    assert torch.equal(brute, isect.occluded_brute(t.vertices, o, d, T_MIN, T_MAX))
+    with pytest.raises(ValueError):
+        isect.occluded_scene(t.replace(accel=None), o, d, T_MIN, T_MAX, RenderConfig(intersector="cluster"))
+
+
+@pytest.mark.parametrize("route", ["flat", "hier", "streamed"])
+def test_occluded_cuda_wrappers_refuse_cpu_tensors(scenes, many, route):
+    """No any-hit kernel entry falls back to its plain version."""
+    ta = (scenes if route == "flat" else many)[1].accel
+    o, d = (torch.as_tensor(x) for x in random_rays(30, 32))
+    with pytest.raises(ValueError, match="CUDA"):
+        if route == "flat":
+            ic.occluded_clusters_cuda(ta.tris16bw, ta.aabb8, ta.order, o, d, T_MIN, T_MAX, RPT)
+        elif route == "hier":
+            ic.occluded_clusters_hier_cuda(ta.tris16bw, ta.aabb8_child, ta.aabb8_super, ta.order_super,
+                                           o, d, T_MIN, T_MAX, RPT_HIER, 8)
+        else:
+            ic.occluded_clusters_streamed_cuda(ta.tris16bw, *ic.streamed_pads(ta.aabb8), o, d,
+                                               T_MIN, T_MAX, RPT_HIER, 16)
+
+
+def test_plain_occluded_counts_work(scenes):
+    """The plain any-hit version counts the ray-triangle tests its kernel
+    makes: a ray not yet occluded tests a visited cluster's triangles up
+    to its first hit, so fewer than the closest hit's, which tests them
+    all, on the same rays."""
+    _, t = scenes
+    ta = t.accel
+    o, d = (torch.as_tensor(x) for x in random_rays(31, 2000))
+    any_hit, closest = {}, {}
+    ic.occluded_clusters_plain(ta.tris16bw, ta.aabb8, ta.order, o, d, T_MIN, T_MAX, RPT, stats=any_hit)
+    ic.intersect_clusters_plain(ta.tris16bw, ta.aabb8, ta.order, o, d, T_MIN, T_MAX, RPT, stats=closest)
+    assert 0 < any_hit["tests"] < closest["tests"]
+    assert closest["tests"] == closest["visits"] * RPT * ta.cluster_size
+    assert 0 < any_hit["visits"] <= closest["visits"]

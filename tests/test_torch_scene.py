@@ -19,6 +19,7 @@ from tpu_pathtracer.scene import scene as j_scene  # noqa: E402
 from tpu_pathtracer.utils.image import procedural_hdr as j_hdr  # noqa: E402
 
 from tpu_pathtracer_torch.accel.build import build_accel  # noqa: E402
+from tpu_pathtracer_torch.accel.cluster import build_cluster_accel  # noqa: E402
 from tpu_pathtracer_torch.bridge import scene_from_numpy  # noqa: E402
 from tpu_pathtracer_torch.config import RenderConfig  # noqa: E402
 from tpu_pathtracer_torch.scene import procedural, scene  # noqa: E402
@@ -28,14 +29,15 @@ LEAF_FIELDS = {
     "": ("vertices", "normals", "uvs", "mat_ids", "tri_attrs"),
     "materials": ("attrs", "texture_quads", "texture_bundles", "bundled",
                   "bundled_morton", "bundled_scrambled", "bundled_pow2_dims"),
-    "env": ("data", "quads", "quads_scrambled"),
+    "env": ("data", "quads", "quads_scrambled", "cdf_rows", "cdf_cols", "alias_table"),
     "accel": ("tris16bw", "aabb8", "order", "scene_lo", "scene_hi", "aabb8_child",
               "aabb8_super", "order_super", "tris16", "cluster_size", "super_branch"),
 }
 
 
 def jax_scene_leaves(obj) -> dict:
-    """Flatten a JAX Scene (or the port's) to {field path: numpy array}."""
+    """Flatten a JAX Scene (or the port's) to {field path: numpy array};
+    fields that are None are left out."""
     leaves = {}
     for group, names in LEAF_FIELDS.items():
         holder = getattr(obj, group) if group else obj
@@ -43,6 +45,8 @@ def jax_scene_leaves(obj) -> dict:
             continue
         for name in names:
             value = getattr(holder, name)
+            if value is None:
+                continue
             if isinstance(value, torch.Tensor):
                 value = value.cpu().numpy()
             leaves[f"{group}.{name}" if group else name] = np.asarray(value)
@@ -82,7 +86,7 @@ def test_procedural_hdr_matches_jax():
 @pytest.mark.parametrize("shape", [(32, 64), (12, 20)])
 def test_make_env_matches_jax(shape):
     hdr = j_hdr(*shape)
-    got = scene.make_env(hdr)
+    got = scene.make_env(hdr, "cpu")
     want = j_scene.make_env(hdr)
     np.testing.assert_array_equal(got.data.numpy(), np.asarray(want.data))
     np.testing.assert_array_equal(got.quads.numpy(), np.asarray(want.quads))
@@ -95,21 +99,21 @@ def test_three_spheres_with_accel_matches_jax():
         j_proc.three_spheres_scene(8, 16).replace(env=j_scene.make_env(hdr)),
         kind="cluster",
     )
-    got = build_accel(procedural.three_spheres_scene(8, 16).replace(env=scene.make_env(hdr)))
+    got = build_accel(procedural.three_spheres_scene(8, 16, device="cpu").replace(env=scene.make_env(hdr, "cpu")))
     assert_leaves_equal(got, jax_scene_leaves(want))
 
 
 @pytest.mark.parametrize(
     "make",
     [
-        lambda m: m.single_sphere_scene(stacks=6, slices=12),
-        lambda m: m.high_poly_scene(total_tris=2000, n_objects=3, seed=3),
+        lambda m, **kw: m.single_sphere_scene(stacks=6, slices=12, **kw),
+        lambda m, **kw: m.high_poly_scene(total_tris=2000, n_objects=3, seed=3, **kw),
     ],
     ids=["single_sphere", "high_poly"],
 )
 def test_other_procedural_scenes_match_jax(make):
     want = j_build_accel(make(j_proc), kind="cluster", cluster_size=64)
-    got = build_accel(make(procedural), kind="cluster", cluster_size=64)
+    got = build_accel(make(procedural, device="cpu"), kind="cluster", cluster_size=64)
     assert_leaves_equal(got, jax_scene_leaves(want))
 
 
@@ -121,7 +125,7 @@ def test_other_procedural_scenes_match_jax(make):
 def test_material_table_matches_jax(dims):
     mats, pool = textured_materials(np.random.RandomState(7), dims)
     want = j_scene.make_material_table(mats, pool)
-    got = scene.make_material_table(mats, pool)
+    got = scene.make_material_table(mats, pool, device="cpu")
     np.testing.assert_array_equal(got.attrs.numpy(), np.asarray(want.attrs))
     np.testing.assert_array_equal(got.texture_quads.numpy(), np.asarray(want.texture_quads).astype(np.int64))
     np.testing.assert_array_equal(got.texture_bundles.numpy(), np.asarray(want.texture_bundles).astype(np.int64))
@@ -132,8 +136,8 @@ def test_material_table_matches_jax(dims):
 @pytest.mark.parametrize(
     "make,cluster_size",
     [
-        (lambda m: m.three_spheres_scene(8, 16), 8),
-        (lambda m: m.high_poly_scene(total_tris=13_000), 128),
+        (lambda m, **kw: m.three_spheres_scene(8, 16, **kw), 8),
+        (lambda m, **kw: m.high_poly_scene(total_tris=13_000, **kw), 128),
     ],
     ids=["three_spheres_97_clusters", "high_poly_98_clusters"],
 )
@@ -142,7 +146,7 @@ def test_two_level_accel_matches_jax(make, cluster_size):
     with far point padding, super boxes from real children only, super
     visit orders) and the Moller-Trumbore rows, bit for bit."""
     want = j_build_accel(make(j_proc), kind="cluster", cluster_size=cluster_size)
-    got = build_accel(make(procedural), kind="cluster", cluster_size=cluster_size)
+    got = build_accel(make(procedural, device="cpu"), kind="cluster", cluster_size=cluster_size)
     acc = got.accel
     assert acc.num_clusters >= RenderConfig().hier_min_clusters
     assert acc.num_clusters % acc.super_branch != 0  # a part-padded last super
@@ -172,7 +176,7 @@ def test_bridge_two_level_scene_intersects():
     assert carried.accel.super_branch == want.accel.super_branch == 8
     cfg = RenderConfig()
     assert carried.accel.route(cfg) == "hier"
-    built = build_accel(procedural.three_spheres_scene(8, 16), cluster_size=8)
+    built = build_accel(procedural.three_spheres_scene(8, 16, device="cpu"), cluster_size=8)
     rs = np.random.RandomState(3)
     o = torch.as_tensor((rs.randn(1000, 3) * 3).astype(np.float32))
     d = torch.as_tensor(rs.randn(1000, 3).astype(np.float32))
@@ -208,6 +212,8 @@ def test_config_defaults_match_jax():
         dict(hier_min_clusters=1),
         dict(stream_lanes=-1),
         dict(env_importance_sampling=True),
+        dict(nee_defensive_mix=True),
+        dict(nee_mis_spec=True),
     ],
 )
 def test_config_validation_matches_jax(bad):
@@ -215,3 +221,28 @@ def test_config_validation_matches_jax(bad):
         JConfig(**bad)
     with pytest.raises(ValueError):
         RenderConfig(**bad)
+
+
+@pytest.mark.parametrize(
+    "make",
+    [
+        lambda: procedural.three_spheres_scene(4, 8).vertices,
+        lambda: procedural.single_sphere_scene(stacks=4, slices=8).vertices,
+        lambda: procedural.high_poly_scene(total_tris=500, n_objects=2).vertices,
+        lambda: scene.make_env(j_hdr(8, 16)).data,
+        lambda: scene.default_env().data,
+        lambda: scene.make_material_table([dict(color=(0.5, 0.5, 0.5))]).attrs,
+        lambda: build_cluster_accel(procedural.three_spheres_scene(4, 8, device="cpu").vertices.numpy()).aabb8,
+    ],
+    ids=["three_spheres", "single_sphere", "high_poly", "make_env", "default_env", "material_table",
+         "cluster_accel"],
+)
+def test_constructors_default_to_the_card(make):
+    """The entry points build on the card unless asked for another device;
+    without a card they refuse, naming device='cpu', instead of building
+    on the CPU."""
+    if torch.cuda.is_available():
+        assert make().is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()

@@ -1,7 +1,7 @@
 """The PyTorch port's shading against the JAX package: `_shade` on fixed
 hit records (plain, glass, emissive, metallic and textured materials, in
-the three texture-pool layouts), `eval_env`, texture sampling and the BSDF
-terms."""
+the three texture-pool layouts), including the fields that next-event
+estimation reads, `eval_env`, texture sampling and the BSDF terms."""
 
 import numpy as np
 import pytest
@@ -33,6 +33,10 @@ from tpu_pathtracer_torch.scene import scene  # noqa: E402
 RTOL, ATOL = 1e-5, 1e-6
 FLOAT_KEYS = ("new_origin", "new_direction", "att_factor", "emission")
 BOOL_KEYS = ("att_ok", "emissive", "degenerate", "done")
+# The fields next-event estimation reads.
+NEE_FLOAT_KEYS = ("normal", "diffuse_albedo", "spec_prob", "idotn", "brdf_combined", "spec_dir",
+                  "f_vec", "alpha")
+NEE_BOOL_KEYS = ("glass", "choose_spec")
 
 # Texture layouts: for each of the two textured materials, the (w, h) of
 # its albedo, roughness, normal and metallic maps.  A material whose maps
@@ -86,7 +90,8 @@ def build_scenes(layout):
     v, n, uvs, ids = geometry(rs)
     env = procedural_hdr(16, 32)
     j = j_scene.make_scene(v, n, uvs, ids, j_scene.make_material_table(mats, pool), j_scene.make_env(env))
-    t = scene.make_scene(v, n, uvs, ids, scene.make_material_table(mats, pool), scene.make_env(env))
+    t = scene.make_scene(v, n, uvs, ids, scene.make_material_table(mats, pool, device="cpu"),
+                         scene.make_env(env, "cpu"), device="cpu")
     return j, t
 
 
@@ -133,14 +138,14 @@ def test_shade_seeds_exact(shaded):
     np.testing.assert_array_equal(got["seeds"].numpy().astype(np.uint32), np.asarray(want["seeds"]))
 
 
-@pytest.mark.parametrize("key", BOOL_KEYS)
+@pytest.mark.parametrize("key", BOOL_KEYS + NEE_BOOL_KEYS)
 def test_shade_flags_match_jax(shaded, key):
     _, _, hit, got, want = shaded
     m = hit["hit"]
     np.testing.assert_array_equal(got[key].numpy()[m], np.asarray(want[key])[m])
 
 
-@pytest.mark.parametrize("key", FLOAT_KEYS)
+@pytest.mark.parametrize("key", FLOAT_KEYS + NEE_FLOAT_KEYS)
 def test_shade_outputs_match_jax(shaded, key):
     """Hit lanes to rtol 1e-5, atol 1e-6 on 99.5% of values and 100x that
     on all: XLA:CPU contracts multiply-adds into FMAs (see
@@ -154,6 +159,19 @@ def test_shade_outputs_match_jax(shaded, key):
     assert_close_fma(got[key].numpy()[m], np.asarray(want[key])[m], rtol=RTOL, atol=ATOL, loose=100.0)
 
 
+def test_shade_spec_pdf_matches_jax(shaded):
+    """spec_pdf = D n.h / (4 v.h).  At alpha near roughness_min^2 the GGX
+    D divides by (n.h)^2 (alpha^2 - 1) + 1, which cancels, so one rounding
+    of n.h (XLA:CPU's fused multiply-adds, see assert_close_fma) moves it
+    by up to 7.2% (measured on these lanes, three layouts: 27% outside
+    rtol 1e-5, 99% within 1e-2).  brdf_combined, where D cancels, is held
+    to 1e-5 above.  Here: 99% of hit lanes within rtol 1e-2, all within
+    1e-1."""
+    _, _, hit, got, want = shaded
+    m = hit["hit"]
+    assert_close_fma(got["spec_pdf"].numpy()[m], np.asarray(want["spec_pdf"])[m], rtol=1e-2, loose=10.0, share=0.99)
+
+
 @pytest.mark.parametrize("mode,shape", [("equirect", (32, 64)), ("equirect", (12, 20)), ("sunsky", None), ("constant", None)])
 def test_eval_env_matches_jax(mode, shape):
     rs = np.random.RandomState(13)
@@ -162,7 +180,7 @@ def test_eval_env_matches_jax(mode, shape):
     d[3:200] = [0.0, 2.0, 3.0] + rs.randn(197, 3).astype(np.float32) * 0.05  # sun
     hdr = procedural_hdr(*(shape or (8, 16)))
     want = j_envmap.eval_env(j_scene.make_env(hdr), jnp.asarray(d), JConfig(env_mode=mode))
-    got = envmap.eval_env(scene.make_env(hdr), torch.as_tensor(d), RenderConfig(env_mode=mode))
+    got = envmap.eval_env(scene.make_env(hdr, "cpu"), torch.as_tensor(d), RenderConfig(env_mode=mode))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
 
 
@@ -177,7 +195,7 @@ def test_texture_sampling_matches_jax(layout):
     dims) on every textured material, with u, v wrapping."""
     rs = np.random.RandomState(14)
     mats, pool = materials_for(LAYOUTS[layout], rs)
-    jt, tt = j_scene.make_material_table(mats, pool), scene.make_material_table(mats, pool)
+    jt, tt = j_scene.make_material_table(mats, pool), scene.make_material_table(mats, pool, device="cpu")
     u, v = _tex_inputs(15)
     n = len(u)
     rows = np.asarray(jt.attrs)[np.array([0, 3])[np.arange(n) % 2]]

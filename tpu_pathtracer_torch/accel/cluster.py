@@ -3,7 +3,8 @@ orders and a supercluster level, traversed by the packet kernels
 (`ops.intersect_cluster`).
 
 Counterpart of `tpu_pathtracer/accel/cluster.py` (the Pallas branches of
-`ClusterAccel.intersect`, `build_cluster_accel`) and of
+`ClusterAccel.intersect` and `ClusterAccel.occluded`,
+`build_cluster_accel`) and of
 `pack_cluster_tris`, `pack_cluster_tris_bw` and `octant_orders` in
 `ops/intersect_pallas.py`.  The build runs in numpy and gives the JAX
 package's arrays bit for bit.
@@ -17,11 +18,15 @@ import numpy as np
 import torch
 
 from tpu_pathtracer_torch.ops.intersect import Hit
+from tpu_pathtracer_torch.utils.device import DEFAULT_DEVICE, resolve
 from tpu_pathtracer_torch.ops.intersect_cluster import (
     MISS_PRIM,
     intersect_clusters,
     intersect_clusters_hier,
     intersect_clusters_streamed,
+    occluded_clusters,
+    occluded_clusters_hier,
+    occluded_clusters_streamed,
     octant_sort,
     restore,
     streamed_pads,
@@ -143,6 +148,37 @@ class ClusterAccel:
             hit=hit,
         )
 
+    def shadow_sort(self, origins, directions, cfg, active=None):
+        """The shadow rays as `occluded` traces them: (origins, directions,
+        perm) after parking and the coherence sort.  With a mask, inactive
+        lanes are parked only when the batch is sorted: moved outside the
+        scene box to scene_hi + (scene_hi - scene_lo) + 1, pointing +x, so
+        they overlap no box and, sharing one sort key, fill packets of
+        their own.  Unsorted, parked lanes would sit in every packet and
+        block its all-occluded exit while compacting nothing."""
+        if active is not None and self._want_sort(cfg):
+            park = self.scene_hi + (self.scene_hi - self.scene_lo) + 1.0
+            plus_x = torch.tensor([1.0, 0.0, 0.0], dtype=directions.dtype, device=directions.device)
+            origins = torch.where(active[:, None], origins, park[None, :])
+            directions = torch.where(active[:, None], directions, plus_x)
+        return self.sort(origins, directions, cfg)
+
+    def occluded(self, vertices, origins, directions, t_min, t_max, cfg, active=None) -> torch.Tensor:
+        """Any hit over all clusters: [N] bool, True where the segment
+        (t_min, t_max) is blocked.  The same sort and route as `intersect`,
+        through the route's any-hit kernel, flags restored to caller order.
+        Lanes outside `active` are parked (see shadow_sort); their flags
+        are unspecified and callers mask on `active`."""
+        origins, directions, perm = self.shadow_sort(origins, directions, cfg, active)
+        route, args = self.traversal(origins, directions, t_min, t_max, cfg)
+        wrapper = {
+            "flat": occluded_clusters,
+            "hier": occluded_clusters_hier,
+            "streamed": occluded_clusters_streamed,
+        }[route]
+        occ = wrapper(*args)
+        return occ if perm is None else restore(occ, perm)
+
 
 def octant_orders(aabbs: np.ndarray) -> np.ndarray:
     """[8,C] front-to-back cluster order per direction octant: clusters
@@ -221,9 +257,10 @@ def super_boxes(aabb8: np.ndarray, branch: int):
 
 
 def build_cluster_accel(vertices: np.ndarray, cluster_size: int = 128, super_branch: int = 8,
-                        device="cpu") -> ClusterAccel:
+                        device=DEFAULT_DEVICE) -> ClusterAccel:
     """Cluster boxes, visit orders, supers and rows over Morton-permuted
-    [T,3,3] vertices."""
+    [T,3,3] vertices, on the card unless given another device."""
+    device = resolve(device)
     t_count = vertices.shape[0]
     c = max(1, -(-t_count // cluster_size))
     pad = c * cluster_size - t_count

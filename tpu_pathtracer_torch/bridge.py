@@ -5,7 +5,8 @@ to a dict of numpy arrays named by field path ("vertices",
 "materials.attrs", "env.quads", "accel.tris16bw", ...), with each static
 field (the texture-layout flags, the accel's cluster size and super
 branch) as a 0-d array, and hands that dict over: the port never sees a
-JAX object.  The layouts are the same on both sides, so every leaf is a
+JAX object.  Optional leaves (the accel, the environment's importance-
+sampling tables) are carried when the dict holds them.  The layouts are the same on both sides, so every leaf is a
 plain copy.
 """
 
@@ -21,6 +22,7 @@ SCENE_KEYS = ("vertices", "normals", "uvs", "mat_ids", "tri_attrs")
 MATERIAL_KEYS = ("attrs", "texture_quads", "texture_bundles")
 MATERIAL_FLAGS = ("bundled", "bundled_morton", "bundled_scrambled", "bundled_pow2_dims")
 ENV_KEYS = ("data", "quads")
+ENV_TABLES = ("cdf_rows", "cdf_cols", "alias_table")
 ACCEL_KEYS = ("tris16bw", "aabb8", "order", "scene_lo", "scene_hi",
               "aabb8_child", "aabb8_super", "order_super", "tris16")
 ACCEL_STATICS = ("cluster_size", "super_branch")
@@ -45,6 +47,7 @@ def scene_from_numpy(leaves: dict, device) -> Scene:
     )
     env = EnvironmentMap(
         **{k: t(f"env.{k}") for k in ENV_KEYS},
+        **{k: t(f"env.{k}") for k in ENV_TABLES if f"env.{k}" in leaves},
         quads_scrambled=bool(leaves["env.quads_scrambled"]),
     )
     accel = None

@@ -6,7 +6,7 @@ Fields that only steer TPU machinery (scoped-VMEM budgets, the Pallas
 switch and packet size, the fused schedule kernel, the retire FIFO's
 scatter batching) and options that were measured and refuted on the TPU
 (tiled pixel order, multi-queue NEE, entry sort) are not carried; nor are
-the options of paths not ported yet (NEE's mixture and MIS, texture LOD).
+the options of paths not ported yet (texture LOD).
 """
 
 from __future__ import annotations
@@ -64,8 +64,17 @@ class RenderConfig:
     # ---- environment lighting ------------------------------------------
     env_mode: str = "equirect"      # "equirect" | "sunsky" | "constant"
     env_constant: Tuple[float, float, float] = (0.4, 0.4, 0.6)
-    # Next-event estimation against the environment (not ported yet).
+    # Next-event estimation against the environment: one alias-table light
+    # draw and one shadow ray per surface hit (needs rr_mode="standard").
     env_importance_sampling: bool = False
+    # Draw the NEE light direction from 0.5*alias + 0.5*cosine and divide
+    # by the mixture density (balance heuristic).
+    nee_defensive_mix: bool = False
+    # One-sample balance-heuristic MIS between the GGX lobe and the NEE
+    # light draw: env credit on spec-sampled misses is weighted
+    # p_ggx/(p_ggx + p_light), and the light-sampled spec term rides the
+    # same shadow ray.
+    nee_mis_spec: bool = False
 
     # ---- intersection ----------------------------------------------------
     # Rays per batch tile; 0 = whole frame (tiling is not ported yet).
@@ -101,6 +110,16 @@ class RenderConfig:
                 "env_importance_sampling (NEE) requires rr_mode='standard': "
                 "the reference RR estimator's terminal /p division would "
                 "bias mid-path NEE contributions"
+            )
+        if self.nee_defensive_mix and not self.env_importance_sampling:
+            raise ValueError(
+                "nee_defensive_mix is a mode of the NEE light sample: "
+                "it requires env_importance_sampling=True"
+            )
+        if self.nee_mis_spec and not self.env_importance_sampling:
+            raise ValueError(
+                "nee_mis_spec combines the spec lobe with the NEE light "
+                "sample: it requires env_importance_sampling=True"
             )
         if self.env_mode not in ("equirect", "sunsky", "constant"):
             raise ValueError(f"invalid env_mode: {self.env_mode!r}")

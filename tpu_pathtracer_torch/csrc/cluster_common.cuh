@@ -1,8 +1,10 @@
-// Device code shared by the closest-hit cluster traversal kernels
-// (cluster_intersect.cu, cluster_hier.cu, cluster_streamed.cu): the
-// counterparts of _packet_rays, _octant_of, _slab_hits, _bw_tests,
-// _mt_tests and _mt_best in tpu_pathtracer/ops/intersect_pallas.py, and the
-// two-level body that cluster_hier.cu and cluster_streamed.cu instantiate.
+// Device code shared by the cluster traversal kernels, closest hit
+// (cluster_intersect.cu, cluster_hier.cu, cluster_streamed.cu) and any hit
+// (cluster_occluded.cu, cluster_occluded_hier.cu,
+// cluster_occluded_streamed.cu): the counterparts of _packet_rays,
+// _octant_of, _slab_hits, _bw_tests, _mt_tests and _mt_best in
+// tpu_pathtracer/ops/intersect_pallas.py, and the two-level bodies that the
+// hier and streamed entry files instantiate.
 //
 // Every kernel builds with -fmad=false and IEEE division, and computes in
 // the operation order of its plain PyTorch version
@@ -18,6 +20,17 @@
 // those whose own slab test failed, tests all K triangles.  Within a
 // cluster the smallest t wins and equal t goes to the lowest triangle id;
 // across clusters a strictly smaller t wins, in visit order.
+//
+// Any hit keeps an occluded flag per ray instead of a winner.  A box is
+// voted on by the rays not yet occluded, against t_max; a staged cluster
+// sets the flag of every ray of the packet that meets one of its
+// triangles, the first valid triangle ending that ray's loop.  The TPU
+// kernels' "stop once every ray is occluded" is a block decision,
+// __syncthreads_and(occluded), taken at one loop point by every thread
+// (after a cluster in the flat kernel, after a super in the two-level
+// ones): a thread that is done keeps reaching every barrier.  Padding and
+// parked rays are never occluded, so a packet holding one never exits
+// early; that changes no flag, only the work.
 //
 // Triangle rows ([C,K,16] f32, four float4 per triangle):
 //   Baldwin-Weber: n (0:3), d0 = n.v0 (3), p1 (4:7), c1 = -p1.v0 (7),
@@ -261,6 +274,102 @@ int launch_two_level(const float* tris, const float* aabb_child, const float* aa
     two_level_kernel<kStreamed, kBaldwinWeber><<<packets, rays_per_packet, smem, st>>>(
         rows, aabb_child, aabb_super, order_super, origins, dirs, n, num_supers, branch,
         num_clusters, cluster_k, t_min, t_max, t_out, prim_out, uv_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// Any hit
+// ---------------------------------------------------------------------------
+
+// Does the ray meet any of the K triangles staged in `rows`?
+template <int kTest>
+__device__ __forceinline__ bool any_hit_cluster(const float4* rows, int cluster_k, const Ray& r,
+                                                float t_min, float t_max) {
+  for (int k = 0; k < cluster_k; ++k) {
+    float t, u, v;
+    bool ok;
+    if (kTest == kMollerTrumbore) {
+      mt_test(rows + 4 * k, r, t_min, t_max, t, u, v, ok);
+    } else {
+      bw_test(rows + 4 * k, r, t_min, t_max, t, u, v, ok);
+    }
+    if (ok) return true;
+  }
+  return false;
+}
+
+// The block stages cluster row `row` and every ray not yet occluded tests
+// its triangles.  Every thread of the block must call it.
+template <int kTest>
+__device__ __forceinline__ void occlude_cluster(float4* rows, const float4* tris, int row, int cluster_k,
+                                                const Ray& r, float t_min, float t_max, bool& occluded) {
+  stage_rows(rows, tris, row, cluster_k);
+  __syncthreads();
+  if (!occluded) occluded = any_hit_cluster<kTest>(rows, cluster_k, r, t_min, t_max);
+  __syncthreads();  // the next cluster overwrites the rows
+}
+
+// Two-level any hit: two_level_kernel's visit orders, row clamp and
+// c < num_clusters gate, with the any-hit votes and the exit after a super.
+template <bool kStreamed, int kTest>
+__global__ void __launch_bounds__(1024) two_level_occluded_kernel(
+    const float4* __restrict__ tris,        // [C,K,4] float4
+    const float* __restrict__ aabb_child,   // [S*branch,8]
+    const float* __restrict__ aabb_super,   // [S,8]
+    const int* __restrict__ order_super,    // [8,S]
+    const float* __restrict__ origins,      // [N,3]
+    const float* __restrict__ dirs,         // [N,3]
+    int n, int num_supers, int branch, int num_clusters, int cluster_k,
+    float t_min, float t_max,
+    unsigned char* __restrict__ occ_out) {  // [N] bool
+  extern __shared__ float4 rows[];  // [K,4] float4: one cluster
+  __shared__ int octant;
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const Ray r = load_ray(origins, dirs, i, n);
+  if (!kStreamed) {
+    if (threadIdx.x == 0) octant = octant_of(r);  // the packet's first ray
+    __syncthreads();
+  }
+  bool occluded = false;
+
+  for (int pos = 0; pos < num_supers; ++pos) {
+    const int s = kStreamed ? pos : order_super[octant * num_supers + pos];
+    if (!__syncthreads_or(!occluded && slab_hits(aabb_super + 8 * s, r, t_min, t_max))) continue;
+    for (int j = 0; j < branch; ++j) {
+      const int c = s * branch + j;
+      if (kStreamed && c >= num_clusters) break;  // the same c for every thread
+      if (!__syncthreads_or(!occluded && slab_hits(aabb_child + 8 * c, r, t_min, t_max))) continue;
+      occlude_cluster<kTest>(rows, tris, kStreamed ? c : min(c, num_clusters - 1), cluster_k, r,
+                             t_min, t_max, occluded);
+    }
+    if (__syncthreads_and(occluded)) break;  // every ray of the packet is occluded
+  }
+  if (i < n) occ_out[i] = occluded ? 1 : 0;
+}
+
+// Launches one block of `rays_per_packet` threads per packet on `stream`.
+// Returns cudaGetLastError() after the launch (0 = launched).
+template <bool kStreamed>
+int launch_two_level_occluded(const float* tris, const float* aabb_child, const float* aabb_super,
+                              const int* order_super, const float* origins, const float* dirs,
+                              int n, int num_supers, int branch, int num_clusters, int cluster_k,
+                              float t_min, float t_max, int rays_per_packet, int tri_test,
+                              unsigned char* occ_out, void* stream) {
+  if (n <= 0) return 0;
+  const int packets = (n + rays_per_packet - 1) / rays_per_packet;
+  const size_t smem = static_cast<size_t>(cluster_k) * 16 * sizeof(float);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float4* rows = reinterpret_cast<const float4*>(tris);
+  if (tri_test == kMollerTrumbore) {
+    two_level_occluded_kernel<kStreamed, kMollerTrumbore><<<packets, rays_per_packet, smem, st>>>(
+        rows, aabb_child, aabb_super, order_super, origins, dirs, n, num_supers, branch,
+        num_clusters, cluster_k, t_min, t_max, occ_out);
+  } else {
+    two_level_occluded_kernel<kStreamed, kBaldwinWeber><<<packets, rays_per_packet, smem, st>>>(
+        rows, aabb_child, aabb_super, order_super, origins, dirs, n, num_supers, branch,
+        num_clusters, cluster_k, t_min, t_max, occ_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
 """Ray-triangle intersection: the Hit record, blocked brute-force
-Moller-Trumbore (the CPU oracle) and the intersector dispatch.
+Moller-Trumbore (the CPU oracle) for closest and any hit, and the
+intersector dispatch for both.
 
 Counterpart of `tpu_pathtracer/ops/intersect.py`.  Triangles are two-sided.
 """
@@ -123,3 +124,33 @@ def intersect_scene(scene, origins, directions, t_min, t_max, cfg) -> Hit:
     if scene.accel is None:
         raise ValueError(f"intersector {mode!r} requested but scene has no accel")
     return scene.accel.intersect(scene.vertices, origins, directions, t_min, t_max, cfg)
+
+
+def occluded_brute(vertices, origins, directions, t_min: float, t_max: float, block: int = 256) -> torch.Tensor:
+    """Any hit by exhaustive blocked search: [N] bool, True where the
+    segment (t_min, t_max) of the ray meets a triangle."""
+    t_count = vertices.shape[0]
+    block = max(8, min(block, max(t_count, 8)))
+    pad = (-t_count) % block
+    if pad:
+        vertices = torch.cat([vertices, vertices.new_zeros((pad, 3, 3))])
+    occ = torch.zeros(origins.shape[0], dtype=torch.bool, device=origins.device)
+    for base in range(0, vertices.shape[0], block):
+        _, _, _, valid = _mt_block(origins, directions, vertices[base : base + block], t_min, t_max)
+        occ = occ | valid.any(dim=1)
+    return occ
+
+
+def occluded_scene(scene, origins, directions, t_min, t_max, cfg, active=None) -> torch.Tensor:
+    """Any-hit dispatch for shadow rays, by the rule of intersect_scene.
+    `active` ([N] bool) marks the rays whose answer is read; the others'
+    answers are unspecified (the cluster accel parks them outside the
+    scene, so they stop keeping packets alive)."""
+    mode = cfg.intersector
+    if mode == "auto":
+        mode = "brute" if scene.accel is None else "cluster"
+    if mode == "brute":
+        return occluded_brute(scene.vertices, origins, directions, t_min, t_max, cfg.intersect_block)
+    if scene.accel is None:
+        raise ValueError(f"intersector {mode!r} requested but scene has no accel")
+    return scene.accel.occluded(scene.vertices, origins, directions, t_min, t_max, cfg, active=active)

@@ -2,17 +2,20 @@
 CUDA kernels' wrappers and their plain PyTorch versions.
 
 Counterpart of `tpu_pathtracer/ops/intersect_pallas.py`: `ray_sort_key`,
-`octant_sort`/`sort_by_key`, `_streamed_pads`, and the closest-hit entries
+`octant_sort`/`sort_by_key`, `_streamed_pads`, the closest-hit entries
 `intersect_clusters_pallas` (flat), `intersect_clusters_pallas_hier`
 (two-level) and `intersect_clusters_pallas_streamed` (scenes beyond 6 MB
-of rows), each with its Baldwin-Weber ("bw") and Moller-Trumbore ("mt")
-triangle test.  The kernels are `csrc/cluster_intersect.cu`,
-`csrc/cluster_hier.cu` and `csrc/cluster_streamed.cu`; each wrapper
-launches its kernel for CUDA tensors and runs its plain version for CPU
-tensors.  All take the packet size as a parameter: a packet takes its
-visit order from its first ray and tests a cluster when any of its rays
-overlaps it, so the packet size can change which cluster wins an exact
-tie in t.
+of rows), and the any-hit entries of the same three routes
+(`occluded_clusters_pallas`, `_hier`, `_streamed`), each with its
+Baldwin-Weber ("bw") and Moller-Trumbore ("mt") triangle test.  The
+kernels are `csrc/cluster_intersect.cu`, `cluster_hier.cu`,
+`cluster_streamed.cu`, `cluster_occluded.cu`, `cluster_occluded_hier.cu`
+and `cluster_occluded_streamed.cu`; each wrapper launches its kernel for
+CUDA tensors and runs its plain version for CPU tensors.  All take the
+packet size as a parameter: a packet takes its visit order from its
+first ray and tests a cluster when any of its rays overlaps it, so the
+packet size can change which cluster wins an exact tie in t, and which
+ray a rounding miss of a box leaves untested.
 """
 
 from __future__ import annotations
@@ -156,36 +159,38 @@ def _mt_tests(tri, ox, oy, oz, dx, dy, dz, t_min, t_max):
 _TRI_TESTS = {"bw": _bw_tests, "mt": _mt_tests}
 
 
-class _Packets:
-    """The plain versions' state: the rays cut into [P,R] packets, padded
-    as the kernels pad them, and each ray's running winner.  Both methods
-    work on a subset `idx` of the packets, so a traversal computes only
-    for the packets that a box gate lets through, as the kernels do."""
+class _PacketRays:
+    """The plain versions' rays: cut into [P,R] packets and padded as the
+    kernels pad them, each packet with the visit octant of its first ray.
+    The traversals work on a subset `idx` of the packets, so they compute
+    only for the packets that a box gate lets through, as the kernels do.
 
-    def __init__(self, tris, origins, directions, t_min, t_max, rays_per_tile, tri_test):
+    `stats`, when given a dict, counts what the kernel computes for these
+    inputs: "visits", the (packet, cluster) pairs staged, and "tests",
+    the ray-triangle tests made."""
+
+    def __init__(self, tris, origins, directions, t_min, t_max, rays_per_tile, tri_test, stats):
         if tri_test not in _TRI_TESTS:
             raise ValueError(f"unknown tri_test {tri_test!r}")
         self.n = origins.shape[0]
+        self.r = rays_per_tile
         self.o, self.d = _pad_rays(origins, directions, rays_per_tile)
         self.inv = [_inv(x) for x in self.d]
         p = self.o[0].shape[0]
-        dev = origins.device
-        self.all = torch.arange(p, device=dev)
+        self.all = torch.arange(p, device=origins.device)
         dx, dy, dz = self.d
-        # The packet's visit order comes from its first ray.
         self.octant = (dx[:, 0] > 0).long() + 2 * (dy[:, 0] > 0).long() + 4 * (dz[:, 0] > 0).long()
-        self.best_t = torch.full((p, rays_per_tile), t_max, dtype=torch.float32, device=dev)
-        self.best_p = torch.full((p, rays_per_tile), MISS_PRIM, dtype=torch.int32, device=dev)
-        self.best_u = torch.zeros((p, rays_per_tile), dtype=torch.float32, device=dev)
-        self.best_v = torch.zeros_like(self.best_u)
         self.tris = tris
-        self.lane = torch.arange(tris.shape[1], dtype=torch.int32, device=dev)
         self.t_min, self.t_max = t_min, t_max
         self.test = _TRI_TESTS[tri_test]
+        self.stats = stats
+        if stats is not None:
+            stats.setdefault("visits", 0)
+            stats.setdefault("tests", 0)
 
-    def overlaps(self, boxes, idx):
-        """[M] bool: does any ray of packet idx[m] overlap boxes[m] ([M,8],
-        or [1,8] for one box) before its running best t?"""
+    def slab(self, boxes, idx, t_limit):
+        """[M,R] bool: does ray r of packet idx[m] overlap boxes[m] ([M,8],
+        or [1,8] for one box) within [t_min, t_limit]?"""
         ox, oy, oz = (x[idx] for x in self.o)
         ix, iy, iz = (x[idx] for x in self.inv)
         tx0 = (boxes[:, 0:1] - ox) * ix
@@ -202,8 +207,32 @@ class _Packets:
             torch.minimum(torch.maximum(tx0, tx1), torch.maximum(ty0, ty1)),
             torch.maximum(tz0, tz1),
         )
-        overlap = (tnear <= tfar) & (tfar >= self.t_min) & (tnear <= self.best_t[idx])
-        return overlap.any(dim=1)
+        return (tnear <= tfar) & (tfar >= self.t_min) & (tnear <= t_limit)
+
+    def tests(self, idx, row):
+        """Every ray of packet idx[m] against the K triangles of rows
+        tris[row[m]]: (tc, u, v), each [M,K,R], tc = t where the test
+        passes and +inf elsewhere."""
+        rays = [x[idx][:, None] for x in (*self.o, *self.d)]             # [M,1,R]
+        return self.test(self.tris[row], *rays, self.t_min, self.t_max)
+
+
+class _Packets(_PacketRays):
+    """Closest hit: each ray's running winner."""
+
+    def __init__(self, tris, origins, directions, t_min, t_max, rays_per_tile, tri_test, stats=None):
+        super().__init__(tris, origins, directions, t_min, t_max, rays_per_tile, tri_test, stats)
+        p, dev = self.all.shape[0], origins.device
+        self.best_t = torch.full((p, rays_per_tile), t_max, dtype=torch.float32, device=dev)
+        self.best_p = torch.full((p, rays_per_tile), MISS_PRIM, dtype=torch.int32, device=dev)
+        self.best_u = torch.zeros((p, rays_per_tile), dtype=torch.float32, device=dev)
+        self.best_v = torch.zeros_like(self.best_u)
+        self.lane = torch.arange(tris.shape[1], dtype=torch.int32, device=dev)
+
+    def overlaps(self, boxes, idx):
+        """[M] bool: does any ray of packet idx[m] overlap boxes[m] before
+        its running best t?"""
+        return self.slab(boxes, idx, self.best_t[idx]).any(dim=1)
 
     def visit(self, idx, c, row):
         """Every ray of packet idx[m] tests cluster c[m], whose rows are
@@ -211,8 +240,10 @@ class _Packets:
         Within the cluster the smallest t wins, equal t the lowest id."""
         if idx.numel() == 0:
             return
-        rays = [x[idx][:, None] for x in (*self.o, *self.d)]             # [M,1,R]
-        tc, u, v = self.test(self.tris[row], *rays, self.t_min, self.t_max)  # [M,K,R]
+        tc, u, v = self.tests(idx, row)                                   # [M,K,R]
+        if self.stats is not None:
+            self.stats["visits"] += idx.numel()
+            self.stats["tests"] += tc.numel()
         t_blk = tc.amin(dim=1)
         gid = (c[:, None] * self.lane.shape[0] + self.lane[None, :]).to(torch.int32)[:, :, None]
         prim_blk = torch.where(tc == t_blk[:, None], gid, MISS_PRIM).amin(dim=1)
@@ -232,15 +263,52 @@ class _Packets:
         return self.best_t.reshape(-1)[:n], self.best_p.reshape(-1)[:n], uv
 
 
+class _Occlusion(_PacketRays):
+    """Any hit: each ray's occluded flag.  A box is voted on by the rays
+    not yet occluded, against t_max; a visited cluster sets the flag of
+    every ray of the packet that meets one of its triangles, including
+    rays whose own slab test missed the box."""
+
+    def __init__(self, tris, origins, directions, t_min, t_max, rays_per_tile, tri_test, stats=None):
+        super().__init__(tris, origins, directions, t_min, t_max, rays_per_tile, tri_test, stats)
+        self.occ = torch.zeros((self.all.shape[0], rays_per_tile), dtype=torch.bool, device=origins.device)
+
+    def overlaps(self, boxes, idx):
+        """[M] bool: does a ray of packet idx[m] that is not yet occluded
+        overlap boxes[m] within [t_min, t_max]?"""
+        return (self.slab(boxes, idx, self.t_max) & ~self.occ[idx]).any(dim=1)
+
+    def visit(self, idx, row):
+        if idx.numel() == 0:
+            return
+        ok = self.tests(idx, row)[0] < torch.inf                          # [M,K,R]
+        hit = ok.any(dim=1)
+        if self.stats is not None:
+            # A ray not yet occluded tests up to its first valid triangle.
+            k = ok.shape[1]
+            first = torch.where(hit, ok.to(torch.int8).argmax(dim=1) + 1, k)
+            self.stats["visits"] += idx.numel()
+            self.stats["tests"] += int((first * ~self.occ[idx]).sum())
+        self.occ[idx] |= hit
+
+    def unfinished(self, idx):
+        """The packets of idx that still hold a ray not occluded: a packet
+        whose rays are all occluded leaves the traversal."""
+        return idx[~self.occ[idx].all(dim=1)]
+
+    def result(self):
+        return self.occ.reshape(-1)[: self.n]
+
+
 def intersect_clusters_plain(tris, aabb8, order, origins, directions, t_min: float, t_max: float,
-                             rays_per_tile: int, tri_test: str = "bw"):
+                             rays_per_tile: int, tri_test: str = "bw", stats=None):
     """Flat closest hit with the kernel's packet semantics, in PyTorch.
 
     Rays are cut into [P,R] packets; each packet visits the clusters in
     its octant's front-to-back `order` and tests a cluster when some ray
     of the packet overlaps its box.  Returns (t [N], prim [N] i32 with
-    MISS_PRIM on a miss, uv [N,2])."""
-    pk = _Packets(tris, origins, directions, t_min, t_max, rays_per_tile, tri_test)
+    MISS_PRIM on a miss, uv [N,2]).  `stats`: see _PacketRays."""
+    pk = _Packets(tris, origins, directions, t_min, t_max, rays_per_tile, tri_test, stats)
     for pos in range(tris.shape[0]):
         c = order[pk.octant, pos]
         on = pk.overlaps(aabb8[c], pk.all)
@@ -250,14 +318,14 @@ def intersect_clusters_plain(tris, aabb8, order, origins, directions, t_min: flo
 
 def intersect_clusters_hier_plain(tris, aabb_child, aabb_super, order_super, origins, directions,
                                   t_min: float, t_max: float, rays_per_tile: int, branch: int,
-                                  tri_test: str = "bw"):
+                                  tri_test: str = "bw", stats=None):
     """Two-level closest hit with the kernel's packet semantics: each
     packet visits the supers in its octant's front-to-back `order_super`,
     and for a super some ray overlaps, its `branch` children in index
     order, testing a child some ray overlaps.  Padding children are far
     point boxes; the row index is clamped to C-1 all the same.  Returns
     as `intersect_clusters_plain`."""
-    pk = _Packets(tris, origins, directions, t_min, t_max, rays_per_tile, tri_test)
+    pk = _Packets(tris, origins, directions, t_min, t_max, rays_per_tile, tri_test, stats)
     last = tris.shape[0] - 1
     for pos in range(aabb_super.shape[0]):
         s = order_super[pk.octant, pos]
@@ -274,12 +342,12 @@ def intersect_clusters_hier_plain(tris, aabb_child, aabb_super, order_super, ori
 
 def intersect_clusters_streamed_plain(tris, aabb_child, aabb_super, origins, directions,
                                       t_min: float, t_max: float, rays_per_tile: int, branch: int,
-                                      tri_test: str = "bw"):
+                                      tri_test: str = "bw", stats=None):
     """Streamed closest hit with the kernel's packet semantics: the supers
     of `streamed_pads` in ascending id, each super's `branch` children in
     index order, children at or past the cluster count never tested.
     Returns as `intersect_clusters_plain`."""
-    pk = _Packets(tris, origins, directions, t_min, t_max, rays_per_tile, tri_test)
+    pk = _Packets(tris, origins, directions, t_min, t_max, rays_per_tile, tri_test, stats)
     num_clusters = tris.shape[0]
     for s in range(aabb_super.shape[0]):
         live = pk.all[pk.overlaps(aabb_super[s : s + 1], pk.all)]
@@ -289,6 +357,75 @@ def intersect_clusters_streamed_plain(tris, aabb_child, aabb_super, origins, dir
             on = live[pk.overlaps(aabb_child[c : c + 1], live)]
             cc = torch.full_like(on, c, dtype=torch.int32)
             pk.visit(on, cc, cc)
+    return pk.result()
+
+
+def occluded_clusters_plain(tris, aabb8, order, origins, directions, t_min: float, t_max: float,
+                            rays_per_tile: int, tri_test: str = "bw", stats=None):
+    """Flat any hit with the kernel's packet semantics, in PyTorch: each
+    packet visits the clusters in its octant's front-to-back `order` and
+    tests a cluster when a ray of the packet that is not yet occluded
+    overlaps its box within [t_min, t_max]; a packet stops once all its
+    rays are occluded.  Returns occluded [N] bool."""
+    pk = _Occlusion(tris, origins, directions, t_min, t_max, rays_per_tile, tri_test, stats)
+    live = pk.all
+    for pos in range(tris.shape[0]):
+        if live.numel() == 0:
+            break
+        c = order[pk.octant[live], pos]
+        on = pk.overlaps(aabb8[c], live)
+        pk.visit(live[on], c[on])
+        live = pk.unfinished(live)
+    return pk.result()
+
+
+def occluded_clusters_hier_plain(tris, aabb_child, aabb_super, order_super, origins, directions,
+                                 t_min: float, t_max: float, rays_per_tile: int, branch: int,
+                                 tri_test: str = "bw", stats=None):
+    """Two-level any hit with the kernel's packet semantics: supers in the
+    packet octant's front-to-back `order_super`, each passing super's
+    children in index order (row index clamped to C-1), both voted on by
+    the rays not yet occluded; a packet stops after a super once all its
+    rays are occluded.  Returns occluded [N] bool."""
+    pk = _Occlusion(tris, origins, directions, t_min, t_max, rays_per_tile, tri_test, stats)
+    last = tris.shape[0] - 1
+    live = pk.all
+    for pos in range(aabb_super.shape[0]):
+        if live.numel() == 0:
+            break
+        s = order_super[pk.octant[live], pos]
+        on = pk.overlaps(aabb_super[s], live)
+        sub, s = live[on], s[on]
+        for j in range(branch):
+            if sub.numel() == 0:
+                break
+            c = s * branch + j
+            on = pk.overlaps(aabb_child[c], sub)
+            pk.visit(sub[on], torch.clamp(c[on], max=last))
+        live = pk.unfinished(live)
+    return pk.result()
+
+
+def occluded_clusters_streamed_plain(tris, aabb_child, aabb_super, origins, directions,
+                                     t_min: float, t_max: float, rays_per_tile: int, branch: int,
+                                     tri_test: str = "bw", stats=None):
+    """Streamed any hit with the kernel's packet semantics: the supers of
+    `streamed_pads` in ascending id, children in index order, children at
+    or past the cluster count never tested; a packet stops after a super
+    once all its rays are occluded.  Returns occluded [N] bool."""
+    pk = _Occlusion(tris, origins, directions, t_min, t_max, rays_per_tile, tri_test, stats)
+    num_clusters = tris.shape[0]
+    live = pk.all
+    for s in range(aabb_super.shape[0]):
+        if live.numel() == 0:
+            break
+        sub = live[pk.overlaps(aabb_super[s : s + 1], live)]
+        for c in range(s * branch, min((s + 1) * branch, num_clusters)):
+            if sub.numel() == 0:
+                break
+            on = sub[pk.overlaps(aabb_child[c : c + 1], sub)]
+            pk.visit(on, torch.full_like(on, c))
+        live = pk.unfinished(live)
     return pk.result()
 
 
@@ -336,6 +473,18 @@ _LAUNCHERS = {
         "cluster_streamed_launch",
         [_P] * 5 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 4,
     ),
+    "cluster_occluded.cu": (
+        "cluster_occluded_launch",
+        [_P] * 5 + [_I] * 3 + [_F] * 2 + [_I] * 2 + [_P] * 2,
+    ),
+    "cluster_occluded_hier.cu": (
+        "cluster_occluded_hier_launch",
+        [_P] * 6 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 2,
+    ),
+    "cluster_occluded_streamed.cu": (
+        "cluster_occluded_streamed_launch",
+        [_P] * 5 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 2,
+    ),
 }
 
 
@@ -364,8 +513,8 @@ def _check(name, x, dtype, shape, dev):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _prepare(tris, origins, directions, rays_per_tile, tri_test, boxes):
-    """Check what every kernel takes, then allocate (t, prim, uv)."""
+def _check_launch(tris, origins, directions, rays_per_tile, tri_test, boxes):
+    """Check what every kernel takes."""
     dev = origins.device
     if not origins.is_cuda:
         raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
@@ -384,6 +533,11 @@ def _prepare(tris, origins, directions, rays_per_tile, tri_test, boxes):
         raise ValueError(f"cluster of {k} rows exceeds 48 KB of shared memory")
     if tris.data_ptr() % 16:
         raise ValueError("tris must be 16-byte aligned")
+
+
+def _hit_outputs(origins):
+    """(t, prim, uv) for a closest-hit kernel to fill."""
+    n, dev = origins.shape[0], origins.device
     return (
         torch.empty(n, dtype=torch.float32, device=dev),
         torch.empty(n, dtype=torch.int32, device=dev),
@@ -400,10 +554,11 @@ def intersect_clusters_cuda(tris, aabb8, order, origins, directions, t_min: floa
     """Launch the flat kernel on CUDA tensors; same contract as the plain
     version."""
     c_count, k, _ = tris.shape
-    t, prim, uv = _prepare(tris, origins, directions, rays_per_tile, tri_test, {
+    _check_launch(tris, origins, directions, rays_per_tile, tri_test, {
         "aabb8": (aabb8, torch.float32, (c_count, 8)),
         "order": (order, torch.int32, (8, c_count)),
     })
+    t, prim, uv = _hit_outputs(origins)
     err = library("cluster_intersect.cu").cluster_intersect_launch(
         tris.data_ptr(), aabb8.data_ptr(), order.data_ptr(),
         origins.data_ptr(), directions.data_ptr(), origins.shape[0], c_count, k,
@@ -423,11 +578,12 @@ def intersect_clusters_hier_cuda(tris, aabb_child, aabb_super, order_super, orig
     plain version."""
     c_count, k, _ = tris.shape
     s = aabb_super.shape[0]
-    t, prim, uv = _prepare(tris, origins, directions, rays_per_tile, tri_test, {
+    _check_launch(tris, origins, directions, rays_per_tile, tri_test, {
         "aabb_child": (aabb_child, torch.float32, (s * branch, 8)),
         "aabb_super": (aabb_super, torch.float32, (s, 8)),
         "order_super": (order_super, torch.int32, (8, s)),
     })
+    t, prim, uv = _hit_outputs(origins)
     err = library("cluster_hier.cu").cluster_hier_launch(
         tris.data_ptr(), aabb_child.data_ptr(), aabb_super.data_ptr(), order_super.data_ptr(),
         origins.data_ptr(), directions.data_ptr(), origins.shape[0], s, branch, c_count, k,
@@ -449,10 +605,11 @@ def intersect_clusters_streamed_cuda(tris, aabb_child, aabb_super, origins, dire
     s = aabb_super.shape[0]
     if s * branch < c_count:
         raise ValueError(f"{s} supers of {branch} do not cover {c_count} clusters")
-    t, prim, uv = _prepare(tris, origins, directions, rays_per_tile, tri_test, {
+    _check_launch(tris, origins, directions, rays_per_tile, tri_test, {
         "aabb_child": (aabb_child, torch.float32, (s * branch, 8)),
         "aabb_super": (aabb_super, torch.float32, (s, 8)),
     })
+    t, prim, uv = _hit_outputs(origins)
     err = library("cluster_streamed.cu").cluster_streamed_launch(
         tris.data_ptr(), aabb_child.data_ptr(), aabb_super.data_ptr(),
         origins.data_ptr(), directions.data_ptr(), origins.shape[0], s, branch, c_count, k,
@@ -463,6 +620,79 @@ def intersect_clusters_streamed_cuda(tris, aabb_child, aabb_super, origins, dire
         raise RuntimeError(f"two_level_kernel (streamed) launch failed: CUDA error {err}")
     intersect_clusters_streamed.launches += 1
     return t, prim, uv
+
+
+def occluded_clusters_cuda(tris, aabb8, order, origins, directions, t_min: float, t_max: float,
+                           rays_per_tile: int, tri_test: str = "bw"):
+    """Launch the flat any-hit kernel on CUDA tensors; same contract as
+    the plain version."""
+    c_count, k, _ = tris.shape
+    _check_launch(tris, origins, directions, rays_per_tile, tri_test, {
+        "aabb8": (aabb8, torch.float32, (c_count, 8)),
+        "order": (order, torch.int32, (8, c_count)),
+    })
+    occ = torch.empty(origins.shape[0], dtype=torch.bool, device=origins.device)
+    err = library("cluster_occluded.cu").cluster_occluded_launch(
+        tris.data_ptr(), aabb8.data_ptr(), order.data_ptr(),
+        origins.data_ptr(), directions.data_ptr(), origins.shape[0], c_count, k,
+        float(t_min), float(t_max), rays_per_tile, _TRI_TEST_IDS[tri_test],
+        occ.data_ptr(), _stream(origins),
+    )
+    if err:
+        raise RuntimeError(f"cluster_occluded_kernel launch failed: CUDA error {err}")
+    occluded_clusters.launches += 1
+    return occ
+
+
+def occluded_clusters_hier_cuda(tris, aabb_child, aabb_super, order_super, origins, directions,
+                                t_min: float, t_max: float, rays_per_tile: int, branch: int,
+                                tri_test: str = "bw"):
+    """Launch the two-level any-hit kernel on CUDA tensors; same contract
+    as the plain version."""
+    c_count, k, _ = tris.shape
+    s = aabb_super.shape[0]
+    _check_launch(tris, origins, directions, rays_per_tile, tri_test, {
+        "aabb_child": (aabb_child, torch.float32, (s * branch, 8)),
+        "aabb_super": (aabb_super, torch.float32, (s, 8)),
+        "order_super": (order_super, torch.int32, (8, s)),
+    })
+    occ = torch.empty(origins.shape[0], dtype=torch.bool, device=origins.device)
+    err = library("cluster_occluded_hier.cu").cluster_occluded_hier_launch(
+        tris.data_ptr(), aabb_child.data_ptr(), aabb_super.data_ptr(), order_super.data_ptr(),
+        origins.data_ptr(), directions.data_ptr(), origins.shape[0], s, branch, c_count, k,
+        float(t_min), float(t_max), rays_per_tile, _TRI_TEST_IDS[tri_test],
+        occ.data_ptr(), _stream(origins),
+    )
+    if err:
+        raise RuntimeError(f"two_level_occluded_kernel (hier) launch failed: CUDA error {err}")
+    occluded_clusters_hier.launches += 1
+    return occ
+
+
+def occluded_clusters_streamed_cuda(tris, aabb_child, aabb_super, origins, directions,
+                                    t_min: float, t_max: float, rays_per_tile: int, branch: int,
+                                    tri_test: str = "bw"):
+    """Launch the streamed any-hit kernel on CUDA tensors; same contract
+    as the plain version."""
+    c_count, k, _ = tris.shape
+    s = aabb_super.shape[0]
+    if s * branch < c_count:
+        raise ValueError(f"{s} supers of {branch} do not cover {c_count} clusters")
+    _check_launch(tris, origins, directions, rays_per_tile, tri_test, {
+        "aabb_child": (aabb_child, torch.float32, (s * branch, 8)),
+        "aabb_super": (aabb_super, torch.float32, (s, 8)),
+    })
+    occ = torch.empty(origins.shape[0], dtype=torch.bool, device=origins.device)
+    err = library("cluster_occluded_streamed.cu").cluster_occluded_streamed_launch(
+        tris.data_ptr(), aabb_child.data_ptr(), aabb_super.data_ptr(),
+        origins.data_ptr(), directions.data_ptr(), origins.shape[0], s, branch, c_count, k,
+        float(t_min), float(t_max), rays_per_tile, _TRI_TEST_IDS[tri_test],
+        occ.data_ptr(), _stream(origins),
+    )
+    if err:
+        raise RuntimeError(f"two_level_occluded_kernel (streamed) launch failed: CUDA error {err}")
+    occluded_clusters_streamed.launches += 1
+    return occ
 
 
 def _route(origins, kernel, plain, *args, **kw):
@@ -501,7 +731,37 @@ def intersect_clusters_streamed(tris, aabb_child, aabb_super, origins, direction
                   t_min, t_max, rays_per_tile, branch, tri_test)
 
 
+def occluded_clusters(tris, aabb8, order, origins, directions, t_min: float, t_max: float,
+                      rays_per_tile: int, tri_test: str = "bw"):
+    """Flat any hit over the clusters (TPU kernel 4's contract).  Returns
+    occluded [N] bool as `occluded_clusters_plain`."""
+    return _route(origins, occluded_clusters_cuda, occluded_clusters_plain,
+                  tris, aabb8, order, origins, directions, t_min, t_max, rays_per_tile, tri_test)
+
+
+def occluded_clusters_hier(tris, aabb_child, aabb_super, order_super, origins, directions,
+                           t_min: float, t_max: float, rays_per_tile: int, branch: int,
+                           tri_test: str = "bw"):
+    """Two-level any hit (TPU kernel 5's contract)."""
+    return _route(origins, occluded_clusters_hier_cuda, occluded_clusters_hier_plain,
+                  tris, aabb_child, aabb_super, order_super, origins, directions,
+                  t_min, t_max, rays_per_tile, branch, tri_test)
+
+
+def occluded_clusters_streamed(tris, aabb_child, aabb_super, origins, directions,
+                               t_min: float, t_max: float, rays_per_tile: int, branch: int,
+                               tri_test: str = "bw"):
+    """Streamed any hit (TPU kernel 6's contract) over the supers of
+    `streamed_pads`."""
+    return _route(origins, occluded_clusters_streamed_cuda, occluded_clusters_streamed_plain,
+                  tris, aabb_child, aabb_super, origins, directions,
+                  t_min, t_max, rays_per_tile, branch, tri_test)
+
+
 # Kernel launches since each count was last set to 0.
 intersect_clusters.launches = 0
 intersect_clusters_hier.launches = 0
 intersect_clusters_streamed.launches = 0
+occluded_clusters.launches = 0
+occluded_clusters_hier.launches = 0
+occluded_clusters_streamed.launches = 0

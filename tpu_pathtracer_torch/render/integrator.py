@@ -2,13 +2,20 @@
 for every lane, and the streaming work-queue schedule.
 
 Counterpart of `tpu_pathtracer/render/integrator.py` on the main path:
-`_shade`, the NEE-off branch of `_trace_bounce`, `render_pixels_stream`,
-the stream branch of `render_pixels`, `render_frame` and
-`render_frame_stats`.  The estimator is the reference's
-(cfg.rr_mode="reference": the whole path's radiance divided by the last
-survival probability, a deterministic two-lobe BSDF blend, glass bounces
-that skip the attenuation update) or textbook Russian roulette
-("standard").
+`_shade`, `_trace_bounce` with and without next-event estimation (NEE),
+`render_pixels_stream`, the stream branch of `render_pixels`,
+`render_frame` and `render_frame_stats`.  The estimator is the
+reference's (cfg.rr_mode="reference": the whole path's radiance divided
+by the last survival probability, a deterministic two-lobe BSDF blend,
+glass bounces that skip the attenuation update) or textbook Russian
+roulette ("standard", which NEE requires).  NEE draws one environment
+direction per surface hit from the alias table, traces one shadow ray
+(`occluded_scene`) and adds the diffuse lobe's light; env radiance on
+misses is then credited only to spec-sampled or primary segments
+(`spec_last`), optionally under one-sample MIS (cfg.nee_mis_spec) and a
+defensive alias/cosine mixture (cfg.nee_defensive_mix).  Multi-queue NEE
+(the shadow ray riding the next closest-hit batch) was measured slower
+on the TPU and is not ported.
 
 The schedule runs eagerly: a Python loop over iterations that reads one
 flag from the device per iteration (whether any lane is still live).
@@ -23,10 +30,10 @@ import math
 import torch
 
 from tpu_pathtracer_torch.config import RenderConfig
-from tpu_pathtracer_torch.ops.intersect import Hit, intersect_scene
+from tpu_pathtracer_torch.ops.intersect import Hit, intersect_scene, occluded_scene
 from tpu_pathtracer_torch.render import bsdf
 from tpu_pathtracer_torch.render.camera import generate_camera_rays
-from tpu_pathtracer_torch.render.envmap import eval_env
+from tpu_pathtracer_torch.render.envmap import direction_to_uv, env_pdf_alias, eval_env, sample_env_alias
 from tpu_pathtracer_torch.render.texsample import material_property, sample_bundle
 from tpu_pathtracer_torch.scene import scene as S
 from tpu_pathtracer_torch.scene.scene import Scene
@@ -49,7 +56,9 @@ def _shade(scene: Scene, cfg: RenderConfig, hit: Hit, origins, directions, seeds
     """Closest-hit program for every lane; callers select with the hit and
     termination masks.  Returns a dict: new_origin, new_direction,
     att_factor ([N,3], multiplied into the attenuation where att_ok),
-    att_ok, emission, emissive, degenerate, done, seeds."""
+    att_ok, emission, emissive, degenerate, done, seeds, and for NEE
+    normal, diffuse_albedo, glass, choose_spec, spec_prob, idotn,
+    brdf_combined, spec_dir, spec_pdf, f_vec, alpha."""
     prim = torch.clamp_min(hit.prim, 0).long()  # miss lanes read row 0
     ta = scene.tri_attrs[prim]                                  # [N,32]
     tri_v = ta[:, S.TRI_V].reshape(-1, 3, 3)
@@ -180,9 +189,8 @@ def _shade(scene: Scene, cfg: RenderConfig, hit: Hit, origins, directions, seeds
     dpdf = 1.0 / math.pi
     seeds, u_lobe = rng.uniform(seeds)
     choose_spec = u_lobe < spec_prob
-    dir_surface = torch.where(
-        choose_spec[:, None], vm.normalize(light_dir), vm.normalize(light_dir_diffuse)
-    )
+    spec_dir = vm.normalize(light_dir)
+    dir_surface = torch.where(choose_spec[:, None], spec_dir, vm.normalize(light_dir_diffuse))
     # Deterministic two-lobe blend, the same whichever lobe was sampled.
     brdf_combined = spec_prob[:, None] * (
         brdf_specular / torch.clamp_min(spdf, 1e-20)[:, None]
@@ -220,6 +228,17 @@ def _shade(scene: Scene, cfg: RenderConfig, hit: Hit, origins, directions, seeds
         degenerate=degenerate,
         done=degenerate | emissive | depth_done,
         seeds=seeds,
+        normal=normal,
+        diffuse_albedo=diffuse_albedo,
+        glass=glass,
+        choose_spec=choose_spec,
+        spec_prob=spec_prob,
+        idotn=idotn,
+        brdf_combined=brdf_combined,
+        spec_dir=spec_dir,
+        spec_pdf=spdf,
+        f_vec=f_vec,
+        alpha=alpha,
     )
 
 
@@ -227,26 +246,132 @@ def _shade(scene: Scene, cfg: RenderConfig, hit: Hit, origins, directions, seeds
 # One bounce for every lane
 # ---------------------------------------------------------------------------
 
-def _trace_bounce(scene, cfg, origin, direction, attenuation, radiance, seeds, depth):
+def _light_sample(scene, cfg, sh, seeds):
+    """The NEE light draw for every lane: two uniform2 pairs into the
+    alias table and, under cfg.nee_defensive_mix, a third pair (its
+    second value discarded) choosing between the alias draw and a cosine
+    draw around the normal, with the mixture density as the pdf.  Returns
+    (seeds, direction, pdf, u, v): (u, v) are the draw's exact equirect
+    coordinates for eval_env(uv=...)."""
+    env = scene.env
+    if env.alias_table is None:
+        raise ValueError(
+            "env_importance_sampling requires an alias table: build the "
+            "environment with envmap.with_importance_sampling(env)"
+        )
+    seeds, u1, u2 = rng.uniform2(seeds)
+    seeds, u3, u4 = rng.uniform2(seeds)
+    env_dir, pdf, env_u, env_v = sample_env_alias(env.alias_table, env.height, env.width, u1, u2, u3, u4)
+    if cfg.nee_defensive_mix:
+        # u3/u4 also make the cosine draw; u5 picks which one a lane takes.
+        seeds, u5, _ = rng.uniform2(seeds)
+        tang_n, binorm_n = vm.onb_from_normal(sh["normal"])
+        dir_cos = vm.onb_transform(rng.cosine_sample_hemisphere(u3, u4), tang_n, sh["normal"], binorm_n)
+        take_alias = u5 < 0.5
+        env_dir = torch.where(take_alias[:, None], env_dir, dir_cos)
+        u_cos, v_cos = direction_to_uv(dir_cos)
+        env_u = torch.where(take_alias, env_u, u_cos)
+        env_v = torch.where(take_alias, env_v, v_cos)
+        p_alias = torch.where(take_alias, pdf, env_pdf_alias(env.alias_table, env.height, env.width, dir_cos))
+        cos_sel = torch.clamp_min(vm.dot(sh["normal"], env_dir), 0.0)
+        pdf = 0.5 * p_alias + 0.5 * cos_sel / math.pi
+    return seeds, env_dir, pdf, env_u, env_v
+
+
+def _shadow_candidates(hit_m, sh, env_dir):
+    """(cand, cos_l): the lanes whose light draw is traced, surface hits
+    that go on (not depth-truncated, glass, emissive or degenerate) with
+    the draw above their shading normal, and that cosine."""
+    cos_l = torch.clamp_min(vm.dot(sh["normal"], env_dir), 0.0)
+    cand = hit_m & ~sh["done"] & ~sh["glass"] & ~sh["emissive"] & ~sh["degenerate"] & (cos_l > 0.0)
+    return cand, cos_l
+
+
+def _next_event(scene, cfg, hit_m, sh, seeds, direction, attenuation):
+    """The NEE contribution of every lane.  Returns (seeds, contrib [N,3]
+    to add where the light is visible, visible [N] bool, spec_next: the
+    next segment's env-credit flag, or its MIS weight under
+    cfg.nee_mis_spec)."""
+    env = scene.env
+    seeds, env_dir, env_pdf_v, env_u, env_v = _light_sample(scene, cfg, sh, seeds)
+    cand, cos_l = _shadow_candidates(hit_m, sh, env_dir)
+    occluded = occluded_scene(scene, sh["new_origin"], env_dir, cfg.t_min, cfg.t_max, cfg, active=cand)
+    visible = cand & ~occluded
+    l_env = eval_env(env, env_dir, cfg, active=cand, uv=(env_u, env_v))
+    # Lobe-partitioned estimator: the base estimator's cosine-lobe share
+    # (1 - P_s) of M*IdotN*E_cos[L*vis] is estimated by the light draw,
+    # and misses are then credited only to spec-sampled segments.
+    weight = (1.0 - sh["spec_prob"]) * sh["idotn"] * cos_l / (math.pi * torch.clamp_min(env_pdf_v, 1e-12))
+    contrib = attenuation * sh["brdf_combined"] * weight[:, None] * l_env
+    if cfg.nee_mis_spec:
+        # The spec lobe's light-sampled arm on the same draw and shadow ray,
+        # with the balance weight w_l = p_light / (p_light + p_ggx).
+        normal, alpha, prob = sh["normal"], sh["alpha"], sh["spec_prob"]
+        view = -direction
+        h_l = vm.normalize(view + env_dir)
+        d_term_l = bsdf.d_ggx(normal, h_l, alpha)
+        g_term_l = bsdf.g_smith(alpha, normal, view, env_dir)
+        ndotv_l = vm.dot(normal, view)
+        denom_l = 4.0 * torch.abs(ndotv_l) * torch.abs(vm.dot(normal, env_dir))
+        brdf_spec_l = sh["f_vec"] * (d_term_l * g_term_l / torch.clamp_min(denom_l, 1e-10))[:, None]
+        ndoth_l = torch.clamp_min(vm.dot(normal, h_l), 1e-10)
+        vdoth_l = torch.clamp_min(vm.dot(view, h_l), 1e-10)
+        p_ggx_l = bsdf.ggx_pdf(d_term_l, ndoth_l, vdoth_l)
+        w_l = env_pdf_v / torch.clamp_min(env_pdf_v + p_ggx_l, 1e-20)
+        g_spec = prob[:, None] * (
+            prob[:, None] * brdf_spec_l
+            + ((1.0 - prob) * math.pi * p_ggx_l)[:, None] * sh["diffuse_albedo"]
+        ) * cos_l[:, None]
+        contrib = contrib + attenuation * g_spec * (w_l / torch.clamp_min(env_pdf_v, 1e-12))[:, None] * l_env
+        # The BSDF arm's weight for the next segment's env credit: both
+        # densities at the spec continuation, with this bounce's normal.
+        p_light_s = env_pdf_alias(env.alias_table, env.height, env.width, sh["spec_dir"])
+        if cfg.nee_defensive_mix:
+            cos_s = torch.clamp_min(vm.dot(normal, sh["spec_dir"]), 0.0)
+            p_light_s = 0.5 * p_light_s + 0.5 * cos_s / math.pi
+        w_b = sh["spec_pdf"] / torch.clamp_min(sh["spec_pdf"] + p_light_s, 1e-20)
+        spec_next = torch.where(sh["glass"], 1.0, torch.where(sh["choose_spec"], w_b, 0.0))
+    else:
+        spec_next = sh["choose_spec"] | sh["glass"]
+    return seeds, contrib, visible, spec_next
+
+
+def _trace_bounce(scene, cfg, origin, direction, attenuation, radiance, seeds, depth, spec_last=None):
     """One path segment for every lane: intersect, then closest-hit shade
-    or miss.  Returns the post-trace payload before Russian roulette."""
-    if cfg.env_importance_sampling:
-        raise NotImplementedError("NEE is not ported yet (ROADMAP, modules to port: NEE)")
+    or miss, and under cfg.env_importance_sampling the NEE shadow ray.
+    `spec_last` (NEE only) is the env-credit flag, or MIS weight, that the
+    previous bounce set.  Returns the post-trace payload before Russian
+    roulette."""
     if cfg.deferred_shade:
         raise NotImplementedError(
             "deferred shading is not ported yet (ROADMAP, modules to port: "
             "AOV/denoise and opt-in shading paths)"
         )
+    nee = cfg.env_importance_sampling
     hit = intersect_scene(scene, origin, direction, cfg.t_min, cfg.t_max, cfg)
 
-    # Miss program: radiance += attenuation * env; the path ends.
-    radiance_miss = radiance + attenuation * eval_env(scene.env, direction, cfg)
+    # Miss program: radiance += attenuation * env; the path ends.  Under NEE
+    # only spec-sampled and primary segments take the env's light.
+    env_light = attenuation * eval_env(scene.env, direction, cfg, active=~hit.hit)
+    if nee and cfg.nee_mis_spec:
+        radiance_miss = radiance + env_light * spec_last[:, None]
+    elif nee:
+        radiance_miss = radiance + torch.where(spec_last[:, None], env_light, 0.0)
+    else:
+        radiance_miss = radiance + env_light
 
     sh = _shade(scene, cfg, hit, origin, direction, seeds, depth)
+    seeds_out = sh["seeds"]
     hit_m = hit.hit
     radiance_hit = torch.where(
         sh["emissive"][:, None], radiance + attenuation * sh["emission"], radiance
     )
+    spec_next = spec_last
+    if nee:
+        seeds_out, contrib, visible, spec_next = _next_event(
+            scene, cfg, hit_m, sh, seeds_out, direction, attenuation
+        )
+        radiance_hit = radiance_hit + torch.where(visible[:, None], contrib, 0.0)
     hm = hit_m[:, None]
     return dict(
         radiance=torch.where(hm, radiance_hit, radiance_miss),
@@ -256,7 +381,8 @@ def _trace_bounce(scene, cfg, origin, direction, attenuation, radiance, seeds, d
         origin=torch.where(hm, sh["new_origin"], origin),
         direction=torch.where(hm, sh["new_direction"], direction),
         done=torch.where(hit_m, sh["done"], True),
-        seeds=torch.where(hit_m, sh["seeds"], seeds),
+        seeds=torch.where(hit_m, seeds_out, seeds),
+        spec_last=spec_next,
         hit=hit_m,
     )
 
@@ -294,7 +420,9 @@ def render_pixels_stream(scene: Scene, cam: dict, cfg: RenderConfig, subframe, s
     FIFO-batched scatter bit for bit.
 
     return_stats=True also returns {"iters", "segments",
-    "shadow_segments"}: iterations run and ray segments traced."""
+    "shadow_segments"}: iterations run, path segments traced and, under
+    NEE, shadow rays counted as the JAX schedule counts them (every live
+    lane that hit, whether or not its light draw was traced)."""
     n_pix = cfg.width * cfg.height
     lanes = min(lanes, n_pix)
     dev = scene.device
@@ -314,6 +442,11 @@ def render_pixels_stream(scene: Scene, cam: dict, cfg: RenderConfig, subframe, s
     out = torch.zeros((n_pix + 1, 3), dtype=torch.float32, device=dev)  # +1 = sink
     head = torch.tensor(lanes, dtype=torch.int32, device=dev)
     segments = torch.zeros((), dtype=torch.int64, device=dev)
+    shadow = torch.zeros_like(segments)
+    nee = cfg.env_importance_sampling
+    # NEE's env-credit flag per lane (an MIS weight under nee_mis_spec);
+    # a fresh path's primary segment takes the env's light in full.
+    spec_last = torch.ones(lanes, dtype=torch.float32 if cfg.nee_mis_spec else torch.bool, device=dev)
     inv_spp = 1.0 / spp
     max_iters = (n_pix * spp * (cfg.max_depth + 2)) // lanes + cfg.max_depth + 16
 
@@ -322,7 +455,7 @@ def render_pixels_stream(scene: Scene, cam: dict, cfg: RenderConfig, subframe, s
         live = slot < n_pix
         if not bool(live.any()):
             break
-        tb = _trace_bounce(scene, cfg, origin, direction, attenuation, radiance, seeds, depth)
+        tb = _trace_bounce(scene, cfg, origin, direction, attenuation, radiance, seeds, depth, spec_last)
         seeds_new, u_rr = rng.uniform(tb["seeds"])
         att_new = tb["attenuation"]
         p = att_new.amax(dim=-1)
@@ -368,11 +501,16 @@ def render_pixels_stream(scene: Scene, cam: dict, cfg: RenderConfig, subframe, s
         radiance = torch.where(rg, 0.0, torch.where(av, tb["radiance"], radiance))
         depth = torch.where(regen, cfg.max_depth, torch.where(adv, depth - 1, depth))
         segments = segments + live.sum()
+        if nee:
+            spec_last = torch.where(
+                regen, torch.ones_like(spec_last), torch.where(adv, tb["spec_last"], spec_last)
+            )
+            shadow = shadow + (live & tb["hit"]).sum()
         it += 1
 
     img = out[:n_pix]
     if return_stats:
-        return img, dict(iters=it, segments=segments, shadow_segments=torch.zeros_like(segments))
+        return img, dict(iters=it, segments=segments, shadow_segments=shadow)
     return img
 
 

@@ -1,11 +1,13 @@
 """Procedural scenes (numpy geometry), as `tpu_pathtracer/scene/procedural.py`:
-UV-sphere meshes, ground quads and the reference's fallback scene."""
+UV-sphere meshes, ground quads and the reference's fallback scene.  The
+scenes are built on the card unless they are given another device."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from tpu_pathtracer_torch.scene.scene import Scene, make_material_table, make_scene
+from tpu_pathtracer_torch.utils.device import DEFAULT_DEVICE
 
 
 def sphere_mesh(center, radius: float, stacks: int = 16, slices: int = 32):
@@ -56,7 +58,7 @@ def ground_plane(y: float, size: float):
     return verts, norms
 
 
-def three_spheres_scene(stacks: int = 16, slices: int = 32, device="cpu") -> Scene:
+def three_spheres_scene(stacks: int = 16, slices: int = 32, device=DEFAULT_DEVICE) -> Scene:
     """Ground quad (size 10, y=0) and red/green/blue unit spheres at
     x=-3,0,3, y=1.  Materials: 0 ground, 1 red, 2 green, 3 blue."""
     mats = [
@@ -79,7 +81,7 @@ def three_spheres_scene(stacks: int = 16, slices: int = 32, device="cpu") -> Sce
     )
 
 
-def high_poly_scene(total_tris: int = 100_000, n_objects: int = 5, seed: int = 0, device="cpu") -> Scene:
+def high_poly_scene(total_tris: int = 100_000, n_objects: int = 5, seed: int = 0, device=DEFAULT_DEVICE) -> Scene:
     """n_objects finely tessellated spheres with random materials on a
     ground plane, about total_tris triangles in all."""
     rs = np.random.RandomState(seed)
@@ -119,7 +121,7 @@ def single_sphere_scene(
     slices: int = 32,
     albedo=(0.8, 0.8, 0.8),
     with_ground: bool = True,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> Scene:
     """One diffuse sphere, with an optional ground plane."""
     mats = [dict(color=albedo, roughness=1.0)]

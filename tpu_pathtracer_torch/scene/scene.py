@@ -17,6 +17,11 @@ Layouts:
 * `EnvironmentMap.quads` [H*W,12] f32: each texel's bilinear
   neighbourhood (x wraps, y clamps), at hash-scrambled rows when H*W is a
   power of two.
+* `EnvironmentMap.alias_table` [H*W,4] f32 (accept probability, alias
+  index, own mass, alias mass) and the CDF tables, attached by
+  `render.envmap.with_importance_sampling` for NEE.
+
+Every constructor builds on the card unless it is given another device.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from tpu_pathtracer_torch.utils.device import DEFAULT_DEVICE, resolve
 
 # Column layout of MaterialTable.attrs ([M,MAT_COLS]).
 MAT_DIFFUSE = slice(0, 3)
@@ -86,6 +93,12 @@ class EnvironmentMap:
     data: torch.Tensor             # [H,W,3] f32
     quads: torch.Tensor            # [H*W,12] f32
     quads_scrambled: bool = False
+    cdf_rows: Optional[torch.Tensor] = None     # [H]
+    cdf_cols: Optional[torch.Tensor] = None     # [H,W]
+    alias_table: Optional[torch.Tensor] = None  # [H*W,4] f32 Vose table
+
+    def replace(self, **kw) -> "EnvironmentMap":
+        return dataclasses.replace(self, **kw)
 
     @property
     def height(self) -> int:
@@ -130,8 +143,9 @@ def scramble_order(n_texels: int) -> np.ndarray:
     return ((i * SCRAMBLE_MULT) & (n_texels - 1)).astype(np.int64)
 
 
-def make_env(data, device="cpu") -> EnvironmentMap:
+def make_env(data, device=DEFAULT_DEVICE) -> EnvironmentMap:
     """EnvironmentMap with the packed quad table (x wraps, y clamps)."""
+    device = resolve(device)
     arr = np.array(data, np.float32)
     h, w = arr.shape[:2]
     x1 = (np.arange(w) + 1) % w
@@ -151,7 +165,7 @@ def make_env(data, device="cpu") -> EnvironmentMap:
     )
 
 
-def default_env(height: int = 8, width: int = 16, color=(0.4, 0.4, 0.6), device="cpu") -> EnvironmentMap:
+def default_env(height: int = 8, width: int = 16, color=(0.4, 0.4, 0.6), device=DEFAULT_DEVICE) -> EnvironmentMap:
     """A tiny constant environment."""
     data = np.broadcast_to(np.asarray(color, np.float32), (height, width, 3))
     return make_env(data, device)
@@ -236,7 +250,7 @@ def _pow2(n: int) -> bool:
 def make_material_table(
     materials: list[dict],
     texture_quads: Optional[np.ndarray] = None,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> MaterialTable:
     """MaterialTable from material dicts (keys: color, specular, emission,
     roughness, metallic, transparent, ior, maps={kind: (offset, w, h)}
@@ -247,6 +261,7 @@ def make_material_table(
     interleaved into one bundle pool so one row read serves all four.  The
     mip ladder the JAX package builds for pools over 16 MB is not built
     here (see ROADMAP)."""
+    device = resolve(device)
     kinds = ["albedo", "roughness", "normal", "metallic"]
     m = len(materials)
     attrs = np.zeros((m, MAT_COLS), np.float32)
@@ -341,9 +356,10 @@ def make_scene(
     mat_ids: np.ndarray,
     materials: MaterialTable,
     env: Optional[EnvironmentMap] = None,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> Scene:
     """Assemble a Scene from host numpy arrays ([T,3,3]/[T,3,2]/[T])."""
+    device = resolve(device)
     t = vertices.shape[0]
     vertices = np.asarray(vertices, np.float32)
     normals = np.asarray(normals, np.float32)
