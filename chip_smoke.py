@@ -1,7 +1,10 @@
 """Drive the PyTorch port's render paths once on an NVIDIA GPU: the
 headline (flat kernels), the large-scene routes (two-level and streamed
 kernels), each without and with next-event estimation (NEE: alias-table
-light draws and shadow rays through the any-hit kernels).
+light draws and shadow rays through the any-hit kernels), the fused
+schedule step (kernel 7) on the headline and BASELINE config 1, and the
+other frame schedules: 1 spp (render_rays, tiled) and one lane per pixel
+(render_pixels_regen).
 
     python3 chip_smoke.py [--image PATH]
 
@@ -15,9 +18,10 @@ Phases, each printing one line (any failure exits non-zero):
      Moller-Trumbore; t, prim and uv must be bit-equal; both times in ms;
   4. render: the headline through render_frame_stats, 1920x1080, 10 spp,
      depth 8, three-spheres scene with the cluster accel and a procedural
-     256x512 equirect sky: one warm frame, two timed; the image must be
-     finite and not black, the flat kernel must launch at least once per
-     stream iteration and no other kernel may launch; Mrays/s;
+     256x512 equirect sky: one warm frame, one timed; the image must be
+     finite and not black, the flat kernel (and kernel 7 where the
+     schedule is the fused stream: "auto" on the card) must launch at
+     least once per iteration and no other kernel may launch; Mrays/s;
   5. parity: a 128x96, 4 spp render with 1024 stream lanes on the GPU
      (kernels) and on the CPU (plain versions); SSIM after post_process
      must exceed 0.995 and segments agree within 0.5%;
@@ -39,7 +43,7 @@ Phases, each printing one line (any failure exits non-zero):
      ClusterAccel.occluded does; flags bit-equal to the plain version in
      bw and mt; both times, the share of rays occluded and parked;
  14. NEE render of the headline (BASELINE config 3's path: textbook RR,
-     env importance sampling), as phase 4 (one warm, two timed frames):
+     env importance sampling), as phase 4 (one warm, one timed frame):
      kernels 1 and 4 must each launch at least once per stream iteration
      and no other kernel may launch; Mrays/s counts segments and shadow
      segments;
@@ -47,7 +51,26 @@ Phases, each printing one line (any failure exits non-zero):
  16. NEE render of the 200k scene (kernels 3 and 6), one warm and one
      timed frame;
  17. NEE parity on the headline as phase 5, shadow segments also within
-     0.5%.
+     0.5%;
+ 18. kernel 7 (fused schedule step) against its plain version at 131,072
+     lanes on the headline's lane state and trace payload after 16
+     unfused iterations, in both rr_modes, with the real queue head and
+     with a head that sends some lanes past n_pix: state, image, regen
+     mask, head, segments and live count bit-equal; the kernel's, the
+     plain version's and the unfused schedule tail's times, and the bound;
+ 19. the headline fused (fused_schedule="on") and unfused, one timed frame
+     each of the same subframe: images bit-equal, iterations and segments
+     identical, kernels 1 and 7 at least once per iteration and nothing
+     else; Mrays/s and s/launch of both;
+ 20. BASELINE config 1 as phase 19: single_sphere_scene(32, 64) with the
+     cluster accel (flat route), 512x512, 64 spp, depth 8, constant sky,
+     default camera, auto lanes (16,384);
+ 21. 1 spp: the headline at 1080p in six tiles of 345,600 pixels
+     (bench.py's 1-spp tiling), render_rays through kernel 1;
+ 22. one lane per pixel: the headline at 1080p, 10 spp, 2,097,152 stream
+     lanes, so render_pixels_regen runs 2,073,600 lanes;
+ 23. GPU-vs-CPU parity as phase 5 of the fused stream (1,024 lanes),
+     render_pixels_regen (16,384 lanes) and 1 spp with NEE.
 Then one JSON line with every kernel's numbers (launches from its render
 phase, bound from the work its plain version counts on the phase's rays),
 and last the result line {"ok": true, "device": {...}}.  --image writes
@@ -72,17 +95,23 @@ try:
     from tpu_pathtracer_torch.accel.build import build_accel
     from tpu_pathtracer_torch.config import RenderConfig
     from tpu_pathtracer_torch.ops import cuda_build
+    from tpu_pathtracer_torch.ops import fused_schedule as fs
     from tpu_pathtracer_torch.ops import intersect_cluster as ic
     from tpu_pathtracer_torch.render.camera import Camera, camera_arrays, generate_camera_rays
     from tpu_pathtracer_torch.render.envmap import with_importance_sampling
     from tpu_pathtracer_torch.render.film import post_process, to_uint8
     from tpu_pathtracer_torch.render.integrator import (
+        _camera_paths,
         _light_sample,
+        _respawn,
         _shade,
         _shadow_candidates,
+        _stream_state,
+        _trace_bounce,
         render_frame_stats,
+        resolve_stream_lanes,
     )
-    from tpu_pathtracer_torch.scene.procedural import high_poly_scene, three_spheres_scene
+    from tpu_pathtracer_torch.scene.procedural import high_poly_scene, single_sphere_scene, three_spheres_scene
     from tpu_pathtracer_torch.scene.scene import make_env
     from tpu_pathtracer_torch.utils import rng
     from tpu_pathtracer_torch.utils.image import procedural_hdr
@@ -109,6 +138,8 @@ KERNELS = {
     "k6": ("cluster_occluded_streamed", "tpu_pathtracer_torch/csrc/cluster_occluded_streamed.cu",
            f"{PALLAS}:979", "streamed", True, ic.occluded_clusters_streamed, ic.occluded_clusters_streamed_cuda,
            ic.occluded_clusters_streamed_plain),
+    "k7": ("fused_step", "tpu_pathtracer_torch/csrc/fused_schedule.cu", "tpu_pathtracer/ops/fused_schedule.py:113",
+           None, False, fs.fused_stream_step, fs.fused_stream_step_cuda, fs.fused_stream_step_plain),
 }
 # The kernels each route's render launches, without and with NEE.
 ROUTE_KERNELS = {"flat": ("k1", "k4"), "hier": ("k2", "k5"), "streamed": ("k3", "k6")}
@@ -118,6 +149,10 @@ HEADLINE = dict(
 )
 NEE = dict(rr_mode="standard", env_importance_sampling=True)
 CONFIG4_CAMERA = dict(eye=(0, 3, 10), lookat=(0, 1, 0))
+# BASELINE config 1 as bench.py --config 1 sets it: the analytic sphere,
+# diffuse, constant sky, 512x512 at 64 spp, depth 8, default camera.
+CONFIG1 = dict(width=512, height=512, samples_per_launch=64, max_depth=8, dof=False, env_mode="constant",
+               rr_mode="reference", intersector="cluster")
 CAMERA_RAYS = 65536  # and as many first bounces: 131,072 rays per kernel phase
 # Bounds (H100 SXM data sheet, at the 700 W limit): float32 outside the
 # tensor cores, and device memory.
@@ -139,6 +174,10 @@ def with_sky(scene, device):
 
 def headline_scene(device):
     return with_sky(three_spheres_scene(device=device), device)
+
+
+def config1_scene(device):
+    return build_accel(single_sphere_scene(stacks=32, slices=64, device=device), kind="cluster")
 
 
 def high_poly(total_tris, device):
@@ -176,7 +215,7 @@ def phase_build():
     dt = time.perf_counter() - t0
     parts = []
     for source in cuda_build.sources():
-        ic.library(source)  # loads, and sets the launch signature
+        cuda_build.library(source)  # loads, and sets the launch signature
         log = cuda_build.library_path(source).with_suffix(".log").read_text()
         usage = "; ".join(line.split("ptxas info    : ")[-1] for line in log.splitlines() if "Used" in line)
         parts.append(f"{source}: {usage}")
@@ -293,20 +332,23 @@ def phase_kernel(label, kid, scene, cfg, camera, smi, plain_reps):
                 bound_ms=bw["bound_ms"], bound_by=bw["bound_by"], library_ms=None)
 
 
-def phase_render(label, scene, cfg, camera, frames, smi, image_path=None):
-    """Warm frame, then `frames` timed frames with every launch count set
-    to 0 just before and read just after.  The route's closest-hit kernel
-    (and under NEE its any-hit kernel) must launch at least once per
-    stream iteration, and no other kernel at all.  Returns the counts."""
+def phase_render(label, scene, cfg, camera, frames, smi, image_path=None, warm=True):
+    """A warm frame (unless warm=False), then `frames` timed frames with
+    every launch count set to 0 just before and read just after.  The
+    route's closest-hit kernel (and under NEE its any-hit kernel; on the
+    fused stream, which the render reports as its schedule, kernel 7)
+    must launch at least once per iteration of the schedule, and no
+    other kernel at all.  Returns the counts, the last image, the totals
+    and the schedule."""
     route = scene.accel.route(cfg)
     nee = cfg.env_importance_sampling
-    want = ROUTE_KERNELS[route] if nee else ROUTE_KERNELS[route][:1]
     cam = camera_arrays(camera, cfg, scene.device)
-    img, stats = render_frame_stats(scene, cam, cfg, 0)
-    if not bool(torch.isfinite(img).all()) or not float(img.max()) > 0.0:
-        raise SystemExit(f"[{label}] FAIL: warm frame is non-finite or black")
-    if int(stats["segments"]) <= 0 or (nee and int(stats["shadow_segments"]) <= 0):
-        raise SystemExit(f"[{label}] FAIL: no segments traced")
+    if warm:
+        img, stats = render_frame_stats(scene, cam, cfg, 0)
+        if not bool(torch.isfinite(img).all()) or not float(img.max()) > 0.0:
+            raise SystemExit(f"[{label}] FAIL: warm frame is non-finite or black")
+        if int(stats["segments"]) <= 0 or (nee and int(stats["shadow_segments"]) <= 0):
+            raise SystemExit(f"[{label}] FAIL: no segments traced")
     torch.cuda.synchronize()
     set_counts_zero()
     t0 = time.perf_counter()
@@ -319,18 +361,25 @@ def phase_render(label, scene, cfg, camera, frames, smi, image_path=None):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = read_counts()
+    sched = stats["schedule"]
+    want = (ROUTE_KERNELS[route] if nee else ROUTE_KERNELS[route][:1]) + (("k7",) if sched == "stream_fused" else ())
     for kid in want:
         if counts[kid] < iters:
-            raise SystemExit(f"[{label}] FAIL: {counts[kid]} {KERNELS[kid][0]} launches for {iters} stream iterations")
+            raise SystemExit(f"[{label}] FAIL: {counts[kid]} {KERNELS[kid][0]} launches for {iters} iterations")
     others = {KERNELS[kid][0]: c for kid, c in counts.items() if kid not in want and c}
     if others:
         raise SystemExit(f"[{label}] FAIL: other kernels launched: {others}")
     if not bool(torch.isfinite(img).all()) or not float(img.max()) > 0.0:
         raise SystemExit(f"[{label}] FAIL: timed frame is non-finite or black")
+    if seg_total <= 0 or (nee and shadow_total <= 0):
+        raise SystemExit(f"[{label}] FAIL: no segments traced")
     launched = {KERNELS[kid][0]: counts[kid] for kid in want}
     rays = seg_total + shadow_total
+    tiles = f" in tiles of {cfg.tile_pixels}" if 0 < cfg.tile_pixels < cfg.width * cfg.height else ""
+    lanes = f", {resolve_stream_lanes(cfg, cfg.width * cfg.height)} lanes" if sched.startswith("stream") else ""
     print(f"[{label}] {scene.num_triangles} triangles, {scene.accel.num_clusters} clusters, {route} route"
-          f"{', NEE' if nee else ''}; {cfg.width}x{cfg.height} {cfg.samples_per_launch} spp depth {cfg.max_depth}: "
+          f"{', NEE' if nee else ''}, {sched} schedule{tiles}{lanes}; "
+          f"{cfg.width}x{cfg.height} {cfg.samples_per_launch} spp depth {cfg.max_depth}: "
           f"{rays / dt / 1e6:.4f} Mrays/s (segments{' + shadow segments' if nee else ''}), "
           f"{dt / frames:.4f} s/launch, {seg_total // frames} segments/launch, "
           f"{shadow_total // frames} shadow segments/launch, {iters // frames} iterations/launch, "
@@ -339,23 +388,24 @@ def phase_render(label, scene, cfg, camera, frames, smi, image_path=None):
         rgb = to_uint8(post_process(img, cfg)).cpu().numpy()[::-1]
         with open(image_path, "wb") as f:
             f.write(b"P6 %d %d 255\n" % (cfg.width, cfg.height) + rgb.tobytes())
-    return counts
+    return dict(counts=counts, img=img, iters=iters, segments=seg_total, seconds=dt / frames, schedule=sched)
 
 
-def phase_parity(label, make_scene, camera, route, nee=False):
-    """128x96, 4 spp, 1024 lanes on the GPU (kernels) and the CPU (plain
-    versions): SSIM after post_process above 0.995, segments (and shadow
-    segments) within 0.5%."""
+def phase_parity(label, make_scene, camera, route, nee=False, **overrides):
+    """128x96, 4 spp, 1024 lanes (or `overrides`) on the GPU (kernels) and
+    the CPU (plain versions): SSIM after post_process above 0.995,
+    segments (and shadow segments) within 0.5%."""
     cfg = RenderConfig(**{**HEADLINE, **(NEE if nee else {}), "width": 128, "height": 96,
-                          "samples_per_launch": 4, "stream_lanes": 1024})
+                          "samples_per_launch": 4, "stream_lanes": 1024, **overrides})
     out = {}
     for dev in ("cuda", "cpu"):
         scene = make_scene(dev)
         if scene.accel.route(cfg) != route:
             raise SystemExit(f"[{label}] FAIL: scene routes to {scene.accel.route(cfg)}, not {route}")
         img, stats = render_frame_stats(scene, camera_arrays(camera, cfg, dev), cfg, 0)
-        out[dev] = (post_process(img, cfg).cpu().numpy(), int(stats["segments"]), int(stats["shadow_segments"]))
-    (gpu, seg_gpu, sh_gpu), (cpu, seg_cpu, sh_cpu) = out["cuda"], out["cpu"]
+        out[dev] = (post_process(img, cfg).cpu().numpy(), int(stats["segments"]), int(stats["shadow_segments"]),
+                    stats["schedule"])
+    (gpu, seg_gpu, sh_gpu, sched_gpu), (cpu, seg_cpu, sh_cpu, sched_cpu) = out["cuda"], out["cpu"]
     score = ssim(gpu, cpu)
     close = float(np.isclose(gpu, cpu, rtol=1e-3, atol=1e-4).mean())
     if not score > 0.995:
@@ -364,9 +414,170 @@ def phase_parity(label, make_scene, camera, route, nee=False):
         raise SystemExit(f"[{label}] FAIL: segments {seg_gpu} on the GPU vs {seg_cpu} on the CPU")
     if nee and not (sh_cpu > 0 and abs(sh_gpu - sh_cpu) <= 0.005 * sh_cpu):
         raise SystemExit(f"[{label}] FAIL: shadow segments {sh_gpu} on the GPU vs {sh_cpu} on the CPU")
-    print(f"[{label}] {route} route{', NEE' if nee else ''}, 128x96 4 spp, 1024 lanes: GPU vs CPU SSIM "
-          f"{score:.6f}, {close:.4%} of values within rtol 1e-3/atol 1e-4, segments {seg_gpu} vs {seg_cpu}"
-          + (f", shadow segments {sh_gpu} vs {sh_cpu}" if nee else ""))
+    print(f"[{label}] {route} route{', NEE' if nee else ''}, {cfg.width}x{cfg.height} {cfg.samples_per_launch} spp, "
+          f"{resolve_stream_lanes(cfg, cfg.width * cfg.height)} lanes, schedule {sched_gpu} on the GPU and {sched_cpu} "
+          f"on the CPU: GPU vs CPU SSIM {score:.6f}, {close:.4%} of values within rtol 1e-3/atol 1e-4, "
+          f"segments {seg_gpu} vs {seg_cpu}" + (f", shadow segments {sh_gpu} vs {sh_cpu}" if nee else ""))
+    return sched_gpu
+
+
+def same_bits(a, b):
+    """Equal bit for bit; NaN where the other has NaN."""
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        torch.where(nan, 0.0, a).view(torch.int32), torch.where(nan, 0.0, b).view(torch.int32))
+
+
+def step_kw(cfg):
+    spp = cfg.samples_per_launch
+    return dict(spp=spp, n_pix=cfg.width * cfg.height, max_depth=cfg.max_depth,
+                rr_reference=cfg.rr_mode == "reference", inv_spp=1.0 / spp)
+
+
+def lane_state(scene, cfg, camera, iters):
+    """The lane pool of the unfused stream after `iters` iterations and
+    the payload of its next trace: (state, payload, head, the camera-path
+    function)."""
+    dev = scene.device
+    lanes = resolve_stream_lanes(cfg, cfg.width * cfg.height)
+    make_path = _camera_paths(camera_arrays(camera, cfg, dev), cfg, 0, 0)
+    st = _stream_state(cfg, make_path, lambda slot: slot, lanes, dev)
+    out = torch.zeros((cfg.width * cfg.height + 1, 3), device=dev)
+    head = torch.tensor(lanes, dtype=torch.int64, device=dev)
+    seg = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def trace():
+        return _trace_bounce(scene, cfg, st["origin"], st["direction"], st["attenuation"], st["radiance"],
+                             st["seeds"], st["depth"])
+
+    for _ in range(iters):
+        regen, head, seg, _ = fs.fused_stream_step_plain(trace(), st, out, head, seg, **step_kw(cfg))
+        _respawn(st, regen, make_path, cfg.samples_per_launch)
+    return st, trace(), head, make_path
+
+
+def step_bytes(tb, st, regen, n_pix, spp, rr_reference):
+    """Bytes the schedule step must move on this lane state, by what each
+    lane's fate needs (the kernel reads and writes more: every lane's
+    state): every lane reads its slot and writes its regen byte; a live
+    lane reads the payload's seed, done flag, attenuation and radiance and
+    writes its seed; a lane that goes on reads the payload's origin and
+    direction and its depth, and writes origin, direction, attenuation,
+    radiance and depth; a lane whose path ends reads and writes its pixel
+    sum and sample count; one that respawns writes attenuation, radiance
+    and depth; one whose pixel is done reads and writes its image row and
+    writes slot and pix; head and segments are read and head, segments
+    and the live count written once.  Returns (bytes, live lanes, pixels
+    done)."""
+    live = st["slot"] < n_pix
+    _, newly, adv, _, _ = fs.roulette(tb, live, rr_reference)
+    done = newly & (st["sample_i"] + newly.to(torch.int32) >= spp)
+    n_live, n_adv, n_newly, n_regen, n_done = (int(m.sum()) for m in (live, adv, newly, regen, done))
+    n_bytes = (live.shape[0] * (4 + 1) + n_live * (8 + 1 + 12 + 12 + 8) + n_adv * (24 + 4 + 48 + 4)
+               + n_newly * 2 * (12 + 4) + n_regen * (24 + 4) + n_done * (2 * 12 + 4 + 4) + 5 * 8)
+    return n_bytes, n_live, n_done
+
+
+def _time_over(fn, inputs, device_only=False):
+    """Mean ms of fn(x) over inputs[1:], after fn(inputs[0]) as warm-up:
+    each call gets its own copy of a state that the call changes.  With
+    device_only, the card first spins for ~20 ms while the host queues
+    every call, so the events time the queued work back to back and not
+    the host's launch rate."""
+    fn(inputs[0])
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if device_only:
+        torch.cuda._sleep(40_000_000)  # clock cycles
+    start.record()
+    for x in inputs[1:]:
+        fn(x)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (len(inputs) - 1)
+
+
+def phase_fused_kernel(label, scene, smi):
+    """Kernel 7 against its plain version on the headline's lane state,
+    both rr_modes, the real head and one that sends lanes past n_pix;
+    timed in reference mode (the headline's) with its bound."""
+    numbers, lines = None, []
+    for rr_mode in ("reference", "standard"):
+        cfg = RenderConfig(**{**HEADLINE, "rr_mode": rr_mode})
+        st, tb, head, make_path = lane_state(scene, cfg, Camera(), 16)
+        n_pix, spp, lanes, dev = cfg.width * cfg.height, cfg.samples_per_launch, st["slot"].shape[0], scene.device
+        kw = step_kw(cfg)
+        seg = torch.tensor(12345, dtype=torch.int64, device=dev)
+
+        def copy():
+            return {k: st[k].clone() for k in fs.STATE_KEYS}
+
+        probe = fs.fused_stream_step_plain(tb, copy(), torch.zeros((n_pix + 1, 3), device=dev), head, seg, **kw)
+        done = int(probe[1]) - int(head)
+        if not done:
+            raise SystemExit(f"[{label}] FAIL: no pixel retires in this step")
+        for head_in in (head, torch.tensor(n_pix - done // 2, dtype=torch.int64, device=dev)):
+            st_k, st_p = copy(), copy()
+            out_k, out_p = (torch.zeros((n_pix + 1, 3), device=dev) for _ in range(2))
+            got = fs.fused_stream_step_cuda(tb, st_k, out_k, head_in, seg, **kw)
+            want = fs.fused_stream_step_plain(tb, st_p, out_p, head_in, seg, **kw)
+            torch.cuda.synchronize()
+            bad = [k for k in fs.STATE_KEYS if not same_bits(st_k[k], st_p[k])]
+            bad += ["out"] * (not same_bits(out_k, out_p)) + ["regen"] * (not torch.equal(got[0], want[0]))
+            bad += [name for name, a, b in zip(("head", "segments", "live"), got[1:], want[1:]) if int(a) != int(b)]
+            if bad:
+                raise SystemExit(f"[{label}] FAIL: fused_step ({rr_mode}) and its plain version differ in {bad}")
+            past = int((st_k["slot"] >= n_pix).sum()) - int((st["slot"] >= n_pix).sum())
+            lines.append(f"{rr_mode} head {int(head_in)}: {done} retired, {past} past n_pix, "
+                         f"{int(got[0].sum())} regen, {int(got[3])} live")
+        if rr_mode != "reference":
+            continue
+        if not past:
+            raise SystemExit(f"[{label}] FAIL: no lane retired past n_pix")
+        ms = _time_over(lambda s: fs.fused_stream_step_cuda(tb, s, out_k, head, seg, **kw), [copy() for _ in range(21)],
+                        device_only=True)
+        plain_ms = _time_over(lambda s: fs.fused_stream_step_plain(tb, s, out_p, head, seg, **kw),
+                              [copy() for _ in range(6)])
+
+        def unfused_tail(s):
+            _respawn(s, fs.fused_stream_step_plain(tb, s, out_p, head, seg, **kw)[0], make_path, spp)
+
+        def fused_tail(s):
+            _respawn(s, fs.fused_stream_step_cuda(tb, s, out_k, head, seg, **kw)[0], make_path, spp)
+
+        unfused_ms = _time_over(unfused_tail, [copy() for _ in range(6)])
+        fused_tail_ms = _time_over(fused_tail, [copy() for _ in range(6)])
+        n_bytes, n_live, n_done = step_bytes(tb, st, probe[0], n_pix, spp, True)
+        flops = 15 * n_live + 6 * n_done  # RR draw and estimator per live lane; the mean and the add per pixel done
+        t_ops, t_bytes = flops / PEAK_FP32 * 1e3, n_bytes / PEAK_BYTES * 1e3
+        numbers = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+                       bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None)
+        timing = (f"kernel {ms:.4f} ms on the device (with its scratch memset), plain {plain_ms:.4f} ms, unfused "
+                  f"schedule tail (plain step and respawn, eager) "
+                  f"{unfused_ms:.4f} ms, fused tail (kernel + respawn) {fused_tail_ms:.4f} ms; {n_live} live lanes, "
+                  f"{n_done} pixels done, {n_bytes} bytes the step must move, {flops} FLOP: "
+                  f"bound {numbers['bound_ms']:.4f} ms by {numbers['bound_by']}")
+    print(f"[{label}] fused_step: {lanes} lanes of the headline after 16 unfused iterations; bit-equal (0 ulp) in "
+          f"state, image, regen mask, head, segments and live count: {'; '.join(lines)}; {timing} | {smi}")
+    return numbers
+
+
+def phase_fused_render(label, scene, cfg, camera, smi):
+    """The same subframe fused and unfused, one timed frame each: images
+    bit-equal, iterations and segments identical."""
+    fused = phase_render(f"{label} fused", scene, cfg.replace(fused_schedule="on"), camera, 1, smi, warm=False)
+    unfused = phase_render(f"{label} unfused", scene, cfg.replace(fused_schedule="off"), camera, 1, smi, warm=False)
+    if not torch.equal(fused["img"], unfused["img"]):
+        bad = int((fused["img"] != unfused["img"]).sum())
+        raise SystemExit(f"[{label}] FAIL: fused and unfused images differ on {bad} values")
+    if (fused["iters"], fused["segments"]) != (unfused["iters"], unfused["segments"]):
+        raise SystemExit(f"[{label}] FAIL: iterations/segments {fused['iters']}/{fused['segments']} fused vs "
+                         f"{unfused['iters']}/{unfused['segments']} unfused")
+    print(f"[{label}] fused and unfused images bit-equal, {fused['iters']} iterations and {fused['segments']} "
+          f"segments each; s/launch fused {fused['seconds']:.4f} vs unfused {unfused['seconds']:.4f} | {smi}")
+    return fused["counts"]["k7"]
 
 
 def main() -> int:
@@ -384,24 +595,43 @@ def main() -> int:
 
     scene = headline_scene("cuda")
     numbers["k1"] = phase_kernel("3 kernel 1", "k1", scene, cfg, Camera(), smi, plain_reps=5)
-    launches["k1"] = phase_render("4 render headline", scene, cfg, Camera(), 2, smi, args.image)["k1"]
+    launches["k1"] = phase_render("4 render headline", scene, cfg, Camera(), 1, smi, args.image)["counts"]["k1"]
     phase_parity("5 parity headline", headline_scene, Camera(), "flat")
 
     config4 = high_poly(100_000, "cuda")
     big = high_poly(200_000, "cuda")
     numbers["k2"] = phase_kernel("6 kernel 2", "k2", config4, cfg, cam4, smi, plain_reps=2)
     numbers["k3"] = phase_kernel("7 kernel 3", "k3", big, cfg, cam4, smi, plain_reps=2)
-    launches["k2"] = phase_render("8 render config 4", config4, cfg, cam4, 1, smi)["k2"]
-    launches["k3"] = phase_render("9 render 200k", big, cfg, cam4, 1, smi)["k3"]
+    launches["k2"] = phase_render("8 render config 4", config4, cfg, cam4, 1, smi)["counts"]["k2"]
+    launches["k3"] = phase_render("9 render 200k", big, cfg, cam4, 1, smi)["counts"]["k3"]
     phase_parity("10 parity two-level", lambda dev: high_poly(13_000, dev), cam4, "hier")
 
     numbers["k4"] = phase_kernel("11 kernel 4", "k4", scene, cfg_nee, Camera(), smi, plain_reps=5)
     numbers["k5"] = phase_kernel("12 kernel 5", "k5", config4, cfg_nee, cam4, smi, plain_reps=2)
     numbers["k6"] = phase_kernel("13 kernel 6", "k6", big, cfg_nee, cam4, smi, plain_reps=2)
-    launches["k4"] = phase_render("14 render headline NEE", scene, cfg_nee, Camera(), 2, smi)["k4"]
-    launches["k5"] = phase_render("15 render config 4 NEE", config4, cfg_nee, cam4, 1, smi)["k5"]
-    launches["k6"] = phase_render("16 render 200k NEE", big, cfg_nee, cam4, 1, smi)["k6"]
+    launches["k4"] = phase_render("14 render headline NEE", scene, cfg_nee, Camera(), 1, smi)["counts"]["k4"]
+    launches["k5"] = phase_render("15 render config 4 NEE", config4, cfg_nee, cam4, 1, smi)["counts"]["k5"]
+    launches["k6"] = phase_render("16 render 200k NEE", big, cfg_nee, cam4, 1, smi)["counts"]["k6"]
     phase_parity("17 parity headline NEE", headline_scene, Camera(), "flat", nee=True)
+    del config4, big
+
+    numbers["k7"] = phase_fused_kernel("18 kernel 7", scene, smi)
+    launches["k7"] = phase_fused_render("19 render headline", scene, cfg, Camera(), smi)
+    phase_fused_render("20 render config 1", config1_scene("cuda"), RenderConfig(**CONFIG1), Camera(), smi)
+    one_spp = cfg.replace(samples_per_launch=1, tile_pixels=345_600)
+    if phase_render("21 render 1 spp", scene, one_spp, Camera(), 1, smi, warm=False)["schedule"] != "rays":
+        raise SystemExit("[21 render 1 spp] FAIL: the frame did not take render_rays")
+    per_pixel = cfg.replace(stream_lanes=2_097_152)
+    if phase_render("22 render one lane per pixel", scene, per_pixel, Camera(), 1, smi, warm=False)["schedule"] != "regen":
+        raise SystemExit("[22 render one lane per pixel] FAIL: the frame did not take render_pixels_regen")
+    for label, overrides, want in (
+        ("23a parity fused", dict(fused_schedule="on"), "stream_fused"),
+        ("23b parity one lane per pixel", dict(stream_lanes=16_384), "regen"),
+        ("23c parity 1 spp NEE", dict(samples_per_launch=1), "rays"),
+    ):
+        got = phase_parity(label, headline_scene, Camera(), "flat", nee=label.endswith("NEE"), **overrides)
+        if got != want:
+            raise SystemExit(f"[{label}] FAIL: the GPU render took {got}, not {want}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s after the device phase began")
 
     print(json.dumps({"kernels": [

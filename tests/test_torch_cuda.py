@@ -1,8 +1,9 @@
 """The port on an NVIDIA GPU: the packet-traversal CUDA kernels (flat,
 two-level, streamed; closest hit and any hit; Baldwin-Weber and
-Moller-Trumbore) against their plain PyTorch versions, and small renders
-on the card, with and without next-event estimation, against the same
-renders on the CPU.  Every test needs a card and skips without one; this
+Moller-Trumbore) and the fused schedule step against their plain PyTorch
+versions, small renders on the card, with and without next-event
+estimation, against the same renders on the CPU, and the fused schedule's
+render against the unfused one.  Every test needs a card and skips without one; this
 file imports no JAX, so it runs where only the port is installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -15,10 +16,11 @@ torch = pytest.importorskip("torch")
 
 from tpu_pathtracer_torch.accel.build import build_accel  # noqa: E402
 from tpu_pathtracer_torch.config import RenderConfig  # noqa: E402
+from tpu_pathtracer_torch.ops import fused_schedule as fs  # noqa: E402
 from tpu_pathtracer_torch.ops import intersect_cluster as ic  # noqa: E402
 from tpu_pathtracer_torch.render.camera import Camera, camera_arrays  # noqa: E402
 from tpu_pathtracer_torch.render.film import post_process  # noqa: E402
-from tpu_pathtracer_torch.render.integrator import render_frame_stats  # noqa: E402
+from tpu_pathtracer_torch.render.integrator import _fused_stream_ok, render_frame_stats  # noqa: E402
 from tpu_pathtracer_torch.scene import procedural  # noqa: E402
 from tpu_pathtracer_torch.utils.ssim import ssim  # noqa: E402
 
@@ -186,3 +188,87 @@ def test_render_nee_matches_cpu(cuda, cluster_size):
     assert abs(seg_gpu - seg_cpu) <= 0.005 * seg_cpu
     assert abs(sh_gpu - sh_cpu) <= 0.005 * sh_cpu and sh_cpu > 0
     assert ssim(gpu, cpu) > 0.995
+
+
+def step_state(lanes, seed, dev):
+    """A lane pool after a trace, from a numpy seed (as
+    test_torch_fused_schedule.step_inputs): distinct live slots, a tenth
+    retired, a head near n_pix, attenuations with zeros, values above 1
+    and a few NaNs.  Returns (tb, st, n_pix, head, segments) as tensors."""
+    rs = np.random.RandomState(seed)
+    n_pix = 4 * lanes
+    head = n_pix - lanes // 16
+    slot = rs.permutation(head)[:lanes].astype(np.int32)
+    dead = rs.rand(lanes) < 0.1
+    slot[dead] = n_pix + rs.randint(0, 3, dead.sum())
+    pix = np.where(dead, rs.randint(0, n_pix, lanes), slot).astype(np.int32)
+
+    def vec3(lo, hi):
+        return rs.uniform(lo, hi, (lanes, 3)).astype(np.float32)
+
+    att = vec3(0.0, 1.3)
+    att[rs.rand(lanes) < 0.05] = 0.0
+    att[rs.rand(lanes) < 0.01, 1] = np.nan
+    tb = dict(origin=vec3(-5, 5), direction=vec3(-1, 1), attenuation=att, radiance=vec3(0, 4),
+              seeds=rs.randint(0, 2**32, lanes).astype(np.int64), done=rs.rand(lanes) < 0.3)
+    st = dict(origin=vec3(-5, 5), direction=vec3(-1, 1), attenuation=vec3(0, 1), radiance=vec3(0, 2),
+              seeds=rs.randint(0, 2**32, lanes).astype(np.int64), slot=slot, pix=pix,
+              sample_i=rs.randint(0, 3, lanes).astype(np.int32),
+              depth=rs.randint(0, 5, lanes).astype(np.int32), lane_accum=vec3(0, 6))
+    as_t = {k: torch.as_tensor(v).to(dev) for k, v in tb.items()}, {k: torch.as_tensor(v).to(dev) for k, v in st.items()}
+    return (*as_t, n_pix, torch.tensor(head, device=dev), torch.tensor(1000, device=dev))
+
+
+def same_bits(a, b):
+    """Equal bit for bit; NaN where the other has NaN (the card writes
+    its own NaN bits)."""
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        torch.where(nan, 0.0, a).view(torch.int32), torch.where(nan, 0.0, b).view(torch.int32))
+
+
+@pytest.mark.parametrize("rr_mode", ["reference", "standard"])
+def test_fused_step_matches_plain(cuda, rr_mode):
+    """Kernel 7 at 131,072 lanes (512 blocks, so the queue's look-back
+    crosses many blocks) against its plain version on the same tensors:
+    the state, the image, the regen mask, head, segments and the live
+    count bit for bit; one launch counted."""
+    tb, st, n_pix, head, segments = step_state(131072, 5 + (rr_mode == "standard"), cuda)
+    kw = dict(spp=3, n_pix=n_pix, max_depth=4, rr_reference=rr_mode == "reference", inv_spp=1.0 / 3)
+    st_k = {k: v.clone() for k, v in st.items()}
+    st_p = {k: v.clone() for k, v in st.items()}
+    out_k = torch.zeros((n_pix + 1, 3), device=cuda)
+    out_p = torch.zeros_like(out_k)
+    before = fs.fused_stream_step.launches
+    got = fs.fused_stream_step(tb, st_k, out_k, head, segments, **kw)
+    want = fs.fused_stream_step_plain(tb, st_p, out_p, head, segments, **kw)
+    torch.cuda.synchronize()
+    assert fs.fused_stream_step.launches == before + 1
+    for key in st:
+        assert same_bits(st_k[key], st_p[key]), key
+    assert same_bits(out_k, out_p)
+    assert torch.equal(got[0], want[0])
+    assert [int(x) for x in got[1:]] == [int(x) for x in want[1:]]
+    assert int(head) < n_pix < int(got[1]) and int(got[3]) < 131072
+
+
+@pytest.mark.parametrize("rr_mode", ["reference", "standard"])
+def test_fused_render_bitwise_on_card(cuda, rr_mode):
+    """The fused schedule's render on the card (kernel 7 every iteration)
+    equals the unfused render on the card bit for bit, with the same
+    iterations and segments."""
+    res = {}
+    scene = build_accel(procedural.three_spheres_scene(8, 16, device=cuda))
+    for mode in ("on", "off"):
+        cfg = RenderConfig(width=64, height=48, samples_per_launch=3, max_depth=4, dof=False, stream_lanes=512,
+                           intersector="cluster", env_mode="sunsky", rr_mode=rr_mode, fused_schedule=mode)
+        assert _fused_stream_ok(cfg, None, 512, cuda) == (mode == "on")
+        before = fs.fused_stream_step.launches
+        img, stats = render_frame_stats(scene, camera_arrays(Camera(), cfg, cuda), cfg, 0)
+        launches = fs.fused_stream_step.launches - before
+        assert launches == (stats["iters"] if mode == "on" else 0)
+        res[mode] = (img, stats["iters"], int(stats["segments"]))
+    (img_f, it_f, seg_f), (img_u, it_u, seg_u) = res["on"], res["off"]
+    assert torch.equal(img_f, img_u) and it_f == it_u and seg_f == seg_u

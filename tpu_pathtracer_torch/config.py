@@ -3,10 +3,10 @@
 The same frozen dataclass as `RenderConfig` of `tpu_pathtracer/config.py`, with the
 same field names, defaults and validation for every field the port reads.
 Fields that only steer TPU machinery (scoped-VMEM budgets, the Pallas
-switch and packet size, the fused schedule kernel, the retire FIFO's
-scatter batching) and options that were measured and refuted on the TPU
-(tiled pixel order, multi-queue NEE, entry sort) are not carried; nor are
-the options of paths not ported yet (texture LOD).
+switch and packet size, the retire FIFO's scatter batching) and options
+that were measured and refuted on the TPU (tiled pixel order, multi-queue
+NEE, entry sort) are not carried; nor are the options of paths not ported
+yet (texture LOD).
 """
 
 from __future__ import annotations
@@ -54,6 +54,12 @@ class RenderConfig:
     # Lane-pool size of the streaming work-queue renderer; 0 = auto (the
     # nearest power of two to n_pix/16, clamped to [16384, 131072]).
     stream_lanes: int = 0
+    # Fused schedule step: the stream's post-trace tail (Russian roulette,
+    # retire, prefix-sum work queue, state merges) as one kernel launch
+    # per iteration.  "auto" = the measured rule of
+    # render/integrator.py:_fused_stream_ok; "on" forces it inside its
+    # envelope (no NEE, identity pixel mapping); "off" disables it.
+    fused_schedule: str = "auto"    # "auto" | "on" | "off"
 
     # ---- estimator behaviour -------------------------------------------
     # "reference": the reference's estimator (whole-path radiance divided
@@ -77,7 +83,8 @@ class RenderConfig:
     nee_mis_spec: bool = False
 
     # ---- intersection ----------------------------------------------------
-    # Rays per batch tile; 0 = whole frame (tiling is not ported yet).
+    # Pixels per tile: a frame renders as tiles of this many pixels, one
+    # after another; 0 = the whole frame at once.  Must divide width*height.
     tile_pixels: int = 0
     # Triangle-block size for the brute-force intersector.
     intersect_block: int = 256
@@ -125,6 +132,10 @@ class RenderConfig:
             raise ValueError(f"invalid env_mode: {self.env_mode!r}")
         if self.intersector not in ("auto", "brute", "cluster"):
             raise ValueError(f"invalid intersector: {self.intersector!r}")
+        if self.fused_schedule not in ("auto", "on", "off"):
+            raise ValueError(
+                f"invalid fused_schedule: {self.fused_schedule!r}"
+            )
         if self.sort_rays not in ("auto", "off", "octant", "spatial"):
             raise ValueError(f"invalid sort_rays: {self.sort_rays!r}")
         if self.tri_test not in ("auto", "mt", "bw"):

@@ -6,12 +6,14 @@ with `ctypes`.  Libraries go to `build/tpu_pathtracer_torch/` at the root
 of the checkout, named by a hash of every file in `csrc/` (a source and
 the headers it includes) and the flags, and are built at first use.
 `nvcc`'s `-Xptxas -v` report (registers, shared memory, spills) is kept
-beside each library as a `.log` file.
+beside each library as a `.log` file.  `library(source)` loads one and
+sets the argument types of its launch function from `LAUNCHERS`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -29,6 +31,52 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# source: (its launch function, the function's argument types)
+LAUNCHERS = {
+    "cluster_intersect.cu": (
+        "cluster_intersect_launch",
+        [_P] * 5 + [_I] * 3 + [_F] * 2 + [_I] * 2 + [_P] * 4,
+    ),
+    "cluster_hier.cu": (
+        "cluster_hier_launch",
+        [_P] * 6 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 4,
+    ),
+    "cluster_streamed.cu": (
+        "cluster_streamed_launch",
+        [_P] * 5 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 4,
+    ),
+    "cluster_occluded.cu": (
+        "cluster_occluded_launch",
+        [_P] * 5 + [_I] * 3 + [_F] * 2 + [_I] * 2 + [_P] * 2,
+    ),
+    "cluster_occluded_hier.cu": (
+        "cluster_occluded_hier_launch",
+        [_P] * 6 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 2,
+    ),
+    "cluster_occluded_streamed.cu": (
+        "cluster_occluded_streamed_launch",
+        [_P] * 5 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 2,
+    ),
+    "fused_schedule.cu": (
+        "fused_step_launch",
+        [_P] * 21 + [_I] * 5 + [_F] + [_P],
+    ),
+}
+
+
+def check_tensor(name, x, dtype, shape, dev) -> None:
+    """Raise unless `x` is what a kernel takes: on `dev`, of `dtype` and
+    `shape`, contiguous."""
+    if x.device != dev:
+        raise ValueError(f"{name} is on {x.device}, expected {dev}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
 
 
 def _nvcc() -> str:
@@ -84,7 +132,14 @@ def build_libraries(names=None) -> None:
         raise RuntimeError("\n".join(failed))
 
 
-def build_library(source: str) -> ctypes.CDLL:
-    """Compile csrc/`source` unless an up-to-date library exists; load it."""
+@functools.lru_cache(maxsize=None)
+def library(source: str) -> ctypes.CDLL:
+    """The library of csrc/`source`, compiled unless an up-to-date one
+    exists, with its launch function's signature set."""
     build_libraries([source])
-    return ctypes.CDLL(str(library_path(source)))
+    lib = ctypes.CDLL(str(library_path(source)))
+    name, argtypes = LAUNCHERS[source]
+    fn = getattr(lib, name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return lib

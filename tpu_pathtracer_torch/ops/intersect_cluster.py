@@ -20,10 +20,9 @@ ray a rounding miss of a box leaves untested.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
+
+from tpu_pathtracer_torch.ops.cuda_build import check_tensor, library
 
 MISS_PRIM = 0x7FFFFFFF
 _PAD_ORIGIN_X = 3.0e37
@@ -458,61 +457,6 @@ def streamed_pads(aabbs, block_clusters: int = 96, branch: int = 16):
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# source: (launch function, its argument types)
-_LAUNCHERS = {
-    "cluster_intersect.cu": (
-        "cluster_intersect_launch",
-        [_P] * 5 + [_I] * 3 + [_F] * 2 + [_I] * 2 + [_P] * 4,
-    ),
-    "cluster_hier.cu": (
-        "cluster_hier_launch",
-        [_P] * 6 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 4,
-    ),
-    "cluster_streamed.cu": (
-        "cluster_streamed_launch",
-        [_P] * 5 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 4,
-    ),
-    "cluster_occluded.cu": (
-        "cluster_occluded_launch",
-        [_P] * 5 + [_I] * 3 + [_F] * 2 + [_I] * 2 + [_P] * 2,
-    ),
-    "cluster_occluded_hier.cu": (
-        "cluster_occluded_hier_launch",
-        [_P] * 6 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 2,
-    ),
-    "cluster_occluded_streamed.cu": (
-        "cluster_occluded_streamed_launch",
-        [_P] * 5 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 2,
-    ),
-}
-
-
-@functools.lru_cache(maxsize=None)
-def library(source: str):
-    """The library of csrc/`source`, compiled at first use; its launch
-    signature set."""
-    from tpu_pathtracer_torch.ops.cuda_build import build_library
-
-    lib = build_library(source)
-    name, argtypes = _LAUNCHERS[source]
-    fn = getattr(lib, name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return lib
-
-
-def _check(name, x, dtype, shape, dev):
-    if x.device != dev:
-        raise ValueError(f"{name} is on {x.device}, origins on {dev}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
 def _check_launch(tris, origins, directions, rays_per_tile, tri_test, boxes):
     """Check what every kernel takes."""
     dev = origins.device
@@ -520,11 +464,11 @@ def _check_launch(tris, origins, directions, rays_per_tile, tri_test, boxes):
         raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
     c_count, k, _ = tris.shape
     n = origins.shape[0]
-    _check("tris", tris, torch.float32, (c_count, k, 16), dev)
-    _check("origins", origins, torch.float32, (n, 3), dev)
-    _check("directions", directions, torch.float32, (n, 3), dev)
+    check_tensor("tris", tris, torch.float32, (c_count, k, 16), dev)
+    check_tensor("origins", origins, torch.float32, (n, 3), dev)
+    check_tensor("directions", directions, torch.float32, (n, 3), dev)
     for name, (x, dtype, shape) in boxes.items():
-        _check(name, x, dtype, shape, dev)
+        check_tensor(name, x, dtype, shape, dev)
     if tri_test not in _TRI_TEST_IDS:
         raise ValueError(f"unknown tri_test {tri_test!r}")
     if not (32 <= rays_per_tile <= 1024 and rays_per_tile % 32 == 0):

@@ -1,14 +1,18 @@
 """The wavefront path-tracing integrator: closest-hit shading, one bounce
-for every lane, and the streaming work-queue schedule.
+for every lane, and the frame schedules.
 
-Counterpart of `tpu_pathtracer/render/integrator.py` on the main path:
-`_shade`, `_trace_bounce` with and without next-event estimation (NEE),
-`render_pixels_stream`, the stream branch of `render_pixels`,
-`render_frame` and `render_frame_stats`.  The estimator is the
-reference's (cfg.rr_mode="reference": the whole path's radiance divided
-by the last survival probability, a deterministic two-lobe BSDF blend,
-glass bounces that skip the attenuation update) or textbook Russian
-roulette ("standard", which NEE requires).  NEE draws one environment
+Counterpart of `tpu_pathtracer/render/integrator.py`: `_shade`,
+`_trace_bounce` with and without next-event estimation (NEE), the
+schedules `render_rays` (one lane per sample, for 1 spp),
+`render_pixels_regen` (one lane per pixel), `render_pixels_stream` (a
+lane pool and a work queue) and `render_pixels_stream_fused` (the same
+with its post-trace tail in one kernel launch, TPU kernel 7),
+`render_pixels` over the whole frame or a pixel-id array, `render_frame`
+and `render_frame_stats` with `tile_pixels`, and `count_segments`.  The
+estimator is the reference's (cfg.rr_mode="reference": the whole path's
+radiance divided by the last survival probability, a deterministic
+two-lobe BSDF blend, glass bounces that skip the attenuation update) or
+textbook Russian roulette ("standard", which NEE requires).  NEE draws one environment
 direction per surface hit from the alias table, traces one shadow ray
 (`occluded_scene`) and adds the diffuse lobe's light; env radiance on
 misses is then credited only to spec-sampled or primary segments
@@ -17,19 +21,22 @@ defensive alias/cosine mixture (cfg.nee_defensive_mix).  Multi-queue NEE
 (the shadow ray riding the next closest-hit batch) was measured slower
 on the TPU and is not ported.
 
-The schedule runs eagerly: a Python loop over iterations that reads one
-flag from the device per iteration (whether any lane is still live).
-Branches of the JAX integrator that are not ported raise
-NotImplementedError naming their ROADMAP item.
+The schedules run eagerly: a Python loop over iterations that reads one
+value from the device per iteration (whether any lane is still live, or
+how many are).
+Branches of the JAX integrator that are not ported (deferred shading,
+affine pixel ranges) raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from tpu_pathtracer_torch.config import RenderConfig
+from tpu_pathtracer_torch.ops.fused_schedule import fused_stream_step, fused_stream_step_plain, roulette
 from tpu_pathtracer_torch.ops.intersect import Hit, intersect_scene, occluded_scene
 from tpu_pathtracer_torch.render import bsdf
 from tpu_pathtracer_torch.render.camera import generate_camera_rays
@@ -388,6 +395,145 @@ def _trace_bounce(scene, cfg, origin, direction, attenuation, radiance, seeds, d
 
 
 # ---------------------------------------------------------------------------
+# Camera paths, shared by the schedules
+# ---------------------------------------------------------------------------
+
+def _camera_paths(cam: dict, cfg: RenderConfig, subframe, sample_offset):
+    """make_path(pix, sample_i) -> (origins, directions, seeds): a fresh
+    camera path for each (pixel id, sample of this launch), seeded from
+    the global (pixel, sample_offset + sample, subframe) counters."""
+
+    def make_path(pix, sample_i):
+        seeds0 = rng.make_seeds(pix, sample_offset + sample_i, subframe)
+        return generate_camera_rays(cam, pix % cfg.width, pix // cfg.width, seeds0, cfg)
+
+    return make_path
+
+
+def _spec_start(cfg: RenderConfig, n: int, dev):
+    """NEE's env-credit flag per lane (an MIS weight under nee_mis_spec):
+    a fresh path's primary segment takes the env's light in full."""
+    return torch.ones(n, dtype=torch.float32 if cfg.nee_mis_spec else torch.bool, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# One lane per ray: render_rays (1 spp)
+# ---------------------------------------------------------------------------
+
+def render_rays(scene: Scene, cfg: RenderConfig, origins, directions, seeds, return_stats: bool = False):
+    """Trace a batch of primary rays to completion; returns radiance [N,3].
+
+    Every lane traces one path; the loop ends when every path has ended,
+    or after max_depth + 2 bounces.  return_stats=True also returns
+    {"iters", "segments", "shadow_segments"}: bounces run, path segments
+    traced and, under NEE, shadow rays (every live lane that hit)."""
+    n, dev = origins.shape[0], origins.device
+    origin, direction = origins, directions
+    attenuation = torch.ones_like(origins)
+    radiance = torch.zeros_like(origins)
+    depth = torch.full((n,), cfg.max_depth, dtype=torch.int32, device=dev)
+    terminated = torch.zeros(n, dtype=torch.bool, device=dev)
+    result = torch.zeros_like(origins)
+    spec_last = _spec_start(cfg, n, dev)
+    segments = torch.zeros((), dtype=torch.int64, device=dev)
+    shadow = torch.zeros_like(segments)
+    nee = cfg.env_importance_sampling
+    max_traces = cfg.max_depth + 2  # depth <= 0 forces done; +1 safety
+
+    bounce = 0
+    while bounce < max_traces and not bool(terminated.all()):
+        live = ~terminated
+        tb = _trace_bounce(scene, cfg, origin, direction, attenuation, radiance, seeds, depth, spec_last)
+        seeds_new, newly, adv, result_t, att_new = roulette(tb, live, cfg.rr_mode == "reference")
+        result = torch.where(newly[:, None], result_t, result)
+        terminated = terminated | newly
+        av = adv[:, None]
+        origin = torch.where(av, tb["origin"], origin)
+        direction = torch.where(av, tb["direction"], direction)
+        attenuation = torch.where(av, att_new, attenuation)
+        radiance = torch.where(av, tb["radiance"], radiance)
+        seeds = torch.where(live, seeds_new, seeds)
+        depth = torch.where(adv, depth - 1, depth)
+        segments = segments + live.sum()
+        if nee:
+            spec_last = torch.where(adv, tb["spec_last"], spec_last)
+            shadow = shadow + (live & tb["hit"]).sum()
+        bounce += 1
+
+    # Lanes that never ended (the bounce cap) give their radiance so far.
+    out = torch.where(terminated[:, None], result, radiance)
+    if return_stats:
+        return out, dict(iters=bounce, segments=segments, shadow_segments=shadow)
+    return out
+
+
+def count_segments(scene: Scene, cam: dict, cfg: RenderConfig, subframe):
+    """Ray segments traced by one launch, NEE shadow rays included
+    (Mrays/s accounting), counted by the schedule that renders it."""
+    _, stats = render_frame_stats(scene, cam, cfg, subframe)
+    return stats["segments"] + stats["shadow_segments"]
+
+
+# ---------------------------------------------------------------------------
+# One lane per pixel: render_pixels_regen
+# ---------------------------------------------------------------------------
+
+def render_pixels_regen(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids, subframe, sample_offset: int, spp: int, return_stats: bool = False):
+    """One lane per pixel; each lane traces its pixel's `spp` samples one
+    after another, respawning a camera ray the moment a path ends.  Seeds
+    are the global (pixel, sample, subframe) counters, so each sample's
+    radiance is that of the other schedules.  Returns the pixel means
+    [Np,3] (the sums divided by spp, as the JAX function divides), and
+    with return_stats {"iters", "segments", "shadow_segments"}."""
+    n, dev = pixel_ids.shape[0], pixel_ids.device
+    make_path = _camera_paths(cam, cfg, subframe, sample_offset)
+    origin, direction, seeds = make_path(pixel_ids, torch.zeros_like(pixel_ids))
+    attenuation = torch.ones_like(origin)
+    radiance = torch.zeros_like(origin)
+    depth = torch.full((n,), cfg.max_depth, dtype=torch.int32, device=dev)
+    sample_i = torch.zeros(n, dtype=torch.int32, device=dev)
+    accum = torch.zeros_like(origin)
+    exhausted = torch.zeros(n, dtype=torch.bool, device=dev)
+    spec_last = _spec_start(cfg, n, dev)
+    segments = torch.zeros((), dtype=torch.int64, device=dev)
+    shadow = torch.zeros_like(segments)
+    nee = cfg.env_importance_sampling
+    max_iters = spp * (cfg.max_depth + 2) + 4
+
+    it = 0
+    while it < max_iters and not bool(exhausted.all()):
+        live = ~exhausted
+        tb = _trace_bounce(scene, cfg, origin, direction, attenuation, radiance, seeds, depth, spec_last)
+        seeds_new, newly, adv, result, att_new = roulette(tb, live, cfg.rr_mode == "reference")
+        accum = accum + torch.where(newly[:, None], result, 0.0)
+        sample_i = sample_i + newly.to(torch.int32)
+        exhausted = exhausted | (newly & (sample_i >= spp))
+
+        # Respawn the next sample on lanes that just finished one.
+        regen = newly & ~exhausted
+        o_r, d_r, s_r = make_path(pixel_ids, torch.clamp_max(sample_i, spp - 1))
+        rg, av = regen[:, None], adv[:, None]
+        origin = torch.where(rg, o_r, torch.where(av, tb["origin"], origin))
+        direction = torch.where(rg, d_r, torch.where(av, tb["direction"], direction))
+        seeds = torch.where(regen, s_r, torch.where(live, seeds_new, seeds))
+        attenuation = torch.where(rg, 1.0, torch.where(av, att_new, attenuation))
+        radiance = torch.where(rg, 0.0, torch.where(av, tb["radiance"], radiance))
+        depth = torch.where(regen, cfg.max_depth, torch.where(adv, depth - 1, depth))
+        segments = segments + live.sum()
+        if nee:
+            spec_last = torch.where(
+                regen, torch.ones_like(spec_last), torch.where(adv, tb["spec_last"], spec_last)
+            )
+            shadow = shadow + (live & tb["hit"]).sum()
+        it += 1
+
+    out = accum / torch.tensor(float(spp), dtype=torch.float32, device=dev)
+    if return_stats:
+        return out, dict(iters=it, segments=segments, shadow_segments=shadow)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Streaming work-queue schedule
 # ---------------------------------------------------------------------------
 
@@ -403,109 +549,92 @@ def resolve_stream_lanes(cfg: RenderConfig, n_pix: int) -> int:
     return min(131072, max(16384, lanes))
 
 
-def render_pixels_stream(scene: Scene, cam: dict, cfg: RenderConfig, subframe, sample_offset: int, spp: int, lanes: int, return_stats: bool = False):
-    """A fixed pool of `lanes` persistent lanes consumes the whole frame.
+def _stream_state(cfg: RenderConfig, make_path, slot_to_pixel, lanes: int, dev) -> dict:
+    """The lane pool at the start of a launch: lane k holds slot k, the
+    first sample of its pixel."""
+    slot = torch.arange(lanes, dtype=torch.int32, device=dev)  # n_pix and above = retired
+    pix = slot_to_pixel(slot).clone()  # its own tensor: the kernel updates both in place
+    origin, direction, seeds = make_path(pix, torch.zeros_like(pix))
+    return dict(
+        slot=slot, pix=pix, origin=origin, direction=direction, seeds=seeds,
+        attenuation=torch.ones_like(origin), radiance=torch.zeros_like(origin),
+        depth=torch.full((lanes,), cfg.max_depth, dtype=torch.int32, device=dev),
+        sample_i=torch.zeros(lanes, dtype=torch.int32, device=dev),
+        lane_accum=torch.zeros_like(origin),
+        spec_last=_spec_start(cfg, lanes, dev),
+    )
+
+
+def _respawn(st: dict, regen, make_path, spp: int):
+    """The stream's camera respawn after a schedule step: on the lanes of
+    the regen mask, a fresh camera path for the next sample of the same
+    or a freshly pulled pixel."""
+    o_r, d_r, s_r = make_path(st["pix"], torch.clamp_max(st["sample_i"], spp - 1))
+    rg = regen[:, None]
+    st["origin"] = torch.where(rg, o_r, st["origin"])
+    st["direction"] = torch.where(rg, d_r, st["direction"])
+    st["seeds"] = torch.where(regen, s_r, st["seeds"])
+
+
+def render_pixels_stream(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids, subframe, sample_offset: int, spp: int, lanes: int, return_stats: bool = False, fused: bool = False):
+    """A fixed pool of `lanes` persistent lanes consumes the pixel list
+    (`pixel_ids` [Np] int32, or None for the whole frame in order).
 
     A lane traces its pixel's samples one after another; when a pixel's
     last sample ends, the lane adds the pixel's mean into the image and
     takes the next pixel off a queue whose head advances by a prefix sum
     over the lanes that finished, in lane order.  Seeds are the global
     (pixel, sample, subframe) counters, so the image does not depend on
-    the pool size.
+    the pool size.  Returns the pixel means [Np,3], in list order.
 
-    Retired pixels go into the image every iteration with one
-    `index_add_`; lanes that retire nothing add zeros into a sink row.
-    Each pixel row receives exactly one non-zero add, so the sum is exact
-    in any order, atomics included, and equals the JAX schedule's
-    FIFO-batched scatter bit for bit.
+    After each trace one schedule step runs (ops/fused_schedule): with
+    fused=True, on `_fused_stream_ok`'s envelope, `fused_stream_step`,
+    one kernel launch on the card (TPU kernel 7); otherwise its plain
+    version, eager ops with any pixel mapping.  Both give the same bits.
+    Camera paths are then respawned on the step's regen mask through
+    `generate_camera_rays`, outside the kernel as in the JAX package.  The
+    step returns the count of live lanes, the loop's one host read per
+    iteration.
 
     return_stats=True also returns {"iters", "segments",
     "shadow_segments"}: iterations run, path segments traced and, under
     NEE, shadow rays counted as the JAX schedule counts them (every live
     lane that hit, whether or not its light draw was traced)."""
-    n_pix = cfg.width * cfg.height
+    identity = pixel_ids is None
+    n_pix = cfg.width * cfg.height if identity else pixel_ids.shape[0]
     lanes = min(lanes, n_pix)
     dev = scene.device
+    nee = cfg.env_importance_sampling
+    make_path = _camera_paths(cam, cfg, subframe, sample_offset)
 
-    def make_path(pix, sample_i):
-        seeds0 = rng.make_seeds(pix, sample_offset + sample_i, subframe)
-        return generate_camera_rays(cam, pix % cfg.width, pix // cfg.width, seeds0, cfg)
+    def slot_to_pixel(slot):
+        return slot if identity else pixel_ids[torch.clamp_max(slot, n_pix - 1)]
 
-    slot = torch.arange(lanes, dtype=torch.int32, device=dev)  # n_pix = retired
-    pix = slot.clone()
-    sample_i = torch.zeros(lanes, dtype=torch.int32, device=dev)
-    origin, direction, seeds = make_path(pix, sample_i)
-    attenuation = torch.ones_like(origin)
-    radiance = torch.zeros_like(origin)
-    depth = torch.full((lanes,), cfg.max_depth, dtype=torch.int32, device=dev)
-    lane_accum = torch.zeros_like(origin)
+    step = fused_stream_step if fused else functools.partial(
+        fused_stream_step_plain, slot_to_pixel=None if identity else slot_to_pixel)
+    st = _stream_state(cfg, make_path, slot_to_pixel, lanes, dev)
     out = torch.zeros((n_pix + 1, 3), dtype=torch.float32, device=dev)  # +1 = sink
-    head = torch.tensor(lanes, dtype=torch.int32, device=dev)
+    head = torch.tensor(lanes, dtype=torch.int64, device=dev)
     segments = torch.zeros((), dtype=torch.int64, device=dev)
     shadow = torch.zeros_like(segments)
-    nee = cfg.env_importance_sampling
-    # NEE's env-credit flag per lane (an MIS weight under nee_mis_spec);
-    # a fresh path's primary segment takes the env's light in full.
-    spec_last = torch.ones(lanes, dtype=torch.float32 if cfg.nee_mis_spec else torch.bool, device=dev)
-    inv_spp = 1.0 / spp
     max_iters = (n_pix * spp * (cfg.max_depth + 2)) // lanes + cfg.max_depth + 16
 
-    it = 0
-    while it < max_iters:
-        live = slot < n_pix
-        if not bool(live.any()):
-            break
-        tb = _trace_bounce(scene, cfg, origin, direction, attenuation, radiance, seeds, depth, spec_last)
-        seeds_new, u_rr = rng.uniform(tb["seeds"])
-        att_new = tb["attenuation"]
-        p = att_new.amax(dim=-1)
-        rr_done = tb["done"] | (u_rr > p)
-        newly = live & rr_done
-        adv = live & ~rr_done
-        p_safe = torch.where(p > 0.0, p, 1.0)
-        if cfg.rr_mode == "reference":
-            result = tb["radiance"] / p_safe[:, None]
-        else:
-            # Survival probability is min(p, 1).
-            result = tb["radiance"]
-            p_div = torch.clamp_max(p_safe, 1.0)
-            att_new = torch.where(adv[:, None], att_new / p_div[:, None], att_new)
-
-        lane_accum = lane_accum + torch.where(newly[:, None], result, 0.0)
-        sample_i = sample_i + newly.to(torch.int32)
-        pixel_done = newly & (sample_i >= spp)
-
-        # -- retire finished pixels straight into the image ----------------
-        retire_row = torch.where(pixel_done, slot, n_pix).long()
-        retire_rgb = torch.where(pixel_done[:, None], lane_accum * inv_spp, 0.0)
-        out.index_add_(0, retire_row, retire_rgb)
-
-        # -- work queue: pull the next pixel via a prefix sum --------------
-        inc = torch.cumsum(pixel_done.to(torch.int32), dim=0, dtype=torch.int32)
-        slot = torch.where(pixel_done, head + inc - 1, slot)
-        head = head + inc[-1]
-        live_next = slot < n_pix
-        pix = torch.where(pixel_done, slot, pix)
-        sample_i = torch.where(pixel_done, 0, sample_i)
-        lane_accum = torch.where(pixel_done[:, None], 0.0, lane_accum)
-
-        # -- respawn: next sample of the same or a freshly pulled pixel ----
-        regen = newly & live_next
-        o_r, d_r, s_r = make_path(pix, torch.clamp_max(sample_i, spp - 1))
-        rg = regen[:, None]
-        av = adv[:, None]
-        origin = torch.where(rg, o_r, torch.where(av, tb["origin"], origin))
-        direction = torch.where(rg, d_r, torch.where(av, tb["direction"], direction))
-        seeds = torch.where(regen, s_r, torch.where(live, seeds_new, seeds))
-        attenuation = torch.where(rg, 1.0, torch.where(av, att_new, attenuation))
-        radiance = torch.where(rg, 0.0, torch.where(av, tb["radiance"], radiance))
-        depth = torch.where(regen, cfg.max_depth, torch.where(adv, depth - 1, depth))
-        segments = segments + live.sum()
+    it, n_live = 0, lanes
+    while it < max_iters and n_live:
+        tb = _trace_bounce(scene, cfg, st["origin"], st["direction"], st["attenuation"], st["radiance"],
+                           st["seeds"], st["depth"], st["spec_last"])
         if nee:
-            spec_last = torch.where(
-                regen, torch.ones_like(spec_last), torch.where(adv, tb["spec_last"], spec_last)
-            )
-            shadow = shadow + (live & tb["hit"]).sum()
+            shadow = shadow + ((st["slot"] < n_pix) & tb["hit"]).sum()
+        regen, head, segments, live = step(
+            tb, st, out, head, segments, spp=spp, n_pix=n_pix, max_depth=cfg.max_depth,
+            rr_reference=cfg.rr_mode == "reference", inv_spp=1.0 / spp,
+        )
+        _respawn(st, regen, make_path, spp)
+        if nee:
+            # A lane that neither respawns nor goes on is not live again,
+            # so its flag is never read.
+            st["spec_last"] = torch.where(regen, torch.ones_like(st["spec_last"]), tb["spec_last"])
+        n_live = int(live)
         it += 1
 
     img = out[:n_pix]
@@ -514,53 +643,124 @@ def render_pixels_stream(scene: Scene, cam: dict, cfg: RenderConfig, subframe, s
     return img
 
 
+def _fused_stream_ok(cfg: RenderConfig, pixel_ids, lanes: int, device) -> bool:
+    """Whether the fused schedule step (ops/fused_schedule) runs this
+    render.  Its envelope is the JAX package's: the identity pixel
+    mapping (a whole frame, untiled), no NEE (shadow-segment accounting
+    and the spec_last flow stay in the unfused schedule), and a lane pool
+    of whole 128-lane rows that the JAX kernel's chunks of 128 rows
+    divide.  Camera regeneration, DOF included, runs outside the kernel.
+
+    "auto" takes it on a CUDA device, at every pool size: on an H100
+    80GB HBM3 at 700 W it launched ~70 fewer device kernels per
+    iteration and took 3-7% less device time than the unfused schedule,
+    and no measure showed it slower per launch, at both pools measured:
+    the headline's 131,072 lanes and config 1's 16,384 (PERF.md, the auto
+    rule).  On the CPU the step would only run its plain version."""
+    if cfg.fused_schedule == "off":
+        return False
+    if pixel_ids is not None or cfg.env_importance_sampling:
+        return False
+    if lanes % 128:
+        return False
+    rows = lanes // 128
+    if rows % min(128, rows):
+        return False
+    if cfg.fused_schedule == "on":
+        return True
+    return torch.device(device).type == "cuda"
+
+
+def render_pixels_stream_fused(scene: Scene, cam: dict, cfg: RenderConfig, subframe, sample_offset: int, spp: int, lanes: int, return_stats: bool = False):
+    """render_pixels_stream over the whole frame with its schedule step in
+    one kernel launch per iteration (`fused_stream_step`, TPU kernel 7),
+    on the envelope of `_fused_stream_ok`; the image equals the unfused
+    schedule's bit for bit."""
+    return render_pixels_stream(scene, cam, cfg, None, subframe, sample_offset, spp, lanes,
+                                return_stats=return_stats, fused=True)
+
+
 # ---------------------------------------------------------------------------
 # Frame rendering
 # ---------------------------------------------------------------------------
 
-def render_pixels(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids=None, subframe=0, sample_offset: int = 0, spp: int | None = None, return_stats: bool = False):
-    """Render one launch of `spp` samples for every pixel of the frame;
-    returns the sample-averaged radiance [W*H,3] (and stats)."""
-    if spp is None:
-        spp = cfg.samples_per_launch
-    if pixel_ids is not None:
-        raise NotImplementedError(
-            "pixel subsets are not ported yet (ROADMAP, modules to port: sharding)"
-        )
-    n_pix = cfg.width * cfg.height
+def schedule(cfg: RenderConfig, pixel_ids, n_pix: int, spp: int, device) -> str:
+    """The schedule render_pixels runs for `n_pix` pixels (`pixel_ids`, or
+    None for the whole frame): "stream_fused", "stream" (the pixels
+    outnumber the lane pool), "regen" (they do not) or "rays" (1 spp, or
+    no regeneration)."""
     if not (cfg.regenerate and spp > 1):
-        raise NotImplementedError(
-            "the one-lane-per-sample schedule (render_rays) is not ported yet "
-            "(ROADMAP, modules to port: render_pixels_regen/render_rays)"
-        )
+        return "rays"
     lanes = resolve_stream_lanes(cfg, n_pix)
     if n_pix <= lanes:
-        raise NotImplementedError(
-            "frames no larger than the lane pool take render_pixels_regen, not "
-            "ported yet (ROADMAP, modules to port: render_pixels_regen/render_rays)"
-        )
-    return render_pixels_stream(
-        scene, cam, cfg, subframe, sample_offset, spp, lanes, return_stats=return_stats
-    )
+        return "regen"
+    return "stream_fused" if _fused_stream_ok(cfg, pixel_ids, lanes, device) else "stream"
 
 
-def _check_untiled(cfg: RenderConfig):
-    if cfg.tile_pixels and cfg.tile_pixels < cfg.width * cfg.height:
+def render_pixels(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids=None, subframe=0, sample_offset: int = 0, spp: int | None = None, return_stats: bool = False):
+    """Render one launch of `spp` samples for each pixel of `pixel_ids`
+    ([Np] int32 flat ids, None = the whole frame); returns the
+    sample-averaged radiance [Np,3] (and the schedule's stats, with the
+    schedule's name under "schedule").
+
+    The schedule is `schedule`'s: with regeneration and spp > 1, the
+    stream (fused where `_fused_stream_ok` allows) when the pixels
+    outnumber the lane pool, else one lane per pixel; otherwise one lane
+    per sample (render_rays)."""
+    if spp is None:
+        spp = cfg.samples_per_launch
+    if isinstance(pixel_ids, tuple):
         raise NotImplementedError(
-            "tile_pixels is not ported yet (ROADMAP, modules to port: "
-            "render_pixels_regen/render_rays)"
+            "affine pixel ranges (base, count) are not ported yet (ROADMAP, "
+            "modules to port: sharding)"
         )
+    dev = scene.device
+    n_pix = cfg.width * cfg.height if pixel_ids is None else pixel_ids.shape[0]
+    which = schedule(cfg, pixel_ids, n_pix, spp, dev)
+    if which.startswith("stream"):
+        img, stats = render_pixels_stream(scene, cam, cfg, pixel_ids, subframe, sample_offset, spp,
+                                          resolve_stream_lanes(cfg, n_pix), return_stats=True,
+                                          fused=which == "stream_fused")
+    else:
+        if pixel_ids is None:
+            pixel_ids = torch.arange(n_pix, dtype=torch.int32, device=dev)
+        if which == "regen":
+            img, stats = render_pixels_regen(scene, cam, cfg, pixel_ids, subframe, sample_offset, spp,
+                                             return_stats=True)
+        else:
+            pixel_rep = pixel_ids.repeat_interleave(spp)
+            sample_rep = sample_offset + torch.arange(spp, dtype=torch.int32, device=dev).repeat(n_pix)
+            seeds = rng.make_seeds(pixel_rep, sample_rep, subframe)
+            origins, directions, seeds = generate_camera_rays(cam, pixel_rep % cfg.width, pixel_rep // cfg.width,
+                                                              seeds, cfg)
+            radiance, stats = render_rays(scene, cfg, origins, directions, seeds, return_stats=True)
+            img = radiance.reshape(n_pix, spp, 3).mean(dim=1)
+    stats["schedule"] = which
+    return (img, stats) if return_stats else img
+
+
+def render_frame_stats(scene: Scene, cam: dict, cfg: RenderConfig, subframe):
+    """One full launch with the schedule's own accounting: returns
+    (radiance image [H,W,3], row 0 the bottom; {"iters", "segments",
+    "shadow_segments"}, summed over the tiles of cfg.tile_pixels, and
+    "schedule", the one render_pixels took for the frame or each tile)."""
+    n_pix = cfg.width * cfg.height
+    tile = cfg.tile_pixels
+    if not tile or tile >= n_pix:
+        img, stats = render_pixels(scene, cam, cfg, None, subframe, return_stats=True)
+        return img.reshape(cfg.height, cfg.width, 3), stats
+    if n_pix % tile:
+        raise ValueError("tile_pixels must divide width*height")
+    parts, stats = [], dict(iters=0, segments=0, shadow_segments=0)
+    for start in range(0, n_pix, tile):
+        ids = torch.arange(start, start + tile, dtype=torch.int32, device=scene.device)
+        img, tile_stats = render_pixels(scene, cam, cfg, ids, subframe, return_stats=True)
+        parts.append(img)
+        stats = {k: v + tile_stats[k] for k, v in stats.items()}
+    stats["schedule"] = tile_stats["schedule"]  # the tiles are of one size
+    return torch.cat(parts).reshape(cfg.height, cfg.width, 3), stats
 
 
 def render_frame(scene: Scene, cam: dict, cfg: RenderConfig, subframe) -> torch.Tensor:
     """One full launch: radiance image [H,W,3] (row 0 is the bottom)."""
-    _check_untiled(cfg)
-    return render_pixels(scene, cam, cfg, None, subframe).reshape(cfg.height, cfg.width, 3)
-
-
-def render_frame_stats(scene: Scene, cam: dict, cfg: RenderConfig, subframe):
-    """render_frame plus the schedule's own accounting: returns
-    (image [H,W,3], {"iters", "segments", "shadow_segments"})."""
-    _check_untiled(cfg)
-    img, stats = render_pixels(scene, cam, cfg, None, subframe, return_stats=True)
-    return img.reshape(cfg.height, cfg.width, 3), stats
+    return render_frame_stats(scene, cam, cfg, subframe)[0]
