@@ -29,7 +29,11 @@ Phases, each printing one line (any failure exits non-zero):
      high_poly_scene(100_000): 98,002 triangles, 766 clusters, 6.3 MB of
      rows, camera eye (0,3,10) lookat (0,1,0);
   7. kernel 3 (streamed) as phase 3 on the same generator at 200,000
-     triangles: 200,002 triangles, 1,563 clusters, 12.8 MB of rows;
+     triangles: 200,002 triangles, 1,563 clusters, 12.8 MB of rows; its
+     launch shape (blocks per packet, threads per ray, registers, resident
+     blocks per SM), its instruction floor beside the bound, and the same rays
+     tiled 16 times (2,097,152 rays, more packets than the card holds at
+     once): every tile bit-equal to the plain version's result, and timed;
   8. render config 4 as phase 4 (one warm, one timed frame), through the
      two-level kernel;
   9. render the 200k scene as phase 4 (one warm, one timed frame),
@@ -42,6 +46,7 @@ Phases, each printing one line (any failure exits non-zero):
      that trace no shadow ray parked and the batch sorted as
      ClusterAccel.occluded does; flags bit-equal to the plain version in
      bw and mt; both times, the share of rays occluded and parked;
+     kernel 6 also with phase 7's launch shape, instruction floor and 16 tiles;
  14. NEE render of the headline (BASELINE config 3's path: textbook RR,
      env importance sampling), as phase 4 (one warm, one timed frame):
      kernels 1 and 4 must each launch at least once per stream iteration
@@ -80,6 +85,7 @@ the headline 1080p frame, post-processed, as a binary PPM.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import shutil
@@ -159,6 +165,15 @@ CAMERA_RAYS = 65536  # and as many first bounces: 131,072 rays per kernel phase
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 BW_TEST_FLOPS = 33  # bw_test in csrc/cluster_common.cuh: 17 mul, 14 add/sub, 1 div, 1 mul by rcp
+# The instruction floor of the streamed kernels: the instructions one
+# Baldwin-Weber test costs as the arithmetic has to be written (the SASS of
+# streamed_kernel's triangle loop, cuobjdump -sass on the built library:
+# the one-triangle body has 77 instructions, its row address, three 16-byte
+# shared loads and the IEEE division included; the body unrolled over two
+# triangles has 157), at 4 warp instructions a clock on each SM at the
+# card's highest SM clock.
+BW_TEST_INSTRUCTIONS = 77
+LARGE_TILES = 16  # phases 7 and 13: 16 x 131,072 rays
 
 
 @functools.lru_cache(maxsize=None)
@@ -206,6 +221,34 @@ def phase_device():
           f"| torch {torch.__version__} cuda {torch.version.cuda}")
     print(smi)  # the card's name and power limit, as nvidia-smi gives them
     return smi
+
+
+def instruction_rate():
+    """Warp instructions the card can start a second: 4 a clock on each SM
+    at the highest SM clock nvidia-smi reports."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count * 4 * mhz * 1e6, mhz
+
+
+@contextlib.contextmanager
+def counting_visits(plain_cls, packets, device):
+    """While open, counts the clusters each packet tests in the plain
+    versions of `plain_cls` (ic._Packets or ic._Occlusion)."""
+    counts = torch.zeros(packets, dtype=torch.int64, device=device)
+    visit = plain_cls.visit
+
+    def counted(self, idx, *rest):
+        counts.index_add_(0, idx, torch.ones_like(idx))
+        return visit(self, idx, *rest)
+
+    plain_cls.visit = counted
+    try:
+        yield counts
+    finally:
+        plain_cls.visit = visit
 
 
 def phase_build():
@@ -286,7 +329,9 @@ def kernel_bytes(args, n, any_hit):
 def phase_kernel(label, kid, scene, cfg, camera, smi, plain_reps):
     """The kernel against its plain version, both triangle tests, bit for
     bit; Baldwin-Weber (the main path's) timed, and its bound from the
-    tests the plain version counts on these rays."""
+    tests the plain version counts on these rays.  The streamed kernels
+    also report their launch shape and instruction floor and run LARGE_TILES
+    copies of the rays in one launch."""
     name, _, _, route, any_hit, _, kernel, plain = KERNELS[kid]
     acc = scene.accel
     if acc.route(cfg) != route:
@@ -297,12 +342,14 @@ def phase_kernel(label, kid, scene, cfg, camera, smi, plain_reps):
     else:
         o_s, d_s = bounce_batch(scene, cfg, camera)
     n = o_s.shape[0]
+    rpt, k = acc._rpt(cfg), acc.cluster_size
     out = {}
     for tri_test in ("bw", "mt"):
         _, args = acc.traversal(o_s, d_s, cfg.t_min, cfg.t_max, cfg.replace(tri_test=tri_test))
         stats = {}
         got = kernel(*args)
-        want = plain(*args, stats=stats)
+        with counting_visits(ic._Occlusion if any_hit else ic._Packets, -(-n // rpt), o_s.device) as visits:
+            want = plain(*args, stats=stats)
         torch.cuda.synchronize()
         got, want = (got,) if any_hit else got, (want,) if any_hit else want
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
@@ -318,18 +365,54 @@ def phase_kernel(label, kid, scene, cfg, camera, smi, plain_reps):
             n_bytes = kernel_bytes(args, n, any_hit)
             t_ops, t_bytes = flops / PEAK_FP32 * 1e3, n_bytes / PEAK_BYTES * 1e3
             out["bw"].update(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
-                             flops=flops, n_bytes=n_bytes)
+                             flops=flops, n_bytes=n_bytes, want=want, visits=visits)
     bw, mt = out["bw"], out["mt"]
     what = (f"{bw['positive'] / n:.4%} occluded, {parked:.4%} parked" if any_hit
             else f"{bw['positive']} hits")
+    per_packet = bw["visits"].float()
+    work = (f"bw work {bw['stats']['visits']} packet-cluster visits (a packet: median {int(per_packet.median())}, "
+            f"mean {float(per_packet.mean()):.1f}, most {int(per_packet.max())}), "
+            f"{bw['stats']['tests']} ray-triangle tests ({bw['stats']['tests'] / n:.1f} per ray")
+    if any_hit:  # a ray stops at its first hit, and an occluded ray tests nothing
+        work += f", {bw['stats']['tests'] / (bw['stats']['visits'] * rpt * k):.4%} of visits x rays x triangles"
     print(f"[{label}] {name} ({route}{', any hit' if any_hit else ''}): {n} rays ({what}), "
-          f"{acc.num_clusters} clusters of {acc.cluster_size}, {acc.tris16bw.numel() * 4} bytes of rows, "
-          f"packets of {acc._rpt(cfg)}: bit-equal (0 ulp) in bw and mt; bw kernel {bw['ms']:.4f} ms, plain "
-          f"{bw['plain_ms']:.4f} ms; mt kernel {mt['ms']:.4f} ms; bw work {bw['stats']['visits']} packet-cluster "
-          f"visits, {bw['stats']['tests']} ray-triangle tests ({bw['stats']['tests'] / n:.1f} per ray), "
+          f"{acc.num_clusters} clusters of {k}, {acc.tris16bw.numel() * 4} bytes of rows, "
+          f"packets of {rpt}: bit-equal (0 ulp) in bw and mt; bw kernel {bw['ms']:.4f} ms, plain "
+          f"{bw['plain_ms']:.4f} ms; mt kernel {mt['ms']:.4f} ms; {work}), "
           f"{bw['flops']} FLOP, {bw['n_bytes']} bytes: bound {bw['bound_ms']:.4f} ms by {bw['bound_by']} | {smi}")
+    if route == "streamed":
+        phase_streamed_sizes(label, name, any_hit, kernel, acc, cfg, o_s, d_s, bw, smi)
     return dict(max_abs_err=max(bw["max_abs_err"], mt["max_abs_err"]), ms=bw["ms"], plain_ms=bw["plain_ms"],
                 bound_ms=bw["bound_ms"], bound_by=bw["bound_by"], library_ms=None)
+
+
+def phase_streamed_sizes(label, name, any_hit, kernel, acc, cfg, o_s, d_s, bw, smi):
+    """A streamed kernel's launch shape and instruction floor at the phase's
+    rays, and the same rays tiled LARGE_TILES times in one launch: every
+    tile must equal the plain version's result, bit for bit."""
+    n, rpt, k = o_s.shape[0], acc._rpt(cfg), acc.cluster_size
+    if n % rpt:
+        raise SystemExit(f"[{label}] FAIL: {n} rays do not tile by whole packets of {rpt}")
+    rate, mhz = instruction_rate()
+    floor_ms = bw["stats"]["tests"] / 32 * BW_TEST_INSTRUCTIONS / rate * 1e3
+    _, args = acc.traversal(o_s.repeat(LARGE_TILES, 1), d_s.repeat(LARGE_TILES, 1), cfg.t_min, cfg.t_max, cfg)
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    got = (got,) if any_hit else got
+    bad = sum(int((a.reshape(LARGE_TILES, *b.shape) != b[None]).sum()) for a, b in zip(got, bw["want"]))
+    if bad:
+        raise SystemExit(f"[{label}] FAIL: {name} at {n * LARGE_TILES} rays differs from the plain version on {bad} values")
+    ms_large = _time_ms(lambda: kernel(*args), 5)
+    shapes = []
+    for rays in (n, n * LARGE_TILES):
+        sh = ic.streamed_launch_shape(rays, rpt, k, "bw", any_hit)
+        shapes.append(f"{rays} rays: {sh['packets']} packets x {sh['blocks']} blocks of {sh['threads']} threads, "
+                      f"{sh['threads_per_ray']} threads per ray, {sh['registers']} registers, "
+                      f"{sh['resident_blocks']} resident blocks per SM, {sh['resident_clusters']} resident packets")
+    print(f"[{label}] {name} launch shape: {'; '.join(shapes)}; instruction floor {floor_ms:.4f} ms "
+          f"({BW_TEST_INSTRUCTIONS} instructions a test, {rate / 1e12:.4f} T warp instructions/s at {mhz:.0f} MHz), "
+          f"bound {bw['bound_ms']:.4f} ms; at {n * LARGE_TILES} rays ({LARGE_TILES} tiles, every tile bit-equal) kernel "
+          f"{ms_large:.4f} ms, instruction floor {floor_ms * LARGE_TILES:.4f} ms, bound {bw['bound_ms'] * LARGE_TILES:.4f} ms | {smi}")
 
 
 def phase_render(label, scene, cfg, camera, frames, smi, image_path=None, warm=True):

@@ -46,10 +46,22 @@ from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.render.camera import Camera, camera_arrays
 from tpu_pathtracer_torch.render.integrator import render_frame_stats
 
-# The device functions of the seven kernels (csrc/): six traversals and
-# the fused schedule step.
+# The device functions of the seven kernels (csrc/): six traversals (the
+# streamed ones with their packet-weight pre-pass) and the fused schedule
+# step.
 KERNELS = ("cluster_intersect_kernel", "two_level_kernel", "cluster_occluded_kernel",
-           "two_level_occluded_kernel", "fused_step_kernel")
+           "two_level_occluded_kernel", "streamed_kernel", "packet_weight_kernel", "fused_step_kernel")
+
+
+def kernel_label(key):
+    """The port's kernel that the device function `key` belongs to, or
+    None.  streamed_kernel<kAnyHit, ...> is told apart by its first
+    template argument."""
+    name = next((k for k in KERNELS if k in key), None)
+    if name == "streamed_kernel":
+        first = key.split("streamed_kernel<", 1)[-1].split(",", 1)[0]
+        return f"streamed_kernel ({'any' if first.strip() in ('true', '(bool)1') else 'closest'} hit)"
+    return name
 
 
 def device_events(prof):
@@ -104,7 +116,7 @@ def profile_one(run, name, make, camera, cfg_kw, out_dir, smi, wall_only=False):
     events = sorted(device_events(prof).items(), key=lambda kv: -kv[1][1])
     busy = sum(s for _, (_, s) in events)
     kernels = sum(c for _, (c, _) in events)
-    ours = [(next(k for k in KERNELS if k in key), c, s) for key, (c, s) in events if any(k in key for k in KERNELS)]
+    ours = [(kernel_label(key), c, s) for key, (c, s) in events if kernel_label(key)]
     ours_s = sum(s for _, _, s in ours)
     ours_desc = "; ".join(f"{k} {s:.4f} s ({c} x {s / c * 1e3:.4f} ms)" for k, c, s in ours)
     iters = stats["iters"]

@@ -1,0 +1,239 @@
+"""The two arguments that the streamed CUDA kernels' design rests on
+(tpu_pathtracer_torch/csrc/cluster_streamed.cuh), checked on the CPU
+against the plain version's own pieces with numpy-seeded inputs:
+
+(a) a ray's T threads each scan every T-th triangle of a cluster and the T
+    partial winners merge by smaller t, then lower triangle id: that is the
+    sequential scan's winner (prim and uv included), ties and K < T
+    included; for any hit the OR of the T flags is the scan's flag;
+(b) a vote over many boxes at once, taken with the limits of that moment,
+    gives a mask that contains every box the exact votes then pass, so a
+    walk restricted to the masks visits what the plain version visits.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from tpu_pathtracer_torch.accel.build import build_accel  # noqa: E402
+from tpu_pathtracer_torch.ops import intersect_cluster as ic  # noqa: E402
+from tpu_pathtracer_torch.scene import procedural  # noqa: E402
+
+T_MIN, T_MAX = 0.01, 1e16
+SUPER_BATCH = 31  # kSuperBatch of cluster_streamed.cuh
+
+
+@pytest.fixture(scope="module")
+def accel():
+    """Three spheres (8, 16): 770 triangles in 97 clusters of 8."""
+    acc = build_accel(procedural.three_spheres_scene(8, 16, device="cpu"), cluster_size=8).accel
+    assert acc.num_clusters == 97
+    return acc
+
+
+def rays(seed, n, parked=0):
+    """Rays from around the scene toward random points on it, a quarter in
+    random directions; the last `parked` rays parked at (3e37, 0, 0)."""
+    rs = np.random.RandomState(seed)
+    o = (rs.randn(n, 3) * [5.0, 2.0, 5.0] + [0.0, 2.5, 0.0]).astype(np.float32)
+    target = (rs.rand(n, 3) * [8.0, 2.0, 2.0] - [4.0, 0.0, 1.0]).astype(np.float32)
+    d = target - o
+    d[: n // 4] = rs.randn(n // 4, 3)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    if parked:
+        o[-parked:] = [3.0e37, 0.0, 0.0]
+        d[-parked:] = [1.0, 0.0, 0.0]
+    return torch.as_tensor(o), torch.as_tensor(d)
+
+
+def rows_with_ties(acc, tri_test, k):
+    """The scene's rows cut to K = k triangles a cluster, with triangles
+    repeated inside each cluster so that a ray meets exact ties in t."""
+    tris = (acc.tris16bw if tri_test == "bw" else acc.tris16)[:, :k].clone()
+    if k >= 8:
+        tris[:, 5] = tris[:, 2]
+        tris[:, 7] = tris[:, 2]
+        tris[:, 4] = tris[:, 1]
+    elif k >= 3:
+        tris[:, 2] = tris[:, 0]
+    return tris.contiguous()
+
+
+def split_winner(tc, u, v, threads):
+    """The kernel's scan of one cluster, in numpy: thread `sub` of a ray
+    scans triangles sub, sub + T, ... keeping a strictly smaller t, then
+    the T partial winners merge pairwise (a butterfly over the thread
+    index) by smaller t, then lower k.  tc, u, v: [M,K,R].  Returns the
+    merged (t, k, u, v), each [M,R], as thread 0 holds them."""
+    m, k_count, r = tc.shape
+    parts = []
+    for sub in range(threads):
+        t_blk = np.full((m, r), np.inf, np.float32)
+        k_blk = np.zeros((m, r), np.int64)
+        u_blk = np.zeros((m, r), np.float32)
+        v_blk = np.zeros((m, r), np.float32)
+        for k in range(sub, k_count, threads):
+            take = tc[:, k] < t_blk
+            t_blk = np.where(take, tc[:, k], t_blk)
+            k_blk = np.where(take, k, k_blk)
+            u_blk = np.where(take, u[:, k], u_blk)
+            v_blk = np.where(take, v[:, k], v_blk)
+        parts.append((t_blk, k_blk, u_blk, v_blk))
+    off = 1
+    while off < threads:
+        merged = []
+        for sub in range(threads):
+            (t1, k1, u1, v1), (t2, k2, u2, v2) = parts[sub], parts[sub ^ off]
+            take = (t2 < t1) | ((t2 == t1) & (k2 < k1))
+            merged.append(tuple(np.where(take, b, a) for a, b in ((t1, t2), (k1, k2), (u1, u2), (v1, v2))))
+        parts = merged
+        off *= 2
+    for other in parts[1:]:  # every thread of the ray ends with the same winner
+        for a, b in zip(parts[0], other):
+            np.testing.assert_array_equal(a, b)
+    return parts[0]
+
+
+@pytest.mark.parametrize("k", [8, 3, 1], ids=["K8", "K3", "K1"])
+@pytest.mark.parametrize("tri_test", ["bw", "mt"])
+@pytest.mark.parametrize("threads", [2, 4, 8])
+def test_split_scan_merge_is_the_sequential_winner(accel, threads, tri_test, k):
+    """(a), closest hit: over a run of clusters, the merged partial winners
+    replace a ray's best exactly as _Packets.visit does: t, prim, u and v
+    bit for bit, with exact ties in t inside a cluster and K < T."""
+    tris = rows_with_ties(accel, tri_test, k)
+    o, d = rays(3, 256)
+    pk = ic._Packets(tris, o, d, T_MIN, T_MAX, 32, tri_test)
+    p = pk.all.shape[0]
+    best_t = np.full((p, 32), T_MAX, np.float32)
+    best_p = np.full((p, 32), ic.MISS_PRIM, np.int64)
+    best_u = np.zeros((p, 32), np.float32)
+    best_v = np.zeros((p, 32), np.float32)
+    ties = 0
+    for c in range(0, 97, 3):
+        cc = torch.full((p,), c, dtype=torch.int32)
+        tc, u, v = (x.numpy() for x in pk.tests(pk.all, cc))
+        finite = np.where(np.isfinite(tc), tc, np.nan)
+        ties += int((np.sum(finite == np.nanmin(np.where(np.isfinite(tc), tc, np.inf), axis=1, keepdims=True), axis=1) > 1).sum())
+        t_blk, k_blk, u_blk, v_blk = split_winner(tc, u, v, threads)
+        improved = t_blk < best_t
+        best_t = np.where(improved, t_blk, best_t)
+        best_p = np.where(improved, c * k + k_blk, best_p)
+        best_u = np.where(improved, u_blk, best_u)
+        best_v = np.where(improved, v_blk, best_v)
+        pk.visit(pk.all, cc, cc)
+    np.testing.assert_array_equal(best_t, pk.best_t.numpy())
+    np.testing.assert_array_equal(best_p, pk.best_p.numpy())
+    np.testing.assert_array_equal(best_u, pk.best_u.numpy())
+    np.testing.assert_array_equal(best_v, pk.best_v.numpy())
+    assert (best_p != ic.MISS_PRIM).sum() > 20
+    if k >= 3:
+        assert ties > 0  # some ray's closest hit in a cluster was an exact tie
+
+
+@pytest.mark.parametrize("k", [8, 1], ids=["K8", "K1"])
+@pytest.mark.parametrize("threads", [2, 4, 8])
+def test_split_flags_or_is_the_sequential_flag(accel, threads, k):
+    """(a), any hit: a ray is occluded by a cluster when one of its T
+    threads meets one of its triangles, as _Occlusion.visit sets it."""
+    tris = rows_with_ties(accel, "bw", k)
+    o, d = rays(4, 256)
+    pk = ic._Occlusion(tris, o, d, T_MIN, T_MAX, 32, "bw")
+    occ = np.zeros((pk.all.shape[0], 32), bool)
+    for c in range(0, 97, 3):
+        cc = torch.full_like(pk.all, c)
+        ok = np.isfinite(pk.tests(pk.all, cc)[0].numpy())
+        hit = np.zeros_like(occ)
+        for sub in range(threads):
+            hit |= ok[:, sub::threads].any(axis=1) if sub < k else False
+        occ |= hit
+        pk.visit(pk.all, cc)
+    np.testing.assert_array_equal(occ, pk.occ.numpy())
+    assert 0 < occ.sum() < occ.size
+
+
+def masked_walk(pk, aabb_child, aabb_super, branch, closest):
+    """The kernels' walk in the plain version's pieces: the supers in
+    batches of 31, voted on at once at the batch's entry; each passing
+    super's children voted on at once at the super's entry; the exact
+    votes, at each box's turn, taken only inside those masks.  Returns
+    (boxes the exact votes passed outside a mask, boxes inside a mask that
+    their exact vote then rejected)."""
+    num_clusters = pk.tris.shape[0]
+    outside = rejected = 0
+
+    def visit(on, c):
+        cc = torch.full_like(on, c, dtype=torch.int32 if closest else on.dtype)
+        if closest:
+            pk.visit(on, cc, cc)
+        else:
+            pk.visit(on, cc)
+
+    for s0 in range(0, aabb_super.shape[0], SUPER_BATCH):
+        batch = range(s0, min(s0 + SUPER_BATCH, aabb_super.shape[0]))
+        super_mask = torch.stack([pk.overlaps(aabb_super[s : s + 1], pk.all) for s in batch])
+        for row, s in enumerate(batch):
+            exact = pk.overlaps(aabb_super[s : s + 1], pk.all)
+            outside += int((exact & ~super_mask[row]).sum())
+            rejected += int((super_mask[row] & ~exact).sum())
+            live = pk.all[exact & super_mask[row]]
+            kids = range(s * branch, min((s + 1) * branch, num_clusters))
+            child_mask = {c: pk.overlaps(aabb_child[c : c + 1], live) for c in kids}
+            for c in kids:
+                exact_c = pk.overlaps(aabb_child[c : c + 1], live)
+                outside += int((exact_c & ~child_mask[c]).sum())
+                rejected += int((child_mask[c] & ~exact_c).sum())
+                visit(live[exact_c & child_mask[c]], c)
+    return outside, rejected
+
+
+@pytest.mark.parametrize("rays_per_tile", [32, 512])
+@pytest.mark.parametrize("tri_test", ["bw", "mt"])
+@pytest.mark.parametrize("kind", ["closest", "any"])
+def test_masks_at_entry_contain_every_box_visited(accel, kind, tri_test, rays_per_tile):
+    """(b): for every packet, batch and passing super, the masks taken with
+    the limits at entry contain every box whose exact vote passes, so the
+    walk restricted to the masks gives the plain version's results and its
+    counts of visits and tests; and the masks are not exact, so the
+    restriction is real: limits tighten while a super is walked."""
+    closest = kind == "closest"
+    tris = accel.tris16bw if tri_test == "bw" else accel.tris16
+    child, supers = ic.streamed_pads(accel.aabb8, branch=2)  # 49 supers: two batches
+    o, d = rays(5, 3000, parked=500)
+    plain = ic.intersect_clusters_streamed_plain if closest else ic.occluded_clusters_streamed_plain
+    want_stats = {}
+    want = plain(tris, child, supers, o, d, T_MIN, T_MAX, rays_per_tile, 2, tri_test, stats=want_stats)
+    got_stats = {}
+    pk = (ic._Packets if closest else ic._Occlusion)(tris, o, d, T_MIN, T_MAX, rays_per_tile, tri_test, got_stats)
+    outside, rejected = masked_walk(pk, child, supers, 2, closest)
+    assert outside == 0
+    if rays_per_tile == 32:
+        assert rejected > 0  # at 512 only six packets vote and the masks may be exact
+    got = pk.result()
+    for a, b in zip(got if closest else (got,), want if closest else (want,)):
+        assert torch.equal(a, b)
+    assert got_stats == want_stats and want_stats["visits"] > 0
+    hits = (want[1] != ic.MISS_PRIM) if closest else want
+    assert 500 < int(hits.sum()) < 2500 and not hits[-500:].any()
+
+
+@pytest.mark.parametrize("kind", ["closest", "any"])
+def test_masks_at_entry_path_branch(accel, kind):
+    """(b) at the render path's branch of 16 (7 supers, the last a boundary
+    super whose box is huge and whose children past the cluster count are
+    never tested) and packets of 64."""
+    closest = kind == "closest"
+    child, supers = ic.streamed_pads(accel.aabb8, branch=16)
+    assert supers.shape[0] * 16 > accel.num_clusters
+    o, d = rays(6, 2000, parked=100)
+    plain = ic.intersect_clusters_streamed_plain if closest else ic.occluded_clusters_streamed_plain
+    want_stats, got_stats = {}, {}
+    want = plain(accel.tris16bw, child, supers, o, d, T_MIN, T_MAX, 64, 16, "bw", stats=want_stats)
+    pk = (ic._Packets if closest else ic._Occlusion)(accel.tris16bw, o, d, T_MIN, T_MAX, 64, "bw", got_stats)
+    outside, _ = masked_walk(pk, child, supers, 16, closest)
+    assert outside == 0
+    got = pk.result()
+    for a, b in zip(got if closest else (got,), want if closest else (want,)):
+        assert torch.equal(a, b)
+    assert got_stats == want_stats and want_stats["visits"] > 0

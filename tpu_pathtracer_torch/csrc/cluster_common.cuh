@@ -3,34 +3,42 @@
 // (cluster_occluded.cu, cluster_occluded_hier.cu,
 // cluster_occluded_streamed.cu): the counterparts of _packet_rays,
 // _octant_of, _slab_hits, _bw_tests, _mt_tests and _mt_best in
-// tpu_pathtracer/ops/intersect_pallas.py, and the two-level bodies that the
-// hier and streamed entry files instantiate.
+// tpu_pathtracer/ops/intersect_pallas.py.  The two-level bodies of the hier
+// entry files are in cluster_two_level.cuh, the streamed body in
+// cluster_streamed.cuh.
 //
 // Every kernel builds with -fmad=false and IEEE division, and computes in
 // the operation order of its plain PyTorch version
 // (tpu_pathtracer_torch/ops/intersect_cluster.py), so the two give the same
 // bits.
 //
-// Packet semantics, the same in every kernel: one thread per ray, one block
-// per packet of blockDim.x rays.  Per box, every ray slab-tests the box
-// against its own running best t, and the block skips the box when no ray
-// of the packet overlaps it (__syncthreads_or, the counterpart of the TPU
-// kernels' pl.when(jnp.any(overlap))).  A cluster that is not skipped is
-// staged once into shared memory and every ray of the packet, including
-// those whose own slab test failed, tests all K triangles.  Within a
-// cluster the smallest t wins and equal t goes to the lowest triangle id;
-// across clusters a strictly smaller t wins, in visit order.
+// Packet semantics, the same in every kernel: rays are cut into packets of
+// rays_per_packet consecutive rays.  Per box, every ray slab-tests the box
+// against its own running best t, and the packet skips the box when none of
+// its rays overlaps it (the counterpart of the TPU kernels'
+// pl.when(jnp.any(overlap))).  A cluster that is not skipped is staged into
+// shared memory and every ray of the packet, including those whose own
+// slab test failed, tests all K triangles.  Within a cluster the smallest t
+// wins and equal t goes to the lowest triangle id; across clusters a
+// strictly smaller t wins, in visit order.
 //
 // Any hit keeps an occluded flag per ray instead of a winner.  A box is
 // voted on by the rays not yet occluded, against t_max; a staged cluster
 // sets the flag of every ray of the packet that meets one of its
-// triangles, the first valid triangle ending that ray's loop.  The TPU
-// kernels' "stop once every ray is occluded" is a block decision,
-// __syncthreads_and(occluded), taken at one loop point by every thread
-// (after a cluster in the flat kernel, after a super in the two-level
-// ones): a thread that is done keeps reaching every barrier.  Padding and
-// parked rays are never occluded, so a packet holding one never exits
-// early; that changes no flag, only the work.
+// triangles.  The TPU kernels' "stop once every ray is occluded" is a
+// packet decision taken at one loop point by every thread: a thread that is
+// done keeps reaching every barrier.  Padding and parked rays are never
+// occluded, so a packet holding one never exits early; that changes no
+// flag, only the work.
+//
+// How a packet maps to threads differs.  The flat and the two-level (hier)
+// kernels give each ray one thread and each packet one block: a vote
+// is __syncthreads_or, the all-occluded exit __syncthreads_and (after a
+// cluster in the flat kernel, after a super in the two-level one), and a
+// ray's loop over a staged cluster ends at its first valid triangle in any
+// hit.  The streamed kernels (cluster_streamed.cuh) spread a packet over a
+// thread block cluster with several threads per ray and vote on many boxes
+// at once; they share the ray, box and triangle arithmetic of this file.
 //
 // Triangle rows ([C,K,16] f32, four float4 per triangle):
 //   Baldwin-Weber: n (0:3), d0 = n.v0 (3), p1 (4:7), c1 = -p1.v0 (7),
@@ -105,12 +113,11 @@ __device__ __forceinline__ bool slab_hits(const float* b, const Ray& r, float t_
   return (tnear <= tfar) && (tfar >= t_min) && (tnear <= t_limit);
 }
 
-// One ray against one triangle's rows; `ok` is false where the test fails.
-__device__ __forceinline__ void bw_test(const float4* tri, const Ray& r, float t_min, float t_max,
-                                        float& t, float& u, float& v, bool& ok) {
-  const float4 r0 = tri[0];  // n.xyz, d0
-  const float4 r1 = tri[1];  // p1.xyz, c1
-  const float4 r2 = tri[2];  // p2.xyz, c2
+// One ray against one triangle's rows r0 (n.xyz, d0), r1 (p1.xyz, c1) and
+// r2 (p2.xyz, c2); `ok` is false where the test fails.
+__device__ __forceinline__ void bw_test(const float4 r0, const float4 r1, const float4 r2,
+                                        const Ray& r, float t_min, float t_max, float& t, float& u,
+                                        float& v, bool& ok) {
   const float den = r0.x * r.dx + r0.y * r.dy + r0.z * r.dz;
   const float num = r0.w - (r0.x * r.ox + r0.y * r.oy + r0.z * r.oz);
   const float rcp = fabsf(den) > 1e-12f ? 1.0f / den : 0.0f;
@@ -125,11 +132,16 @@ __device__ __forceinline__ void bw_test(const float4* tri, const Ray& r, float t
        rcp != 0.0f;
 }
 
-__device__ __forceinline__ void mt_test(const float4* tri, const Ray& r, float t_min, float t_max,
+__device__ __forceinline__ void bw_test(const float4* tri, const Ray& r, float t_min, float t_max,
                                         float& t, float& u, float& v, bool& ok) {
-  const float4 r0 = tri[0];  // v0.xyz, e1.x
-  const float4 r1 = tri[1];  // e1.yz, e2.xy
-  const float4 r2 = tri[2];  // e2.z
+  bw_test(tri[0], tri[1], tri[2], r, t_min, t_max, t, u, v, ok);
+}
+
+// The same for Moller-Trumbore rows r0 (v0.xyz, e1.x), r1 (e1.yz, e2.xy)
+// and r2 (e2.z).
+__device__ __forceinline__ void mt_test(const float4 r0, const float4 r1, const float4 r2,
+                                        const Ray& r, float t_min, float t_max, float& t, float& u,
+                                        float& v, bool& ok) {
   const float v0x = r0.x, v0y = r0.y, v0z = r0.z;
   const float e1x = r0.w, e1y = r1.x, e1z = r1.y;
   const float e2x = r1.z, e2y = r1.w, e2z = r2.x;
@@ -149,6 +161,11 @@ __device__ __forceinline__ void mt_test(const float4* tri, const Ray& r, float t
   t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
   ok = fabsf(det) > 1e-12f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > t_min &&
        t < t_max;
+}
+
+__device__ __forceinline__ void mt_test(const float4* tri, const Ray& r, float t_min, float t_max,
+                                        float& t, float& u, float& v, bool& ok) {
+  mt_test(tri[0], tri[1], tri[2], r, t_min, t_max, t, u, v, ok);
 }
 
 struct Best {
@@ -204,80 +221,6 @@ __device__ __forceinline__ void store_best(const Best& best, int i, int n, float
   }
 }
 
-// Two-level traversal: supers of `branch` consecutive children.  A packet
-// slab-tests each super, and for a super some ray overlaps, each of its
-// children in index order; a child some ray overlaps is staged and tested.
-//   kStreamed = false (cluster_hier.cu): supers in the packet octant's
-//     front-to-back order `order_super`; padding children are far point
-//     boxes that no ray overlaps, and the row index is clamped to C-1 all
-//     the same.
-//   kStreamed = true (cluster_streamed.cu): supers in ascending id (the
-//     identity order, order_super unused), and children at or past
-//     num_clusters are skipped (the c < num_clusters gate).
-template <bool kStreamed, int kTest>
-__global__ void __launch_bounds__(1024) two_level_kernel(const float4* __restrict__ tris,        // [C,K,4] float4
-                                 const float* __restrict__ aabb_child,   // [S*branch,8]
-                                 const float* __restrict__ aabb_super,   // [S,8]
-                                 const int* __restrict__ order_super,    // [8,S]
-                                 const float* __restrict__ origins,      // [N,3]
-                                 const float* __restrict__ dirs,         // [N,3]
-                                 int n, int num_supers, int branch, int num_clusters, int cluster_k,
-                                 float t_min, float t_max,
-                                 float* __restrict__ t_out,              // [N]
-                                 int* __restrict__ prim_out,             // [N]
-                                 float* __restrict__ uv_out) {           // [N,2]
-  extern __shared__ float4 rows[];  // [K,4] float4: one cluster
-  __shared__ int octant;
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const Ray r = load_ray(origins, dirs, i, n);
-  if (!kStreamed) {
-    if (threadIdx.x == 0) octant = octant_of(r);  // the packet's first ray
-    __syncthreads();
-  }
-  Best best = {t_max, kMissPrim, 0.0f, 0.0f};
-
-  for (int pos = 0; pos < num_supers; ++pos) {
-    const int s = kStreamed ? pos : order_super[octant * num_supers + pos];
-    if (!__syncthreads_or(slab_hits(aabb_super + 8 * s, r, t_min, best.t))) continue;
-    for (int j = 0; j < branch; ++j) {
-      const int c = s * branch + j;
-      if (kStreamed && c >= num_clusters) break;  // the same c for every thread
-      if (!__syncthreads_or(slab_hits(aabb_child + 8 * c, r, t_min, best.t))) continue;
-      stage_rows(rows, tris, kStreamed ? c : min(c, num_clusters - 1), cluster_k);
-      __syncthreads();
-      test_cluster<kTest>(rows, cluster_k, c, r, t_min, t_max, best);
-      __syncthreads();  // the next child overwrites the rows
-    }
-  }
-  store_best(best, i, n, t_out, prim_out, uv_out);
-}
-
-// Launches one block of `rays_per_packet` threads per packet on `stream`.
-// Returns cudaGetLastError() after the launch (0 = launched).
-template <bool kStreamed>
-int launch_two_level(const float* tris, const float* aabb_child, const float* aabb_super,
-                     const int* order_super, const float* origins, const float* dirs, int n,
-                     int num_supers, int branch, int num_clusters, int cluster_k, float t_min,
-                     float t_max, int rays_per_packet, int tri_test, float* t_out, int* prim_out,
-                     float* uv_out, void* stream) {
-  if (n <= 0) return 0;
-  const int packets = (n + rays_per_packet - 1) / rays_per_packet;
-  const size_t smem = static_cast<size_t>(cluster_k) * 16 * sizeof(float);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float4* rows = reinterpret_cast<const float4*>(tris);
-  if (tri_test == kMollerTrumbore) {
-    two_level_kernel<kStreamed, kMollerTrumbore><<<packets, rays_per_packet, smem, st>>>(
-        rows, aabb_child, aabb_super, order_super, origins, dirs, n, num_supers, branch,
-        num_clusters, cluster_k, t_min, t_max, t_out, prim_out, uv_out);
-  } else {
-    two_level_kernel<kStreamed, kBaldwinWeber><<<packets, rays_per_packet, smem, st>>>(
-        rows, aabb_child, aabb_super, order_super, origins, dirs, n, num_supers, branch,
-        num_clusters, cluster_k, t_min, t_max, t_out, prim_out, uv_out);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 // ---------------------------------------------------------------------------
 // Any hit
 // ---------------------------------------------------------------------------
@@ -308,70 +251,6 @@ __device__ __forceinline__ void occlude_cluster(float4* rows, const float4* tris
   __syncthreads();
   if (!occluded) occluded = any_hit_cluster<kTest>(rows, cluster_k, r, t_min, t_max);
   __syncthreads();  // the next cluster overwrites the rows
-}
-
-// Two-level any hit: two_level_kernel's visit orders, row clamp and
-// c < num_clusters gate, with the any-hit votes and the exit after a super.
-template <bool kStreamed, int kTest>
-__global__ void __launch_bounds__(1024) two_level_occluded_kernel(
-    const float4* __restrict__ tris,        // [C,K,4] float4
-    const float* __restrict__ aabb_child,   // [S*branch,8]
-    const float* __restrict__ aabb_super,   // [S,8]
-    const int* __restrict__ order_super,    // [8,S]
-    const float* __restrict__ origins,      // [N,3]
-    const float* __restrict__ dirs,         // [N,3]
-    int n, int num_supers, int branch, int num_clusters, int cluster_k,
-    float t_min, float t_max,
-    unsigned char* __restrict__ occ_out) {  // [N] bool
-  extern __shared__ float4 rows[];  // [K,4] float4: one cluster
-  __shared__ int octant;
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const Ray r = load_ray(origins, dirs, i, n);
-  if (!kStreamed) {
-    if (threadIdx.x == 0) octant = octant_of(r);  // the packet's first ray
-    __syncthreads();
-  }
-  bool occluded = false;
-
-  for (int pos = 0; pos < num_supers; ++pos) {
-    const int s = kStreamed ? pos : order_super[octant * num_supers + pos];
-    if (!__syncthreads_or(!occluded && slab_hits(aabb_super + 8 * s, r, t_min, t_max))) continue;
-    for (int j = 0; j < branch; ++j) {
-      const int c = s * branch + j;
-      if (kStreamed && c >= num_clusters) break;  // the same c for every thread
-      if (!__syncthreads_or(!occluded && slab_hits(aabb_child + 8 * c, r, t_min, t_max))) continue;
-      occlude_cluster<kTest>(rows, tris, kStreamed ? c : min(c, num_clusters - 1), cluster_k, r,
-                             t_min, t_max, occluded);
-    }
-    if (__syncthreads_and(occluded)) break;  // every ray of the packet is occluded
-  }
-  if (i < n) occ_out[i] = occluded ? 1 : 0;
-}
-
-// Launches one block of `rays_per_packet` threads per packet on `stream`.
-// Returns cudaGetLastError() after the launch (0 = launched).
-template <bool kStreamed>
-int launch_two_level_occluded(const float* tris, const float* aabb_child, const float* aabb_super,
-                              const int* order_super, const float* origins, const float* dirs,
-                              int n, int num_supers, int branch, int num_clusters, int cluster_k,
-                              float t_min, float t_max, int rays_per_packet, int tri_test,
-                              unsigned char* occ_out, void* stream) {
-  if (n <= 0) return 0;
-  const int packets = (n + rays_per_packet - 1) / rays_per_packet;
-  const size_t smem = static_cast<size_t>(cluster_k) * 16 * sizeof(float);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float4* rows = reinterpret_cast<const float4*>(tris);
-  if (tri_test == kMollerTrumbore) {
-    two_level_occluded_kernel<kStreamed, kMollerTrumbore><<<packets, rays_per_packet, smem, st>>>(
-        rows, aabb_child, aabb_super, order_super, origins, dirs, n, num_supers, branch,
-        num_clusters, cluster_k, t_min, t_max, occ_out);
-  } else {
-    two_level_occluded_kernel<kStreamed, kBaldwinWeber><<<packets, rays_per_packet, smem, st>>>(
-        rows, aabb_child, aabb_super, order_super, origins, dirs, n, num_supers, branch,
-        num_clusters, cluster_k, t_min, t_max, occ_out);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace cluster_traversal

@@ -7,7 +7,7 @@
 // PyTorch version is intersect_clusters_hier_plain in
 // tpu_pathtracer_torch/ops/intersect_cluster.py; built with -fmad=false
 // and IEEE division, the two give the same bits.  The body is
-// two_level_kernel<false> of cluster_common.cuh.
+// two_level_kernel of cluster_two_level.cuh.
 //
 // What it computes.  One thread per ray, one block per packet (512 rays on
 // the main path: a 131,072-ray batch is 256 blocks).  Supers are groups of
@@ -29,7 +29,7 @@
 // reads each staged cluster from the 50 MB L2 (a 6 MB scene stays
 // resident).  Finer packets and persistent blocks are later work.
 
-#include "cluster_common.cuh"
+#include "cluster_two_level.cuh"
 
 // tri_test 0 = Baldwin-Weber rows, 1 = Moller-Trumbore rows.  Returns
 // cudaGetLastError() after the launch (0 = launched).
@@ -39,7 +39,7 @@ extern "C" int cluster_hier_launch(
     int num_supers, int branch, int num_clusters, int cluster_k, float t_min,
     float t_max, int rays_per_packet, int tri_test, float* t_out, int* prim_out,
     float* uv_out, void* stream) {
-  return cluster_traversal::launch_two_level<false>(
+  return cluster_traversal::launch_two_level(
       tris, aabb_child, aabb_super, order_super, origins, dirs, n, num_supers,
       branch, num_clusters, cluster_k, t_min, t_max, rays_per_packet, tri_test,
       t_out, prim_out, uv_out, stream);

@@ -8,7 +8,7 @@
 // PyTorch version is occluded_clusters_hier_plain in
 // tpu_pathtracer_torch/ops/intersect_cluster.py; built with -fmad=false
 // and IEEE division, the two give the same flags.  The body is
-// two_level_occluded_kernel<false> of cluster_common.cuh.
+// two_level_occluded_kernel of cluster_two_level.cuh.
 //
 // What it computes.  One thread per ray, one block per packet (512 rays on
 // the main path).  The packet visits the supers (groups of `branch` = 8
@@ -27,7 +27,7 @@
 // unoccluded rays (the sky is visible) still walk every super they
 // overlap.  The 6 MB of rows stay in the 50 MB L2.
 
-#include "cluster_common.cuh"
+#include "cluster_two_level.cuh"
 
 // tri_test 0 = Baldwin-Weber rows, 1 = Moller-Trumbore rows.  Returns
 // cudaGetLastError() after the launch (0 = launched).
@@ -37,7 +37,7 @@ extern "C" int cluster_occluded_hier_launch(
     int num_supers, int branch, int num_clusters, int cluster_k, float t_min,
     float t_max, int rays_per_packet, int tri_test, unsigned char* occ_out,
     void* stream) {
-  return cluster_traversal::launch_two_level_occluded<false>(
+  return cluster_traversal::launch_two_level_occluded(
       tris, aabb_child, aabb_super, order_super, origins, dirs, n, num_supers,
       branch, num_clusters, cluster_k, t_min, t_max, rays_per_packet, tri_test,
       occ_out, stream);

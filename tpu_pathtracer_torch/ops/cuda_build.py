@@ -7,7 +7,8 @@ of the checkout, named by a hash of every file in `csrc/` (a source and
 the headers it includes) and the flags, and are built at first use.
 `nvcc`'s `-Xptxas -v` report (registers, shared memory, spills) is kept
 beside each library as a `.log` file.  `library(source)` loads one and
-sets the argument types of its launch function from `LAUNCHERS`.
+sets the argument types of its launch function from `LAUNCHERS` and of
+its other functions from `HELPERS`.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ LAUNCHERS = {
     ),
     "cluster_streamed.cu": (
         "cluster_streamed_launch",
-        [_P] * 5 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 4,
+        [_P] * 6 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 4,
     ),
     "cluster_occluded.cu": (
         "cluster_occluded_launch",
@@ -57,12 +58,25 @@ LAUNCHERS = {
     ),
     "cluster_occluded_streamed.cu": (
         "cluster_occluded_streamed_launch",
-        [_P] * 5 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 2,
+        [_P] * 6 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 2,
     ),
     "fused_schedule.cu": (
         "fused_step_launch",
         [_P] * 21 + [_I] * 5 + [_F] + [_P],
     ),
+}
+# source: {another function of its library: the function's argument types}.
+# The streamed kernels have a packet-weight pre-pass (boxes, rays, n, supers,
+# t_min, t_max, rays per packet, weights out, stream) and a launch-shape
+# query (n, rays per packet, cluster_k, tri_test, int out[6]).
+_WEIGHTS = [_P] * 3 + [_I] * 2 + [_F] * 2 + [_I] + [_P] * 2
+_SHAPE = [_I] * 4 + [ctypes.POINTER(ctypes.c_int)]
+HELPERS = {
+    "cluster_streamed.cu": {"cluster_streamed_weights": _WEIGHTS, "cluster_streamed_shape": _SHAPE},
+    "cluster_occluded_streamed.cu": {
+        "cluster_occluded_streamed_weights": _WEIGHTS,
+        "cluster_occluded_streamed_shape": _SHAPE,
+    },
 }
 
 
@@ -138,8 +152,9 @@ def library(source: str) -> ctypes.CDLL:
     exists, with its launch function's signature set."""
     build_libraries([source])
     lib = ctypes.CDLL(str(library_path(source)))
-    name, argtypes = LAUNCHERS[source]
-    fn = getattr(lib, name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    launcher, launcher_argtypes = LAUNCHERS[source]
+    for name, argtypes in {launcher: launcher_argtypes, **HELPERS.get(source, {})}.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib

@@ -20,6 +20,8 @@ ray a rounding miss of a box leaves untested.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from tpu_pathtracer_torch.ops.cuda_build import check_tensor, library
@@ -458,7 +460,8 @@ def streamed_pads(aabbs, block_clusters: int = 96, branch: int = 16):
 # ---------------------------------------------------------------------------
 
 def _check_launch(tris, origins, directions, rays_per_tile, tri_test, boxes):
-    """Check what every kernel takes."""
+    """Check what every kernel takes.  Boxes must be 16-byte aligned: the
+    streamed kernels read them as float4."""
     dev = origins.device
     if not origins.is_cuda:
         raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
@@ -469,6 +472,8 @@ def _check_launch(tris, origins, directions, rays_per_tile, tri_test, boxes):
     check_tensor("directions", directions, torch.float32, (n, 3), dev)
     for name, (x, dtype, shape) in boxes.items():
         check_tensor(name, x, dtype, shape, dev)
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     if tri_test not in _TRI_TEST_IDS:
         raise ValueError(f"unknown tri_test {tri_test!r}")
     if not (32 <= rays_per_tile <= 1024 and rays_per_tile % 32 == 0):
@@ -540,6 +545,26 @@ def intersect_clusters_hier_cuda(tris, aabb_child, aabb_super, order_super, orig
     return t, prim, uv
 
 
+def _heaviest_first(weights_launch, aabb_super, origins, directions, t_min, t_max, rays_per_tile):
+    """The order in which a streamed kernel takes its packets: heaviest
+    first by the pre-pass's estimate (the supers some ray of the packet
+    overlaps), so that the few packets that test hundreds of clusters start
+    at once and not behind a queue of light ones.  [packets] int32, or None
+    where the card holds every packet at once anyway (a packet takes at
+    most 8 blocks and an SM holds at least 2).  The order changes no
+    result: packets are independent."""
+    packets = -(-origins.shape[0] // rays_per_tile)
+    if packets * 4 <= torch.cuda.get_device_properties(origins.device).multi_processor_count:
+        return None
+    weights = torch.empty(packets, dtype=torch.int32, device=origins.device)
+    err = weights_launch(aabb_super.data_ptr(), origins.data_ptr(), directions.data_ptr(), origins.shape[0],
+                         aabb_super.shape[0], float(t_min), float(t_max), rays_per_tile, weights.data_ptr(),
+                         _stream(origins))
+    if err:
+        raise RuntimeError(f"packet_weight_kernel launch failed: CUDA error {err}")
+    return torch.argsort(weights, descending=True, stable=True).to(torch.int32)
+
+
 def intersect_clusters_streamed_cuda(tris, aabb_child, aabb_super, origins, directions,
                                      t_min: float, t_max: float, rays_per_tile: int, branch: int,
                                      tri_test: str = "bw"):
@@ -554,14 +579,19 @@ def intersect_clusters_streamed_cuda(tris, aabb_child, aabb_super, origins, dire
         "aabb_super": (aabb_super, torch.float32, (s, 8)),
     })
     t, prim, uv = _hit_outputs(origins)
-    err = library("cluster_streamed.cu").cluster_streamed_launch(
+    if origins.shape[0] == 0:
+        return t, prim, uv  # nothing to launch
+    lib = library("cluster_streamed.cu")
+    order = _heaviest_first(lib.cluster_streamed_weights, aabb_super, origins, directions, t_min, t_max, rays_per_tile)
+    err = lib.cluster_streamed_launch(
         tris.data_ptr(), aabb_child.data_ptr(), aabb_super.data_ptr(),
-        origins.data_ptr(), directions.data_ptr(), origins.shape[0], s, branch, c_count, k,
+        origins.data_ptr(), directions.data_ptr(), order.data_ptr() if order is not None else None,
+        origins.shape[0], s, branch, c_count, k,
         float(t_min), float(t_max), rays_per_tile, _TRI_TEST_IDS[tri_test],
         t.data_ptr(), prim.data_ptr(), uv.data_ptr(), _stream(origins),
     )
     if err:
-        raise RuntimeError(f"two_level_kernel (streamed) launch failed: CUDA error {err}")
+        raise RuntimeError(f"streamed_kernel (closest hit) launch failed: CUDA error {err}")
     intersect_clusters_streamed.launches += 1
     return t, prim, uv
 
@@ -627,16 +657,42 @@ def occluded_clusters_streamed_cuda(tris, aabb_child, aabb_super, origins, direc
         "aabb_super": (aabb_super, torch.float32, (s, 8)),
     })
     occ = torch.empty(origins.shape[0], dtype=torch.bool, device=origins.device)
-    err = library("cluster_occluded_streamed.cu").cluster_occluded_streamed_launch(
+    if origins.shape[0] == 0:
+        return occ  # nothing to launch
+    lib = library("cluster_occluded_streamed.cu")
+    order = _heaviest_first(lib.cluster_occluded_streamed_weights, aabb_super, origins, directions, t_min, t_max,
+                            rays_per_tile)
+    err = lib.cluster_occluded_streamed_launch(
         tris.data_ptr(), aabb_child.data_ptr(), aabb_super.data_ptr(),
-        origins.data_ptr(), directions.data_ptr(), origins.shape[0], s, branch, c_count, k,
+        origins.data_ptr(), directions.data_ptr(), order.data_ptr() if order is not None else None,
+        origins.shape[0], s, branch, c_count, k,
         float(t_min), float(t_max), rays_per_tile, _TRI_TEST_IDS[tri_test],
         occ.data_ptr(), _stream(origins),
     )
     if err:
-        raise RuntimeError(f"two_level_occluded_kernel (streamed) launch failed: CUDA error {err}")
+        raise RuntimeError(f"streamed_kernel (any hit) launch failed: CUDA error {err}")
     occluded_clusters_streamed.launches += 1
     return occ
+
+
+def streamed_launch_shape(n: int, rays_per_tile: int, cluster_k: int, tri_test: str = "bw",
+                          any_hit: bool = False) -> dict:
+    """How the streamed kernel (closest hit, or any hit) lays out a launch
+    of n rays on the current CUDA device: "packets", "blocks" (of a
+    packet's thread block cluster), "threads" (of a block),
+    "threads_per_ray", "registers" (of a thread), "resident_blocks" (per
+    SM) and "resident_clusters" (packets the card holds at once).  Builds
+    the kernel if need be; launches nothing."""
+    if tri_test not in _TRI_TEST_IDS:
+        raise ValueError(f"unknown tri_test {tri_test!r}")
+    lib = library("cluster_occluded_streamed.cu" if any_hit else "cluster_streamed.cu")
+    query = lib.cluster_occluded_streamed_shape if any_hit else lib.cluster_streamed_shape
+    out = (ctypes.c_int * 6)()
+    err = query(n, rays_per_tile, cluster_k, _TRI_TEST_IDS[tri_test], out)
+    if err:
+        raise RuntimeError(f"streamed kernel shape query failed: CUDA error {err}")
+    keys = ("blocks", "threads", "threads_per_ray", "registers", "resident_blocks", "resident_clusters")
+    return {"packets": -(-n // rays_per_tile), **dict(zip(keys, out))}
 
 
 def _route(origins, kernel, plain, *args, **kw):
