@@ -27,13 +27,13 @@ Phases, each printing one line (any failure exits non-zero):
      must exceed 0.995 and segments agree within 0.5%;
   6. kernel 2 (two-level) as phase 3 on BASELINE config 4's scene,
      high_poly_scene(100_000): 98,002 triangles, 766 clusters, 6.3 MB of
-     rows, camera eye (0,3,10) lookat (0,1,0);
-  7. kernel 3 (streamed) as phase 3 on the same generator at 200,000
-     triangles: 200,002 triangles, 1,563 clusters, 12.8 MB of rows; its
-     launch shape (blocks per packet, threads per ray, registers, resident
-     blocks per SM), its instruction floor beside the bound, and the same rays
-     tiled 16 times (2,097,152 rays, more packets than the card holds at
-     once): every tile bit-equal to the plain version's result, and timed;
+     rows, camera eye (0,3,10) lookat (0,1,0); its launch shape (blocks per
+     packet, threads per ray, registers, resident blocks per SM), its
+     instruction floor beside the bound, and the same rays tiled 16 times
+     (2,097,152 rays, more packets than the card holds at once): every tile
+     bit-equal to the plain version's result, and timed;
+  7. kernel 3 (streamed) as phase 6 on the same generator at 200,000
+     triangles: 200,002 triangles, 1,563 clusters, 12.8 MB of rows;
   8. render config 4 as phase 4 (one warm, one timed frame), through the
      two-level kernel;
   9. render the 200k scene as phase 4 (one warm, one timed frame),
@@ -46,7 +46,8 @@ Phases, each printing one line (any failure exits non-zero):
      that trace no shadow ray parked and the batch sorted as
      ClusterAccel.occluded does; flags bit-equal to the plain version in
      bw and mt; both times, the share of rays occluded and parked;
-     kernel 6 also with phase 7's launch shape, instruction floor and 16 tiles;
+     kernels 5 and 6 also with phase 6's launch shape, instruction floor
+     and 16 tiles;
  14. NEE render of the headline (BASELINE config 3's path: textbook RR,
      env importance sampling), as phase 4 (one warm, one timed frame):
      kernels 1 and 4 must each launch at least once per stream iteration
@@ -165,7 +166,7 @@ CAMERA_RAYS = 65536  # and as many first bounces: 131,072 rays per kernel phase
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 BW_TEST_FLOPS = 33  # bw_test in csrc/cluster_common.cuh: 17 mul, 14 add/sub, 1 div, 1 mul by rcp
-# The instruction floor of the streamed kernels: the instructions one
+# The instruction floor of the two-level kernels: the instructions one
 # Baldwin-Weber test costs as the arithmetic has to be written (the SASS of
 # streamed_kernel's triangle loop, cuobjdump -sass on the built library:
 # the one-triangle body has 77 instructions, its row address, three 16-byte
@@ -173,7 +174,7 @@ BW_TEST_FLOPS = 33  # bw_test in csrc/cluster_common.cuh: 17 mul, 14 add/sub, 1 
 # triangles has 157), at 4 warp instructions a clock on each SM at the
 # card's highest SM clock.
 BW_TEST_INSTRUCTIONS = 77
-LARGE_TILES = 16  # phases 7 and 13: 16 x 131,072 rays
+LARGE_TILES = 16  # phases 6, 7, 12 and 13: 16 x 131,072 rays
 
 
 @functools.lru_cache(maxsize=None)
@@ -329,9 +330,9 @@ def kernel_bytes(args, n, any_hit):
 def phase_kernel(label, kid, scene, cfg, camera, smi, plain_reps):
     """The kernel against its plain version, both triangle tests, bit for
     bit; Baldwin-Weber (the main path's) timed, and its bound from the
-    tests the plain version counts on these rays.  The streamed kernels
-    also report their launch shape and instruction floor and run LARGE_TILES
-    copies of the rays in one launch."""
+    tests the plain version counts on these rays.  The two-level kernels
+    (hier and streamed) also report their launch shape and instruction
+    floor and run LARGE_TILES copies of the rays in one launch."""
     name, _, _, route, any_hit, _, kernel, plain = KERNELS[kid]
     acc = scene.accel
     if acc.route(cfg) != route:
@@ -380,16 +381,17 @@ def phase_kernel(label, kid, scene, cfg, camera, smi, plain_reps):
           f"packets of {rpt}: bit-equal (0 ulp) in bw and mt; bw kernel {bw['ms']:.4f} ms, plain "
           f"{bw['plain_ms']:.4f} ms; mt kernel {mt['ms']:.4f} ms; {work}), "
           f"{bw['flops']} FLOP, {bw['n_bytes']} bytes: bound {bw['bound_ms']:.4f} ms by {bw['bound_by']} | {smi}")
-    if route == "streamed":
-        phase_streamed_sizes(label, name, any_hit, kernel, acc, cfg, o_s, d_s, bw, smi)
+    if route in ("hier", "streamed"):
+        phase_streamed_sizes(label, name, route, any_hit, kernel, acc, cfg, o_s, d_s, bw, smi)
     return dict(max_abs_err=max(bw["max_abs_err"], mt["max_abs_err"]), ms=bw["ms"], plain_ms=bw["plain_ms"],
                 bound_ms=bw["bound_ms"], bound_by=bw["bound_by"], library_ms=None)
 
 
-def phase_streamed_sizes(label, name, any_hit, kernel, acc, cfg, o_s, d_s, bw, smi):
-    """A streamed kernel's launch shape and instruction floor at the phase's
-    rays, and the same rays tiled LARGE_TILES times in one launch: every
-    tile must equal the plain version's result, bit for bit."""
+def phase_streamed_sizes(label, name, route, any_hit, kernel, acc, cfg, o_s, d_s, bw, smi):
+    """A two-level kernel's (streamed_kernel of csrc/cluster_streamed.cuh,
+    on the hier or the streamed route) launch shape and instruction floor
+    at the phase's rays, and the same rays tiled LARGE_TILES times in one
+    launch: every tile must equal the plain version's result, bit for bit."""
     n, rpt, k = o_s.shape[0], acc._rpt(cfg), acc.cluster_size
     if n % rpt:
         raise SystemExit(f"[{label}] FAIL: {n} rays do not tile by whole packets of {rpt}")
@@ -405,7 +407,7 @@ def phase_streamed_sizes(label, name, any_hit, kernel, acc, cfg, o_s, d_s, bw, s
     ms_large = _time_ms(lambda: kernel(*args), 5)
     shapes = []
     for rays in (n, n * LARGE_TILES):
-        sh = ic.streamed_launch_shape(rays, rpt, k, "bw", any_hit)
+        sh = ic.streamed_launch_shape(rays, rpt, k, "bw", any_hit, route)
         shapes.append(f"{rays} rays: {sh['packets']} packets x {sh['blocks']} blocks of {sh['threads']} threads, "
                       f"{sh['threads_per_ray']} threads per ray, {sh['registers']} registers, "
                       f"{sh['resident_blocks']} resident blocks per SM, {sh['resident_clusters']} resident packets")

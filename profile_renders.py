@@ -47,20 +47,22 @@ from tpu_pathtracer_torch.render.camera import Camera, camera_arrays
 from tpu_pathtracer_torch.render.integrator import render_frame_stats
 
 # The device functions of the seven kernels (csrc/): six traversals (the
-# streamed ones with their packet-weight pre-pass) and the fused schedule
-# step.
-KERNELS = ("cluster_intersect_kernel", "two_level_kernel", "cluster_occluded_kernel",
-           "two_level_occluded_kernel", "streamed_kernel", "packet_weight_kernel", "fused_step_kernel")
+# two-level ones, hier and streamed, with their packet-weight pre-pass) and
+# the fused schedule step.
+KERNELS = ("cluster_intersect_kernel", "cluster_occluded_kernel", "streamed_kernel", "packet_weight_kernel",
+           "fused_step_kernel")
 
 
 def kernel_label(key):
     """The port's kernel that the device function `key` belongs to, or
-    None.  streamed_kernel<kAnyHit, ...> is told apart by its first
-    template argument."""
+    None.  streamed_kernel<kAnyHit, kVisit, ...> is told apart by its first
+    two template arguments: any hit or closest, per-packet visit order
+    (the hier route) or ascending (the streamed route)."""
     name = next((k for k in KERNELS if k in key), None)
     if name == "streamed_kernel":
-        first = key.split("streamed_kernel<", 1)[-1].split(",", 1)[0]
-        return f"streamed_kernel ({'any' if first.strip() in ('true', '(bool)1') else 'closest'} hit)"
+        any_hit, visit = (a.strip() for a in key.split("streamed_kernel<", 1)[-1].split(",")[:2])
+        route = "hier" if visit.endswith("1") or visit.endswith("kPerPacket") else "streamed"
+        return f"streamed_kernel ({route}, {'any' if any_hit in ('true', '(bool)1') else 'closest'} hit)"
     return name
 
 

@@ -177,6 +177,87 @@ def test_streamed_launch_shape(cuda):
         assert 0 < sh["registers"] <= 255 and sh["resident_blocks"] >= 1 and sh["resident_clusters"] >= 1
 
 
+# name: (cluster size, super branch, rays per packet, rays, parked rays)
+HIER_SHAPES = {
+    "ragged_last_packet": (8, 8, 512, 5 * 512 + 77, 0),
+    "one_ray": (8, 8, 512, 1, 0),
+    "parked_packets": (8, 8, 512, 2048, 1024),        # two packets of parked rays only
+    "branch_2": (8, 2, 256, 20_000, 100),             # 109 supers: four batches of super votes
+    "branch_40": (8, 40, 256, 20_000, 100),           # children in two words, 23 padding children
+    "clusters_of_128": (128, 8, 512, 70_000, 1000),
+    "clusters_of_768": (768, 8, 512, 20_000, 100),    # one super of 3 clusters and 5 padding children
+    "more_packets_than_resident": (8, 8, 32, 300_000, 1000),
+    "packets_of_96": (8, 8, 96, 20_000, 100),         # three warps: one block a packet
+    "packets_of_512": (8, 8, 512, 70_000, 1000),
+    "packets_of_992": (8, 8, 992, 20_000, 100),       # one thread a ray
+    "packets_of_1024": (8, 8, 1024, 70_000, 1000),
+}
+
+
+@pytest.mark.parametrize("tri_test", ["bw", "mt"])
+@pytest.mark.parametrize("shape", list(HIER_SHAPES))
+@pytest.mark.parametrize("kind", ["closest", "any"])
+def test_hier_kernels_take_every_shape(cuda, kind, shape, tri_test):
+    """Kernels 2 and 5 at the edges of what they take: a ragged last
+    packet, one ray, packets of parked rays only, super branches of 2 and
+    40 (built by build_cluster_accel, padding children whose rows clamp to
+    the last cluster), clusters of 8, 128 and 768 rows, more packets than
+    the card holds at once, and packets of 32 to 1024 rays, each packet
+    in its own first ray's octant order: all bit-equal to the plain
+    version."""
+    cluster_size, branch, rays_per_tile, n, parked = HIER_SHAPES[shape]
+    acc = build_accel(procedural.three_spheres_scene(12, 24, device=cuda), cluster_size=cluster_size,
+                      super_branch=branch).accel
+    o, d = (x.to(cuda) for x in rays(3, n, parked=parked))
+    tris = acc.tris16bw if tri_test == "bw" else acc.tris16
+    args = (tris, acc.aabb8_child, acc.aabb8_super, acc.order_super, o, d, 0.01, 1e16, rays_per_tile, branch,
+            tri_test)
+    if kind == "closest":
+        got, want = ic.intersect_clusters_hier(*args), ic.intersect_clusters_hier_plain(*args)
+    else:
+        got, want = (ic.occluded_clusters_hier(*args),), (ic.occluded_clusters_hier_plain(*args),)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    hit = (got[1] != ic.MISS_PRIM) if kind == "closest" else got[0]
+    if n > 1000:
+        assert 0.1 * n < int(hit.sum()) < n - parked
+    if parked:
+        assert not hit[-parked:].any()
+
+
+@pytest.mark.parametrize("kind", ["closest", "any"])
+def test_hier_kernels_take_no_rays(cuda, kind):
+    """n = 0: empty outputs, nothing launched and nothing counted."""
+    acc = build_accel(procedural.three_spheres_scene(12, 24, device=cuda), cluster_size=8).accel
+    o = torch.zeros((0, 3), device=cuda)
+    args = (acc.tris16bw, acc.aabb8_child, acc.aabb8_super, acc.order_super, o, o.clone(), 0.01, 1e16, 512,
+            acc.super_branch, "bw")
+    wrapper = ic.intersect_clusters_hier if kind == "closest" else ic.occluded_clusters_hier
+    before = wrapper.launches
+    if kind == "closest":
+        t, prim, uv = wrapper(*args)
+        assert t.shape == (0,) and prim.shape == (0,) and uv.shape == (0, 2)
+    else:
+        assert wrapper(*args).shape == (0,)
+    assert wrapper.launches == before
+
+
+def test_hier_launch_shape(cuda):
+    """The launch-shape query on the hier route: 131,072 rays in packets of
+    512 over clusters of 128 rows are 256 packets laid out as on the
+    streamed route, within the card's limits."""
+    for any_hit in (False, True):
+        sh = ic.streamed_launch_shape(131_072, 512, 128, "bw", any_hit, route="hier")
+        assert sh["packets"] == 256
+        assert sh["blocks"] * sh["threads"] == 512 * sh["threads_per_ray"]
+        assert sh["threads"] % 32 == 0 and sh["threads"] <= 1024 and 1 <= sh["blocks"] <= 8
+        assert 0 < sh["registers"] <= 255 and sh["resident_blocks"] >= 1 and sh["resident_clusters"] >= 1
+        streamed = ic.streamed_launch_shape(131_072, 512, 128, "bw", any_hit)
+        assert (sh["blocks"], sh["threads"], sh["threads_per_ray"]) == (
+            streamed["blocks"], streamed["threads"], streamed["threads_per_ray"])
+
+
 def test_render_matches_cpu(cuda):
     """A 64x48 render through the kernel against the plain versions on
     the CPU: segment counts within 0.5%, SSIM above 0.995."""

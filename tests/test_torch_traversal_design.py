@@ -1,4 +1,4 @@
-"""The two arguments that the streamed CUDA kernels' design rests on
+"""The two arguments that the two-level CUDA kernels' design rests on
 (tpu_pathtracer_torch/csrc/cluster_streamed.cuh), checked on the CPU
 against the plain version's own pieces with numpy-seeded inputs:
 
@@ -8,7 +8,9 @@ against the plain version's own pieces with numpy-seeded inputs:
     included; for any hit the OR of the T flags is the scan's flag;
 (b) a vote over many boxes at once, taken with the limits of that moment,
     gives a mask that contains every box the exact votes then pass, so a
-    walk restricted to the masks visits what the plain version visits.
+    walk restricted to the masks visits what the plain version visits: in
+    the streamed route's ascending order (kernels 3 and 6) and in the hier
+    route's per-packet front-to-back order (kernels 2 and 5).
 """
 
 import numpy as np
@@ -153,38 +155,47 @@ def test_split_flags_or_is_the_sequential_flag(accel, threads, k):
     assert 0 < occ.sum() < occ.size
 
 
-def masked_walk(pk, aabb_child, aabb_super, branch, closest):
+def masked_walk(pk, aabb_child, aabb_super, branch, closest, order_super=None):
     """The kernels' walk in the plain version's pieces: the supers in
-    batches of 31, voted on at once at the batch's entry; each passing
-    super's children voted on at once at the super's entry; the exact
-    votes, at each box's turn, taken only inside those masks.  Returns
-    (boxes the exact votes passed outside a mask, boxes inside a mask that
-    their exact vote then rejected)."""
+    batches of 31 visit positions, voted on at once at the batch's entry;
+    each passing super's children voted on at once at the super's entry;
+    the exact votes, at each box's turn, taken only inside those masks.
+    Without `order_super` the streamed route's ascending order (position =
+    super id, children at or past the cluster count never); with it the
+    hier route's per-packet order (the super at a position is
+    order_super[octant of the packet's first ray], every child voted on,
+    rows clamped to the last cluster).  Returns (boxes the exact votes
+    passed outside a mask, boxes inside a mask that their exact vote then
+    rejected)."""
     num_clusters = pk.tris.shape[0]
     outside = rejected = 0
 
     def visit(on, c):
-        cc = torch.full_like(on, c, dtype=torch.int32 if closest else on.dtype)
+        row = torch.clamp(c, max=num_clusters - 1)
         if closest:
-            pk.visit(on, cc, cc)
+            pk.visit(on, c, row)
         else:
-            pk.visit(on, cc)
+            pk.visit(on, row)
 
     for s0 in range(0, aabb_super.shape[0], SUPER_BATCH):
         batch = range(s0, min(s0 + SUPER_BATCH, aabb_super.shape[0]))
-        super_mask = torch.stack([pk.overlaps(aabb_super[s : s + 1], pk.all) for s in batch])
-        for row, s in enumerate(batch):
-            exact = pk.overlaps(aabb_super[s : s + 1], pk.all)
-            outside += int((exact & ~super_mask[row]).sum())
-            rejected += int((super_mask[row] & ~exact).sum())
-            live = pk.all[exact & super_mask[row]]
-            kids = range(s * branch, min((s + 1) * branch, num_clusters))
-            child_mask = {c: pk.overlaps(aabb_child[c : c + 1], live) for c in kids}
-            for c in kids:
-                exact_c = pk.overlaps(aabb_child[c : c + 1], live)
-                outside += int((exact_c & ~child_mask[c]).sum())
-                rejected += int((child_mask[c] & ~exact_c).sum())
-                visit(live[exact_c & child_mask[c]], c)
+        ids = [order_super[pk.octant, pos] if order_super is not None else torch.full_like(pk.all, pos)
+               for pos in batch]
+        super_mask = [pk.overlaps(aabb_super[s], pk.all) for s in ids]
+        for pos, s, mask in zip(batch, ids, super_mask):
+            exact = pk.overlaps(aabb_super[s], pk.all)
+            outside += int((exact & ~mask).sum())
+            rejected += int((mask & ~exact).sum())
+            live, s = pk.all[exact & mask], s[exact & mask]
+            count = branch if order_super is not None else min(branch, num_clusters - pos * branch)
+            child_mask = [pk.overlaps(aabb_child[s * branch + j], live) for j in range(count)]
+            for j in range(count):
+                c = s * branch + j
+                exact_c = pk.overlaps(aabb_child[c], live)
+                outside += int((exact_c & ~child_mask[j]).sum())
+                rejected += int((child_mask[j] & ~exact_c).sum())
+                on = exact_c & child_mask[j]
+                visit(live[on], c[on])
     return outside, rejected
 
 
@@ -233,6 +244,74 @@ def test_masks_at_entry_path_branch(accel, kind):
     pk = (ic._Packets if closest else ic._Occlusion)(accel.tris16bw, o, d, T_MIN, T_MAX, 64, "bw", got_stats)
     outside, _ = masked_walk(pk, child, supers, 16, closest)
     assert outside == 0
+    got = pk.result()
+    for a, b in zip(got if closest else (got,), want if closest else (want,)):
+        assert torch.equal(a, b)
+    assert got_stats == want_stats and want_stats["visits"] > 0
+
+
+def spread_rays(seed, n, parked):
+    """`rays`, shuffled with rays in random directions so that the first
+    rays of the packets fall in all eight octants."""
+    o, d = rays(seed, n, parked)
+    rs = np.random.RandomState(seed + 100)
+    pick = rs.rand(n - parked) < 0.5
+    d_rand = rs.randn(n - parked, 3).astype(np.float32)
+    d_rand /= np.linalg.norm(d_rand, axis=1, keepdims=True)
+    d[: n - parked][torch.as_tensor(pick)] = torch.as_tensor(d_rand[pick])
+    return o, d
+
+
+@pytest.mark.parametrize("rays_per_tile", [32, 512])
+@pytest.mark.parametrize("tri_test", ["bw", "mt"])
+@pytest.mark.parametrize("kind", ["closest", "any"])
+def test_masks_at_entry_per_packet_order(accel, kind, tri_test, rays_per_tile):
+    """(b) in the hier route's visit order: each packet walks the supers
+    in its first ray's octant order (order_super, 13 supers of 8, the last
+    with padding children whose rows clamp to the last cluster); the walk
+    restricted to the masks gives intersect_clusters_hier_plain's or
+    occluded_clusters_hier_plain's results and counts, and at packets of
+    32 the masks are not exact."""
+    closest = kind == "closest"
+    tris = accel.tris16bw if tri_test == "bw" else accel.tris16
+    o, d = spread_rays(7, 3000, parked=500)
+    packets = ic._PacketRays(tris, o, d, T_MIN, T_MAX, rays_per_tile, tri_test, None)
+    octants = set(packets.octant.tolist())
+    assert len(octants) == 8 if rays_per_tile == 32 else len(octants) >= 3
+    plain = ic.intersect_clusters_hier_plain if closest else ic.occluded_clusters_hier_plain
+    boxes = (accel.aabb8_child, accel.aabb8_super, accel.order_super)
+    assert accel.aabb8_super.shape[0] * accel.super_branch > accel.num_clusters  # padding children
+    want_stats, got_stats = {}, {}
+    want = plain(tris, *boxes, o, d, T_MIN, T_MAX, rays_per_tile, accel.super_branch, tri_test, stats=want_stats)
+    pk = (ic._Packets if closest else ic._Occlusion)(tris, o, d, T_MIN, T_MAX, rays_per_tile, tri_test, got_stats)
+    outside, rejected = masked_walk(pk, boxes[0], boxes[1], accel.super_branch, closest, order_super=boxes[2])
+    assert outside == 0
+    if rays_per_tile == 32:
+        assert rejected > 0
+    got = pk.result()
+    for a, b in zip(got if closest else (got,), want if closest else (want,)):
+        assert torch.equal(a, b)
+    assert got_stats == want_stats and want_stats["visits"] > 0
+    hits = (want[1] != ic.MISS_PRIM) if closest else want
+    assert 300 < int(hits.sum()) < 2500 and not hits[-500:].any()
+
+
+@pytest.mark.parametrize("kind", ["closest", "any"])
+def test_masks_at_entry_per_packet_batches(kind):
+    """(b) in per-packet order over several batches of super votes: the
+    scene's clusters in supers of 2 (49 supers, two batches), packets of
+    32."""
+    closest = kind == "closest"
+    acc = build_accel(procedural.three_spheres_scene(8, 16, device="cpu"), cluster_size=8, super_branch=2).accel
+    assert acc.super_branch == 2 and acc.aabb8_super.shape[0] > SUPER_BATCH
+    o, d = spread_rays(8, 2000, parked=100)
+    plain = ic.intersect_clusters_hier_plain if closest else ic.occluded_clusters_hier_plain
+    boxes = (acc.aabb8_child, acc.aabb8_super, acc.order_super)
+    want_stats, got_stats = {}, {}
+    want = plain(acc.tris16bw, *boxes, o, d, T_MIN, T_MAX, 32, 2, "bw", stats=want_stats)
+    pk = (ic._Packets if closest else ic._Occlusion)(acc.tris16bw, o, d, T_MIN, T_MAX, 32, "bw", got_stats)
+    outside, rejected = masked_walk(pk, boxes[0], boxes[1], 2, closest, order_super=boxes[2])
+    assert outside == 0 and rejected > 0
     got = pk.result()
     for a, b in zip(got if closest else (got,), want if closest else (want,)):
         assert torch.equal(a, b)

@@ -3,9 +3,8 @@
 // (cluster_occluded.cu, cluster_occluded_hier.cu,
 // cluster_occluded_streamed.cu): the counterparts of _packet_rays,
 // _octant_of, _slab_hits, _bw_tests, _mt_tests and _mt_best in
-// tpu_pathtracer/ops/intersect_pallas.py.  The two-level bodies of the hier
-// entry files are in cluster_two_level.cuh, the streamed body in
-// cluster_streamed.cuh.
+// tpu_pathtracer/ops/intersect_pallas.py.  The one body of the two-level
+// routes (hier and streamed) is in cluster_streamed.cuh.
 //
 // Every kernel builds with -fmad=false and IEEE division, and computes in
 // the operation order of its plain PyTorch version
@@ -31,14 +30,14 @@
 // occluded, so a packet holding one never exits early; that changes no
 // flag, only the work.
 //
-// How a packet maps to threads differs.  The flat and the two-level (hier)
-// kernels give each ray one thread and each packet one block: a vote
-// is __syncthreads_or, the all-occluded exit __syncthreads_and (after a
-// cluster in the flat kernel, after a super in the two-level one), and a
-// ray's loop over a staged cluster ends at its first valid triangle in any
-// hit.  The streamed kernels (cluster_streamed.cuh) spread a packet over a
-// thread block cluster with several threads per ray and vote on many boxes
-// at once; they share the ray, box and triangle arithmetic of this file.
+// How a packet maps to threads differs.  The flat kernels give each ray
+// one thread and each packet one block: a vote is __syncthreads_or, the
+// all-occluded exit a __syncthreads_and after each cluster, and a ray's
+// loop over a staged cluster ends at its first valid triangle in any hit.
+// The two-level kernels, hier and streamed (cluster_streamed.cuh), spread a
+// packet over a thread block cluster with several threads per ray and vote
+// on many boxes at once; they share the ray, box and triangle arithmetic of
+// this file.
 //
 // Triangle rows ([C,K,16] f32, four float4 per triangle):
 //   Baldwin-Weber: n (0:3), d0 = n.v0 (3), p1 (4:7), c1 = -p1.v0 (7),

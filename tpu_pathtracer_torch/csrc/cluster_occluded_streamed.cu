@@ -7,7 +7,7 @@
 // occluded_clusters_streamed_plain in
 // tpu_pathtracer_torch/ops/intersect_cluster.py; built with -fmad=false
 // and IEEE division, the two give the same flags.  The body is
-// streamed_kernel<true, ...> of cluster_streamed.cuh.
+// streamed_kernel<true, kAscending, ...> of cluster_streamed.cuh.
 //
 // What it computes.  The TPU kernel's contract without its grid: the
 // supers that streamed_pads builds (groups of `branch` = 16 clusters over
@@ -41,8 +41,8 @@ extern "C" int cluster_occluded_streamed_launch(
     const float* origins, const float* dirs, const int* order, int n,
     int num_supers, int branch, int num_clusters, int cluster_k, float t_min,
     float t_max, int rays_per_packet, int tri_test, unsigned char* occ_out, void* stream) {
-  return cluster_traversal::launch_streamed<true>(
-      tris, aabb_child, aabb_super, origins, dirs, order, n, num_supers, branch,
+  return cluster_traversal::launch_streamed<true, cluster_traversal::kAscending>(
+      tris, aabb_child, aabb_super, nullptr, origins, dirs, order, n, num_supers, branch,
       num_clusters, cluster_k, t_min, t_max, rays_per_packet, tri_test,
       nullptr, nullptr, nullptr, occ_out, stream);
 }
@@ -60,6 +60,6 @@ extern "C" int cluster_occluded_streamed_weights(
 // The launch shape n rays would take, into out[6] (describe_streamed).
 extern "C" int cluster_occluded_streamed_shape(int n, int rays_per_packet, int cluster_k,
                           int tri_test, int* out) {
-  return cluster_traversal::describe_streamed<true>(n, rays_per_packet, cluster_k,
-                                                  tri_test, out);
+  return cluster_traversal::describe_streamed<true, cluster_traversal::kAscending>(
+      n, rays_per_packet, cluster_k, tri_test, out);
 }

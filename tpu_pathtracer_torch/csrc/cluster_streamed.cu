@@ -7,7 +7,7 @@
 // intersect_clusters_streamed_plain in
 // tpu_pathtracer_torch/ops/intersect_cluster.py; built with -fmad=false
 // and IEEE division, the two give the same bits.  The body is
-// streamed_kernel<false, ...> of cluster_streamed.cuh.
+// streamed_kernel<false, kAscending, ...> of cluster_streamed.cuh.
 //
 // What it computes.  The TPU kernel's contract without its grid: supers are
 // the groups of `branch` (16) clusters that streamed_pads builds over the
@@ -42,8 +42,8 @@ extern "C" int cluster_streamed_launch(
     int num_supers, int branch, int num_clusters, int cluster_k, float t_min,
     float t_max, int rays_per_packet, int tri_test, float* t_out, int* prim_out,
     float* uv_out, void* stream) {
-  return cluster_traversal::launch_streamed<false>(
-      tris, aabb_child, aabb_super, origins, dirs, order, n, num_supers, branch,
+  return cluster_traversal::launch_streamed<false, cluster_traversal::kAscending>(
+      tris, aabb_child, aabb_super, nullptr, origins, dirs, order, n, num_supers, branch,
       num_clusters, cluster_k, t_min, t_max, rays_per_packet, tri_test,
       t_out, prim_out, uv_out, nullptr, stream);
 }
@@ -61,6 +61,6 @@ extern "C" int cluster_streamed_weights(
 // The launch shape n rays would take, into out[6] (describe_streamed).
 extern "C" int cluster_streamed_shape(int n, int rays_per_packet, int cluster_k,
                           int tri_test, int* out) {
-  return cluster_traversal::describe_streamed<false>(n, rays_per_packet, cluster_k,
-                                                  tri_test, out);
+  return cluster_traversal::describe_streamed<false, cluster_traversal::kAscending>(
+      n, rays_per_packet, cluster_k, tri_test, out);
 }

@@ -1,16 +1,23 @@
-// The streamed two-level traversal for Hopper, closest hit
-// (cluster_streamed.cu) and any hit (cluster_occluded_streamed.cu): one
-// body, streamed_kernel<kAnyHit, kTest, T>.
+// The packet traversal of the two-level routes for Hopper, closest hit
+// (cluster_hier.cu, cluster_streamed.cu) and any hit
+// (cluster_occluded_hier.cu, cluster_occluded_streamed.cu): one body,
+// streamed_kernel<kAnyHit, kVisit, kTest, T>.
 //
 // What the kernel must compute is fixed by its plain PyTorch versions
-// (intersect_clusters_streamed_plain, occluded_clusters_streamed_plain in
+// (intersect_clusters_hier_plain, occluded_clusters_hier_plain,
+// intersect_clusters_streamed_plain, occluded_clusters_streamed_plain in
 // tpu_pathtracer_torch/ops/intersect_cluster.py), bit for bit: a packet of
-// rays_per_packet rays walks the supers in ascending id and each passing
-// super's children in index order (children at or past num_clusters never);
-// a box passes when some ray of the packet overlaps it within its limit of
-// that moment (closest hit: its best t; any hit: t_max, rays not yet
-// occluded only); every ray of the packet tests every triangle of a child
-// that passes.
+// rays_per_packet rays walks the supers in a visit order and each passing
+// super's children in index order; a box passes when some ray of the packet
+// overlaps it within its limit of that moment (closest hit: its best t; any
+// hit: t_max, rays not yet occluded only); every ray of the packet tests
+// every triangle of a child that passes.  Two visit orders:
+//   * kAscending (the streamed route, kernels 3 and 6): supers in ascending
+//     id, children at or past num_clusters never;
+//   * kPerPacket (the two-level route, kernels 2 and 5): the packet takes
+//     the octant of its first ray and walks the supers in that octant's
+//     front-to-back order_super; every child of a passing super is voted
+//     on, its rows staged from min(c, num_clusters - 1) as on the TPU.
 //
 // What bounds it on this card.  The work is very uneven: on a 200k-triangle
 // scene at 131,072 rays half of the 256 packets test 2 clusters or fewer
@@ -38,10 +45,11 @@
 //     it fails exactly, since no limit changes between two tests.  After a
 //     child has been tested only the boxes still in the mask are voted on
 //     again: limits only tighten, so the mask is a superset of what can
-//     still pass.  The same holds one level up for batches of 31 supers.
+//     still pass.  The same holds one level up for batches of 31 supers,
+//     bit b of a batch being the super at visit position s0 + b.
 //     A packet crosses one barrier per child tested plus about two per
-//     passing super, where the body before crossed one per super, one per
-//     child of a passing super and two per child tested.
+//     passing super, where the one-block bodies before crossed one per
+//     super, one per child of a passing super and two per child tested.
 //   * The child rows (cluster_k x 64 B, one contiguous run) go to shared
 //     memory by cp.async into one of two buffers.  Before a child is tested
 //     the mask's next candidate is prefetched into the other buffer; when
@@ -51,7 +59,10 @@
 //     thread of a warp reads the same box.
 // Any hit does not repack unoccluded rays: on the shadow rays of the main
 // path nine tenths of the ray-cluster pairs of the packets that set the
-// time are unoccluded, so there is little to pack.
+// time are unoccluded, so there is little to pack.  Its all-occluded exit is
+// one more bit of the super votes (the one-block two-level body took a
+// block-wide AND after every super); the flags do not depend on where the
+// walk ends, since an occluded ray votes for nothing.
 
 #pragma once
 
@@ -68,19 +79,34 @@ namespace cg = cooperative_groups;
 // packet is not yet occluded (any hit).
 constexpr int kSuperBatch = 31;
 constexpr unsigned int kAliveBit = 0x80000000u;
-// The shape of a packet by how many packets a launch has for each SM: most
-// blocks a packet is spread over and most threads a ray gets.  Few packets:
-// as wide as can be, to spread and shorten the heavy packets' chains.  Many
-// packets: the card is full anyway, and a narrow packet spends less on votes
-// and merges per triangle test.  Measured on an H100 on a 200k-triangle
-// scene with packets of 512 (PERF.md): 8 x 8 is fastest at 256 packets, 8 x 4
-// at 512, 2 x 2 from 1,024 on.
+// The order in which a packet walks the supers (see the top of this file).
+enum VisitOrder { kAscending, kPerPacket };
+// The shape of a packet by visit order and by how many packets a launch has
+// for each SM: most blocks a packet is spread over and most threads a ray
+// gets.  Few packets: as wide as can be, to spread and shorten the heavy
+// packets' chains.  Many packets: the card is full anyway, and a narrow
+// packet spends less on votes and merges per triangle test.  Measured on an
+// H100 80GB HBM3 at 700 W with packets of 512 by sweep_streamed.py (PERF.md):
+// ms of the closest-hit and the any-hit kernel at the row's shape, and in
+// brackets at the next best; ascending on the 200k-triangle scene (kernels 3
+// and 6), per packet on BASELINE config 4 (kernels 2 and 5).  The per-packet
+// walk ends sooner (front to back, a closest-hit ray's limit falls early),
+// so at 31 packets an SM one thread a ray wins there.
 struct ShapeRule {
+  VisitOrder visit;
   int packets_per_sm;  // applies below this many
   int blocks;
   int threads_per_ray;
 };
-constexpr ShapeRule kShapeRules[] = {{3, 8, 8}, {6, 8, 4}, {1 << 30, 2, 2}};
+constexpr ShapeRule kShapeRules[] = {
+    {kAscending, 3, 8, 8},        // 256 packets: 4.43, 2.73 (8 x 4: 4.40, 4.03)
+    {kAscending, 6, 8, 4},        // 512
+    {kAscending, 1 << 30, 2, 2},  // 4,096: 50.95, 28.63 (1 x 1: 48.83, 28.35; 8 x 4: 57.83, 32.46)
+    {kPerPacket, 3, 8, 8},        // 256 packets: 3.25, 1.96 (8 x 4: 3.27, 2.73)
+    {kPerPacket, 6, 8, 4},        // 512: 5.45, 3.38 (4 x 8: 5.51, 3.41)
+    {kPerPacket, 24, 2, 2},       // 2,048: 18.85, 10.70 (2 x 1: 17.88, 12.03)
+    {kPerPacket, 1 << 30, 2, 1},  // 4,096: 34.83, 20.40 (2 x 2: 37.44, 20.74; 1 x 1: 34.58, 20.66)
+};
 // The threads a block aims for when a ray gets several.
 constexpr int kTargetThreads = 512;
 
@@ -99,14 +125,23 @@ __device__ __forceinline__ bool box_hits(const float* boxes, int index, const Ra
   return slab_hits(b, r, t_min, t_limit);
 }
 
-// The bits b of `boxes` whose box first + b the ray overlaps within
-// [t_min, t_limit].
-__device__ __forceinline__ unsigned int overlapped(const float* aabbs, int first, unsigned int boxes,
-                                                   const Ray& r, float t_min, float t_limit) {
+// The box at position `pos` of a visit order: `pos` itself in ascending
+// order, else ids[pos].
+template <VisitOrder kVisit>
+__device__ __forceinline__ int box_at(const int* ids, int pos) {
+  return kVisit == kPerPacket ? __ldg(ids + pos) : pos;
+}
+
+// The bits b of `boxes` whose box at position first + b the ray overlaps
+// within [t_min, t_limit].
+template <VisitOrder kVisit = kAscending>
+__device__ __forceinline__ unsigned int overlapped(const float* aabbs, const int* ids, int first,
+                                                   unsigned int boxes, const Ray& r, float t_min,
+                                                   float t_limit) {
   unsigned int hits = 0u;
   for (unsigned int m = boxes; m; m &= m - 1u) {
     const int b = __ffs(m) - 1;
-    if (box_hits(aabbs, first + b, r, t_min, t_limit)) hits |= 1u << b;
+    if (box_hits(aabbs, box_at<kVisit>(ids, first + b), r, t_min, t_limit)) hits |= 1u << b;
   }
   return hits;
 }
@@ -248,12 +283,14 @@ __device__ __forceinline__ void occlude_cluster_split(const float4* rows, int cl
 // Grid: packets x G blocks in clusters of G; block: rays_per_packet / G
 // rays x T threads (a multiple of 32).  Dynamic shared memory: two row
 // buffers of cluster_k x 48 B.  Closest hit writes t_out, prim_out and
-// uv_out, any hit occ_out; the other pointers are unused.
-template <bool kAnyHit, int kTest, int T>
+// uv_out, any hit occ_out; the other pointers are unused.  order_super is
+// read in kPerPacket order only.
+template <bool kAnyHit, VisitOrder kVisit, int kTest, int T>
 __global__ void __launch_bounds__(1024) streamed_kernel(
     const float4* __restrict__ tris,        // [C,K,4] float4
     const float* __restrict__ aabb_child,   // [S*branch,8]
     const float* __restrict__ aabb_super,   // [S,8]
+    const int* __restrict__ order_super,    // [8,S]: each octant's visit order, or null
     const float* __restrict__ origins,      // [N,3]
     const float* __restrict__ dirs,         // [N,3]
     const int* __restrict__ order,          // [packets]: the packet each cluster takes, or null
@@ -275,6 +312,14 @@ __global__ void __launch_bounds__(1024) streamed_kernel(
   const int i = packet * rays_per_packet + ray;
   const Ray r = load_ray(origins, dirs, i, n);
   const unsigned int my_bits = Lanes<T>::kEveryT << sub;  // the boxes of a vote this thread tests
+  // The supers by visit position: the octant of the packet's first ray
+  // picks the row of order_super (every block of the packet reads that ray).
+  const int* visit = kVisit == kPerPacket
+                         ? order_super + octant_of(load_ray(origins, dirs, packet * rays_per_packet, n)) * num_supers
+                         : nullptr;
+  // The rows of child c: clamped to the last cluster in per-packet order,
+  // where every child is voted on; ascending order never reaches c >= C.
+  auto row_of = [&](int c) { return kVisit == kPerPacket ? min(c, num_clusters - 1) : c; };
 
   if (threadIdx.x < 3) slots[threadIdx.x] = 0u;
   if (vote.blocks == 1) {
@@ -292,7 +337,7 @@ __global__ void __launch_bounds__(1024) streamed_kernel(
   // closest-hit ray tests its boxes again only after its best t fell, an
   // any-hit ray never (once occluded it votes for nothing).
   for (int s0 = 0; s0 < num_supers && alive; s0 += kSuperBatch) {
-    unsigned int supers = low_bits(min(kSuperBatch, num_supers - s0));
+    unsigned int supers = low_bits(min(kSuperBatch, num_supers - s0));  // bit b: visit position s0 + b
     bool exact = false;  // was `supers` voted with the limits of now?
     unsigned int mine_supers = 0u;
     float voted_t = 0.0f;  // the limit mine_supers was taken with
@@ -300,8 +345,8 @@ __global__ void __launch_bounds__(1024) streamed_kernel(
     while (supers) {
       if (!exact) {
         if (first || (!kAnyHit && best.t != voted_t)) {
-          mine_supers = overlapped(aabb_super, s0, first ? supers & my_bits : mine_supers & supers, r,
-                                   t_min, kAnyHit ? t_max : best.t);
+          mine_supers = overlapped<kVisit>(aabb_super, visit, s0, first ? supers & my_bits : mine_supers & supers,
+                                           r, t_min, kAnyHit ? t_max : best.t);
           voted_t = best.t;
           first = false;
         }
@@ -313,16 +358,17 @@ __global__ void __launch_bounds__(1024) streamed_kernel(
         }
         if (!supers) break;
       }
-      const int s = s0 + __ffs(supers) - 1;  // the next super that passes
+      const int s = box_at<kVisit>(visit, s0 + __ffs(supers) - 1);  // the next super that passes
       supers &= supers - 1u;
       exact = true;  // until a child is tested
 
       for (int j0 = 0; j0 < branch; j0 += 32) {
         const int c0 = s * branch + j0;
-        const int count = min(min(32, branch - j0), num_clusters - c0);  // the c < num_clusters gate
+        const int count = kVisit == kPerPacket ? min(32, branch - j0)
+                                               : min(min(32, branch - j0), num_clusters - c0);  // the c < C gate
         if (count <= 0) break;
         unsigned int kids = low_bits(count);
-        unsigned int mine = overlapped(aabb_child, c0, kids & my_bits, r, t_min, kAnyHit ? t_max : best.t);
+        unsigned int mine = overlapped(aabb_child, nullptr, c0, kids & my_bits, r, t_min, kAnyHit ? t_max : best.t);
         int guess = -1;  // the child whose rows are on their way into rows[cur ^ 1]
         while (kids) {
           kids = vote.any(kAnyHit && occluded ? 0u : mine);
@@ -331,21 +377,21 @@ __global__ void __launch_bounds__(1024) streamed_kernel(
           kids &= kids - 1u;
           float4* buf = rows + (cur ^ 1) * cluster_k * 3;
           if (c != guess) {
-            stage_rows_async(buf, tris, c, cluster_k);
+            stage_rows_async(buf, tris, row_of(c), cluster_k);
             __pipeline_wait_prior(0);
             __syncthreads();
           }
           cur ^= 1;
           // Every thread has left rows[cur ^ 1]: the vote was a barrier.
           guess = kids ? c0 + __ffs(kids) - 1 : -1;
-          if (guess >= 0) stage_rows_async(rows + (cur ^ 1) * cluster_k * 3, tris, guess, cluster_k);
+          if (guess >= 0) stage_rows_async(rows + (cur ^ 1) * cluster_k * 3, tris, row_of(guess), cluster_k);
           mine &= kids;
           if (kAnyHit) {
             occlude_cluster_split<kTest, T>(buf, cluster_k, sub, r, t_min, t_max, occluded);
           } else {
             const float before = best.t;
             test_cluster_split<kTest, T>(buf, cluster_k, c, sub, r, t_min, best);
-            if (best.t != before) mine = overlapped(aabb_child, c0, mine, r, t_min, best.t);
+            if (best.t != before) mine = overlapped(aabb_child, nullptr, c0, mine, r, t_min, best.t);
           }
           exact = false;
         }
@@ -381,7 +427,7 @@ __global__ void __launch_bounds__(1024) packet_weight_kernel(
   int count = 0;
   for (int s0 = 0; s0 < num_supers; s0 += 32) {
     const unsigned int supers = low_bits(min(32, num_supers - s0));
-    count += __popc(vote.any(overlapped(aabb_super, s0, supers, r, t_min, t_max)));
+    count += __popc(vote.any(overlapped(aabb_super, nullptr, s0, supers, r, t_min, t_max)));
   }
   if (threadIdx.x == 0) weights[blockIdx.x] = count;
 }
@@ -396,17 +442,17 @@ inline int launch_packet_weights(const float* aabb_super, const float* origins, 
   return static_cast<int>(cudaGetLastError());
 }
 
-using StreamedKernel = void (*)(const float4*, const float*, const float*, const float*, const float*,
-                                const int*, int, int, int, int, int, int, float, float, float*, int*,
-                                float*, unsigned char*);
+using StreamedKernel = void (*)(const float4*, const float*, const float*, const int*, const float*,
+                                const float*, const int*, int, int, int, int, int, int, float, float,
+                                float*, int*, float*, unsigned char*);
 
-template <bool kAnyHit, int kTest>
+template <bool kAnyHit, VisitOrder kVisit, int kTest>
 StreamedKernel streamed_kernel_for(int threads_per_ray) {
   switch (threads_per_ray) {
-    case 8: return streamed_kernel<kAnyHit, kTest, 8>;
-    case 4: return streamed_kernel<kAnyHit, kTest, 4>;
-    case 2: return streamed_kernel<kAnyHit, kTest, 2>;
-    default: return streamed_kernel<kAnyHit, kTest, 1>;
+    case 8: return streamed_kernel<kAnyHit, kVisit, kTest, 8>;
+    case 4: return streamed_kernel<kAnyHit, kVisit, kTest, 4>;
+    case 2: return streamed_kernel<kAnyHit, kVisit, kTest, 2>;
+    default: return streamed_kernel<kAnyHit, kVisit, kTest, 1>;
   }
 }
 
@@ -422,7 +468,7 @@ struct StreamedPlan {
   size_t shared_bytes;  // two row buffers
 };
 
-template <bool kAnyHit>
+template <bool kAnyHit, VisitOrder kVisit>
 int plan_streamed(int n, int rays_per_packet, int cluster_k, int tri_test, StreamedPlan& plan) {
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -430,7 +476,7 @@ int plan_streamed(int n, int rays_per_packet, int cluster_k, int tri_test, Strea
   if (err != cudaSuccess) return static_cast<int>(err);
   plan.packets = (n + rays_per_packet - 1) / rays_per_packet;
   const ShapeRule* rule = kShapeRules;
-  while (plan.packets >= static_cast<long long>(rule->packets_per_sm) * sms) ++rule;
+  while (rule->visit != kVisit || plan.packets >= static_cast<long long>(rule->packets_per_sm) * sms) ++rule;
   const int warps = rays_per_packet / 32;
   plan.blocks = rule->blocks;
   while (warps % plan.blocks) plan.blocks /= 2;
@@ -441,8 +487,8 @@ int plan_streamed(int n, int rays_per_packet, int cluster_k, int tri_test, Strea
   plan.threads = rays_per_packet / plan.blocks * plan.threads_per_ray;
   plan.shared_bytes = 2 * static_cast<size_t>(cluster_k) * 3 * sizeof(float4);
   plan.kernel = tri_test == kMollerTrumbore
-                    ? streamed_kernel_for<kAnyHit, kMollerTrumbore>(plan.threads_per_ray)
-                    : streamed_kernel_for<kAnyHit, kBaldwinWeber>(plan.threads_per_ray);
+                    ? streamed_kernel_for<kAnyHit, kVisit, kMollerTrumbore>(plan.threads_per_ray)
+                    : streamed_kernel_for<kAnyHit, kVisit, kBaldwinWeber>(plan.threads_per_ray);
   if (plan.shared_bytes > 48 * 1024) {
     err = cudaFuncSetAttribute(plan.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(plan.shared_bytes));
@@ -469,22 +515,23 @@ struct StreamedLaunch {
 };
 
 // Launches packets x G blocks in clusters of G on `stream`; cluster b takes
-// packet order[b], or packet b where `order` is null.  Returns the launch's
-// error, or cudaGetLastError() after it (0 = launched).
-template <bool kAnyHit>
+// packet order[b], or packet b where `order` is null.  order_super is the
+// per-octant visit order of kPerPacket (null for kAscending).  Returns the
+// launch's error, or cudaGetLastError() after it (0 = launched).
+template <bool kAnyHit, VisitOrder kVisit>
 int launch_streamed(const float* tris, const float* aabb_child, const float* aabb_super,
-                    const float* origins, const float* dirs, const int* order, int n,
+                    const int* order_super, const float* origins, const float* dirs, const int* order, int n,
                     int num_supers, int branch, int num_clusters, int cluster_k, float t_min,
                     float t_max, int rays_per_packet, int tri_test, float* t_out, int* prim_out,
                     float* uv_out, unsigned char* occ_out, void* stream) {
   if (n <= 0) return 0;
   StreamedPlan plan;
-  const int planned = plan_streamed<kAnyHit>(n, rays_per_packet, cluster_k, tri_test, plan);
+  const int planned = plan_streamed<kAnyHit, kVisit>(n, rays_per_packet, cluster_k, tri_test, plan);
   if (planned) return planned;
   const StreamedLaunch launch(plan, stream);
   const cudaError_t err = cudaLaunchKernelEx(
       &launch.config, plan.kernel, reinterpret_cast<const float4*>(tris), aabb_child, aabb_super,
-      origins, dirs, order, n, num_supers, branch, num_clusters, cluster_k, rays_per_packet, t_min,
+      order_super, origins, dirs, order, n, num_supers, branch, num_clusters, cluster_k, rays_per_packet, t_min,
       t_max, t_out, prim_out, uv_out, occ_out);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -492,10 +539,10 @@ int launch_streamed(const float* tris, const float* aabb_child, const float* aab
 
 // The launch shape of n rays: out = {G, threads of a block, T, registers of
 // a thread, blocks an SM holds at once, packets the card holds at once}.
-template <bool kAnyHit>
+template <bool kAnyHit, VisitOrder kVisit>
 int describe_streamed(int n, int rays_per_packet, int cluster_k, int tri_test, int* out) {
   StreamedPlan plan;
-  const int planned = plan_streamed<kAnyHit>(n > 0 ? n : 1, rays_per_packet, cluster_k, tri_test, plan);
+  const int planned = plan_streamed<kAnyHit, kVisit>(n > 0 ? n : 1, rays_per_packet, cluster_k, tri_test, plan);
   if (planned) return planned;
   const StreamedLaunch launch(plan, nullptr);
   cudaFuncAttributes attributes;

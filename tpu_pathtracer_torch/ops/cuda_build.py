@@ -42,7 +42,7 @@ LAUNCHERS = {
     ),
     "cluster_hier.cu": (
         "cluster_hier_launch",
-        [_P] * 6 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 4,
+        [_P] * 7 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 4,
     ),
     "cluster_streamed.cu": (
         "cluster_streamed_launch",
@@ -54,7 +54,7 @@ LAUNCHERS = {
     ),
     "cluster_occluded_hier.cu": (
         "cluster_occluded_hier_launch",
-        [_P] * 6 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 2,
+        [_P] * 7 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 2,
     ),
     "cluster_occluded_streamed.cu": (
         "cluster_occluded_streamed_launch",
@@ -66,17 +66,15 @@ LAUNCHERS = {
     ),
 }
 # source: {another function of its library: the function's argument types}.
-# The streamed kernels have a packet-weight pre-pass (boxes, rays, n, supers,
-# t_min, t_max, rays per packet, weights out, stream) and a launch-shape
-# query (n, rays per packet, cluster_k, tri_test, int out[6]).
+# The two-level kernels (hier and streamed) have a packet-weight pre-pass
+# (boxes, rays, n, supers, t_min, t_max, rays per packet, weights out,
+# stream) and a launch-shape query (n, rays per packet, cluster_k, tri_test,
+# int out[6]).
 _WEIGHTS = [_P] * 3 + [_I] * 2 + [_F] * 2 + [_I] + [_P] * 2
 _SHAPE = [_I] * 4 + [ctypes.POINTER(ctypes.c_int)]
 HELPERS = {
-    "cluster_streamed.cu": {"cluster_streamed_weights": _WEIGHTS, "cluster_streamed_shape": _SHAPE},
-    "cluster_occluded_streamed.cu": {
-        "cluster_occluded_streamed_weights": _WEIGHTS,
-        "cluster_occluded_streamed_shape": _SHAPE,
-    },
+    f"{stem}.cu": {f"{stem}_weights": _WEIGHTS, f"{stem}_shape": _SHAPE}
+    for stem in ("cluster_hier", "cluster_streamed", "cluster_occluded_hier", "cluster_occluded_streamed")
 }
 
 

@@ -525,34 +525,19 @@ def intersect_clusters_hier_cuda(tris, aabb_child, aabb_super, order_super, orig
                                  tri_test: str = "bw"):
     """Launch the two-level kernel on CUDA tensors; same contract as the
     plain version."""
-    c_count, k, _ = tris.shape
-    s = aabb_super.shape[0]
-    _check_launch(tris, origins, directions, rays_per_tile, tri_test, {
-        "aabb_child": (aabb_child, torch.float32, (s * branch, 8)),
-        "aabb_super": (aabb_super, torch.float32, (s, 8)),
-        "order_super": (order_super, torch.int32, (8, s)),
-    })
-    t, prim, uv = _hit_outputs(origins)
-    err = library("cluster_hier.cu").cluster_hier_launch(
-        tris.data_ptr(), aabb_child.data_ptr(), aabb_super.data_ptr(), order_super.data_ptr(),
-        origins.data_ptr(), directions.data_ptr(), origins.shape[0], s, branch, c_count, k,
-        float(t_min), float(t_max), rays_per_tile, _TRI_TEST_IDS[tri_test],
-        t.data_ptr(), prim.data_ptr(), uv.data_ptr(), _stream(origins),
-    )
-    if err:
-        raise RuntimeError(f"two_level_kernel (hier) launch failed: CUDA error {err}")
-    intersect_clusters_hier.launches += 1
-    return t, prim, uv
+    return _two_level_cuda(intersect_clusters_hier, tris, aabb_child, aabb_super, order_super, origins,
+                           directions, t_min, t_max, rays_per_tile, branch, tri_test)
 
 
 def _heaviest_first(weights_launch, aabb_super, origins, directions, t_min, t_max, rays_per_tile):
-    """The order in which a streamed kernel takes its packets: heaviest
+    """The order in which a two-level kernel takes its packets: heaviest
     first by the pre-pass's estimate (the supers some ray of the packet
     overlaps), so that the few packets that test hundreds of clusters start
     at once and not behind a queue of light ones.  [packets] int32, or None
     where the card holds every packet at once anyway (a packet takes at
     most 8 blocks and an SM holds at least 2).  The order changes no
-    result: packets are independent."""
+    result: packets are independent, and the estimate counts the same
+    supers whatever order a packet visits them in."""
     packets = -(-origins.shape[0] // rays_per_tile)
     if packets * 4 <= torch.cuda.get_device_properties(origins.device).multi_processor_count:
         return None
@@ -565,35 +550,59 @@ def _heaviest_first(weights_launch, aabb_super, origins, directions, t_min, t_ma
     return torch.argsort(weights, descending=True, stable=True).to(torch.int32)
 
 
+def _two_level_cuda(counter, tris, aabb_child, aabb_super, order_super, origins, directions,
+                    t_min, t_max, rays_per_tile, branch, tri_test):
+    """Check, allocate and launch streamed_kernel (csrc/cluster_streamed.cuh)
+    of a two-level route, packets heaviest first: the hier route's where
+    `order_super` ([8,S]) gives each packet its visit order, the streamed
+    route's (ascending) where it is None.  Closest hit where `counter` is a
+    closest-hit wrapper, else any hit; `counter.launches` counts the
+    launch.  Returns (t, prim, uv), or occluded."""
+    any_hit = counter in (occluded_clusters_hier, occluded_clusters_streamed)
+    route = "streamed" if order_super is None else "hier"
+    c_count, k, _ = tris.shape
+    s = aabb_super.shape[0]
+    boxes = {
+        "aabb_child": (aabb_child, torch.float32, (s * branch, 8)),
+        "aabb_super": (aabb_super, torch.float32, (s, 8)),
+    }
+    if order_super is not None:
+        boxes["order_super"] = (order_super, torch.int32, (8, s))
+    elif s * branch < c_count:
+        raise ValueError(f"{s} supers of {branch} do not cover {c_count} clusters")
+    _check_launch(tris, origins, directions, rays_per_tile, tri_test, boxes)
+    if any_hit:
+        out = (torch.empty(origins.shape[0], dtype=torch.bool, device=origins.device),)
+    else:
+        out = _hit_outputs(origins)
+    if origins.shape[0] == 0:
+        return out[0] if any_hit else out  # nothing to launch
+    stem = f"cluster_{'occluded_' if any_hit else ''}{route}"
+    lib = library(f"{stem}.cu")
+    order = _heaviest_first(getattr(lib, f"{stem}_weights"), aabb_super, origins, directions, t_min, t_max,
+                            rays_per_tile)
+    visit = () if order_super is None else (order_super.data_ptr(),)
+    err = getattr(lib, f"{stem}_launch")(
+        tris.data_ptr(), aabb_child.data_ptr(), aabb_super.data_ptr(), *visit,
+        origins.data_ptr(), directions.data_ptr(), order.data_ptr() if order is not None else None,
+        origins.shape[0], s, branch, c_count, k,
+        float(t_min), float(t_max), rays_per_tile, _TRI_TEST_IDS[tri_test],
+        *(x.data_ptr() for x in out), _stream(origins),
+    )
+    if err:
+        raise RuntimeError(f"streamed_kernel ({route}, {'any' if any_hit else 'closest'} hit) launch failed: "
+                           f"CUDA error {err}")
+    counter.launches += 1
+    return out[0] if any_hit else out
+
+
 def intersect_clusters_streamed_cuda(tris, aabb_child, aabb_super, origins, directions,
                                      t_min: float, t_max: float, rays_per_tile: int, branch: int,
                                      tri_test: str = "bw"):
     """Launch the streamed kernel on CUDA tensors; same contract as the
     plain version."""
-    c_count, k, _ = tris.shape
-    s = aabb_super.shape[0]
-    if s * branch < c_count:
-        raise ValueError(f"{s} supers of {branch} do not cover {c_count} clusters")
-    _check_launch(tris, origins, directions, rays_per_tile, tri_test, {
-        "aabb_child": (aabb_child, torch.float32, (s * branch, 8)),
-        "aabb_super": (aabb_super, torch.float32, (s, 8)),
-    })
-    t, prim, uv = _hit_outputs(origins)
-    if origins.shape[0] == 0:
-        return t, prim, uv  # nothing to launch
-    lib = library("cluster_streamed.cu")
-    order = _heaviest_first(lib.cluster_streamed_weights, aabb_super, origins, directions, t_min, t_max, rays_per_tile)
-    err = lib.cluster_streamed_launch(
-        tris.data_ptr(), aabb_child.data_ptr(), aabb_super.data_ptr(),
-        origins.data_ptr(), directions.data_ptr(), order.data_ptr() if order is not None else None,
-        origins.shape[0], s, branch, c_count, k,
-        float(t_min), float(t_max), rays_per_tile, _TRI_TEST_IDS[tri_test],
-        t.data_ptr(), prim.data_ptr(), uv.data_ptr(), _stream(origins),
-    )
-    if err:
-        raise RuntimeError(f"streamed_kernel (closest hit) launch failed: CUDA error {err}")
-    intersect_clusters_streamed.launches += 1
-    return t, prim, uv
+    return _two_level_cuda(intersect_clusters_streamed, tris, aabb_child, aabb_super, None, origins, directions,
+                           t_min, t_max, rays_per_tile, branch, tri_test)
 
 
 def occluded_clusters_cuda(tris, aabb8, order, origins, directions, t_min: float, t_max: float,
@@ -623,24 +632,8 @@ def occluded_clusters_hier_cuda(tris, aabb_child, aabb_super, order_super, origi
                                 tri_test: str = "bw"):
     """Launch the two-level any-hit kernel on CUDA tensors; same contract
     as the plain version."""
-    c_count, k, _ = tris.shape
-    s = aabb_super.shape[0]
-    _check_launch(tris, origins, directions, rays_per_tile, tri_test, {
-        "aabb_child": (aabb_child, torch.float32, (s * branch, 8)),
-        "aabb_super": (aabb_super, torch.float32, (s, 8)),
-        "order_super": (order_super, torch.int32, (8, s)),
-    })
-    occ = torch.empty(origins.shape[0], dtype=torch.bool, device=origins.device)
-    err = library("cluster_occluded_hier.cu").cluster_occluded_hier_launch(
-        tris.data_ptr(), aabb_child.data_ptr(), aabb_super.data_ptr(), order_super.data_ptr(),
-        origins.data_ptr(), directions.data_ptr(), origins.shape[0], s, branch, c_count, k,
-        float(t_min), float(t_max), rays_per_tile, _TRI_TEST_IDS[tri_test],
-        occ.data_ptr(), _stream(origins),
-    )
-    if err:
-        raise RuntimeError(f"two_level_occluded_kernel (hier) launch failed: CUDA error {err}")
-    occluded_clusters_hier.launches += 1
-    return occ
+    return _two_level_cuda(occluded_clusters_hier, tris, aabb_child, aabb_super, order_super, origins,
+                           directions, t_min, t_max, rays_per_tile, branch, tri_test)
 
 
 def occluded_clusters_streamed_cuda(tris, aabb_child, aabb_super, origins, directions,
@@ -648,49 +641,27 @@ def occluded_clusters_streamed_cuda(tris, aabb_child, aabb_super, origins, direc
                                     tri_test: str = "bw"):
     """Launch the streamed any-hit kernel on CUDA tensors; same contract
     as the plain version."""
-    c_count, k, _ = tris.shape
-    s = aabb_super.shape[0]
-    if s * branch < c_count:
-        raise ValueError(f"{s} supers of {branch} do not cover {c_count} clusters")
-    _check_launch(tris, origins, directions, rays_per_tile, tri_test, {
-        "aabb_child": (aabb_child, torch.float32, (s * branch, 8)),
-        "aabb_super": (aabb_super, torch.float32, (s, 8)),
-    })
-    occ = torch.empty(origins.shape[0], dtype=torch.bool, device=origins.device)
-    if origins.shape[0] == 0:
-        return occ  # nothing to launch
-    lib = library("cluster_occluded_streamed.cu")
-    order = _heaviest_first(lib.cluster_occluded_streamed_weights, aabb_super, origins, directions, t_min, t_max,
-                            rays_per_tile)
-    err = lib.cluster_occluded_streamed_launch(
-        tris.data_ptr(), aabb_child.data_ptr(), aabb_super.data_ptr(),
-        origins.data_ptr(), directions.data_ptr(), order.data_ptr() if order is not None else None,
-        origins.shape[0], s, branch, c_count, k,
-        float(t_min), float(t_max), rays_per_tile, _TRI_TEST_IDS[tri_test],
-        occ.data_ptr(), _stream(origins),
-    )
-    if err:
-        raise RuntimeError(f"streamed_kernel (any hit) launch failed: CUDA error {err}")
-    occluded_clusters_streamed.launches += 1
-    return occ
+    return _two_level_cuda(occluded_clusters_streamed, tris, aabb_child, aabb_super, None, origins, directions,
+                           t_min, t_max, rays_per_tile, branch, tri_test)
 
 
 def streamed_launch_shape(n: int, rays_per_tile: int, cluster_k: int, tri_test: str = "bw",
-                          any_hit: bool = False) -> dict:
-    """How the streamed kernel (closest hit, or any hit) lays out a launch
-    of n rays on the current CUDA device: "packets", "blocks" (of a
-    packet's thread block cluster), "threads" (of a block),
-    "threads_per_ray", "registers" (of a thread), "resident_blocks" (per
-    SM) and "resident_clusters" (packets the card holds at once).  Builds
-    the kernel if need be; launches nothing."""
+                          any_hit: bool = False, route: str = "streamed") -> dict:
+    """How the kernel of a two-level route ("streamed" or "hier"; closest
+    hit, or any hit) lays out a launch of n rays on the current CUDA
+    device: "packets", "blocks" (of a packet's thread block cluster),
+    "threads" (of a block), "threads_per_ray", "registers" (of a thread),
+    "resident_blocks" (per SM) and "resident_clusters" (packets the card
+    holds at once).  Builds the kernel if need be; launches nothing."""
     if tri_test not in _TRI_TEST_IDS:
         raise ValueError(f"unknown tri_test {tri_test!r}")
-    lib = library("cluster_occluded_streamed.cu" if any_hit else "cluster_streamed.cu")
-    query = lib.cluster_occluded_streamed_shape if any_hit else lib.cluster_streamed_shape
+    if route not in ("streamed", "hier"):
+        raise ValueError(f"no launch shape for route {route!r}")
+    stem = f"cluster_{'occluded_' if any_hit else ''}{route}"
     out = (ctypes.c_int * 6)()
-    err = query(n, rays_per_tile, cluster_k, _TRI_TEST_IDS[tri_test], out)
+    err = getattr(library(f"{stem}.cu"), f"{stem}_shape")(n, rays_per_tile, cluster_k, _TRI_TEST_IDS[tri_test], out)
     if err:
-        raise RuntimeError(f"streamed kernel shape query failed: CUDA error {err}")
+        raise RuntimeError(f"{route} kernel shape query failed: CUDA error {err}")
     keys = ("blocks", "threads", "threads_per_ray", "registers", "resident_blocks", "resident_clusters")
     return {"packets": -(-n // rays_per_tile), **dict(zip(keys, out))}
 
