@@ -16,6 +16,14 @@ Phases, each printing one line (any failure exits non-zero):
      131,072 rays of the headline scene (65,536 camera rays and their
      first bounce), sorted as the main path sorts them; Baldwin-Weber and
      Moller-Trumbore; t, prim and uv must be bit-equal; both times in ms;
+     like every traversal kernel (all are streamed_kernel of
+     csrc/cluster_streamed.cuh), also its launch shape (blocks per packet,
+     threads per ray, registers, resident blocks per SM), its instruction
+     floor beside the bound, and the same rays tiled 16 times (2,097,152
+     rays, more packets than the card holds at once): every tile bit-equal
+     to the plain version's result, and timed;
+ 3b. kernel 1 as phase 3 on BASELINE config 1's scene at its pool of
+     16,384 lanes: 8,192 camera rays and their first bounce (16 packets);
   4. render: the headline through render_frame_stats, 1920x1080, 10 spp,
      depth 8, three-spheres scene with the cluster accel and a procedural
      256x512 equirect sky: one warm frame, one timed; the image must be
@@ -27,11 +35,7 @@ Phases, each printing one line (any failure exits non-zero):
      must exceed 0.995 and segments agree within 0.5%;
   6. kernel 2 (two-level) as phase 3 on BASELINE config 4's scene,
      high_poly_scene(100_000): 98,002 triangles, 766 clusters, 6.3 MB of
-     rows, camera eye (0,3,10) lookat (0,1,0); its launch shape (blocks per
-     packet, threads per ray, registers, resident blocks per SM), its
-     instruction floor beside the bound, and the same rays tiled 16 times
-     (2,097,152 rays, more packets than the card holds at once): every tile
-     bit-equal to the plain version's result, and timed;
+     rows, camera eye (0,3,10) lookat (0,1,0);
   7. kernel 3 (streamed) as phase 6 on the same generator at 200,000
      triangles: 200,002 triangles, 1,563 clusters, 12.8 MB of rows;
   8. render config 4 as phase 4 (one warm, one timed frame), through the
@@ -45,9 +49,8 @@ Phases, each printing one line (any failure exits non-zero):
      intersected and shaded, one alias-table light draw each, the lanes
      that trace no shadow ray parked and the batch sorted as
      ClusterAccel.occluded does; flags bit-equal to the plain version in
-     bw and mt; both times, the share of rays occluded and parked;
-     kernels 5 and 6 also with phase 6's launch shape, instruction floor
-     and 16 tiles;
+     bw and mt; both times, the share of rays occluded and parked; launch
+     shape, instruction floor and 16 tiles as phase 3;
  14. NEE render of the headline (BASELINE config 3's path: textbook RR,
      env importance sampling), as phase 4 (one warm, one timed frame):
      kernels 1 and 4 must each launch at least once per stream iteration
@@ -161,6 +164,7 @@ CONFIG4_CAMERA = dict(eye=(0, 3, 10), lookat=(0, 1, 0))
 CONFIG1 = dict(width=512, height=512, samples_per_launch=64, max_depth=8, dof=False, env_mode="constant",
                rr_mode="reference", intersector="cluster")
 CAMERA_RAYS = 65536  # and as many first bounces: 131,072 rays per kernel phase
+CONFIG1_CAMERA_RAYS = 8192  # config 1's pool of 16,384 lanes
 # Bounds (H100 SXM data sheet, at the 700 W limit): float32 outside the
 # tensor cores, and device memory.
 PEAK_FP32 = 67e12
@@ -174,7 +178,7 @@ BW_TEST_FLOPS = 33  # bw_test in csrc/cluster_common.cuh: 17 mul, 14 add/sub, 1 
 # triangles has 157), at 4 warp instructions a clock on each SM at the
 # card's highest SM clock.
 BW_TEST_INSTRUCTIONS = 77
-LARGE_TILES = 16  # phases 6, 7, 12 and 13: 16 x 131,072 rays
+LARGE_TILES = 16  # the kernel phases: 16 x their rays in one launch
 
 
 @functools.lru_cache(maxsize=None)
@@ -278,13 +282,12 @@ def _time_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def bounce_batch(scene, cfg, camera):
-    """131,072 rays as the main path traces them: 65,536 camera rays spread
-    over the frame and, for each, its first bounce (a miss keeps its camera
-    ray), sorted as ClusterAccel.intersect sorts them."""
+def bounce_batch(scene, cfg, camera, n_cam=CAMERA_RAYS):
+    """2 x n_cam rays as the main path traces them: n_cam camera rays
+    spread over the frame and, for each, its first bounce (a miss keeps its
+    camera ray), sorted as ClusterAccel.intersect sorts them."""
     dev = scene.device
     acc = scene.accel
-    n_cam = CAMERA_RAYS
     n_pix = cfg.width * cfg.height
     pix = torch.arange(n_cam, dtype=torch.int32, device=dev) * (n_pix // n_cam)
     seeds = rng.make_seeds(pix, torch.zeros_like(pix), 0)
@@ -327,12 +330,11 @@ def kernel_bytes(args, n, any_hit):
     return read + n * (1 if any_hit else 16)
 
 
-def phase_kernel(label, kid, scene, cfg, camera, smi, plain_reps):
-    """The kernel against its plain version, both triangle tests, bit for
-    bit; Baldwin-Weber (the main path's) timed, and its bound from the
-    tests the plain version counts on these rays.  The two-level kernels
-    (hier and streamed) also report their launch shape and instruction
-    floor and run LARGE_TILES copies of the rays in one launch."""
+def phase_kernel(label, kid, scene, cfg, camera, smi, plain_reps, n_cam=CAMERA_RAYS):
+    """The kernel against its plain version on bounce_batch's 2 x n_cam
+    rays (any hit: shadow_batch's), both triangle tests, bit for bit;
+    Baldwin-Weber (the main path's) timed, and its bound from the tests the
+    plain version counts on these rays; then phase_streamed_sizes."""
     name, _, _, route, any_hit, _, kernel, plain = KERNELS[kid]
     acc = scene.accel
     if acc.route(cfg) != route:
@@ -341,7 +343,7 @@ def phase_kernel(label, kid, scene, cfg, camera, smi, plain_reps):
     if any_hit:
         o_s, d_s, parked = shadow_batch(scene, cfg, camera)
     else:
-        o_s, d_s = bounce_batch(scene, cfg, camera)
+        o_s, d_s = bounce_batch(scene, cfg, camera, n_cam)
     n = o_s.shape[0]
     rpt, k = acc._rpt(cfg), acc.cluster_size
     out = {}
@@ -381,17 +383,16 @@ def phase_kernel(label, kid, scene, cfg, camera, smi, plain_reps):
           f"packets of {rpt}: bit-equal (0 ulp) in bw and mt; bw kernel {bw['ms']:.4f} ms, plain "
           f"{bw['plain_ms']:.4f} ms; mt kernel {mt['ms']:.4f} ms; {work}), "
           f"{bw['flops']} FLOP, {bw['n_bytes']} bytes: bound {bw['bound_ms']:.4f} ms by {bw['bound_by']} | {smi}")
-    if route in ("hier", "streamed"):
-        phase_streamed_sizes(label, name, route, any_hit, kernel, acc, cfg, o_s, d_s, bw, smi)
+    phase_streamed_sizes(label, name, route, any_hit, kernel, acc, cfg, o_s, d_s, bw, smi)
     return dict(max_abs_err=max(bw["max_abs_err"], mt["max_abs_err"]), ms=bw["ms"], plain_ms=bw["plain_ms"],
                 bound_ms=bw["bound_ms"], bound_by=bw["bound_by"], library_ms=None)
 
 
 def phase_streamed_sizes(label, name, route, any_hit, kernel, acc, cfg, o_s, d_s, bw, smi):
-    """A two-level kernel's (streamed_kernel of csrc/cluster_streamed.cuh,
-    on the hier or the streamed route) launch shape and instruction floor
-    at the phase's rays, and the same rays tiled LARGE_TILES times in one
-    launch: every tile must equal the plain version's result, bit for bit."""
+    """A traversal kernel's (streamed_kernel of csrc/cluster_streamed.cuh,
+    on any route) launch shape and instruction floor at the phase's rays,
+    and the same rays tiled LARGE_TILES times in one launch: every tile
+    must equal the plain version's result, bit for bit."""
     n, rpt, k = o_s.shape[0], acc._rpt(cfg), acc.cluster_size
     if n % rpt:
         raise SystemExit(f"[{label}] FAIL: {n} rays do not tile by whole packets of {rpt}")
@@ -680,6 +681,8 @@ def main() -> int:
 
     scene = headline_scene("cuda")
     numbers["k1"] = phase_kernel("3 kernel 1", "k1", scene, cfg, Camera(), smi, plain_reps=5)
+    phase_kernel("3b kernel 1 config 1", "k1", config1_scene("cuda"), RenderConfig(**CONFIG1), Camera(), smi,
+                 plain_reps=5, n_cam=CONFIG1_CAMERA_RAYS)
     launches["k1"] = phase_render("4 render headline", scene, cfg, Camera(), 1, smi, args.image)["counts"]["k1"]
     phase_parity("5 parity headline", headline_scene, Camera(), "flat")
 

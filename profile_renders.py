@@ -46,22 +46,22 @@ from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.render.camera import Camera, camera_arrays
 from tpu_pathtracer_torch.render.integrator import render_frame_stats
 
-# The device functions of the seven kernels (csrc/): six traversals (the
-# two-level ones, hier and streamed, with their packet-weight pre-pass) and
-# the fused schedule step.
-KERNELS = ("cluster_intersect_kernel", "cluster_occluded_kernel", "streamed_kernel", "packet_weight_kernel",
-           "fused_step_kernel")
+# The device functions of the seven kernels (csrc/): the six traversals
+# (one body, with its packet-weight pre-pass) and the fused schedule step.
+KERNELS = ("streamed_kernel", "packet_weight_kernel", "fused_step_kernel")
 
 
 def kernel_label(key):
     """The port's kernel that the device function `key` belongs to, or
     None.  streamed_kernel<kAnyHit, kVisit, ...> is told apart by its first
-    two template arguments: any hit or closest, per-packet visit order
-    (the hier route) or ascending (the streamed route)."""
+    two template arguments: any hit or closest, and the visit order: flat
+    (kernels 1 and 4), per packet (the hier route) or ascending (the
+    streamed route)."""
     name = next((k for k in KERNELS if k in key), None)
     if name == "streamed_kernel":
         any_hit, visit = (a.strip() for a in key.split("streamed_kernel<", 1)[-1].split(",")[:2])
-        route = "hier" if visit.endswith("1") or visit.endswith("kPerPacket") else "streamed"
+        route = ("flat" if visit.endswith("2") or visit.endswith("kFlat")
+                 else "hier" if visit.endswith("1") or visit.endswith("kPerPacket") else "streamed")
         return f"streamed_kernel ({route}, {'any' if any_hit in ('true', '(bool)1') else 'closest'} hit)"
     return name
 

@@ -258,6 +258,86 @@ def test_hier_launch_shape(cuda):
             streamed["blocks"], streamed["threads"], streamed["threads_per_ray"])
 
 
+# name: (cluster size, rays per packet, rays, parked rays)
+FLAT_SHAPES = {
+    "ragged_last_packet": (128, 1024, 5 * 1024 + 77, 0),
+    "one_ray": (128, 1024, 1, 0),
+    "parked_packets": (128, 1024, 4096, 2048),          # two packets of parked rays only
+    "config1_pool": (128, 1024, 16_384, 100),           # 16 packets: 8 blocks of 1,024 threads
+    "one_packet_an_sm": (128, 1024, 131_072, 1000),     # the rules part by kind
+    "rule_2x2": (128, 1024, 600_000, 1000),             # 586 packets: 2 blocks of 1,024 threads
+    "rule_2x1": (128, 256, 500_000, 1000),              # 1,954 packets
+    "clusters_of_8": (8, 1024, 20_000, 100),            # 217 clusters: eight batches of votes
+    "clusters_of_768": (768, 1024, 20_000, 100),        # 48 KB of rows a cluster, two buffers
+    "more_packets_than_resident": (128, 32, 300_000, 1000),
+    "packets_of_96": (128, 96, 20_000, 100),            # three warps: one block a packet
+    "packets_of_512": (128, 512, 70_000, 1000),
+    "packets_of_992": (128, 992, 20_000, 100),          # one thread a ray
+}
+
+
+@pytest.mark.parametrize("tri_test", ["bw", "mt"])
+@pytest.mark.parametrize("shape", list(FLAT_SHAPES))
+@pytest.mark.parametrize("kind", ["closest", "any"])
+def test_flat_kernels_take_every_shape(cuda, kind, shape, tri_test):
+    """Kernels 1 and 4 at the edges of what they take: a ragged last
+    packet, one ray, packets of parked rays only, launches under each row
+    of kShapeRules' flat rules (BASELINE config 1's pool of 16 packets
+    among them), clusters of 8 (more than one batch of 31 visit positions),
+    128 and 768 rows, more packets than the card holds at once, and packets
+    of 32 to 992 rays, each packet in its own first ray's octant order: all
+    bit-equal to the plain version."""
+    cluster_size, rays_per_tile, n, parked = FLAT_SHAPES[shape]
+    acc = build_accel(procedural.three_spheres_scene(12, 24, device=cuda), cluster_size=cluster_size).accel
+    o, d = (x.to(cuda) for x in rays(3, n, parked=parked))
+    tris = acc.tris16bw if tri_test == "bw" else acc.tris16
+    args = (tris, acc.aabb8, acc.order, o, d, 0.01, 1e16, rays_per_tile, tri_test)
+    if kind == "closest":
+        got, want = ic.intersect_clusters(*args), ic.intersect_clusters_plain(*args)
+    else:
+        got, want = (ic.occluded_clusters(*args),), (ic.occluded_clusters_plain(*args),)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    hit = (got[1] != ic.MISS_PRIM) if kind == "closest" else got[0]
+    if n > 1000:
+        assert 0.1 * n < int(hit.sum()) < n - parked
+    if parked:
+        assert not hit[-parked:].any()
+
+
+@pytest.mark.parametrize("kind", ["closest", "any"])
+def test_flat_kernels_take_no_rays(cuda, kind):
+    """n = 0: empty outputs, nothing launched and nothing counted."""
+    acc = build_accel(procedural.three_spheres_scene(12, 24, device=cuda)).accel
+    o = torch.zeros((0, 3), device=cuda)
+    args = (acc.tris16bw, acc.aabb8, acc.order, o, o.clone(), 0.01, 1e16, 1024, "bw")
+    wrapper = ic.intersect_clusters if kind == "closest" else ic.occluded_clusters
+    before = wrapper.launches
+    if kind == "closest":
+        t, prim, uv = wrapper(*args)
+        assert t.shape == (0,) and prim.shape == (0,) and uv.shape == (0, 2)
+    else:
+        assert wrapper(*args).shape == (0,)
+    assert wrapper.launches == before
+
+
+def test_flat_launch_shape(cuda):
+    """The launch-shape query on the flat route: 131,072 rays in packets of
+    1,024 over clusters of 128 rows are 128 packets, each a cluster of
+    blocks that together hold 1,024 rays with whole warps; 16,384 rays (16
+    packets) are spread at least as wide."""
+    for any_hit in (False, True):
+        sh = ic.streamed_launch_shape(131_072, 1024, 128, "bw", any_hit, route="flat")
+        assert sh["packets"] == 128
+        assert sh["blocks"] * sh["threads"] == 1024 * sh["threads_per_ray"]
+        assert sh["threads"] % 32 == 0 and sh["threads"] <= 1024 and 1 <= sh["blocks"] <= 8
+        assert 0 < sh["registers"] <= 255 and sh["resident_blocks"] >= 1 and sh["resident_clusters"] >= 1
+        few = ic.streamed_launch_shape(16_384, 1024, 128, "bw", any_hit, route="flat")
+        assert few["packets"] == 16
+        assert few["blocks"] * few["threads_per_ray"] >= sh["blocks"] * sh["threads_per_ray"]
+
+
 def test_render_matches_cpu(cuda):
     """A 64x48 render through the kernel against the plain versions on
     the CPU: segment counts within 0.5%, SSIM above 0.995."""

@@ -10,7 +10,13 @@ against the plain version's own pieces with numpy-seeded inputs:
     gives a mask that contains every box the exact votes then pass, so a
     walk restricted to the masks visits what the plain version visits: in
     the streamed route's ascending order (kernels 3 and 6) and in the hier
-    route's per-packet front-to-back order (kernels 2 and 5).
+    route's per-packet front-to-back order (kernels 2 and 5);
+(c) the flat route's walk (kernels 1 and 4, kFlat): a batch of 31 visit
+    positions voted on at once, the lowest passing position tested, its
+    next one prefetched, the rest voted on again, a ray's word of the vote
+    taken again only after its own limit moved, and the any-hit packet
+    leaving once every ray is occluded, gives the flat plain versions'
+    results and counts.
 """
 
 import numpy as np
@@ -316,3 +322,121 @@ def test_masks_at_entry_per_packet_batches(kind):
     for a, b in zip(got if closest else (got,), want if closest else (want,)):
         assert torch.equal(a, b)
     assert got_stats == want_stats and want_stats["visits"] > 0
+
+
+def flat_walk(pk, aabb8, order, closest):
+    """The kFlat walk of streamed_kernel, one packet at a time, in the plain
+    version's pieces: the clusters at visit positions order[octant of the
+    packet's first ray] in batches of 31; each ray's word of the vote (the
+    batch's clusters it overlaps within its limit) taken at the batch's
+    entry and again, over its old word, only after its best t fell (any
+    hit: never, and an occluded ray's word is not counted); the vote is the
+    OR of the words over the candidates still left; its lowest position is
+    tested at once and leaves the candidates, and the next one is the
+    prefetch guess; an any-hit packet stops once every ray is occluded (the
+    alive bit).  Returns (prefetch guesses, guesses the next vote
+    confirmed, clusters tested past the first batch)."""
+    num = order.shape[1]
+    guesses = confirmed = late = 0
+    for p in range(pk.all.shape[0]):
+        idx = pk.all[p : p + 1]
+        visit = order[pk.octant[p]]
+        alive = True
+        for s0 in range(0, num, SUPER_BATCH):
+            if not alive:
+                break
+            ids = visit[s0 : min(s0 + SUPER_BATCH, num)]
+            rep = idx.expand(ids.numel())
+
+            def words(limit):  # [R, batch]: does ray r overlap cluster ids[b] within its limit?
+                return pk.slab(aabb8[ids], rep, limit).T
+
+            limit = pk.best_t[p][None] if closest else pk.t_max
+            mine = words(limit)
+            voted_t = pk.best_t[p].clone() if closest else None
+            cand = torch.ones(ids.numel(), dtype=torch.bool)
+            guess = None
+            while True:
+                if closest:
+                    moved = pk.best_t[p] != voted_t
+                    if moved.any():
+                        mine[moved] = (words(pk.best_t[p][None]) & mine & cand)[moved]
+                        voted_t = pk.best_t[p].clone()
+                    cand = (mine & cand).any(dim=0)
+                else:
+                    live = ~pk.occ[p]
+                    alive = bool(live.any())
+                    cand = (mine & cand & live[:, None]).any(dim=0)
+                if not alive or not cand.any():
+                    break
+                b = int(cand.nonzero()[0])
+                cand[b] = False
+                c = ids[b : b + 1]
+                if guess is not None:
+                    guesses += 1
+                    confirmed += int(c) == guess
+                rest = cand.nonzero()
+                guess = int(ids[int(rest[0])]) if rest.numel() else None
+                late += s0 > 0
+                if closest:
+                    pk.visit(idx, c, c)
+                else:
+                    pk.visit(idx, c)
+    return guesses, confirmed, late
+
+
+def check_flat_walk(tris, aabb8, order, o, d, rays_per_tile, tri_test, closest, parked):
+    """flat_walk against the flat plain version: results bit for bit and the
+    same visits and tests; returns (flat_walk's counts, the rays that hit
+    or are occluded)."""
+    plain = ic.intersect_clusters_plain if closest else ic.occluded_clusters_plain
+    want_stats, got_stats = {}, {}
+    want = plain(tris, aabb8, order, o, d, T_MIN, T_MAX, rays_per_tile, tri_test, stats=want_stats)
+    pk = (ic._Packets if closest else ic._Occlusion)(tris, o, d, T_MIN, T_MAX, rays_per_tile, tri_test, got_stats)
+    counts = flat_walk(pk, aabb8, order, closest)
+    got = pk.result()
+    for a, b in zip(got if closest else (got,), want if closest else (want,)):
+        assert torch.equal(a, b)
+    assert got_stats == want_stats and want_stats["visits"] > 0
+    hits = (want[1] != ic.MISS_PRIM) if closest else want
+    assert not hits[o.shape[0] - parked :].any()
+    return counts, hits
+
+
+@pytest.mark.parametrize("rays_per_tile", [32, 1024])
+@pytest.mark.parametrize("tri_test", ["bw", "mt"])
+@pytest.mark.parametrize("kind", ["closest", "any"])
+def test_flat_walk_is_the_flat_plain_version(accel, kind, tri_test, rays_per_tile):
+    """(c) on the 97 clusters of 8 (four batches of votes), triangles
+    repeated inside each cluster so that rays meet exact ties in t, packets
+    whose first rays fall in every octant, and parked rays: the kFlat walk
+    gives intersect_clusters_plain's or occluded_clusters_plain's results
+    and counts, and its prefetch guesses are mostly confirmed."""
+    closest = kind == "closest"
+    tris = rows_with_ties(accel, tri_test, 8)
+    o, d = spread_rays(9, 3000, parked=200)
+    assert accel.order.shape == (8, 97)
+    (guesses, confirmed, late), hits = check_flat_walk(tris, accel.aabb8, accel.order, o, d, rays_per_tile,
+                                                       tri_test, closest, 200)
+    assert 300 < int(hits.sum()) < 2800
+    assert 0 < confirmed <= guesses and late > 0
+
+
+@pytest.mark.parametrize("kind", ["closest", "any"])
+def test_flat_walk_crosses_a_batch(kind):
+    """(c) on BASELINE config 1's scene, single_sphere_scene(32, 64): 33
+    clusters of 128, so a packet that passes the first batch's 31 visit
+    positions goes on to a second batch of two; packets of 1,024."""
+    acc = build_accel(procedural.single_sphere_scene(32, 64, device="cpu")).accel
+    assert acc.num_clusters == 33
+    rs = np.random.RandomState(10)
+    o = (rs.randn(6000, 3) * 3.0).astype(np.float32)
+    d = -o + rs.randn(6000, 3).astype(np.float32) * 0.3
+    d = d / np.linalg.norm(d, axis=1, keepdims=True)
+    o[-500:] = [3.0e37, 0.0, 0.0]
+    d[-500:] = [1.0, 0.0, 0.0]
+    o, d = torch.as_tensor(o), torch.as_tensor(d, dtype=torch.float32)
+    (_, _, late), hits = check_flat_walk(acc.tris16bw, acc.aabb8, acc.order, o, d, 1024, "bw", kind == "closest",
+                                         500)
+    assert 1000 < int(hits.sum()) < 5500
+    assert late > 0  # some packet tested a cluster of the second batch

@@ -3,8 +3,8 @@
 // (cluster_occluded.cu, cluster_occluded_hier.cu,
 // cluster_occluded_streamed.cu): the counterparts of _packet_rays,
 // _octant_of, _slab_hits, _bw_tests, _mt_tests and _mt_best in
-// tpu_pathtracer/ops/intersect_pallas.py.  The one body of the two-level
-// routes (hier and streamed) is in cluster_streamed.cuh.
+// tpu_pathtracer/ops/intersect_pallas.py.  The one body of every route
+// (flat, hier and streamed) is in cluster_streamed.cuh.
 //
 // Every kernel builds with -fmad=false and IEEE division, and computes in
 // the operation order of its plain PyTorch version
@@ -29,15 +29,6 @@
 // done keeps reaching every barrier.  Padding and parked rays are never
 // occluded, so a packet holding one never exits early; that changes no
 // flag, only the work.
-//
-// How a packet maps to threads differs.  The flat kernels give each ray
-// one thread and each packet one block: a vote is __syncthreads_or, the
-// all-occluded exit a __syncthreads_and after each cluster, and a ray's
-// loop over a staged cluster ends at its first valid triangle in any hit.
-// The two-level kernels, hier and streamed (cluster_streamed.cuh), spread a
-// packet over a thread block cluster with several threads per ray and vote
-// on many boxes at once; they share the ray, box and triangle arithmetic of
-// this file.
 //
 // Triangle rows ([C,K,16] f32, four float4 per triangle):
 //   Baldwin-Weber: n (0:3), d0 = n.v0 (3), p1 (4:7), c1 = -p1.v0 (7),
@@ -131,11 +122,6 @@ __device__ __forceinline__ void bw_test(const float4 r0, const float4 r1, const 
        rcp != 0.0f;
 }
 
-__device__ __forceinline__ void bw_test(const float4* tri, const Ray& r, float t_min, float t_max,
-                                        float& t, float& u, float& v, bool& ok) {
-  bw_test(tri[0], tri[1], tri[2], r, t_min, t_max, t, u, v, ok);
-}
-
 // The same for Moller-Trumbore rows r0 (v0.xyz, e1.x), r1 (e1.yz, e2.xy)
 // and r2 (e2.z).
 __device__ __forceinline__ void mt_test(const float4 r0, const float4 r1, const float4 r2,
@@ -162,53 +148,11 @@ __device__ __forceinline__ void mt_test(const float4 r0, const float4 r1, const 
        t < t_max;
 }
 
-__device__ __forceinline__ void mt_test(const float4* tri, const Ray& r, float t_min, float t_max,
-                                        float& t, float& u, float& v, bool& ok) {
-  mt_test(tri[0], tri[1], tri[2], r, t_min, t_max, t, u, v, ok);
-}
-
 struct Best {
   float t;
   int prim;
   float u, v;
 };
-
-// Cluster c's K triangles, staged in `rows`, against the ray: the closest
-// valid hit (lowest index on equal t) replaces `best` if strictly closer.
-template <int kTest>
-__device__ __forceinline__ void test_cluster(const float4* rows, int cluster_k, int c, const Ray& r,
-                                             float t_min, float t_max, Best& best) {
-  float t_blk = __int_as_float(0x7f800000);  // +inf
-  int k_blk = 0;
-  float u_blk = 0.0f, v_blk = 0.0f;
-  for (int k = 0; k < cluster_k; ++k) {
-    float t, u, v;
-    bool ok;
-    if (kTest == kMollerTrumbore) {
-      mt_test(rows + 4 * k, r, t_min, t_max, t, u, v, ok);
-    } else {
-      bw_test(rows + 4 * k, r, t_min, t_max, t, u, v, ok);
-    }
-    if (ok && t < t_blk) {  // strict: equal t keeps the lower id
-      t_blk = t;
-      k_blk = k;
-      u_blk = u;
-      v_blk = v;
-    }
-  }
-  if (t_blk < best.t) {
-    best.t = t_blk;
-    best.prim = c * cluster_k + k_blk;
-    best.u = u_blk;
-    best.v = v_blk;
-  }
-}
-
-// The block copies one cluster's K rows (4K float4) into shared memory.
-__device__ __forceinline__ void stage_rows(float4* rows, const float4* tris, int row, int cluster_k) {
-  const float4* src = tris + static_cast<size_t>(row) * cluster_k * 4;
-  for (int j = threadIdx.x; j < cluster_k * 4; j += blockDim.x) rows[j] = src[j];
-}
 
 __device__ __forceinline__ void store_best(const Best& best, int i, int n, float* t_out,
                                            int* prim_out, float* uv_out) {
@@ -218,38 +162,6 @@ __device__ __forceinline__ void store_best(const Best& best, int i, int n, float
     uv_out[2 * i] = best.u;
     uv_out[2 * i + 1] = best.v;
   }
-}
-
-// ---------------------------------------------------------------------------
-// Any hit
-// ---------------------------------------------------------------------------
-
-// Does the ray meet any of the K triangles staged in `rows`?
-template <int kTest>
-__device__ __forceinline__ bool any_hit_cluster(const float4* rows, int cluster_k, const Ray& r,
-                                                float t_min, float t_max) {
-  for (int k = 0; k < cluster_k; ++k) {
-    float t, u, v;
-    bool ok;
-    if (kTest == kMollerTrumbore) {
-      mt_test(rows + 4 * k, r, t_min, t_max, t, u, v, ok);
-    } else {
-      bw_test(rows + 4 * k, r, t_min, t_max, t, u, v, ok);
-    }
-    if (ok) return true;
-  }
-  return false;
-}
-
-// The block stages cluster row `row` and every ray not yet occluded tests
-// its triangles.  Every thread of the block must call it.
-template <int kTest>
-__device__ __forceinline__ void occlude_cluster(float4* rows, const float4* tris, int row, int cluster_k,
-                                                const Ray& r, float t_min, float t_max, bool& occluded) {
-  stage_rows(rows, tris, row, cluster_k);
-  __syncthreads();
-  if (!occluded) occluded = any_hit_cluster<kTest>(rows, cluster_k, r, t_min, t_max);
-  __syncthreads();  // the next cluster overwrites the rows
 }
 
 }  // namespace cluster_traversal

@@ -1,93 +1,68 @@
-// Closest-hit packet traversal over Morton triangle clusters, for Hopper.
+// Flat closest-hit packet traversal over Morton triangle clusters, for
+// Hopper.
 //
 // Replaces the TPU kernel `_cluster_kernel` in
 // tpu_pathtracer/ops/intersect_pallas.py (entry intersect_clusters_pallas),
-// with its helpers _packet_rays, _slab_hits, _bw_tests, _mt_tests and
-// _mt_best.  Its plain PyTorch version is intersect_clusters_plain in
-// tpu_pathtracer_torch/ops/intersect_cluster.py; built with -fmad=false
-// and IEEE division, the two give the same bits.  The slab test, the two
-// triangle tests and the winner update are in cluster_common.cuh.
+// the route of scenes with fewer than cfg.hier_min_clusters clusters.  Its
+// plain PyTorch version is intersect_clusters_plain in
+// tpu_pathtracer_torch/ops/intersect_cluster.py; built with -fmad=false and
+// IEEE division, the two give the same bits.  The body is
+// streamed_kernel<false, kFlat, ...> of cluster_streamed.cuh, the body of
+// every traversal kernel, in the flat visit order.
 //
-// What it computes.  One thread per ray; one block is one packet of
-// `blockDim.x` rays.  The packet's direction octant comes from its first
-// ray, and the packet visits the clusters in that octant's front-to-back
-// order.  Per cluster, the packet gate of cluster_common.cuh: a block vote
-// skips a cluster no ray overlaps, and otherwise the cluster's K rows are
-// staged once into shared memory and every ray tests all K triangles,
-// Baldwin-Weber or Moller-Trumbore as the launch asks.
+// What it computes.  Packets of 1,024 rays (a 131,072-ray batch is 128
+// packets, BASELINE config 1's pool of 16,384 lanes 16).  A packet takes
+// its octant from its first ray and visits the clusters in that octant's
+// front-to-back order; a cluster some ray of the packet overlaps within its
+// best t has its K rows staged into shared memory, where every ray of the
+// packet tests all K triangles.  Within a cluster the smallest t wins and
+// equal t the lowest triangle id; across clusters a strictly smaller t, in
+// visit order.
 //
-// What bounds it.  The triangle tests: about 30 float operations per
-// ray-triangle pair, issued from shared memory that every thread of the
-// block reads at the same address (a broadcast, no bank conflicts).  With
-// 1024-ray packets a 131,072-ray batch is 128 blocks, at most one per SM,
-// so the SMs run 32 of their 64 warps, and a packet whose rays diverge
-// still pays for every cluster any of its rays overlaps.  This design keeps
-// the per-cluster skip of the TPU kernel and stages each visited cluster
-// once per packet; the rows are read from device memory once per packet
-// and visit, 8 KB each, which the 50 MB L2 serves.  Warp-sized packets,
-// persistent blocks and wider staging are later work.
+// What bounds it.  Operations and the shape of the work.  On the headline's
+// 25 clusters a packet tests 11.26 clusters on average and the heaviest
+// 24, each test 77 instructions as the arithmetic must be written; one
+// block a packet put the heaviest packet's chain of votes and tests on one
+// SM, and at config 1's 16 packets left 116 of 132 SMs idle.  The rows
+// (25 x 8 KB) stay in the L2.  The design (cluster_streamed.cuh) spreads a
+// packet over a thread block cluster of up to 8 SMs with several threads a
+// ray, finds the next cluster to test with one vote over a batch of 31
+// visit positions, prefetches the batch's next candidate by cp.async while
+// the current cluster is tested, and takes the packets heaviest first.
+// The tensor cores do not apply: a wgmma or TF32 product would round
+// otherwise than the plain version's float32 operations; what the design
+// takes from Hopper is thread block clusters, distributed shared memory and
+// cp.async.
 
-#include "cluster_common.cuh"
+#include "cluster_streamed.cuh"
 
-namespace {
-
-using namespace cluster_traversal;
-
-template <int kTest>
-__global__ void __launch_bounds__(1024) cluster_intersect_kernel(
-    const float4* __restrict__ tris,     // [C,K,4] float4 = [C,K,16] f32
-    const float* __restrict__ aabb,      // [C,8] f32
-    const int* __restrict__ order,       // [8,C] i32
-    const float* __restrict__ origins,   // [N,3] f32
-    const float* __restrict__ dirs,      // [N,3] f32
-    int n, int num_clusters, int cluster_k, float t_min, float t_max,
-    float* __restrict__ t_out,           // [N]
-    int* __restrict__ prim_out,          // [N]
-    float* __restrict__ uv_out) {        // [N,2]
-  extern __shared__ float4 rows[];       // [K,4] float4: one cluster
-  __shared__ int octant;
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const Ray r = load_ray(origins, dirs, i, n);
-  if (threadIdx.x == 0) octant = octant_of(r);
-  __syncthreads();
-  const int* visit = order + octant * num_clusters;
-  Best best = {t_max, kMissPrim, 0.0f, 0.0f};
-
-  for (int pos = 0; pos < num_clusters; ++pos) {
-    const int c = visit[pos];
-    if (!__syncthreads_or(slab_hits(aabb + 8 * c, r, t_min, best.t))) continue;
-    stage_rows(rows, tris, c, cluster_k);
-    __syncthreads();
-    test_cluster<kTest>(rows, cluster_k, c, r, t_min, t_max, best);
-    __syncthreads();  // the next visited cluster overwrites the rows
-  }
-  store_best(best, i, n, t_out, prim_out, uv_out);
+// tri_test 0 = Baldwin-Weber rows, 1 = Moller-Trumbore rows.  `visit` is
+// each octant's visit order ([8,C]); `order` null or the packet each
+// thread block cluster takes.  Returns the launch's error (0 = launched).
+extern "C" int cluster_intersect_launch(
+    const float* tris, const float* aabb, const int* visit, const float* origins,
+    const float* dirs, const int* order, int n, int num_clusters, int cluster_k,
+    float t_min, float t_max, int rays_per_packet, int tri_test, float* t_out,
+    int* prim_out, float* uv_out, void* stream) {
+  return cluster_traversal::launch_streamed<false, cluster_traversal::kFlat>(
+      tris, aabb, aabb, visit, origins, dirs, order, n, num_clusters, 1,
+      num_clusters, cluster_k, t_min, t_max, rays_per_packet, tri_test, t_out,
+      prim_out, uv_out, nullptr, stream);
 }
 
-}  // namespace
+// Each packet's work estimate into weights[packets] (packet_weight_kernel).
+extern "C" int cluster_intersect_weights(
+    const float* aabb, const float* origins, const float* dirs, int n,
+    int num_clusters, float t_min, float t_max, int rays_per_packet,
+    int* weights, void* stream) {
+  return cluster_traversal::launch_packet_weights(
+      aabb, origins, dirs, n, num_clusters, t_min, t_max, rays_per_packet,
+      weights, stream);
+}
 
-// Launches one block of `rays_per_packet` threads per packet on `stream`;
-// tri_test 0 = Baldwin-Weber rows, 1 = Moller-Trumbore rows.  Returns
-// cudaGetLastError() after the launch (0 = launched).
-extern "C" int cluster_intersect_launch(
-    const float* tris, const float* aabb, const int* order,
-    const float* origins, const float* dirs, int n, int num_clusters,
-    int cluster_k, float t_min, float t_max, int rays_per_packet, int tri_test,
-    float* t_out, int* prim_out, float* uv_out, void* stream) {
-  if (n <= 0) return 0;
-  const int packets = (n + rays_per_packet - 1) / rays_per_packet;
-  const size_t smem = static_cast<size_t>(cluster_k) * 16 * sizeof(float);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float4* rows = reinterpret_cast<const float4*>(tris);
-  if (tri_test == cluster_traversal::kMollerTrumbore) {
-    cluster_intersect_kernel<cluster_traversal::kMollerTrumbore><<<packets, rays_per_packet, smem, st>>>(
-        rows, aabb, order, origins, dirs, n, num_clusters, cluster_k, t_min, t_max,
-        t_out, prim_out, uv_out);
-  } else {
-    cluster_intersect_kernel<cluster_traversal::kBaldwinWeber><<<packets, rays_per_packet, smem, st>>>(
-        rows, aabb, order, origins, dirs, n, num_clusters, cluster_k, t_min, t_max,
-        t_out, prim_out, uv_out);
-  }
-  return static_cast<int>(cudaGetLastError());
+// The launch shape n rays would take, into out[6] (describe_streamed).
+extern "C" int cluster_intersect_shape(int n, int rays_per_packet, int cluster_k,
+                                       int tri_test, int* out) {
+  return cluster_traversal::describe_streamed<false, cluster_traversal::kFlat>(
+      n, rays_per_packet, cluster_k, tri_test, out);
 }

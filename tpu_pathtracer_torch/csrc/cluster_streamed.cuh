@@ -1,23 +1,29 @@
-// The packet traversal of the two-level routes for Hopper, closest hit
-// (cluster_hier.cu, cluster_streamed.cu) and any hit
-// (cluster_occluded_hier.cu, cluster_occluded_streamed.cu): one body,
+// The packet traversal of every route for Hopper, closest hit
+// (cluster_intersect.cu, cluster_hier.cu, cluster_streamed.cu) and any hit
+// (cluster_occluded.cu, cluster_occluded_hier.cu,
+// cluster_occluded_streamed.cu): one body,
 // streamed_kernel<kAnyHit, kVisit, kTest, T>.
 //
 // What the kernel must compute is fixed by its plain PyTorch versions
-// (intersect_clusters_hier_plain, occluded_clusters_hier_plain,
-// intersect_clusters_streamed_plain, occluded_clusters_streamed_plain in
-// tpu_pathtracer_torch/ops/intersect_cluster.py), bit for bit: a packet of
-// rays_per_packet rays walks the supers in a visit order and each passing
-// super's children in index order; a box passes when some ray of the packet
-// overlaps it within its limit of that moment (closest hit: its best t; any
-// hit: t_max, rays not yet occluded only); every ray of the packet tests
-// every triangle of a child that passes.  Two visit orders:
+// (intersect_clusters_plain, intersect_clusters_hier_plain,
+// intersect_clusters_streamed_plain and their occluded_clusters_*
+// counterparts in tpu_pathtracer_torch/ops/intersect_cluster.py), bit for
+// bit: a packet of rays_per_packet rays walks the supers in a visit order
+// and each passing super's children in index order; a box passes when some
+// ray of the packet overlaps it within its limit of that moment (closest
+// hit: its best t; any hit: t_max, rays not yet occluded only); every ray
+// of the packet tests every triangle of a child that passes.  Three visit
+// orders:
 //   * kAscending (the streamed route, kernels 3 and 6): supers in ascending
 //     id, children at or past num_clusters never;
 //   * kPerPacket (the two-level route, kernels 2 and 5): the packet takes
 //     the octant of its first ray and walks the supers in that octant's
 //     front-to-back order_super; every child of a passing super is voted
-//     on, its rows staged from min(c, num_clusters - 1) as on the TPU.
+//     on, its rows staged from min(c, num_clusters - 1) as on the TPU;
+//   * kFlat (the flat route, kernels 1 and 4): the walk of kPerPacket one
+//     level down.  The "supers" are the clusters themselves, in the
+//     octant's front-to-back order ([8,C], every id below C), and a
+//     passing one is tested at once: there are no children.
 //
 // What bounds it on this card.  The work is very uneven: on a 200k-triangle
 // scene at 131,072 rays half of the 256 packets test 2 clusters or fewer
@@ -50,13 +56,21 @@
 //     A packet crosses one barrier per child tested plus about two per
 //     passing super, where the one-block bodies before crossed one per
 //     super, one per child of a passing super and two per child tested.
+//     In kFlat order the batch vote is the only one: a packet crosses one
+//     barrier per cluster tested plus one per batch, where the one-block
+//     flat bodies crossed one per cluster and two more per cluster tested.
 //   * The child rows (cluster_k x 64 B, one contiguous run) go to shared
 //     memory by cp.async into one of two buffers.  Before a child is tested
 //     the mask's next candidate is prefetched into the other buffer; when
 //     the next vote confirms it, its rows are there, and otherwise the right
-//     child is staged then.
+//     child is staged then.  In kFlat order the candidate is the batch
+//     mask's next cluster.
 //   * Boxes are read through the read-only cache as two float4; every
 //     thread of a warp reads the same box.
+// The arithmetic leaves the tensor cores out: a wgmma or TF32 product would
+// round otherwise than the plain version's float32 operations.  What the
+// design takes from Hopper is thread block clusters, distributed shared
+// memory and cp.async.
 // Any hit does not repack unoccluded rays: on the shadow rays of the main
 // path nine tenths of the ray-cluster pairs of the packets that set the
 // time are unoccluded, so there is little to pack.  Its all-occluded exit is
@@ -80,35 +94,46 @@ namespace cg = cooperative_groups;
 constexpr int kSuperBatch = 31;
 constexpr unsigned int kAliveBit = 0x80000000u;
 // The order in which a packet walks the supers (see the top of this file).
-enum VisitOrder { kAscending, kPerPacket };
+enum VisitOrder { kAscending, kPerPacket, kFlat };
 // The shape of a packet by visit order and by how many packets a launch has
 // for each SM: most blocks a packet is spread over and most threads a ray
 // gets.  Few packets: as wide as can be, to spread and shorten the heavy
 // packets' chains.  Many packets: the card is full anyway, and a narrow
 // packet spends less on votes and merges per triangle test.  Measured on an
-// H100 80GB HBM3 at 700 W with packets of 512 by sweep_streamed.py (PERF.md):
-// ms of the closest-hit and the any-hit kernel at the row's shape, and in
-// brackets at the next best; ascending on the 200k-triangle scene (kernels 3
-// and 6), per packet on BASELINE config 4 (kernels 2 and 5).  The per-packet
-// walk ends sooner (front to back, a closest-hit ray's limit falls early),
-// so at 31 packets an SM one thread a ray wins there.
+// H100 80GB HBM3 at 700 W by sweep_streamed.py (PERF.md): ms of the
+// closest-hit and the any-hit kernel at the row's shape, and in brackets at
+// the next best; ascending on the 200k-triangle scene (kernels 3 and 6) and
+// per packet on BASELINE config 4 (kernels 2 and 5), packets of 512; flat
+// on the headline scene and config 1 (kernels 1 and 4), packets of 1,024.
+// The per-packet walk ends sooner (front to back, a closest-hit ray's limit
+// falls early), so at 31 packets an SM one thread a ray wins there.  At one
+// flat packet an SM the two kinds part: closest hit gains from 1,024-thread
+// blocks on 2 SMs, any hit, whose packets leave early, from 8 SMs.
+enum RuleKind { kBothKinds, kClosestOnly, kAnyOnly };  // which kernels a rule holds for
 struct ShapeRule {
   VisitOrder visit;
-  int packets_per_sm;  // applies below this many
+  RuleKind kind;
+  float packets_per_sm;  // applies below this many
   int blocks;
   int threads_per_ray;
 };
 constexpr ShapeRule kShapeRules[] = {
-    {kAscending, 3, 8, 8},        // 256 packets: 4.43, 2.73 (8 x 4: 4.40, 4.03)
-    {kAscending, 6, 8, 4},        // 512
-    {kAscending, 1 << 30, 2, 2},  // 4,096: 50.95, 28.63 (1 x 1: 48.83, 28.35; 8 x 4: 57.83, 32.46)
-    {kPerPacket, 3, 8, 8},        // 256 packets: 3.25, 1.96 (8 x 4: 3.27, 2.73)
-    {kPerPacket, 6, 8, 4},        // 512: 5.45, 3.38 (4 x 8: 5.51, 3.41)
-    {kPerPacket, 24, 2, 2},       // 2,048: 18.85, 10.70 (2 x 1: 17.88, 12.03)
-    {kPerPacket, 1 << 30, 2, 1},  // 4,096: 34.83, 20.40 (2 x 2: 37.44, 20.74; 1 x 1: 34.58, 20.66)
+    {kAscending, kBothKinds, 3, 8, 8},        // 256 packets: 4.43, 2.73 (8 x 4: 4.40, 4.03)
+    {kAscending, kBothKinds, 6, 8, 4},        // 512
+    {kAscending, kBothKinds, 1 << 30, 2, 2},  // 4,096: 50.95, 28.63 (1 x 1: 48.83, 28.35; 8 x 4: 57.83, 32.46)
+    {kPerPacket, kBothKinds, 3, 8, 8},        // 256 packets: 3.25, 1.96 (8 x 4: 3.27, 2.73)
+    {kPerPacket, kBothKinds, 6, 8, 4},        // 512: 5.45, 3.38 (4 x 8: 5.51, 3.41)
+    {kPerPacket, kBothKinds, 24, 2, 2},       // 2,048: 18.85, 10.70 (2 x 1: 17.88, 12.03)
+    {kPerPacket, kBothKinds, 1 << 30, 2, 1},  // 4,096: 34.83, 20.40 (2 x 2: 37.44, 20.74; 1 x 1: 34.58, 20.66)
+    {kFlat, kBothKinds, 0.5f, 8, 8},          // 16 packets: 0.2372, 0.1603 (8 x 4: 0.2762, 0.1881)
+    {kFlat, kClosestOnly, 2, 2, 2},           // 128: 0.5797 (4 x 2: 0.6044; 8 x 4: 0.6332)
+    {kFlat, kAnyOnly, 2, 8, 4},               // 128: 0.4582 (8 x 2: 0.4992; 2 x 2: 0.5640)
+    {kFlat, kBothKinds, 6, 2, 2},             // 338: 1.4700, 1.0643 (8 x 1: 1.5342; 1 x 1: 1.0507)
+    {kFlat, kBothKinds, 1 << 30, 2, 1},       // 2,048: 7.5627, 5.0642 (1 x 1: 7.5069, 5.2808)
 };
-// The threads a block aims for when a ray gets several.
-constexpr int kTargetThreads = 512;
+// A block's most threads (__launch_bounds__ of streamed_kernel): a ray's
+// threads halve until the block fits.
+constexpr int kMaxThreads = 1024;
 
 __device__ __forceinline__ unsigned int low_bits(int count) {
   return count >= 32 ? 0xFFFFFFFFu : ((1u << count) - 1u);
@@ -129,7 +154,7 @@ __device__ __forceinline__ bool box_hits(const float* boxes, int index, const Ra
 // order, else ids[pos].
 template <VisitOrder kVisit>
 __device__ __forceinline__ int box_at(const int* ids, int pos) {
-  return kVisit == kPerPacket ? __ldg(ids + pos) : pos;
+  return kVisit == kAscending ? pos : __ldg(ids + pos);
 }
 
 // The bits b of `boxes` whose box at position first + b the ray overlaps
@@ -284,9 +309,10 @@ __device__ __forceinline__ void occlude_cluster_split(const float4* rows, int cl
 // rays x T threads (a multiple of 32).  Dynamic shared memory: two row
 // buffers of cluster_k x 48 B.  Closest hit writes t_out, prim_out and
 // uv_out, any hit occ_out; the other pointers are unused.  order_super is
-// read in kPerPacket order only.
+// read in kPerPacket and kFlat order only, aabb_child and branch not in
+// kFlat order (there the supers are the clusters: num_supers = C).
 template <bool kAnyHit, VisitOrder kVisit, int kTest, int T>
-__global__ void __launch_bounds__(1024) streamed_kernel(
+__global__ void __launch_bounds__(kMaxThreads) streamed_kernel(
     const float4* __restrict__ tris,        // [C,K,4] float4
     const float* __restrict__ aabb_child,   // [S*branch,8]
     const float* __restrict__ aabb_super,   // [S,8]
@@ -314,11 +340,11 @@ __global__ void __launch_bounds__(1024) streamed_kernel(
   const unsigned int my_bits = Lanes<T>::kEveryT << sub;  // the boxes of a vote this thread tests
   // The supers by visit position: the octant of the packet's first ray
   // picks the row of order_super (every block of the packet reads that ray).
-  const int* visit = kVisit == kPerPacket
-                         ? order_super + octant_of(load_ray(origins, dirs, packet * rays_per_packet, n)) * num_supers
-                         : nullptr;
+  const int* visit = kVisit == kAscending
+                         ? nullptr
+                         : order_super + octant_of(load_ray(origins, dirs, packet * rays_per_packet, n)) * num_supers;
   // The rows of child c: clamped to the last cluster in per-packet order,
-  // where every child is voted on; ascending order never reaches c >= C.
+  // where every child is voted on; the other orders never reach c >= C.
   auto row_of = [&](int c) { return kVisit == kPerPacket ? min(c, num_clusters - 1) : c; };
 
   if (threadIdx.x < 3) slots[threadIdx.x] = 0u;
@@ -330,8 +356,30 @@ __global__ void __launch_bounds__(1024) streamed_kernel(
 
   Best best = {t_max, kMissPrim, 0.0f, 0.0f};
   bool occluded = false;
-  int cur = 0;  // the row buffer tested last
+  int cur = 0;      // the row buffer tested last
+  int guess = -1;   // the child whose rows are on their way into rows[cur ^ 1]
   bool alive = true;
+
+  // Child c against the packet's rays, its rows staged unless they are the
+  // guess already on their way; meanwhile the rows of `next` (none if -1)
+  // go into the other buffer.  Every thread has left rows[cur ^ 1]: the
+  // vote before was a barrier.
+  auto test = [&](int c, int next) {
+    float4* buf = rows + (cur ^ 1) * cluster_k * 3;
+    if (c != guess) {
+      stage_rows_async(buf, tris, row_of(c), cluster_k);
+      __pipeline_wait_prior(0);
+      __syncthreads();
+    }
+    cur ^= 1;
+    guess = next;
+    if (next >= 0) stage_rows_async(rows + (cur ^ 1) * cluster_k * 3, tris, row_of(next), cluster_k);
+    if (kAnyHit) {
+      occlude_cluster_split<kTest, T>(buf, cluster_k, sub, r, t_min, t_max, occluded);
+    } else {
+      test_cluster_split<kTest, T>(buf, cluster_k, c, sub, r, t_min, best);
+    }
+  };
 
   // A thread's word of a vote stays right while its ray's limit stays: a
   // closest-hit ray tests its boxes again only after its best t fell, an
@@ -360,6 +408,11 @@ __global__ void __launch_bounds__(1024) streamed_kernel(
       }
       const int s = box_at<kVisit>(visit, s0 + __ffs(supers) - 1);  // the next super that passes
       supers &= supers - 1u;
+      if (kVisit == kFlat) {  // s is the cluster to test; the batch's next candidate is prefetched
+        test(s, supers ? box_at<kVisit>(visit, s0 + __ffs(supers) - 1) : -1);
+        exact = false;
+        continue;
+      }
       exact = true;  // until a child is tested
 
       for (int j0 = 0; j0 < branch; j0 += 32) {
@@ -369,30 +422,15 @@ __global__ void __launch_bounds__(1024) streamed_kernel(
         if (count <= 0) break;
         unsigned int kids = low_bits(count);
         unsigned int mine = overlapped(aabb_child, nullptr, c0, kids & my_bits, r, t_min, kAnyHit ? t_max : best.t);
-        int guess = -1;  // the child whose rows are on their way into rows[cur ^ 1]
         while (kids) {
           kids = vote.any(kAnyHit && occluded ? 0u : mine);
           if (!kids) break;
           const int c = c0 + __ffs(kids) - 1;  // the next child that passes
           kids &= kids - 1u;
-          float4* buf = rows + (cur ^ 1) * cluster_k * 3;
-          if (c != guess) {
-            stage_rows_async(buf, tris, row_of(c), cluster_k);
-            __pipeline_wait_prior(0);
-            __syncthreads();
-          }
-          cur ^= 1;
-          // Every thread has left rows[cur ^ 1]: the vote was a barrier.
-          guess = kids ? c0 + __ffs(kids) - 1 : -1;
-          if (guess >= 0) stage_rows_async(rows + (cur ^ 1) * cluster_k * 3, tris, row_of(guess), cluster_k);
           mine &= kids;
-          if (kAnyHit) {
-            occlude_cluster_split<kTest, T>(buf, cluster_k, sub, r, t_min, t_max, occluded);
-          } else {
-            const float before = best.t;
-            test_cluster_split<kTest, T>(buf, cluster_k, c, sub, r, t_min, best);
-            if (best.t != before) mine = overlapped(aabb_child, nullptr, c0, mine, r, t_min, best.t);
-          }
+          const float before = best.t;
+          test(c, kids ? c0 + __ffs(kids) - 1 : -1);
+          if (!kAnyHit && best.t != before) mine = overlapped(aabb_child, nullptr, c0, mine, r, t_min, best.t);
           exact = false;
         }
       }
@@ -408,11 +446,12 @@ __global__ void __launch_bounds__(1024) streamed_kernel(
   }
 }
 
-// A packet's work estimate: the number of supers that some ray of the
-// packet overlaps within [t_min, t_max].  One block per packet, one thread
-// per ray.  The traversal takes the packets heaviest first (the wrapper sorts
-// these weights), so that the few packets that test hundreds of children
-// start at once and not behind a queue of light ones.
+// A packet's work estimate: the number of supers (in kFlat order the
+// clusters) that some ray of the packet overlaps within [t_min, t_max].  One
+// block per packet, one thread per ray.  The traversal takes the packets
+// heaviest first (the wrapper sorts these weights), so that the few packets
+// that test hundreds of children start at once and not behind a queue of
+// light ones.
 __global__ void __launch_bounds__(1024) packet_weight_kernel(
     const float* __restrict__ aabb_super,  // [S,8]
     const float* __restrict__ origins,     // [N,3]
@@ -476,12 +515,15 @@ int plan_streamed(int n, int rays_per_packet, int cluster_k, int tri_test, Strea
   if (err != cudaSuccess) return static_cast<int>(err);
   plan.packets = (n + rays_per_packet - 1) / rays_per_packet;
   const ShapeRule* rule = kShapeRules;
-  while (rule->visit != kVisit || plan.packets >= static_cast<long long>(rule->packets_per_sm) * sms) ++rule;
+  while (rule->visit != kVisit || rule->kind == (kAnyHit ? kClosestOnly : kAnyOnly) ||
+         plan.packets >= rule->packets_per_sm * sms) {
+    ++rule;
+  }
   const int warps = rays_per_packet / 32;
   plan.blocks = rule->blocks;
   while (warps % plan.blocks) plan.blocks /= 2;
   plan.threads_per_ray = rule->threads_per_ray;
-  while (plan.threads_per_ray > 1 && rays_per_packet / plan.blocks * plan.threads_per_ray > kTargetThreads) {
+  while (plan.threads_per_ray > 1 && rays_per_packet / plan.blocks * plan.threads_per_ray > kMaxThreads) {
     plan.threads_per_ray /= 2;
   }
   plan.threads = rays_per_packet / plan.blocks * plan.threads_per_ray;

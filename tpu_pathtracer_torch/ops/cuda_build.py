@@ -38,7 +38,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LAUNCHERS = {
     "cluster_intersect.cu": (
         "cluster_intersect_launch",
-        [_P] * 5 + [_I] * 3 + [_F] * 2 + [_I] * 2 + [_P] * 4,
+        [_P] * 6 + [_I] * 3 + [_F] * 2 + [_I] * 2 + [_P] * 4,
     ),
     "cluster_hier.cu": (
         "cluster_hier_launch",
@@ -50,7 +50,7 @@ LAUNCHERS = {
     ),
     "cluster_occluded.cu": (
         "cluster_occluded_launch",
-        [_P] * 5 + [_I] * 3 + [_F] * 2 + [_I] * 2 + [_P] * 2,
+        [_P] * 6 + [_I] * 3 + [_F] * 2 + [_I] * 2 + [_P] * 2,
     ),
     "cluster_occluded_hier.cu": (
         "cluster_occluded_hier_launch",
@@ -66,15 +66,16 @@ LAUNCHERS = {
     ),
 }
 # source: {another function of its library: the function's argument types}.
-# The two-level kernels (hier and streamed) have a packet-weight pre-pass
-# (boxes, rays, n, supers, t_min, t_max, rays per packet, weights out,
-# stream) and a launch-shape query (n, rays per packet, cluster_k, tri_test,
-# int out[6]).
+# The traversal kernels (flat, hier and streamed) have a packet-weight
+# pre-pass (boxes, rays, n, boxes' count, t_min, t_max, rays per packet,
+# weights out, stream) and a launch-shape query (n, rays per packet,
+# cluster_k, tri_test, int out[6]).
 _WEIGHTS = [_P] * 3 + [_I] * 2 + [_F] * 2 + [_I] + [_P] * 2
 _SHAPE = [_I] * 4 + [ctypes.POINTER(ctypes.c_int)]
 HELPERS = {
     f"{stem}.cu": {f"{stem}_weights": _WEIGHTS, f"{stem}_shape": _SHAPE}
-    for stem in ("cluster_hier", "cluster_streamed", "cluster_occluded_hier", "cluster_occluded_streamed")
+    for stem in ("cluster_intersect", "cluster_hier", "cluster_streamed",
+                 "cluster_occluded", "cluster_occluded_hier", "cluster_occluded_streamed")
 }
 
 

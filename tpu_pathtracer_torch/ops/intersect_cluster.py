@@ -30,6 +30,12 @@ MISS_PRIM = 0x7FFFFFFF
 _PAD_ORIGIN_X = 3.0e37
 _BIG_INV = 3.4e38
 _TRI_TEST_IDS = {"bw": 0, "mt": 1}
+# (route, any hit): the stem of the kernel's source in csrc/ and of its functions
+_STEMS = {
+    ("flat", False): "cluster_intersect", ("hier", False): "cluster_hier", ("streamed", False): "cluster_streamed",
+    ("flat", True): "cluster_occluded", ("hier", True): "cluster_occluded_hier",
+    ("streamed", True): "cluster_occluded_streamed",
+}
 
 
 # ---------------------------------------------------------------------------
@@ -461,7 +467,7 @@ def streamed_pads(aabbs, block_clusters: int = 96, branch: int = 16):
 
 def _check_launch(tris, origins, directions, rays_per_tile, tri_test, boxes):
     """Check what every kernel takes.  Boxes must be 16-byte aligned: the
-    streamed kernels read them as float4."""
+    kernels read them as float4."""
     dev = origins.device
     if not origins.is_cuda:
         raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
@@ -502,22 +508,8 @@ def intersect_clusters_cuda(tris, aabb8, order, origins, directions, t_min: floa
                             rays_per_tile: int, tri_test: str = "bw"):
     """Launch the flat kernel on CUDA tensors; same contract as the plain
     version."""
-    c_count, k, _ = tris.shape
-    _check_launch(tris, origins, directions, rays_per_tile, tri_test, {
-        "aabb8": (aabb8, torch.float32, (c_count, 8)),
-        "order": (order, torch.int32, (8, c_count)),
-    })
-    t, prim, uv = _hit_outputs(origins)
-    err = library("cluster_intersect.cu").cluster_intersect_launch(
-        tris.data_ptr(), aabb8.data_ptr(), order.data_ptr(),
-        origins.data_ptr(), directions.data_ptr(), origins.shape[0], c_count, k,
-        float(t_min), float(t_max), rays_per_tile, _TRI_TEST_IDS[tri_test],
-        t.data_ptr(), prim.data_ptr(), uv.data_ptr(), _stream(origins),
-    )
-    if err:
-        raise RuntimeError(f"cluster_intersect_kernel launch failed: CUDA error {err}")
-    intersect_clusters.launches += 1
-    return t, prim, uv
+    return _traversal_cuda(intersect_clusters, "flat", tris, (aabb8, order), origins, directions, t_min, t_max,
+                           rays_per_tile, 1, tri_test)
 
 
 def intersect_clusters_hier_cuda(tris, aabb_child, aabb_super, order_super, origins, directions,
@@ -525,19 +517,19 @@ def intersect_clusters_hier_cuda(tris, aabb_child, aabb_super, order_super, orig
                                  tri_test: str = "bw"):
     """Launch the two-level kernel on CUDA tensors; same contract as the
     plain version."""
-    return _two_level_cuda(intersect_clusters_hier, tris, aabb_child, aabb_super, order_super, origins,
+    return _traversal_cuda(intersect_clusters_hier, "hier", tris, (aabb_child, aabb_super, order_super), origins,
                            directions, t_min, t_max, rays_per_tile, branch, tri_test)
 
 
 def _heaviest_first(weights_launch, aabb_super, origins, directions, t_min, t_max, rays_per_tile):
-    """The order in which a two-level kernel takes its packets: heaviest
-    first by the pre-pass's estimate (the supers some ray of the packet
-    overlaps), so that the few packets that test hundreds of clusters start
-    at once and not behind a queue of light ones.  [packets] int32, or None
-    where the card holds every packet at once anyway (a packet takes at
-    most 8 blocks and an SM holds at least 2).  The order changes no
-    result: packets are independent, and the estimate counts the same
-    supers whatever order a packet visits them in."""
+    """The order in which a traversal kernel takes its packets: heaviest
+    first by the pre-pass's estimate (the supers, or on the flat route the
+    clusters, that some ray of the packet overlaps), so that the few packets
+    that test the most clusters start at once and not behind a queue of
+    light ones.  [packets] int32, or None where the card holds every packet
+    at once anyway (a packet takes at most 8 blocks and an SM holds at least
+    2).  The order changes no result: packets are independent, and the
+    estimate counts the same boxes whatever order a packet visits them in."""
     packets = -(-origins.shape[0] // rays_per_tile)
     if packets * 4 <= torch.cuda.get_device_properties(origins.device).multi_processor_count:
         return None
@@ -550,42 +542,47 @@ def _heaviest_first(weights_launch, aabb_super, origins, directions, t_min, t_ma
     return torch.argsort(weights, descending=True, stable=True).to(torch.int32)
 
 
-def _two_level_cuda(counter, tris, aabb_child, aabb_super, order_super, origins, directions,
-                    t_min, t_max, rays_per_tile, branch, tri_test):
+def _traversal_cuda(counter, route, tris, boxes, origins, directions, t_min, t_max, rays_per_tile, branch,
+                    tri_test):
     """Check, allocate and launch streamed_kernel (csrc/cluster_streamed.cuh)
-    of a two-level route, packets heaviest first: the hier route's where
-    `order_super` ([8,S]) gives each packet its visit order, the streamed
-    route's (ascending) where it is None.  Closest hit where `counter` is a
-    closest-hit wrapper, else any hit; `counter.launches` counts the
+    on `route`, packets heaviest first.  `boxes` are the route's box and
+    visit-order tensors in its launch's order: flat (aabb8 [C,8], order
+    [8,C]), hier (aabb_child, aabb_super, order_super [8,S]) or streamed
+    (aabb_child, aabb_super; ascending order).  Closest hit where `counter`
+    is a closest-hit wrapper, else any hit; `counter.launches` counts the
     launch.  Returns (t, prim, uv), or occluded."""
-    any_hit = counter in (occluded_clusters_hier, occluded_clusters_streamed)
-    route = "streamed" if order_super is None else "hier"
+    any_hit = counter in (occluded_clusters, occluded_clusters_hier, occluded_clusters_streamed)
     c_count, k, _ = tris.shape
-    s = aabb_super.shape[0]
-    boxes = {
-        "aabb_child": (aabb_child, torch.float32, (s * branch, 8)),
-        "aabb_super": (aabb_super, torch.float32, (s, 8)),
-    }
-    if order_super is not None:
-        boxes["order_super"] = (order_super, torch.int32, (8, s))
-    elif s * branch < c_count:
-        raise ValueError(f"{s} supers of {branch} do not cover {c_count} clusters")
-    _check_launch(tris, origins, directions, rays_per_tile, tri_test, boxes)
+    if route == "flat":
+        aabb_super = boxes[0]
+        checks = {"aabb8": (boxes[0], torch.float32, (c_count, 8)), "order": (boxes[1], torch.int32, (8, c_count))}
+        sizes = (c_count, k)
+    else:
+        aabb_super = boxes[1]
+        s = aabb_super.shape[0]
+        checks = {
+            "aabb_child": (boxes[0], torch.float32, (s * branch, 8)),
+            "aabb_super": (aabb_super, torch.float32, (s, 8)),
+        }
+        if route == "hier":
+            checks["order_super"] = (boxes[2], torch.int32, (8, s))
+        elif s * branch < c_count:
+            raise ValueError(f"{s} supers of {branch} do not cover {c_count} clusters")
+        sizes = (s, branch, c_count, k)
+    _check_launch(tris, origins, directions, rays_per_tile, tri_test, checks)
     if any_hit:
         out = (torch.empty(origins.shape[0], dtype=torch.bool, device=origins.device),)
     else:
         out = _hit_outputs(origins)
     if origins.shape[0] == 0:
         return out[0] if any_hit else out  # nothing to launch
-    stem = f"cluster_{'occluded_' if any_hit else ''}{route}"
+    stem = _STEMS[route, any_hit]
     lib = library(f"{stem}.cu")
     order = _heaviest_first(getattr(lib, f"{stem}_weights"), aabb_super, origins, directions, t_min, t_max,
                             rays_per_tile)
-    visit = () if order_super is None else (order_super.data_ptr(),)
     err = getattr(lib, f"{stem}_launch")(
-        tris.data_ptr(), aabb_child.data_ptr(), aabb_super.data_ptr(), *visit,
-        origins.data_ptr(), directions.data_ptr(), order.data_ptr() if order is not None else None,
-        origins.shape[0], s, branch, c_count, k,
+        tris.data_ptr(), *(x.data_ptr() for x in boxes), origins.data_ptr(), directions.data_ptr(),
+        order.data_ptr() if order is not None else None, origins.shape[0], *sizes,
         float(t_min), float(t_max), rays_per_tile, _TRI_TEST_IDS[tri_test],
         *(x.data_ptr() for x in out), _stream(origins),
     )
@@ -601,30 +598,16 @@ def intersect_clusters_streamed_cuda(tris, aabb_child, aabb_super, origins, dire
                                      tri_test: str = "bw"):
     """Launch the streamed kernel on CUDA tensors; same contract as the
     plain version."""
-    return _two_level_cuda(intersect_clusters_streamed, tris, aabb_child, aabb_super, None, origins, directions,
-                           t_min, t_max, rays_per_tile, branch, tri_test)
+    return _traversal_cuda(intersect_clusters_streamed, "streamed", tris, (aabb_child, aabb_super), origins,
+                           directions, t_min, t_max, rays_per_tile, branch, tri_test)
 
 
 def occluded_clusters_cuda(tris, aabb8, order, origins, directions, t_min: float, t_max: float,
                            rays_per_tile: int, tri_test: str = "bw"):
     """Launch the flat any-hit kernel on CUDA tensors; same contract as
     the plain version."""
-    c_count, k, _ = tris.shape
-    _check_launch(tris, origins, directions, rays_per_tile, tri_test, {
-        "aabb8": (aabb8, torch.float32, (c_count, 8)),
-        "order": (order, torch.int32, (8, c_count)),
-    })
-    occ = torch.empty(origins.shape[0], dtype=torch.bool, device=origins.device)
-    err = library("cluster_occluded.cu").cluster_occluded_launch(
-        tris.data_ptr(), aabb8.data_ptr(), order.data_ptr(),
-        origins.data_ptr(), directions.data_ptr(), origins.shape[0], c_count, k,
-        float(t_min), float(t_max), rays_per_tile, _TRI_TEST_IDS[tri_test],
-        occ.data_ptr(), _stream(origins),
-    )
-    if err:
-        raise RuntimeError(f"cluster_occluded_kernel launch failed: CUDA error {err}")
-    occluded_clusters.launches += 1
-    return occ
+    return _traversal_cuda(occluded_clusters, "flat", tris, (aabb8, order), origins, directions, t_min, t_max,
+                           rays_per_tile, 1, tri_test)
 
 
 def occluded_clusters_hier_cuda(tris, aabb_child, aabb_super, order_super, origins, directions,
@@ -632,7 +615,7 @@ def occluded_clusters_hier_cuda(tris, aabb_child, aabb_super, order_super, origi
                                 tri_test: str = "bw"):
     """Launch the two-level any-hit kernel on CUDA tensors; same contract
     as the plain version."""
-    return _two_level_cuda(occluded_clusters_hier, tris, aabb_child, aabb_super, order_super, origins,
+    return _traversal_cuda(occluded_clusters_hier, "hier", tris, (aabb_child, aabb_super, order_super), origins,
                            directions, t_min, t_max, rays_per_tile, branch, tri_test)
 
 
@@ -641,23 +624,23 @@ def occluded_clusters_streamed_cuda(tris, aabb_child, aabb_super, origins, direc
                                     tri_test: str = "bw"):
     """Launch the streamed any-hit kernel on CUDA tensors; same contract
     as the plain version."""
-    return _two_level_cuda(occluded_clusters_streamed, tris, aabb_child, aabb_super, None, origins, directions,
-                           t_min, t_max, rays_per_tile, branch, tri_test)
+    return _traversal_cuda(occluded_clusters_streamed, "streamed", tris, (aabb_child, aabb_super), origins,
+                           directions, t_min, t_max, rays_per_tile, branch, tri_test)
 
 
 def streamed_launch_shape(n: int, rays_per_tile: int, cluster_k: int, tri_test: str = "bw",
                           any_hit: bool = False, route: str = "streamed") -> dict:
-    """How the kernel of a two-level route ("streamed" or "hier"; closest
-    hit, or any hit) lays out a launch of n rays on the current CUDA
+    """How the traversal kernel of `route` ("flat", "hier" or "streamed";
+    closest hit, or any hit) lays out a launch of n rays on the current CUDA
     device: "packets", "blocks" (of a packet's thread block cluster),
     "threads" (of a block), "threads_per_ray", "registers" (of a thread),
     "resident_blocks" (per SM) and "resident_clusters" (packets the card
     holds at once).  Builds the kernel if need be; launches nothing."""
     if tri_test not in _TRI_TEST_IDS:
         raise ValueError(f"unknown tri_test {tri_test!r}")
-    if route not in ("streamed", "hier"):
+    if route not in ("flat", "hier", "streamed"):
         raise ValueError(f"no launch shape for route {route!r}")
-    stem = f"cluster_{'occluded_' if any_hit else ''}{route}"
+    stem = _STEMS[route, any_hit]
     out = (ctypes.c_int * 6)()
     err = getattr(library(f"{stem}.cu"), f"{stem}_shape")(n, rays_per_tile, cluster_k, _TRI_TEST_IDS[tri_test], out)
     if err:
