@@ -96,6 +96,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -150,6 +151,10 @@ KERNELS = {
            ic.occluded_clusters_streamed_plain),
     "k7": ("fused_step", "tpu_pathtracer_torch/csrc/fused_schedule.cu", "tpu_pathtracer/ops/fused_schedule.py:113",
            None, False, fs.fused_stream_step, fs.fused_stream_step_cuda, fs.fused_stream_step_plain),
+    # No TPU kernel: the JAX package's lax.while_loop, which the port's loop
+    # could only end by reading the device.
+    "ks": ("unit_sphere", "tpu_pathtracer_torch/csrc/unit_sphere.cu", "tpu_pathtracer/utils/rng.py:79", None, False,
+           rng.random_in_unit_sphere, rng.random_in_unit_sphere_cuda, rng.random_in_unit_sphere_plain),
 }
 # The kernels each route's render launches, without and with NEE.
 ROUTE_KERNELS = {"flat": ("k1", "k4"), "hier": ("k2", "k5"), "streamed": ("k3", "k6")}
@@ -178,6 +183,10 @@ BW_TEST_FLOPS = 33  # bw_test in csrc/cluster_common.cuh: 17 mul, 14 add/sub, 1 
 # triangles has 157), at 4 warp instructions a clock on each SM at the
 # card's highest SM clock.
 BW_TEST_INSTRUCTIONS = 77
+# The unit-ball sampler's float work a draw (csrc/unit_sphere.cu): three
+# conversions and scalings, three 2u - 1 (two ops each), three squares and
+# two sums, one compare.
+SAMPLER_DRAW_FLOPS = 18
 LARGE_TILES = 16  # the kernel phases: 16 x their rays in one launch
 
 
@@ -212,6 +221,22 @@ def set_counts_zero():
 
 def read_counts():
     return {kid: k[5].launches for kid, k in KERNELS.items()}
+
+
+@contextlib.contextmanager
+def counting_syncs():
+    """While open, records every stream sync the process makes (PyTorch's
+    sync debug mode, as warnings): the list it yields holds one entry a
+    sync once the block ends."""
+    syncs = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield syncs
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs.extend(w for w in caught if "synchroniz" in str(w.message))
 
 
 def phase_device():
@@ -418,14 +443,62 @@ def phase_streamed_sizes(label, name, route, any_hit, kernel, acc, cfg, o_s, d_s
           f"{ms_large:.4f} ms, instruction floor {floor_ms * LARGE_TILES:.4f} ms, bound {bw['bound_ms'] * LARGE_TILES:.4f} ms | {smi}")
 
 
+def draw_counts(seed, end_seed):
+    """Rejection draws each lane took: its seed advanced 3 x draws PCG
+    steps to `end_seed`."""
+    steps, x = torch.zeros_like(seed), seed.clone()
+    for k in range(1, 301):
+        x = rng.pcg_hash(x)
+        steps = torch.where((x == end_seed) & (steps == 0), k, steps)
+        if k % 30 == 0 and bool((steps > 0).all()):
+            break
+    if not bool((steps > 0).all()) or bool((steps % 3 != 0).any()):
+        raise SystemExit("[3c sampler] FAIL: a lane's seed chain is not whole draws")
+    return steps // 3
+
+
+def phase_sampler(label, scene, cfg, smi):
+    """The unit-ball sampler against its plain version on the seeds that
+    _shade hands it on the headline's 131,072 lanes (phase 3's rays,
+    shaded): seeds and points bit-equal; both times; the bound from the
+    bytes (8 in, 20 out a lane) and the draws this run's seeds take."""
+    o, d = bounce_batch(scene, cfg, Camera())
+    n = o.shape[0]
+    idx = torch.arange(n, dtype=torch.int32, device=o.device)
+    # the seed a lane brings to the sampler: its path's seed after _shade's
+    # four uniform draws before it
+    seed = rng.make_seeds(idx, idx % cfg.samples_per_launch, 1)
+    for _ in range(4):
+        seed = rng.pcg_hash(seed)
+    got = rng.random_in_unit_sphere_cuda(seed)
+    want = rng.random_in_unit_sphere_plain(seed)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and same_bits(got[1], want[1])):
+        bad = int((got[0] != want[0]).sum()) + int((got[1] != want[1]).sum())
+        raise SystemExit(f"[{label}] FAIL: unit_sphere and its plain version differ on {bad} values")
+    draws = draw_counts(seed, want[0])
+    ms = _time_over(rng.random_in_unit_sphere_cuda, [seed] * 51, device_only=True)
+    plain_ms = _time_ms(lambda: rng.random_in_unit_sphere_plain(seed), 5)
+    n_bytes, flops = n * (8 + 8 + 12), int(draws.sum()) * SAMPLER_DRAW_FLOPS
+    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, n_bytes / PEAK_BYTES * 1e3
+    numbers = dict(max_abs_err=float((got[1] - want[1]).abs().max()), ms=ms, plain_ms=plain_ms,
+                   bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   library_ms=None)
+    print(f"[{label}] unit_sphere: {n} lanes, draws a lane mean {float(draws.float().mean()):.4f}, most "
+          f"{int(draws.max())}: seeds and points bit-equal (0 ulp); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+          f"{n_bytes} bytes, {flops} FLOP: bound {numbers['bound_ms']:.4f} ms by {numbers['bound_by']} | {smi}")
+    return numbers
+
+
 def phase_render(label, scene, cfg, camera, frames, smi, image_path=None, warm=True):
     """A warm frame (unless warm=False), then `frames` timed frames with
     every launch count set to 0 just before and read just after.  The
     route's closest-hit kernel (and under NEE its any-hit kernel; on the
     fused stream, which the render reports as its schedule, kernel 7)
-    must launch at least once per iteration of the schedule, and no
-    other kernel at all.  Returns the counts, the last image, the totals
-    and the schedule."""
+    must launch at least once per iteration of the schedule, the unit-ball
+    sampler once per _shade (an iteration's), and no other kernel at all.
+    Also counts the stream syncs inside the timed renders.  Returns the
+    counts, the last image, the totals and the schedule."""
     route = scene.accel.route(cfg)
     nee = cfg.env_importance_sampling
     cam = camera_arrays(camera, cfg, scene.device)
@@ -438,9 +511,11 @@ def phase_render(label, scene, cfg, camera, frames, smi, image_path=None, warm=T
     torch.cuda.synchronize()
     set_counts_zero()
     t0 = time.perf_counter()
-    iters = seg_total = shadow_total = 0
+    iters = seg_total = shadow_total = syncs = 0
     for k in range(frames):
-        img, stats = render_frame_stats(scene, cam, cfg, k + 1)
+        with counting_syncs() as frame_syncs:
+            img, stats = render_frame_stats(scene, cam, cfg, k + 1)
+        syncs += len(frame_syncs)
         iters += stats["iters"]
         seg_total += int(stats["segments"])
         shadow_total += int(stats["shadow_segments"])
@@ -448,10 +523,14 @@ def phase_render(label, scene, cfg, camera, frames, smi, image_path=None, warm=T
     dt = time.perf_counter() - t0
     counts = read_counts()
     sched = stats["schedule"]
-    want = (ROUTE_KERNELS[route] if nee else ROUTE_KERNELS[route][:1]) + (("k7",) if sched == "stream_fused" else ())
+    want = ((ROUTE_KERNELS[route] if nee else ROUTE_KERNELS[route][:1]) + ("ks",)
+            + (("k7",) if sched == "stream_fused" else ()))
     for kid in want:
         if counts[kid] < iters:
             raise SystemExit(f"[{label}] FAIL: {counts[kid]} {KERNELS[kid][0]} launches for {iters} iterations")
+    shades = iters * (2 if cfg.seed_advance_quirk else 1)
+    if counts["ks"] != shades:
+        raise SystemExit(f"[{label}] FAIL: {counts['ks']} unit_sphere launches for {shades} calls of _shade")
     others = {KERNELS[kid][0]: c for kid, c in counts.items() if kid not in want and c}
     if others:
         raise SystemExit(f"[{label}] FAIL: other kernels launched: {others}")
@@ -469,12 +548,14 @@ def phase_render(label, scene, cfg, camera, frames, smi, image_path=None, warm=T
           f"{rays / dt / 1e6:.4f} Mrays/s (segments{' + shadow segments' if nee else ''}), "
           f"{dt / frames:.4f} s/launch, {seg_total // frames} segments/launch, "
           f"{shadow_total // frames} shadow segments/launch, {iters // frames} iterations/launch, "
+          f"{syncs / iters:.4f} stream syncs per iteration, "
           f"launches {launched} in {frames} timed frames, mean {img.mean(dim=(0, 1)).tolist()} | {smi}")
     if image_path:
         rgb = to_uint8(post_process(img, cfg)).cpu().numpy()[::-1]
         with open(image_path, "wb") as f:
             f.write(b"P6 %d %d 255\n" % (cfg.width, cfg.height) + rgb.tobytes())
-    return dict(counts=counts, img=img, iters=iters, segments=seg_total, seconds=dt / frames, schedule=sched)
+    return dict(counts=counts, img=img, iters=iters, segments=seg_total, seconds=dt / frames, schedule=sched,
+                syncs=syncs)
 
 
 def phase_parity(label, make_scene, camera, route, nee=False, **overrides):
@@ -522,10 +603,11 @@ def step_kw(cfg):
                 rr_reference=cfg.rr_mode == "reference", inv_spp=1.0 / spp)
 
 
-def lane_state(scene, cfg, camera, iters):
-    """The lane pool of the unfused stream after `iters` iterations and
-    the payload of its next trace: (state, payload, head, the camera-path
-    function)."""
+def lane_state(scene, cfg, camera, iters, retiring=False):
+    """The lane pool of the unfused stream after `iters` iterations (with
+    `retiring`, and then as many more as it takes until the next step
+    retires a pixel) and the payload of its next trace: (state, payload,
+    head, the camera-path function)."""
     dev = scene.device
     lanes = resolve_stream_lanes(cfg, cfg.width * cfg.height)
     make_path = _camera_paths(camera_arrays(camera, cfg, dev), cfg, 0, 0)
@@ -538,10 +620,18 @@ def lane_state(scene, cfg, camera, iters):
         return _trace_bounce(scene, cfg, st["origin"], st["direction"], st["attenuation"], st["radiance"],
                              st["seeds"], st["depth"])
 
-    for _ in range(iters):
-        regen, head, seg, _ = fs.fused_stream_step_plain(trace(), st, out, head, seg, **step_kw(cfg))
+    def retires(tb):
+        copy = {k: st[k].clone() for k in fs.STATE_KEYS}
+        return int(fs.fused_stream_step_plain(tb, copy, out.clone(), head, seg, **step_kw(cfg))[1]) > int(head)
+
+    tb = trace()
+    for k in range(iters + (1000 if retiring else 0)):
+        if k >= iters and retires(tb):
+            break
+        regen, head, seg, _ = fs.fused_stream_step_plain(tb, st, out, head, seg, **step_kw(cfg))
         _respawn(st, regen, make_path, cfg.samples_per_launch)
-    return st, trace(), head, make_path
+        tb = trace()
+    return st, tb, head, make_path
 
 
 def step_bytes(tb, st, regen, n_pix, spp, rr_reference):
@@ -585,69 +675,175 @@ def _time_over(fn, inputs, device_only=False):
     return start.elapsed_time(stop) / (len(inputs) - 1)
 
 
-def phase_fused_kernel(label, scene, smi):
-    """Kernel 7 against its plain version on the headline's lane state,
-    both rr_modes, the real head and one that sends lanes past n_pix;
-    timed in reference mode (the headline's) with its bound."""
-    numbers, lines = None, []
-    for rr_mode in ("reference", "standard"):
-        cfg = RenderConfig(**{**HEADLINE, "rr_mode": rr_mode})
-        st, tb, head, make_path = lane_state(scene, cfg, Camera(), 16)
-        n_pix, spp, lanes, dev = cfg.width * cfg.height, cfg.samples_per_launch, st["slot"].shape[0], scene.device
-        kw = step_kw(cfg)
-        seg = torch.tensor(12345, dtype=torch.int64, device=dev)
+def parent_fused_step(parent_dir):
+    """Kernel 7 as an older tree built it (`parent_dir`: the root of its
+    checkout; the kernel of one thread a lane whose wrapper zeroes a
+    scratch of 4 + blocks words each call), with the same wrapper:
+    step(tb, st, out, head, segments, **step_kw)."""
+    import ctypes
+    from pathlib import Path
 
-        def copy():
-            return {k: st[k].clone() for k in fs.STATE_KEYS}
+    src = Path(parent_dir) / "tpu_pathtracer_torch" / "csrc" / "fused_schedule.cu"
+    lib_path = cuda_build.BUILD_DIR / "parent" / "fused_schedule.so"
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib_path), str(src)], check=True,
+                   capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(lib_path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fused_step_launch.argtypes = [p] * 21 + [i] * 5 + [ctypes.c_float, p]
+    lib.fused_step_launch.restype = i
 
-        probe = fs.fused_stream_step_plain(tb, copy(), torch.zeros((n_pix + 1, 3), device=dev), head, seg, **kw)
-        done = int(probe[1]) - int(head)
-        if not done:
-            raise SystemExit(f"[{label}] FAIL: no pixel retires in this step")
-        for head_in in (head, torch.tensor(n_pix - done // 2, dtype=torch.int64, device=dev)):
-            st_k, st_p = copy(), copy()
-            out_k, out_p = (torch.zeros((n_pix + 1, 3), device=dev) for _ in range(2))
-            got = fs.fused_stream_step_cuda(tb, st_k, out_k, head_in, seg, **kw)
-            want = fs.fused_stream_step_plain(tb, st_p, out_p, head_in, seg, **kw)
-            torch.cuda.synchronize()
-            bad = [k for k in fs.STATE_KEYS if not same_bits(st_k[k], st_p[k])]
-            bad += ["out"] * (not same_bits(out_k, out_p)) + ["regen"] * (not torch.equal(got[0], want[0]))
-            bad += [name for name, a, b in zip(("head", "segments", "live"), got[1:], want[1:]) if int(a) != int(b)]
-            if bad:
-                raise SystemExit(f"[{label}] FAIL: fused_step ({rr_mode}) and its plain version differ in {bad}")
-            past = int((st_k["slot"] >= n_pix).sum()) - int((st["slot"] >= n_pix).sum())
-            lines.append(f"{rr_mode} head {int(head_in)}: {done} retired, {past} past n_pix, "
-                         f"{int(got[0].sum())} regen, {int(got[3])} live")
-        if rr_mode != "reference":
-            continue
-        if not past:
-            raise SystemExit(f"[{label}] FAIL: no lane retired past n_pix")
-        ms = _time_over(lambda s: fs.fused_stream_step_cuda(tb, s, out_k, head, seg, **kw), [copy() for _ in range(21)],
-                        device_only=True)
-        plain_ms = _time_over(lambda s: fs.fused_stream_step_plain(tb, s, out_p, head, seg, **kw),
-                              [copy() for _ in range(6)])
+    def step(tb, st, out, head, segments, *, spp, n_pix, max_depth, rr_reference, inv_spp):
+        lanes = st["slot"].shape[0]
+        scratch = torch.zeros(4 + -(-lanes // 256), dtype=torch.int64, device=out.device)
+        regen = torch.empty(lanes, dtype=torch.bool, device=out.device)
+        err = lib.fused_step_launch(
+            *(tb[k].data_ptr() for k in fs.TB_KEYS), *(st[k].data_ptr() for k in fs.STATE_KEYS),
+            out.data_ptr(), head.data_ptr(), segments.data_ptr(), scratch.data_ptr(), regen.data_ptr(),
+            lanes, spp, n_pix, max_depth, int(rr_reference), float(inv_spp),
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"parent fused_step_kernel launch failed: CUDA error {err}")
+        return regen, scratch[0], scratch[1], scratch[2]
 
-        def unfused_tail(s):
-            _respawn(s, fs.fused_stream_step_plain(tb, s, out_p, head, seg, **kw)[0], make_path, spp)
+    return step
 
-        def fused_tail(s):
-            _respawn(s, fs.fused_stream_step_cuda(tb, s, out_k, head, seg, **kw)[0], make_path, spp)
 
-        unfused_ms = _time_over(unfused_tail, [copy() for _ in range(6)])
-        fused_tail_ms = _time_over(fused_tail, [copy() for _ in range(6)])
-        n_bytes, n_live, n_done = step_bytes(tb, st, probe[0], n_pix, spp, True)
-        flops = 15 * n_live + 6 * n_done  # RR draw and estimator per live lane; the mean and the add per pixel done
-        t_ops, t_bytes = flops / PEAK_FP32 * 1e3, n_bytes / PEAK_BYTES * 1e3
-        numbers = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+# Kernel 7's pools: (name, the lanes' frame, pool size, unfused iterations
+# before the step, and then more until a step retires pixels); the first,
+# the headline's 131,072, is the main path's.
+FUSED_POOLS = (("headline", HEADLINE, 131_072, 16), ("config 1", CONFIG1, 16_384, 16),
+               ("headline", HEADLINE, 128, 16), ("headline", HEADLINE, 524_288, 16))
+
+
+def phase_fused_kernel(label, scenes, smi, parent_dir=None):
+    """Kernel 7 against its plain version on real lane states: the
+    headline's at 131,072 lanes (the main path's pool), BASELINE config
+    1's at its 16,384 and the headline's at 128 and 524,288 lanes; both
+    rr_modes, the real head and one that sends lanes past n_pix; state,
+    image, regen mask, head, segments and live count bit-equal.  Timed in
+    reference mode at each pool with its bound (and, with `parent_dir`,
+    the parent's kernel 7 on the same states, in turns); the plain version
+    and the schedule tails at the main path's pool.  Then 32 consecutive
+    fused steps (trace, kernel, respawn) on one never-cleared scratch,
+    bit-equal to the plain version's at every step."""
+    parent = parent_fused_step(parent_dir) if parent_dir else None
+    numbers, lines = {}, []
+    for pool, (name, frame, lanes, iters) in enumerate(FUSED_POOLS):
+        for rr_mode in ("reference", "standard"):
+            cfg = RenderConfig(**{**frame, "rr_mode": rr_mode, "stream_lanes": lanes})
+            scene = scenes[name]
+            st, tb, head, make_path = lane_state(scene, cfg, Camera(), iters, retiring=True)
+            n_pix, spp, dev = cfg.width * cfg.height, cfg.samples_per_launch, scene.device
+            kw = step_kw(cfg)
+            seg = torch.tensor(12345, dtype=torch.int64, device=dev)
+
+            def copy():
+                return {k: st[k].clone() for k in fs.STATE_KEYS}
+
+            probe = fs.fused_stream_step_plain(tb, copy(), torch.zeros((n_pix + 1, 3), device=dev), head, seg, **kw)
+            done = int(probe[1]) - int(head)
+            if not done:
+                raise SystemExit(f"[{label}] FAIL: no pixel retires in the step at {lanes} lanes")
+            past_total = 0
+            # The real head, and one that sends the last (done + 1) // 2 retiring lanes past n_pix.
+            for head_in in (head, torch.tensor(n_pix - done // 2, dtype=torch.int64, device=dev)):
+                st_k, st_p = copy(), copy()
+                out_k, out_p = (torch.zeros((n_pix + 1, 3), device=dev) for _ in range(2))
+                got = fs.fused_stream_step_cuda(tb, st_k, out_k, head_in, seg, **kw)
+                want = fs.fused_stream_step_plain(tb, st_p, out_p, head_in, seg, **kw)
+                torch.cuda.synchronize()
+                bad = [k for k in fs.STATE_KEYS if not same_bits(st_k[k], st_p[k])]
+                bad += ["out"] * (not same_bits(out_k, out_p)) + ["regen"] * (not torch.equal(got[0], want[0]))
+                bad += [w for w, a, b in zip(("head", "segments", "live"), got[1:], want[1:]) if int(a) != int(b)]
+                if bad:
+                    raise SystemExit(f"[{label}] FAIL: fused_step ({rr_mode}, {lanes} lanes) and its plain version "
+                                     f"differ in {bad}")
+                past = int((st_k["slot"] >= n_pix).sum()) - int((st["slot"] >= n_pix).sum())
+                past_total += past
+                lines.append(f"{name} {lanes} lanes {rr_mode} head {int(head_in)}: {done} retired, {past} past n_pix, "
+                             f"{int(got[0].sum())} regen, {int(got[3])} live")
+            if not past_total:
+                raise SystemExit(f"[{label}] FAIL: no lane retired past n_pix at {lanes} lanes")
+            if rr_mode != "reference":
+                continue
+            shape = fs.fused_step_shape(lanes)
+            out_k = torch.zeros((n_pix + 1, 3), device=dev)
+
+            def kernel(s, at=shape):
+                fs.fused_stream_step_cuda(tb, s, out_k, head, seg, shape=at, **kw)
+
+            order = ("parent", "kernel", "kernel", "parent") if parent else ("kernel",)
+            times = {"parent": [], "kernel": []}
+            for who in order:
+                fn = kernel if who == "kernel" else (lambda s: parent(tb, s, out_k, head, seg, **kw))
+                times[who].append(_time_over(fn, [copy() for _ in range(21)], device_only=True))
+            ms = sum(times["kernel"]) / len(times["kernel"])
+            sweep = {at: _time_over(functools.partial(kernel, at=at), [copy() for _ in range(21)], device_only=True)
+                     for at in fs.SHAPES}
+            n_bytes, n_live, n_done = step_bytes(tb, st, probe[0], n_pix, spp, True)
+            flops = 15 * n_live + 6 * n_done  # RR draw and estimator per live lane; the mean and the add per pixel done
+            t_ops, t_bytes = flops / PEAK_FP32 * 1e3, n_bytes / PEAK_BYTES * 1e3
+            row = dict(max_abs_err=0.0, ms=ms, bound_ms=max(t_ops, t_bytes),
                        bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None)
-        timing = (f"kernel {ms:.4f} ms on the device (with its scratch memset), plain {plain_ms:.4f} ms, unfused "
-                  f"schedule tail (plain step and respawn, eager) "
-                  f"{unfused_ms:.4f} ms, fused tail (kernel + respawn) {fused_tail_ms:.4f} ms; {n_live} live lanes, "
-                  f"{n_done} pixels done, {n_bytes} bytes the step must move, {flops} FLOP: "
-                  f"bound {numbers['bound_ms']:.4f} ms by {numbers['bound_by']}")
-    print(f"[{label}] fused_step: {lanes} lanes of the headline after 16 unfused iterations; bit-equal (0 ulp) in "
-          f"state, image, regen mask, head, segments and live count: {'; '.join(lines)}; {timing} | {smi}")
+            timing = (f"{name} {lanes} lanes, shape {shape[0]} lanes x {shape[1]} threads a tile: kernel "
+                      f"{' '.join(f'{t:.4f}' for t in times['kernel'])} ms"
+                      + (f", parent {' '.join(f'{t:.4f}' for t in times['parent'])} ms" if parent else "")
+                      + "; by shape (lanes a thread x threads) "
+                      + ", ".join(f"{v}x{b} {t:.4f}" for (v, b), t in sweep.items()) + " ms"
+                      + f"; {n_live} live lanes, {n_done} pixels done, {n_bytes} bytes the step must move, "
+                        f"{flops} FLOP: bound {row['bound_ms']:.4f} ms by {row['bound_by']}")
+            if pool < 2:  # the headline's and config 1's pools
+                row["plain_ms"] = _time_over(lambda s: fs.fused_stream_step_plain(tb, s, out_k, head, seg, **kw),
+                                             [copy() for _ in range(6)])
+                timing += f"; plain {row['plain_ms']:.4f} ms"
+            if pool == 0:
+                def unfused_tail(s):
+                    _respawn(s, fs.fused_stream_step_plain(tb, s, out_k, head, seg, **kw)[0], make_path, spp)
+
+                def fused_tail(s):
+                    _respawn(s, fs.fused_stream_step_cuda(tb, s, out_k, head, seg, **kw)[0], make_path, spp)
+
+                timing += (f"; unfused schedule tail (plain step and respawn, eager) "
+                           f"{_time_over(unfused_tail, [copy() for _ in range(6)]):.4f} ms, fused tail (kernel + "
+                           f"respawn) {_time_over(fused_tail, [copy() for _ in range(6)]):.4f} ms")
+                numbers = row
+                steps_line = fused_steps(label, scene, cfg, st, head, make_path)
+            print(f"[{label}] fused_step timing: {timing} | {smi}")
+    print(f"[{label}] fused_step: bit-equal (0 ulp) in state, image, regen mask, head, segments and live count: "
+          f"{'; '.join(lines)}; {steps_line} | {smi}")
     return numbers
+
+
+def fused_steps(label, scene, cfg, st, head, make_path, steps=32):
+    """`steps` consecutive fused steps from lane state `st`: trace, the
+    kernel on one copy and the plain version on another, respawn both;
+    the two stay bit-equal, with the kernel's scratch never cleared."""
+    kw, n_pix, dev = step_kw(cfg), cfg.width * cfg.height, scene.device
+    st_k = {k: st[k].clone() for k in fs.STATE_KEYS}
+    st_p = {k: st[k].clone() for k in fs.STATE_KEYS}
+    out_k, out_p = (torch.zeros((n_pix + 1, 3), device=dev) for _ in range(2))
+    head_k = head_p = head
+    seg_k = seg_p = torch.zeros((), dtype=torch.int64, device=dev)
+    retired = 0
+    for step in range(steps):
+        tb = _trace_bounce(scene, cfg, st_k["origin"], st_k["direction"], st_k["attenuation"], st_k["radiance"],
+                           st_k["seeds"], st_k["depth"])
+        regen_k, head_k2, seg_k, live_k = fs.fused_stream_step_cuda(tb, st_k, out_k, head_k, seg_k, **kw)
+        regen_p, head_p, seg_p, live_p = fs.fused_stream_step_plain(tb, st_p, out_p, head_p, seg_p, **kw)
+        retired += int(head_k2) - int(head_k)
+        head_k = head_k2
+        _respawn(st_k, regen_k, make_path, cfg.samples_per_launch)
+        _respawn(st_p, regen_p, make_path, cfg.samples_per_launch)
+        torch.cuda.synchronize()
+        bad = [k for k in fs.STATE_KEYS if not same_bits(st_k[k], st_p[k])]
+        bad += ["out"] * (not same_bits(out_k, out_p)) + ["regen"] * (not torch.equal(regen_k, regen_p))
+        bad += [w for w, a, b in zip(("head", "segments", "live"), (head_k, seg_k, live_k), (head_p, seg_p, live_p))
+                if int(a) != int(b)]
+        if bad:
+            raise SystemExit(f"[{label}] FAIL: fused step {step + 1} of {steps} differs from the plain version in {bad}")
+    return (f"{steps} consecutive steps at {st['slot'].shape[0]} lanes (trace, kernel, respawn) on one scratch "
+            f"bit-equal, {retired} pixels retired")
 
 
 def phase_fused_render(label, scene, cfg, camera, smi):
@@ -669,6 +865,7 @@ def phase_fused_render(label, scene, cfg, camera, smi):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--image", help="write the headline 1080p frame here as a binary PPM")
+    parser.add_argument("--parent", help="the root of an older checkout: phase 18 also times its kernel 7")
     args = parser.parse_args()
 
     t_start = time.perf_counter()
@@ -683,7 +880,9 @@ def main() -> int:
     numbers["k1"] = phase_kernel("3 kernel 1", "k1", scene, cfg, Camera(), smi, plain_reps=5)
     phase_kernel("3b kernel 1 config 1", "k1", config1_scene("cuda"), RenderConfig(**CONFIG1), Camera(), smi,
                  plain_reps=5, n_cam=CONFIG1_CAMERA_RAYS)
-    launches["k1"] = phase_render("4 render headline", scene, cfg, Camera(), 1, smi, args.image)["counts"]["k1"]
+    numbers["ks"] = phase_sampler("3c sampler", scene, cfg, smi)
+    headline = phase_render("4 render headline", scene, cfg, Camera(), 1, smi, args.image)
+    launches["k1"], launches["ks"] = headline["counts"]["k1"], headline["counts"]["ks"]
     phase_parity("5 parity headline", headline_scene, Camera(), "flat")
 
     config4 = high_poly(100_000, "cuda")
@@ -703,7 +902,8 @@ def main() -> int:
     phase_parity("17 parity headline NEE", headline_scene, Camera(), "flat", nee=True)
     del config4, big
 
-    numbers["k7"] = phase_fused_kernel("18 kernel 7", scene, smi)
+    numbers["k7"] = phase_fused_kernel("18 kernel 7", {"headline": scene, "config 1": config1_scene("cuda")}, smi,
+                                       args.parent)
     launches["k7"] = phase_fused_render("19 render headline", scene, cfg, Camera(), smi)
     phase_fused_render("20 render config 1", config1_scene("cuda"), RenderConfig(**CONFIG1), Camera(), smi)
     one_spp = cfg.replace(samples_per_launch=1, tile_pixels=345_600)

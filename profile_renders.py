@@ -12,8 +12,10 @@ call without favouring the first).  For each render, after one warm
 frame at 2 spp: the wall time of the profiled frame, the device busy
 time (the sum of every kernel, copy and memset on the card, which runs
 one stream), the idle share, the traversal kernels' and the fused step's
-time and launches, and the device kernels per iteration (device events
-only: the CUDA runtime calls that launch them are not counted).  The
+time and launches, the device kernels per iteration (device events
+only: the CUDA runtime calls that launch them are not counted) and the
+stream syncs per iteration (counted over the warm frame, by PyTorch's
+sync debug mode).  The
 events are read straight from the trace: key_averages over the ~7
 million events of a BASELINE config-1 frame takes longer than the
 render.  One line per render, with the card's name and power limit; the
@@ -25,9 +27,11 @@ prints its wall time (s/launch) alone.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
+import warnings
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -46,9 +50,11 @@ from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.render.camera import Camera, camera_arrays
 from tpu_pathtracer_torch.render.integrator import render_frame_stats
 
-# The device functions of the seven kernels (csrc/): the six traversals
-# (one body, with its packet-weight pre-pass) and the fused schedule step.
-KERNELS = ("streamed_kernel", "packet_weight_kernel", "fused_step_kernel")
+# The device functions of the port's kernels (csrc/): the six traversals
+# (one body, with its packet-weight pre-pass), the fused schedule step and
+# the unit-ball sampler.
+KERNELS = ("streamed_kernel", "packet_weight_kernel", "fused_step_kernel", "fused_step_lane_kernel",
+           "unit_sphere_kernel")
 
 
 def kernel_label(key):
@@ -79,6 +85,22 @@ def device_events(prof):
     return table
 
 
+@contextlib.contextmanager
+def counting_syncs():
+    """While open, records every stream sync the process makes (PyTorch's
+    sync debug mode, as warnings), as chip_smoke.counting_syncs does; a
+    copy here, so that this script also runs against older trees."""
+    syncs = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield syncs
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs.extend(w for w in caught if "synchroniz" in str(w.message))
+
+
 def renders():
     """name: (scene maker, camera, config)."""
     cam4 = Camera(**CONFIG4_CAMERA)
@@ -101,7 +123,8 @@ def profile_one(run, name, make, camera, cfg_kw, out_dir, smi, wall_only=False):
     cfg = RenderConfig(**cfg_kw)
     scene = make()
     cam = camera_arrays(camera, cfg, "cuda")
-    render_frame_stats(scene, cam, cfg.replace(samples_per_launch=2), 0)
+    with counting_syncs() as syncs:
+        _, warm = render_frame_stats(scene, cam, cfg.replace(samples_per_launch=2), 0)
     torch.cuda.synchronize()
     if wall_only:
         t0 = time.perf_counter()
@@ -127,7 +150,8 @@ def profile_one(run, name, make, camera, cfg_kw, out_dir, smi, wall_only=False):
         f.writelines(f"{c:6d} {s * 1e3:10.3f} {s / c * 1e3:8.4f}  {key}\n" for key, (c, s) in events[:60])
     print(f"[{name}] {stats['schedule']} schedule; wall {wall:.4f} s, device busy {busy:.4f} s, "
           f"idle {1 - busy / wall:.2%}, the port's kernels {ours_s:.4f} s ({ours_s / busy:.2%} of busy): {ours_desc}; "
-          f"{kernels} device kernels, copies and memsets, {kernels / iters:.0f} per iteration, {iters} iterations, "
+          f"{kernels} device kernels, copies and memsets, {kernels / iters:.0f} per iteration, "
+          f"{len(syncs) / warm['iters']:.4f} stream syncs per iteration (warm frame), {iters} iterations, "
           f"{int(stats['segments'])} segments, {int(stats['shadow_segments'])} shadow segments | {smi}",
           flush=True)
 

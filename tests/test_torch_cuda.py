@@ -1,9 +1,10 @@
 """The port on an NVIDIA GPU: the packet-traversal CUDA kernels (flat,
 two-level, streamed; closest hit and any hit; Baldwin-Weber and
-Moller-Trumbore) and the fused schedule step against their plain PyTorch
-versions, small renders on the card, with and without next-event
-estimation, against the same renders on the CPU, and the fused schedule's
-render against the unfused one.  Every test needs a card and skips without one; this
+Moller-Trumbore), the fused schedule step and the unit-ball sampler
+against their plain PyTorch versions, small renders on the card, with and
+without next-event estimation, against the same renders on the CPU, the
+fused schedule's render against the unfused one, and every schedule's
+iteration free of stream syncs but its own read.  Every test needs a card and skips without one; this
 file imports no JAX, so it runs where only the port is installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -20,8 +21,10 @@ from tpu_pathtracer_torch.ops import fused_schedule as fs  # noqa: E402
 from tpu_pathtracer_torch.ops import intersect_cluster as ic  # noqa: E402
 from tpu_pathtracer_torch.render.camera import Camera, camera_arrays  # noqa: E402
 from tpu_pathtracer_torch.render.film import post_process  # noqa: E402
+from tpu_pathtracer_torch.render import integrator  # noqa: E402
 from tpu_pathtracer_torch.render.integrator import _fused_stream_ok, render_frame_stats  # noqa: E402
 from tpu_pathtracer_torch.scene import procedural  # noqa: E402
+from tpu_pathtracer_torch.utils import rng  # noqa: E402
 from tpu_pathtracer_torch.utils.ssim import ssim  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -508,3 +511,171 @@ def test_fused_render_bitwise_on_card(cuda, rr_mode):
         res[mode] = (img, stats["iters"], int(stats["segments"]))
     (img_f, it_f, seg_f), (img_u, it_u, seg_u) = res["on"], res["off"]
     assert torch.equal(img_f, img_u) and it_f == it_u and seg_f == seg_u
+
+
+@pytest.mark.parametrize("lanes", [128, 16384, 131072, 524288])
+@pytest.mark.parametrize("rr_mode", ["reference", "standard"])
+def test_fused_step_pool_sizes(cuda, rr_mode, lanes):
+    """Kernel 7 at every pool size the issue's sweep covers, from one tile
+    to many windows of look-back, each at its rule's shape: bit-equal to
+    the plain version, with lanes retiring past n_pix."""
+    tb, st, n_pix, head, segments = step_state(lanes, lanes + (rr_mode == "standard"), cuda)
+    kw = dict(spp=3, n_pix=n_pix, max_depth=4, rr_reference=rr_mode == "reference", inv_spp=1.0 / 3)
+    st_k = {k: v.clone() for k, v in st.items()}
+    st_p = {k: v.clone() for k, v in st.items()}
+    out_k = torch.zeros((n_pix + 1, 3), device=cuda)
+    out_p = torch.zeros_like(out_k)
+    got = fs.fused_stream_step(tb, st_k, out_k, head, segments, **kw)
+    want = fs.fused_stream_step_plain(tb, st_p, out_p, head, segments, **kw)
+    torch.cuda.synchronize()
+    for key in st:
+        assert same_bits(st_k[key], st_p[key]), key
+    assert same_bits(out_k, out_p) and torch.equal(got[0], want[0])
+    assert [int(x) for x in got[1:]] == [int(x) for x in want[1:]]
+    assert int(got[1]) > n_pix
+
+
+@pytest.mark.parametrize("shape", list(fs.SHAPES))
+def test_fused_step_32_steps_on_one_scratch(cuda, shape):
+    """32 consecutive steps on one lane pool, each step's state, head and
+    segments fed to the next, with no zeroing of the kernel's scratch
+    between them: kernel and plain version stay bit-equal at every step,
+    at every built launch shape."""
+    lanes = 131072
+    _, st, n_pix, head, segments = step_state(lanes, 7, cuda)
+    kw = dict(spp=3, n_pix=n_pix, max_depth=4, rr_reference=True, inv_spp=1.0 / 3)
+    st_k = {k: v.clone() for k, v in st.items()}
+    st_p = {k: v.clone() for k, v in st.items()}
+    out_k = torch.zeros((n_pix + 1, 3), device=cuda)
+    out_p = torch.zeros_like(out_k)
+    head_k = head_p = head
+    seg_k = seg_p = segments
+    before = fs.fused_stream_step.launches
+    for step in range(32):
+        tb = step_state(lanes, 100 + step, cuda)[0]
+        regen_k, head_k, seg_k, live_k = fs.fused_stream_step_cuda(tb, st_k, out_k, head_k, seg_k, shape=shape, **kw)
+        regen_p, head_p, seg_p, live_p = fs.fused_stream_step_plain(tb, st_p, out_p, head_p, seg_p, **kw)
+        torch.cuda.synchronize()
+        for key in st:
+            assert same_bits(st_k[key], st_p[key]), (step, key)
+        assert same_bits(out_k, out_p) and torch.equal(regen_k, regen_p), step
+        assert (int(head_k), int(seg_k), int(live_k)) == (int(head_p), int(seg_p), int(live_p)), step
+    assert fs.fused_stream_step.launches == before + 32
+
+
+def test_fused_step_refuses_unaligned_lanes(cuda):
+    """The kernel takes whole groups of four lanes, 16-byte aligned."""
+    tb, st, n_pix, head, segments = step_state(256, 3, cuda)
+    kw = dict(spp=3, n_pix=n_pix, max_depth=4, rr_reference=True, inv_spp=1.0 / 3)
+    cut = ({k: v[:254] for k, v in tb.items()}, {k: v[:254] for k, v in st.items()})
+    with pytest.raises(ValueError, match="groups of 4"):
+        fs.fused_stream_step(*cut, torch.zeros((n_pix + 1, 3), device=cuda), head, segments, **kw)
+    shifted = ({k: v[1:253] for k, v in tb.items()}, {k: v[1:253] for k, v in st.items()})
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fs.fused_stream_step(*shifted, torch.zeros((n_pix + 1, 3), device=cuda), head, segments, **kw)
+
+
+# The seeds whose lanes need the most rejection draws of all 2^32 u32
+# seeds (each draw three PCG steps), with their draw counts: 28 is the
+# longest chain any seed starts, and no seed needs 30
+# (test_torch_host_syncs.longest_chains(0, 2**32, 27), the plain version's
+# arithmetic in numpy).
+LONG_SEEDS = {
+    957305047: 28, 1521286973: 28, 1703472025: 28, 2947995425: 28, 3863275345: 28,
+    144638799: 27, 1261707827: 27, 1368128318: 27, 2132517328: 27, 2280451936: 27, 2296031367: 27,
+    3623656311: 27, 4223736066: 27,
+}
+
+
+def draw_counts(seed):
+    """Draws each lane of `seed` takes in the plain version: one more than
+    the PCG steps its seed advanced, over three."""
+    s, _ = rng.random_in_unit_sphere_plain(seed)
+    steps = torch.zeros_like(seed)
+    x = seed.clone()
+    for k in range(1, 200):
+        x = rng.pcg_hash(x)
+        steps = torch.where((x == s) & (steps == 0), k, steps)
+        if bool((steps > 0).all()):
+            break
+    return steps // 3
+
+
+def test_sampler_matches_plain(cuda):
+    """The unit-ball kernel at 131,072 lanes of camera seeds: seeds and
+    points bit-equal to the plain version; one launch counted."""
+    pix = torch.arange(131072, dtype=torch.int32, device=cuda)
+    seed = rng.make_seeds(pix, pix % 10, 3)
+    before = rng.random_in_unit_sphere.launches
+    s_k, p_k = rng.random_in_unit_sphere(seed)
+    s_p, p_p = rng.random_in_unit_sphere_plain(seed)
+    torch.cuda.synchronize()
+    assert rng.random_in_unit_sphere.launches == before + 1
+    assert torch.equal(s_k, s_p) and same_bits(p_k, p_p)
+    assert p_k.shape == (131072, 3) and float((p_k * p_k).sum(-1).max()) < 1.0
+
+
+def test_sampler_long_rejection_chains(cuda):
+    """Seeds that need the most draws of any u32 seed (the plain version
+    counts them again here): the kernel takes every draw, so seeds and
+    points stay bit-equal."""
+    seed = torch.tensor(sorted(LONG_SEEDS), dtype=torch.int64, device=cuda)
+    draws = draw_counts(seed)
+    assert draws.tolist() == [LONG_SEEDS[k] for k in sorted(LONG_SEEDS)]
+    s_k, p_k = rng.random_in_unit_sphere(seed)
+    s_p, p_p = rng.random_in_unit_sphere_plain(seed)
+    torch.cuda.synchronize()
+    assert torch.equal(s_k, s_p) and same_bits(p_k, p_p)
+
+
+def test_sampler_takes_no_lanes(cuda):
+    s, p = rng.random_in_unit_sphere(torch.empty(0, dtype=torch.int64, device=cuda))
+    assert s.shape == (0,) and p.shape == (0, 3)
+
+
+# schedule: the 64x48 config that takes it
+SYNC_SCHEDULES = {
+    "stream_fused": dict(fused_schedule="on"),
+    "stream": dict(fused_schedule="off"),
+    "stream_nee": dict(env_mode="equirect", rr_mode="standard", env_importance_sampling=True),
+    "regen": dict(stream_lanes=4096),
+    "rays": dict(samples_per_launch=1),
+}
+
+
+@pytest.mark.parametrize("which", list(SYNC_SCHEDULES))
+def test_iteration_syncs_only_on_its_read(cuda, monkeypatch, which):
+    """After a warm render, a render of each schedule whose iterations run
+    under torch.cuda.set_sync_debug_mode("error") from the loop's first
+    read on, every read (`integrator._read`) excepted: any other stream
+    sync inside an iteration raises."""
+    from tpu_pathtracer_torch.render.envmap import with_importance_sampling
+    from tpu_pathtracer_torch.scene.scene import make_env
+    from tpu_pathtracer_torch.utils.image import procedural_hdr
+
+    cfg = RenderConfig(**{**dict(width=64, height=48, samples_per_launch=2, max_depth=4, dof=False,
+                                 intersector="cluster", env_mode="sunsky", stream_lanes=512),
+                          **SYNC_SCHEDULES[which]})
+    scene = procedural.three_spheres_scene(8, 16, device=cuda)
+    if cfg.env_importance_sampling:
+        scene = scene.replace(env=with_importance_sampling(make_env(procedural_hdr(32, 64), cuda)))
+    scene = build_accel(scene)
+    cam = camera_arrays(Camera(), cfg, cuda)
+    render_frame_stats(scene, cam, cfg, 0)
+    read, reads = integrator._read, []
+
+    def checked_read(x):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return read(x)
+        finally:
+            reads.append(1)
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(integrator, "_read", checked_read)
+    try:
+        _, stats = render_frame_stats(scene, cam, cfg, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert stats["schedule"] == which.removesuffix("_nee")
+    assert stats["iters"] > 3 and len(reads) >= stats["iters"]

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from tpu_pathtracer_torch.ops.intersect import Hit
-from tpu_pathtracer_torch.utils.device import DEFAULT_DEVICE, resolve
+from tpu_pathtracer_torch.utils.device import DEFAULT_DEVICE, constant, resolve
 from tpu_pathtracer_torch.ops.intersect_cluster import (
     MISS_PRIM,
     intersect_clusters,
@@ -158,7 +158,7 @@ class ClusterAccel:
         block its all-occluded exit while compacting nothing."""
         if active is not None and self._want_sort(cfg):
             park = self.scene_hi + (self.scene_hi - self.scene_lo) + 1.0
-            plus_x = torch.tensor([1.0, 0.0, 0.0], dtype=directions.dtype, device=directions.device)
+            plus_x = constant((1.0, 0.0, 0.0), directions.dtype, directions.device)
             origins = torch.where(active[:, None], origins, park[None, :])
             directions = torch.where(active[:, None], directions, plus_x)
         return self.sort(origins, directions, cfg)

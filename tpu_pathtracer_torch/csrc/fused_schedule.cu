@@ -8,26 +8,15 @@
 // single IEEE-rounded op (a division, a product, a sum, a compare), built
 // with -fmad=false and IEEE division, so the two agree bit for bit.
 //
-// What it computes.  One thread per lane of the pool: the Russian-roulette
+// What it computes.  For every lane of the pool: the Russian-roulette
 // draw (one PCG step; u32 -> f32 by __uint2float_rn, round to nearest even
 // as the plain version's int64 -> float32), the estimator of rr_mode, the
 // sample added into the lane's pixel sum, the retire of a finished pixel
 // straight into its image row (rows are distinct across lanes: no race,
 // and each row takes one non-zero add per frame, as the unfused
 // index_add_), then the work queue: a lane that retired takes slot
-// head + (retired lanes up to and including it, in lane order) - 1, and
-// last the masked state merges and the regen mask.  The state is updated
-// in place.
-//
-// The queue's prefix sum is exact integer arithmetic in lane order, in one
-// launch: each block takes a ticket (an atomic counter, so tickets follow
-// the order in which blocks start, and a block only ever waits on blocks
-// that already run) and the ticket's 256 lanes; it counts its retired
-// lanes with warp ballots, publishes that count, and looks back over the
-// earlier tickets' published counts until it meets an inclusive prefix
-// (decoupled look-back), then publishes its own.  A status word holds a
-// flag and a count together, so one 64-bit store publishes both.  head',
-// segments' and the live count are integer sums, exact in any order.
+// head + (retired lanes before it, in lane order), and last the masked
+// state merges and the regen mask.  The state is updated in place.
 //
 // What bounds it.  Bytes.  The step must move what each lane's fate
 // needs: every lane reads its slot and writes its regen byte (5 B); a live
@@ -40,13 +29,55 @@
 // its image row and writes slot and pix (32 B).  On the headline's lane
 // state after 16 iterations (131,072 lanes, 31,526 pixels done) that is
 // 15,978,244 B, 4.8 us at 3.35 TB/s (chip_smoke.py phase 18).  The
-// arithmetic is a few dozen operations a lane.  This kernel is simpler:
-// it reads every lane's state and writes most of it back (about 226 B a
-// lane, 29.6 MB), each of the port's [L,3] and [L] tensors once and as
-// they are, and does the scan in the same pass; the look-back is the only
-// serial part.  The TPU kernel's lane-major planes, u32 -> f32 split,
-// matmul prefix sum, float32 running head and retire FIFO are not carried
-// over.
+// arithmetic is a few dozen operations a lane.
+//
+// The design, against that bound (each choice measured on an H100 80GB
+// HBM3; PERF.md, the kernel 7 findings).
+// - Fate-predicated payload loads: a lane reads the trace payload only as
+//   its fate needs it (seed, done flag, attenuation and radiance if live,
+//   origin and direction if it goes on).  Stores are not predicated: every
+//   lane rewrites each state field that some fate changes (origin,
+//   direction, attenuation, radiance, depth, seed, pixel sum, sample
+//   count, slot, pix), with its old value where its own fate leaves it, so
+//   every sector is written whole.  Stores predicated on each lane's fate
+//   write most sectors in part, and the card's L2 then has to fill them
+//   from memory: that measured slower, though it moves fewer bytes.
+// - One lane a thread, coalesced scalar accesses (the rule's shape).  The
+//   alternative, V lanes a thread (4 or 8) with 16-byte accesses (a group
+//   of four lanes' [4,3] float32 block as three float4, its [4] int32 as an
+//   int4, its seeds as two longlong2, its done flags and regen bytes as one
+//   32-bit word), stays a launch parameter of the sweep: it measured slower
+//   at every pool size, having a quarter of the warps to hide the memory's
+//   latency with.  The wrapper requires lanes % 4 == 0 and 16-byte aligned
+//   tensors.
+// - The queue's prefix sum is exact integer arithmetic in lane order, in
+//   one launch, over tiles of V x B lanes (B threads a block): a block
+//   takes a ticket (an atomic counter, so a block only ever waits on
+//   blocks that already run) and the ticket's tile, counts its retired and
+//   live lanes (shuffles, then one shared-memory pass over the warps),
+//   publishes them, and its first warp looks back over the earlier tiles'
+//   published words 32 at a time until it meets an inclusive prefix
+//   (decoupled look-back), then publishes its own.  Every store that does
+//   not depend on the queue is issued before the tile counts, and the
+//   other warps add their done pixels into the image during the look-back;
+//   the first warp spins as one, so its vote sees a whole window.
+// - No zeroing per call: the scratch (ticket counter, then one 64-bit
+//   status word a tile) is allocated once per device and tile count and
+//   never cleared.  Tickets only grow, so launch e of a scratch holds
+//   tickets e*T .. e*T+T-1: tile = ticket % T, and a status word carries
+//   the launch's tag (e mod 4095, plus 1) beside its flag and counts, so a
+//   word left by the previous launch (every launch writes every word)
+//   reads as not yet published.  A word is tag (12 bits), flag (2),
+//   retired lanes (25) and live lanes (25), published by one atomicExch
+//   and read by volatile loads, so lanes < 2^25.
+// - head', segments' and the live count are written exactly, once, by the
+//   last tile, which holds the inclusive totals: head + retired, segments
+//   + live, and live - retired + min(max(n_pix - head, 0), retired) (the
+//   retired lanes take slots head, head+1, ..., so that many stay live).
+// The launch shape (V, B) is a parameter; fused_step_shape in
+// ops/fused_schedule.py holds the rule, from the sweep in PERF.md.  The
+// TPU kernel's lane-major planes, u32 -> f32 split, matmul prefix sum,
+// float32 running head and retire FIFO are not carried over.
 
 #include <cstdint>
 
@@ -54,10 +85,13 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr unsigned long long kAggregate = 1ull << 32;  // count of this block only
-constexpr unsigned long long kPrefix = 2ull << 32;     // count of every lane up to this block's last
+// A tile's status word: tag << 52 | flag | retired lanes << 25 | live lanes.
+constexpr int kTagShift = 52;
+constexpr unsigned long long kTags = 4095;             // tags 1..4095; 0 is a fresh word
+constexpr unsigned long long kAggregate = 1ull << 50;  // counts of this tile only
+constexpr unsigned long long kInclusive = 2ull << 50;  // counts of every lane up to this tile's last
+constexpr int kDoneShift = 25;
+constexpr unsigned long long kCountMask = (1ull << 25) - 1;
 constexpr float kInvU32 = 2.3283064365386963e-10f;     // 2^-32
 
 __device__ __forceinline__ uint32_t pcg_hash(uint32_t x) {
@@ -69,7 +103,141 @@ __device__ __forceinline__ uint32_t pcg_hash(uint32_t x) {
 // max that propagates NaN, as torch.amax does.
 __device__ __forceinline__ float max_nan(float a, float b) { return (a != a || a > b) ? a : b; }
 
-__global__ void __launch_bounds__(kThreads) fused_step_kernel(
+__device__ __forceinline__ unsigned long long status_word(unsigned long long tag, unsigned long long flag,
+                                                          long long done, long long live) {
+  return (tag << kTagShift) | flag | (static_cast<unsigned long long>(done) << kDoneShift) |
+         static_cast<unsigned long long>(live);
+}
+
+// One lane's Russian roulette and estimator, as the plain version computes
+// them.  In: the payload's seed, done flag, attenuation `a` and radiance
+// `r`, and the lane's pixel sum `acc`, sample count `si` and depth `dp`.
+// Out: the advanced seed; for a lane that goes on (returns 1) the
+// attenuation it carries on in `a` and dp - 1; for a lane whose path ends
+// (returns 2, or 3 when that was its pixel's last sample) the sum with
+// this sample in `acc` and si + 1.
+__device__ __forceinline__ int roulette(uint32_t& seed, bool tb_done, float (&a)[3], const float (&r)[3],
+                                        float (&acc)[3], int& si, int& dp, int spp, int rr_reference) {
+  seed = pcg_hash(seed);
+  const float u_rr = __uint2float_rn(seed) * kInvU32;
+  const float p = max_nan(max_nan(a[0], a[1]), a[2]);
+  const float p_safe = p > 0.f ? p : 1.f;
+  if (!(tb_done || u_rr > p)) {
+    if (!rr_reference) {
+      const float p_div = fminf(p_safe, 1.f);  // survival probability is min(p, 1)
+      for (int c = 0; c < 3; ++c) a[c] = a[c] / p_div;
+    }
+    dp -= 1;
+    return 1;
+  }
+  for (int c = 0; c < 3; ++c) acc[c] = acc[c] + (rr_reference ? r[c] / p_safe : r[c]);
+  si += 1;
+  return si >= spp ? 3 : 2;
+}
+
+// The block's share of one launch: its ticket, tile and tag, the warps'
+// counts, and the retired lanes of earlier tiles.
+template <int B>
+struct Tile {
+  unsigned long long ticket;
+  int warp_done[B / 32], warp_live[B / 32];
+  long long before;  // retired lanes in earlier tiles
+};
+
+// Takes the block's ticket: sets its tile and the launch's tag.
+template <int B>
+__device__ __forceinline__ void take_ticket(Tile<B>& sh, unsigned long long* scratch, int tiles, int& tile,
+                                            unsigned long long& tag) {
+  if (threadIdx.x == 0) sh.ticket = atomicAdd(&scratch[0], 1ull);
+  __syncthreads();
+  tile = static_cast<int>(sh.ticket % static_cast<unsigned long long>(tiles));
+  tag = (sh.ticket / tiles) % kTags + 1ull;  // never 0: a fresh word
+}
+
+// The tile's counts and the queue's prefix: every thread passes its
+// retired and live lanes and gets the retired lanes of this tile before
+// its own; the first warp publishes the tile, looks back, and leaves the
+// retired lanes of earlier tiles in sh.before (read after the next
+// __syncthreads); the last tile writes head', segments' and the live count.
+template <int B>
+__device__ __forceinline__ int tile_prefix(Tile<B>& sh, int done_count, int live_count, int tile, int tiles,
+                                           unsigned long long tag, unsigned long long* status,
+                                           const long long* head_in, const long long* seg_in, int n_pix,
+                                           long long* result) {
+  constexpr int W = B / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // ---- the tile's counts: a scan of retired lanes over the warp ----------
+  int incl = done_count, live_sum = live_count;
+#pragma unroll
+  for (int k = 1; k < 32; k <<= 1) {
+    const int up = __shfl_up_sync(0xffffffffu, incl, k);
+    if (lane >= k) incl += up;
+    live_sum += __shfl_xor_sync(0xffffffffu, live_sum, k);
+  }
+  if (lane == 31) {
+    sh.warp_done[warp] = incl;
+    sh.warp_live[warp] = live_sum;
+  }
+  __syncthreads();
+  int warp_offset = 0;
+  for (int w = 0; w < warp; ++w) warp_offset += sh.warp_done[w];
+  const int before_me = warp_offset + incl - done_count;  // retired lanes of this tile before this thread
+
+  // ---- the first warp publishes the tile and looks back ------------------
+  if (warp == 0) {
+    long long agg_done = 0, agg_live = 0;
+    for (int w = 0; w < W; ++w) {
+      agg_done += sh.warp_done[w];
+      agg_live += sh.warp_live[w];
+    }
+    long long excl_done = 0, excl_live = 0;
+    if (tile == 0) {
+      if (lane == 0) atomicExch(&status[0], status_word(tag, kInclusive, agg_done, agg_live));
+    } else {
+      if (lane == 0) atomicExch(&status[tile], status_word(tag, kAggregate, agg_done, agg_live));
+      const volatile unsigned long long* words = status;
+      for (int base = tile - 1;; base -= 32) {
+        const int q = base - lane;  // lane 0 reads the nearest predecessor
+        // Before tile 0: an inclusive prefix of nothing.  The warp spins as
+        // one until every word of the window is this launch's (a word of
+        // this launch always holds a flag), so the vote below sees them all.
+        unsigned long long s;
+        do {
+          s = q >= 0 ? words[q] : kInclusive | (tag << kTagShift);
+        } while (!__all_sync(0xffffffffu, (s >> kTagShift) == tag));
+        const unsigned inclusive = __ballot_sync(0xffffffffu, (s & kInclusive) != 0);
+        const int stop = inclusive ? __ffs(inclusive) - 1 : 31;  // nearest inclusive word
+        long long dn = lane <= stop ? static_cast<long long>((s >> kDoneShift) & kCountMask) : 0;
+        long long lv = lane <= stop ? static_cast<long long>(s & kCountMask) : 0;
+        for (int k = 16; k > 0; k >>= 1) {
+          dn += __shfl_xor_sync(0xffffffffu, dn, k);
+          lv += __shfl_xor_sync(0xffffffffu, lv, k);
+        }
+        excl_done += dn;
+        excl_live += lv;
+        if (inclusive) break;
+      }
+      if (lane == 0)
+        atomicExch(&status[tile], status_word(tag, kInclusive, excl_done + agg_done, excl_live + agg_live));
+    }
+    if (lane == 0) {
+      sh.before = excl_done;
+      if (tile == tiles - 1) {
+        const long long head = *head_in, retired = excl_done + agg_done, live = excl_live + agg_live;
+        const long long room = n_pix - head;
+        result[0] = head + retired;
+        result[1] = *seg_in + live;
+        result[2] = live - retired + (room < 0 ? 0 : (room < retired ? room : retired));
+      }
+    }
+  }
+
+  return before_me;
+}
+
+// One lane a thread (the launch rule's shape): coalesced scalar accesses.
+template <int B>
+__global__ void __launch_bounds__(B) fused_step_lane_kernel(
     const float* __restrict__ tb_o, const float* __restrict__ tb_d,      // [L,3]
     const float* __restrict__ tb_att, const float* __restrict__ tb_rad,  // [L,3]
     const long long* __restrict__ tb_seeds,                              // [L] u32 in int64
@@ -82,150 +250,313 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(
     float* __restrict__ accum,                                           // [L,3]
     float* __restrict__ out,                                             // [n_pix+1,3]
     const long long* __restrict__ head_in, const long long* __restrict__ seg_in,
-    unsigned long long* __restrict__ scratch,  // head', segments', live', ticket, status[blocks]
+    unsigned long long* __restrict__ scratch,  // ticket, then status[tiles]
     bool* __restrict__ regen_out,              // [L]
-    int n, int spp, int n_pix, int max_depth, int rr_reference, float inv_spp) {
-  __shared__ int ticket;
-  __shared__ int warp_done[kWarps];
-  __shared__ int warp_live[kWarps];
-  __shared__ long long before;  // retired lanes in earlier tickets
-  __shared__ int live_next_count;
-
-  if (threadIdx.x == 0) {
-    ticket = static_cast<int>(atomicAdd(&scratch[3], 1ull));
-    live_next_count = 0;
-  }
-  __syncthreads();
-  const int b = ticket;
-  const int i = b * kThreads + threadIdx.x;
+    long long* __restrict__ result,            // head', segments', live'
+    int n, int tiles, int spp, int n_pix, int max_depth, int rr_reference, float inv_spp) {
+  __shared__ Tile<B> sh;
+  int tile;
+  unsigned long long tag;
+  take_ticket(sh, scratch, tiles, tile, tag);
+  const int i = tile * B + threadIdx.x;
   const bool in = i < n;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-
-  // ---- Russian roulette and the estimator --------------------------------
   const int slot_old = in ? slot[i] : n_pix;
   const bool live = slot_old < n_pix;
-  bool newly = false, adv = false, pixel_done = false;
-  uint32_t seed_new = 0;
-  float r[3] = {0.f, 0.f, 0.f}, a[3] = {0.f, 0.f, 0.f}, acc[3] = {0.f, 0.f, 0.f};
-  int si = 0;
+  int fate = 0;
+  float acc[3], a[3], r[3];
+  int dp = 0;
   if (in) {
-    seed_new = pcg_hash(static_cast<uint32_t>(tb_seeds[i]));
-    const float u_rr = __uint2float_rn(seed_new) * kInvU32;
-    for (int c = 0; c < 3; ++c) {
-      a[c] = tb_att[3 * i + c];
-      r[c] = tb_rad[3 * i + c];
-    }
-    const float p = max_nan(max_nan(a[0], a[1]), a[2]);
-    const bool rr_done = tb_done[i] || (u_rr > p);
-    newly = live && rr_done;
-    adv = live && !rr_done;
-    const float p_safe = p > 0.f ? p : 1.f;
-    float res[3];
-    if (rr_reference) {
-      for (int c = 0; c < 3; ++c) res[c] = r[c] / p_safe;
-    } else {
-      const float p_div = fminf(p_safe, 1.f);  // survival probability is min(p, 1)
+    uint32_t seed = static_cast<uint32_t>(seeds[i]);
+    int si = sample_i[i];
+    dp = depth[i];
+    for (int c = 0; c < 3; ++c) acc[c] = accum[3 * i + c];
+    if (live) {
+      seed = static_cast<uint32_t>(__ldg(tb_seeds + i));
       for (int c = 0; c < 3; ++c) {
-        res[c] = r[c];
-        if (adv) a[c] = a[c] / p_div;
+        a[c] = __ldg(tb_att + 3 * i + c);
+        r[c] = __ldg(tb_rad + 3 * i + c);
+      }
+      fate = roulette(seed, __ldg(reinterpret_cast<const unsigned char*>(tb_done) + i) != 0, a, r, acc, si, dp,
+                      spp, rr_reference);
+    }
+    float po[3], pd[3];
+    if (fate == 1) {  // goes on: the payload's origin and direction
+      for (int c = 0; c < 3; ++c) {
+        po[c] = __ldg(tb_o + 3 * i + c);
+        pd[c] = __ldg(tb_d + 3 * i + c);
+      }
+    } else {  // keeps its origin, direction, attenuation and radiance
+      for (int c = 0; c < 3; ++c) {
+        po[c] = o[3 * i + c];
+        pd[c] = d[3 * i + c];
+        a[c] = att[3 * i + c];
+        r[c] = rad[3 * i + c];
       }
     }
-    for (int c = 0; c < 3; ++c) acc[c] = accum[3 * i + c] + (newly ? res[c] : 0.f);
-    si = sample_i[i] + (newly ? 1 : 0);
-    pixel_done = newly && si >= spp;
-    if (pixel_done) {
-      float* row = out + 3 * static_cast<size_t>(slot_old);
-      for (int c = 0; c < 3; ++c) row[c] = row[c] + acc[c] * inv_spp;
+    for (int c = 0; c < 3; ++c) {  // every lane rewrites what any fate may change: whole sectors
+      o[3 * i + c] = po[c];
+      d[3 * i + c] = pd[c];
     }
+    seeds[i] = static_cast<long long>(seed);
+    sample_i[i] = fate == 3 ? 0 : si;
+    for (int c = 0; c < 3; ++c) accum[3 * i + c] = fate == 3 ? 0.f : acc[c];
   }
+  const int before_me = tile_prefix(sh, fate == 3, live, tile, tiles, tag, scratch + 1, head_in, seg_in, n_pix,
+                                    result);
+  if (fate == 3) {  // the pixel's mean into its image row
+    float* row = out + 3 * static_cast<size_t>(slot_old);
+    for (int c = 0; c < 3; ++c) row[c] = row[c] + acc[c] * inv_spp;
+  }
+  const int pix_old = in ? pix[i] : 0;
+  __syncthreads();
+  if (!in) return;
+  int new_slot = slot_old, new_pix = pix_old;
+  bool regen = fate >= 2;  // a lane whose path ends keeps a live slot unless its pixel is done
+  if (fate == 3) {         // identity pixel mapping: pix = slot
+    new_slot = new_pix = static_cast<int>(*head_in + sh.before + before_me);
+    regen = new_slot < n_pix;
+  }
+  slot[i] = new_slot;
+  pix[i] = new_pix;
+  for (int c = 0; c < 3; ++c) {
+    att[3 * i + c] = regen ? 1.f : a[c];
+    rad[3 * i + c] = regen ? 0.f : r[c];
+  }
+  depth[i] = regen ? max_depth : dp;
+  regen_out[i] = regen;
+}
 
-  // ---- the work queue: exact prefix sum in lane order --------------------
-  const unsigned done_bits = __ballot_sync(0xffffffffu, pixel_done);
-  const unsigned live_bits = __ballot_sync(0xffffffffu, live);
-  if (lane == 0) {
-    warp_done[warp] = __popc(done_bits);
-    warp_live[warp] = __popc(live_bits);
-  }
-  __syncthreads();
-  int warp_offset = 0, block_done = 0, block_live = 0;
-  for (int w = 0; w < kWarps; ++w) {
-    if (w < warp) warp_offset += warp_done[w];
-    block_done += warp_done[w];
-    block_live += warp_live[w];
-  }
-  if (threadIdx.x == 0) {
-    volatile unsigned long long* status = scratch + 4;
-    long long earlier = 0;
-    if (b == 0) {
-      atomicExch(const_cast<unsigned long long*>(&status[0]), kPrefix | block_done);
-    } else {
-      atomicExch(const_cast<unsigned long long*>(&status[b]), kAggregate | block_done);
-      for (int q = b - 1; q >= 0; --q) {
-        unsigned long long s;
-        do {
-          s = status[q];
-        } while ((s >> 32) == 0);
-        earlier += static_cast<long long>(s & 0xffffffffull);
-        if ((s & kPrefix) != 0) break;
-      }
-      atomicExch(const_cast<unsigned long long*>(&status[b]),
-                 kPrefix | static_cast<unsigned long long>(earlier + block_done));
-    }
-    before = earlier;
-    const long long base_head = b == 0 ? *head_in : 0;
-    const long long base_seg = b == 0 ? *seg_in : 0;
-    atomicAdd(&scratch[0], static_cast<unsigned long long>(base_head + block_done));
-    atomicAdd(&scratch[1], static_cast<unsigned long long>(base_seg + block_live));
-  }
-  __syncthreads();
-  const int inclusive = warp_offset + __popc(done_bits & (0xffffffffu >> (31 - lane)));
-  const int new_slot = pixel_done ? static_cast<int>(*head_in + before + inclusive - 1) : slot_old;
-  const bool live_next = new_slot < n_pix;
-  const unsigned next_bits = __ballot_sync(0xffffffffu, in && live_next);
-  if (lane == 0) atomicAdd(&live_next_count, __popc(next_bits));
+// A group of four lanes' [4,3] float32 block as 12 floats, lane-major, in
+// three 16-byte accesses.
+__device__ __forceinline__ void load12(const float* p, float (&f)[12]) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+  const float4 v0 = q[0], v1 = q[1], v2 = q[2];
+  f[0] = v0.x; f[1] = v0.y; f[2] = v0.z; f[3] = v0.w;
+  f[4] = v1.x; f[5] = v1.y; f[6] = v1.z; f[7] = v1.w;
+  f[8] = v2.x; f[9] = v2.y; f[10] = v2.z; f[11] = v2.w;
+}
 
-  // ---- masked state merges and the regen mask ------------------------------
-  if (in) {
-    const bool regen = newly && live_next;
-    for (int c = 0; c < 3; ++c) {
-      const int k = 3 * i + c;
-      if (adv) {
-        o[k] = tb_o[k];
-        d[k] = tb_d[k];
+// The same through the read-only cache: for the trace payload only, which
+// nothing writes during the launch.
+__device__ __forceinline__ void load12_ro(const float* p, float (&f)[12]) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+  const float4 v0 = __ldg(q), v1 = __ldg(q + 1), v2 = __ldg(q + 2);
+  f[0] = v0.x; f[1] = v0.y; f[2] = v0.z; f[3] = v0.w;
+  f[4] = v1.x; f[5] = v1.y; f[6] = v1.z; f[7] = v1.w;
+  f[8] = v2.x; f[9] = v2.y; f[10] = v2.z; f[11] = v2.w;
+}
+
+__device__ __forceinline__ void store12(float* p, const float (&f)[12]) {
+  float4* q = reinterpret_cast<float4*>(p);
+  q[0] = make_float4(f[0], f[1], f[2], f[3]);
+  q[1] = make_float4(f[4], f[5], f[6], f[7]);
+  q[2] = make_float4(f[8], f[9], f[10], f[11]);
+}
+
+__device__ __forceinline__ void load4(const int* p, int (&v)[4]) {
+  const int4 x = *reinterpret_cast<const int4*>(p);
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+}
+
+__device__ __forceinline__ void store4(int* p, const int (&v)[4]) {
+  *reinterpret_cast<int4*>(p) = make_int4(v[0], v[1], v[2], v[3]);
+}
+
+// V lanes a thread (4 or 8: whole groups of four) with 16-byte accesses: a
+// launch-shape alternative to one lane a thread, which the sweep keeps
+// measuring (PERF.md, the kernel 7 findings).
+template <int V, int B>
+__global__ void __launch_bounds__(B) fused_step_kernel(
+    const float* __restrict__ tb_o, const float* __restrict__ tb_d, const float* __restrict__ tb_att,
+    const float* __restrict__ tb_rad, const long long* __restrict__ tb_seeds, const bool* __restrict__ tb_done,
+    float* __restrict__ o, float* __restrict__ d, float* __restrict__ att, float* __restrict__ rad,
+    long long* __restrict__ seeds, int* __restrict__ slot, int* __restrict__ pix, int* __restrict__ sample_i,
+    int* __restrict__ depth, float* __restrict__ accum, float* __restrict__ out,
+    const long long* __restrict__ head_in, const long long* __restrict__ seg_in,
+    unsigned long long* __restrict__ scratch, bool* __restrict__ regen_out, long long* __restrict__ result,
+    int n, int tiles, int spp, int n_pix, int max_depth, int rr_reference, float inv_spp) {
+  constexpr int G = V / 4;  // groups of four lanes a thread
+  __shared__ Tile<B> sh;
+  int tile;
+  unsigned long long tag;
+  take_ticket(sh, scratch, tiles, tile, tag);
+  const int first = tile * (V * B) + threadIdx.x * V;  // this thread's first lane
+  // Kept across the queue's prefix, per group: the lanes' fates, old slots
+  // and pix, the pixel sums of done pixels, the attenuation, radiance and
+  // depth each lane keeps unless it respawns.
+  int fate[G][4], slot_old[G][4], pix_old[G][4], dp[G][4];
+  float acc[G][12], a[G][12], r[G][12];
+  int done_count = 0, live_count = 0;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int l0 = first + 4 * g;
+    for (int j = 0; j < 4; ++j) fate[g][j] = 0;
+    if (l0 >= n) continue;  // n % 4 == 0: groups are whole
+    long long sd[4];
+    float po[12], pd[12];
+    int si[4];
+    load4(slot + l0, slot_old[g]);
+    load4(pix + l0, pix_old[g]);
+    load4(sample_i + l0, si);
+    load4(depth + l0, dp[g]);
+    const longlong2 s01 = reinterpret_cast<const longlong2*>(seeds + l0)[0];
+    const longlong2 s23 = reinterpret_cast<const longlong2*>(seeds + l0)[1];
+    sd[0] = s01.x; sd[1] = s01.y; sd[2] = s23.x; sd[3] = s23.y;
+    load12(accum + 3 * l0, acc[g]);
+    load12(o + 3 * l0, po);
+    load12(d + 3 * l0, pd);
+    load12(att + 3 * l0, a[g]);
+    load12(rad + 3 * l0, r[g]);
+    unsigned m_live = 0, m_adv = 0;
+    for (int j = 0; j < 4; ++j) m_live |= (slot_old[g][j] < n_pix ? 1u : 0u) << j;
+    if (m_live) {
+      const uint32_t done4 = __ldg(reinterpret_cast<const unsigned*>(tb_done + l0));
+      const longlong2 t01 = __ldg(reinterpret_cast<const longlong2*>(tb_seeds + l0));
+      const longlong2 t23 = __ldg(reinterpret_cast<const longlong2*>(tb_seeds + l0 + 2));
+      const long long td[4] = {t01.x, t01.y, t23.x, t23.y};
+      float ta[12], tr[12];
+      load12_ro(tb_att + 3 * l0, ta);
+      load12_ro(tb_rad + 3 * l0, tr);
+      for (int j = 0; j < 4; ++j) {
+        if (!(m_live >> j & 1u)) continue;
+        uint32_t seed = static_cast<uint32_t>(td[j]);
+        float aj[3] = {ta[3 * j], ta[3 * j + 1], ta[3 * j + 2]};
+        const float rj[3] = {tr[3 * j], tr[3 * j + 1], tr[3 * j + 2]};
+        float cj[3] = {acc[g][3 * j], acc[g][3 * j + 1], acc[g][3 * j + 2]};
+        fate[g][j] = roulette(seed, ((done4 >> (8 * j)) & 0xffu) != 0, aj, rj, cj, si[j], dp[g][j], spp,
+                              rr_reference);
+        sd[j] = static_cast<long long>(seed);
+        for (int c = 0; c < 3; ++c) acc[g][3 * j + c] = cj[c];
+        if (fate[g][j] == 1) {
+          m_adv |= 1u << j;
+          for (int c = 0; c < 3; ++c) {
+            a[g][3 * j + c] = aj[c];
+            r[g][3 * j + c] = rj[c];
+          }
+        }
+        done_count += fate[g][j] == 3;
       }
-      att[k] = regen ? 1.f : (adv ? a[c] : att[k]);
-      rad[k] = regen ? 0.f : (adv ? r[c] : rad[k]);
-      accum[k] = pixel_done ? 0.f : acc[c];
+      live_count += __popc(m_live);
     }
-    if (live) seeds[i] = static_cast<long long>(seed_new);
-    depth[i] = regen ? max_depth : (adv ? depth[i] - 1 : depth[i]);
-    slot[i] = new_slot;
-    if (pixel_done) pix[i] = new_slot;  // identity pixel mapping
-    sample_i[i] = pixel_done ? 0 : si;
-    regen_out[i] = regen;
+    if (m_adv) {  // lanes that go on take the payload's origin and direction
+      float to[12], tdir[12];
+      load12_ro(tb_o + 3 * l0, to);
+      load12_ro(tb_d + 3 * l0, tdir);
+      for (int k = 0; k < 12; ++k)
+        if (m_adv >> (k / 3) & 1u) {
+          po[k] = to[k];
+          pd[k] = tdir[k];
+        }
+    }
+    float sums[12];
+    for (int k = 0; k < 12; ++k) sums[k] = fate[g][k / 3] == 3 ? 0.f : acc[g][k];
+    for (int j = 0; j < 4; ++j)
+      if (fate[g][j] == 3) si[j] = 0;
+    store12(o + 3 * l0, po);
+    store12(d + 3 * l0, pd);
+    store12(accum + 3 * l0, sums);
+    store4(sample_i + l0, si);
+    longlong2* q = reinterpret_cast<longlong2*>(seeds + l0);
+    q[0] = make_longlong2(sd[0], sd[1]);
+    q[1] = make_longlong2(sd[2], sd[3]);
   }
+  int before_me = tile_prefix(sh, done_count, live_count, tile, tiles, tag, scratch + 1, head_in, seg_in, n_pix,
+                              result);
+#pragma unroll
+  for (int g = 0; g < G; ++g)  // done pixels' means into their image rows
+    for (int j = 0; j < 4; ++j) {
+      if (fate[g][j] != 3) continue;
+      float* row = out + 3 * static_cast<size_t>(slot_old[g][j]);
+      for (int c = 0; c < 3; ++c) row[c] = row[c] + acc[g][3 * j + c] * inv_spp;
+    }
   __syncthreads();
-  if (threadIdx.x == 0) atomicAdd(&scratch[2], static_cast<unsigned long long>(live_next_count));
+  const long long base_slot = *head_in + sh.before;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int l0 = first + 4 * g;
+    if (l0 >= n) continue;
+    uint32_t bytes = 0;
+    for (int j = 0; j < 4; ++j) {
+      bool regen = fate[g][j] >= 2;  // a lane whose path ends keeps a live slot unless its pixel is done
+      if (fate[g][j] == 3) {         // identity pixel mapping: pix = slot
+        slot_old[g][j] = pix_old[g][j] = static_cast<int>(base_slot + before_me++);
+        regen = slot_old[g][j] < n_pix;
+      }
+      if (regen) {
+        for (int c = 0; c < 3; ++c) {
+          a[g][3 * j + c] = 1.f;
+          r[g][3 * j + c] = 0.f;
+        }
+        dp[g][j] = max_depth;
+      }
+      bytes |= (regen ? 1u : 0u) << (8 * j);
+    }
+    store4(slot + l0, slot_old[g]);
+    store4(pix + l0, pix_old[g]);
+    store12(att + 3 * l0, a[g]);
+    store12(rad + 3 * l0, r[g]);
+    store4(depth + l0, dp[g]);
+    *reinterpret_cast<uint32_t*>(regen_out + l0) = bytes;
+  }
+}
+
+template <int V, int B>
+int launch(const float* tb_o, const float* tb_d, const float* tb_att, const float* tb_rad,
+           const long long* tb_seeds, const bool* tb_done, float* o, float* d, float* att, float* rad,
+           long long* seeds, int* slot, int* pix, int* sample_i, int* depth, float* accum, float* out,
+           const long long* head_in, const long long* seg_in, unsigned long long* scratch, bool* regen_out,
+           long long* result, int n, int spp, int n_pix, int max_depth, int rr_reference, float inv_spp,
+           cudaStream_t stream) {
+  const int tiles = (n + V * B - 1) / (V * B);
+  if constexpr (V == 1)
+    fused_step_lane_kernel<B><<<tiles, B, 0, stream>>>(
+        tb_o, tb_d, tb_att, tb_rad, tb_seeds, tb_done, o, d, att, rad, seeds, slot, pix, sample_i, depth, accum,
+        out, head_in, seg_in, scratch, regen_out, result, n, tiles, spp, n_pix, max_depth, rr_reference, inv_spp);
+  else
+    fused_step_kernel<V, B><<<tiles, B, 0, stream>>>(
+        tb_o, tb_d, tb_att, tb_rad, tb_seeds, tb_done, o, d, att, rad, seeds, slot, pix, sample_i, depth, accum,
+        out, head_in, seg_in, scratch, regen_out, result, n, tiles, spp, n_pix, max_depth, rr_reference, inv_spp);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches one block of 256 lanes per 256 lanes of the pool on `stream`.
-// `scratch` ([4 + blocks] int64) must be zero.  Returns cudaGetLastError()
-// after the launch (0 = launched).
+// Launches tiles of `lanes_per_thread` x `threads` lanes (one of the
+// shapes below) on `stream`, one block a tile.  `scratch` ([1 + tiles] int64)
+// is zero before its first launch and is used only by launches of the
+// same tile count, one at a time; `result` ([3] int64) takes head',
+// segments' and the live count.  n % 4 == 0, n < 2^25, every tensor
+// 16-byte aligned.
+// Returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a shape that is not built.
 extern "C" int fused_step_launch(
     const float* tb_o, const float* tb_d, const float* tb_att, const float* tb_rad,
     const long long* tb_seeds, const bool* tb_done,
     float* o, float* d, float* att, float* rad, long long* seeds,
     int* slot, int* pix, int* sample_i, int* depth, float* accum,
     float* out, const long long* head_in, const long long* seg_in,
-    unsigned long long* scratch, bool* regen_out,
-    int n, int spp, int n_pix, int max_depth, int rr_reference, float inv_spp, void* stream) {
+    unsigned long long* scratch, bool* regen_out, long long* result,
+    int n, int spp, int n_pix, int max_depth, int rr_reference, float inv_spp,
+    int lanes_per_thread, int threads, void* stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  fused_step_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      tb_o, tb_d, tb_att, tb_rad, tb_seeds, tb_done, o, d, att, rad, seeds,
-      slot, pix, sample_i, depth, accum, out, head_in, seg_in, scratch, regen_out,
-      n, spp, n_pix, max_depth, rr_reference, inv_spp);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FUSED_STEP_SHAPE(V, B)                                                                               \
+  if (lanes_per_thread == V && threads == B)                                                                 \
+    return launch<V, B>(tb_o, tb_d, tb_att, tb_rad, tb_seeds, tb_done, o, d, att, rad, seeds, slot, pix,     \
+                        sample_i, depth, accum, out, head_in, seg_in, scratch, regen_out, result, n, spp,    \
+                        n_pix, max_depth, rr_reference, inv_spp, s);
+  FUSED_STEP_SHAPE(1, 128)
+  FUSED_STEP_SHAPE(1, 256)
+  FUSED_STEP_SHAPE(1, 512)
+  FUSED_STEP_SHAPE(1, 1024)
+  FUSED_STEP_SHAPE(4, 32)
+  FUSED_STEP_SHAPE(4, 64)
+  FUSED_STEP_SHAPE(4, 128)
+  FUSED_STEP_SHAPE(4, 256)
+  FUSED_STEP_SHAPE(4, 512)
+  FUSED_STEP_SHAPE(8, 64)
+  FUSED_STEP_SHAPE(8, 128)
+  FUSED_STEP_SHAPE(8, 256)
+#undef FUSED_STEP_SHAPE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -62,8 +62,9 @@ LAUNCHERS = {
     ),
     "fused_schedule.cu": (
         "fused_step_launch",
-        [_P] * 21 + [_I] * 5 + [_F] + [_P],
+        [_P] * 22 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
     ),
+    "unit_sphere.cu": ("unit_sphere_launch", [_P] * 3 + [_I] + [_P]),
 }
 # source: {another function of its library: the function's argument types}.
 # The traversal kernels (flat, hier and streamed) have a packet-weight

@@ -30,6 +30,8 @@ f32, seeds [L] int64, done [L] bool.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from tpu_pathtracer_torch.ops.cuda_build import check_tensor, library
@@ -38,7 +40,9 @@ from tpu_pathtracer_torch.utils import rng
 TB_KEYS = ("origin", "direction", "attenuation", "radiance", "seeds", "done")
 STATE_KEYS = ("origin", "direction", "attenuation", "radiance", "seeds",
               "slot", "pix", "sample_i", "depth", "lane_accum")
-THREADS = 256  # lanes per block of the kernel (csrc/fused_schedule.cu)
+# The kernel's launch shapes (csrc/fused_schedule.cu): lanes a thread, threads a block.
+SHAPES = ((1, 128), (1, 256), (1, 512), (1, 1024), (4, 32), (4, 64), (4, 128), (4, 256), (4, 512), (8, 64),
+          (8, 128), (8, 256))
 
 
 def roulette(tb, live, rr_reference: bool):
@@ -113,41 +117,69 @@ _LANE_DTYPES = {"seeds": torch.int64, "done": torch.bool, "slot": torch.int32, "
                 "sample_i": torch.int32, "depth": torch.int32}
 
 
+def fused_step_shape(lanes: int) -> tuple[int, int]:
+    """The kernel's launch shape for a pool of `lanes`: (lanes a thread,
+    threads a block); a tile (one block) holds their product.  One lane a
+    thread in blocks of 256, 128 above 262,144 lanes: the fastest of
+    SHAPES at 16,384, 131,072 and 524,288 lanes on an H100 80GB HBM3
+    (chip_smoke.py phase 18; PERF.md, the kernel 7 findings)."""
+    return 1, (256 if lanes <= 262_144 else 128)
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch(device: torch.device, tiles: int) -> torch.Tensor:
+    """The kernel's scratch for launches of `tiles` tiles on `device`: a
+    ticket counter, then a status word a tile.
+    Zeroed once here and never again: a launch tags its status words with
+    its own number, read off the ticket counter (csrc/fused_schedule.cu).
+    Launches that share it run one at a time, on one stream."""
+    return torch.zeros(1 + tiles, dtype=torch.int64, device=device)
+
+
 def _check_step(tb, st, out, head, segments, n_pix):
     dev = st["slot"].device
     if not st["slot"].is_cuda:
         raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
     lanes = st["slot"].shape[0]
+    if lanes % 4 or lanes >= 2**25 or n_pix + lanes >= 2**31:
+        raise ValueError(f"the kernel takes whole groups of 4 lanes, fewer than 2^25, and slots below 2^31: "
+                         f"{lanes} lanes, {n_pix} pixels")
     for what, tensors, keys in (("tb", tb, TB_KEYS), ("st", st, STATE_KEYS)):
         for key in keys:
             dtype = _LANE_DTYPES.get(key, torch.float32)
-            check_tensor(f"{what}[{key!r}]", tensors[key], dtype, (lanes,) if key in _LANE_DTYPES else (lanes, 3), dev)
+            x = tensors[key]
+            check_tensor(f"{what}[{key!r}]", x, dtype, (lanes,) if key in _LANE_DTYPES else (lanes, 3), dev)
+            if x.data_ptr() % 16:
+                raise ValueError(f"{what}[{key!r}] must be 16-byte aligned")
     check_tensor("out", out, torch.float32, (n_pix + 1, 3), dev)
     check_tensor("head", head, torch.int64, (), dev)
     check_tensor("segments", segments, torch.int64, (), dev)
 
 
 def fused_stream_step_cuda(tb, st, out, head, segments, *, spp: int, n_pix: int, max_depth: int,
-                           rr_reference: bool, inv_spp: float):
+                           rr_reference: bool, inv_spp: float, shape: tuple[int, int] | None = None):
     """Launch the kernel on CUDA tensors; same contract as the plain
-    version."""
+    version.  `shape` (lanes a thread, threads a block; one of SHAPES)
+    overrides `fused_step_shape`."""
     _check_step(tb, st, out, head, segments, n_pix)
-    lanes = st["slot"].shape[0]
-    blocks = -(-lanes // THREADS)
-    # head', segments', live', block ticket, then one status word a block.
-    scratch = torch.zeros(4 + blocks, dtype=torch.int64, device=out.device)
-    regen = torch.empty(lanes, dtype=torch.bool, device=out.device)
+    lanes, dev = st["slot"].shape[0], out.device
+    per_thread, threads = shape or fused_step_shape(lanes)
+    if (per_thread, threads) not in SHAPES:
+        raise ValueError(f"no kernel of shape {(per_thread, threads)}: one of {SHAPES}")
+    regen = torch.empty(lanes, dtype=torch.bool, device=dev)
+    result = torch.empty(3, dtype=torch.int64, device=dev)  # head', segments', live'
     err = library("fused_schedule.cu").fused_step_launch(
         *(tb[k].data_ptr() for k in TB_KEYS),
         *(st[k].data_ptr() for k in STATE_KEYS),
-        out.data_ptr(), head.data_ptr(), segments.data_ptr(), scratch.data_ptr(), regen.data_ptr(),
-        lanes, spp, n_pix, max_depth, int(rr_reference), float(inv_spp),
-        torch.cuda.current_stream(out.device).cuda_stream,
+        out.data_ptr(), head.data_ptr(), segments.data_ptr(),
+        _scratch(dev, -(-lanes // (per_thread * threads))).data_ptr(), regen.data_ptr(), result.data_ptr(),
+        lanes, spp, n_pix, max_depth, int(rr_reference), float(inv_spp), per_thread, threads,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
         raise RuntimeError(f"fused_step_kernel launch failed: CUDA error {err}")
     fused_stream_step.launches += 1
-    return regen, scratch[0], scratch[1], scratch[2]
+    return regen, result[0], result[1], result[2]
 
 
 def fused_stream_step(tb, st, out, head, segments, *, spp: int, n_pix: int, max_depth: int,

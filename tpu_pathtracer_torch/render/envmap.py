@@ -21,6 +21,7 @@ import torch
 from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.scene.scene import SCRAMBLE_MULT, EnvironmentMap
 from tpu_pathtracer_torch.utils import math as vm
+from tpu_pathtracer_torch.utils.device import constant
 
 _LUMA = (0.2126, 0.7152, 0.0722)
 
@@ -68,10 +69,10 @@ def sunsky(direction: torch.Tensor) -> torch.Tensor:
     """A disk of (200,175,125) around normalize(0,2,3), else (0.4,0.4,0.6)."""
     dev = direction.device
     d = vm.normalize(direction)
-    sun_dir = vm.normalize(torch.tensor([0.0, 2.0, 3.0], dtype=torch.float32, device=dev))
+    sun_dir = vm.normalize(constant((0.0, 2.0, 3.0), torch.float32, dev))
     in_sun = vm.dot(d, sun_dir) > 0.99
-    sun = torch.tensor([200.0, 175.0, 125.0], dtype=torch.float32, device=dev)
-    sky = torch.tensor([0.4, 0.4, 0.6], dtype=torch.float32, device=dev)
+    sun = constant((200.0, 175.0, 125.0), torch.float32, dev)
+    sky = constant((0.4, 0.4, 0.6), torch.float32, dev)
     return torch.where(in_sun[..., None], sun, sky)
 
 
@@ -86,7 +87,7 @@ def eval_env(env: EnvironmentMap, direction: torch.Tensor, cfg: RenderConfig, ac
     constant and sunsky modes."""
     del active
     if cfg.env_mode == "constant":
-        c = torch.tensor(cfg.env_constant, dtype=torch.float32, device=direction.device)
+        c = constant(tuple(cfg.env_constant), torch.float32, direction.device)
         return c.expand(direction.shape)
     if cfg.env_mode == "sunsky":
         return sunsky(direction)

@@ -23,7 +23,7 @@ on the TPU and is not ported.
 
 The schedules run eagerly: a Python loop over iterations that reads one
 value from the device per iteration (whether any lane is still live, or
-how many are).
+how many are: `_read`, the iteration's only stream sync).
 Branches of the JAX integrator that are not ported (deferred shading,
 affine pixel ranges) raise NotImplementedError naming their ROADMAP item.
 """
@@ -46,6 +46,7 @@ from tpu_pathtracer_torch.scene import scene as S
 from tpu_pathtracer_torch.scene.scene import Scene
 from tpu_pathtracer_torch.utils import math as vm
 from tpu_pathtracer_torch.utils import rng
+from tpu_pathtracer_torch.utils.device import constant
 
 
 def _interp(w: torch.Tensor, corners: torch.Tensor) -> torch.Tensor:
@@ -129,7 +130,7 @@ def _shade(scene: Scene, cfg: RenderConfig, hit: Hit, origins, directions, seeds
 
     diffuse_albedo = prop(0, ma[:, S.MAT_DIFFUSE])
 
-    nmap_fallback = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=ma.device).expand(n_lanes, 3)
+    nmap_fallback = constant((0.0, 1.0, 0.0), torch.float32, ma.device).expand(n_lanes, 3)
     nmap = prop(2, nmap_fallback)
     # Decode 2n-1 and swap the Y/Z channels.
     decoded = vm.normalize(2.0 * nmap - 1.0)
@@ -398,6 +399,14 @@ def _trace_bounce(scene, cfg, origin, direction, attenuation, radiance, seeds, d
 # Camera paths, shared by the schedules
 # ---------------------------------------------------------------------------
 
+def _read(x: torch.Tensor) -> int:
+    """The schedule loop's one read of the device per iteration: whether
+    any lane is live, or how many are.  It is the only stream sync inside
+    an iteration: everything else the loop runs is queued without waiting
+    for the card, so the host can run ahead of it."""
+    return int(x)
+
+
 def _camera_paths(cam: dict, cfg: RenderConfig, subframe, sample_offset):
     """make_path(pix, sample_i) -> (origins, directions, seeds): a fresh
     camera path for each (pixel id, sample of this launch), seeded from
@@ -441,7 +450,7 @@ def render_rays(scene: Scene, cfg: RenderConfig, origins, directions, seeds, ret
     max_traces = cfg.max_depth + 2  # depth <= 0 forces done; +1 safety
 
     bounce = 0
-    while bounce < max_traces and not bool(terminated.all()):
+    while bounce < max_traces and not _read(terminated.all()):
         live = ~terminated
         tb = _trace_bounce(scene, cfg, origin, direction, attenuation, radiance, seeds, depth, spec_last)
         seeds_new, newly, adv, result_t, att_new = roulette(tb, live, cfg.rr_mode == "reference")
@@ -501,7 +510,7 @@ def render_pixels_regen(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids, s
     max_iters = spp * (cfg.max_depth + 2) + 4
 
     it = 0
-    while it < max_iters and not bool(exhausted.all()):
+    while it < max_iters and not _read(exhausted.all()):
         live = ~exhausted
         tb = _trace_bounce(scene, cfg, origin, direction, attenuation, radiance, seeds, depth, spec_last)
         seeds_new, newly, adv, result, att_new = roulette(tb, live, cfg.rr_mode == "reference")
@@ -527,7 +536,9 @@ def render_pixels_regen(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids, s
             shadow = shadow + (live & tb["hit"]).sum()
         it += 1
 
-    out = accum / torch.tensor(float(spp), dtype=torch.float32, device=dev)
+    # A float32 tensor on the card: a Python scalar divisor would be
+    # multiplied by its reciprocal there, a different rounding.
+    out = accum / torch.full((), float(spp), dtype=torch.float32, device=dev)
     if return_stats:
         return out, dict(iters=it, segments=segments, shadow_segments=shadow)
     return out
@@ -614,7 +625,7 @@ def render_pixels_stream(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids, 
         fused_stream_step_plain, slot_to_pixel=None if identity else slot_to_pixel)
     st = _stream_state(cfg, make_path, slot_to_pixel, lanes, dev)
     out = torch.zeros((n_pix + 1, 3), dtype=torch.float32, device=dev)  # +1 = sink
-    head = torch.tensor(lanes, dtype=torch.int64, device=dev)
+    head = torch.full((), lanes, dtype=torch.int64, device=dev)
     segments = torch.zeros((), dtype=torch.int64, device=dev)
     shadow = torch.zeros_like(segments)
     max_iters = (n_pix * spp * (cfg.max_depth + 2)) // lanes + cfg.max_depth + 16
@@ -634,7 +645,7 @@ def render_pixels_stream(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids, 
             # A lane that neither respawns nor goes on is not live again,
             # so its flag is never read.
             st["spec_last"] = torch.where(regen, torch.ones_like(st["spec_last"]), tb["spec_last"])
-        n_live = int(live)
+        n_live = _read(live)
         it += 1
 
     img = out[:n_pix]

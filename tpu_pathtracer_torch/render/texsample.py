@@ -12,17 +12,14 @@ import torch
 
 from tpu_pathtracer_torch.scene.scene import SCRAMBLE_MULT
 
+# 1/255: a float32 tensor times a Python float is a float32 product on
+# every device, by the float32 rounding of 1/255.
 _INV255 = 1.0 / 255.0
-
-
-def _inv255(device) -> torch.Tensor:
-    return torch.tensor(_INV255, dtype=torch.float32, device=device)
 
 
 def _decode_rgb(word: torch.Tensor):
     """RGBA8 word -> (r, g, b) float32 in [0,1]."""
-    inv = _inv255(word.device)
-    return tuple(((word >> s) & 0xFF).to(torch.float32) * inv for s in (0, 8, 16))
+    return tuple(((word >> s) & 0xFF).to(torch.float32) * _INV255 for s in (0, 8, 16))
 
 
 def _texel_coords(width, height, u, v):
@@ -86,7 +83,6 @@ def sample_bundle(bundles, offset, width, height, u, v, morton: bool = False, sc
     else:
         texel = y0 * width + x0
     rows = bundles[(offset + texel).long()]                  # [N,8]
-    inv = _inv255(rows.device)
 
     outs = []
     for base in (0, 4):                                      # word A, word B
@@ -96,7 +92,7 @@ def sample_bundle(bundles, offset, width, height, u, v, morton: bool = False, sc
             [_lerp2(*(corners[j][ch] for j in range(4)), s, t) for ch in range(3)],
             dim=-1,
         )
-        alpha = [((q[:, j] >> 24) & 0xFF).to(torch.float32) * inv for j in range(4)]
+        alpha = [((q[:, j] >> 24) & 0xFF).to(torch.float32) * _INV255 for j in range(4)]
         scalar = _lerp2(*alpha, s, t)
         outs.append(rgb)
         outs.append(torch.stack([scalar] * 3, dim=-1))

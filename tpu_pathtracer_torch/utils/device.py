@@ -1,7 +1,10 @@
 """Where the port's constructors put their tensors: on the card, unless the
-caller names another device (the tests pass device="cpu")."""
+caller names another device (the tests pass device="cpu"); and the small
+constant tensors that the render loop reuses on each device."""
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -18,3 +21,17 @@ def resolve(device) -> torch.device:
             "pass device='cpu' to build on the CPU"
         )
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """A small constant tensor (a Python number or a tuple of them), built
+    once per device and then reused.  Building it from host data copies it
+    to the card and waits for every queued kernel (a stream sync), so the
+    render loop must not build one per call.  Callers must not write to
+    it."""
+    return _constant(values, dtype, torch.device(device))

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from tpu_pathtracer_torch.utils.device import constant
+
 EPS = 1e-10
 
 
@@ -73,8 +75,8 @@ def onb_from_normal(normal: torch.Tensor):
     up = (0,1,0) unless |n.y| >= 0.9999, then (1,0,0)."""
     n = normalize(normal)
     ny = torch.abs(n[..., 1]) < 0.9999
-    up_y = torch.tensor([0.0, 1.0, 0.0], dtype=n.dtype, device=n.device)
-    up_x = torch.tensor([1.0, 0.0, 0.0], dtype=n.dtype, device=n.device)
+    up_y = constant((0.0, 1.0, 0.0), n.dtype, n.device)
+    up_x = constant((1.0, 0.0, 0.0), n.dtype, n.device)
     up = torch.where(ny[..., None], up_y, up_x)
     tangent = normalize(cross(up, n))
     binormal = normalize(cross(n, tangent))
