@@ -65,8 +65,12 @@ Phases, each printing one line (any failure exits non-zero):
      lanes on the headline's lane state and trace payload after 16
      unfused iterations, in both rr_modes, with the real queue head and
      with a head that sends some lanes past n_pix: state, image, regen
-     mask, head, segments and live count bit-equal; the kernel's, the
-     plain version's and the unfused schedule tail's times, and the bound;
+     mask, head, segments and live count bit-equal; the same at config
+     1's 16,384 lanes and at 128 and 524,288; the kernel's, the plain
+     version's and the unfused schedule tail's times, and the bound
+     (`--parent DIR`: an older checkout's kernel 7 timed in turns); 32
+     consecutive steps on one scratch, and one step repeated 4,200 times
+     on it, bit-equal to the plain version;
  19. the headline fused (fused_schedule="on") and unfused, one timed frame
      each of the same subframe: images bit-equal, iterations and segments
      identical, kernels 1 and 7 at least once per iteration and nothing
@@ -236,7 +240,9 @@ def counting_syncs():
             yield syncs
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    syncs.extend(w for w in caught if "synchroniz" in str(w.message))
+    # The mode's own first-use notice ("... does not yet detect all
+    # synchronizing operations") is not a sync.
+    syncs.extend(w for w in caught if "called a synchronizing CUDA operation" in str(w.message))
 
 
 def phase_device():
@@ -726,7 +732,8 @@ def phase_fused_kernel(label, scenes, smi, parent_dir=None):
     the parent's kernel 7 on the same states, in turns); the plain version
     and the schedule tails at the main path's pool.  Then 32 consecutive
     fused steps (trace, kernel, respawn) on one never-cleared scratch,
-    bit-equal to the plain version's at every step."""
+    bit-equal to the plain version's at every step, and one step repeated
+    4,200 times on one scratch, each launch equal to the plain version."""
     parent = parent_fused_step(parent_dir) if parent_dir else None
     numbers, lines = {}, []
     for pool, (name, frame, lanes, iters) in enumerate(FUSED_POOLS):
@@ -767,11 +774,10 @@ def phase_fused_kernel(label, scenes, smi, parent_dir=None):
                 raise SystemExit(f"[{label}] FAIL: no lane retired past n_pix at {lanes} lanes")
             if rr_mode != "reference":
                 continue
-            shape = fs.fused_step_shape(lanes)
             out_k = torch.zeros((n_pix + 1, 3), device=dev)
 
-            def kernel(s, at=shape):
-                fs.fused_stream_step_cuda(tb, s, out_k, head, seg, shape=at, **kw)
+            def kernel(s):
+                fs.fused_stream_step_cuda(tb, s, out_k, head, seg, **kw)
 
             order = ("parent", "kernel", "kernel", "parent") if parent else ("kernel",)
             times = {"parent": [], "kernel": []}
@@ -779,18 +785,14 @@ def phase_fused_kernel(label, scenes, smi, parent_dir=None):
                 fn = kernel if who == "kernel" else (lambda s: parent(tb, s, out_k, head, seg, **kw))
                 times[who].append(_time_over(fn, [copy() for _ in range(21)], device_only=True))
             ms = sum(times["kernel"]) / len(times["kernel"])
-            sweep = {at: _time_over(functools.partial(kernel, at=at), [copy() for _ in range(21)], device_only=True)
-                     for at in fs.SHAPES}
             n_bytes, n_live, n_done = step_bytes(tb, st, probe[0], n_pix, spp, True)
             flops = 15 * n_live + 6 * n_done  # RR draw and estimator per live lane; the mean and the add per pixel done
             t_ops, t_bytes = flops / PEAK_FP32 * 1e3, n_bytes / PEAK_BYTES * 1e3
             row = dict(max_abs_err=0.0, ms=ms, bound_ms=max(t_ops, t_bytes),
                        bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None)
-            timing = (f"{name} {lanes} lanes, shape {shape[0]} lanes x {shape[1]} threads a tile: kernel "
+            timing = (f"{name} {lanes} lanes, tiles of {fs.TILE_LANES}: kernel "
                       f"{' '.join(f'{t:.4f}' for t in times['kernel'])} ms"
                       + (f", parent {' '.join(f'{t:.4f}' for t in times['parent'])} ms" if parent else "")
-                      + "; by shape (lanes a thread x threads) "
-                      + ", ".join(f"{v}x{b} {t:.4f}" for (v, b), t in sweep.items()) + " ms"
                       + f"; {n_live} live lanes, {n_done} pixels done, {n_bytes} bytes the step must move, "
                         f"{flops} FLOP: bound {row['bound_ms']:.4f} ms by {row['bound_by']}")
             if pool < 2:  # the headline's and config 1's pools
@@ -808,7 +810,8 @@ def phase_fused_kernel(label, scenes, smi, parent_dir=None):
                            f"{_time_over(unfused_tail, [copy() for _ in range(6)]):.4f} ms, fused tail (kernel + "
                            f"respawn) {_time_over(fused_tail, [copy() for _ in range(6)]):.4f} ms")
                 numbers = row
-                steps_line = fused_steps(label, scene, cfg, st, head, make_path)
+                steps_line = (fused_steps(label, scene, cfg, st, head, make_path) + "; "
+                              + lookback_repeats(label, tb, st, head, seg, kw, n_pix))
             print(f"[{label}] fused_step timing: {timing} | {smi}")
     print(f"[{label}] fused_step: bit-equal (0 ulp) in state, image, regen mask, head, segments and live count: "
           f"{'; '.join(lines)}; {steps_line} | {smi}")
@@ -844,6 +847,29 @@ def fused_steps(label, scene, cfg, st, head, make_path, steps=32):
             raise SystemExit(f"[{label}] FAIL: fused step {step + 1} of {steps} differs from the plain version in {bad}")
     return (f"{steps} consecutive steps at {st['slot'].shape[0]} lanes (trace, kernel, respawn) on one scratch "
             f"bit-equal, {retired} pixels retired")
+
+
+def lookback_repeats(label, tb, st, head, seg, kw, n_pix, launches=4200):
+    """The same step launched `launches` times on one never-cleared
+    scratch, more than the 4,095 tags a status word cycles through, each
+    launch from a fresh copy of lane state `st`: every launch's new slots,
+    regen mask, head', segments' and live count equal the plain
+    version's.  The tiles start in whatever order the card runs them, so
+    a race in the look-back shows as a launch that differs."""
+    st_k = {k: st[k].clone() for k in fs.STATE_KEYS}
+    st_p = dict(st_k)  # the plain version rebinds its entries and leaves st_k's tensors alone
+    want = fs.fused_stream_step_plain(tb, st_p, torch.zeros((n_pix + 1, 3), device=seg.device), head, seg, **kw)
+    out_k = torch.zeros((n_pix + 1, 3), device=seg.device)
+    bad = torch.zeros((), dtype=torch.int64, device=seg.device)
+    for _ in range(launches):
+        for k in fs.STATE_KEYS:
+            st_k[k].copy_(st[k])
+        regen, head2, seg2, live2 = fs.fused_stream_step_cuda(tb, st_k, out_k, head, seg, **kw)
+        bad += (st_k["slot"] != st_p["slot"]).sum() + (regen != want[0]).sum()
+        bad += (head2 != want[1]).long() + (seg2 != want[2]).long() + (live2 != want[3]).long()
+    if int(bad):
+        raise SystemExit(f"[{label}] FAIL: {int(bad)} values differ over {launches} repeats of one fused step")
+    return f"one step {launches} times on one scratch, every launch equal to the plain version"
 
 
 def phase_fused_render(label, scene, cfg, camera, smi):

@@ -15,7 +15,7 @@ one stream), the idle share, the traversal kernels' and the fused step's
 time and launches, the device kernels per iteration (device events
 only: the CUDA runtime calls that launch them are not counted) and the
 stream syncs per iteration (counted over the warm frame, by PyTorch's
-sync debug mode).  The
+sync debug mode, with the lines that made them).  The
 events are read straight from the trace: key_averages over the ~7
 million events of a BASELINE config-1 frame takes longer than the
 render.  One line per render, with the card's name and power limit; the
@@ -27,6 +27,7 @@ prints its wall time (s/launch) alone.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import os
 import sys
@@ -53,8 +54,7 @@ from tpu_pathtracer_torch.render.integrator import render_frame_stats
 # The device functions of the port's kernels (csrc/): the six traversals
 # (one body, with its packet-weight pre-pass), the fused schedule step and
 # the unit-ball sampler.
-KERNELS = ("streamed_kernel", "packet_weight_kernel", "fused_step_kernel", "fused_step_lane_kernel",
-           "unit_sphere_kernel")
+KERNELS = ("streamed_kernel", "packet_weight_kernel", "fused_step_kernel", "unit_sphere_kernel")
 
 
 def kernel_label(key):
@@ -98,7 +98,16 @@ def counting_syncs():
             yield syncs
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    syncs.extend(w for w in caught if "synchroniz" in str(w.message))
+    # The mode's own first-use notice ("... does not yet detect all
+    # synchronizing operations") is not a sync.
+    syncs.extend(w for w in caught if "called a synchronizing CUDA operation" in str(w.message))
+
+
+def sync_sites(syncs):
+    """The Python lines that made the syncs `syncs`, with their counts,
+    most first: "file:line xN, ..."."""
+    sites = collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in syncs)
+    return ", ".join(f"{site} x{n}" for site, n in sites.most_common()) or "none"
 
 
 def renders():
@@ -151,7 +160,8 @@ def profile_one(run, name, make, camera, cfg_kw, out_dir, smi, wall_only=False):
     print(f"[{name}] {stats['schedule']} schedule; wall {wall:.4f} s, device busy {busy:.4f} s, "
           f"idle {1 - busy / wall:.2%}, the port's kernels {ours_s:.4f} s ({ours_s / busy:.2%} of busy): {ours_desc}; "
           f"{kernels} device kernels, copies and memsets, {kernels / iters:.0f} per iteration, "
-          f"{len(syncs) / warm['iters']:.4f} stream syncs per iteration (warm frame), {iters} iterations, "
+          f"{len(syncs) / warm['iters']:.4f} stream syncs per iteration (warm frame: {len(syncs)} in "
+          f"{warm['iters']} iterations, by site {sync_sites(syncs)}), {iters} iterations, "
           f"{int(stats['segments'])} segments, {int(stats['shadow_segments'])} shadow segments | {smi}",
           flush=True)
 

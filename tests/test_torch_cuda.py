@@ -535,12 +535,10 @@ def test_fused_step_pool_sizes(cuda, rr_mode, lanes):
     assert int(got[1]) > n_pix
 
 
-@pytest.mark.parametrize("shape", list(fs.SHAPES))
-def test_fused_step_32_steps_on_one_scratch(cuda, shape):
+def test_fused_step_32_steps_on_one_scratch(cuda):
     """32 consecutive steps on one lane pool, each step's state, head and
     segments fed to the next, with no zeroing of the kernel's scratch
-    between them: kernel and plain version stay bit-equal at every step,
-    at every built launch shape."""
+    between them: kernel and plain version stay bit-equal at every step."""
     lanes = 131072
     _, st, n_pix, head, segments = step_state(lanes, 7, cuda)
     kw = dict(spp=3, n_pix=n_pix, max_depth=4, rr_reference=True, inv_spp=1.0 / 3)
@@ -553,7 +551,7 @@ def test_fused_step_32_steps_on_one_scratch(cuda, shape):
     before = fs.fused_stream_step.launches
     for step in range(32):
         tb = step_state(lanes, 100 + step, cuda)[0]
-        regen_k, head_k, seg_k, live_k = fs.fused_stream_step_cuda(tb, st_k, out_k, head_k, seg_k, shape=shape, **kw)
+        regen_k, head_k, seg_k, live_k = fs.fused_stream_step_cuda(tb, st_k, out_k, head_k, seg_k, **kw)
         regen_p, head_p, seg_p, live_p = fs.fused_stream_step_plain(tb, st_p, out_p, head_p, seg_p, **kw)
         torch.cuda.synchronize()
         for key in st:
@@ -563,16 +561,28 @@ def test_fused_step_32_steps_on_one_scratch(cuda, shape):
     assert fs.fused_stream_step.launches == before + 32
 
 
-def test_fused_step_refuses_unaligned_lanes(cuda):
-    """The kernel takes whole groups of four lanes, 16-byte aligned."""
-    tb, st, n_pix, head, segments = step_state(256, 3, cuda)
+@pytest.mark.parametrize("lanes", [16384, 131072])
+def test_fused_step_repeats_on_one_scratch(cuda, lanes):
+    """One step launched 4,200 times on one never-cleared scratch (more
+    than the 4,095 tags a status word cycles through), each from a fresh
+    copy of the state: every launch's slots, regen mask, head', segments'
+    and live count equal the plain version's, whatever order the tiles
+    run in."""
+    tb, st, n_pix, head, segments = step_state(lanes, 11, cuda)
     kw = dict(spp=3, n_pix=n_pix, max_depth=4, rr_reference=True, inv_spp=1.0 / 3)
-    cut = ({k: v[:254] for k, v in tb.items()}, {k: v[:254] for k, v in st.items()})
-    with pytest.raises(ValueError, match="groups of 4"):
-        fs.fused_stream_step(*cut, torch.zeros((n_pix + 1, 3), device=cuda), head, segments, **kw)
-    shifted = ({k: v[1:253] for k, v in tb.items()}, {k: v[1:253] for k, v in st.items()})
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        fs.fused_stream_step(*shifted, torch.zeros((n_pix + 1, 3), device=cuda), head, segments, **kw)
+    st_p = dict(st)
+    want = fs.fused_stream_step_plain(tb, st_p, torch.zeros((n_pix + 1, 3), device=cuda), head, segments, **kw)
+    st_k = {k: v.clone() for k, v in st.items()}
+    out_k = torch.zeros((n_pix + 1, 3), device=cuda)
+    bad = torch.zeros((), dtype=torch.int64, device=cuda)
+    for _ in range(4200):
+        for k, v in st.items():
+            st_k[k].copy_(v)
+        regen, head_k, seg_k, live_k = fs.fused_stream_step_cuda(tb, st_k, out_k, head, segments, **kw)
+        bad += (st_k["slot"] != st_p["slot"]).sum() + (regen != want[0]).sum()
+        bad += (head_k != want[1]).long() + (seg_k != want[2]).long() + (live_k != want[3]).long()
+    assert int(bad) == 0
+    assert int(want[1]) > int(head)
 
 
 # The seeds whose lanes need the most rejection draws of all 2^32 u32

@@ -15,9 +15,9 @@ runs only on the card:
   and a field a lane's fate leaves alone keeps its old value when the
   kernel rewrites it whole; the model, tiles and all, equals the plain
   step bit for bit (both rr_modes, a head that sends lanes past n_pix);
-* the tiles: V x B lanes, one lane a thread or groups of four, cover
-  every lane of every pool the fused schedule allows, once, in whole
-  groups."""
+* the tiles: 256 lanes, one lane a thread, cover every lane of every
+  pool the fused schedule allows, once, with no empty tile, in fewer
+  tiles than a status word can count lanes."""
 
 import numpy as np
 import pytest
@@ -151,14 +151,12 @@ def pcg_hash(x):
     return (w >> np.uint32(22)) ^ w
 
 
-def model_step(tb, st, out, head, segments, *, spp, n_pix, max_depth, rr_reference, inv_spp, shape):
+def model_step(tb, st, out, head, segments, *, spp, n_pix, max_depth, rr_reference, inv_spp):
     """The kernel's step in numpy: each lane's fate, then every field with
     its fate's new value and its old one elsewhere, on copies of the
-    state; new slots from the tiles' look-back (tile counts, then thread
-    counts within a tile, then lanes within a thread); the totals from the
-    last tile.  Returns (state, image, regen, head', segments', live', the
-    fates)."""
-    v, b = shape
+    state; new slots from the tiles' look-back (tile counts, then lanes
+    within a tile); the totals from the last tile.  Returns (state, image,
+    regen, head', segments', live', the fates)."""
     lanes = st["slot"].shape[0]
     f32 = np.float32
     slot = st["slot"]
@@ -189,18 +187,15 @@ def model_step(tb, st, out, head, segments, *, spp, n_pix, max_depth, rr_referen
     new["lane_accum"][newly] = np.where(done[:, None], f32(0), acc)[newly]
     new["sample_i"][newly] = np.where(done, 0, si)[newly]
 
-    tile_lanes = v * b
-    tiles = -(-lanes // tile_lanes)
-    pad = tiles * tile_lanes - lanes
-    per_thread = np.pad(done, (0, pad)).reshape(tiles, b, v)
-    tile_done = per_thread.sum(axis=(1, 2))
+    tiles = -(-lanes // fs.TILE_LANES)
+    pad = tiles * fs.TILE_LANES - lanes
+    per_lane = np.pad(done, (0, pad)).reshape(tiles, fs.TILE_LANES)
+    tile_done = per_lane.sum(axis=1)
     scratch = Scratch(tiles)
     before_tile, total_done, total_live = launch(scratch, tile_done, np.pad(live, (0, pad)).reshape(tiles, -1).sum(1),
                                                  np.random.RandomState(lanes))
-    thread_counts = per_thread.sum(axis=2)
-    before_thread = np.cumsum(thread_counts, axis=1) - thread_counts
-    before_lane = np.cumsum(per_thread, axis=2) - per_thread
-    excl = (before_tile[:, None, None] + before_thread[:, :, None] + before_lane).reshape(-1)[:lanes]
+    before_lane = np.cumsum(per_lane, axis=1) - per_lane
+    excl = (before_tile[:, None] + before_lane).reshape(-1)[:lanes]
     slot_new = (head + excl).astype(np.int32)
     live_next = np.where(done, slot_new < n_pix, True)
     regen = newly & live_next
@@ -234,8 +229,8 @@ def same_bits(a, b):
 
 @pytest.mark.parametrize("head_past", [False, True], ids=["head", "head_past_n_pix"])
 @pytest.mark.parametrize("rr_mode", ["reference", "standard"])
-@pytest.mark.parametrize("lanes,shape", [(128, (1, 256)), (4096, (1, 128)), (16384, (8, 256)), (16384, (4, 128))])
-def test_model_step_equals_plain_step(lanes, shape, rr_mode, head_past):
+@pytest.mark.parametrize("lanes", [128, 4096, 16384, 16512])
+def test_model_step_equals_plain_step(lanes, rr_mode, head_past):
     """The plain step changes a field only on lanes whose fate names it,
     and the model, tiles and all, equals the plain step in every field,
     the image, the regen mask, head', segments' and the live count.  (A
@@ -249,7 +244,7 @@ def test_model_step_equals_plain_step(lanes, shape, rr_mode, head_past):
     out_t = torch.as_tensor(out.copy())
     regen_t, head_t, seg_t, live_t = fs.fused_stream_step_plain(
         {k: torch.as_tensor(x) for k, x in tb.items()}, st_t, out_t, torch.tensor(head), torch.tensor(1000), **kw)
-    new, image, regen, head_m, seg_m, live_m, fates = model_step(tb, st, out, head, 1000, shape=shape, **kw)
+    new, image, regen, head_m, seg_m, live_m, fates = model_step(tb, st, out, head, 1000, **kw)
     for key, names in FIELDS.items():
         old, plain = st[key].reshape(lanes, -1), st_t[key].numpy().reshape(lanes, -1)
         if old.dtype == np.float32:
@@ -279,7 +274,7 @@ def test_payload_loads_by_fate_lose_nothing(rr_mode):
     gives the same bits."""
     tb, st, n_pix, head = lane_pool(4096, 9 + (rr_mode == "standard"), head_past=True)
     kw = dict(spp=3, n_pix=n_pix, max_depth=4, rr_reference=rr_mode == "reference", inv_spp=1.0 / 3)
-    *_, fates = model_step(tb, st, np.zeros((n_pix + 1, 3), np.float32), head, 0, shape=(1, 256), **kw)
+    *_, fates = model_step(tb, st, np.zeros((n_pix + 1, 3), np.float32), head, 0, **kw)
     poisoned = {k: x.copy() for k, x in tb.items()}
     rs = np.random.RandomState(2)
     for keys, need in ((("origin", "direction"), fates["adv"]),
@@ -303,33 +298,24 @@ def test_payload_loads_by_fate_lose_nothing(rr_mode):
     assert [int(x) for x in got_a[1:]] == [int(x) for x in got_b[1:]]
 
 
-def lanes_covered(lanes, v, b):
-    """The lanes that tiles of v x b lanes give their threads (thread x of
-    tile t takes lanes t*v*b + x*v .. + v - 1), those inside the pool, in
-    order; and whether every group of four is wholly inside or outside."""
-    tiles = -(-lanes // (v * b))
-    first = (np.arange(tiles)[:, None] * v * b + np.arange(b)[None, :] * v).reshape(-1)
-    taken = (first[:, None] + np.arange(v)[None, :]).reshape(-1)
-    whole = True
-    if v >= 4:
-        groups = (first[:, None] + 4 * np.arange(v // 4)[None, :]).reshape(-1)
-        whole = bool(((groups < lanes) == (groups + 3 < lanes)).all() and (groups % 4 == 0).all())
-    return np.sort(taken[taken < lanes]), whole, (tiles - 1) * v * b < lanes
+def lanes_covered(lanes):
+    """The lanes that tiles of TILE_LANES give their threads (thread x of
+    tile t takes lane t*TILE_LANES + x), those inside the pool, in order;
+    the tile count; and whether the last tile holds a lane."""
+    tiles = -(-lanes // fs.TILE_LANES)
+    taken = (np.arange(tiles)[:, None] * fs.TILE_LANES + np.arange(fs.TILE_LANES)[None, :]).reshape(-1)
+    return taken[taken < lanes], tiles, (tiles - 1) * fs.TILE_LANES < lanes
 
 
 def test_tiles_cover_every_lane_of_every_allowed_pool():
     """Every pool the fused schedule takes (whole 128-lane rows, the JAX
-    envelope) up to 2^20 lanes at the rule's shape, and the first 128 of
-    them and the sweep's pools at every built shape: each lane taken once,
-    every group of four lanes (16 bytes of an [L] int32 tensor, 48 of an
-    [L,3] float32 one) whole, and no tile empty."""
+    envelope) up to 2^20 lanes: each lane taken once, in lane order (the
+    queue's order), no tile empty, and the tiles' retired and live counts
+    fit a status word's 25-bit fields."""
     pools = allowed_pools(1 << 20)
     assert 128 in pools and 16384 in pools and 131072 in pools and 524288 in pools
     assert 128 * 130 not in pools
     for lanes in pools:
-        shapes = {fs.fused_step_shape(lanes)}
-        if lanes <= 16384 or lanes in (131072, 524288):
-            shapes |= set(fs.SHAPES)
-        for v, b in shapes:
-            taken, whole, no_empty_tile = lanes_covered(lanes, v, b)
-            assert np.array_equal(taken, np.arange(lanes)) and whole and no_empty_tile, (lanes, v, b)
+        taken, tiles, no_empty_tile = lanes_covered(lanes)
+        assert np.array_equal(taken, np.arange(lanes)) and no_empty_tile, lanes
+        assert tiles * fs.TILE_LANES < 1 << DONE_SHIFT and lanes <= COUNT, lanes

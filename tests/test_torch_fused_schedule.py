@@ -233,12 +233,12 @@ def test_fused_envelope_gate():
 
 def test_every_kernel_source_has_a_launcher():
     """cuda_build.library can load every csrc/ source: each names its
-    launch function and argument types (22 pointers, 5 ints, inv_spp, the
-    launch shape's 2 ints and the stream for the fused step)."""
+    launch function and argument types (22 pointers, 5 ints, inv_spp and
+    the stream for the fused step)."""
     from tpu_pathtracer_torch.ops import cuda_build
 
     assert set(cuda_build.sources()) == set(cuda_build.LAUNCHERS)
-    assert len(cuda_build.LAUNCHERS["fused_schedule.cu"][1]) == len(fs.TB_KEYS) + len(fs.STATE_KEYS) + 6 + 9
+    assert len(cuda_build.LAUNCHERS["fused_schedule.cu"][1]) == len(fs.TB_KEYS) + len(fs.STATE_KEYS) + 6 + 7
 
 
 def test_fused_schedule_validated():

@@ -42,16 +42,13 @@
 //   every sector is written whole.  Stores predicated on each lane's fate
 //   write most sectors in part, and the card's L2 then has to fill them
 //   from memory: that measured slower, though it moves fewer bytes.
-// - One lane a thread, coalesced scalar accesses (the rule's shape).  The
-//   alternative, V lanes a thread (4 or 8) with 16-byte accesses (a group
-//   of four lanes' [4,3] float32 block as three float4, its [4] int32 as an
-//   int4, its seeds as two longlong2, its done flags and regen bytes as one
-//   32-bit word), stays a launch parameter of the sweep: it measured slower
-//   at every pool size, having a quarter of the warps to hide the memory's
-//   latency with.  The wrapper requires lanes % 4 == 0 and 16-byte aligned
-//   tensors.
+// - One lane a thread, coalesced scalar accesses, in tiles of 256 lanes
+//   (one block of 256 threads).  Measured against it and dropped: V lanes
+//   a thread (4 or 8) with 16-byte accesses, slower at every pool size,
+//   having a quarter of the warps to hide the memory's latency with; and
+//   tiles of 128, 512 or 1024 lanes (PERF.md, the kernel 7 findings).
 // - The queue's prefix sum is exact integer arithmetic in lane order, in
-//   one launch, over tiles of V x B lanes (B threads a block): a block
+//   one launch, over tiles of kThreads lanes: a block
 //   takes a ticket (an atomic counter, so a block only ever waits on
 //   blocks that already run) and the ticket's tile, counts its retired and
 //   live lanes (shuffles, then one shared-memory pass over the warps),
@@ -74,9 +71,7 @@
 //   last tile, which holds the inclusive totals: head + retired, segments
 //   + live, and live - retired + min(max(n_pix - head, 0), retired) (the
 //   retired lanes take slots head, head+1, ..., so that many stay live).
-// The launch shape (V, B) is a parameter; fused_step_shape in
-// ops/fused_schedule.py holds the rule, from the sweep in PERF.md.  The
-// TPU kernel's lane-major planes, u32 -> f32 split, matmul prefix sum,
+// The TPU kernel's lane-major planes, u32 -> f32 split, matmul prefix sum,
 // float32 running head and retire FIFO are not carried over.
 
 #include <cstdint>
@@ -93,6 +88,8 @@ constexpr unsigned long long kInclusive = 2ull << 50;  // counts of every lane u
 constexpr int kDoneShift = 25;
 constexpr unsigned long long kCountMask = (1ull << 25) - 1;
 constexpr float kInvU32 = 2.3283064365386963e-10f;     // 2^-32
+constexpr int kThreads = 256;                          // lanes (threads) a tile (block)
+constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ uint32_t pcg_hash(uint32_t x) {
   const uint32_t state = x * 747796405u + 2891336453u;
@@ -137,16 +134,14 @@ __device__ __forceinline__ int roulette(uint32_t& seed, bool tb_done, float (&a)
 
 // The block's share of one launch: its ticket, tile and tag, the warps'
 // counts, and the retired lanes of earlier tiles.
-template <int B>
 struct Tile {
   unsigned long long ticket;
-  int warp_done[B / 32], warp_live[B / 32];
+  int warp_done[kWarps], warp_live[kWarps];
   long long before;  // retired lanes in earlier tiles
 };
 
 // Takes the block's ticket: sets its tile and the launch's tag.
-template <int B>
-__device__ __forceinline__ void take_ticket(Tile<B>& sh, unsigned long long* scratch, int tiles, int& tile,
+__device__ __forceinline__ void take_ticket(Tile& sh, unsigned long long* scratch, int tiles, int& tile,
                                             unsigned long long& tag) {
   if (threadIdx.x == 0) sh.ticket = atomicAdd(&scratch[0], 1ull);
   __syncthreads();
@@ -159,12 +154,10 @@ __device__ __forceinline__ void take_ticket(Tile<B>& sh, unsigned long long* scr
 // its own; the first warp publishes the tile, looks back, and leaves the
 // retired lanes of earlier tiles in sh.before (read after the next
 // __syncthreads); the last tile writes head', segments' and the live count.
-template <int B>
-__device__ __forceinline__ int tile_prefix(Tile<B>& sh, int done_count, int live_count, int tile, int tiles,
+__device__ __forceinline__ int tile_prefix(Tile& sh, int done_count, int live_count, int tile, int tiles,
                                            unsigned long long tag, unsigned long long* status,
                                            const long long* head_in, const long long* seg_in, int n_pix,
                                            long long* result) {
-  constexpr int W = B / 32;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   // ---- the tile's counts: a scan of retired lanes over the warp ----------
   int incl = done_count, live_sum = live_count;
@@ -186,7 +179,7 @@ __device__ __forceinline__ int tile_prefix(Tile<B>& sh, int done_count, int live
   // ---- the first warp publishes the tile and looks back ------------------
   if (warp == 0) {
     long long agg_done = 0, agg_live = 0;
-    for (int w = 0; w < W; ++w) {
+    for (int w = 0; w < kWarps; ++w) {
       agg_done += sh.warp_done[w];
       agg_live += sh.warp_live[w];
     }
@@ -235,9 +228,8 @@ __device__ __forceinline__ int tile_prefix(Tile<B>& sh, int done_count, int live
   return before_me;
 }
 
-// One lane a thread (the launch rule's shape): coalesced scalar accesses.
-template <int B>
-__global__ void __launch_bounds__(B) fused_step_lane_kernel(
+// One lane a thread: coalesced scalar accesses.
+__global__ void __launch_bounds__(kThreads) fused_step_kernel(
     const float* __restrict__ tb_o, const float* __restrict__ tb_d,      // [L,3]
     const float* __restrict__ tb_att, const float* __restrict__ tb_rad,  // [L,3]
     const long long* __restrict__ tb_seeds,                              // [L] u32 in int64
@@ -254,11 +246,11 @@ __global__ void __launch_bounds__(B) fused_step_lane_kernel(
     bool* __restrict__ regen_out,              // [L]
     long long* __restrict__ result,            // head', segments', live'
     int n, int tiles, int spp, int n_pix, int max_depth, int rr_reference, float inv_spp) {
-  __shared__ Tile<B> sh;
+  __shared__ Tile sh;
   int tile;
   unsigned long long tag;
   take_ticket(sh, scratch, tiles, tile, tag);
-  const int i = tile * B + threadIdx.x;
+  const int i = tile * kThreads + threadIdx.x;
   const bool in = i < n;
   const int slot_old = in ? slot[i] : n_pix;
   const bool live = slot_old < n_pix;
@@ -326,209 +318,13 @@ __global__ void __launch_bounds__(B) fused_step_lane_kernel(
   regen_out[i] = regen;
 }
 
-// A group of four lanes' [4,3] float32 block as 12 floats, lane-major, in
-// three 16-byte accesses.
-__device__ __forceinline__ void load12(const float* p, float (&f)[12]) {
-  const float4* q = reinterpret_cast<const float4*>(p);
-  const float4 v0 = q[0], v1 = q[1], v2 = q[2];
-  f[0] = v0.x; f[1] = v0.y; f[2] = v0.z; f[3] = v0.w;
-  f[4] = v1.x; f[5] = v1.y; f[6] = v1.z; f[7] = v1.w;
-  f[8] = v2.x; f[9] = v2.y; f[10] = v2.z; f[11] = v2.w;
-}
-
-// The same through the read-only cache: for the trace payload only, which
-// nothing writes during the launch.
-__device__ __forceinline__ void load12_ro(const float* p, float (&f)[12]) {
-  const float4* q = reinterpret_cast<const float4*>(p);
-  const float4 v0 = __ldg(q), v1 = __ldg(q + 1), v2 = __ldg(q + 2);
-  f[0] = v0.x; f[1] = v0.y; f[2] = v0.z; f[3] = v0.w;
-  f[4] = v1.x; f[5] = v1.y; f[6] = v1.z; f[7] = v1.w;
-  f[8] = v2.x; f[9] = v2.y; f[10] = v2.z; f[11] = v2.w;
-}
-
-__device__ __forceinline__ void store12(float* p, const float (&f)[12]) {
-  float4* q = reinterpret_cast<float4*>(p);
-  q[0] = make_float4(f[0], f[1], f[2], f[3]);
-  q[1] = make_float4(f[4], f[5], f[6], f[7]);
-  q[2] = make_float4(f[8], f[9], f[10], f[11]);
-}
-
-__device__ __forceinline__ void load4(const int* p, int (&v)[4]) {
-  const int4 x = *reinterpret_cast<const int4*>(p);
-  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-}
-
-__device__ __forceinline__ void store4(int* p, const int (&v)[4]) {
-  *reinterpret_cast<int4*>(p) = make_int4(v[0], v[1], v[2], v[3]);
-}
-
-// V lanes a thread (4 or 8: whole groups of four) with 16-byte accesses: a
-// launch-shape alternative to one lane a thread, which the sweep keeps
-// measuring (PERF.md, the kernel 7 findings).
-template <int V, int B>
-__global__ void __launch_bounds__(B) fused_step_kernel(
-    const float* __restrict__ tb_o, const float* __restrict__ tb_d, const float* __restrict__ tb_att,
-    const float* __restrict__ tb_rad, const long long* __restrict__ tb_seeds, const bool* __restrict__ tb_done,
-    float* __restrict__ o, float* __restrict__ d, float* __restrict__ att, float* __restrict__ rad,
-    long long* __restrict__ seeds, int* __restrict__ slot, int* __restrict__ pix, int* __restrict__ sample_i,
-    int* __restrict__ depth, float* __restrict__ accum, float* __restrict__ out,
-    const long long* __restrict__ head_in, const long long* __restrict__ seg_in,
-    unsigned long long* __restrict__ scratch, bool* __restrict__ regen_out, long long* __restrict__ result,
-    int n, int tiles, int spp, int n_pix, int max_depth, int rr_reference, float inv_spp) {
-  constexpr int G = V / 4;  // groups of four lanes a thread
-  __shared__ Tile<B> sh;
-  int tile;
-  unsigned long long tag;
-  take_ticket(sh, scratch, tiles, tile, tag);
-  const int first = tile * (V * B) + threadIdx.x * V;  // this thread's first lane
-  // Kept across the queue's prefix, per group: the lanes' fates, old slots
-  // and pix, the pixel sums of done pixels, the attenuation, radiance and
-  // depth each lane keeps unless it respawns.
-  int fate[G][4], slot_old[G][4], pix_old[G][4], dp[G][4];
-  float acc[G][12], a[G][12], r[G][12];
-  int done_count = 0, live_count = 0;
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const int l0 = first + 4 * g;
-    for (int j = 0; j < 4; ++j) fate[g][j] = 0;
-    if (l0 >= n) continue;  // n % 4 == 0: groups are whole
-    long long sd[4];
-    float po[12], pd[12];
-    int si[4];
-    load4(slot + l0, slot_old[g]);
-    load4(pix + l0, pix_old[g]);
-    load4(sample_i + l0, si);
-    load4(depth + l0, dp[g]);
-    const longlong2 s01 = reinterpret_cast<const longlong2*>(seeds + l0)[0];
-    const longlong2 s23 = reinterpret_cast<const longlong2*>(seeds + l0)[1];
-    sd[0] = s01.x; sd[1] = s01.y; sd[2] = s23.x; sd[3] = s23.y;
-    load12(accum + 3 * l0, acc[g]);
-    load12(o + 3 * l0, po);
-    load12(d + 3 * l0, pd);
-    load12(att + 3 * l0, a[g]);
-    load12(rad + 3 * l0, r[g]);
-    unsigned m_live = 0, m_adv = 0;
-    for (int j = 0; j < 4; ++j) m_live |= (slot_old[g][j] < n_pix ? 1u : 0u) << j;
-    if (m_live) {
-      const uint32_t done4 = __ldg(reinterpret_cast<const unsigned*>(tb_done + l0));
-      const longlong2 t01 = __ldg(reinterpret_cast<const longlong2*>(tb_seeds + l0));
-      const longlong2 t23 = __ldg(reinterpret_cast<const longlong2*>(tb_seeds + l0 + 2));
-      const long long td[4] = {t01.x, t01.y, t23.x, t23.y};
-      float ta[12], tr[12];
-      load12_ro(tb_att + 3 * l0, ta);
-      load12_ro(tb_rad + 3 * l0, tr);
-      for (int j = 0; j < 4; ++j) {
-        if (!(m_live >> j & 1u)) continue;
-        uint32_t seed = static_cast<uint32_t>(td[j]);
-        float aj[3] = {ta[3 * j], ta[3 * j + 1], ta[3 * j + 2]};
-        const float rj[3] = {tr[3 * j], tr[3 * j + 1], tr[3 * j + 2]};
-        float cj[3] = {acc[g][3 * j], acc[g][3 * j + 1], acc[g][3 * j + 2]};
-        fate[g][j] = roulette(seed, ((done4 >> (8 * j)) & 0xffu) != 0, aj, rj, cj, si[j], dp[g][j], spp,
-                              rr_reference);
-        sd[j] = static_cast<long long>(seed);
-        for (int c = 0; c < 3; ++c) acc[g][3 * j + c] = cj[c];
-        if (fate[g][j] == 1) {
-          m_adv |= 1u << j;
-          for (int c = 0; c < 3; ++c) {
-            a[g][3 * j + c] = aj[c];
-            r[g][3 * j + c] = rj[c];
-          }
-        }
-        done_count += fate[g][j] == 3;
-      }
-      live_count += __popc(m_live);
-    }
-    if (m_adv) {  // lanes that go on take the payload's origin and direction
-      float to[12], tdir[12];
-      load12_ro(tb_o + 3 * l0, to);
-      load12_ro(tb_d + 3 * l0, tdir);
-      for (int k = 0; k < 12; ++k)
-        if (m_adv >> (k / 3) & 1u) {
-          po[k] = to[k];
-          pd[k] = tdir[k];
-        }
-    }
-    float sums[12];
-    for (int k = 0; k < 12; ++k) sums[k] = fate[g][k / 3] == 3 ? 0.f : acc[g][k];
-    for (int j = 0; j < 4; ++j)
-      if (fate[g][j] == 3) si[j] = 0;
-    store12(o + 3 * l0, po);
-    store12(d + 3 * l0, pd);
-    store12(accum + 3 * l0, sums);
-    store4(sample_i + l0, si);
-    longlong2* q = reinterpret_cast<longlong2*>(seeds + l0);
-    q[0] = make_longlong2(sd[0], sd[1]);
-    q[1] = make_longlong2(sd[2], sd[3]);
-  }
-  int before_me = tile_prefix(sh, done_count, live_count, tile, tiles, tag, scratch + 1, head_in, seg_in, n_pix,
-                              result);
-#pragma unroll
-  for (int g = 0; g < G; ++g)  // done pixels' means into their image rows
-    for (int j = 0; j < 4; ++j) {
-      if (fate[g][j] != 3) continue;
-      float* row = out + 3 * static_cast<size_t>(slot_old[g][j]);
-      for (int c = 0; c < 3; ++c) row[c] = row[c] + acc[g][3 * j + c] * inv_spp;
-    }
-  __syncthreads();
-  const long long base_slot = *head_in + sh.before;
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const int l0 = first + 4 * g;
-    if (l0 >= n) continue;
-    uint32_t bytes = 0;
-    for (int j = 0; j < 4; ++j) {
-      bool regen = fate[g][j] >= 2;  // a lane whose path ends keeps a live slot unless its pixel is done
-      if (fate[g][j] == 3) {         // identity pixel mapping: pix = slot
-        slot_old[g][j] = pix_old[g][j] = static_cast<int>(base_slot + before_me++);
-        regen = slot_old[g][j] < n_pix;
-      }
-      if (regen) {
-        for (int c = 0; c < 3; ++c) {
-          a[g][3 * j + c] = 1.f;
-          r[g][3 * j + c] = 0.f;
-        }
-        dp[g][j] = max_depth;
-      }
-      bytes |= (regen ? 1u : 0u) << (8 * j);
-    }
-    store4(slot + l0, slot_old[g]);
-    store4(pix + l0, pix_old[g]);
-    store12(att + 3 * l0, a[g]);
-    store12(rad + 3 * l0, r[g]);
-    store4(depth + l0, dp[g]);
-    *reinterpret_cast<uint32_t*>(regen_out + l0) = bytes;
-  }
-}
-
-template <int V, int B>
-int launch(const float* tb_o, const float* tb_d, const float* tb_att, const float* tb_rad,
-           const long long* tb_seeds, const bool* tb_done, float* o, float* d, float* att, float* rad,
-           long long* seeds, int* slot, int* pix, int* sample_i, int* depth, float* accum, float* out,
-           const long long* head_in, const long long* seg_in, unsigned long long* scratch, bool* regen_out,
-           long long* result, int n, int spp, int n_pix, int max_depth, int rr_reference, float inv_spp,
-           cudaStream_t stream) {
-  const int tiles = (n + V * B - 1) / (V * B);
-  if constexpr (V == 1)
-    fused_step_lane_kernel<B><<<tiles, B, 0, stream>>>(
-        tb_o, tb_d, tb_att, tb_rad, tb_seeds, tb_done, o, d, att, rad, seeds, slot, pix, sample_i, depth, accum,
-        out, head_in, seg_in, scratch, regen_out, result, n, tiles, spp, n_pix, max_depth, rr_reference, inv_spp);
-  else
-    fused_step_kernel<V, B><<<tiles, B, 0, stream>>>(
-        tb_o, tb_d, tb_att, tb_rad, tb_seeds, tb_done, o, d, att, rad, seeds, slot, pix, sample_i, depth, accum,
-        out, head_in, seg_in, scratch, regen_out, result, n, tiles, spp, n_pix, max_depth, rr_reference, inv_spp);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-// Launches tiles of `lanes_per_thread` x `threads` lanes (one of the
-// shapes below) on `stream`, one block a tile.  `scratch` ([1 + tiles] int64)
-// is zero before its first launch and is used only by launches of the
-// same tile count, one at a time; `result` ([3] int64) takes head',
-// segments' and the live count.  n % 4 == 0, n < 2^25, every tensor
-// 16-byte aligned.
-// Returns cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for a shape that is not built.
+// Launches tiles of 256 lanes on `stream`, one block a tile.  `scratch`
+// ([1 + tiles] int64) is zero before its first launch and is used only by
+// launches of the same tile count, one at a time; `result` ([3] int64)
+// takes head', segments' and the live count.  n < 2^25.
+// Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int fused_step_launch(
     const float* tb_o, const float* tb_d, const float* tb_att, const float* tb_rad,
     const long long* tb_seeds, const bool* tb_done,
@@ -536,27 +332,11 @@ extern "C" int fused_step_launch(
     int* slot, int* pix, int* sample_i, int* depth, float* accum,
     float* out, const long long* head_in, const long long* seg_in,
     unsigned long long* scratch, bool* regen_out, long long* result,
-    int n, int spp, int n_pix, int max_depth, int rr_reference, float inv_spp,
-    int lanes_per_thread, int threads, void* stream) {
+    int n, int spp, int n_pix, int max_depth, int rr_reference, float inv_spp, void* stream) {
   if (n <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FUSED_STEP_SHAPE(V, B)                                                                               \
-  if (lanes_per_thread == V && threads == B)                                                                 \
-    return launch<V, B>(tb_o, tb_d, tb_att, tb_rad, tb_seeds, tb_done, o, d, att, rad, seeds, slot, pix,     \
-                        sample_i, depth, accum, out, head_in, seg_in, scratch, regen_out, result, n, spp,    \
-                        n_pix, max_depth, rr_reference, inv_spp, s);
-  FUSED_STEP_SHAPE(1, 128)
-  FUSED_STEP_SHAPE(1, 256)
-  FUSED_STEP_SHAPE(1, 512)
-  FUSED_STEP_SHAPE(1, 1024)
-  FUSED_STEP_SHAPE(4, 32)
-  FUSED_STEP_SHAPE(4, 64)
-  FUSED_STEP_SHAPE(4, 128)
-  FUSED_STEP_SHAPE(4, 256)
-  FUSED_STEP_SHAPE(4, 512)
-  FUSED_STEP_SHAPE(8, 64)
-  FUSED_STEP_SHAPE(8, 128)
-  FUSED_STEP_SHAPE(8, 256)
-#undef FUSED_STEP_SHAPE
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (n + kThreads - 1) / kThreads;
+  fused_step_kernel<<<tiles, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      tb_o, tb_d, tb_att, tb_rad, tb_seeds, tb_done, o, d, att, rad, seeds, slot, pix, sample_i, depth, accum, out,
+      head_in, seg_in, scratch, regen_out, result, n, tiles, spp, n_pix, max_depth, rr_reference, inv_spp);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -62,7 +62,7 @@ LAUNCHERS = {
     ),
     "fused_schedule.cu": (
         "fused_step_launch",
-        [_P] * 22 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
+        [_P] * 22 + [_I] * 5 + [_F] + [_P],
     ),
     "unit_sphere.cu": ("unit_sphere_launch", [_P] * 3 + [_I] + [_P]),
 }

@@ -40,9 +40,8 @@ from tpu_pathtracer_torch.utils import rng
 TB_KEYS = ("origin", "direction", "attenuation", "radiance", "seeds", "done")
 STATE_KEYS = ("origin", "direction", "attenuation", "radiance", "seeds",
               "slot", "pix", "sample_i", "depth", "lane_accum")
-# The kernel's launch shapes (csrc/fused_schedule.cu): lanes a thread, threads a block.
-SHAPES = ((1, 128), (1, 256), (1, 512), (1, 1024), (4, 32), (4, 64), (4, 128), (4, 256), (4, 512), (8, 64),
-          (8, 128), (8, 256))
+# Lanes a tile of the kernel: one block, one lane a thread (kThreads in csrc/fused_schedule.cu).
+TILE_LANES = 256
 
 
 def roulette(tb, live, rr_reference: bool):
@@ -117,15 +116,6 @@ _LANE_DTYPES = {"seeds": torch.int64, "done": torch.bool, "slot": torch.int32, "
                 "sample_i": torch.int32, "depth": torch.int32}
 
 
-def fused_step_shape(lanes: int) -> tuple[int, int]:
-    """The kernel's launch shape for a pool of `lanes`: (lanes a thread,
-    threads a block); a tile (one block) holds their product.  One lane a
-    thread in blocks of 256, 128 above 262,144 lanes: the fastest of
-    SHAPES at 16,384, 131,072 and 524,288 lanes on an H100 80GB HBM3
-    (chip_smoke.py phase 18; PERF.md, the kernel 7 findings)."""
-    return 1, (256 if lanes <= 262_144 else 128)
-
-
 @functools.lru_cache(maxsize=None)
 def _scratch(device: torch.device, tiles: int) -> torch.Tensor:
     """The kernel's scratch for launches of `tiles` tiles on `device`: a
@@ -141,40 +131,31 @@ def _check_step(tb, st, out, head, segments, n_pix):
     if not st["slot"].is_cuda:
         raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
     lanes = st["slot"].shape[0]
-    if lanes % 4 or lanes >= 2**25 or n_pix + lanes >= 2**31:
-        raise ValueError(f"the kernel takes whole groups of 4 lanes, fewer than 2^25, and slots below 2^31: "
-                         f"{lanes} lanes, {n_pix} pixels")
+    if lanes >= 2**25 or n_pix + lanes >= 2**31:
+        raise ValueError(f"the kernel takes fewer than 2^25 lanes and slots below 2^31: {lanes} lanes, {n_pix} pixels")
     for what, tensors, keys in (("tb", tb, TB_KEYS), ("st", st, STATE_KEYS)):
         for key in keys:
             dtype = _LANE_DTYPES.get(key, torch.float32)
-            x = tensors[key]
-            check_tensor(f"{what}[{key!r}]", x, dtype, (lanes,) if key in _LANE_DTYPES else (lanes, 3), dev)
-            if x.data_ptr() % 16:
-                raise ValueError(f"{what}[{key!r}] must be 16-byte aligned")
+            check_tensor(f"{what}[{key!r}]", tensors[key], dtype, (lanes,) if key in _LANE_DTYPES else (lanes, 3), dev)
     check_tensor("out", out, torch.float32, (n_pix + 1, 3), dev)
     check_tensor("head", head, torch.int64, (), dev)
     check_tensor("segments", segments, torch.int64, (), dev)
 
 
 def fused_stream_step_cuda(tb, st, out, head, segments, *, spp: int, n_pix: int, max_depth: int,
-                           rr_reference: bool, inv_spp: float, shape: tuple[int, int] | None = None):
+                           rr_reference: bool, inv_spp: float):
     """Launch the kernel on CUDA tensors; same contract as the plain
-    version.  `shape` (lanes a thread, threads a block; one of SHAPES)
-    overrides `fused_step_shape`."""
+    version."""
     _check_step(tb, st, out, head, segments, n_pix)
     lanes, dev = st["slot"].shape[0], out.device
-    per_thread, threads = shape or fused_step_shape(lanes)
-    if (per_thread, threads) not in SHAPES:
-        raise ValueError(f"no kernel of shape {(per_thread, threads)}: one of {SHAPES}")
     regen = torch.empty(lanes, dtype=torch.bool, device=dev)
     result = torch.empty(3, dtype=torch.int64, device=dev)  # head', segments', live'
     err = library("fused_schedule.cu").fused_step_launch(
         *(tb[k].data_ptr() for k in TB_KEYS),
         *(st[k].data_ptr() for k in STATE_KEYS),
         out.data_ptr(), head.data_ptr(), segments.data_ptr(),
-        _scratch(dev, -(-lanes // (per_thread * threads))).data_ptr(), regen.data_ptr(), result.data_ptr(),
-        lanes, spp, n_pix, max_depth, int(rr_reference), float(inv_spp), per_thread, threads,
-        torch.cuda.current_stream(dev).cuda_stream,
+        _scratch(dev, -(-lanes // TILE_LANES)).data_ptr(), regen.data_ptr(), result.data_ptr(),
+        lanes, spp, n_pix, max_depth, int(rr_reference), float(inv_spp), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
         raise RuntimeError(f"fused_step_kernel launch failed: CUDA error {err}")
