@@ -2,9 +2,11 @@
 headline (flat kernels), the large-scene routes (two-level and streamed
 kernels), each without and with next-event estimation (NEE: alias-table
 light draws and shadow rays through the any-hit kernels), the fused
-schedule step (kernel 7) on the headline and BASELINE config 1, and the
+schedule step (kernel 7) on the headline and BASELINE config 1, the
 other frame schedules: 1 spp (render_rays, tiled) and one lane per pixel
-(render_pixels_regen).
+(render_pixels_regen); and the user's entry points: OBJ/MTL/PNG scene
+files through the packed-scene cache, the CLI with the progressive
+renderer, AOVs, denoise and checkpoints, and the viewer.
 
     python3 chip_smoke.py [--image PATH]
 
@@ -83,8 +85,33 @@ Phases, each printing one line (any failure exits non-zero):
  22. one lane per pixel: the headline at 1080p, 10 spp, 2,097,152 stream
      lanes, so render_pixels_regen runs 2,073,600 lanes;
  23. GPU-vs-CPU parity as phase 5 of the fused stream (1,024 lanes),
-     render_pixels_regen (16,384 lanes) and 1 spp with NEE.
-Then one JSON line with every kernel's numbers (launches from its render
+     render_pixels_regen (16,384 lanes) and 1 spp with NEE;
+ 24. scene files: write the hero stand-in (a 2,200-triangle rounded box,
+     scale 0.05 making it 2 units, with three 2048x2048 convention maps,
+     and test.obj, a 12-triangle cube with three 512x512 maps, under a
+     copy of scenes/suitcase.toml) and config 4's high_poly_scene(100_000)
+     as an OBJ, into a scratch directory under build/; load each through
+     the packed-scene cache cold and warm: parse, pack, read and upload
+     seconds, triangles, clusters, and the native OBJ parser on every OBJ
+     of a cold load;
+ 25. the CLI (cli.run) at the reference's defaults on the hero's scene
+     file: 1600x1200, 30 spp in launches of 10, depth 20, DOF, denoised,
+     with AOVs and a checkpoint; s/launch of each launch, stream syncs per
+     iteration, kernel 1's and kernel 7's launches; the output finite and
+     not black; then a resume for a fourth launch, bit-equal to an
+     uninterrupted four-launch run;
+ 26. the CLI on config 4's OBJ at 1920x1080, depth 8, no DOF: one warm and
+     one timed launch, without and with --nee, on the two-level route
+     (kernel 2; kernel 7 without NEE, kernel 5 with);
+ 27. GPU-vs-CPU parity of the CPU tests' 64x48 textured, glass and
+     emissive scene, two launches through ProgressiveRenderer: SSIM after
+     post_process above 0.995, segments within 0.5%, AOV hit and mat
+     exact, normal, depth and albedo within rtol 1e-5 / atol 1e-5;
+ 28. the viewer on a free localhost port: /frame.png (decoded by the
+     port's codec), /stats, /orbit, /zoom, /pan, /toggle_dof and /resize
+     answer 200, /resize changes the frame's size; the server and its
+     render thread stop.
+Then the launches on the CLI renders of phases 25 and 26, one JSON line with every kernel's numbers (launches from its render
 phase, bound from the work its plain version counts on the phase's rays),
 and last the result line {"ok": true, "device": {...}}.  --image writes
 the headline 1080p frame, post-processed, as a binary PPM.
@@ -99,8 +126,11 @@ import json
 import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 
@@ -131,10 +161,25 @@ try:
     from tpu_pathtracer_torch.utils import rng
     from tpu_pathtracer_torch.utils.image import procedural_hdr
     from tpu_pathtracer_torch.utils.ssim import ssim
+    from tpu_pathtracer_torch import cli
+    from tpu_pathtracer_torch.assets import native
+    from tpu_pathtracer_torch.render.aov import render_aov
+    from tpu_pathtracer_torch.runtime import progressive
+    from tpu_pathtracer_torch.runtime.progressive import ProgressiveRenderer
+    from tpu_pathtracer_torch.scene.builder import load_scene
+    from tpu_pathtracer_torch.scene.cache import load_scene_cached
+    from tpu_pathtracer_torch.scene.scenefile import load_scene_file
+    from tpu_pathtracer_torch.utils.image import decode_png, load_png, save_png
+    from tpu_pathtracer_torch.viewer import serve
+
+    # the CPU tests' scene writer (it imports neither JAX nor PIL)
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from _torch_scenes import write_mtl_scene
 except ImportError as e:
     print(f"chip_smoke: cannot import the port ({e}); run from the repository root", file=sys.stderr)
     sys.exit(2)
 
+REPO = Path(__file__).resolve().parent
 PALLAS = "tpu_pathtracer/ops/intersect_pallas.py"
 # id: (kernel name, source, TPU kernel replaced, route, any hit, wrapper, kernel entry, plain version)
 KERNELS = {
@@ -888,6 +933,340 @@ def phase_fused_render(label, scene, cfg, camera, smi):
     return fused["counts"]["k7"]
 
 
+# ---------------------------------------------------------------------------
+# Phases 24-28: the user's entry points (scene files and cache, the CLI,
+# the progressive renderer, AOVs and denoise, the viewer)
+
+# The hero stand-in's rounded box: a superellipsoid of HERO_GRID stacks x
+# slices (2 x 25 x 44 = 2,200 triangles, the reference's suitcase.obj has
+# 2,204 faces), half-extent 20 so that the scene file's scale 0.05 makes
+# it 2 units; its maps 2048x2048.  The reference ships three maps for it
+# (its albedo is missing, SURVEY.md's asset table): a fourth 2048x2048
+# map with test.obj's three 512x512 ones would pass the 2^24 texels a
+# pool may hold (scene.make_material_table), in the JAX package too.
+HERO_GRID = (25, 44)
+HERO_MAPS = ("roughness", "metallic", "normal")
+HERO_MAP_SIZE = 2048
+TEST_MAPS = ("albedo", "roughness", "normal")
+TEST_MAP_SIZE = 512
+
+
+def map_pattern(rs, size, kind):
+    """A seeded [size,size,3] uint8 map: bands and noise (normal maps near
+    +z)."""
+    y, x = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    fx, fy = rs.uniform(2.0, 9.0, 2)
+    base = 0.5 + 0.3 * np.sin(2 * np.pi * fx * x) * np.cos(2 * np.pi * fy * y)
+    img = base[..., None] * rs.uniform(0.5, 1.0, 3).astype(np.float32) + 0.1 * rs.rand(size, size, 3)
+    if kind == "normal":
+        img = np.concatenate([0.5 + 0.2 * (img[..., :2] - 0.5), np.ones((size, size, 1), np.float32)], axis=-1)
+    return (np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8)
+
+
+def write_obj(path, v, vt, vn, faces):
+    """OBJ text: v, vt (optional), vn and triangles of shared 0-based ids."""
+    with open(path, "w") as f:
+        np.savetxt(f, v, fmt="v %.9g %.9g %.9g")
+        if vt is not None:
+            np.savetxt(f, vt, fmt="vt %.9g %.9g")
+        np.savetxt(f, vn, fmt="vn %.9g %.9g %.9g")
+        ids = np.asarray(faces, np.int64) + 1
+        if vt is not None:
+            np.savetxt(f, np.repeat(ids, 3, axis=1), fmt="f %d/%d/%d %d/%d/%d %d/%d/%d")
+        else:
+            np.savetxt(f, np.repeat(ids, 2, axis=1), fmt="f %d//%d %d//%d %d//%d")
+
+
+def write_hero(root):
+    """The hero stand-in under `root`: suitcase.obj (the rounded box) and
+    its maps, test.obj (a 12-triangle cube) and its maps, and hero.toml,
+    scenes/suitcase.toml with these two objects.  Returns the toml's path."""
+    rs = np.random.RandomState(0)
+    stacks, slices = HERO_GRID
+    phi = np.pi * np.arange(stacks + 1) / stacks
+    theta = 2 * np.pi * np.arange(slices + 1) / slices
+    n = np.stack(np.broadcast_arrays(np.sin(phi)[:, None] * np.cos(theta), np.cos(phi)[:, None],
+                                     np.sin(phi)[:, None] * np.sin(theta)), -1).reshape(-1, 3)
+    p = np.sign(n) * np.abs(n) ** 0.3                        # a superellipsoid: the rounded box
+    g = np.sign(p) * np.abs(p) ** (2 / 0.3 - 1)              # its surface's gradient
+    vn = g / np.linalg.norm(g, axis=1, keepdims=True)
+    v = p * 20.0 + [0.0, 20.0, 0.0]
+    vt = np.stack(np.broadcast_arrays(np.arange(slices + 1) / slices,
+                                      1.0 - np.arange(stacks + 1)[:, None] / stacks), -1).reshape(-1, 2)
+    a = (np.arange(stacks)[:, None] * (slices + 1) + np.arange(slices)).reshape(-1)
+    b = a + slices + 1
+    faces = np.concatenate([np.stack([a, b, a + 1], 1), np.stack([a + 1, b, b + 1], 1)])
+    write_obj(root / "suitcase.obj", v, vt, vn, faces)
+    # test.obj: a cube of 6 faces x 2 triangles, 10 units a side, at (-30, 0, 0)
+    cv, cvt, cvn, cf = [], [], [], []
+    for axis in range(3):
+        for sign in (-1.0, 1.0):
+            u, w = [k for k in range(3) if k != axis]
+            for du, dw in ((0, 0), (1, 0), (1, 1), (0, 1)):
+                q = np.zeros(3)
+                q[axis], q[u], q[w] = (sign + 1) / 2, du, dw
+                cv.append(q * 10.0 + [-35.0, 0.0, -5.0])
+                cvt.append((du, dw))
+                cvn.append(np.eye(3)[axis] * sign)
+            k = len(cv) - 4
+            cf += [(k, k + 1, k + 2), (k, k + 2, k + 3)]
+    write_obj(root / "test.obj", np.array(cv), np.array(cvt, float), np.array(cvn), cf)
+    for stem, kinds, size in (("suitcase", HERO_MAPS, HERO_MAP_SIZE), ("test", TEST_MAPS, TEST_MAP_SIZE)):
+        for kind in kinds:
+            save_png(str(root / f"{stem}_{kind}.png"), map_pattern(rs, size, kind))
+    toml = (REPO / "scenes" / "suitcase.toml").read_text()
+    start = toml.index("objects = ")
+    toml = toml[:start] + 'objects = ["suitcase.obj", "test.obj"]' + toml[toml.index("\n", start):]
+    (root / "hero.toml").write_text(toml)
+    return root / "hero.toml"
+
+
+def write_config4(root):
+    """BASELINE config 4's stand-in, high_poly_scene(100_000)'s triangles,
+    as config4.obj (v, vn, f)."""
+    s = high_poly_scene(total_tris=100_000, device="cpu")
+    v = s.vertices.numpy().reshape(-1, 3)
+    write_obj(root / "config4.obj", v, None, s.normals.numpy().reshape(-1, 3), np.arange(len(v)).reshape(-1, 3))
+    return root / "config4.obj"
+
+
+@contextlib.contextmanager
+def watching_launches():
+    """While open, every launch the progressive renderer renders is
+    recorded: its schedule's stats and the stream syncs it made."""
+    real, log = progressive.render_frame, []
+
+    def watched(scene, cam, cfg, subframe):
+        with counting_syncs() as syncs:
+            img, stats = render_frame_stats(scene, cam, cfg, subframe)
+        log.append(dict(stats, segments=int(stats["segments"]), shadow_segments=int(stats["shadow_segments"]),
+                        syncs=len(syncs)))
+        return img
+
+    progressive.render_frame = watched
+    try:
+        yield log
+    finally:
+        progressive.render_frame = real
+
+
+def phase_scene_files(label, root, smi):
+    """Write the hero stand-in and config 4's OBJ, then load each through
+    the packed-scene cache cold and warm (the hero through its scene
+    file): seconds of each step, triangles, clusters, and the native
+    parser used for every OBJ of a cold load."""
+    t0 = time.perf_counter()
+    hero, obj4 = write_hero(root), write_config4(root)
+    written = time.perf_counter() - t0
+    cache_dir = str(root / "cache")
+    loads = (
+        ("hero", 2, lambda t: load_scene_file(str(hero), device="cuda", cache_dir=cache_dir, timings=t)[0]),
+        ("config 4", 1, lambda t: load_scene_cached([str(obj4)], accel="cluster", device="cuda", cache_dir=cache_dir,
+                                                    timings=t)),
+    )
+    parts = []
+    for name, n_objs, load in loads:
+        for want in ("miss", "hit"):
+            before, timings = native.used_native(), {}
+            t1 = time.perf_counter()
+            scene = load(timings)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t1
+            parsed = native.used_native() - before
+            if timings["cache"] != want:
+                raise SystemExit(f"[{label}] FAIL: {name} load was a cache {timings['cache']}, not a {want}")
+            if want == "miss" and parsed != n_objs:
+                raise SystemExit(f"[{label}] FAIL: the native OBJ parser served {parsed} of {n_objs} files")
+            steps = ", ".join(f"{k} {v:.4f} s" for k, v in timings.items() if k != "cache")
+            parts.append(f"{name} {want}: {total:.4f} s ({steps}), native parser {parsed} files")
+        m = scene.materials
+        parts.append(f"{name}: {scene.num_triangles} triangles, {scene.accel.num_clusters} clusters, "
+                     f"{m.num_materials} materials, {m.texture_quads.shape[0]} texels, bundled {m.bundled}")
+    print(f"[{label}] wrote the scenes in {written:.2f} s; " + "; ".join(parts) + f" | {smi}")
+    return hero, obj4
+
+
+def cli_launches(label, argv):
+    """cli.run(argv) with every launch count set to 0 just before and read
+    just after, and every launch recorded: (renderer, counts, launch log)."""
+    set_counts_zero()
+    with watching_launches() as log:
+        renderer = cli.run([str(a) for a in argv])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    return renderer, counts, log
+
+
+def check_launches(label, counts, log, want, extra=0):
+    """Each kernel of `want` launched at least once per iteration (plus
+    `extra`, the AOV passes'), the sampler once per iteration, nothing
+    else."""
+    iters = sum(entry["iters"] for entry in log)
+    for kid in want:
+        if counts[kid] < iters + (extra if kid in ("k1", "k2", "k3") else 0):
+            raise SystemExit(f"[{label}] FAIL: {counts[kid]} {KERNELS[kid][0]} launches for {iters} iterations")
+    if counts["ks"] != iters:
+        raise SystemExit(f"[{label}] FAIL: {counts['ks']} unit_sphere launches for {iters} iterations")
+    others = {KERNELS[kid][0]: c for kid, c in counts.items() if kid not in want + ("ks",) and c}
+    if others:
+        raise SystemExit(f"[{label}] FAIL: other kernels launched: {others}")
+    return iters
+
+
+def phase_cli_hero(label, hero, root, smi):
+    """The CLI at the reference's defaults on the hero stand-in's scene
+    file: 1600x1200, 30 spp in launches of 10, depth 20, DOF on, the
+    cluster accel, denoised, with AOVs and a checkpoint; then a resume
+    for a fourth launch, bit-equal to an uninterrupted four-launch run."""
+    out, ck, prefix = root / "hero.png", root / "hero_ck.npz", root / "hero"
+    r, counts, log = cli_launches(label, ["--scene-file", hero, "--file", out, "--spp", "30", "--denoise",
+                                          "--aov-prefix", prefix, "--checkpoint", ck, "--no-scene-cache"])
+    cfg = r.cfg
+    if (cfg.width, cfg.height, cfg.samples_per_launch, cfg.max_depth, cfg.dof) != (1600, 1200, 10, 20, True):
+        raise SystemExit(f"[{label}] FAIL: not the reference's defaults: {cfg}")
+    route = r.scene.accel.route(cfg)
+    if route != "flat" or {e["schedule"] for e in log} != {"stream_fused"} or not r.subframe == len(log) == 3:
+        raise SystemExit(f"[{label}] FAIL: route {route}, schedules {[e['schedule'] for e in log]}, {r.subframe} launches")
+    # The AOV pass runs twice (the denoiser's guide, the AOV files): kernel 1 on its centre rays.
+    iters = check_launches(label, counts, log, ("k1", "k7"), extra=2)
+    img = load_png(str(out))
+    aovs = [load_png(f"{prefix}_{k}.png").shape for k in ("normal", "depth", "albedo")]
+    if img.shape != (1200, 1600, 3) or not img.mean() > 0 or aovs != [img.shape] * 3:
+        raise SystemExit(f"[{label}] FAIL: output {img.shape}, mean {img.mean()}, AOVs {aovs}")
+    if not bool(torch.isfinite(r.accum).all()) or not float(r.accum.max()) > 0.0:
+        raise SystemExit(f"[{label}] FAIL: the accumulation is non-finite or black")
+    resumed, _, _ = cli_launches(label, ["--scene-file", hero, "--file", root / "hero4.png", "--spp", "40",
+                                         "--checkpoint", ck, "--resume", "--no-scene-cache"])
+    whole, _, _ = cli_launches(label, ["--scene-file", hero, "--file", root / "hero4u.png", "--spp", "40",
+                                       "--no-scene-cache"])
+    if resumed.subframe != 4 or not torch.equal(resumed.accum, whole.accum):
+        raise SystemExit(f"[{label}] FAIL: the resumed fourth launch differs from an uninterrupted run")
+    print(f"[{label}] {r.scene.num_triangles} triangles, {r.scene.accel.num_clusters} clusters, {route} route, "
+          f"stream_fused, {cfg.width}x{cfg.height} {cfg.samples_per_launch} spp depth {cfg.max_depth} DOF, 3 launches: "
+          f"s/launch {' '.join(f'{t:.4f}' for t in r.frame_times)}; {iters} iterations, "
+          f"{sum(e['segments'] for e in log)} segments, "
+          f"{sum(e['syncs'] for e in log) / iters:.4f} stream syncs per iteration; launches cluster_intersect "
+          f"{counts['k1']}, fused_step {counts['k7']}, unit_sphere {counts['ks']}; out {img.shape}, mean "
+          f"{img.mean():.4f}; resumed fourth launch bit-equal to an uninterrupted 4-launch run "
+          f"(s/launch {' '.join(f'{t:.4f}' for t in whole.frame_times)}) | {smi}")
+    return counts
+
+
+def phase_cli_config4(label, obj4, root, smi):
+    """The CLI on config 4's OBJ at 1920x1080, 10 spp, depth 8, no DOF:
+    one warm launch and one timed, without and with --nee; the two-level
+    route (kernel 2; kernel 5 under NEE; kernel 7 without)."""
+    out = {}
+    for nee in (False, True):
+        argv = ["--scene", obj4, "--eye", "0,3,10", "--lookat", "0,1,0", "--dim", "1920x1080", "--max-depth", "8",
+                "--no-dof", "--spp", "20", "--no-scene-cache", "--file", root / f"config4_{int(nee)}.png"]
+        r, counts, log = cli_launches(label, argv + (["--nee"] if nee else []))
+        if len(log) != 2:
+            raise SystemExit(f"[{label}] FAIL: {len(log)} launches, not 2")
+        acc = r.scene.accel
+        route, rows = acc.route(r.cfg), acc.tris16bw.numel() * 4
+        if route != "hier" or acc.num_clusters != 766 or rows != 6_275_072:
+            raise SystemExit(f"[{label}] FAIL: route {route}, {acc.num_clusters} clusters, {rows} bytes of rows")
+        want = ("k2", "k5") if nee else ("k2", "k7")
+        iters = check_launches(label, counts, log, want)
+        if not log[1]["segments"] > 0 or (nee and not log[1]["shadow_segments"] > 0):
+            raise SystemExit(f"[{label}] FAIL: no segments traced")
+        out["nee" if nee else "plain"] = counts
+        print(f"[{label}{' NEE' if nee else ''}] {r.scene.num_triangles} triangles, {acc.num_clusters} clusters, "
+              f"{rows} bytes of rows, {route} route, {log[1]['schedule']} schedule, 1920x1080 10 spp depth 8: "
+              f"s/launch warm {r.frame_times[0]:.4f}, timed {r.frame_times[1]:.4f}; {iters} iterations in 2 launches, "
+              f"{sum(e['syncs'] for e in log) / iters:.4f} stream syncs per iteration; launches cluster_hier "
+              f"{counts['k2']}, cluster_occluded_hier {counts['k5']}, fused_step {counts['k7']} | {smi}")
+    return out
+
+
+def phase_parity_textured(label, root, smi):
+    """The CPU tests' 64x48 textured, glass and emissive scene, two launches
+    through ProgressiveRenderer on the card and on the CPU: SSIM after
+    post_process above 0.995, segments within 0.5%; the AOVs' hit and mat
+    exact, normal, depth and albedo within rtol 1e-5 / atol 1e-5."""
+    d = root / "parity"
+    d.mkdir()
+    paths = [write_mtl_scene(str(d), tex=16)]
+    cfg = RenderConfig(width=64, height=48, samples_per_launch=2, max_depth=4, dof=True, dof_blurriness=0.05,
+                       env_mode="equirect", intersector="cluster")
+    cam = Camera(eye=(0.0, 2.0, 5.0), lookat=(0.0, 0.6, 0.0))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        scene = load_scene(paths, env=make_env(procedural_hdr(32, 64), dev), material_source="mtl", accel="cluster",
+                           device=dev)
+        with watching_launches() as log:
+            r = ProgressiveRenderer(scene, cam, cfg)
+            r.step()
+            r.step()
+        aov = {k: v.cpu().numpy() for k, v in render_aov(scene, r._cam_arrays, cfg).items()}
+        out[dev] = (post_process(r.accum, cfg).cpu().numpy(), sum(e["segments"] for e in log), aov)
+    (gpu, seg_gpu, g_aov), (cpu, seg_cpu, c_aov) = out["cuda"], out["cpu"]
+    score = ssim(gpu, cpu)
+    if not score > 0.995:
+        raise SystemExit(f"[{label}] FAIL: GPU vs CPU SSIM {score:.6f} <= 0.995")
+    if abs(seg_gpu - seg_cpu) > 0.005 * seg_cpu:
+        raise SystemExit(f"[{label}] FAIL: segments {seg_gpu} on the GPU vs {seg_cpu} on the CPU")
+    for k in ("hit", "mat"):
+        if not np.array_equal(g_aov[k], c_aov[k]):
+            raise SystemExit(f"[{label}] FAIL: AOV {k} differs on {int((g_aov[k] != c_aov[k]).sum())} pixels")
+    errs = {}
+    for k in ("normal", "depth", "albedo"):
+        if not np.allclose(g_aov[k], c_aov[k], rtol=1e-5, atol=1e-5):
+            raise SystemExit(f"[{label}] FAIL: AOV {k} beyond rtol 1e-5 / atol 1e-5")
+        errs[k] = float(np.abs(g_aov[k] - c_aov[k]).max())
+    print(f"[{label}] textured, glass and emissive scene, 64x48, 2 launches of 2 spp, DOF: GPU vs CPU SSIM "
+          f"{score:.6f}, segments {seg_gpu} vs {seg_cpu}; AOV hit and mat exact ({int(g_aov['hit'].sum())} hits, "
+          f"materials {sorted(set(np.unique(g_aov['mat']).tolist()))}), max abs differences "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f" | {smi}")
+    return paths
+
+
+def phase_viewer(label, paths, smi):
+    """The viewer on a renderer on the card, on a free localhost port:
+    every endpoint answers 200, /frame.png decodes with the port's codec,
+    /resize changes the frame's size; then the server and its render
+    thread stop."""
+    import urllib.request
+
+    scene = load_scene(paths, env=make_env(procedural_hdr(32, 64), "cuda"), material_source="mtl", accel="cluster",
+                       device="cuda")
+    cfg = RenderConfig(width=320, height=240, samples_per_launch=2, max_depth=4, dof=False, env_mode="equirect")
+    renderer = ProgressiveRenderer(scene, Camera(eye=(0.0, 2.0, 5.0), lookat=(0.0, 0.6, 0.0)), cfg)
+    httpd, stop = serve(renderer, port=0, block=False)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    got = []
+
+    def get(path):
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(base + path, timeout=120) as resp:
+            if resp.status != 200:
+                raise SystemExit(f"[{label}] FAIL: {path} answered {resp.status}")
+            body = resp.read()
+        got.append(f"{path.split('?')[0]} {1e3 * (time.perf_counter() - t0):.1f} ms")
+        return body
+
+    try:
+        before = decode_png(get("/frame.png")).shape
+        stats = json.loads(get("/stats"))
+        for path in ("/orbit?dyaw=10&dpitch=5", "/zoom?f=0.9", "/pan?dx=0.1&dy=0.05", "/toggle_dof",
+                     "/resize?w=160&h=96"):
+            get(path)
+        after = decode_png(get("/frame.png")).shape
+    finally:
+        stop.set()
+        httpd.shutdown()
+        httpd.server_close()
+        for t in threading.enumerate():
+            if t.name == "viewer-render":
+                t.join(timeout=120)
+        torch.cuda.synchronize()
+    if before != (240, 320, 3) or after != (96, 160, 3):
+        raise SystemExit(f"[{label}] FAIL: frame {before} before /resize, {after} after")
+    print(f"[{label}] 200 from every endpoint ({', '.join(got)}); frame {before} -> {after} after /resize; "
+          f"stats keys {sorted(stats)}; accumulation on {renderer.accum.device} | {smi}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--image", help="write the headline 1080p frame here as a binary PPM")
@@ -946,6 +1325,17 @@ def main() -> int:
         got = phase_parity(label, headline_scene, Camera(), "flat", nee=label.endswith("NEE"), **overrides)
         if got != want:
             raise SystemExit(f"[{label}] FAIL: the GPU render took {got}, not {want}")
+    # The user's entry points, in a scratch directory under the git-ignored build/.
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR.parent, prefix="chip_smoke_") as tmp:
+        root = Path(tmp)
+        hero, obj4 = phase_scene_files("24 scene files", root, smi)
+        cli_counts = {"hero": phase_cli_hero("25 CLI hero", hero, root, smi)}
+        cli_counts.update(phase_cli_config4("26 CLI config 4", obj4, root, smi))
+        paths = phase_parity_textured("27 parity textured", root, smi)
+        phase_viewer("28 viewer", paths, smi)
+    print("[launches on the CLI renders] " + "; ".join(
+        f"{name}: " + ", ".join(f"{KERNELS[kid][0]} {n}" for kid, n in counts.items() if n)
+        for name, counts in cli_counts.items()))
     print(f"[done] {time.perf_counter() - t_start:.1f} s after the device phase began")
 
     print(json.dumps({"kernels": [

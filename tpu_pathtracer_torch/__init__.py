@@ -1,8 +1,8 @@
 """tpu_pathtracer_torch: the path tracer ported to PyTorch and CUDA.
 
 A second package beside the JAX one (`tpu_pathtracer`, the reference).
-It mirrors that package's layout (config, utils, scene, accel, ops,
-render) and imports PyTorch and numpy only.  Plain tensor code is PyTorch;
+It mirrors that package's layout (config, utils, assets, scene, accel,
+ops, render, runtime, cli, viewer) and imports PyTorch and numpy only.  Plain tensor code is PyTorch;
 the packet-traversal kernel is CUDA C++ for Hopper (`csrc/`), built with
 `nvcc` at first use and launched for CUDA tensors, with a plain PyTorch
 version of it for CPU tensors.

@@ -7,6 +7,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpu_pathtracer_torch.utils.device import DEFAULT_DEVICE
+
 
 def _expand_bits_10(x: np.ndarray) -> np.ndarray:
     """Spread 10 bits over 30 (Morton bit-interleave)."""
@@ -36,19 +38,28 @@ def morton_order(vertices: np.ndarray) -> np.ndarray:
     return np.argsort(morton_codes(vertices.mean(axis=1)), kind="stable")
 
 
+def build_accel_arrays(vertices: np.ndarray, kind: str = "cluster", device=DEFAULT_DEVICE, **kw):
+    """Accel build over host [T,3,3] vertices: (perm, accel), the Morton
+    permutation to apply to every per-triangle array and the cluster
+    accel (on `device`; kw: cluster_size) of the permuted order."""
+    from tpu_pathtracer_torch.accel.cluster import build_cluster_accel
+
+    if kind != "cluster":
+        raise ValueError(f"unknown accel kind: {kind!r}")
+    perm = morton_order(vertices)
+    return perm, build_cluster_accel(np.ascontiguousarray(vertices[perm]), device=device, **kw)
+
+
 def build_accel(scene, kind: str = "cluster", **kw):
     """Permute `scene` into Morton order and attach a cluster accel (kw:
     cluster_size) on the scene's device.  Returns a new Scene."""
-    from tpu_pathtracer_torch.accel.cluster import build_cluster_accel
-
     if kind != "cluster":
         raise ValueError(f"unknown accel kind: {kind!r}")
     verts = scene.vertices.cpu().numpy()
     if verts.shape[0] == 0:
         return scene
     device = scene.device
-    perm = morton_order(verts)
-    accel = build_cluster_accel(np.ascontiguousarray(verts[perm]), device=device, **kw)
+    perm, accel = build_accel_arrays(verts, kind, device, **kw)
     idx = torch.as_tensor(perm, device=device)
     return scene.replace(
         vertices=scene.vertices[idx],

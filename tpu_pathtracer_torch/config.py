@@ -158,3 +158,16 @@ class RenderConfig:
             raise ValueError(
                 f"stream_lanes must be >= 0 (0 = auto): {self.stream_lanes}"
             )
+
+
+def check_texture_lod(value: str) -> None:
+    """The JAX config's `texture_lod`, which the port carries no field
+    for: "auto" and "off" both sample the full-resolution pool (the JAX
+    package's "auto" resolves to "off"), which is all the port does.
+    "mip" and "split" need the mip ladder, measured and refuted on the
+    TPU and not ported (ROADMAP, do not port): refused."""
+    if value in ("mip", "split"):
+        raise ValueError(f"texture_lod={value!r} needs the texture mip ladder, which is not ported "
+                         "(refuted on the TPU; ROADMAP, do not port): use 'auto' or 'off'")
+    if value not in ("auto", "off"):
+        raise ValueError(f"invalid texture_lod: {value!r}")

@@ -60,6 +60,37 @@ class Camera:
     def eye_np(self):
         return np.asarray(self.eye, dtype=np.float32)
 
+    # ---- trackball-style interaction (viewer) -------------------------
+    def orbit(self, d_yaw: float, d_pitch: float) -> "Camera":
+        """Orbit the eye around the look-at point (degrees), pitch held
+        inside +-1.55 rad."""
+        eye = np.asarray(self.eye, dtype=np.float64)
+        lookat = np.asarray(self.lookat, dtype=np.float64)
+        rel = eye - lookat
+        r = np.linalg.norm(rel)
+        yaw = math.atan2(rel[0], rel[2]) + math.radians(d_yaw)
+        pitch = math.asin(np.clip(rel[1] / max(r, 1e-9), -1.0, 1.0))
+        pitch = np.clip(pitch + math.radians(d_pitch), -1.55, 1.55)
+        new_rel = r * np.array(
+            [math.cos(pitch) * math.sin(yaw), math.sin(pitch), math.cos(pitch) * math.cos(yaw)]
+        )
+        return dataclasses.replace(self, eye=tuple((lookat + new_rel).tolist()))
+
+    def zoom(self, factor: float) -> "Camera":
+        """Dolly toward (factor < 1) or away from the look-at point."""
+        eye = np.asarray(self.eye, dtype=np.float64)
+        lookat = np.asarray(self.lookat, dtype=np.float64)
+        rel = (eye - lookat) * factor
+        return dataclasses.replace(self, eye=tuple((lookat + rel).tolist()))
+
+    def pan(self, dx: float, dy: float) -> "Camera":
+        """Translate eye and look-at in the view plane."""
+        u, v, _ = self.uvw_frame()
+        delta = (dx * u + dy * v).astype(np.float64)
+        eye = np.asarray(self.eye, dtype=np.float64) + delta
+        lookat = np.asarray(self.lookat, dtype=np.float64) + delta
+        return dataclasses.replace(self, eye=tuple(eye.tolist()), lookat=tuple(lookat.tolist()))
+
 
 def camera_arrays(camera: Camera, cfg: RenderConfig, device) -> dict:
     """Camera -> {"eye","U","V","W"} float32 [3] tensors on `device`."""

@@ -9,6 +9,7 @@ Counterpart of `tpu_pathtracer/render/film.py`:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from tpu_pathtracer_torch.config import RenderConfig
@@ -16,10 +17,24 @@ from tpu_pathtracer_torch.config import RenderConfig
 
 def accumulate(prev_accum: torch.Tensor, new_frame: torch.Tensor, subframe: int) -> torch.Tensor:
     """Progressive EWMA: accum_k = lerp(accum_{k-1}, frame, 1/(k+1))."""
-    if subframe <= 0:
+    return accumulate_weighted(prev_accum, new_frame, subframe, 1)
+
+
+def accumulate_weighted(prev_accum: torch.Tensor, new_frame: torch.Tensor, prev_spp: int, new_spp: int) -> torch.Tensor:
+    """Sample-count-weighted accumulation: lerp(prev, new, new_spp /
+    (prev_spp + new_spp)), or `new_frame` when nothing is accumulated.
+
+    The factor is a float32 quotient formed on the host, as the JAX
+    package forms it on the device: IEEE division is correctly rounded,
+    so at a constant spp per launch spp / ((k+1) spp) and 1 / (k+1) give
+    the same float32 and this equals `accumulate` bit for bit.  It enters
+    as a Python scalar factor: a product, with no device constant built
+    per call (a scalar divisor would become a reciprocal multiply on the
+    card)."""
+    if prev_spp <= 0:
         return new_frame
-    a = 1.0 / (torch.tensor(float(subframe), dtype=torch.float32) + 1.0)
-    return prev_accum + (new_frame - prev_accum) * a.to(new_frame.device)
+    a = float(np.float32(new_spp) / (np.float32(prev_spp) + np.float32(new_spp)))
+    return prev_accum + (new_frame - prev_accum) * a
 
 
 def aces_fit_tonemap(x: torch.Tensor) -> torch.Tensor:
@@ -36,8 +51,9 @@ def to_srgb(x: torch.Tensor) -> torch.Tensor:
 
 def post_process(accum_rgb: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
     """HDR accumulation -> display-ready float RGB in [0,1]."""
-    exposure = torch.exp2(torch.tensor(cfg.exposure, dtype=torch.float32))
-    rgb = accum_rgb * exposure.to(accum_rgb.device)
+    # exp2 in float32 on the host, entering as a Python scalar factor: no
+    # device constant is built per call.
+    rgb = accum_rgb * float(torch.exp2(torch.tensor(cfg.exposure, dtype=torch.float32)))
     rgb = aces_fit_tonemap(rgb)
     rgb = torch.clamp(rgb, 0.0, 1.0)
     rgb = torch.pow(torch.clamp_min(rgb, 1e-10), 1.0 / cfg.gamma)

@@ -1,9 +1,11 @@
 """Where the port's constructors put their tensors: on the card, unless the
 caller names another device (the tests pass device="cpu"); and the small
-constant tensors that the render loop reuses on each device."""
+constant tensors that the render loop reuses on each device; and moving
+a scene's tensors to another device."""
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -35,3 +37,21 @@ def constant(values, dtype: torch.dtype, device) -> torch.Tensor:
     render loop must not build one per call.  Callers must not write to
     it."""
     return _constant(values, dtype, torch.device(device))
+
+
+def to_device(obj, device):
+    """A copy of the dataclass `obj` (a Scene, its MaterialTable,
+    EnvironmentMap or ClusterAccel) with every tensor on `device`, nested
+    dataclasses included.  Private cache fields (a leading underscore,
+    such as ClusterAccel._pads) start empty again."""
+    device = resolve(device)
+    kw = {}
+    for f in dataclasses.fields(obj):
+        val = getattr(obj, f.name)
+        if f.name.startswith("_") and f.default_factory is not dataclasses.MISSING:
+            kw[f.name] = f.default_factory()
+        elif isinstance(val, torch.Tensor):
+            kw[f.name] = val.to(device)
+        elif dataclasses.is_dataclass(val):
+            kw[f.name] = to_device(val, device)
+    return dataclasses.replace(obj, **kw)

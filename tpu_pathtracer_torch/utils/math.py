@@ -92,5 +92,10 @@ def onb_transform(local: torch.Tensor, tangent, normal, binormal) -> torch.Tenso
     )
 
 
+def luminance(rgb: torch.Tensor) -> torch.Tensor:
+    """Rec. 709 luma weights, in the order of `dot`."""
+    return rgb[..., 0] * 0.2126 + rgb[..., 1] * 0.7152 + rgb[..., 2] * 0.0722
+
+
 def lerp(a, b, t):
     return a + (b - a) * t
