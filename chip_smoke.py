@@ -4,9 +4,10 @@ kernels), each without and with next-event estimation (NEE: alias-table
 light draws and shadow rays through the any-hit kernels), the fused
 schedule step (kernel 7) on the headline and BASELINE config 1, the
 other frame schedules: 1 spp (render_rays, tiled) and one lane per pixel
-(render_pixels_regen); and the user's entry points: OBJ/MTL/PNG scene
+(render_pixels_regen); the user's entry points: OBJ/MTL/PNG scene
 files through the packed-scene cache, the CLI with the progressive
-renderer, AOVs, denoise and checkpoints, and the viewer.
+renderer, AOVs, denoise and checkpoints, and the viewer; and sharded
+frames on torch.distributed, deferred shading and the numpy oracle.
 
     python3 chip_smoke.py [--image PATH]
 
@@ -110,7 +111,27 @@ Phases, each printing one line (any failure exits non-zero):
  28. the viewer on a free localhost port: /frame.png (decoded by the
      port's codec), /stats, /orbit, /zoom, /pan, /toggle_dof and /resize
      answer 200, /resize changes the frame's size; the server and its
-     render thread stop.
+     render thread stop;
+ 29. sharding in a NCCL group of one rank: the headline (1080p, 10 spp,
+     depth 8) sharded by pixels (an affine pixel range through the
+     unfused stream) must equal render_frame bit for bit, by samples
+     within rtol 2e-4 / atol 2e-5; s/launch of each and of the unsharded
+     frame;
+ 30. two ranks on the one card over gloo, each a process of its own
+     (chip_smoke.py --shard-worker PORT RANK OUT): the headline at
+     320x240 without and with NEE, pixels bit-equal and samples within the
+     tolerance above, both ranks holding the same frame; then the CLI
+     with --shard pixels (a group of one) writes the PNG that --shard none
+     writes, byte for byte;
+ 31. deferred shading off and on, the headline and the hero stand-in:
+     three frames each, bit-equal with equal segments; mean s/launch,
+     stream syncs and device kernels per iteration, device busy time of
+     one profiled frame;
+ 32. six 32x24, 2 spp, depth 4 renders through kernel 1 (kernel 4 under
+     NEE) against the numpy oracle (tpu_pathtracer_torch/oracle.py) by
+     tests/test_oracle.py's rule, at least 98% of pixels with relative
+     difference below 1e-3: sunsky spheres, DOF and a constant sky,
+     glass, NEE, NEE with the defensive mixture, NEE with MIS-spec.
 Then the launches on the CLI renders of phases 25 and 26, one JSON line with every kernel's numbers (launches from its render
 phase, bound from the work its plain version counts on the phase's rays),
 and last the result line {"ok": true, "device": {...}}.  --image writes
@@ -142,6 +163,7 @@ try:
     from tpu_pathtracer_torch.ops import cuda_build
     from tpu_pathtracer_torch.ops import fused_schedule as fs
     from tpu_pathtracer_torch.ops import intersect_cluster as ic
+    from tpu_pathtracer_torch.ops import unit_sphere
     from tpu_pathtracer_torch.render.camera import Camera, camera_arrays, generate_camera_rays
     from tpu_pathtracer_torch.render.envmap import with_importance_sampling
     from tpu_pathtracer_torch.render.film import post_process, to_uint8
@@ -171,10 +193,16 @@ try:
     from tpu_pathtracer_torch.scene.scenefile import load_scene_file
     from tpu_pathtracer_torch.utils.image import decode_png, load_png, save_png
     from tpu_pathtracer_torch.viewer import serve
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_pathtracer_torch import oracle
+    from tpu_pathtracer_torch.parallel.shard import free_port, initialize_distributed, make_mesh, render_frame_sharded
+    from tpu_pathtracer_torch.render.integrator import render_frame
 
     # the CPU tests' scene writer (it imports neither JAX nor PIL)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
-    from _torch_scenes import write_mtl_scene
+    from _torch_scenes import ORACLE_CASES, oracle_case, write_mtl_scene
 except ImportError as e:
     print(f"chip_smoke: cannot import the port ({e}); run from the repository root", file=sys.stderr)
     sys.exit(2)
@@ -203,7 +231,7 @@ KERNELS = {
     # No TPU kernel: the JAX package's lax.while_loop, which the port's loop
     # could only end by reading the device.
     "ks": ("unit_sphere", "tpu_pathtracer_torch/csrc/unit_sphere.cu", "tpu_pathtracer/utils/rng.py:79", None, False,
-           rng.random_in_unit_sphere, rng.random_in_unit_sphere_cuda, rng.random_in_unit_sphere_plain),
+           unit_sphere.random_in_unit_sphere, unit_sphere.random_in_unit_sphere_cuda, rng.random_in_unit_sphere_plain),
 }
 # The kernels each route's render launches, without and with NEE.
 ROUTE_KERNELS = {"flat": ("k1", "k4"), "hier": ("k2", "k5"), "streamed": ("k3", "k6")}
@@ -521,14 +549,14 @@ def phase_sampler(label, scene, cfg, smi):
     seed = rng.make_seeds(idx, idx % cfg.samples_per_launch, 1)
     for _ in range(4):
         seed = rng.pcg_hash(seed)
-    got = rng.random_in_unit_sphere_cuda(seed)
+    got = unit_sphere.random_in_unit_sphere_cuda(seed)
     want = rng.random_in_unit_sphere_plain(seed)
     torch.cuda.synchronize()
     if not (torch.equal(got[0], want[0]) and same_bits(got[1], want[1])):
         bad = int((got[0] != want[0]).sum()) + int((got[1] != want[1]).sum())
         raise SystemExit(f"[{label}] FAIL: unit_sphere and its plain version differ on {bad} values")
     draws = draw_counts(seed, want[0])
-    ms = _time_over(rng.random_in_unit_sphere_cuda, [seed] * 51, device_only=True)
+    ms = _time_over(unit_sphere.random_in_unit_sphere_cuda, [seed] * 51, device_only=True)
     plain_ms = _time_ms(lambda: rng.random_in_unit_sphere_plain(seed), 5)
     n_bytes, flops = n * (8 + 8 + 12), int(draws.sum()) * SAMPLER_DRAW_FLOPS
     t_ops, t_bytes = flops / PEAK_FP32 * 1e3, n_bytes / PEAK_BYTES * 1e3
@@ -1267,11 +1295,263 @@ def phase_viewer(label, paths, smi):
           f"stats keys {sorted(stats)}; accumulation on {renderer.accum.device} | {smi}")
 
 
+# ---------------------------------------------------------------------------
+# Sharding, deferred shading and the oracle (phases 29-32)
+# ---------------------------------------------------------------------------
+
+SHARD_TOLERANCE = dict(rtol=2e-4, atol=2e-5)  # sample sharding: the JAX package's tests/test_parallel.py
+
+
+def timed(fn):
+    """(fn()'s result, its seconds, the launch counts it made): counts set
+    to 0 just before, read just after, the device synchronised at both
+    ends."""
+    torch.cuda.synchronize()
+    set_counts_zero()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_counts()
+
+
+def check_kernels(label, counts, want):
+    """Each kernel of `want` and the sampler launched, no other kernel."""
+    for kid in want + ("ks",):
+        if not counts[kid]:
+            raise SystemExit(f"[{label}] FAIL: {KERNELS[kid][0]} never launched")
+    extra = {KERNELS[kid][0]: c for kid, c in counts.items() if c and kid not in want + ("ks",)}
+    if extra:
+        raise SystemExit(f"[{label}] FAIL: other kernels launched: {extra}")
+
+
+def launched(counts):
+    return ", ".join(f"{KERNELS[kid][0]} {n}" for kid, n in counts.items() if n)
+
+
+def phase_shard_one(label, scene, cfg, smi):
+    """A NCCL group of one rank on the card: the headline (1080p, 10 spp,
+    depth 8) sharded by pixels and by samples.  Pixels must equal this
+    process's render_frame bit for bit, samples within rtol 2e-4 / atol
+    2e-5; s/launch of each beside the unsharded frame's.  Pixel sharding
+    passes an affine range, which takes the unfused stream (kernel 1, not
+    kernel 7); sample sharding renders the whole frame (fused stream)."""
+    initialize_distributed("cuda", init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0)
+    try:
+        backend, mesh = dist.get_backend(), make_mesh()
+        # The communicator is set up at its first collective: outside the timed frames.
+        dist.all_reduce(torch.ones(1, device="cuda"))
+        cam = camera_arrays(Camera(), cfg, "cuda")
+        single, t_single, c_single = timed(lambda: render_frame(scene, cam, cfg, 1))
+        pixels, t_pixels, c_pixels = timed(lambda: render_frame_sharded(scene, cam, cfg, 1, mesh, mode="pixels"))
+        samples, t_samples, c_samples = timed(lambda: render_frame_sharded(scene, cam, cfg, 1, mesh, mode="samples"))
+    finally:
+        dist.destroy_process_group()
+    if backend != "nccl":
+        raise SystemExit(f"[{label}] FAIL: the group of one on the card talks {backend}, not NCCL")
+    if not bool(torch.isfinite(single).all()) or not float(single.max()) > 0.0:
+        raise SystemExit(f"[{label}] FAIL: the unsharded frame is non-finite or black")
+    if not same_bits(pixels, single):
+        raise SystemExit(f"[{label}] FAIL: pixel-sharded frame differs from render_frame on "
+                         f"{int((pixels != single).sum())} values")
+    if not torch.allclose(samples, single, **SHARD_TOLERANCE):
+        raise SystemExit(f"[{label}] FAIL: sample-sharded frame beyond rtol 2e-4 / atol 2e-5: "
+                         f"max abs difference {float((samples - single).abs().max())}")
+    check_kernels(label, c_single, ("k1", "k7"))
+    check_kernels(label, c_pixels, ("k1",))
+    check_kernels(label, c_samples, ("k1", "k7"))
+    print(f"[{label}] NCCL group of one, 1920x1080 10 spp depth 8: pixels bit-equal to render_frame, samples max "
+          f"abs difference {float((samples - single).abs().max()):.3g} (rtol 2e-4 / atol 2e-5); s/launch unsharded "
+          f"{t_single:.4f}, pixels {t_pixels:.4f}, samples {t_samples:.4f}; launches unsharded: {launched(c_single)}; "
+          f"pixels: {launched(c_pixels)}; samples: {launched(c_samples)} | {smi}")
+    return c_pixels
+
+
+SHARD_WORLD = 2
+SHARD_CASES = ("plain", "nee")
+
+
+def shard_worker(port, rank, out):
+    """One of phase 30's ranks (chip_smoke.py --shard-worker PORT RANK OUT):
+    a gloo group of SHARD_WORLD processes, every rank on cuda:0.  Renders
+    the headline at 320x240, 10 spp, depth 8, without and with NEE, sharded
+    by pixels and by samples (launch counts set to 0 before each and read
+    after), rank 0 also unsharded, and writes OUT.<rank>.npz."""
+    dev = initialize_distributed("cuda", backend="gloo", init_method=f"tcp://localhost:{port}",
+                                 world_size=SHARD_WORLD, rank=rank)
+    res = {}
+    try:
+        mesh, scene = make_mesh(), headline_scene(dev)
+        for case in SHARD_CASES:
+            cfg = RenderConfig(**{**HEADLINE, **(NEE if case == "nee" else {}), "width": 320, "height": 240})
+            cam = camera_arrays(Camera(), cfg, dev)
+            for mode in ("pixels", "samples"):
+                img, dt, counts = timed(lambda: render_frame_sharded(scene, cam, cfg, 1, mesh, mode=mode))
+                res[f"{case}_{mode}"] = img.cpu().numpy()
+                res[f"{case}_{mode}_seconds"] = dt
+                res[f"{case}_{mode}_counts"] = np.array([counts[kid] for kid in KERNELS])
+            if rank == 0:
+                res[f"{case}_single"] = render_frame(scene, cam, cfg, 1).cpu().numpy()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    np.savez(f"{out}.{rank}.npz", **res)
+    return 0
+
+
+def phase_shard_two(label, root, paths, smi):
+    """Two ranks on the one card over gloo (shard_worker, in processes of
+    their own): pixels bit-equal to render_frame, samples within rtol 2e-4
+    / atol 2e-5, both ranks holding the same frame, the route's kernels
+    launched (kernel 4 under NEE).  Then the CLI on phase 27's textured
+    scene (its OBJ takes the cluster accel) with --shard pixels (a group
+    of one) against --shard none: the same PNG bytes."""
+    port, out = free_port(), root / "shard"
+    procs = [subprocess.Popen([sys.executable, __file__, "--shard-worker", str(port), str(rank), str(out)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rank in range(SHARD_WORLD)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise SystemExit(f"[{label}] FAIL: rank {rank} exited {p.returncode}:\n{log[-4000:]}")
+    ranks = [dict(np.load(f"{out}.{rank}.npz")) for rank in range(SHARD_WORLD)]
+    parts = []
+    for case in SHARD_CASES:
+        single = ranks[0][f"{case}_single"]
+        for mode in ("pixels", "samples"):
+            key = f"{case}_{mode}"
+            img = ranks[0][key]
+            if any(not np.array_equal(r[key], img) for r in ranks[1:]):
+                raise SystemExit(f"[{label}] FAIL: the ranks hold different {key} frames")
+            if mode == "pixels" and not np.array_equal(img.view(np.int32), single.view(np.int32)):
+                raise SystemExit(f"[{label}] FAIL: {key} differs from render_frame on {int((img != single).sum())} values")
+            if mode == "samples" and not np.allclose(img, single, **SHARD_TOLERANCE):
+                raise SystemExit(f"[{label}] FAIL: {key} beyond rtol 2e-4 / atol 2e-5")
+            for rank, r in enumerate(ranks):
+                counts = dict(zip(KERNELS, r[f"{key}_counts"].tolist()))
+                want = ("k1", "k4") if case == "nee" else ("k1", "k7") if mode == "samples" else ("k1",)
+                check_kernels(f"{label} rank {rank} {key}", counts, want)
+            secs = " ".join(f"{float(r[key + '_seconds']):.4f}" for r in ranks)
+            rank0 = launched(dict(zip(KERNELS, ranks[0][key + "_counts"].tolist())))
+            parts.append(f"{key}: {secs} s ({rank0} on rank 0)")
+    argv = ["--scene", *paths, "--materials", "mtl", "--eye", "0,2,5", "--lookat", "0,0.6,0", "--dim", "320x240",
+            "-s", "10", "--spp", "10", "--max-depth", "8", "--no-dof", "--no-scene-cache", "--verbosity", "2"]
+    sharded, t_sharded, c_sharded = timed(lambda: cli.run(argv + ["--shard", "pixels", "--file", str(root / "s.png")]))
+    plain, t_plain, _ = timed(lambda: cli.run(argv + ["--file", str(root / "n.png")]))
+    if (root / "s.png").read_bytes() != (root / "n.png").read_bytes():
+        raise SystemExit(f"[{label}] FAIL: the CLI's --shard pixels PNG differs from --shard none's")
+    if sharded.mesh is None or sharded.mesh.size != 1 or dist.is_initialized():
+        raise SystemExit(f"[{label}] FAIL: the CLI did not render in a group of one, or left it")
+    check_kernels(label, c_sharded, ("k1",))
+    print(f"[{label}] gloo, {SHARD_WORLD} ranks on cuda:0, 320x240 10 spp depth 8: pixels bit-equal to render_frame, "
+          f"samples within rtol 2e-4 / atol 2e-5, every rank the same frame; s/launch by rank: {'; '.join(parts)}; "
+          f"CLI --shard pixels (group of one) PNG byte-equal to --shard none (cli.run {t_sharded:.4f} vs "
+          f"{t_plain:.4f} s, scene load and group set-up included; launches {launched(c_sharded)}) | {smi}")
+
+
+def phase_deferred(label, hero, root, smi):
+    """The headline (fused stream) and the hero stand-in (textured, DOF,
+    through its scene file) with deferred_shade off and on: three frames
+    each (no warm frame: both scenes rendered in earlier phases), which
+    must be bit-equal with equal iterations and segments; the
+    mean s/launch of the three, stream syncs and device kernels per
+    iteration, and the device busy time of a fourth frame under
+    torch.profiler (device events, as profile_renders.py reads them)."""
+    from profile_renders import device_events
+
+    hero_scene, hero_camera, hero_cfg = load_scene_file(str(hero), device="cuda", cache_dir=str(root / "cache"))
+    cases = (("headline", headline_scene("cuda"), Camera(), RenderConfig(**HEADLINE)),
+             ("hero", hero_scene, hero_camera, hero_cfg))
+    for name, scene, camera, cfg in cases:
+        cam = camera_arrays(camera, cfg, "cuda")
+        res = {}
+        for on in (False, True):
+            c = cfg.replace(deferred_shade=on)
+            frames, syncs = [], 0
+            torch.cuda.synchronize()
+            set_counts_zero()
+            for k in (1, 2, 3):
+                with counting_syncs() as frame_syncs:
+                    t0 = time.perf_counter()
+                    img, stats = render_frame_stats(scene, cam, c, k)
+                    torch.cuda.synchronize()
+                frames.append((img, stats, time.perf_counter() - t0))
+                syncs += len(frame_syncs)
+            counts = read_counts()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _, pstats = render_frame_stats(scene, cam, c, 4)
+                torch.cuda.synchronize()
+            events = device_events(prof)
+            iters = sum(f[1]["iters"] for f in frames)
+            want = ("k1", "k7") if frames[0][1]["schedule"] == "stream_fused" else ("k1",)
+            check_kernels(f"{label} {name}", counts, want)
+            res[on] = dict(frames=frames, iters=iters, syncs=syncs / iters, counts=counts,
+                           busy=sum(sec for _, sec in events.values()),
+                           kernels=sum(n for n, _ in events.values()) / pstats["iters"])
+        off, on = res[False], res[True]
+        equal = all(same_bits(a[0], b[0]) for a, b in zip(off["frames"], on["frames"]))
+        segments = [int(f[1]["segments"]) for f in off["frames"]], [int(f[1]["segments"]) for f in on["frames"]]
+        if not equal or segments[0] != segments[1] or off["iters"] != on["iters"]:
+            raise SystemExit(f"[{label} {name}] FAIL: deferred and dense differ: images bit-equal {equal}, "
+                             f"segments {segments[0]} vs {segments[1]}")
+        mean = {k: float(np.mean([f[2] for f in v["frames"]])) for k, v in res.items()}
+        print(f"[{label} {name}] {scene.num_triangles} triangles, {cfg.width}x{cfg.height} "
+              f"{cfg.samples_per_launch} spp depth {cfg.max_depth}{' DOF' if cfg.dof else ''}, "
+              f"{off['frames'][0][1]['schedule']} schedule: deferred on vs off images bit-equal {equal}, segments "
+              f"equal {segments[0] == segments[1]} ({sum(segments[0])} in 3 frames, {off['iters']} iterations); "
+              f"s/launch (mean of 3) off {mean[False]:.4f} ({' '.join(f'{f[2]:.4f}' for f in off['frames'])}), "
+              f"on {mean[True]:.4f} ({' '.join(f'{f[2]:.4f}' for f in on['frames'])}); stream syncs per iteration "
+              f"off {off['syncs']:.4f}, on {on['syncs']:.4f}; device kernels per iteration off {off['kernels']:.1f}, "
+              f"on {on['kernels']:.1f}; device busy (one profiled frame) off {off['busy']:.4f} s, on "
+              f"{on['busy']:.4f} s; launches off: {launched(off['counts'])}; on: {launched(on['counts'])} | {smi}")
+
+
+def phase_oracle(label, smi):
+    """32x24 frames, 2 spp, depth 4, rendered on the card through the
+    cluster accel's flat route (kernel 1; kernel 4 under NEE) and held
+    against the numpy oracle (tpu_pathtracer_torch/oracle.py) by
+    tests/test_oracle.py's rule, on that file's cases (ORACLE_CASES of
+    tests/_torch_scenes.py): at least 98% of pixels with relative
+    difference below 1e-3."""
+    parts = []
+    for name in ORACLE_CASES:
+        scene, kw, eye = oracle_case(name, "cuda")
+        cfg = RenderConfig(**{**dict(width=32, height=24, samples_per_launch=2, max_depth=4, dof=False), **kw})
+        scene = build_accel(scene, kind="cluster")
+        if scene.accel.route(cfg) != "flat":
+            raise SystemExit(f"[{label}] FAIL: {name} routes to {scene.accel.route(cfg)}, not flat")
+        cam = camera_arrays(Camera(**eye), cfg, "cuda")
+        img, _, counts = timed(lambda: render_frame(scene, cam, cfg, 0))
+        check_kernels(f"{label} {name}", counts, ("k1", "k4") if cfg.env_importance_sampling else ("k1",))
+        t0 = time.perf_counter()
+        want = oracle.render(scene, cam, cfg, range(cfg.width * cfg.height), 0)
+        t_oracle = time.perf_counter() - t0
+        got = img.reshape(-1, 3).cpu().numpy()
+        rel = np.abs(got - want).max(axis=1) / (1.0 + np.abs(got).max(axis=1))
+        frac = float((rel < 1e-3).mean())
+        if not frac >= 0.98 or not got.max() > 0:
+            raise SystemExit(f"[{label}] FAIL: {name}: {frac:.2%} of pixels match the oracle (at least 98%)")
+        parts.append(f"{name} {frac:.2%} ({launched(counts)}; oracle {t_oracle:.1f} s)")
+    print(f"[{label}] card vs numpy oracle, 32x24 2 spp depth 4, pixels with relative difference < 1e-3: "
+          + "; ".join(parts) + f" | {smi}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--image", help="write the headline 1080p frame here as a binary PPM")
     parser.add_argument("--parent", help="the root of an older checkout: phase 18 also times its kernel 7")
+    parser.add_argument("--shard-worker", nargs=3, metavar=("PORT", "RANK", "OUT"), help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.shard_worker:
+        port, rank, out = args.shard_worker
+        return shard_worker(int(port), int(rank), out)
 
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1333,6 +1613,10 @@ def main() -> int:
         cli_counts.update(phase_cli_config4("26 CLI config 4", obj4, root, smi))
         paths = phase_parity_textured("27 parity textured", root, smi)
         phase_viewer("28 viewer", paths, smi)
+        phase_shard_one("29 shard one rank", scene, cfg, smi)
+        phase_shard_two("30 shard two ranks", root, paths, smi)
+        phase_deferred("31 deferred", hero, root, smi)
+        phase_oracle("32 oracle", smi)
     print("[launches on the CLI renders] " + "; ".join(
         f"{name}: " + ", ".join(f"{KERNELS[kid][0]} {n}" for kid, n in counts.items() if n)
         for name, counts in cli_counts.items()))

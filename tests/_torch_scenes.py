@@ -9,6 +9,8 @@ with per-face normals and uvs and albedo/roughness/metallic/normal maps
 1.45) written with negative indices, and an emissive quad (`Ke`) without
 normals.  `write_convention_scene(dir)`: two OBJ files, one with the
 four `<stem>_<kind>.png` maps (sizes given per kind) and one without.
+`oracle_case(name, device)`: a case of tests/test_oracle.py on the
+port's procedural scenes.
 """
 
 from __future__ import annotations
@@ -134,3 +136,36 @@ def write_convention_scene(d: str, seed: int = 0, sizes=None) -> list:
         f.write(_fmt("v", sv) + _fmt("vt", svt))  # no normals: the (0,1,0) fallback
         f.write("".join("f " + " ".join(f"{i + 1}/{i + 1}" for i in face) + "\n" for face in sfaces))
     return [os.path.join(d, "box.obj"), os.path.join(d, "ball.obj")]
+
+
+# tests/test_oracle.py's cases, which the port's renders are held against
+# the numpy oracle on (tests/test_torch_oracle.py, tests/test_torch_cuda.py,
+# chip_smoke.py).
+ORACLE_CASES = ("sunsky", "dof_constant", "glass", "nee", "nee_defensive_mix", "nee_mis_spec")
+ORACLE_NEE = dict(env_mode="equirect", env_importance_sampling=True, rr_mode="standard")
+
+
+def oracle_case(name: str, device):
+    """(scene on `device`, config overrides, camera keyword arguments) of
+    the case `name` of ORACLE_CASES.  The glass sphere is
+    tests/test_integrator.py's single-material sphere; the NEE cases' sky
+    is procedural_hdr(16, 32, seed=5) with its alias table."""
+    from tpu_pathtracer_torch.render.envmap import with_importance_sampling
+    from tpu_pathtracer_torch.scene import procedural
+    from tpu_pathtracer_torch.scene.scene import make_env, make_material_table, make_scene
+    from tpu_pathtracer_torch.utils.image import procedural_hdr
+
+    if name == "dof_constant":
+        scene = procedural.single_sphere_scene(stacks=6, slices=12, device=device)
+        return scene, dict(dof=True, env_mode="constant"), {}
+    if name == "glass":
+        sv, sn = procedural.sphere_mesh((0.0, 0.0, 0.0), 1.0, 10, 20)
+        mats = make_material_table([dict(color=(1, 1, 1), roughness=0.1, transparent=True)], device=device)
+        scene = make_scene(sv, sn, None, np.zeros(len(sv), np.int32), mats, device=device)
+        return scene, dict(env_mode="constant"), dict(eye=(0, 0, 4))
+    scene = procedural.three_spheres_scene(6, 12, device=device)
+    if name == "sunsky":
+        return scene, dict(env_mode="sunsky"), {}
+    env = with_importance_sampling(make_env(procedural_hdr(16, 32, seed=5), device))
+    kw = dict(ORACLE_NEE, nee_defensive_mix=name == "nee_defensive_mix", nee_mis_spec=name == "nee_mis_spec")
+    return scene.replace(env=env), kw, {}

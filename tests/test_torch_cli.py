@@ -124,8 +124,6 @@ def test_cli_scene_file_checkpoint_and_resume(runs, tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["--dim", "64by48"], "invalid --dim"),
-    (["--shard", "pixels"], "not yet ported"),
-    (["--shard", "samples"], "not yet ported"),
     (["--texture-lod", "mip"], "mip ladder"),
     (["--texture-lod", "split"], "mip ladder"),
     (["--nee", "--env", "constant"], "equirect"),

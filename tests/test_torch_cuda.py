@@ -4,11 +4,17 @@ Moller-Trumbore), the fused schedule step and the unit-ball sampler
 against their plain PyTorch versions, small renders on the card, with and
 without next-event estimation, against the same renders on the CPU, the
 fused schedule's render against the unfused one, and every schedule's
-iteration free of stream syncs but its own read.  Every test needs a card and skips without one; this
+iteration free of stream syncs but its own read; deferred shading against
+the dense shade, sharded frames (NCCL in a group of one, gloo across two
+processes on one card) against render_frame, and renders against the
+numpy oracle.  Every test needs a card and skips without one; this
 file imports no JAX, so it runs where only the port is installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -19,6 +25,7 @@ from tpu_pathtracer_torch.accel.build import build_accel  # noqa: E402
 from tpu_pathtracer_torch.config import RenderConfig  # noqa: E402
 from tpu_pathtracer_torch.ops import fused_schedule as fs  # noqa: E402
 from tpu_pathtracer_torch.ops import intersect_cluster as ic  # noqa: E402
+from tpu_pathtracer_torch.ops import unit_sphere  # noqa: E402
 from tpu_pathtracer_torch.render.camera import Camera, camera_arrays  # noqa: E402
 from tpu_pathtracer_torch.render.film import post_process  # noqa: E402
 from tpu_pathtracer_torch.render import integrator  # noqa: E402
@@ -26,6 +33,9 @@ from tpu_pathtracer_torch.render.integrator import _fused_stream_ok, render_fram
 from tpu_pathtracer_torch.scene import procedural  # noqa: E402
 from tpu_pathtracer_torch.utils import rng  # noqa: E402
 from tpu_pathtracer_torch.utils.ssim import ssim  # noqa: E402
+
+sys.path.insert(0, os.path.dirname(__file__))
+import _torch_scenes as ts  # noqa: E402  (imports neither JAX nor PIL)
 
 pytestmark = pytest.mark.cuda
 
@@ -616,11 +626,11 @@ def test_sampler_matches_plain(cuda):
     points bit-equal to the plain version; one launch counted."""
     pix = torch.arange(131072, dtype=torch.int32, device=cuda)
     seed = rng.make_seeds(pix, pix % 10, 3)
-    before = rng.random_in_unit_sphere.launches
-    s_k, p_k = rng.random_in_unit_sphere(seed)
+    before = unit_sphere.random_in_unit_sphere.launches
+    s_k, p_k = unit_sphere.random_in_unit_sphere(seed)
     s_p, p_p = rng.random_in_unit_sphere_plain(seed)
     torch.cuda.synchronize()
-    assert rng.random_in_unit_sphere.launches == before + 1
+    assert unit_sphere.random_in_unit_sphere.launches == before + 1
     assert torch.equal(s_k, s_p) and same_bits(p_k, p_p)
     assert p_k.shape == (131072, 3) and float((p_k * p_k).sum(-1).max()) < 1.0
 
@@ -632,14 +642,14 @@ def test_sampler_long_rejection_chains(cuda):
     seed = torch.tensor(sorted(LONG_SEEDS), dtype=torch.int64, device=cuda)
     draws = draw_counts(seed)
     assert draws.tolist() == [LONG_SEEDS[k] for k in sorted(LONG_SEEDS)]
-    s_k, p_k = rng.random_in_unit_sphere(seed)
+    s_k, p_k = unit_sphere.random_in_unit_sphere(seed)
     s_p, p_p = rng.random_in_unit_sphere_plain(seed)
     torch.cuda.synchronize()
     assert torch.equal(s_k, s_p) and same_bits(p_k, p_p)
 
 
 def test_sampler_takes_no_lanes(cuda):
-    s, p = rng.random_in_unit_sphere(torch.empty(0, dtype=torch.int64, device=cuda))
+    s, p = unit_sphere.random_in_unit_sphere(torch.empty(0, dtype=torch.int64, device=cuda))
     assert s.shape == (0,) and p.shape == (0, 3)
 
 
@@ -648,6 +658,7 @@ SYNC_SCHEDULES = {
     "stream_fused": dict(fused_schedule="on"),
     "stream": dict(fused_schedule="off"),
     "stream_nee": dict(env_mode="equirect", rr_mode="standard", env_importance_sampling=True),
+    "stream_deferred": dict(fused_schedule="off", deferred_shade=True),
     "regen": dict(stream_lanes=4096),
     "rays": dict(samples_per_launch=1),
 }
@@ -687,7 +698,7 @@ def test_iteration_syncs_only_on_its_read(cuda, monkeypatch, which):
         _, stats = render_frame_stats(scene, cam, cfg, 1)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert stats["schedule"] == which.removesuffix("_nee")
+    assert stats["schedule"] == which.removesuffix("_nee").removesuffix("_deferred")
     assert stats["iters"] > 3 and len(reads) >= stats["iters"]
 
 
@@ -751,3 +762,99 @@ def test_progressive_matches_cpu(cuda, tmp_path):
     resumed.load_checkpoint(ck)
     resumed.step()
     assert resumed.accum.device.type == "cuda" and torch.equal(resumed.accum, r_gpu.accum)
+
+
+def mtl_scene(tmp_path, device):
+    """The CPU tests' textured, glass and emissive OBJ scene on `device`."""
+    from tpu_pathtracer_torch.scene.builder import load_scene
+    from tpu_pathtracer_torch.scene.scene import make_env
+    from tpu_pathtracer_torch.utils.image import procedural_hdr
+
+    path = ts.write_mtl_scene(str(tmp_path), tex=16)
+    return load_scene([path], env=make_env(procedural_hdr(32, 64), device), material_source="mtl", accel="cluster",
+                      device=device)
+
+
+@pytest.mark.parametrize("div", [1, 4, 7])
+@pytest.mark.parametrize("name", ["spheres", "textured"])
+def test_deferred_equals_dense_on_card(cuda, tmp_path, name, div):
+    """Deferred shading on the card, 3,000 lanes (not a multiple of
+    1,024): the dense shade's image bit for bit, the same segments."""
+    if name == "spheres":
+        scene, kw = build_accel(procedural.three_spheres_scene(8, 16, device=cuda)), dict(env_mode="sunsky")
+        camera = Camera(eye=(0.0, 2.0, 6.0), lookat=(0.0, 0.5, 0.0))
+    else:
+        scene, kw = mtl_scene(tmp_path, cuda), dict(env_mode="equirect", dof=True, dof_blurriness=0.05)
+        camera = Camera(eye=(0.0, 2.0, 5.0), lookat=(0.0, 0.6, 0.0))
+    cfg = RenderConfig(**{**dict(width=64, height=48, samples_per_launch=2, max_depth=4, dof=False,
+                                 intersector="cluster", stream_lanes=3000, deferred_chunk_div=div), **kw})
+    cam = camera_arrays(camera, cfg, cuda)
+    dense, d_stats = render_frame_stats(scene, cam, cfg, 1)
+    deferred, stats = render_frame_stats(scene, cam, cfg.replace(deferred_shade=True), 1)
+    assert float(dense.max()) > 0 and same_bits(deferred, dense)
+    assert int(stats["segments"]) == int(d_stats["segments"]) and stats["iters"] == d_stats["iters"]
+
+
+SHARD_CFG = dict(width=64, height=48, samples_per_launch=4, max_depth=4, dof=False, intersector="cluster",
+                 env_mode="sunsky")
+
+
+def test_shard_one_rank_nccl(cuda):
+    """A NCCL group of one rank on the card: pixel sharding equals
+    render_frame bit for bit (the affine range through the unfused
+    stream), sample sharding within rtol 2e-4 / atol 2e-5."""
+    import torch.distributed as dist
+
+    from tpu_pathtracer_torch.parallel.shard import free_port, initialize_distributed, make_mesh, render_frame_sharded
+    from tpu_pathtracer_torch.render.integrator import render_frame
+
+    scene = build_accel(procedural.three_spheres_scene(8, 16, device=cuda))
+    cfg = RenderConfig(**SHARD_CFG, stream_lanes=1024)
+    cam = camera_arrays(Camera(), cfg, cuda)
+    initialize_distributed("cuda", init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = make_mesh()
+        pixels = render_frame_sharded(scene, cam, cfg, 1, mesh, mode="pixels")
+        samples = render_frame_sharded(scene, cam, cfg, 1, mesh, mode="samples")
+    finally:
+        dist.destroy_process_group()
+    single = render_frame(scene, cam, cfg, 1)
+    assert float(single.max()) > 0 and same_bits(pixels, single)
+    assert torch.allclose(samples, single, rtol=2e-4, atol=2e-5)
+
+
+def test_shard_two_ranks_gloo_on_card(cuda, tmp_path):
+    """tests/_torch_dist_worker.py's cases in two processes on the one
+    card, over gloo: pixels bit-equal to render_frame (the stream and NEE
+    included), samples within rtol 2e-4 / atol 2e-5."""
+    import _torch_dist_worker as worker
+
+    out = tmp_path / "w2.npz"
+    worker.wait_group(worker.start_group(2, out, device="cuda"))
+    res = dict(np.load(out))
+    for case in ("pixels", "pixels_stream", "pixels_nee"):
+        np.testing.assert_array_equal(res[case], res[f"{case}_single"])
+    for case in ("samples", "samples_nee"):
+        np.testing.assert_allclose(res[case], res[f"{case}_single"], rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("case", ts.ORACLE_CASES)
+def test_render_matches_oracle_on_card(cuda, case):
+    """tests/test_oracle.py's cases (tests/_torch_scenes.py: oracle_case)
+    rendered on the card through the cluster accel (kernel 1; kernel 4
+    under NEE), held against the numpy oracle by that file's rule: at
+    least 98% of pixels with relative difference below 1e-3."""
+    from tpu_pathtracer_torch import oracle
+    from tpu_pathtracer_torch.render.integrator import render_frame
+
+    scene, kw, eye = ts.oracle_case(case, cuda)
+    scene = build_accel(scene, kind="cluster")
+    cfg = RenderConfig(**{**dict(width=16, height=12, samples_per_launch=2, max_depth=4, dof=False), **kw})
+    cam = camera_arrays(Camera(**eye), cfg, cuda)
+    before = ic.intersect_clusters.launches
+    img = render_frame(scene, cam, cfg, 0).reshape(-1, 3).cpu().numpy()
+    assert ic.intersect_clusters.launches > before
+    want = oracle.render(scene, cam, cfg, range(cfg.width * cfg.height), 0)
+    rel = np.abs(img - want).max(axis=1) / (1.0 + np.abs(img).max(axis=1))
+    assert (rel < 1e-3).mean() >= 0.98 and img.max() > 0

@@ -20,6 +20,7 @@ from tpu_pathtracer.utils import rng as j_rng  # noqa: E402
 
 from tpu_pathtracer_torch.accel.build import build_accel  # noqa: E402
 from tpu_pathtracer_torch.config import RenderConfig  # noqa: E402
+from tpu_pathtracer_torch.ops import unit_sphere  # noqa: E402
 from tpu_pathtracer_torch.render import integrator  # noqa: E402
 from tpu_pathtracer_torch.render.camera import Camera, camera_arrays  # noqa: E402
 from tpu_pathtracer_torch.render.envmap import with_importance_sampling  # noqa: E402
@@ -36,6 +37,7 @@ SCHEDULES = {
     "stream_fused": dict(fused_schedule="on"),
     "stream": dict(fused_schedule="off"),
     "stream_nee": NEE,
+    "stream_deferred": dict(fused_schedule="off", deferred_shade=True),
     "regen": dict(stream_lanes=4096),
     "rays": dict(samples_per_launch=1),
 }
@@ -109,10 +111,32 @@ def test_iterations_build_nothing_from_host_data(monkeypatch, which):
     monkeypatch.setattr(rng, "random_in_unit_sphere_plain", unchecked(rng.random_in_unit_sphere_plain))
     _, stats = integrator.render_frame_stats(scene, cam, cfg, 1)
     spy.armed = False
-    assert stats["schedule"] == which.removesuffix("_nee")
+    assert stats["schedule"] == which.removesuffix("_nee").removesuffix("_deferred")
     assert stats["iters"] == len(traces) > 3
     assert sum(reads) >= len(traces) - 1  # one read an iteration, every one after the first armed
     assert spy.calls == []
+
+
+@pytest.mark.parametrize("which", ["stream_fused", "stream", "regen", "rays"])
+def test_deferred_shade_reads_once_more_an_iteration(monkeypatch, which):
+    """Deferred shading reads its count of hit lanes through `_read`: two
+    reads an iteration of the stream, one without it (regen and rays read
+    once more, at the loop's end)."""
+    scene = build_accel(procedural.three_spheres_scene(8, 16, device="cpu"))
+    read = integrator._read
+    counts = {}
+    for on in (False, True):
+        cfg = RenderConfig(**{**BASE, **SCHEDULES[which], "deferred_shade": on})
+        reads = []
+        monkeypatch.setattr(integrator, "_read", lambda x: reads.append(1) or read(x))
+        _, stats = integrator.render_frame_stats(scene, camera_arrays(Camera(), cfg, "cpu"), cfg, 1)
+        assert stats["schedule"] == which
+        counts[on] = (stats["iters"], len(reads))
+    (iters, dense_reads), (iters_on, deferred_reads) = counts[False], counts[True]
+    assert iters == iters_on > 3
+    assert deferred_reads == dense_reads + iters
+    if which.startswith("stream"):
+        assert dense_reads == iters and deferred_reads == 2 * iters
 
 
 def test_sampler_runs_plain_version_on_cpu(monkeypatch):
@@ -126,10 +150,10 @@ def test_sampler_runs_plain_version_on_cpu(monkeypatch):
         return plain(seed)
 
     monkeypatch.setattr(rng, "random_in_unit_sphere_plain", spy)
-    before = rng.random_in_unit_sphere.launches
+    before = unit_sphere.random_in_unit_sphere.launches
     seed = torch.arange(1000, dtype=torch.int64)
-    s, p = rng.random_in_unit_sphere(seed)
-    assert calls == [(1000,)] and rng.random_in_unit_sphere.launches == before
+    s, p = unit_sphere.random_in_unit_sphere(seed)
+    assert calls == [(1000,)] and unit_sphere.random_in_unit_sphere.launches == before
     assert torch.equal(s, plain(seed)[0]) and p.shape == (1000, 3)
 
 
@@ -137,7 +161,7 @@ def test_sampler_refuses_other_devices():
     """No silent fallback: a tensor neither on the CPU nor on the card is
     refused."""
     with pytest.raises(ValueError, match="meta"):
-        rng.random_in_unit_sphere(torch.empty(8, dtype=torch.int64, device="meta"))
+        unit_sphere.random_in_unit_sphere(torch.empty(8, dtype=torch.int64, device="meta"))
 
 
 @pytest.mark.parametrize("draws_per_check", [1, 3, 8, 64])

@@ -2,7 +2,7 @@
 (Pallas kernels in interpret mode), with and without next-event
 estimation (NEE): the stream, one lane per pixel, one lane per sample (1
 spp) and tile_pixels; the film chain, the goldens, and the branches that
-are not ported yet."""
+were ported last (deferred shading, affine pixel ranges)."""
 
 import os
 
@@ -385,16 +385,22 @@ def test_schedule_branches_render(monkeypatch, branch):
 
 @pytest.mark.parametrize("branch", ["deferred", "affine"])
 def test_unported_branches_raise(branch):
-    """Deferred shading and the affine (base, count) pixel ranges of
-    sharded renders are not ported yet."""
+    """The two branches that raised NotImplementedError until they were
+    ported now render: deferred shading gives the dense shade's frame, and
+    the affine range (base, count) of sharded renders the pixels of the
+    id tensor base + arange(count), bit for bit (tests/
+    test_torch_deferred.py and tests/test_torch_shard.py hold them against
+    the JAX package)."""
     t = procedural.single_sphere_scene(stacks=4, slices=8, device="cpu")
-    c = RenderConfig(**dict(CFG, intersector="brute", deferred_shade=branch == "deferred"))
+    c = RenderConfig(**dict(CFG, intersector="brute"))
     cam = camera_arrays(Camera(**EYE), c, "cpu")
-    with pytest.raises(NotImplementedError, match=branch):
-        if branch == "deferred":
-            integrator.render_frame(t, cam, c, 0)
-        else:
-            integrator.render_pixels(t, cam, c, (0, 64 * 48), 0)
+    if branch == "deferred":
+        got = integrator.render_frame(t, cam, c.replace(deferred_shade=True), 0)
+        want = integrator.render_frame(t, cam, c, 0)
+    else:
+        got = integrator.render_pixels(t, cam, c, (1024, 2048), 0)
+        want = integrator.render_pixels(t, cam, c, torch.arange(1024, 3072, dtype=torch.int32), 0)
+    assert float(want.max()) > 0 and torch.equal(got, want)
 
 
 # Port against JAX through each schedule, brute force at 64x48: 1 spp

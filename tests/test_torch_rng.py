@@ -14,6 +14,7 @@ import jax.numpy as jnp  # noqa: E402
 from tpu_pathtracer.utils import math as j_vm  # noqa: E402
 from tpu_pathtracer.utils import rng as j_rng  # noqa: E402
 
+from tpu_pathtracer_torch.ops import unit_sphere  # noqa: E402
 from tpu_pathtracer_torch.utils import math as vm  # noqa: E402
 from tpu_pathtracer_torch.utils import rng  # noqa: E402
 
@@ -92,7 +93,7 @@ def test_uniform_n_bit_exact(draws):
 def test_random_in_unit_sphere_matches_jax():
     """Seeds exact (same number of rejection draws per lane), points equal."""
     x = u32_values(6, 20_000)
-    s_got, p_got = rng.random_in_unit_sphere(t64(x))
+    s_got, p_got = unit_sphere.random_in_unit_sphere(t64(x))
     s_want, p_want = j_rng.random_in_unit_sphere(jnp.asarray(x))
     np.testing.assert_array_equal(as_u32(s_got), np.asarray(s_want))
     np.testing.assert_array_equal(p_got.numpy(), np.asarray(p_want))

@@ -1,12 +1,18 @@
 """Command-line renderer of the PyTorch port.  Counterpart of
 `tpu_pathtracer/cli.py`, with the same flags, defaults and override rules,
 plus `--device` (default "cuda"; a machine without a card is refused, the
-render never falls back to the CPU quietly).  Not ported: `--shard` other
-than "none" (multi-device rendering; refused) and the texture mip ladder
-(`--texture-lod mip|split`; refused).
+render never falls back to the CPU quietly).  Not ported: the texture mip
+ladder (`--texture-lod mip|split`; refused).
+
+`--shard pixels|samples` renders each launch across the ranks of a
+torch.distributed group (parallel/shard.py), one process a device: under
+`torchrun` the CLI joins the group torchrun set up, each rank on its own
+card; without it, a group of one rank on `--device`.  Rank 0 alone writes
+files.
 
 Examples:
     python -m tpu_pathtracer_torch.cli --scene-file scenes/suitcase.toml --file out.png
+    torchrun --nproc-per-node 4 -m tpu_pathtracer_torch.cli --shard pixels --file out.png
     python -m tpu_pathtracer_torch.cli --file out.png --dim=512x384 --scene monkey.obj --spp 64
     python -m tpu_pathtracer_torch.cli --interactive --scene ...   # web viewer
 """
@@ -14,6 +20,7 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
@@ -53,7 +60,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint", default="", help="checkpoint file; saved every --checkpoint-every subframes and at the end")
     p.add_argument("--checkpoint-every", type=int, default=50)
     p.add_argument("--resume", action="store_true", help="resume from --checkpoint")
-    p.add_argument("--shard", default="none", choices=["none", "pixels", "samples"], help="multi-device sharding mode (only none is ported)")
+    p.add_argument("--shard", default="none", choices=["none", "pixels", "samples"], help="multi-device sharding mode: pixels or samples across the ranks of a torch.distributed group (torchrun), or one rank")
     p.add_argument("--profile", default="", help="write a torch.profiler trace of the render to this directory")
     p.add_argument("--interactive", action="store_true", help="serve the interactive web viewer")
     p.add_argument("--port", type=int, default=8000, help="viewer port")
@@ -98,9 +105,6 @@ def parse_vec3(s: str):
 def _check_unported(args) -> None:
     from tpu_pathtracer_torch.config import check_texture_lod
 
-    if args.shard != "none":
-        raise SystemExit(f"--shard {args.shard}: multi-device rendering is not yet ported "
-                         "(ROADMAP, modules to port: sharding); use --shard none")
     try:
         check_texture_lod(args.texture_lod or CLI_DEFAULTS["texture_lod"])
     except ValueError as e:
@@ -247,17 +251,50 @@ def main(argv=None) -> int:
     return 0
 
 
+def join_group(args):
+    """The mesh of a sharded render: the group torchrun set up (WORLD_SIZE
+    in the environment), else a group of one rank; `args.device` becomes
+    this rank's device."""
+    from tpu_pathtracer_torch.parallel.shard import free_port, initialize_distributed, make_mesh
+
+    if "WORLD_SIZE" in os.environ:
+        dev = initialize_distributed(args.device)
+    else:
+        dev = initialize_distributed(args.device, init_method=f"tcp://localhost:{free_port()}", world_size=1,
+                                     rank=0)
+    args.device = str(dev)
+    return make_mesh()
+
+
 def run(argv=None):
     """What `main` does; returns the ProgressiveRenderer after the render
     and its outputs (None when it served the viewer)."""
     args = build_arg_parser().parse_args(argv)
+    if args.shard == "none":
+        return _run(args, None)
+    import torch.distributed as dist
+
+    mesh = join_group(args)
+    try:
+        return _run(args, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args, mesh):
     from tpu_pathtracer_torch.runtime.progressive import ProgressiveRenderer
     from tpu_pathtracer_torch.utils import logging as plog
     from tpu_pathtracer_torch.utils.image import save_image
 
     scene, camera, cfg = build_from_args(args)
+    if mesh is not None:
+        plog.info("shard", f"{args.shard}-sharding over {mesh.size} devices")
+        if args.interactive and mesh.size > 1:
+            raise SystemExit("--interactive serves from one process: shard over one rank")
+    writer = mesh is None or mesh.rank == 0  # rank 0 alone writes files
     renderer = ProgressiveRenderer(
-        scene, camera, cfg,
+        scene, camera, cfg, mesh=mesh,
+        shard_mode=args.shard if args.shard != "none" else "pixels",
         preview_budget_s=args.preview_budget_ms / 1e3,
         denoise=args.denoise,
         check_finite=args.debug_nans,
@@ -298,6 +335,9 @@ def run(argv=None):
 
     if args.checkpoint:
         renderer.save_checkpoint(args.checkpoint)
+
+    if not writer:
+        return renderer
 
     if args.aov_prefix:
         from tpu_pathtracer_torch.render.aov import render_aov

@@ -103,8 +103,12 @@ class RenderConfig:
     sort_dir_bits: int = 0
     # Cluster count at or above which scenes route to the two-level kernel.
     hier_min_clusters: int = 96
-    # Hit-compacted shading (not ported yet).
+    # Deferred (hit-compacted) shading: shade only the lanes that hit, in
+    # dense chunks of lanes / deferred_chunk_div (rounded up to 1024).  The
+    # image equals the dense shade's; it costs a second stream sync an
+    # iteration (the count of hit lanes), so it is opt-in.
     deferred_shade: bool = False
+    deferred_chunk_div: int = 4
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
@@ -153,6 +157,10 @@ class RenderConfig:
         if self.hier_min_clusters < 2:
             raise ValueError(
                 f"hier_min_clusters must be >= 2: {self.hier_min_clusters}"
+            )
+        if self.deferred_chunk_div < 1:
+            raise ValueError(
+                f"deferred_chunk_div must be >= 1: {self.deferred_chunk_div}"
             )
         if self.stream_lanes < 0:
             raise ValueError(

@@ -21,11 +21,14 @@ defensive alias/cosine mixture (cfg.nee_defensive_mix).  Multi-queue NEE
 (the shadow ray riding the next closest-hit batch) was measured slower
 on the TPU and is not ported.
 
+Deferred shading (cfg.deferred_shade, `_shade_deferred`) shades only the
+lanes that hit, in dense chunks; `render_pixels` also takes an affine
+pixel range (base, count), which sharded renders pass.
+
 The schedules run eagerly: a Python loop over iterations that reads one
 value from the device per iteration (whether any lane is still live, or
-how many are: `_read`, the iteration's only stream sync).
-Branches of the JAX integrator that are not ported (deferred shading,
-affine pixel ranges) raise NotImplementedError naming their ROADMAP item.
+how many are: `_read`, the iteration's only stream sync; deferred
+shading adds its count of hit lanes).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import torch
 from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.ops.fused_schedule import fused_stream_step, fused_stream_step_plain, roulette
 from tpu_pathtracer_torch.ops.intersect import Hit, intersect_scene, occluded_scene
+from tpu_pathtracer_torch.ops.unit_sphere import random_in_unit_sphere
 from tpu_pathtracer_torch.render import bsdf
 from tpu_pathtracer_torch.render.camera import generate_camera_rays
 from tpu_pathtracer_torch.render.envmap import direction_to_uv, env_pdf_alias, eval_env, sample_env_alias
@@ -155,7 +159,7 @@ def _shade(scene: Scene, cfg: RenderConfig, hit: Hit, origins, directions, seeds
     emissive = vm.length(emission_color) > 0.0001
 
     if cfg.seed_advance_quirk:
-        seeds, _ = rng.random_in_unit_sphere(seeds)
+        seeds, _ = random_in_unit_sphere(seeds)
 
     roughness = torch.clamp(roughness, cfg.roughness_min, cfg.roughness_max)
     depth_done = depth <= 0
@@ -215,7 +219,7 @@ def _shade(scene: Scene, cfg: RenderConfig, hit: Hit, origins, directions, seeds
     seeds, u_reflect = rng.uniform(seeds)
     # Reflection reuses the GGX half-vector, i.e. exactly `light_dir`.
     refr_dir, _ = vm.refract(ray_dir, n_glass, eta_passed)
-    seeds, sphere_pt = rng.random_in_unit_sphere(seeds)
+    seeds, sphere_pt = random_in_unit_sphere(seeds)
     # The reference leaves the perturbed refraction unnormalized.
     refr_perturbed = refr_dir + cfg.glass_roughness_perturb * alpha[:, None] * sphere_pt
     glass_dir = torch.where((u_reflect < reflectance)[:, None], light_dir, refr_perturbed)
@@ -248,6 +252,56 @@ def _shade(scene: Scene, cfg: RenderConfig, hit: Hit, origins, directions, seeds
         f_vec=f_vec,
         alpha=alpha,
     )
+
+
+# ---------------------------------------------------------------------------
+# Deferred (hit-compacted) shading
+# ---------------------------------------------------------------------------
+
+# The fields of `_shade`'s dict that the bounce reads without NEE:
+# [N,3] float32, [N] bool, and the seeds.
+_DEFERRED_VECTORS = ("new_origin", "new_direction", "att_factor", "emission")
+_DEFERRED_FLAGS = ("att_ok", "emissive", "degenerate", "done")
+
+
+def _shade_deferred(scene: Scene, cfg: RenderConfig, hit: Hit, origins, directions, seeds, depth):
+    """`_shade` run only on the lanes that hit, in dense chunks (the JAX
+    package's `_shade_deferred`): the hit lanes are compacted in lane order
+    by a prefix sum over the hit mask, shaded in ceil(n_hit / C) chunks of
+    C = min(n, max(1024, n / cfg.deferred_chunk_div rounded up to 1024))
+    lanes, and each chunk's outputs are scattered back to their source
+    lanes.  Miss lanes hold zeros (callers select under the hit mask); the
+    fields are the ones the bounce reads without NEE.
+
+    The slot table is padded to a whole number of chunks: its tail slots
+    point at a sink row n, so every slot is shaded once (the JAX package
+    instead clamps the last chunk's slice and shades some lanes twice).
+    The count of hit lanes sets the number of chunks, so it is read from
+    the device (`_read`): a second stream sync in every iteration, only
+    when deferred shading is on.  Each lane's arithmetic and RNG chain are
+    those of `_shade`, so the outputs equal the dense shade's."""
+    n, dev = origins.shape[0], origins.device
+    c = min(n, max(1024, -(-(n // cfg.deferred_chunk_div) // 1024) * 1024))
+    pos = torch.cumsum(hit.hit, dim=0)
+    n_hit = _read(pos[-1])
+    slots = -(-n_hit // c) * c
+    # lane_of_slot[s]: the lane of dense slot s; n for the tail.  Miss
+    # lanes write to one extra entry past the table, dropped.
+    dest = torch.where(hit.hit, pos - 1, slots)
+    lane_of_slot = torch.full((slots + 1,), n, dtype=torch.int64, device=dev)
+    lane_of_slot.scatter_(0, dest, torch.arange(n, dtype=torch.int64, device=dev))
+    # Row n is the sink of the tail slots.
+    out = {key: torch.zeros((n + 1, 3), dtype=torch.float32, device=dev) for key in _DEFERRED_VECTORS}
+    out.update({key: torch.zeros(n + 1, dtype=torch.bool, device=dev) for key in _DEFERRED_FLAGS})
+    out["seeds"] = torch.zeros(n + 1, dtype=seeds.dtype, device=dev)
+    for k in range(0, slots, c):
+        idx = lane_of_slot[k:k + c]
+        src = torch.clamp_max(idx, n - 1)
+        hit_c = Hit(t=hit.t[src], prim=hit.prim[src], bary=hit.bary[src], hit=idx < n)
+        sh = _shade(scene, cfg, hit_c, origins[src], directions[src], seeds[src], depth[src])
+        for key, v in out.items():
+            v.index_copy_(0, idx, sh[key])
+    return {key: v[:n] for key, v in out.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -350,11 +404,6 @@ def _trace_bounce(scene, cfg, origin, direction, attenuation, radiance, seeds, d
     `spec_last` (NEE only) is the env-credit flag, or MIS weight, that the
     previous bounce set.  Returns the post-trace payload before Russian
     roulette."""
-    if cfg.deferred_shade:
-        raise NotImplementedError(
-            "deferred shading is not ported yet (ROADMAP, modules to port: "
-            "AOV/denoise and opt-in shading paths)"
-        )
     nee = cfg.env_importance_sampling
     hit = intersect_scene(scene, origin, direction, cfg.t_min, cfg.t_max, cfg)
 
@@ -368,7 +417,14 @@ def _trace_bounce(scene, cfg, origin, direction, attenuation, radiance, seeds, d
     else:
         radiance_miss = radiance + env_light
 
-    sh = _shade(scene, cfg, hit, origin, direction, seeds, depth)
+    # NEE reads _shade fields that the deferred shade does not return, so
+    # it keeps the dense shade.  (The JAX package also keeps it at 2^24
+    # triangles and more, where its float32 prim ids lose exactness; the
+    # port carries prim ids as integers.)
+    if cfg.deferred_shade and not nee:
+        sh = _shade_deferred(scene, cfg, hit, origin, direction, seeds, depth)
+    else:
+        sh = _shade(scene, cfg, hit, origin, direction, seeds, depth)
     seeds_out = sh["seeds"]
     hit_m = hit.hit
     radiance_hit = torch.where(
@@ -589,7 +645,8 @@ def _respawn(st: dict, regen, make_path, spp: int):
 
 def render_pixels_stream(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids, subframe, sample_offset: int, spp: int, lanes: int, return_stats: bool = False, fused: bool = False):
     """A fixed pool of `lanes` persistent lanes consumes the pixel list
-    (`pixel_ids` [Np] int32, or None for the whole frame in order).
+    (`pixel_ids` [Np] int32, an affine range (base, count) as
+    `render_pixels` takes it, or None for the whole frame in order).
 
     A lane traces its pixel's samples one after another; when a pixel's
     last sample ends, the lane adds the pixel's mean into the image and
@@ -612,14 +669,19 @@ def render_pixels_stream(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids, 
     NEE, shadow rays counted as the JAX schedule counts them (every live
     lane that hit, whether or not its light draw was traced)."""
     identity = pixel_ids is None
-    n_pix = cfg.width * cfg.height if identity else pixel_ids.shape[0]
+    affine = isinstance(pixel_ids, tuple)
+    n_pix = _pixel_count(cfg, pixel_ids)
     lanes = min(lanes, n_pix)
     dev = scene.device
     nee = cfg.env_importance_sampling
     make_path = _camera_paths(cam, cfg, subframe, sample_offset)
 
     def slot_to_pixel(slot):
-        return slot if identity else pixel_ids[torch.clamp_max(slot, n_pix - 1)]
+        if identity:
+            return slot
+        if affine:  # arithmetic: no gather from an id table
+            return pixel_ids[0] + slot
+        return pixel_ids[torch.clamp_max(slot, n_pix - 1)]
 
     step = fused_stream_step if fused else functools.partial(
         fused_stream_step_plain, slot_to_pixel=None if identity else slot_to_pixel)
@@ -695,11 +757,21 @@ def render_pixels_stream_fused(scene: Scene, cam: dict, cfg: RenderConfig, subfr
 # Frame rendering
 # ---------------------------------------------------------------------------
 
+def _pixel_count(cfg: RenderConfig, pixel_ids) -> int:
+    """Pixels of `pixel_ids`: None (the whole frame), an affine range
+    (base, count) or an id tensor."""
+    if pixel_ids is None:
+        return cfg.width * cfg.height
+    if isinstance(pixel_ids, tuple):
+        return pixel_ids[1]
+    return pixel_ids.shape[0]
+
+
 def schedule(cfg: RenderConfig, pixel_ids, n_pix: int, spp: int, device) -> str:
-    """The schedule render_pixels runs for `n_pix` pixels (`pixel_ids`, or
-    None for the whole frame): "stream_fused", "stream" (the pixels
-    outnumber the lane pool), "regen" (they do not) or "rays" (1 spp, or
-    no regeneration)."""
+    """The schedule render_pixels runs for `n_pix` pixels (`pixel_ids`: an
+    id tensor, an affine range (base, count), or None for the whole
+    frame): "stream_fused", "stream" (the pixels outnumber the lane pool),
+    "regen" (they do not) or "rays" (1 spp, or no regeneration)."""
     if not (cfg.regenerate and spp > 1):
         return "rays"
     lanes = resolve_stream_lanes(cfg, n_pix)
@@ -710,9 +782,15 @@ def schedule(cfg: RenderConfig, pixel_ids, n_pix: int, spp: int, device) -> str:
 
 def render_pixels(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids=None, subframe=0, sample_offset: int = 0, spp: int | None = None, return_stats: bool = False):
     """Render one launch of `spp` samples for each pixel of `pixel_ids`
-    ([Np] int32 flat ids, None = the whole frame); returns the
+    ([Np] int32 flat ids, None = the whole frame, or an affine range
+    (base, count): the pixels base + arange(count)); returns the
     sample-averaged radiance [Np,3] (and the schedule's stats, with the
     schedule's name under "schedule").
+
+    Sharded renders pass the affine range, so that the stream's slot to
+    pixel map stays arithmetic.  `base` is a Python int or a 0-d integer
+    tensor on the scene's device; it is never read back to the host.
+    Like an id tensor, a range takes the unfused stream.
 
     The schedule is `schedule`'s: with regeneration and spp > 1, the
     stream (fused where `_fused_stream_ok` allows) when the pixels
@@ -720,21 +798,19 @@ def render_pixels(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids=None, su
     per sample (render_rays)."""
     if spp is None:
         spp = cfg.samples_per_launch
-    if isinstance(pixel_ids, tuple):
-        raise NotImplementedError(
-            "affine pixel ranges (base, count) are not ported yet (ROADMAP, "
-            "modules to port: sharding)"
-        )
     dev = scene.device
-    n_pix = cfg.width * cfg.height if pixel_ids is None else pixel_ids.shape[0]
+    n_pix = _pixel_count(cfg, pixel_ids)
     which = schedule(cfg, pixel_ids, n_pix, spp, dev)
     if which.startswith("stream"):
         img, stats = render_pixels_stream(scene, cam, cfg, pixel_ids, subframe, sample_offset, spp,
                                           resolve_stream_lanes(cfg, n_pix), return_stats=True,
                                           fused=which == "stream_fused")
     else:
-        if pixel_ids is None:
-            pixel_ids = torch.arange(n_pix, dtype=torch.int32, device=dev)
+        ids = torch.arange(n_pix, dtype=torch.int32, device=dev)
+        if isinstance(pixel_ids, tuple):
+            pixel_ids = pixel_ids[0] + ids
+        elif pixel_ids is None:
+            pixel_ids = ids
         if which == "regen":
             img, stats = render_pixels_regen(scene, cam, cfg, pixel_ids, subframe, sample_offset, spp,
                                              return_stats=True)

@@ -1,7 +1,10 @@
 """Progressive rendering driver: the per-launch loop, the accumulation
 reset on camera change, checkpoint/resume and per-launch metrics.
-Counterpart of `tpu_pathtracer/runtime/progressive.py` (without its
-multi-device `mesh`/`shard_mode`: sharding is not ported yet).
+Counterpart of `tpu_pathtracer/runtime/progressive.py`.  With a `mesh`
+(parallel/shard.py) each launch is rendered across its ranks
+(`render_frame_sharded` in `shard_mode`): every rank runs the same
+renderer and holds the whole accumulation, and rank 0 alone writes
+checkpoints.
 
 The renderer's whole state is (accumulation buffer, subframe index,
 samples accumulated, camera, config): the counter-based RNG makes that
@@ -42,10 +45,13 @@ def _wait(t: torch.Tensor) -> None:
 class ProgressiveRenderer:
     """Owns the accumulation buffer and the subframe counter."""
 
-    def __init__(self, scene, camera: Camera, cfg: RenderConfig, preview_scale="auto",
-                 preview_budget_s: float = 0.125, denoise: bool = False, check_finite: bool = False):
+    def __init__(self, scene, camera: Camera, cfg: RenderConfig, mesh=None, shard_mode: str = "pixels",
+                 preview_scale="auto", preview_budget_s: float = 0.125, denoise: bool = False,
+                 check_finite: bool = False):
         self.scene = scene
         self.device = scene.device
+        self.mesh = mesh
+        self.shard_mode = shard_mode
         # Edge-avoiding A-Trous denoise of the displayed and saved image,
         # guided by a per-camera G-buffer (render/aov.py).  Display path
         # only: the accumulation, checkpoints and EXR stay raw.
@@ -183,7 +189,13 @@ class ProgressiveRenderer:
         cfg_l = (self.cfg if launch_spp == self.cfg.samples_per_launch
                  else self.cfg.replace(samples_per_launch=launch_spp))
         t0 = time.perf_counter()
-        frame = render_frame(self.scene, self._cam_arrays, cfg_l, self.subframe)
+        if self.mesh is not None:
+            from tpu_pathtracer_torch.parallel.shard import render_frame_sharded
+
+            frame = render_frame_sharded(self.scene, self._cam_arrays, cfg_l, self.subframe, self.mesh,
+                                         mode=self.shard_mode)
+        else:
+            frame = render_frame(self.scene, self._cam_arrays, cfg_l, self.subframe)
         self._check(frame)
         self.accum = accumulate_weighted(self.accum, frame, self._accum_spp, launch_spp)
         _wait(self.accum)
@@ -198,9 +210,10 @@ class ProgressiveRenderer:
         """`step()`, but the first launches after a reset follow a doubling
         ramp (1, 1, 2, 4, ... up to half the configured batch) so that the
         display refines within about one 1-spp launch of the camera
-        settling."""
+        settling.  Sharded renderers skip the ramp (mode "samples" needs
+        the launch's spp to divide across the ranks)."""
         full = self.cfg.samples_per_launch
-        if full <= 2:
+        if self.mesh is not None or full <= 2:
             return self.step()
         if self._accum_spp < full // 2:
             return self.step(spp=max(1, min(self._accum_spp, full // 2)))
@@ -287,6 +300,10 @@ class ProgressiveRenderer:
         return h.hexdigest()
 
     def save_checkpoint(self, path: str) -> None:
+        """Write the accumulation and its metadata (rank 0 alone under a
+        mesh: every rank holds the same accumulation)."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            return
         meta = {
             "subframe": self.subframe,
             "accum_spp": self._accum_spp,

@@ -8,8 +8,8 @@ each operation.  A product can exceed 2^63; int64 arithmetic wraps modulo
 
 Nothing here builds a tensor from host data: Python numbers enter the
 arithmetic as scalars, so the render loop queues these ops without a
-stream sync.  `random_in_unit_sphere` is one CUDA kernel on the card
-(`csrc/unit_sphere.cu`) and its plain version on the CPU.
+stream sync.  The unit-ball sampler's plain version is here; its kernel
+and the dispatch between the two are `ops/unit_sphere.py`.
 """
 
 from __future__ import annotations
@@ -17,8 +17,6 @@ from __future__ import annotations
 import math
 
 import torch
-
-from tpu_pathtracer_torch.ops.cuda_build import check_tensor, library
 
 MASK32 = 0xFFFFFFFF
 # 1/2^32: maps a 32-bit value to [0, 1).  A float32 tensor times this
@@ -102,42 +100,6 @@ def random_in_unit_sphere_plain(seed: torch.Tensor, draws_per_check: int = 8):
             p = torch.where(accepted[..., None], p, p_n)
             accepted = accepted | (_sq_norm(p_n) < 1.0)
     return seed, p
-
-
-def random_in_unit_sphere_cuda(seed: torch.Tensor):
-    """Launch the kernel on a CUDA tensor; same contract as the plain
-    version."""
-    if not seed.is_cuda:
-        raise ValueError(f"the kernel needs a CUDA tensor, got {seed.device}")
-    flat = seed.reshape(-1)
-    n = flat.shape[0]
-    check_tensor("seed", flat, torch.int64, (n,), seed.device)
-    seed_out = torch.empty_like(flat)
-    p = torch.empty((n, 3), dtype=torch.float32, device=seed.device)
-    if n:
-        err = library("unit_sphere.cu").unit_sphere_launch(
-            flat.data_ptr(), seed_out.data_ptr(), p.data_ptr(), n,
-            torch.cuda.current_stream(seed.device).cuda_stream,
-        )
-        if err:
-            raise RuntimeError(f"unit_sphere_kernel launch failed: CUDA error {err}")
-        random_in_unit_sphere.launches += 1
-    return seed_out.reshape(seed.shape), p.reshape(*seed.shape, 3)
-
-
-def random_in_unit_sphere(seed: torch.Tensor):
-    """Rejection-sample points in the unit ball, per lane (the JAX
-    package's `random_in_unit_sphere`): the kernel for a CUDA tensor, the
-    plain version for a CPU tensor.  Returns (new_seed, p [...,3])."""
-    if seed.is_cuda:
-        return random_in_unit_sphere_cuda(seed)
-    if seed.device.type != "cpu":
-        raise ValueError(f"no unit-ball sampler for device {seed.device}")
-    return random_in_unit_sphere_plain(seed)
-
-
-# Kernel launches since the count was last set to 0.
-random_in_unit_sphere.launches = 0
 
 
 def cosine_sample_hemisphere(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
