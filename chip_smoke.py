@@ -7,7 +7,8 @@ other frame schedules: 1 spp (render_rays, tiled) and one lane per pixel
 (render_pixels_regen); the user's entry points: OBJ/MTL/PNG scene
 files through the packed-scene cache, the CLI with the progressive
 renderer, AOVs, denoise and checkpoints, and the viewer; and sharded
-frames on torch.distributed, deferred shading and the numpy oracle.
+frames on torch.distributed, deferred shading and the numpy oracle; and
+the benchmark entry point.
 
     python3 chip_smoke.py [--image PATH]
 
@@ -33,6 +34,9 @@ Phases, each printing one line (any failure exits non-zero):
      finite and not black, the flat kernel (and kernel 7 where the
      schedule is the fused stream: "auto" on the card) must launch at
      least once per iteration and no other kernel may launch; Mrays/s;
+ 4b. the benchmark entry point at phase 33's first preset (config 0 on
+     the cluster accel), checked as phase 33 checks it: the bench's
+     s/launch right after phase 4;
   5. parity: a 128x96, 4 spp render with 1024 stream lanes on the GPU
      (kernels) and on the CPU (plain versions); SSIM after post_process
      must exceed 0.995 and segments agree within 0.5%;
@@ -131,7 +135,21 @@ Phases, each printing one line (any failure exits non-zero):
      NEE) against the numpy oracle (tpu_pathtracer_torch/oracle.py) by
      tests/test_oracle.py's rule, at least 98% of pixels with relative
      difference below 1e-3: sunsky spheres, DOF and a constant sky,
-     glass, NEE, NEE with the defensive mixture, NEE with MIS-spec.
+     glass, NEE, NEE with the defensive mixture, NEE with MIS-spec;
+ 33. the benchmark entry point (tpu_pathtracer_torch/bench.py's main, in
+     this process) at five presets: config 0 and config 3 with NEE on the
+     cluster accel (2 timed frames), config 4 without and with NEE (2),
+     config 1 on the cluster accel (1): one JSON line each with a positive
+     Mrays/s; the route's kernels (kernel 7 on the fused stream) at least
+     once per iteration of every frame the bench rendered and nothing
+     else; path and shadow segments, triangles and schedule equal to the
+     frame at subframe 0 of phase 4, 14, 8, 15 or 20 (whose fused and
+     unfused frames render subframe 0) on the same RenderConfig; each
+     line names the card and its power limit as nvidia-smi gives them;
+ 33b. phase 4's render timed again (two frames): its s/launch and the
+     bench's config 0 line of phase 33 beside phase 4's and phase 4b's,
+     which tells an overhead of the bench's own from one of the process's
+     state after phases 24-32.
 Then the launches on the CLI renders of phases 25 and 26, one JSON line with every kernel's numbers (launches from its render
 phase, bound from the work its plain version counts on the phase's rays),
 and last the result line {"ok": true, "device": {...}}.  --image writes
@@ -142,7 +160,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
+import io
 import json
 import shutil
 import subprocess
@@ -183,7 +203,7 @@ try:
     from tpu_pathtracer_torch.utils import rng
     from tpu_pathtracer_torch.utils.image import procedural_hdr
     from tpu_pathtracer_torch.utils.ssim import ssim
-    from tpu_pathtracer_torch import cli
+    from tpu_pathtracer_torch import bench, cli
     from tpu_pathtracer_torch.assets import native
     from tpu_pathtracer_torch.render.aov import render_aov
     from tpu_pathtracer_torch.runtime import progressive
@@ -569,32 +589,38 @@ def phase_sampler(label, scene, cfg, smi):
     return numbers
 
 
-def phase_render(label, scene, cfg, camera, frames, smi, image_path=None, warm=True):
-    """A warm frame (unless warm=False), then `frames` timed frames with
-    every launch count set to 0 just before and read just after.  The
+def phase_render(label, scene, cfg, camera, frames, smi, image_path=None, warm=True, subframe=1):
+    """A warm frame at subframe 0 (unless warm=False), then `frames` timed
+    frames from `subframe` on, with every launch count set to 0 just
+    before and read just after.  The
     route's closest-hit kernel (and under NEE its any-hit kernel; on the
     fused stream, which the render reports as its schedule, kernel 7)
     must launch at least once per iteration of the schedule, the unit-ball
     sampler once per _shade (an iteration's), and no other kernel at all.
     Also counts the stream syncs inside the timed renders.  Returns the
-    counts, the last image, the totals and the schedule."""
+    counts, the last image, the totals, the schedule and the traced-ray
+    accounting of the frame at subframe 0 (None if none was rendered)."""
     route = scene.accel.route(cfg)
     nee = cfg.env_importance_sampling
     cam = camera_arrays(camera, cfg, scene.device)
+    first = None
     if warm:
         img, stats = render_frame_stats(scene, cam, cfg, 0)
         if not bool(torch.isfinite(img).all()) or not float(img.max()) > 0.0:
             raise SystemExit(f"[{label}] FAIL: warm frame is non-finite or black")
         if int(stats["segments"]) <= 0 or (nee and int(stats["shadow_segments"]) <= 0):
             raise SystemExit(f"[{label}] FAIL: no segments traced")
+        first = accounting(stats)
     torch.cuda.synchronize()
     set_counts_zero()
     t0 = time.perf_counter()
     iters = seg_total = shadow_total = syncs = 0
     for k in range(frames):
         with counting_syncs() as frame_syncs:
-            img, stats = render_frame_stats(scene, cam, cfg, k + 1)
+            img, stats = render_frame_stats(scene, cam, cfg, subframe + k)
         syncs += len(frame_syncs)
+        if subframe + k == 0:
+            first = accounting(stats)
         iters += stats["iters"]
         seg_total += int(stats["segments"])
         shadow_total += int(stats["shadow_segments"])
@@ -634,7 +660,13 @@ def phase_render(label, scene, cfg, camera, frames, smi, image_path=None, warm=T
         with open(image_path, "wb") as f:
             f.write(b"P6 %d %d 255\n" % (cfg.width, cfg.height) + rgb.tobytes())
     return dict(counts=counts, img=img, iters=iters, segments=seg_total, seconds=dt / frames, schedule=sched,
-                syncs=syncs)
+                syncs=syncs, cfg=cfg, triangles=scene.num_triangles, first=first)
+
+
+def accounting(stats):
+    """What bench.py reports of render_frame_stats's stats."""
+    return dict(path_segments=int(stats["segments"]), shadow_segments=int(stats["shadow_segments"]),
+                schedule=stats["schedule"])
 
 
 def phase_parity(label, make_scene, camera, route, nee=False, **overrides):
@@ -946,10 +978,13 @@ def lookback_repeats(label, tb, st, head, seg, kw, n_pix, launches=4200):
 
 
 def phase_fused_render(label, scene, cfg, camera, smi):
-    """The same subframe fused and unfused, one timed frame each: images
-    bit-equal, iterations and segments identical."""
-    fused = phase_render(f"{label} fused", scene, cfg.replace(fused_schedule="on"), camera, 1, smi, warm=False)
-    unfused = phase_render(f"{label} unfused", scene, cfg.replace(fused_schedule="off"), camera, 1, smi, warm=False)
+    """Subframe 0 fused and unfused, one timed frame each: images
+    bit-equal, iterations and segments identical.  Returns the fused
+    render's phase_render record."""
+    fused = phase_render(f"{label} fused", scene, cfg.replace(fused_schedule="on"), camera, 1, smi, warm=False,
+                         subframe=0)
+    unfused = phase_render(f"{label} unfused", scene, cfg.replace(fused_schedule="off"), camera, 1, smi, warm=False,
+                           subframe=0)
     if not torch.equal(fused["img"], unfused["img"]):
         bad = int((fused["img"] != unfused["img"]).sum())
         raise SystemExit(f"[{label}] FAIL: fused and unfused images differ on {bad} values")
@@ -958,7 +993,7 @@ def phase_fused_render(label, scene, cfg, camera, smi):
                          f"{unfused['iters']}/{unfused['segments']} unfused")
     print(f"[{label}] fused and unfused images bit-equal, {fused['iters']} iterations and {fused['segments']} "
           f"segments each; s/launch fused {fused['seconds']:.4f} vs unfused {unfused['seconds']:.4f} | {smi}")
-    return fused["counts"]["k7"]
+    return fused
 
 
 # ---------------------------------------------------------------------------
@@ -1543,6 +1578,128 @@ def phase_oracle(label, smi):
           + "; ".join(parts) + f" | {smi}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 33: the benchmark entry point, python -m tpu_pathtracer_torch.bench
+
+# (bench arguments, the render phase whose frame at subframe 0 renders the
+# same preset, the RenderConfig fields that differ from that phase's and
+# pick between paths that trace the same rays: the intersector "auto" is
+# the cluster accel on a scene with one, and the fused stream is bit-equal
+# to the unfused one)
+BENCH_PRESETS = (
+    (("--config", "0", "--accel", "cluster", "--frames", "2"), "4", ()),
+    (("--config", "3", "--nee", "--accel", "cluster", "--frames", "2"), "14", ()),
+    (("--config", "4", "--frames", "2"), "8", ("intersector",)),
+    (("--config", "4", "--nee", "--frames", "2"), "15", ("intersector",)),
+    (("--config", "1", "--accel", "cluster", "--frames", "1"), "20", ("fused_schedule",)),
+)
+
+
+@contextlib.contextmanager
+def watching_bench():
+    """While open, the bench module's presets and the stats of every frame
+    it renders (its render_frame is render_frame_stats's image) are
+    recorded: (presets built, stats of each frame)."""
+    real = bench.build_preset, bench.render_frame, bench.render_frame_stats
+    built, frames = [], []
+
+    def build_preset(args, device):
+        built.append(real[0](args, device))
+        return built[-1]
+
+    def frame_stats(scene, cam, cfg, subframe):
+        img, stats = render_frame_stats(scene, cam, cfg, subframe)
+        frames.append(stats)
+        return img, stats
+
+    bench.build_preset, bench.render_frame_stats = build_preset, frame_stats
+    bench.render_frame = lambda *a: frame_stats(*a)[0]
+    try:
+        yield built, frames
+    finally:
+        bench.build_preset, bench.render_frame, bench.render_frame_stats = real
+
+
+def bench_preset(name, argv, phase, differ, renders, smi):
+    """bench.main on the card at one of BENCH_PRESETS, in this process,
+    with every launch count set to 0 just before and read just after: one
+    JSON line with a positive value, the card's name and its power limit;
+    the route's kernels (and kernel 7 on the fused stream) at least once
+    per iteration of every frame the bench rendered, the sampler once per
+    iteration, nothing else; path and shadow segments, triangles and
+    schedule equal to the earlier phase's frame at subframe 0 on the same
+    RenderConfig.  Returns the bench's line."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    set_counts_zero()
+    with watching_bench() as (built, frames), contextlib.redirect_stdout(out):
+        rc = bench.main(list(argv))
+    torch.cuda.synchronize()
+    counts, seconds = read_counts(), time.perf_counter() - t0
+    lines = out.getvalue().strip().splitlines()
+    if rc != 0 or len(lines) != 1:
+        raise SystemExit(f"[{name}] FAIL: exit {rc}, output {lines}")
+    line = json.loads(lines[0])
+    detail = line["detail"]
+    if not line["value"] > 0:
+        raise SystemExit(f"[{name}] FAIL: {line['value']} Mrays/s")
+    card = (torch.cuda.get_device_name(0), float(smi.rsplit(",", 1)[1].split()[0]))
+    if (detail["device"], detail["power_limit_w"]) != card:
+        raise SystemExit(f"[{name}] FAIL: the line names {detail['device']}, {detail['power_limit_w']} W, "
+                         f"not {card[0]}, {card[1]} W")
+    (scene, _, cfg), = built
+    ref = renders[phase]
+    want_cfg = dataclasses.replace(cfg, **{f: getattr(ref["cfg"], f) for f in differ})
+    if want_cfg != ref["cfg"] or scene.accel is None:
+        raise SystemExit(f"[{name}] FAIL: the preset is not phase {phase}'s RenderConfig: {cfg}")
+    got = dict(path_segments=detail["path_segments"], shadow_segments=detail["shadow_segments"],
+               schedule=detail["schedule"])
+    if got != ref["first"] or detail["triangles"] != ref["triangles"]:
+        raise SystemExit(f"[{name}] FAIL: {got}, {detail['triangles']} triangles; phase {phase} at subframe "
+                         f"0: {ref['first']}, {ref['triangles']} triangles")
+    route, nee = scene.accel.route(cfg), cfg.env_importance_sampling
+    iters = sum(int(stats["iters"]) for stats in frames)
+    want = ((ROUTE_KERNELS[route] if nee else ROUTE_KERNELS[route][:1])
+            + (("k7",) if detail["schedule"] == "stream_fused" else ()))
+    for kid in want:
+        if counts[kid] < iters:
+            raise SystemExit(f"[{name}] FAIL: {counts[kid]} {KERNELS[kid][0]} launches for {iters} iterations")
+    if counts["ks"] != iters:
+        raise SystemExit(f"[{name}] FAIL: {counts['ks']} unit_sphere launches for {iters} iterations")
+    others = {KERNELS[kid][0]: c for kid, c in counts.items() if kid not in want + ("ks",) and c}
+    if others:
+        raise SystemExit(f"[{name}] FAIL: other kernels launched: {others}")
+    print(f"[{name}] {lines[0]} | segments equal phase {phase}'s at subframe 0"
+          f"{' (' + ', '.join(differ) + ' aside)' if differ else ''}; {len(frames)} frames, {iters} iterations, "
+          f"launches {launched(counts)}; {seconds:.1f} s | {smi}")
+    return line
+
+
+def phase_bench(label, renders, smi):
+    """bench_preset at each of BENCH_PRESETS.  Returns the lines."""
+    t_phase = time.perf_counter()
+    lines = [bench_preset(f"{label} {' '.join(argv)}", argv, phase, differ, renders, smi)
+             for argv, phase, differ in BENCH_PRESETS]
+    print(f"[{label}] {len(BENCH_PRESETS)} presets in {time.perf_counter() - t_phase:.1f} s | {smi}")
+    return lines
+
+
+def phase_bench_position(label, scene, cfg, early, late, smi):
+    """Phase 4's render timed again after phase 33, beside the bench's
+    config 0 right after phase 4 (`early`) and in phase 33 (`late`): tells
+    an overhead of the bench's own from one of the process's state after
+    the phases between them (the CLI, NCCL and gloo groups, the
+    profiler)."""
+    again = phase_render(f"{label} render headline again", scene, cfg, Camera(), 2, smi, warm=False)
+    first = early["render"]["seconds"]
+    bench_early, bench_late = (line["detail"]["sec_per_launch"] for line in (early["bench"], late))
+    print(f"[{label}] s/launch, headline 1080p 10 spp depth 8 on the cluster accel: after phase 4 render "
+          f"{first:.4f}, bench {bench_early:.4f} ({bench_early / first:.3f}x); after phase 33 render "
+          f"{again['seconds']:.4f}, bench {bench_late:.4f} ({bench_late / again['seconds']:.3f}x); late / early: "
+          f"render {again['seconds'] / first:.3f}x, bench {bench_late / bench_early:.3f}x | {smi}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--image", help="write the headline 1080p frame here as a binary PPM")
@@ -1568,29 +1725,34 @@ def main() -> int:
     numbers["ks"] = phase_sampler("3c sampler", scene, cfg, smi)
     headline = phase_render("4 render headline", scene, cfg, Camera(), 1, smi, args.image)
     launches["k1"], launches["ks"] = headline["counts"]["k1"], headline["counts"]["ks"]
+    renders = {"4": headline}  # by phase: what phase 33's bench runs are held against
+    early = dict(render=headline, bench=bench_preset("4b bench config 0", *BENCH_PRESETS[0], renders, smi))
     phase_parity("5 parity headline", headline_scene, Camera(), "flat")
 
     config4 = high_poly(100_000, "cuda")
     big = high_poly(200_000, "cuda")
     numbers["k2"] = phase_kernel("6 kernel 2", "k2", config4, cfg, cam4, smi, plain_reps=2)
     numbers["k3"] = phase_kernel("7 kernel 3", "k3", big, cfg, cam4, smi, plain_reps=2)
-    launches["k2"] = phase_render("8 render config 4", config4, cfg, cam4, 1, smi)["counts"]["k2"]
+    renders["8"] = phase_render("8 render config 4", config4, cfg, cam4, 1, smi)
+    launches["k2"] = renders["8"]["counts"]["k2"]
     launches["k3"] = phase_render("9 render 200k", big, cfg, cam4, 1, smi)["counts"]["k3"]
     phase_parity("10 parity two-level", lambda dev: high_poly(13_000, dev), cam4, "hier")
 
     numbers["k4"] = phase_kernel("11 kernel 4", "k4", scene, cfg_nee, Camera(), smi, plain_reps=5)
     numbers["k5"] = phase_kernel("12 kernel 5", "k5", config4, cfg_nee, cam4, smi, plain_reps=2)
     numbers["k6"] = phase_kernel("13 kernel 6", "k6", big, cfg_nee, cam4, smi, plain_reps=2)
-    launches["k4"] = phase_render("14 render headline NEE", scene, cfg_nee, Camera(), 1, smi)["counts"]["k4"]
-    launches["k5"] = phase_render("15 render config 4 NEE", config4, cfg_nee, cam4, 1, smi)["counts"]["k5"]
+    renders["14"] = phase_render("14 render headline NEE", scene, cfg_nee, Camera(), 1, smi)
+    renders["15"] = phase_render("15 render config 4 NEE", config4, cfg_nee, cam4, 1, smi)
+    launches["k4"], launches["k5"] = renders["14"]["counts"]["k4"], renders["15"]["counts"]["k5"]
     launches["k6"] = phase_render("16 render 200k NEE", big, cfg_nee, cam4, 1, smi)["counts"]["k6"]
     phase_parity("17 parity headline NEE", headline_scene, Camera(), "flat", nee=True)
     del config4, big
 
     numbers["k7"] = phase_fused_kernel("18 kernel 7", {"headline": scene, "config 1": config1_scene("cuda")}, smi,
                                        args.parent)
-    launches["k7"] = phase_fused_render("19 render headline", scene, cfg, Camera(), smi)
-    phase_fused_render("20 render config 1", config1_scene("cuda"), RenderConfig(**CONFIG1), Camera(), smi)
+    launches["k7"] = phase_fused_render("19 render headline", scene, cfg, Camera(), smi)["counts"]["k7"]
+    renders["20"] = phase_fused_render("20 render config 1", config1_scene("cuda"), RenderConfig(**CONFIG1), Camera(),
+                                       smi)
     one_spp = cfg.replace(samples_per_launch=1, tile_pixels=345_600)
     if phase_render("21 render 1 spp", scene, one_spp, Camera(), 1, smi, warm=False)["schedule"] != "rays":
         raise SystemExit("[21 render 1 spp] FAIL: the frame did not take render_rays")
@@ -1617,6 +1779,8 @@ def main() -> int:
         phase_shard_two("30 shard two ranks", root, paths, smi)
         phase_deferred("31 deferred", hero, root, smi)
         phase_oracle("32 oracle", smi)
+    late = phase_bench("33 bench", renders, smi)[0]
+    phase_bench_position("33b bench position", scene, cfg, early, late, smi)
     print("[launches on the CLI renders] " + "; ".join(
         f"{name}: " + ", ".join(f"{KERNELS[kid][0]} {n}" for kid, n in counts.items() if n)
         for name, counts in cli_counts.items()))

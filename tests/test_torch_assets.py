@@ -258,6 +258,34 @@ def test_save_image_ppm_and_exr(tmp_path):
     assert np.array_equal(image.load_image(str(tmp_path / "a.exr")), img.astype(np.float32))
 
 
+@pytest.mark.parametrize("header", [
+    b"P6\n7 5\n255\n", b"P6 7 5 255 ", b"P6\n# a comment\n7 # the width\n5\n255\n", b"P5\n7 5\n255\n",
+])
+def test_ppm_load_matches_jax(tmp_path, header):
+    """load_image of binary PPM and PGM files, comments in the header
+    included, equals the JAX package's (PIL's)."""
+    rs = np.random.RandomState(len(header))
+    arr = rs.randint(0, 256, (5, 7, 1 if header.startswith(b"P5") else 3)).astype(np.uint8)
+    p = tmp_path / "x.ppm"
+    p.write_bytes(header + arr.tobytes())
+    got, want = image.load_image(str(p)), j_image.load_image(str(p))
+    assert got.dtype == want.dtype == np.float32 and got.shape == (5, 7, 3)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["16-bit", "truncated data", "truncated header"])
+def test_ppm_refuses_what_it_does_not_read(tmp_path, case):
+    data = {
+        "16-bit": b"P6\n2 2\n65535\n" + bytes(24),
+        "truncated data": b"P6\n2 2\n255\n" + bytes(5),
+        "truncated header": b"P6\n2",
+    }[case]
+    p = tmp_path / "x.ppm"
+    p.write_bytes(data)
+    with pytest.raises(ValueError, match=str(p).replace(".", r"\.")):
+        image.load_image(str(p))
+
+
 # ---------------------------------------------------------------------------
 # logging, profiler, camera, accumulation
 
@@ -340,15 +368,17 @@ import pkgutil, importlib, tpu_pathtracer_torch
 names = [m.name for m in pkgutil.walk_packages(tpu_pathtracer_torch.__path__, "tpu_pathtracer_torch.")]
 for n in names:
     importlib.import_module(n)
-assert "tpu_pathtracer_torch.cli" in names and "tpu_pathtracer_torch.viewer" in names
+assert {"tpu_pathtracer_torch.cli", "tpu_pathtracer_torch.viewer", "tpu_pathtracer_torch.bench",
+        "tpu_pathtracer_torch.tools.compare_images"} <= set(names)
 assert not any(m.split(".")[0] in ("jax", "tpu_pathtracer", "PIL") for m in sys.modules)
 print(len(names))
 """
 
 
 def test_port_imports_without_jax_or_pil():
-    """Every module of the port, cli and viewer included, imports in a
-    process where jax, the JAX package and PIL cannot be imported."""
+    """Every module of the port, the cli, viewer, bench and comparison gate
+    included, imports in a process where jax, the JAX package and PIL
+    cannot be imported."""
     out = subprocess.run([sys.executable, "-c", _BLOCK], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 30

@@ -8,7 +8,8 @@ PNG scope: decode 8-bit, non-interlaced images of colour types 0 (grey),
 filters, to RGB as PIL's `Image.open(path).convert("RGB")` gives it (grey
 replicated, palette looked up, alpha dropped); encode 8-bit RGB.  Any
 other PNG (16-bit, fewer than 8 bits a sample, interlaced) raises a
-ValueError naming the file.
+ValueError naming the file.  PPM scope: read binary P6 (RGB) and P5
+(grey) with a maxval of 255; write P6.
 
 EXR scope (from the public OpenEXR 2.0 file format specification):
 scanline images, NO_COMPRESSION / ZIPS / ZIP (zlib + delta-predictor +
@@ -169,12 +170,43 @@ def load_png(path: str) -> np.ndarray:
         return decode_png(f.read(), str(path))
 
 
+def decode_ppm(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """Binary PPM (P6) or PGM (P5) bytes with a maxval of 255 -> [H,W,3]
+    uint8 (row 0 = top), as PIL's convert("RGB") (grey replicated)."""
+    fields, pos = [], 2
+    while len(fields) < 3:
+        while pos < len(data) and data[pos:pos + 1].isspace():
+            pos += 1
+        if data[pos:pos + 1] == b"#":
+            pos = data.find(b"\n", pos) + 1 or len(data)
+            continue
+        start = pos
+        while pos < len(data) and not data[pos:pos + 1].isspace() and data[pos:pos + 1] != b"#":
+            pos += 1
+        if start == pos:
+            raise ValueError(f"{path}: truncated PPM header")
+        fields.append(data[start:pos])
+    if not all(f.isdigit() for f in fields) or int(fields[2]) != 255:
+        raise ValueError(f"{path}: unsupported PPM header {b' '.join(fields)!r}: only 8-bit (maxval 255) is read")
+    w, h = int(fields[0]), int(fields[1])
+    ch = 3 if data.startswith(b"P6") else 1
+    body = data[pos + 1:pos + 1 + h * w * ch]  # one whitespace byte ends the header
+    if len(body) != h * w * ch:
+        raise ValueError(f"{path}: PPM image data shorter than {w}x{h}x{ch} bytes")
+    px = np.frombuffer(body, np.uint8).reshape(h, w, ch)
+    return np.repeat(px, 3, axis=-1) if ch == 1 else px.copy()
+
+
 def load_image(path: str) -> np.ndarray:
-    """Load a PNG (float32 [H,W,3] in [0,1]: u8/255, as the reference's
-    texture conversion) or an EXR (load_exr); anything else raises."""
+    """Load a PNG or a binary PPM/PGM, told apart by their first bytes
+    (float32 [H,W,3] in [0,1]: u8/255, as the reference's texture
+    conversion), or an EXR (load_exr); anything else raises."""
     if str(path).lower().endswith(".exr"):
         return load_exr(path)
-    return np.asarray(load_png(path), dtype=np.float32) / 255.0
+    with open(path, "rb") as f:
+        data = f.read()
+    rgb = decode_ppm(data, str(path)) if data[:2] in (b"P5", b"P6") else decode_png(data, str(path))
+    return np.asarray(rgb, dtype=np.float32) / 255.0
 
 
 def save_png(path: str, rgb_u8: np.ndarray) -> None:
