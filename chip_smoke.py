@@ -150,6 +150,17 @@ Phases, each printing one line (any failure exits non-zero):
      bench's config 0 line of phase 33 beside phase 4's and phase 4b's,
      which tells an overhead of the bench's own from one of the process's
      state after phases 24-32.
+34. every schedule and route eagerly and graphed (the headline fused and
+    with NEE, config 1, config 4 with NEE, the 200k scene, 1 spp in six
+    tiles, the hero stand-in): one frame each way after a capturing one,
+    images, iterations and segments bit-equal, one capture each and one
+    graph launch per iteration; s/launch both ways, idle share, capture
+    seconds and graph pool bytes.
+Every render runs graphed (render/graph_loop.py: each schedule's
+iteration captured once as a CUDA graph and replayed) but deferred
+shading's, and its phase checks so: a CLI run, a bench preset and the
+viewer's session each capture once per plan, and the launch counts keep
+their meaning through the plan's accounting of each replay.
 Then the launches on the CLI renders of phases 25 and 26, one JSON line with every kernel's numbers (launches from its render
 phase, bound from the work its plain version counts on the phase's rays),
 and last the result line {"ok": true, "device": {...}}.  --image writes
@@ -185,6 +196,7 @@ try:
     from tpu_pathtracer_torch.ops import intersect_cluster as ic
     from tpu_pathtracer_torch.ops import unit_sphere
     from tpu_pathtracer_torch.render.camera import Camera, camera_arrays, generate_camera_rays
+    from tpu_pathtracer_torch.render import graph_loop
     from tpu_pathtracer_torch.render.envmap import with_importance_sampling
     from tpu_pathtracer_torch.render.film import post_process, to_uint8
     from tpu_pathtracer_torch.render.integrator import (
@@ -604,6 +616,7 @@ def phase_render(label, scene, cfg, camera, frames, smi, image_path=None, warm=T
     nee = cfg.env_importance_sampling
     cam = camera_arrays(camera, cfg, scene.device)
     first = None
+    captures = graph_loop.stats["captures"]
     if warm:
         img, stats = render_frame_stats(scene, cam, cfg, 0)
         if not bool(torch.isfinite(img).all()) or not float(img.max()) > 0.0:
@@ -628,6 +641,10 @@ def phase_render(label, scene, cfg, camera, frames, smi, image_path=None, warm=T
     dt = time.perf_counter() - t0
     counts = read_counts()
     sched = stats["schedule"]
+    # The graphed loop is the default on the card, deferred shading's aside.
+    if stats["graphed"] != (not (cfg.deferred_shade and not nee)):
+        raise SystemExit(f"[{label}] FAIL: the loop reports graphed {stats['graphed']}")
+    captures = graph_loop.stats["captures"] - captures
     want = ((ROUTE_KERNELS[route] if nee else ROUTE_KERNELS[route][:1]) + ("ks",)
             + (("k7",) if sched == "stream_fused" else ()))
     for kid in want:
@@ -653,7 +670,7 @@ def phase_render(label, scene, cfg, camera, frames, smi, image_path=None, warm=T
           f"{rays / dt / 1e6:.4f} Mrays/s (segments{' + shadow segments' if nee else ''}), "
           f"{dt / frames:.4f} s/launch, {seg_total // frames} segments/launch, "
           f"{shadow_total // frames} shadow segments/launch, {iters // frames} iterations/launch, "
-          f"{syncs / iters:.4f} stream syncs per iteration, "
+          f"{syncs / iters:.4f} stream syncs per iteration, graphed {stats['graphed']} ({captures} capture(s)), "
           f"launches {launched} in {frames} timed frames, mean {img.mean(dim=(0, 1)).tolist()} | {smi}")
     if image_path:
         rgb = to_uint8(post_process(img, cfg)).cpu().numpy()[::-1]
@@ -1151,12 +1168,19 @@ def phase_scene_files(label, root, smi):
 
 def cli_launches(label, argv):
     """cli.run(argv) with every launch count set to 0 just before and read
-    just after, and every launch recorded: (renderer, counts, launch log)."""
+    just after, and every launch recorded: (renderer, counts, launch log).
+    The run's launches must all replay one captured graph: one capture
+    for the run, every launch graphed."""
     set_counts_zero()
+    captures = graph_loop.stats["captures"]
     with watching_launches() as log:
         renderer = cli.run([str(a) for a in argv])
     torch.cuda.synchronize()
     counts = read_counts()
+    captures = graph_loop.stats["captures"] - captures
+    if captures != 1 or not all(e["graphed"] for e in log):
+        raise SystemExit(f"[{label}] FAIL: {captures} captures for {len(log)} launches, graphed "
+                         f"{[e['graphed'] for e in log]}")
     return renderer, counts, log
 
 
@@ -1296,6 +1320,7 @@ def phase_viewer(label, paths, smi):
                        device="cuda")
     cfg = RenderConfig(width=320, height=240, samples_per_launch=2, max_depth=4, dof=False, env_mode="equirect")
     renderer = ProgressiveRenderer(scene, Camera(eye=(0.0, 2.0, 5.0), lookat=(0.0, 0.6, 0.0)), cfg)
+    captured = dict(graph_loop.captured)
     httpd, stop = serve(renderer, port=0, block=False)
     base = f"http://127.0.0.1:{httpd.server_address[1]}"
     got = []
@@ -1326,8 +1351,52 @@ def phase_viewer(label, paths, smi):
         torch.cuda.synchronize()
     if before != (240, 320, 3) or after != (96, 160, 3):
         raise SystemExit(f"[{label}] FAIL: frame {before} before /resize, {after} after")
+    # Camera moves change a plan's buffers, not its key: each (config,
+    # schedule, shape) the session rendered was captured once.
+    session = {k: n - captured.get(k, 0) for k, n in graph_loop.captured.items() if n - captured.get(k, 0)}
+    if not session or max(session.values()) != 1:
+        raise SystemExit(f"[{label}] FAIL: captures per plan {sorted(session.values())}")
     print(f"[{label}] 200 from every endpoint ({', '.join(got)}); frame {before} -> {after} after /resize; "
-          f"stats keys {sorted(stats)}; accumulation on {renderer.accum.device} | {smi}")
+          f"stats keys {sorted(stats)}; accumulation on {renderer.accum.device}; {renderer.subframe} launches since "
+          f"the last reset, {len(session)} plans each captured once (schedules and shapes: "
+          f"{sorted((k[2], *k[3:]) for k in session)}) | {smi}")
+
+
+def phase_graph_ab(label, scene, hero, root, smi):
+    """Every schedule and route of the main path run eagerly
+    (`graph_loop.eager()`) and graphed, one frame each way after a first
+    graphed frame that captures (profile_renders.ab_render): the
+    headline on the fused stream and with NEE (unfused stream, kernels 1
+    and 4), BASELINE config 1, config 4 with NEE (kernels 2 and 5), the
+    200k scene (kernel 3), 1 spp in six tiles (render_rays) and the hero
+    stand-in at its scene file's config.  Images, iterations and segments
+    bit-equal; one capture each; every iteration of the profiled graphed
+    frame one graph launch; s/launch both ways, the graphed frame's idle
+    share, capture seconds and graph pool bytes."""
+    from profile_renders import ab_render
+
+    cfg, cfg_nee, cam4 = RenderConfig(**HEADLINE), RenderConfig(**{**HEADLINE, **NEE}), Camera(**CONFIG4_CAMERA)
+    hero_scene, hero_camera, hero_cfg = load_scene_file(str(hero), device="cuda", cache_dir=str(root / "cache"))
+    cases = (
+        ("headline fused", lambda: scene, Camera(), cfg),
+        ("headline NEE", lambda: scene, Camera(), cfg_nee),
+        ("config 1", lambda: config1_scene("cuda"), Camera(), RenderConfig(**CONFIG1)),
+        ("config 4 NEE", lambda: high_poly(100_000, "cuda"), cam4, cfg_nee),
+        ("200k", lambda: high_poly(200_000, "cuda"), cam4, cfg),
+        ("1 spp tiles", lambda: scene, Camera(), cfg.replace(samples_per_launch=1, tile_pixels=345_600)),
+        ("hero", lambda: hero_scene, hero_camera, hero_cfg),
+    )
+    summary = []
+    for name, make, camera, c in cases:
+        row = ab_render(f"{label} {name}", make(), camera_arrays(camera, c, "cuda"), c, smi, frames=1,
+                        order=(True, False), profile_eager=False)
+        graph_launches = row["graphed"]["calls"].get("cudaGraphLaunch")
+        if row["captures"] != 1 or graph_launches != 1.0:
+            raise SystemExit(f"[{label} {name}] FAIL: {row['captures']} captures, {graph_launches} graph launches "
+                             f"per iteration")
+        summary.append(f"{name} {row['eager']['seconds']:.4f} -> {row['graphed']['seconds']:.4f} "
+                       f"({row['eager']['seconds'] / row['graphed']['seconds']:.2f}x, idle {row['graphed']['idle']:.1%})")
+    print(f"[{label}] s/launch eager -> graphed: " + "; ".join(summary) + f" | {smi}")
 
 
 # ---------------------------------------------------------------------------
@@ -1510,6 +1579,7 @@ def phase_deferred(label, hero, root, smi):
         for on in (False, True):
             c = cfg.replace(deferred_shade=on)
             frames, syncs = [], 0
+            render_frame_stats(scene, cam, c, 0)  # warm: the graphed loop captures here
             torch.cuda.synchronize()
             set_counts_zero()
             for k in (1, 2, 3):
@@ -1644,6 +1714,8 @@ def bench_preset(name, argv, phase, differ, renders, smi):
     detail = line["detail"]
     if not line["value"] > 0:
         raise SystemExit(f"[{name}] FAIL: {line['value']} Mrays/s")
+    if detail["graphed"] is not True or detail["captures"] != 1:
+        raise SystemExit(f"[{name}] FAIL: graphed {detail['graphed']}, {detail['captures']} captures in the run")
     card = (torch.cuda.get_device_name(0), float(smi.rsplit(",", 1)[1].split()[0]))
     if (detail["device"], detail["power_limit_w"]) != card:
         raise SystemExit(f"[{name}] FAIL: the line names {detail['device']}, {detail['power_limit_w']} W, "
@@ -1691,7 +1763,7 @@ def phase_bench_position(label, scene, cfg, early, late, smi):
     an overhead of the bench's own from one of the process's state after
     the phases between them (the CLI, NCCL and gloo groups, the
     profiler)."""
-    again = phase_render(f"{label} render headline again", scene, cfg, Camera(), 2, smi, warm=False)
+    again = phase_render(f"{label} render headline again", scene, cfg, Camera(), 2, smi)
     first = early["render"]["seconds"]
     bench_early, bench_late = (line["detail"]["sec_per_launch"] for line in (early["bench"], late))
     print(f"[{label}] s/launch, headline 1080p 10 spp depth 8 on the cluster accel: after phase 4 render "
@@ -1779,8 +1851,9 @@ def main() -> int:
         phase_shard_two("30 shard two ranks", root, paths, smi)
         phase_deferred("31 deferred", hero, root, smi)
         phase_oracle("32 oracle", smi)
-    late = phase_bench("33 bench", renders, smi)[0]
-    phase_bench_position("33b bench position", scene, cfg, early, late, smi)
+        late = phase_bench("33 bench", renders, smi)[0]
+        phase_bench_position("33b bench position", scene, cfg, early, late, smi)
+        phase_graph_ab("34 eager vs graphed", scene, hero, root, smi)
     print("[launches on the CLI renders] " + "; ".join(
         f"{name}: " + ", ".join(f"{KERNELS[kid][0]} {n}" for kid, n in counts.items() if n)
         for name, counts in cli_counts.items()))

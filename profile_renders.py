@@ -2,15 +2,17 @@
 render under torch.profiler, CUDA activity: 1080p, 10 spp, depth 8 on the
 headline, config 4 and the 200k scene, without and with NEE, and the
 headline and BASELINE config 1 (512x512, 64 spp) with the schedule's tail
-fused (kernel 7) and unfused.
+fused (kernel 7) and unfused, 1 spp in six tiles, and chip_smoke.py's
+hero stand-in at its scene file's config.
 
     python3 profile_renders.py [--only NAME ...] [--out DIR] [--wall]
+    python3 profile_renders.py --ab NAME ... [--frames N]
 
 --only runs the named renders in the order given, a name as often as it
 is given (fused, unfused, unfused, fused compares two versions in one
 call without favouring the first).  For each render, after one warm
-frame at 2 spp: the wall time of the profiled frame, the device busy
-time (the sum of every kernel, copy and memset on the card, which runs
+frame (it captures the graph that the profiled frame replays): the wall
+time of the profiled frame, the device busy time (the sum of every kernel, copy and memset on the card, which runs
 one stream), the idle share, the traversal kernels' and the fused step's
 time and launches, the device kernels per iteration (device events
 only: the CUDA runtime calls that launch them are not counted) and the
@@ -22,6 +24,16 @@ render.  One line per render, with the card's name and power limit; the
 per-kernel table of each render goes to DIR (default build/profile/,
 git-ignored).  --wall times each frame without the profiler instead and
 prints its wall time (s/launch) alone.
+
+--ab NAME ... compares the loop run eagerly (`graph_loop.eager()`) with
+the graphed loop (each iteration one replay of a captured CUDA graph) on
+each named render, at its full config: a first graphed frame at subframe
+0 (it captures: its seconds, the capture's seconds and the graph pool's
+bytes from the plan), then --frames frames each way in the order eager,
+graphed, graphed, eager (s/launch each, their means, images and stats
+bit-equal), then one frame each way under the profiler
+(device busy time, idle share, device kernels and host launch calls
+per iteration: the CUDA runtime's kernel and graph launch calls).
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ import os
 import sys
 import time
 import warnings
+from pathlib import Path
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -46,10 +59,15 @@ from chip_smoke import (
     headline_scene,
     high_poly,
     phase_device,
+    same_bits,
+    write_hero,
 )
 from tpu_pathtracer_torch.config import RenderConfig
+from tpu_pathtracer_torch.ops import cuda_build
+from tpu_pathtracer_torch.render import graph_loop
 from tpu_pathtracer_torch.render.camera import Camera, camera_arrays
 from tpu_pathtracer_torch.render.integrator import render_frame_stats
+from tpu_pathtracer_torch.scene.scenefile import load_scene_file
 
 # The device functions of the port's kernels (csrc/): the six traversals
 # (one body, with its packet-weight pre-pass), the fused schedule step and
@@ -83,6 +101,18 @@ def device_events(prof):
             row[0] += 1
             row[1] += e.duration_ns() / 1e9
     return table
+
+
+def launch_calls(prof):
+    """{name: count} of the host's CUDA API calls in a
+    profile that launch work on the device: kernel launches and graph
+    launches."""
+    cuda = torch.autograd.DeviceType.CUDA
+    calls = collections.Counter()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda and e.name().startswith("cu") and "Launch" in e.name():
+            calls[e.name()] += 1
+    return calls
 
 
 @contextlib.contextmanager
@@ -125,15 +155,37 @@ def renders():
         "headline_unfused": (lambda: headline_scene("cuda"), Camera(), {**cfg, "fused_schedule": "off"}),
         "config1_fused": (lambda: config1_scene("cuda"), Camera(), {**cfg1, "fused_schedule": "on"}),
         "config1_unfused": (lambda: config1_scene("cuda"), Camera(), {**cfg1, "fused_schedule": "off"}),
+        # chip_smoke's phase 21: 1 spp in six tiles of 345,600 pixels (render_rays)
+        "tiles": (lambda: headline_scene("cuda"), Camera(), {**cfg, "samples_per_launch": 1, "tile_pixels": 345_600}),
+        # the CLI's hero stand-in (chip_smoke's phase 25) at its scene file's config: camera and
+        # config are the file's (None here)
+        "hero": (hero_scene, None, None),
     }
 
 
+def hero_scene():
+    """chip_smoke's hero stand-in, written under build/hero and loaded
+    through its scene file: (scene, camera, config)."""
+    root = Path("build", "hero")
+    root.mkdir(parents=True, exist_ok=True)
+    return load_scene_file(str(write_hero(root)), device="cuda", cache_dir=str(root / "cache"))
+
+
+def setup(make, camera, cfg_kw):
+    """(scene, camera arrays, config) of a render of renders()."""
+    if cfg_kw is None:
+        scene, camera, cfg = make()
+    else:
+        scene, cfg = make(), RenderConfig(**cfg_kw)
+    return scene, camera_arrays(camera, cfg, "cuda"), cfg
+
+
 def profile_one(run, name, make, camera, cfg_kw, out_dir, smi, wall_only=False):
-    cfg = RenderConfig(**cfg_kw)
-    scene = make()
-    cam = camera_arrays(camera, cfg, "cuda")
+    scene, cam, cfg = setup(make, camera, cfg_kw)
+    # The warm frame at the render's own config: it captures the graph
+    # that the profiled frame replays.
     with counting_syncs() as syncs:
-        _, warm = render_frame_stats(scene, cam, cfg.replace(samples_per_launch=2), 0)
+        _, warm = render_frame_stats(scene, cam, cfg, 0)
     torch.cuda.synchronize()
     if wall_only:
         t0 = time.perf_counter()
@@ -166,6 +218,85 @@ def profile_one(run, name, make, camera, cfg_kw, out_dir, smi, wall_only=False):
           flush=True)
 
 
+def frame(scene, cam, cfg, subframe, eager):
+    """One frame, eagerly or graphed: (seconds, image, stats)."""
+    ctx = graph_loop.eager() if eager else contextlib.nullcontext()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ctx:
+        img, stats = render_frame_stats(scene, cam, cfg, subframe)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, img, stats
+
+
+def profiled(scene, cam, cfg, subframe, eager):
+    """One frame under the profiler: (wall, device busy, device kernels,
+    host launch calls {name: count}, stats)."""
+    ctx = graph_loop.eager() if eager else contextlib.nullcontext()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, ctx:
+        t0 = time.perf_counter()
+        _, stats = render_frame_stats(scene, cam, cfg, subframe)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = device_events(prof)
+    return (wall, sum(s for _, s in events.values()), sum(c for c, _ in events.values()), launch_calls(prof),
+            stats)
+
+
+def ab_render(label, scene, cam, cfg, smi, frames=2, order=(True, False, False, True), profile_eager=True):
+    """The loop run eagerly against the graphed loop on one render: a
+    first graphed frame at subframe 0 (it captures: its seconds, the
+    capture's seconds and the graph pool's bytes), then `frames` frames
+    from subframe 1 in each turn of `order` (True: eager), whose images,
+    iterations, segments and shadow segments must be bit-equal each way;
+    then one frame under the profiler graphed (and eager with
+    `profile_eager`).  Prints one line; returns its numbers by loop."""
+    graph_loop.clear()
+    captures = graph_loop.stats["captures"]
+    first, _, stats0 = frame(scene, cam, cfg, 0, eager=False)
+    plans = list(graph_loop._plans.values())
+    capture_s = sum(p.capture_seconds for p in plans)
+    pool = sum(p.pool_bytes for p in plans)
+    times, seen = {True: [], False: []}, {}
+    for eager in order:
+        for k in range(frames):
+            dt, img, stats = frame(scene, cam, cfg, 1 + k, eager)
+            times[eager].append(dt)
+            got = (img, {f: int(stats[f]) for f in ("iters", "segments", "shadow_segments")})
+            if k not in seen:
+                seen[k] = got
+            elif not same_bits(seen[k][0], img) or seen[k][1] != got[1]:
+                raise SystemExit(f"[{label}] FAIL: frame {1 + k} differs {'eager' if eager else 'graphed'} "
+                                 f"{got[1]} vs {seen[k][1]}")
+            if stats["graphed"] == eager:
+                raise SystemExit(f"[{label}] FAIL: the frame reports graphed {stats['graphed']}")
+    n_captures = graph_loop.stats["captures"] - captures
+    out, parts = {}, []
+    for eager in (True, False):
+        mean = sum(times[eager]) / len(times[eager])
+        row = dict(seconds=mean, times=times[eager])
+        desc = f"s/launch {' '.join(f'{t:.4f}' for t in times[eager])} (mean {mean:.4f})"
+        if profile_eager or not eager:
+            wall, busy, kernels, calls, st = profiled(scene, cam, cfg, 1, eager)
+            row.update(busy=busy, idle=1 - busy / mean, kernels=kernels / st["iters"],
+                       calls={k: v / st["iters"] for k, v in calls.items()})
+            calls_desc = ", ".join(f"{k} {v:.2f}" for k, v in row["calls"].items()) or "not measured"
+            desc += (f"; profiled wall {wall:.4f} s, device busy {busy:.4f} s, idle share of the mean s/launch "
+                     f"{row['idle']:.2%} (of the profiled wall {1 - busy / wall:.2%}), {row['kernels']:.1f} device "
+                     f"kernels per iteration, host launch calls per iteration: {calls_desc}")
+        out["eager" if eager else "graphed"] = row
+        parts.append(f"{'eager' if eager else 'graphed'}: {desc}")
+    out.update(first=first, capture_seconds=capture_s, pool_bytes=pool, captures=n_captures, iters=stats0["iters"],
+               schedule=stats0["schedule"])
+    print(f"[{label}] {stats0['schedule']} schedule, {cfg.width}x{cfg.height} {cfg.samples_per_launch} spp depth "
+          f"{cfg.max_depth}, {stats0['iters']} iterations at subframe 0: eager and graphed bit-equal over {frames} "
+          f"frame(s) each way; first graphed frame {first:.4f} s with {n_captures} capture(s) of {capture_s:.4f} s, "
+          f"graph pool {pool} bytes; " + "; ".join(parts)
+          + f"; speed-up {out['eager']['seconds'] / out['graphed']['seconds']:.4f}x | {smi}", flush=True)
+    graph_loop.clear()
+    return out
+
+
 def main() -> int:
     all_renders = renders()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -173,9 +304,17 @@ def main() -> int:
                         help="profile these renders, in this order")
     parser.add_argument("--out", default="build/profile", help="where the per-kernel tables go")
     parser.add_argument("--wall", action="store_true", help="time each frame without the profiler")
+    parser.add_argument("--ab", nargs="*", choices=sorted(all_renders),
+                        help="eager against graphed loop on these renders, in this order")
+    parser.add_argument("--frames", type=int, default=2, help="--ab: timed frames each way per turn")
     args = parser.parse_args()
     smi = phase_device()
     os.makedirs(args.out, exist_ok=True)
+    if args.ab:
+        cuda_build.build_libraries()  # every kernel at once, before the first frame's clock
+        for name in args.ab:
+            ab_render(f"ab {name}", *setup(*all_renders[name]), smi, frames=args.frames)
+        return 0
     for run, name in enumerate(args.only or all_renders):
         profile_one(run, name, *all_renders[name], args.out, smi, wall_only=args.wall)
     return 0

@@ -95,6 +95,8 @@ def test_detail_matches_bench_py(runs, case):
     assert set(j) - {"vs_baseline"} <= set(t)
     assert t["device"] == "cpu" and t["power_limit_w"] is None
     assert t["schedule"] == "regen" and t["iterations"] > 0  # 192 pixels fit the smallest pool
+    # The CPU runs the loop's step directly: nothing is captured.
+    assert t["graphed"] is False and t["captures"] == 0 and t["capture_seconds"] == 0.0
     for key in ("spp_per_sec", "sec_per_launch"):
         assert t[key] > 0
 

@@ -28,7 +28,7 @@ from tpu_pathtracer_torch.ops import intersect_cluster as ic  # noqa: E402
 from tpu_pathtracer_torch.ops import unit_sphere  # noqa: E402
 from tpu_pathtracer_torch.render.camera import Camera, camera_arrays  # noqa: E402
 from tpu_pathtracer_torch.render.film import post_process  # noqa: E402
-from tpu_pathtracer_torch.render import integrator  # noqa: E402
+from tpu_pathtracer_torch.render import graph_loop, integrator  # noqa: E402
 from tpu_pathtracer_torch.render.integrator import _fused_stream_ok, render_frame_stats  # noqa: E402
 from tpu_pathtracer_torch.scene import procedural  # noqa: E402
 from tpu_pathtracer_torch.utils import rng  # noqa: E402
@@ -858,3 +858,127 @@ def test_render_matches_oracle_on_card(cuda, case):
     want = oracle.render(scene, cam, cfg, range(cfg.width * cfg.height), 0)
     rel = np.abs(img - want).max(axis=1) / (1.0 + np.abs(img).max(axis=1))
     assert (rel < 1e-3).mean() >= 0.98 and img.max() > 0
+
+
+# ---------------------------------------------------------------------------
+# The graphed loop (render/graph_loop.py): every schedule and route,
+# captured once and replayed, against the same loop run eagerly
+# ---------------------------------------------------------------------------
+
+GRAPH_BASE = dict(width=64, height=48, samples_per_launch=2, max_depth=4, dof=False, intersector="cluster",
+                  env_mode="sunsky", stream_lanes=512)
+GRAPH_NEE = dict(env_mode="equirect", rr_mode="standard", env_importance_sampling=True)
+# name: (the config that takes the schedule on a 64x48 frame, render_pixels' pixel_ids)
+GRAPH_SCHEDULES = {
+    "stream_fused": (dict(fused_schedule="on"), None),
+    "stream": (dict(fused_schedule="off"), None),
+    "stream_range": ({}, "range"),
+    "stream_ids": ({}, "ids"),
+    "regen": (dict(stream_lanes=4096), None),
+    "rays": (dict(samples_per_launch=1), None),
+}
+# (subframe, camera, sample_offset) of the frames one plan renders
+GRAPH_FRAMES = ((0, 0, 0), (1, 0, 0), (2, 1, 2))
+GRAPH_CAMERAS = (Camera(eye=(0.0, 2.0, 6.0), lookat=(0.0, 0.5, 0.0)), Camera(eye=(1.0, 1.5, 7.0), lookat=(0.0, 1.0, 0.0)))
+
+
+def graph_scene(route, nee, dev, monkeypatch):
+    """Three spheres on `route`: flat in clusters of 128, two-level in
+    clusters of 8 (97 clusters), streamed with the 6 MB line patched low."""
+    from tpu_pathtracer_torch.accel import cluster as cluster_mod
+    from tpu_pathtracer_torch.render.envmap import with_importance_sampling
+    from tpu_pathtracer_torch.scene.scene import make_env
+    from tpu_pathtracer_torch.utils.image import procedural_hdr
+
+    scene = procedural.three_spheres_scene(8, 16, device=dev)
+    if nee:
+        scene = scene.replace(env=with_importance_sampling(make_env(procedural_hdr(32, 64), dev)))
+    if route == "streamed":
+        monkeypatch.setattr(cluster_mod, "_FLAT_MAX_BYTES", 1024)
+    return build_accel(scene, cluster_size=128 if route == "flat" else 8)
+
+
+def graph_frames(scene, cfg, pixels, frames):
+    """Render `frames` through render_pixels: (image, stats, launch counts)
+    of each."""
+    n_pix = cfg.width * cfg.height
+    out = []
+    for subframe, camera, offset in frames:
+        ids = {"range": (512, n_pix - 1024), "ids": torch.arange(n_pix - 1, -1, -3, dtype=torch.int32,
+                                                                  device=scene.device)}.get(pixels)
+        cam = camera_arrays(GRAPH_CAMERAS[camera], cfg, scene.device)
+        before = {f.__name__: f.launches for f in graph_loop.COUNTED}
+        img, stats = integrator.render_pixels(scene, cam, cfg, ids, subframe, sample_offset=offset, return_stats=True)
+        torch.cuda.synchronize()
+        out.append((img, stats, {f.__name__: f.launches - before[f.__name__] for f in graph_loop.COUNTED}))
+    return out
+
+
+@pytest.mark.parametrize("which", list(GRAPH_SCHEDULES))
+@pytest.mark.parametrize("nee", [False, True], ids=["plain", "nee"])
+@pytest.mark.parametrize("route", ["flat", "hier", "streamed"])
+def test_graphed_loop_equals_eager(cuda, monkeypatch, route, nee, which):
+    """One plan serves three subframes, two cameras and two sample offsets
+    with one capture; its images, segments, shadow segments, iterations
+    and each kernel's launches equal those of the loop run eagerly
+    (`graph_loop.eager()`) bit for bit, and its replays run under
+    torch.cuda.set_sync_debug_mode("error")."""
+    overrides, pixels = GRAPH_SCHEDULES[which]
+    cfg = RenderConfig(**{**GRAPH_BASE, **(GRAPH_NEE if nee else {}), **overrides})
+    scene = graph_scene(route, nee, cuda, monkeypatch)
+    assert scene.accel.route(cfg) == route
+    real_step, replays = graph_loop.Plan.step, []
+
+    def checked_step(plan):
+        replay = plan.graph is not None
+        replays.append(replay)
+        torch.cuda.set_sync_debug_mode("error" if replay else 0)
+        try:
+            real_step(plan)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    monkeypatch.setattr(graph_loop.Plan, "step", checked_step)
+    graph_loop.clear()
+    captures = graph_loop.stats["captures"]
+    graphed = graph_frames(scene, cfg, pixels, GRAPH_FRAMES)
+    assert graph_loop.stats["captures"] == captures + 1 and sum(replays) > len(replays) // 2
+    with graph_loop.eager():
+        eager = graph_frames(scene, cfg, pixels, GRAPH_FRAMES)
+    assert graph_loop.stats["captures"] == captures + 1
+    for (img_g, st_g, n_g), (img_e, st_e, n_e) in zip(graphed, eager):
+        assert st_g["graphed"] and not st_e["graphed"] and st_g["schedule"] == st_e["schedule"]
+        assert same_bits(img_g, img_e)
+        for k in ("iters", "segments", "shadow_segments"):
+            assert int(st_g[k]) == int(st_e[k]), k
+        assert n_g == n_e
+        assert (int(st_g["shadow_segments"]) > 0) == nee
+    assert not same_bits(graphed[0][0], graphed[1][0])  # the subframe reaches the replays
+    assert not same_bits(graphed[1][0], graphed[2][0])
+
+
+@pytest.mark.parametrize("spp", [1, 2], ids=["rays", "stream"])
+def test_graphed_tiles_share_one_capture(cuda, spp):
+    """The six tiles of a tiled frame (render_frame_stats) replay one
+    capture and equal the eager tiles bit for bit."""
+    cfg = RenderConfig(**{**GRAPH_BASE, "samples_per_launch": spp, "tile_pixels": 512, "stream_lanes": 256})
+    scene = build_accel(procedural.three_spheres_scene(8, 16, device=cuda))
+    cam = camera_arrays(GRAPH_CAMERAS[0], cfg, cuda)
+    graph_loop.clear()
+    captures = graph_loop.stats["captures"]
+    img_g, st_g = render_frame_stats(scene, cam, cfg, 1)
+    assert graph_loop.stats["captures"] == captures + 1 and st_g["graphed"]
+    with graph_loop.eager():
+        img_e, st_e = render_frame_stats(scene, cam, cfg, 1)
+    assert same_bits(img_g, img_e) and st_g["iters"] == st_e["iters"]
+    assert int(st_g["segments"]) == int(st_e["segments"])
+
+
+def test_deferred_loop_stays_eager(cuda):
+    """Deferred shading reads the device inside its step: its loop is not
+    captured, and says so."""
+    cfg = RenderConfig(**{**GRAPH_BASE, "deferred_shade": True})
+    scene = build_accel(procedural.three_spheres_scene(8, 16, device=cuda))
+    captures = graph_loop.stats["captures"]
+    _, stats = render_frame_stats(scene, camera_arrays(Camera(), cfg, cuda), cfg, 0)
+    assert not stats["graphed"] and graph_loop.stats["captures"] == captures

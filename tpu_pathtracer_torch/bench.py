@@ -37,6 +37,7 @@ import torch
 
 from tpu_pathtracer_torch.accel.build import build_accel
 from tpu_pathtracer_torch.config import RenderConfig
+from tpu_pathtracer_torch.render import graph_loop
 from tpu_pathtracer_torch.render.camera import Camera, camera_arrays
 from tpu_pathtracer_torch.render.envmap import with_importance_sampling
 from tpu_pathtracer_torch.render.integrator import render_frame, render_frame_stats
@@ -221,9 +222,9 @@ def _sync(device: torch.device) -> None:
 
 
 def run(args) -> dict:
-    """Build the preset on args.device, render a warm frame (subframe 0),
-    count its traced rays with render_frame_stats, then time args.frames
-    launches (subframes 1..N).  Returns the result line, or {"error": ...}
+    """Build the preset on args.device, render a warm frame (subframe 0;
+    on the card it captures the loop's graph), count its traced rays with
+    render_frame_stats, then time args.frames launches (subframes 1..N).  Returns the result line, or {"error": ...}
     when the warm frame is black."""
     try:
         device = resolve(args.device)
@@ -233,8 +234,12 @@ def run(args) -> dict:
     cam = camera_arrays(camera, cfg, device)
 
     # A silently broken kernel path renders black and ends every path at
-    # once, which would make every timing look fantastic.
+    # once, which would make every timing look fantastic.  On the card the
+    # warm frame also captures the loop's graph, which every later frame
+    # replays.
+    captures, capture_s = graph_loop.stats["captures"], graph_loop.stats["capture_seconds"]
     warm = render_frame(scene, cam, cfg, 0)
+    capture_s = graph_loop.stats["capture_seconds"] - capture_s
     if not float(warm.max()) > 0.0:
         return {"error": "black render — refusing to benchmark"}
 
@@ -251,6 +256,7 @@ def run(args) -> dict:
         render_frame(scene, cam, cfg, k + 1)
     _sync(device)
     dt = time.perf_counter() - t0
+    captures = graph_loop.stats["captures"] - captures
 
     mrays = rays_per_launch * args.frames / dt / 1e6
     spp_per_sec = args.spp * args.frames / dt
@@ -273,6 +279,11 @@ def run(args) -> dict:
             "power_limit_w": power_limit_watts(device) if cuda else None,
             "schedule": stats["schedule"],
             "iterations": int(stats["iters"]),
+            # whether the timed loop replayed a captured CUDA graph, the
+            # warm frame's capture seconds, and the run's captures
+            "graphed": stats["graphed"],
+            "capture_seconds": capture_s,
+            "captures": captures,
         },
     }
 

@@ -25,10 +25,15 @@ Deferred shading (cfg.deferred_shade, `_shade_deferred`) shades only the
 lanes that hit, in dense chunks; `render_pixels` also takes an affine
 pixel range (base, count), which sharded renders pass.
 
-The schedules run eagerly: a Python loop over iterations that reads one
+Each schedule's loop is a per-frame set-up that writes a plan's static
+buffers (render/graph_loop.py) and a step that reads and writes only
+those buffers; on a CUDA device the step is captured once per (scene,
+config, schedule, shape) as a CUDA graph and replayed, the counterpart of
+the JAX package's jitted `lax.while_loop`s.  The host loop reads one
 value from the device per iteration (whether any lane is still live, or
-how many are: `_read`, the iteration's only stream sync; deferred
-shading adds its count of hit lanes).
+how many are: `_read`, the iteration's only stream sync) and caps the
+iterations.  Deferred shading adds its count of hit lanes, a read inside
+the step, so its loop stays eager.
 """
 
 from __future__ import annotations
@@ -39,10 +44,10 @@ import math
 import torch
 
 from tpu_pathtracer_torch.config import RenderConfig
-from tpu_pathtracer_torch.ops.fused_schedule import fused_stream_step, fused_stream_step_plain, roulette
+from tpu_pathtracer_torch.ops.fused_schedule import STATE_KEYS, fused_stream_step, fused_stream_step_plain, roulette
 from tpu_pathtracer_torch.ops.intersect import Hit, intersect_scene, occluded_scene
 from tpu_pathtracer_torch.ops.unit_sphere import random_in_unit_sphere
-from tpu_pathtracer_torch.render import bsdf
+from tpu_pathtracer_torch.render import bsdf, graph_loop
 from tpu_pathtracer_torch.render.camera import generate_camera_rays
 from tpu_pathtracer_torch.render.envmap import direction_to_uv, env_pdf_alias, eval_env, sample_env_alias
 from tpu_pathtracer_torch.render.texsample import material_property, sample_bundle
@@ -421,7 +426,7 @@ def _trace_bounce(scene, cfg, origin, direction, attenuation, radiance, seeds, d
     # it keeps the dense shade.  (The JAX package also keeps it at 2^24
     # triangles and more, where its float32 prim ids lose exactness; the
     # port carries prim ids as integers.)
-    if cfg.deferred_shade and not nee:
+    if _deferred(cfg):
         sh = _shade_deferred(scene, cfg, hit, origin, direction, seeds, depth)
     else:
         sh = _shade(scene, cfg, hit, origin, direction, seeds, depth)
@@ -452,21 +457,24 @@ def _trace_bounce(scene, cfg, origin, direction, attenuation, radiance, seeds, d
 
 
 # ---------------------------------------------------------------------------
-# Camera paths, shared by the schedules
+# Camera paths and the loops' static buffers, shared by the schedules
 # ---------------------------------------------------------------------------
 
 def _read(x: torch.Tensor) -> int:
     """The schedule loop's one read of the device per iteration: whether
     any lane is live, or how many are.  It is the only stream sync inside
     an iteration: everything else the loop runs is queued without waiting
-    for the card, so the host can run ahead of it."""
+    for the card (on the card, one graph launch), so the host can run
+    ahead of it."""
     return int(x)
 
 
 def _camera_paths(cam: dict, cfg: RenderConfig, subframe, sample_offset):
     """make_path(pix, sample_i) -> (origins, directions, seeds): a fresh
     camera path for each (pixel id, sample of this launch), seeded from
-    the global (pixel, sample_offset + sample, subframe) counters."""
+    the global (pixel, sample_offset + sample, subframe) counters.  The
+    counters are Python ints or 0-d integer tensors (a plan's buffers,
+    which the same bits come from)."""
 
     def make_path(pix, sample_i):
         seeds0 = rng.make_seeds(pix, sample_offset + sample_i, subframe)
@@ -481,6 +489,61 @@ def _spec_start(cfg: RenderConfig, n: int, dev):
     return torch.ones(n, dtype=torch.float32 if cfg.nee_mis_spec else torch.bool, device=dev)
 
 
+def _deferred(cfg: RenderConfig) -> bool:
+    """Whether the bounce shades through `_shade_deferred`, whose count of
+    hit lanes is a second read of the device inside the iteration (NEE
+    keeps the dense shade): such a loop is not captured."""
+    return cfg.deferred_shade and not cfg.env_importance_sampling
+
+
+def _inputs(cam: dict, subframe, sample_offset) -> dict:
+    """A frame's inputs that a schedule's step reads: the camera's four
+    vectors and the seed counters."""
+    return dict(eye=cam["eye"], U=cam["U"], V=cam["V"], W=cam["W"], subframe=subframe, sample_offset=sample_offset)
+
+
+def _write(st: dict, values: dict) -> None:
+    """Write `values` into the static buffers of `st` in place: a tensor
+    is copied, a Python number filled."""
+    for k, v in values.items():
+        if isinstance(v, torch.Tensor):
+            st[k].copy_(v)
+        else:
+            st[k].fill_(v)
+
+
+def _plan(scene: Scene, cfg: RenderConfig, key: tuple, fresh: dict, make_step) -> graph_loop.Plan:
+    """The plan of this scene, config and `key` (the schedule and its
+    shapes), its buffers set to `fresh`: the frame's inputs and the loop's
+    state at its start.  make_step(buffers) -> the iteration, which reads
+    and writes only the buffers.  A Python number in `fresh` gets a 0-d
+    int64 buffer."""
+    dev = scene.device
+
+    def build():
+        st = {k: torch.empty(v.shape, dtype=v.dtype, device=dev) if isinstance(v, torch.Tensor)
+              else torch.empty((), dtype=torch.int64, device=dev) for k, v in fresh.items()}
+        return st, make_step(st)
+
+    plan = graph_loop.plan((id(scene), cfg) + key, scene, build, capturable=not _deferred(cfg))
+    _write(plan.state, fresh)
+    return plan
+
+
+def _counters(dev) -> dict:
+    """Path and shadow segments traced, as 0-d int64 tensors."""
+    return dict(segments=torch.zeros((), dtype=torch.int64, device=dev),
+                shadow=torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def _stats(iters: int, st: dict, plan: graph_loop.Plan) -> dict:
+    """A schedule's stats: iterations run, segments and shadow segments
+    (copies: the buffers are the next frame's), and whether the loop
+    replayed a captured graph."""
+    return dict(iters=iters, segments=st["segments"].clone(), shadow_segments=st["shadow"].clone(),
+                graphed=plan.graphed)
+
+
 # ---------------------------------------------------------------------------
 # One lane per ray: render_rays (1 spp)
 # ---------------------------------------------------------------------------
@@ -490,46 +553,60 @@ def render_rays(scene: Scene, cfg: RenderConfig, origins, directions, seeds, ret
 
     Every lane traces one path; the loop ends when every path has ended,
     or after max_depth + 2 bounces.  return_stats=True also returns
-    {"iters", "segments", "shadow_segments"}: bounces run, path segments
-    traced and, under NEE, shadow rays (every live lane that hit)."""
+    {"iters", "segments", "shadow_segments", "graphed"}: bounces run, path
+    segments traced, under NEE shadow rays (every live lane that hit), and
+    whether the bounces replayed a captured graph."""
     n, dev = origins.shape[0], origins.device
-    origin, direction = origins, directions
-    attenuation = torch.ones_like(origins)
-    radiance = torch.zeros_like(origins)
-    depth = torch.full((n,), cfg.max_depth, dtype=torch.int32, device=dev)
     terminated = torch.zeros(n, dtype=torch.bool, device=dev)
-    result = torch.zeros_like(origins)
-    spec_last = _spec_start(cfg, n, dev)
-    segments = torch.zeros((), dtype=torch.int64, device=dev)
-    shadow = torch.zeros_like(segments)
-    nee = cfg.env_importance_sampling
+    fresh = dict(
+        origin=origins, direction=directions, seeds=seeds,
+        attenuation=torch.ones_like(origins), radiance=torch.zeros_like(origins),
+        depth=torch.full((n,), cfg.max_depth, dtype=torch.int32, device=dev),
+        terminated=terminated, done=terminated.all(), result=torch.zeros_like(origins),
+        spec_last=_spec_start(cfg, n, dev), **_counters(dev),
+    )
+    plan = _plan(scene, cfg, ("rays", n), fresh, functools.partial(_rays_step, scene, cfg))
+    st = plan.state
     max_traces = cfg.max_depth + 2  # depth <= 0 forces done; +1 safety
 
     bounce = 0
-    while bounce < max_traces and not _read(terminated.all()):
-        live = ~terminated
-        tb = _trace_bounce(scene, cfg, origin, direction, attenuation, radiance, seeds, depth, spec_last)
-        seeds_new, newly, adv, result_t, att_new = roulette(tb, live, cfg.rr_mode == "reference")
-        result = torch.where(newly[:, None], result_t, result)
-        terminated = terminated | newly
-        av = adv[:, None]
-        origin = torch.where(av, tb["origin"], origin)
-        direction = torch.where(av, tb["direction"], direction)
-        attenuation = torch.where(av, att_new, attenuation)
-        radiance = torch.where(av, tb["radiance"], radiance)
-        seeds = torch.where(live, seeds_new, seeds)
-        depth = torch.where(adv, depth - 1, depth)
-        segments = segments + live.sum()
-        if nee:
-            spec_last = torch.where(adv, tb["spec_last"], spec_last)
-            shadow = shadow + (live & tb["hit"]).sum()
+    while bounce < max_traces and not _read(st["done"]):
+        plan.step()
         bounce += 1
 
     # Lanes that never ended (the bounce cap) give their radiance so far.
-    out = torch.where(terminated[:, None], result, radiance)
-    if return_stats:
-        return out, dict(iters=bounce, segments=segments, shadow_segments=shadow)
-    return out
+    out = torch.where(st["terminated"][:, None], st["result"], st["radiance"])
+    return (out, _stats(bounce, st, plan)) if return_stats else out
+
+
+def _rays_step(scene: Scene, cfg: RenderConfig, st: dict):
+    """render_rays' bounce on its buffers `st`."""
+    nee = cfg.env_importance_sampling
+
+    def step():
+        live = ~st["terminated"]
+        tb = _trace_bounce(scene, cfg, st["origin"], st["direction"], st["attenuation"], st["radiance"],
+                           st["seeds"], st["depth"], st["spec_last"])
+        seeds_new, newly, adv, result_t, att_new = roulette(tb, live, cfg.rr_mode == "reference")
+        terminated = st["terminated"] | newly
+        av = adv[:, None]
+        new = dict(
+            result=torch.where(newly[:, None], result_t, st["result"]),
+            terminated=terminated, done=terminated.all(),
+            origin=torch.where(av, tb["origin"], st["origin"]),
+            direction=torch.where(av, tb["direction"], st["direction"]),
+            attenuation=torch.where(av, att_new, st["attenuation"]),
+            radiance=torch.where(av, tb["radiance"], st["radiance"]),
+            seeds=torch.where(live, seeds_new, st["seeds"]),
+            depth=torch.where(adv, st["depth"] - 1, st["depth"]),
+            segments=st["segments"] + live.sum(),
+        )
+        if nee:
+            new.update(spec_last=torch.where(adv, tb["spec_last"], st["spec_last"]),
+                       shadow=st["shadow"] + (live & tb["hit"]).sum())
+        _write(st, new)
+
+    return step
 
 
 def count_segments(scene: Scene, cam: dict, cfg: RenderConfig, subframe):
@@ -549,55 +626,68 @@ def render_pixels_regen(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids, s
     are the global (pixel, sample, subframe) counters, so each sample's
     radiance is that of the other schedules.  Returns the pixel means
     [Np,3] (the sums divided by spp, as the JAX function divides), and
-    with return_stats {"iters", "segments", "shadow_segments"}."""
+    with return_stats the stats of render_rays."""
     n, dev = pixel_ids.shape[0], pixel_ids.device
-    make_path = _camera_paths(cam, cfg, subframe, sample_offset)
-    origin, direction, seeds = make_path(pixel_ids, torch.zeros_like(pixel_ids))
-    attenuation = torch.ones_like(origin)
-    radiance = torch.zeros_like(origin)
-    depth = torch.full((n,), cfg.max_depth, dtype=torch.int32, device=dev)
-    sample_i = torch.zeros(n, dtype=torch.int32, device=dev)
-    accum = torch.zeros_like(origin)
+    origin, direction, seeds = _camera_paths(cam, cfg, subframe, sample_offset)(pixel_ids, torch.zeros_like(pixel_ids))
     exhausted = torch.zeros(n, dtype=torch.bool, device=dev)
-    spec_last = _spec_start(cfg, n, dev)
-    segments = torch.zeros((), dtype=torch.int64, device=dev)
-    shadow = torch.zeros_like(segments)
-    nee = cfg.env_importance_sampling
+    fresh = dict(
+        _inputs(cam, subframe, sample_offset), ids=pixel_ids,
+        origin=origin, direction=direction, seeds=seeds,
+        attenuation=torch.ones_like(origin), radiance=torch.zeros_like(origin),
+        depth=torch.full((n,), cfg.max_depth, dtype=torch.int32, device=dev),
+        sample_i=torch.zeros(n, dtype=torch.int32, device=dev), accum=torch.zeros_like(origin),
+        exhausted=exhausted, done=exhausted.all(), spec_last=_spec_start(cfg, n, dev), **_counters(dev),
+    )
+    plan = _plan(scene, cfg, ("regen", n, spp), fresh, functools.partial(_regen_step, scene, cfg, spp))
+    st = plan.state
     max_iters = spp * (cfg.max_depth + 2) + 4
 
     it = 0
-    while it < max_iters and not _read(exhausted.all()):
-        live = ~exhausted
-        tb = _trace_bounce(scene, cfg, origin, direction, attenuation, radiance, seeds, depth, spec_last)
-        seeds_new, newly, adv, result, att_new = roulette(tb, live, cfg.rr_mode == "reference")
-        accum = accum + torch.where(newly[:, None], result, 0.0)
-        sample_i = sample_i + newly.to(torch.int32)
-        exhausted = exhausted | (newly & (sample_i >= spp))
-
-        # Respawn the next sample on lanes that just finished one.
-        regen = newly & ~exhausted
-        o_r, d_r, s_r = make_path(pixel_ids, torch.clamp_max(sample_i, spp - 1))
-        rg, av = regen[:, None], adv[:, None]
-        origin = torch.where(rg, o_r, torch.where(av, tb["origin"], origin))
-        direction = torch.where(rg, d_r, torch.where(av, tb["direction"], direction))
-        seeds = torch.where(regen, s_r, torch.where(live, seeds_new, seeds))
-        attenuation = torch.where(rg, 1.0, torch.where(av, att_new, attenuation))
-        radiance = torch.where(rg, 0.0, torch.where(av, tb["radiance"], radiance))
-        depth = torch.where(regen, cfg.max_depth, torch.where(adv, depth - 1, depth))
-        segments = segments + live.sum()
-        if nee:
-            spec_last = torch.where(
-                regen, torch.ones_like(spec_last), torch.where(adv, tb["spec_last"], spec_last)
-            )
-            shadow = shadow + (live & tb["hit"]).sum()
+    while it < max_iters and not _read(st["done"]):
+        plan.step()
         it += 1
 
     # A float32 tensor on the card: a Python scalar divisor would be
     # multiplied by its reciprocal there, a different rounding.
-    out = accum / torch.full((), float(spp), dtype=torch.float32, device=dev)
-    if return_stats:
-        return out, dict(iters=it, segments=segments, shadow_segments=shadow)
-    return out
+    out = st["accum"] / torch.full((), float(spp), dtype=torch.float32, device=dev)
+    return (out, _stats(it, st, plan)) if return_stats else out
+
+
+def _regen_step(scene: Scene, cfg: RenderConfig, spp: int, st: dict):
+    """render_pixels_regen's iteration on its buffers `st`."""
+    nee = cfg.env_importance_sampling
+    make_path = _camera_paths(st, cfg, st["subframe"], st["sample_offset"])
+
+    def step():
+        live = ~st["exhausted"]
+        tb = _trace_bounce(scene, cfg, st["origin"], st["direction"], st["attenuation"], st["radiance"],
+                           st["seeds"], st["depth"], st["spec_last"])
+        seeds_new, newly, adv, result, att_new = roulette(tb, live, cfg.rr_mode == "reference")
+        accum = st["accum"] + torch.where(newly[:, None], result, 0.0)
+        sample_i = st["sample_i"] + newly.to(torch.int32)
+        exhausted = st["exhausted"] | (newly & (sample_i >= spp))
+
+        # Respawn the next sample on lanes that just finished one.
+        regen = newly & ~exhausted
+        o_r, d_r, s_r = make_path(st["ids"], torch.clamp_max(sample_i, spp - 1))
+        rg, av = regen[:, None], adv[:, None]
+        new = dict(
+            accum=accum, sample_i=sample_i, exhausted=exhausted, done=exhausted.all(),
+            origin=torch.where(rg, o_r, torch.where(av, tb["origin"], st["origin"])),
+            direction=torch.where(rg, d_r, torch.where(av, tb["direction"], st["direction"])),
+            seeds=torch.where(regen, s_r, torch.where(live, seeds_new, st["seeds"])),
+            attenuation=torch.where(rg, 1.0, torch.where(av, att_new, st["attenuation"])),
+            radiance=torch.where(rg, 0.0, torch.where(av, tb["radiance"], st["radiance"])),
+            depth=torch.where(regen, cfg.max_depth, torch.where(adv, st["depth"] - 1, st["depth"])),
+            segments=st["segments"] + live.sum(),
+        )
+        if nee:
+            spec_last = st["spec_last"]
+            new.update(spec_last=torch.where(regen, torch.ones_like(spec_last), torch.where(adv, tb["spec_last"], spec_last)),
+                       shadow=st["shadow"] + (live & tb["hit"]).sum())
+        _write(st, new)
+
+    return step
 
 
 # ---------------------------------------------------------------------------
@@ -635,12 +725,25 @@ def _stream_state(cfg: RenderConfig, make_path, slot_to_pixel, lanes: int, dev) 
 def _respawn(st: dict, regen, make_path, spp: int):
     """The stream's camera respawn after a schedule step: on the lanes of
     the regen mask, a fresh camera path for the next sample of the same
-    or a freshly pulled pixel."""
+    or a freshly pulled pixel, written into st's tensors in place."""
     o_r, d_r, s_r = make_path(st["pix"], torch.clamp_max(st["sample_i"], spp - 1))
     rg = regen[:, None]
-    st["origin"] = torch.where(rg, o_r, st["origin"])
-    st["direction"] = torch.where(rg, d_r, st["direction"])
-    st["seeds"] = torch.where(regen, s_r, st["seeds"])
+    _write(st, dict(origin=torch.where(rg, o_r, st["origin"]), direction=torch.where(rg, d_r, st["direction"]),
+                    seeds=torch.where(regen, s_r, st["seeds"])))
+
+
+def _slot_map(pixel_ids, n_pix: int):
+    """The work queue's slot -> pixel id map for `pixel_ids` as
+    render_pixels_stream takes them: an affine range (base, count) by
+    arithmetic (no gather from an id table), an id tensor by a gather, and
+    None for the whole frame (the identity, the fused kernel's only
+    mapping)."""
+    if pixel_ids is None:
+        return None
+    if isinstance(pixel_ids, tuple):
+        base = pixel_ids[0]
+        return lambda slot: base + slot
+    return lambda slot: pixel_ids[torch.clamp_max(slot, n_pix - 1)]
 
 
 def render_pixels_stream(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids, subframe, sample_offset: int, spp: int, lanes: int, return_stats: bool = False, fused: bool = False):
@@ -664,56 +767,68 @@ def render_pixels_stream(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids, 
     step returns the count of live lanes, the loop's one host read per
     iteration.
 
-    return_stats=True also returns {"iters", "segments",
-    "shadow_segments"}: iterations run, path segments traced and, under
-    NEE, shadow rays counted as the JAX schedule counts them (every live
-    lane that hit, whether or not its light draw was traced)."""
-    identity = pixel_ids is None
-    affine = isinstance(pixel_ids, tuple)
+    return_stats=True also returns the stats of render_rays, shadow rays
+    counted as the JAX schedule counts them (every live lane that hit,
+    whether or not its light draw was traced)."""
+    kind = "frame" if pixel_ids is None else "range" if isinstance(pixel_ids, tuple) else "ids"
     n_pix = _pixel_count(cfg, pixel_ids)
     lanes = min(lanes, n_pix)
     dev = scene.device
-    nee = cfg.env_importance_sampling
-    make_path = _camera_paths(cam, cfg, subframe, sample_offset)
-
-    def slot_to_pixel(slot):
-        if identity:
-            return slot
-        if affine:  # arithmetic: no gather from an id table
-            return pixel_ids[0] + slot
-        return pixel_ids[torch.clamp_max(slot, n_pix - 1)]
-
-    step = fused_stream_step if fused else functools.partial(
-        fused_stream_step_plain, slot_to_pixel=None if identity else slot_to_pixel)
-    st = _stream_state(cfg, make_path, slot_to_pixel, lanes, dev)
-    out = torch.zeros((n_pix + 1, 3), dtype=torch.float32, device=dev)  # +1 = sink
-    head = torch.full((), lanes, dtype=torch.int64, device=dev)
-    segments = torch.zeros((), dtype=torch.int64, device=dev)
-    shadow = torch.zeros_like(segments)
+    fresh = _inputs(cam, subframe, sample_offset)
+    if kind == "range":
+        fresh["base"] = pixel_ids[0]
+    elif kind == "ids":
+        fresh["ids"] = pixel_ids
+    fresh.update(_stream_state(cfg, _camera_paths(cam, cfg, subframe, sample_offset),
+                               _slot_map(pixel_ids, n_pix) or (lambda slot: slot), lanes, dev))
+    fresh.update(out=torch.zeros((n_pix + 1, 3), dtype=torch.float32, device=dev),  # +1 = sink
+                 head=torch.full((), lanes, dtype=torch.int64, device=dev),
+                 n_live=torch.full((), lanes, dtype=torch.int64, device=dev), **_counters(dev))
+    plan = _plan(scene, cfg, ("stream_fused" if fused else "stream", kind, n_pix, spp, lanes), fresh,
+                 functools.partial(_stream_step, scene, cfg, kind, n_pix, spp, fused))
+    st = plan.state
     max_iters = (n_pix * spp * (cfg.max_depth + 2)) // lanes + cfg.max_depth + 16
 
     it, n_live = 0, lanes
     while it < max_iters and n_live:
+        plan.step()
+        n_live = _read(st["n_live"])
+        it += 1
+
+    img = st["out"][:n_pix].clone()
+    return (img, _stats(it, st, plan)) if return_stats else img
+
+
+def _stream_step(scene: Scene, cfg: RenderConfig, kind: str, n_pix: int, spp: int, fused: bool, st: dict):
+    """render_pixels_stream's iteration on its buffers `st`: trace, the
+    schedule step (the kernel updates the lane state in place, the plain
+    version returns new tensors, copied in), respawn."""
+    nee = cfg.env_importance_sampling
+    make_path = _camera_paths(st, cfg, st["subframe"], st["sample_offset"])
+    pixels = None if kind == "frame" else (st["base"], n_pix) if kind == "range" else st["ids"]
+    schedule_step = fused_stream_step if fused else functools.partial(
+        fused_stream_step_plain, slot_to_pixel=_slot_map(pixels, n_pix))
+    kw = dict(spp=spp, n_pix=n_pix, max_depth=cfg.max_depth, rr_reference=cfg.rr_mode == "reference",
+              inv_spp=1.0 / spp)
+
+    def step():
         tb = _trace_bounce(scene, cfg, st["origin"], st["direction"], st["attenuation"], st["radiance"],
                            st["seeds"], st["depth"], st["spec_last"])
+        new = {}
         if nee:
-            shadow = shadow + ((st["slot"] < n_pix) & tb["hit"]).sum()
-        regen, head, segments, live = step(
-            tb, st, out, head, segments, spp=spp, n_pix=n_pix, max_depth=cfg.max_depth,
-            rr_reference=cfg.rr_mode == "reference", inv_spp=1.0 / spp,
-        )
+            new["shadow"] = st["shadow"] + ((st["slot"] < n_pix) & tb["hit"]).sum()
+        lane = {k: st[k] for k in STATE_KEYS}
+        regen, new["head"], new["segments"], new["n_live"] = schedule_step(
+            tb, lane, st["out"], st["head"], st["segments"], **kw)
+        new.update((k, v) for k, v in lane.items() if v is not st[k])
+        _write(st, new)
         _respawn(st, regen, make_path, spp)
         if nee:
             # A lane that neither respawns nor goes on is not live again,
             # so its flag is never read.
-            st["spec_last"] = torch.where(regen, torch.ones_like(st["spec_last"]), tb["spec_last"])
-        n_live = _read(live)
-        it += 1
+            st["spec_last"].copy_(torch.where(regen, torch.ones_like(st["spec_last"]), tb["spec_last"]))
 
-    img = out[:n_pix]
-    if return_stats:
-        return img, dict(iters=it, segments=segments, shadow_segments=shadow)
-    return img
+    return step
 
 
 def _fused_stream_ok(cfg: RenderConfig, pixel_ids, lanes: int, device) -> bool:
@@ -829,8 +944,9 @@ def render_pixels(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids=None, su
 def render_frame_stats(scene: Scene, cam: dict, cfg: RenderConfig, subframe):
     """One full launch with the schedule's own accounting: returns
     (radiance image [H,W,3], row 0 the bottom; {"iters", "segments",
-    "shadow_segments"}, summed over the tiles of cfg.tile_pixels, and
-    "schedule", the one render_pixels took for the frame or each tile)."""
+    "shadow_segments"}, summed over the tiles of cfg.tile_pixels,
+    "schedule", the one render_pixels took for the frame or each tile, and
+    "graphed", whether its loop replayed a captured graph)."""
     n_pix = cfg.width * cfg.height
     tile = cfg.tile_pixels
     if not tile or tile >= n_pix:
@@ -844,7 +960,8 @@ def render_frame_stats(scene: Scene, cam: dict, cfg: RenderConfig, subframe):
         img, tile_stats = render_pixels(scene, cam, cfg, ids, subframe, return_stats=True)
         parts.append(img)
         stats = {k: v + tile_stats[k] for k, v in stats.items()}
-    stats["schedule"] = tile_stats["schedule"]  # the tiles are of one size
+    # The tiles are of one size.
+    stats.update(schedule=tile_stats["schedule"], graphed=tile_stats["graphed"])
     return torch.cat(parts).reshape(cfg.height, cfg.width, 3), stats
 
 
