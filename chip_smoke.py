@@ -155,12 +155,39 @@ Phases, each printing one line (any failure exits non-zero):
     tiles, the hero stand-in): one frame each way after a capturing one,
     images, iterations and segments bit-equal, one capture each and one
     graph launch per iteration; s/launch both ways, idle share, capture
-    seconds and graph pool bytes.
+    seconds and graph pool bytes; then each of them graphed with the
+    shading kernels' plain versions (ops.bounce.plain()) and with the
+    kernels: bit-equal, s/launch, device kernels per iteration, device
+    time by kernel family, graph pool bytes (profile_renders.kernels_ab);
+35. the bounce kernel (csrc/bounce.cu: the miss program, _shade and the
+    payload combine; under NEE the light draw, the shadow candidates and
+    the NEE record) against _bounce_plain on the headline's 131,072 and
+    16,384 lanes (phase 3's rays), the hero stand-in's (textures, glass,
+    DOF), config 4 with NEE and the headline with NEE, MIS-spec and the
+    defensive mixture: every field bit-equal; ms, plain ms, bound;
+36. the NEE kernel (csrc/nee.cu) against _nee_weights and the visible
+    select after the any-hit traversal, on the headline, config 4 and the
+    headline with MIS-spec and the defensive mixture: radiance and
+    spec_next bit-equal; ms, plain ms, bound;
+37. the camera kernel (csrc/camera.cu) against camera_paths_plain at
+    1080p on 131,072 lanes: the stream's respawn with and without DOF and
+    the 1-spp set-up on an affine range, bit-equal; ms, plain ms, bound.
+    Phases 35-37 time each kernel launch with the L2 flushed before it
+    (_time_cold), and count the bytes each lane's class needs of the
+    function (bounce_bytes, nee_bytes), so that ms and bound are both HBM
+    numbers.
 Every render runs graphed (render/graph_loop.py: each schedule's
 iteration captured once as a CUDA graph and replayed) but deferred
 shading's, and its phase checks so: a CLI run, a bench preset and the
 viewer's session each capture once per plan, and the launch counts keep
 their meaning through the plan's accounting of each replay.
+On the card the bounce's shading, NEE's weights and every camera spawn
+run the three shading kernels, which every render phase expects: the
+bounce kernel once an iteration, the NEE kernel once an iteration under
+NEE, the camera kernel once a stream or regen iteration and once a
+render_pixels call's set-up; the unit-ball sampler's loop runs inside the
+bounce kernel, so the sampler launches only on the plain versions' path
+(phase 34's plain arm, whose count the kernels line gives it).
 Then the launches on the CLI renders of phases 25 and 26, one JSON line with every kernel's numbers (launches from its render
 phase, bound from the work its plain version counts on the phase's rays),
 and last the result line {"ok": true, "device": {...}}.  --image writes
@@ -191,27 +218,32 @@ try:
 
     from tpu_pathtracer_torch.accel.build import build_accel
     from tpu_pathtracer_torch.config import RenderConfig
+    from tpu_pathtracer_torch.ops import bounce as bounce_ops
+    from tpu_pathtracer_torch.ops import camera as camera_ops
     from tpu_pathtracer_torch.ops import cuda_build
     from tpu_pathtracer_torch.ops import fused_schedule as fs
     from tpu_pathtracer_torch.ops import intersect_cluster as ic
     from tpu_pathtracer_torch.ops import unit_sphere
     from tpu_pathtracer_torch.render.camera import Camera, camera_arrays, generate_camera_rays
     from tpu_pathtracer_torch.render import graph_loop
-    from tpu_pathtracer_torch.render.envmap import with_importance_sampling
+    from tpu_pathtracer_torch.render.envmap import direction_to_uv, with_importance_sampling
     from tpu_pathtracer_torch.render.film import post_process, to_uint8
     from tpu_pathtracer_torch.render.integrator import (
-        _camera_paths,
+        _bounce_kernels,
+        _bounce_plain,
         _light_sample,
+        _nee_weights,
         _respawn,
         _shade,
         _shadow_candidates,
+        _spawner,
         _stream_state,
         _trace_bounce,
         render_frame_stats,
         resolve_stream_lanes,
     )
     from tpu_pathtracer_torch.scene.procedural import high_poly_scene, single_sphere_scene, three_spheres_scene
-    from tpu_pathtracer_torch.scene.scene import make_env
+    from tpu_pathtracer_torch.scene.scene import SCRAMBLE_MULT, make_env
     from tpu_pathtracer_torch.utils import rng
     from tpu_pathtracer_torch.utils.image import procedural_hdr
     from tpu_pathtracer_torch.utils.ssim import ssim
@@ -264,9 +296,41 @@ KERNELS = {
     # could only end by reading the device.
     "ks": ("unit_sphere", "tpu_pathtracer_torch/csrc/unit_sphere.cu", "tpu_pathtracer/utils/rng.py:79", None, False,
            unit_sphere.random_in_unit_sphere, unit_sphere.random_in_unit_sphere_cuda, rng.random_in_unit_sphere_plain),
+    # No TPU kernel either: the fusions XLA makes of the JAX package's bounce
+    # (_trace_bounce after the traversal), NEE tail and camera spawn.  The
+    # bounce kernel runs the sampler's loop inline, so on the kernels' path
+    # the sampler launches only under ops.bounce.plain().
+    "kb": ("bounce", "tpu_pathtracer_torch/csrc/bounce.cu", "tpu_pathtracer/render/integrator.py:548", None, False,
+           bounce_ops.bounce, bounce_ops.bounce, _bounce_plain),
+    "kn": ("nee", "tpu_pathtracer_torch/csrc/nee.cu", "tpu_pathtracer/render/integrator.py:635", None, False,
+           bounce_ops.next_event, bounce_ops.next_event, _nee_weights),
+    "kc": ("camera", "tpu_pathtracer_torch/csrc/camera.cu", "tpu_pathtracer/render/integrator.py:57", None, False,
+           camera_ops.camera_paths, camera_ops.camera_paths, camera_ops.camera_paths_plain),
 }
 # The kernels each route's render launches, without and with NEE.
 ROUTE_KERNELS = {"flat": ("k1", "k4"), "hier": ("k2", "k5"), "streamed": ("k3", "k6")}
+
+
+def shading_kernels(nee):
+    """The shading kernels every render launches on the card: the bounce
+    and camera kernels, and the NEE kernel under NEE."""
+    return ("kb", "kc") + (("kn",) if nee else ())
+
+
+def check_shading(label, counts, iters, nee, spawns=None):
+    """The bounce kernel once an iteration, the NEE kernel once an
+    iteration under NEE and never without, the camera kernel `spawns`
+    times (at least once when not given), the sampler never (its loop
+    runs inside the bounce kernel)."""
+    if counts["kb"] != iters or counts["kn"] != (iters if nee else 0):
+        raise SystemExit(f"[{label}] FAIL: {counts['kb']} bounce and {counts['kn']} nee launches for {iters} "
+                         f"iterations")
+    if (counts["kc"] != spawns) if spawns is not None else not counts["kc"]:
+        raise SystemExit(f"[{label}] FAIL: {counts['kc']} camera launches, expected {spawns or 'some'}")
+    if counts["ks"]:
+        raise SystemExit(f"[{label}] FAIL: the sampler launched {counts['ks']} times beside the bounce kernel")
+
+
 HEADLINE = dict(
     width=1920, height=1080, samples_per_launch=10, max_depth=8,
     dof=False, env_mode="equirect", rr_mode="reference", intersector="cluster",
@@ -607,8 +671,11 @@ def phase_render(label, scene, cfg, camera, frames, smi, image_path=None, warm=T
     before and read just after.  The
     route's closest-hit kernel (and under NEE its any-hit kernel; on the
     fused stream, which the render reports as its schedule, kernel 7)
-    must launch at least once per iteration of the schedule, the unit-ball
-    sampler once per _shade (an iteration's), and no other kernel at all.
+    must launch at least once per iteration of the schedule, the bounce
+    kernel (and under NEE the NEE kernel) exactly once, the camera kernel
+    once an iteration of the stream and regen schedules and once a
+    render_pixels call's set-up, and no other kernel at all (the unit-ball
+    sampler's loop runs inside the bounce kernel).
     Also counts the stream syncs inside the timed renders.  Returns the
     counts, the last image, the totals, the schedule and the traced-ray
     accounting of the frame at subframe 0 (None if none was rendered)."""
@@ -645,14 +712,14 @@ def phase_render(label, scene, cfg, camera, frames, smi, image_path=None, warm=T
     if stats["graphed"] != (not (cfg.deferred_shade and not nee)):
         raise SystemExit(f"[{label}] FAIL: the loop reports graphed {stats['graphed']}")
     captures = graph_loop.stats["captures"] - captures
-    want = ((ROUTE_KERNELS[route] if nee else ROUTE_KERNELS[route][:1]) + ("ks",)
+    want = ((ROUTE_KERNELS[route] if nee else ROUTE_KERNELS[route][:1]) + shading_kernels(nee)
             + (("k7",) if sched == "stream_fused" else ()))
     for kid in want:
-        if counts[kid] < iters:
+        if counts[kid] < (iters if kid != "kc" else 1):
             raise SystemExit(f"[{label}] FAIL: {counts[kid]} {KERNELS[kid][0]} launches for {iters} iterations")
-    shades = iters * (2 if cfg.seed_advance_quirk else 1)
-    if counts["ks"] != shades:
-        raise SystemExit(f"[{label}] FAIL: {counts['ks']} unit_sphere launches for {shades} calls of _shade")
+    n_pix = cfg.width * cfg.height
+    spawn_calls = frames * (n_pix // cfg.tile_pixels if 0 < cfg.tile_pixels < n_pix else 1)
+    check_shading(label, counts, iters, nee, spawns=spawn_calls + (iters if sched != "rays" else 0))
     others = {KERNELS[kid][0]: c for kid, c in counts.items() if kid not in want and c}
     if others:
         raise SystemExit(f"[{label}] FAIL: other kernels launched: {others}")
@@ -738,8 +805,8 @@ def lane_state(scene, cfg, camera, iters, retiring=False):
     head, the camera-path function)."""
     dev = scene.device
     lanes = resolve_stream_lanes(cfg, cfg.width * cfg.height)
-    make_path = _camera_paths(camera_arrays(camera, cfg, dev), cfg, 0, 0)
-    st = _stream_state(cfg, make_path, lambda slot: slot, lanes, dev)
+    spawn = _spawner(camera_arrays(camera, cfg, dev), cfg, 0, 0)
+    st = _stream_state(cfg, spawn, lambda slot: slot, lanes, dev)
     out = torch.zeros((cfg.width * cfg.height + 1, 3), device=dev)
     head = torch.tensor(lanes, dtype=torch.int64, device=dev)
     seg = torch.zeros((), dtype=torch.int64, device=dev)
@@ -757,9 +824,9 @@ def lane_state(scene, cfg, camera, iters, retiring=False):
         if k >= iters and retires(tb):
             break
         regen, head, seg, _ = fs.fused_stream_step_plain(tb, st, out, head, seg, **step_kw(cfg))
-        _respawn(st, regen, make_path, cfg.samples_per_launch)
+        _respawn(st, regen, spawn, cfg.samples_per_launch)
         tb = trace()
-    return st, tb, head, make_path
+    return st, tb, head, spawn
 
 
 def step_bytes(tb, st, regen, n_pix, spp, rr_reference):
@@ -801,6 +868,40 @@ def _time_over(fn, inputs, device_only=False):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / (len(inputs) - 1)
+
+
+L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
+
+
+def _time_cold(fn, inputs):
+    """Mean device ms of fn(x) over inputs[1:], after fn(inputs[0]) as
+    warm-up, each call timed by its own pair of events with the L2 flushed
+    just before it (a 256 MB buffer zeroed outside the pair), so that no
+    call reads from L2 what the one before left there: a time to set
+    beside a bound in HBM bytes.  The card first spins while the host
+    queues every call, so a pair times the kernel and not the host; if the
+    spin ends before the host has queued the last call, it tries again
+    with a spin four times as long."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+    fn(inputs[0])
+    torch.cuda.synchronize()
+    cycles = 40_000_000
+    for _ in range(3):
+        pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in inputs[1:]]
+        spun = torch.cuda.Event()
+        torch.cuda._sleep(cycles)
+        spun.record()
+        for (start, stop), x in zip(pairs, inputs[1:]):
+            flush.zero_()
+            start.record()
+            fn(x)
+            stop.record()
+        late = spun.query()  # the spin was over before the last call was queued
+        torch.cuda.synchronize()
+        if not late:
+            return sum(start.elapsed_time(stop) for start, stop in pairs) / len(pairs)
+        cycles *= 4
+    raise SystemExit("FAIL: the host could not queue the timed calls ahead of the card")
 
 
 def parent_fused_step(parent_dir):
@@ -862,7 +963,7 @@ def phase_fused_kernel(label, scenes, smi, parent_dir=None):
         for rr_mode in ("reference", "standard"):
             cfg = RenderConfig(**{**frame, "rr_mode": rr_mode, "stream_lanes": lanes})
             scene = scenes[name]
-            st, tb, head, make_path = lane_state(scene, cfg, Camera(), iters, retiring=True)
+            st, tb, head, spawn = lane_state(scene, cfg, Camera(), iters, retiring=True)
             n_pix, spp, dev = cfg.width * cfg.height, cfg.samples_per_launch, scene.device
             kw = step_kw(cfg)
             seg = torch.tensor(12345, dtype=torch.int64, device=dev)
@@ -923,16 +1024,16 @@ def phase_fused_kernel(label, scenes, smi, parent_dir=None):
                 timing += f"; plain {row['plain_ms']:.4f} ms"
             if pool == 0:
                 def unfused_tail(s):
-                    _respawn(s, fs.fused_stream_step_plain(tb, s, out_k, head, seg, **kw)[0], make_path, spp)
+                    _respawn(s, fs.fused_stream_step_plain(tb, s, out_k, head, seg, **kw)[0], spawn, spp)
 
                 def fused_tail(s):
-                    _respawn(s, fs.fused_stream_step_cuda(tb, s, out_k, head, seg, **kw)[0], make_path, spp)
+                    _respawn(s, fs.fused_stream_step_cuda(tb, s, out_k, head, seg, **kw)[0], spawn, spp)
 
                 timing += (f"; unfused schedule tail (plain step and respawn, eager) "
                            f"{_time_over(unfused_tail, [copy() for _ in range(6)]):.4f} ms, fused tail (kernel + "
                            f"respawn) {_time_over(fused_tail, [copy() for _ in range(6)]):.4f} ms")
                 numbers = row
-                steps_line = (fused_steps(label, scene, cfg, st, head, make_path) + "; "
+                steps_line = (fused_steps(label, scene, cfg, st, head, spawn) + "; "
                               + lookback_repeats(label, tb, st, head, seg, kw, n_pix))
             print(f"[{label}] fused_step timing: {timing} | {smi}")
     print(f"[{label}] fused_step: bit-equal (0 ulp) in state, image, regen mask, head, segments and live count: "
@@ -940,7 +1041,7 @@ def phase_fused_kernel(label, scenes, smi, parent_dir=None):
     return numbers
 
 
-def fused_steps(label, scene, cfg, st, head, make_path, steps=32):
+def fused_steps(label, scene, cfg, st, head, spawn, steps=32):
     """`steps` consecutive fused steps from lane state `st`: trace, the
     kernel on one copy and the plain version on another, respawn both;
     the two stay bit-equal, with the kernel's scratch never cleared."""
@@ -958,8 +1059,8 @@ def fused_steps(label, scene, cfg, st, head, make_path, steps=32):
         regen_p, head_p, seg_p, live_p = fs.fused_stream_step_plain(tb, st_p, out_p, head_p, seg_p, **kw)
         retired += int(head_k2) - int(head_k)
         head_k = head_k2
-        _respawn(st_k, regen_k, make_path, cfg.samples_per_launch)
-        _respawn(st_p, regen_p, make_path, cfg.samples_per_launch)
+        _respawn(st_k, regen_k, spawn, cfg.samples_per_launch)
+        _respawn(st_p, regen_p, spawn, cfg.samples_per_launch)
         torch.cuda.synchronize()
         bad = [k for k in fs.STATE_KEYS if not same_bits(st_k[k], st_p[k])]
         bad += ["out"] * (not same_bits(out_k, out_p)) + ["regen"] * (not torch.equal(regen_k, regen_p))
@@ -1186,15 +1287,15 @@ def cli_launches(label, argv):
 
 def check_launches(label, counts, log, want, extra=0):
     """Each kernel of `want` launched at least once per iteration (plus
-    `extra`, the AOV passes'), the sampler once per iteration, nothing
-    else."""
+    `extra`, the AOV passes'), the shading kernels as check_shading says,
+    nothing else."""
     iters = sum(entry["iters"] for entry in log)
     for kid in want:
         if counts[kid] < iters + (extra if kid in ("k1", "k2", "k3") else 0):
             raise SystemExit(f"[{label}] FAIL: {counts[kid]} {KERNELS[kid][0]} launches for {iters} iterations")
-    if counts["ks"] != iters:
-        raise SystemExit(f"[{label}] FAIL: {counts['ks']} unit_sphere launches for {iters} iterations")
-    others = {KERNELS[kid][0]: c for kid, c in counts.items() if kid not in want + ("ks",) and c}
+    nee = any(kid in want for kid in ("k4", "k5", "k6"))
+    check_shading(label, counts, iters, nee)
+    others = {KERNELS[kid][0]: c for kid, c in counts.items() if kid not in want + shading_kernels(nee) and c}
     if others:
         raise SystemExit(f"[{label}] FAIL: other kernels launched: {others}")
     return iters
@@ -1372,8 +1473,13 @@ def phase_graph_ab(label, scene, hero, root, smi):
     stand-in at its scene file's config.  Images, iterations and segments
     bit-equal; one capture each; every iteration of the profiled graphed
     frame one graph launch; s/launch both ways, the graphed frame's idle
-    share, capture seconds and graph pool bytes."""
-    from profile_renders import ab_render
+    share, capture seconds and graph pool bytes.  Then each render graphed
+    with the shading kernels' plain versions (ops.bounce.plain()) and
+    with the kernels (profile_renders.kernels_ab): bit-equal, the plain
+    arm launching the sampler and no shading kernel, the kernels' arm the
+    reverse.  Returns the plain arm's launch counts on the headline (the
+    sampler's, for the kernels line)."""
+    from profile_renders import ab_render, kernels_ab
 
     cfg, cfg_nee, cam4 = RenderConfig(**HEADLINE), RenderConfig(**{**HEADLINE, **NEE}), Camera(**CONFIG4_CAMERA)
     hero_scene, hero_camera, hero_cfg = load_scene_file(str(hero), device="cuda", cache_dir=str(root / "cache"))
@@ -1386,17 +1492,313 @@ def phase_graph_ab(label, scene, hero, root, smi):
         ("1 spp tiles", lambda: scene, Camera(), cfg.replace(samples_per_launch=1, tile_pixels=345_600)),
         ("hero", lambda: hero_scene, hero_camera, hero_cfg),
     )
-    summary = []
+    summary, plain_summary, plain_counts = [], [], None
     for name, make, camera, c in cases:
-        row = ab_render(f"{label} {name}", make(), camera_arrays(camera, c, "cuda"), c, smi, frames=1,
-                        order=(True, False), profile_eager=False)
+        scene_n, cam = make(), camera_arrays(camera, c, "cuda")
+        row = ab_render(f"{label} {name}", scene_n, cam, c, smi, frames=1, order=(True, False), profile_eager=False)
         graph_launches = row["graphed"]["calls"].get("cudaGraphLaunch")
         if row["captures"] != 1 or graph_launches != 1.0:
             raise SystemExit(f"[{label} {name}] FAIL: {row['captures']} captures, {graph_launches} graph launches "
                              f"per iteration")
         summary.append(f"{name} {row['eager']['seconds']:.4f} -> {row['graphed']['seconds']:.4f} "
                        f"({row['eager']['seconds'] / row['graphed']['seconds']:.2f}x, idle {row['graphed']['idle']:.1%})")
+        # The shading kernels against their plain versions (ops.bounce.plain()), both graphed.
+        ab = kernels_ab(f"{label} {name} plain vs kernels", scene_n, cam, c, smi, frames=1, order=(True, False))
+        counts = {arm: ab[arm]["counts"] for arm in ("plain", "kernels")}
+        if counts["kernels"]["random_in_unit_sphere"] or not counts["plain"]["random_in_unit_sphere"] or any(
+                counts["plain"][k] for k in ("bounce", "next_event", "camera_paths")):
+            raise SystemExit(f"[{label} {name}] FAIL: launches plain {counts['plain']}, kernels {counts['kernels']}")
+        if name == "headline fused":
+            plain_counts = counts["plain"]
+        plain_summary.append(f"{name} {ab['plain']['seconds']:.4f} -> {ab['kernels']['seconds']:.4f} "
+                             f"({ab['plain']['kernels']:.1f} -> {ab['kernels']['kernels']:.1f} device kernels per "
+                             f"iteration)")
+        del scene_n
     print(f"[{label}] s/launch eager -> graphed: " + "; ".join(summary) + f" | {smi}")
+    print(f"[{label}] s/launch plain -> kernels (graphed): " + "; ".join(plain_summary) + f" | {smi}")
+    return plain_counts
+
+
+# ---------------------------------------------------------------------------
+# The shading kernels against their plain versions (phases 35-37)
+# ---------------------------------------------------------------------------
+
+# Float operations a lane at least, counted from the sources (the bounce
+# kernel's shade without texture taps, extra sampler draws or NEE; the NEE
+# kernel without MIS; the camera kernel without DOF).  The bounds are set
+# by bytes either way.
+BOUNCE_LANE_FLOPS = 500
+NEE_LANE_FLOPS = 100
+CAMERA_LANE_FLOPS = 40
+
+
+def bound(n_bytes, flops):
+    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def shade_inputs(scene, cfg, camera, n_cam, seed=17):
+    """bounce_batch's 2 x n_cam rays (camera rays and their first bounce,
+    sorted as the accel sorts them), their closest hits and a seeded lane
+    state: attenuation in [0.2, 1.2), radiance in [0, 0.5), seeds from the
+    (lane, 0, seed) counters, depth max_depth with 0 on a tenth, NEE's env
+    credit.  Returns the argument tuple of _bounce_kernels."""
+    o, d = bounce_batch(scene, cfg, camera, n_cam)
+    n, dev = o.shape[0], o.device
+    hit = scene.accel.intersect(scene.vertices, o, d, cfg.t_min, cfg.t_max, cfg)
+    rs = np.random.RandomState(seed)
+    att = torch.as_tensor((rs.rand(n, 3) + 0.2).astype(np.float32), device=dev)
+    rad = torch.as_tensor((rs.rand(n, 3) * 0.5).astype(np.float32), device=dev)
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    seeds = rng.make_seeds(idx, torch.zeros_like(idx), seed)
+    depth = torch.as_tensor(np.where(rs.rand(n) < 0.1, 0, cfg.max_depth).astype(np.int32), device=dev)
+    spec = None
+    if cfg.env_importance_sampling:
+        spec = torch.as_tensor(rs.rand(n).astype(np.float32) if cfg.nee_mis_spec else rs.rand(n) < 0.5, device=dev)
+    return scene, cfg, hit, o, d, att, rad, seeds, depth, spec
+
+
+def distinct_rows(index, row_bytes):
+    return int(torch.unique(index).numel()) * row_bytes
+
+
+def env_rows(scene, cfg, directions):
+    """The equirect quad rows eval_env reads for `directions` (none in the
+    other modes), as sample_equirect computes them."""
+    if cfg.env_mode != "equirect" or directions.shape[0] == 0:
+        return torch.zeros(0, dtype=torch.int64, device=directions.device)
+    env = scene.env
+    u, v = direction_to_uv(directions)
+    xi0 = torch.remainder(torch.floor(u * env.width - 0.5).to(torch.int32), env.width)
+    yi0 = torch.clamp(torch.floor(v * env.height - 0.5).to(torch.int32), 0, env.height - 1)
+    rows = (yi0 * env.width + xi0).to(torch.int64)
+    if env.quads_scrambled:
+        rows = ((rows & 0xFFFFFFFF) * SCRAMBLE_MULT) & (env.height * env.width - 1)
+    return rows
+
+
+def bounce_bytes(args, cand=None):
+    """Bytes the bounce must move on these lanes, by what each lane needs:
+    every lane reads its hit flag, origin, direction, attenuation,
+    radiance and seed (57 B) and writes its payload (57 B); a hit also
+    reads t, prim, uv and depth (20 B), its tri_attrs row (128 B) and
+    material row (160 B), a miss its env quad row (48 B) and, under NEE,
+    its env credit (1 B, or 4 B under nee_mis_spec); each distinct row
+    counts once.  Under NEE (`cand`: the candidate mask) every lane writes
+    its candidate flag (1 B) and a candidate its shadow ray (24 B); the
+    96 B record is the port's own intermediate, left out (the NEE kernel
+    counts the fields it must read).  Texture and alias-table rows are
+    not counted: a lower bound."""
+    scene, cfg, hit, o, d = args[:5]
+    n, n_hit = o.shape[0], int(hit.hit.sum())
+    n_bytes = n * (57 + 57) + n_hit * 20
+    if cfg.env_importance_sampling:
+        n_bytes += (n - n_hit) * (4 if cfg.nee_mis_spec else 1) + n + int(cand.sum()) * 24
+    prim = hit.prim[hit.hit].long()
+    mats = scene.tri_attrs[prim, 24].long()
+    return (n_bytes + distinct_rows(prim, 128) + distinct_rows(mats, 160)
+            + distinct_rows(env_rows(scene, cfg, d[~hit.hit]), 48))
+
+
+NEE_FLAG_GLASS, NEE_FLAG_CHOOSE_SPEC = 4, 8  # csrc/shade_math.cuh: nee_record
+
+
+def nee_bytes(args, b, visible):
+    """Bytes the NEE function must move on these lanes, by what each lane
+    needs: every lane its flags (4 B) and spec_next (1 B, or 4 B under
+    nee_mis_spec); a candidate its any-hit flag (1 B); a visible lane its
+    light draw (direction, pdf, u, v, cos_l: 28 B), spec_prob, IdotN and
+    brdf (20 B), attenuation (12 B), radiance read and written (24 B) and
+    its env quad row (48 B, each distinct row once); under nee_mis_spec a
+    visible lane also its alpha, f_vec, albedo and ray direction (40 B),
+    a lane that chose the spec lobe off glass its spec_dir and spec_pdf
+    (16 B), and either its normal (12 B) where it uses it (visible lanes,
+    and those spec lanes under the defensive mixture).  The record is the
+    port's own intermediate: only the fields a lane needs count.
+    Alias-table rows are not counted: a lower bound."""
+    scene, cfg = args[:2]
+    n, mis = b["record"].shape[0], cfg.nee_mis_spec
+    n_vis = int(visible.sum())
+    n_bytes = n * (4 + (4 if mis else 1)) + int(b["cand"].sum()) + n_vis * (28 + 20 + 12 + 24)
+    if mis:
+        flags = b["record"][:, 23].contiguous().view(torch.int32)
+        w_b = ((flags & NEE_FLAG_CHOOSE_SPEC) != 0) & ((flags & NEE_FLAG_GLASS) == 0)
+        normal = visible | w_b if cfg.nee_defensive_mix else visible
+        n_bytes += n_vis * 40 + int(w_b.sum()) * 16 + int(normal.sum()) * 12
+    return n_bytes + distinct_rows(env_rows(scene, cfg, b["shadow_dir"][visible]), 48)
+
+
+def phase_bounce_kernel(label, cases, smi):
+    """The bounce kernel (with, under NEE, the any-hit traversal of its
+    shadow rays and the NEE kernel) against its plain version,
+    _bounce_plain, on each case's rays (shade_inputs): every payload field
+    bit-equal, and under NEE the shadow rays, candidates and record equal
+    _shade's, _light_sample's and _shadow_candidates'; the kernel's device
+    time (the bounce kernel alone, 50 launches each after an L2 flush:
+    _time_cold), the plain version's (under NEE: both
+    kernels against _bounce_plain, the any-hit answer fixed on both
+    sides), and the bound.  Returns the numbers of the first case."""
+    import tpu_pathtracer_torch.render.integrator as integrator
+
+    first = None
+    for name, scene, cfg, camera, n_cam in cases:
+        args = shade_inputs(scene, cfg, camera, n_cam)
+        _, _, hit, o, d, att, rad, seeds, depth, spec = args
+        nee = cfg.env_importance_sampling
+        got = _bounce_kernels(*args)
+        want = _bounce_plain(*args)
+        torch.cuda.synchronize()
+        bad = [k for k, w in want.items() if w is not None and not same_bits(got[k], w)]
+        if nee:
+            b = bounce_ops.bounce(*args)
+            sh = _shade(scene, cfg, hit, o, d, seeds, depth)
+            _, env_dir, pdf, u, v = _light_sample(scene, cfg, sh, sh["seeds"])
+            cand, cos_l = _shadow_candidates(hit.hit, sh, env_dir)
+            rec = b["record"]
+            pairs = dict(shadow_origin=(b["shadow_origin"], sh["new_origin"]), shadow_dir=(b["shadow_dir"], env_dir),
+                         cand=(b["cand"], cand), normal=(rec[:, 0:3], sh["normal"]), alpha=(rec[:, 3], sh["alpha"]),
+                         spec_prob=(rec[:, 4], sh["spec_prob"]), idotn=(rec[:, 5], sh["idotn"]),
+                         brdf=(rec[:, 6:9], sh["brdf_combined"]), f_vec=(rec[:, 9:12], sh["f_vec"]),
+                         albedo=(rec[:, 12:15], sh["diffuse_albedo"]), spec_dir=(rec[:, 15:18], sh["spec_dir"]),
+                         spec_pdf=(rec[:, 18], sh["spec_pdf"]), pdf=(rec[:, 19], pdf), u=(rec[:, 20], u),
+                         v=(rec[:, 21], v), cos_l=(rec[:, 22], cos_l))
+            torch.cuda.synchronize()
+            bad += [k for k, (g, w) in pairs.items() if not same_bits(g.contiguous(), w)]
+        if bad:
+            raise SystemExit(f"[{label} {name}] FAIL: the bounce kernel and its plain version differ in {bad}")
+        n = o.shape[0]
+        ms = _time_cold(lambda a: bounce_ops.bounce(*a), [args] * 51)
+        if nee:
+            occ = scene.accel.occluded(scene.vertices, b["shadow_origin"], b["shadow_dir"], cfg.t_min, cfg.t_max, cfg,
+                                       active=b["cand"])
+            real = integrator.occluded_scene
+            integrator.occluded_scene = lambda *a, **k: occ
+            try:
+                plain_ms = _time_ms(lambda: _bounce_plain(*args), 5)
+            finally:
+                integrator.occluded_scene = real
+            pair_ms = _time_cold(lambda bb: bounce_ops.next_event(scene, cfg, bb, occ, d, att),
+                                 [dict(b, radiance=b["radiance"].clone()) for _ in range(51)]) + ms
+            what = (f"bounce kernel {ms:.4f} ms, with the NEE kernel {pair_ms:.4f} ms (L2 flushed before each launch); "
+                    f"plain (occlusion fixed) {plain_ms:.4f} ms")
+        else:
+            plain_ms = _time_ms(lambda: _bounce_plain(*args), 5)
+            what = f"kernel {ms:.4f} ms (L2 flushed before each launch), plain {plain_ms:.4f} ms"
+        n_bytes = bounce_bytes(args, b["cand"] if nee else None)
+        bound_ms, bound_by = bound(n_bytes, n * BOUNCE_LANE_FLOPS)
+        m = hit.hit
+        mats = torch.unique(scene.tri_attrs[hit.prim[m].long(), 24].long()).numel()
+        print(f"[{label} {name}] {n} lanes ({int(m.sum())} hits on {mats} materials), {cfg.env_mode}"
+              f"{', NEE' if nee else ''}{', MIS-spec' if cfg.nee_mis_spec else ''}"
+              f"{', defensive' if cfg.nee_defensive_mix else ''}: every field bit-equal (0 ulp){' (record too)' if nee else ''}; "
+              f"{what}; {n_bytes} bytes, {n * BOUNCE_LANE_FLOPS} FLOP: bound {bound_ms:.4f} ms by {bound_by} | {smi}")
+        if first is None:
+            first = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=None)
+    return first
+
+
+def phase_nee_kernel(label, cases, smi):
+    """The NEE kernel against its plain version (_nee_weights and the
+    visible select into radiance) after the bounce kernel and the any-hit
+    traversal on each case's rays: radiance and spec_next bit-equal to
+    _bounce_plain's with the same any-hit answer; both times and the
+    bound.  Returns the numbers of the first case."""
+    import tpu_pathtracer_torch.render.integrator as integrator
+
+    first = None
+    for name, scene, cfg, camera, n_cam in cases:
+        args = shade_inputs(scene, cfg, camera, n_cam)
+        _, _, hit, o, d, att, rad, seeds, depth, spec = args
+        b = bounce_ops.bounce(*args)
+        occ = scene.accel.occluded(scene.vertices, b["shadow_origin"], b["shadow_dir"], cfg.t_min, cfg.t_max, cfg,
+                                   active=b["cand"])
+        pre = b["radiance"].clone()
+        got_spec = bounce_ops.next_event(scene, cfg, b, occ, d, att)
+        real = integrator.occluded_scene
+        integrator.occluded_scene = lambda *a, **k: occ
+        try:
+            want = _bounce_plain(*args)
+        finally:
+            integrator.occluded_scene = real
+        torch.cuda.synchronize()
+        if not (same_bits(b["radiance"], want["radiance"]) and same_bits(got_spec, want["spec_last"])):
+            raise SystemExit(f"[{label} {name}] FAIL: the NEE kernel and its plain version differ")
+        sh = _shade(scene, cfg, hit, o, d, seeds, depth)
+        _, env_dir, pdf, u, v = _light_sample(scene, cfg, sh, sh["seeds"])
+        cand, cos_l = _shadow_candidates(hit.hit, sh, env_dir)
+
+        def plain():
+            contrib, visible, spec_next = _nee_weights(scene, cfg, sh, cand, occ, env_dir, pdf, u, v, cos_l, d, att)
+            return torch.where(hit.hit[:, None], pre + torch.where(visible[:, None], contrib, 0.0), pre), spec_next
+
+        r_p, s_p = plain()
+        torch.cuda.synchronize()
+        if not (same_bits(r_p, want["radiance"]) and same_bits(s_p, want["spec_last"])):
+            raise SystemExit(f"[{label} {name}] FAIL: _nee_weights differs from _bounce_plain")
+        ms = _time_cold(lambda bb: bounce_ops.next_event(scene, cfg, bb, occ, d, att),
+                        [dict(b, radiance=pre.clone()) for _ in range(51)])
+        plain_ms = _time_ms(plain, 10)
+        visible = b["cand"] & ~occ
+        n = o.shape[0]
+        n_bytes = nee_bytes(args, b, visible)
+        bound_ms, bound_by = bound(n_bytes, n * NEE_LANE_FLOPS)
+        print(f"[{label} {name}] {n} lanes, {int(b['cand'].sum())} shadow rays traced, {int(visible.sum())} visible"
+              f"{', MIS-spec' if cfg.nee_mis_spec else ''}{', defensive' if cfg.nee_defensive_mix else ''}: radiance "
+              f"and spec_next bit-equal (0 ulp); kernel {ms:.4f} ms (L2 flushed before each launch), plain "
+              f"{plain_ms:.4f} ms; {n_bytes} bytes, "
+              f"{n * NEE_LANE_FLOPS} FLOP: bound {bound_ms:.4f} ms by {bound_by} | {smi}")
+        if first is None:
+            first = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=None)
+    return first
+
+
+def phase_camera_kernel(label, smi, n=131_072):
+    """The camera kernel against camera_paths_plain at the headline's
+    1080p on n lanes: the stream's respawn (pixel and sample tables, a
+    40% mask, into buffers it leaves alone elsewhere) with and without
+    DOF, and the 1-spp set-up on an affine range (base + lane // 10):
+    origins, directions and seeds bit-equal; both times and the bound.
+    Returns the numbers of the respawn with DOF."""
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(19)
+    pix = torch.as_tensor(rs.randint(0, 1920 * 1080, n).astype(np.int32), device=dev)
+    sample = torch.as_tensor(rs.randint(0, 12, n).astype(np.int32), device=dev)
+    mask = torch.as_tensor(rs.rand(n) < 0.4, device=dev)
+    counters = torch.tensor(3, device=dev), torch.tensor(20, device=dev)
+    cases = (("respawn DOF", True, dict(pix=pix, sample=sample, sample_max=9, mask=mask)),
+             ("respawn", False, dict(pix=pix, sample=sample, sample_max=9, mask=mask)),
+             ("affine range", False, dict(per=10, base=torch.tensor(777, device=dev))))
+    first = None
+    for name, dof, kw in cases:
+        cfg = RenderConfig(**{**HEADLINE, "dof": dof, "dof_blurriness": 0.05})
+        cam = camera_arrays(Camera(), cfg, dev)
+        outs = []
+        for fn in (camera_ops.camera_paths, camera_ops.camera_paths_plain):
+            out = (torch.zeros((n, 3), device=dev), torch.zeros((n, 3), device=dev),
+                   torch.zeros(n, dtype=torch.int64, device=dev))
+            fn(cam, cfg, *counters, n, out=out, **kw)
+            outs.append(out)
+        torch.cuda.synchronize()
+        if not all(same_bits(a, b) for a, b in zip(*outs)):
+            raise SystemExit(f"[{label} {name}] FAIL: the camera kernel and its plain version differ")
+        out = outs[0]
+        ms = _time_cold(lambda _: camera_ops.camera_paths(cam, cfg, *counters, n, out=out, **kw), [None] * 51)
+        plain_ms = _time_ms(lambda: camera_ops.camera_paths_plain(cam, cfg, *counters, n, out=out, **kw), 10)
+        written = int(kw["mask"].sum()) if "mask" in kw else n
+        # the mask on every lane; tables and outputs on the lanes spawned;
+        # the camera's four vectors and three counters
+        n_bytes = n * ("mask" in kw) + written * (4 * ("pix" in kw) + 4 * ("sample" in kw) + 32) + 4 * 12 + 3 * 8
+        bound_ms, bound_by = bound(n_bytes, written * CAMERA_LANE_FLOPS)
+        print(f"[{label} {name}] {n} lanes, {written} spawned: origins, directions and seeds bit-equal (0 ulp); "
+              f"kernel {ms:.4f} ms (L2 flushed before each launch), plain {plain_ms:.4f} ms; {n_bytes} bytes: "
+              f"bound {bound_ms:.4f} ms by {bound_by} "
+              f"| {smi}")
+        if first is None:
+            first = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=None)
+    return first
 
 
 # ---------------------------------------------------------------------------
@@ -1419,11 +1821,13 @@ def timed(fn):
 
 
 def check_kernels(label, counts, want):
-    """Each kernel of `want` and the sampler launched, no other kernel."""
-    for kid in want + ("ks",):
+    """Each kernel of `want` and the shading kernels launched, no other
+    kernel."""
+    want = want + shading_kernels(any(kid in want for kid in ("k4", "k5", "k6")))
+    for kid in want:
         if not counts[kid]:
             raise SystemExit(f"[{label}] FAIL: {KERNELS[kid][0]} never launched")
-    extra = {KERNELS[kid][0]: c for kid, c in counts.items() if c and kid not in want + ("ks",)}
+    extra = {KERNELS[kid][0]: c for kid, c in counts.items() if c and kid not in want}
     if extra:
         raise SystemExit(f"[{label}] FAIL: other kernels launched: {extra}")
 
@@ -1695,8 +2099,8 @@ def bench_preset(name, argv, phase, differ, renders, smi):
     with every launch count set to 0 just before and read just after: one
     JSON line with a positive value, the card's name and its power limit;
     the route's kernels (and kernel 7 on the fused stream) at least once
-    per iteration of every frame the bench rendered, the sampler once per
-    iteration, nothing else; path and shadow segments, triangles and
+    per iteration of every frame the bench rendered, the shading kernels
+    as check_shading says, nothing else; path and shadow segments, triangles and
     schedule equal to the earlier phase's frame at subframe 0 on the same
     RenderConfig.  Returns the bench's line."""
     out = io.StringIO()
@@ -1737,9 +2141,8 @@ def bench_preset(name, argv, phase, differ, renders, smi):
     for kid in want:
         if counts[kid] < iters:
             raise SystemExit(f"[{name}] FAIL: {counts[kid]} {KERNELS[kid][0]} launches for {iters} iterations")
-    if counts["ks"] != iters:
-        raise SystemExit(f"[{name}] FAIL: {counts['ks']} unit_sphere launches for {iters} iterations")
-    others = {KERNELS[kid][0]: c for kid, c in counts.items() if kid not in want + ("ks",) and c}
+    check_shading(name, counts, iters, nee)
+    others = {KERNELS[kid][0]: c for kid, c in counts.items() if kid not in want + shading_kernels(nee) and c}
     if others:
         raise SystemExit(f"[{name}] FAIL: other kernels launched: {others}")
     print(f"[{name}] {lines[0]} | segments equal phase {phase}'s at subframe 0"
@@ -1796,7 +2199,9 @@ def main() -> int:
                  plain_reps=5, n_cam=CONFIG1_CAMERA_RAYS)
     numbers["ks"] = phase_sampler("3c sampler", scene, cfg, smi)
     headline = phase_render("4 render headline", scene, cfg, Camera(), 1, smi, args.image)
-    launches["k1"], launches["ks"] = headline["counts"]["k1"], headline["counts"]["ks"]
+    # the sampler's 0: its loop runs inside the bounce kernel on the main path
+    launches["k1"], launches["kb"], launches["kc"], launches["ks"] = (
+        headline["counts"][k] for k in ("k1", "kb", "kc", "ks"))
     renders = {"4": headline}  # by phase: what phase 33's bench runs are held against
     early = dict(render=headline, bench=bench_preset("4b bench config 0", *BENCH_PRESETS[0], renders, smi))
     phase_parity("5 parity headline", headline_scene, Camera(), "flat")
@@ -1816,6 +2221,7 @@ def main() -> int:
     renders["14"] = phase_render("14 render headline NEE", scene, cfg_nee, Camera(), 1, smi)
     renders["15"] = phase_render("15 render config 4 NEE", config4, cfg_nee, cam4, 1, smi)
     launches["k4"], launches["k5"] = renders["14"]["counts"]["k4"], renders["15"]["counts"]["k5"]
+    launches["kn"] = renders["14"]["counts"]["kn"]
     launches["k6"] = phase_render("16 render 200k NEE", big, cfg_nee, cam4, 1, smi)["counts"]["k6"]
     phase_parity("17 parity headline NEE", headline_scene, Camera(), "flat", nee=True)
     del config4, big
@@ -1853,14 +2259,37 @@ def main() -> int:
         phase_oracle("32 oracle", smi)
         late = phase_bench("33 bench", renders, smi)[0]
         phase_bench_position("33b bench position", scene, cfg, early, late, smi)
-        phase_graph_ab("34 eager vs graphed", scene, hero, root, smi)
+        plain_counts = phase_graph_ab("34 eager vs graphed", scene, hero, root, smi)
+        plain_arm = {"ks": plain_counts["random_in_unit_sphere"]}  # the sampler runs on the plain versions' path
+        hero_scene, hero_camera, hero_cfg = load_scene_file(str(hero), device="cuda", cache_dir=str(root / "cache"))
+        config4 = high_poly(100_000, "cuda")
+        numbers["kb"] = phase_bounce_kernel("35 bounce kernel", (
+            ("headline", scene, cfg, Camera(), CAMERA_RAYS),
+            ("headline 16,384", scene, cfg, Camera(), CONFIG1_CAMERA_RAYS),
+            ("hero", hero_scene, hero_cfg, hero_camera, CAMERA_RAYS),
+            ("config 4 NEE", config4, cfg_nee, cam4, CAMERA_RAYS),
+            ("headline NEE MIS defensive", scene, cfg_nee.replace(nee_mis_spec=True, nee_defensive_mix=True), Camera(),
+             CAMERA_RAYS),
+        ), smi)
+        numbers["kn"] = phase_nee_kernel("36 NEE kernel", (
+            ("headline", scene, cfg_nee, Camera(), CAMERA_RAYS),
+            ("config 4", config4, cfg_nee, cam4, CAMERA_RAYS),
+            ("headline MIS defensive", scene, cfg_nee.replace(nee_mis_spec=True, nee_defensive_mix=True), Camera(),
+             CAMERA_RAYS),
+        ), smi)
+        numbers["kc"] = phase_camera_kernel("37 camera kernel", smi)
+        del config4
     print("[launches on the CLI renders] " + "; ".join(
         f"{name}: " + ", ".join(f"{KERNELS[kid][0]} {n}" for kid, n in counts.items() if n)
         for name, counts in cli_counts.items()))
     print(f"[done] {time.perf_counter() - t_start:.1f} s after the device phase began")
 
+    # `launches` is the main path's count; the sampler, which launches only
+    # on the plain versions' path since the bounce kernel runs its loop,
+    # also gives phase 34's plain arm's count as `plain_arm_launches`.
     print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches[kid], **numbers[kid])
+        dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches[kid], **numbers[kid],
+             **({"plain_arm_launches": plain_arm[kid]} if kid in plain_arm else {}))
         for kid, (name, source, replaces, *_) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

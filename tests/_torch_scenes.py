@@ -169,3 +169,77 @@ def oracle_case(name: str, device):
     env = with_importance_sampling(make_env(procedural_hdr(16, 32, seed=5), device))
     kw = dict(ORACLE_NEE, nee_defensive_mix=name == "nee_defensive_mix", nee_mis_spec=name == "nee_mis_spec")
     return scene.replace(env=env), kw, {}
+
+
+# Texture layouts of shade_scene: for each of its two textured materials,
+# the (w, h) of its albedo, roughness, normal and metallic maps (the CPU
+# shade tests' LAYOUTS, and square maps, which a Morton order needs).
+# Maps of one size bundle; pow2 texel counts scramble; mixed sizes keep
+# the quad pool.
+SHADE_LAYOUTS = {
+    "bundled_scrambled": [[(8, 8)] * 4, [(16, 4)] * 4],
+    "bundled_rowmajor": [[(6, 10)] * 4, [(5, 5)] * 4],
+    "unbundled": [[(8, 8), (4, 4), (8, 8), (2, 3)], [(6, 10)] * 4],
+    "bundled_square": [[(8, 8)] * 4, [(16, 16)] * 4],
+}
+
+
+def shade_scene(layout: str, device, seed: int = 11, degenerate: int = 6):
+    """The CPU shade tests' scene on `device` from the port alone: a ground
+    quad (material 0, textured) and four UV spheres (1 glass, 2 emissive, 3
+    textured, 4 metallic) with random uvs in [-1, 2), under a procedural
+    32x64 equirect sky with its alias table.  The first `degenerate`
+    sphere triangles have zero normals (the degenerate test)."""
+    from tpu_pathtracer_torch.render.envmap import with_importance_sampling
+    from tpu_pathtracer_torch.scene import procedural
+    from tpu_pathtracer_torch.scene.scene import make_env, make_material_table, make_scene, make_texture_quads
+    from tpu_pathtracer_torch.utils.image import procedural_hdr
+
+    rs = np.random.RandomState(seed)
+    pool, off, textured = [], 0, []
+    for sizes in SHADE_LAYOUTS[layout]:
+        maps = {}
+        for kind, (w, h) in zip(("albedo", "roughness", "normal", "metallic"), sizes):
+            pool.append(make_texture_quads(rs.rand(h, w, 3)))
+            maps[kind] = (off, w, h)
+            off += w * h
+        textured.append(dict(color=(0.6, 0.5, 0.4), roughness=0.4, maps=maps))
+    mats = [
+        textured[0],
+        dict(color=(0.9, 0.9, 1.0), roughness=0.1, transparent=True, ior=1.45),
+        dict(color=(1.0, 0.8, 0.6), emission=4.0),
+        textured[1],
+        dict(color=(0.8, 0.7, 0.2), roughness=0.3, metallic=True),
+    ]
+    gv, gn = procedural.ground_plane(0.0, 10.0)
+    verts, norms, ids = [gv], [gn], [np.zeros(2, np.int32)]
+    for i, x in enumerate((-4.5, -1.5, 1.5, 4.5)):
+        sv, sn = procedural.sphere_mesh((x, 1.0, 0.0), 1.0, 6, 12)
+        verts.append(sv)
+        norms.append(sn)
+        ids.append(np.full(len(sv), i + 1, np.int32))
+    v, n, ids = np.concatenate(verts), np.concatenate(norms), np.concatenate(ids)
+    n[2:2 + degenerate] = 0.0
+    uvs = (rs.rand(len(v), 3, 2) * 3.0 - 1.0).astype(np.float32)
+    env = with_importance_sampling(make_env(procedural_hdr(32, 64), device))
+    return make_scene(v, n, uvs, ids, make_material_table(mats, np.concatenate(pool), device=device), env,
+                      device=device)
+
+
+def shade_rays(n: int, seed: int, device):
+    """n rays at shade_scene: three quarters from in front of it toward
+    it, one quarter from inside the glass sphere (centre (-4.5, 1, 0)) in
+    random directions, which leave through its inner surface (refraction
+    and total internal reflection).  Returns (origins, directions) float32
+    tensors."""
+    import torch
+
+    rs = np.random.RandomState(seed)
+    o = (np.array([0.0, 2.0, 7.0]) + rs.randn(n, 3) * 0.3).astype(np.float32)
+    target = rs.rand(n, 3) * np.array([12.0, 2.5, 3.0]) - np.array([6.0, 0.0, 1.5])
+    d = target - o
+    k = n // 4
+    o[:k] = np.array([-4.5, 1.0, 0.0]) + rs.randn(k, 3) * 0.2
+    d[:k] = rs.randn(k, 3)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return torch.as_tensor(o, device=device), torch.as_tensor(d, device=device)

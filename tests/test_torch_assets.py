@@ -369,7 +369,8 @@ names = [m.name for m in pkgutil.walk_packages(tpu_pathtracer_torch.__path__, "t
 for n in names:
     importlib.import_module(n)
 assert {"tpu_pathtracer_torch.cli", "tpu_pathtracer_torch.viewer", "tpu_pathtracer_torch.bench",
-        "tpu_pathtracer_torch.tools.compare_images", "tpu_pathtracer_torch.render.graph_loop"} <= set(names)
+        "tpu_pathtracer_torch.tools.compare_images", "tpu_pathtracer_torch.render.graph_loop",
+        "tpu_pathtracer_torch.ops.bounce", "tpu_pathtracer_torch.ops.camera"} <= set(names)
 assert not any(m.split(".")[0] in ("jax", "tpu_pathtracer", "PIL") for m in sys.modules)
 print(len(names))
 """

@@ -6,13 +6,16 @@ without next-event estimation, against the same renders on the CPU, the
 fused schedule's render against the unfused one, and every schedule's
 iteration free of stream syncs but its own read; deferred shading against
 the dense shade, sharded frames (NCCL in a group of one, gloo across two
-processes on one card) against render_frame, and renders against the
-numpy oracle.  Every test needs a card and skips without one; this
+processes on one card) against render_frame, renders against the numpy
+oracle, and the shading kernels (the bounce, NEE and camera kernels)
+against their plain versions, bit for bit, alone and in renders under
+ops.bounce.plain().  Every test needs a card and skips without one; this
 file imports no JAX, so it runs where only the port is installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
 
+import contextlib
 import os
 import sys
 
@@ -23,6 +26,7 @@ torch = pytest.importorskip("torch")
 
 from tpu_pathtracer_torch.accel.build import build_accel  # noqa: E402
 from tpu_pathtracer_torch.config import RenderConfig  # noqa: E402
+from tpu_pathtracer_torch.ops import bounce as bounce_ops  # noqa: E402
 from tpu_pathtracer_torch.ops import fused_schedule as fs  # noqa: E402
 from tpu_pathtracer_torch.ops import intersect_cluster as ic  # noqa: E402
 from tpu_pathtracer_torch.ops import unit_sphere  # noqa: E402
@@ -982,3 +986,222 @@ def test_deferred_loop_stays_eager(cuda):
     captures = graph_loop.stats["captures"]
     _, stats = render_frame_stats(scene, camera_arrays(Camera(), cfg, cuda), cfg, 0)
     assert not stats["graphed"] and graph_loop.stats["captures"] == captures
+
+
+# ---------------------------------------------------------------------------
+# The shading kernels (csrc/bounce.cu, csrc/nee.cu, csrc/camera.cu) against
+# their plain versions (render/integrator.py, ops/camera.py), bit for bit
+# ---------------------------------------------------------------------------
+
+SHADE_NEE = dict(rr_mode="standard", env_importance_sampling=True)
+SHADE_CONFIGS = {
+    "equirect": {}, "sunsky": dict(env_mode="sunsky"), "constant": dict(env_mode="constant"),
+    "quirk": dict(seed_advance_quirk=True), "nee": SHADE_NEE, "nee_mis": dict(SHADE_NEE, nee_mis_spec=True),
+    "nee_defensive": dict(SHADE_NEE, nee_defensive_mix=True),
+    "nee_mis_defensive": dict(SHADE_NEE, nee_mis_spec=True, nee_defensive_mix=True),
+}
+# MaterialTable layout flags the constructor does not choose: (the
+# shade_scene layout they read, the flags)
+BUNDLE_FLAGS = {
+    "morton": ("bundled_square", dict(bundled_scrambled=False, bundled_morton=True, bundled_pow2_dims=False)),
+    "pow2_rowmajor": ("bundled_scrambled", dict(bundled_scrambled=False, bundled_pow2_dims=True)),
+}
+
+
+def fields_equal(got: dict, want: dict) -> list:
+    """The keys of `want` whose tensors differ in a bit from `got`'s."""
+    return [k for k, w in want.items() if w is not None and not same_bits(got[k], w)]
+
+
+def shade_batch(scene, cfg, n, seed, dev):
+    """ts.shade_rays' rays at shade_scene, their closest hits, and a seeded
+    lane state (depth 0 on a tenth of the lanes; NEE's env credit)."""
+    o, d = ts.shade_rays(n, seed, dev)
+    hit = scene.accel.intersect(scene.vertices, o, d, cfg.t_min, cfg.t_max, cfg)
+    rs = np.random.RandomState(seed)
+    att = torch.as_tensor((rs.rand(n, 3) + 0.2).astype(np.float32), device=dev)
+    rad = torch.as_tensor((rs.rand(n, 3) * 0.5).astype(np.float32), device=dev)
+    seeds = torch.as_tensor(rs.randint(1, 2**32, size=n, dtype=np.uint64).astype(np.int64), device=dev)
+    depth = torch.as_tensor(np.where(rs.rand(n) < 0.1, 0, rs.randint(1, 8, size=n)).astype(np.int32), device=dev)
+    spec = torch.as_tensor(rs.rand(n).astype(np.float32) if cfg.nee_mis_spec else rs.rand(n) < 0.5, device=dev)
+    return hit, o, d, att, rad, seeds, depth, spec
+
+
+@pytest.mark.parametrize("name", list(SHADE_CONFIGS))
+@pytest.mark.parametrize("layout", list(ts.SHADE_LAYOUTS) + list(BUNDLE_FLAGS))
+def test_bounce_kernels_match_plain(cuda, layout, name):
+    """The bounce kernel (and under NEE the any-hit traversal and the NEE
+    kernel) against `_bounce_plain` on 20,000 lanes that reach every
+    branch (textures in each layout, glass from outside and inside with
+    TIR, emissive, degenerate normals, depth 0, misses): every payload
+    field bit-equal; one launch of each kernel a bounce."""
+    import dataclasses
+
+    scene = build_accel(ts.shade_scene(BUNDLE_FLAGS[layout][0] if layout in BUNDLE_FLAGS else layout, cuda))
+    if layout in BUNDLE_FLAGS:
+        scene = scene.replace(materials=dataclasses.replace(scene.materials, **BUNDLE_FLAGS[layout][1]))
+    cfg = RenderConfig(intersector="cluster", max_depth=8, **SHADE_CONFIGS[name])
+    hit, o, d, att, rad, seeds, depth, spec = shade_batch(scene, cfg, 20_000, 7, cuda)
+    nee = cfg.env_importance_sampling
+    args = (scene, cfg, hit, o, d, att, rad, seeds, depth, spec if nee else None)
+    before = (bounce_ops.bounce.launches, bounce_ops.next_event.launches)
+    got = integrator._bounce_kernels(*args)
+    assert (bounce_ops.bounce.launches, bounce_ops.next_event.launches) == (before[0] + 1, before[1] + nee)
+    want = integrator._bounce_plain(*args)
+    torch.cuda.synchronize()
+    assert fields_equal(got, want) == []
+    m = hit.hit
+    mats = scene.tri_attrs[hit.prim[m].long(), 24]
+    assert set(mats.long().tolist()) == {0, 1, 2, 3, 4} and 0.3 < float(m.float().mean()) < 1.0
+
+
+@pytest.mark.parametrize("name", ["nee", "nee_mis_defensive"])
+def test_bounce_kernel_nee_record_matches_plain(cuda, name):
+    """The shadow rays, their candidates and the record the NEE kernel
+    reads equal `_shade`, `_light_sample` and `_shadow_candidates`."""
+    scene = build_accel(ts.shade_scene("unbundled", cuda))
+    cfg = RenderConfig(intersector="cluster", max_depth=8, **SHADE_CONFIGS[name])
+    hit, o, d, att, rad, seeds, depth, spec = shade_batch(scene, cfg, 20_000, 8, cuda)
+    b = bounce_ops.bounce(scene, cfg, hit, o, d, att, rad, seeds, depth, spec)
+    sh = integrator._shade(scene, cfg, hit, o, d, seeds, depth)
+    _, env_dir, pdf, u, v = integrator._light_sample(scene, cfg, sh, sh["seeds"])
+    cand, cos_l = integrator._shadow_candidates(hit.hit, sh, env_dir)
+    rec = b["record"]
+    got = dict(shadow_origin=b["shadow_origin"], shadow_dir=b["shadow_dir"], cand=b["cand"], normal=rec[:, 0:3],
+               alpha=rec[:, 3], spec_prob=rec[:, 4], idotn=rec[:, 5], brdf_combined=rec[:, 6:9], f_vec=rec[:, 9:12],
+               diffuse_albedo=rec[:, 12:15], spec_dir=rec[:, 15:18], spec_pdf=rec[:, 18], pdf=rec[:, 19],
+               u=rec[:, 20], v=rec[:, 21], cos_l=rec[:, 22])
+    want = dict(shadow_origin=sh["new_origin"], shadow_dir=env_dir, cand=cand, pdf=pdf, u=u, v=v, cos_l=cos_l,
+                **{k: sh[k] for k in ("normal", "alpha", "spec_prob", "idotn", "brdf_combined", "f_vec",
+                                      "diffuse_albedo", "spec_dir", "spec_pdf")})
+    torch.cuda.synchronize()
+    assert fields_equal({k: v.contiguous() for k, v in got.items()}, want) == []
+    assert 0.1 < float(cand.float().mean()) < 0.9
+
+
+@pytest.mark.parametrize("layout", list(ts.SHADE_LAYOUTS))
+def test_deferred_entry_matches_plain(cuda, layout):
+    """`_shade_deferred` through the bounce kernel's second entry point
+    (one launch a chunk) against its plain version: every field bit-equal."""
+    scene = build_accel(ts.shade_scene(layout, cuda))
+    cfg = RenderConfig(intersector="cluster", max_depth=8, deferred_chunk_div=3)
+    hit, o, d, _, _, seeds, depth, _ = shade_batch(scene, cfg, 5_000, 9, cuda)
+    before = bounce_ops.bounce.launches
+    got = integrator._shade_deferred(scene, cfg, hit, o, d, seeds, depth)
+    chunks = bounce_ops.bounce.launches - before
+    with bounce_ops.plain():
+        want = integrator._shade_deferred(scene, cfg, hit, o, d, seeds, depth)
+    torch.cuda.synchronize()
+    assert bounce_ops.bounce.launches == before + chunks and chunks == -(-int(hit.hit.sum()) // 2048)
+    assert fields_equal(got, want) == []
+
+
+def test_math_functions_match_aten(cuda):
+    """The math functions the shading kernels call, built with their flags
+    (the bounce kernel's library), against ATen's on 2M inputs each: sin,
+    cos, atan2, asin, pow(x, 5), rsqrt, sqrt and division bit-equal."""
+    from tpu_pathtracer_torch.ops import cuda_build
+
+    lib = cuda_build.library("bounce.cu")
+    rs = np.random.RandomState(0)
+    n = 2_000_000
+    cases = [(0, torch.sin, rs.uniform(-40, 40, n), None), (1, torch.cos, rs.uniform(-40, 40, n), None),
+             (2, torch.atan2, rs.randn(n), rs.randn(n)), (3, torch.asin, rs.uniform(-1, 1, n), None),
+             (4, lambda a: torch.pow(a, 5.0), rs.uniform(0, 1, n), None),
+             (5, torch.rsqrt, np.exp(rs.uniform(-46, 20, n)), None), (6, torch.sqrt, rs.uniform(0, 4, n), None),
+             (7, torch.div, rs.randn(n), rs.randn(n))]
+    for fn, ref, a, b in cases:
+        a = torch.as_tensor(a.astype(np.float32), device=cuda)
+        b2 = torch.as_tensor((np.ones(n) if b is None else b).astype(np.float32), device=cuda)
+        out = torch.empty_like(a)
+        assert lib.shade_math_probe(a.data_ptr(), b2.data_ptr(), out.data_ptr(), n, fn, 5.0,
+                                    torch.cuda.current_stream().cuda_stream) == 0
+        want = ref(a) if b is None else ref(a, b2)
+        torch.cuda.synchronize()
+        assert same_bits(out, want), fn
+
+
+@pytest.mark.parametrize("lanes", ["identity", "range", "ids", "respawn"])
+@pytest.mark.parametrize("dof", [False, True], ids=["pinhole", "dof"])
+def test_camera_kernel_matches_plain(cuda, dof, lanes):
+    """The camera kernel against camera_paths_plain at 1080p on 65,536
+    lanes, each slot -> pixel map, with a mask into buffers it leaves
+    alone elsewhere: origins, directions and seeds bit-equal, and
+    camera_paths launching the kernel only outside plain()."""
+    from tpu_pathtracer_torch.ops import camera as camera_ops
+
+    cfg = RenderConfig(width=1920, height=1080, dof=dof, dof_blurriness=0.2, focus_distance=3.0)
+    cam = camera_arrays(Camera(), cfg, cuda)
+    n, rs = 65_536, np.random.RandomState(4)
+    ids = lambda k: torch.as_tensor(rs.randint(0, 1920 * 1080, size=k).astype(np.int32), device=cuda)  # noqa: E731
+    kw, mask = dict(identity=dict(per=10), range=dict(per=10, base=torch.tensor(777, device=cuda)),
+                    ids=dict(per=3, pix=ids(n // 3 + 1)), respawn={})[lanes], None
+    if lanes == "respawn":
+        kw = dict(pix=ids(n), sample=torch.as_tensor(rs.randint(0, 12, n).astype(np.int32), device=cuda),
+                  sample_max=9)
+        mask = torch.as_tensor(rs.rand(n) < 0.4, device=cuda)
+    from tpu_pathtracer_torch.ops import bounce as bounce_ops
+
+    outs, launched = [], []
+    for arm in ("kernel", "plain"):
+        out = (torch.full((n, 3), 5.0, device=cuda), torch.full((n, 3), 6.0, device=cuda),
+               torch.full((n,), 7, dtype=torch.int64, device=cuda))
+        before = camera_ops.camera_paths.launches
+        with bounce_ops.plain() if arm == "plain" else contextlib.nullcontext():
+            camera_ops.camera_paths(cam, cfg, torch.tensor(4, device=cuda), torch.tensor(20, device=cuda), n,
+                                    mask=mask, out=out, **kw)
+        outs.append(out)
+        launched.append(camera_ops.camera_paths.launches - before)
+    torch.cuda.synchronize()
+    assert all(same_bits(a, b) for a, b in zip(*outs))
+    assert launched == [1, 0]  # a CUDA camera launches the kernel, but under plain()
+
+
+@pytest.mark.parametrize("which", list(GRAPH_SCHEDULES))
+@pytest.mark.parametrize("nee", [False, True], ids=["plain", "nee"])
+def test_renders_equal_under_plain(cuda, monkeypatch, nee, which):
+    """Every schedule (the affine range included), graphed and eager, with
+    the kernels and under ops.bounce.plain(): images, iterations, segments
+    and shadow segments bit-equal.  Launches: the bounce kernel once an
+    iteration, the NEE kernel once under NEE, the camera kernel once an
+    iteration of the stream and regen schedules and once a frame's set-up,
+    none of them under plain(); replays run under
+    torch.cuda.set_sync_debug_mode("error")."""
+    from tpu_pathtracer_torch.ops import camera as camera_ops
+
+    overrides, pixels = GRAPH_SCHEDULES[which]
+    cfg = RenderConfig(**{**GRAPH_BASE, **(GRAPH_NEE if nee else {}), **overrides})
+    scene = graph_scene("flat", nee, cuda, monkeypatch)
+    real_step = graph_loop.Plan.step
+
+    def checked_step(plan):
+        torch.cuda.set_sync_debug_mode("error" if plan.graph is not None else 0)
+        try:
+            real_step(plan)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    monkeypatch.setattr(graph_loop.Plan, "step", checked_step)
+    graph_loop.clear()
+    frames = GRAPH_FRAMES[:2]
+    runs = {}
+    for arm in ("kernels", "plain"):
+        ctx = bounce_ops.plain() if arm == "plain" else contextlib.nullcontext()
+        with ctx:
+            runs[arm, "graphed"] = graph_frames(scene, cfg, pixels, frames)
+            with graph_loop.eager():
+                runs[arm, "eager"] = graph_frames(scene, cfg, pixels, frames)
+    ref = runs["plain", "eager"]
+    for key, run in runs.items():
+        for (img, st, counts), (img_r, st_r, _) in zip(run, ref):
+            assert same_bits(img, img_r), key
+            for k in ("iters", "segments", "shadow_segments"):
+                assert int(st[k]) == int(st_r[k]), (key, k)
+            shading = (counts["bounce"], counts["next_event"], counts["camera_paths"])
+            if key[0] == "plain":
+                assert shading == (0, 0, 0), key
+                continue
+            iters = st["iters"]
+            respawns = iters if st["schedule"] in ("stream", "stream_fused", "regen") else 0
+            assert shading == (iters, iters if nee else 0, respawns + 1), key
+            assert counts["random_in_unit_sphere"] == 0, key

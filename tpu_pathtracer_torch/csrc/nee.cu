@@ -1,0 +1,146 @@
+// Next-event estimation's weights, one lane a thread, for Hopper: what
+// _next_event does after the shadow rays' any-hit traversal, in one launch.
+//
+// Replaces no TPU kernel: in the JAX package this is a fusion that XLA
+// makes under jax.jit of _trace_bounce's NEE tail
+// (tpu_pathtracer/render/integrator.py :635-720).  Its plain version is the
+// port's eager _next_event (render/integrator.py) from the any-hit query
+// on, some 200 device kernels a bounce when run op by op.
+//
+// What it computes, per lane, as the plain version does, from the record
+// the bounce kernel (bounce.cu) wrote and the any-hit flags:
+// * eval_env at the light draw's exact (u, v) (or its direction, in the
+//   sunsky and constant modes), on the lanes whose light is visible;
+// * the lobe-partitioned weight (1 - P_s) IdotN cos_l / (pi pdf);
+// * under nee_mis_spec the spec arm at h_l (d_ggx, g_smith, ggx_pdf), the
+//   balance weight w_l, p_light_s through env_pdf_alias (the defensive
+//   mixture included) and w_b;
+// * spec_next, the next segment's env credit (a flag, or its MIS weight);
+// * the visible select into radiance: radiance + (visible ? contrib : 0)
+//   on hit lanes, in place in the bounce kernel's radiance.
+// Bit-equality with the plain version: see shade_math.cuh.  Built with
+// -fmad=false; the float32 constants arrive from the host.
+//
+// What bounds it.  Bytes: a lane reads its 96 B record, its shadow
+// direction (12 B), the any-hit flag, the ray direction, attenuation and
+// radiance (36 B), an alias-table row for p_light_s and, where visible, an
+// env quad row; it writes radiance and spec_next (16 B): ~25 MB at 131,072
+// lanes, ~0.008 ms at 3.35 TB/s.  A few hundred float operations a lane at
+// most.  Bound by bytes; one thread a lane, intermediates in registers.
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+#include "shade_math.cuh"
+
+using shade::V3;
+
+namespace {
+
+constexpr int kThreads = 128;
+
+}  // namespace
+
+// The launch's arguments (mirrored by ops/bounce.py: NeeParams).
+struct NeeParams {
+  const float* env_quads;         // [h*w,12]
+  const float* alias;             // [h*w,4]
+  const float* record;            // [n, nee_record::kRecord]
+  const float* shadow_dir;        // [n,3] the light draws
+  const unsigned char* occluded;  // [n] bool: the any-hit flags (read where cand)
+  const float* direction;         // [n,3] the bounce's incoming rays
+  const float* attenuation;       // [n,3] the attenuation the bounce began with
+  float* radiance;                // [n,3] the bounce kernel's radiance, updated in place
+  void* spec_next;                // [n] bool, float32 under nee_mis_spec
+  int n;
+  int env_h, env_w, env_mode, env_scrambled;
+  int mis, defensive;
+  shade::ShadeConsts c;
+};
+
+namespace {
+
+__global__ void __launch_bounds__(kThreads) nee_kernel(const __grid_constant__ NeeParams p) {
+  using namespace shade;
+  namespace R = nee_record;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= p.n) return;
+  const ShadeConsts& c = p.c;
+  const EnvParams env{p.env_quads, p.alias, p.env_h, p.env_w, p.env_mode, p.env_scrambled};
+  const float* rec = p.record + static_cast<long long>(R::kRecord) * i;
+  const int flags = __float_as_int(rec[R::kFlags]);
+  const bool hit = flags & R::kHit;
+  const bool cand = flags & R::kCand;
+  const bool glass = flags & R::kGlass;
+  const bool choose_spec = flags & R::kChooseSpec;
+  const V3 normal = load3(rec + R::kNormal);
+  const float pdf = rec[R::kPdf];
+
+  if (p.mis) {
+    // The BSDF arm's weight for the next segment's env credit: both
+    // densities at the spec continuation, with this bounce's normal.
+    const V3 spec_dir = load3(rec + R::kSpecDir);
+    const float spec_pdf = rec[R::kSpecPdf];
+    float p_light_s = env_pdf_alias(env, spec_dir, c);
+    if (p.defensive) {
+      const float cos_s = clamp_min(dot(normal, spec_dir), 0.f);
+      p_light_s = 0.5f * p_light_s + 0.5f * cos_s * c.inv_pi;
+    }
+    const float w_b = spec_pdf / clamp_min(spec_pdf + p_light_s, c.pdf_min);
+    static_cast<float*>(p.spec_next)[i] = glass ? 1.f : (choose_spec ? w_b : 0.f);
+  } else {
+    static_cast<unsigned char*>(p.spec_next)[i] = choose_spec || glass;
+  }
+  if (!hit) return;  // a miss lane keeps the miss program's radiance
+
+  const bool visible = cand && !p.occluded[i];
+  V3 contrib = v3(0.f, 0.f, 0.f);
+  if (visible) {
+    const V3 env_dir = load3(p.shadow_dir + 3ll * i);
+    const V3 l_env = eval_env(env, env_dir, true, rec[R::kU], rec[R::kV], c);
+    const float spec_prob = rec[R::kSpecProb];
+    const float cos_l = rec[R::kCosL];
+    const V3 att = load3(p.attenuation + 3ll * i);
+    // Lobe-partitioned estimator: the base estimator's cosine-lobe share
+    // (1 - P_s) of M*IdotN*E_cos[L*vis] is estimated by the light draw.
+    const float weight = (1.f - spec_prob) * rec[R::kIdotN] * cos_l / (c.pi * clamp_min(pdf, c.d_min));
+    contrib = mul(scale(mul(att, load3(rec + R::kBrdf)), weight), l_env);
+    if (p.mis) {
+      // The spec lobe's light-sampled arm on the same draw and shadow ray,
+      // with the balance weight w_l = p_light / (p_light + p_ggx).
+      const float alpha = rec[R::kAlpha];
+      const V3 view = neg(load3(p.direction + 3ll * i));
+      const V3 h_l = normalize(add(view, env_dir), c);
+      const float d_term_l = d_ggx(normal, h_l, alpha, c);
+      const float g_term_l = g_smith(alpha, normal, view, env_dir, c);
+      const float ndotv_l = dot(normal, view);
+      const float denom_l = 4.f * fabsf(ndotv_l) * fabsf(dot(normal, env_dir));
+      const V3 brdf_spec_l = scale(load3(rec + R::kFvec), d_term_l * g_term_l / clamp_min(denom_l, c.tiny));
+      const float ndoth_l = clamp_min(dot(normal, h_l), c.tiny);
+      const float vdoth_l = clamp_min(dot(view, h_l), c.tiny);
+      const float p_ggx_l = ggx_pdf(d_term_l, ndoth_l, vdoth_l);
+      const float w_l = pdf / clamp_min(pdf + p_ggx_l, c.pdf_min);
+      const V3 inner = add(scale(brdf_spec_l, spec_prob),
+                           scale(load3(rec + R::kDiffuse), (1.f - spec_prob) * c.pi * p_ggx_l));
+      const V3 g_spec = scale(scale(inner, spec_prob), cos_l);
+      contrib = add(contrib, mul(scale(mul(att, g_spec), w_l / clamp_min(pdf, c.d_min)), l_env));
+    }
+  }
+  float* r = p.radiance + 3ll * i;
+  store3(r, add(load3(r), contrib));
+}
+
+}  // namespace
+
+// Launches one thread a lane on `stream`; returns cudaGetLastError() after
+// the launch (0 = launched).
+extern "C" int nee_launch(const NeeParams* p, void* stream) {
+  if (p->n <= 0) return 0;
+  const int blocks = (p->n + kThreads - 1) / kThreads;
+  nee_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(*p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// sizeof(NeeParams), which the wrapper checks against its mirror.
+extern "C" int nee_params_size() { return static_cast<int>(sizeof(NeeParams)); }

@@ -24,29 +24,19 @@
 // lane on average.  A warp runs as long as its slowest lane (the expected
 // most of 32 geometric counts at p = pi/6 is 6-7 draws), which is still
 // far below a launch's own latency, so one plain thread a lane is the
-// whole design.
+// whole design.  The draw loop is ptrng::unit_sphere of rng.cuh, which the
+// bounce kernel (bounce.cu) runs inline; this kernel is the plain shade's
+// sampler and the one its tests hold.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "rng.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr float kInvU32 = 2.3283064365386963e-10f;  // 2^-32
-
-__device__ __forceinline__ uint32_t pcg_hash(uint32_t x) {
-  const uint32_t state = x * 747796405u + 2891336453u;
-  const uint32_t word = ((state >> ((state >> 28) + 4u)) ^ state) * 277803737u;
-  return (word >> 22) ^ word;
-}
-
-// One uniform draw mapped to [-1, 1]: 2u - 1, two rounded operations.
-__device__ __forceinline__ float signed_unit(uint32_t& s) {
-  s = pcg_hash(s);
-  const float u = __uint2float_rn(s) * kInvU32;
-  return 2.f * u - 1.f;
-}
 
 __global__ void __launch_bounds__(kThreads) unit_sphere_kernel(
     const long long* __restrict__ seed_in,  // [n] u32 in int64
@@ -57,11 +47,7 @@ __global__ void __launch_bounds__(kThreads) unit_sphere_kernel(
   if (i >= n) return;
   uint32_t s = static_cast<uint32_t>(seed_in[i]);
   float x, y, z;
-  do {
-    x = signed_unit(s);
-    y = signed_unit(s);
-    z = signed_unit(s);
-  } while (!((x * x + y * y) + z * z < 1.f));
+  ptrng::unit_sphere(s, x, y, z);
   seed_out[i] = static_cast<long long>(s);
   p_out[3 * i] = x;
   p_out[3 * i + 1] = y;

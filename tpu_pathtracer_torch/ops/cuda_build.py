@@ -65,6 +65,11 @@ LAUNCHERS = {
         [_P] * 22 + [_I] * 5 + [_F] + [_P],
     ),
     "unit_sphere.cu": ("unit_sphere_launch", [_P] * 3 + [_I] + [_P]),
+    # the launch's arguments by pointer (a struct mirrored by ctypes), the
+    # bounce kernel's entry point, the stream
+    "bounce.cu": ("bounce_launch", [_P, _I, _P]),
+    "nee.cu": ("nee_launch", [_P, _P]),
+    "camera.cu": ("camera_launch", [_P, _P]),
 }
 # source: {another function of its library: the function's argument types}.
 # The traversal kernels (flat, hier and streamed) have a packet-weight
@@ -78,6 +83,11 @@ HELPERS = {
     for stem in ("cluster_intersect", "cluster_hier", "cluster_streamed",
                  "cluster_occluded", "cluster_occluded_hier", "cluster_occluded_streamed")
 }
+# The shading kernels report the size of their argument struct; the bounce
+# kernel's library also holds the probe of the math functions it calls
+# (a, b, out, n, which function, pow's exponent, stream).
+HELPERS.update({f"{stem}.cu": {f"{stem}_params_size": []} for stem in ("bounce", "nee", "camera")})
+HELPERS["bounce.cu"]["shade_math_probe"] = [_P] * 3 + [_I] * 2 + [_F] + [_P]
 
 
 def check_tensor(name, x, dtype, shape, dev) -> None:

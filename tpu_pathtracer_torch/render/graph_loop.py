@@ -43,7 +43,9 @@ import time
 
 import torch
 
+from tpu_pathtracer_torch.ops import bounce as bounce_ops
 from tpu_pathtracer_torch.ops import intersect_cluster as ic
+from tpu_pathtracer_torch.ops.camera import camera_paths
 from tpu_pathtracer_torch.ops.fused_schedule import fused_stream_step
 from tpu_pathtracer_torch.ops.unit_sphere import random_in_unit_sphere
 
@@ -51,7 +53,7 @@ from tpu_pathtracer_torch.ops.unit_sphere import random_in_unit_sphere
 COUNTED = (
     ic.intersect_clusters, ic.intersect_clusters_hier, ic.intersect_clusters_streamed,
     ic.occluded_clusters, ic.occluded_clusters_hier, ic.occluded_clusters_streamed,
-    fused_stream_step, random_in_unit_sphere,
+    fused_stream_step, random_in_unit_sphere, bounce_ops.bounce, bounce_ops.next_event, camera_paths,
 )
 # Plans the cache holds.
 MAX_PLANS = 8

@@ -25,6 +25,13 @@ Deferred shading (cfg.deferred_shade, `_shade_deferred`) shades only the
 lanes that hit, in dense chunks; `render_pixels` also takes an affine
 pixel range (base, count), which sharded renders pass.
 
+On a CUDA device the bounce's work after the traversal runs as
+hand-written kernels (ops/bounce.py: the bounce kernel, with deferred
+shading's chunks as its second entry point, and the NEE kernel), and so
+does every camera spawn (ops/camera.py); the eager code here is their
+plain version, which the CPU runs and, under `ops.bounce.plain()`, the
+card.
+
 Each schedule's loop is a per-frame set-up that writes a plan's static
 buffers (render/graph_loop.py) and a step that reads and writes only
 those buffers; on a CUDA device the step is captured once per (scene,
@@ -44,11 +51,12 @@ import math
 import torch
 
 from tpu_pathtracer_torch.config import RenderConfig
+from tpu_pathtracer_torch.ops import bounce as bounce_ops
+from tpu_pathtracer_torch.ops import camera as camera_ops
 from tpu_pathtracer_torch.ops.fused_schedule import STATE_KEYS, fused_stream_step, fused_stream_step_plain, roulette
 from tpu_pathtracer_torch.ops.intersect import Hit, intersect_scene, occluded_scene
 from tpu_pathtracer_torch.ops.unit_sphere import random_in_unit_sphere
 from tpu_pathtracer_torch.render import bsdf, graph_loop
-from tpu_pathtracer_torch.render.camera import generate_camera_rays
 from tpu_pathtracer_torch.render.envmap import direction_to_uv, env_pdf_alias, eval_env, sample_env_alias
 from tpu_pathtracer_torch.render.texsample import material_property, sample_bundle
 from tpu_pathtracer_torch.scene import scene as S
@@ -276,7 +284,9 @@ def _shade_deferred(scene: Scene, cfg: RenderConfig, hit: Hit, origins, directio
     C = min(n, max(1024, n / cfg.deferred_chunk_div rounded up to 1024))
     lanes, and each chunk's outputs are scattered back to their source
     lanes.  Miss lanes hold zeros (callers select under the hit mask); the
-    fields are the ones the bounce reads without NEE.
+    fields are the ones the bounce reads without NEE.  On the card each
+    chunk is one launch of the bounce kernel's second entry point
+    (ops/bounce.shade_lanes) outside `ops.bounce.plain()`.
 
     The slot table is padded to a whole number of chunks: its tail slots
     point at a sink row n, so every slot is shaded once (the JAX package
@@ -299,8 +309,12 @@ def _shade_deferred(scene: Scene, cfg: RenderConfig, hit: Hit, origins, directio
     out = {key: torch.zeros((n + 1, 3), dtype=torch.float32, device=dev) for key in _DEFERRED_VECTORS}
     out.update({key: torch.zeros(n + 1, dtype=torch.bool, device=dev) for key in _DEFERRED_FLAGS})
     out["seeds"] = torch.zeros(n + 1, dtype=seeds.dtype, device=dev)
+    kernels = bounce_ops.on_card(dev)
     for k in range(0, slots, c):
         idx = lane_of_slot[k:k + c]
+        if kernels:
+            bounce_ops.shade_lanes(scene, cfg, hit, origins, directions, seeds, depth, idx, out)
+            continue
         src = torch.clamp_max(idx, n - 1)
         hit_c = Hit(t=hit.t[src], prim=hit.prim[src], bary=hit.bary[src], hit=idx < n)
         sh = _shade(scene, cfg, hit_c, origins[src], directions[src], seeds[src], depth[src])
@@ -359,10 +373,18 @@ def _next_event(scene, cfg, hit_m, sh, seeds, direction, attenuation):
     to add where the light is visible, visible [N] bool, spec_next: the
     next segment's env-credit flag, or its MIS weight under
     cfg.nee_mis_spec)."""
-    env = scene.env
     seeds, env_dir, env_pdf_v, env_u, env_v = _light_sample(scene, cfg, sh, seeds)
     cand, cos_l = _shadow_candidates(hit_m, sh, env_dir)
     occluded = occluded_scene(scene, sh["new_origin"], env_dir, cfg.t_min, cfg.t_max, cfg, active=cand)
+    contrib, visible, spec_next = _nee_weights(scene, cfg, sh, cand, occluded, env_dir, env_pdf_v, env_u, env_v,
+                                               cos_l, direction, attenuation)
+    return seeds, contrib, visible, spec_next
+
+
+def _nee_weights(scene, cfg, sh, cand, occluded, env_dir, env_pdf_v, env_u, env_v, cos_l, direction, attenuation):
+    """`_next_event` after the any-hit traversal (the plain version of the
+    NEE kernel): (contrib, visible, spec_next)."""
+    env = scene.env
     visible = cand & ~occluded
     l_env = eval_env(env, env_dir, cfg, active=cand, uv=(env_u, env_v))
     # Lobe-partitioned estimator: the base estimator's cosine-lobe share
@@ -400,7 +422,7 @@ def _next_event(scene, cfg, hit_m, sh, seeds, direction, attenuation):
         spec_next = torch.where(sh["glass"], 1.0, torch.where(sh["choose_spec"], w_b, 0.0))
     else:
         spec_next = sh["choose_spec"] | sh["glass"]
-    return seeds, contrib, visible, spec_next
+    return contrib, visible, spec_next
 
 
 def _trace_bounce(scene, cfg, origin, direction, attenuation, radiance, seeds, depth, spec_last=None):
@@ -408,10 +430,33 @@ def _trace_bounce(scene, cfg, origin, direction, attenuation, radiance, seeds, d
     or miss, and under cfg.env_importance_sampling the NEE shadow ray.
     `spec_last` (NEE only) is the env-credit flag, or MIS weight, that the
     previous bounce set.  Returns the post-trace payload before Russian
-    roulette."""
-    nee = cfg.env_importance_sampling
+    roulette.  After the traversal, the kernels run on the card
+    (`_bounce_kernels`; deferred shading keeps this eager bounce, its
+    chunks shaded by the bounce kernel's second entry point), the plain
+    version elsewhere (`_bounce_plain`)."""
     hit = intersect_scene(scene, origin, direction, cfg.t_min, cfg.t_max, cfg)
+    if bounce_ops.on_card(origin.device) and not _deferred(cfg):
+        return _bounce_kernels(scene, cfg, hit, origin, direction, attenuation, radiance, seeds, depth, spec_last)
+    return _bounce_plain(scene, cfg, hit, origin, direction, attenuation, radiance, seeds, depth, spec_last)
 
+
+def _bounce_kernels(scene, cfg, hit, origin, direction, attenuation, radiance, seeds, depth, spec_last):
+    """`_bounce_plain` on the card: the bounce kernel, and under NEE the
+    any-hit traversal of its shadow rays and the NEE kernel."""
+    b = bounce_ops.bounce(scene, cfg, hit, origin, direction, attenuation, radiance, seeds, depth, spec_last)
+    spec_next = spec_last
+    if cfg.env_importance_sampling:
+        occluded = occluded_scene(scene, b["shadow_origin"], b["shadow_dir"], cfg.t_min, cfg.t_max, cfg,
+                                  active=b["cand"])
+        spec_next = bounce_ops.next_event(scene, cfg, b, occluded, direction, attenuation)
+    return dict(radiance=b["radiance"], attenuation=b["attenuation"], origin=b["origin"], direction=b["direction"],
+                done=b["done"], seeds=b["seeds"], spec_last=spec_next, hit=hit.hit)
+
+
+def _bounce_plain(scene, cfg, hit, origin, direction, attenuation, radiance, seeds, depth, spec_last):
+    """`_trace_bounce` after the traversal, op by op: the plain version of
+    the bounce and NEE kernels."""
+    nee = cfg.env_importance_sampling
     # Miss program: radiance += attenuation * env; the path ends.  Under NEE
     # only spec-sampled and primary segments take the env's light.
     env_light = attenuation * eval_env(scene.env, direction, cfg, active=~hit.hit)
@@ -469,18 +514,13 @@ def _read(x: torch.Tensor) -> int:
     return int(x)
 
 
-def _camera_paths(cam: dict, cfg: RenderConfig, subframe, sample_offset):
-    """make_path(pix, sample_i) -> (origins, directions, seeds): a fresh
-    camera path for each (pixel id, sample of this launch), seeded from
-    the global (pixel, sample_offset + sample, subframe) counters.  The
-    counters are Python ints or 0-d integer tensors (a plan's buffers,
-    which the same bits come from)."""
-
-    def make_path(pix, sample_i):
-        seeds0 = rng.make_seeds(pix, sample_offset + sample_i, subframe)
-        return generate_camera_rays(cam, pix % cfg.width, pix // cfg.width, seeds0, cfg)
-
-    return make_path
+def _spawner(cam: dict, cfg: RenderConfig, subframe, sample_offset):
+    """spawn(n, **lanes) -> (origins, directions, seeds): fresh camera
+    paths (ops/camera.camera_paths) seeded from the global (pixel,
+    sample_offset + sample, subframe) counters.  The counters are Python
+    ints or 0-d integer tensors (a plan's buffers, which the same bits
+    come from)."""
+    return functools.partial(camera_ops.camera_paths, cam, cfg, subframe, sample_offset)
 
 
 def _spec_start(cfg: RenderConfig, n: int, dev):
@@ -525,7 +565,9 @@ def _plan(scene: Scene, cfg: RenderConfig, key: tuple, fresh: dict, make_step) -
               else torch.empty((), dtype=torch.int64, device=dev) for k, v in fresh.items()}
         return st, make_step(st)
 
-    plan = graph_loop.plan((id(scene), cfg) + key, scene, build, capturable=not _deferred(cfg))
+    # The key names the arm of an A/B against the plain versions: a plan
+    # never replays the other arm's graph.
+    plan = graph_loop.plan((id(scene), cfg, bounce_ops.is_plain()) + key, scene, build, capturable=not _deferred(cfg))
     _write(plan.state, fresh)
     return plan
 
@@ -628,7 +670,7 @@ def render_pixels_regen(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids, s
     [Np,3] (the sums divided by spp, as the JAX function divides), and
     with return_stats the stats of render_rays."""
     n, dev = pixel_ids.shape[0], pixel_ids.device
-    origin, direction, seeds = _camera_paths(cam, cfg, subframe, sample_offset)(pixel_ids, torch.zeros_like(pixel_ids))
+    origin, direction, seeds = camera_ops.camera_paths(cam, cfg, subframe, sample_offset, n, pix=pixel_ids)
     exhausted = torch.zeros(n, dtype=torch.bool, device=dev)
     fresh = dict(
         _inputs(cam, subframe, sample_offset), ids=pixel_ids,
@@ -656,7 +698,7 @@ def render_pixels_regen(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids, s
 def _regen_step(scene: Scene, cfg: RenderConfig, spp: int, st: dict):
     """render_pixels_regen's iteration on its buffers `st`."""
     nee = cfg.env_importance_sampling
-    make_path = _camera_paths(st, cfg, st["subframe"], st["sample_offset"])
+    spawn = _spawner(st, cfg, st["subframe"], st["sample_offset"])
 
     def step():
         live = ~st["exhausted"]
@@ -667,15 +709,15 @@ def _regen_step(scene: Scene, cfg: RenderConfig, spp: int, st: dict):
         sample_i = st["sample_i"] + newly.to(torch.int32)
         exhausted = st["exhausted"] | (newly & (sample_i >= spp))
 
-        # Respawn the next sample on lanes that just finished one.
+        # Respawn the next sample on lanes that just finished one: the
+        # camera spawn writes them into the buffers afterwards.
         regen = newly & ~exhausted
-        o_r, d_r, s_r = make_path(st["ids"], torch.clamp_max(sample_i, spp - 1))
         rg, av = regen[:, None], adv[:, None]
         new = dict(
             accum=accum, sample_i=sample_i, exhausted=exhausted, done=exhausted.all(),
-            origin=torch.where(rg, o_r, torch.where(av, tb["origin"], st["origin"])),
-            direction=torch.where(rg, d_r, torch.where(av, tb["direction"], st["direction"])),
-            seeds=torch.where(regen, s_r, torch.where(live, seeds_new, st["seeds"])),
+            origin=torch.where(av, tb["origin"], st["origin"]),
+            direction=torch.where(av, tb["direction"], st["direction"]),
+            seeds=torch.where(live, seeds_new, st["seeds"]),
             attenuation=torch.where(rg, 1.0, torch.where(av, att_new, st["attenuation"])),
             radiance=torch.where(rg, 0.0, torch.where(av, tb["radiance"], st["radiance"])),
             depth=torch.where(regen, cfg.max_depth, torch.where(adv, st["depth"] - 1, st["depth"])),
@@ -686,6 +728,8 @@ def _regen_step(scene: Scene, cfg: RenderConfig, spp: int, st: dict):
             new.update(spec_last=torch.where(regen, torch.ones_like(spec_last), torch.where(adv, tb["spec_last"], spec_last)),
                        shadow=st["shadow"] + (live & tb["hit"]).sum())
         _write(st, new)
+        spawn(regen.shape[0], pix=st["ids"], sample=st["sample_i"], sample_max=spp - 1, mask=regen,
+              out=(st["origin"], st["direction"], st["seeds"]))
 
     return step
 
@@ -706,12 +750,12 @@ def resolve_stream_lanes(cfg: RenderConfig, n_pix: int) -> int:
     return min(131072, max(16384, lanes))
 
 
-def _stream_state(cfg: RenderConfig, make_path, slot_to_pixel, lanes: int, dev) -> dict:
+def _stream_state(cfg: RenderConfig, spawn, slot_to_pixel, lanes: int, dev) -> dict:
     """The lane pool at the start of a launch: lane k holds slot k, the
     first sample of its pixel."""
     slot = torch.arange(lanes, dtype=torch.int32, device=dev)  # n_pix and above = retired
     pix = slot_to_pixel(slot).clone()  # its own tensor: the kernel updates both in place
-    origin, direction, seeds = make_path(pix, torch.zeros_like(pix))
+    origin, direction, seeds = spawn(lanes, pix=pix)
     return dict(
         slot=slot, pix=pix, origin=origin, direction=direction, seeds=seeds,
         attenuation=torch.ones_like(origin), radiance=torch.zeros_like(origin),
@@ -722,14 +766,12 @@ def _stream_state(cfg: RenderConfig, make_path, slot_to_pixel, lanes: int, dev) 
     )
 
 
-def _respawn(st: dict, regen, make_path, spp: int):
+def _respawn(st: dict, regen, spawn, spp: int):
     """The stream's camera respawn after a schedule step: on the lanes of
     the regen mask, a fresh camera path for the next sample of the same
     or a freshly pulled pixel, written into st's tensors in place."""
-    o_r, d_r, s_r = make_path(st["pix"], torch.clamp_max(st["sample_i"], spp - 1))
-    rg = regen[:, None]
-    _write(st, dict(origin=torch.where(rg, o_r, st["origin"]), direction=torch.where(rg, d_r, st["direction"]),
-                    seeds=torch.where(regen, s_r, st["seeds"])))
+    spawn(regen.shape[0], pix=st["pix"], sample=st["sample_i"], sample_max=spp - 1, mask=regen,
+          out=(st["origin"], st["direction"], st["seeds"]))
 
 
 def _slot_map(pixel_ids, n_pix: int):
@@ -763,7 +805,7 @@ def render_pixels_stream(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids, 
     one kernel launch on the card (TPU kernel 7); otherwise its plain
     version, eager ops with any pixel mapping.  Both give the same bits.
     Camera paths are then respawned on the step's regen mask through
-    `generate_camera_rays`, outside the kernel as in the JAX package.  The
+    ops/camera.camera_paths, outside kernel 7 as in the JAX package.  The
     step returns the count of live lanes, the loop's one host read per
     iteration.
 
@@ -779,7 +821,7 @@ def render_pixels_stream(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids, 
         fresh["base"] = pixel_ids[0]
     elif kind == "ids":
         fresh["ids"] = pixel_ids
-    fresh.update(_stream_state(cfg, _camera_paths(cam, cfg, subframe, sample_offset),
+    fresh.update(_stream_state(cfg, _spawner(cam, cfg, subframe, sample_offset),
                                _slot_map(pixel_ids, n_pix) or (lambda slot: slot), lanes, dev))
     fresh.update(out=torch.zeros((n_pix + 1, 3), dtype=torch.float32, device=dev),  # +1 = sink
                  head=torch.full((), lanes, dtype=torch.int64, device=dev),
@@ -804,7 +846,7 @@ def _stream_step(scene: Scene, cfg: RenderConfig, kind: str, n_pix: int, spp: in
     schedule step (the kernel updates the lane state in place, the plain
     version returns new tensors, copied in), respawn."""
     nee = cfg.env_importance_sampling
-    make_path = _camera_paths(st, cfg, st["subframe"], st["sample_offset"])
+    spawn = _spawner(st, cfg, st["subframe"], st["sample_offset"])
     pixels = None if kind == "frame" else (st["base"], n_pix) if kind == "range" else st["ids"]
     schedule_step = fused_stream_step if fused else functools.partial(
         fused_stream_step_plain, slot_to_pixel=_slot_map(pixels, n_pix))
@@ -822,7 +864,7 @@ def _stream_step(scene: Scene, cfg: RenderConfig, kind: str, n_pix: int, spp: in
             tb, lane, st["out"], st["head"], st["segments"], **kw)
         new.update((k, v) for k, v in lane.items() if v is not st[k])
         _write(st, new)
-        _respawn(st, regen, make_path, spp)
+        _respawn(st, regen, spawn, spp)
         if nee:
             # A lane that neither respawns nor goes on is not live again,
             # so its flag is never read.
@@ -922,6 +964,10 @@ def render_pixels(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids=None, su
                                           fused=which == "stream_fused")
     else:
         ids = torch.arange(n_pix, dtype=torch.int32, device=dev)
+        # The camera spawn's slot -> pixel map: an id table, an affine
+        # range's base, or the identity.
+        lanes = {} if pixel_ids is None else dict(base=pixel_ids[0]) if isinstance(pixel_ids, tuple) else dict(
+            pix=pixel_ids)
         if isinstance(pixel_ids, tuple):
             pixel_ids = pixel_ids[0] + ids
         elif pixel_ids is None:
@@ -930,11 +976,8 @@ def render_pixels(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids=None, su
             img, stats = render_pixels_regen(scene, cam, cfg, pixel_ids, subframe, sample_offset, spp,
                                              return_stats=True)
         else:
-            pixel_rep = pixel_ids.repeat_interleave(spp)
-            sample_rep = sample_offset + torch.arange(spp, dtype=torch.int32, device=dev).repeat(n_pix)
-            seeds = rng.make_seeds(pixel_rep, sample_rep, subframe)
-            origins, directions, seeds = generate_camera_rays(cam, pixel_rep % cfg.width, pixel_rep // cfg.width,
-                                                              seeds, cfg)
+            origins, directions, seeds = camera_ops.camera_paths(cam, cfg, subframe, sample_offset, n_pix * spp,
+                                                                 per=spp, **lanes)
             radiance, stats = render_rays(scene, cfg, origins, directions, seeds, return_stats=True)
             img = radiance.reshape(n_pix, spp, 3).mean(dim=1)
     stats["schedule"] = which
