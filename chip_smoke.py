@@ -60,9 +60,9 @@ Phases, each printing one line (any failure exits non-zero):
      shape, instruction floor and 16 tiles as phase 3;
  14. NEE render of the headline (BASELINE config 3's path: textbook RR,
      env importance sampling), as phase 4 (one warm, one timed frame):
-     kernels 1 and 4 must each launch at least once per stream iteration
-     and no other kernel may launch; Mrays/s counts segments and shadow
-     segments;
+     kernels 1 and 4 must each launch at least once per stream iteration,
+     kernel 7 exactly once (the unfused stream's step), and no other
+     kernel may launch; Mrays/s counts segments and shadow segments;
  15. NEE render of config 4 (kernels 2 and 5), one warm and one timed frame;
  16. NEE render of the 200k scene (kernels 3 and 6), one warm and one
      timed frame;
@@ -78,17 +78,31 @@ Phases, each printing one line (any failure exits non-zero):
      (`--parent DIR`: an older checkout's kernel 7 timed in turns); 32
      consecutive steps on one scratch, and one step repeated 4,200 times
      on it, bit-equal to the plain version;
- 19. the headline fused (fused_schedule="on") and unfused, one timed frame
-     each of the same subframe: images bit-equal, iterations and segments
-     identical, kernels 1 and 7 at least once per iteration and nothing
-     else; Mrays/s and s/launch of both;
+ 18b. kernel 7 off the fused stream's envelope, at 131,072 lanes of the
+     unfused stream's real lane states: under NEE (the shadow count and
+     the env credit), on an affine range (the frame's second half) and on
+     an id list (every other pixel, last first); state, image, regen mask,
+     head, segments, live and shadow counts bit-equal; the kernel's time
+     with the L2 flushed, the plain version's, the byte bound;
+ 18c. the path step (render_rays at a 1-spp tile's 345,600 lanes, with
+     and without NEE; render_pixels_regen at 131,072 lanes, with and
+     without NEE, and at phase 22's 2,073,600) against path_step_plain on
+     real buffers of those schedules: every buffer and the regen mask
+     bit-equal; times and bound as 18b;
+ 19. the headline fused (fused_schedule="on", kernels 1 and 7 at least
+     once per iteration and nothing else) and unfused under
+     ops.bounce.plain() (the plain step and shading, no step or shading
+     kernel launched), one frame each of the same subframe: images
+     bit-equal, iterations and segments identical; s/launch of both;
  20. BASELINE config 1 as phase 19: single_sphere_scene(32, 64) with the
      cluster accel (flat route), 512x512, 64 spp, depth 8, constant sky,
      default camera, auto lanes (16,384);
  21. 1 spp: the headline at 1080p in six tiles of 345,600 pixels
-     (bench.py's 1-spp tiling), render_rays through kernel 1;
+     (bench.py's 1-spp tiling), render_rays through kernel 1 and the path
+     step (once an iteration);
  22. one lane per pixel: the headline at 1080p, 10 spp, 2,097,152 stream
-     lanes, so render_pixels_regen runs 2,073,600 lanes;
+     lanes, so render_pixels_regen runs 2,073,600 lanes (the path step
+     once an iteration);
  23. GPU-vs-CPU parity as phase 5 of the fused stream (1,024 lanes),
      render_pixels_regen (16,384 lanes) and 1 spp with NEE;
  24. scene files: write the hero stand-in (a 2,200-triangle rounded box,
@@ -118,7 +132,8 @@ Phases, each printing one line (any failure exits non-zero):
      render thread stop;
  29. sharding in a NCCL group of one rank: the headline (1080p, 10 spp,
      depth 8) sharded by pixels (an affine pixel range through the
-     unfused stream) must equal render_frame bit for bit, by samples
+     unfused stream, kernel 7 once an iteration) must equal render_frame
+     bit for bit, by samples
      within rtol 2e-4 / atol 2e-5; s/launch of each and of the unsharded
      frame;
  30. two ranks on the one card over gloo, each a process of its own
@@ -140,7 +155,7 @@ Phases, each printing one line (any failure exits non-zero):
      this process) at five presets: config 0 and config 3 with NEE on the
      cluster accel (2 timed frames), config 4 without and with NEE (2),
      config 1 on the cluster accel (1): one JSON line each with a positive
-     Mrays/s; the route's kernels (kernel 7 on the fused stream) at least
+     Mrays/s; the route's kernels (and the schedule's step) at least
      once per iteration of every frame the bench rendered and nothing
      else; path and shadow segments, triangles and schedule equal to the
      frame at subframe 0 of phase 4, 14, 8, 15 or 20 (whose fused and
@@ -185,8 +200,10 @@ On the card the bounce's shading, NEE's weights and every camera spawn
 run the three shading kernels, which every render phase expects: the
 bounce kernel once an iteration, the NEE kernel once an iteration under
 NEE, the camera kernel once a stream or regen iteration and once a
-render_pixels call's set-up; the unit-ball sampler's loop runs inside the
-bounce kernel, so the sampler launches only on the plain versions' path
+render_pixels call's set-up; every schedule's step runs a kernel once
+an iteration (STEP_KERNEL): kernel 7 on every stream, fused or not, the
+path step on render_rays and render_pixels_regen; the unit-ball
+sampler's loop runs inside the bounce kernel, so the sampler launches only on the plain versions' path
 (phase 34's plain arm, whose count the kernels line gives it).
 Then the launches on the CLI renders of phases 25 and 26, one JSON line with every kernel's numbers (launches from its render
 phase, bound from the work its plain version counts on the phase's rays),
@@ -233,10 +250,13 @@ try:
         _bounce_plain,
         _light_sample,
         _nee_weights,
+        _pixel_count,
+        _pixel_map,
         _respawn,
         _shade,
         _shadow_candidates,
         _spawner,
+        _spec_start,
         _stream_state,
         _trace_bounce,
         render_frame_stats,
@@ -292,6 +312,10 @@ KERNELS = {
            ic.occluded_clusters_streamed_plain),
     "k7": ("fused_step", "tpu_pathtracer_torch/csrc/fused_schedule.cu", "tpu_pathtracer/ops/fused_schedule.py:113",
            None, False, fs.fused_stream_step, fs.fused_stream_step_cuda, fs.fused_stream_step_plain),
+    # No TPU kernel: XLA's fusion of the loop bodies of render_rays (:870)
+    # and render_pixels_regen (:1031) after the trace.
+    "kp": ("path_step", "tpu_pathtracer_torch/csrc/fused_schedule.cu", "tpu_pathtracer/render/integrator.py:870",
+           None, False, fs.path_step, fs.path_step_cuda, fs.path_step_plain),
     # No TPU kernel: the JAX package's lax.while_loop, which the port's loop
     # could only end by reading the device.
     "ks": ("unit_sphere", "tpu_pathtracer_torch/csrc/unit_sphere.cu", "tpu_pathtracer/utils/rng.py:79", None, False,
@@ -309,6 +333,10 @@ KERNELS = {
 }
 # The kernels each route's render launches, without and with NEE.
 ROUTE_KERNELS = {"flat": ("k1", "k4"), "hier": ("k2", "k5"), "streamed": ("k3", "k6")}
+# The step each schedule launches once an iteration on the card: kernel 7
+# on every stream (fused or not, any pixel map, NEE or not), the path step
+# on render_rays and render_pixels_regen.
+STEP_KERNEL = {"stream_fused": "k7", "stream": "k7", "regen": "kp", "rays": "kp"}
 
 
 def shading_kernels(nee):
@@ -669,10 +697,11 @@ def phase_render(label, scene, cfg, camera, frames, smi, image_path=None, warm=T
     """A warm frame at subframe 0 (unless warm=False), then `frames` timed
     frames from `subframe` on, with every launch count set to 0 just
     before and read just after.  The
-    route's closest-hit kernel (and under NEE its any-hit kernel; on the
-    fused stream, which the render reports as its schedule, kernel 7)
-    must launch at least once per iteration of the schedule, the bounce
-    kernel (and under NEE the NEE kernel) exactly once, the camera kernel
+    route's closest-hit kernel (and under NEE its any-hit kernel) must
+    launch at least once per iteration of the schedule, the schedule's
+    step (STEP_KERNEL: kernel 7 on every stream, the path step on rays
+    and regen), the bounce kernel (and under NEE the NEE kernel) exactly
+    once, the camera kernel
     once an iteration of the stream and regen schedules and once a
     render_pixels call's set-up, and no other kernel at all (the unit-ball
     sampler's loop runs inside the bounce kernel).
@@ -712,11 +741,14 @@ def phase_render(label, scene, cfg, camera, frames, smi, image_path=None, warm=T
     if stats["graphed"] != (not (cfg.deferred_shade and not nee)):
         raise SystemExit(f"[{label}] FAIL: the loop reports graphed {stats['graphed']}")
     captures = graph_loop.stats["captures"] - captures
-    want = ((ROUTE_KERNELS[route] if nee else ROUTE_KERNELS[route][:1]) + shading_kernels(nee)
-            + (("k7",) if sched == "stream_fused" else ()))
+    step = STEP_KERNEL[sched]
+    want = (ROUTE_KERNELS[route] if nee else ROUTE_KERNELS[route][:1]) + shading_kernels(nee) + (step,)
     for kid in want:
         if counts[kid] < (iters if kid != "kc" else 1):
             raise SystemExit(f"[{label}] FAIL: {counts[kid]} {KERNELS[kid][0]} launches for {iters} iterations")
+    if counts[step] != iters:
+        raise SystemExit(f"[{label}] FAIL: {counts[step]} {KERNELS[step][0]} launches for {iters} iterations of "
+                         f"the {sched} schedule, not one an iteration")
     n_pix = cfg.width * cfg.height
     spawn_calls = frames * (n_pix // cfg.tile_pixels if 0 < cfg.tile_pixels < n_pix else 1)
     check_shading(label, counts, iters, nee, spawns=spawn_calls + (iters if sched != "rays" else 0))
@@ -792,44 +824,59 @@ def same_bits(a, b):
         torch.where(nan, 0.0, a).view(torch.int32), torch.where(nan, 0.0, b).view(torch.int32))
 
 
-def step_kw(cfg):
+def step_kw(cfg, pixels=None):
+    """The stream step's keywords for `cfg` over `pixels` (None: the whole
+    frame; an affine range (base, count); an id tensor)."""
     spp = cfg.samples_per_launch
-    return dict(spp=spp, n_pix=cfg.width * cfg.height, max_depth=cfg.max_depth,
-                rr_reference=cfg.rr_mode == "reference", inv_spp=1.0 / spp)
+    return dict(spp=spp, n_pix=_pixel_count(cfg, pixels), max_depth=cfg.max_depth,
+                rr_reference=cfg.rr_mode == "reference", inv_spp=1.0 / spp, **_pixel_map(pixels))
 
 
-def lane_state(scene, cfg, camera, iters, retiring=False):
-    """The lane pool of the unfused stream after `iters` iterations (with
-    `retiring`, and then as many more as it takes until the next step
-    retires a pixel) and the payload of its next trace: (state, payload,
-    head, the camera-path function)."""
+def state_keys(cfg):
+    """The stream's lane state that the step reads and writes."""
+    return fs.STATE_KEYS + (("spec_last",) if cfg.env_importance_sampling else ())
+
+
+def lane_state(scene, cfg, camera, iters, retiring=False, pixels=None):
+    """The lane pool of the unfused stream over `pixels` (as step_kw takes
+    them) after `iters` iterations (with `retiring`, and then as many more
+    as it takes until the next step retires a pixel) and the payload of its
+    next trace: (state, payload, head, the camera-path function); under
+    NEE also the shadow count so far (else None) last."""
     dev = scene.device
-    lanes = resolve_stream_lanes(cfg, cfg.width * cfg.height)
+    kw = step_kw(cfg, pixels)
+    n_pix = kw["n_pix"]
+    lanes = min(resolve_stream_lanes(cfg, n_pix), n_pix)
     spawn = _spawner(camera_arrays(camera, cfg, dev), cfg, 0, 0)
-    st = _stream_state(cfg, spawn, lambda slot: slot, lanes, dev)
-    out = torch.zeros((cfg.width * cfg.height + 1, 3), device=dev)
+    st = _stream_state(cfg, spawn, functools.partial(fs.slot_pixels, n_pix=n_pix, **_pixel_map(pixels)), lanes, dev)
+    out = torch.zeros((n_pix + 1, 3), device=dev)
     head = torch.tensor(lanes, dtype=torch.int64, device=dev)
     seg = torch.zeros((), dtype=torch.int64, device=dev)
+    shadow = seg.clone() if cfg.env_importance_sampling else None
+    keys = state_keys(cfg)
 
     def trace():
         return _trace_bounce(scene, cfg, st["origin"], st["direction"], st["attenuation"], st["radiance"],
-                             st["seeds"], st["depth"])
+                             st["seeds"], st["depth"], st["spec_last"])
 
     def retires(tb):
-        copy = {k: st[k].clone() for k in fs.STATE_KEYS}
-        return int(fs.fused_stream_step_plain(tb, copy, out.clone(), head, seg, **step_kw(cfg))[1]) > int(head)
+        copy = {k: st[k].clone() for k in keys}
+        return int(fs.fused_stream_step_plain(tb, copy, out.clone(), head, seg, shadow, **kw)[1]) > int(head)
 
     tb = trace()
     for k in range(iters + (1000 if retiring else 0)):
         if k >= iters and retires(tb):
             break
-        regen, head, seg, _ = fs.fused_stream_step_plain(tb, st, out, head, seg, **step_kw(cfg))
+        lane = {key: st[key] for key in keys}
+        regen, head, seg, _, *shadow_n = fs.fused_stream_step_plain(tb, lane, out, head, seg, shadow, **kw)
+        shadow = shadow_n[0] if shadow_n else None
+        st.update(lane)
         _respawn(st, regen, spawn, cfg.samples_per_launch)
         tb = trace()
-    return st, tb, head, spawn
+    return (st, tb, head, spawn) + ((shadow,) if cfg.env_importance_sampling else ())
 
 
-def step_bytes(tb, st, regen, n_pix, spp, rr_reference):
+def step_bytes(tb, st, regen, n_pix, spp, rr_reference, nee=False, ids=False):
     """Bytes the schedule step must move on this lane state, by what each
     lane's fate needs (the kernel reads and writes more: every lane's
     state): every lane reads its slot and writes its regen byte; a live
@@ -839,15 +886,20 @@ def step_bytes(tb, st, regen, n_pix, spp, rr_reference):
     radiance and depth; a lane whose path ends reads and writes its pixel
     sum and sample count; one that respawns writes attenuation, radiance
     and depth; one whose pixel is done reads and writes its image row and
-    writes slot and pix; head and segments are read and head, segments
-    and the live count written once.  Returns (bytes, live lanes, pixels
-    done)."""
+    writes slot and pix (and with `ids` reads its table entry); head and
+    segments are read and head, segments and the live count written once.
+    Under NEE every lane also writes its env credit and reads the
+    payload's (1 B each, 4 B under MIS: 2 or 8), and a live lane reads
+    its hit flag (1 B); the shadow count is read and written once.
+    Returns (bytes, live lanes, pixels done)."""
     live = st["slot"] < n_pix
     _, newly, adv, _, _ = fs.roulette(tb, live, rr_reference)
     done = newly & (st["sample_i"] + newly.to(torch.int32) >= spp)
     n_live, n_adv, n_newly, n_regen, n_done = (int(m.sum()) for m in (live, adv, newly, regen, done))
     n_bytes = (live.shape[0] * (4 + 1) + n_live * (8 + 1 + 12 + 12 + 8) + n_adv * (24 + 4 + 48 + 4)
-               + n_newly * 2 * (12 + 4) + n_regen * (24 + 4) + n_done * (2 * 12 + 4 + 4) + 5 * 8)
+               + n_newly * 2 * (12 + 4) + n_regen * (24 + 4) + n_done * (2 * 12 + 4 + 4 + 4 * ids) + 5 * 8)
+    if nee:
+        n_bytes += live.shape[0] * 2 * st["spec_last"].element_size() + n_live + 2 * 8
     return n_bytes, n_live, n_done
 
 
@@ -906,9 +958,9 @@ def _time_cold(fn, inputs):
 
 def parent_fused_step(parent_dir):
     """Kernel 7 as an older tree built it (`parent_dir`: the root of its
-    checkout; the kernel of one thread a lane whose wrapper zeroes a
-    scratch of 4 + blocks words each call), with the same wrapper:
-    step(tb, st, out, head, segments, **step_kw)."""
+    checkout; the launch of 22 pointers, 5 ints, inv_spp and the stream,
+    the scratch a ticket and a status word a tile), with the same
+    wrapper: step(tb, st, out, head, segments, **step_kw)."""
     import ctypes
     from pathlib import Path
 
@@ -919,21 +971,24 @@ def parent_fused_step(parent_dir):
                    capture_output=True, timeout=600)
     lib = ctypes.CDLL(str(lib_path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_step_launch.argtypes = [p] * 21 + [i] * 5 + [ctypes.c_float, p]
+    lib.fused_step_launch.argtypes = [p] * 22 + [i] * 5 + [ctypes.c_float, p]
     lib.fused_step_launch.restype = i
+    scratches = {}
 
     def step(tb, st, out, head, segments, *, spp, n_pix, max_depth, rr_reference, inv_spp):
         lanes = st["slot"].shape[0]
-        scratch = torch.zeros(4 + -(-lanes // 256), dtype=torch.int64, device=out.device)
+        tiles = -(-lanes // 256)
+        scratch = scratches.setdefault(tiles, torch.zeros(1 + tiles, dtype=torch.int64, device=out.device))
         regen = torch.empty(lanes, dtype=torch.bool, device=out.device)
+        result = torch.empty(3, dtype=torch.int64, device=out.device)
         err = lib.fused_step_launch(
             *(tb[k].data_ptr() for k in fs.TB_KEYS), *(st[k].data_ptr() for k in fs.STATE_KEYS),
             out.data_ptr(), head.data_ptr(), segments.data_ptr(), scratch.data_ptr(), regen.data_ptr(),
-            lanes, spp, n_pix, max_depth, int(rr_reference), float(inv_spp),
+            result.data_ptr(), lanes, spp, n_pix, max_depth, int(rr_reference), float(inv_spp),
             torch.cuda.current_stream().cuda_stream)
         if err:
             raise SystemExit(f"parent fused_step_kernel launch failed: CUDA error {err}")
-        return regen, scratch[0], scratch[1], scratch[2]
+        return regen, result[0], result[1], result[2]
 
     return step
 
@@ -1095,22 +1150,255 @@ def lookback_repeats(label, tb, st, head, seg, kw, n_pix, launches=4200):
     return f"one step {launches} times on one scratch, every launch equal to the plain version"
 
 
+# Kernel 7 off the fused stream's envelope: (name, RenderConfig fields over
+# HEADLINE, pixels as render_pixels takes them: "ids" is every other pixel
+# of the frame, last first).
+STREAM_STEP_CASES = (
+    ("headline NEE", NEE, None),
+    ("headline range", {}, (1_036_800, 1_036_800)),  # the second of two pixel shards
+    ("headline ids", {}, "ids"),
+)
+
+
+def phase_stream_step(label, scene, smi):
+    """Kernel 7 widened (every pixel map, NEE) against its plain version
+    on real lane states of the unfused stream at the headline's 131,072
+    lanes after 16 iterations (and until a step retires pixels): under NEE
+    (the shadow count and the env credit), on an affine range (the second
+    half of the frame, as the second of two pixel shards renders it) and
+    on an id list (every other pixel, last first); both rr_modes where NEE
+    allows, the real head and one that sends lanes past n_pix; state,
+    image, regen mask, head, segments, live count and shadow count
+    bit-equal.  Timed with the L2 flushed before each launch
+    (_time_cold), beside the plain version and the bound of the bytes the
+    step must move (step_bytes).  Returns the numbers of each case."""
+    n_frame = HEADLINE["width"] * HEADLINE["height"]
+    numbers = {}
+    for name, over, pixels in STREAM_STEP_CASES:
+        if pixels == "ids":
+            pixels = torch.arange(n_frame - 1, -1, -2, dtype=torch.int32, device="cuda")
+        elif isinstance(pixels, tuple):  # the base as the render's plan holds it: a 0-d tensor on the card
+            pixels = (torch.tensor(pixels[0], dtype=torch.int64, device="cuda"), pixels[1])
+        nee = "env_importance_sampling" in over
+        for rr_mode in ("standard",) if nee else ("reference", "standard"):
+            cfg = RenderConfig(**{**HEADLINE, **over, "rr_mode": rr_mode, "stream_lanes": 131_072})
+            st, tb, head, _, *shadow = lane_state(scene, cfg, Camera(), 16, retiring=True, pixels=pixels)
+            shadow = shadow[0] if shadow else None
+            kw, keys, dev = step_kw(cfg, pixels), state_keys(cfg), scene.device
+            n_pix = kw["n_pix"]
+            seg = torch.tensor(12345, dtype=torch.int64, device=dev)
+
+            def copy():
+                return {k: st[k].clone() for k in keys}
+
+            probe = fs.fused_stream_step_plain(tb, copy(), torch.zeros((n_pix + 1, 3), device=dev), head, seg, shadow,
+                                               **kw)
+            done = int(probe[1]) - int(head)
+            if not done:
+                raise SystemExit(f"[{label} {name}] FAIL: no pixel retires in the step")
+            lines = []
+            for head_in in (head, torch.tensor(n_pix - done // 2, dtype=torch.int64, device=dev)):
+                st_k, st_p = copy(), copy()
+                out_k, out_p = (torch.zeros((n_pix + 1, 3), device=dev) for _ in range(2))
+                got = fs.fused_stream_step_cuda(tb, st_k, out_k, head_in, seg, shadow, **kw)
+                want = fs.fused_stream_step_plain(tb, st_p, out_p, head_in, seg, shadow, **kw)
+                torch.cuda.synchronize()
+                bad = [k for k in keys if not same_bits(st_k[k], st_p[k])]
+                bad += ["out"] * (not same_bits(out_k, out_p)) + ["regen"] * (not torch.equal(got[0], want[0]))
+                bad += [w for w, a, b in zip(("head", "segments", "live", "shadow"), got[1:], want[1:])
+                        if int(a) != int(b)]
+                if bad or len(got) != len(want):
+                    raise SystemExit(f"[{label} {name}] FAIL: fused_step ({rr_mode}) and its plain version differ in "
+                                     f"{bad}")
+                past = int((st_k["slot"] >= n_pix).sum()) - int((st["slot"] >= n_pix).sum())
+                lines.append(f"head {int(head_in)}: {done} retired, {past} past n_pix, {int(got[0].sum())} regen, "
+                             f"{int(got[3])} live" + (f", shadow {int(got[4]) - int(shadow)}" if nee else ""))
+            timing = ""
+            if rr_mode == ("standard" if nee else "reference"):
+                out_k = torch.zeros((n_pix + 1, 3), device=dev)
+                ms = _time_cold(lambda s_: fs.fused_stream_step_cuda(tb, s_, out_k, head, seg, shadow, **kw),
+                                [copy() for _ in range(21)])
+                plain_ms = _time_over(lambda s_: fs.fused_stream_step_plain(tb, s_, out_k, head, seg, shadow, **kw),
+                                      [copy() for _ in range(6)])
+                n_bytes, n_live, n_done = step_bytes(tb, st, probe[0], n_pix, cfg.samples_per_launch,
+                                                     cfg.rr_mode == "reference", nee=nee,
+                                                     ids=isinstance(pixels, torch.Tensor))
+                flops = 15 * n_live + 6 * n_done
+                bound_ms, bound_by = bound(n_bytes, flops)
+                numbers[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                     library_ms=None)
+                timing = (f"; kernel {ms:.4f} ms (L2 flushed before each launch), plain {plain_ms:.4f} ms; "
+                          f"{n_live} live lanes, {n_done} pixels done, {n_bytes} bytes the step must move, {flops} "
+                          f"FLOP: bound {bound_ms:.4f} ms by {bound_by}")
+            print(f"[{label} {name}] {st['slot'].shape[0]} lanes over {n_pix} pixels, {rr_mode}: state, image, regen "
+                  f"mask, head, segments, live{' and shadow' if nee else ''} count bit-equal (0 ulp): "
+                  f"{'; '.join(lines)}{timing} | {smi}")
+    return numbers
+
+
+def path_lane_state(scene, cfg, camera, schedule, n, iters):
+    """render_rays' (schedule "rays": n camera rays, one a pixel) or
+    render_pixels_regen's ("regen": n lanes, one a pixel) buffers after
+    `iters` iterations of trace, plain path step and (regen) respawn, and
+    the payload of the next trace: (buffers, payload, the step's
+    keywords)."""
+    dev = scene.device
+    cam = camera_arrays(camera, cfg, dev)
+    spp = cfg.samples_per_launch
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    o, d, seeds = camera_ops.camera_paths(cam, cfg, 0, 0, n, pix=ids)
+    zeros = torch.zeros((), dtype=torch.int64, device=dev)
+    st = dict(origin=o, direction=d, seeds=seeds, attenuation=torch.ones_like(o), radiance=torch.zeros_like(o),
+              depth=torch.full((n,), cfg.max_depth, dtype=torch.int32, device=dev),
+              done=torch.zeros((), dtype=torch.bool, device=dev), segments=zeros, shadow=zeros.clone(),
+              spec_last=_spec_start(cfg, n, dev))
+    ended = torch.zeros(n, dtype=torch.bool, device=dev)
+    if schedule == "rays":
+        st.update(terminated=ended, result=torch.zeros_like(o))
+    else:
+        st.update(exhausted=ended, sample_i=torch.zeros(n, dtype=torch.int32, device=dev), accum=torch.zeros_like(o))
+    kw = dict(schedule=schedule, spp=spp, max_depth=cfg.max_depth, rr_reference=cfg.rr_mode == "reference",
+              nee=cfg.env_importance_sampling)
+
+    def trace():
+        return _trace_bounce(scene, cfg, st["origin"], st["direction"], st["attenuation"], st["radiance"],
+                             st["seeds"], st["depth"], st["spec_last"])
+
+    tb = trace()
+    for _ in range(iters):
+        regen = fs.path_step_plain(tb, st, **kw)
+        if regen is not None:
+            camera_ops.camera_paths(cam, cfg, 0, 0, n, pix=ids, sample=st["sample_i"], sample_max=spp - 1,
+                                    mask=regen, out=(st["origin"], st["direction"], st["seeds"]))
+        tb = trace()
+    return st, tb, kw
+
+
+def path_bytes(tb, st, kw):
+    """Bytes the path step must move on this state, by what each lane
+    needs: every lane reads its ended flag (1 B) and, in regen, writes its
+    regen byte (1 B); a live lane reads the payload's seed, done flag,
+    attenuation and radiance and writes its seed (41 B), under NEE also
+    its hit flag (1 B); a lane that goes on reads the payload's origin and
+    direction and its depth and writes origin, direction, attenuation,
+    radiance and depth (80 B), under NEE reads the payload's env credit
+    and writes its own (2 B, 8 B under MIS); a lane whose path ends writes
+    its ended flag if it ends (1 B) and its result (12 B) in rays, in
+    regen reads and writes its pixel sum and sample count (32 B), and if
+    it respawns writes attenuation, radiance and depth (28 B) and its env
+    credit; segments (and shadow) are read and written once, `done`
+    written once.  Returns (bytes, live lanes, paths ended)."""
+    regen_schedule = kw["schedule"] == "regen"
+    flag = st["exhausted" if regen_schedule else "terminated"]
+    live = ~flag
+    _, newly, adv, _, _ = fs.roulette(tb, live, kw["rr_reference"])
+    spec = st["spec_last"].element_size() if kw["nee"] else 0
+    n, n_live, n_adv, n_newly = flag.shape[0], int(live.sum()), int(adv.sum()), int(newly.sum())
+    n_bytes = n + n_live * (41 + (1 if kw["nee"] else 0)) + n_adv * (80 + 2 * spec) + 16 + 1
+    if kw["nee"]:
+        n_bytes += 16
+    if regen_schedule:
+        exhausted = newly & (st["sample_i"] + newly.to(torch.int32) >= kw["spp"])
+        n_regen = n_newly - int(exhausted.sum())
+        n_bytes += n + n_newly * 32 + int(exhausted.sum()) + n_regen * (28 + spec)
+    else:
+        n_bytes += n_newly * (1 + 12)
+    return n_bytes, n_live, n_newly
+
+
+# The path step's pools: (name, the schedule, RenderConfig fields over
+# HEADLINE, lanes, iterations before the timed step).  The first is the
+# 1-spp tile of phase 21 (render_rays at 345,600 lanes), the last phase
+# 22's one lane per pixel (render_pixels_regen at 2,073,600 lanes).
+PATH_STEP_CASES = (
+    ("rays, a 1-spp tile", "rays", dict(samples_per_launch=1), 345_600, 2),
+    ("rays, a 1-spp tile, NEE", "rays", dict(NEE, samples_per_launch=1), 345_600, 2),
+    ("regen", "regen", {}, 131_072, 6),
+    ("regen NEE", "regen", NEE, 131_072, 6),
+    ("regen, one lane per pixel", "regen", {}, 2_073_600, 6),
+)
+
+
+def phase_path_step(label, scene, smi):
+    """The path step of render_rays and render_pixels_regen against
+    path_step_plain on real buffers of those schedules (PATH_STEP_CASES,
+    the headline at 1080p, 10 spp): every buffer (the merges, result or
+    pixel sums and sample counts, the ended flags, segments, shadow, the
+    0-d done flag) and the regen mask bit-equal; timed with the L2
+    flushed before each launch (_time_cold), beside the plain version and
+    the bound of the bytes the step must move (path_bytes).  Returns the
+    numbers of the first case (phase 21's shape)."""
+    first = None
+    for name, schedule, over, n, iters in PATH_STEP_CASES:
+        cfg = RenderConfig(**{**HEADLINE, **over})
+        st, tb, kw = path_lane_state(scene, cfg, Camera(), schedule, n, iters)
+
+        def copy():
+            return {k: v.clone() for k, v in st.items()}
+
+        st_k, st_p = copy(), copy()
+        regen_k = fs.path_step_cuda(tb, st_k, **kw)
+        regen_p = fs.path_step_plain(tb, st_p, **kw)
+        torch.cuda.synchronize()
+        bad = [k for k in st if not same_bits(st_k[k], st_p[k])]
+        if regen_p is not None and not torch.equal(regen_k, regen_p):
+            bad.append("regen")
+        if bad:
+            raise SystemExit(f"[{label} {name}] FAIL: path_step and its plain version differ in {bad}")
+        reps = 21 if n < 1_000_000 else 11
+        ms = _time_cold(lambda s_: fs.path_step_cuda(tb, s_, **kw), [copy() for _ in range(reps)])
+        plain_ms = _time_over(lambda s_: fs.path_step_plain(tb, s_, **kw), [copy() for _ in range(6)])
+        n_bytes, n_live, n_newly = path_bytes(tb, st, kw)
+        flops = 15 * n_live + 3 * n_newly
+        bound_ms, bound_by = bound(n_bytes, flops)
+        print(f"[{label} {name}] {schedule}, {n} lanes after {iters} iterations, {cfg.rr_mode}: every buffer, done "
+              f"({bool(st_k['done'])}), segments (+{int(st_k['segments']) - int(st['segments'])})"
+              f"{', shadow (+' + str(int(st_k['shadow']) - int(st['shadow'])) + ')' if kw['nee'] else ''}"
+              f"{' and the regen mask (' + str(int(regen_k.sum())) + ' lanes)' if regen_k is not None else ''} "
+              f"bit-equal (0 ulp); {n_live} live lanes, {n_newly} paths ended; kernel {ms:.4f} ms (L2 flushed before "
+              f"each launch), plain {plain_ms:.4f} ms; {n_bytes} bytes, {flops} FLOP: bound {bound_ms:.4f} ms by "
+              f"{bound_by} | {smi}")
+        if first is None:
+            first = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=None)
+        del st, tb, st_k, st_p
+    return first
+
+
 def phase_fused_render(label, scene, cfg, camera, smi):
-    """Subframe 0 fused and unfused, one timed frame each: images
-    bit-equal, iterations and segments identical.  Returns the fused
-    render's phase_render record."""
+    """Subframe 0 with the fused stream (kernel 7 every iteration) and with
+    the unfused stream under ops.bounce.plain() (its plain step and the
+    shading's plain versions: no step or shading kernel launches), one
+    frame each: images bit-equal, iterations and segments identical, so
+    kernel 7 is held against plain code at the render's full size.
+    Returns the fused render's phase_render record."""
     fused = phase_render(f"{label} fused", scene, cfg.replace(fused_schedule="on"), camera, 1, smi, warm=False,
                          subframe=0)
-    unfused = phase_render(f"{label} unfused", scene, cfg.replace(fused_schedule="off"), camera, 1, smi, warm=False,
-                           subframe=0)
-    if not torch.equal(fused["img"], unfused["img"]):
-        bad = int((fused["img"] != unfused["img"]).sum())
-        raise SystemExit(f"[{label}] FAIL: fused and unfused images differ on {bad} values")
-    if (fused["iters"], fused["segments"]) != (unfused["iters"], unfused["segments"]):
+    cfg_p = cfg.replace(fused_schedule="off")
+    cam = camera_arrays(camera, cfg_p, scene.device)
+    torch.cuda.synchronize()
+    set_counts_zero()
+    t0 = time.perf_counter()
+    with bounce_ops.plain():
+        img, stats = render_frame_stats(scene, cam, cfg_p, 0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    kernels = {KERNELS[k][0]: counts[k] for k in ("k7", "kp") + shading_kernels(cfg.env_importance_sampling)
+               if counts[k]}
+    if stats["schedule"] != "stream" or kernels:
+        raise SystemExit(f"[{label}] FAIL: the plain arm took the {stats['schedule']} schedule and launched {kernels}")
+    plain = dict(img=img, iters=stats["iters"], segments=int(stats["segments"]))
+    if not torch.equal(fused["img"], plain["img"]):
+        bad = int((fused["img"] != plain["img"]).sum())
+        raise SystemExit(f"[{label}] FAIL: the fused kernels' and the unfused plain images differ on {bad} values")
+    if (fused["iters"], fused["segments"]) != (plain["iters"], plain["segments"]):
         raise SystemExit(f"[{label}] FAIL: iterations/segments {fused['iters']}/{fused['segments']} fused vs "
-                         f"{unfused['iters']}/{unfused['segments']} unfused")
-    print(f"[{label}] fused and unfused images bit-equal, {fused['iters']} iterations and {fused['segments']} "
-          f"segments each; s/launch fused {fused['seconds']:.4f} vs unfused {unfused['seconds']:.4f} | {smi}")
+                         f"{plain['iters']}/{plain['segments']} unfused plain")
+    print(f"[{label}] the fused stream (kernel 7) and the unfused stream's plain step (ops.bounce.plain(), no step "
+          f"or shading kernel launched) give bit-equal images, {fused['iters']} iterations and {fused['segments']} "
+          f"segments each; s/launch fused {fused['seconds']:.4f} vs unfused plain {dt:.4f} (one frame each, its "
+          f"graph capture included) | {smi}")
     return fused
 
 
@@ -1355,7 +1643,7 @@ def phase_cli_config4(label, obj4, root, smi):
         route, rows = acc.route(r.cfg), acc.tris16bw.numel() * 4
         if route != "hier" or acc.num_clusters != 766 or rows != 6_275_072:
             raise SystemExit(f"[{label}] FAIL: route {route}, {acc.num_clusters} clusters, {rows} bytes of rows")
-        want = ("k2", "k5") if nee else ("k2", "k7")
+        want = ("k2", "k5", "k7") if nee else ("k2", "k7")
         iters = check_launches(label, counts, log, want)
         if not log[1]["segments"] > 0 or (nee and not log[1]["shadow_segments"] > 0):
             raise SystemExit(f"[{label}] FAIL: no segments traced")
@@ -1364,7 +1652,8 @@ def phase_cli_config4(label, obj4, root, smi):
               f"{rows} bytes of rows, {route} route, {log[1]['schedule']} schedule, 1920x1080 10 spp depth 8: "
               f"s/launch warm {r.frame_times[0]:.4f}, timed {r.frame_times[1]:.4f}; {iters} iterations in 2 launches, "
               f"{sum(e['syncs'] for e in log) / iters:.4f} stream syncs per iteration; launches cluster_hier "
-              f"{counts['k2']}, cluster_occluded_hier {counts['k5']}, fused_step {counts['k7']} | {smi}")
+              f"{counts['k2']}, cluster_occluded_hier {counts['k5']}, fused_step {counts['k7']} (an unfused stream "
+              f"under NEE) | {smi}")
     return out
 
 
@@ -1506,7 +1795,7 @@ def phase_graph_ab(label, scene, hero, root, smi):
         ab = kernels_ab(f"{label} {name} plain vs kernels", scene_n, cam, c, smi, frames=1, order=(True, False))
         counts = {arm: ab[arm]["counts"] for arm in ("plain", "kernels")}
         if counts["kernels"]["random_in_unit_sphere"] or not counts["plain"]["random_in_unit_sphere"] or any(
-                counts["plain"][k] for k in ("bounce", "next_event", "camera_paths")):
+                counts["plain"][k] for k in ("bounce", "next_event", "camera_paths", "path_step")):
             raise SystemExit(f"[{label} {name}] FAIL: launches plain {counts['plain']}, kernels {counts['kernels']}")
         if name == "headline fused":
             plain_counts = counts["plain"]
@@ -1617,15 +1906,43 @@ def nee_bytes(args, b, visible):
     port's own intermediate: only the fields a lane needs count.
     Alias-table rows are not counted: a lower bound."""
     scene, cfg = args[:2]
-    n, mis = b["record"].shape[0], cfg.nee_mis_spec
+    n, mis = b["record"].shape[1], cfg.nee_mis_spec
     n_vis = int(visible.sum())
     n_bytes = n * (4 + (4 if mis else 1)) + int(b["cand"].sum()) + n_vis * (28 + 20 + 12 + 24)
     if mis:
-        flags = b["record"][:, 23].contiguous().view(torch.int32)
+        flags = b["record"][23].view(torch.int32)
         w_b = ((flags & NEE_FLAG_CHOOSE_SPEC) != 0) & ((flags & NEE_FLAG_GLASS) == 0)
         normal = visible | w_b if cfg.nee_defensive_mix else visible
         n_bytes += n_vis * 40 + int(w_b.sum()) * 16 + int(normal.sum()) * 12
     return n_bytes + distinct_rows(env_rows(scene, cfg, b["shadow_dir"][visible]), 48)
+
+
+def bounce_checked(args):
+    """The bounce kernels (_bounce_kernels) and _bounce_plain on `args`:
+    (the bounce kernel's outputs under NEE, else None; the payload fields,
+    and under NEE the shadow rays, candidates and record fields, that
+    differ from the plain version)."""
+    scene, cfg, hit, o, d, att, rad, seeds, depth, spec = args
+    got = _bounce_kernels(*args)
+    want = _bounce_plain(*args)
+    torch.cuda.synchronize()
+    bad = [k for k, w in want.items() if w is not None and not same_bits(got[k], w)]
+    if not cfg.env_importance_sampling:
+        return None, bad
+    b = bounce_ops.bounce(*args)
+    sh = _shade(scene, cfg, hit, o, d, seeds, depth)
+    _, env_dir, pdf, u, v = _light_sample(scene, cfg, sh, sh["seeds"])
+    cand, cos_l = _shadow_candidates(hit.hit, sh, env_dir)
+    rec = b["record"].T
+    pairs = dict(shadow_origin=(b["shadow_origin"], sh["new_origin"]), shadow_dir=(b["shadow_dir"], env_dir),
+                 cand=(b["cand"], cand), normal=(rec[:, 0:3], sh["normal"]), alpha=(rec[:, 3], sh["alpha"]),
+                 spec_prob=(rec[:, 4], sh["spec_prob"]), idotn=(rec[:, 5], sh["idotn"]),
+                 brdf=(rec[:, 6:9], sh["brdf_combined"]), f_vec=(rec[:, 9:12], sh["f_vec"]),
+                 albedo=(rec[:, 12:15], sh["diffuse_albedo"]), spec_dir=(rec[:, 15:18], sh["spec_dir"]),
+                 spec_pdf=(rec[:, 18], sh["spec_pdf"]), pdf=(rec[:, 19], pdf), u=(rec[:, 20], u),
+                 v=(rec[:, 21], v), cos_l=(rec[:, 22], cos_l))
+    torch.cuda.synchronize()
+    return b, bad + [k for k, (g, w) in pairs.items() if not same_bits(g.contiguous(), w)]
 
 
 def phase_bounce_kernel(label, cases, smi):
@@ -1633,9 +1950,9 @@ def phase_bounce_kernel(label, cases, smi):
     shadow rays and the NEE kernel) against its plain version,
     _bounce_plain, on each case's rays (shade_inputs): every payload field
     bit-equal, and under NEE the shadow rays, candidates and record equal
-    _shade's, _light_sample's and _shadow_candidates'; the kernel's device
-    time (the bounce kernel alone, 50 launches each after an L2 flush:
-    _time_cold), the plain version's (under NEE: both
+    _shade's, _light_sample's and _shadow_candidates' (bounce_checked);
+    the kernel's device time (the bounce kernel alone, 50 launches each
+    after an L2 flush: _time_cold), the plain version's (under NEE: both
     kernels against _bounce_plain, the any-hit answer fixed on both
     sides), and the bound.  Returns the numbers of the first case."""
     import tpu_pathtracer_torch.render.integrator as integrator
@@ -1645,30 +1962,12 @@ def phase_bounce_kernel(label, cases, smi):
         args = shade_inputs(scene, cfg, camera, n_cam)
         _, _, hit, o, d, att, rad, seeds, depth, spec = args
         nee = cfg.env_importance_sampling
-        got = _bounce_kernels(*args)
-        want = _bounce_plain(*args)
-        torch.cuda.synchronize()
-        bad = [k for k, w in want.items() if w is not None and not same_bits(got[k], w)]
-        if nee:
-            b = bounce_ops.bounce(*args)
-            sh = _shade(scene, cfg, hit, o, d, seeds, depth)
-            _, env_dir, pdf, u, v = _light_sample(scene, cfg, sh, sh["seeds"])
-            cand, cos_l = _shadow_candidates(hit.hit, sh, env_dir)
-            rec = b["record"]
-            pairs = dict(shadow_origin=(b["shadow_origin"], sh["new_origin"]), shadow_dir=(b["shadow_dir"], env_dir),
-                         cand=(b["cand"], cand), normal=(rec[:, 0:3], sh["normal"]), alpha=(rec[:, 3], sh["alpha"]),
-                         spec_prob=(rec[:, 4], sh["spec_prob"]), idotn=(rec[:, 5], sh["idotn"]),
-                         brdf=(rec[:, 6:9], sh["brdf_combined"]), f_vec=(rec[:, 9:12], sh["f_vec"]),
-                         albedo=(rec[:, 12:15], sh["diffuse_albedo"]), spec_dir=(rec[:, 15:18], sh["spec_dir"]),
-                         spec_pdf=(rec[:, 18], sh["spec_pdf"]), pdf=(rec[:, 19], pdf), u=(rec[:, 20], u),
-                         v=(rec[:, 21], v), cos_l=(rec[:, 22], cos_l))
-            torch.cuda.synchronize()
-            bad += [k for k, (g, w) in pairs.items() if not same_bits(g.contiguous(), w)]
+        b, bad = bounce_checked(args)
         if bad:
             raise SystemExit(f"[{label} {name}] FAIL: the bounce kernel and its plain version differ in {bad}")
         n = o.shape[0]
-        ms = _time_cold(lambda a: bounce_ops.bounce(*a), [args] * 51)
         if nee:
+            ms = _time_cold(lambda a: bounce_ops.bounce(*a), [args] * 51)
             occ = scene.accel.occluded(scene.vertices, b["shadow_origin"], b["shadow_dir"], cfg.t_min, cfg.t_max, cfg,
                                        active=b["cand"])
             real = integrator.occluded_scene
@@ -1679,9 +1978,10 @@ def phase_bounce_kernel(label, cases, smi):
                 integrator.occluded_scene = real
             pair_ms = _time_cold(lambda bb: bounce_ops.next_event(scene, cfg, bb, occ, d, att),
                                  [dict(b, radiance=b["radiance"].clone()) for _ in range(51)]) + ms
-            what = (f"bounce kernel {ms:.4f} ms, with the NEE kernel {pair_ms:.4f} ms (L2 flushed before each launch); "
-                    f"plain (occlusion fixed) {plain_ms:.4f} ms")
+            what = (f"bounce kernel {ms:.4f} ms, with the NEE kernel {pair_ms:.4f} ms (L2 flushed before each "
+                    f"launch); plain (occlusion fixed) {plain_ms:.4f} ms")
         else:
+            ms = _time_cold(lambda a: bounce_ops.bounce(*a), [args] * 51)
             plain_ms = _time_ms(lambda: _bounce_plain(*args), 5)
             what = f"kernel {ms:.4f} ms (L2 flushed before each launch), plain {plain_ms:.4f} ms"
         n_bytes = bounce_bytes(args, b["cand"] if nee else None)
@@ -1714,13 +2014,13 @@ def phase_nee_kernel(label, cases, smi):
         occ = scene.accel.occluded(scene.vertices, b["shadow_origin"], b["shadow_dir"], cfg.t_min, cfg.t_max, cfg,
                                    active=b["cand"])
         pre = b["radiance"].clone()
-        got_spec = bounce_ops.next_event(scene, cfg, b, occ, d, att)
         real = integrator.occluded_scene
         integrator.occluded_scene = lambda *a, **k: occ
         try:
             want = _bounce_plain(*args)
         finally:
             integrator.occluded_scene = real
+        got_spec = bounce_ops.next_event(scene, cfg, b, occ, d, att)
         torch.cuda.synchronize()
         if not (same_bits(b["radiance"], want["radiance"]) and same_bits(got_spec, want["spec_last"])):
             raise SystemExit(f"[{label} {name}] FAIL: the NEE kernel and its plain version differ")
@@ -1736,7 +2036,7 @@ def phase_nee_kernel(label, cases, smi):
         torch.cuda.synchronize()
         if not (same_bits(r_p, want["radiance"]) and same_bits(s_p, want["spec_last"])):
             raise SystemExit(f"[{label} {name}] FAIL: _nee_weights differs from _bounce_plain")
-        ms = _time_cold(lambda bb: bounce_ops.next_event(scene, cfg, bb, occ, d, att),
+        ms = _time_cold(lambda x: bounce_ops.next_event(scene, cfg, x, occ, d, att),
                         [dict(b, radiance=pre.clone()) for _ in range(51)])
         plain_ms = _time_ms(plain, 10)
         visible = b["cand"] & ~occ
@@ -1841,8 +2141,10 @@ def phase_shard_one(label, scene, cfg, smi):
     depth 8) sharded by pixels and by samples.  Pixels must equal this
     process's render_frame bit for bit, samples within rtol 2e-4 / atol
     2e-5; s/launch of each beside the unsharded frame's.  Pixel sharding
-    passes an affine range, which takes the unfused stream (kernel 1, not
-    kernel 7); sample sharding renders the whole frame (fused stream)."""
+    passes an affine range, which takes the unfused stream (kernel 7
+    reads the range's base on the device); sample sharding renders the
+    whole frame (fused stream).  Kernel 7 launches once an iteration of
+    each."""
     initialize_distributed("cuda", init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0)
     try:
         backend, mesh = dist.get_backend(), make_mesh()
@@ -1864,9 +2166,10 @@ def phase_shard_one(label, scene, cfg, smi):
     if not torch.allclose(samples, single, **SHARD_TOLERANCE):
         raise SystemExit(f"[{label}] FAIL: sample-sharded frame beyond rtol 2e-4 / atol 2e-5: "
                          f"max abs difference {float((samples - single).abs().max())}")
-    check_kernels(label, c_single, ("k1", "k7"))
-    check_kernels(label, c_pixels, ("k1",))
-    check_kernels(label, c_samples, ("k1", "k7"))
+    for counts in (c_single, c_pixels, c_samples):
+        check_kernels(label, counts, ("k1", "k7"))
+        if counts["k7"] != counts["kb"]:  # the bounce kernel launches once an iteration
+            raise SystemExit(f"[{label}] FAIL: {counts['k7']} fused_step launches in {counts['kb']} iterations")
     print(f"[{label}] NCCL group of one, 1920x1080 10 spp depth 8: pixels bit-equal to render_frame, samples max "
           f"abs difference {float((samples - single).abs().max()):.3g} (rtol 2e-4 / atol 2e-5); s/launch unsharded "
           f"{t_single:.4f}, pixels {t_pixels:.4f}, samples {t_samples:.4f}; launches unsharded: {launched(c_single)}; "
@@ -1944,8 +2247,11 @@ def phase_shard_two(label, root, paths, smi):
                 raise SystemExit(f"[{label}] FAIL: {key} beyond rtol 2e-4 / atol 2e-5")
             for rank, r in enumerate(ranks):
                 counts = dict(zip(KERNELS, r[f"{key}_counts"].tolist()))
-                want = ("k1", "k4") if case == "nee" else ("k1", "k7") if mode == "samples" else ("k1",)
+                want = ("k1", "k4", "k7") if case == "nee" else ("k1", "k7")
                 check_kernels(f"{label} rank {rank} {key}", counts, want)
+                if counts["k7"] != counts["kb"]:  # the bounce kernel launches once an iteration
+                    raise SystemExit(f"[{label} rank {rank} {key}] FAIL: {counts['k7']} fused_step launches in "
+                                     f"{counts['kb']} iterations")
             secs = " ".join(f"{float(r[key + '_seconds']):.4f}" for r in ranks)
             rank0 = launched(dict(zip(KERNELS, ranks[0][key + "_counts"].tolist())))
             parts.append(f"{key}: {secs} s ({rank0} on rank 0)")
@@ -1957,7 +2263,7 @@ def phase_shard_two(label, root, paths, smi):
         raise SystemExit(f"[{label}] FAIL: the CLI's --shard pixels PNG differs from --shard none's")
     if sharded.mesh is None or sharded.mesh.size != 1 or dist.is_initialized():
         raise SystemExit(f"[{label}] FAIL: the CLI did not render in a group of one, or left it")
-    check_kernels(label, c_sharded, ("k1",))
+    check_kernels(label, c_sharded, ("k1", "k7"))
     print(f"[{label}] gloo, {SHARD_WORLD} ranks on cuda:0, 320x240 10 spp depth 8: pixels bit-equal to render_frame, "
           f"samples within rtol 2e-4 / atol 2e-5, every rank the same frame; s/launch by rank: {'; '.join(parts)}; "
           f"CLI --shard pixels (group of one) PNG byte-equal to --shard none (cli.run {t_sharded:.4f} vs "
@@ -1999,8 +2305,7 @@ def phase_deferred(label, hero, root, smi):
                 torch.cuda.synchronize()
             events = device_events(prof)
             iters = sum(f[1]["iters"] for f in frames)
-            want = ("k1", "k7") if frames[0][1]["schedule"] == "stream_fused" else ("k1",)
-            check_kernels(f"{label} {name}", counts, want)
+            check_kernels(f"{label} {name}", counts, ("k1", STEP_KERNEL[frames[0][1]["schedule"]]))
             res[on] = dict(frames=frames, iters=iters, syncs=syncs / iters, counts=counts,
                            busy=sum(sec for _, sec in events.values()),
                            kernels=sum(n for n, _ in events.values()) / pstats["iters"])
@@ -2037,8 +2342,9 @@ def phase_oracle(label, smi):
         if scene.accel.route(cfg) != "flat":
             raise SystemExit(f"[{label}] FAIL: {name} routes to {scene.accel.route(cfg)}, not flat")
         cam = camera_arrays(Camera(**eye), cfg, "cuda")
-        img, _, counts = timed(lambda: render_frame(scene, cam, cfg, 0))
-        check_kernels(f"{label} {name}", counts, ("k1", "k4") if cfg.env_importance_sampling else ("k1",))
+        (img, stats), _, counts = timed(lambda: render_frame_stats(scene, cam, cfg, 0))
+        check_kernels(f"{label} {name}", counts, ("k1", STEP_KERNEL[stats["schedule"]])
+                      + (("k4",) if cfg.env_importance_sampling else ()))
         t0 = time.perf_counter()
         want = oracle.render(scene, cam, cfg, range(cfg.width * cfg.height), 0)
         t_oracle = time.perf_counter() - t0
@@ -2136,8 +2442,7 @@ def bench_preset(name, argv, phase, differ, renders, smi):
                          f"0: {ref['first']}, {ref['triangles']} triangles")
     route, nee = scene.accel.route(cfg), cfg.env_importance_sampling
     iters = sum(int(stats["iters"]) for stats in frames)
-    want = ((ROUTE_KERNELS[route] if nee else ROUTE_KERNELS[route][:1])
-            + (("k7",) if detail["schedule"] == "stream_fused" else ()))
+    want = (ROUTE_KERNELS[route] if nee else ROUTE_KERNELS[route][:1]) + (STEP_KERNEL[detail["schedule"]],)
     for kid in want:
         if counts[kid] < iters:
             raise SystemExit(f"[{name}] FAIL: {counts[kid]} {KERNELS[kid][0]} launches for {iters} iterations")
@@ -2228,12 +2533,16 @@ def main() -> int:
 
     numbers["k7"] = phase_fused_kernel("18 kernel 7", {"headline": scene, "config 1": config1_scene("cuda")}, smi,
                                        args.parent)
+    stream_steps = phase_stream_step("18b kernel 7 widened", scene, smi)
+    numbers["kp"] = phase_path_step("18c path step", scene, smi)
     launches["k7"] = phase_fused_render("19 render headline", scene, cfg, Camera(), smi)["counts"]["k7"]
     renders["20"] = phase_fused_render("20 render config 1", config1_scene("cuda"), RenderConfig(**CONFIG1), Camera(),
                                        smi)
     one_spp = cfg.replace(samples_per_launch=1, tile_pixels=345_600)
-    if phase_render("21 render 1 spp", scene, one_spp, Camera(), 1, smi, warm=False)["schedule"] != "rays":
+    tiles = phase_render("21 render 1 spp", scene, one_spp, Camera(), 1, smi, warm=False)
+    if tiles["schedule"] != "rays":
         raise SystemExit("[21 render 1 spp] FAIL: the frame did not take render_rays")
+    launches["kp"] = tiles["counts"]["kp"]
     per_pixel = cfg.replace(stream_lanes=2_097_152)
     if phase_render("22 render one lane per pixel", scene, per_pixel, Camera(), 1, smi, warm=False)["schedule"] != "regen":
         raise SystemExit("[22 render one lane per pixel] FAIL: the frame did not take render_pixels_regen")
@@ -2286,10 +2595,14 @@ def main() -> int:
 
     # `launches` is the main path's count; the sampler, which launches only
     # on the plain versions' path since the bounce kernel runs its loop,
-    # also gives phase 34's plain arm's count as `plain_arm_launches`.
+    # also gives phase 34's plain arm's count as `plain_arm_launches`;
+    # kernel 7 also gives its launches in phase 14's NEE render and its
+    # numbers off the fused stream's envelope (phase 18b) as `widened`.
+    extra = {"ks": dict(plain_arm_launches=plain_arm["ks"]),
+             "k7": dict(launches_nee=renders["14"]["counts"]["k7"], widened=stream_steps)}
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches[kid], **numbers[kid],
-             **({"plain_arm_launches": plain_arm[kid]} if kid in plain_arm else {}))
+             **extra.get(kid, {}))
         for kid, (name, source, replaces, *_) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

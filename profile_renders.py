@@ -26,16 +26,17 @@ git-ignored).  --wall times each frame without the profiler instead and
 prints its wall time (s/launch) alone.
 
 --plain-ab NAME ... compares, on each named render at its full config,
-the shading kernels (the bounce, NEE and camera kernels, the default on
-the card) with their plain versions (`ops.bounce.plain()`), both
+the kernels (the bounce, NEE and camera kernels, kernel 7 off the fused
+stream and the path step, the default on the card) with their plain
+versions (`ops.bounce.plain()`; the fused stream keeps kernel 7), both
 graphed: each arm's first frame at subframe 0 captures (the graph pool's
 bytes), then --frames frames each way in the order plain, kernels,
 kernels, plain (s/launch, images and stats bit-equal across the arms),
 then one profiled frame of each arm: device busy time, idle share,
 device kernels per iteration, the device time by kernel family (the
-traversal kernels, the shading kernels, kernel 7, the sampler, and the
-rest: PyTorch's eager ops, copies and memsets) and the largest of the
-rest.
+traversal kernels, the shading kernels, the schedule steps: kernel 7 and
+the path step, the sampler, and the rest: PyTorch's eager ops, copies and
+memsets) and the largest of the rest.
 
 --ab NAME ... compares the loop run eagerly (`graph_loop.eager()`) with
 the graphed loop (each iteration one replay of a captured CUDA graph) on
@@ -83,13 +84,15 @@ from tpu_pathtracer_torch.render.integrator import render_frame_stats
 from tpu_pathtracer_torch.scene.scenefile import load_scene_file
 
 # The device functions of the port's kernels (csrc/): the six traversals
-# (one body, with its packet-weight pre-pass), the fused schedule step,
-# the unit-ball sampler, and the shading kernels: the bounce kernel (and
-# its deferred entry point), the NEE kernel and the camera kernel.
-KERNELS = ("streamed_kernel", "packet_weight_kernel", "fused_step_kernel", "unit_sphere_kernel", "bounce_kernel",
-           "shade_lanes_kernel", "nee_kernel", "camera_kernel")
+# (one body, with its packet-weight pre-pass), the schedule steps (kernel
+# 7 and the path step), the unit-ball sampler, and the shading kernels:
+# the bounce kernel (and its deferred entry point), the NEE kernel and the
+# camera kernel.
+KERNELS = ("streamed_kernel", "packet_weight_kernel", "fused_step_kernel", "path_step_kernel", "unit_sphere_kernel",
+           "bounce_kernel", "shade_lanes_kernel", "nee_kernel", "camera_kernel")
 # kernel_label's families, for the device time split of --plain-ab
-FAMILIES = {"traversal": ("streamed_kernel", "packet_weight_kernel"), "fused step": ("fused_step_kernel",),
+FAMILIES = {"traversal": ("streamed_kernel", "packet_weight_kernel"),
+            "schedule step": ("fused_step_kernel", "path_step_kernel"),
             "sampler": ("unit_sphere_kernel",),
             "shading": ("bounce_kernel", "shade_lanes_kernel", "nee_kernel", "camera_kernel")}
 

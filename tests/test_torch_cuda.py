@@ -510,8 +510,9 @@ def test_fused_step_matches_plain(cuda, rr_mode):
 @pytest.mark.parametrize("rr_mode", ["reference", "standard"])
 def test_fused_render_bitwise_on_card(cuda, rr_mode):
     """The fused schedule's render on the card (kernel 7 every iteration)
-    equals the unfused render on the card bit for bit, with the same
-    iterations and segments."""
+    equals the unfused render under ops.bounce.plain() (its plain step,
+    no kernel 7 launch) bit for bit, with the same iterations and
+    segments."""
     res = {}
     scene = build_accel(procedural.three_spheres_scene(8, 16, device=cuda))
     for mode in ("on", "off"):
@@ -519,7 +520,8 @@ def test_fused_render_bitwise_on_card(cuda, rr_mode):
                            intersector="cluster", env_mode="sunsky", rr_mode=rr_mode, fused_schedule=mode)
         assert _fused_stream_ok(cfg, None, 512, cuda) == (mode == "on")
         before = fs.fused_stream_step.launches
-        img, stats = render_frame_stats(scene, camera_arrays(Camera(), cfg, cuda), cfg, 0)
+        with bounce_ops.plain() if mode == "off" else contextlib.nullcontext():
+            img, stats = render_frame_stats(scene, camera_arrays(Camera(), cfg, cuda), cfg, 0)
         launches = fs.fused_stream_step.launches - before
         assert launches == (stats["iters"] if mode == "on" else 0)
         res[mode] = (img, stats["iters"], int(stats["segments"]))
@@ -597,6 +599,210 @@ def test_fused_step_repeats_on_one_scratch(cuda, lanes):
         bad += (head_k != want[1]).long() + (seg_k != want[2]).long() + (live_k != want[3]).long()
     assert int(bad) == 0
     assert int(want[1]) > int(head)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 7 widened (every pixel map, NEE) and the path step of render_rays
+# and render_pixels_regen (csrc/fused_schedule.cu) against their plain
+# versions, bit for bit
+# ---------------------------------------------------------------------------
+
+STEP_NEE = ("off", "on", "mis")  # NEE off; on, its env credit bool; under nee_mis_spec, float32
+STEP_POOLS = (16384, 131072, 100003)
+
+
+def nee_fields(tb, st, lanes, nee, seed, dev):
+    """Under NEE: the payload's hit flags and env credits and the lanes'
+    env credits (bool, or float32 weights in [0, 1] under MIS), from a
+    numpy seed, added to tb and st."""
+    if nee == "off":
+        return None
+    rs = np.random.RandomState(seed)
+    if nee == "mis":
+        spec = lambda: torch.as_tensor(rs.uniform(0, 1, lanes).astype(np.float32)).to(dev)  # noqa: E731
+    else:
+        spec = lambda: torch.as_tensor(rs.rand(lanes) < 0.5).to(dev)  # noqa: E731
+    tb["hit"] = torch.as_tensor(rs.rand(lanes) < 0.7).to(dev)
+    tb["spec_last"], st["spec_last"] = spec(), spec()
+    return torch.tensor(77, device=dev)
+
+
+def pixel_map(kind, n_pix, seed, dev):
+    """A stream step's pixel map keywords: the identity, an affine range's
+    0-d base, or an id table (a permutation of pixels)."""
+    if kind == "range":
+        return dict(base=torch.tensor(123457, device=dev))
+    if kind == "ids":
+        perm = np.random.RandomState(seed).permutation(2 * n_pix)[:n_pix].astype(np.int32)
+        return dict(ids=torch.as_tensor(perm).to(dev))
+    return {}
+
+
+def stream_step_pair(tb, st, n_pix, head, segments, shadow, kw):
+    """The kernel and the plain version on copies of the same state:
+    (kernel state, plain state, kernel image, plain image, kernel result,
+    plain result)."""
+    st_k = {k: v.clone() for k, v in st.items()}
+    st_p = {k: v.clone() for k, v in st.items()}
+    out_k = torch.zeros((n_pix + 1, 3), device=head.device)
+    out_p = torch.zeros_like(out_k)
+    got = fs.fused_stream_step_cuda(tb, st_k, out_k, head, segments, shadow, **kw)
+    want = fs.fused_stream_step_plain(tb, st_p, out_p, head, segments, shadow, **kw)
+    torch.cuda.synchronize()
+    return st_k, st_p, out_k, out_p, got, want
+
+
+def assert_stream_step_equal(st_k, st_p, out_k, out_p, got, want, what=""):
+    for key in st_p:
+        assert same_bits(st_k[key], st_p[key]), (what, key)
+    assert same_bits(out_k, out_p) and torch.equal(got[0], want[0]), what
+    assert [int(x) for x in got[1:]] == [int(x) for x in want[1:]], what
+
+
+@pytest.mark.parametrize("lanes", STEP_POOLS)
+@pytest.mark.parametrize("rr_mode", ["reference", "standard"])
+@pytest.mark.parametrize("nee", STEP_NEE)
+@pytest.mark.parametrize("pixels", ["identity", "range", "ids"])
+def test_stream_step_every_map_matches_plain(cuda, pixels, nee, rr_mode, lanes):
+    """Kernel 7 on every pixel map (the identity, an affine range whose
+    base it reads on the device, an id table), NEE off and on (the shadow
+    count and the env credit, bool or float32), both rr_modes, pools of
+    16,384, 131,072 and 100,003 lanes (no multiple of 256): the state, the
+    image, the regen mask, head, segments, the live count and the shadow
+    count bit-equal to the plain version; one launch counted."""
+    seed = lanes + 7 * STEP_NEE.index(nee) + (rr_mode == "standard")
+    tb, st, n_pix, head, segments = step_state(lanes, seed, cuda)
+    shadow = nee_fields(tb, st, lanes, nee, seed, cuda)
+    st["lane_accum"][::97] = -0.0  # the plain version's + 0.0 makes them +0.0
+    kw = dict(spp=3, n_pix=n_pix, max_depth=4, rr_reference=rr_mode == "reference", inv_spp=1.0 / 3,
+              **pixel_map(pixels, n_pix, seed, cuda))
+    before = fs.fused_stream_step.launches
+    got = fs.fused_stream_step(tb, {k: v.clone() for k, v in st.items()},
+                               torch.zeros((n_pix + 1, 3), device=cuda), head, segments, shadow, **kw)
+    assert fs.fused_stream_step.launches == before + 1 and len(got) == (4 if shadow is None else 5)
+    result = stream_step_pair(tb, st, n_pix, head, segments, shadow, kw)
+    assert_stream_step_equal(*result)
+    assert int(result[4][1]) > n_pix  # lanes retire past the queue's end
+
+
+def test_stream_step_nee_32_steps_on_one_scratch(cuda):
+    """32 consecutive stream steps under NEE on an id-table map, each
+    step's state, head, segments and shadow count fed to the next, with
+    no zeroing of the scratch: the grid sum of the shadow count clears
+    itself and kernel and plain version stay bit-equal at every step."""
+    lanes = 131072
+    _, st, n_pix, head, segments = step_state(lanes, 17, cuda)
+    kw = dict(spp=3, n_pix=n_pix, max_depth=4, rr_reference=False, inv_spp=1.0 / 3, **pixel_map("ids", n_pix, 3, cuda))
+    tb0 = step_state(lanes, 99, cuda)[0]
+    shadow = nee_fields(tb0, st, lanes, "on", 5, cuda)
+    st_k = {k: v.clone() for k, v in st.items()}
+    st_p = {k: v.clone() for k, v in st.items()}
+    out_k = torch.zeros((n_pix + 1, 3), device=cuda)
+    out_p = torch.zeros_like(out_k)
+    res_k = res_p = (None, head, segments, None, shadow)
+    for step in range(32):
+        tb = step_state(lanes, 200 + step, cuda)[0]
+        nee_fields(tb, {}, lanes, "on", 300 + step, cuda)
+        res_k = fs.fused_stream_step_cuda(tb, st_k, out_k, res_k[1], res_k[2], res_k[4], **kw)
+        res_p = fs.fused_stream_step_plain(tb, st_p, out_p, res_p[1], res_p[2], res_p[4], **kw)
+        torch.cuda.synchronize()
+        assert_stream_step_equal(st_k, st_p, out_k, out_p, res_k, res_p, step)
+    assert int(res_k[4]) > int(shadow)
+
+
+def path_state(lanes, seed, dev, schedule, nee):
+    """render_rays' or render_pixels_regen's buffers and a trace payload,
+    from a numpy seed, as path_step takes them: a third of the lanes
+    ended, payload attenuations with zeros, values above 1 and NaNs."""
+    tb, st_s, _, _, _ = step_state(lanes, seed, dev)
+    rs = np.random.RandomState(seed + 1)
+    st = {k: st_s[k] for k in ("origin", "direction", "attenuation", "radiance", "seeds", "depth")}
+    ended = torch.as_tensor(rs.rand(lanes) < 0.3).to(dev)
+    st.update(done=torch.tensor(False, device=dev), segments=torch.tensor(1000, device=dev),
+              shadow=torch.tensor(50, device=dev), spec_last=torch.ones(lanes, dtype=torch.bool, device=dev))
+    if schedule == "rays":
+        st.update(terminated=ended, result=torch.as_tensor(rs.uniform(0, 3, (lanes, 3)).astype(np.float32)).to(dev))
+    else:
+        st.update(exhausted=ended, sample_i=torch.as_tensor(rs.randint(0, 3, lanes).astype(np.int32)).to(dev),
+                  accum=torch.as_tensor(rs.uniform(0, 6, (lanes, 3)).astype(np.float32)).to(dev))
+        st["accum"][::97] = -0.0  # the plain version's + 0.0 makes them +0.0
+    if nee != "off":
+        nee_fields(tb, st, lanes, nee, seed + 2, dev)
+    return tb, st
+
+
+def path_step_pair(tb, st, kw):
+    st_k = {k: v.clone() for k, v in st.items()}
+    st_p = {k: v.clone() for k, v in st.items()}
+    regen_k = fs.path_step_cuda(tb, st_k, **kw)
+    regen_p = fs.path_step_plain(tb, st_p, **kw)
+    torch.cuda.synchronize()
+    return st_k, st_p, regen_k, regen_p
+
+
+def assert_path_step_equal(st_k, st_p, regen_k, regen_p, what=""):
+    for key in st_p:
+        assert same_bits(st_k[key], st_p[key]), (what, key)
+    assert (regen_k is None and regen_p is None) or torch.equal(regen_k, regen_p), what
+
+
+@pytest.mark.parametrize("lanes", STEP_POOLS)
+@pytest.mark.parametrize("rr_mode", ["reference", "standard"])
+@pytest.mark.parametrize("nee", STEP_NEE)
+@pytest.mark.parametrize("schedule", ["rays", "regen"])
+def test_path_step_matches_plain(cuda, schedule, nee, rr_mode, lanes):
+    """The path step of render_rays and render_pixels_regen, NEE off and
+    on (bool and float32 env credits), both rr_modes, pools of 16,384,
+    131,072 and 100,003 lanes: every buffer (the merges, result or accum
+    and sample_i, the ended flags, segments, shadow and the 0-d done flag)
+    and the regen mask bit-equal to path_step_plain; one launch counted."""
+    seed = lanes + 7 * STEP_NEE.index(nee) + (rr_mode == "standard") + 3 * (schedule == "regen")
+    tb, st = path_state(lanes, seed, cuda, schedule, nee)
+    kw = dict(schedule=schedule, spp=3, max_depth=4, rr_reference=rr_mode == "reference", nee=nee != "off")
+    before = fs.path_step.launches
+    fs.path_step(tb, {k: v.clone() for k, v in st.items()}, **kw)
+    assert fs.path_step.launches == before + 1
+    assert_path_step_equal(*path_step_pair(tb, st, kw))
+
+
+@pytest.mark.parametrize("schedule", ["rays", "regen"])
+def test_path_step_32_steps_on_one_scratch(cuda, schedule):
+    """32 consecutive path steps under NEE on one pool, each step's buffers
+    fed to the next, with no zeroing of the scratch: the self-clearing grid
+    sums (segments, shadow, done) and every buffer stay bit-equal to the
+    plain version at every step, until every lane has ended (the last
+    steps' payloads end every path) and `done` turns true."""
+    lanes = 131072
+    tb, st = path_state(lanes, 21, cuda, schedule, "on")
+    kw = dict(schedule=schedule, spp=3, max_depth=4, rr_reference=False, nee=True)
+    st_k = {k: v.clone() for k, v in st.items()}
+    st_p = {k: v.clone() for k, v in st.items()}
+    for step in range(32):
+        tb = path_state(lanes, 400 + step, cuda, schedule, "on")[0]
+        if step >= 24:
+            tb["done"].fill_(True)
+        regen_k = fs.path_step_cuda(tb, st_k, **kw)
+        regen_p = fs.path_step_plain(tb, st_p, **kw)
+        torch.cuda.synchronize()
+        assert_path_step_equal(st_k, st_p, regen_k, regen_p, step)
+    assert bool(st_k["done"]) and int(st_k["segments"]) > 1000 + lanes
+
+
+def test_path_step_refuses_other_devices(cuda):
+    """The path step's kernel takes CUDA tensors only, and no schedule but
+    rays and regen; on the card, path_step runs the kernel outside
+    ops.bounce.plain() and the plain version under it."""
+    tb, st = path_state(256, 3, "cpu", "rays", "off")
+    kw = dict(schedule="rays", spp=1, max_depth=4, rr_reference=True, nee=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        fs.path_step_cuda(tb, st, **kw)
+    tb, st = path_state(256, 3, cuda, "rays", "off")
+    with pytest.raises(ValueError, match="schedule"):
+        fs.path_step_cuda(tb, st, **dict(kw, schedule="stream"))
+    before = fs.path_step.launches
+    with bounce_ops.plain():
+        fs.path_step(tb, st, **kw)
+    assert fs.path_step.launches == before
 
 
 # The seeds whose lanes need the most rejection draws of all 2^32 u32
@@ -880,6 +1086,7 @@ GRAPH_SCHEDULES = {
     "stream_ids": ({}, "ids"),
     "regen": (dict(stream_lanes=4096), None),
     "rays": (dict(samples_per_launch=1), None),
+    "rays_ids": (dict(samples_per_launch=1), "ids"),  # a 1-spp tile: render_rays on an id list
 }
 # (subframe, camera, sample_offset) of the frames one plan renders
 GRAPH_FRAMES = ((0, 0, 0), (1, 0, 0), (2, 1, 2))
@@ -1066,7 +1273,7 @@ def test_bounce_kernel_nee_record_matches_plain(cuda, name):
     sh = integrator._shade(scene, cfg, hit, o, d, seeds, depth)
     _, env_dir, pdf, u, v = integrator._light_sample(scene, cfg, sh, sh["seeds"])
     cand, cos_l = integrator._shadow_candidates(hit.hit, sh, env_dir)
-    rec = b["record"]
+    rec = b["record"].T
     got = dict(shadow_origin=b["shadow_origin"], shadow_dir=b["shadow_dir"], cand=b["cand"], normal=rec[:, 0:3],
                alpha=rec[:, 3], spec_prob=rec[:, 4], idotn=rec[:, 5], brdf_combined=rec[:, 6:9], f_vec=rec[:, 9:12],
                diffuse_albedo=rec[:, 12:15], spec_dir=rec[:, 15:18], spec_pdf=rec[:, 18], pdf=rec[:, 19],
@@ -1160,12 +1367,14 @@ def test_camera_kernel_matches_plain(cuda, dof, lanes):
 @pytest.mark.parametrize("which", list(GRAPH_SCHEDULES))
 @pytest.mark.parametrize("nee", [False, True], ids=["plain", "nee"])
 def test_renders_equal_under_plain(cuda, monkeypatch, nee, which):
-    """Every schedule (the affine range included), graphed and eager, with
-    the kernels and under ops.bounce.plain(): images, iterations, segments
-    and shadow segments bit-equal.  Launches: the bounce kernel once an
-    iteration, the NEE kernel once under NEE, the camera kernel once an
-    iteration of the stream and regen schedules and once a frame's set-up,
-    none of them under plain(); replays run under
+    """Every schedule (the affine range and the id list included), graphed
+    and eager, with the kernels and under ops.bounce.plain(): images,
+    iterations, segments and shadow segments bit-equal.  Launches: the
+    bounce kernel once an iteration, the NEE kernel once under NEE, the
+    camera kernel once an iteration of the stream and regen schedules and
+    once a frame's set-up, kernel 7 once an iteration of every stream and
+    the path step once an iteration of rays and regen; none of them under
+    plain() but the fused stream's kernel 7; replays run under
     torch.cuda.set_sync_debug_mode("error")."""
     from tpu_pathtracer_torch.ops import camera as camera_ops
 
@@ -1198,10 +1407,14 @@ def test_renders_equal_under_plain(cuda, monkeypatch, nee, which):
             for k in ("iters", "segments", "shadow_segments"):
                 assert int(st[k]) == int(st_r[k]), (key, k)
             shading = (counts["bounce"], counts["next_event"], counts["camera_paths"])
+            iters, stream = st["iters"], st["schedule"].startswith("stream")
+            # kernel 7 (the fused stream keeps it under plain()) and the path step
+            steps = (counts["fused_stream_step"], counts["path_step"])
             if key[0] == "plain":
                 assert shading == (0, 0, 0), key
+                assert steps == (iters if st["schedule"] == "stream_fused" else 0, 0), key
                 continue
-            iters = st["iters"]
             respawns = iters if st["schedule"] in ("stream", "stream_fused", "regen") else 0
             assert shading == (iters, iters if nee else 0, respawns + 1), key
+            assert steps == ((iters, 0) if stream else (0, iters)), key
             assert counts["random_in_unit_sphere"] == 0, key

@@ -233,12 +233,15 @@ def test_fused_envelope_gate():
 
 def test_every_kernel_source_has_a_launcher():
     """cuda_build.library can load every csrc/ source: each names its
-    launch function and argument types (22 pointers, 5 ints, inv_spp and
-    the stream for the fused step)."""
+    launch function and argument types (for the fused step its StepParams
+    by pointer, the entry point and the stream; the struct has a field for
+    each tensor of the payload and of the lane state)."""
     from tpu_pathtracer_torch.ops import cuda_build
 
     assert set(cuda_build.sources()) == set(cuda_build.LAUNCHERS)
-    assert len(cuda_build.LAUNCHERS["fused_schedule.cu"][1]) == len(fs.TB_KEYS) + len(fs.STATE_KEYS) + 6 + 7
+    assert len(cuda_build.LAUNCHERS["fused_schedule.cu"][1]) == 3
+    fields = {f[0] for f in fs.StepParams._fields_}
+    assert {f"tb_{k}" for k in fs.TB_KEYS} | {k.removeprefix("lane_") for k in fs.STATE_KEYS} <= fields
 
 
 def test_fused_schedule_validated():

@@ -40,8 +40,9 @@
 // attenuation, radiance: 48 B; seed, depth, hit record: 29 B), a 128 B
 // tri_attrs row, a 160 B material row (from L2: few materials), up to four
 // texture rows and one env quad row, and writes about 60 B (190 B under
-// NEE, with the shadow ray and the 96 B record): some 40 MB at 131,072
-// lanes, ~0.012 ms at 3.35 TB/s.  The arithmetic is a few hundred float
+// NEE, with the shadow ray and the 96 B record, which it stores field by
+// field so that each field's stores coalesce across a warp): some 40 MB
+// at 131,072 lanes, ~0.012 ms at 3.35 TB/s.  The arithmetic is a few hundred float
 // operations a lane, a few tens of microseconds at the card's float32
 // rate.  So it is bound by bytes, and the design is one thread a lane that
 // keeps every intermediate in registers and touches device memory only for
@@ -94,7 +95,7 @@ struct BounceParams {
   float* shadow_origin;           // [n,3]
   float* shadow_dir;              // [n,3]
   unsigned char* cand;            // [n]
-  float* record;                  // [n, nee_record::kRecord]
+  float* record;                  // [nee_record::kRecord, n]: field f of lane i at f*n + i
   // the deferred entry: slots -> lanes, and _shade_deferred's fields
   const long long* lane_of_slot;  // [slots], a lane in [0, n]; n = the sink row
   float* d_origin;                // [n+1,3] new_origin
@@ -372,23 +373,24 @@ __global__ void __launch_bounds__(kThreads) bounce_kernel(const __grid_constant_
     store3(p.shadow_origin + 3ll * i, sh.new_origin);
     store3(p.shadow_dir + 3ll * i, env_dir);
     p.cand[i] = cand;
-    float* rec = p.record + static_cast<long long>(nee_record::kRecord) * i;
-    store3(rec + nee_record::kNormal, sh.normal);
-    rec[nee_record::kAlpha] = sh.alpha;
-    rec[nee_record::kSpecProb] = sh.spec_prob;
-    rec[nee_record::kIdotN] = sh.idotn;
-    store3(rec + nee_record::kBrdf, sh.brdf_combined);
-    store3(rec + nee_record::kFvec, sh.f_vec);
-    store3(rec + nee_record::kDiffuse, sh.diffuse_albedo);
-    store3(rec + nee_record::kSpecDir, sh.spec_dir);
-    rec[nee_record::kSpecPdf] = sh.spec_pdf;
-    rec[nee_record::kPdf] = pdf;
-    rec[nee_record::kU] = env_u;
-    rec[nee_record::kV] = env_v;
-    rec[nee_record::kCosL] = cos_l;
-    const int flags = (hit ? nee_record::kHit : 0) | (cand ? nee_record::kCand : 0) |
-                      (sh.glass ? nee_record::kGlass : 0) | (sh.choose_spec ? nee_record::kChooseSpec : 0);
-    rec[nee_record::kFlags] = __int_as_float(flags);
+    namespace R = nee_record;
+    const R::Ref rec{p.record + i, p.n};
+    rec.store3(R::kNormal, sh.normal);
+    rec.at(R::kAlpha) = sh.alpha;
+    rec.at(R::kSpecProb) = sh.spec_prob;
+    rec.at(R::kIdotN) = sh.idotn;
+    rec.store3(R::kBrdf, sh.brdf_combined);
+    rec.store3(R::kFvec, sh.f_vec);
+    rec.store3(R::kDiffuse, sh.diffuse_albedo);
+    rec.store3(R::kSpecDir, sh.spec_dir);
+    rec.at(R::kSpecPdf) = sh.spec_pdf;
+    rec.at(R::kPdf) = pdf;
+    rec.at(R::kU) = env_u;
+    rec.at(R::kV) = env_v;
+    rec.at(R::kCosL) = cos_l;
+    const int flags = (hit ? R::kHit : 0) | (cand ? R::kCand : 0) | (sh.glass ? R::kGlass : 0) |
+                      (sh.choose_spec ? R::kChooseSpec : 0);
+    rec.at(R::kFlags) = __int_as_float(flags);
   }
 
   store3(p.radiance_out + 3ll * i, radiance_out);

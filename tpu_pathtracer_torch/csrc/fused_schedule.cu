@@ -1,47 +1,74 @@
-// The fused schedule step, for Hopper: the streaming schedule's post-trace
-// tail in one launch.
+// The schedules' steps after a trace, for Hopper: the streaming
+// schedule's post-trace tail in one launch (entry 0, the stream step), and
+// the Russian roulette and state merges of render_rays and
+// render_pixels_regen in one launch (entry 1, the path step).
 //
-// Replaces the TPU kernel `_fused_step_kernel` in
-// tpu_pathtracer/ops/fused_schedule.py (entry fused_stream_step).  Its
-// plain PyTorch version is fused_stream_step_plain in
+// The stream step replaces the TPU kernel `_fused_step_kernel` in
+// tpu_pathtracer/ops/fused_schedule.py (entry fused_stream_step), widened
+// to what the unfused stream also needs: any of the three slot -> pixel
+// maps and next-event estimation's bookkeeping.  The path step replaces no
+// TPU kernel: it is the counterpart of the fusion XLA makes of the
+// while_loop bodies of render_rays and render_pixels_regen
+// (tpu_pathtracer/render/integrator.py :870 and :1031).  Their plain
+// PyTorch versions are fused_stream_step_plain and path_step_plain in
 // tpu_pathtracer_torch/ops/fused_schedule.py.  Every float operation is a
 // single IEEE-rounded op (a division, a product, a sum, a compare), built
-// with -fmad=false and IEEE division, so the two agree bit for bit.
+// with -fmad=false and IEEE division, so the two agree bit for bit; a sum
+// with the plain version's `+ where(newly, result, 0.0)` adds +0.0 where
+// no sample ends (which turns -0.0 into +0.0, as the plain version does).
 //
-// What it computes.  For every lane of the pool: the Russian-roulette
-// draw (one PCG step; u32 -> f32 by __uint2float_rn, round to nearest even
-// as the plain version's int64 -> float32), the estimator of rr_mode, the
-// sample added into the lane's pixel sum, the retire of a finished pixel
-// straight into its image row (rows are distinct across lanes: no race,
-// and each row takes one non-zero add per frame, as the unfused
-// index_add_), then the work queue: a lane that retired takes slot
-// head + (retired lanes before it, in lane order), and last the masked
-// state merges and the regen mask.  The state is updated in place.
+// What the stream step computes.  For every lane of the pool: the
+// Russian-roulette draw (one PCG step; u32 -> f32 by __uint2float_rn,
+// round to nearest even as the plain version's int64 -> float32), the
+// estimator of rr_mode, the sample added into the lane's pixel sum, the
+// retire of a finished pixel straight into its image row (rows are
+// queue slots, distinct across lanes: no race, and each row takes one
+// non-zero add per frame, as the plain version's index_add_), then the
+// work queue: a lane that retired takes slot head + (retired lanes before
+// it, in lane order) and the pixel the map gives that slot (the identity,
+// base + slot for an affine range, ids[min(slot, n_pix - 1)] for an id
+// table), and last the masked state merges and the regen mask.  Under NEE
+// it also counts the live lanes that hit (shadow segments) and sets each
+// lane's env credit: 1 where it respawns, the payload's elsewhere.  The
+// state is updated in place.
 //
-// What bounds it.  Bytes.  The step must move what each lane's fate
-// needs: every lane reads its slot and writes its regen byte (5 B); a live
-// lane reads the payload's seed, done flag, attenuation and radiance and
-// writes its seed (41 B); a lane that goes on also reads the payload's
+// What the path step computes.  For every lane: the same draw and
+// estimator; for render_rays the ending path's result, the terminated
+// flag and the merges of a lane that goes on; for render_pixels_regen the
+// sample added into the pixel's sum, the sample count, the exhausted flag,
+// the regen mask and the merges (a respawning lane's attenuation,
+// radiance, depth and env credit reset); the live lanes, under NEE the
+// live lanes that hit, and whether every lane has ended.  The camera
+// respawn on the regen mask stays with the caller's camera kernel.
+//
+// What bounds them.  Bytes.  The stream step must move what each lane's
+// fate needs: every lane reads its slot and writes its regen byte (5 B); a
+// live lane reads the payload's seed, done flag, attenuation and radiance
+// and writes its seed (41 B); a lane that goes on also reads the payload's
 // origin and direction and its depth and writes origin, direction,
 // attenuation, radiance and depth (80 B); a lane whose path ends reads and
 // writes its pixel sum and sample count (32 B), and writes attenuation,
 // radiance and depth if it respawns (28 B); a pixel done reads and writes
-// its image row and writes slot and pix (32 B).  On the headline's lane
-// state after 16 iterations (131,072 lanes, 31,526 pixels done) that is
-// 15,978,244 B, 4.8 us at 3.35 TB/s (chip_smoke.py phase 18).  The
+// its image row and writes slot and pix (32 B; an id table's entry, 4 B).
+// On the headline's lane state after 16 iterations (131,072 lanes, 31,526
+// pixels done) that is 15,978,244 B, 4.8 us at 3.35 TB/s (chip_smoke.py
+// phase 18).  The path step's bytes are chip_smoke.py's path_bytes.  The
 // arithmetic is a few dozen operations a lane.
 //
 // The design, against that bound (each choice measured on an H100 80GB
 // HBM3; PERF.md, the kernel 7 findings).
 // - Fate-predicated payload loads: a lane reads the trace payload only as
 //   its fate needs it (seed, done flag, attenuation and radiance if live,
-//   origin and direction if it goes on).  Stores are not predicated: every
-//   lane rewrites each state field that some fate changes (origin,
-//   direction, attenuation, radiance, depth, seed, pixel sum, sample
-//   count, slot, pix), with its old value where its own fate leaves it, so
-//   every sector is written whole.  Stores predicated on each lane's fate
-//   write most sectors in part, and the card's L2 then has to fill them
-//   from memory: that measured slower, though it moves fewer bytes.
+//   origin and direction if it goes on).  The stream step's stores are not
+//   predicated: every lane rewrites each state field that some fate
+//   changes (origin, direction, attenuation, radiance, depth, seed, pixel
+//   sum, sample count, slot, pix), with its old value where its own fate
+//   leaves it, so every sector is written whole.  Stores predicated on
+//   each lane's fate write most sectors in part, and the card's L2 then
+//   has to fill them from memory: that measured slower, though it moves
+//   fewer bytes.  The path step rewrites its lanes' state the same way,
+//   but for the seed (live lanes) and render_rays' result (lanes whose
+//   path ends).
 // - One lane a thread, coalesced scalar accesses, in tiles of 256 lanes
 //   (one block of 256 threads).  Measured against it and dropped: V lanes
 //   a thread (4 or 8) with 16-byte accesses, slower at every pool size,
@@ -58,15 +85,23 @@
 //   not depend on the queue is issued before the tile counts, and the
 //   other warps add their done pixels into the image during the look-back;
 //   the first warp spins as one, so its vote sees a whole window.
-// - No zeroing per call: the scratch (ticket counter, then one 64-bit
-//   status word a tile) is allocated once per device and tile count and
-//   never cleared.  Tickets only grow, so launch e of a scratch holds
+// - No zeroing per call: the scratch is allocated once per device, entry
+//   and tile count and never cleared.  The stream step's holds a ticket
+//   counter, the grid sum's arrival counter and sum, then one 64-bit
+//   status word a tile.  Tickets only grow, so launch e of a scratch holds
 //   tickets e*T .. e*T+T-1: tile = ticket % T, and a status word carries
 //   the launch's tag (e mod 4095, plus 1) beside its flag and counts, so a
 //   word left by the previous launch (every launch writes every word)
 //   reads as not yet published.  A word is tag (12 bits), flag (2),
 //   retired lanes (25) and live lanes (25), published by one atomicExch
 //   and read by volatile loads, so lanes < 2^25.
+// - A total with no prefix (the shadow segments; the path step's live
+//   lanes, hit lanes and lanes not ended) is a self-clearing grid sum:
+//   each block adds its counts (__syncthreads_count) into the scratch's
+//   sums, fences, and takes an arrival number off a counter that only
+//   grows; the block that arrives T-th of its launch (arrival % T == T - 1)
+//   reads every sum and sets it back to 0 with one atomicExch each, so a
+//   graph replay needs no memset and the host reads nothing.
 // - head', segments' and the live count are written exactly, once, by the
 //   last tile, which holds the inclusive totals: head + retired, segments
 //   + live, and live - retired + min(max(n_pix - head, 0), retired) (the
@@ -77,6 +112,54 @@
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+// The launch's arguments (mirrored by ops/fused_schedule.py: StepParams).
+// A field an entry does not use is null.
+struct StepParams {
+  // the trace payload: [L,3] f32; seeds [L] u32 in int64; done, hit [L]
+  // bool; spec [L] bool, or f32 under nee_mis_spec (hit, spec: NEE only)
+  const float* tb_origin;
+  const float* tb_direction;
+  const float* tb_attenuation;
+  const float* tb_radiance;
+  const long long* tb_seeds;
+  const unsigned char* tb_done;
+  const unsigned char* tb_hit;
+  const void* tb_spec;
+  // the lane state, updated in place
+  float* origin;           // [L,3]
+  float* direction;        // [L,3]
+  float* attenuation;      // [L,3]
+  float* radiance;         // [L,3]
+  long long* seeds;        // [L]
+  int* slot;               // [L] stream
+  int* pix;                // [L] stream
+  int* sample_i;           // [L] stream, regen
+  int* depth;              // [L]
+  float* accum;            // [L,3] stream (lane_accum), regen (accum)
+  void* spec;              // [L] the env credit, as tb_spec (NEE only)
+  unsigned char* flag;     // [L] path step: terminated (rays), exhausted (regen)
+  float* result;           // [L,3] rays
+  float* out;              // [n_pix+1,3] stream: the image, its rows slots
+  const long long* head;   // stream: 0-d
+  const long long* base;   // stream, affine map: 0-d
+  const int* ids;          // stream, id-table map: [n_pix]
+  long long* segments;     // 0-d: stream reads it, the path step updates it
+  long long* shadow;       // 0-d, NEE: as segments
+  unsigned long long* scratch;
+  unsigned char* regen;    // [L] out: stream, regen
+  long long* totals;       // stream: head', segments', live', shadow'
+  unsigned char* done;     // 0-d out, path step: every lane ended
+  int n;
+  int spp;
+  int n_pix;
+  int max_depth;
+  int rr_reference;
+  int pixel_map;           // stream: 0 identity, 1 affine, 2 id table
+  int nee;                 // 0 off, 1 bool env credit, 2 f32 (nee_mis_spec)
+  int schedule;            // path step: 0 render_rays, 1 render_pixels_regen
+  float inv_spp;
+};
 
 namespace {
 
@@ -90,6 +173,8 @@ constexpr unsigned long long kCountMask = (1ull << 25) - 1;
 constexpr float kInvU32 = 2.3283064365386963e-10f;     // 2^-32
 constexpr int kThreads = 256;                          // lanes (threads) a tile (block)
 constexpr int kWarps = kThreads / 32;
+// The stream step's scratch: ticket, arrivals, the shadow sum, then status[tiles].
+constexpr int kStatus = 3;
 
 __device__ __forceinline__ uint32_t pcg_hash(uint32_t x) {
   const uint32_t state = x * 747796405u + 2891336453u;
@@ -106,15 +191,13 @@ __device__ __forceinline__ unsigned long long status_word(unsigned long long tag
          static_cast<unsigned long long>(live);
 }
 
-// One lane's Russian roulette and estimator, as the plain version computes
-// them.  In: the payload's seed, done flag, attenuation `a` and radiance
-// `r`, and the lane's pixel sum `acc`, sample count `si` and depth `dp`.
-// Out: the advanced seed; for a lane that goes on (returns 1) the
-// attenuation it carries on in `a` and dp - 1; for a lane whose path ends
-// (returns 2, or 3 when that was its pixel's last sample) the sum with
-// this sample in `acc` and si + 1.
-__device__ __forceinline__ int roulette(uint32_t& seed, bool tb_done, float (&a)[3], const float (&r)[3],
-                                        float (&acc)[3], int& si, int& dp, int spp, int rr_reference) {
+// One live lane's Russian roulette, as the plain version's roulette
+// computes it.  In: the payload's seed, done flag, attenuation `a` and
+// radiance `r`.  Out: the advanced seed; returns whether the lane goes on,
+// and then `a` is the attenuation it carries on; otherwise `res` is the
+// ending path's result.
+__device__ __forceinline__ bool roulette(uint32_t& seed, bool tb_done, float (&a)[3], const float (&r)[3],
+                                         float (&res)[3], int rr_reference) {
   seed = pcg_hash(seed);
   const float u_rr = __uint2float_rn(seed) * kInvU32;
   const float p = max_nan(max_nan(a[0], a[1]), a[2]);
@@ -124,12 +207,28 @@ __device__ __forceinline__ int roulette(uint32_t& seed, bool tb_done, float (&a)
       const float p_div = fminf(p_safe, 1.f);  // survival probability is min(p, 1)
       for (int c = 0; c < 3; ++c) a[c] = a[c] / p_div;
     }
-    dp -= 1;
-    return 1;
+    return true;
   }
-  for (int c = 0; c < 3; ++c) acc[c] = acc[c] + (rr_reference ? r[c] / p_safe : r[c]);
-  si += 1;
-  return si >= spp ? 3 : 2;
+  for (int c = 0; c < 3; ++c) res[c] = rr_reference ? r[c] / p_safe : r[c];
+  return false;
+}
+
+// Adds this block's counts into the launch's sums (scratch[1 .. K]) and
+// takes an arrival number (scratch[0]); the block that arrives last of
+// the launch's `tiles` returns true with the launch's totals in `total`,
+// the sums set back to 0.  Thread 0 only.  Every launch on one scratch
+// has `tiles` blocks, so launch e's arrivals are e*tiles .. e*tiles+tiles-1.
+template <int K>
+__device__ __forceinline__ bool grid_sum(unsigned long long* scratch, int tiles, const int (&count)[K],
+                                         unsigned long long (&total)[K]) {
+  for (int k = 0; k < K; ++k)
+    if (count[k]) atomicAdd(&scratch[1 + k], static_cast<unsigned long long>(count[k]));
+  __threadfence();
+  const unsigned long long arrival = atomicAdd(&scratch[0], 1ull);
+  if (arrival % static_cast<unsigned long long>(tiles) != static_cast<unsigned long long>(tiles - 1)) return false;
+  __threadfence();
+  for (int k = 0; k < K; ++k) total[k] = atomicExch(&scratch[1 + k], 0ull);
+  return true;
 }
 
 // The block's share of one launch: its ticket, tile and tag, the warps'
@@ -228,115 +327,205 @@ __device__ __forceinline__ int tile_prefix(Tile& sh, int done_count, int live_co
   return before_me;
 }
 
-// One lane a thread: coalesced scalar accesses.
-__global__ void __launch_bounds__(kThreads) fused_step_kernel(
-    const float* __restrict__ tb_o, const float* __restrict__ tb_d,      // [L,3]
-    const float* __restrict__ tb_att, const float* __restrict__ tb_rad,  // [L,3]
-    const long long* __restrict__ tb_seeds,                              // [L] u32 in int64
-    const bool* __restrict__ tb_done,                                    // [L]
-    float* __restrict__ o, float* __restrict__ d,                        // [L,3] state, in place
-    float* __restrict__ att, float* __restrict__ rad,                    // [L,3]
-    long long* __restrict__ seeds,                                       // [L]
-    int* __restrict__ slot, int* __restrict__ pix,                       // [L]
-    int* __restrict__ sample_i, int* __restrict__ depth,                 // [L]
-    float* __restrict__ accum,                                           // [L,3]
-    float* __restrict__ out,                                             // [n_pix+1,3]
-    const long long* __restrict__ head_in, const long long* __restrict__ seg_in,
-    unsigned long long* __restrict__ scratch,  // ticket, then status[tiles]
-    bool* __restrict__ regen_out,              // [L]
-    long long* __restrict__ result,            // head', segments', live'
-    int n, int tiles, int spp, int n_pix, int max_depth, int rr_reference, float inv_spp) {
+// The env credit a lane carries into its next segment: 1 where it
+// respawns, else `from`'s (the payload's, or the lane's own).
+__device__ __forceinline__ void set_spec(const StepParams& p, int i, bool reset, const void* from) {
+  if (p.nee == 2) {
+    static_cast<float*>(p.spec)[i] = reset ? 1.f : static_cast<const float*>(from)[i];
+  } else {
+    static_cast<unsigned char*>(p.spec)[i] = reset ? 1 : static_cast<const unsigned char*>(from)[i];
+  }
+}
+
+// The stream step: one lane a thread, coalesced scalar accesses.
+__global__ void __launch_bounds__(kThreads) fused_step_kernel(const __grid_constant__ StepParams p, int tiles) {
   __shared__ Tile sh;
   int tile;
   unsigned long long tag;
-  take_ticket(sh, scratch, tiles, tile, tag);
+  take_ticket(sh, p.scratch, tiles, tile, tag);
   const int i = tile * kThreads + threadIdx.x;
-  const bool in = i < n;
-  const int slot_old = in ? slot[i] : n_pix;
+  const bool in = i < p.n;
+  const int n_pix = p.n_pix;
+  const int slot_old = in ? p.slot[i] : n_pix;
   const bool live = slot_old < n_pix;
-  int fate = 0;
+  int fate = 0;  // 1 goes on, 2 its path ends, 3 and that was its pixel's last sample
+  bool hit = false;
   float acc[3], a[3], r[3];
   int dp = 0;
   if (in) {
-    uint32_t seed = static_cast<uint32_t>(seeds[i]);
-    int si = sample_i[i];
-    dp = depth[i];
-    for (int c = 0; c < 3; ++c) acc[c] = accum[3 * i + c];
+    uint32_t seed = static_cast<uint32_t>(p.seeds[i]);
+    int si = p.sample_i[i];
+    dp = p.depth[i];
+    for (int c = 0; c < 3; ++c) acc[c] = p.accum[3 * i + c];
     if (live) {
-      seed = static_cast<uint32_t>(__ldg(tb_seeds + i));
+      seed = static_cast<uint32_t>(__ldg(p.tb_seeds + i));
       for (int c = 0; c < 3; ++c) {
-        a[c] = __ldg(tb_att + 3 * i + c);
-        r[c] = __ldg(tb_rad + 3 * i + c);
+        a[c] = __ldg(p.tb_attenuation + 3 * i + c);
+        r[c] = __ldg(p.tb_radiance + 3 * i + c);
       }
-      fate = roulette(seed, __ldg(reinterpret_cast<const unsigned char*>(tb_done) + i) != 0, a, r, acc, si, dp,
-                      spp, rr_reference);
+      float res[3];
+      if (roulette(seed, __ldg(p.tb_done + i) != 0, a, r, res, p.rr_reference)) {
+        dp -= 1;
+        fate = 1;
+      } else {
+        for (int c = 0; c < 3; ++c) acc[c] = acc[c] + res[c];
+        si += 1;
+        fate = si >= p.spp ? 3 : 2;
+      }
+      hit = p.nee && __ldg(p.tb_hit + i) != 0;
+    }
+    if (fate < 2) {
+      for (int c = 0; c < 3; ++c) acc[c] = acc[c] + 0.f;  // the plain version's + where(newly, result, 0.0)
     }
     float po[3], pd[3];
     if (fate == 1) {  // goes on: the payload's origin and direction
       for (int c = 0; c < 3; ++c) {
-        po[c] = __ldg(tb_o + 3 * i + c);
-        pd[c] = __ldg(tb_d + 3 * i + c);
+        po[c] = __ldg(p.tb_origin + 3 * i + c);
+        pd[c] = __ldg(p.tb_direction + 3 * i + c);
       }
     } else {  // keeps its origin, direction, attenuation and radiance
       for (int c = 0; c < 3; ++c) {
-        po[c] = o[3 * i + c];
-        pd[c] = d[3 * i + c];
-        a[c] = att[3 * i + c];
-        r[c] = rad[3 * i + c];
+        po[c] = p.origin[3 * i + c];
+        pd[c] = p.direction[3 * i + c];
+        a[c] = p.attenuation[3 * i + c];
+        r[c] = p.radiance[3 * i + c];
       }
     }
     for (int c = 0; c < 3; ++c) {  // every lane rewrites what any fate may change: whole sectors
-      o[3 * i + c] = po[c];
-      d[3 * i + c] = pd[c];
+      p.origin[3 * i + c] = po[c];
+      p.direction[3 * i + c] = pd[c];
     }
-    seeds[i] = static_cast<long long>(seed);
-    sample_i[i] = fate == 3 ? 0 : si;
-    for (int c = 0; c < 3; ++c) accum[3 * i + c] = fate == 3 ? 0.f : acc[c];
+    p.seeds[i] = static_cast<long long>(seed);
+    p.sample_i[i] = fate == 3 ? 0 : si;
+    for (int c = 0; c < 3; ++c) p.accum[3 * i + c] = fate == 3 ? 0.f : acc[c];
   }
-  const int before_me = tile_prefix(sh, fate == 3, live, tile, tiles, tag, scratch + 1, head_in, seg_in, n_pix,
-                                    result);
+  if (p.nee) {  // shadow segments: the live lanes that hit
+    const int hits[1] = {__syncthreads_count(hit)};
+    unsigned long long total[1];
+    if (threadIdx.x == 0 && grid_sum<1>(p.scratch + 1, tiles, hits, total))
+      p.totals[3] = *p.shadow + static_cast<long long>(total[0]);
+  }
+  const int before_me = tile_prefix(sh, fate == 3, live, tile, tiles, tag, p.scratch + kStatus, p.head,
+                                    p.segments, n_pix, p.totals);
   if (fate == 3) {  // the pixel's mean into its image row
-    float* row = out + 3 * static_cast<size_t>(slot_old);
-    for (int c = 0; c < 3; ++c) row[c] = row[c] + acc[c] * inv_spp;
+    float* row = p.out + 3 * static_cast<size_t>(slot_old);
+    for (int c = 0; c < 3; ++c) row[c] = row[c] + acc[c] * p.inv_spp;
   }
-  const int pix_old = in ? pix[i] : 0;
+  const int pix_old = in ? p.pix[i] : 0;
   __syncthreads();
   if (!in) return;
   int new_slot = slot_old, new_pix = pix_old;
   bool regen = fate >= 2;  // a lane whose path ends keeps a live slot unless its pixel is done
-  if (fate == 3) {         // identity pixel mapping: pix = slot
-    new_slot = new_pix = static_cast<int>(*head_in + sh.before + before_me);
+  if (fate == 3) {         // the next slot off the queue, and its pixel
+    new_slot = static_cast<int>(*p.head + sh.before + before_me);
+    new_pix = p.pixel_map == 0   ? new_slot
+              : p.pixel_map == 1 ? static_cast<int>(*p.base + new_slot)
+                                 : __ldg(p.ids + min(new_slot, n_pix - 1));
     regen = new_slot < n_pix;
   }
-  slot[i] = new_slot;
-  pix[i] = new_pix;
+  p.slot[i] = new_slot;
+  p.pix[i] = new_pix;
   for (int c = 0; c < 3; ++c) {
-    att[3 * i + c] = regen ? 1.f : a[c];
-    rad[3 * i + c] = regen ? 0.f : r[c];
+    p.attenuation[3 * i + c] = regen ? 1.f : a[c];
+    p.radiance[3 * i + c] = regen ? 0.f : r[c];
   }
-  depth[i] = regen ? max_depth : dp;
-  regen_out[i] = regen;
+  p.depth[i] = regen ? p.max_depth : dp;
+  p.regen[i] = regen;
+  if (p.nee) set_spec(p, i, regen, p.tb_spec);
+}
+
+// The path step of render_rays (schedule 0) and render_pixels_regen
+// (schedule 1): one lane a thread.
+__global__ void __launch_bounds__(kThreads) path_step_kernel(const __grid_constant__ StepParams p, int tiles) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const bool in = i < p.n;
+  const bool regen_schedule = p.schedule == 1;
+  bool live = false, hit = false, ended = true;
+  if (in) {
+    live = p.flag[i] == 0;
+    uint32_t seed = static_cast<uint32_t>(p.seeds[i]);
+    float a[3], r[3], res[3];
+    bool adv = false, newly = false;
+    if (live) {
+      seed = static_cast<uint32_t>(__ldg(p.tb_seeds + i));
+      for (int c = 0; c < 3; ++c) {
+        a[c] = __ldg(p.tb_attenuation + 3 * i + c);
+        r[c] = __ldg(p.tb_radiance + 3 * i + c);
+      }
+      adv = roulette(seed, __ldg(p.tb_done + i) != 0, a, r, res, p.rr_reference);
+      newly = !adv;
+      hit = p.nee && __ldg(p.tb_hit + i) != 0;
+      p.seeds[i] = static_cast<long long>(seed);
+    }
+    float po[3], pd[3];
+    if (adv) {  // goes on: the payload's origin, direction and radiance, the carried attenuation
+      for (int c = 0; c < 3; ++c) {
+        po[c] = __ldg(p.tb_origin + 3 * i + c);
+        pd[c] = __ldg(p.tb_direction + 3 * i + c);
+      }
+    } else {
+      for (int c = 0; c < 3; ++c) {
+        po[c] = p.origin[3 * i + c];
+        pd[c] = p.direction[3 * i + c];
+        a[c] = p.attenuation[3 * i + c];
+        r[c] = p.radiance[3 * i + c];
+      }
+    }
+    for (int c = 0; c < 3; ++c) {
+      p.origin[3 * i + c] = po[c];
+      p.direction[3 * i + c] = pd[c];
+    }
+    const int dp = p.depth[i];
+    bool regen = false;
+    if (regen_schedule) {
+      const int si = p.sample_i[i] + newly;
+      ended = !live || (newly && si >= p.spp);
+      regen = newly && !ended;
+      for (int c = 0; c < 3; ++c) p.accum[3 * i + c] = p.accum[3 * i + c] + (newly ? res[c] : 0.f);
+      p.sample_i[i] = si;
+      p.regen[i] = regen;
+    } else {
+      ended = !live || newly;
+      if (newly) {
+        for (int c = 0; c < 3; ++c) p.result[3 * i + c] = res[c];
+      }
+    }
+    p.flag[i] = ended;
+    for (int c = 0; c < 3; ++c) {
+      p.attenuation[3 * i + c] = regen ? 1.f : a[c];
+      p.radiance[3 * i + c] = regen ? 0.f : r[c];
+    }
+    p.depth[i] = regen ? p.max_depth : (adv ? dp - 1 : dp);
+    if (p.nee) set_spec(p, i, regen, adv ? p.tb_spec : p.spec);
+  }
+  const int counts[3] = {__syncthreads_count(live), __syncthreads_count(hit), __syncthreads_count(!ended)};
+  unsigned long long total[3];
+  if (threadIdx.x == 0 && grid_sum<3>(p.scratch, tiles, counts, total)) {
+    *p.segments += static_cast<long long>(total[0]);
+    if (p.nee) *p.shadow += static_cast<long long>(total[1]);
+    *p.done = total[2] == 0;
+  }
 }
 
 }  // namespace
 
-// Launches tiles of 256 lanes on `stream`, one block a tile.  `scratch`
-// ([1 + tiles] int64) is zero before its first launch and is used only by
-// launches of the same tile count, one at a time; `result` ([3] int64)
-// takes head', segments' and the live count.  n < 2^25.
+// entry 0: the stream step over p->n lanes (p->scratch: [3 + tiles]
+// int64, zero before its first launch; p->totals: [4] int64); entry 1: the
+// path step (p->scratch: [4] int64, zero before its first launch).  Tiles
+// of 256 lanes, one block a tile, on `stream`; a scratch is used only by
+// launches of one entry and tile count, one at a time.  n < 2^25.
 // Returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int fused_step_launch(
-    const float* tb_o, const float* tb_d, const float* tb_att, const float* tb_rad,
-    const long long* tb_seeds, const bool* tb_done,
-    float* o, float* d, float* att, float* rad, long long* seeds,
-    int* slot, int* pix, int* sample_i, int* depth, float* accum,
-    float* out, const long long* head_in, const long long* seg_in,
-    unsigned long long* scratch, bool* regen_out, long long* result,
-    int n, int spp, int n_pix, int max_depth, int rr_reference, float inv_spp, void* stream) {
-  if (n <= 0) return 0;
-  const int tiles = (n + kThreads - 1) / kThreads;
-  fused_step_kernel<<<tiles, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      tb_o, tb_d, tb_att, tb_rad, tb_seeds, tb_done, o, d, att, rad, seeds, slot, pix, sample_i, depth, accum, out,
-      head_in, seg_in, scratch, regen_out, result, n, tiles, spp, n_pix, max_depth, rr_reference, inv_spp);
+extern "C" int fused_step_launch(const StepParams* p, int entry, void* stream) {
+  if (p->n <= 0) return 0;
+  const int tiles = (p->n + kThreads - 1) / kThreads;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (entry == 0) {
+    fused_step_kernel<<<tiles, kThreads, 0, st>>>(*p, tiles);
+  } else {
+    path_step_kernel<<<tiles, kThreads, 0, st>>>(*p, tiles);
+  }
   return static_cast<int>(cudaGetLastError());
 }
+
+// sizeof(StepParams), which the wrapper checks against its mirror.
+extern "C" int fused_schedule_params_size() { return static_cast<int>(sizeof(StepParams)); }

@@ -21,12 +21,14 @@
 // Bit-equality with the plain version: see shade_math.cuh.  Built with
 // -fmad=false; the float32 constants arrive from the host.
 //
-// What bounds it.  Bytes: a lane reads its 96 B record, its shadow
-// direction (12 B), the any-hit flag, the ray direction, attenuation and
-// radiance (36 B), an alias-table row for p_light_s and, where visible, an
-// env quad row; it writes radiance and spec_next (16 B): ~25 MB at 131,072
-// lanes, ~0.008 ms at 3.35 TB/s.  A few hundred float operations a lane at
-// most.  Bound by bytes; one thread a lane, intermediates in registers.
+// What bounds it.  Bytes: every lane reads its record's flags and writes
+// spec_next; a visible lane also reads the record fields its weights use,
+// its shadow direction, attenuation and radiance and an env quad row, and
+// writes radiance (chip_smoke.py: nee_bytes, ~0.0013 ms at 131,072 lanes
+// on the headline).  A few hundred float operations a lane at most.  Bound
+// by bytes; one thread a lane, intermediates in registers.  The record is
+// stored field by field ([kRecord, n]), so a warp's load of one field is
+// one coalesced 128-byte line, not 32 lines 96 bytes apart.
 
 #include <cstdint>
 
@@ -46,7 +48,7 @@ constexpr int kThreads = 128;
 struct NeeParams {
   const float* env_quads;         // [h*w,12]
   const float* alias;             // [h*w,4]
-  const float* record;            // [n, nee_record::kRecord]
+  const float* record;            // [nee_record::kRecord, n]: field f of lane i at f*n + i
   const float* shadow_dir;        // [n,3] the light draws
   const unsigned char* occluded;  // [n] bool: the any-hit flags (read where cand)
   const float* direction;         // [n,3] the bounce's incoming rays
@@ -68,20 +70,20 @@ __global__ void __launch_bounds__(kThreads) nee_kernel(const __grid_constant__ N
   if (i >= p.n) return;
   const ShadeConsts& c = p.c;
   const EnvParams env{p.env_quads, p.alias, p.env_h, p.env_w, p.env_mode, p.env_scrambled};
-  const float* rec = p.record + static_cast<long long>(R::kRecord) * i;
-  const int flags = __float_as_int(rec[R::kFlags]);
+  const R::Ref rec{const_cast<float*>(p.record) + i, p.n};
+  const int flags = __float_as_int(rec.at(R::kFlags));
   const bool hit = flags & R::kHit;
   const bool cand = flags & R::kCand;
   const bool glass = flags & R::kGlass;
   const bool choose_spec = flags & R::kChooseSpec;
-  const V3 normal = load3(rec + R::kNormal);
-  const float pdf = rec[R::kPdf];
+  const V3 normal = rec.load3(R::kNormal);
+  const float pdf = rec.at(R::kPdf);
 
   if (p.mis) {
     // The BSDF arm's weight for the next segment's env credit: both
     // densities at the spec continuation, with this bounce's normal.
-    const V3 spec_dir = load3(rec + R::kSpecDir);
-    const float spec_pdf = rec[R::kSpecPdf];
+    const V3 spec_dir = rec.load3(R::kSpecDir);
+    const float spec_pdf = rec.at(R::kSpecPdf);
     float p_light_s = env_pdf_alias(env, spec_dir, c);
     if (p.defensive) {
       const float cos_s = clamp_min(dot(normal, spec_dir), 0.f);
@@ -98,31 +100,31 @@ __global__ void __launch_bounds__(kThreads) nee_kernel(const __grid_constant__ N
   V3 contrib = v3(0.f, 0.f, 0.f);
   if (visible) {
     const V3 env_dir = load3(p.shadow_dir + 3ll * i);
-    const V3 l_env = eval_env(env, env_dir, true, rec[R::kU], rec[R::kV], c);
-    const float spec_prob = rec[R::kSpecProb];
-    const float cos_l = rec[R::kCosL];
+    const V3 l_env = eval_env(env, env_dir, true, rec.at(R::kU), rec.at(R::kV), c);
+    const float spec_prob = rec.at(R::kSpecProb);
+    const float cos_l = rec.at(R::kCosL);
     const V3 att = load3(p.attenuation + 3ll * i);
     // Lobe-partitioned estimator: the base estimator's cosine-lobe share
     // (1 - P_s) of M*IdotN*E_cos[L*vis] is estimated by the light draw.
-    const float weight = (1.f - spec_prob) * rec[R::kIdotN] * cos_l / (c.pi * clamp_min(pdf, c.d_min));
-    contrib = mul(scale(mul(att, load3(rec + R::kBrdf)), weight), l_env);
+    const float weight = (1.f - spec_prob) * rec.at(R::kIdotN) * cos_l / (c.pi * clamp_min(pdf, c.d_min));
+    contrib = mul(scale(mul(att, rec.load3(R::kBrdf)), weight), l_env);
     if (p.mis) {
       // The spec lobe's light-sampled arm on the same draw and shadow ray,
       // with the balance weight w_l = p_light / (p_light + p_ggx).
-      const float alpha = rec[R::kAlpha];
+      const float alpha = rec.at(R::kAlpha);
       const V3 view = neg(load3(p.direction + 3ll * i));
       const V3 h_l = normalize(add(view, env_dir), c);
       const float d_term_l = d_ggx(normal, h_l, alpha, c);
       const float g_term_l = g_smith(alpha, normal, view, env_dir, c);
       const float ndotv_l = dot(normal, view);
       const float denom_l = 4.f * fabsf(ndotv_l) * fabsf(dot(normal, env_dir));
-      const V3 brdf_spec_l = scale(load3(rec + R::kFvec), d_term_l * g_term_l / clamp_min(denom_l, c.tiny));
+      const V3 brdf_spec_l = scale(rec.load3(R::kFvec), d_term_l * g_term_l / clamp_min(denom_l, c.tiny));
       const float ndoth_l = clamp_min(dot(normal, h_l), c.tiny);
       const float vdoth_l = clamp_min(dot(view, h_l), c.tiny);
       const float p_ggx_l = ggx_pdf(d_term_l, ndoth_l, vdoth_l);
       const float w_l = pdf / clamp_min(pdf + p_ggx_l, c.pdf_min);
       const V3 inner = add(scale(brdf_spec_l, spec_prob),
-                           scale(load3(rec + R::kDiffuse), (1.f - spec_prob) * c.pi * p_ggx_l));
+                           scale(rec.load3(R::kDiffuse), (1.f - spec_prob) * c.pi * p_ggx_l));
       const V3 g_spec = scale(scale(inner, spec_prob), cos_l);
       contrib = add(contrib, mul(scale(mul(att, g_spec), w_l / clamp_min(pdf, c.d_min)), l_env));
     }

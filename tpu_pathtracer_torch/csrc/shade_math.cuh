@@ -409,8 +409,9 @@ __device__ __forceinline__ float env_pdf_alias(const EnvParams& env, V3 d, const
 }  // namespace shade
 
 // The NEE record the bounce kernel (bounce.cu) writes for every lane and
-// the NEE kernel (nee.cu) reads: float32 [n, kRecord], its last column the
-// lane's flags as int bits.
+// the NEE kernel (nee.cu) reads: float32 [kRecord, n], stored field by
+// field so that each field's loads and stores coalesce across a warp, its
+// last field the lane's flags as int bits.
 namespace nee_record {
 constexpr int kNormal = 0;      // 3: the shading normal
 constexpr int kAlpha = 3;
@@ -428,4 +429,17 @@ constexpr int kCosL = 22;
 constexpr int kFlags = 23;
 constexpr int kRecord = 24;
 constexpr int kHit = 1, kCand = 2, kGlass = 4, kChooseSpec = 8;
+
+// One lane's record: field f at lane[f * field].
+struct Ref {
+  float* lane;
+  long long field;
+  __device__ __forceinline__ float& at(int f) const { return lane[f * field]; }
+  __device__ __forceinline__ shade::V3 load3(int f) const { return shade::V3{at(f), at(f + 1), at(f + 2)}; }
+  __device__ __forceinline__ void store3(int f, shade::V3 v) const {
+    at(f) = v.x;
+    at(f + 1) = v.y;
+    at(f + 2) = v.z;
+  }
+};
 }  // namespace nee_record

@@ -106,7 +106,9 @@ class NeeParams(ctypes.Structure):
         ("c", ShadeConsts)]
 
 
-# Columns of the NEE record (csrc/shade_math.cuh: nee_record::kRecord).
+# Fields of the NEE record (csrc/shade_math.cuh: nee_record::kRecord), a
+# float32 [RECORD, n] tensor stored field by field, so that a field's stores
+# and loads coalesce across a warp.
 RECORD = 24
 ENV_MODES = {"equirect": 0, "sunsky": 1, "constant": 2}
 
@@ -241,11 +243,12 @@ def bounce(scene, cfg, hit, origin, direction, attenuation, radiance, seeds, dep
                done=torch.empty(n, dtype=torch.bool, device=dev), seeds=torch.empty(n, dtype=torch.int64, device=dev))
     if nee:
         out.update(shadow_origin=vec(), shadow_dir=vec(), cand=torch.empty(n, dtype=torch.bool, device=dev),
-                   record=torch.empty((n, RECORD), dtype=torch.float32, device=dev))
+                   record=torch.empty((RECORD, n), dtype=torch.float32, device=dev))
     names = dict(radiance="radiance_out", attenuation="attenuation_out", origin="origin_out",
                  direction="direction_out", done="done_out", seeds="seeds_out")
     tensors = {**scene_t, **lanes, **{names.get(k, k): v for k, v in out.items()}}
-    params = _params(BounceParams, tensors, dict(ints, n=n, slots=0), pack_consts(cfg))
+    params = _params(BounceParams, tensors, dict(ints, n=n, slots=0),
+                     pack_consts(cfg))
     if n:
         _launch("bounce.cu", "bounce_launch", params, 0, stream=torch.cuda.current_stream(dev).cuda_stream)
         bounce.launches += 1
@@ -290,7 +293,7 @@ def next_event(scene, cfg, b: dict, occluded, direction, attenuation):
     tensors = dict(
         env_quads=_arg("env.quads", env.quads, torch.float32, (env.height * env.width, 12), dev),
         alias=_arg("env.alias_table", env.alias_table, torch.float32, (env.height * env.width, 4), dev),
-        record=_arg("record", b["record"], torch.float32, (n, RECORD), dev),
+        record=_arg("record", b["record"], torch.float32, (RECORD, n), dev),
         shadow_dir=_arg("shadow_dir", b["shadow_dir"], torch.float32, (n, 3), dev),
         occluded=_arg("occluded", occluded, torch.bool, (n,), dev),
         direction=_arg("direction", direction, torch.float32, (n, 3), dev),

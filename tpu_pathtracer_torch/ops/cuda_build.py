@@ -60,10 +60,9 @@ LAUNCHERS = {
         "cluster_occluded_streamed_launch",
         [_P] * 6 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 2,
     ),
-    "fused_schedule.cu": (
-        "fused_step_launch",
-        [_P] * 22 + [_I] * 5 + [_F] + [_P],
-    ),
+    # the launch's arguments by pointer (a struct mirrored by ctypes), the
+    # entry point (the stream step or the path step), the stream
+    "fused_schedule.cu": ("fused_step_launch", [_P, _I, _P]),
     "unit_sphere.cu": ("unit_sphere_launch", [_P] * 3 + [_I] + [_P]),
     # the launch's arguments by pointer (a struct mirrored by ctypes), the
     # bounce kernel's entry point, the stream
@@ -83,10 +82,12 @@ HELPERS = {
     for stem in ("cluster_intersect", "cluster_hier", "cluster_streamed",
                  "cluster_occluded", "cluster_occluded_hier", "cluster_occluded_streamed")
 }
-# The shading kernels report the size of their argument struct; the bounce
-# kernel's library also holds the probe of the math functions it calls
-# (a, b, out, n, which function, pow's exponent, stream).
-HELPERS.update({f"{stem}.cu": {f"{stem}_params_size": []} for stem in ("bounce", "nee", "camera")})
+# The shading kernels and the schedule steps report the size of their
+# argument struct; the bounce kernel's library also holds the probe of the
+# math functions it calls (a, b, out, n, which function, pow's exponent,
+# stream).
+HELPERS.update({f"{stem}.cu": {f"{stem}_params_size": []}
+                for stem in ("bounce", "nee", "camera", "fused_schedule")})
 HELPERS["bounce.cu"]["shade_math_probe"] = [_P] * 3 + [_I] * 2 + [_F] + [_P]
 
 

@@ -46,14 +46,14 @@ import torch
 from tpu_pathtracer_torch.ops import bounce as bounce_ops
 from tpu_pathtracer_torch.ops import intersect_cluster as ic
 from tpu_pathtracer_torch.ops.camera import camera_paths
-from tpu_pathtracer_torch.ops.fused_schedule import fused_stream_step
+from tpu_pathtracer_torch.ops.fused_schedule import fused_stream_step, path_step
 from tpu_pathtracer_torch.ops.unit_sphere import random_in_unit_sphere
 
 # The wrappers whose `launches` count their kernel's launches.
 COUNTED = (
     ic.intersect_clusters, ic.intersect_clusters_hier, ic.intersect_clusters_streamed,
     ic.occluded_clusters, ic.occluded_clusters_hier, ic.occluded_clusters_streamed,
-    fused_stream_step, random_in_unit_sphere, bounce_ops.bounce, bounce_ops.next_event, camera_paths,
+    fused_stream_step, random_in_unit_sphere, bounce_ops.bounce, bounce_ops.next_event, camera_paths, path_step,
 )
 # Plans the cache holds.
 MAX_PLANS = 8

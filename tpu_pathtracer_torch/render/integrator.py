@@ -28,9 +28,11 @@ pixel range (base, count), which sharded renders pass.
 On a CUDA device the bounce's work after the traversal runs as
 hand-written kernels (ops/bounce.py: the bounce kernel, with deferred
 shading's chunks as its second entry point, and the NEE kernel), and so
-does every camera spawn (ops/camera.py); the eager code here is their
-plain version, which the CPU runs and, under `ops.bounce.plain()`, the
-card.
+does every camera spawn (ops/camera.py) and every schedule's step after
+the trace (ops/fused_schedule.py: kernel 7 for the stream, the path step
+for render_rays and render_pixels_regen); the eager code is their plain
+version, which the CPU runs and, under `ops.bounce.plain()`, the card
+(but for the fused stream's step, which keeps kernel 7).
 
 Each schedule's loop is a per-frame set-up that writes a plan's static
 buffers (render/graph_loop.py) and a step that reads and writes only
@@ -53,7 +55,8 @@ import torch
 from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.ops import bounce as bounce_ops
 from tpu_pathtracer_torch.ops import camera as camera_ops
-from tpu_pathtracer_torch.ops.fused_schedule import STATE_KEYS, fused_stream_step, fused_stream_step_plain, roulette
+from tpu_pathtracer_torch.ops.fused_schedule import (STATE_KEYS, fused_stream_step, fused_stream_step_plain, path_step,
+                                                     slot_pixels)
 from tpu_pathtracer_torch.ops.intersect import Hit, intersect_scene, occluded_scene
 from tpu_pathtracer_torch.ops.unit_sphere import random_in_unit_sphere
 from tpu_pathtracer_torch.render import bsdf, graph_loop
@@ -622,31 +625,15 @@ def render_rays(scene: Scene, cfg: RenderConfig, origins, directions, seeds, ret
 
 
 def _rays_step(scene: Scene, cfg: RenderConfig, st: dict):
-    """render_rays' bounce on its buffers `st`."""
-    nee = cfg.env_importance_sampling
+    """render_rays' bounce on its buffers `st`: the trace, then the path
+    step (ops/fused_schedule: one kernel launch on the card)."""
+    kw = dict(schedule="rays", spp=1, max_depth=cfg.max_depth, rr_reference=cfg.rr_mode == "reference",
+              nee=cfg.env_importance_sampling)
 
     def step():
-        live = ~st["terminated"]
         tb = _trace_bounce(scene, cfg, st["origin"], st["direction"], st["attenuation"], st["radiance"],
                            st["seeds"], st["depth"], st["spec_last"])
-        seeds_new, newly, adv, result_t, att_new = roulette(tb, live, cfg.rr_mode == "reference")
-        terminated = st["terminated"] | newly
-        av = adv[:, None]
-        new = dict(
-            result=torch.where(newly[:, None], result_t, st["result"]),
-            terminated=terminated, done=terminated.all(),
-            origin=torch.where(av, tb["origin"], st["origin"]),
-            direction=torch.where(av, tb["direction"], st["direction"]),
-            attenuation=torch.where(av, att_new, st["attenuation"]),
-            radiance=torch.where(av, tb["radiance"], st["radiance"]),
-            seeds=torch.where(live, seeds_new, st["seeds"]),
-            depth=torch.where(adv, st["depth"] - 1, st["depth"]),
-            segments=st["segments"] + live.sum(),
-        )
-        if nee:
-            new.update(spec_last=torch.where(adv, tb["spec_last"], st["spec_last"]),
-                       shadow=st["shadow"] + (live & tb["hit"]).sum())
-        _write(st, new)
+        path_step(tb, st, **kw)
 
     return step
 
@@ -696,38 +683,17 @@ def render_pixels_regen(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids, s
 
 
 def _regen_step(scene: Scene, cfg: RenderConfig, spp: int, st: dict):
-    """render_pixels_regen's iteration on its buffers `st`."""
-    nee = cfg.env_importance_sampling
+    """render_pixels_regen's iteration on its buffers `st`: the trace, the
+    path step (ops/fused_schedule: one kernel launch on the card), then
+    the next sample's camera path on the lanes that just finished one."""
     spawn = _spawner(st, cfg, st["subframe"], st["sample_offset"])
+    kw = dict(schedule="regen", spp=spp, max_depth=cfg.max_depth, rr_reference=cfg.rr_mode == "reference",
+              nee=cfg.env_importance_sampling)
 
     def step():
-        live = ~st["exhausted"]
         tb = _trace_bounce(scene, cfg, st["origin"], st["direction"], st["attenuation"], st["radiance"],
                            st["seeds"], st["depth"], st["spec_last"])
-        seeds_new, newly, adv, result, att_new = roulette(tb, live, cfg.rr_mode == "reference")
-        accum = st["accum"] + torch.where(newly[:, None], result, 0.0)
-        sample_i = st["sample_i"] + newly.to(torch.int32)
-        exhausted = st["exhausted"] | (newly & (sample_i >= spp))
-
-        # Respawn the next sample on lanes that just finished one: the
-        # camera spawn writes them into the buffers afterwards.
-        regen = newly & ~exhausted
-        rg, av = regen[:, None], adv[:, None]
-        new = dict(
-            accum=accum, sample_i=sample_i, exhausted=exhausted, done=exhausted.all(),
-            origin=torch.where(av, tb["origin"], st["origin"]),
-            direction=torch.where(av, tb["direction"], st["direction"]),
-            seeds=torch.where(live, seeds_new, st["seeds"]),
-            attenuation=torch.where(rg, 1.0, torch.where(av, att_new, st["attenuation"])),
-            radiance=torch.where(rg, 0.0, torch.where(av, tb["radiance"], st["radiance"])),
-            depth=torch.where(regen, cfg.max_depth, torch.where(adv, st["depth"] - 1, st["depth"])),
-            segments=st["segments"] + live.sum(),
-        )
-        if nee:
-            spec_last = st["spec_last"]
-            new.update(spec_last=torch.where(regen, torch.ones_like(spec_last), torch.where(adv, tb["spec_last"], spec_last)),
-                       shadow=st["shadow"] + (live & tb["hit"]).sum())
-        _write(st, new)
+        regen = path_step(tb, st, **kw)
         spawn(regen.shape[0], pix=st["ids"], sample=st["sample_i"], sample_max=spp - 1, mask=regen,
               out=(st["origin"], st["direction"], st["seeds"]))
 
@@ -774,18 +740,17 @@ def _respawn(st: dict, regen, spawn, spp: int):
           out=(st["origin"], st["direction"], st["seeds"]))
 
 
-def _slot_map(pixel_ids, n_pix: int):
-    """The work queue's slot -> pixel id map for `pixel_ids` as
-    render_pixels_stream takes them: an affine range (base, count) by
-    arithmetic (no gather from an id table), an id tensor by a gather, and
-    None for the whole frame (the identity, the fused kernel's only
-    mapping)."""
+def _pixel_map(pixel_ids) -> dict:
+    """The work queue's slot -> pixel map for `pixel_ids` as
+    render_pixels_stream takes them, as ops.fused_schedule.slot_pixels
+    takes it: an affine range (base, count) by arithmetic (no gather from
+    an id table), an id tensor by a gather, and the identity for the whole
+    frame (None)."""
     if pixel_ids is None:
-        return None
+        return {}
     if isinstance(pixel_ids, tuple):
-        base = pixel_ids[0]
-        return lambda slot: base + slot
-    return lambda slot: pixel_ids[torch.clamp_max(slot, n_pix - 1)]
+        return dict(base=pixel_ids[0])
+    return dict(ids=pixel_ids)
 
 
 def render_pixels_stream(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids, subframe, sample_offset: int, spp: int, lanes: int, return_stats: bool = False, fused: bool = False):
@@ -800,14 +765,15 @@ def render_pixels_stream(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids, 
     (pixel, sample, subframe) counters, so the image does not depend on
     the pool size.  Returns the pixel means [Np,3], in list order.
 
-    After each trace one schedule step runs (ops/fused_schedule): with
-    fused=True, on `_fused_stream_ok`'s envelope, `fused_stream_step`,
-    one kernel launch on the card (TPU kernel 7); otherwise its plain
-    version, eager ops with any pixel mapping.  Both give the same bits.
-    Camera paths are then respawned on the step's regen mask through
-    ops/camera.camera_paths, outside kernel 7 as in the JAX package.  The
-    step returns the count of live lanes, the loop's one host read per
-    iteration.
+    After each trace one schedule step runs (ops/fused_schedule): on the
+    card `fused_stream_step`, one kernel launch (TPU kernel 7, widened to
+    every pixel map and to NEE), whether or not the render is fused
+    (fused=True, on `_fused_stream_ok`'s envelope, only keeps the kernel
+    under `ops.bounce.plain()`); on the CPU its plain version, eager ops.
+    Both give the same bits.  Camera paths are then respawned on the
+    step's regen mask through ops/camera.camera_paths, outside kernel 7 as
+    in the JAX package.  The step returns the count of live lanes, the
+    loop's one host read per iteration.
 
     return_stats=True also returns the stats of render_rays, shadow rays
     counted as the JAX schedule counts them (every live lane that hit,
@@ -822,7 +788,7 @@ def render_pixels_stream(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids, 
     elif kind == "ids":
         fresh["ids"] = pixel_ids
     fresh.update(_stream_state(cfg, _spawner(cam, cfg, subframe, sample_offset),
-                               _slot_map(pixel_ids, n_pix) or (lambda slot: slot), lanes, dev))
+                               functools.partial(slot_pixels, n_pix=n_pix, **_pixel_map(pixel_ids)), lanes, dev))
     fresh.update(out=torch.zeros((n_pix + 1, 3), dtype=torch.float32, device=dev),  # +1 = sink
                  head=torch.full((), lanes, dtype=torch.int64, device=dev),
                  n_live=torch.full((), lanes, dtype=torch.int64, device=dev), **_counters(dev))
@@ -844,49 +810,48 @@ def render_pixels_stream(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids, 
 def _stream_step(scene: Scene, cfg: RenderConfig, kind: str, n_pix: int, spp: int, fused: bool, st: dict):
     """render_pixels_stream's iteration on its buffers `st`: trace, the
     schedule step (the kernel updates the lane state in place, the plain
-    version returns new tensors, copied in), respawn."""
+    version returns new tensors, copied in), respawn.  The step is kernel
+    7 on the card, fused or not, and the fused stream's under
+    `ops.bounce.plain()` too (its plain version is the unfused stream's
+    step); elsewhere the plain version."""
     nee = cfg.env_importance_sampling
     spawn = _spawner(st, cfg, st["subframe"], st["sample_offset"])
-    pixels = None if kind == "frame" else (st["base"], n_pix) if kind == "range" else st["ids"]
-    schedule_step = fused_stream_step if fused else functools.partial(
-        fused_stream_step_plain, slot_to_pixel=_slot_map(pixels, n_pix))
+    pixels = _pixel_map(None if kind == "frame" else (st["base"], n_pix) if kind == "range" else st["ids"])
+    schedule_step = fused_stream_step if fused or bounce_ops.on_card(scene.device) else fused_stream_step_plain
     kw = dict(spp=spp, n_pix=n_pix, max_depth=cfg.max_depth, rr_reference=cfg.rr_mode == "reference",
-              inv_spp=1.0 / spp)
+              inv_spp=1.0 / spp, **pixels)
+    keys = STATE_KEYS + (("spec_last",) if nee else ())
 
     def step():
         tb = _trace_bounce(scene, cfg, st["origin"], st["direction"], st["attenuation"], st["radiance"],
                            st["seeds"], st["depth"], st["spec_last"])
+        lane = {k: st[k] for k in keys}
         new = {}
+        regen, new["head"], new["segments"], new["n_live"], *shadow = schedule_step(
+            tb, lane, st["out"], st["head"], st["segments"], st["shadow"] if nee else None, **kw)
         if nee:
-            new["shadow"] = st["shadow"] + ((st["slot"] < n_pix) & tb["hit"]).sum()
-        lane = {k: st[k] for k in STATE_KEYS}
-        regen, new["head"], new["segments"], new["n_live"] = schedule_step(
-            tb, lane, st["out"], st["head"], st["segments"], **kw)
+            new["shadow"] = shadow[0]
         new.update((k, v) for k, v in lane.items() if v is not st[k])
         _write(st, new)
         _respawn(st, regen, spawn, spp)
-        if nee:
-            # A lane that neither respawns nor goes on is not live again,
-            # so its flag is never read.
-            st["spec_last"].copy_(torch.where(regen, torch.ones_like(st["spec_last"]), tb["spec_last"]))
 
     return step
 
 
 def _fused_stream_ok(cfg: RenderConfig, pixel_ids, lanes: int, device) -> bool:
-    """Whether the fused schedule step (ops/fused_schedule) runs this
-    render.  Its envelope is the JAX package's: the identity pixel
-    mapping (a whole frame, untiled), no NEE (shadow-segment accounting
-    and the spec_last flow stay in the unfused schedule), and a lane pool
-    of whole 128-lane rows that the JAX kernel's chunks of 128 rows
-    divide.  Camera regeneration, DOF included, runs outside the kernel.
+    """Whether this render is the fused stream ("stream_fused").  Its
+    envelope is the JAX package's: the identity pixel mapping (a whole
+    frame, untiled), no NEE, and a lane pool of whole 128-lane rows that
+    the JAX kernel's chunks of 128 rows divide.  Camera regeneration, DOF
+    included, runs outside the kernel.
 
-    "auto" takes it on a CUDA device, at every pool size: on an H100
-    80GB HBM3 at 700 W it launched ~70 fewer device kernels per
-    iteration and took 3-7% less device time than the unfused schedule,
-    and no measure showed it slower per launch, at both pools measured:
-    the headline's 131,072 lanes and config 1's 16,384 (PERF.md, the auto
-    rule).  On the CPU the step would only run its plain version."""
+    "auto" takes it on a CUDA device, at every pool size (PERF.md, the
+    auto rule: ~70 fewer device kernels an iteration than the unfused
+    stream's eager step).  Since the unfused stream launches the
+    same kernel on the card (kernel 7 takes every pixel map and NEE), the
+    two differ only under `ops.bounce.plain()`, where the fused stream
+    keeps the kernel.  On the CPU the step would only run its plain
+    version."""
     if cfg.fused_schedule == "off":
         return False
     if pixel_ids is not None or cfg.env_importance_sampling:
