@@ -91,7 +91,7 @@ Phases, each printing one line (any failure exits non-zero):
      bit-equal; times and bound as 18b;
  19. the headline fused (fused_schedule="on", kernels 1 and 7 at least
      once per iteration and nothing else) and unfused under
-     ops.bounce.plain() (the plain step and shading, no step or shading
+     ops.cuda_build.plain() (the plain step and shading, no step or shading
      kernel launched), one frame each of the same subframe: images
      bit-equal, iterations and segments identical; s/launch of both;
  20. BASELINE config 1 as phase 19: single_sphere_scene(32, 64) with the
@@ -171,9 +171,9 @@ Phases, each printing one line (any failure exits non-zero):
     images, iterations and segments bit-equal, one capture each and one
     graph launch per iteration; s/launch both ways, idle share, capture
     seconds and graph pool bytes; then each of them graphed with the
-    shading kernels' plain versions (ops.bounce.plain()) and with the
+    shading kernels' plain versions (ops.cuda_build.plain()) and with the
     kernels: bit-equal, s/launch, device kernels per iteration, device
-    time by kernel family, graph pool bytes (profile_renders.kernels_ab);
+    time by kernel family, graph pool bytes (kernels_ab);
 35. the bounce kernel (csrc/bounce.cu: the miss program, _shade and the
     payload combine; under NEE the light draw, the shadow candidates and
     the NEE record) against _bounce_plain on the headline's 131,072 and
@@ -190,7 +190,19 @@ Phases, each printing one line (any failure exits non-zero):
     Phases 35-37 time each kernel launch with the L2 flushed before it
     (_time_cold), and count the bytes each lane's class needs of the
     function (bounce_bytes, nee_bytes), so that ms and bound are both HBM
-    numbers.
+    numbers;
+38. the ray ordering (csrc/ray_sort.cu: the sort key with the shadow
+    rays' parking, the gather, the restore into a Hit or the any-hit
+    flags, the packet order) against its plain versions on the main
+    path's rays in lane order: the headline's 131,072 and its shadow rays
+    (a mask), config 4's and its shadow rays, a 1-spp tile's 345,600, and
+    the one-lane-a-pixel pool's 2,073,600 of the headline (phase 22's
+    render, 2,025 packets) and of config 4 (4,050 packets): every output
+    bit-equal; each kernel's ms with the L2 flushed, plain ms, bound
+    (bytes by lane class) and the PyTorch call that computes the same
+    function (index_select,
+    index_put_, argsort); torch.sort of the int32 key against the int64
+    key, device ms and device kernels a call (the profiler's).
 Every render runs graphed (render/graph_loop.py: each schedule's
 iteration captured once as a CUDA graph and replayed) but deferred
 shading's, and its phase checks so: a CLI run, a bench preset and the
@@ -202,7 +214,10 @@ bounce kernel once an iteration, the NEE kernel once an iteration under
 NEE, the camera kernel once a stream or regen iteration and once a
 render_pixels call's set-up; every schedule's step runs a kernel once
 an iteration (STEP_KERNEL): kernel 7 on every stream, fused or not, the
-path step on render_rays and render_pixels_regen; the unit-ball
+path step on render_rays and render_pixels_regen; every sorted trace
+runs the ray-order kernels once each (check_ray_order: the key, the
+gather and the restore; the packet order where the pool has more
+packets than the card holds at once); the unit-ball
 sampler's loop runs inside the bounce kernel, so the sampler launches only on the plain versions' path
 (phase 34's plain arm, whose count the kernels line gives it).
 Then the launches on the CLI renders of phases 25 and 26, one JSON line with every kernel's numbers (launches from its render
@@ -214,11 +229,13 @@ the headline 1080p frame, post-processed, as a binary PPM.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import functools
 import io
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -240,6 +257,7 @@ try:
     from tpu_pathtracer_torch.ops import cuda_build
     from tpu_pathtracer_torch.ops import fused_schedule as fs
     from tpu_pathtracer_torch.ops import intersect_cluster as ic
+    from tpu_pathtracer_torch.ops import ray_sort
     from tpu_pathtracer_torch.ops import unit_sphere
     from tpu_pathtracer_torch.render.camera import Camera, camera_arrays, generate_camera_rays
     from tpu_pathtracer_torch.render import graph_loop
@@ -293,6 +311,7 @@ except ImportError as e:
 
 REPO = Path(__file__).resolve().parent
 PALLAS = "tpu_pathtracer/ops/intersect_pallas.py"
+RAY_SORT = "tpu_pathtracer_torch/csrc/ray_sort.cu"
 # id: (kernel name, source, TPU kernel replaced, route, any hit, wrapper, kernel entry, plain version)
 KERNELS = {
     "k1": ("cluster_intersect", "tpu_pathtracer_torch/csrc/cluster_intersect.cu", f"{PALLAS}:257", "flat",
@@ -323,13 +342,26 @@ KERNELS = {
     # No TPU kernel either: the fusions XLA makes of the JAX package's bounce
     # (_trace_bounce after the traversal), NEE tail and camera spawn.  The
     # bounce kernel runs the sampler's loop inline, so on the kernels' path
-    # the sampler launches only under ops.bounce.plain().
+    # the sampler launches only under ops.cuda_build.plain().
     "kb": ("bounce", "tpu_pathtracer_torch/csrc/bounce.cu", "tpu_pathtracer/render/integrator.py:548", None, False,
            bounce_ops.bounce, bounce_ops.bounce, _bounce_plain),
     "kn": ("nee", "tpu_pathtracer_torch/csrc/nee.cu", "tpu_pathtracer/render/integrator.py:635", None, False,
            bounce_ops.next_event, bounce_ops.next_event, _nee_weights),
     "kc": ("camera", "tpu_pathtracer_torch/csrc/camera.cu", "tpu_pathtracer/render/integrator.py:57", None, False,
            camera_ops.camera_paths, camera_ops.camera_paths, camera_ops.camera_paths_plain),
+    # No TPU kernel either: the traversal's ray ordering, which XLA fuses
+    # around the Pallas kernels (the key, the packed one-row gather, the
+    # parking and the packed restore).  The packet order has no JAX
+    # counterpart (the TPU's grid takes packets in order): it orders the
+    # packets of the traversal launch it names, in place of an argsort.
+    "kk": ("sort_key", RAY_SORT, f"{PALLAS}:1141", None, False, ray_sort.sort_key, ray_sort.sort_key_cuda,
+           ray_sort.sort_key_plain),
+    "kg": ("gather_rays", RAY_SORT, f"{PALLAS}:1392", None, False, ray_sort.gather_rays, ray_sort.gather_rays_cuda,
+           ray_sort.gather_rays_plain),
+    "kr": ("restore_hits", RAY_SORT, "tpu_pathtracer/accel/cluster.py:294", None, False, ray_sort.restore_hits,
+           ray_sort.restore_hits_cuda, ray_sort.restore_hits_plain),
+    "ko": ("packet_order", RAY_SORT, f"{PALLAS}:1512", None, False, ray_sort.packet_order,
+           ray_sort.packet_order_cuda, ray_sort.packet_order_plain),
 }
 # The kernels each route's render launches, without and with NEE.
 ROUTE_KERNELS = {"flat": ("k1", "k4"), "hier": ("k2", "k5"), "streamed": ("k3", "k6")}
@@ -337,6 +369,24 @@ ROUTE_KERNELS = {"flat": ("k1", "k4"), "hier": ("k2", "k5"), "streamed": ("k3", 
 # on every stream (fused or not, any pixel map, NEE or not), the path step
 # on render_rays and render_pixels_regen.
 STEP_KERNEL = {"stream_fused": "k7", "stream": "k7", "regen": "kp", "rays": "kp"}
+
+
+# The ray ordering's kernels (ops/ray_sort.py): on every sorted trace the
+# key, the gather and the restore; the packet order on every trace with
+# more packets than the card holds at once.
+RAY_ORDER = ("kk", "kg", "kr", "ko")
+
+
+def check_ray_order(label, counts, traces, exact=True):
+    """The ray-order kernels once each on `traces` sorted traces: the key,
+    the gather and the restore; the packet order on each of them or, where
+    `exact`, on each or none (one pool size: its packets fit the card at
+    once or do not), else on at most `traces`."""
+    got = [counts[k] for k in RAY_ORDER]
+    order_ok = got[3] in (0, traces) if exact else got[3] <= traces
+    if got[:3] != [traces] * 3 or not order_ok:
+        raise SystemExit(f"[{label}] FAIL: ray-order launches {dict(zip((KERNELS[k][0] for k in RAY_ORDER), got))} "
+                         f"for {traces} sorted traces")
 
 
 def shading_kernels(nee):
@@ -371,6 +421,7 @@ CONFIG1 = dict(width=512, height=512, samples_per_launch=64, max_depth=8, dof=Fa
                rr_mode="reference", intersector="cluster")
 CAMERA_RAYS = 65536  # and as many first bounces: 131,072 rays per kernel phase
 CONFIG1_CAMERA_RAYS = 8192  # config 1's pool of 16,384 lanes
+REGEN_POOL = 2_073_600  # one lane a pixel at 1080p (phase 22's render_pixels_regen)
 # Bounds (H100 SXM data sheet, at the 700 W limit): float32 outside the
 # tensor cores, and device memory.
 PEAK_FP32 = 67e12
@@ -510,10 +561,10 @@ def _time_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def bounce_batch(scene, cfg, camera, n_cam=CAMERA_RAYS):
-    """2 x n_cam rays as the main path traces them: n_cam camera rays
-    spread over the frame and, for each, its first bounce (a miss keeps its
-    camera ray), sorted as ClusterAccel.intersect sorts them."""
+def trace_rays(scene, cfg, camera, n_cam=CAMERA_RAYS):
+    """2 x n_cam rays as the main path traces them, in lane order: n_cam
+    camera rays spread over the frame and, for each, its first bounce (a
+    miss keeps its camera ray)."""
     dev = scene.device
     acc = scene.accel
     n_pix = cfg.width * cfg.height
@@ -526,16 +577,20 @@ def bounce_batch(scene, cfg, camera, n_cam=CAMERA_RAYS):
     sh = _shade(scene, cfg, hit, o, d, seeds, depth)
     o2 = torch.where(hit.hit[:, None], sh["new_origin"], o)
     d2 = torch.where(hit.hit[:, None], sh["new_direction"], d)
-    o_s, d_s, _ = acc.sort(torch.cat([o, o2]), torch.cat([d, d2]), cfg)
+    return torch.cat([o, o2]), torch.cat([d, d2])
+
+
+def bounce_batch(scene, cfg, camera, n_cam=CAMERA_RAYS):
+    """trace_rays' rays sorted as ClusterAccel.intersect sorts them."""
+    o_s, d_s, _ = scene.accel.sort(*trace_rays(scene, cfg, camera, n_cam), cfg)
     return o_s, d_s
 
 
-def shadow_batch(scene, cfg, camera):
-    """131,072 NEE shadow rays as the main path traces them: bounce_batch's
-    rays intersected and shaded, one alias-table light draw each, the
-    lanes that trace nothing (misses, glass, emissive, light below the
-    normal) parked and the batch sorted as ClusterAccel.occluded does.
-    Returns (origins, directions, share of lanes parked)."""
+def shadow_rays(scene, cfg, camera):
+    """131,072 NEE shadow rays as the main path makes them: bounce_batch's
+    rays intersected and shaded, one alias-table light draw each; and the
+    mask of the lanes that trace one (the others: misses, glass, emissive,
+    light below the normal).  Returns (origins, directions, mask)."""
     acc = scene.accel
     o, d = bounce_batch(scene, cfg, camera)
     n = o.shape[0]
@@ -546,7 +601,15 @@ def shadow_batch(scene, cfg, camera):
     sh = _shade(scene, cfg, hit, o, d, seeds, depth)
     _, env_dir, _, _, _ = _light_sample(scene, cfg, sh, sh["seeds"])
     cand, _ = _shadow_candidates(hit.hit, sh, env_dir)
-    o_s, d_s, _ = acc.shadow_sort(sh["new_origin"], env_dir, cfg, active=cand)
+    return sh["new_origin"], env_dir, cand
+
+
+def shadow_batch(scene, cfg, camera):
+    """shadow_rays' rays with the lanes that trace nothing parked and the
+    batch sorted as ClusterAccel.occluded does.  Returns (origins,
+    directions, share of lanes parked)."""
+    o, d, cand = shadow_rays(scene, cfg, camera)
+    o_s, d_s, _ = scene.accel.sort(o, d, cfg, active=cand)
     return o_s, d_s, 1.0 - float(cand.float().mean())
 
 
@@ -752,6 +815,8 @@ def phase_render(label, scene, cfg, camera, frames, smi, image_path=None, warm=T
     n_pix = cfg.width * cfg.height
     spawn_calls = frames * (n_pix // cfg.tile_pixels if 0 < cfg.tile_pixels < n_pix else 1)
     check_shading(label, counts, iters, nee, spawns=spawn_calls + (iters if sched != "rays" else 0))
+    check_ray_order(label, counts, iters * (2 if nee else 1))
+    want += RAY_ORDER
     others = {KERNELS[kid][0]: c for kid, c in counts.items() if kid not in want and c}
     if others:
         raise SystemExit(f"[{label}] FAIL: other kernels launched: {others}")
@@ -759,7 +824,7 @@ def phase_render(label, scene, cfg, camera, frames, smi, image_path=None, warm=T
         raise SystemExit(f"[{label}] FAIL: timed frame is non-finite or black")
     if seg_total <= 0 or (nee and shadow_total <= 0):
         raise SystemExit(f"[{label}] FAIL: no segments traced")
-    launched = {KERNELS[kid][0]: counts[kid] for kid in want}
+    launched = {KERNELS[kid][0]: counts[kid] for kid in want if counts[kid]}
     rays = seg_total + shadow_total
     tiles = f" in tiles of {cfg.tile_pixels}" if 0 < cfg.tile_pixels < cfg.width * cfg.height else ""
     lanes = f", {resolve_stream_lanes(cfg, cfg.width * cfg.height)} lanes" if sched.startswith("stream") else ""
@@ -1315,7 +1380,7 @@ PATH_STEP_CASES = (
     ("rays, a 1-spp tile, NEE", "rays", dict(NEE, samples_per_launch=1), 345_600, 2),
     ("regen", "regen", {}, 131_072, 6),
     ("regen NEE", "regen", NEE, 131_072, 6),
-    ("regen, one lane per pixel", "regen", {}, 2_073_600, 6),
+    ("regen, one lane per pixel", "regen", {}, REGEN_POOL, 6),
 )
 
 
@@ -1367,7 +1432,7 @@ def phase_path_step(label, scene, smi):
 
 def phase_fused_render(label, scene, cfg, camera, smi):
     """Subframe 0 with the fused stream (kernel 7 every iteration) and with
-    the unfused stream under ops.bounce.plain() (its plain step and the
+    the unfused stream under ops.cuda_build.plain() (its plain step and the
     shading's plain versions: no step or shading kernel launches), one
     frame each: images bit-equal, iterations and segments identical, so
     kernel 7 is held against plain code at the render's full size.
@@ -1379,13 +1444,13 @@ def phase_fused_render(label, scene, cfg, camera, smi):
     torch.cuda.synchronize()
     set_counts_zero()
     t0 = time.perf_counter()
-    with bounce_ops.plain():
+    with cuda_build.plain():
         img, stats = render_frame_stats(scene, cam, cfg_p, 0)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = read_counts()
     kernels = {KERNELS[k][0]: counts[k] for k in ("k7", "kp") + shading_kernels(cfg.env_importance_sampling)
-               if counts[k]}
+               + RAY_ORDER if counts[k]}
     if stats["schedule"] != "stream" or kernels:
         raise SystemExit(f"[{label}] FAIL: the plain arm took the {stats['schedule']} schedule and launched {kernels}")
     plain = dict(img=img, iters=stats["iters"], segments=int(stats["segments"]))
@@ -1395,7 +1460,7 @@ def phase_fused_render(label, scene, cfg, camera, smi):
     if (fused["iters"], fused["segments"]) != (plain["iters"], plain["segments"]):
         raise SystemExit(f"[{label}] FAIL: iterations/segments {fused['iters']}/{fused['segments']} fused vs "
                          f"{plain['iters']}/{plain['segments']} unfused plain")
-    print(f"[{label}] the fused stream (kernel 7) and the unfused stream's plain step (ops.bounce.plain(), no step "
+    print(f"[{label}] the fused stream (kernel 7) and the unfused stream's plain step (ops.cuda_build.plain(), no step "
           f"or shading kernel launched) give bit-equal images, {fused['iters']} iterations and {fused['segments']} "
           f"segments each; s/launch fused {fused['seconds']:.4f} vs unfused plain {dt:.4f} (one frame each, its "
           f"graph capture included) | {smi}")
@@ -1583,7 +1648,9 @@ def check_launches(label, counts, log, want, extra=0):
             raise SystemExit(f"[{label}] FAIL: {counts[kid]} {KERNELS[kid][0]} launches for {iters} iterations")
     nee = any(kid in want for kid in ("k4", "k5", "k6"))
     check_shading(label, counts, iters, nee)
-    others = {KERNELS[kid][0]: c for kid, c in counts.items() if kid not in want + shading_kernels(nee) and c}
+    check_ray_order(label, counts, iters * (2 if nee else 1) + extra, exact=False)
+    others = {KERNELS[kid][0]: c for kid, c in counts.items()
+              if kid not in want + shading_kernels(nee) + RAY_ORDER and c}
     if others:
         raise SystemExit(f"[{label}] FAIL: other kernels launched: {others}")
     return iters
@@ -1752,10 +1819,232 @@ def phase_viewer(label, paths, smi):
           f"{sorted((k[2], *k[3:]) for k in session)}) | {smi}")
 
 
+# ---------------------------------------------------------------------------
+# Device profiles and A/B renders (phases 31, 34 and 38; profile_renders.py
+# imports these)
+# ---------------------------------------------------------------------------
+
+# The device functions of the port's kernels (csrc/): the six traversals
+# (one body, with its packet-weight pre-pass), the schedule steps (kernel
+# 7 and the path step), the unit-ball sampler, and the shading kernels:
+# the bounce kernel (and its deferred entry point), the NEE kernel and the
+# camera kernel; and the ray ordering around the traversal.
+RAY_ORDER_FUNCTIONS = ("sort_key_kernel", "gather_rays_kernel", "restore_hits_kernel", "packet_order_kernel")
+DEVICE_FUNCTIONS = ("streamed_kernel", "packet_weight_kernel", "fused_step_kernel", "path_step_kernel",
+                    "unit_sphere_kernel", "bounce_kernel", "shade_lanes_kernel", "nee_kernel",
+                    "camera_kernel") + RAY_ORDER_FUNCTIONS
+# kernel_label's families, for the device time split of --plain-ab
+FAMILIES = {"traversal": ("streamed_kernel", "packet_weight_kernel"),
+            "schedule step": ("fused_step_kernel", "path_step_kernel"),
+            "sampler": ("unit_sphere_kernel",),
+            "shading": ("bounce_kernel", "shade_lanes_kernel", "nee_kernel", "camera_kernel"),
+            "ray order": RAY_ORDER_FUNCTIONS}
+
+
+def kernel_label(key):
+    """The port's kernel that the device function `key` belongs to, or
+    None.  streamed_kernel<kAnyHit, kVisit, ...> is told apart by its first
+    two template arguments: any hit or closest, and the visit order: flat
+    (kernels 1 and 4), per packet (the hier route) or ascending (the
+    streamed route)."""
+    name = next((k for k in DEVICE_FUNCTIONS if k in key), None)
+    if name == "streamed_kernel":
+        any_hit, visit = (a.strip() for a in key.split("streamed_kernel<", 1)[-1].split(",")[:2])
+        route = ("flat" if visit.endswith("2") or visit.endswith("kFlat")
+                 else "hier" if visit.endswith("1") or visit.endswith("kPerPacket") else "streamed")
+        return f"streamed_kernel ({route}, {'any' if any_hit in ('true', '(bool)1') else 'closest'} hit)"
+    return name
+
+
+def device_events(prof):
+    """{name: [count, device seconds]} over the device's events in a
+    profile: kernels, copies and memsets."""
+    cuda = torch.autograd.DeviceType.CUDA
+    table = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            row = table.setdefault(e.name(), [0, 0.0])
+            row[0] += 1
+            row[1] += e.duration_ns() / 1e9
+    return table
+
+
+def launch_calls(prof):
+    """{name: count} of the host's CUDA API calls in a
+    profile that launch work on the device: kernel launches and graph
+    launches."""
+    cuda = torch.autograd.DeviceType.CUDA
+    calls = collections.Counter()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda and e.name().startswith("cu") and "Launch" in e.name():
+            calls[e.name()] += 1
+    return calls
+
+
+def arm(eager=False, plain=False):
+    """The context of a frame: the eager loop or the graphed one, the
+    plain versions of the shading kernels or the kernels."""
+    stack = contextlib.ExitStack()
+    if eager:
+        stack.enter_context(graph_loop.eager())
+    if plain:
+        stack.enter_context(cuda_build.plain())
+    return stack
+
+
+def frame(scene, cam, cfg, subframe, eager, plain=False):
+    """One frame, eagerly or graphed: (seconds, image, stats)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with arm(eager, plain):
+        img, stats = render_frame_stats(scene, cam, cfg, subframe)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, img, stats
+
+
+def profiled(scene, cam, cfg, subframe, eager, plain=False, events_out=None):
+    """One frame under the profiler: (wall, device busy, device kernels,
+    host launch calls {name: count}, stats); `events_out`, a dict, gets
+    the device events {name: [count, seconds]}."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, arm(eager, plain):
+        t0 = time.perf_counter()
+        _, stats = render_frame_stats(scene, cam, cfg, subframe)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = device_events(prof)
+    if events_out is not None:
+        events_out.update(events)
+    return (wall, sum(s for _, s in events.values()), sum(c for c, _ in events.values()), launch_calls(prof),
+            stats)
+
+
+def family(key):
+    """The FAMILIES name of the device event `key`, or "rest"."""
+    return next((f for f, names in FAMILIES.items() if any(n in key for n in names)), "rest")
+
+
+def kernels_ab(label, scene, cam, cfg, smi, frames=1, order=(True, False, False, True)):
+    """The shading kernels against their plain versions (ops.cuda_build.plain())
+    on one render, both graphed: each arm's first frame at subframe 0
+    captures (the pool's bytes of the arm's plans), then `frames` frames
+    from subframe 1 in each turn of `order` (True: plain), whose images,
+    iterations, segments and shadow segments must be bit-equal across
+    the arms; then one profiled frame of each arm.  Prints one line;
+    returns its numbers by arm ("plain", "kernels"), each with the launch
+    counts of its first timed frame by wrapper name."""
+    graph_loop.clear()
+    out = {}
+    for plain in (True, False):
+        before = {p.key for p in graph_loop._plans.values()}
+        first, _, _ = frame(scene, cam, cfg, 0, eager=False, plain=plain)
+        plans = [p for p in graph_loop._plans.values() if p.key not in before]
+        out["plain" if plain else "kernels"] = dict(first=first, pool_bytes=sum(p.pool_bytes for p in plans),
+                                                   captures=len([p for p in plans if p.graph is not None]), times=[])
+    seen = {}
+    for plain in order:
+        row = out["plain" if plain else "kernels"]
+        for k in range(frames):
+            counts0 = {f.__name__: f.launches for f in graph_loop.COUNTED}
+            dt, img, stats = frame(scene, cam, cfg, 1 + k, eager=False, plain=plain)
+            row["times"].append(dt)
+            row.setdefault("counts", {f.__name__: f.launches - counts0[f.__name__] for f in graph_loop.COUNTED})
+            got = (img, {f: int(stats[f]) for f in ("iters", "segments", "shadow_segments")})
+            if k not in seen:
+                seen[k] = got
+            elif not same_bits(seen[k][0], img) or seen[k][1] != got[1]:
+                raise SystemExit(f"[{label}] FAIL: frame {1 + k} differs {'plain' if plain else 'kernels'} "
+                                 f"{got[1]} vs {seen[k][1]}")
+            if not stats["graphed"]:
+                raise SystemExit(f"[{label}] FAIL: the frame did not run graphed")
+    parts = []
+    for name, row in out.items():
+        events = {}
+        wall, busy, kernels, _, st = profiled(scene, cam, cfg, 1, False, plain=name == "plain", events_out=events)
+        iters = st["iters"]
+        split = collections.Counter()
+        for key, (_, sec) in events.items():
+            split[family(key)] += sec
+        rest = sorted(((sec, c, key) for key, (c, sec) in events.items() if family(key) == "rest"), reverse=True)[:4]
+        mean = sum(row["times"]) / len(row["times"])
+        row.update(seconds=mean, busy=busy, idle=1 - busy / mean, kernels=kernels / iters, iters=iters,
+                   split={f: sec / iters for f, sec in split.items()})
+        parts.append(
+            f"{name}: s/launch {' '.join(f'{t:.4f}' for t in row['times'])} (mean {mean:.4f}), first frame "
+            f"{row['first']:.4f} s, graph pool {row['pool_bytes']} bytes; profiled wall {wall:.4f} s, device busy "
+            f"{busy:.4f} s, idle share of the mean s/launch {row['idle']:.2%}, {row['kernels']:.1f} device kernels per "
+            f"iteration; device ms per iteration: "
+            + ", ".join(f"{f} {sec * 1e3 / iters:.4f}" for f, sec in split.most_common())
+            + "; largest of the rest per iteration: "
+            + ", ".join(f"{key[:60]} {c / iters:.1f} x {sec / c * 1e3:.4f} ms" for sec, c, key in rest)
+            + f"; launches {dict((k, v) for k, v in row['counts'].items() if v)}")
+    print(f"[{label}] {st['schedule']} schedule, {cfg.width}x{cfg.height} {cfg.samples_per_launch} spp depth "
+          f"{cfg.max_depth}, {st['iters']} iterations: plain and kernels bit-equal (images, iterations, segments, "
+          f"shadow segments) over {frames} frame(s) a turn in the order "
+          f"{' '.join('P' if p else 'K' for p in order)}; " + "; ".join(parts)
+          + f"; speed-up {out['plain']['seconds'] / out['kernels']['seconds']:.4f}x | {smi}", flush=True)
+    graph_loop.clear()
+    return out
+
+
+def ab_render(label, scene, cam, cfg, smi, frames=2, order=(True, False, False, True), profile_eager=True):
+    """The loop run eagerly against the graphed loop on one render: a
+    first graphed frame at subframe 0 (it captures: its seconds, the
+    capture's seconds and the graph pool's bytes), then `frames` frames
+    from subframe 1 in each turn of `order` (True: eager), whose images,
+    iterations, segments and shadow segments must be bit-equal each way;
+    then one frame under the profiler graphed (and eager with
+    `profile_eager`).  Prints one line; returns its numbers by loop."""
+    graph_loop.clear()
+    captures = graph_loop.stats["captures"]
+    first, _, stats0 = frame(scene, cam, cfg, 0, eager=False)
+    plans = list(graph_loop._plans.values())
+    capture_s = sum(p.capture_seconds for p in plans)
+    pool = sum(p.pool_bytes for p in plans)
+    times, seen = {True: [], False: []}, {}
+    for eager in order:
+        for k in range(frames):
+            dt, img, stats = frame(scene, cam, cfg, 1 + k, eager)
+            times[eager].append(dt)
+            got = (img, {f: int(stats[f]) for f in ("iters", "segments", "shadow_segments")})
+            if k not in seen:
+                seen[k] = got
+            elif not same_bits(seen[k][0], img) or seen[k][1] != got[1]:
+                raise SystemExit(f"[{label}] FAIL: frame {1 + k} differs {'eager' if eager else 'graphed'} "
+                                 f"{got[1]} vs {seen[k][1]}")
+            if stats["graphed"] == eager:
+                raise SystemExit(f"[{label}] FAIL: the frame reports graphed {stats['graphed']}")
+    n_captures = graph_loop.stats["captures"] - captures
+    out, parts = {}, []
+    for eager in (True, False):
+        mean = sum(times[eager]) / len(times[eager])
+        row = dict(seconds=mean, times=times[eager])
+        desc = f"s/launch {' '.join(f'{t:.4f}' for t in times[eager])} (mean {mean:.4f})"
+        if profile_eager or not eager:
+            wall, busy, kernels, calls, st = profiled(scene, cam, cfg, 1, eager)
+            row.update(busy=busy, idle=1 - busy / mean, kernels=kernels / st["iters"],
+                       calls={k: v / st["iters"] for k, v in calls.items()})
+            calls_desc = ", ".join(f"{k} {v:.2f}" for k, v in row["calls"].items()) or "not measured"
+            desc += (f"; profiled wall {wall:.4f} s, device busy {busy:.4f} s, idle share of the mean s/launch "
+                     f"{row['idle']:.2%} (of the profiled wall {1 - busy / wall:.2%}), {row['kernels']:.1f} device "
+                     f"kernels per iteration, host launch calls per iteration: {calls_desc}")
+        out["eager" if eager else "graphed"] = row
+        parts.append(f"{'eager' if eager else 'graphed'}: {desc}")
+    out.update(first=first, capture_seconds=capture_s, pool_bytes=pool, captures=n_captures, iters=stats0["iters"],
+               schedule=stats0["schedule"])
+    print(f"[{label}] {stats0['schedule']} schedule, {cfg.width}x{cfg.height} {cfg.samples_per_launch} spp depth "
+          f"{cfg.max_depth}, {stats0['iters']} iterations at subframe 0: eager and graphed bit-equal over {frames} "
+          f"frame(s) each way; first graphed frame {first:.4f} s with {n_captures} capture(s) of {capture_s:.4f} s, "
+          f"graph pool {pool} bytes; " + "; ".join(parts)
+          + f"; speed-up {out['eager']['seconds'] / out['graphed']['seconds']:.4f}x | {smi}", flush=True)
+    graph_loop.clear()
+    return out
+
+
+
 def phase_graph_ab(label, scene, hero, root, smi):
     """Every schedule and route of the main path run eagerly
     (`graph_loop.eager()`) and graphed, one frame each way after a first
-    graphed frame that captures (profile_renders.ab_render): the
+    graphed frame that captures (ab_render): the
     headline on the fused stream and with NEE (unfused stream, kernels 1
     and 4), BASELINE config 1, config 4 with NEE (kernels 2 and 5), the
     200k scene (kernel 3), 1 spp in six tiles (render_rays) and the hero
@@ -1763,13 +2052,11 @@ def phase_graph_ab(label, scene, hero, root, smi):
     bit-equal; one capture each; every iteration of the profiled graphed
     frame one graph launch; s/launch both ways, the graphed frame's idle
     share, capture seconds and graph pool bytes.  Then each render graphed
-    with the shading kernels' plain versions (ops.bounce.plain()) and
-    with the kernels (profile_renders.kernels_ab): bit-equal, the plain
+    with the shading kernels' plain versions (ops.cuda_build.plain()) and
+    with the kernels (kernels_ab): bit-equal, the plain
     arm launching the sampler and no shading kernel, the kernels' arm the
     reverse.  Returns the plain arm's launch counts on the headline (the
     sampler's, for the kernels line)."""
-    from profile_renders import ab_render, kernels_ab
-
     cfg, cfg_nee, cam4 = RenderConfig(**HEADLINE), RenderConfig(**{**HEADLINE, **NEE}), Camera(**CONFIG4_CAMERA)
     hero_scene, hero_camera, hero_cfg = load_scene_file(str(hero), device="cuda", cache_dir=str(root / "cache"))
     cases = (
@@ -1791,11 +2078,13 @@ def phase_graph_ab(label, scene, hero, root, smi):
                              f"per iteration")
         summary.append(f"{name} {row['eager']['seconds']:.4f} -> {row['graphed']['seconds']:.4f} "
                        f"({row['eager']['seconds'] / row['graphed']['seconds']:.2f}x, idle {row['graphed']['idle']:.1%})")
-        # The shading kernels against their plain versions (ops.bounce.plain()), both graphed.
+        # The shading kernels against their plain versions (ops.cuda_build.plain()), both graphed.
         ab = kernels_ab(f"{label} {name} plain vs kernels", scene_n, cam, c, smi, frames=1, order=(True, False))
         counts = {arm: ab[arm]["counts"] for arm in ("plain", "kernels")}
         if counts["kernels"]["random_in_unit_sphere"] or not counts["plain"]["random_in_unit_sphere"] or any(
-                counts["plain"][k] for k in ("bounce", "next_event", "camera_paths", "path_step")):
+                counts["plain"][k] for k in ("bounce", "next_event", "camera_paths", "path_step", "sort_key",
+                                             "gather_rays", "restore_hits", "packet_order")) or not all(
+                counts["kernels"][k] for k in ("sort_key", "gather_rays", "restore_hits")):
             raise SystemExit(f"[{label} {name}] FAIL: launches plain {counts['plain']}, kernels {counts['kernels']}")
         if name == "headline fused":
             plain_counts = counts["plain"]
@@ -2102,6 +2391,164 @@ def phase_camera_kernel(label, smi, n=131_072):
 
 
 # ---------------------------------------------------------------------------
+# The ray ordering against its plain versions (phase 38)
+# ---------------------------------------------------------------------------
+
+def ray_order_bytes(n, active, hit):
+    """Bytes each ray-order kernel must move on n rays (each input read
+    once, each output written once), by lane class.  The key: a lane
+    outside the mask reads its mask byte, any other lane its ray (24 B)
+    and the mask byte if there is one; each writes 4 B; the scene box
+    (24 B) once.  The gather: each lane reads perm (8 B), the mask byte if
+    there is one, the ray of an active lane, and writes a ray; the box
+    once with a mask.  The restore, closest hit (`hit`: the sorted hit
+    flags): each lane reads perm, t and prim (16 B) and writes t, prim,
+    bary and hit (17 B), and a hit also reads uv (8 B); any hit (`hit`
+    None): perm and one flag byte each way."""
+    mask = 0 if active is None else n
+    n_act = n if active is None else int(active.sum())
+    if hit is None:
+        restore = n * 10
+    else:
+        restore = n * 33 + int(hit.sum()) * 8
+    return dict(key=n_act * 24 + n * 4 + mask + 24, gather=n * 32 + mask + n_act * 24 + (24 if mask else 0),
+                restore=restore)
+
+
+def order_compares(packets):
+    """Compares the packet order's function needs: a sort of P weights,
+    P log2 P (the kernel itself makes P^2)."""
+    return round(packets * math.log2(packets)) if packets > 1 else 0
+
+
+def _profiled(fn, calls=10):
+    """(device kernels, device ms) a call of fn, from torch.profiler's
+    device events (kernels, copies, memsets) over `calls` calls after a
+    warm-up call: the sum of the events' times, so no host gap counts.
+    None if three profiles in a row saw no device event (the trace can
+    come back empty)."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = device_events(prof).values()
+        if events:
+            return sum(count for count, _ in events) / calls, sum(sec for _, sec in events) / calls * 1e3
+    return None
+
+
+def phase_ray_order(label, cases, smi):
+    """The ray-order kernels (csrc/ray_sort.cu) against their plain
+    versions (ops/ray_sort.py) on the main path's rays, in lane order as
+    the schedule traces them (`cases`: name, scene, RenderConfig, camera,
+    camera rays, any hit): the key (shadow rays: the lanes that
+    trace nothing parked by the key's mask), the gather through
+    torch.sort's permutation of the key, the restore of the route's
+    traversal kernel's outputs on the sorted rays, and the packet order of
+    that launch's pre-pass weights: every output bit-equal.  Each kernel
+    timed with the L2 flushed before each launch (_time_cold), beside the
+    plain version, the bound (the bytes of each lane's class,
+    ray_order_bytes; the packet order's also by its compares,
+    order_compares) and the one PyTorch call that computes
+    the same function on the same inputs (index_select of the origins and
+    the directions, index_put_ of t, prim and uv, argsort; the key has
+    none), and the sort between them on the int32 key against the int64
+    key: device ms and device kernels a call (_profiled).  Returns each
+    kernel's numbers on the first case."""
+    first = {}
+    for name, scene, cfg, camera, n_cam, any_hit in cases:
+        acc = scene.accel
+        if any_hit:
+            o, d, active = shadow_rays(scene, cfg, camera)
+        else:
+            (o, d), active = trace_rays(scene, cfg, camera, n_cam), None
+        n = o.shape[0]
+        box = acc.scene_lo, acc.scene_hi
+        bits = acc._spatial_bits(cfg), acc._dir_bits(cfg)
+        # the key
+        key = ray_sort.sort_key_cuda(o, d, *box, *bits, active)
+        if not torch.equal(key, ray_sort.sort_key_plain(o, d, *box, *bits, active)):
+            raise SystemExit(f"[{label} {name}] FAIL: the key kernel and its plain version differ")
+        perm = torch.sort(key, stable=True).indices
+        # the gather
+        o_s, d_s = ray_sort.gather_rays_cuda(o, d, perm, active, *box)
+        o_p, d_p = ray_sort.gather_rays_plain(o, d, perm, active, *box)
+        if not (same_bits(o_s, o_p) and same_bits(d_s, d_p)):
+            raise SystemExit(f"[{label} {name}] FAIL: the gather kernel and its plain version differ")
+        # the route's traversal on the sorted rays, then the restore
+        route, args = acc.traversal(o_s, d_s, cfg.t_min, cfg.t_max, cfg)
+        kid = ROUTE_KERNELS[route][int(any_hit)]
+        outputs = KERNELS[kid][6](*args)
+        hit = ray_sort.restore_hits_cuda(outputs, perm)
+        want = ray_sort.restore_hits_plain(outputs, perm)
+        same = (torch.equal(hit, want) if any_hit else
+                all(same_bits(getattr(hit, f), getattr(want, f)) for f in ("t", "prim", "bary", "hit")))
+        if not same:
+            raise SystemExit(f"[{label} {name}] FAIL: the restore kernel and its plain version differ")
+        # the packet order of that launch's pre-pass
+        rpt = acc._rpt(cfg)
+        stem = ic._STEMS[route, any_hit]
+        supers = args[1] if route == "flat" else args[2]
+        weights = ic.packet_weights(getattr(cuda_build.library(f"{stem}.cu"), f"{stem}_weights"), supers, o_s, d_s,
+                                    cfg.t_min, cfg.t_max, rpt)
+        order = ray_sort.packet_order_cuda(weights)
+        if not torch.equal(order, ray_sort.packet_order_plain(weights)):
+            raise SystemExit(f"[{label} {name}] FAIL: the packet order kernel and its plain version differ")
+        torch.cuda.synchronize()
+        # times: kernel (L2 flushed), plain, library
+        cold = [None] * 51
+        sorted_out = (outputs,) if any_hit else outputs
+        scatter = [torch.empty_like(x) for x in sorted_out]
+        kernels = dict(
+            key=(lambda _: ray_sort.sort_key_cuda(o, d, *box, *bits, active),
+                 lambda: ray_sort.sort_key_plain(o, d, *box, *bits, active), None),
+            gather=(lambda _: ray_sort.gather_rays_cuda(o, d, perm, active, *box),
+                    lambda: ray_sort.gather_rays_plain(o, d, perm, active, *box),
+                    lambda _: (torch.index_select(o, 0, perm), torch.index_select(d, 0, perm))),
+            restore=(lambda _: ray_sort.restore_hits_cuda(outputs, perm),
+                     lambda: ray_sort.restore_hits_plain(outputs, perm),
+                     lambda _: [dst.index_put_((perm,), x) for dst, x in zip(scatter, sorted_out)]),
+            order=(lambda _: ray_sort.packet_order_cuda(weights), lambda: ray_sort.packet_order_plain(weights),
+                   lambda _: torch.argsort(weights, descending=True, stable=True)),
+        )
+        n_bytes = ray_order_bytes(n, active, None if any_hit else outputs[1] != ray_sort.MISS_PRIM)
+        packets = weights.shape[0]
+        n_bytes["order"] = packets * 8
+        ops = dict(order=order_compares(packets))
+        numbers = {}
+        for k, (kernel, plain, library) in kernels.items():
+            bound_ms, bound_by = bound(n_bytes[k], ops.get(k, 0))
+            numbers[k] = dict(max_abs_err=0.0, ms=_time_cold(kernel, cold), plain_ms=_time_ms(plain, 10),
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              library_ms=None if library is None else _time_cold(library, cold))
+        # the sort between the key and the gather, int32 against int64 (the
+        # int64 sort cannot be queued ahead of the card, as _time_cold
+        # needs: the profiler's device time instead, for both)
+        sorts = {name_: _profiled(lambda: torch.sort(k_, stable=True))
+                 for name_, k_ in (("int32", key), ("int64", key.long()))}
+        calls = dict(gather="index_select x 2", restore=f"index_put_ x {len(sorted_out)}", order="argsort")
+        sort_ms = ", ".join(f"{k_} not measured (no device events traced)" if v_ is None else
+                            f"{k_} {v_[1]:.4f} ms in {v_[0]:.0f} device kernels" for k_, v_ in sorts.items())
+        parts = "; ".join(
+            f"{k} {v['ms']:.4f} ms, plain {v['plain_ms']:.4f}, "
+            + (f"{calls[k]} {v['library_ms']:.4f}, " if k in calls else "no library call, ")
+            + f"bound {v['bound_ms']:.4f} by {v['bound_by']} ({n_bytes[k]} B{', %d ops' % ops[k] if k in ops else ''})"
+            for k, v in numbers.items())
+        print(f"[{label} {name}] {n} rays{f', {int(active.sum())} active' if active is not None else ''}, "
+              f"{route} route{', any hit' if any_hit else ''}, {bits[0]} spatial and "
+              f"{ray_sort.key_dir_bits(*bits)} direction bits ({int(key.unique().numel())} distinct keys), "
+              f"{packets} packets of {rpt}: key, gather, restore and packet order bit-equal (0 ulp); {parts} "
+              f"(L2 flushed before each kernel and library launch); torch.sort of the key (device time, warm): "
+              f"{sort_ms} | {smi}")
+        if not first:
+            first = numbers
+    return first
+
+
+# ---------------------------------------------------------------------------
 # Sharding, deferred shading and the oracle (phases 29-32)
 # ---------------------------------------------------------------------------
 
@@ -2121,13 +2568,13 @@ def timed(fn):
 
 
 def check_kernels(label, counts, want):
-    """Each kernel of `want` and the shading kernels launched, no other
-    kernel."""
-    want = want + shading_kernels(any(kid in want for kid in ("k4", "k5", "k6")))
+    """Each kernel of `want`, the shading kernels and the restore launched,
+    no other kernel but the rest of the ray ordering."""
+    want = want + shading_kernels(any(kid in want for kid in ("k4", "k5", "k6"))) + ("kr",)
     for kid in want:
         if not counts[kid]:
             raise SystemExit(f"[{label}] FAIL: {KERNELS[kid][0]} never launched")
-    extra = {KERNELS[kid][0]: c for kid, c in counts.items() if c and kid not in want}
+    extra = {KERNELS[kid][0]: c for kid, c in counts.items() if c and kid not in want + RAY_ORDER}
     if extra:
         raise SystemExit(f"[{label}] FAIL: other kernels launched: {extra}")
 
@@ -2277,9 +2724,7 @@ def phase_deferred(label, hero, root, smi):
     must be bit-equal with equal iterations and segments; the
     mean s/launch of the three, stream syncs and device kernels per
     iteration, and the device busy time of a fourth frame under
-    torch.profiler (device events, as profile_renders.py reads them)."""
-    from profile_renders import device_events
-
+    torch.profiler (device events, device_events)."""
     hero_scene, hero_camera, hero_cfg = load_scene_file(str(hero), device="cuda", cache_dir=str(root / "cache"))
     cases = (("headline", headline_scene("cuda"), Camera(), RenderConfig(**HEADLINE)),
              ("hero", hero_scene, hero_camera, hero_cfg))
@@ -2447,7 +2892,9 @@ def bench_preset(name, argv, phase, differ, renders, smi):
         if counts[kid] < iters:
             raise SystemExit(f"[{name}] FAIL: {counts[kid]} {KERNELS[kid][0]} launches for {iters} iterations")
     check_shading(name, counts, iters, nee)
-    others = {KERNELS[kid][0]: c for kid, c in counts.items() if kid not in want + shading_kernels(nee) and c}
+    check_ray_order(name, counts, iters * (2 if nee else 1))
+    others = {KERNELS[kid][0]: c for kid, c in counts.items()
+              if kid not in want + shading_kernels(nee) + RAY_ORDER and c}
     if others:
         raise SystemExit(f"[{name}] FAIL: other kernels launched: {others}")
     print(f"[{name}] {lines[0]} | segments equal phase {phase}'s at subframe 0"
@@ -2507,6 +2954,9 @@ def main() -> int:
     # the sampler's 0: its loop runs inside the bounce kernel on the main path
     launches["k1"], launches["kb"], launches["kc"], launches["ks"] = (
         headline["counts"][k] for k in ("k1", "kb", "kc", "ks"))
+    launches.update((k, headline["counts"][k]) for k in RAY_ORDER)
+    if not all(launches[k] for k in RAY_ORDER):
+        raise SystemExit(f"[4 render headline] FAIL: a ray-order kernel never launched: {launched(headline['counts'])}")
     renders = {"4": headline}  # by phase: what phase 33's bench runs are held against
     early = dict(render=headline, bench=bench_preset("4b bench config 0", *BENCH_PRESETS[0], renders, smi))
     phase_parity("5 parity headline", headline_scene, Camera(), "flat")
@@ -2587,6 +3037,16 @@ def main() -> int:
              CAMERA_RAYS),
         ), smi)
         numbers["kc"] = phase_camera_kernel("37 camera kernel", smi)
+        ray_order = phase_ray_order("38 ray order", (
+            ("headline", scene, cfg, Camera(), CAMERA_RAYS, False),
+            ("headline NEE shadow rays", scene, cfg_nee, Camera(), CAMERA_RAYS, True),
+            ("config 4", config4, cfg, cam4, CAMERA_RAYS, False),
+            ("config 4 NEE shadow rays", config4, cfg_nee, cam4, CAMERA_RAYS, True),
+            ("1-spp tile", scene, cfg, Camera(), 172_800, False),
+            ("headline regen pool", scene, cfg, Camera(), REGEN_POOL // 2, False),
+            ("config 4 regen pool", config4, cfg, cam4, REGEN_POOL // 2, False),
+        ), smi)
+        numbers.update(zip(RAY_ORDER, (ray_order[k] for k in ("key", "gather", "restore", "order"))))
         del config4
     print("[launches on the CLI renders] " + "; ".join(
         f"{name}: " + ", ".join(f"{KERNELS[kid][0]} {n}" for kid, n in counts.items() if n)
@@ -2598,8 +3058,10 @@ def main() -> int:
     # also gives phase 34's plain arm's count as `plain_arm_launches`;
     # kernel 7 also gives its launches in phase 14's NEE render and its
     # numbers off the fused stream's envelope (phase 18b) as `widened`.
+    # the ray-order kernels also give their launches in phase 14's NEE render.
     extra = {"ks": dict(plain_arm_launches=plain_arm["ks"]),
-             "k7": dict(launches_nee=renders["14"]["counts"]["k7"], widened=stream_steps)}
+             "k7": dict(launches_nee=renders["14"]["counts"]["k7"], widened=stream_steps),
+             **{k: dict(launches_nee=renders["14"]["counts"][k]) for k in RAY_ORDER}}
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches[kid], **numbers[kid],
              **extra.get(kid, {}))

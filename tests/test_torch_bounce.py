@@ -38,6 +38,7 @@ from tpu_pathtracer_torch.accel.build import build_accel  # noqa: E402
 from tpu_pathtracer_torch.config import RenderConfig  # noqa: E402
 from tpu_pathtracer_torch.ops import bounce as bounce_ops  # noqa: E402
 from tpu_pathtracer_torch.ops import camera as camera_ops  # noqa: E402
+from tpu_pathtracer_torch.ops import cuda_build  # noqa: E402
 from tpu_pathtracer_torch.ops.intersect import Hit  # noqa: E402
 from tpu_pathtracer_torch.render import envmap, graph_loop, integrator  # noqa: E402
 from tpu_pathtracer_torch.render.camera import Camera, camera_arrays  # noqa: E402
@@ -281,12 +282,12 @@ def test_record_width_matches_the_source():
 def test_dispatch_by_device():
     """A CUDA device launches the kernels outside plain(), the CPU runs
     the plain versions, any other device raises."""
-    assert bounce_ops.on_card("cuda") and not bounce_ops.on_card("cpu")
-    with bounce_ops.plain():
-        assert not bounce_ops.on_card("cuda") and bounce_ops.is_plain()
-    assert not bounce_ops.is_plain()
+    assert cuda_build.on_card("cuda") and not cuda_build.on_card("cpu")
+    with cuda_build.plain():
+        assert not cuda_build.on_card("cuda") and cuda_build.is_plain()
+    assert not cuda_build.is_plain()
     with pytest.raises(ValueError):
-        bounce_ops.on_card("meta")
+        cuda_build.on_card("meta")
     cfg = RenderConfig(**CAMERA_CFG, dof=False)
     cam = {k: v.to("meta") for k, v in camera_arrays(Camera(), cfg, "cpu").items()}
     with pytest.raises(ValueError):
@@ -332,7 +333,7 @@ def test_cpu_render_launches_no_shading_kernel(nee):
     graph_loop.clear()
     before = (bounce_ops.bounce.launches, bounce_ops.next_event.launches, camera_ops.camera_paths.launches)
     img, _ = integrator.render_frame_stats(scene, cam, cfg, 0)
-    with bounce_ops.plain():
+    with cuda_build.plain():
         img_plain, _ = integrator.render_frame_stats(scene, cam, cfg, 0)
     assert (bounce_ops.bounce.launches, bounce_ops.next_event.launches, camera_ops.camera_paths.launches) == before
     assert torch.equal(img, img_plain)

@@ -7,9 +7,10 @@ fused schedule's render against the unfused one, and every schedule's
 iteration free of stream syncs but its own read; deferred shading against
 the dense shade, sharded frames (NCCL in a group of one, gloo across two
 processes on one card) against render_frame, renders against the numpy
-oracle, and the shading kernels (the bounce, NEE and camera kernels)
-against their plain versions, bit for bit, alone and in renders under
-ops.bounce.plain().  Every test needs a card and skips without one; this
+oracle, and the shading kernels (the bounce, NEE and camera kernels) and
+the ray ordering (sort key, gather, restore, packet order) against their
+plain versions, bit for bit, alone and in renders under
+ops.cuda_build.plain().  Every test needs a card and skips without one; this
 file imports no JAX, so it runs where only the port is installed:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -27,8 +28,10 @@ torch = pytest.importorskip("torch")
 from tpu_pathtracer_torch.accel.build import build_accel  # noqa: E402
 from tpu_pathtracer_torch.config import RenderConfig  # noqa: E402
 from tpu_pathtracer_torch.ops import bounce as bounce_ops  # noqa: E402
+from tpu_pathtracer_torch.ops import cuda_build  # noqa: E402
 from tpu_pathtracer_torch.ops import fused_schedule as fs  # noqa: E402
 from tpu_pathtracer_torch.ops import intersect_cluster as ic  # noqa: E402
+from tpu_pathtracer_torch.ops import ray_sort  # noqa: E402
 from tpu_pathtracer_torch.ops import unit_sphere  # noqa: E402
 from tpu_pathtracer_torch.render.camera import Camera, camera_arrays  # noqa: E402
 from tpu_pathtracer_torch.render.film import post_process  # noqa: E402
@@ -510,7 +513,7 @@ def test_fused_step_matches_plain(cuda, rr_mode):
 @pytest.mark.parametrize("rr_mode", ["reference", "standard"])
 def test_fused_render_bitwise_on_card(cuda, rr_mode):
     """The fused schedule's render on the card (kernel 7 every iteration)
-    equals the unfused render under ops.bounce.plain() (its plain step,
+    equals the unfused render under ops.cuda_build.plain() (its plain step,
     no kernel 7 launch) bit for bit, with the same iterations and
     segments."""
     res = {}
@@ -520,7 +523,7 @@ def test_fused_render_bitwise_on_card(cuda, rr_mode):
                            intersector="cluster", env_mode="sunsky", rr_mode=rr_mode, fused_schedule=mode)
         assert _fused_stream_ok(cfg, None, 512, cuda) == (mode == "on")
         before = fs.fused_stream_step.launches
-        with bounce_ops.plain() if mode == "off" else contextlib.nullcontext():
+        with cuda_build.plain() if mode == "off" else contextlib.nullcontext():
             img, stats = render_frame_stats(scene, camera_arrays(Camera(), cfg, cuda), cfg, 0)
         launches = fs.fused_stream_step.launches - before
         assert launches == (stats["iters"] if mode == "on" else 0)
@@ -791,7 +794,7 @@ def test_path_step_32_steps_on_one_scratch(cuda, schedule):
 def test_path_step_refuses_other_devices(cuda):
     """The path step's kernel takes CUDA tensors only, and no schedule but
     rays and regen; on the card, path_step runs the kernel outside
-    ops.bounce.plain() and the plain version under it."""
+    ops.cuda_build.plain() and the plain version under it."""
     tb, st = path_state(256, 3, "cpu", "rays", "off")
     kw = dict(schedule="rays", spp=1, max_depth=4, rr_reference=True, nee=False)
     with pytest.raises(ValueError, match="CUDA"):
@@ -800,7 +803,7 @@ def test_path_step_refuses_other_devices(cuda):
     with pytest.raises(ValueError, match="schedule"):
         fs.path_step_cuda(tb, st, **dict(kw, schedule="stream"))
     before = fs.path_step.launches
-    with bounce_ops.plain():
+    with cuda_build.plain():
         fs.path_step(tb, st, **kw)
     assert fs.path_step.launches == before
 
@@ -1296,7 +1299,7 @@ def test_deferred_entry_matches_plain(cuda, layout):
     before = bounce_ops.bounce.launches
     got = integrator._shade_deferred(scene, cfg, hit, o, d, seeds, depth)
     chunks = bounce_ops.bounce.launches - before
-    with bounce_ops.plain():
+    with cuda_build.plain():
         want = integrator._shade_deferred(scene, cfg, hit, o, d, seeds, depth)
     torch.cuda.synchronize()
     assert bounce_ops.bounce.launches == before + chunks and chunks == -(-int(hit.hit.sum()) // 2048)
@@ -1307,8 +1310,6 @@ def test_math_functions_match_aten(cuda):
     """The math functions the shading kernels call, built with their flags
     (the bounce kernel's library), against ATen's on 2M inputs each: sin,
     cos, atan2, asin, pow(x, 5), rsqrt, sqrt and division bit-equal."""
-    from tpu_pathtracer_torch.ops import cuda_build
-
     lib = cuda_build.library("bounce.cu")
     rs = np.random.RandomState(0)
     n = 2_000_000
@@ -1347,14 +1348,12 @@ def test_camera_kernel_matches_plain(cuda, dof, lanes):
         kw = dict(pix=ids(n), sample=torch.as_tensor(rs.randint(0, 12, n).astype(np.int32), device=cuda),
                   sample_max=9)
         mask = torch.as_tensor(rs.rand(n) < 0.4, device=cuda)
-    from tpu_pathtracer_torch.ops import bounce as bounce_ops
-
     outs, launched = [], []
     for arm in ("kernel", "plain"):
         out = (torch.full((n, 3), 5.0, device=cuda), torch.full((n, 3), 6.0, device=cuda),
                torch.full((n,), 7, dtype=torch.int64, device=cuda))
         before = camera_ops.camera_paths.launches
-        with bounce_ops.plain() if arm == "plain" else contextlib.nullcontext():
+        with cuda_build.plain() if arm == "plain" else contextlib.nullcontext():
             camera_ops.camera_paths(cam, cfg, torch.tensor(4, device=cuda), torch.tensor(20, device=cuda), n,
                                     mask=mask, out=out, **kw)
         outs.append(out)
@@ -1368,13 +1367,14 @@ def test_camera_kernel_matches_plain(cuda, dof, lanes):
 @pytest.mark.parametrize("nee", [False, True], ids=["plain", "nee"])
 def test_renders_equal_under_plain(cuda, monkeypatch, nee, which):
     """Every schedule (the affine range and the id list included), graphed
-    and eager, with the kernels and under ops.bounce.plain(): images,
+    and eager, with the kernels and under ops.cuda_build.plain(): images,
     iterations, segments and shadow segments bit-equal.  Launches: the
     bounce kernel once an iteration, the NEE kernel once under NEE, the
     camera kernel once an iteration of the stream and regen schedules and
     once a frame's set-up, kernel 7 once an iteration of every stream and
-    the path step once an iteration of rays and regen; none of them under
-    plain() but the fused stream's kernel 7; replays run under
+    the path step once an iteration of rays and regen, the ray-order
+    kernels once a trace; none of them under plain() but the fused
+    stream's kernel 7; replays run under
     torch.cuda.set_sync_debug_mode("error")."""
     from tpu_pathtracer_torch.ops import camera as camera_ops
 
@@ -1395,7 +1395,7 @@ def test_renders_equal_under_plain(cuda, monkeypatch, nee, which):
     frames = GRAPH_FRAMES[:2]
     runs = {}
     for arm in ("kernels", "plain"):
-        ctx = bounce_ops.plain() if arm == "plain" else contextlib.nullcontext()
+        ctx = cuda_build.plain() if arm == "plain" else contextlib.nullcontext()
         with ctx:
             runs[arm, "graphed"] = graph_frames(scene, cfg, pixels, frames)
             with graph_loop.eager():
@@ -1410,11 +1410,148 @@ def test_renders_equal_under_plain(cuda, monkeypatch, nee, which):
             iters, stream = st["iters"], st["schedule"].startswith("stream")
             # kernel 7 (the fused stream keeps it under plain()) and the path step
             steps = (counts["fused_stream_step"], counts["path_step"])
+            # the ray ordering: a sorted trace an iteration, two under NEE;
+            # at most 4 packets a trace, which the card holds at once, so
+            # no packet order
+            order = tuple(counts[f] for f in ("sort_key", "gather_rays", "restore_hits", "packet_order"))
             if key[0] == "plain":
                 assert shading == (0, 0, 0), key
                 assert steps == (iters if st["schedule"] == "stream_fused" else 0, 0), key
+                assert order == (0, 0, 0, 0), key
                 continue
+            traces = iters * (2 if nee else 1)
+            assert order == (traces, traces, traces, 0), key
             respawns = iters if st["schedule"] in ("stream", "stream_fused", "regen") else 0
             assert shading == (iters, iters if nee else 0, respawns + 1), key
             assert steps == ((iters, 0) if stream else (0, iters)), key
             assert counts["random_in_unit_sphere"] == 0, key
+
+
+# ---------------------------------------------------------------------------
+# The ray ordering (csrc/ray_sort.cu) against its plain versions
+# (ops/ray_sort.py), bit for bit
+# ---------------------------------------------------------------------------
+
+RAY_COUNTS = [0, 1, 1000, 131_072]
+# (spatial bits, direction bits) as the accel passes them: octant, the two
+# spatial defaults, the widest spatial and the most direction bits
+KEY_BITS = [(0, 2), (7, 2), (5, 3), (9, 4), (5, 4)]
+
+
+def ray_order_inputs(n, dev, seed=5):
+    """Rays toward the three-spheres scene (rays()), an active mask over
+    about two thirds of them, and the scene's box."""
+    o, d = (x.to(dev) for x in rays(seed, n, parked=0))
+    active = torch.as_tensor(np.random.RandomState(seed).rand(n) < 0.65, device=dev)
+    acc = build_accel(procedural.three_spheres_scene(8, 16, device=dev)).accel
+    return o, d, active, acc.scene_lo, acc.scene_hi
+
+
+def launch_delta(fn, *args, **kw):
+    """(fn's result, the launches it added to each ray-ordering wrapper)."""
+    wrappers = (ray_sort.sort_key, ray_sort.gather_rays, ray_sort.restore_hits, ray_sort.packet_order)
+    before = [w.launches for w in wrappers]
+    out = fn(*args, **kw)
+    return out, tuple(w.launches - b for w, b in zip(wrappers, before))
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "active"])
+@pytest.mark.parametrize("bits", KEY_BITS, ids=[f"s{s}d{d}" for s, d in KEY_BITS])
+@pytest.mark.parametrize("n", RAY_COUNTS)
+def test_sort_key_and_gather_match_plain(cuda, n, bits, masked):
+    """The key kernel (parking the lanes outside the mask) and the gather
+    (parking them the same way) against their plain versions: keys, and
+    the rays gathered through torch.sort's permutation, bit-equal; one
+    launch each where there are rays."""
+    o, d, active, lo, hi = ray_order_inputs(n, cuda)
+    active = active if masked else None
+    key, launched = launch_delta(ray_sort.sort_key, o, d, lo, hi, *bits, active=active)
+    want = ray_sort.sort_key_plain(o, d, lo, hi, *bits, active=active)
+    assert launched == ((1 if n else 0), 0, 0, 0)
+    assert key.dtype == torch.int32 and torch.equal(key, want)
+    perm = torch.sort(key, stable=True).indices
+    (o_s, d_s), launched = launch_delta(ray_sort.gather_rays, o, d, perm, active, lo, hi)
+    o_p, d_p = ray_sort.gather_rays_plain(o, d, perm, active, lo, hi)
+    torch.cuda.synchronize()
+    assert launched == (0, (1 if n else 0), 0, 0)
+    assert same_bits(o_s, o_p) and same_bits(d_s, d_p)
+    if n > 1 and masked:
+        assert int(key.unique().numel()) > 8  # the spatial cells and directions spread the keys
+
+
+@pytest.mark.parametrize("sorted_", [True, False], ids=["perm", "identity"])
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("n", RAY_COUNTS)
+def test_restore_hits_matches_plain(cuda, n, any_hit, sorted_):
+    """The restore kernel against restore + the Hit assembly (closest hit:
+    t, prim -1 on a miss, bary 0 on a miss, hit) or restore of the flags
+    (any hit), through a permutation and without one, a third of the
+    lanes missing."""
+    rs = np.random.RandomState(11)
+    perm = torch.as_tensor(rs.permutation(n), device=cuda) if sorted_ else None
+    if any_hit:
+        outputs = torch.as_tensor(rs.rand(n) < 0.4, device=cuda)
+    else:
+        prim = rs.randint(0, 5000, n).astype(np.int32)
+        prim[rs.rand(n) < 0.33] = ray_sort.MISS_PRIM
+        outputs = (torch.as_tensor(rs.rand(n).astype(np.float32) * 10, device=cuda),
+                   torch.as_tensor(prim, device=cuda),
+                   torch.as_tensor(rs.rand(n, 2).astype(np.float32), device=cuda))
+    got, launched = launch_delta(ray_sort.restore_hits, outputs, perm)
+    want = ray_sort.restore_hits_plain(outputs, perm)
+    torch.cuda.synchronize()
+    # any-hit flags in caller order already are the answer: nothing to launch
+    assert launched == (0, 0, 1 if n and not (any_hit and perm is None) else 0, 0)
+    if any_hit:
+        assert torch.equal(got, want)
+    else:
+        for f in ("t", "prim", "bary", "hit"):
+            assert same_bits(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("ties", ["few", "many"])
+@pytest.mark.parametrize("packets", [1, 2, 33, 128, 1000, 4096, 5000])
+def test_packet_order_matches_plain(cuda, packets, ties):
+    """The packet order (ranks counted over the weights in shared memory)
+    against the stable descending argsort, at 1 to 4,096 packets and past
+    one chunk of shared memory."""
+    rs = np.random.RandomState(packets)
+    w = rs.randint(0, 4 if ties == "many" else 1 << 20, packets).astype(np.int32)
+    weights = torch.as_tensor(w, device=cuda)
+    got, launched = launch_delta(ray_sort.packet_order, weights)
+    torch.cuda.synchronize()
+    assert launched == (0, 0, 0, 1)
+    assert torch.equal(got, ray_sort.packet_order_plain(weights))
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "active"])
+@pytest.mark.parametrize("sort_rays", ["auto", "octant", "off"])
+@pytest.mark.parametrize("route", ["flat", "hier", "streamed"])
+def test_cluster_accel_ray_order_on_card(cuda, monkeypatch, route, sort_rays, masked):
+    """ClusterAccel.intersect and occluded with the ray-order kernels
+    against the same calls under ops.cuda_build.plain() (the plain versions;
+    the traversal kernels in both): Hit and flags bit-equal on every
+    route, sort on and off, with and without an active mask, at 131,072
+    rays (128 packets or more: the packet order runs).  The kernels'
+    launches: key and gather once a sorted call, the restore once a call
+    (an unsorted any hit needs none), the packet order once a call."""
+    scene = graph_scene(route, False, cuda, monkeypatch)
+    acc = scene.accel
+    cfg = RenderConfig(**{**GRAPH_BASE, "sort_rays": sort_rays})
+    assert acc.route(cfg) == route
+    o, d = (x.to(cuda) for x in rays(3, 131_072, parked=0))
+    active = torch.as_tensor(np.random.RandomState(3).rand(131_072) < 0.6, device=cuda) if masked else None
+    sorted_ = sort_rays != "off"
+    hit, n_hit = launch_delta(acc.intersect, scene.vertices, o, d, 0.01, 1e16, cfg)
+    occ, n_occ = launch_delta(acc.occluded, scene.vertices, o, d, 0.01, 1e16, cfg, active)
+    with cuda_build.plain():
+        hit_p, n_hit_p = launch_delta(acc.intersect, scene.vertices, o, d, 0.01, 1e16, cfg)
+        occ_p, n_occ_p = launch_delta(acc.occluded, scene.vertices, o, d, 0.01, 1e16, cfg, active)
+    torch.cuda.synchronize()
+    for f in ("t", "prim", "bary", "hit"):
+        assert same_bits(getattr(hit, f), getattr(hit_p, f)), f
+    assert torch.equal(occ, occ_p)
+    assert int(hit.hit.sum()) > 10_000
+    assert n_hit == (int(sorted_), int(sorted_), 1, 1)
+    assert n_occ == (int(sorted_), int(sorted_), int(sorted_), 1)
+    assert n_hit_p == n_occ_p == (0, 0, 0, 0)

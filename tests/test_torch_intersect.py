@@ -28,6 +28,7 @@ from tpu_pathtracer_torch.accel.build import build_accel  # noqa: E402
 from tpu_pathtracer_torch.config import RenderConfig  # noqa: E402
 from tpu_pathtracer_torch.ops import intersect as isect  # noqa: E402
 from tpu_pathtracer_torch.ops import intersect_cluster as ic  # noqa: E402
+from tpu_pathtracer_torch.ops import ray_sort  # noqa: E402
 from tpu_pathtracer_torch.scene import procedural  # noqa: E402
 
 T_MIN, T_MAX = 0.01, 1e16
@@ -116,7 +117,7 @@ def test_ray_sort_key_matches_jax(scenes, spatial_bits, dir_bits):
         jnp.asarray(o), jnp.asarray(d), j.accel.scene_lo, j.accel.scene_hi,
         spatial_bits, dir_bits,
     )
-    got = ic.ray_sort_key(
+    got = ray_sort.ray_sort_key(
         torch.as_tensor(o), torch.as_tensor(d), t.accel.scene_lo, t.accel.scene_hi,
         spatial_bits, dir_bits,
     )
@@ -129,12 +130,13 @@ def test_sort_permutation_matches_jax(scenes):
     o_j, d_j, restore_j = j_pallas.octant_sort(
         jnp.asarray(o), jnp.asarray(d), j.accel.scene_lo, j.accel.scene_hi, 7, 2
     )
-    o_t, d_t, perm = ic.octant_sort(
-        torch.as_tensor(o), torch.as_tensor(d), t.accel.scene_lo, t.accel.scene_hi, 7, 2
+    o_t, d_t, perm = t.accel.sort(
+        torch.as_tensor(o), torch.as_tensor(d),
+        RenderConfig(sort_rays="spatial", sort_spatial_bits=7, sort_dir_bits=2),
     )
     np.testing.assert_array_equal(o_t.numpy(), np.asarray(o_j))
     np.testing.assert_array_equal(d_t.numpy(), np.asarray(d_j))
-    back = ic.restore(o_t, perm)
+    back = ray_sort.restore(o_t, perm)
     np.testing.assert_array_equal(back.numpy(), o)
     np.testing.assert_array_equal(back.numpy(), np.asarray(restore_j(o_j)))
 

@@ -18,19 +18,17 @@ import numpy as np
 import torch
 
 from tpu_pathtracer_torch.ops.intersect import Hit
-from tpu_pathtracer_torch.utils.device import DEFAULT_DEVICE, constant, resolve
+from tpu_pathtracer_torch.utils.device import DEFAULT_DEVICE, resolve
 from tpu_pathtracer_torch.ops.intersect_cluster import (
-    MISS_PRIM,
     intersect_clusters,
     intersect_clusters_hier,
     intersect_clusters_streamed,
     occluded_clusters,
     occluded_clusters_hier,
     occluded_clusters_streamed,
-    octant_sort,
-    restore,
     streamed_pads,
 )
+from tpu_pathtracer_torch.ops.ray_sort import gather_rays, restore_hits, sort_key
 
 # Scenes with more rows than this take the streamed kernel; at or below
 # it, the two-level kernel from cfg.hier_min_clusters clusters up and the
@@ -99,18 +97,24 @@ class ClusterAccel:
             self._pads[branch] = streamed_pads(self.aabb8, branch=branch)
         return self._pads[branch]
 
-    def sort(self, origins, directions, cfg):
+    def sort(self, origins, directions, cfg, active=None):
         """The coherence sort cfg.sort_rays asks for: (origins, directions,
-        perm), with perm None when the rays stay in caller order."""
+        perm), with perm None when the rays stay in caller order.  With a
+        mask, inactive lanes are parked only when the batch is sorted:
+        moved outside the scene box to scene_hi + (scene_hi - scene_lo) +
+        1, pointing +x, so they overlap no box and, sharing one sort key,
+        fill packets of their own.  Unsorted, parked lanes would sit in
+        every packet and block its all-occluded exit while compacting
+        nothing.  The key, the gather and the parking are kernels on the
+        card (ops.ray_sort); the sort is torch.sort on the int32 key."""
         mode = self._want_sort(cfg)
         if not mode:
             return origins, directions, None
-        return octant_sort(
-            origins, directions,
-            scene_lo=self.scene_lo, scene_hi=self.scene_hi,
-            spatial_bits=self._spatial_bits(cfg) if mode == "spatial" else 0,
-            dir_bits=self._dir_bits(cfg),
-        )
+        box = self.scene_lo, self.scene_hi
+        key = sort_key(origins, directions, *box, spatial_bits=self._spatial_bits(cfg) if mode == "spatial" else 0,
+                       dir_bits=self._dir_bits(cfg), active=active)
+        perm = torch.sort(key, stable=True).indices
+        return (*gather_rays(origins, directions, perm, active, *box), perm)
 
     def traversal(self, origins, directions, t_min, t_max, cfg):
         """(route, arguments of the route's wrapper in
@@ -137,47 +141,22 @@ class ClusterAccel:
             "hier": intersect_clusters_hier,
             "streamed": intersect_clusters_streamed,
         }[route]
-        t, prim, uv = wrapper(*args)
-        if perm is not None:
-            t, prim, uv = restore(t, perm), restore(prim, perm), restore(uv, perm)
-        hit = prim != MISS_PRIM
-        return Hit(
-            t=t,
-            prim=torch.where(hit, prim, -1),
-            bary=torch.where(hit[:, None], uv, 0.0),
-            hit=hit,
-        )
-
-    def shadow_sort(self, origins, directions, cfg, active=None):
-        """The shadow rays as `occluded` traces them: (origins, directions,
-        perm) after parking and the coherence sort.  With a mask, inactive
-        lanes are parked only when the batch is sorted: moved outside the
-        scene box to scene_hi + (scene_hi - scene_lo) + 1, pointing +x, so
-        they overlap no box and, sharing one sort key, fill packets of
-        their own.  Unsorted, parked lanes would sit in every packet and
-        block its all-occluded exit while compacting nothing."""
-        if active is not None and self._want_sort(cfg):
-            park = self.scene_hi + (self.scene_hi - self.scene_lo) + 1.0
-            plus_x = constant((1.0, 0.0, 0.0), directions.dtype, directions.device)
-            origins = torch.where(active[:, None], origins, park[None, :])
-            directions = torch.where(active[:, None], directions, plus_x)
-        return self.sort(origins, directions, cfg)
+        return restore_hits(wrapper(*args), perm)
 
     def occluded(self, vertices, origins, directions, t_min, t_max, cfg, active=None) -> torch.Tensor:
         """Any hit over all clusters: [N] bool, True where the segment
         (t_min, t_max) is blocked.  The same sort and route as `intersect`,
         through the route's any-hit kernel, flags restored to caller order.
-        Lanes outside `active` are parked (see shadow_sort); their flags
-        are unspecified and callers mask on `active`."""
-        origins, directions, perm = self.shadow_sort(origins, directions, cfg, active)
+        Lanes outside `active` are parked (see `sort`); their flags are
+        unspecified and callers mask on `active`."""
+        origins, directions, perm = self.sort(origins, directions, cfg, active)
         route, args = self.traversal(origins, directions, t_min, t_max, cfg)
         wrapper = {
             "flat": occluded_clusters,
             "hier": occluded_clusters_hier,
             "streamed": occluded_clusters_streamed,
         }[route]
-        occ = wrapper(*args)
-        return occ if perm is None else restore(occ, perm)
+        return restore_hits(wrapper(*args), perm)
 
 
 def octant_orders(aabbs: np.ndarray) -> np.ndarray:

@@ -9,9 +9,8 @@ fusions XLA makes of the JAX package's `_trace_bounce` under `jax.jit`.
 Their plain versions are the port's eager code in
 `render/integrator.py` (`_bounce_plain`, `_shade`, `_next_event`), which
 the CPU runs.  On a CUDA device the integrator launches these kernels
-(`on_card`), except under `plain()`, the A/B switch that runs the plain
-versions on the card (the camera kernel, `ops/camera.py`, follows the
-same switch).  A failed build or launch raises; nothing falls back.
+(`ops.cuda_build.on_card`), except under `ops.cuda_build.plain()`, the
+A/B switch that runs the plain versions on the card.  A failed build or launch raises; nothing falls back.
 
 Each wrapper counts its launches in `.launches` (the graphed loop's
 replay accounting reads them: `render/graph_loop.COUNTED`).  The float32
@@ -23,14 +22,13 @@ scalar, which is what the card computes.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import math
 
 import numpy as np
 import torch
 
-from tpu_pathtracer_torch.ops.cuda_build import library
+from tpu_pathtracer_torch.ops.cuda_build import kernel_arg, library
 from tpu_pathtracer_torch.utils import math as vm
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -112,55 +110,6 @@ class NeeParams(ctypes.Structure):
 RECORD = 24
 ENV_MODES = {"equirect": 0, "sunsky": 1, "constant": 2}
 
-_plain = False
-
-
-@contextlib.contextmanager
-def plain():
-    """Within the block, the bounce, NEE and camera work runs its plain
-    versions on the card too (the A/B against the kernels)."""
-    global _plain
-    was, _plain = _plain, True
-    try:
-        yield
-    finally:
-        _plain = was
-
-
-def is_plain() -> bool:
-    return _plain
-
-
-def on_card(device) -> bool:
-    """Whether the bounce's work on `device` launches the kernels: a CUDA
-    device outside `plain()`.  The CPU runs the plain versions; another
-    device has neither and raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        return not _plain
-    if dev.type == "cpu":
-        return False
-    raise ValueError(f"no bounce kernels or plain versions for device {dev}")
-
-
-def _arg(name, x, dtype, shape, dev, written=False):
-    """`x` as a kernel reads it: contiguous (a copy if not, unless the
-    kernel writes it), of `dtype` and `shape`, on `dev`; anything else
-    raises."""
-    if not isinstance(x, torch.Tensor) or not x.is_cuda:
-        raise ValueError(f"{name}: the kernel needs a CUDA tensor, got "
-                         f"{x.device if isinstance(x, torch.Tensor) else type(x).__name__}")
-    if x.device != dev:
-        raise ValueError(f"{name} is on {x.device}, expected {dev}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(x.shape)}")
-    if written and not x.is_contiguous():
-        raise ValueError(f"{name}: the kernel writes it in place, it must be contiguous")
-    return x.contiguous()
-
-
 def _scene_args(scene, cfg, dev, nee: bool):
     """The scene's tables (tensors, which the caller keeps alive over the
     launch) and flags, by BounceParams field: (tensors, ints)."""
@@ -171,14 +120,14 @@ def _scene_args(scene, cfg, dev, nee: bool):
             "environment with envmap.with_importance_sampling(env)"
         )
     t = dict(
-        tri_attrs=_arg("tri_attrs", scene.tri_attrs, torch.float32, (scene.tri_attrs.shape[0], 32), dev),
-        mat_attrs=_arg("materials.attrs", m.attrs, torch.float32, (m.attrs.shape[0], 40), dev),
-        tex_quads=_arg("texture_quads", m.texture_quads, torch.int64, (m.texture_quads.shape[0], 4), dev),
-        bundles=_arg("texture_bundles", m.texture_bundles, torch.int64, (m.texture_bundles.shape[0], 8), dev),
-        env_quads=_arg("env.quads", env.quads, torch.float32, (env.height * env.width, 12), dev),
+        tri_attrs=kernel_arg("tri_attrs", scene.tri_attrs, torch.float32, (scene.tri_attrs.shape[0], 32), dev),
+        mat_attrs=kernel_arg("materials.attrs", m.attrs, torch.float32, (m.attrs.shape[0], 40), dev),
+        tex_quads=kernel_arg("texture_quads", m.texture_quads, torch.int64, (m.texture_quads.shape[0], 4), dev),
+        bundles=kernel_arg("texture_bundles", m.texture_bundles, torch.int64, (m.texture_bundles.shape[0], 8), dev),
+        env_quads=kernel_arg("env.quads", env.quads, torch.float32, (env.height * env.width, 12), dev),
     )
     if nee:
-        t["alias"] = _arg("env.alias_table", env.alias_table, torch.float32, (env.height * env.width, 4), dev)
+        t["alias"] = kernel_arg("env.alias_table", env.alias_table, torch.float32, (env.height * env.width, 4), dev)
     ints = dict(env_h=env.height, env_w=env.width, env_mode=ENV_MODES[cfg.env_mode],
                 env_scrambled=int(env.quads_scrambled), flip_v=int(cfg.flip_v), bundled=int(m.bundled),
                 morton=int(m.bundled_morton), scrambled=int(m.bundled_scrambled), pow2=int(m.bundled_pow2_dims),
@@ -189,14 +138,14 @@ def _scene_args(scene, cfg, dev, nee: bool):
 
 def _lane_args(hit, origin, direction, seeds, depth, n, dev) -> dict:
     return dict(
-        hit_t=_arg("hit.t", hit.t, torch.float32, (n,), dev),
-        hit_prim=_arg("hit.prim", hit.prim, torch.int32, (n,), dev),
-        hit_bary=_arg("hit.bary", hit.bary, torch.float32, (n, 2), dev),
-        hit=_arg("hit.hit", hit.hit, torch.bool, (n,), dev),
-        origin=_arg("origin", origin, torch.float32, (n, 3), dev),
-        direction=_arg("direction", direction, torch.float32, (n, 3), dev),
-        seeds=_arg("seeds", seeds, torch.int64, (n,), dev),
-        depth=_arg("depth", depth, torch.int32, (n,), dev),
+        hit_t=kernel_arg("hit.t", hit.t, torch.float32, (n,), dev),
+        hit_prim=kernel_arg("hit.prim", hit.prim, torch.int32, (n,), dev),
+        hit_bary=kernel_arg("hit.bary", hit.bary, torch.float32, (n, 2), dev),
+        hit=kernel_arg("hit.hit", hit.hit, torch.bool, (n,), dev),
+        origin=kernel_arg("origin", origin, torch.float32, (n, 3), dev),
+        direction=kernel_arg("direction", direction, torch.float32, (n, 3), dev),
+        seeds=kernel_arg("seeds", seeds, torch.int64, (n,), dev),
+        depth=kernel_arg("depth", depth, torch.int32, (n,), dev),
     )
 
 
@@ -233,10 +182,10 @@ def bounce(scene, cfg, hit, origin, direction, attenuation, radiance, seeds, dep
     nee = cfg.env_importance_sampling
     scene_t, ints = _scene_args(scene, cfg, dev, nee)
     lanes = _lane_args(hit, origin, direction, seeds, depth, n, dev)
-    lanes.update(attenuation=_arg("attenuation", attenuation, torch.float32, (n, 3), dev),
-                 radiance=_arg("radiance", radiance, torch.float32, (n, 3), dev))
+    lanes.update(attenuation=kernel_arg("attenuation", attenuation, torch.float32, (n, 3), dev),
+                 radiance=kernel_arg("radiance", radiance, torch.float32, (n, 3), dev))
     if nee:
-        lanes["spec_last"] = _arg("spec_last", spec_last, torch.float32 if cfg.nee_mis_spec else torch.bool,
+        lanes["spec_last"] = kernel_arg("spec_last", spec_last, torch.float32 if cfg.nee_mis_spec else torch.bool,
                                   (n,), dev)
     vec = lambda: torch.empty((n, 3), dtype=torch.float32, device=dev)  # noqa: E731
     out = dict(radiance=vec(), attenuation=vec(), origin=vec(), direction=vec(),
@@ -265,15 +214,15 @@ def shade_lanes(scene, cfg, hit, origin, direction, seeds, depth, lane_of_slot, 
     scene_t, ints = _scene_args(scene, cfg, dev, False)
     lanes = _lane_args(hit, origin, direction, seeds, depth, n, dev)
     slots = lane_of_slot.shape[0]
-    lanes["lane_of_slot"] = _arg("lane_of_slot", lane_of_slot, torch.int64, (slots,), dev)
+    lanes["lane_of_slot"] = kernel_arg("lane_of_slot", lane_of_slot, torch.int64, (slots,), dev)
     shapes = dict(new_origin=(n + 1, 3), new_direction=(n + 1, 3), att_factor=(n + 1, 3), emission=(n + 1, 3))
     dst = {}
     for key, field in (("new_origin", "d_origin"), ("new_direction", "d_direction"), ("att_factor", "d_att_factor"),
                        ("emission", "d_emission")):
-        dst[field] = _arg(key, out[key], torch.float32, shapes[key], dev, written=True)
+        dst[field] = kernel_arg(key, out[key], torch.float32, shapes[key], dev, written=True)
     for key in ("att_ok", "emissive", "degenerate", "done"):
-        dst[f"d_{key}"] = _arg(key, out[key], torch.bool, (n + 1,), dev, written=True)
-    dst["d_seeds"] = _arg("seeds", out["seeds"], torch.int64, (n + 1,), dev, written=True)
+        dst[f"d_{key}"] = kernel_arg(key, out[key], torch.bool, (n + 1,), dev, written=True)
+    dst["d_seeds"] = kernel_arg("seeds", out["seeds"], torch.int64, (n + 1,), dev, written=True)
     params = _params(BounceParams, {**scene_t, **lanes, **dst}, dict(ints, n=n, slots=slots), pack_consts(cfg))
     if slots:
         _launch("bounce.cu", "bounce_launch", params, 1, stream=torch.cuda.current_stream(dev).cuda_stream)
@@ -291,14 +240,14 @@ def next_event(scene, cfg, b: dict, occluded, direction, attenuation):
     env = scene.env
     spec = torch.empty(n, dtype=torch.float32 if cfg.nee_mis_spec else torch.bool, device=dev)
     tensors = dict(
-        env_quads=_arg("env.quads", env.quads, torch.float32, (env.height * env.width, 12), dev),
-        alias=_arg("env.alias_table", env.alias_table, torch.float32, (env.height * env.width, 4), dev),
-        record=_arg("record", b["record"], torch.float32, (RECORD, n), dev),
-        shadow_dir=_arg("shadow_dir", b["shadow_dir"], torch.float32, (n, 3), dev),
-        occluded=_arg("occluded", occluded, torch.bool, (n,), dev),
-        direction=_arg("direction", direction, torch.float32, (n, 3), dev),
-        attenuation=_arg("attenuation", attenuation, torch.float32, (n, 3), dev),
-        radiance=_arg("radiance", b["radiance"], torch.float32, (n, 3), dev, written=True),
+        env_quads=kernel_arg("env.quads", env.quads, torch.float32, (env.height * env.width, 12), dev),
+        alias=kernel_arg("env.alias_table", env.alias_table, torch.float32, (env.height * env.width, 4), dev),
+        record=kernel_arg("record", b["record"], torch.float32, (RECORD, n), dev),
+        shadow_dir=kernel_arg("shadow_dir", b["shadow_dir"], torch.float32, (n, 3), dev),
+        occluded=kernel_arg("occluded", occluded, torch.bool, (n,), dev),
+        direction=kernel_arg("direction", direction, torch.float32, (n, 3), dev),
+        attenuation=kernel_arg("attenuation", attenuation, torch.float32, (n, 3), dev),
+        radiance=kernel_arg("radiance", b["radiance"], torch.float32, (n, 3), dev, written=True),
         spec_next=spec,
     )
     ints = dict(n=n, env_h=env.height, env_w=env.width, env_mode=ENV_MODES[cfg.env_mode],

@@ -9,7 +9,7 @@ eager chain (utils/rng.make_seeds, render/camera.generate_camera_rays and
 a select).  The integrator calls `camera_paths` wherever a schedule
 spawns camera paths (the stream's initial pool and its respawn, the regen
 schedule's start and respawn, the 1-spp schedule's rays): on a CUDA
-device it launches the kernel, on the CPU and under `ops.bounce.plain()`
+device it launches the kernel, on the CPU and under `ops.cuda_build.plain()`
 it runs the plain version.
 
 A lane's pixel is pix[min(i // per, n_ids - 1)] from an id table, else
@@ -27,7 +27,8 @@ import math
 import numpy as np
 import torch
 
-from tpu_pathtracer_torch.ops.bounce import _arg, _launch, _params, on_card
+from tpu_pathtracer_torch.ops.bounce import _launch, _params
+from tpu_pathtracer_torch.ops.cuda_build import kernel_arg, on_card
 from tpu_pathtracer_torch.render.camera import generate_camera_rays
 from tpu_pathtracer_torch.utils import math as vm
 from tpu_pathtracer_torch.utils import rng
@@ -108,16 +109,18 @@ def camera_paths_cuda(cam, cfg, subframe, sample_offset, n, *, pix=None, base=No
         out = (torch.empty((n, 3), dtype=torch.float32, device=dev),
                torch.empty((n, 3), dtype=torch.float32, device=dev), torch.empty(n, dtype=torch.int64, device=dev))
     tensors = dict(
-        eye=_arg("eye", cam["eye"], torch.float32, (3,), dev), u=_arg("U", cam["U"], torch.float32, (3,), dev),
-        v=_arg("V", cam["V"], torch.float32, (3,), dev), w=_arg("W", cam["W"], torch.float32, (3,), dev),
-        pix=None if pix is None else _arg("pix", pix, torch.int32, (pix.shape[0],), dev),
+        eye=kernel_arg("eye", cam["eye"], torch.float32, (3,), dev),
+        u=kernel_arg("U", cam["U"], torch.float32, (3,), dev),
+        v=kernel_arg("V", cam["V"], torch.float32, (3,), dev),
+        w=kernel_arg("W", cam["W"], torch.float32, (3,), dev),
+        pix=None if pix is None else kernel_arg("pix", pix, torch.int32, (pix.shape[0],), dev),
         base=None if base is None else _counter(base, dev),
-        sample=None if sample is None else _arg("sample", sample, torch.int32, (n,), dev),
-        mask=None if mask is None else _arg("mask", mask, torch.bool, (n,), dev),
+        sample=None if sample is None else kernel_arg("sample", sample, torch.int32, (n,), dev),
+        mask=None if mask is None else kernel_arg("mask", mask, torch.bool, (n,), dev),
         sample_offset=_counter(sample_offset, dev), subframe=_counter(subframe, dev),
-        origin=_arg("origin", out[0], torch.float32, (n, 3), dev, written=True),
-        direction=_arg("direction", out[1], torch.float32, (n, 3), dev, written=True),
-        seeds=_arg("seeds", out[2], torch.int64, (n,), dev, written=True),
+        origin=kernel_arg("origin", out[0], torch.float32, (n, 3), dev, written=True),
+        direction=kernel_arg("direction", out[1], torch.float32, (n, 3), dev, written=True),
+        seeds=kernel_arg("seeds", out[2], torch.int64, (n,), dev, written=True),
     )
     ints = dict(n=n, per=per, n_ids=0 if pix is None else pix.shape[0], sample_max=sample_max, width=cfg.width,
                 dof=int(cfg.dof))
@@ -133,7 +136,7 @@ def camera_paths_cuda(cam, cfg, subframe, sample_offset, n, *, pix=None, base=No
 def camera_paths(cam, cfg, subframe, sample_offset, n, **lanes):
     """Fresh camera paths on n lanes by the rule above (keywords as
     camera_paths_plain's): the kernel for a camera on a CUDA device
-    outside `ops.bounce.plain()`, else the plain version.  Returns
+    outside `ops.cuda_build.plain()`, else the plain version.  Returns
     (origin, direction, seeds)."""
     spawn = camera_paths_cuda if on_card(cam["eye"].device) else camera_paths_plain
     return spawn(cam, cfg, subframe, sample_offset, n, **lanes)

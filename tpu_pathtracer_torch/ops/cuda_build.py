@@ -9,10 +9,17 @@ the headers it includes) and the flags, and are built at first use.
 beside each library as a `.log` file.  `library(source)` loads one and
 sets the argument types of its launch function from `LAUNCHERS` and of
 its other functions from `HELPERS`.
+
+The wrappers of the kernels that stand in for the JAX package's fused
+eager work (the bounce's shading, NEE, the camera spawn, the schedule
+steps, the traversal's ray ordering) launch them where `on_card` says,
+and take their tensors through `kernel_arg`; `plain()` is the A/B switch
+that runs their plain versions on the card too.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -20,6 +27,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpu_pathtracer_torch"
@@ -69,6 +78,10 @@ LAUNCHERS = {
     "bounce.cu": ("bounce_launch", [_P, _I, _P]),
     "nee.cu": ("nee_launch", [_P, _P]),
     "camera.cu": ("camera_launch", [_P, _P]),
+    # origins, directions, scene lo, hi, active (or null), n, spatial bits,
+    # direction bits, key out, stream; the gather, restore and packet order
+    # are HELPERS of the same library
+    "ray_sort.cu": ("ray_sort_key_launch", [_P] * 5 + [_I] * 3 + [_P] * 2),
 }
 # source: {another function of its library: the function's argument types}.
 # The traversal kernels (flat, hier and streamed) have a packet-weight
@@ -89,6 +102,16 @@ HELPERS = {
 HELPERS.update({f"{stem}.cu": {f"{stem}_params_size": []}
                 for stem in ("bounce", "nee", "camera", "fused_schedule")})
 HELPERS["bounce.cu"]["shade_math_probe"] = [_P] * 3 + [_I] * 2 + [_F] + [_P]
+# The ray ordering's other kernels: the gather (origins, directions, perm,
+# active, lo, hi, n, origins out, directions out, stream), the restore
+# (perm, t, prim, uv, occluded, n, t out, prim out, bary out, hit out,
+# occluded out, stream) and the packet order (weights, packets, order out,
+# stream).
+HELPERS["ray_sort.cu"] = {
+    "ray_sort_gather_launch": [_P] * 6 + [_I] + [_P] * 3,
+    "ray_sort_restore_launch": [_P] * 5 + [_I] + [_P] * 6,
+    "ray_sort_order_launch": [_P] + [_I] + [_P] * 2,
+}
 
 
 def check_tensor(name, x, dtype, shape, dev) -> None:
@@ -102,6 +125,55 @@ def check_tensor(name, x, dtype, shape, dev) -> None:
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+_plain = False
+
+
+@contextlib.contextmanager
+def plain():
+    """Within the block, the wrappers that follow this switch run their
+    plain versions on the card too (the A/B against the kernels)."""
+    global _plain
+    was, _plain = _plain, True
+    try:
+        yield
+    finally:
+        _plain = was
+
+
+def is_plain() -> bool:
+    return _plain
+
+
+def on_card(device) -> bool:
+    """Whether a wrapper on `device` launches its kernel: a CUDA device
+    outside `plain()`.  The CPU runs the plain versions; another device
+    has neither and raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return not _plain
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"no kernels or plain versions for device {dev}")
+
+
+def kernel_arg(name, x, dtype, shape, dev, written=False):
+    """`x` as a kernel reads it: contiguous (a copy if not, unless the
+    kernel writes it), of `dtype` and `shape`, on `dev`; anything else
+    raises."""
+    if not isinstance(x, torch.Tensor) or not x.is_cuda:
+        raise ValueError(f"{name}: the kernel needs a CUDA tensor, got "
+                         f"{x.device if isinstance(x, torch.Tensor) else type(x).__name__}")
+    if x.device != dev:
+        raise ValueError(f"{name} is on {x.device}, expected {dev}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(x.shape)}")
+    if written and not x.is_contiguous():
+        raise ValueError(f"{name}: the kernel writes it in place, it must be contiguous")
+    return x.contiguous()
 
 
 def _nvcc() -> str:

@@ -25,7 +25,7 @@ segments (and shadow segments) into their counters, on the device.
 The kernels are `csrc/fused_schedule.cu` (entries 0 and 1).
 `fused_stream_step` launches the stream step for CUDA tensors and runs
 `fused_stream_step_plain` for CPU tensors; `path_step` launches the path
-step on a CUDA device outside `ops.bounce.plain()` and runs
+step on a CUDA device outside `ops.cuda_build.plain()` and runs
 `path_step_plain` elsewhere, as the bounce's kernels do.  The kernels
 update the state's tensors in place (the JAX kernel's input/output
 aliases); the plain stream step rebinds the entries of the state dict,
@@ -48,7 +48,8 @@ import functools
 
 import torch
 
-from tpu_pathtracer_torch.ops.bounce import _arg, _launch, _params, on_card
+from tpu_pathtracer_torch.ops.bounce import _launch, _params
+from tpu_pathtracer_torch.ops.cuda_build import kernel_arg, on_card
 from tpu_pathtracer_torch.utils import rng
 
 TB_KEYS = ("origin", "direction", "attenuation", "radiance", "seeds", "done")
@@ -248,23 +249,23 @@ def _nee_args(tb, st, lanes, dev) -> tuple[dict, int]:
     dtype = st["spec_last"].dtype
     if dtype not in (torch.bool, torch.float32):
         raise TypeError(f"spec_last: expected torch.bool or torch.float32, got {dtype}")
-    return dict(tb_hit=_arg("tb['hit']", tb["hit"], torch.bool, (lanes,), dev),
-                tb_spec=_arg("tb['spec_last']", tb["spec_last"], dtype, (lanes,), dev),
-                spec=_arg("st['spec_last']", st["spec_last"], dtype, (lanes,), dev, written=True)
+    return dict(tb_hit=kernel_arg("tb['hit']", tb["hit"], torch.bool, (lanes,), dev),
+                tb_spec=kernel_arg("tb['spec_last']", tb["spec_last"], dtype, (lanes,), dev),
+                spec=kernel_arg("st['spec_last']", st["spec_last"], dtype, (lanes,), dev, written=True)
                 ), 2 if dtype == torch.float32 else 1
 
 
 def _payload_args(tb, st, lanes, dev) -> dict:
     """The payload and the lane state both steps read and write, by
     StepParams field."""
-    t = {f"tb_{k}": _arg(f"tb[{k!r}]", tb[k], dt, shape, dev)
+    t = {f"tb_{k}": kernel_arg(f"tb[{k!r}]", tb[k], dt, shape, dev)
          for k, dt, shape in (("origin", torch.float32, (lanes, 3)), ("direction", torch.float32, (lanes, 3)),
                               ("attenuation", torch.float32, (lanes, 3)), ("radiance", torch.float32, (lanes, 3)),
                               ("seeds", torch.int64, (lanes,)), ("done", torch.bool, (lanes,)))}
     for k, dt, shape in (("origin", torch.float32, (lanes, 3)), ("direction", torch.float32, (lanes, 3)),
                          ("attenuation", torch.float32, (lanes, 3)), ("radiance", torch.float32, (lanes, 3)),
                          ("seeds", torch.int64, (lanes,)), ("depth", torch.int32, (lanes,))):
-        t[k] = _arg(f"st[{k!r}]", st[k], dt, shape, dev, written=True)
+        t[k] = kernel_arg(f"st[{k!r}]", st[k], dt, shape, dev, written=True)
     return t
 
 
@@ -286,18 +287,19 @@ def fused_stream_step_cuda(tb, st, out, head, segments, shadow=None, *, spp: int
         raise ValueError("a pixel map is an affine range or an id table, not both")
     t = _payload_args(tb, st, lanes, dev)
     for k in ("slot", "pix", "sample_i"):
-        t[k] = _arg(f"st[{k!r}]", st[k], torch.int32, (lanes,), dev, written=True)
-    t["accum"] = _arg("st['lane_accum']", st["lane_accum"], torch.float32, (lanes, 3), dev, written=True)
-    t.update(out=_arg("out", out, torch.float32, (n_pix + 1, 3), dev, written=True),
-             head=_arg("head", head, torch.int64, (), dev), segments=_arg("segments", segments, torch.int64, (), dev))
+        t[k] = kernel_arg(f"st[{k!r}]", st[k], torch.int32, (lanes,), dev, written=True)
+    t["accum"] = kernel_arg("st['lane_accum']", st["lane_accum"], torch.float32, (lanes, 3), dev, written=True)
+    t.update(out=kernel_arg("out", out, torch.float32, (n_pix + 1, 3), dev, written=True),
+             head=kernel_arg("head", head, torch.int64, (), dev),
+             segments=kernel_arg("segments", segments, torch.int64, (), dev))
     nee = 0
     if shadow is not None:
         nee_t, nee = _nee_args(tb, st, lanes, dev)
-        t.update(nee_t, shadow=_arg("shadow", shadow, torch.int64, (), dev))
+        t.update(nee_t, shadow=kernel_arg("shadow", shadow, torch.int64, (), dev))
     if base is not None:
-        t["base"] = _arg("base", torch.as_tensor(base, device=dev).to(torch.int64), torch.int64, (), dev)
+        t["base"] = kernel_arg("base", torch.as_tensor(base, device=dev).to(torch.int64), torch.int64, (), dev)
     if ids is not None:
-        t["ids"] = _arg("ids", ids.to(torch.int32), torch.int32, (n_pix,), dev)
+        t["ids"] = kernel_arg("ids", ids.to(torch.int32), torch.int32, (n_pix,), dev)
     regen = torch.empty(lanes, dtype=torch.bool, device=dev)
     totals = torch.empty(4, dtype=torch.int64, device=dev)  # head', segments', live', shadow'
     t.update(scratch=_scratch(dev, 0, -(-lanes // TILE_LANES)), regen=regen, totals=totals)
@@ -334,22 +336,22 @@ def path_step_cuda(tb, st, *, schedule: str, spp: int, max_depth: int, rr_refere
     regen_schedule = schedule == "regen"
     t = _payload_args(tb, st, lanes, dev)
     flag = "exhausted" if regen_schedule else "terminated"
-    t.update(flag=_arg(f"st[{flag!r}]", st[flag], torch.bool, (lanes,), dev, written=True),
-             done=_arg("st['done']", st["done"], torch.bool, (), dev, written=True),
-             segments=_arg("st['segments']", st["segments"], torch.int64, (), dev, written=True),
+    t.update(flag=kernel_arg(f"st[{flag!r}]", st[flag], torch.bool, (lanes,), dev, written=True),
+             done=kernel_arg("st['done']", st["done"], torch.bool, (), dev, written=True),
+             segments=kernel_arg("st['segments']", st["segments"], torch.int64, (), dev, written=True),
              scratch=_scratch(dev, 1, -(-lanes // TILE_LANES)))
     regen = None
     if regen_schedule:
         regen = torch.empty(lanes, dtype=torch.bool, device=dev)
-        t.update(accum=_arg("st['accum']", st["accum"], torch.float32, (lanes, 3), dev, written=True),
-                 sample_i=_arg("st['sample_i']", st["sample_i"], torch.int32, (lanes,), dev, written=True),
+        t.update(accum=kernel_arg("st['accum']", st["accum"], torch.float32, (lanes, 3), dev, written=True),
+                 sample_i=kernel_arg("st['sample_i']", st["sample_i"], torch.int32, (lanes,), dev, written=True),
                  regen=regen)
     else:
-        t["result"] = _arg("st['result']", st["result"], torch.float32, (lanes, 3), dev, written=True)
+        t["result"] = kernel_arg("st['result']", st["result"], torch.float32, (lanes, 3), dev, written=True)
     nee_kind = 0
     if nee:
         nee_t, nee_kind = _nee_args(tb, st, lanes, dev)
-        t.update(nee_t, shadow=_arg("st['shadow']", st["shadow"], torch.int64, (), dev, written=True))
+        t.update(nee_t, shadow=kernel_arg("st['shadow']", st["shadow"], torch.int64, (), dev, written=True))
     params = _params(StepParams, t, dict(
         n=lanes, spp=spp, n_pix=0, max_depth=max_depth, rr_reference=int(rr_reference), pixel_map=0, nee=nee_kind,
         schedule=PATH_SCHEDULES.index(schedule), inv_spp=0.0), None)
@@ -361,7 +363,7 @@ def path_step_cuda(tb, st, *, schedule: str, spp: int, max_depth: int, rr_refere
 def path_step(tb, st, **kw):
     """The path step of render_rays or render_pixels_regen (keywords as
     path_step_plain's): the kernel on a CUDA device outside
-    `ops.bounce.plain()`, else the plain version."""
+    `ops.cuda_build.plain()`, else the plain version."""
     step = path_step_cuda if on_card(st["seeds"].device) else path_step_plain
     return step(tb, st, **kw)
 

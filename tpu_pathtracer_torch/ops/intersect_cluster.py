@@ -1,11 +1,12 @@
-"""Packet traversal over Morton triangle clusters: the coherence sort, the
-CUDA kernels' wrappers and their plain PyTorch versions.
+"""Packet traversal over Morton triangle clusters: the CUDA kernels'
+wrappers and their plain PyTorch versions (the coherence sort around them
+is `ops/ray_sort.py`).
 
-Counterpart of `tpu_pathtracer/ops/intersect_pallas.py`: `ray_sort_key`,
-`octant_sort`/`sort_by_key`, `_streamed_pads`, the closest-hit entries
-`intersect_clusters_pallas` (flat), `intersect_clusters_pallas_hier`
-(two-level) and `intersect_clusters_pallas_streamed` (scenes beyond 6 MB
-of rows), and the any-hit entries of the same three routes
+Counterpart of `tpu_pathtracer/ops/intersect_pallas.py`: `_streamed_pads`,
+the closest-hit entries `intersect_clusters_pallas` (flat),
+`intersect_clusters_pallas_hier` (two-level) and
+`intersect_clusters_pallas_streamed` (scenes beyond 6 MB of rows), and
+the any-hit entries of the same three routes
 (`occluded_clusters_pallas`, `_hier`, `_streamed`), each with its
 Baldwin-Weber ("bw") and Moller-Trumbore ("mt") triangle test.  The
 kernels are `csrc/cluster_intersect.cu`, `cluster_hier.cu`,
@@ -25,8 +26,8 @@ import ctypes
 import torch
 
 from tpu_pathtracer_torch.ops.cuda_build import check_tensor, library
+from tpu_pathtracer_torch.ops.ray_sort import MISS_PRIM, packet_order
 
-MISS_PRIM = 0x7FFFFFFF
 _PAD_ORIGIN_X = 3.0e37
 _BIG_INV = 3.4e38
 _TRI_TEST_IDS = {"bw": 0, "mt": 1}
@@ -36,65 +37,6 @@ _STEMS = {
     ("flat", True): "cluster_occluded", ("hier", True): "cluster_occluded_hier",
     ("streamed", True): "cluster_occluded_streamed",
 }
-
-
-# ---------------------------------------------------------------------------
-# Coherence sort
-# ---------------------------------------------------------------------------
-
-def _part1by2(v: torch.Tensor) -> torch.Tensor:
-    """Spread 10 bits of v so bit i lands at bit 3i (3-D Morton)."""
-    v = v & 0x3FF
-    v = (v | (v << 16)) & 0x030000FF
-    v = (v | (v << 8)) & 0x0300F00F
-    v = (v | (v << 4)) & 0x030C30C3
-    v = (v | (v << 2)) & 0x09249249
-    return v
-
-
-def ray_sort_key(origins, directions, scene_lo=None, scene_hi=None, spatial_bits: int = 0, dir_bits: int = 0) -> torch.Tensor:
-    """[N] int64 key (a u32 value): (origin Morton cell << 3) | octant,
-    refined by `dir_bits` direction-magnitude bits per axis below the
-    octant bits; clamped so the key fits 32 bits."""
-    dir_bits = min(dir_bits, max(0, (32 - 3 - 3 * spatial_bits) // 3))
-    key = (
-        (directions[:, 0] > 0).to(torch.int64)
-        + 2 * (directions[:, 1] > 0).to(torch.int64)
-        + 4 * (directions[:, 2] > 0).to(torch.int64)
-    )
-    if spatial_bits:
-        span = torch.clamp_min(scene_hi - scene_lo, 1e-6)
-        cells = float((1 << spatial_bits) - 1)
-        q = torch.clamp((origins - scene_lo) / span, 0.0, 1.0) * cells
-        qi = q.to(torch.int64)
-        morton = _part1by2(qi[:, 0]) | (_part1by2(qi[:, 1]) << 1) | (_part1by2(qi[:, 2]) << 2)
-        key = key | (morton << 3)
-    if dir_bits:
-        cells = float((1 << dir_bits) - 1)
-        mag = (torch.clamp(torch.abs(directions), 0.0, 1.0) * cells).to(torch.int64)
-        fine = (mag[:, 0] << (2 * dir_bits)) | (mag[:, 1] << dir_bits) | mag[:, 2]
-        key = (key << (3 * dir_bits)) | fine
-    return key
-
-
-def sort_by_key(origins, directions, key):
-    """Stable sort of the rays by `key`.  Returns (origins_s, directions_s,
-    perm); `restore(x, perm)` puts per-ray results back in caller order."""
-    perm = torch.sort(key, stable=True).indices
-    return origins[perm], directions[perm], perm
-
-
-def restore(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
-    """Inverse of the sort permutation along the first axis."""
-    out = torch.empty_like(x)
-    out[perm] = x
-    return out
-
-
-def octant_sort(origins, directions, scene_lo=None, scene_hi=None, spatial_bits: int = 0, dir_bits: int = 0):
-    """Sort rays by `ray_sort_key`; returns (origins_s, directions_s, perm)."""
-    key = ray_sort_key(origins, directions, scene_lo, scene_hi, spatial_bits, dir_bits)
-    return sort_by_key(origins, directions, key)
 
 
 # ---------------------------------------------------------------------------
@@ -521,25 +463,34 @@ def intersect_clusters_hier_cuda(tris, aabb_child, aabb_super, order_super, orig
                            directions, t_min, t_max, rays_per_tile, branch, tri_test)
 
 
-def _heaviest_first(weights_launch, aabb_super, origins, directions, t_min, t_max, rays_per_tile):
-    """The order in which a traversal kernel takes its packets: heaviest
-    first by the pre-pass's estimate (the supers, or on the flat route the
-    clusters, that some ray of the packet overlaps), so that the few packets
-    that test the most clusters start at once and not behind a queue of
-    light ones.  [packets] int32, or None where the card holds every packet
-    at once anyway (a packet takes at most 8 blocks and an SM holds at least
-    2).  The order changes no result: packets are independent, and the
-    estimate counts the same boxes whatever order a packet visits them in."""
+def packet_weights(weights_launch, aabb_super, origins, directions, t_min, t_max, rays_per_tile):
+    """The traversal's pre-pass (`weights_launch`, a library's `_weights`
+    function): [packets] int32, the supers (on the flat route the
+    clusters) that some ray of each packet overlaps."""
     packets = -(-origins.shape[0] // rays_per_tile)
-    if packets * 4 <= torch.cuda.get_device_properties(origins.device).multi_processor_count:
-        return None
     weights = torch.empty(packets, dtype=torch.int32, device=origins.device)
     err = weights_launch(aabb_super.data_ptr(), origins.data_ptr(), directions.data_ptr(), origins.shape[0],
                          aabb_super.shape[0], float(t_min), float(t_max), rays_per_tile, weights.data_ptr(),
                          _stream(origins))
     if err:
         raise RuntimeError(f"packet_weight_kernel launch failed: CUDA error {err}")
-    return torch.argsort(weights, descending=True, stable=True).to(torch.int32)
+    return weights
+
+
+def _heaviest_first(weights_launch, aabb_super, origins, directions, t_min, t_max, rays_per_tile):
+    """The order in which a traversal kernel takes its packets: heaviest
+    first by the pre-pass's estimate (`packet_weights`), so that the few
+    packets that test the most clusters start at once and not behind a
+    queue of light ones.  [packets] int32 (`ops.ray_sort.packet_order`),
+    or None where the card holds every packet at once anyway (a packet
+    takes at most 8 blocks and an SM holds at least 2).  The order changes
+    no result: packets are independent, and the estimate counts the same
+    boxes whatever order a packet visits them in."""
+    packets = -(-origins.shape[0] // rays_per_tile)
+    if packets * 4 <= torch.cuda.get_device_properties(origins.device).multi_processor_count:
+        return None
+    return packet_order(packet_weights(weights_launch, aabb_super, origins, directions, t_min, t_max,
+                                       rays_per_tile))
 
 
 def _traversal_cuda(counter, route, tris, boxes, origins, directions, t_min, t_max, rays_per_tile, branch,

@@ -1,0 +1,256 @@
+"""The traversal's ray ordering: the coherence-sort key, the gather of the
+rays into key order, the restore of the traversal's outputs into caller
+order, and the order in which a traversal kernel takes its packets.
+
+Counterpart of `ray_sort_key` and `sort_by_key` (with `octant_sort`) in
+`tpu_pathtracer/ops/intersect_pallas.py`, and of the parking and the
+packed restore around the Pallas kernels in
+`tpu_pathtracer/accel/cluster.py` (`ClusterAccel.intersect`,
+`occluded`).  None of it is a TPU kernel: XLA fuses it inside the JAX
+package's jitted loop.  On the card it runs as four kernels of
+`csrc/ray_sort.cu`, each with its plain version here:
+
+* `sort_key`: the int32 key of `ray_sort_key`, with the lanes outside an
+  `active` mask parked first (`park`);
+* `gather_rays`: the rays in the order of a permutation (parked the same
+  way where a mask is given);
+* `restore_hits`: the traversal's outputs in caller order, as a `Hit` (or
+  the any-hit flags);
+* `packet_order`: the heaviest-first order of a traversal's packets.
+
+The sort between the key and the gather stays `torch.sort(key,
+stable=True)`, a library sort, as the JAX package leaves it to
+`lax.sort_key_val`.  The key's value needs at most 30 bits (3 octant bits,
+up to 9 spatial bits a axis, direction bits clamped to what is left of
+32), so it is an int32, sorted in half the radix passes of an int64.
+
+Each wrapper launches its kernel for tensors on a CUDA device outside
+`ops.cuda_build.plain()` (the A/B switch) and runs its plain version on
+the CPU and under `plain()`; a failed build or launch raises.  Each counts its launches in `.launches`
+(`render/graph_loop.COUNTED`).  None reads the device from the host.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu_pathtracer_torch.ops.cuda_build import kernel_arg, library, on_card
+from tpu_pathtracer_torch.ops.intersect import Hit
+from tpu_pathtracer_torch.utils.device import constant
+
+# The traversal kernels' miss marker in `prim`; `Hit.prim` is -1 there.
+MISS_PRIM = 0x7FFFFFFF
+
+
+# ---------------------------------------------------------------------------
+# The key, the parking and the restore
+# ---------------------------------------------------------------------------
+
+def _part1by2(v: torch.Tensor) -> torch.Tensor:
+    """Spread 10 bits of v so bit i lands at bit 3i (3-D Morton)."""
+    v = v & 0x3FF
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    v = (v | (v << 2)) & 0x09249249
+    return v
+
+
+def key_dir_bits(spatial_bits: int, dir_bits: int) -> int:
+    """`dir_bits` clamped so the key fits 32 bits."""
+    return min(dir_bits, max(0, (32 - 3 - 3 * spatial_bits) // 3))
+
+
+def ray_sort_key(origins, directions, scene_lo=None, scene_hi=None, spatial_bits: int = 0,
+                 dir_bits: int = 0) -> torch.Tensor:
+    """[N] int32 key (JAX's u32 value): (origin Morton cell << 3) | octant,
+    refined by `dir_bits` direction-magnitude bits per axis below the
+    octant bits; clamped so the key fits 32 bits (it takes at most 30)."""
+    dir_bits = key_dir_bits(spatial_bits, dir_bits)
+    key = (
+        (directions[:, 0] > 0).to(torch.int32)
+        + 2 * (directions[:, 1] > 0).to(torch.int32)
+        + 4 * (directions[:, 2] > 0).to(torch.int32)
+    )
+    if spatial_bits:
+        span = torch.clamp_min(scene_hi - scene_lo, 1e-6)
+        cells = float((1 << spatial_bits) - 1)
+        q = torch.clamp((origins - scene_lo) / span, 0.0, 1.0) * cells
+        qi = q.to(torch.int32)
+        morton = _part1by2(qi[:, 0]) | (_part1by2(qi[:, 1]) << 1) | (_part1by2(qi[:, 2]) << 2)
+        key = key | (morton << 3)
+    if dir_bits:
+        cells = float((1 << dir_bits) - 1)
+        mag = (torch.clamp(torch.abs(directions), 0.0, 1.0) * cells).to(torch.int32)
+        fine = (mag[:, 0] << (2 * dir_bits)) | (mag[:, 1] << dir_bits) | mag[:, 2]
+        key = (key << (3 * dir_bits)) | fine
+    return key
+
+
+def park(origins, directions, active, scene_lo, scene_hi):
+    """The lanes outside `active` moved outside the scene box to
+    scene_hi + (scene_hi - scene_lo) + 1, pointing +x: they overlap no box
+    and, sharing one sort key, fill packets of their own."""
+    point = scene_hi + (scene_hi - scene_lo) + 1.0
+    plus_x = constant((1.0, 0.0, 0.0), directions.dtype, directions.device)
+    return (torch.where(active[:, None], origins, point[None, :]),
+            torch.where(active[:, None], directions, plus_x))
+
+
+def restore(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """Inverse of the sort permutation along the first axis."""
+    out = torch.empty_like(x)
+    out[perm] = x
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Plain versions of the kernels
+# ---------------------------------------------------------------------------
+
+def sort_key_plain(origins, directions, scene_lo, scene_hi, spatial_bits: int, dir_bits: int, active=None):
+    if active is not None:
+        origins, directions = park(origins, directions, active, scene_lo, scene_hi)
+    return ray_sort_key(origins, directions, scene_lo, scene_hi, spatial_bits, dir_bits)
+
+
+def gather_rays_plain(origins, directions, perm, active=None, scene_lo=None, scene_hi=None):
+    if active is not None:
+        origins, directions = park(origins, directions, active, scene_lo, scene_hi)
+    return origins[perm], directions[perm]
+
+
+def restore_hits_plain(outputs, perm):
+    if isinstance(outputs, torch.Tensor):
+        return outputs if perm is None else restore(outputs, perm)
+    t, prim, uv = outputs if perm is None else (restore(x, perm) for x in outputs)
+    hit = prim != MISS_PRIM
+    return Hit(t=t, prim=torch.where(hit, prim, -1), bary=torch.where(hit[:, None], uv, 0.0), hit=hit)
+
+
+def packet_order_plain(weights):
+    return torch.argsort(weights, descending=True, stable=True).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Kernels
+# ---------------------------------------------------------------------------
+
+def _launch(fn: str, *args, dev) -> None:
+    err = getattr(library("ray_sort.cu"), fn)(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{fn} failed: CUDA error {err}")
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _box(scene_lo, scene_hi, dev):
+    return (kernel_arg("scene_lo", scene_lo, torch.float32, (3,), dev),
+            kernel_arg("scene_hi", scene_hi, torch.float32, (3,), dev))
+
+
+def sort_key_cuda(origins, directions, scene_lo, scene_hi, spatial_bits: int, dir_bits: int, active=None):
+    dev, n = origins.device, origins.shape[0]
+    if not 0 <= spatial_bits <= 9 or dir_bits < 0:
+        raise ValueError(f"no sort key of {spatial_bits} spatial and {dir_bits} direction bits")
+    o = kernel_arg("origins", origins, torch.float32, (n, 3), dev)
+    d = kernel_arg("directions", directions, torch.float32, (n, 3), dev)
+    lo, hi = _box(scene_lo, scene_hi, dev) if spatial_bits or active is not None else (None, None)
+    act = None if active is None else kernel_arg("active", active, torch.bool, (n,), dev)
+    key = torch.empty(n, dtype=torch.int32, device=dev)
+    if n:
+        _launch("ray_sort_key_launch", o.data_ptr(), d.data_ptr(), _ptr(lo), _ptr(hi), _ptr(act), n, spatial_bits,
+                key_dir_bits(spatial_bits, dir_bits), key.data_ptr(), dev=dev)
+        sort_key.launches += 1
+    return key
+
+
+def gather_rays_cuda(origins, directions, perm, active=None, scene_lo=None, scene_hi=None):
+    dev, n = origins.device, origins.shape[0]
+    o = kernel_arg("origins", origins, torch.float32, (n, 3), dev)
+    d = kernel_arg("directions", directions, torch.float32, (n, 3), dev)
+    p = kernel_arg("perm", perm, torch.int64, (n,), dev)
+    lo, hi = (None, None) if active is None else _box(scene_lo, scene_hi, dev)
+    act = None if active is None else kernel_arg("active", active, torch.bool, (n,), dev)
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev), torch.empty((n, 3), dtype=torch.float32, device=dev)
+    if n:
+        _launch("ray_sort_gather_launch", o.data_ptr(), d.data_ptr(), p.data_ptr(), _ptr(act), _ptr(lo), _ptr(hi), n,
+                out[0].data_ptr(), out[1].data_ptr(), dev=dev)
+        gather_rays.launches += 1
+    return out
+
+
+def restore_hits_cuda(outputs, perm):
+    any_hit = isinstance(outputs, torch.Tensor)
+    dev = outputs.device if any_hit else outputs[0].device
+    n = outputs.shape[0] if any_hit else outputs[0].shape[0]
+    if any_hit and perm is None:
+        return outputs  # nothing to move
+    p = None if perm is None else kernel_arg("perm", perm, torch.int64, (n,), dev)
+    if any_hit:
+        occ = kernel_arg("occluded", outputs, torch.bool, (n,), dev)
+        ins, outs = (None, None, None, occ), (None, None, None, None, torch.empty(n, dtype=torch.bool, device=dev))
+    else:
+        t, prim, uv = outputs
+        ins = (kernel_arg("t", t, torch.float32, (n,), dev), kernel_arg("prim", prim, torch.int32, (n,), dev),
+               kernel_arg("uv", uv, torch.float32, (n, 2), dev), None)
+        outs = (torch.empty(n, dtype=torch.float32, device=dev), torch.empty(n, dtype=torch.int32, device=dev),
+                torch.empty((n, 2), dtype=torch.float32, device=dev), torch.empty(n, dtype=torch.bool, device=dev),
+                None)
+    if n:
+        _launch("ray_sort_restore_launch", _ptr(p), *map(_ptr, ins), n, *map(_ptr, outs), dev=dev)
+        restore_hits.launches += 1
+    return outs[4] if any_hit else Hit(t=outs[0], prim=outs[1], bary=outs[2], hit=outs[3])
+
+
+def packet_order_cuda(weights):
+    dev, p = weights.device, weights.shape[0]
+    w = kernel_arg("weights", weights, torch.int32, (p,), dev)
+    order = torch.empty(p, dtype=torch.int32, device=dev)
+    if p:
+        _launch("ray_sort_order_launch", w.data_ptr(), p, order.data_ptr(), dev=dev)
+        packet_order.launches += 1
+    return order
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+def sort_key(origins, directions, scene_lo, scene_hi, spatial_bits: int, dir_bits: int, active=None):
+    """[N] int32 sort key of the rays (`ray_sort_key`), the lanes outside
+    `active` parked first (`park`).  The scene box is [3] float32 device
+    tensors, read on the device."""
+    fn = sort_key_cuda if on_card(origins.device) else sort_key_plain
+    return fn(origins, directions, scene_lo, scene_hi, spatial_bits, dir_bits, active)
+
+
+def gather_rays(origins, directions, perm, active=None, scene_lo=None, scene_hi=None):
+    """(origins[perm], directions[perm]) as new [N,3] tensors, the lanes
+    outside `active` parked as `sort_key` parks them."""
+    fn = gather_rays_cuda if on_card(origins.device) else gather_rays_plain
+    return fn(origins, directions, perm, active, scene_lo, scene_hi)
+
+
+def restore_hits(outputs, perm):
+    """A traversal's outputs in the sorted order back in caller order:
+    `outputs` = (t, prim, uv) of a closest-hit kernel gives a `Hit` (prim
+    -1 and bary 0 where prim is MISS_PRIM), the any-hit flags give the
+    flags.  `perm` None is the identity."""
+    device = outputs.device if isinstance(outputs, torch.Tensor) else outputs[0].device
+    return (restore_hits_cuda if on_card(device) else restore_hits_plain)(outputs, perm)
+
+
+def packet_order(weights):
+    """[P] int32: the packets heaviest first by [P] int32 `weights`, ties in
+    packet order (a stable descending argsort)."""
+    return (packet_order_cuda if on_card(weights.device) else packet_order_plain)(weights)
+
+
+# Kernel launches since each count was last set to 0.
+sort_key.launches = 0
+gather_rays.launches = 0
+restore_hits.launches = 0
+packet_order.launches = 0

@@ -31,7 +31,7 @@ shading's chunks as its second entry point, and the NEE kernel), and so
 does every camera spawn (ops/camera.py) and every schedule's step after
 the trace (ops/fused_schedule.py: kernel 7 for the stream, the path step
 for render_rays and render_pixels_regen); the eager code is their plain
-version, which the CPU runs and, under `ops.bounce.plain()`, the card
+version, which the CPU runs and, under `ops.cuda_build.plain()`, the card
 (but for the fused stream's step, which keeps kernel 7).
 
 Each schedule's loop is a per-frame set-up that writes a plan's static
@@ -55,6 +55,7 @@ import torch
 from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.ops import bounce as bounce_ops
 from tpu_pathtracer_torch.ops import camera as camera_ops
+from tpu_pathtracer_torch.ops import cuda_build
 from tpu_pathtracer_torch.ops.fused_schedule import (STATE_KEYS, fused_stream_step, fused_stream_step_plain, path_step,
                                                      slot_pixels)
 from tpu_pathtracer_torch.ops.intersect import Hit, intersect_scene, occluded_scene
@@ -289,7 +290,7 @@ def _shade_deferred(scene: Scene, cfg: RenderConfig, hit: Hit, origins, directio
     lanes.  Miss lanes hold zeros (callers select under the hit mask); the
     fields are the ones the bounce reads without NEE.  On the card each
     chunk is one launch of the bounce kernel's second entry point
-    (ops/bounce.shade_lanes) outside `ops.bounce.plain()`.
+    (ops/bounce.shade_lanes) outside `ops.cuda_build.plain()`.
 
     The slot table is padded to a whole number of chunks: its tail slots
     point at a sink row n, so every slot is shaded once (the JAX package
@@ -312,7 +313,7 @@ def _shade_deferred(scene: Scene, cfg: RenderConfig, hit: Hit, origins, directio
     out = {key: torch.zeros((n + 1, 3), dtype=torch.float32, device=dev) for key in _DEFERRED_VECTORS}
     out.update({key: torch.zeros(n + 1, dtype=torch.bool, device=dev) for key in _DEFERRED_FLAGS})
     out["seeds"] = torch.zeros(n + 1, dtype=seeds.dtype, device=dev)
-    kernels = bounce_ops.on_card(dev)
+    kernels = cuda_build.on_card(dev)
     for k in range(0, slots, c):
         idx = lane_of_slot[k:k + c]
         if kernels:
@@ -438,7 +439,7 @@ def _trace_bounce(scene, cfg, origin, direction, attenuation, radiance, seeds, d
     chunks shaded by the bounce kernel's second entry point), the plain
     version elsewhere (`_bounce_plain`)."""
     hit = intersect_scene(scene, origin, direction, cfg.t_min, cfg.t_max, cfg)
-    if bounce_ops.on_card(origin.device) and not _deferred(cfg):
+    if cuda_build.on_card(origin.device) and not _deferred(cfg):
         return _bounce_kernels(scene, cfg, hit, origin, direction, attenuation, radiance, seeds, depth, spec_last)
     return _bounce_plain(scene, cfg, hit, origin, direction, attenuation, radiance, seeds, depth, spec_last)
 
@@ -570,7 +571,7 @@ def _plan(scene: Scene, cfg: RenderConfig, key: tuple, fresh: dict, make_step) -
 
     # The key names the arm of an A/B against the plain versions: a plan
     # never replays the other arm's graph.
-    plan = graph_loop.plan((id(scene), cfg, bounce_ops.is_plain()) + key, scene, build, capturable=not _deferred(cfg))
+    plan = graph_loop.plan((id(scene), cfg, cuda_build.is_plain()) + key, scene, build, capturable=not _deferred(cfg))
     _write(plan.state, fresh)
     return plan
 
@@ -769,7 +770,7 @@ def render_pixels_stream(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids, 
     card `fused_stream_step`, one kernel launch (TPU kernel 7, widened to
     every pixel map and to NEE), whether or not the render is fused
     (fused=True, on `_fused_stream_ok`'s envelope, only keeps the kernel
-    under `ops.bounce.plain()`); on the CPU its plain version, eager ops.
+    under `ops.cuda_build.plain()`); on the CPU its plain version, eager ops.
     Both give the same bits.  Camera paths are then respawned on the
     step's regen mask through ops/camera.camera_paths, outside kernel 7 as
     in the JAX package.  The step returns the count of live lanes, the
@@ -812,12 +813,12 @@ def _stream_step(scene: Scene, cfg: RenderConfig, kind: str, n_pix: int, spp: in
     schedule step (the kernel updates the lane state in place, the plain
     version returns new tensors, copied in), respawn.  The step is kernel
     7 on the card, fused or not, and the fused stream's under
-    `ops.bounce.plain()` too (its plain version is the unfused stream's
+    `ops.cuda_build.plain()` too (its plain version is the unfused stream's
     step); elsewhere the plain version."""
     nee = cfg.env_importance_sampling
     spawn = _spawner(st, cfg, st["subframe"], st["sample_offset"])
     pixels = _pixel_map(None if kind == "frame" else (st["base"], n_pix) if kind == "range" else st["ids"])
-    schedule_step = fused_stream_step if fused or bounce_ops.on_card(scene.device) else fused_stream_step_plain
+    schedule_step = fused_stream_step if fused or cuda_build.on_card(scene.device) else fused_stream_step_plain
     kw = dict(spp=spp, n_pix=n_pix, max_depth=cfg.max_depth, rr_reference=cfg.rr_mode == "reference",
               inv_spp=1.0 / spp, **pixels)
     keys = STATE_KEYS + (("spec_last",) if nee else ())
@@ -849,7 +850,7 @@ def _fused_stream_ok(cfg: RenderConfig, pixel_ids, lanes: int, device) -> bool:
     auto rule: ~70 fewer device kernels an iteration than the unfused
     stream's eager step).  Since the unfused stream launches the
     same kernel on the card (kernel 7 takes every pixel map and NEE), the
-    two differ only under `ops.bounce.plain()`, where the fused stream
+    two differ only under `ops.cuda_build.plain()`, where the fused stream
     keeps the kernel.  On the CPU the step would only run its plain
     version."""
     if cfg.fused_schedule == "off":
