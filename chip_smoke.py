@@ -10,7 +10,8 @@ renderer, AOVs, denoise and checkpoints, and the viewer; and sharded
 frames on torch.distributed, deferred shading and the numpy oracle; and
 the benchmark entry point.
 
-    python3 chip_smoke.py [--image PATH]
+    python3 chip_smoke.py [--image PATH] [--parent DIR]
+    python3 chip_smoke.py --ray-order   # phases 1, 2 and 38 only
 
 Phases, each printing one line (any failure exits non-zero):
   1. device: the card's name, and name and power limit from nvidia-smi;
@@ -191,18 +192,19 @@ Phases, each printing one line (any failure exits non-zero):
     (_time_cold), and count the bytes each lane's class needs of the
     function (bounce_bytes, nee_bytes), so that ms and bound are both HBM
     numbers;
-38. the ray ordering (csrc/ray_sort.cu: the sort key with the shadow
-    rays' parking, the gather, the restore into a Hit or the any-hit
-    flags, the packet order) against its plain versions on the main
-    path's rays in lane order: the headline's 131,072 and its shadow rays
-    (a mask), config 4's and its shadow rays, a 1-spp tile's 345,600, and
-    the one-lane-a-pixel pool's 2,073,600 of the headline (phase 22's
-    render, 2,025 packets) and of config 4 (4,050 packets): every output
-    bit-equal; each kernel's ms with the L2 flushed, plain ms, bound
-    (bytes by lane class) and the PyTorch call that computes the same
-    function (index_select,
-    index_put_, argsort); torch.sort of the int32 key against the int64
-    key, device ms and device kernels a call (the profiler's).
+38. the ray ordering (csrc/ray_sort.cu: the radix sort of the rays with
+    the key and the shadow rays' parking, the restore into a Hit or the
+    any-hit flags, the packet order) against its plain versions on the
+    main path's rays in lane order: config 1's 16,384, the headline's
+    131,072 and its shadow rays (a mask), config 4's and its shadow rays,
+    a 1-spp tile's 345,600, and the one-lane-a-pixel pool's 2,073,600 of
+    the headline (phase 22's render, 2,025 packets) and of config 4
+    (4,050 packets): every output bit-equal, perm equal to torch.sort's
+    stable permutation of the key; each kernel's ms with the L2 flushed,
+    plain ms, bound (bytes by lane class) and the PyTorch call that
+    computes the same function (torch.sort of the int32 key for the
+    sort, index_put_, argsort); the sort's and torch.sort's device ms and
+    device kernels a call (the profiler's, warm).
 Every render runs graphed (render/graph_loop.py: each schedule's
 iteration captured once as a CUDA graph and replayed) but deferred
 shading's, and its phase checks so: a CLI run, a bench preset and the
@@ -215,9 +217,10 @@ NEE, the camera kernel once a stream or regen iteration and once a
 render_pixels call's set-up; every schedule's step runs a kernel once
 an iteration (STEP_KERNEL): kernel 7 on every stream, fused or not, the
 path step on render_rays and render_pixels_regen; every sorted trace
-runs the ray-order kernels once each (check_ray_order: the key, the
-gather and the restore; the packet order where the pool has more
-packets than the card holds at once); the unit-ball
+runs the ray-order kernels (check_ray_order: the sort's launches for the
+trace's pool, trace_sort_launches, 1 to 5 where pools mix, and the
+restore once; the packet order where the pool has more packets than the
+card holds at once); the unit-ball
 sampler's loop runs inside the bounce kernel, so the sampler launches only on the plain versions' path
 (phase 34's plain arm, whose count the kernels line gives it).
 Then the launches on the CLI renders of phases 25 and 26, one JSON line with every kernel's numbers (launches from its render
@@ -351,13 +354,12 @@ KERNELS = {
            camera_ops.camera_paths, camera_ops.camera_paths, camera_ops.camera_paths_plain),
     # No TPU kernel either: the traversal's ray ordering, which XLA fuses
     # around the Pallas kernels (the key, the packed one-row gather, the
-    # parking and the packed restore).  The packet order has no JAX
-    # counterpart (the TPU's grid takes packets in order): it orders the
-    # packets of the traversal launch it names, in place of an argsort.
-    "kk": ("sort_key", RAY_SORT, f"{PALLAS}:1141", None, False, ray_sort.sort_key, ray_sort.sort_key_cuda,
-           ray_sort.sort_key_plain),
-    "kg": ("gather_rays", RAY_SORT, f"{PALLAS}:1392", None, False, ray_sort.gather_rays, ray_sort.gather_rays_cuda,
-           ray_sort.gather_rays_plain),
+    # parking and the packed restore; the sort between is lax.sort_key_val
+    # in sort_by_key).  The packet order has no JAX counterpart (the TPU's
+    # grid takes packets in order): it orders the packets of the traversal
+    # launch it names, in place of an argsort.
+    "kx": ("sort_rays", RAY_SORT, f"{PALLAS}:1392", None, False, ray_sort.sort_rays, ray_sort.sort_rays_cuda,
+           ray_sort.sort_rays_plain),
     "kr": ("restore_hits", RAY_SORT, "tpu_pathtracer/accel/cluster.py:294", None, False, ray_sort.restore_hits,
            ray_sort.restore_hits_cuda, ray_sort.restore_hits_plain),
     "ko": ("packet_order", RAY_SORT, f"{PALLAS}:1512", None, False, ray_sort.packet_order,
@@ -372,21 +374,41 @@ STEP_KERNEL = {"stream_fused": "k7", "stream": "k7", "regen": "kp", "rays": "kp"
 
 
 # The ray ordering's kernels (ops/ray_sort.py): on every sorted trace the
-# key, the gather and the restore; the packet order on every trace with
-# more packets than the card holds at once.
-RAY_ORDER = ("kk", "kg", "kr", "ko")
+# sort (1 launch up to 16,384 rays, else 1 + its digit passes, at most 5)
+# and the restore; the packet order on every trace with more packets than
+# the card holds at once.
+RAY_ORDER = ("kx", "kr", "ko")
 
 
-def check_ray_order(label, counts, traces, exact=True):
-    """The ray-order kernels once each on `traces` sorted traces: the key,
-    the gather and the restore; the packet order on each of them or, where
-    `exact`, on each or none (one pool size: its packets fit the card at
-    once or do not), else on at most `traces`."""
+def trace_sort_launches(scene, cfg, sched):
+    """The sort's launches on one trace of a render of cfg on `scene` by
+    the schedule `sched`: of the rays a trace sorts (the stream's lane
+    pool, a lane a pixel on regen, a lane a sample on rays; of a tile
+    where cfg tiles the frame), at the key's bits."""
+    acc = scene.accel
+    n_pix = cfg.width * cfg.height
+    if 0 < cfg.tile_pixels < n_pix:
+        n_pix = cfg.tile_pixels
+    n = (resolve_stream_lanes(cfg, n_pix) if sched.startswith("stream") else
+         n_pix if sched == "regen" else n_pix * cfg.samples_per_launch)
+    spatial = acc._spatial_bits(cfg) if acc._want_sort(cfg) == "spatial" else 0
+    return ray_sort.sort_launches(n, spatial, acc._dir_bits(cfg))
+
+
+def check_ray_order(label, counts, traces, sort_each=None):
+    """The ray-order kernels on `traces` sorted traces: the restore once
+    each; the sort's launches `sort_each` each (trace_sort_launches) or,
+    where traces of more than one size mix (sort_each None), 1 to 5 each;
+    the packet order on each of them or, where `sort_each` is given (one
+    pool size), on each or none (its packets fit the card at once or do
+    not), else on at most `traces`."""
     got = [counts[k] for k in RAY_ORDER]
-    order_ok = got[3] in (0, traces) if exact else got[3] <= traces
-    if got[:3] != [traces] * 3 or not order_ok:
+    exact = sort_each is not None
+    sort_ok = got[0] == traces * sort_each if exact else traces <= got[0] <= 5 * traces
+    order_ok = got[2] in (0, traces) if exact else got[2] <= traces
+    if got[1] != traces or not sort_ok or not order_ok:
         raise SystemExit(f"[{label}] FAIL: ray-order launches {dict(zip((KERNELS[k][0] for k in RAY_ORDER), got))} "
-                         f"for {traces} sorted traces")
+                         f"for {traces} sorted traces" + (f" of {sort_each} sort launches each" if exact else ""))
 
 
 def shading_kernels(nee):
@@ -815,7 +837,7 @@ def phase_render(label, scene, cfg, camera, frames, smi, image_path=None, warm=T
     n_pix = cfg.width * cfg.height
     spawn_calls = frames * (n_pix // cfg.tile_pixels if 0 < cfg.tile_pixels < n_pix else 1)
     check_shading(label, counts, iters, nee, spawns=spawn_calls + (iters if sched != "rays" else 0))
-    check_ray_order(label, counts, iters * (2 if nee else 1))
+    check_ray_order(label, counts, iters * (2 if nee else 1), trace_sort_launches(scene, cfg, sched))
     want += RAY_ORDER
     others = {KERNELS[kid][0]: c for kid, c in counts.items() if kid not in want and c}
     if others:
@@ -1648,7 +1670,7 @@ def check_launches(label, counts, log, want, extra=0):
             raise SystemExit(f"[{label}] FAIL: {counts[kid]} {KERNELS[kid][0]} launches for {iters} iterations")
     nee = any(kid in want for kid in ("k4", "k5", "k6"))
     check_shading(label, counts, iters, nee)
-    check_ray_order(label, counts, iters * (2 if nee else 1) + extra, exact=False)
+    check_ray_order(label, counts, iters * (2 if nee else 1) + extra)
     others = {KERNELS[kid][0]: c for kid, c in counts.items()
               if kid not in want + shading_kernels(nee) + RAY_ORDER and c}
     if others:
@@ -1829,7 +1851,8 @@ def phase_viewer(label, paths, smi):
 # 7 and the path step), the unit-ball sampler, and the shading kernels:
 # the bounce kernel (and its deferred entry point), the NEE kernel and the
 # camera kernel; and the ray ordering around the traversal.
-RAY_ORDER_FUNCTIONS = ("sort_key_kernel", "gather_rays_kernel", "restore_hits_kernel", "packet_order_kernel")
+RAY_ORDER_FUNCTIONS = ("sort_cluster_kernel", "sort_keys_kernel", "sort_pass_kernel", "restore_hits_kernel",
+                       "packet_order_kernel")
 DEVICE_FUNCTIONS = ("streamed_kernel", "packet_weight_kernel", "fused_step_kernel", "path_step_kernel",
                     "unit_sphere_kernel", "bounce_kernel", "shade_lanes_kernel", "nee_kernel",
                     "camera_kernel") + RAY_ORDER_FUNCTIONS
@@ -2082,9 +2105,9 @@ def phase_graph_ab(label, scene, hero, root, smi):
         ab = kernels_ab(f"{label} {name} plain vs kernels", scene_n, cam, c, smi, frames=1, order=(True, False))
         counts = {arm: ab[arm]["counts"] for arm in ("plain", "kernels")}
         if counts["kernels"]["random_in_unit_sphere"] or not counts["plain"]["random_in_unit_sphere"] or any(
-                counts["plain"][k] for k in ("bounce", "next_event", "camera_paths", "path_step", "sort_key",
-                                             "gather_rays", "restore_hits", "packet_order")) or not all(
-                counts["kernels"][k] for k in ("sort_key", "gather_rays", "restore_hits")):
+                counts["plain"][k] for k in ("bounce", "next_event", "camera_paths", "path_step", "sort_rays",
+                                             "restore_hits", "packet_order")) or not all(
+                counts["kernels"][k] for k in ("sort_rays", "restore_hits")):
             raise SystemExit(f"[{label} {name}] FAIL: launches plain {counts['plain']}, kernels {counts['kernels']}")
         if name == "headline fused":
             plain_counts = counts["plain"]
@@ -2396,23 +2419,21 @@ def phase_camera_kernel(label, smi, n=131_072):
 
 def ray_order_bytes(n, active, hit):
     """Bytes each ray-order kernel must move on n rays (each input read
-    once, each output written once), by lane class.  The key: a lane
-    outside the mask reads its mask byte, any other lane its ray (24 B)
-    and the mask byte if there is one; each writes 4 B; the scene box
-    (24 B) once.  The gather: each lane reads perm (8 B), the mask byte if
-    there is one, the ray of an active lane, and writes a ray; the box
-    once with a mask.  The restore, closest hit (`hit`: the sorted hit
-    flags): each lane reads perm, t and prim (16 B) and writes t, prim,
-    bary and hit (17 B), and a hit also reads uv (8 B); any hit (`hit`
-    None): perm and one flag byte each way."""
+    once, each output written once), by lane class.  The sort (rays to
+    sorted rays and perm): a lane outside the mask reads its mask byte,
+    any other lane its ray (24 B) and the mask byte if there is one; each
+    lane writes a sorted ray and its perm entry (32 B); the scene box (24
+    B) once.  The restore, closest hit (`hit`: the sorted hit flags): each
+    lane reads perm, t and prim (16 B) and writes t, prim, bary and hit
+    (17 B), and a hit also reads uv (8 B); any hit (`hit` None): perm and
+    one flag byte each way."""
     mask = 0 if active is None else n
     n_act = n if active is None else int(active.sum())
     if hit is None:
         restore = n * 10
     else:
         restore = n * 33 + int(hit.sum()) * 8
-    return dict(key=n_act * 24 + n * 4 + mask + 24, gather=n * 32 + mask + n_act * 24 + (24 if mask else 0),
-                restore=restore)
+    return dict(sort=n_act * 24 + mask + n * 32 + 24, restore=restore)
 
 
 def order_compares(packets):
@@ -2421,63 +2442,139 @@ def order_compares(packets):
     return round(packets * math.log2(packets)) if packets > 1 else 0
 
 
+# Host seconds a profile's window holds before the first launch and after
+# the card is done.  The trace keeps only device events whose times, moved
+# onto the host's clock, fall inside its window, and the move can be off by
+# milliseconds (kernels traced before the host call that launched them:
+# _profiled's `lead_ms`, PERF.md): without the margin a trace loses its
+# first kernels, or all of them.
+PROFILE_MARGIN_S = 0.02
+
+
 def _profiled(fn, calls=10):
-    """(device kernels, device ms) a call of fn, from torch.profiler's
-    device events (kernels, copies, memsets) over `calls` calls after a
-    warm-up call: the sum of the events' times, so no host gap counts.
-    None if three profiles in a row saw no device event (the trace can
-    come back empty)."""
+    """fn's device time a call from torch.profiler's device events
+    (kernels, copies, memsets) over `calls` calls after a warm-up call:
+    the sum of the events' times, so no host gap counts.  Each trace
+    starts with a throwaway spin kernel, since a trace's first kernel can
+    go untraced (PERF.md §6), and is taken again if a later kernel
+    launch of the host has no device event (see PROFILE_MARGIN_S).
+    Returns None if five in a row were short, else a dict: `kernels` and
+    `ms` a call, `by_name` (ms a call by event name), `out` (the last
+    call's result), `retakes` (short traces before it), `spin_lost`
+    (traces whose spin went untraced) and `lead_ms` (the most that a
+    kernel's traced start came before the host call that launched it: the
+    trace's clock error)."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    cuda = torch.autograd.DeviceType.CUDA
+    spin_lost = 0
+    for retakes in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_MARGIN_S)
+            torch.cuda._sleep(1000)
             for _ in range(calls):
-                fn()
+                out = fn()
             torch.cuda.synchronize()
-        events = device_events(prof).values()
-        if events:
-            return sum(count for count, _ in events) / calls, sum(sec for _, sec in events) / calls * 1e3
+            time.sleep(PROFILE_MARGIN_S)
+        events = list(prof.profiler.kineto_results.events())
+        launches = sorted((e for e in events
+                           if e.device_type() != cuda and e.name().startswith("cu") and "Launch" in e.name()),
+                          key=lambda e: e.start_ns())
+        spin = launches[0].correlation_id() if launches else None
+        device = [e for e in events if e.device_type() == cuda and e.correlation_id() != spin]
+        started = {e.correlation_id(): e.start_ns() for e in device}
+        spin_lost += len(device) == sum(e.device_type() == cuda for e in events)
+        if device and all(e.correlation_id() in started for e in launches[1:]):
+            by_name = collections.Counter()
+            for e in device:
+                by_name[e.name()] += e.duration_ns() / 1e6 / calls
+            lead = max([0, *(e.start_ns() - started[e.correlation_id()] for e in launches[1:])])
+            return dict(kernels=len(device) / calls, ms=sum(by_name.values()), by_name=dict(by_name), out=out,
+                        retakes=retakes, spin_lost=spin_lost, lead_ms=lead / 1e6)
     return None
+
+
+def graph_kernels(fn):
+    """Kernel launches of one call of fn, counted without the wrappers'
+    counts or the profiler: the kernel nodes of a CUDA graph captured
+    from the call (after a warm-up call outside the capture)."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(count)):
+        raise SystemExit("FAIL: cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    node_type = ctypes.c_int()
+    kernels = 0
+    if cu.cuGraphGetNodes(raw, nodes, ctypes.byref(count)):
+        raise SystemExit("FAIL: cuGraphGetNodes")
+    for node in nodes:
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(node_type)):
+            raise SystemExit("FAIL: cuGraphNodeGetType")
+        kernels += node_type.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    graph.reset()
+    return kernels
+
+
+def ray_order_inputs(scene, cfg, camera, n_cam, any_hit):
+    """A phase 38 case's sort inputs: (origins, directions, mask or None,
+    scene box, (spatial bits, direction bits)), the rays in lane order as
+    the schedule traces them (any hit: the NEE shadow rays and the mask of
+    the lanes that trace one)."""
+    acc = scene.accel
+    if any_hit:
+        o, d, active = shadow_rays(scene, cfg, camera)
+    else:
+        (o, d), active = trace_rays(scene, cfg, camera, n_cam), None
+    return o, d, active, (acc.scene_lo, acc.scene_hi), (acc._spatial_bits(cfg), acc._dir_bits(cfg))
 
 
 def phase_ray_order(label, cases, smi):
     """The ray-order kernels (csrc/ray_sort.cu) against their plain
     versions (ops/ray_sort.py) on the main path's rays, in lane order as
     the schedule traces them (`cases`: name, scene, RenderConfig, camera,
-    camera rays, any hit): the key (shadow rays: the lanes that
-    trace nothing parked by the key's mask), the gather through
-    torch.sort's permutation of the key, the restore of the route's
-    traversal kernel's outputs on the sorted rays, and the packet order of
-    that launch's pre-pass weights: every output bit-equal.  Each kernel
-    timed with the L2 flushed before each launch (_time_cold), beside the
-    plain version, the bound (the bytes of each lane's class,
+    camera rays, any hit): the radix sort of the rays (shadow rays: the
+    lanes that trace nothing parked by the mask) against the key,
+    torch.sort's stable permutation and the gather, the restore of the
+    route's traversal kernel's outputs on the sorted rays, and the packet
+    order of that launch's pre-pass weights: every output bit-equal.  Each
+    kernel timed with the L2 flushed before each launch (_time_cold),
+    beside the plain version, the bound (the bytes of each lane's class,
     ray_order_bytes; the packet order's also by its compares,
-    order_compares) and the one PyTorch call that computes
-    the same function on the same inputs (index_select of the origins and
-    the directions, index_put_ of t, prim and uv, argsort; the key has
-    none), and the sort between them on the int32 key against the int64
-    key: device ms and device kernels a call (_profiled).  Returns each
+    order_compares) and the one PyTorch call that computes the same
+    function on the same inputs (torch.sort of the int32 key, which
+    leaves the rays unsorted; index_put_ of t, prim and uv; argsort).  The
+    sort and torch.sort also by the profiler's device ms and device
+    kernels a call (warm; _time_cold cannot queue torch.sort ahead of the
+    card), in turns.  The sort's launches three ways, which must agree:
+    its wrapper's count, the kernels of a CUDA graph captured from one
+    call (graph_kernels), and each complete trace's kernels a call, whose
+    last call's output must also be the plain version's.  Returns each
     kernel's numbers on the first case."""
     first = {}
     for name, scene, cfg, camera, n_cam, any_hit in cases:
         acc = scene.accel
-        if any_hit:
-            o, d, active = shadow_rays(scene, cfg, camera)
-        else:
-            (o, d), active = trace_rays(scene, cfg, camera, n_cam), None
+        o, d, active, box, bits = ray_order_inputs(scene, cfg, camera, n_cam, any_hit)
         n = o.shape[0]
-        box = acc.scene_lo, acc.scene_hi
-        bits = acc._spatial_bits(cfg), acc._dir_bits(cfg)
-        # the key
-        key = ray_sort.sort_key_cuda(o, d, *box, *bits, active)
-        if not torch.equal(key, ray_sort.sort_key_plain(o, d, *box, *bits, active)):
-            raise SystemExit(f"[{label} {name}] FAIL: the key kernel and its plain version differ")
-        perm = torch.sort(key, stable=True).indices
-        # the gather
-        o_s, d_s = ray_sort.gather_rays_cuda(o, d, perm, active, *box)
-        o_p, d_p = ray_sort.gather_rays_plain(o, d, perm, active, *box)
-        if not (same_bits(o_s, o_p) and same_bits(d_s, d_p)):
-            raise SystemExit(f"[{label} {name}] FAIL: the gather kernel and its plain version differ")
+        # the sort, against the key, torch.sort and the gather
+        set_counts_zero()
+        o_s, d_s, perm = ray_sort.sort_rays_cuda(o, d, *box, *bits, active)
+        launches = ray_sort.sort_rays.launches
+        key = ray_sort.sort_key_plain(o, d, *box, *bits, active)
+        sort_want = ray_sort.sort_rays_plain(o, d, *box, *bits, active)
+        if not (torch.equal(perm, torch.sort(key, stable=True).indices)
+                and all(same_bits(g, w) for g, w in zip((o_s, d_s, perm), sort_want))):
+            raise SystemExit(f"[{label} {name}] FAIL: the sort kernel and its plain version differ")
+        nodes = graph_kernels(lambda: ray_sort.sort_rays_cuda(o, d, *box, *bits, active))
+        if not launches == nodes == ray_sort.sort_launches(n, *bits) <= (1 if n <= ray_sort.SMALL_MAX else 5):
+            raise SystemExit(f"[{label} {name}] FAIL: {launches} sort launches counted, {nodes} kernels in a "
+                             f"captured sort, for {n} rays")
         # the route's traversal on the sorted rays, then the restore
         route, args = acc.traversal(o_s, d_s, cfg.t_min, cfg.t_max, cfg)
         kid = ROUTE_KERNELS[route][int(any_hit)]
@@ -2503,11 +2600,8 @@ def phase_ray_order(label, cases, smi):
         sorted_out = (outputs,) if any_hit else outputs
         scatter = [torch.empty_like(x) for x in sorted_out]
         kernels = dict(
-            key=(lambda _: ray_sort.sort_key_cuda(o, d, *box, *bits, active),
-                 lambda: ray_sort.sort_key_plain(o, d, *box, *bits, active), None),
-            gather=(lambda _: ray_sort.gather_rays_cuda(o, d, perm, active, *box),
-                    lambda: ray_sort.gather_rays_plain(o, d, perm, active, *box),
-                    lambda _: (torch.index_select(o, 0, perm), torch.index_select(d, 0, perm))),
+            sort=(lambda _: ray_sort.sort_rays_cuda(o, d, *box, *bits, active),
+                  lambda: ray_sort.sort_rays_plain(o, d, *box, *bits, active), None),
             restore=(lambda _: ray_sort.restore_hits_cuda(outputs, perm),
                      lambda: ray_sort.restore_hits_plain(outputs, perm),
                      lambda _: [dst.index_put_((perm,), x) for dst, x in zip(scatter, sorted_out)]),
@@ -2524,25 +2618,46 @@ def phase_ray_order(label, cases, smi):
             numbers[k] = dict(max_abs_err=0.0, ms=_time_cold(kernel, cold), plain_ms=_time_ms(plain, 10),
                               bound_ms=bound_ms, bound_by=bound_by,
                               library_ms=None if library is None else _time_cold(library, cold))
-        # the sort between the key and the gather, int32 against int64 (the
-        # int64 sort cannot be queued ahead of the card, as _time_cold
-        # needs: the profiler's device time instead, for both)
-        sorts = {name_: _profiled(lambda: torch.sort(k_, stable=True))
-                 for name_, k_ in (("int32", key), ("int64", key.long()))}
-        calls = dict(gather="index_select x 2", restore=f"index_put_ x {len(sorted_out)}", order="argsort")
-        sort_ms = ", ".join(f"{k_} not measured (no device events traced)" if v_ is None else
-                            f"{k_} {v_[1]:.4f} ms in {v_[0]:.0f} device kernels" for k_, v_ in sorts.items())
+        # the sort against torch.sort alone: device ms and device kernels
+        # a call, in turns, warm
+        warm = [("sort_rays", lambda: ray_sort.sort_rays_cuda(o, d, *box, *bits, active)),
+                ("torch.sort", lambda: torch.sort(key, stable=True))]
+        runs = {what: [] for what, _ in warm}
+        for what, fn in warm + warm[::-1]:
+            runs[what].append(_profiled(fn))
+        for run in runs["sort_rays"]:  # each complete trace: every launch traced, the last call's output right
+            if run is not None and (run["kernels"] != launches
+                                    or not all(same_bits(g, w) for g, w in zip(run["out"], sort_want))):
+                raise SystemExit(f"[{label} {name}] FAIL: the profiler traced {run['kernels']} kernels a sort for "
+                                 f"{launches} launches, or the last profiled sort differs from the plain version")
+        profiled = {what: None if None in r else (sum(x["kernels"] for x in r) / len(r),
+                                                  sum(x["ms"] for x in r) / len(r))
+                    for what, r in runs.items()}
+        traces = [x for r in runs.values() for x in r if x is not None]
+        clock = (f"; the traces: {sum(x['retakes'] for x in traces)} retaken for a launch without its kernel, "
+                 f"{sum(x['spin_lost'] for x in traces)} of {sum(x['retakes'] + 1 for x in traces)} lost their "
+                 f"first kernel (the spin), kernels traced up to {max(x['lead_ms'] for x in traces):.4f} ms before "
+                 f"their launch call" if traces else "")
+        numbers["sort"]["library_ms"] = None if profiled["torch.sort"] is None else profiled["torch.sort"][1]
+        numbers["sort"]["warm_ms"] = None if profiled["sort_rays"] is None else profiled["sort_rays"][1]
+        numbers["sort"]["sort_launches"] = launches
+        calls = dict(sort="torch.sort (device ms, warm)", restore=f"index_put_ x {len(sorted_out)}",
+                     order="argsort")
+        warm_ms = ", ".join(f"{k_} not measured (no complete trace)" if v_ is None else
+                            f"{k_} {v_[1]:.4f} ms in {v_[0]:.1f} device kernels" for k_, v_ in profiled.items())
         parts = "; ".join(
             f"{k} {v['ms']:.4f} ms, plain {v['plain_ms']:.4f}, "
-            + (f"{calls[k]} {v['library_ms']:.4f}, " if k in calls else "no library call, ")
+            + (f"{calls[k]} {v['library_ms']:.4f}, " if v["library_ms"] is not None else
+               f"{calls[k]} not measured, ")
             + f"bound {v['bound_ms']:.4f} by {v['bound_by']} ({n_bytes[k]} B{', %d ops' % ops[k] if k in ops else ''})"
             for k, v in numbers.items())
         print(f"[{label} {name}] {n} rays{f', {int(active.sum())} active' if active is not None else ''}, "
               f"{route} route{', any hit' if any_hit else ''}, {bits[0]} spatial and "
-              f"{ray_sort.key_dir_bits(*bits)} direction bits ({int(key.unique().numel())} distinct keys), "
-              f"{packets} packets of {rpt}: key, gather, restore and packet order bit-equal (0 ulp); {parts} "
-              f"(L2 flushed before each kernel and library launch); torch.sort of the key (device time, warm): "
-              f"{sort_ms} | {smi}")
+              f"{ray_sort.key_dir_bits(*bits)} direction bits ({int(key.unique().numel())} distinct keys, "
+              f"{ray_sort.key_width(*bits)} bits), {packets} packets of {rpt}: sort ({launches} launches by its "
+              f"count and in a captured graph), restore and packet order bit-equal (0 ulp); {parts} (L2 flushed "
+              f"before each kernel and library launch but torch.sort's); device time a call, warm, in turns: "
+              f"{warm_ms}{clock} | {smi}")
         if not first:
             first = numbers
     return first
@@ -2892,7 +3007,7 @@ def bench_preset(name, argv, phase, differ, renders, smi):
         if counts[kid] < iters:
             raise SystemExit(f"[{name}] FAIL: {counts[kid]} {KERNELS[kid][0]} launches for {iters} iterations")
     check_shading(name, counts, iters, nee)
-    check_ray_order(name, counts, iters * (2 if nee else 1))
+    check_ray_order(name, counts, iters * (2 if nee else 1), trace_sort_launches(scene, cfg, detail["schedule"]))
     others = {KERNELS[kid][0]: c for kid, c in counts.items()
               if kid not in want + shading_kernels(nee) + RAY_ORDER and c}
     if others:
@@ -2927,10 +3042,28 @@ def phase_bench_position(label, scene, cfg, early, late, smi):
           f"render {again['seconds'] / first:.3f}x, bench {bench_late / bench_early:.3f}x | {smi}")
 
 
+def ray_order_cases(scene, config4):
+    """Phase 38's rays: (name, scene, RenderConfig, camera, camera rays,
+    any hit) of the headline (`scene`) and config 4 (`config4`)."""
+    cfg, cfg_nee, cam4 = RenderConfig(**HEADLINE), RenderConfig(**{**HEADLINE, **NEE}), Camera(**CONFIG4_CAMERA)
+    return (
+        ("headline", scene, cfg, Camera(), CAMERA_RAYS, False),
+        ("config 1", config1_scene("cuda"), RenderConfig(**CONFIG1), Camera(), CONFIG1_CAMERA_RAYS, False),
+        ("headline NEE shadow rays", scene, cfg_nee, Camera(), CAMERA_RAYS, True),
+        ("config 4", config4, cfg, cam4, CAMERA_RAYS, False),
+        ("config 4 NEE shadow rays", config4, cfg_nee, cam4, CAMERA_RAYS, True),
+        ("1-spp tile", scene, cfg, Camera(), 172_800, False),
+        ("headline regen pool", scene, cfg, Camera(), REGEN_POOL // 2, False),
+        ("config 4 regen pool", config4, cfg, cam4, REGEN_POOL // 2, False),
+    )
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--image", help="write the headline 1080p frame here as a binary PPM")
     parser.add_argument("--parent", help="the root of an older checkout: phase 18 also times its kernel 7")
+    parser.add_argument("--ray-order", action="store_true",
+                        help="run phase 38 alone (after the device and build phases)")
     parser.add_argument("--shard-worker", nargs=3, metavar=("PORT", "RANK", "OUT"), help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.shard_worker:
@@ -2940,6 +3073,9 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
+    if args.ray_order:
+        phase_ray_order("38 ray order", ray_order_cases(headline_scene("cuda"), high_poly(100_000, "cuda")), smi)
+        return 0
     cfg = RenderConfig(**HEADLINE)
     cfg_nee = RenderConfig(**{**HEADLINE, **NEE})
     cam4 = Camera(**CONFIG4_CAMERA)
@@ -3037,16 +3173,8 @@ def main() -> int:
              CAMERA_RAYS),
         ), smi)
         numbers["kc"] = phase_camera_kernel("37 camera kernel", smi)
-        ray_order = phase_ray_order("38 ray order", (
-            ("headline", scene, cfg, Camera(), CAMERA_RAYS, False),
-            ("headline NEE shadow rays", scene, cfg_nee, Camera(), CAMERA_RAYS, True),
-            ("config 4", config4, cfg, cam4, CAMERA_RAYS, False),
-            ("config 4 NEE shadow rays", config4, cfg_nee, cam4, CAMERA_RAYS, True),
-            ("1-spp tile", scene, cfg, Camera(), 172_800, False),
-            ("headline regen pool", scene, cfg, Camera(), REGEN_POOL // 2, False),
-            ("config 4 regen pool", config4, cfg, cam4, REGEN_POOL // 2, False),
-        ), smi)
-        numbers.update(zip(RAY_ORDER, (ray_order[k] for k in ("key", "gather", "restore", "order"))))
+        ray_order = phase_ray_order("38 ray order", ray_order_cases(scene, config4), smi)
+        numbers.update(zip(RAY_ORDER, (ray_order[k] for k in ("sort", "restore", "order"))))
         del config4
     print("[launches on the CLI renders] " + "; ".join(
         f"{name}: " + ", ".join(f"{KERNELS[kid][0]} {n}" for kid, n in counts.items() if n)

@@ -36,9 +36,11 @@ kernels, plain (s/launch, images and stats bit-equal across the arms),
 then one profiled frame of each arm: device busy time, idle share,
 device kernels per iteration, the device time by kernel family (the
 traversal kernels, the shading kernels, the schedule steps: kernel 7 and
-the path step, the sampler, the ray order: the sort key, the gather, the
-restore and the packet order, and the rest: PyTorch's eager ops, the
-library sort, copies and memsets) and the largest of the rest.
+the path step, the sampler, the ray order: the radix sort of the rays
+(its one-block kernel, or its key launch and digit passes), the restore
+and the packet order, and the rest: PyTorch's eager ops, copies and
+memsets, and on the plain arm the library sort) and the largest of the
+rest.
 
 --ab NAME ... compares the loop run eagerly (`graph_loop.eager()`) with
 the graphed loop (each iteration one replay of a captured CUDA graph) on

@@ -8,7 +8,7 @@ iteration free of stream syncs but its own read; deferred shading against
 the dense shade, sharded frames (NCCL in a group of one, gloo across two
 processes on one card) against render_frame, renders against the numpy
 oracle, and the shading kernels (the bounce, NEE and camera kernels) and
-the ray ordering (sort key, gather, restore, packet order) against their
+the ray ordering (the radix sort of the rays, restore, packet order) against their
 plain versions, bit for bit, alone and in renders under
 ops.cuda_build.plain().  Every test needs a card and skips without one; this
 file imports no JAX, so it runs where only the port is installed:
@@ -1410,17 +1410,18 @@ def test_renders_equal_under_plain(cuda, monkeypatch, nee, which):
             iters, stream = st["iters"], st["schedule"].startswith("stream")
             # kernel 7 (the fused stream keeps it under plain()) and the path step
             steps = (counts["fused_stream_step"], counts["path_step"])
-            # the ray ordering: a sorted trace an iteration, two under NEE;
-            # at most 4 packets a trace, which the card holds at once, so
-            # no packet order
-            order = tuple(counts[f] for f in ("sort_key", "gather_rays", "restore_hits", "packet_order"))
+            # the ray ordering: a sorted trace an iteration, two under NEE,
+            # each sort one launch (pools of at most 4,096 rays); at most 4
+            # packets a trace, which the card holds at once, so no packet
+            # order
+            order = tuple(counts[f] for f in ("sort_rays", "restore_hits", "packet_order"))
             if key[0] == "plain":
                 assert shading == (0, 0, 0), key
                 assert steps == (iters if st["schedule"] == "stream_fused" else 0, 0), key
-                assert order == (0, 0, 0, 0), key
+                assert order == (0, 0, 0), key
                 continue
             traces = iters * (2 if nee else 1)
-            assert order == (traces, traces, traces, 0), key
+            assert order == (traces, traces, 0), key
             respawns = iters if st["schedule"] in ("stream", "stream_fused", "regen") else 0
             assert shading == (iters, iters if nee else 0, respawns + 1), key
             assert steps == ((iters, 0) if stream else (0, iters)), key
@@ -1433,50 +1434,172 @@ def test_renders_equal_under_plain(cuda, monkeypatch, nee, which):
 # ---------------------------------------------------------------------------
 
 RAY_COUNTS = [0, 1, 1000, 131_072]
-# (spatial bits, direction bits) as the accel passes them: octant, the two
-# spatial defaults, the widest spatial and the most direction bits
-KEY_BITS = [(0, 2), (7, 2), (5, 3), (9, 4), (5, 4)]
-
-
-def ray_order_inputs(n, dev, seed=5):
-    """Rays toward the three-spheres scene (rays()), an active mask over
-    about two thirds of them, and the scene's box."""
-    o, d = (x.to(dev) for x in rays(seed, n, parked=0))
-    active = torch.as_tensor(np.random.RandomState(seed).rand(n) < 0.65, device=dev)
-    acc = build_accel(procedural.three_spheres_scene(8, 16, device=dev)).accel
-    return o, d, active, acc.scene_lo, acc.scene_hi
-
-
 def launch_delta(fn, *args, **kw):
     """(fn's result, the launches it added to each ray-ordering wrapper)."""
-    wrappers = (ray_sort.sort_key, ray_sort.gather_rays, ray_sort.restore_hits, ray_sort.packet_order)
+    wrappers = (ray_sort.sort_rays, ray_sort.restore_hits, ray_sort.packet_order)
     before = [w.launches for w in wrappers]
     out = fn(*args, **kw)
     return out, tuple(w.launches - b for w, b in zip(wrappers, before))
 
 
-@pytest.mark.parametrize("masked", [False, True], ids=["all", "active"])
-@pytest.mark.parametrize("bits", KEY_BITS, ids=[f"s{s}d{d}" for s, d in KEY_BITS])
-@pytest.mark.parametrize("n", RAY_COUNTS)
-def test_sort_key_and_gather_match_plain(cuda, n, bits, masked):
-    """The key kernel (parking the lanes outside the mask) and the gather
-    (parking them the same way) against their plain versions: keys, and
-    the rays gathered through torch.sort's permutation, bit-equal; one
-    launch each where there are rays."""
-    o, d, active, lo, hi = ray_order_inputs(n, cuda)
-    active = active if masked else None
-    key, launched = launch_delta(ray_sort.sort_key, o, d, lo, hi, *bits, active=active)
-    want = ray_sort.sort_key_plain(o, d, lo, hi, *bits, active=active)
-    assert launched == ((1 if n else 0), 0, 0, 0)
-    assert key.dtype == torch.int32 and torch.equal(key, want)
-    perm = torch.sort(key, stable=True).indices
-    (o_s, d_s), launched = launch_delta(ray_sort.gather_rays, o, d, perm, active, lo, hi)
-    o_p, d_p = ray_sort.gather_rays_plain(o, d, perm, active, lo, hi)
+# The radix sort's sizes: empty, one ray, around a warp's keys and a
+# tile's (2,048), around config 1's pool (the largest one-launch sort),
+# the headline's pool, a 1-spp tile and the one-lane-a-pixel pool
+SORT_COUNTS = [0, 1, 255, 256, 257, 2049, 16_383, 16_384, 16_385, 131_072, 345_600, 2_073_600]
+# every (spatial bits, direction bits) the config allows (0-9, 0-4)
+ALL_KEY_BITS = [(s, d) for s in range(10) for d in range(5)]
+
+
+@pytest.fixture(scope="module")
+def sort_inputs():
+    """{n: (origins, directions, box)} on the card, made once: rays() with
+    the first tenth sharing one origin and direction (ties in every key
+    setting), and the three-spheres box."""
+    if not torch.cuda.is_available():  # a module fixture is set up before the function's `cuda`
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    box = build_accel(procedural.three_spheres_scene(8, 16, device=dev)).accel
+    out = {}
+    for n in SORT_COUNTS:
+        o, d = rays(13, n, parked=0)
+        if n:
+            o[: n // 10], d[: n // 10] = o[0], d[0]
+        out[n] = o.to(dev), d.to(dev), (box.scene_lo, box.scene_hi)
+    return out
+
+
+def sort_mask(kind, n, dev):
+    """No mask, two thirds of the lanes parked (the NEE shadow rays' share:
+    every parked lane has one key), or every lane parked."""
+    if kind == "none":
+        return None
+    if kind == "all":
+        return torch.zeros(n, dtype=torch.bool, device=dev)
+    return torch.as_tensor(np.random.RandomState(n).rand(n) < 0.34, device=dev)
+
+
+@pytest.mark.parametrize("mask", ["none", "some", "all"])
+@pytest.mark.parametrize("n", SORT_COUNTS)
+def test_sort_rays_matches_plain(cuda, sort_inputs, n, mask):
+    """The radix sort (key, parking, stable sort and gather) at every
+    allowed (spatial bits, direction bits): perm equal to
+    torch.sort(key, stable=True).indices of the plain key, and the sorted
+    rays bit-equal to sort_rays_plain's; one launch up to 16,384 rays,
+    else one for the keys and one a digit pass (at most 5)."""
+    o, d, box = sort_inputs[n]
+    active = sort_mask(mask, n, cuda)
+    for bits in ALL_KEY_BITS:
+        (o_s, d_s, perm), launched = launch_delta(ray_sort.sort_rays, o, d, *box, *bits, active=active)
+        key = ray_sort.sort_key_plain(o, d, *box, *bits, active)
+        o_p, d_p, perm_p = ray_sort.sort_rays_plain(o, d, *box, *bits, active)
+        torch.cuda.synchronize()
+        want = ray_sort.sort_launches(n, *bits)
+        assert launched == (want, 0, 0), bits
+        assert want <= (1 if n <= ray_sort.SMALL_MAX else 5)
+        assert perm.dtype == torch.int64 and o_s.shape == (n, 3), bits
+        assert torch.equal(perm, torch.sort(key, stable=True).indices) and torch.equal(perm, perm_p), bits
+        assert same_bits(o_s, o_p) and same_bits(d_s, d_p), bits
+
+
+@pytest.mark.parametrize("n", [131_072, 345_600, 2_073_600])
+def test_sort_rays_replayed_past_the_tag_wrap(cuda, sort_inputs, n):
+    """Two sorts on one scratch (closest hit without a mask, shadow rays
+    with two thirds or one third parked, as an iteration under NEE makes
+    them), captured in one CUDA graph and replayed 1,100 times (8 digit
+    pass launches a replay, so the 127 tags of the status words wrap
+    every 16 replays, 69 times in all), at each tile the wrapper picks
+    over tiles (ray_sort.tile_items), the inputs changed between replays:
+    every checked replay bit-equal to the plain version, under
+    set_sync_debug_mode("error")."""
+    o, d, box = sort_inputs[n]
+    bits = (9, 4)  # 30-bit keys: 4 digit passes
+    masks = [sort_mask("some", n, cuda), ~sort_mask("some", n, cuda)]
+    src = [(o, d), (torch.flip(o, (0,)), torch.flip(d, (0,)))]
+    o_in, d_in, act_in = o.clone(), d.clone(), masks[0].clone()
+    ray_sort.sort_rays(o_in, d_in, *box, *bits)  # builds the library and the scratch outside the capture
+    ray_sort.sort_rays(o_in, d_in, *box, *bits, active=act_in)
     torch.cuda.synchronize()
-    assert launched == (0, (1 if n else 0), 0, 0)
-    assert same_bits(o_s, o_p) and same_bits(d_s, d_p)
-    if n > 1 and masked:
-        assert int(key.unique().numel()) > 8  # the spatial cells and directions spread the keys
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):  # as render/graph_loop.py captures
+        closest = ray_sort.sort_rays(o_in, d_in, *box, *bits)
+        shadow = ray_sort.sort_rays(o_in, d_in, *box, *bits, active=act_in)
+    checked = 0
+    for r in range(1100):
+        k = r % 2
+        o_in.copy_(src[k][0])
+        d_in.copy_(src[k][1])
+        act_in.copy_(masks[k])
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            graph.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if r < 32 or r % 97 == 0 or r >= 1090:
+            want_c = ray_sort.sort_rays_plain(*src[k], *box, *bits)
+            want_s = ray_sort.sort_rays_plain(*src[k], *box, *bits, masks[k])
+            torch.cuda.synchronize()
+            for got, want in ((closest, want_c), (shadow, want_s)):
+                assert all(same_bits(g, w) for g, w in zip(got, want)), r
+            checked += 1
+    assert checked > 40
+
+
+@pytest.mark.parametrize("items", ray_sort.TILE_ITEMS)
+@pytest.mark.parametrize("n", [16_385, 131_072, 345_600, 2_073_600])
+def test_sort_rays_every_tile_matches_plain(cuda, sort_inputs, n, items):
+    """The sort over each tile the kernel instantiates (256 threads x 4, 8
+    or 16 keys), whichever tile_items picks: 1 + 4 launches, perm and
+    rays bit-equal to sort_rays_plain's, with and without a mask."""
+    o, d, box = sort_inputs[n]
+    bits = (9, 4)  # 30-bit keys: 4 digit passes
+    for active in (None, sort_mask("some", n, cuda)):
+        before = ray_sort.sort_rays.launches
+        got = ray_sort.sort_rays_cuda(o, d, *box, *bits, active, items=items)
+        want = ray_sort.sort_rays_plain(o, d, *box, *bits, active)
+        torch.cuda.synchronize()
+        assert ray_sort.sort_rays.launches - before == 5
+        assert all(same_bits(g, w) for g, w in zip(got, want)), active is None
+
+
+@pytest.mark.parametrize("nee", [False, True], ids=["plain", "nee"])
+def test_headline_graphed_without_torch_sort(cuda, monkeypatch, nee):
+    """A graphed headline render (1920x1080, 10 spp, depth 8, the
+    three-spheres scene under the procedural sky), and its NEE variant,
+    with torch.sort and torch.argsort patched to raise: they finish, and
+    image, iterations, segments and shadow segments are bit-equal to the
+    same render under ops.cuda_build.plain() (where the plain sort runs
+    torch.sort)."""
+    from tpu_pathtracer_torch.render.envmap import with_importance_sampling
+    from tpu_pathtracer_torch.scene.scene import make_env
+    from tpu_pathtracer_torch.utils.image import procedural_hdr
+
+    sky = with_importance_sampling(make_env(procedural_hdr(256, 512), cuda))
+    scene = build_accel(procedural.three_spheres_scene(device=cuda).replace(env=sky), kind="cluster")
+    cfg = RenderConfig(width=1920, height=1080, samples_per_launch=10, max_depth=8, dof=False, env_mode="equirect",
+                       rr_mode="standard" if nee else "reference", env_importance_sampling=nee,
+                       intersector="cluster")
+    cam = camera_arrays(Camera(), cfg, cuda)
+    graph_loop.clear()
+    with cuda_build.plain():
+        render_frame_stats(scene, cam, cfg, 0)  # captures
+        img_p, st_p = render_frame_stats(scene, cam, cfg, 1)
+
+    def refuse(*args, **kw):
+        raise AssertionError("torch.sort or torch.argsort ran on the card's main path")
+
+    monkeypatch.setattr(torch, "sort", refuse)
+    monkeypatch.setattr(torch, "argsort", refuse)
+    before = ray_sort.sort_rays.launches
+    render_frame_stats(scene, cam, cfg, 0)  # captures
+    img, st = render_frame_stats(scene, cam, cfg, 1)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert st["graphed"] and st_p["graphed"]
+    assert ray_sort.sort_rays.launches > before
+    assert same_bits(img, img_p)
+    for k in ("iters", "segments", "shadow_segments"):
+        assert int(st[k]) == int(st_p[k]), k
+    assert (int(st["shadow_segments"]) > 0) == nee
 
 
 @pytest.mark.parametrize("sorted_", [True, False], ids=["perm", "identity"])
@@ -1501,7 +1624,7 @@ def test_restore_hits_matches_plain(cuda, n, any_hit, sorted_):
     want = ray_sort.restore_hits_plain(outputs, perm)
     torch.cuda.synchronize()
     # any-hit flags in caller order already are the answer: nothing to launch
-    assert launched == (0, 0, 1 if n and not (any_hit and perm is None) else 0, 0)
+    assert launched == (0, 1 if n and not (any_hit and perm is None) else 0, 0)
     if any_hit:
         assert torch.equal(got, want)
     else:
@@ -1520,7 +1643,7 @@ def test_packet_order_matches_plain(cuda, packets, ties):
     weights = torch.as_tensor(w, device=cuda)
     got, launched = launch_delta(ray_sort.packet_order, weights)
     torch.cuda.synchronize()
-    assert launched == (0, 0, 0, 1)
+    assert launched == (0, 0, 1)
     assert torch.equal(got, ray_sort.packet_order_plain(weights))
 
 
@@ -1533,8 +1656,9 @@ def test_cluster_accel_ray_order_on_card(cuda, monkeypatch, route, sort_rays, ma
     the traversal kernels in both): Hit and flags bit-equal on every
     route, sort on and off, with and without an active mask, at 131,072
     rays (128 packets or more: the packet order runs).  The kernels'
-    launches: key and gather once a sorted call, the restore once a call
-    (an unsorted any hit needs none), the packet order once a call."""
+    launches: the sort's (1 + its digit passes at this size) a sorted
+    call, the restore once a call (an unsorted any hit needs none), the
+    packet order once a call."""
     scene = graph_scene(route, False, cuda, monkeypatch)
     acc = scene.accel
     cfg = RenderConfig(**{**GRAPH_BASE, "sort_rays": sort_rays})
@@ -1552,6 +1676,9 @@ def test_cluster_accel_ray_order_on_card(cuda, monkeypatch, route, sort_rays, ma
         assert same_bits(getattr(hit, f), getattr(hit_p, f)), f
     assert torch.equal(occ, occ_p)
     assert int(hit.hit.sum()) > 10_000
-    assert n_hit == (int(sorted_), int(sorted_), 1, 1)
-    assert n_occ == (int(sorted_), int(sorted_), int(sorted_), 1)
-    assert n_hit_p == n_occ_p == (0, 0, 0, 0)
+    sorts = ray_sort.sort_launches(131_072, acc._spatial_bits(cfg) if sort_rays == "auto" else 0,
+                                   acc._dir_bits(cfg)) if sorted_ else 0
+    assert sorts in ((0,) if not sorted_ else (3, 5))  # octant keys: 9 bits, 2 passes; spatial: 30, 4
+    assert n_hit == (sorts, 1, 1)
+    assert n_occ == (sorts, int(sorted_), 1)
+    assert n_hit_p == n_occ_p == (0, 0, 0)

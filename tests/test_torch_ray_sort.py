@@ -80,7 +80,7 @@ def test_sort_key_matches_jax(scenes, spatial_bits, dir_bits, masked):
     o, d, active = random_rays(0, 5000)
     jo, jd = jax_park(j.accel, o, d, jnp.asarray(active)) if masked else (jnp.asarray(o), jnp.asarray(d))
     want = np.asarray(j_pallas.ray_sort_key(jo, jd, j.accel.scene_lo, j.accel.scene_hi, spatial_bits, dir_bits))
-    got = ray_sort.sort_key(torch.as_tensor(o), torch.as_tensor(d), t.accel.scene_lo, t.accel.scene_hi,
+    got = ray_sort.sort_key_plain(torch.as_tensor(o), torch.as_tensor(d), t.accel.scene_lo, t.accel.scene_hi,
                             spatial_bits, dir_bits, active=torch.as_tensor(active) if masked else None)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy().astype(np.int64), want.astype(np.int64))
@@ -99,7 +99,7 @@ def test_largest_key_fits_int32(scenes, spatial_bits):
     d = torch.ones((1, 3))
     for dir_bits in range(5):
         width = 3 + 3 * spatial_bits + 3 * ray_sort.key_dir_bits(spatial_bits, dir_bits)
-        got = int(ray_sort.sort_key(o, d, lo, hi, spatial_bits, dir_bits)[0])
+        got = int(ray_sort.sort_key_plain(o, d, lo, hi, spatial_bits, dir_bits)[0])
         want = int(j_pallas.ray_sort_key(jnp.asarray(o.numpy()), jnp.asarray(d.numpy()), j.accel.scene_lo,
                                          j.accel.scene_hi, spatial_bits, dir_bits)[0])
         assert got == want == (1 << width) - 1 and width <= 30
@@ -110,9 +110,10 @@ def test_largest_key_fits_int32(scenes, spatial_bits):
 @pytest.mark.parametrize("mode,spatial_bits,dir_bits", [("octant", 0, 2), ("spatial", 0, 0), ("spatial", 5, 3),
                                                         ("spatial", 9, 4)])
 def test_sorted_rays_match_jax_octant_sort(scenes, mode, spatial_bits, dir_bits, masked):
-    """ClusterAccel.sort (key, torch.sort on the int32 key, gather; the
-    parking with a mask) against the JAX accel's sort of the rays it parks
-    (octant_sort): the permutation and the sorted rays exactly."""
+    """ClusterAccel.sort (on the CPU sort_rays' plain version: the key,
+    torch.sort on the int32 key, the gather; the parking with a mask)
+    against the JAX accel's sort of the rays it parks (octant_sort): the
+    permutation and the sorted rays exactly."""
     j, t = scenes
     o, d, active = random_rays(1, 5000)
     kw = dict(sort_rays=mode, sort_spatial_bits=spatial_bits, sort_dir_bits=dir_bits)
@@ -121,6 +122,29 @@ def test_sorted_rays_match_jax_octant_sort(scenes, mode, spatial_bits, dir_bits,
     perm_j = np.argsort(np.asarray(restore_j(jnp.arange(5000))))  # restore gathers through the inverse
     o_t, d_t, perm = t.accel.sort(torch.as_tensor(o), torch.as_tensor(d), RenderConfig(**kw),
                                   active=torch.as_tensor(active) if masked else None)
+    np.testing.assert_array_equal(perm.numpy(), perm_j)
+    np.testing.assert_array_equal(o_t.numpy(), np.asarray(o_j))
+    np.testing.assert_array_equal(d_t.numpy(), np.asarray(d_j))
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all", "active"])
+@pytest.mark.parametrize("spatial_bits,dir_bits", KEY_BITS)
+def test_sort_rays_plain_matches_jax_sort_by_key(scenes, spatial_bits, dir_bits, masked):
+    """sort_rays_plain, the plain version the radix sort kernel is held to,
+    against JAX's sort_by_key (lax.sort_key_val) of ray_sort_key on the
+    rays JAX parks: the permutation and the sorted rays exactly, with
+    ties (the first 100 rays share one origin; parked lanes share one
+    key)."""
+    j, t = scenes
+    o, d, active = random_rays(6, 5000)
+    jo, jd = jax_park(j.accel, o, d, jnp.asarray(active)) if masked else (jnp.asarray(o), jnp.asarray(d))
+    key = j_pallas.ray_sort_key(jo, jd, j.accel.scene_lo, j.accel.scene_hi, spatial_bits, dir_bits)
+    o_j, d_j, restore_j = j_pallas.sort_by_key(jo, jd, key)
+    perm_j = np.argsort(np.asarray(restore_j(jnp.arange(5000))))
+    o_t, d_t, perm = ray_sort.sort_rays_plain(torch.as_tensor(o), torch.as_tensor(d), t.accel.scene_lo,
+                                              t.accel.scene_hi, spatial_bits, dir_bits,
+                                              torch.as_tensor(active) if masked else None)
+    assert perm.dtype == torch.int64
     np.testing.assert_array_equal(perm.numpy(), perm_j)
     np.testing.assert_array_equal(o_t.numpy(), np.asarray(o_j))
     np.testing.assert_array_equal(d_t.numpy(), np.asarray(d_j))
@@ -164,7 +188,7 @@ def test_restore_hits_matches_jax(scenes, any_hit, sorted_):
     _, _, restore_j = j_pallas.sort_by_key(jnp.asarray(o), jnp.asarray(d), key)
     perm = None
     if sorted_:
-        perm = torch.sort(ray_sort.sort_key(torch.as_tensor(o), torch.as_tensor(d), t.accel.scene_lo,
+        perm = torch.sort(ray_sort.sort_key_plain(torch.as_tensor(o), torch.as_tensor(d), t.accel.scene_lo,
                                             t.accel.scene_hi, 7, 2), stable=True).indices
     if any_hit:
         want = np.asarray(restore_j(jnp.asarray(occ))) if sorted_ else occ
@@ -232,14 +256,23 @@ def test_cluster_accel_occluded_masked_matches_jax(request, monkeypatch, which, 
         assert 100 < got[active].sum() < active.sum() - 100
 
 
-@pytest.mark.parametrize("kernel", ["sort_key", "gather_rays", "restore_hits", "packet_order"])
+@pytest.mark.parametrize("kernel", ["sort_rays", "sort_rays_masked", "restore_hits", "packet_order"])
 def test_cuda_entries_refuse_cpu_tensors(kernel):
     """No ray-order kernel entry falls back to its plain version."""
     o, d = torch.zeros((4, 3)), torch.ones((4, 3))
     perm = torch.arange(4)
-    call = dict(sort_key=lambda: ray_sort.sort_key_cuda(o, d, o[0], d[0], 7, 2),
-                gather_rays=lambda: ray_sort.gather_rays_cuda(o, d, perm),
+    call = dict(sort_rays=lambda: ray_sort.sort_rays_cuda(o, d, o[0], d[0], 7, 2),
+                sort_rays_masked=lambda: ray_sort.sort_rays_cuda(o, d, o[0], d[0], 0, 2, torch.ones(4, dtype=bool)),
                 restore_hits=lambda: ray_sort.restore_hits_cuda((o[:, 0], perm.int(), o[:, :2]), perm),
                 packet_order=lambda: ray_sort.packet_order_cuda(perm.int()))[kernel]
     with pytest.raises(ValueError, match="CUDA"):
         call()
+
+
+def test_sort_rays_refuses_more_rays_than_a_status_word_counts():
+    """The sort kernel's 32-bit status words count up to 2^23 - 1 keys:
+    the entry refuses a larger batch before it touches a device."""
+    n = ray_sort.MAX_RAYS + 1
+    o = torch.zeros((1, 3)).expand(n, 3)
+    with pytest.raises(ValueError, match="at most"):
+        ray_sort.sort_rays_cuda(o, o, o[0], o[0], 7, 2)

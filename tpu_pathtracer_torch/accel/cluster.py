@@ -28,7 +28,7 @@ from tpu_pathtracer_torch.ops.intersect_cluster import (
     occluded_clusters_streamed,
     streamed_pads,
 )
-from tpu_pathtracer_torch.ops.ray_sort import gather_rays, restore_hits, sort_key
+from tpu_pathtracer_torch.ops.ray_sort import restore_hits, sort_rays
 
 # Scenes with more rows than this take the streamed kernel; at or below
 # it, the two-level kernel from cfg.hier_min_clusters clusters up and the
@@ -105,16 +105,14 @@ class ClusterAccel:
         1, pointing +x, so they overlap no box and, sharing one sort key,
         fill packets of their own.  Unsorted, parked lanes would sit in
         every packet and block its all-occluded exit while compacting
-        nothing.  The key, the gather and the parking are kernels on the
-        card (ops.ray_sort); the sort is torch.sort on the int32 key."""
+        nothing.  On the card the key, the parking, the stable sort and
+        the gather are one hand-written radix sort (ops.ray_sort.sort_rays)."""
         mode = self._want_sort(cfg)
         if not mode:
             return origins, directions, None
-        box = self.scene_lo, self.scene_hi
-        key = sort_key(origins, directions, *box, spatial_bits=self._spatial_bits(cfg) if mode == "spatial" else 0,
-                       dir_bits=self._dir_bits(cfg), active=active)
-        perm = torch.sort(key, stable=True).indices
-        return (*gather_rays(origins, directions, perm, active, *box), perm)
+        return sort_rays(origins, directions, self.scene_lo, self.scene_hi,
+                         spatial_bits=self._spatial_bits(cfg) if mode == "spatial" else 0,
+                         dir_bits=self._dir_bits(cfg), active=active)
 
     def traversal(self, origins, directions, t_min, t_max, cfg):
         """(route, arguments of the route's wrapper in

@@ -78,10 +78,12 @@ LAUNCHERS = {
     "bounce.cu": ("bounce_launch", [_P, _I, _P]),
     "nee.cu": ("nee_launch", [_P, _P]),
     "camera.cu": ("camera_launch", [_P, _P]),
-    # origins, directions, scene lo, hi, active (or null), n, spatial bits,
-    # direction bits, key out, stream; the gather, restore and packet order
+    # the sort: origins, directions, scene lo, hi, active (or null), n,
+    # spatial bits, direction bits, digit passes, key and index scratch
+    # (null up to 16,384 rays), the status scratch, tiles, origins out,
+    # directions out, perm out, stream; the restore and the packet order
     # are HELPERS of the same library
-    "ray_sort.cu": ("ray_sort_key_launch", [_P] * 5 + [_I] * 3 + [_P] * 2),
+    "ray_sort.cu": ("ray_sort_rays_launch", [_P] * 5 + [_I] * 4 + [_P] * 3 + [_I] * 2 + [_P] * 4),
 }
 # source: {another function of its library: the function's argument types}.
 # The traversal kernels (flat, hier and streamed) have a packet-weight
@@ -102,13 +104,10 @@ HELPERS = {
 HELPERS.update({f"{stem}.cu": {f"{stem}_params_size": []}
                 for stem in ("bounce", "nee", "camera", "fused_schedule")})
 HELPERS["bounce.cu"]["shade_math_probe"] = [_P] * 3 + [_I] * 2 + [_F] + [_P]
-# The ray ordering's other kernels: the gather (origins, directions, perm,
-# active, lo, hi, n, origins out, directions out, stream), the restore
-# (perm, t, prim, uv, occluded, n, t out, prim out, bary out, hit out,
-# occluded out, stream) and the packet order (weights, packets, order out,
-# stream).
+# The ray ordering's other kernels: the restore (perm, t, prim, uv,
+# occluded, n, t out, prim out, bary out, hit out, occluded out, stream)
+# and the packet order (weights, packets, order out, stream).
 HELPERS["ray_sort.cu"] = {
-    "ray_sort_gather_launch": [_P] * 6 + [_I] + [_P] * 3,
     "ray_sort_restore_launch": [_P] * 5 + [_I] + [_P] * 6,
     "ray_sort_order_launch": [_P] + [_I] + [_P] * 2,
 }

@@ -1,36 +1,40 @@
-"""The traversal's ray ordering: the coherence-sort key, the gather of the
-rays into key order, the restore of the traversal's outputs into caller
-order, and the order in which a traversal kernel takes its packets.
+"""The traversal's ray ordering: the coherence sort of the rays (the key,
+the stable sort, the gather into key order), the restore of the
+traversal's outputs into caller order, and the order in which a
+traversal kernel takes its packets.
 
 Counterpart of `ray_sort_key` and `sort_by_key` (with `octant_sort`) in
 `tpu_pathtracer/ops/intersect_pallas.py`, and of the parking and the
 packed restore around the Pallas kernels in
 `tpu_pathtracer/accel/cluster.py` (`ClusterAccel.intersect`,
 `occluded`).  None of it is a TPU kernel: XLA fuses it inside the JAX
-package's jitted loop.  On the card it runs as four kernels of
-`csrc/ray_sort.cu`, each with its plain version here:
+package's jitted loop, and leaves the sort to `lax.sort_key_val`.  On the
+card it runs as the kernels of `csrc/ray_sort.cu`, each with its plain
+version here:
 
-* `sort_key`: the int32 key of `ray_sort_key`, with the lanes outside an
-  `active` mask parked first (`park`);
-* `gather_rays`: the rays in the order of a permutation (parked the same
-  way where a mask is given);
+* `sort_rays`: the rays in the stable ascending order of the int32 key of
+  `ray_sort_key` (the lanes outside an `active` mask parked first,
+  `park`), and the permutation: a hand-written LSD radix sort that
+  computes the keys in its first launch and gathers the rays in its last
+  pass (one launch up to `SMALL_MAX` rays, else 1 + `digit_passes`);
 * `restore_hits`: the traversal's outputs in caller order, as a `Hit` (or
   the any-hit flags);
 * `packet_order`: the heaviest-first order of a traversal's packets.
 
-The sort between the key and the gather stays `torch.sort(key,
-stable=True)`, a library sort, as the JAX package leaves it to
-`lax.sort_key_val`.  The key's value needs at most 30 bits (3 octant bits,
-up to 9 spatial bits a axis, direction bits clamped to what is left of
-32), so it is an int32, sorted in half the radix passes of an int64.
+The key's value needs at most 30 bits (3 octant bits, up to 9 spatial
+bits a axis, direction bits clamped to what is left of 32), so the sort
+takes ceil(width / 8) passes of 8-bit digits over the width the host
+derives from the bit counts (`key_width`).
 
 Each wrapper launches its kernel for tensors on a CUDA device outside
 `ops.cuda_build.plain()` (the A/B switch) and runs its plain version on
-the CPU and under `plain()`; a failed build or launch raises.  Each counts its launches in `.launches`
+the CPU and under `plain()`; a failed build or launch raises.  Each counts its kernel launches in `.launches`
 (`render/graph_loop.COUNTED`).  None reads the device from the host.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -40,6 +44,19 @@ from tpu_pathtracer_torch.utils.device import constant
 
 # The traversal kernels' miss marker in `prim`; `Hit.prim` is -1 there.
 MISS_PRIM = 0x7FFFFFFF
+# The radix sort (csrc/ray_sort.cu): digits of RADIX_BITS bits; up to
+# SMALL_MAX rays in one launch (a thread block cluster of tiles of 2,048
+# keys), more over tiles of TILE_THREADS x `tile_items(n)` keys.
+RADIX_BITS = 8
+SMALL_MAX = 16_384
+TILE_THREADS = 256
+TILE_ITEMS = (4, 8, 16)  # the keys a thread that csrc/ray_sort.cu instantiates
+RADIX = 1 << RADIX_BITS
+# The sort's scratch before its status words (64-bit words): a ticket and
+# an arrival counter, four passes' digit counts and digit starts.
+STATUS_OFFSET = 2 + 2 * 4 * RADIX
+# A 32-bit status word counts up to 2^23 - 1 keys.
+MAX_RAYS = (1 << 23) - 1
 
 
 # ---------------------------------------------------------------------------
@@ -59,6 +76,33 @@ def _part1by2(v: torch.Tensor) -> torch.Tensor:
 def key_dir_bits(spatial_bits: int, dir_bits: int) -> int:
     """`dir_bits` clamped so the key fits 32 bits."""
     return min(dir_bits, max(0, (32 - 3 - 3 * spatial_bits) // 3))
+
+
+def key_width(spatial_bits: int, dir_bits: int) -> int:
+    """Bits of the key's value: the octant, the spatial cell, the
+    direction bits as clamped."""
+    return 3 + 3 * spatial_bits + 3 * key_dir_bits(spatial_bits, dir_bits)
+
+
+def digit_passes(spatial_bits: int, dir_bits: int) -> int:
+    """Passes of the radix sort over a key of that width."""
+    return -(-key_width(spatial_bits, dir_bits) // RADIX_BITS)
+
+
+def tile_items(n: int) -> int:
+    """Keys a thread of the sort over tiles of n > SMALL_MAX rays: tiles of
+    1,024 keys up to 2^20 rays (the stream pools of 131,072 and a 1-spp
+    tile's 345,600), of 4,096 above (the one-lane-a-pixel pool's
+    2,073,600), the fastest on the main path's rays of each pool
+    (`sweep_ray_sort.py`; PERF.md §6)."""
+    return 4 if n <= 1 << 20 else 16
+
+
+def sort_launches(n: int, spatial_bits: int, dir_bits: int) -> int:
+    """Kernel launches of one sort of n rays on the card."""
+    if n == 0:
+        return 0
+    return 1 if n <= SMALL_MAX else 1 + digit_passes(spatial_bits, dir_bits)
 
 
 def ray_sort_key(origins, directions, scene_lo=None, scene_hi=None, spatial_bits: int = 0,
@@ -120,6 +164,12 @@ def gather_rays_plain(origins, directions, perm, active=None, scene_lo=None, sce
     return origins[perm], directions[perm]
 
 
+def sort_rays_plain(origins, directions, scene_lo, scene_hi, spatial_bits: int, dir_bits: int, active=None):
+    key = sort_key_plain(origins, directions, scene_lo, scene_hi, spatial_bits, dir_bits, active)
+    perm = torch.sort(key, stable=True).indices
+    return (*gather_rays_plain(origins, directions, perm, active, scene_lo, scene_hi), perm)
+
+
 def restore_hits_plain(outputs, perm):
     if isinstance(outputs, torch.Tensor):
         return outputs if perm is None else restore(outputs, perm)
@@ -151,34 +201,46 @@ def _box(scene_lo, scene_hi, dev):
             kernel_arg("scene_hi", scene_hi, torch.float32, (3,), dev))
 
 
-def sort_key_cuda(origins, directions, scene_lo, scene_hi, spatial_bits: int, dir_bits: int, active=None):
+@functools.lru_cache(maxsize=None)
+def _scratch(device: torch.device, tiles: int) -> torch.Tensor:
+    """The sort's scratch for launches over `tiles` tiles on `device`: a
+    ticket and an arrival counter, the digit counts and starts, then a
+    32-bit status word a tile a digit.  Zeroed once here and never again: a pass
+    tags its status words with its own number, read off the ticket
+    counter, and the key launch's last block sets the counts back to 0
+    (csrc/ray_sort.cu).  Sorts that share one run one at a time, on one
+    stream."""
+    return torch.zeros(STATUS_OFFSET + tiles * RADIX // 2, dtype=torch.int64, device=device)
+
+
+def sort_rays_cuda(origins, directions, scene_lo, scene_hi, spatial_bits: int, dir_bits: int, active=None,
+                   items=None):
+    """`items`: keys a thread over tiles (one of TILE_ITEMS), in place of
+    `tile_items(n)`, to compare tile sizes."""
     dev, n = origins.device, origins.shape[0]
     if not 0 <= spatial_bits <= 9 or dir_bits < 0:
         raise ValueError(f"no sort key of {spatial_bits} spatial and {dir_bits} direction bits")
+    if n > MAX_RAYS:
+        raise ValueError(f"the sort kernel takes at most {MAX_RAYS} rays, got {n}")
     o = kernel_arg("origins", origins, torch.float32, (n, 3), dev)
     d = kernel_arg("directions", directions, torch.float32, (n, 3), dev)
     lo, hi = _box(scene_lo, scene_hi, dev) if spatial_bits or active is not None else (None, None)
     act = None if active is None else kernel_arg("active", active, torch.bool, (n,), dev)
-    key = torch.empty(n, dtype=torch.int32, device=dev)
+    out = (torch.empty((n, 3), dtype=torch.float32, device=dev), torch.empty((n, 3), dtype=torch.float32, device=dev),
+           torch.empty(n, dtype=torch.int64, device=dev))
     if n:
-        _launch("ray_sort_key_launch", o.data_ptr(), d.data_ptr(), _ptr(lo), _ptr(hi), _ptr(act), n, spatial_bits,
-                key_dir_bits(spatial_bits, dir_bits), key.data_ptr(), dev=dev)
-        sort_key.launches += 1
-    return key
-
-
-def gather_rays_cuda(origins, directions, perm, active=None, scene_lo=None, scene_hi=None):
-    dev, n = origins.device, origins.shape[0]
-    o = kernel_arg("origins", origins, torch.float32, (n, 3), dev)
-    d = kernel_arg("directions", directions, torch.float32, (n, 3), dev)
-    p = kernel_arg("perm", perm, torch.int64, (n,), dev)
-    lo, hi = (None, None) if active is None else _box(scene_lo, scene_hi, dev)
-    act = None if active is None else kernel_arg("active", active, torch.bool, (n,), dev)
-    out = torch.empty((n, 3), dtype=torch.float32, device=dev), torch.empty((n, 3), dtype=torch.float32, device=dev)
-    if n:
-        _launch("ray_sort_gather_launch", o.data_ptr(), d.data_ptr(), p.data_ptr(), _ptr(act), _ptr(lo), _ptr(hi), n,
-                out[0].data_ptr(), out[1].data_ptr(), dev=dev)
-        gather_rays.launches += 1
+        keys = idx = scratch = None
+        tiles = 0
+        if n > SMALL_MAX:
+            items = items or tile_items(n)
+            tiles = -(-n // (TILE_THREADS * items))
+            keys, idx = torch.empty((2, 2 * n), dtype=torch.int32, device=dev)
+            scratch = _scratch(dev, tiles)
+        db = key_dir_bits(spatial_bits, dir_bits)
+        _launch("ray_sort_rays_launch", o.data_ptr(), d.data_ptr(), _ptr(lo), _ptr(hi), _ptr(act), n, spatial_bits,
+                db, digit_passes(spatial_bits, dir_bits), _ptr(keys), _ptr(idx), _ptr(scratch), tiles,
+                items if tiles else 0, *(x.data_ptr() for x in out), dev=dev)
+        sort_rays.launches += sort_launches(n, spatial_bits, dir_bits)
     return out
 
 
@@ -219,19 +281,14 @@ def packet_order_cuda(weights):
 # Wrappers
 # ---------------------------------------------------------------------------
 
-def sort_key(origins, directions, scene_lo, scene_hi, spatial_bits: int, dir_bits: int, active=None):
-    """[N] int32 sort key of the rays (`ray_sort_key`), the lanes outside
-    `active` parked first (`park`).  The scene box is [3] float32 device
-    tensors, read on the device."""
-    fn = sort_key_cuda if on_card(origins.device) else sort_key_plain
+def sort_rays(origins, directions, scene_lo, scene_hi, spatial_bits: int, dir_bits: int, active=None):
+    """(origins_s, directions_s, perm): the rays in the stable ascending
+    order of their int32 sort key (`ray_sort_key`), the lanes outside
+    `active` parked first (`park`), as new [N,3] tensors, and perm the
+    [N] int64 permutation (row i is ray perm[i]).  The scene box is [3]
+    float32 device tensors, read on the device."""
+    fn = sort_rays_cuda if on_card(origins.device) else sort_rays_plain
     return fn(origins, directions, scene_lo, scene_hi, spatial_bits, dir_bits, active)
-
-
-def gather_rays(origins, directions, perm, active=None, scene_lo=None, scene_hi=None):
-    """(origins[perm], directions[perm]) as new [N,3] tensors, the lanes
-    outside `active` parked as `sort_key` parks them."""
-    fn = gather_rays_cuda if on_card(origins.device) else gather_rays_plain
-    return fn(origins, directions, perm, active, scene_lo, scene_hi)
 
 
 def restore_hits(outputs, perm):
@@ -250,7 +307,6 @@ def packet_order(weights):
 
 
 # Kernel launches since each count was last set to 0.
-sort_key.launches = 0
-gather_rays.launches = 0
+sort_rays.launches = 0
 restore_hits.launches = 0
 packet_order.launches = 0
