@@ -174,13 +174,23 @@ Phases, each printing one line (any failure exits non-zero):
     seconds and graph pool bytes; then each of them graphed with the
     shading kernels' plain versions (ops.cuda_build.plain()) and with the
     kernels: bit-equal, s/launch, device kernels per iteration, device
-    time by kernel family, graph pool bytes (kernels_ab);
+    time by kernel family, graph pool bytes (kernels_ab), the plain arm
+    launching no shading or ray-order kernel, the kernels' arm no restore
+    kernel (its profile's device events) and the traversal's caller-order
+    store in its place; each profile traced as `trace` traces (a margin
+    at each end, a spin kernel first), once a frame, whether it is
+    complete printed;
 35. the bounce kernel (csrc/bounce.cu: the miss program, _shade and the
     payload combine; under NEE the light draw, the shadow candidates and
-    the NEE record) against _bounce_plain on the headline's 131,072 and
-    16,384 lanes (phase 3's rays), the hero stand-in's (textures, glass,
-    DOF), config 4 with NEE and the headline with NEE, MIS-spec and the
-    defensive mixture: every field bit-equal; ms, plain ms, bound;
+    the NEE record) against _bounce_plain on two sets of lanes at 131,072
+    and 16,384 (bounce_lane_sets): the headline's camera rays and their
+    first bounces (phase 3's rays), and the headline's pool in the middle
+    of a frame, and config 1's; then the hero stand-in's (textures,
+    glass, DOF), config 4 with NEE and the headline with NEE, MIS-spec and
+    the defensive mixture: every field bit-equal; ms, plain ms, bound,
+    the share of hits and of warps that mix hits and misses; first the
+    kernel's registers, local memory and blocks an SM
+    (cudaFuncGetAttributes) and nvcc's spills;
 36. the NEE kernel (csrc/nee.cu) against _nee_weights and the visible
     select after the any-hit traversal, on the headline, config 4 and the
     headline with MIS-spec and the defensive mixture: radiance and
@@ -193,14 +203,18 @@ Phases, each printing one line (any failure exits non-zero):
     function (bounce_bytes, nee_bytes), so that ms and bound are both HBM
     numbers;
 38. the ray ordering (csrc/ray_sort.cu: the radix sort of the rays with
-    the key and the shadow rays' parking, the restore into a Hit or the
-    any-hit flags, the packet order) against its plain versions on the
+    the key and the shadow rays' parking, the packet order; the restore
+    into a Hit or the any-hit flags, which the traversal kernels do in
+    their store through perm) against its plain versions on the
     main path's rays in lane order: config 1's 16,384, the headline's
     131,072 and its shadow rays (a mask), config 4's and its shadow rays,
     a 1-spp tile's 345,600, and the one-lane-a-pixel pool's 2,073,600 of
     the headline (phase 22's render, 2,025 packets) and of config 4
     (4,050 packets): every output bit-equal, perm equal to torch.sort's
-    stable permutation of the key; each kernel's ms with the L2 flushed,
+    stable permutation of the key; each kernel's ms with the L2 flushed
+    (the restore's: the traversal with perm less the traversal alone, the
+    median of six paired rounds of turns, with its quartiles and whether
+    they resolve it; bound: the perm read and the hit byte the store adds),
     plain ms, bound (bytes by lane class) and the PyTorch call that
     computes the same function (torch.sort of the int32 key for the
     sort, index_put_, argsort); the sort's and torch.sort's device ms and
@@ -219,7 +233,8 @@ an iteration (STEP_KERNEL): kernel 7 on every stream, fused or not, the
 path step on render_rays and render_pixels_regen; every sorted trace
 runs the ray-order kernels (check_ray_order: the sort's launches for the
 trace's pool, trace_sort_launches, 1 to 5 where pools mix, and the
-restore once; the packet order where the pool has more packets than the
+restore, the traversal's caller-order store, once; the packet order
+where the pool has more packets than the
 card holds at once); the unit-ball
 sampler's loop runs inside the bounce kernel, so the sampler launches only on the plain versions' path
 (phase 34's plain arm, whose count the kernels line gives it).
@@ -240,6 +255,7 @@ import io
 import json
 import math
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -262,6 +278,7 @@ try:
     from tpu_pathtracer_torch.ops import intersect_cluster as ic
     from tpu_pathtracer_torch.ops import ray_sort
     from tpu_pathtracer_torch.ops import unit_sphere
+    from tpu_pathtracer_torch.ops.intersect import Hit
     from tpu_pathtracer_torch.render.camera import Camera, camera_arrays, generate_camera_rays
     from tpu_pathtracer_torch.render import graph_loop
     from tpu_pathtracer_torch.render.envmap import direction_to_uv, with_importance_sampling
@@ -360,8 +377,12 @@ KERNELS = {
     # launch it names, in place of an argsort.
     "kx": ("sort_rays", RAY_SORT, f"{PALLAS}:1392", None, False, ray_sort.sort_rays, ray_sort.sort_rays_cuda,
            ray_sort.sort_rays_plain),
-    "kr": ("restore_hits", RAY_SORT, "tpu_pathtracer/accel/cluster.py:294", None, False, ray_sort.restore_hits,
-           ray_sort.restore_hits_cuda, ray_sort.restore_hits_plain),
+    # The restore into caller order is the traversal kernels' store (a
+    # wrapper's restore=True, through perm): no launch of its own, its
+    # count the launches that stored so, its time what they add.
+    "kr": ("caller_order_store", "tpu_pathtracer_torch/csrc/cluster_streamed.cuh",
+           "tpu_pathtracer/accel/cluster.py:294", None, False, ic.caller_order_stores, None,
+           ray_sort.restore_hits_plain),
     "ko": ("packet_order", RAY_SORT, f"{PALLAS}:1512", None, False, ray_sort.packet_order,
            ray_sort.packet_order_cuda, ray_sort.packet_order_plain),
 }
@@ -375,8 +396,8 @@ STEP_KERNEL = {"stream_fused": "k7", "stream": "k7", "regen": "kp", "rays": "kp"
 
 # The ray ordering's kernels (ops/ray_sort.py): on every sorted trace the
 # sort (1 launch up to 16,384 rays, else 1 + its digit passes, at most 5)
-# and the restore; the packet order on every trace with more packets than
-# the card holds at once.
+# and the restore, in the traversal's store; the packet order on every
+# trace with more packets than the card holds at once.
 RAY_ORDER = ("kx", "kr", "ko")
 
 
@@ -396,8 +417,8 @@ def trace_sort_launches(scene, cfg, sched):
 
 
 def check_ray_order(label, counts, traces, sort_each=None):
-    """The ray-order kernels on `traces` sorted traces: the restore once
-    each; the sort's launches `sort_each` each (trace_sort_launches) or,
+    """The ray-order kernels on `traces` sorted traces: the restore (the
+    traversal's caller-order store) once each; the sort's launches `sort_each` each (trace_sort_launches) or,
     where traces of more than one size mix (sort_each None), 1 to 5 each;
     the packet order on each of them or, where `sort_each` is given (one
     pool size), on each or none (its packets fit the card at once or do
@@ -443,6 +464,7 @@ CONFIG1 = dict(width=512, height=512, samples_per_launch=64, max_depth=8, dof=Fa
                rr_mode="reference", intersector="cluster")
 CAMERA_RAYS = 65536  # and as many first bounces: 131,072 rays per kernel phase
 CONFIG1_CAMERA_RAYS = 8192  # config 1's pool of 16,384 lanes
+CONFIG1_POOL = 2 * CONFIG1_CAMERA_RAYS
 REGEN_POOL = 2_073_600  # one lane a pixel at 1080p (phase 22's render_pixels_regen)
 # Bounds (H100 SXM data sheet, at the 700 W limit): float32 outside the
 # tensor cores, and device memory.
@@ -1851,8 +1873,7 @@ def phase_viewer(label, paths, smi):
 # 7 and the path step), the unit-ball sampler, and the shading kernels:
 # the bounce kernel (and its deferred entry point), the NEE kernel and the
 # camera kernel; and the ray ordering around the traversal.
-RAY_ORDER_FUNCTIONS = ("sort_cluster_kernel", "sort_keys_kernel", "sort_pass_kernel", "restore_hits_kernel",
-                       "packet_order_kernel")
+RAY_ORDER_FUNCTIONS = ("sort_cluster_kernel", "sort_keys_kernel", "sort_pass_kernel", "packet_order_kernel")
 DEVICE_FUNCTIONS = ("streamed_kernel", "packet_weight_kernel", "fused_step_kernel", "path_step_kernel",
                     "unit_sphere_kernel", "bounce_kernel", "shade_lanes_kernel", "nee_kernel",
                     "camera_kernel") + RAY_ORDER_FUNCTIONS
@@ -1879,29 +1900,73 @@ def kernel_label(key):
     return name
 
 
-def device_events(prof):
-    """{name: [count, device seconds]} over the device's events in a
-    profile: kernels, copies and memsets."""
+# Host seconds a profile's window holds before the first launch and after
+# the card is done.  The trace keeps only device events whose times, moved
+# onto the host's clock, fall inside its window, and the move can be off by
+# milliseconds (kernels traced before the host call that launched them:
+# _profiled's `lead_ms`, PERF.md): without the margin a trace loses its
+# first kernels, or all of them.
+PROFILE_MARGIN_S = 0.02
+
+
+def trace(run, retakes=2):
+    """run() under torch.profiler (CUDA activity), as every trace here is
+    taken: PROFILE_MARGIN_S of host time in the window before the first
+    launch and after the card is done, a throwaway spin kernel first (a
+    trace's first kernel can go untraced, PERF.md §6), and the trace taken
+    again, up to `retakes` times, while some host launch after the spin
+    has no device event.  Returns a dict: `out` (run()'s result), `wall`
+    (its seconds, to the card done), `device` (the device events but the
+    spin's: kernels, copies, memsets), `launches` (the host's kernel and
+    graph launch calls after the spin), `complete` (every one of them has
+    a device event), `retakes` (short traces before it), `spin_lost`
+    (traces whose spin went untraced) and `lead_ms` (the most that a
+    kernel's traced start came before the host call that launched it: the
+    trace's clock error)."""
     cuda = torch.autograd.DeviceType.CUDA
+    spin_lost = 0
+    for k in range(retakes + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_MARGIN_S)
+            torch.cuda._sleep(1000)
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            time.sleep(PROFILE_MARGIN_S)
+        events = list(prof.profiler.kineto_results.events())
+        launches = sorted((e for e in events
+                           if e.device_type() != cuda and e.name().startswith("cu") and "Launch" in e.name()),
+                          key=lambda e: e.start_ns())
+        spin = launches[0].correlation_id() if launches else None
+        device = [e for e in events if e.device_type() == cuda and e.correlation_id() != spin]
+        started = {}
+        for e in device:  # a graph launch's kernels share its correlation id
+            started[e.correlation_id()] = min(e.start_ns(), started.get(e.correlation_id(), e.start_ns()))
+        spin_lost += len(device) == sum(e.device_type() == cuda for e in events)
+        complete = bool(device) and all(e.correlation_id() in started for e in launches[1:])
+        if complete or k == retakes:
+            lead = max([0, *(e.start_ns() - started[e.correlation_id()] for e in launches[1:]
+                             if e.correlation_id() in started)])
+            return dict(out=out, wall=wall, device=device, launches=launches[1:], complete=complete, retakes=k,
+                        spin_lost=spin_lost, lead_ms=lead / 1e6)
+
+
+def device_events(t):
+    """{name: [count, device seconds]} over a trace's device events
+    (`trace`): kernels, copies and memsets."""
     table = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == cuda:
-            row = table.setdefault(e.name(), [0, 0.0])
-            row[0] += 1
-            row[1] += e.duration_ns() / 1e9
+    for e in t["device"]:
+        row = table.setdefault(e.name(), [0, 0.0])
+        row[0] += 1
+        row[1] += e.duration_ns() / 1e9
     return table
 
 
-def launch_calls(prof):
-    """{name: count} of the host's CUDA API calls in a
-    profile that launch work on the device: kernel launches and graph
-    launches."""
-    cuda = torch.autograd.DeviceType.CUDA
-    calls = collections.Counter()
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() != cuda and e.name().startswith("cu") and "Launch" in e.name():
-            calls[e.name()] += 1
-    return calls
+def launch_calls(t):
+    """{name: count} of a trace's host calls that launch work on the
+    device: kernel launches and graph launches."""
+    return collections.Counter(e.name() for e in t["launches"])
 
 
 def arm(eager=False, plain=False):
@@ -1925,20 +1990,19 @@ def frame(scene, cam, cfg, subframe, eager, plain=False):
     return time.perf_counter() - t0, img, stats
 
 
-def profiled(scene, cam, cfg, subframe, eager, plain=False, events_out=None):
-    """One frame under the profiler: (wall, device busy, device kernels,
-    host launch calls {name: count}, stats); `events_out`, a dict, gets
-    the device events {name: [count, seconds]}."""
-    with profile(activities=[ProfilerActivity.CUDA]) as prof, arm(eager, plain):
-        t0 = time.perf_counter()
-        _, stats = render_frame_stats(scene, cam, cfg, subframe)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = device_events(prof)
+def profiled(scene, cam, cfg, subframe, eager, plain=False, events_out=None, retakes=2):
+    """One frame under the profiler, traced as `trace` traces (its margin,
+    its spin, up to `retakes` retakes): (wall, device busy, device kernels,
+    host launch calls {name: count}, stats, the trace's `complete`,
+    `retakes` and `lead_ms`); `events_out`, a dict, gets the device events
+    {name: [count, seconds]}."""
+    with arm(eager, plain):
+        t = trace(lambda: render_frame_stats(scene, cam, cfg, subframe)[1], retakes)
+    events = device_events(t)
     if events_out is not None:
         events_out.update(events)
-    return (wall, sum(s for _, s in events.values()), sum(c for c, _ in events.values()), launch_calls(prof),
-            stats)
+    return (t["wall"], sum(s for _, s in events.values()), sum(c for c, _ in events.values()), launch_calls(t),
+            t["out"], {k: t[k] for k in ("complete", "retakes", "lead_ms")})
 
 
 def family(key):
@@ -1946,7 +2010,7 @@ def family(key):
     return next((f for f, names in FAMILIES.items() if any(n in key for n in names)), "rest")
 
 
-def kernels_ab(label, scene, cam, cfg, smi, frames=1, order=(True, False, False, True)):
+def kernels_ab(label, scene, cam, cfg, smi, frames=1, order=(True, False, False, True), retakes=2):
     """The shading kernels against their plain versions (ops.cuda_build.plain())
     on one render, both graphed: each arm's first frame at subframe 0
     captures (the pool's bytes of the arm's plans), then `frames` frames
@@ -1982,7 +2046,8 @@ def kernels_ab(label, scene, cam, cfg, smi, frames=1, order=(True, False, False,
     parts = []
     for name, row in out.items():
         events = {}
-        wall, busy, kernels, _, st = profiled(scene, cam, cfg, 1, False, plain=name == "plain", events_out=events)
+        wall, busy, kernels, _, st, tr = profiled(scene, cam, cfg, 1, False, plain=name == "plain", events_out=events,
+                                                  retakes=retakes)
         iters = st["iters"]
         split = collections.Counter()
         for key, (_, sec) in events.items():
@@ -1990,12 +2055,13 @@ def kernels_ab(label, scene, cam, cfg, smi, frames=1, order=(True, False, False,
         rest = sorted(((sec, c, key) for key, (c, sec) in events.items() if family(key) == "rest"), reverse=True)[:4]
         mean = sum(row["times"]) / len(row["times"])
         row.update(seconds=mean, busy=busy, idle=1 - busy / mean, kernels=kernels / iters, iters=iters,
-                   split={f: sec / iters for f, sec in split.items()})
+                   split={f: sec / iters for f, sec in split.items()}, events=events)
         parts.append(
             f"{name}: s/launch {' '.join(f'{t:.4f}' for t in row['times'])} (mean {mean:.4f}), first frame "
             f"{row['first']:.4f} s, graph pool {row['pool_bytes']} bytes; profiled wall {wall:.4f} s, device busy "
             f"{busy:.4f} s, idle share of the mean s/launch {row['idle']:.2%}, {row['kernels']:.1f} device kernels per "
-            f"iteration; device ms per iteration: "
+            f"iteration (trace {'complete' if tr['complete'] else 'INCOMPLETE'} after {tr['retakes']} retakes, "
+            f"clock lead {tr['lead_ms']:.4f} ms); device ms per iteration: "
             + ", ".join(f"{f} {sec * 1e3 / iters:.4f}" for f, sec in split.most_common())
             + "; largest of the rest per iteration: "
             + ", ".join(f"{key[:60]} {c / iters:.1f} x {sec / c * 1e3:.4f} ms" for sec, c, key in rest)
@@ -2009,7 +2075,8 @@ def kernels_ab(label, scene, cam, cfg, smi, frames=1, order=(True, False, False,
     return out
 
 
-def ab_render(label, scene, cam, cfg, smi, frames=2, order=(True, False, False, True), profile_eager=True):
+def ab_render(label, scene, cam, cfg, smi, frames=2, order=(True, False, False, True), profile_eager=True,
+              retakes=2):
     """The loop run eagerly against the graphed loop on one render: a
     first graphed frame at subframe 0 (it captures: its seconds, the
     capture's seconds and the graph pool's bytes), then `frames` frames
@@ -2043,13 +2110,14 @@ def ab_render(label, scene, cam, cfg, smi, frames=2, order=(True, False, False, 
         row = dict(seconds=mean, times=times[eager])
         desc = f"s/launch {' '.join(f'{t:.4f}' for t in times[eager])} (mean {mean:.4f})"
         if profile_eager or not eager:
-            wall, busy, kernels, calls, st = profiled(scene, cam, cfg, 1, eager)
+            wall, busy, kernels, calls, st, tr = profiled(scene, cam, cfg, 1, eager, retakes=retakes)
             row.update(busy=busy, idle=1 - busy / mean, kernels=kernels / st["iters"],
                        calls={k: v / st["iters"] for k, v in calls.items()})
             calls_desc = ", ".join(f"{k} {v:.2f}" for k, v in row["calls"].items()) or "not measured"
             desc += (f"; profiled wall {wall:.4f} s, device busy {busy:.4f} s, idle share of the mean s/launch "
                      f"{row['idle']:.2%} (of the profiled wall {1 - busy / wall:.2%}), {row['kernels']:.1f} device "
-                     f"kernels per iteration, host launch calls per iteration: {calls_desc}")
+                     f"kernels per iteration (trace {'complete' if tr['complete'] else 'INCOMPLETE'} after "
+                     f"{tr['retakes']} retakes), host launch calls per iteration: {calls_desc}")
         out["eager" if eager else "graphed"] = row
         parts.append(f"{'eager' if eager else 'graphed'}: {desc}")
     out.update(first=first, capture_seconds=capture_s, pool_bytes=pool, captures=n_captures, iters=stats0["iters"],
@@ -2094,7 +2162,11 @@ def phase_graph_ab(label, scene, hero, root, smi):
     summary, plain_summary, plain_counts = [], [], None
     for name, make, camera, c in cases:
         scene_n, cam = make(), camera_arrays(camera, c, "cuda")
-        row = ab_render(f"{label} {name}", scene_n, cam, c, smi, frames=1, order=(True, False), profile_eager=False)
+        # One trace a profiled frame here: a retake repeats the frame and the
+        # reading of its trace, which took minutes over phase 34 and mostly
+        # came short again (PERF.md §7); profile_renders.py retakes.
+        row = ab_render(f"{label} {name}", scene_n, cam, c, smi, frames=1, order=(True, False), profile_eager=False,
+                        retakes=0)
         graph_launches = row["graphed"]["calls"].get("cudaGraphLaunch")
         if row["captures"] != 1 or graph_launches != 1.0:
             raise SystemExit(f"[{label} {name}] FAIL: {row['captures']} captures, {graph_launches} graph launches "
@@ -2102,13 +2174,18 @@ def phase_graph_ab(label, scene, hero, root, smi):
         summary.append(f"{name} {row['eager']['seconds']:.4f} -> {row['graphed']['seconds']:.4f} "
                        f"({row['eager']['seconds'] / row['graphed']['seconds']:.2f}x, idle {row['graphed']['idle']:.1%})")
         # The shading kernels against their plain versions (ops.cuda_build.plain()), both graphed.
-        ab = kernels_ab(f"{label} {name} plain vs kernels", scene_n, cam, c, smi, frames=1, order=(True, False))
+        ab = kernels_ab(f"{label} {name} plain vs kernels", scene_n, cam, c, smi, frames=1, order=(True, False),
+                        retakes=0)
         counts = {arm: ab[arm]["counts"] for arm in ("plain", "kernels")}
         if counts["kernels"]["random_in_unit_sphere"] or not counts["plain"]["random_in_unit_sphere"] or any(
                 counts["plain"][k] for k in ("bounce", "next_event", "camera_paths", "path_step", "sort_rays",
-                                             "restore_hits", "packet_order")) or not all(
-                counts["kernels"][k] for k in ("sort_rays", "restore_hits")):
+                                             "caller_order_stores", "packet_order")) or not all(
+                counts["kernels"][k] for k in ("sort_rays", "caller_order_stores")):
             raise SystemExit(f"[{label} {name}] FAIL: launches plain {counts['plain']}, kernels {counts['kernels']}")
+        # the restore is the traversal's store: no restore kernel on the kernels' arm
+        restores = {k: c for k, (c, _) in ab["kernels"]["events"].items() if "restore" in k}
+        if restores:
+            raise SystemExit(f"[{label} {name}] FAIL: restore kernels launched on the kernels' arm: {restores}")
         if name == "headline fused":
             plain_counts = counts["plain"]
         plain_summary.append(f"{name} {ab['plain']['seconds']:.4f} -> {ab['kernels']['seconds']:.4f} "
@@ -2157,6 +2234,70 @@ def shade_inputs(scene, cfg, camera, n_cam, seed=17):
     if cfg.env_importance_sampling:
         spec = torch.as_tensor(rs.rand(n).astype(np.float32) if cfg.nee_mis_spec else rs.rand(n) < 0.5, device=dev)
     return scene, cfg, hit, o, d, att, rad, seeds, depth, spec
+
+
+def render_pool(scene, cfg, camera):
+    """The arguments of `_bounce_kernels` in the middle iteration of one
+    eager frame at subframe 1 (the iteration count from a graphed frame
+    first), the lane state copied: the lanes as the bounce kernel gets them
+    mid-render.  The eager loop is bit-equal to the graphed one (phase
+    34).  Returns (the arguments, that iteration, the frame's iterations)."""
+    import tpu_pathtracer_torch.render.integrator as integrator
+
+    cam = camera_arrays(camera, cfg, "cuda")
+    _, stats = render_frame_stats(scene, cam, cfg, 1)
+    mid, calls, pool = stats["iters"] // 2, [0], {}
+    real = integrator._bounce_kernels
+
+    def spy(*args):
+        calls[0] += 1
+        if calls[0] == mid:
+            pool["args"] = tuple(x.clone() if isinstance(x, torch.Tensor) else
+                                 Hit(*(y.clone() for y in (x.t, x.prim, x.bary, x.hit))) if isinstance(x, Hit) else x
+                                 for x in args)
+        return real(*args)
+
+    integrator._bounce_kernels = spy
+    try:
+        with graph_loop.eager():
+            render_frame_stats(scene, cam, cfg, 1)
+    finally:
+        integrator._bounce_kernels = real
+    return pool["args"], mid, stats["iters"]
+
+
+def first_lanes(args, n):
+    """_bounce_kernels' arguments cut to their first n lanes."""
+    return tuple(x[:n].contiguous() if isinstance(x, torch.Tensor) else
+                 Hit(*(y[:n].contiguous() for y in (x.t, x.prim, x.bary, x.hit))) if isinstance(x, Hit) else x
+                 for x in args)
+
+
+def bounce_lane_sets(scene, config1):
+    """The bounce kernel's two sets of lanes at 16,384 and 131,072 lanes:
+    [(name, _bounce_kernels' arguments)]: "camera", shade_inputs' camera
+    rays and their first bounces on the headline (`scene`; nearly every
+    camera ray hits), and "render", the headline's fused-stream pool in
+    the middle iteration of a frame (render_pool) and its first 16,384
+    lanes, and BASELINE config 1's pool (`config1`) in the middle of its
+    frame."""
+    cfg = RenderConfig(**HEADLINE)
+    sizes = (2 * CAMERA_RAYS, CONFIG1_POOL)
+    sets = [(f"camera {n}", shade_inputs(scene, cfg, Camera(), n // 2)) for n in sizes]
+    pool, mid, iters = render_pool(scene, cfg, Camera())
+    sets += [(f"render {n} (headline, iteration {mid} of {iters})", first_lanes(pool, n)) for n in sizes]
+    pool1, mid1, iters1 = render_pool(config1, RenderConfig(**CONFIG1), Camera())
+    sets.append((f"render {pool1[3].shape[0]} (config 1, iteration {mid1} of {iters1})", pool1))
+    return sets
+
+
+def hit_shares(args):
+    """The share of the lanes that hit, and of the warps (32 lanes) that
+    mix hits and misses."""
+    hit = args[2].hit
+    n = hit.shape[0]
+    warps = hit[: n - n % 32].reshape(-1, 32).to(torch.int32).sum(dim=1)
+    return float(hit.float().mean()), float(((warps > 0) & (warps < 32)).float().mean())
 
 
 def distinct_rows(index, row_bytes):
@@ -2260,19 +2401,28 @@ def bounce_checked(args):
 def phase_bounce_kernel(label, cases, smi):
     """The bounce kernel (with, under NEE, the any-hit traversal of its
     shadow rays and the NEE kernel) against its plain version,
-    _bounce_plain, on each case's rays (shade_inputs): every payload field
+    _bounce_plain, on each case's lanes (`cases`: name, _bounce_kernels'
+    arguments from shade_inputs or bounce_lane_sets): every payload field
     bit-equal, and under NEE the shadow rays, candidates and record equal
     _shade's, _light_sample's and _shadow_candidates' (bounce_checked);
     the kernel's device time (the bounce kernel alone, 50 launches each
     after an L2 flush: _time_cold), the plain version's (under NEE: both
     kernels against _bounce_plain, the any-hit answer fixed on both
-    sides), and the bound.  Returns the numbers of the first case."""
+    sides), the bound, and each case's share of hits and of warps that mix
+    hits and misses.  First what the card made of the kernel: registers,
+    local memory and blocks an SM (cudaFuncGetAttributes), and nvcc's
+    spills.  Returns the numbers of the first case."""
     import tpu_pathtracer_torch.render.integrator as integrator
 
+    log = cuda_build.library_path("bounce.cu").with_suffix(".log").read_text()
+    spills = {k: v for name, v in cuda_build.ptxas_report(log).items() for k in ("bounce_kernel", "shade_lanes_kernel")
+              if k in name}
+    for entry, kernel in enumerate(("bounce_kernel", "shade_lanes_kernel")):
+        print(f"[{label}] {kernel}: {bounce_ops.kernel_attributes(entry)} (cudaFuncGetAttributes); nvcc -Xptxas -v: "
+              f"{spills.get(kernel)}", flush=True)
     first = None
-    for name, scene, cfg, camera, n_cam in cases:
-        args = shade_inputs(scene, cfg, camera, n_cam)
-        _, _, hit, o, d, att, rad, seeds, depth, spec = args
+    for name, args in cases:
+        scene, cfg, hit, o, d, att, rad, seeds, depth, spec = args
         nee = cfg.env_importance_sampling
         b, bad = bounce_checked(args)
         if bad:
@@ -2294,13 +2444,17 @@ def phase_bounce_kernel(label, cases, smi):
                     f"launch); plain (occlusion fixed) {plain_ms:.4f} ms")
         else:
             ms = _time_cold(lambda a: bounce_ops.bounce(*a), [args] * 51)
+            warm = _time_over(lambda a: bounce_ops.bounce(*a), [args] * 51, device_only=True)
             plain_ms = _time_ms(lambda: _bounce_plain(*args), 5)
-            what = f"kernel {ms:.4f} ms (L2 flushed before each launch), plain {plain_ms:.4f} ms"
+            what = (f"kernel {ms:.4f} ms (L2 flushed before each launch; warm, back to back {warm:.4f}), plain "
+                    f"{plain_ms:.4f} ms")
         n_bytes = bounce_bytes(args, b["cand"] if nee else None)
         bound_ms, bound_by = bound(n_bytes, n * BOUNCE_LANE_FLOPS)
         m = hit.hit
         mats = torch.unique(scene.tri_attrs[hit.prim[m].long(), 24].long()).numel()
-        print(f"[{label} {name}] {n} lanes ({int(m.sum())} hits on {mats} materials), {cfg.env_mode}"
+        hits, mixed = hit_shares(args)
+        print(f"[{label} {name}] {n} lanes ({int(m.sum())} hits on {mats} materials, hit share {hits:.4f}, "
+              f"warps mixing hits and misses {mixed:.4f}), {cfg.env_mode}"
               f"{', NEE' if nee else ''}{', MIS-spec' if cfg.nee_mis_spec else ''}"
               f"{', defensive' if cfg.nee_defensive_mix else ''}: every field bit-equal (0 ulp){' (record too)' if nee else ''}; "
               f"{what}; {n_bytes} bytes, {n * BOUNCE_LANE_FLOPS} FLOP: bound {bound_ms:.4f} ms by {bound_by} | {smi}")
@@ -2417,23 +2571,47 @@ def phase_camera_kernel(label, smi, n=131_072):
 # The ray ordering against its plain versions (phase 38)
 # ---------------------------------------------------------------------------
 
-def ray_order_bytes(n, active, hit):
+def ray_order_bytes(n, active, any_hit):
     """Bytes each ray-order kernel must move on n rays (each input read
     once, each output written once), by lane class.  The sort (rays to
     sorted rays and perm): a lane outside the mask reads its mask byte,
     any other lane its ray (24 B) and the mask byte if there is one; each
     lane writes a sorted ray and its perm entry (32 B); the scene box (24
-    B) once.  The restore, closest hit (`hit`: the sorted hit flags): each
-    lane reads perm, t and prim (16 B) and writes t, prim, bary and hit
-    (17 B), and a hit also reads uv (8 B); any hit (`hit` None): perm and
-    one flag byte each way."""
+    B) once.  The restore, which is the traversal's store through perm:
+    what it adds to the traversal, which writes t, prim and uv (or the
+    flags) in any case: each lane reads its perm entry (8 B) and, closest
+    hit, writes the hit byte (1 B)."""
     mask = 0 if active is None else n
     n_act = n if active is None else int(active.sum())
-    if hit is None:
-        restore = n * 10
-    else:
-        restore = n * 33 + int(hit.sum()) * 8
-    return dict(sort=n_act * 24 + mask + n * 32 + 24, restore=restore)
+    return dict(sort=n_act * 24 + mask + n * 32 + 24, restore=n * (8 if any_hit else 9))
+
+
+STORE_ROUNDS = 6
+
+
+def store_cost(time_traversal, rounds=STORE_ROUNDS):
+    """What the caller-order store adds to a traversal, from `rounds`
+    rounds of turns (alone, with perm, with perm, alone), each turn
+    time_traversal(with_perm), its mean device ms: each round's two turns
+    with perm less its two alone, paired within the round so that a drift
+    across it cancels.  Returns the traversal's ms alone and with perm
+    (means over every turn), the rounds' differences (`rounds_ms`), their
+    median and quartiles, `resolved` (the quartiles' spread below the
+    median: a cost this run resolves) and `ms`, the median, or 0 where the
+    median is below 0 (a cost under the turns' resolution)."""
+    alone, with_perm, diffs = [], [], []
+    for _ in range(rounds):
+        a0 = time_traversal(False)
+        w0 = time_traversal(True)
+        w1 = time_traversal(True)
+        a1 = time_traversal(False)
+        alone += [a0, a1]
+        with_perm += [w0, w1]
+        diffs.append((w0 + w1 - a0 - a1) / 2)
+    q1, median, q3 = statistics.quantiles(diffs, n=4, method="inclusive")
+    return dict(ms=max(median, 0.0), median_ms=median, q1_ms=q1, q3_ms=q3, rounds_ms=diffs,
+                resolved=q3 - q1 < median, traversal_ms=sum(alone) / len(alone),
+                traversal_perm_ms=sum(with_perm) / len(with_perm))
 
 
 def order_compares(packets):
@@ -2442,56 +2620,32 @@ def order_compares(packets):
     return round(packets * math.log2(packets)) if packets > 1 else 0
 
 
-# Host seconds a profile's window holds before the first launch and after
-# the card is done.  The trace keeps only device events whose times, moved
-# onto the host's clock, fall inside its window, and the move can be off by
-# milliseconds (kernels traced before the host call that launched them:
-# _profiled's `lead_ms`, PERF.md): without the margin a trace loses its
-# first kernels, or all of them.
-PROFILE_MARGIN_S = 0.02
 
 
 def _profiled(fn, calls=10):
     """fn's device time a call from torch.profiler's device events
     (kernels, copies, memsets) over `calls` calls after a warm-up call:
-    the sum of the events' times, so no host gap counts.  Each trace
-    starts with a throwaway spin kernel, since a trace's first kernel can
-    go untraced (PERF.md §6), and is taken again if a later kernel
-    launch of the host has no device event (see PROFILE_MARGIN_S).
-    Returns None if five in a row were short, else a dict: `kernels` and
-    `ms` a call, `by_name` (ms a call by event name), `out` (the last
-    call's result), `retakes` (short traces before it), `spin_lost`
-    (traces whose spin went untraced) and `lead_ms` (the most that a
-    kernel's traced start came before the host call that launched it: the
-    trace's clock error)."""
+    the sum of the events' times, so no host gap counts; each trace taken
+    as `trace` takes it, up to five times.  Returns None if five in a row
+    were short, else a dict: `kernels` and `ms` a call, `by_name` (ms a
+    call by event name), `out` (the last call's result), and `trace`'s
+    `retakes`, `spin_lost` and `lead_ms`."""
     fn()
     torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    spin_lost = 0
-    for retakes in range(5):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            time.sleep(PROFILE_MARGIN_S)
-            torch.cuda._sleep(1000)
-            for _ in range(calls):
-                out = fn()
-            torch.cuda.synchronize()
-            time.sleep(PROFILE_MARGIN_S)
-        events = list(prof.profiler.kineto_results.events())
-        launches = sorted((e for e in events
-                           if e.device_type() != cuda and e.name().startswith("cu") and "Launch" in e.name()),
-                          key=lambda e: e.start_ns())
-        spin = launches[0].correlation_id() if launches else None
-        device = [e for e in events if e.device_type() == cuda and e.correlation_id() != spin]
-        started = {e.correlation_id(): e.start_ns() for e in device}
-        spin_lost += len(device) == sum(e.device_type() == cuda for e in events)
-        if device and all(e.correlation_id() in started for e in launches[1:]):
-            by_name = collections.Counter()
-            for e in device:
-                by_name[e.name()] += e.duration_ns() / 1e6 / calls
-            lead = max([0, *(e.start_ns() - started[e.correlation_id()] for e in launches[1:])])
-            return dict(kernels=len(device) / calls, ms=sum(by_name.values()), by_name=dict(by_name), out=out,
-                        retakes=retakes, spin_lost=spin_lost, lead_ms=lead / 1e6)
-    return None
+
+    def run():
+        for _ in range(calls):
+            out = fn()
+        return out
+
+    t = trace(run, retakes=4)
+    if not t["complete"]:
+        return None
+    by_name = collections.Counter()
+    for e in t["device"]:
+        by_name[e.name()] += e.duration_ns() / 1e6 / calls
+    return dict(kernels=len(t["device"]) / calls, ms=sum(by_name.values()), by_name=dict(by_name), out=t["out"],
+                retakes=t["retakes"], spin_lost=t["spin_lost"], lead_ms=t["lead_ms"])
 
 
 def graph_kernels(fn):
@@ -2541,14 +2695,19 @@ def phase_ray_order(label, cases, smi):
     the schedule traces them (`cases`: name, scene, RenderConfig, camera,
     camera rays, any hit): the radix sort of the rays (shadow rays: the
     lanes that trace nothing parked by the mask) against the key,
-    torch.sort's stable permutation and the gather, the restore of the
-    route's traversal kernel's outputs on the sorted rays, and the packet
-    order of that launch's pre-pass weights: every output bit-equal.  Each
-    kernel timed with the L2 flushed before each launch (_time_cold),
-    beside the plain version, the bound (the bytes of each lane's class,
-    ray_order_bytes; the packet order's also by its compares,
-    order_compares) and the one PyTorch call that computes the same
-    function on the same inputs (torch.sort of the int32 key, which
+    torch.sort's stable permutation and the gather, the restore into
+    caller order, which the route's traversal kernel does in its store on
+    the sorted rays (restore=True, through perm; closest hit also without
+    one: the Hit), against restore_hits_plain of its raw outputs, and the
+    packet order of that launch's pre-pass weights: every output
+    bit-equal.  Each kernel timed with the L2 flushed before each launch
+    (_time_cold), the restore as what it adds to the traversal (store_cost:
+    the traversal with perm less the traversal alone, 13 launches a turn,
+    paired within each of six rounds of turns alone, with, with, alone;
+    their median and quartiles), beside the plain version, the bound (the
+    bytes of each lane's class, ray_order_bytes; the packet order's also by its
+    compares, order_compares) and the one PyTorch call that computes the
+    same function on the same inputs (torch.sort of the int32 key, which
     leaves the rays unsorted; index_put_ of t, prim and uv; argsort).  The
     sort and torch.sort also by the profiler's device ms and device
     kernels a call (warm; _time_cold cannot queue torch.sort ahead of the
@@ -2575,16 +2734,20 @@ def phase_ray_order(label, cases, smi):
         if not launches == nodes == ray_sort.sort_launches(n, *bits) <= (1 if n <= ray_sort.SMALL_MAX else 5):
             raise SystemExit(f"[{label} {name}] FAIL: {launches} sort launches counted, {nodes} kernels in a "
                              f"captured sort, for {n} rays")
-        # the route's traversal on the sorted rays, then the restore
+        # the route's traversal on the sorted rays: its raw outputs, and the
+        # restore into caller order in its store
         route, args = acc.traversal(o_s, d_s, cfg.t_min, cfg.t_max, cfg)
         kid = ROUTE_KERNELS[route][int(any_hit)]
-        outputs = KERNELS[kid][6](*args)
-        hit = ray_sort.restore_hits_cuda(outputs, perm)
-        want = ray_sort.restore_hits_plain(outputs, perm)
-        same = (torch.equal(hit, want) if any_hit else
-                all(same_bits(getattr(hit, f), getattr(want, f)) for f in ("t", "prim", "bary", "hit")))
-        if not same:
-            raise SystemExit(f"[{label} {name}] FAIL: the restore kernel and its plain version differ")
+        traverse = KERNELS[kid][6]
+        outputs = traverse(*args)
+        for rows in (perm,) if any_hit else (perm, None):
+            hit = traverse(*args, restore=True, perm=rows)
+            want = ray_sort.restore_hits_plain(outputs, rows)
+            same = (torch.equal(hit, want) if any_hit else
+                    all(same_bits(getattr(hit, f), getattr(want, f)) for f in ("t", "prim", "bary", "hit")))
+            if not same:
+                raise SystemExit(f"[{label} {name}] FAIL: the traversal's caller-order store "
+                                 f"({'perm' if rows is not None else 'no perm'}) and restore_hits_plain differ")
         # the packet order of that launch's pre-pass
         rpt = acc._rpt(cfg)
         stem = ic._STEMS[route, any_hit]
@@ -2602,22 +2765,26 @@ def phase_ray_order(label, cases, smi):
         kernels = dict(
             sort=(lambda _: ray_sort.sort_rays_cuda(o, d, *box, *bits, active),
                   lambda: ray_sort.sort_rays_plain(o, d, *box, *bits, active), None),
-            restore=(lambda _: ray_sort.restore_hits_cuda(outputs, perm),
-                     lambda: ray_sort.restore_hits_plain(outputs, perm),
+            restore=(None, lambda: ray_sort.restore_hits_plain(outputs, perm),
                      lambda _: [dst.index_put_((perm,), x) for dst, x in zip(scatter, sorted_out)]),
             order=(lambda _: ray_sort.packet_order_cuda(weights), lambda: ray_sort.packet_order_plain(weights),
                    lambda _: torch.argsort(weights, descending=True, stable=True)),
         )
-        n_bytes = ray_order_bytes(n, active, None if any_hit else outputs[1] != ray_sort.MISS_PRIM)
+        n_bytes = ray_order_bytes(n, active, any_hit)
         packets = weights.shape[0]
         n_bytes["order"] = packets * 8
         ops = dict(order=order_compares(packets))
+        # the restore: the traversal alone and with perm, in turns
+        store = store_cost(lambda with_perm: _time_cold(
+            lambda _: traverse(*args, restore=with_perm, perm=perm if with_perm else None), [None] * 14))
         numbers = {}
         for k, (kernel, plain, library) in kernels.items():
             bound_ms, bound_by = bound(n_bytes[k], ops.get(k, 0))
-            numbers[k] = dict(max_abs_err=0.0, ms=_time_cold(kernel, cold), plain_ms=_time_ms(plain, 10),
-                              bound_ms=bound_ms, bound_by=bound_by,
+            numbers[k] = dict(max_abs_err=0.0, ms=store["ms"] if kernel is None else _time_cold(kernel, cold),
+                              plain_ms=_time_ms(plain, 10), bound_ms=bound_ms, bound_by=bound_by,
                               library_ms=None if library is None else _time_cold(library, cold))
+        numbers["restore"].update({k: v for k, v in store.items() if k != "ms"},
+                                  below_library=store["q3_ms"] < numbers["restore"]["library_ms"])
         # the sort against torch.sort alone: device ms and device kernels
         # a call, in turns, warm
         warm = [("sort_rays", lambda: ray_sort.sort_rays_cuda(o, d, *box, *bits, active)),
@@ -2643,10 +2810,19 @@ def phase_ray_order(label, cases, smi):
         numbers["sort"]["sort_launches"] = launches
         calls = dict(sort="torch.sort (device ms, warm)", restore=f"index_put_ x {len(sorted_out)}",
                      order="argsort")
+        r = numbers["restore"]
+        what = dict(sort="sort", restore=(
+            f"restore in the traversal's store (the {KERNELS[kid][0]} kernel {r['traversal_ms']:.4f} ms alone, "
+            f"{r['traversal_perm_ms']:.4f} with perm; added, by round: "
+            f"{', '.join(f'{x:+.4f}' for x in r['rounds_ms'])}, median {r['median_ms']:+.4f}, quartiles "
+            f"{r['q1_ms']:+.4f} to {r['q3_ms']:+.4f}, "
+            f"{'resolved' if r['resolved'] else 'unresolved (the quartiles spread wider than the median)'}; "
+            f"upper quartile {'below' if r['below_library'] else 'not below'} {calls['restore']}):"),
+                    order="packet order")
         warm_ms = ", ".join(f"{k_} not measured (no complete trace)" if v_ is None else
                             f"{k_} {v_[1]:.4f} ms in {v_[0]:.1f} device kernels" for k_, v_ in profiled.items())
         parts = "; ".join(
-            f"{k} {v['ms']:.4f} ms, plain {v['plain_ms']:.4f}, "
+            f"{what[k]} {v['ms']:{'+' if k == 'restore' else ''}.4f} ms, plain {v['plain_ms']:.4f}, "
             + (f"{calls[k]} {v['library_ms']:.4f}, " if v["library_ms"] is not None else
                f"{calls[k]} not measured, ")
             + f"bound {v['bound_ms']:.4f} by {v['bound_by']} ({n_bytes[k]} B{', %d ops' % ops[k] if k in ops else ''})"
@@ -2683,7 +2859,8 @@ def timed(fn):
 
 
 def check_kernels(label, counts, want):
-    """Each kernel of `want`, the shading kernels and the restore launched,
+    """Each kernel of `want`, the shading kernels and the restore (the
+    traversal's caller-order store) launched,
     no other kernel but the rest of the ray ordering."""
     want = want + shading_kernels(any(kid in want for kid in ("k4", "k5", "k6"))) + ("kr",)
     for kid in want:
@@ -2860,10 +3037,8 @@ def phase_deferred(label, hero, root, smi):
                 frames.append((img, stats, time.perf_counter() - t0))
                 syncs += len(frame_syncs)
             counts = read_counts()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                _, pstats = render_frame_stats(scene, cam, c, 4)
-                torch.cuda.synchronize()
-            events = device_events(prof)
+            t = trace(lambda: render_frame_stats(scene, cam, c, 4)[1], retakes=0)
+            pstats, events = t["out"], device_events(t)
             iters = sum(f[1]["iters"] for f in frames)
             check_kernels(f"{label} {name}", counts, ("k1", STEP_KERNEL[frames[0][1]["schedule"]]))
             res[on] = dict(frames=frames, iters=iters, syncs=syncs / iters, counts=counts,
@@ -3158,14 +3333,12 @@ def main() -> int:
         plain_arm = {"ks": plain_counts["random_in_unit_sphere"]}  # the sampler runs on the plain versions' path
         hero_scene, hero_camera, hero_cfg = load_scene_file(str(hero), device="cuda", cache_dir=str(root / "cache"))
         config4 = high_poly(100_000, "cuda")
-        numbers["kb"] = phase_bounce_kernel("35 bounce kernel", (
-            ("headline", scene, cfg, Camera(), CAMERA_RAYS),
-            ("headline 16,384", scene, cfg, Camera(), CONFIG1_CAMERA_RAYS),
-            ("hero", hero_scene, hero_cfg, hero_camera, CAMERA_RAYS),
-            ("config 4 NEE", config4, cfg_nee, cam4, CAMERA_RAYS),
-            ("headline NEE MIS defensive", scene, cfg_nee.replace(nee_mis_spec=True, nee_defensive_mix=True), Camera(),
-             CAMERA_RAYS),
-        ), smi)
+        numbers["kb"] = phase_bounce_kernel("35 bounce kernel", bounce_lane_sets(scene, config1_scene("cuda")) + [
+            ("hero", shade_inputs(hero_scene, hero_cfg, hero_camera, CAMERA_RAYS)),
+            ("config 4 NEE", shade_inputs(config4, cfg_nee, cam4, CAMERA_RAYS)),
+            ("headline NEE MIS defensive", shade_inputs(
+                scene, cfg_nee.replace(nee_mis_spec=True, nee_defensive_mix=True), Camera(), CAMERA_RAYS)),
+        ], smi)
         numbers["kn"] = phase_nee_kernel("36 NEE kernel", (
             ("headline", scene, cfg_nee, Camera(), CAMERA_RAYS),
             ("config 4", config4, cfg_nee, cam4, CAMERA_RAYS),

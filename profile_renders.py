@@ -12,8 +12,11 @@ hero stand-in at its scene file's config.
 is given (fused, unfused, unfused, fused compares two versions in one
 call without favouring the first).  For each render, after one warm
 frame (it captures the graph that the profiled frame replays): the wall
-time of the profiled frame, the device busy time (the sum of every kernel, copy and memset on the card, which runs
-one stream), the idle share, the traversal kernels' and the fused step's
+time of the profiled frame (traced as `chip_smoke.trace` traces: 20 ms of
+host time in the window at each end, a throwaway spin kernel first, the
+frame traced again, up to twice, while a launch has no device event), the
+device busy time (the sum of every kernel, copy and memset on the card,
+which runs one stream), the idle share, the traversal kernels' and the fused step's
 time and launches, the device kernels per iteration (device events
 only: the CUDA runtime calls that launch them are not counted) and the
 stream syncs per iteration (counted over the warm frame, by PyTorch's
@@ -65,7 +68,6 @@ import warnings
 from pathlib import Path
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import (
     CONFIG1,
@@ -80,6 +82,7 @@ from chip_smoke import (
     kernel_label,
     kernels_ab,
     phase_device,
+    trace,
     write_hero,
 )
 from tpu_pathtracer_torch.config import RenderConfig
@@ -167,12 +170,9 @@ def profile_one(run, name, make, camera, cfg_kw, out_dir, smi, wall_only=False):
         print(f"[{name}] {stats['schedule']} schedule; wall {time.perf_counter() - t0:.4f} s unprofiled, "
               f"{stats['iters']} iterations, {int(stats['segments'])} segments | {smi}", flush=True)
         return
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, stats = render_frame_stats(scene, cam, cfg, 1)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = sorted(device_events(prof).items(), key=lambda kv: -kv[1][1])
+    t = trace(lambda: render_frame_stats(scene, cam, cfg, 1)[1])
+    stats, wall = t["out"], t["wall"]
+    events = sorted(device_events(t).items(), key=lambda kv: -kv[1][1])
     busy = sum(s for _, (_, s) in events)
     kernels = sum(c for _, (c, _) in events)
     ours = [(kernel_label(key), c, s) for key, (c, s) in events if kernel_label(key)]
@@ -187,7 +187,9 @@ def profile_one(run, name, make, camera, cfg_kw, out_dir, smi, wall_only=False):
           f"{kernels} device kernels, copies and memsets, {kernels / iters:.0f} per iteration, "
           f"{len(syncs) / warm['iters']:.4f} stream syncs per iteration (warm frame: {len(syncs)} in "
           f"{warm['iters']} iterations, by site {sync_sites(syncs)}), {iters} iterations, "
-          f"{int(stats['segments'])} segments, {int(stats['shadow_segments'])} shadow segments | {smi}",
+          f"{int(stats['segments'])} segments, {int(stats['shadow_segments'])} shadow segments; trace "
+          f"{'complete' if t['complete'] else 'INCOMPLETE'} after {t['retakes']} retakes, clock lead "
+          f"{t['lead_ms']:.4f} ms | {smi}",
           flush=True)
 
 

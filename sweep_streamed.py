@@ -94,8 +94,8 @@ def start_build(name, src_dir, sources, rule=None):
 
 
 def finish_build(jobs):
-    """{source: (launch, weights or None, route)} once the jobs' nvcc are
-    done."""
+    """{source: (launch, weights or None, route, whether the launch takes
+    perm and the Hit's flags)} once the jobs' nvcc are done."""
     routes = {source: route for source, route, *_ in KERNELS.values()}
     libs = {}
     for name, f, out, proc in jobs:
@@ -104,6 +104,12 @@ def finish_build(jobs):
             raise SystemExit(f"nvcc failed on {f} ({name}):\n{log[-4000:]}")
         lib = ctypes.CDLL(str(out.resolve()))
         launcher, argtypes = cuda_build.LAUNCHERS[f]
+        # a tree before the restore went into the traversal's store: no perm
+        # (nor, closest hit, the Hit's flags) before the stream
+        takes_perm = "hit_out" in (out.parent / "cluster_streamed.cuh").read_text()
+        if not takes_perm:
+            cut = [-3] if "occluded" in f else [-6, -2]  # perm; and the Hit's flags
+            argtypes = [a for k, a in enumerate(argtypes) if k - len(argtypes) not in cut]
         weights = getattr(lib, launcher.replace("_launch", "_weights"), None)
         if weights is None:  # no packet order: the pointer before n goes
             cut = argtypes.index(ctypes.c_int) - 1
@@ -112,7 +118,7 @@ def finish_build(jobs):
             weights.argtypes, weights.restype = cuda_build.HELPERS[f][launcher.replace("_launch", "_weights")], ctypes.c_int
         fn = getattr(lib, launcher)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        libs[f] = (fn, weights, routes[f])
+        libs[f] = (fn, weights, routes[f], takes_perm)
     return libs
 
 
@@ -134,7 +140,7 @@ def launch(lib, any_hit, args, order_by):
     ops/intersect_cluster.py make it; `args` in two_level_form.
     `order_by`: "estimate" (the pre-pass), "index", or the per-packet visit
     counts to sort by."""
-    fn, weights, route = lib
+    fn, weights, route, takes_perm = lib
     tris, child, supers, order_super, o, d, t_min, t_max, rpt, branch, tri_test = args
     n = o.shape[0]
     order = ()
@@ -156,8 +162,11 @@ def launch(lib, any_hit, args, order_by):
         out = (torch.empty(n, dtype=torch.bool, device=o.device),)
     else:
         out = ic._hit_outputs(o)
+    outs = [x.data_ptr() for x in out]
+    if takes_perm:  # the raw outputs: no perm, no Hit
+        outs = [None, *outs] + ([] if any_hit else [None])
     err = fn(tris.data_ptr(), *(b.data_ptr() for b in boxes), o.data_ptr(), d.data_ptr(), *order, n, *sizes,
-             float(t_min), float(t_max), rpt, ic._TRI_TEST_IDS[tri_test], *(x.data_ptr() for x in out), stream)
+             float(t_min), float(t_max), rpt, ic._TRI_TEST_IDS[tri_test], *outs, stream)
     if err:
         raise SystemExit(f"launch failed: CUDA error {err}")
     return out

@@ -8,8 +8,8 @@ iteration free of stream syncs but its own read; deferred shading against
 the dense shade, sharded frames (NCCL in a group of one, gloo across two
 processes on one card) against render_frame, renders against the numpy
 oracle, and the shading kernels (the bounce, NEE and camera kernels) and
-the ray ordering (the radix sort of the rays, restore, packet order) against their
-plain versions, bit for bit, alone and in renders under
+the ray ordering (the radix sort of the rays, the restore in the
+traversal's store, the packet order) against their plain versions, bit for bit, alone and in renders under
 ops.cuda_build.plain().  Every test needs a card and skips without one; this
 file imports no JAX, so it runs where only the port is installed:
 
@@ -1289,6 +1289,51 @@ def test_bounce_kernel_nee_record_matches_plain(cuda, name):
     assert 0.1 < float(cand.float().mean()) < 0.9
 
 
+def mid_render_lanes(scene, cfg):
+    """The arguments of `_bounce_kernels` in the middle iteration of a
+    frame of the eager loop (bit-equal to the graphed one): the lanes as a
+    stream hands them to the bounce kernel, misses and warps that mix hits
+    and misses common."""
+    from tpu_pathtracer_torch.ops.intersect import Hit
+
+    cam = camera_arrays(GRAPH_CAMERAS[0], cfg, scene.device)
+    calls, pool = [], {}
+    real = integrator._bounce_kernels
+
+    def spy(*args):
+        calls.append(1)
+        pool[len(calls)] = tuple(x.clone() if isinstance(x, torch.Tensor) else
+                                 Hit(*(y.clone() for y in (x.t, x.prim, x.bary, x.hit))) if isinstance(x, Hit) else x
+                                 for x in args)
+        return real(*args)
+
+    integrator._bounce_kernels = spy
+    try:
+        with graph_loop.eager():
+            render_frame_stats(scene, cam, cfg, 1)
+    finally:
+        integrator._bounce_kernels = real
+    return pool[max(1, len(calls) // 2)]
+
+
+@pytest.mark.parametrize("nee", [False, True], ids=["plain", "nee"])
+def test_bounce_kernel_matches_plain_mid_render(cuda, monkeypatch, nee):
+    """The bounce kernel (under NEE with the NEE kernel) against
+    `_bounce_plain` on a stream's pool in the middle of a frame, where
+    warps mix hits and misses: every payload field bit-equal."""
+    scene = graph_scene("flat", nee, cuda, monkeypatch)
+    cfg = RenderConfig(**{**GRAPH_BASE, **(GRAPH_NEE if nee else {}), "width": 160, "height": 120,
+                          "stream_lanes": 4096, "fused_schedule": "off"})
+    args = mid_render_lanes(scene, cfg)
+    hit = args[2].hit
+    warps = hit.reshape(-1, 32).sum(dim=1)
+    assert 0.2 < float(hit.float().mean()) < 0.9 and int(((warps > 0) & (warps < 32)).sum()) > 4
+    got = integrator._bounce_kernels(*args)
+    want = integrator._bounce_plain(*args)
+    torch.cuda.synchronize()
+    assert fields_equal(got, want) == []
+
+
 @pytest.mark.parametrize("layout", list(ts.SHADE_LAYOUTS))
 def test_deferred_entry_matches_plain(cuda, layout):
     """`_shade_deferred` through the bounce kernel's second entry point
@@ -1414,7 +1459,7 @@ def test_renders_equal_under_plain(cuda, monkeypatch, nee, which):
             # each sort one launch (pools of at most 4,096 rays); at most 4
             # packets a trace, which the card holds at once, so no packet
             # order
-            order = tuple(counts[f] for f in ("sort_rays", "restore_hits", "packet_order"))
+            order = tuple(counts[f] for f in ("sort_rays", "caller_order_stores", "packet_order"))
             if key[0] == "plain":
                 assert shading == (0, 0, 0), key
                 assert steps == (iters if st["schedule"] == "stream_fused" else 0, 0), key
@@ -1435,8 +1480,9 @@ def test_renders_equal_under_plain(cuda, monkeypatch, nee, which):
 
 RAY_COUNTS = [0, 1, 1000, 131_072]
 def launch_delta(fn, *args, **kw):
-    """(fn's result, the launches it added to each ray-ordering wrapper)."""
-    wrappers = (ray_sort.sort_rays, ray_sort.restore_hits, ray_sort.packet_order)
+    """(fn's result, the launches it added to each ray-ordering count: the
+    sort, the restore in the traversal's store, the packet order)."""
+    wrappers = (ray_sort.sort_rays, ic.caller_order_stores, ray_sort.packet_order)
     before = [w.launches for w in wrappers]
     out = fn(*args, **kw)
     return out, tuple(w.launches - b for w, b in zip(wrappers, before))
@@ -1602,34 +1648,50 @@ def test_headline_graphed_without_torch_sort(cuda, monkeypatch, nee):
     assert (int(st["shadow_segments"]) > 0) == nee
 
 
-@pytest.mark.parametrize("sorted_", [True, False], ids=["perm", "identity"])
+RESTORE_WRAPPERS = {("flat", False): ic.intersect_clusters, ("hier", False): ic.intersect_clusters_hier,
+                    ("streamed", False): ic.intersect_clusters_streamed, ("flat", True): ic.occluded_clusters,
+                    ("hier", True): ic.occluded_clusters_hier, ("streamed", True): ic.occluded_clusters_streamed}
+
+
+@pytest.mark.parametrize("order", ["identity", "perm", "masked"])
+@pytest.mark.parametrize("tri_test", ["bw", "mt"])
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("route", ["flat", "hier", "streamed"])
 @pytest.mark.parametrize("n", RAY_COUNTS)
-def test_restore_hits_matches_plain(cuda, n, any_hit, sorted_):
-    """The restore kernel against restore + the Hit assembly (closest hit:
-    t, prim -1 on a miss, bary 0 on a miss, hit) or restore of the flags
-    (any hit), through a permutation and without one, a third of the
-    lanes missing."""
-    rs = np.random.RandomState(11)
-    perm = torch.as_tensor(rs.permutation(n), device=cuda) if sorted_ else None
-    if any_hit:
-        outputs = torch.as_tensor(rs.rand(n) < 0.4, device=cuda)
-    else:
-        prim = rs.randint(0, 5000, n).astype(np.int32)
-        prim[rs.rand(n) < 0.33] = ray_sort.MISS_PRIM
-        outputs = (torch.as_tensor(rs.rand(n).astype(np.float32) * 10, device=cuda),
-                   torch.as_tensor(prim, device=cuda),
-                   torch.as_tensor(rs.rand(n, 2).astype(np.float32), device=cuda))
-    got, launched = launch_delta(ray_sort.restore_hits, outputs, perm)
-    want = ray_sort.restore_hits_plain(outputs, perm)
+def test_restore_hits_matches_plain(cuda, monkeypatch, n, route, any_hit, tri_test, order):
+    """The restore, done by each of the six traversal kernels in its store
+    (restore=True: row i of the sorted rays written to row perm[i]),
+    against the kernel's raw outputs through restore_hits_plain (closest
+    hit: t, prim -1 on a miss, bary 0 on a miss, hit; any hit: the flags),
+    in bw and mt, with no perm (closest hit: the Hit in place), the sort's
+    perm and the sort's perm with a mask; 0 to 131,072 rays, the last
+    packet ragged.  The count of caller-order stores: one a launch, but an
+    any hit without a perm (its raw flags are in caller order)."""
+    scene = graph_scene(route, False, cuda, monkeypatch)
+    acc = scene.accel
+    cfg = RenderConfig(**{**GRAPH_BASE, "tri_test": tri_test})
+    assert acc.route(cfg) == route
+    o, d = (x.to(cuda) for x in rays(5, n, parked=n // 20))
+    perm = None
+    if order != "identity":
+        active = torch.as_tensor(np.random.RandomState(6).rand(n) < 0.6, device=cuda) if order == "masked" else None
+        o, d, perm = acc.sort(o, d, cfg.replace(sort_rays="auto"), active)
+    _, args = acc.traversal(o, d, 0.01, 1e16, cfg)
+    wrapper = RESTORE_WRAPPERS[route, any_hit]
+    raw = wrapper(*args)
+    before = (wrapper.launches, ic.caller_order_stores.launches)
+    got = wrapper(*args, restore=True, perm=perm)
+    launched = (wrapper.launches - before[0], ic.caller_order_stores.launches - before[1])
+    want = ray_sort.restore_hits_plain(raw, perm)
     torch.cuda.synchronize()
-    # any-hit flags in caller order already are the answer: nothing to launch
-    assert launched == (0, 1 if n and not (any_hit and perm is None) else 0, 0)
+    assert launched == ((1, 0 if any_hit and perm is None else 1) if n else (0, 0))
     if any_hit:
         assert torch.equal(got, want)
     else:
         for f in ("t", "prim", "bary", "hit"):
             assert same_bits(getattr(got, f), getattr(want, f)), f
+        if n >= 1000:
+            assert 0 < int(got.hit.sum()) < n
 
 
 @pytest.mark.parametrize("ties", ["few", "many"])
@@ -1657,8 +1719,8 @@ def test_cluster_accel_ray_order_on_card(cuda, monkeypatch, route, sort_rays, ma
     route, sort on and off, with and without an active mask, at 131,072
     rays (128 packets or more: the packet order runs).  The kernels'
     launches: the sort's (1 + its digit passes at this size) a sorted
-    call, the restore once a call (an unsorted any hit needs none), the
-    packet order once a call."""
+    call, the restore in the traversal's store once a call (an unsorted any
+    hit needs none), the packet order once a call."""
     scene = graph_scene(route, False, cuda, monkeypatch)
     acc = scene.accel
     cfg = RenderConfig(**{**GRAPH_BASE, "sort_rays": sort_rays})

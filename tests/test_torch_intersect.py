@@ -446,13 +446,15 @@ def test_cluster_accel_dispatch(request, monkeypatch, which, kw, small_line, wan
     calls = []
 
     def spy(route, n_lead):
-        def call(*args):
+        def call(*args, restore=False, perm=None):
             tris, rest = args[0], args[n_lead:]
             branch = rest[5] if route != "flat" else None
             calls.append((route, rest[4], branch, rest[-1]))
             assert tris is (t.accel.tris16 if rest[-1] == "mt" else t.accel.tris16bw)
             n = rest[0].shape[0]
-            return (torch.zeros(n), torch.full((n,), ic.MISS_PRIM, dtype=torch.int32), torch.zeros(n, 2))
+            raw = (torch.zeros(n), torch.full((n,), ic.MISS_PRIM, dtype=torch.int32), torch.zeros(n, 2))
+            assert restore  # the accel takes its Hit in caller order from the wrapper
+            return ray_sort.restore_hits_plain(raw, perm)
         return call
 
     monkeypatch.setattr(cluster_mod, "intersect_clusters", spy("flat", 3))

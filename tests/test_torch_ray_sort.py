@@ -23,6 +23,7 @@ from tpu_pathtracer.scene import procedural as j_proc  # noqa: E402
 
 from tpu_pathtracer_torch.accel.build import build_accel  # noqa: E402
 from tpu_pathtracer_torch.config import RenderConfig  # noqa: E402
+from tpu_pathtracer_torch.ops import intersect_cluster as ic  # noqa: E402
 from tpu_pathtracer_torch.ops import ray_sort  # noqa: E402
 from tpu_pathtracer_torch.scene import procedural  # noqa: E402
 
@@ -169,7 +170,7 @@ def jax_unsorted_hit(best_t, best_prim, bary):
 @pytest.mark.parametrize("sorted_", [True, False], ids=["perm", "identity"])
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
 def test_restore_hits_matches_jax(scenes, any_hit, sorted_):
-    """The plain restore_hits against the JAX accel's restore (the packed
+    """restore_hits_plain against the JAX accel's restore (the packed
     row through sort_by_key's restore, then the Hit; any hit: the flags
     through the same restore), with a third of the lanes missing, through
     a permutation of a real sort key and without one.  The restore does no
@@ -192,12 +193,12 @@ def test_restore_hits_matches_jax(scenes, any_hit, sorted_):
                                             t.accel.scene_hi, 7, 2), stable=True).indices
     if any_hit:
         want = np.asarray(restore_j(jnp.asarray(occ))) if sorted_ else occ
-        got = ray_sort.restore_hits(torch.as_tensor(occ), perm)
+        got = ray_sort.restore_hits_plain(torch.as_tensor(occ), perm)
         np.testing.assert_array_equal(got.numpy(), want)
         return
     sorted_out = (jnp.asarray(best_t), jnp.asarray(best_prim), jnp.asarray(bary))
     want = jax_packed_restore(restore_j, *sorted_out) if sorted_ else jax_unsorted_hit(*sorted_out)
-    got = ray_sort.restore_hits(tuple(torch.as_tensor(x) for x in (best_t, best_prim, bary)), perm)
+    got = ray_sort.restore_hits_plain(tuple(torch.as_tensor(x) for x in (best_t, best_prim, bary)), perm)
     for name, w in zip(("t", "prim", "bary", "hit"), want):
         np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(w), err_msg=name)
     assert 0 < int(got.hit.sum()) < n
@@ -257,13 +258,16 @@ def test_cluster_accel_occluded_masked_matches_jax(request, monkeypatch, which, 
 
 
 @pytest.mark.parametrize("kernel", ["sort_rays", "sort_rays_masked", "restore_hits", "packet_order"])
-def test_cuda_entries_refuse_cpu_tensors(kernel):
-    """No ray-order kernel entry falls back to its plain version."""
+def test_cuda_entries_refuse_cpu_tensors(scenes, kernel):
+    """No ray-order kernel entry falls back to its plain version; the
+    restore is the traversal kernel's store, through perm."""
     o, d = torch.zeros((4, 3)), torch.ones((4, 3))
     perm = torch.arange(4)
+    acc = scenes[1].accel
     call = dict(sort_rays=lambda: ray_sort.sort_rays_cuda(o, d, o[0], d[0], 7, 2),
                 sort_rays_masked=lambda: ray_sort.sort_rays_cuda(o, d, o[0], d[0], 0, 2, torch.ones(4, dtype=bool)),
-                restore_hits=lambda: ray_sort.restore_hits_cuda((o[:, 0], perm.int(), o[:, :2]), perm),
+                restore_hits=lambda: ic.intersect_clusters_cuda(acc.tris16bw, acc.aabb8, acc.order, o, d, T_MIN, T_MAX,
+                                                                1024, restore=True, perm=perm),
                 packet_order=lambda: ray_sort.packet_order_cuda(perm.int()))[kernel]
     with pytest.raises(ValueError, match="CUDA"):
         call()

@@ -28,7 +28,7 @@ from tpu_pathtracer_torch.ops.intersect_cluster import (
     occluded_clusters_streamed,
     streamed_pads,
 )
-from tpu_pathtracer_torch.ops.ray_sort import restore_hits, sort_rays
+from tpu_pathtracer_torch.ops.ray_sort import sort_rays
 
 # Scenes with more rows than this take the streamed kernel; at or below
 # it, the two-level kernel from cfg.hier_min_clusters clusters up and the
@@ -131,7 +131,8 @@ class ClusterAccel:
 
     def intersect(self, vertices, origins, directions, t_min, t_max, cfg) -> Hit:
         """Closest hit over all clusters: sort the rays for coherence, run
-        the route's packet kernel, put the results back in caller order."""
+        the route's packet kernel, which writes the results back in caller
+        order."""
         origins, directions, perm = self.sort(origins, directions, cfg)
         route, args = self.traversal(origins, directions, t_min, t_max, cfg)
         wrapper = {
@@ -139,12 +140,12 @@ class ClusterAccel:
             "hier": intersect_clusters_hier,
             "streamed": intersect_clusters_streamed,
         }[route]
-        return restore_hits(wrapper(*args), perm)
+        return wrapper(*args, restore=True, perm=perm)
 
     def occluded(self, vertices, origins, directions, t_min, t_max, cfg, active=None) -> torch.Tensor:
         """Any hit over all clusters: [N] bool, True where the segment
         (t_min, t_max) is blocked.  The same sort and route as `intersect`,
-        through the route's any-hit kernel, flags restored to caller order.
+        through the route's any-hit kernel, flags written in caller order.
         Lanes outside `active` are parked (see `sort`); their flags are
         unspecified and callers mask on `active`."""
         origins, directions, perm = self.sort(origins, directions, cfg, active)
@@ -154,7 +155,7 @@ class ClusterAccel:
             "hier": occluded_clusters_hier,
             "streamed": occluded_clusters_streamed,
         }[route]
-        return restore_hits(wrapper(*args), perm)
+        return wrapper(*args, restore=True, perm=perm)
 
 
 def octant_orders(aabbs: np.ndarray) -> np.ndarray:

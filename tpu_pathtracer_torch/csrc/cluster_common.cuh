@@ -154,14 +154,24 @@ struct Best {
   float u, v;
 };
 
-__device__ __forceinline__ void store_best(const Best& best, int i, int n, float* t_out,
-                                           int* prim_out, float* uv_out) {
-  if (i < n) {
-    t_out[i] = best.t;
-    prim_out[i] = best.prim;
-    uv_out[2 * i] = best.u;
-    uv_out[2 * i + 1] = best.v;
-  }
+// The raw outputs of ray i: t, prim (kMissPrim on a miss) and uv.
+__device__ __forceinline__ void store_best(const Best& best, int i, float* t_out, int* prim_out, float* uv_out) {
+  t_out[i] = best.t;
+  prim_out[i] = best.prim;
+  uv_out[2 * i] = best.u;
+  uv_out[2 * i + 1] = best.v;
+}
+
+// The Hit of the ray in caller row `row` (restore_hits_plain): t, prim
+// with -1 on a miss, bary with 0 on a miss (one 8-byte store), the hit
+// byte.
+__device__ __forceinline__ void store_hit(const Best& best, long long row, float* t_out, int* prim_out,
+                                          float* bary_out, unsigned char* hit_out) {
+  const bool hit = best.prim != kMissPrim;
+  t_out[row] = best.t;
+  prim_out[row] = hit ? best.prim : -1;
+  reinterpret_cast<float2*>(bary_out)[row] = hit ? make_float2(best.u, best.v) : make_float2(0.0f, 0.0f);
+  hit_out[row] = hit ? 1 : 0;
 }
 
 }  // namespace cluster_traversal

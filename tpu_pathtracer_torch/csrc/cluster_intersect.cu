@@ -36,18 +36,20 @@
 
 #include "cluster_streamed.cuh"
 
-// tri_test 0 = Baldwin-Weber rows, 1 = Moller-Trumbore rows.  `visit` is
-// each octant's visit order ([8,C]); `order` null or the packet each
-// thread block cluster takes.  Returns the launch's error (0 = launched).
+// tri_test 0 = Baldwin-Weber rows, 1 = Moller-Trumbore rows. `visit` is each
+// octant's visit order ([8,C]); `order` null or the packet each thread block
+// cluster takes. `perm` null (raw outputs in the rays' order, or with hit_out
+// the Hit) or each ray's caller row (with hit_out: the Hit in caller order);
+// see streamed_kernel. Returns the launch's error (0 = launched).
 extern "C" int cluster_intersect_launch(
     const float* tris, const float* aabb, const int* visit, const float* origins,
     const float* dirs, const int* order, int n, int num_clusters, int cluster_k,
-    float t_min, float t_max, int rays_per_packet, int tri_test, float* t_out,
-    int* prim_out, float* uv_out, void* stream) {
+    float t_min, float t_max, int rays_per_packet, int tri_test, const long long* perm, float* t_out,
+    int* prim_out, float* uv_out, unsigned char* hit_out, void* stream) {
   return cluster_traversal::launch_streamed<false, cluster_traversal::kFlat>(
       tris, aabb, aabb, visit, origins, dirs, order, n, num_clusters, 1,
-      num_clusters, cluster_k, t_min, t_max, rays_per_packet, tri_test, t_out,
-      prim_out, uv_out, nullptr, stream);
+      num_clusters, cluster_k, t_min, t_max, rays_per_packet, tri_test, perm, t_out,
+      prim_out, uv_out, hit_out, nullptr, stream);
 }
 
 // Each packet's work estimate into weights[packets] (packet_weight_kernel).

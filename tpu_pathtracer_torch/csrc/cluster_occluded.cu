@@ -35,16 +35,17 @@
 
 // tri_test 0 = Baldwin-Weber rows, 1 = Moller-Trumbore rows.  `visit` is
 // each octant's visit order ([8,C]); `order` null or the packet each
-// thread block cluster takes.  Returns the launch's error (0 = launched).
+// thread block cluster takes.  `perm` null or each ray's caller
+// row: the flags go to that row.  Returns the launch's error (0 = launched).
 extern "C" int cluster_occluded_launch(
     const float* tris, const float* aabb, const int* visit, const float* origins,
     const float* dirs, const int* order, int n, int num_clusters, int cluster_k,
     float t_min, float t_max, int rays_per_packet, int tri_test,
-    unsigned char* occ_out, void* stream) {
+    const long long* perm, unsigned char* occ_out, void* stream) {
   return cluster_traversal::launch_streamed<true, cluster_traversal::kFlat>(
       tris, aabb, aabb, visit, origins, dirs, order, n, num_clusters, 1,
-      num_clusters, cluster_k, t_min, t_max, rays_per_packet, tri_test, nullptr,
-      nullptr, nullptr, occ_out, stream);
+      num_clusters, cluster_k, t_min, t_max, rays_per_packet, tri_test, perm, nullptr,
+      nullptr, nullptr, nullptr, occ_out, stream);
 }
 
 // Each packet's work estimate into weights[packets] (packet_weight_kernel).

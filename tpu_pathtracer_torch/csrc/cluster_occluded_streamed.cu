@@ -34,17 +34,18 @@
 #include "cluster_streamed.cuh"
 
 // tri_test 0 = Baldwin-Weber rows, 1 = Moller-Trumbore rows.  `order` is
-// null or the packet each cluster takes.  Returns the launch's error
+// null or the packet each cluster takes.  `perm` null or each ray's caller
+// row: the flags go to that row.  Returns the launch's error
 // (0 = launched).
 extern "C" int cluster_occluded_streamed_launch(
     const float* tris, const float* aabb_child, const float* aabb_super,
     const float* origins, const float* dirs, const int* order, int n,
     int num_supers, int branch, int num_clusters, int cluster_k, float t_min,
-    float t_max, int rays_per_packet, int tri_test, unsigned char* occ_out, void* stream) {
+    float t_max, int rays_per_packet, int tri_test, const long long* perm, unsigned char* occ_out, void* stream) {
   return cluster_traversal::launch_streamed<true, cluster_traversal::kAscending>(
       tris, aabb_child, aabb_super, nullptr, origins, dirs, order, n, num_supers, branch,
       num_clusters, cluster_k, t_min, t_max, rays_per_packet, tri_test,
-      nullptr, nullptr, nullptr, occ_out, stream);
+      perm, nullptr, nullptr, nullptr, nullptr, occ_out, stream);
 }
 
 // Each packet's work estimate into weights[packets] (packet_weight_kernel).

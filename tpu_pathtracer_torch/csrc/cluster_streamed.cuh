@@ -307,10 +307,19 @@ __device__ __forceinline__ void occlude_cluster_split(const float4* rows, int cl
 
 // Grid: packets x G blocks in clusters of G; block: rays_per_packet / G
 // rays x T threads (a multiple of 32).  Dynamic shared memory: two row
-// buffers of cluster_k x 48 B.  Closest hit writes t_out, prim_out and
-// uv_out, any hit occ_out; the other pointers are unused.  order_super is
-// read in kPerPacket and kFlat order only, aabb_child and branch not in
-// kFlat order (there the supers are the clusters: num_supers = C).
+// buffers of cluster_k x 48 B.  order_super is read in kPerPacket and
+// kFlat order only, aabb_child and branch not in kFlat order (there the
+// supers are the clusters: num_supers = C).
+// The outputs.  Any hit writes occ_out; closest hit writes t_out and
+// prim_out, and either uv_out (hit_out null: the raw outputs, prim
+// kMissPrim on a miss) or, with hit_out, the Hit (store_hit: prim -1 and
+// bary 0 on a miss, the hit byte) into uv_out as bary.  A row's outputs go
+// to row perm[i] where perm is given (the rays were sorted: row i is the
+// caller's ray perm[i]; closest hit only with hit_out), else to row i.  So
+// the traversal's store is the restore of the sorted outputs into caller
+// order, and needs no launch of its own.  The one thread of ray i with
+// sub == 0 stores it (the packet's other blocks hold other rays), and
+// padding rays (i >= n) store nothing.
 template <bool kAnyHit, VisitOrder kVisit, int kTest, int T>
 __global__ void __launch_bounds__(kMaxThreads) streamed_kernel(
     const float4* __restrict__ tris,        // [C,K,4] float4
@@ -322,9 +331,11 @@ __global__ void __launch_bounds__(kMaxThreads) streamed_kernel(
     const int* __restrict__ order,          // [packets]: the packet each cluster takes, or null
     int n, int num_supers, int branch, int num_clusters, int cluster_k, int rays_per_packet,
     float t_min, float t_max,
+    const long long* __restrict__ perm,     // [N]: the caller's row of each ray, or null
     float* __restrict__ t_out,              // [N]
     int* __restrict__ prim_out,             // [N]
-    float* __restrict__ uv_out,             // [N,2]
+    float* __restrict__ uv_out,             // [N,2]: uv, or the Hit's bary
+    unsigned char* __restrict__ hit_out,    // [N] bool, or null
     unsigned char* __restrict__ occ_out) {  // [N] bool
   extern __shared__ float4 rows[];  // [2][3][K] float4
   __shared__ unsigned int slots[3];
@@ -337,6 +348,11 @@ __global__ void __launch_bounds__(kMaxThreads) streamed_kernel(
   const int ray = rank * (blockDim.x / T) + (threadIdx.x >> 5) * Lanes<T>::kRays + lane % Lanes<T>::kRays;
   const int i = packet * rays_per_packet + ray;
   const Ray r = load_ray(origins, dirs, i, n);
+  // The row the store at the end writes (perm[i], else i), read now by the
+  // thread that stores it, so that the packet's tail waits for no load
+  // (PERF.md §6: it adds less to the traversal than a prefetch to L2 at
+  // entry and a read at the end).
+  const long long row = perm != nullptr && sub == 0 && i < n ? __ldg(perm + i) : i;
   const unsigned int my_bits = Lanes<T>::kEveryT << sub;  // the boxes of a vote this thread tests
   // The supers by visit position: the octant of the packet's first ray
   // picks the row of order_super (every block of the packet reads that ray).
@@ -439,9 +455,11 @@ __global__ void __launch_bounds__(kMaxThreads) streamed_kernel(
   __pipeline_wait_prior(0);
   if (sub == 0 && i < n) {
     if (kAnyHit) {
-      occ_out[i] = occluded ? 1 : 0;
+      occ_out[row] = occluded ? 1 : 0;
+    } else if (hit_out != nullptr) {
+      store_hit(best, row, t_out, prim_out, uv_out, hit_out);
     } else {
-      store_best(best, i, n, t_out, prim_out, uv_out);
+      store_best(best, i, t_out, prim_out, uv_out);
     }
   }
 }
@@ -483,7 +501,7 @@ inline int launch_packet_weights(const float* aabb_super, const float* origins, 
 
 using StreamedKernel = void (*)(const float4*, const float*, const float*, const int*, const float*,
                                 const float*, const int*, int, int, int, int, int, int, float, float,
-                                float*, int*, float*, unsigned char*);
+                                const long long*, float*, int*, float*, unsigned char*, unsigned char*);
 
 template <bool kAnyHit, VisitOrder kVisit, int kTest>
 StreamedKernel streamed_kernel_for(int threads_per_ray) {
@@ -558,15 +576,18 @@ struct StreamedLaunch {
 
 // Launches packets x G blocks in clusters of G on `stream`; cluster b takes
 // packet order[b], or packet b where `order` is null.  order_super is the
-// per-octant visit order of kPerPacket (null for kAscending).  Returns the
-// launch's error, or cudaGetLastError() after it (0 = launched).
+// per-octant visit order of kPerPacket (null for kAscending).  perm and
+// hit_out as streamed_kernel takes them: closest hit with perm needs
+// hit_out.  Returns the launch's error, or cudaGetLastError() after it (0 =
+// launched).
 template <bool kAnyHit, VisitOrder kVisit>
 int launch_streamed(const float* tris, const float* aabb_child, const float* aabb_super,
                     const int* order_super, const float* origins, const float* dirs, const int* order, int n,
                     int num_supers, int branch, int num_clusters, int cluster_k, float t_min,
-                    float t_max, int rays_per_packet, int tri_test, float* t_out, int* prim_out,
-                    float* uv_out, unsigned char* occ_out, void* stream) {
+                    float t_max, int rays_per_packet, int tri_test, const long long* perm, float* t_out,
+                    int* prim_out, float* uv_out, unsigned char* hit_out, unsigned char* occ_out, void* stream) {
   if (n <= 0) return 0;
+  if (!kAnyHit && perm != nullptr && hit_out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   StreamedPlan plan;
   const int planned = plan_streamed<kAnyHit, kVisit>(n, rays_per_packet, cluster_k, tri_test, plan);
   if (planned) return planned;
@@ -574,7 +595,7 @@ int launch_streamed(const float* tris, const float* aabb_child, const float* aab
   const cudaError_t err = cudaLaunchKernelEx(
       &launch.config, plan.kernel, reinterpret_cast<const float4*>(tris), aabb_child, aabb_super,
       order_super, origins, dirs, order, n, num_supers, branch, num_clusters, cluster_k, rays_per_packet, t_min,
-      t_max, t_out, prim_out, uv_out, occ_out);
+      t_max, perm, t_out, prim_out, uv_out, hit_out, occ_out);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,15 +1,15 @@
 // The traversal's ray ordering for Hopper: the coherence sort of the rays
 // (the key, with the shadow rays' parking, and a stable radix sort that
-// gathers the rays into key order as it writes its last pass), the restore
-// of the traversal's outputs into caller order (the Hit, or the any-hit
-// flags), and the order in which a traversal kernel takes its packets
-// (heaviest first).
+// gathers the rays into key order as it writes its last pass) and the
+// order in which a traversal kernel takes its packets (heaviest first).
+// The restore of the traversal's outputs into caller order is the
+// traversal's own store (csrc/cluster_streamed.cuh, through perm).
 //
 // Replaces no TPU kernel: in the JAX package this is work that XLA fuses
 // inside the jitted loop around the Pallas traversal kernels
 // (tpu_pathtracer/ops/intersect_pallas.py: ray_sort_key :1141, sort_by_key
 // :1392, whose lax.sort_key_val is a library sort; tpu_pathtracer/accel/
-// cluster.py: the parking :354-365 and the packed restore :293-325).  The
+// cluster.py: the parking :354-365).  The
 // plain versions are the port's eager code in ops/ray_sort.py (the sort's:
 // the key, torch.sort(key, stable=True), the gather); each kernel is
 // bit-equal to its plain version (built with -fmad=false; the one float
@@ -26,9 +26,6 @@
 //   the keys (equal keys in index order: torch.sort(stable=True)'s and
 //   lax.sort_key_val's permutation), and row i of the sorted rays = ray
 //   perm[i], parked the same way (the caller's rays are left as they are);
-// * restore_hits: row i of the traversal's sorted outputs into row perm[i]
-//   (row i without perm): t, prim (-1 on a miss), bary (0 on a miss) and
-//   the hit flag; or the any-hit flags;
 // * packet_order: rank_i = #{j : w_j > w_i} + #{j < i : w_j == w_i}, and
 //   order[rank_i] = i, which is a stable descending argsort of the weights.
 //   Each block stages the weights in shared memory in chunks of 4,096 (the
@@ -77,15 +74,14 @@
 //
 // What bounds them.  Bytes, and at the main path's pools the launch:
 // the sort must read each ray (24 B, 1 for a parked lane's mask byte and
-// its ray not at all) and write each sorted ray and perm (32 B); the
-// restore 41 B a hit, 33 a miss or 10 any hit; 1.3-7.5 MB at 131,072 rays,
-// 0.4-2.2 us at 3.35 TB/s.  The sort's key and index scratch (16 B a key a
+// its ray not at all) and write each sorted ray and perm (32 B); 1.3-7.3
+// MB at 131,072 rays, 0.4-2.2 us at 3.35 TB/s.  The sort's key and index scratch (16 B a key a
 // pass) stays in the 50 MB L2 at these sizes.  At 131,072 rays (128 tiles
 // of 1,024 keys, a block on each of 128 SMs) each launch of the sort is a
 // chain of dependent steps (ticket, loads, ranks, look-back, scan,
 // stores), and the chain, not the bytes, sets its time (PERF.md §6).
-// The sort's final rays and the restore's writes are scattered by the
-// permutation, in rows of 12 and 4-8 bytes.  packet_order moves 8 B a packet; the function, a sort,
+// The sort's final rays are scattered by the permutation, in rows of 12
+// bytes.  packet_order moves 8 B a packet; the function, a sort,
 // needs P log2 P compares, and this kernel makes P^2 (16.8 M at 4,096
 // packets, spread over every SM).
 
@@ -102,7 +98,6 @@ constexpr int kThreads = 256;
 constexpr int kOrderChunk = 4096;  // weights staged in shared memory at a time
 constexpr int kOrderPerWarp = 4;    // packets a warp ranks
 constexpr int kOrderPerBlock = kThreads / 32 * kOrderPerWarp;
-constexpr int kMissPrim = 0x7FFFFFFF;
 
 // The radix sort.
 constexpr int kRadixBits = 8;
@@ -562,34 +557,6 @@ __global__ void __launch_bounds__(kThreads) sort_pass_kernel(SortArgs a, int pas
   }
 }
 
-__global__ void __launch_bounds__(kThreads) restore_hits_kernel(
-    const long long* __restrict__ perm,      // [n], or null (the identity)
-    const float* __restrict__ t,             // [n] closest hit, sorted
-    const int* __restrict__ prim,            // [n] kMissPrim on a miss
-    const float* __restrict__ uv,            // [n,2]
-    const unsigned char* __restrict__ occ,   // [n] any hit, sorted; null for closest hit
-    int n,
-    float* __restrict__ t_out,               // [n]
-    int* __restrict__ prim_out,              // [n] -1 on a miss
-    float* __restrict__ bary_out,            // [n,2] 0 on a miss
-    unsigned char* __restrict__ hit_out,     // [n]
-    unsigned char* __restrict__ occ_out) {   // [n]
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const long long dst = perm != nullptr ? perm[i] : i;
-  if (occ != nullptr) {
-    occ_out[dst] = occ[i];
-    return;
-  }
-  const int p = prim[i];
-  const bool hit = p != kMissPrim;
-  t_out[dst] = t[i];
-  prim_out[dst] = hit ? p : -1;
-  bary_out[2 * dst] = hit ? uv[2 * i] : 0.0f;
-  bary_out[2 * dst + 1] = hit ? uv[2 * i + 1] : 0.0f;
-  hit_out[dst] = hit ? 1 : 0;
-}
-
 __global__ void __launch_bounds__(kThreads) packet_order_kernel(
     const int* __restrict__ weights,         // [p]
     int p,
@@ -617,8 +584,6 @@ __global__ void __launch_bounds__(kThreads) packet_order_kernel(
     if (lane == 0 && first + r < p) order[total] = first + r;
   }
 }
-
-int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 template <int Items>
 cudaError_t launch_tiles(const SortArgs& a, cudaStream_t s) {
@@ -668,16 +633,6 @@ extern "C" int ray_sort_rays_launch(const float* origins, const float* direction
   }
   return static_cast<int>(items == 4 ? launch_tiles<4>(a, s) : items == 8 ? launch_tiles<8>(a, s)
                                                                           : launch_tiles<16>(a, s));
-}
-
-extern "C" int ray_sort_restore_launch(const long long* perm, const float* t, const int* prim, const float* uv,
-                                       const unsigned char* occ, int n, float* t_out, int* prim_out,
-                                       float* bary_out, unsigned char* hit_out, unsigned char* occ_out,
-                                       void* stream) {
-  if (n <= 0) return 0;
-  restore_hits_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      perm, t, prim, uv, occ, n, t_out, prim_out, bary_out, hit_out, occ_out);
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int ray_sort_order_launch(const int* weights, int p, int* order, void* stream) {

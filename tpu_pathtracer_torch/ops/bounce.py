@@ -128,6 +128,8 @@ def _scene_args(scene, cfg, dev, nee: bool):
     )
     if nee:
         t["alias"] = kernel_arg("env.alias_table", env.alias_table, torch.float32, (env.height * env.width, 4), dev)
+    for name, align in (("tri_attrs", 16), ("mat_attrs", 16)):
+        _aligned(name, t[name], align)
     ints = dict(env_h=env.height, env_w=env.width, env_mode=ENV_MODES[cfg.env_mode],
                 env_scrambled=int(env.quads_scrambled), flip_v=int(cfg.flip_v), bundled=int(m.bundled),
                 morton=int(m.bundled_morton), scrambled=int(m.bundled_scrambled), pow2=int(m.bundled_pow2_dims),
@@ -136,11 +138,20 @@ def _scene_args(scene, cfg, dev, nee: bool):
     return t, ints
 
 
+def _aligned(name, x, align):
+    """Raise unless `x` starts on an `align`-byte boundary: the kernel reads
+    its rows as 8- or 16-byte vectors."""
+    if x.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
+
+
 def _lane_args(hit, origin, direction, seeds, depth, n, dev) -> dict:
+    bary = kernel_arg("hit.bary", hit.bary, torch.float32, (n, 2), dev)
+    _aligned("hit.bary", bary, 8)
     return dict(
         hit_t=kernel_arg("hit.t", hit.t, torch.float32, (n,), dev),
         hit_prim=kernel_arg("hit.prim", hit.prim, torch.int32, (n,), dev),
-        hit_bary=kernel_arg("hit.bary", hit.bary, torch.float32, (n, 2), dev),
+        hit_bary=bary,
         hit=kernel_arg("hit.hit", hit.hit, torch.bool, (n,), dev),
         origin=kernel_arg("origin", origin, torch.float32, (n, 3), dev),
         direction=kernel_arg("direction", direction, torch.float32, (n, 3), dev),
@@ -170,13 +181,10 @@ def _launch(source: str, fn: str, params, *args, stream) -> None:
         raise RuntimeError(f"{fn} failed: CUDA error {err}")
 
 
-def bounce(scene, cfg, hit, origin, direction, attenuation, radiance, seeds, depth, spec_last=None) -> dict:
-    """Launch the bounce kernel on `hit` (the closest hits of the rays
-    origin/direction): returns `_trace_bounce`'s payload (radiance,
-    attenuation, origin, direction, done, seeds: new tensors; under NEE
-    radiance is still without the light's share) and, under
-    cfg.env_importance_sampling, the shadow rays (shadow_origin,
-    shadow_dir), their candidate mask `cand` and the NEE kernel's `record`."""
+def bounce_args(scene, cfg, hit, origin, direction, attenuation, radiance, seeds, depth, spec_last=None):
+    """The bounce kernel's launch on these lanes, not yet made: (its
+    BounceParams, its output tensors by `bounce`'s keys, the tensors the
+    launch reads, which the caller keeps alive over it)."""
     dev = origin.device
     n = origin.shape[0]
     nee = cfg.env_importance_sampling
@@ -196,10 +204,21 @@ def bounce(scene, cfg, hit, origin, direction, attenuation, radiance, seeds, dep
     names = dict(radiance="radiance_out", attenuation="attenuation_out", origin="origin_out",
                  direction="direction_out", done="done_out", seeds="seeds_out")
     tensors = {**scene_t, **lanes, **{names.get(k, k): v for k, v in out.items()}}
-    params = _params(BounceParams, tensors, dict(ints, n=n, slots=0),
-                     pack_consts(cfg))
-    if n:
-        _launch("bounce.cu", "bounce_launch", params, 0, stream=torch.cuda.current_stream(dev).cuda_stream)
+    params = _params(BounceParams, tensors, dict(ints, n=n, slots=0), pack_consts(cfg))
+    return params, out, tensors
+
+
+def bounce(scene, cfg, hit, origin, direction, attenuation, radiance, seeds, depth, spec_last=None) -> dict:
+    """Launch the bounce kernel on `hit` (the closest hits of the rays
+    origin/direction): returns `_trace_bounce`'s payload (radiance,
+    attenuation, origin, direction, done, seeds: new tensors; under NEE
+    radiance is still without the light's share) and, under
+    cfg.env_importance_sampling, the shadow rays (shadow_origin,
+    shadow_dir), their candidate mask `cand` and the NEE kernel's `record`."""
+    params, out, _ = bounce_args(scene, cfg, hit, origin, direction, attenuation, radiance, seeds, depth, spec_last)
+    if origin.shape[0]:
+        stream = torch.cuda.current_stream(origin.device).cuda_stream
+        _launch("bounce.cu", "bounce_launch", params, 0, stream=stream)
         bounce.launches += 1
     return out
 
@@ -227,6 +246,19 @@ def shade_lanes(scene, cfg, hit, origin, direction, seeds, depth, lane_of_slot, 
     if slots:
         _launch("bounce.cu", "bounce_launch", params, 1, stream=torch.cuda.current_stream(dev).cuda_stream)
         bounce.launches += 1
+
+
+def kernel_attributes(entry: int = 0) -> dict:
+    """What the card made of the bounce kernel (entry 0) or the deferred
+    shade (entry 1), from cudaFuncGetAttributes: registers and local memory
+    (stack and spills, bytes) a thread, static shared memory a block,
+    threads a block, and the blocks an SM holds at once.  Builds the
+    library if need be; launches nothing."""
+    out = (ctypes.c_int * 5)()
+    err = library("bounce.cu").bounce_attributes(entry, out)
+    if err:
+        raise RuntimeError(f"bounce_attributes failed: CUDA error {err}")
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "threads", "blocks_per_sm"), out))
 
 
 def next_event(scene, cfg, b: dict, occluded, direction, attenuation):

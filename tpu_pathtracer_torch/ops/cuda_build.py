@@ -24,6 +24,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -47,27 +48,27 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LAUNCHERS = {
     "cluster_intersect.cu": (
         "cluster_intersect_launch",
-        [_P] * 6 + [_I] * 3 + [_F] * 2 + [_I] * 2 + [_P] * 4,
+        [_P] * 6 + [_I] * 3 + [_F] * 2 + [_I] * 2 + [_P] * 6,
     ),
     "cluster_hier.cu": (
         "cluster_hier_launch",
-        [_P] * 7 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 4,
+        [_P] * 7 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 6,
     ),
     "cluster_streamed.cu": (
         "cluster_streamed_launch",
-        [_P] * 6 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 4,
+        [_P] * 6 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 6,
     ),
     "cluster_occluded.cu": (
         "cluster_occluded_launch",
-        [_P] * 6 + [_I] * 3 + [_F] * 2 + [_I] * 2 + [_P] * 2,
+        [_P] * 6 + [_I] * 3 + [_F] * 2 + [_I] * 2 + [_P] * 3,
     ),
     "cluster_occluded_hier.cu": (
         "cluster_occluded_hier_launch",
-        [_P] * 7 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 2,
+        [_P] * 7 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 3,
     ),
     "cluster_occluded_streamed.cu": (
         "cluster_occluded_streamed_launch",
-        [_P] * 6 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 2,
+        [_P] * 6 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 3,
     ),
     # the launch's arguments by pointer (a struct mirrored by ctypes), the
     # entry point (the stream step or the path step), the stream
@@ -81,8 +82,8 @@ LAUNCHERS = {
     # the sort: origins, directions, scene lo, hi, active (or null), n,
     # spatial bits, direction bits, digit passes, key and index scratch
     # (null up to 16,384 rays), the status scratch, tiles, origins out,
-    # directions out, perm out, stream; the restore and the packet order
-    # are HELPERS of the same library
+    # directions out, perm out, stream; the packet order is a HELPER of
+    # the same library
     "ray_sort.cu": ("ray_sort_rays_launch", [_P] * 5 + [_I] * 4 + [_P] * 3 + [_I] * 2 + [_P] * 4),
 }
 # source: {another function of its library: the function's argument types}.
@@ -100,17 +101,15 @@ HELPERS = {
 # The shading kernels and the schedule steps report the size of their
 # argument struct; the bounce kernel's library also holds the probe of the
 # math functions it calls (a, b, out, n, which function, pow's exponent,
-# stream).
+# stream)
 HELPERS.update({f"{stem}.cu": {f"{stem}_params_size": []}
                 for stem in ("bounce", "nee", "camera", "fused_schedule")})
 HELPERS["bounce.cu"]["shade_math_probe"] = [_P] * 3 + [_I] * 2 + [_F] + [_P]
-# The ray ordering's other kernels: the restore (perm, t, prim, uv,
-# occluded, n, t out, prim out, bary out, hit out, occluded out, stream)
-# and the packet order (weights, packets, order out, stream).
-HELPERS["ray_sort.cu"] = {
-    "ray_sort_restore_launch": [_P] * 5 + [_I] + [_P] * 6,
-    "ray_sort_order_launch": [_P] + [_I] + [_P] * 2,
-}
+# and the report of what the card made of its kernels (entry, int out[5])
+HELPERS["bounce.cu"]["bounce_attributes"] = [_I, ctypes.POINTER(ctypes.c_int)]
+# The ray ordering's other kernel: the packet order (weights, packets,
+# order out, stream).
+HELPERS["ray_sort.cu"] = {"ray_sort_order_launch": [_P] + [_I] + [_P] * 2}
 
 
 def check_tensor(name, x, dtype, shape, dev) -> None:
@@ -226,6 +225,25 @@ def build_libraries(names=None) -> None:
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
+
+
+def ptxas_report(log: str) -> dict:
+    """nvcc's `-Xptxas -v` report (a library's `.log`): {kernel (its
+    mangled name): {"registers", "stack", "spill_stores", "spill_loads"}}
+    of each entry function, in bytes but registers."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out.setdefault(name, {}).update(zip(("stack", "spill_stores", "spill_loads"), map(int, m.groups())))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return {k: v for k, v in out.items() if "registers" in v}
 
 
 @functools.lru_cache(maxsize=None)

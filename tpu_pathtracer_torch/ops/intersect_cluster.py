@@ -17,6 +17,16 @@ packet size as a parameter: a packet takes its visit order from its
 first ray and tests a cluster when any of its rays overlaps it, so the
 packet size can change which cluster wins an exact tie in t, and which
 ray a rounding miss of a box leaves untested.
+
+Each wrapper returns the raw outputs in the rays' order, (t, prim with
+MISS_PRIM on a miss, uv) or the any-hit flags, or with `restore=True` the
+caller's: a `Hit` (prim -1 and bary 0 on a miss) or the flags, row i of
+the rays written to row perm[i] (`perm` None: the identity), which is
+`ops.ray_sort.restore_hits_plain` of the raw outputs.  On the card the
+kernel does that restore in its store, so it needs no launch of its own;
+`caller_order_stores.launches` counts those launches.  Under
+`ops.cuda_build.plain()` the kernel stores raw outputs and the plain
+restore follows.
 """
 
 from __future__ import annotations
@@ -25,8 +35,9 @@ import ctypes
 
 import torch
 
-from tpu_pathtracer_torch.ops.cuda_build import check_tensor, library
-from tpu_pathtracer_torch.ops.ray_sort import MISS_PRIM, packet_order
+from tpu_pathtracer_torch.ops.cuda_build import check_tensor, kernel_arg, library, on_card
+from tpu_pathtracer_torch.ops.intersect import Hit
+from tpu_pathtracer_torch.ops.ray_sort import MISS_PRIM, packet_order, restore_hits_plain
 
 _PAD_ORIGIN_X = 3.0e37
 _BIG_INV = 3.4e38
@@ -432,14 +443,15 @@ def _check_launch(tris, origins, directions, rays_per_tile, tri_test, boxes):
         raise ValueError("tris must be 16-byte aligned")
 
 
-def _hit_outputs(origins):
-    """(t, prim, uv) for a closest-hit kernel to fill."""
+def _hit_outputs(origins, restore=False):
+    """(t, prim, uv) for a closest-hit kernel to fill, and with `restore`
+    the Hit's flags (the kernel writes bary into uv's place)."""
     n, dev = origins.shape[0], origins.device
     return (
         torch.empty(n, dtype=torch.float32, device=dev),
         torch.empty(n, dtype=torch.int32, device=dev),
         torch.empty((n, 2), dtype=torch.float32, device=dev),
-    )
+    ) + ((torch.empty(n, dtype=torch.bool, device=dev),) if restore else ())
 
 
 def _stream(origins):
@@ -447,20 +459,20 @@ def _stream(origins):
 
 
 def intersect_clusters_cuda(tris, aabb8, order, origins, directions, t_min: float, t_max: float,
-                            rays_per_tile: int, tri_test: str = "bw"):
+                            rays_per_tile: int, tri_test: str = "bw", restore: bool = False, perm=None):
     """Launch the flat kernel on CUDA tensors; same contract as the plain
-    version."""
+    version, and with `restore` the wrapper's."""
     return _traversal_cuda(intersect_clusters, "flat", tris, (aabb8, order), origins, directions, t_min, t_max,
-                           rays_per_tile, 1, tri_test)
+                           rays_per_tile, 1, tri_test, restore, perm)
 
 
 def intersect_clusters_hier_cuda(tris, aabb_child, aabb_super, order_super, origins, directions,
                                  t_min: float, t_max: float, rays_per_tile: int, branch: int,
-                                 tri_test: str = "bw"):
+                                 tri_test: str = "bw", restore: bool = False, perm=None):
     """Launch the two-level kernel on CUDA tensors; same contract as the
-    plain version."""
+    plain version, and with `restore` the wrapper's."""
     return _traversal_cuda(intersect_clusters_hier, "hier", tris, (aabb_child, aabb_super, order_super), origins,
-                           directions, t_min, t_max, rays_per_tile, branch, tri_test)
+                           directions, t_min, t_max, rays_per_tile, branch, tri_test, restore, perm)
 
 
 def packet_weights(weights_launch, aabb_super, origins, directions, t_min, t_max, rays_per_tile):
@@ -494,14 +506,19 @@ def _heaviest_first(weights_launch, aabb_super, origins, directions, t_min, t_ma
 
 
 def _traversal_cuda(counter, route, tris, boxes, origins, directions, t_min, t_max, rays_per_tile, branch,
-                    tri_test):
+                    tri_test, restore=False, perm=None):
     """Check, allocate and launch streamed_kernel (csrc/cluster_streamed.cuh)
     on `route`, packets heaviest first.  `boxes` are the route's box and
     visit-order tensors in its launch's order: flat (aabb8 [C,8], order
     [8,C]), hier (aabb_child, aabb_super, order_super [8,S]) or streamed
     (aabb_child, aabb_super; ascending order).  Closest hit where `counter`
     is a closest-hit wrapper, else any hit; `counter.launches` counts the
-    launch.  Returns (t, prim, uv), or occluded."""
+    launch.  Returns (t, prim, uv), or occluded; with `restore` a Hit, or
+    occluded, in caller order through `perm` (None: the identity), written
+    by the kernel's store (counted in caller_order_stores.launches where
+    it differs from the raw store: closest hit, or a perm)."""
+    if perm is not None and not restore:
+        raise ValueError("perm is for the outputs in caller order (restore=True)")
     any_hit = counter in (occluded_clusters, occluded_clusters_hier, occluded_clusters_streamed)
     c_count, k, _ = tris.shape
     if route == "flat":
@@ -521,62 +538,68 @@ def _traversal_cuda(counter, route, tris, boxes, origins, directions, t_min, t_m
             raise ValueError(f"{s} supers of {branch} do not cover {c_count} clusters")
         sizes = (s, branch, c_count, k)
     _check_launch(tris, origins, directions, rays_per_tile, tri_test, checks)
+    n, dev = origins.shape[0], origins.device
+    rows = kernel_arg("perm", perm, torch.int64, (n,), dev) if perm is not None else None
     if any_hit:
-        out = (torch.empty(origins.shape[0], dtype=torch.bool, device=origins.device),)
+        out = (torch.empty(n, dtype=torch.bool, device=dev),)
     else:
-        out = _hit_outputs(origins)
-    if origins.shape[0] == 0:
-        return out[0] if any_hit else out  # nothing to launch
+        out = _hit_outputs(origins, restore)
+    result = out[0] if any_hit else Hit(t=out[0], prim=out[1], bary=out[2], hit=out[3]) if restore else out
+    if n == 0:
+        return result  # nothing to launch
     stem = _STEMS[route, any_hit]
     lib = library(f"{stem}.cu")
     order = _heaviest_first(getattr(lib, f"{stem}_weights"), aabb_super, origins, directions, t_min, t_max,
                             rays_per_tile)
+    hit_out = () if any_hit else ((out[3].data_ptr() if restore else None),)
     err = getattr(lib, f"{stem}_launch")(
         tris.data_ptr(), *(x.data_ptr() for x in boxes), origins.data_ptr(), directions.data_ptr(),
-        order.data_ptr() if order is not None else None, origins.shape[0], *sizes,
+        order.data_ptr() if order is not None else None, n, *sizes,
         float(t_min), float(t_max), rays_per_tile, _TRI_TEST_IDS[tri_test],
-        *(x.data_ptr() for x in out), _stream(origins),
+        rows.data_ptr() if rows is not None else None, *(x.data_ptr() for x in out[:3]), *hit_out, _stream(origins),
     )
     if err:
         raise RuntimeError(f"streamed_kernel ({route}, {'any' if any_hit else 'closest'} hit) launch failed: "
                            f"CUDA error {err}")
     counter.launches += 1
-    return out[0] if any_hit else out
+    if restore and (rows is not None or not any_hit):
+        caller_order_stores.launches += 1
+    return result
 
 
 def intersect_clusters_streamed_cuda(tris, aabb_child, aabb_super, origins, directions,
                                      t_min: float, t_max: float, rays_per_tile: int, branch: int,
-                                     tri_test: str = "bw"):
+                                     tri_test: str = "bw", restore: bool = False, perm=None):
     """Launch the streamed kernel on CUDA tensors; same contract as the
-    plain version."""
+    plain version, and with `restore` the wrapper's."""
     return _traversal_cuda(intersect_clusters_streamed, "streamed", tris, (aabb_child, aabb_super), origins,
-                           directions, t_min, t_max, rays_per_tile, branch, tri_test)
+                           directions, t_min, t_max, rays_per_tile, branch, tri_test, restore, perm)
 
 
 def occluded_clusters_cuda(tris, aabb8, order, origins, directions, t_min: float, t_max: float,
-                           rays_per_tile: int, tri_test: str = "bw"):
+                           rays_per_tile: int, tri_test: str = "bw", restore: bool = False, perm=None):
     """Launch the flat any-hit kernel on CUDA tensors; same contract as
-    the plain version."""
+    the plain version, and with `restore` the wrapper's."""
     return _traversal_cuda(occluded_clusters, "flat", tris, (aabb8, order), origins, directions, t_min, t_max,
-                           rays_per_tile, 1, tri_test)
+                           rays_per_tile, 1, tri_test, restore, perm)
 
 
 def occluded_clusters_hier_cuda(tris, aabb_child, aabb_super, order_super, origins, directions,
                                 t_min: float, t_max: float, rays_per_tile: int, branch: int,
-                                tri_test: str = "bw"):
+                                tri_test: str = "bw", restore: bool = False, perm=None):
     """Launch the two-level any-hit kernel on CUDA tensors; same contract
-    as the plain version."""
+    as the plain version, and with `restore` the wrapper's."""
     return _traversal_cuda(occluded_clusters_hier, "hier", tris, (aabb_child, aabb_super, order_super), origins,
-                           directions, t_min, t_max, rays_per_tile, branch, tri_test)
+                           directions, t_min, t_max, rays_per_tile, branch, tri_test, restore, perm)
 
 
 def occluded_clusters_streamed_cuda(tris, aabb_child, aabb_super, origins, directions,
                                     t_min: float, t_max: float, rays_per_tile: int, branch: int,
-                                    tri_test: str = "bw"):
+                                    tri_test: str = "bw", restore: bool = False, perm=None):
     """Launch the streamed any-hit kernel on CUDA tensors; same contract
-    as the plain version."""
+    as the plain version, and with `restore` the wrapper's."""
     return _traversal_cuda(occluded_clusters_streamed, "streamed", tris, (aabb_child, aabb_super), origins,
-                           directions, t_min, t_max, rays_per_tile, branch, tri_test)
+                           directions, t_min, t_max, rays_per_tile, branch, tri_test, restore, perm)
 
 
 def streamed_launch_shape(n: int, rays_per_tile: int, cluster_k: int, tri_test: str = "bw",
@@ -600,70 +623,92 @@ def streamed_launch_shape(n: int, rays_per_tile: int, cluster_k: int, tri_test: 
     return {"packets": -(-n // rays_per_tile), **dict(zip(keys, out))}
 
 
-def _route(origins, kernel, plain, *args, **kw):
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+def _route(origins, kernel, plain, *args, restore=False, perm=None):
+    """The kernel for CUDA tensors, the plain version for CPU tensors; with
+    `restore` the outputs in caller order: on the card outside
+    ops.cuda_build.plain() by the kernel's store, else by the plain
+    restore of the raw outputs."""
     if origins.is_cuda:
-        return kernel(*args, **kw)
-    if origins.device.type != "cpu":
+        if restore and on_card(origins.device):
+            return kernel(*args, restore=True, perm=perm)
+        out = kernel(*args)
+    elif origins.device.type == "cpu":
+        out = plain(*args)
+    else:
         raise ValueError(f"no cluster-intersect kernel for device {origins.device}")
-    return plain(*args, **kw)
+    return restore_hits_plain(out, perm) if restore else out
 
 
 def intersect_clusters(tris, aabb8, order, origins, directions, t_min: float, t_max: float,
-                       rays_per_tile: int, tri_test: str = "bw"):
+                       rays_per_tile: int, tri_test: str = "bw", *, restore: bool = False, perm=None):
     """Flat closest hit over the clusters (TPU kernel 1's contract).
-    Returns (t, prim, uv) as `intersect_clusters_plain`."""
+    Returns (t, prim, uv) as `intersect_clusters_plain`, or with `restore`
+    the Hit in caller order through `perm` (see the top of this module)."""
     return _route(origins, intersect_clusters_cuda, intersect_clusters_plain,
-                  tris, aabb8, order, origins, directions, t_min, t_max, rays_per_tile, tri_test)
+                  tris, aabb8, order, origins, directions, t_min, t_max, rays_per_tile, tri_test,
+                  restore=restore, perm=perm)
 
 
 def intersect_clusters_hier(tris, aabb_child, aabb_super, order_super, origins, directions,
                             t_min: float, t_max: float, rays_per_tile: int, branch: int,
-                            tri_test: str = "bw"):
+                            tri_test: str = "bw", *, restore: bool = False, perm=None):
     """Two-level closest hit (TPU kernel 2's contract)."""
     return _route(origins, intersect_clusters_hier_cuda, intersect_clusters_hier_plain,
                   tris, aabb_child, aabb_super, order_super, origins, directions,
-                  t_min, t_max, rays_per_tile, branch, tri_test)
+                  t_min, t_max, rays_per_tile, branch, tri_test, restore=restore, perm=perm)
 
 
 def intersect_clusters_streamed(tris, aabb_child, aabb_super, origins, directions,
                                 t_min: float, t_max: float, rays_per_tile: int, branch: int,
-                                tri_test: str = "bw"):
+                                tri_test: str = "bw", *, restore: bool = False, perm=None):
     """Streamed closest hit (TPU kernel 3's contract) over the supers of
     `streamed_pads`."""
     return _route(origins, intersect_clusters_streamed_cuda, intersect_clusters_streamed_plain,
                   tris, aabb_child, aabb_super, origins, directions,
-                  t_min, t_max, rays_per_tile, branch, tri_test)
+                  t_min, t_max, rays_per_tile, branch, tri_test, restore=restore, perm=perm)
 
 
 def occluded_clusters(tris, aabb8, order, origins, directions, t_min: float, t_max: float,
-                      rays_per_tile: int, tri_test: str = "bw"):
+                      rays_per_tile: int, tri_test: str = "bw", *, restore: bool = False, perm=None):
     """Flat any hit over the clusters (TPU kernel 4's contract).  Returns
-    occluded [N] bool as `occluded_clusters_plain`."""
+    occluded [N] bool as `occluded_clusters_plain`, with `restore` in
+    caller order through `perm`."""
     return _route(origins, occluded_clusters_cuda, occluded_clusters_plain,
-                  tris, aabb8, order, origins, directions, t_min, t_max, rays_per_tile, tri_test)
+                  tris, aabb8, order, origins, directions, t_min, t_max, rays_per_tile, tri_test,
+                  restore=restore, perm=perm)
 
 
 def occluded_clusters_hier(tris, aabb_child, aabb_super, order_super, origins, directions,
                            t_min: float, t_max: float, rays_per_tile: int, branch: int,
-                           tri_test: str = "bw"):
+                           tri_test: str = "bw", *, restore: bool = False, perm=None):
     """Two-level any hit (TPU kernel 5's contract)."""
     return _route(origins, occluded_clusters_hier_cuda, occluded_clusters_hier_plain,
                   tris, aabb_child, aabb_super, order_super, origins, directions,
-                  t_min, t_max, rays_per_tile, branch, tri_test)
+                  t_min, t_max, rays_per_tile, branch, tri_test, restore=restore, perm=perm)
 
 
 def occluded_clusters_streamed(tris, aabb_child, aabb_super, origins, directions,
                                t_min: float, t_max: float, rays_per_tile: int, branch: int,
-                               tri_test: str = "bw"):
+                               tri_test: str = "bw", *, restore: bool = False, perm=None):
     """Streamed any hit (TPU kernel 6's contract) over the supers of
     `streamed_pads`."""
     return _route(origins, occluded_clusters_streamed_cuda, occluded_clusters_streamed_plain,
                   tris, aabb_child, aabb_super, origins, directions,
-                  t_min, t_max, rays_per_tile, branch, tri_test)
+                  t_min, t_max, rays_per_tile, branch, tri_test, restore=restore, perm=perm)
+
+
+def caller_order_stores() -> int:
+    """The traversal launches since the count was last set to 0 whose
+    store was the restore into caller order (a wrapper's `restore` on the
+    card: every closest hit, and an any hit through a perm), which the
+    restore kernel launched once each before it was folded into the
+    traversal's store.  The count is `.launches` (render/graph_loop.COUNTED);
+    returns it."""
+    return caller_order_stores.launches
 
 
 # Kernel launches since each count was last set to 0.
+caller_order_stores.launches = 0
 intersect_clusters.launches = 0
 intersect_clusters_hier.launches = 0
 intersect_clusters_streamed.launches = 0

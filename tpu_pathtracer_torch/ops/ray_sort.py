@@ -1,7 +1,9 @@
 """The traversal's ray ordering: the coherence sort of the rays (the key,
 the stable sort, the gather into key order), the restore of the
-traversal's outputs into caller order, and the order in which a
-traversal kernel takes its packets.
+traversal's outputs into caller order (its plain version: on the card the
+traversal kernels store in caller order themselves,
+`ops.intersect_cluster`), and the order in which a traversal kernel takes
+its packets.
 
 Counterpart of `ray_sort_key` and `sort_by_key` (with `octant_sort`) in
 `tpu_pathtracer/ops/intersect_pallas.py`, and of the parking and the
@@ -17,8 +19,6 @@ version here:
   `park`), and the permutation: a hand-written LSD radix sort that
   computes the keys in its first launch and gathers the rays in its last
   pass (one launch up to `SMALL_MAX` rays, else 1 + `digit_passes`);
-* `restore_hits`: the traversal's outputs in caller order, as a `Hit` (or
-  the any-hit flags);
 * `packet_order`: the heaviest-first order of a traversal's packets.
 
 The key's value needs at most 30 bits (3 octant bits, up to 9 spatial
@@ -171,6 +171,11 @@ def sort_rays_plain(origins, directions, scene_lo, scene_hi, spatial_bits: int, 
 
 
 def restore_hits_plain(outputs, perm):
+    """A traversal's outputs in the sorted order back in caller order:
+    `outputs` = (t, prim, uv) of a closest-hit traversal gives a `Hit`
+    (prim -1 and bary 0 where prim is MISS_PRIM), the any-hit flags give
+    the flags.  `perm` None is the identity.  The traversal kernels do
+    this in their store (`ops.intersect_cluster`, restore=True)."""
     if isinstance(outputs, torch.Tensor):
         return outputs if perm is None else restore(outputs, perm)
     t, prim, uv = outputs if perm is None else (restore(x, perm) for x in outputs)
@@ -244,29 +249,6 @@ def sort_rays_cuda(origins, directions, scene_lo, scene_hi, spatial_bits: int, d
     return out
 
 
-def restore_hits_cuda(outputs, perm):
-    any_hit = isinstance(outputs, torch.Tensor)
-    dev = outputs.device if any_hit else outputs[0].device
-    n = outputs.shape[0] if any_hit else outputs[0].shape[0]
-    if any_hit and perm is None:
-        return outputs  # nothing to move
-    p = None if perm is None else kernel_arg("perm", perm, torch.int64, (n,), dev)
-    if any_hit:
-        occ = kernel_arg("occluded", outputs, torch.bool, (n,), dev)
-        ins, outs = (None, None, None, occ), (None, None, None, None, torch.empty(n, dtype=torch.bool, device=dev))
-    else:
-        t, prim, uv = outputs
-        ins = (kernel_arg("t", t, torch.float32, (n,), dev), kernel_arg("prim", prim, torch.int32, (n,), dev),
-               kernel_arg("uv", uv, torch.float32, (n, 2), dev), None)
-        outs = (torch.empty(n, dtype=torch.float32, device=dev), torch.empty(n, dtype=torch.int32, device=dev),
-                torch.empty((n, 2), dtype=torch.float32, device=dev), torch.empty(n, dtype=torch.bool, device=dev),
-                None)
-    if n:
-        _launch("ray_sort_restore_launch", _ptr(p), *map(_ptr, ins), n, *map(_ptr, outs), dev=dev)
-        restore_hits.launches += 1
-    return outs[4] if any_hit else Hit(t=outs[0], prim=outs[1], bary=outs[2], hit=outs[3])
-
-
 def packet_order_cuda(weights):
     dev, p = weights.device, weights.shape[0]
     w = kernel_arg("weights", weights, torch.int32, (p,), dev)
@@ -291,15 +273,6 @@ def sort_rays(origins, directions, scene_lo, scene_hi, spatial_bits: int, dir_bi
     return fn(origins, directions, scene_lo, scene_hi, spatial_bits, dir_bits, active)
 
 
-def restore_hits(outputs, perm):
-    """A traversal's outputs in the sorted order back in caller order:
-    `outputs` = (t, prim, uv) of a closest-hit kernel gives a `Hit` (prim
-    -1 and bary 0 where prim is MISS_PRIM), the any-hit flags give the
-    flags.  `perm` None is the identity."""
-    device = outputs.device if isinstance(outputs, torch.Tensor) else outputs[0].device
-    return (restore_hits_cuda if on_card(device) else restore_hits_plain)(outputs, perm)
-
-
 def packet_order(weights):
     """[P] int32: the packets heaviest first by [P] int32 `weights`, ties in
     packet order (a stable descending argsort)."""
@@ -308,5 +281,4 @@ def packet_order(weights):
 
 # Kernel launches since each count was last set to 0.
 sort_rays.launches = 0
-restore_hits.launches = 0
 packet_order.launches = 0

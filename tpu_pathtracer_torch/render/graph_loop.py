@@ -55,7 +55,7 @@ COUNTED = (
     ic.intersect_clusters, ic.intersect_clusters_hier, ic.intersect_clusters_streamed,
     ic.occluded_clusters, ic.occluded_clusters_hier, ic.occluded_clusters_streamed,
     fused_stream_step, random_in_unit_sphere, bounce_ops.bounce, bounce_ops.next_event, camera_paths, path_step,
-    ray_sort.sort_rays, ray_sort.restore_hits, ray_sort.packet_order,
+    ray_sort.sort_rays, ic.caller_order_stores, ray_sort.packet_order,
 )
 # Plans the cache holds.
 MAX_PLANS = 8
