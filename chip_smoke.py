@@ -12,6 +12,12 @@ the benchmark entry point.
 
     python3 chip_smoke.py [--image PATH] [--parent DIR]
     python3 chip_smoke.py --ray-order   # phases 1, 2 and 38 only
+    python3 chip_smoke.py --nee-camera [--parent DIR]   # phases 1, 2, 36 and 37 only
+
+--parent DIR (the root of an older checkout, e.g. unpacked with git
+archive under build/) builds its NEE and camera kernels and the launches
+before them (PARENT_SOURCES) beside this tree's, and phases 11-13, 18,
+18c, 36 and 37 time them through the same wrappers, in turns.
 
 Phases, each printing one line (any failure exits non-zero):
   1. device: the card's name, and name and power limit from nvidia-smi;
@@ -58,7 +64,9 @@ Phases, each printing one line (any failure exits non-zero):
      that trace no shadow ray parked and the batch sorted as
      ClusterAccel.occluded does; flags bit-equal to the plain version in
      bw and mt; both times, the share of rays occluded and parked; launch
-     shape, instruction floor and 16 tiles as phase 3;
+     shape, instruction floor and 16 tiles as phase 3; with --parent
+     the parent's kernel timed in turns (the launches before the NEE
+     kernel, which let it start at their entry);
  14. NEE render of the headline (BASELINE config 3's path: textbook RR,
      env importance sampling), as phase 4 (one warm, one timed frame):
      kernels 1 and 4 must each launch at least once per stream iteration,
@@ -76,7 +84,7 @@ Phases, each printing one line (any failure exits non-zero):
      mask, head, segments and live count bit-equal; the same at config
      1's 16,384 lanes and at 128 and 524,288; the kernel's, the plain
      version's and the unfused schedule tail's times, and the bound
-     (`--parent DIR`: an older checkout's kernel 7 timed in turns); 32
+     (--parent: the parent's kernel 7 timed in turns); 32
      consecutive steps on one scratch, and one step repeated 4,200 times
      on it, bit-equal to the plain version;
  18b. kernel 7 off the fused stream's envelope, at 131,072 lanes of the
@@ -89,7 +97,8 @@ Phases, each printing one line (any failure exits non-zero):
      and without NEE; render_pixels_regen at 131,072 lanes, with and
      without NEE, and at phase 22's 2,073,600) against path_step_plain on
      real buffers of those schedules: every buffer and the regen mask
-     bit-equal; times and bound as 18b;
+     bit-equal; times and bound as 18b (--parent: the parent's path step
+     in turns);
  19. the headline fused (fused_schedule="on", kernels 1 and 7 at least
      once per iteration and nothing else) and unfused under
      ops.cuda_build.plain() (the plain step and shading, no step or shading
@@ -194,10 +203,20 @@ Phases, each printing one line (any failure exits non-zero):
 36. the NEE kernel (csrc/nee.cu) against _nee_weights and the visible
     select after the any-hit traversal, on the headline, config 4 and the
     headline with MIS-spec and the defensive mixture: radiance and
-    spec_next bit-equal; ms, plain ms, bound;
+    spec_next bit-equal, launched alone and as a programmatic dependent of
+    the traversal (csrc/launch_order.cuh), the captured graph's edge into
+    it programmatic; ms with the L2 flushed and warm, the timing method's
+    floor at its grid (an empty and a one-load kernel), plain ms, bound;
+    on the headline and config 4 its exposed time behind the traversal
+    (the pair less the traversal, six paired rounds, median and
+    quartiles); --parent: the parent's the same ways, in turns;
 37. the camera kernel (csrc/camera.cu) against camera_paths_plain at
     1080p on 131,072 lanes: the stream's respawn with and without DOF and
-    the 1-spp set-up on an affine range, bit-equal; ms, plain ms, bound.
+    the 1-spp set-up on an affine range, bit-equal; then behind kernel 7,
+    as a programmatic dependent, on the step's real regen mask of the
+    headline's pool (131,072 lanes) and config 1's (16,384) mid-render:
+    bit-equal, the captured edge programmatic, its exposed time behind
+    kernel 7; times, floors and --parent as phase 36.
     Phases 35-37 time each kernel launch with the L2 flushed before it
     (_time_cold), and count the bytes each lane's class needs of the
     function (bounce_bytes, nee_bytes), so that ms and bound are both HBM
@@ -228,7 +247,10 @@ On the card the bounce's shading, NEE's weights and every camera spawn
 run the three shading kernels, which every render phase expects: the
 bounce kernel once an iteration, the NEE kernel once an iteration under
 NEE, the camera kernel once a stream or regen iteration and once a
-render_pixels call's set-up; every schedule's step runs a kernel once
+render_pixels call's set-up (and a graph captured from one step of the
+render's plan holds a programmatic edge into the NEE kernel under NEE
+and one into the camera kernel on the stream and regen schedules, and
+no other: step_dependents); every schedule's step runs a kernel once
 an iteration (STEP_KERNEL): kernel 7 on every stream, fused or not, the
 path step on render_rays and render_pixels_regen; every sorted trace
 runs the ray-order kernels (check_ray_order: the sort's launches for the
@@ -249,11 +271,13 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import io
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -484,6 +508,7 @@ BW_TEST_INSTRUCTIONS = 77
 # two sums, one compare.
 SAMPLER_DRAW_FLOPS = 18
 LARGE_TILES = 16  # the kernel phases: 16 x their rays in one launch
+STORE_ROUNDS = 6  # rounds of paired turns (paired_rounds)
 
 
 @functools.lru_cache(maxsize=None)
@@ -579,10 +604,17 @@ def counting_visits(plain_cls, packets, device):
         plain_cls.visit = visit
 
 
-def phase_build():
+def phase_build(parent_dir=None):
+    """Every csrc/ source, one nvcc each, all at once, and beside them the
+    timing floor's kernels (FLOOR_SOURCE) and, with `parent_dir`, the
+    parent's PARENT_SOURCES.  Returns the parent's libraries (None
+    without it)."""
     shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
+    jobs = start_builds({"floor.cu": None} | ({s: Path(parent_dir) / "tpu_pathtracer_torch" / "csrc" / s
+                                               for s in PARENT_SOURCES} if parent_dir else {}))
     cuda_build.build_libraries()
+    side = finish_builds(jobs)
     dt = time.perf_counter() - t0
     parts = []
     for source in cuda_build.sources():
@@ -590,7 +622,281 @@ def phase_build():
         log = cuda_build.library_path(source).with_suffix(".log").read_text()
         usage = "; ".join(line.split("ptxas info    : ")[-1] for line in log.splitlines() if "Used" in line)
         parts.append(f"{source}: {usage}")
-    print(f"[2 build] {len(parts)} libraries built at once in {dt:.2f} s | " + " | ".join(parts))
+    floor = side.pop("floor.cu")
+    floor.floor_launch.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p]
+    floor.floor_launch.restype = ctypes.c_int
+    FLOOR["lib"] = floor
+    print(f"[2 build] {len(parts)} libraries built at once in {dt:.2f} s"
+          f"{f' (and the parent {parent_dir} of {len(side)} sources)' if parent_dir else ''} | " + " | ".join(parts))
+    return side or None
+
+
+# ---------------------------------------------------------------------------
+# Older kernels beside the change's (--parent), the timing method's floor,
+# and the edges of a captured graph
+# ---------------------------------------------------------------------------
+
+# The sources --parent builds from an older checkout: the kernels this tree
+# redesigned as programmatic dependents (the NEE and camera kernels) and
+# the launches they depend on (the any-hit traversals, kernel 7 and the
+# path step), whose C interfaces are the change's but for `dependent`.
+PARENT_SOURCES = ("nee.cu", "camera.cu", "cluster_occluded.cu", "cluster_occluded_hier.cu",
+                  "cluster_occluded_streamed.cu", "fused_schedule.cu")
+# The timing method's floor: an empty kernel, and one that loads 4 bytes a
+# lane (a value never found, so nothing is stored), at a kernel's grid.
+FLOOR_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel(int n) {}
+__global__ void one_load_kernel(const float* x, float* sink, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n && x[i] == 1234.5f) *sink = x[i];
+}
+extern "C" int floor_launch(int load, const float* x, float* sink, int n, int threads, void* stream) {
+  const int blocks = (n + threads - 1) / threads;
+  if (load) {
+    one_load_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(x, sink, n);
+  } else {
+    empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+FLOOR = {}  # "lib": the floor's library, once phase_build has built it
+
+
+def start_builds(sources):
+    """nvcc on each {name: source path, or None for FLOOR_SOURCE} into
+    build/tpu_pathtracer_torch/side/, all at once: the jobs."""
+    side = cuda_build.BUILD_DIR / "side"
+    side.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name, src in sources.items():
+        if src is None:
+            src = side / name
+            src.write_text(FLOOR_SOURCE)
+        out = side / f"{Path(name).stem}.so"
+        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out), str(src)]
+        jobs.append((name, src, out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                                      text=True)))
+    return jobs
+
+
+class _WithoutDependent:
+    """A library whose launch function takes no `dependent` argument (an
+    older nee.cu or camera.cu), called as the change's wrappers call
+    theirs: the argument is dropped."""
+
+    def __init__(self, lib, launcher):
+        self._lib, self._launcher = lib, launcher
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        return (lambda p, dependent, stream: fn(p, stream)) if name == self._launcher else fn
+
+
+def finish_builds(jobs):
+    """{name: the loaded library} of start_builds' jobs, each launch
+    function's and helper's signature set as cuda_build sets the
+    change's; raises with nvcc's output if a build failed."""
+    libs = {}
+    for name, src, out, proc in jobs:
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise SystemExit(f"FAIL: nvcc on {src}:\n{log[-4000:]}")
+        lib = ctypes.CDLL(str(out))
+        if name in cuda_build.LAUNCHERS:
+            launcher, argtypes = cuda_build.LAUNCHERS[name]
+            takes_dependent = not re.search(r"int %s\(const \w+\* p, void\* stream\)" % launcher, src.read_text())
+            for fn, types in {launcher: argtypes if takes_dependent else [argtypes[0], argtypes[-1]],
+                              **cuda_build.HELPERS.get(name, {})}.items():
+                getattr(lib, fn).argtypes, getattr(lib, fn).restype = types, ctypes.c_int
+            lib = lib if takes_dependent else _WithoutDependent(lib, launcher)
+        libs[name] = lib
+    return libs
+
+
+@contextlib.contextmanager
+def using_libraries(libs):
+    """Within the block the wrappers launch the kernels of `libs` ({source:
+    library}, finish_builds') in place of the change's: the shading kernels
+    and the steps through ops/bounce.py's `library`, the traversals
+    through ops/intersect_cluster.py's.  None: the change's."""
+    if not libs:
+        yield
+        return
+    mods = (bounce_ops, ic)
+    saved = [m.library for m in mods]
+    pick = lambda source: libs[source] if source in libs else cuda_build.library(source)  # noqa: E731
+    for m in mods:
+        m.library = pick
+    try:
+        yield
+    finally:
+        for m, lib in zip(mods, saved):
+            m.library = lib
+
+
+def method_floor(n, threads):
+    """The timing method's floor at a kernel's grid (n lanes, `threads` a
+    block): an empty kernel and one loading 4 bytes a lane, each timed
+    with the L2 flushed before each launch (_time_cold) and warm, back to
+    back (_time_over).  Returns {"empty", "load"}: (cold ms, warm ms)."""
+    lib = FLOOR["lib"]
+    x = torch.ones(n, dtype=torch.float32, device="cuda")
+    sink = torch.zeros(1, dtype=torch.float32, device="cuda")
+    out = {}
+    for name, load in (("empty", 0), ("load", 1)):
+        def fn(_):
+            err = lib.floor_launch(load, x.data_ptr(), sink.data_ptr(), n, threads,
+                                   torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise SystemExit(f"FAIL: floor_launch: CUDA error {err}")
+        out[name] = (_time_cold(fn, [None] * 51), _time_over(fn, [None] * 51, device_only=True))
+    return out
+
+
+def floor_text(floor):
+    return ", ".join(f"{k} {c:.4f} ({w:.4f})" for k, (c, w) in floor.items())
+
+
+class _EdgeData(ctypes.Structure):
+    """CUgraphEdgeData."""
+    _fields_ = [("from_port", ctypes.c_ubyte), ("to_port", ctypes.c_ubyte), ("type", ctypes.c_ubyte),
+                ("reserved", ctypes.c_ubyte * 5)]
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2."""
+    _fields_ = [("func", ctypes.c_void_p)] + [(k, ctypes.c_uint) for k in (
+        "grid_x", "grid_y", "grid_z", "block_x", "block_y", "block_z", "shared")] + [
+        (k, ctypes.c_void_p) for k in ("params", "extra", "kern", "ctx")]
+
+
+CU_GRAPH_NODE_TYPE_KERNEL = 0
+CU_GRAPH_DEPENDENCY_TYPE_PROGRAMMATIC = 1
+
+
+@contextlib.contextmanager
+def captured_graph(fn, warm=True):
+    """A CUDA graph captured from one call of fn (after a warm-up call,
+    unless not `warm`), the wrappers' launch counts left as they were:
+    yields (libcuda, the raw graph) for the driver API to read; the graph
+    is reset after."""
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+
+    def capture():
+        with torch.cuda.graph(graph):
+            fn()
+
+    graph_loop.record_launches(capture)
+    try:
+        yield ctypes.CDLL("libcuda.so.1"), ctypes.c_void_p(graph.raw_cuda_graph())
+    finally:
+        graph.reset()
+
+
+def node_type(cu, node):
+    kind = ctypes.c_int()
+    if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+        raise SystemExit("FAIL: cuGraphNodeGetType")
+    return kind.value
+
+
+def captured_edges(fn, warm=True):
+    """The edges between kernel nodes of the graph a CUDA stream capture
+    records from one call of fn (captured_graph), read through the driver
+    API: a list of dicts, `from` and `to` (each node's (blocks, threads a
+    block)), `sink` (the node after it has no edge out) and `programmatic`
+    (CU_GRAPH_DEPENDENCY_TYPE_PROGRAMMATIC, what a launch made as a
+    programmatic dependent of the kernel before it records)."""
+    with captured_graph(fn, warm) as (cu, raw):
+        count = ctypes.c_size_t(0)
+        if cu.cuGraphGetEdges_v2(raw, None, None, None, ctypes.byref(count)):
+            raise SystemExit("FAIL: cuGraphGetEdges_v2")
+        src, dst = (ctypes.c_void_p * count.value)(), (ctypes.c_void_p * count.value)()
+        data = (_EdgeData * count.value)()
+        if count.value and cu.cuGraphGetEdges_v2(raw, src, dst, data, ctypes.byref(count)):
+            raise SystemExit("FAIL: cuGraphGetEdges_v2")
+        shapes = {}
+
+        def shape(node):
+            if node not in shapes:
+                shapes[node] = None
+                if node_type(cu, node) == CU_GRAPH_NODE_TYPE_KERNEL:
+                    params = _KernelNodeParams()
+                    if cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(params)):
+                        raise SystemExit("FAIL: cuGraphKernelNodeGetParams_v2")
+                    shapes[node] = (params.grid_x * params.grid_y * params.grid_z,
+                                    params.block_x * params.block_y * params.block_z)
+            return shapes[node]
+
+        sources = set(src)
+        return [dict(**{"from": shape(a), "to": shape(b)}, sink=b not in sources,
+                     programmatic=d.type == CU_GRAPH_DEPENDENCY_TYPE_PROGRAMMATIC)
+                for a, b, d in zip(src, dst, data) if shape(a) and shape(b)]
+
+
+def programmatic_into_sink(label, fn, shape):
+    """fn's captured graph (captured_edges) must end in one kernel node of
+    `shape` (blocks, threads) whose one edge in is programmatic.  Returns
+    the edge's description."""
+    into = [e for e in captured_edges(fn) if e["sink"]]
+    if len(into) != 1 or into[0]["to"] != shape or not into[0]["programmatic"]:
+        raise SystemExit(f"[{label}] FAIL: the captured edge into the {shape} launch is not one programmatic edge: "
+                         f"{into}")
+    return f"{into[0]['from']} -> {into[0]['to']} programmatic"
+
+
+def step_dependents(label, sched, nee):
+    """The programmatic edges of a graph captured from one step of the
+    plan that rendered last: one into the NEE kernel under NEE, one into
+    the camera kernel on the stream and regen schedules, none else, each
+    into a launch of that kernel's shape over the plan's lanes."""
+    plan = next(reversed(graph_loop._plans.values()))
+    lanes = plan.state["seeds"].shape[0]
+    got = sorted(e["to"] for e in captured_edges(plan._step, warm=False) if e["programmatic"])
+    want = sorted(([(-(-lanes // 128), 128)] if nee else [])
+                  + ([(-(-lanes // 256), 256)] if sched != "rays" else []))
+    if got != want:
+        raise SystemExit(f"[{label}] FAIL: programmatic edges into {got} in the step's graph, expected {want}")
+    return got
+
+
+def paired_rounds(turn, arms=(None,), rounds=STORE_ROUNDS):
+    """What a launch adds to the launches before it, from `rounds` rounds
+    of turns: in each round every arm of `arms` in turn (their order
+    reversed every other round), each arm's turns alone, paired, paired,
+    alone (turn(arm, paired) -> mean device ms), the round's difference
+    its two paired turns less its two alone, so that a drift across the
+    round cancels.  Returns {arm: dict}: `alone_ms` and `paired_ms` (means
+    over every turn), the rounds' differences (`rounds_ms`), their median
+    and quartiles, `resolved` (the quartiles' spread below the median: a
+    cost this run resolves) and `ms`, the median, or 0 where the median is
+    below 0 (a cost under the turns' resolution)."""
+    runs = {arm: ([], [], []) for arm in arms}
+    for r in range(rounds):
+        for arm in arms if r % 2 == 0 else arms[::-1]:
+            a0, w0, w1, a1 = turn(arm, False), turn(arm, True), turn(arm, True), turn(arm, False)
+            alone, paired, diffs = runs[arm]
+            alone += [a0, a1]
+            paired += [w0, w1]
+            diffs.append((w0 + w1 - a0 - a1) / 2)
+    out = {}
+    for arm, (alone, paired, diffs) in runs.items():
+        q1, median, q3 = statistics.quantiles(diffs, n=4, method="inclusive")
+        out[arm] = dict(ms=max(median, 0.0), median_ms=median, q1_ms=q1, q3_ms=q3, rounds_ms=diffs,
+                        resolved=q3 - q1 < median, alone_ms=sum(alone) / len(alone),
+                        paired_ms=sum(paired) / len(paired))
+    return out
+
+
+def exposed_text(e):
+    return (f"{e['median_ms']:.4f} ms ({e['q1_ms']:.4f} to {e['q3_ms']:.4f}"
+            f"{'' if e['resolved'] else ', unresolved'}; alone {e['alone_ms']:.4f}, paired {e['paired_ms']:.4f})")
 
 
 def _time_ms(fn, reps):
@@ -665,11 +971,13 @@ def kernel_bytes(args, n, any_hit):
     return read + n * (1 if any_hit else 16)
 
 
-def phase_kernel(label, kid, scene, cfg, camera, smi, plain_reps, n_cam=CAMERA_RAYS):
+def phase_kernel(label, kid, scene, cfg, camera, smi, plain_reps, n_cam=CAMERA_RAYS, parent=None):
     """The kernel against its plain version on bounce_batch's 2 x n_cam
     rays (any hit: shadow_batch's), both triangle tests, bit for bit;
     Baldwin-Weber (the main path's) timed, and its bound from the tests the
-    plain version counts on these rays; then phase_streamed_sizes."""
+    plain version counts on these rays; then phase_streamed_sizes.  With
+    `parent` (its libraries: any hit only) the parent's kernel and this
+    one timed in turns, P C C P, warm."""
     name, _, _, route, any_hit, _, kernel, plain = KERNELS[kid]
     acc = scene.accel
     if acc.route(cfg) != route:
@@ -705,6 +1013,17 @@ def phase_kernel(label, kid, scene, cfg, camera, smi, plain_reps, n_cam=CAMERA_R
             out["bw"].update(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
                              flops=flops, n_bytes=n_bytes, want=want, visits=visits)
     bw, mt = out["bw"], out["mt"]
+    turns = ""
+    if parent and any_hit:
+        _, args = acc.traversal(o_s, d_s, cfg.t_min, cfg.t_max, cfg)
+        times = {"parent": [], "kernel": []}
+        for who in ("parent", "kernel", "kernel", "parent"):
+            with using_libraries(parent if who == "parent" else None):
+                times[who].append(_time_ms(lambda: kernel(*args), 20))
+        bw["parent_ms"] = sum(times["parent"]) / 2
+        turns = (f"; in turns, bw kernel {' '.join(f'{t:.4f}' for t in times['kernel'])} ms, parent "
+                 f"{' '.join(f'{t:.4f}' for t in times['parent'])} ms (mean {bw['parent_ms']:.4f}, "
+                 f"{sum(times['kernel']) / 2 / bw['parent_ms'] - 1:+.2%})")
     what = (f"{bw['positive'] / n:.4%} occluded, {parked:.4%} parked" if any_hit
             else f"{bw['positive']} hits")
     per_packet = bw["visits"].float()
@@ -716,11 +1035,12 @@ def phase_kernel(label, kid, scene, cfg, camera, smi, plain_reps, n_cam=CAMERA_R
     print(f"[{label}] {name} ({route}{', any hit' if any_hit else ''}): {n} rays ({what}), "
           f"{acc.num_clusters} clusters of {k}, {acc.tris16bw.numel() * 4} bytes of rows, "
           f"packets of {rpt}: bit-equal (0 ulp) in bw and mt; bw kernel {bw['ms']:.4f} ms, plain "
-          f"{bw['plain_ms']:.4f} ms; mt kernel {mt['ms']:.4f} ms; {work}), "
+          f"{bw['plain_ms']:.4f} ms; mt kernel {mt['ms']:.4f} ms{turns}; {work}), "
           f"{bw['flops']} FLOP, {bw['n_bytes']} bytes: bound {bw['bound_ms']:.4f} ms by {bw['bound_by']} | {smi}")
     phase_streamed_sizes(label, name, route, any_hit, kernel, acc, cfg, o_s, d_s, bw, smi)
     return dict(max_abs_err=max(bw["max_abs_err"], mt["max_abs_err"]), ms=bw["ms"], plain_ms=bw["plain_ms"],
-                bound_ms=bw["bound_ms"], bound_by=bw["bound_by"], library_ms=None)
+                bound_ms=bw["bound_ms"], bound_by=bw["bound_by"], library_ms=None,
+                **({"parent_ms": bw["parent_ms"]} if "parent_ms" in bw else {}))
 
 
 def phase_streamed_sizes(label, name, route, any_hit, kernel, acc, cfg, o_s, d_s, bw, smi):
@@ -812,7 +1132,10 @@ def phase_render(label, scene, cfg, camera, frames, smi, image_path=None, warm=T
     once an iteration of the stream and regen schedules and once a
     render_pixels call's set-up, and no other kernel at all (the unit-ball
     sampler's loop runs inside the bounce kernel).
-    Also counts the stream syncs inside the timed renders.  Returns the
+    Also counts the stream syncs inside the timed renders, and reads the
+    programmatic edges of a graph captured from one step of the render's
+    plan (step_dependents: the NEE kernel's under NEE, the camera
+    kernel's on the stream and regen schedules).  Returns the
     counts, the last image, the totals, the schedule and the traced-ray
     accounting of the frame at subframe 0 (None if none was rendered)."""
     route = scene.accel.route(cfg)
@@ -864,6 +1187,7 @@ def phase_render(label, scene, cfg, camera, frames, smi, image_path=None, warm=T
     others = {KERNELS[kid][0]: c for kid, c in counts.items() if kid not in want and c}
     if others:
         raise SystemExit(f"[{label}] FAIL: other kernels launched: {others}")
+    dependents = step_dependents(label, sched, nee) if stats["graphed"] else []
     if not bool(torch.isfinite(img).all()) or not float(img.max()) > 0.0:
         raise SystemExit(f"[{label}] FAIL: timed frame is non-finite or black")
     if seg_total <= 0 or (nee and shadow_total <= 0):
@@ -879,7 +1203,8 @@ def phase_render(label, scene, cfg, camera, frames, smi, image_path=None, warm=T
           f"{dt / frames:.4f} s/launch, {seg_total // frames} segments/launch, "
           f"{shadow_total // frames} shadow segments/launch, {iters // frames} iterations/launch, "
           f"{syncs / iters:.4f} stream syncs per iteration, graphed {stats['graphed']} ({captures} capture(s)), "
-          f"launches {launched} in {frames} timed frames, mean {img.mean(dim=(0, 1)).tolist()} | {smi}")
+          f"launches {launched} in {frames} timed frames, programmatic edges in a step's captured graph into "
+          f"(blocks, threads) {dependents}, mean {img.mean(dim=(0, 1)).tolist()} | {smi}")
     if image_path:
         rgb = to_uint8(post_process(img, cfg)).cpu().numpy()[::-1]
         with open(image_path, "wb") as f:
@@ -1065,43 +1390,6 @@ def _time_cold(fn, inputs):
     raise SystemExit("FAIL: the host could not queue the timed calls ahead of the card")
 
 
-def parent_fused_step(parent_dir):
-    """Kernel 7 as an older tree built it (`parent_dir`: the root of its
-    checkout; the launch of 22 pointers, 5 ints, inv_spp and the stream,
-    the scratch a ticket and a status word a tile), with the same
-    wrapper: step(tb, st, out, head, segments, **step_kw)."""
-    import ctypes
-    from pathlib import Path
-
-    src = Path(parent_dir) / "tpu_pathtracer_torch" / "csrc" / "fused_schedule.cu"
-    lib_path = cuda_build.BUILD_DIR / "parent" / "fused_schedule.so"
-    lib_path.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib_path), str(src)], check=True,
-                   capture_output=True, timeout=600)
-    lib = ctypes.CDLL(str(lib_path))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_step_launch.argtypes = [p] * 22 + [i] * 5 + [ctypes.c_float, p]
-    lib.fused_step_launch.restype = i
-    scratches = {}
-
-    def step(tb, st, out, head, segments, *, spp, n_pix, max_depth, rr_reference, inv_spp):
-        lanes = st["slot"].shape[0]
-        tiles = -(-lanes // 256)
-        scratch = scratches.setdefault(tiles, torch.zeros(1 + tiles, dtype=torch.int64, device=out.device))
-        regen = torch.empty(lanes, dtype=torch.bool, device=out.device)
-        result = torch.empty(3, dtype=torch.int64, device=out.device)
-        err = lib.fused_step_launch(
-            *(tb[k].data_ptr() for k in fs.TB_KEYS), *(st[k].data_ptr() for k in fs.STATE_KEYS),
-            out.data_ptr(), head.data_ptr(), segments.data_ptr(), scratch.data_ptr(), regen.data_ptr(),
-            result.data_ptr(), lanes, spp, n_pix, max_depth, int(rr_reference), float(inv_spp),
-            torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise SystemExit(f"parent fused_step_kernel launch failed: CUDA error {err}")
-        return regen, result[0], result[1], result[2]
-
-    return step
-
-
 # Kernel 7's pools: (name, the lanes' frame, pool size, unfused iterations
 # before the step, and then more until a step retires pixels); the first,
 # the headline's 131,072, is the main path's.
@@ -1109,19 +1397,18 @@ FUSED_POOLS = (("headline", HEADLINE, 131_072, 16), ("config 1", CONFIG1, 16_384
                ("headline", HEADLINE, 128, 16), ("headline", HEADLINE, 524_288, 16))
 
 
-def phase_fused_kernel(label, scenes, smi, parent_dir=None):
+def phase_fused_kernel(label, scenes, smi, parent=None):
     """Kernel 7 against its plain version on real lane states: the
     headline's at 131,072 lanes (the main path's pool), BASELINE config
     1's at its 16,384 and the headline's at 128 and 524,288 lanes; both
     rr_modes, the real head and one that sends lanes past n_pix; state,
     image, regen mask, head, segments and live count bit-equal.  Timed in
-    reference mode at each pool with its bound (and, with `parent_dir`,
-    the parent's kernel 7 on the same states, in turns); the plain version
+    reference mode at each pool with its bound (and, with `parent`, the
+    parent's libraries, its kernel 7 on the same states, in turns); the plain version
     and the schedule tails at the main path's pool.  Then 32 consecutive
     fused steps (trace, kernel, respawn) on one never-cleared scratch,
     bit-equal to the plain version's at every step, and one step repeated
     4,200 times on one scratch, each launch equal to the plain version."""
-    parent = parent_fused_step(parent_dir) if parent_dir else None
     numbers, lines = {}, []
     for pool, (name, frame, lanes, iters) in enumerate(FUSED_POOLS):
         for rr_mode in ("reference", "standard"):
@@ -1169,14 +1456,16 @@ def phase_fused_kernel(label, scenes, smi, parent_dir=None):
             order = ("parent", "kernel", "kernel", "parent") if parent else ("kernel",)
             times = {"parent": [], "kernel": []}
             for who in order:
-                fn = kernel if who == "kernel" else (lambda s: parent(tb, s, out_k, head, seg, **kw))
-                times[who].append(_time_over(fn, [copy() for _ in range(21)], device_only=True))
+                with using_libraries(parent if who == "parent" else None):
+                    times[who].append(_time_over(kernel, [copy() for _ in range(21)], device_only=True))
             ms = sum(times["kernel"]) / len(times["kernel"])
             n_bytes, n_live, n_done = step_bytes(tb, st, probe[0], n_pix, spp, True)
             flops = 15 * n_live + 6 * n_done  # RR draw and estimator per live lane; the mean and the add per pixel done
             t_ops, t_bytes = flops / PEAK_FP32 * 1e3, n_bytes / PEAK_BYTES * 1e3
             row = dict(max_abs_err=0.0, ms=ms, bound_ms=max(t_ops, t_bytes),
                        bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None)
+            if parent:
+                row["parent_ms"] = sum(times["parent"]) / len(times["parent"])
             timing = (f"{name} {lanes} lanes, tiles of {fs.TILE_LANES}: kernel "
                       f"{' '.join(f'{t:.4f}' for t in times['kernel'])} ms"
                       + (f", parent {' '.join(f'{t:.4f}' for t in times['parent'])} ms" if parent else "")
@@ -1428,15 +1717,16 @@ PATH_STEP_CASES = (
 )
 
 
-def phase_path_step(label, scene, smi):
+def phase_path_step(label, scene, smi, parent=None):
     """The path step of render_rays and render_pixels_regen against
     path_step_plain on real buffers of those schedules (PATH_STEP_CASES,
     the headline at 1080p, 10 spp): every buffer (the merges, result or
     pixel sums and sample counts, the ended flags, segments, shadow, the
     0-d done flag) and the regen mask bit-equal; timed with the L2
     flushed before each launch (_time_cold), beside the plain version and
-    the bound of the bytes the step must move (path_bytes).  Returns the
-    numbers of the first case (phase 21's shape)."""
+    the bound of the bytes the step must move (path_bytes); with `parent`
+    (its libraries) the parent's path step and this one in turns, P C C P.
+    Returns the numbers of the first case (phase 21's shape)."""
     first = None
     for name, schedule, over, n, iters in PATH_STEP_CASES:
         cfg = RenderConfig(**{**HEADLINE, **over})
@@ -1455,7 +1745,14 @@ def phase_path_step(label, scene, smi):
         if bad:
             raise SystemExit(f"[{label} {name}] FAIL: path_step and its plain version differ in {bad}")
         reps = 21 if n < 1_000_000 else 11
-        ms = _time_cold(lambda s_: fs.path_step_cuda(tb, s_, **kw), [copy() for _ in range(reps)])
+        times = {"parent": [], "kernel": []}
+        for who in ("parent", "kernel", "kernel", "parent") if parent else ("kernel",):
+            with using_libraries(parent if who == "parent" else None):
+                times[who].append(_time_cold(lambda s_: fs.path_step_cuda(tb, s_, **kw),
+                                             [copy() for _ in range(reps)]))
+        ms = sum(times["kernel"]) / len(times["kernel"])
+        turns = (f" (in turns: kernel {' '.join(f'{t:.4f}' for t in times['kernel'])}, parent "
+                 f"{' '.join(f'{t:.4f}' for t in times['parent'])})" if parent else "")
         plain_ms = _time_over(lambda s_: fs.path_step_plain(tb, s_, **kw), [copy() for _ in range(6)])
         n_bytes, n_live, n_newly = path_bytes(tb, st, kw)
         flops = 15 * n_live + 3 * n_newly
@@ -1465,11 +1762,13 @@ def phase_path_step(label, scene, smi):
               f"{', shadow (+' + str(int(st_k['shadow']) - int(st['shadow'])) + ')' if kw['nee'] else ''}"
               f"{' and the regen mask (' + str(int(regen_k.sum())) + ' lanes)' if regen_k is not None else ''} "
               f"bit-equal (0 ulp); {n_live} live lanes, {n_newly} paths ended; kernel {ms:.4f} ms (L2 flushed before "
-              f"each launch), plain {plain_ms:.4f} ms; {n_bytes} bytes, {flops} FLOP: bound {bound_ms:.4f} ms by "
+              f"each launch){turns}, plain {plain_ms:.4f} ms; {n_bytes} bytes, {flops} FLOP: bound {bound_ms:.4f} ms by "
               f"{bound_by} | {smi}")
         if first is None:
             first = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                          library_ms=None)
+            if parent:
+                first["parent_ms"] = sum(times["parent"]) / len(times["parent"])
         del st, tb, st_k, st_p
     return first
 
@@ -1877,11 +2176,17 @@ RAY_ORDER_FUNCTIONS = ("sort_cluster_kernel", "sort_keys_kernel", "sort_pass_ker
 DEVICE_FUNCTIONS = ("streamed_kernel", "packet_weight_kernel", "fused_step_kernel", "path_step_kernel",
                     "unit_sphere_kernel", "bounce_kernel", "shade_lanes_kernel", "nee_kernel",
                     "camera_kernel") + RAY_ORDER_FUNCTIONS
-# kernel_label's families, for the device time split of --plain-ab
+# kernel_label's families, for the device time split of --plain-ab; the
+# shading kernels each a family of its own.  A programmatic dependent's
+# traced time (the NEE and camera kernels') begins when its blocks start,
+# while the launch before it still runs, and holds its wait: what it adds
+# is its exposed time (exposed_by_family).
 FAMILIES = {"traversal": ("streamed_kernel", "packet_weight_kernel"),
             "schedule step": ("fused_step_kernel", "path_step_kernel"),
             "sampler": ("unit_sphere_kernel",),
-            "shading": ("bounce_kernel", "shade_lanes_kernel", "nee_kernel", "camera_kernel"),
+            "bounce": ("bounce_kernel", "shade_lanes_kernel"),
+            "nee": ("nee_kernel",),
+            "camera": ("camera_kernel",),
             "ray order": RAY_ORDER_FUNCTIONS}
 
 
@@ -1963,6 +2268,35 @@ def device_events(t):
     return table
 
 
+def busy_seconds(t):
+    """Device busy seconds of a trace (`trace`): the union of its device
+    events' intervals, so that a programmatic dependent, whose traced
+    time begins while the launch before it still runs, is not counted
+    twice (without overlap, the sum of their times)."""
+    busy, last = 0, None
+    for e in sorted(t["device"], key=lambda e: e.start_ns()):
+        end = e.start_ns() + e.duration_ns()
+        busy += max(0, end - max(e.start_ns(), last if last is not None else e.start_ns()))
+        last = end if last is None else max(last, end)
+    return busy / 1e9
+
+
+def exposed_by_family(t):
+    """{family: device seconds} of a trace's device events (`trace`) that
+    no earlier event covers: each event's end less the latest end of the
+    events that started before it (0 where that is later), so that a
+    kernel that overlaps the one before it (a programmatic dependent)
+    counts only what it adds, and one that follows a gap counts the gap.
+    The card runs one stream."""
+    out = collections.Counter()
+    last = None
+    for e in sorted(t["device"], key=lambda e: e.start_ns()):
+        end = e.start_ns() + e.duration_ns()
+        out[family(e.name())] += max(0, end - (e.start_ns() if last is None else last)) / 1e9
+        last = end if last is None else max(last, end)
+    return out
+
+
 def launch_calls(t):
     """{name: count} of a trace's host calls that launch work on the
     device: kernel launches and graph launches."""
@@ -1990,24 +2324,35 @@ def frame(scene, cam, cfg, subframe, eager, plain=False):
     return time.perf_counter() - t0, img, stats
 
 
-def profiled(scene, cam, cfg, subframe, eager, plain=False, events_out=None, retakes=2):
+def profiled(scene, cam, cfg, subframe, eager, plain=False, events_out=None, retakes=2, exposed_out=None):
     """One frame under the profiler, traced as `trace` traces (its margin,
     its spin, up to `retakes` retakes): (wall, device busy, device kernels,
     host launch calls {name: count}, stats, the trace's `complete`,
     `retakes` and `lead_ms`); `events_out`, a dict, gets the device events
-    {name: [count, seconds]}."""
+    {name: [count, seconds]}, `exposed_out` the exposed device seconds by
+    family (exposed_by_family)."""
     with arm(eager, plain):
         t = trace(lambda: render_frame_stats(scene, cam, cfg, subframe)[1], retakes)
     events = device_events(t)
     if events_out is not None:
         events_out.update(events)
-    return (t["wall"], sum(s for _, s in events.values()), sum(c for c, _ in events.values()), launch_calls(t),
+    if exposed_out is not None:
+        exposed_out.update(exposed_by_family(t))
+    return (t["wall"], busy_seconds(t), sum(c for c, _ in events.values()), launch_calls(t),
             t["out"], {k: t[k] for k in ("complete", "retakes", "lead_ms")})
 
 
 def family(key):
     """The FAMILIES name of the device event `key`, or "rest"."""
     return next((f for f, names in FAMILIES.items() if any(n in key for n in names)), "rest")
+
+
+def family_split(events):
+    """Device seconds by family of device_events' table."""
+    split = collections.Counter()
+    for key, (_, sec) in events.items():
+        split[family(key)] += sec
+    return split
 
 
 def kernels_ab(label, scene, cam, cfg, smi, frames=1, order=(True, False, False, True), retakes=2):
@@ -2045,24 +2390,24 @@ def kernels_ab(label, scene, cam, cfg, smi, frames=1, order=(True, False, False,
                 raise SystemExit(f"[{label}] FAIL: the frame did not run graphed")
     parts = []
     for name, row in out.items():
-        events = {}
+        events, exposed = {}, {}
         wall, busy, kernels, _, st, tr = profiled(scene, cam, cfg, 1, False, plain=name == "plain", events_out=events,
-                                                  retakes=retakes)
+                                                  retakes=retakes, exposed_out=exposed)
         iters = st["iters"]
-        split = collections.Counter()
-        for key, (_, sec) in events.items():
-            split[family(key)] += sec
+        split = family_split(events)
         rest = sorted(((sec, c, key) for key, (c, sec) in events.items() if family(key) == "rest"), reverse=True)[:4]
         mean = sum(row["times"]) / len(row["times"])
         row.update(seconds=mean, busy=busy, idle=1 - busy / mean, kernels=kernels / iters, iters=iters,
-                   split={f: sec / iters for f, sec in split.items()}, events=events)
+                   split={f: sec / iters for f, sec in split.items()},
+                   exposed={f: sec / iters for f, sec in exposed.items()}, events=events)
         parts.append(
             f"{name}: s/launch {' '.join(f'{t:.4f}' for t in row['times'])} (mean {mean:.4f}), first frame "
             f"{row['first']:.4f} s, graph pool {row['pool_bytes']} bytes; profiled wall {wall:.4f} s, device busy "
             f"{busy:.4f} s, idle share of the mean s/launch {row['idle']:.2%}, {row['kernels']:.1f} device kernels per "
             f"iteration (trace {'complete' if tr['complete'] else 'INCOMPLETE'} after {tr['retakes']} retakes, "
-            f"clock lead {tr['lead_ms']:.4f} ms); device ms per iteration: "
-            + ", ".join(f"{f} {sec * 1e3 / iters:.4f}" for f, sec in split.most_common())
+            f"clock lead {tr['lead_ms']:.4f} ms); device ms per iteration (exposed): "
+            + ", ".join(f"{f} {sec * 1e3 / iters:.4f} ({exposed.get(f, 0.0) * 1e3 / iters:.4f})"
+                        for f, sec in split.most_common())
             + "; largest of the rest per iteration: "
             + ", ".join(f"{key[:60]} {c / iters:.1f} x {sec / c * 1e3:.4f} ms" for sec, c, key in rest)
             + f"; launches {dict((k, v) for k, v in row['counts'].items() if v)}")
@@ -2464,21 +2809,81 @@ def phase_bounce_kernel(label, cases, smi):
     return first
 
 
-def phase_nee_kernel(label, cases, smi):
+def arms_of(parent):
+    """The arms a timing runs in turns: the parent's libraries and this
+    tree's kernels, P C C P, or this tree's alone."""
+    return ("parent", "change", "change", "parent") if parent else ("change",)
+
+
+def timed_alone(fn, inputs, parent):
+    """fn over `inputs` with the L2 flushed before each launch (_time_cold)
+    and warm, back to back (_time_over), each arm in turns (arms_of).
+    Returns {arm: (mean cold ms, mean warm ms)}."""
+    got = {}
+    for arm in arms_of(parent):
+        with using_libraries(parent if arm == "parent" else None):
+            got.setdefault(arm, []).append((_time_cold(fn, inputs), _time_over(fn, inputs, device_only=True)))
+    return {arm: tuple(sum(x) / len(x) for x in zip(*runs)) for arm, runs in got.items()}
+
+
+def turn_text(times, exposed=None):
+    """A kernel's times by arm: cold (warm), and exposed behind the launch
+    before it (paired_rounds)."""
+    parts = []
+    for arm, (cold, warm) in times.items():
+        part = f"{arm} {cold:.4f} ms L2 flushed, {warm:.4f} warm"
+        if exposed:
+            part += f", exposed {exposed_text(exposed[arm])}"
+        parts.append(part)
+    return "; ".join(parts)
+
+
+def kernel_row(times, exposed, floor):
+    """The kernels line's timing keys of one case: ms (cold), warm_ms,
+    exposed_ms (with its quartiles), the floor, and the parent's."""
+    row = dict(ms=times["change"][0], warm_ms=times["change"][1], floor_ms=floor)
+    if exposed:
+        e = exposed["change"]
+        row.update(exposed_ms=e["median_ms"], exposed_q_ms=[e["q1_ms"], e["q3_ms"]])
+    if "parent" in times:
+        row.update(parent_ms=times["parent"][0], parent_warm_ms=times["parent"][1])
+        if exposed:
+            e = exposed["parent"]
+            row.update(parent_exposed_ms=e["median_ms"], parent_exposed_q_ms=[e["q1_ms"], e["q3_ms"]])
+    return row
+
+
+def phase_nee_kernel(label, cases, smi, parent=None):
     """The NEE kernel against its plain version (_nee_weights and the
     visible select into radiance) after the bounce kernel and the any-hit
-    traversal on each case's rays: radiance and spec_next bit-equal to
-    _bounce_plain's with the same any-hit answer; both times and the
-    bound.  Returns the numbers of the first case."""
+    traversal on each case's rays (`cases`: name, scene, config, camera,
+    camera rays, paired): radiance and spec_next bit-equal to
+    _bounce_plain's with the same any-hit answer, launched alone and as
+    the main path launches it, a programmatic dependent of the traversal,
+    whose captured graph's edge into it must be programmatic; its time
+    alone with the L2 flushed before each launch and warm (timed_alone),
+    the timing method's floor at its grid (method_floor), the plain
+    version's time and the bound; on the paired cases its exposed time
+    behind the traversal (paired_rounds: the traversal alone, and the
+    traversal and the kernel).  With `parent` (its libraries) the
+    parent's NEE kernel and traversal the same ways, in turns.  Returns
+    the numbers of the first case, the others under `cases`."""
     import tpu_pathtracer_torch.render.integrator as integrator
 
-    first = None
-    for name, scene, cfg, camera, n_cam in cases:
+    first, rows = None, []
+    floor = method_floor(2 * CAMERA_RAYS, 128)
+    print(f"[{label}] the timing method's floor at the NEE kernel's grid ({2 * CAMERA_RAYS} lanes, blocks of 128), "
+          f"ms L2 flushed (warm): {floor_text(floor)} | {smi}", flush=True)
+    for name, scene, cfg, camera, n_cam, paired in cases:
         args = shade_inputs(scene, cfg, camera, n_cam)
         _, _, hit, o, d, att, rad, seeds, depth, spec = args
         b = bounce_ops.bounce(*args)
-        occ = scene.accel.occluded(scene.vertices, b["shadow_origin"], b["shadow_dir"], cfg.t_min, cfg.t_max, cfg,
-                                   active=b["cand"])
+
+        def traverse():
+            return scene.accel.occluded(scene.vertices, b["shadow_origin"], b["shadow_dir"], cfg.t_min, cfg.t_max,
+                                        cfg, active=b["cand"])
+
+        occ = traverse()
         pre = b["radiance"].clone()
         real = integrator.occluded_scene
         integrator.occluded_scene = lambda *a, **k: occ
@@ -2486,10 +2891,20 @@ def phase_nee_kernel(label, cases, smi):
             want = _bounce_plain(*args)
         finally:
             integrator.occluded_scene = real
+
+        def dependent(x):
+            return bounce_ops.next_event(scene, cfg, x, traverse(), d, att, dependent=True)
+
         got_spec = bounce_ops.next_event(scene, cfg, b, occ, d, att)
+        x = dict(b, radiance=pre.clone())
+        dep_spec = dependent(x)
         torch.cuda.synchronize()
-        if not (same_bits(b["radiance"], want["radiance"]) and same_bits(got_spec, want["spec_last"])):
-            raise SystemExit(f"[{label} {name}] FAIL: the NEE kernel and its plain version differ")
+        for how, r, sp in (("alone", b["radiance"], got_spec), ("behind the traversal", x["radiance"], dep_spec)):
+            if not (same_bits(r, want["radiance"]) and same_bits(sp, want["spec_last"])):
+                raise SystemExit(f"[{label} {name}] FAIL: the NEE kernel launched {how} and its plain version differ")
+        n = o.shape[0]
+        edge = programmatic_into_sink(f"{label} {name}", lambda: dependent(dict(b, radiance=pre.clone())),
+                                      (-(-n // 128), 128))
         sh = _shade(scene, cfg, hit, o, d, seeds, depth)
         _, env_dir, pdf, u, v = _light_sample(scene, cfg, sh, sh["seeds"])
         cand, cos_l = _shadow_candidates(hit.hit, sh, env_dir)
@@ -2502,31 +2917,64 @@ def phase_nee_kernel(label, cases, smi):
         torch.cuda.synchronize()
         if not (same_bits(r_p, want["radiance"]) and same_bits(s_p, want["spec_last"])):
             raise SystemExit(f"[{label} {name}] FAIL: _nee_weights differs from _bounce_plain")
-        ms = _time_cold(lambda x: bounce_ops.next_event(scene, cfg, x, occ, d, att),
-                        [dict(b, radiance=pre.clone()) for _ in range(51)])
+        inputs = [dict(b, radiance=pre.clone()) for _ in range(51)]
+        times = timed_alone(lambda x: bounce_ops.next_event(scene, cfg, x, occ, d, att), inputs, parent)
+        exposed = None
+        if paired:
+            def turn(arm, with_nee):
+                with using_libraries(parent if arm == "parent" else None):
+                    return _time_cold(dependent if with_nee else (lambda _: traverse()), inputs[:21])
+
+            exposed = paired_rounds(turn, tuple(dict.fromkeys(arms_of(parent))))
         plain_ms = _time_ms(plain, 10)
         visible = b["cand"] & ~occ
-        n = o.shape[0]
         n_bytes = nee_bytes(args, b, visible)
         bound_ms, bound_by = bound(n_bytes, n * NEE_LANE_FLOPS)
         print(f"[{label} {name}] {n} lanes, {int(b['cand'].sum())} shadow rays traced, {int(visible.sum())} visible"
               f"{', MIS-spec' if cfg.nee_mis_spec else ''}{', defensive' if cfg.nee_defensive_mix else ''}: radiance "
-              f"and spec_next bit-equal (0 ulp); kernel {ms:.4f} ms (L2 flushed before each launch), plain "
-              f"{plain_ms:.4f} ms; {n_bytes} bytes, "
-              f"{n * NEE_LANE_FLOPS} FLOP: bound {bound_ms:.4f} ms by {bound_by} | {smi}")
+              f"and spec_next bit-equal (0 ulp) alone and behind the traversal (captured edge {edge}); "
+              f"{turn_text(times, exposed)}; plain {plain_ms:.4f} ms; {n_bytes} bytes, "
+              f"{n * NEE_LANE_FLOPS} FLOP: bound {bound_ms:.4f} ms by {bound_by} | {smi}", flush=True)
+        row = dict(name=name, **kernel_row(times, exposed, floor), plain_ms=plain_ms, bound_ms=bound_ms)
+        rows.append(row)
         if first is None:
-            first = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=None)
+            first = dict(max_abs_err=0.0, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                         **{k: v for k, v in row.items() if k not in ("name", "plain_ms", "bound_ms")})
+    first["cases"] = rows[1:]
     return first
 
 
-def phase_camera_kernel(label, smi, n=131_072):
-    """The camera kernel against camera_paths_plain at the headline's
-    1080p on n lanes: the stream's respawn (pixel and sample tables, a
+CAMERA_POOL_ITERS = 16  # unfused iterations before the pool's step (as phase 18's pools)
+
+
+def camera_pool(scene, cfg):
+    """A stream's lane pool mid-render (lane_state after
+    CAMERA_POOL_ITERS iterations and until a step retires a pixel) and
+    what respawns it: (state, payload, head, step keywords, the frame's
+    camera arrays, counters as device tensors)."""
+    st, tb, head = lane_state(scene, cfg, Camera(), CAMERA_POOL_ITERS, retiring=True)[:3]
+    dev = scene.device
+    counters = (torch.tensor(1, dtype=torch.int64, device=dev), torch.tensor(0, dtype=torch.int64, device=dev))
+    return st, tb, head, step_kw(cfg), camera_arrays(Camera(), cfg, dev), counters
+
+
+def phase_camera_kernel(label, pools, smi, parent=None, n=131_072):
+    """The camera kernel against camera_paths_plain: at the headline's
+    1080p on n lanes, the stream's respawn (pixel and sample tables, a
     40% mask, into buffers it leaves alone elsewhere) with and without
-    DOF, and the 1-spp set-up on an affine range (base + lane // 10):
-    origins, directions and seeds bit-equal; both times and the bound.
-    Returns the numbers of the respawn with DOF."""
+    DOF, and the 1-spp set-up on an affine range (base + lane // 10); and
+    on `pools` (name, scene, config: camera_pool's lanes mid-render at
+    131,072 on the headline and at config 1's 16,384), the respawn behind
+    kernel 7 on the step's real regen mask, launched as the main path
+    launches it, a programmatic dependent of kernel 7, whose captured
+    graph's edge into it must be programmatic.  Origins, directions and
+    seeds bit-equal; times alone with the L2 flushed and warm
+    (timed_alone), the timing method's floor at each grid, the plain
+    version's time and the bound; on the pools the exposed time behind
+    kernel 7 (paired_rounds: kernel 7 alone, and kernel 7 and the
+    respawn).  With `parent` (its libraries) the parent's camera kernel
+    and kernel 7 the same ways, in turns.  Returns the numbers of the
+    respawn with DOF, the others under `cases`."""
     dev = torch.device("cuda")
     rs = np.random.RandomState(19)
     pix = torch.as_tensor(rs.randint(0, 1920 * 1080, n).astype(np.int32), device=dev)
@@ -2536,7 +2984,20 @@ def phase_camera_kernel(label, smi, n=131_072):
     cases = (("respawn DOF", True, dict(pix=pix, sample=sample, sample_max=9, mask=mask)),
              ("respawn", False, dict(pix=pix, sample=sample, sample_max=9, mask=mask)),
              ("affine range", False, dict(per=10, base=torch.tensor(777, device=dev))))
-    first = None
+    first, rows, floors = None, [], {}
+
+    def floor_at(lanes):
+        if lanes not in floors:
+            floors[lanes] = method_floor(lanes, 256)
+            print(f"[{label}] the timing method's floor at the camera kernel's grid ({lanes} lanes, blocks of 256), "
+                  f"ms L2 flushed (warm): {floor_text(floors[lanes])} | {smi}", flush=True)
+        return floors[lanes]
+
+    def spawn_bytes(lanes, kw, written):
+        # the mask on every lane; tables and outputs on the lanes spawned;
+        # the camera's four vectors and three counters
+        return lanes * ("mask" in kw) + written * (4 * ("pix" in kw) + 4 * ("sample" in kw) + 32) + 4 * 12 + 3 * 8
+
     for name, dof, kw in cases:
         cfg = RenderConfig(**{**HEADLINE, "dof": dof, "dof_blurriness": 0.05})
         cam = camera_arrays(Camera(), cfg, dev)
@@ -2550,20 +3011,77 @@ def phase_camera_kernel(label, smi, n=131_072):
         if not all(same_bits(a, b) for a, b in zip(*outs)):
             raise SystemExit(f"[{label} {name}] FAIL: the camera kernel and its plain version differ")
         out = outs[0]
-        ms = _time_cold(lambda _: camera_ops.camera_paths(cam, cfg, *counters, n, out=out, **kw), [None] * 51)
+        floor = floor_at(n)
+        times = timed_alone(lambda _: camera_ops.camera_paths(cam, cfg, *counters, n, out=out, **kw), [None] * 51,
+                            parent)
         plain_ms = _time_ms(lambda: camera_ops.camera_paths_plain(cam, cfg, *counters, n, out=out, **kw), 10)
         written = int(kw["mask"].sum()) if "mask" in kw else n
-        # the mask on every lane; tables and outputs on the lanes spawned;
-        # the camera's four vectors and three counters
-        n_bytes = n * ("mask" in kw) + written * (4 * ("pix" in kw) + 4 * ("sample" in kw) + 32) + 4 * 12 + 3 * 8
+        n_bytes = spawn_bytes(n, kw, written)
         bound_ms, bound_by = bound(n_bytes, written * CAMERA_LANE_FLOPS)
         print(f"[{label} {name}] {n} lanes, {written} spawned: origins, directions and seeds bit-equal (0 ulp); "
-              f"kernel {ms:.4f} ms (L2 flushed before each launch), plain {plain_ms:.4f} ms; {n_bytes} bytes: "
-              f"bound {bound_ms:.4f} ms by {bound_by} "
-              f"| {smi}")
+              f"{turn_text(times)}; plain {plain_ms:.4f} ms; {n_bytes} bytes: bound {bound_ms:.4f} ms by {bound_by} "
+              f"| {smi}", flush=True)
+        row = dict(name=name, **kernel_row(times, None, floor), plain_ms=plain_ms, bound_ms=bound_ms)
+        rows.append(row)
         if first is None:
-            first = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=None)
+            first = dict(max_abs_err=0.0, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                         **{k: v for k, v in row.items() if k not in ("name", "plain_ms", "bound_ms")})
+    for name, scene, cfg in pools:
+        st, tb, head, kw, cam, counters = camera_pool(scene, cfg)
+        lanes, spp = st["slot"].shape[0], cfg.samples_per_launch
+        image = torch.zeros((kw["n_pix"] + 1, 3), device=dev)
+        seg = torch.zeros((), dtype=torch.int64, device=dev)
+
+        def copy():
+            return {k: st[k].clone() for k in fs.STATE_KEYS}
+
+        def step(s_):
+            return fs.fused_stream_step_cuda(tb, s_, image, head, seg, **kw)[0]
+
+        def respawn(s_, regen, dependent=False, plain=False):
+            lanes_kw = dict(pix=s_["pix"], sample=s_["sample_i"], sample_max=spp - 1, mask=regen,
+                            out=(s_["origin"], s_["direction"], s_["seeds"]))
+            if plain:
+                camera_ops.camera_paths_plain(cam, cfg, *counters, lanes, **lanes_kw)
+            else:
+                camera_ops.camera_paths(cam, cfg, *counters, lanes, dependent=dependent, **lanes_kw)
+
+        got, want = copy(), copy()
+        respawn(got, step(got), dependent=True)
+        regen = step(want)
+        respawn(want, regen, plain=True)
+        torch.cuda.synchronize()
+        bad = [k for k in ("origin", "direction", "seeds") if not same_bits(got[k], want[k])]
+        if bad:
+            raise SystemExit(f"[{label} {name}] FAIL: the camera kernel behind kernel 7 and its plain version differ "
+                             f"in {bad}")
+        held = copy()
+        edge = programmatic_into_sink(f"{label} {name}", lambda: respawn(held, step(held), dependent=True),
+                                      (-(-lanes // 256), 256))
+        floor = floor_at(lanes)
+        alone_in = [dict(copy(), regen=regen) for _ in range(21)]
+        times = timed_alone(lambda s_: respawn(s_, s_["regen"]), alone_in, parent)
+
+        def turn(arm, with_camera):
+            def fn(s_):
+                r = step(s_)
+                if with_camera:
+                    respawn(s_, r, dependent=True)
+
+            with using_libraries(parent if arm == "parent" else None):
+                return _time_cold(fn, [copy() for _ in range(21)])
+
+        exposed = paired_rounds(turn, tuple(dict.fromkeys(arms_of(parent))))
+        plain_ms = _time_ms(lambda: respawn(alone_in[0], regen, plain=True), 10)
+        written = int(regen.sum())
+        n_bytes = spawn_bytes(lanes, dict(pix=1, sample=1, mask=1), written)
+        bound_ms, bound_by = bound(n_bytes, written * CAMERA_LANE_FLOPS)
+        print(f"[{label} {name}] {lanes} lanes after {CAMERA_POOL_ITERS}+ unfused iterations, {written} respawned by "
+              f"kernel 7's regen mask: origins, directions and seeds bit-equal (0 ulp) behind kernel 7 (captured edge "
+              f"{edge}); {turn_text(times, exposed)}; plain {plain_ms:.4f} ms; {n_bytes} bytes: bound "
+              f"{bound_ms:.4f} ms by {bound_by} | {smi}", flush=True)
+        rows.append(dict(name=name, **kernel_row(times, exposed, floor), plain_ms=plain_ms, bound_ms=bound_ms))
+    first["cases"] = rows[1:]
     return first
 
 
@@ -2586,32 +3104,13 @@ def ray_order_bytes(n, active, any_hit):
     return dict(sort=n_act * 24 + mask + n * 32 + 24, restore=n * (8 if any_hit else 9))
 
 
-STORE_ROUNDS = 6
-
-
 def store_cost(time_traversal, rounds=STORE_ROUNDS):
-    """What the caller-order store adds to a traversal, from `rounds`
-    rounds of turns (alone, with perm, with perm, alone), each turn
-    time_traversal(with_perm), its mean device ms: each round's two turns
-    with perm less its two alone, paired within the round so that a drift
-    across it cancels.  Returns the traversal's ms alone and with perm
-    (means over every turn), the rounds' differences (`rounds_ms`), their
-    median and quartiles, `resolved` (the quartiles' spread below the
-    median: a cost this run resolves) and `ms`, the median, or 0 where the
-    median is below 0 (a cost under the turns' resolution)."""
-    alone, with_perm, diffs = [], [], []
-    for _ in range(rounds):
-        a0 = time_traversal(False)
-        w0 = time_traversal(True)
-        w1 = time_traversal(True)
-        a1 = time_traversal(False)
-        alone += [a0, a1]
-        with_perm += [w0, w1]
-        diffs.append((w0 + w1 - a0 - a1) / 2)
-    q1, median, q3 = statistics.quantiles(diffs, n=4, method="inclusive")
-    return dict(ms=max(median, 0.0), median_ms=median, q1_ms=q1, q3_ms=q3, rounds_ms=diffs,
-                resolved=q3 - q1 < median, traversal_ms=sum(alone) / len(alone),
-                traversal_perm_ms=sum(with_perm) / len(with_perm))
+    """What the caller-order store adds to a traversal (paired_rounds:
+    turns alone, with perm, with perm, alone; time_traversal(with_perm),
+    its mean device ms), with the traversal's ms alone and with perm as
+    `traversal_ms` and `traversal_perm_ms`."""
+    got = paired_rounds(lambda _, with_perm: time_traversal(with_perm), rounds=rounds)[None]
+    return dict(got, traversal_ms=got["alone_ms"], traversal_perm_ms=got["paired_ms"])
 
 
 def order_compares(packets):
@@ -2652,28 +3151,14 @@ def graph_kernels(fn):
     """Kernel launches of one call of fn, counted without the wrappers'
     counts or the profiler: the kernel nodes of a CUDA graph captured
     from the call (after a warm-up call outside the capture)."""
-    import ctypes
-
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph):
-        fn()
-    cu = ctypes.CDLL("libcuda.so.1")
-    raw, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
-    if cu.cuGraphGetNodes(raw, None, ctypes.byref(count)):
-        raise SystemExit("FAIL: cuGraphGetNodes")
-    nodes = (ctypes.c_void_p * count.value)()
-    node_type = ctypes.c_int()
-    kernels = 0
-    if cu.cuGraphGetNodes(raw, nodes, ctypes.byref(count)):
-        raise SystemExit("FAIL: cuGraphGetNodes")
-    for node in nodes:
-        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(node_type)):
-            raise SystemExit("FAIL: cuGraphNodeGetType")
-        kernels += node_type.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
-    graph.reset()
-    return kernels
+    with captured_graph(fn) as (cu, raw):
+        count = ctypes.c_size_t(0)
+        if cu.cuGraphGetNodes(raw, None, ctypes.byref(count)):
+            raise SystemExit("FAIL: cuGraphGetNodes")
+        nodes = (ctypes.c_void_p * count.value)()
+        if cu.cuGraphGetNodes(raw, nodes, ctypes.byref(count)):
+            raise SystemExit("FAIL: cuGraphGetNodes")
+        return sum(node_type(cu, node) == CU_GRAPH_NODE_TYPE_KERNEL for node in nodes)
 
 
 def ray_order_inputs(scene, cfg, camera, n_cam, any_hit):
@@ -3042,7 +3527,7 @@ def phase_deferred(label, hero, root, smi):
             iters = sum(f[1]["iters"] for f in frames)
             check_kernels(f"{label} {name}", counts, ("k1", STEP_KERNEL[frames[0][1]["schedule"]]))
             res[on] = dict(frames=frames, iters=iters, syncs=syncs / iters, counts=counts,
-                           busy=sum(sec for _, sec in events.values()),
+                           busy=busy_seconds(t),
                            kernels=sum(n for n, _ in events.values()) / pstats["iters"])
         off, on = res[False], res[True]
         equal = all(same_bits(a[0], b[0]) for a, b in zip(off["frames"], on["frames"]))
@@ -3233,12 +3718,33 @@ def ray_order_cases(scene, config4):
     )
 
 
+def nee_cases(scene, config4):
+    """Phase 36's cases: the headline and config 4 with NEE (each also
+    paired with its traversal), and the headline with MIS-spec and the
+    defensive mixture."""
+    cfg_nee = RenderConfig(**{**HEADLINE, **NEE})
+    return (("headline", scene, cfg_nee, Camera(), CAMERA_RAYS, True),
+            ("config 4", config4, cfg_nee, Camera(**CONFIG4_CAMERA), CAMERA_RAYS, True),
+            ("headline MIS defensive", scene, cfg_nee.replace(nee_mis_spec=True, nee_defensive_mix=True), Camera(),
+             CAMERA_RAYS, False))
+
+
+def camera_pools(scene):
+    """Phase 37's pools: the headline's 131,072 lanes and BASELINE config
+    1's 16,384, mid-render."""
+    return (("headline pool", scene, RenderConfig(**HEADLINE)),
+            ("config 1 pool", config1_scene("cuda"), RenderConfig(**CONFIG1)))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--image", help="write the headline 1080p frame here as a binary PPM")
-    parser.add_argument("--parent", help="the root of an older checkout: phase 18 also times its kernel 7")
+    parser.add_argument("--parent", help="the root of an older checkout: phases 11-13, 18, 18c, 36 and 37 also "
+                                         "time its kernels, in turns")
     parser.add_argument("--ray-order", action="store_true",
                         help="run phase 38 alone (after the device and build phases)")
+    parser.add_argument("--nee-camera", action="store_true",
+                        help="run phases 36 and 37 alone (after the device and build phases)")
     parser.add_argument("--shard-worker", nargs=3, metavar=("PORT", "RANK", "OUT"), help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.shard_worker:
@@ -3247,9 +3753,14 @@ def main() -> int:
 
     t_start = time.perf_counter()
     smi = phase_device()
-    phase_build()
+    parent = phase_build(args.parent)
     if args.ray_order:
         phase_ray_order("38 ray order", ray_order_cases(headline_scene("cuda"), high_poly(100_000, "cuda")), smi)
+        return 0
+    if args.nee_camera:
+        scene = headline_scene("cuda")
+        phase_nee_kernel("36 NEE kernel", nee_cases(scene, high_poly(100_000, "cuda")), smi, parent)
+        phase_camera_kernel("37 camera kernel", camera_pools(scene), smi, parent)
         return 0
     cfg = RenderConfig(**HEADLINE)
     cfg_nee = RenderConfig(**{**HEADLINE, **NEE})
@@ -3281,9 +3792,9 @@ def main() -> int:
     launches["k3"] = phase_render("9 render 200k", big, cfg, cam4, 1, smi)["counts"]["k3"]
     phase_parity("10 parity two-level", lambda dev: high_poly(13_000, dev), cam4, "hier")
 
-    numbers["k4"] = phase_kernel("11 kernel 4", "k4", scene, cfg_nee, Camera(), smi, plain_reps=5)
-    numbers["k5"] = phase_kernel("12 kernel 5", "k5", config4, cfg_nee, cam4, smi, plain_reps=2)
-    numbers["k6"] = phase_kernel("13 kernel 6", "k6", big, cfg_nee, cam4, smi, plain_reps=2)
+    numbers["k4"] = phase_kernel("11 kernel 4", "k4", scene, cfg_nee, Camera(), smi, plain_reps=5, parent=parent)
+    numbers["k5"] = phase_kernel("12 kernel 5", "k5", config4, cfg_nee, cam4, smi, plain_reps=2, parent=parent)
+    numbers["k6"] = phase_kernel("13 kernel 6", "k6", big, cfg_nee, cam4, smi, plain_reps=2, parent=parent)
     renders["14"] = phase_render("14 render headline NEE", scene, cfg_nee, Camera(), 1, smi)
     renders["15"] = phase_render("15 render config 4 NEE", config4, cfg_nee, cam4, 1, smi)
     launches["k4"], launches["k5"] = renders["14"]["counts"]["k4"], renders["15"]["counts"]["k5"]
@@ -3293,9 +3804,9 @@ def main() -> int:
     del config4, big
 
     numbers["k7"] = phase_fused_kernel("18 kernel 7", {"headline": scene, "config 1": config1_scene("cuda")}, smi,
-                                       args.parent)
+                                       parent)
     stream_steps = phase_stream_step("18b kernel 7 widened", scene, smi)
-    numbers["kp"] = phase_path_step("18c path step", scene, smi)
+    numbers["kp"] = phase_path_step("18c path step", scene, smi, parent)
     launches["k7"] = phase_fused_render("19 render headline", scene, cfg, Camera(), smi)["counts"]["k7"]
     renders["20"] = phase_fused_render("20 render config 1", config1_scene("cuda"), RenderConfig(**CONFIG1), Camera(),
                                        smi)
@@ -3339,13 +3850,8 @@ def main() -> int:
             ("headline NEE MIS defensive", shade_inputs(
                 scene, cfg_nee.replace(nee_mis_spec=True, nee_defensive_mix=True), Camera(), CAMERA_RAYS)),
         ], smi)
-        numbers["kn"] = phase_nee_kernel("36 NEE kernel", (
-            ("headline", scene, cfg_nee, Camera(), CAMERA_RAYS),
-            ("config 4", config4, cfg_nee, cam4, CAMERA_RAYS),
-            ("headline MIS defensive", scene, cfg_nee.replace(nee_mis_spec=True, nee_defensive_mix=True), Camera(),
-             CAMERA_RAYS),
-        ), smi)
-        numbers["kc"] = phase_camera_kernel("37 camera kernel", smi)
+        numbers["kn"] = phase_nee_kernel("36 NEE kernel", nee_cases(scene, config4), smi, parent)
+        numbers["kc"] = phase_camera_kernel("37 camera kernel", camera_pools(scene), smi, parent)
         ray_order = phase_ray_order("38 ray order", ray_order_cases(scene, config4), smi)
         numbers.update(zip(RAY_ORDER, (ray_order[k] for k in ("sort", "restore", "order"))))
         del config4

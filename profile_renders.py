@@ -15,10 +15,11 @@ frame (it captures the graph that the profiled frame replays): the wall
 time of the profiled frame (traced as `chip_smoke.trace` traces: 20 ms of
 host time in the window at each end, a throwaway spin kernel first, the
 frame traced again, up to twice, while a launch has no device event), the
-device busy time (the sum of every kernel, copy and memset on the card,
-which runs one stream), the idle share, the traversal kernels' and the fused step's
-time and launches, the device kernels per iteration (device events
-only: the CUDA runtime calls that launch them are not counted) and the
+device busy time (the union of every kernel's, copy's and memset's time
+on the card, which runs one stream: chip_smoke.busy_seconds), the idle
+share, the traversal kernels' and the fused step's time and launches,
+the device kernels per iteration (device events only: the CUDA runtime
+calls that launch them are not counted) and the
 stream syncs per iteration (counted over the warm frame, by PyTorch's
 sync debug mode, with the lines that made them).  The
 events are read straight from the trace: key_averages over the ~7
@@ -38,12 +39,27 @@ bytes), then --frames frames each way in the order plain, kernels,
 kernels, plain (s/launch, images and stats bit-equal across the arms),
 then one profiled frame of each arm: device busy time, idle share,
 device kernels per iteration, the device time by kernel family (the
-traversal kernels, the shading kernels, the schedule steps: kernel 7 and
-the path step, the sampler, the ray order: the radix sort of the rays
-(its one-block kernel, or its key launch and digit passes), the restore
-and the packet order, and the rest: PyTorch's eager ops, copies and
-memsets, and on the plain arm the library sort) and the largest of the
-rest.
+traversal kernels; the bounce, NEE and camera kernels, each its own; the
+schedule steps: kernel 7 and the path step; the sampler; the ray order:
+the radix sort of the rays (its one-block kernel, or its key launch and
+digit passes), the restore and the packet order; and the rest: PyTorch's
+eager ops, copies and memsets, and on the plain arm the library sort),
+each beside its exposed time (chip_smoke.exposed_by_family), and the
+largest of the rest.
+
+--parent-ab NAME ... --parent DIR compares, on each named render at its
+full config, an older checkout's kernels (DIR: its root; chip_smoke's
+PARENT_SOURCES, the NEE and camera kernels and the launches before them,
+built from its csrc/ and launched through this tree's wrappers, whose
+launch order they then share) with this tree's, both graphed, in turns
+P C C P P C C P: each turn a first frame at subframe 0 (it captures,
+after every plan is dropped), an unprofiled frame at subframe 1
+(s/launch; images and stats bit-equal across every turn) and a profiled
+one: device busy time, device kernels per iteration, and for each kernel
+family (the bounce, NEE and camera kernels each their own) its device ms
+and its exposed ms an iteration (chip_smoke.exposed_by_family: what no
+earlier device event covers).  One line a render: each side's s/launch
+by turn, median and spread, and the medians of the rest.
 
 --ab NAME ... compares the loop run eagerly (`graph_loop.eager()`) with
 the graphed loop (each iteration one replay of a captured CUDA graph) on
@@ -62,6 +78,7 @@ import argparse
 import collections
 import contextlib
 import os
+import statistics
 import sys
 import time
 import warnings
@@ -72,19 +89,29 @@ import torch
 from chip_smoke import (
     CONFIG1,
     CONFIG4_CAMERA,
+    FAMILIES,
     HEADLINE,
     NEE,
+    PARENT_SOURCES,
     ab_render,
+    busy_seconds,
     config1_scene,
     device_events,
+    family_split,
+    finish_builds,
     headline_scene,
     high_poly,
     kernel_label,
     kernels_ab,
     phase_device,
+    profiled,
+    same_bits,
+    start_builds,
     trace,
+    using_libraries,
     write_hero,
 )
+from tpu_pathtracer_torch.render import graph_loop
 from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.ops import cuda_build
 from tpu_pathtracer_torch.render.camera import Camera, camera_arrays
@@ -173,7 +200,7 @@ def profile_one(run, name, make, camera, cfg_kw, out_dir, smi, wall_only=False):
     t = trace(lambda: render_frame_stats(scene, cam, cfg, 1)[1])
     stats, wall = t["out"], t["wall"]
     events = sorted(device_events(t).items(), key=lambda kv: -kv[1][1])
-    busy = sum(s for _, (_, s) in events)
+    busy = busy_seconds(t)
     kernels = sum(c for _, (c, _) in events)
     ours = [(kernel_label(key), c, s) for key, (c, s) in events if kernel_label(key)]
     ours_s = sum(s for _, _, s in ours)
@@ -193,6 +220,50 @@ def profile_one(run, name, make, camera, cfg_kw, out_dir, smi, wall_only=False):
           flush=True)
 
 
+def parent_ab(name, make, camera, cfg_kw, parent, smi, order="PCCPPCCP"):
+    """One render of renders() with the parent's kernels (P: `parent`,
+    finish_builds' libraries) and this tree's (C), in turns `order`: see
+    the top of this file."""
+    scene, cam, cfg = setup(make, camera, cfg_kw)
+    rows, seen = {"P": [], "C": []}, None
+    for who in order:
+        graph_loop.clear()
+        with using_libraries(parent if who == "P" else None):
+            render_frame_stats(scene, cam, cfg, 0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img, stats = render_frame_stats(scene, cam, cfg, 1)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            events, exposed = {}, {}
+            _, busy, kernels, _, st, tr = profiled(scene, cam, cfg, 1, False, events_out=events, exposed_out=exposed)
+        got = (img, {f: int(stats[f]) for f in ("iters", "segments", "shadow_segments")})
+        if seen is None:
+            seen = got
+        elif not same_bits(seen[0], img) or seen[1] != got[1]:
+            raise SystemExit(f"[parent-ab {name}] FAIL: turn {who} differs: {got[1]} vs {seen[1]}")
+        iters = st["iters"]
+        split = family_split(events)
+        rows[who].append(dict(seconds=dt, busy=busy, kernels=kernels / iters, complete=tr["complete"],
+                              split={f: split.get(f, 0.0) * 1e3 / iters for f in (*FAMILIES, "rest")},
+                              exposed={f: exposed.get(f, 0.0) * 1e3 / iters for f in (*FAMILIES, "rest")}))
+    graph_loop.clear()
+    median = lambda xs: statistics.median(xs)  # noqa: E731
+    parts = []
+    for who, label in (("C", "change"), ("P", "parent")):
+        r = rows[who]
+        secs = [x["seconds"] for x in r]
+        fams = ", ".join(f"{f} {median([x['split'][f] for x in r]):.4f} ({median([x['exposed'][f] for x in r]):.4f})"
+                         for f in (*FAMILIES, "rest") if any(x["split"][f] for x in r))
+        parts.append(f"{label}: s/launch {' '.join(f'{t:.4f}' for t in secs)} (median {median(secs):.4f}, spread "
+                     f"{min(secs):.4f}-{max(secs):.4f}), device busy {median([x['busy'] for x in r]):.4f} s, "
+                     f"{median([x['kernels'] for x in r]):.1f} device kernels per iteration, "
+                     f"{sum(x['complete'] for x in r)} of {len(r)} traces complete; device ms per iteration "
+                     f"(exposed), medians: {fams}")
+    print(f"[parent-ab {name}] {stats['schedule']} schedule, {iters} iterations, turns {' '.join(order)}: images and "
+          f"stats bit-equal in every turn; " + "; ".join(parts) + f" | {smi}", flush=True)
+
+
 def main() -> int:
     all_renders = renders()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -205,9 +276,21 @@ def main() -> int:
     parser.add_argument("--plain-ab", nargs="*", choices=sorted(all_renders),
                         help="the shading kernels against their plain versions on these renders, in this order")
     parser.add_argument("--frames", type=int, default=2, help="--ab, --plain-ab: timed frames each way per turn")
+    parser.add_argument("--parent-ab", nargs="*", choices=sorted(all_renders),
+                        help="an older checkout's kernels (--parent) against this tree's on these renders, in turns")
+    parser.add_argument("--parent", help="--parent-ab: the root of the older checkout")
     args = parser.parse_args()
     smi = phase_device()
     os.makedirs(args.out, exist_ok=True)
+    if args.parent_ab:
+        if not args.parent:
+            parser.error("--parent-ab needs --parent DIR")
+        jobs = start_builds({s: Path(args.parent) / "tpu_pathtracer_torch" / "csrc" / s for s in PARENT_SOURCES})
+        cuda_build.build_libraries()
+        parent = finish_builds(jobs)
+        for name in args.parent_ab:
+            parent_ab(name, *all_renders[name], parent, smi)
+        return 0
     if args.plain_ab:
         cuda_build.build_libraries()
         for name in args.plain_ab:

@@ -17,6 +17,7 @@ file imports no JAX, so it runs where only the port is installed:
 """
 
 import contextlib
+import functools
 import os
 import sys
 
@@ -1744,3 +1745,158 @@ def test_cluster_accel_ray_order_on_card(cuda, monkeypatch, route, sort_rays, ma
     assert n_hit == (sorts, 1, 1)
     assert n_occ == (sorts, int(sorted_), 1)
     assert n_hit_p == n_occ_p == (0, 0, 0)
+
+
+# ---------------------------------------------------------------------------
+# The NEE and camera kernels as programmatic dependents of the launch before
+# them (csrc/launch_order.cuh): the any-hit traversal, kernel 7
+# ---------------------------------------------------------------------------
+
+REPLAYS = 1000
+
+
+@functools.lru_cache(maxsize=None)
+def nee_pair(device):
+    """The any-hit traversal of config 4's shadow rays (high_poly_scene
+    at 100,000 triangles: the two-level route, ~2 ms a launch) and the
+    NEE kernel as its programmatic dependent, as _bounce_kernels launches
+    them: (pair() -> spec_next, writing `radiance` in place from the
+    bounce kernel's; radiance; the plain version's radiance and spec_next;
+    the NEE launch's (blocks, threads))."""
+    from tpu_pathtracer_torch.ops import camera as camera_ops
+    from tpu_pathtracer_torch.render.envmap import with_importance_sampling
+    from tpu_pathtracer_torch.scene.scene import make_env
+    from tpu_pathtracer_torch.utils.image import procedural_hdr
+
+    dev = torch.device(device)
+    env = with_importance_sampling(make_env(procedural_hdr(64, 128), dev))
+    scene = build_accel(procedural.high_poly_scene(total_tris=100_000, device=dev).replace(env=env), kind="cluster")
+    cfg = RenderConfig(width=1920, height=1080, max_depth=8, intersector="cluster", env_mode="equirect",
+                       rr_mode="standard", env_importance_sampling=True)
+    assert scene.accel.route(cfg) == "hier"
+    n = 65_536
+    pix = torch.arange(n, dtype=torch.int32, device=dev) * (1920 * 1080 // n)
+    o, d, seeds = camera_ops.camera_paths(camera_arrays(Camera(eye=(0, 3, 10), lookat=(0, 1, 0)), cfg, dev), cfg, 0,
+                                          0, n, pix=pix)
+    hit = scene.accel.intersect(scene.vertices, o, d, cfg.t_min, cfg.t_max, cfg)
+    rs = np.random.RandomState(31)
+    att = torch.as_tensor((rs.rand(n, 3) + 0.2).astype(np.float32), device=dev)
+    rad = torch.as_tensor((rs.rand(n, 3) * 0.5).astype(np.float32), device=dev)
+    depth = torch.full((n,), 8, dtype=torch.int32, device=dev)
+    spec = torch.as_tensor(rs.rand(n) < 0.5, device=dev)
+    args = (scene, cfg, hit, o, d, att, rad, seeds, depth, spec)
+    b = bounce_ops.bounce(*args)
+
+    def traverse():
+        return scene.accel.occluded(scene.vertices, b["shadow_origin"], b["shadow_dir"], cfg.t_min, cfg.t_max, cfg,
+                                    active=b["cand"])
+
+    occ = traverse()
+    real = integrator.occluded_scene
+    integrator.occluded_scene = lambda *a, **k: occ
+    try:
+        want = integrator._bounce_plain(*args)
+    finally:
+        integrator.occluded_scene = real
+    pre = b["radiance"].clone()
+    radiance = pre.clone()
+    x = dict(b, radiance=radiance)
+
+    def pair():
+        radiance.copy_(pre)
+        return bounce_ops.next_event(scene, cfg, x, traverse(), d, att, dependent=True)
+
+    blocked = occ[b["cand"]]
+    assert int(b["cand"].sum()) > 1000 and 0 < int(blocked.sum()) < blocked.shape[0]
+    return pair, radiance, want["radiance"], want["spec_last"], (-(-n // 128), 128)
+
+
+@functools.lru_cache(maxsize=None)
+def camera_pair(device):
+    """Kernel 7 on 131,072 lanes of a seeded state and the camera kernel
+    as its programmatic dependent on the step's regen mask (DOF), as the
+    stream's respawn launches them, the state reset each call: (pair(),
+    the state, the plain version's origins, directions and seeds (kernel
+    7 then camera_paths_plain), the camera launch's (blocks, threads))."""
+    from tpu_pathtracer_torch.ops import camera as camera_ops
+
+    dev = torch.device(device)
+    lanes = 131_072
+    tb, st, n_pix, head, segments = step_state(lanes, 9, dev)
+    kw = dict(spp=3, n_pix=n_pix, max_depth=4, rr_reference=True, inv_spp=1.0 / 3)
+    cfg = RenderConfig(width=1024, height=n_pix // 1024, dof=True, dof_blurriness=0.1, focus_distance=3.0)
+    cam = camera_arrays(Camera(), cfg, dev)
+    counters = torch.tensor(2, device=dev), torch.tensor(5, device=dev)
+    image = torch.zeros((n_pix + 1, 3), device=dev)
+
+    def respawn(s, regen, spawn, **extra):
+        spawn(cam, cfg, *counters, lanes, pix=s["pix"], sample=s["sample_i"], sample_max=2, mask=regen,
+              out=(s["origin"], s["direction"], s["seeds"]), **extra)
+
+    s_p = {k: v.clone() for k, v in st.items()}
+    regen = fs.fused_stream_step_cuda(tb, s_p, image, head, segments, **kw)[0]
+    respawn(s_p, regen, camera_ops.camera_paths_plain)
+    s = {k: v.clone() for k, v in st.items()}
+
+    def pair():
+        for k, v in st.items():
+            s[k].copy_(v)
+        respawn(s, fs.fused_stream_step_cuda(tb, s, image, head, segments, **kw)[0], camera_ops.camera_paths,
+                dependent=True)
+
+    assert 0.05 < float(regen.float().mean()) < 0.95
+    return pair, s, {k: s_p[k] for k in ("origin", "direction", "seeds")}, (lanes // 256, 256)
+
+
+def replays_differ(pair, check) -> int:
+    """pair() captured into a CUDA graph and replayed REPLAYS times; the
+    count, kept on the card, of the values that check() -> [(got, want)]
+    finds differing in a bit after each replay."""
+    pair()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pair()
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    for _ in range(REPLAYS):
+        graph.replay()
+        for got, want in check(out):
+            if got.is_floating_point():
+                got, want = got.view(torch.int32), want.view(torch.int32)
+            bad += (got != want).sum()
+    torch.cuda.synchronize()
+    return int(bad)
+
+
+@pytest.mark.parametrize("which", ["nee", "camera"])
+def test_dependent_kernel_bit_equal_through_replays(cuda, which):
+    """Each dependent kernel behind the launch it depends on, captured as
+    the graphed loop captures them and replayed 1,000 times: every replay
+    bit-equal to the plain version.  Behind config 4's two-level any-hit
+    traversal the NEE kernel's blocks wait ~2 ms, so a read of the flags
+    before its wait would show."""
+    if which == "nee":
+        pair, radiance, want_rad, want_spec, _ = nee_pair(str(cuda))
+        spec = pair()
+        torch.cuda.synchronize()
+        assert same_bits(radiance, want_rad) and torch.equal(spec, want_spec)
+        assert replays_differ(pair, lambda out: [(radiance, want_rad), (out, want_spec)]) == 0
+    else:
+        pair, s, want, _ = camera_pair(str(cuda))
+        pair()
+        torch.cuda.synchronize()
+        assert all(same_bits(s[k], want[k]) for k in want)
+        assert replays_differ(pair, lambda _: [(s[k], want[k]) for k in want]) == 0
+
+
+@pytest.mark.parametrize("which", ["nee", "camera"])
+def test_dependent_kernel_captured_edge_is_programmatic(cuda, which):
+    """A stream capture of each pair records the edge into the dependent
+    kernel (the graph's last node, of its launch's shape) as a
+    programmatic dependency, read through the driver API."""
+    from chip_smoke import captured_edges
+
+    pair, *_, shape = (nee_pair if which == "nee" else camera_pair)(str(cuda))
+    into = [e for e in captured_edges(pair) if e["sink"]]
+    assert len(into) == 1 and into[0]["to"] == shape and into[0]["programmatic"]
+    assert sum(e["programmatic"] for e in captured_edges(pair)) == 1

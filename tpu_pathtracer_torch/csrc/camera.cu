@@ -26,13 +26,24 @@
 // What bounds it.  Bytes: a lane reads its pixel id, sample and mask byte
 // (9 B) and writes origin, direction and seed (32 B): 5.4 MB at 131,072
 // lanes, ~0.002 ms at 3.35 TB/s; a few tens of float operations and three
-// hashes a lane.  Bound by bytes and by the launch itself; one thread a
-// lane.
+// hashes a lane.  Bound by bytes on paper, and on the card by the launch
+// and a lane's chain of loads: one thread a lane, the grid one wave.
+//
+// Its design: a programmatic dependent of the launch before it
+// (launch_order.cuh), which on the main path is kernel 7 or the path step
+// (fused_schedule.cu).  The lane's mask byte, pixel and sample are what
+// that launch writes; the camera's vectors, the seed counters and an
+// affine range's base are a frame's inputs, written at its set-up, many
+// launches back.  So the kernel reads those and the constants before its
+// wait, while the step drains, and after it issues the mask, pix and
+// sample loads together (every index is in range on every lane) before it
+// branches on the mask.  Nothing is stored before the wait.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "launch_order.cuh"
 #include "rng.cuh"
 #include "shade_math.cuh"
 
@@ -79,13 +90,21 @@ __global__ void __launch_bounds__(kThreads) camera_kernel(const __grid_constant_
   using namespace shade;
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= p.n) return;
-  if (p.mask != nullptr && !p.mask[i]) return;
+  // A frame's inputs, which the launch just before never writes.
+  const V3 uv = load3(p.u), vv = load3(p.v), wv = load3(p.w), eye = load3(p.eye);
+  const long long sample_offset = *p.sample_offset;
+  const long long subframe = *p.subframe;
+  const long long base = p.base != nullptr ? *p.base : 0ll;
+  // The lane's mask byte, pixel and sample, which it may write: read after
+  // it has completed, all three before the branch.
+  launch_order::wait_for_launch_before();
   const int slot = i / p.per;
-  const int pixel = p.pix != nullptr ? __ldg(p.pix + min(slot, p.n_ids - 1))
-                                     : static_cast<int>((p.base != nullptr ? *p.base : 0ll) + slot);
-  const int sample = p.sample != nullptr ? min(__ldg(p.sample + i), p.sample_max) : i % p.per;
-  uint32_t s = ptrng::make_seed(static_cast<uint32_t>(pixel), static_cast<uint32_t>(*p.sample_offset + sample),
-                                static_cast<uint32_t>(*p.subframe));
+  const bool spawn = p.mask == nullptr || p.mask[i];
+  const int pixel = p.pix != nullptr ? p.pix[min(slot, p.n_ids - 1)] : static_cast<int>(base + slot);
+  const int sample = p.sample != nullptr ? min(p.sample[i], p.sample_max) : i % p.per;
+  if (!spawn) return;
+  uint32_t s = ptrng::make_seed(static_cast<uint32_t>(pixel), static_cast<uint32_t>(sample_offset + sample),
+                                static_cast<uint32_t>(subframe));
 
   // generate_camera_rays
   const float jx = ptrng::uniform(s);
@@ -94,7 +113,6 @@ __global__ void __launch_bounds__(kThreads) camera_kernel(const __grid_constant_
   const int py = pixel / p.width;
   const float dx = 2.f * (static_cast<float>(px) + jx) * p.inv_width - 1.f;
   const float dy = 2.f * (static_cast<float>(py) + jy) * p.inv_height - 1.f;
-  const V3 uv = load3(p.u), vv = load3(p.v), wv = load3(p.w), eye = load3(p.eye);
   const V3 target = add(add(scale(uv, dx), scale(vv, dy)), wv);
   ShadeConsts c;
   c.eps2 = p.eps2;
@@ -123,13 +141,17 @@ __global__ void __launch_bounds__(kThreads) camera_kernel(const __grid_constant_
 
 }  // namespace
 
-// Launches one thread a lane on `stream`; returns cudaGetLastError() after
-// the launch (0 = launched).
-extern "C" int camera_launch(const CameraParams* p, void* stream) {
+// Launches one thread a lane on `stream`, as a programmatic dependent of
+// the launch before it where `dependent` (the caller vouches that that
+// launch writes none of the camera's vectors, counters and base: a
+// schedule step); returns the launch's error, or cudaGetLastError() after
+// it (0 = launched).
+extern "C" int camera_launch(const CameraParams* p, int dependent, void* stream) {
   if (p->n <= 0) return 0;
   const int blocks = (p->n + kThreads - 1) / kThreads;
-  camera_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(*p);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err = launch_order::launch(camera_kernel, blocks, kThreads, static_cast<cudaStream_t>(stream),
+                                               dependent != 0, *p);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // sizeof(CameraParams), which the wrapper checks against its mirror.

@@ -84,6 +84,7 @@
 #include <cuda_pipeline.h>
 
 #include "cluster_common.cuh"
+#include "launch_order.cuh"
 
 namespace cluster_traversal {
 
@@ -339,6 +340,10 @@ __global__ void __launch_bounds__(kMaxThreads) streamed_kernel(
     unsigned char* __restrict__ occ_out) {  // [N] bool
   extern __shared__ float4 rows[];  // [2][3][K] float4
   __shared__ unsigned int slots[3];
+  // Any hit: the NEE kernel, launched next as a programmatic dependent of
+  // this launch, may start its blocks once every block of this one has
+  // (launch_order.cuh); it reads the flags only after this launch is done.
+  if constexpr (kAnyHit) launch_order::let_dependents_start();
 
   PacketVote vote = {slots, 0, static_cast<int>(cg::this_cluster().num_blocks())};
   const int rank = static_cast<int>(cg::this_cluster().block_rank());

@@ -113,6 +113,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch_order.cuh"
+
 // The launch's arguments (mirrored by ops/fused_schedule.py: StepParams).
 // A field an entry does not use is null.
 struct StepParams {
@@ -339,6 +341,11 @@ __device__ __forceinline__ void set_spec(const StepParams& p, int i, bool reset,
 
 // The stream step: one lane a thread, coalesced scalar accesses.
 __global__ void __launch_bounds__(kThreads) fused_step_kernel(const __grid_constant__ StepParams p, int tiles) {
+  // The camera kernel, launched next as a programmatic dependent of this
+  // launch, may start its blocks once every block of this one has
+  // (launch_order.cuh); it reads the lanes' pixels, samples and regen mask
+  // only after this launch is done.
+  launch_order::let_dependents_start();
   __shared__ Tile sh;
   int tile;
   unsigned long long tag;
@@ -437,6 +444,7 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(const __grid_const
 // The path step of render_rays (schedule 0) and render_pixels_regen
 // (schedule 1): one lane a thread.
 __global__ void __launch_bounds__(kThreads) path_step_kernel(const __grid_constant__ StepParams p, int tiles) {
+  launch_order::let_dependents_start();  // the regen schedule's camera kernel, as kernel 7's
   const int i = blockIdx.x * kThreads + threadIdx.x;
   const bool in = i < p.n;
   const bool regen_schedule = p.schedule == 1;

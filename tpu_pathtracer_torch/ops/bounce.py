@@ -261,12 +261,22 @@ def kernel_attributes(entry: int = 0) -> dict:
     return dict(zip(("registers", "local_bytes", "shared_bytes", "threads", "blocks_per_sm"), out))
 
 
-def next_event(scene, cfg, b: dict, occluded, direction, attenuation):
+def next_event(scene, cfg, b: dict, occluded, direction, attenuation, dependent: bool = False):
     """Launch the NEE kernel after the any-hit traversal of the bounce
     kernel's shadow rays (`b`: bounce()'s dict; `occluded`: the any-hit
     flags, read where b["cand"]): adds the visible light's share into
     b["radiance"] in place and returns spec_next, the next segment's env
-    credit ([n] bool, float32 under cfg.nee_mis_spec)."""
+    credit ([n] bool, float32 under cfg.nee_mis_spec).
+
+    `dependent`: launch it as a programmatic dependent of the launch just
+    before it on the stream (csrc/launch_order.cuh), which may then still
+    be running when the kernel starts: the caller vouches that that launch
+    is the any-hit traversal that writes `occluded` and writes nothing
+    else the kernel reads (the record, shadow_dir, radiance, direction,
+    attenuation and the env tables)."""
+    if dependent and not all(x.is_contiguous() for x in (b["record"], b["shadow_dir"], direction, attenuation)):
+        raise ValueError("a dependent NEE launch reads its inputs before its wait: they must be contiguous, not "
+                         "copied here just before it")
     dev = direction.device
     n = direction.shape[0]
     env = scene.env
@@ -287,7 +297,7 @@ def next_event(scene, cfg, b: dict, occluded, direction, attenuation):
                 defensive=int(cfg.nee_defensive_mix))
     params = _params(NeeParams, tensors, ints, pack_consts(cfg))
     if n:
-        _launch("nee.cu", "nee_launch", params, stream=torch.cuda.current_stream(dev).cuda_stream)
+        _launch("nee.cu", "nee_launch", params, int(dependent), stream=torch.cuda.current_stream(dev).cuda_stream)
         next_event.launches += 1
     return spec
 

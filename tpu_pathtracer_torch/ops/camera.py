@@ -95,12 +95,25 @@ def camera_paths_plain(cam, cfg, subframe, sample_offset, n, *, pix=None, base=N
 
 
 def camera_paths_cuda(cam, cfg, subframe, sample_offset, n, *, pix=None, base=None, per=1, sample=None,
-                      sample_max=0, mask=None, out=None):
+                      sample_max=0, mask=None, out=None, dependent=False):
     """Launch the camera kernel on n lanes (the lanes of `mask`, all
     without one), writing into `out` = (origin [n,3], direction [n,3],
     seeds [n] int64) in place, or into new tensors.  Returns (origin,
-    direction, seeds)."""
+    direction, seeds).
+
+    `dependent`: launch it as a programmatic dependent of the launch just
+    before it on the stream (csrc/launch_order.cuh): the caller vouches
+    that that launch writes none of the camera's vectors, the counters and
+    `base` (a schedule step, which writes the lanes' pixels, samples and
+    mask), and that they are tensors on the device already (a Python
+    counter would be filled just before the launch)."""
     dev = cam["eye"].device
+    if dependent:
+        early = [cam[k] for k in ("eye", "U", "V", "W")] + [sample_offset, subframe] + ([] if base is None else [base])
+        if not all(isinstance(x, torch.Tensor) and x.device == dev and x.is_contiguous()
+                   and x.dtype == (torch.float32 if x.dim() else torch.int64) for x in early):
+            raise ValueError("a dependent camera launch reads the camera and the counters before its wait: they must "
+                             "be contiguous device tensors of the kernel's types, not made by a copy or fill here")
     # pixel ids past 2^31 do not occur; an int64 table (an affine range
     # with a tensor base) is read as int32
     pix = pix if pix is None or pix.dtype == torch.int32 else pix.to(torch.int32)
@@ -128,18 +141,21 @@ def camera_paths_cuda(cam, cfg, subframe, sample_offset, n, *, pix=None, base=No
     for k, v in camera_consts(cfg).items():
         setattr(params, k, float(v))
     if n:
-        _launch("camera.cu", "camera_launch", params, stream=torch.cuda.current_stream(dev).cuda_stream)
+        _launch("camera.cu", "camera_launch", params, int(dependent),
+                stream=torch.cuda.current_stream(dev).cuda_stream)
         camera_paths.launches += 1
     return out
 
 
-def camera_paths(cam, cfg, subframe, sample_offset, n, **lanes):
+def camera_paths(cam, cfg, subframe, sample_offset, n, dependent=False, **lanes):
     """Fresh camera paths on n lanes by the rule above (keywords as
     camera_paths_plain's): the kernel for a camera on a CUDA device
-    outside `ops.cuda_build.plain()`, else the plain version.  Returns
-    (origin, direction, seeds)."""
-    spawn = camera_paths_cuda if on_card(cam["eye"].device) else camera_paths_plain
-    return spawn(cam, cfg, subframe, sample_offset, n, **lanes)
+    outside `ops.cuda_build.plain()` (`dependent` as camera_paths_cuda
+    takes it), else the plain version.  Returns (origin, direction,
+    seeds)."""
+    if on_card(cam["eye"].device):
+        return camera_paths_cuda(cam, cfg, subframe, sample_offset, n, dependent=dependent, **lanes)
+    return camera_paths_plain(cam, cfg, subframe, sample_offset, n, **lanes)
 
 
 # Kernel launches since the count was last set to 0.

@@ -77,8 +77,10 @@ LAUNCHERS = {
     # the launch's arguments by pointer (a struct mirrored by ctypes), the
     # bounce kernel's entry point, the stream
     "bounce.cu": ("bounce_launch", [_P, _I, _P]),
-    "nee.cu": ("nee_launch", [_P, _P]),
-    "camera.cu": ("camera_launch", [_P, _P]),
+    # the launch's arguments by pointer, whether it is a programmatic
+    # dependent of the launch before it (csrc/launch_order.cuh), the stream
+    "nee.cu": ("nee_launch", [_P, _I, _P]),
+    "camera.cu": ("camera_launch", [_P, _I, _P]),
     # the sort: origins, directions, scene lo, hi, active (or null), n,
     # spatial bits, direction bits, digit passes, key and index scratch
     # (null up to 16,384 rays), the status scratch, tiles, origins out,

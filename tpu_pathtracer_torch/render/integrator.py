@@ -446,13 +446,15 @@ def _trace_bounce(scene, cfg, origin, direction, attenuation, radiance, seeds, d
 
 def _bounce_kernels(scene, cfg, hit, origin, direction, attenuation, radiance, seeds, depth, spec_last):
     """`_bounce_plain` on the card: the bounce kernel, and under NEE the
-    any-hit traversal of its shadow rays and the NEE kernel."""
+    any-hit traversal of its shadow rays and the NEE kernel, launched as a
+    programmatic dependent of the traversal (occluded_scene's last launch,
+    which writes only the flags)."""
     b = bounce_ops.bounce(scene, cfg, hit, origin, direction, attenuation, radiance, seeds, depth, spec_last)
     spec_next = spec_last
     if cfg.env_importance_sampling:
         occluded = occluded_scene(scene, b["shadow_origin"], b["shadow_dir"], cfg.t_min, cfg.t_max, cfg,
                                   active=b["cand"])
-        spec_next = bounce_ops.next_event(scene, cfg, b, occluded, direction, attenuation)
+        spec_next = bounce_ops.next_event(scene, cfg, b, occluded, direction, attenuation, dependent=True)
     return dict(radiance=b["radiance"], attenuation=b["attenuation"], origin=b["origin"], direction=b["direction"],
                 done=b["done"], seeds=b["seeds"], spec_last=spec_next, hit=hit.hit)
 
@@ -695,8 +697,10 @@ def _regen_step(scene: Scene, cfg: RenderConfig, spp: int, st: dict):
         tb = _trace_bounce(scene, cfg, st["origin"], st["direction"], st["attenuation"], st["radiance"],
                            st["seeds"], st["depth"], st["spec_last"])
         regen = path_step(tb, st, **kw)
+        # a programmatic dependent of the path step, which writes only the
+        # lanes' samples and regen mask of what the camera kernel reads
         spawn(regen.shape[0], pix=st["ids"], sample=st["sample_i"], sample_max=spp - 1, mask=regen,
-              out=(st["origin"], st["direction"], st["seeds"]))
+              out=(st["origin"], st["direction"], st["seeds"]), dependent=True)
 
     return step
 
@@ -733,12 +737,14 @@ def _stream_state(cfg: RenderConfig, spawn, slot_to_pixel, lanes: int, dev) -> d
     )
 
 
-def _respawn(st: dict, regen, spawn, spp: int):
+def _respawn(st: dict, regen, spawn, spp: int, dependent: bool = False):
     """The stream's camera respawn after a schedule step: on the lanes of
     the regen mask, a fresh camera path for the next sample of the same
-    or a freshly pulled pixel, written into st's tensors in place."""
+    or a freshly pulled pixel, written into st's tensors in place.
+    `dependent` as ops/camera.camera_paths_cuda takes it: the step's kernel
+    launched just before."""
     spawn(regen.shape[0], pix=st["pix"], sample=st["sample_i"], sample_max=spp - 1, mask=regen,
-          out=(st["origin"], st["direction"], st["seeds"]))
+          out=(st["origin"], st["direction"], st["seeds"]), dependent=dependent)
 
 
 def _pixel_map(pixel_ids) -> dict:
@@ -832,9 +838,13 @@ def _stream_step(scene: Scene, cfg: RenderConfig, kind: str, n_pix: int, spp: in
             tb, lane, st["out"], st["head"], st["segments"], st["shadow"] if nee else None, **kw)
         if nee:
             new["shadow"] = shadow[0]
-        new.update((k, v) for k, v in lane.items() if v is not st[k])
+        # The lane state first (the plain step's new tensors; the kernel
+        # updates it in place, so on the card nothing), then the respawn,
+        # which reads none of the counters: on the card the camera kernel
+        # runs right after kernel 7, as its programmatic dependent.
+        _write(st, {k: v for k, v in lane.items() if v is not st[k]})
+        _respawn(st, regen, spawn, spp, dependent=schedule_step is fused_stream_step)
         _write(st, new)
-        _respawn(st, regen, spawn, spp)
 
     return step
 
