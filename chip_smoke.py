@@ -13,6 +13,7 @@ the benchmark entry point.
     python3 chip_smoke.py [--image PATH] [--parent DIR]
     python3 chip_smoke.py --ray-order   # phases 1, 2 and 38 only
     python3 chip_smoke.py --nee-camera [--parent DIR]   # phases 1, 2, 36 and 37 only
+    python3 chip_smoke.py --path-step [--parent DIR]   # phases 1, 2, 18c, 21 and 22 only
 
 --parent DIR (the root of an older checkout, e.g. unpacked with git
 archive under build/) builds its NEE and camera kernels and the launches
@@ -93,12 +94,18 @@ Phases, each printing one line (any failure exits non-zero):
      an id list (every other pixel, last first); state, image, regen mask,
      head, segments, live and shadow counts bit-equal; the kernel's time
      with the L2 flushed, the plain version's, the byte bound;
- 18c. the path step (render_rays at a 1-spp tile's 345,600 lanes, with
-     and without NEE; render_pixels_regen at 131,072 lanes, with and
-     without NEE, and at phase 22's 2,073,600) against path_step_plain on
-     real buffers of those schedules: every buffer and the regen mask
-     bit-equal; times and bound as 18b (--parent: the parent's path step
-     in turns);
+ 18c. the path step (render_rays at a 1-spp tile's 345,600 lanes after
+     two iterations, with and without NEE, and after 0 and 6;
+     render_pixels_regen at 131,072 lanes, with and without NEE, and at
+     phase 22's 2,073,600) against path_step_plain on real buffers of
+     those schedules: every buffer and the regen mask bit-equal, launched
+     alone and as a programmatic dependent of the bounce kernel (the NEE
+     kernel under NEE), the captured edge into it programmatic; times and
+     bound as 18b, and, but for the 0- and 6-iteration tiles, the time it
+     adds behind that launch, exposed (six paired rounds, median and
+     quartiles), beside that of a dependent kernel that only waits, at the
+     same grid (its floor); --parent: the parent's path step the same
+     ways, in turns;
  19. the headline fused (fused_schedule="on", kernels 1 and 7 at least
      once per iteration and nothing else) and unfused under
      ops.cuda_build.plain() (the plain step and shading, no step or shading
@@ -248,9 +255,10 @@ run the three shading kernels, which every render phase expects: the
 bounce kernel once an iteration, the NEE kernel once an iteration under
 NEE, the camera kernel once a stream or regen iteration and once a
 render_pixels call's set-up (and a graph captured from one step of the
-render's plan holds a programmatic edge into the NEE kernel under NEE
-and one into the camera kernel on the stream and regen schedules, and
-no other: step_dependents); every schedule's step runs a kernel once
+render's plan holds a programmatic edge into the NEE kernel under NEE,
+one into the path step on the rays and regen schedules and one into the
+camera kernel on the stream and regen schedules, and no other:
+step_dependents); every schedule's step runs a kernel once
 an iteration (STEP_KERNEL): kernel 7 on every stream, fused or not, the
 path step on render_rays and render_pixels_regen; every sorted trace
 runs the ray-order kernels (check_ray_order: the sort's launches for the
@@ -277,7 +285,6 @@ import functools
 import io
 import json
 import math
-import re
 import shutil
 import statistics
 import subprocess
@@ -626,6 +633,8 @@ def phase_build(parent_dir=None):
     floor.floor_launch.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_void_p]
     floor.floor_launch.restype = ctypes.c_int
+    floor.floor_dependent_launch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    floor.floor_dependent_launch.restype = ctypes.c_int
     FLOOR["lib"] = floor
     print(f"[2 build] {len(parts)} libraries built at once in {dt:.2f} s"
           f"{f' (and the parent {parent_dir} of {len(side)} sources)' if parent_dir else ''} | " + " | ".join(parts))
@@ -637,10 +646,11 @@ def phase_build(parent_dir=None):
 # and the edges of a captured graph
 # ---------------------------------------------------------------------------
 
-# The sources --parent builds from an older checkout: the kernels this tree
-# redesigned as programmatic dependents (the NEE and camera kernels) and
-# the launches they depend on (the any-hit traversals, kernel 7 and the
-# path step), whose C interfaces are the change's but for `dependent`.
+# The sources --parent builds from an older checkout: the kernels launched
+# as programmatic dependents (the NEE and camera kernels, the path step)
+# and the launches they depend on (the any-hit traversals, kernel 7),
+# whose C interfaces are the change's (an older fused_schedule.cu's
+# adapted: load_library).
 PARENT_SOURCES = ("nee.cu", "camera.cu", "cluster_occluded.cu", "cluster_occluded_hier.cu",
                   "cluster_occluded_streamed.cu", "fused_schedule.cu")
 # The timing method's floor: an empty kernel, and one that loads 4 bytes a
@@ -651,6 +661,21 @@ __global__ void empty_kernel(int n) {}
 __global__ void one_load_kernel(const float* x, float* sink, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n && x[i] == 1234.5f) *sink = x[i];
+}
+__global__ void wait_kernel(int n) { asm volatile("griddepcontrol.wait;" ::: "memory"); }
+// A kernel that only waits, launched as a programmatic dependent of the
+// launch before it: what a dependent's exposed time cannot go below.
+extern "C" int floor_dependent_launch(int n, int threads, void* stream) {
+  cudaLaunchAttribute attribute = {};
+  attribute.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attribute.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((n + threads - 1) / threads);
+  config.blockDim = dim3(threads);
+  config.stream = static_cast<cudaStream_t>(stream);
+  config.attrs = &attribute;
+  config.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&config, wait_kernel, n));
 }
 extern "C" int floor_launch(int load, const float* x, float* sink, int n, int threads, void* stream) {
   const int blocks = (n + threads - 1) / threads;
@@ -665,10 +690,11 @@ extern "C" int floor_launch(int load, const float* x, float* sink, int n, int th
 FLOOR = {}  # "lib": the floor's library, once phase_build has built it
 
 
-def start_builds(sources):
+def start_builds(sources, side=None):
     """nvcc on each {name: source path, or None for FLOOR_SOURCE} into
-    build/tpu_pathtracer_torch/side/, all at once: the jobs."""
-    side = cuda_build.BUILD_DIR / "side"
+    `side` (by default build/tpu_pathtracer_torch/side/), all at once: the
+    jobs."""
+    side = side or cuda_build.BUILD_DIR / "side"
     side.mkdir(parents=True, exist_ok=True)
     jobs = []
     for name, src in sources.items():
@@ -682,37 +708,53 @@ def start_builds(sources):
     return jobs
 
 
-class _WithoutDependent:
-    """A library whose launch function takes no `dependent` argument (an
-    older nee.cu or camera.cu), called as the change's wrappers call
-    theirs: the argument is dropped."""
+class _OlderStep:
+    """A fused_schedule.cu library from before the path step took
+    `dependent` and the library sized the steps' scratch (it has no
+    fused_step_scratch_words), called as this tree's wrappers call it: the
+    argument dropped, a scratch of 3 + tiles words whatever the entry, as
+    many as any older layout used (kernel 7's; the path step's 4, or 1 +
+    tiles)."""
 
-    def __init__(self, lib, launcher):
-        self._lib, self._launcher = lib, launcher
+    def __init__(self, lib):
+        self._lib = lib
+
+    def fused_step_launch(self, p, entry, dependent, stream):
+        return self._lib.fused_step_launch(p, entry, stream)
+
+    @staticmethod
+    def fused_step_scratch_words(entry, tiles):
+        return 3 + tiles
 
     def __getattr__(self, name):
-        fn = getattr(self._lib, name)
-        return (lambda p, dependent, stream: fn(p, stream)) if name == self._launcher else fn
+        return getattr(self._lib, name)
+
+
+def load_library(name, out):
+    """The library `out`, built from a csrc/`name`: each launch function's
+    and helper's signature set as cuda_build sets the change's, an older
+    fused_schedule.cu adapted (_OlderStep)."""
+    lib = ctypes.CDLL(str(out))
+    if name not in cuda_build.LAUNCHERS:
+        return lib
+    launcher, argtypes = cuda_build.LAUNCHERS[name]
+    older = name == "fused_schedule.cu" and not hasattr(lib, "fused_step_scratch_words")
+    for fn, types in {launcher: argtypes[:-2] + argtypes[-1:] if older else argtypes,
+                      **cuda_build.HELPERS.get(name, {})}.items():
+        if not (older and fn == "fused_step_scratch_words"):
+            getattr(lib, fn).argtypes, getattr(lib, fn).restype = types, ctypes.c_int
+    return _OlderStep(lib) if older else lib
 
 
 def finish_builds(jobs):
-    """{name: the loaded library} of start_builds' jobs, each launch
-    function's and helper's signature set as cuda_build sets the
-    change's; raises with nvcc's output if a build failed."""
+    """{name: the loaded library} of start_builds' jobs (load_library);
+    raises with nvcc's output if a build failed."""
     libs = {}
     for name, src, out, proc in jobs:
         log = proc.communicate()[0]
         if proc.returncode:
             raise SystemExit(f"FAIL: nvcc on {src}:\n{log[-4000:]}")
-        lib = ctypes.CDLL(str(out))
-        if name in cuda_build.LAUNCHERS:
-            launcher, argtypes = cuda_build.LAUNCHERS[name]
-            takes_dependent = not re.search(r"int %s\(const \w+\* p, void\* stream\)" % launcher, src.read_text())
-            for fn, types in {launcher: argtypes if takes_dependent else [argtypes[0], argtypes[-1]],
-                              **cuda_build.HELPERS.get(name, {})}.items():
-                getattr(lib, fn).argtypes, getattr(lib, fn).restype = types, ctypes.c_int
-            lib = lib if takes_dependent else _WithoutDependent(lib, launcher)
-        libs[name] = lib
+        libs[name] = load_library(name, out)
     return libs
 
 
@@ -721,7 +763,9 @@ def using_libraries(libs):
     """Within the block the wrappers launch the kernels of `libs` ({source:
     library}, finish_builds') in place of the change's: the shading kernels
     and the steps through ops/bounce.py's `library`, the traversals
-    through ops/intersect_cluster.py's.  None: the change's."""
+    through ops/intersect_cluster.py's; the steps' scratch is sized by the
+    library in use.  None: the change's.  A graph captured within the
+    block must not outlive it."""
     if not libs:
         yield
         return
@@ -854,13 +898,16 @@ def programmatic_into_sink(label, fn, shape):
 def step_dependents(label, sched, nee):
     """The programmatic edges of a graph captured from one step of the
     plan that rendered last: one into the NEE kernel under NEE, one into
-    the camera kernel on the stream and regen schedules, none else, each
-    into a launch of that kernel's shape over the plan's lanes."""
+    the path step (behind the bounce kernel, or the NEE kernel) on the
+    rays and regen schedules, one into the camera kernel on the stream and
+    regen schedules, none else, each into a launch of that kernel's shape
+    over the plan's lanes."""
     plan = next(reversed(graph_loop._plans.values()))
     lanes = plan.state["seeds"].shape[0]
     got = sorted(e["to"] for e in captured_edges(plan._step, warm=False) if e["programmatic"])
-    want = sorted(([(-(-lanes // 128), 128)] if nee else [])
-                  + ([(-(-lanes // 256), 256)] if sched != "rays" else []))
+    tiles = (-(-lanes // 256), 256)
+    want = sorted(([(-(-lanes // 128), 128)] if nee else []) + ([tiles] if sched in ("rays", "regen") else [])
+                  + ([tiles] if sched != "rays" else []))
     if got != want:
         raise SystemExit(f"[{label}] FAIL: programmatic edges into {got} in the step's graph, expected {want}")
     return got
@@ -1654,7 +1701,8 @@ def path_lane_state(scene, cfg, camera, schedule, n, iters):
     if schedule == "rays":
         st.update(terminated=ended, result=torch.zeros_like(o))
     else:
-        st.update(exhausted=ended, sample_i=torch.zeros(n, dtype=torch.int32, device=dev), accum=torch.zeros_like(o))
+        st.update(exhausted=ended, sample_i=torch.zeros(n, dtype=torch.int32, device=dev), accum=torch.zeros_like(o),
+                  regen=torch.zeros(n, dtype=torch.bool, device=dev))
     kw = dict(schedule=schedule, spp=spp, max_depth=cfg.max_depth, rr_reference=cfg.rr_mode == "reference",
               nee=cfg.env_importance_sampling)
 
@@ -1674,8 +1722,9 @@ def path_lane_state(scene, cfg, camera, schedule, n, iters):
 
 def path_bytes(tb, st, kw):
     """Bytes the path step must move on this state, by what each lane
-    needs: every lane reads its ended flag (1 B) and, in regen, writes its
-    regen byte (1 B); a live lane reads the payload's seed, done flag,
+    needs: every lane reads its ended flag (1 B); a live lane writes, in
+    regen, its regen byte (1 B: the loop's buffer already holds an ended
+    lane's 0); a live lane reads the payload's seed, done flag,
     attenuation and radiance and writes its seed (41 B), under NEE also
     its hit flag (1 B); a lane that goes on reads the payload's origin and
     direction and its depth and writes origin, direction, attenuation,
@@ -1698,52 +1747,79 @@ def path_bytes(tb, st, kw):
     if regen_schedule:
         exhausted = newly & (st["sample_i"] + newly.to(torch.int32) >= kw["spp"])
         n_regen = n_newly - int(exhausted.sum())
-        n_bytes += n + n_newly * 32 + int(exhausted.sum()) + n_regen * (28 + spec)
+        n_bytes += n_live + n_newly * 32 + int(exhausted.sum()) + n_regen * (28 + spec)
     else:
         n_bytes += n_newly * (1 + 12)
     return n_bytes, n_live, n_newly
 
 
 # The path step's pools: (name, the schedule, RenderConfig fields over
-# HEADLINE, lanes, iterations before the timed step).  The first is the
-# 1-spp tile of phase 21 (render_rays at 345,600 lanes), the last phase
-# 22's one lane per pixel (render_pixels_regen at 2,073,600 lanes).
+# HEADLINE, lanes, iterations before the timed step, whether its exposed
+# time behind the launch before it is measured).  The first is the 1-spp
+# tile of phase 21 (render_rays at 345,600 lanes) after two bounces, then
+# the same tile fresh (every lane live) and after six (nearly every lane
+# ended); the last phase 22's one lane per pixel (render_pixels_regen at
+# 2,073,600 lanes).
 PATH_STEP_CASES = (
-    ("rays, a 1-spp tile", "rays", dict(samples_per_launch=1), 345_600, 2),
-    ("rays, a 1-spp tile, NEE", "rays", dict(NEE, samples_per_launch=1), 345_600, 2),
-    ("regen", "regen", {}, 131_072, 6),
-    ("regen NEE", "regen", NEE, 131_072, 6),
-    ("regen, one lane per pixel", "regen", {}, REGEN_POOL, 6),
+    ("rays, a 1-spp tile", "rays", dict(samples_per_launch=1), 345_600, 2, True),
+    ("rays, a 1-spp tile after 0 iterations", "rays", dict(samples_per_launch=1), 345_600, 0, False),
+    ("rays, a 1-spp tile after 6 iterations", "rays", dict(samples_per_launch=1), 345_600, 6, False),
+    ("rays, a 1-spp tile, NEE", "rays", dict(NEE, samples_per_launch=1), 345_600, 2, True),
+    ("regen", "regen", {}, 131_072, 6, True),
+    ("regen NEE", "regen", NEE, 131_072, 6, True),
+    ("regen, one lane per pixel", "regen", {}, REGEN_POOL, 6, True),
 )
 
 
 def phase_path_step(label, scene, smi, parent=None):
     """The path step of render_rays and render_pixels_regen against
     path_step_plain on real buffers of those schedules (PATH_STEP_CASES,
-    the headline at 1080p, 10 spp): every buffer (the merges, result or
-    pixel sums and sample counts, the ended flags, segments, shadow, the
-    0-d done flag) and the regen mask bit-equal; timed with the L2
-    flushed before each launch (_time_cold), beside the plain version and
-    the bound of the bytes the step must move (path_bytes); with `parent`
-    (its libraries) the parent's path step and this one in turns, P C C P.
-    Returns the numbers of the first case (phase 21's shape)."""
-    first = None
-    for name, schedule, over, n, iters in PATH_STEP_CASES:
+    the headline at 1080p, 10 spp; regen with the loop's regen buffer):
+    every buffer (the merges, result or pixel sums and sample counts, the
+    ended flags, segments, shadow, the 0-d done flag) and the regen mask
+    bit-equal, launched alone and as the main path launches it, a
+    programmatic dependent of the trace's last launch (the bounce kernel,
+    under NEE the NEE kernel behind the any-hit traversal:
+    integrator._bounce_kernels), whose captured graph's edge into it must
+    be programmatic; timed with the L2 flushed before each launch
+    (_time_cold), beside the plain version and the bound of the bytes the
+    step must move (path_bytes); on the paired cases its exposed time
+    behind that launch (paired_rounds: the bounce kernels alone, and the
+    bounce kernels and the step); with `parent` (its libraries) the
+    parent's path step the same ways, in turns P C C P.  Returns the
+    numbers of the first case (phase 21's shape), the others under
+    `cases`."""
+    import tpu_pathtracer_torch.render.integrator as integrator
+
+    first, rows = None, []
+    for name, schedule, over, n, iters, paired in PATH_STEP_CASES:
         cfg = RenderConfig(**{**HEADLINE, **over})
         st, tb, kw = path_lane_state(scene, cfg, Camera(), schedule, n, iters)
+        hit = integrator.intersect_scene(scene, st["origin"], st["direction"], cfg.t_min, cfg.t_max, cfg)
 
         def copy():
             return {k: v.clone() for k, v in st.items()}
 
-        st_k, st_p = copy(), copy()
+        def trace(s_):
+            return _bounce_kernels(scene, cfg, hit, s_["origin"], s_["direction"], s_["attenuation"],
+                                   s_["radiance"], s_["seeds"], s_["depth"], s_["spec_last"])
+
+        def behind(s_):
+            return fs.path_step_cuda(trace(s_), s_, dependent=True, **kw)
+
+        st_k, st_p, st_d = copy(), copy(), copy()
         regen_k = fs.path_step_cuda(tb, st_k, **kw)
         regen_p = fs.path_step_plain(tb, st_p, **kw)
+        regen_d = behind(st_d)
         torch.cuda.synchronize()
-        bad = [k for k in st if not same_bits(st_k[k], st_p[k])]
-        if regen_p is not None and not torch.equal(regen_k, regen_p):
-            bad.append("regen")
-        if bad:
-            raise SystemExit(f"[{label} {name}] FAIL: path_step and its plain version differ in {bad}")
+        for how, got, regen in (("alone", st_k, regen_k), ("behind the trace's last launch", st_d, regen_d)):
+            bad = [k for k in st if not same_bits(got[k], st_p[k])]
+            if regen_p is not None and not torch.equal(regen, regen_p):
+                bad.append("regen")
+            if bad:
+                raise SystemExit(f"[{label} {name}] FAIL: path_step launched {how} and its plain version differ in "
+                                 f"{bad}")
+        edge = programmatic_into_sink(f"{label} {name}", lambda: behind(copy()), (-(-n // 256), 256))
         reps = 21 if n < 1_000_000 else 11
         times = {"parent": [], "kernel": []}
         for who in ("parent", "kernel", "kernel", "parent") if parent else ("kernel",):
@@ -1753,6 +1829,22 @@ def phase_path_step(label, scene, smi, parent=None):
         ms = sum(times["kernel"]) / len(times["kernel"])
         turns = (f" (in turns: kernel {' '.join(f'{t:.4f}' for t in times['kernel'])}, parent "
                  f"{' '.join(f'{t:.4f}' for t in times['parent'])})" if parent else "")
+        exposed = None
+        if paired:
+            def waits(s_):  # the floor: a dependent that only waits, at the step's grid
+                trace(s_)
+                err = FLOOR["lib"].floor_dependent_launch(n, 256, torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise SystemExit(f"FAIL: floor_dependent_launch: CUDA error {err}")
+
+            def turn(arm, with_step):  # each turn on fresh copies: the step writes the buffers
+                with using_libraries(parent if arm == "parent" else None):
+                    step = waits if arm == "floor" else behind
+                    return _time_cold(step if with_step else trace, [copy() for _ in range(reps)])
+
+            exposed = paired_rounds(turn, (("parent", "change") if parent else (None,)) + ("floor",))
+            turns += "; exposed behind the " + ("NEE" if kw["nee"] else "bounce") + " kernel " + ", ".join(
+                f"{arm or 'change'} {exposed_text(e)}" for arm, e in exposed.items())
         plain_ms = _time_over(lambda s_: fs.path_step_plain(tb, s_, **kw), [copy() for _ in range(6)])
         n_bytes, n_live, n_newly = path_bytes(tb, st, kw)
         flops = 15 * n_live + 3 * n_newly
@@ -1761,15 +1853,26 @@ def phase_path_step(label, scene, smi, parent=None):
               f"({bool(st_k['done'])}), segments (+{int(st_k['segments']) - int(st['segments'])})"
               f"{', shadow (+' + str(int(st_k['shadow']) - int(st['shadow'])) + ')' if kw['nee'] else ''}"
               f"{' and the regen mask (' + str(int(regen_k.sum())) + ' lanes)' if regen_k is not None else ''} "
-              f"bit-equal (0 ulp); {n_live} live lanes, {n_newly} paths ended; kernel {ms:.4f} ms (L2 flushed before "
-              f"each launch){turns}, plain {plain_ms:.4f} ms; {n_bytes} bytes, {flops} FLOP: bound {bound_ms:.4f} ms by "
-              f"{bound_by} | {smi}")
-        if first is None:
-            first = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=None)
+              f"bit-equal (0 ulp) alone and behind the trace's last launch (captured edge {edge}); {n_live} live "
+              f"lanes, {n_newly} paths ended; kernel {ms:.4f} ms (L2 flushed before each launch){turns}, plain "
+              f"{plain_ms:.4f} ms; {n_bytes} bytes, {flops} FLOP: bound {bound_ms:.4f} ms by {bound_by} | {smi}",
+              flush=True)
+        row = dict(name=name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, live=n_live)
+        if parent:
+            row["parent_ms"] = sum(times["parent"]) / len(times["parent"])
+        if exposed:
+            e = exposed[None if not parent else "change"]
+            row.update(exposed_ms=e["median_ms"], exposed_q_ms=[e["q1_ms"], e["q3_ms"]],
+                       exposed_floor_ms=exposed["floor"]["median_ms"])
             if parent:
-                first["parent_ms"] = sum(times["parent"]) / len(times["parent"])
-        del st, tb, st_k, st_p
+                e = exposed["parent"]
+                row.update(parent_exposed_ms=e["median_ms"], parent_exposed_q_ms=[e["q1_ms"], e["q3_ms"]])
+        rows.append(row)
+        if first is None:
+            first = dict(max_abs_err=0.0, bound_by=bound_by, library_ms=None,
+                         **{k: v for k, v in row.items() if k not in ("name", "live")})
+        del st, tb, st_k, st_p, st_d, hit
+    first["cases"] = rows[1:]
     return first
 
 
@@ -3745,6 +3848,8 @@ def main() -> int:
                         help="run phase 38 alone (after the device and build phases)")
     parser.add_argument("--nee-camera", action="store_true",
                         help="run phases 36 and 37 alone (after the device and build phases)")
+    parser.add_argument("--path-step", action="store_true",
+                        help="run phases 18c, 21 and 22 alone (after the device and build phases)")
     parser.add_argument("--shard-worker", nargs=3, metavar=("PORT", "RANK", "OUT"), help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.shard_worker:
@@ -3761,6 +3866,14 @@ def main() -> int:
         scene = headline_scene("cuda")
         phase_nee_kernel("36 NEE kernel", nee_cases(scene, high_poly(100_000, "cuda")), smi, parent)
         phase_camera_kernel("37 camera kernel", camera_pools(scene), smi, parent)
+        return 0
+    if args.path_step:
+        scene = headline_scene("cuda")
+        print(json.dumps({"path_step": phase_path_step("18c path step", scene, smi, parent)}), flush=True)
+        for label, over in (("21 render 1 spp", dict(samples_per_launch=1, tile_pixels=345_600)),
+                            ("21b render 1 spp NEE", dict(NEE, samples_per_launch=1, tile_pixels=345_600)),
+                            ("22 render one lane per pixel", dict(stream_lanes=2_097_152))):
+            phase_render(label, scene, RenderConfig(**{**HEADLINE, **over}), Camera(), 1, smi, warm=False)
         return 0
     cfg = RenderConfig(**HEADLINE)
     cfg_nee = RenderConfig(**{**HEADLINE, **NEE})

@@ -2,8 +2,9 @@
 render under torch.profiler, CUDA activity: 1080p, 10 spp, depth 8 on the
 headline, config 4 and the 200k scene, without and with NEE, and the
 headline and BASELINE config 1 (512x512, 64 spp) with the schedule's tail
-fused (kernel 7) and unfused, 1 spp in six tiles, and chip_smoke.py's
-hero stand-in at its scene file's config.
+fused (kernel 7) and unfused, 1 spp in six tiles (render_rays), without
+and with NEE, one lane a pixel (render_pixels_regen, 2,097,152 stream
+lanes), and chip_smoke.py's hero stand-in at its scene file's config.
 
     python3 profile_renders.py [--only NAME ...] [--out DIR] [--wall]
     python3 profile_renders.py --ab NAME ... [--frames N]
@@ -160,6 +161,10 @@ def renders():
         "config1_unfused": (lambda: config1_scene("cuda"), Camera(), {**cfg1, "fused_schedule": "off"}),
         # chip_smoke's phase 21: 1 spp in six tiles of 345,600 pixels (render_rays)
         "tiles": (lambda: headline_scene("cuda"), Camera(), {**cfg, "samples_per_launch": 1, "tile_pixels": 345_600}),
+        "tiles_nee": (lambda: headline_scene("cuda"), Camera(),
+                      {**cfg_nee, "samples_per_launch": 1, "tile_pixels": 345_600}),
+        # chip_smoke's phase 22: one lane a pixel (render_pixels_regen on 2,073,600 lanes)
+        "regen": (lambda: headline_scene("cuda"), Camera(), {**cfg, "stream_lanes": 2_097_152}),
         # the CLI's hero stand-in (chip_smoke's phase 25) at its scene file's config: camera and
         # config are the file's (None here)
         "hero": (hero_scene, None, None),

@@ -714,22 +714,34 @@ def test_stream_step_nee_32_steps_on_one_scratch(cuda):
     assert int(res_k[4]) > int(shadow)
 
 
-def path_state(lanes, seed, dev, schedule, nee):
+def path_state(lanes, seed, dev, schedule, nee, share=None):
     """render_rays' or render_pixels_regen's buffers and a trace payload,
-    from a numpy seed, as path_step takes them: a third of the lanes
-    ended, payload attenuations with zeros, values above 1 and NaNs."""
+    from a numpy seed, as path_step takes them: about a third of the lanes
+    ended (exactly round(share * lanes) with `share`), payload
+    attenuations with zeros, values above 1 and NaNs.  Reachable as the
+    loop leaves them: a -0.0 in accum on live lanes only (an ended lane's
+    accum is never -0.0: tests/test_torch_path_step_design.py), the regen
+    mask's buffer zeroed as at a frame's start."""
     tb, st_s, _, _, _ = step_state(lanes, seed, dev)
     rs = np.random.RandomState(seed + 1)
     st = {k: st_s[k] for k in ("origin", "direction", "attenuation", "radiance", "seeds", "depth")}
-    ended = torch.as_tensor(rs.rand(lanes) < 0.3).to(dev)
+    if share is None:
+        ended = torch.as_tensor(rs.rand(lanes) < 0.3).to(dev)
+    else:
+        ended_np = np.zeros(lanes, dtype=bool)
+        ended_np[rs.permutation(lanes)[: int(round(share * lanes))]] = True
+        ended = torch.as_tensor(ended_np).to(dev)
     st.update(done=torch.tensor(False, device=dev), segments=torch.tensor(1000, device=dev),
               shadow=torch.tensor(50, device=dev), spec_last=torch.ones(lanes, dtype=torch.bool, device=dev))
     if schedule == "rays":
         st.update(terminated=ended, result=torch.as_tensor(rs.uniform(0, 3, (lanes, 3)).astype(np.float32)).to(dev))
     else:
         st.update(exhausted=ended, sample_i=torch.as_tensor(rs.randint(0, 3, lanes).astype(np.int32)).to(dev),
-                  accum=torch.as_tensor(rs.uniform(0, 6, (lanes, 3)).astype(np.float32)).to(dev))
-        st["accum"][::97] = -0.0  # the plain version's + 0.0 makes them +0.0
+                  accum=torch.as_tensor(rs.uniform(0, 6, (lanes, 3)).astype(np.float32)).to(dev),
+                  regen=torch.zeros(lanes, dtype=torch.bool, device=dev))
+        minus = torch.zeros(lanes, dtype=torch.bool, device=dev)
+        minus[::97] = True
+        st["accum"][minus & ~ended] = -0.0  # the plain version's + 0.0 makes them +0.0
     if nee != "off":
         nee_fields(tb, st, lanes, nee, seed + 2, dev)
     return tb, st
@@ -807,6 +819,37 @@ def test_path_step_refuses_other_devices(cuda):
     with cuda_build.plain():
         fs.path_step(tb, st, **kw)
     assert fs.path_step.launches == before
+
+
+PATH_LANES = (0, 1, 257, 100_003, 345_600, 2_073_600)  # none, one, past a tile, no multiple of 256, a tile, a frame
+ENDED_SHARES = (0.0, 1 / 3, 0.97, 1.0)
+
+
+@pytest.mark.parametrize("nee", STEP_NEE)
+@pytest.mark.parametrize("schedule", ["rays", "regen"])
+@pytest.mark.parametrize("share", ENDED_SHARES, ids=["none", "third", "97pct", "all"])
+@pytest.mark.parametrize("lanes", PATH_LANES)
+def test_path_step_every_ended_share_matches_plain(cuda, lanes, share, schedule, nee):
+    """The path step with none, a third, 97% and all of its lanes ended at
+    entry (which it skips), from 0 lanes to a 1080p frame's 2,073,600, in
+    both schedules and every NEE mode (standard rr, where the attenuation
+    divides): every buffer, the counters, `done` and the regen mask
+    bit-equal to path_step_plain, the regen mask (the loop's buffer
+    st["regen"], written in place) from a zeroed buffer and from one that
+    holds a last step's mask, 0 on every ended lane; one launch counted,
+    none at 0 lanes."""
+    seed = lanes % 9973 + 11 * ENDED_SHARES.index(share) + 3 * STEP_NEE.index(nee)
+    tb, st = path_state(lanes, seed, cuda, schedule, nee, share)
+    kw = dict(schedule=schedule, spp=3, max_depth=4, rr_reference=False, nee=nee != "off")
+    before = fs.path_step.launches
+    assert_path_step_equal(*path_step_pair(tb, st, kw), share)
+    assert fs.path_step.launches == before + (lanes > 0)
+    if schedule == "regen":
+        flag = st["exhausted"]
+        st["regen"] = torch.as_tensor(np.random.RandomState(seed).rand(lanes) < 0.5).to(cuda) & ~flag
+        st_k, st_p, regen_k, regen_p = path_step_pair(tb, st, kw)
+        assert_path_step_equal(st_k, st_p, regen_k, regen_p, share)
+        assert regen_k.data_ptr() == st_k["regen"].data_ptr() and not bool((regen_k & flag).any())
 
 
 # The seeds whose lanes need the most rejection draws of all 2^32 u32
@@ -1756,35 +1799,53 @@ REPLAYS = 1000
 
 
 @functools.lru_cache(maxsize=None)
-def nee_pair(device):
-    """The any-hit traversal of config 4's shadow rays (high_poly_scene
-    at 100,000 triangles: the two-level route, ~2 ms a launch) and the
-    NEE kernel as its programmatic dependent, as _bounce_kernels launches
-    them: (pair() -> spec_next, writing `radiance` in place from the
-    bounce kernel's; radiance; the plain version's radiance and spec_next;
-    the NEE launch's (blocks, threads))."""
+def bounce_lanes(device, nee):
+    """65,536 camera rays of 1080p and their closest hits, with seeded
+    attenuations, radiances and env credits: under NEE on config 4's scene
+    (high_poly_scene at 100,000 triangles: the two-level route, ~2 ms an
+    any-hit launch), else on the headline's three spheres (flat).
+    Returns (scene, cfg, the bounce's arguments after scene and cfg)."""
     from tpu_pathtracer_torch.ops import camera as camera_ops
     from tpu_pathtracer_torch.render.envmap import with_importance_sampling
     from tpu_pathtracer_torch.scene.scene import make_env
     from tpu_pathtracer_torch.utils.image import procedural_hdr
 
     dev = torch.device(device)
-    env = with_importance_sampling(make_env(procedural_hdr(64, 128), dev))
-    scene = build_accel(procedural.high_poly_scene(total_tris=100_000, device=dev).replace(env=env), kind="cluster")
-    cfg = RenderConfig(width=1920, height=1080, max_depth=8, intersector="cluster", env_mode="equirect",
-                       rr_mode="standard", env_importance_sampling=True)
-    assert scene.accel.route(cfg) == "hier"
+    if nee:
+        env = with_importance_sampling(make_env(procedural_hdr(64, 128), dev))
+        scene = build_accel(procedural.high_poly_scene(total_tris=100_000, device=dev).replace(env=env),
+                            kind="cluster")
+        cfg = RenderConfig(width=1920, height=1080, max_depth=8, intersector="cluster", env_mode="equirect",
+                           rr_mode="standard", env_importance_sampling=True)
+        assert scene.accel.route(cfg) == "hier"
+        camera = Camera(eye=(0, 3, 10), lookat=(0, 1, 0))
+    else:
+        scene = build_accel(procedural.three_spheres_scene(device=dev), kind="cluster")
+        cfg = RenderConfig(width=1920, height=1080, max_depth=8, intersector="cluster", env_mode="sunsky")
+        camera = Camera()
     n = 65_536
     pix = torch.arange(n, dtype=torch.int32, device=dev) * (1920 * 1080 // n)
-    o, d, seeds = camera_ops.camera_paths(camera_arrays(Camera(eye=(0, 3, 10), lookat=(0, 1, 0)), cfg, dev), cfg, 0,
-                                          0, n, pix=pix)
+    o, d, seeds = camera_ops.camera_paths(camera_arrays(camera, cfg, dev), cfg, 0, 0, n, pix=pix)
     hit = scene.accel.intersect(scene.vertices, o, d, cfg.t_min, cfg.t_max, cfg)
     rs = np.random.RandomState(31)
     att = torch.as_tensor((rs.rand(n, 3) + 0.2).astype(np.float32), device=dev)
     rad = torch.as_tensor((rs.rand(n, 3) * 0.5).astype(np.float32), device=dev)
     depth = torch.full((n,), 8, dtype=torch.int32, device=dev)
     spec = torch.as_tensor(rs.rand(n) < 0.5, device=dev)
-    args = (scene, cfg, hit, o, d, att, rad, seeds, depth, spec)
+    return scene, cfg, (hit, o, d, att, rad, seeds, depth, spec)
+
+
+@functools.lru_cache(maxsize=None)
+def nee_pair(device):
+    """The any-hit traversal of config 4's shadow rays (bounce_lanes) and
+    the NEE kernel as its programmatic dependent, as _bounce_kernels
+    launches them: (pair() -> spec_next, writing `radiance` in place from
+    the bounce kernel's; radiance; the plain version's radiance and
+    spec_next; the NEE launch's (blocks, threads))."""
+    scene, cfg, lanes = bounce_lanes(device, True)
+    hit, o, d, att, rad, seeds, depth, spec = lanes
+    n = o.shape[0]
+    args = (scene, cfg, *lanes)
     b = bounce_ops.bounce(*args)
 
     def traverse():
@@ -1809,6 +1870,123 @@ def nee_pair(device):
     blocked = occ[b["cand"]]
     assert int(b["cand"].sum()) > 1000 and 0 < int(blocked.sum()) < blocked.shape[0]
     return pair, radiance, want["radiance"], want["spec_last"], (-(-n // 128), 128)
+
+
+@functools.lru_cache(maxsize=None)
+def step_chain(device, nee, schedule):
+    """The loop body's launches after the closest-hit traversal, as
+    render_rays or render_pixels_regen runs them on the card: the bounce
+    kernel, under NEE the any-hit traversal and the NEE kernel
+    (integrator._bounce_kernels), then the path step as a programmatic
+    dependent of the last of them, on bounce_lanes' lanes as the loop's
+    buffers (a third ended; regen: the loop's regen buffer, 0 on them),
+    reset each call: (chain() -> regen mask, the buffers, the plain
+    version's buffers after the same payload, the path step's (blocks,
+    threads))."""
+    scene, cfg, lanes = bounce_lanes(device, nee)
+    hit, o, d, att, rad, seeds, depth, spec = lanes
+    dev, n = o.device, o.shape[0]
+    rs = np.random.RandomState(7)
+    ended = torch.as_tensor(rs.rand(n) < 1 / 3, device=dev)
+    start = dict(origin=o, direction=d, attenuation=att, radiance=rad, seeds=seeds, depth=depth, spec_last=spec,
+                 done=torch.zeros((), dtype=torch.bool, device=dev), segments=torch.tensor(10, device=dev),
+                 shadow=torch.tensor(3, device=dev))
+    if schedule == "rays":
+        start.update(terminated=ended, result=torch.zeros_like(o))
+    else:
+        start.update(exhausted=ended, sample_i=torch.as_tensor(rs.randint(0, 2, n).astype(np.int32), device=dev),
+                     accum=torch.as_tensor(rs.uniform(0, 2, (n, 3)).astype(np.float32), device=dev),
+                     regen=torch.zeros(n, dtype=torch.bool, device=dev))
+    kw = dict(schedule=schedule, spp=2, max_depth=cfg.max_depth, rr_reference=cfg.rr_mode == "reference", nee=nee)
+    st = {k: v.clone() for k, v in start.items()}
+
+    def trace(buf):
+        return integrator._bounce_kernels(scene, cfg, hit, buf["origin"], buf["direction"], buf["attenuation"],
+                                          buf["radiance"], buf["seeds"], buf["depth"], buf["spec_last"])
+
+    want = {k: v.clone() for k, v in start.items()}
+    fs.path_step_plain(trace(want), want, **kw)
+
+    def chain():
+        for k, v in start.items():
+            st[k].copy_(v)
+        return fs.path_step_cuda(trace(st), st, dependent=True, **kw)
+
+    return chain, st, want, (-(-n // 256), 256)
+
+
+@pytest.mark.parametrize("schedule", ["rays", "regen"])
+@pytest.mark.parametrize("nee", [False, True], ids=["bounce", "nee"])
+def test_path_step_dependent_bit_equal_through_replays(cuda, nee, schedule):
+    """The path step as a programmatic dependent of the bounce kernel, and
+    of the NEE kernel behind config 4's two-level any-hit traversal,
+    captured as the graphed loop captures them and replayed 1,000 times:
+    every buffer after every replay bit-equal to path_step_plain's."""
+    chain, st, want, _ = step_chain(str(cuda), nee, schedule)
+    chain()
+    torch.cuda.synchronize()
+    assert all(same_bits(st[k], want[k]) for k in want)
+    assert replays_differ(chain, lambda _: [(st[k], want[k]) for k in want]) == 0
+
+
+@pytest.mark.parametrize("schedule", ["rays", "regen"])
+@pytest.mark.parametrize("nee", [False, True], ids=["bounce", "nee"])
+def test_path_step_dependent_captured_edge_is_programmatic(cuda, nee, schedule):
+    """A stream capture of the chain records the edge into the path step
+    (the graph's last node) as programmatic, and under NEE the one into
+    the NEE kernel too: nothing else."""
+    from chip_smoke import captured_edges
+
+    chain, *_, shape = step_chain(str(cuda), nee, schedule)
+    edges = captured_edges(chain)
+    into = [e for e in edges if e["sink"]]
+    assert len(into) == 1 and into[0]["to"] == shape and into[0]["programmatic"]
+    assert sum(e["programmatic"] for e in edges) == (2 if nee else 1)
+
+
+@pytest.mark.parametrize("schedule", ["rays", "regen"])
+@pytest.mark.parametrize("nee", [False, True], ids=["bounce", "nee"])
+def test_path_step_dependent_32_steps_on_one_scratch(cuda, nee, schedule):
+    """32 iterations of the loop's body on bounce_lanes' scene, one scratch
+    never cleared: the trace (the closest-hit traversal, the bounce
+    kernels), the path step as the dependent of its last launch and, on
+    regen, the camera kernel as the path step's dependent; beside it the
+    same with path_step_plain and an ordinary camera launch: every buffer
+    bit-equal after every iteration."""
+    from tpu_pathtracer_torch.ops import camera as camera_ops
+
+    scene, cfg, (_, o, d, att, rad, seeds, depth, spec) = bounce_lanes(str(cuda), nee)
+    n = o.shape[0]
+    cam = camera_arrays(Camera(eye=(0, 3, 10), lookat=(0, 1, 0)) if nee else Camera(), cfg, cuda)
+    ids = torch.arange(n, dtype=torch.int32, device=cuda) * (1920 * 1080 // n)
+    counters = torch.tensor(0, device=cuda), torch.tensor(0, device=cuda)
+    start = dict(origin=o, direction=d, attenuation=att, radiance=rad, seeds=seeds, depth=depth, spec_last=spec,
+                 done=torch.zeros((), dtype=torch.bool, device=cuda), segments=torch.tensor(0, device=cuda),
+                 shadow=torch.tensor(0, device=cuda))
+    ended = torch.zeros(n, dtype=torch.bool, device=cuda)
+    if schedule == "rays":
+        start.update(terminated=ended, result=torch.zeros_like(o))
+    else:
+        start.update(exhausted=ended, sample_i=torch.zeros(n, dtype=torch.int32, device=cuda),
+                     accum=torch.zeros_like(o), regen=ended.clone())
+    kw = dict(schedule=schedule, spp=2, max_depth=cfg.max_depth, rr_reference=cfg.rr_mode == "reference", nee=nee)
+    runs = {arm: {k: v.clone() for k, v in start.items()} for arm in ("kernel", "plain")}
+    for it in range(32):
+        for arm, st in runs.items():
+            tb = integrator._trace_bounce(scene, cfg, st["origin"], st["direction"], st["attenuation"],
+                                          st["radiance"], st["seeds"], st["depth"], st["spec_last"])
+            if arm == "kernel":
+                regen = fs.path_step_cuda(tb, st, dependent=True, **kw)
+            else:
+                regen = fs.path_step_plain(tb, st, **kw)
+            if regen is not None:
+                camera_ops.camera_paths(cam, cfg, *counters, n, pix=ids, sample=st["sample_i"], sample_max=1,
+                                        mask=regen, out=(st["origin"], st["direction"], st["seeds"]),
+                                        dependent=arm == "kernel")
+        torch.cuda.synchronize()
+        assert all(same_bits(runs["kernel"][k], runs["plain"][k]) for k in start), it
+    flag = runs["kernel"]["terminated" if schedule == "rays" else "exhausted"]
+    assert 0.5 < float(flag.float().mean()) and int(runs["kernel"]["segments"]) > n
 
 
 @functools.lru_cache(maxsize=None)

@@ -234,12 +234,13 @@ def test_fused_envelope_gate():
 def test_every_kernel_source_has_a_launcher():
     """cuda_build.library can load every csrc/ source: each names its
     launch function and argument types (for the fused step its StepParams
-    by pointer, the entry point and the stream; the struct has a field for
+    by pointer, the entry point, whether the launch is a programmatic
+    dependent (the path step's) and the stream; the struct has a field for
     each tensor of the payload and of the lane state)."""
     from tpu_pathtracer_torch.ops import cuda_build
 
     assert set(cuda_build.sources()) == set(cuda_build.LAUNCHERS)
-    assert len(cuda_build.LAUNCHERS["fused_schedule.cu"][1]) == 3
+    assert len(cuda_build.LAUNCHERS["fused_schedule.cu"][1]) == 4
     fields = {f[0] for f in fs.StepParams._fields_}
     assert {f"tb_{k}" for k in fs.TB_KEYS} | {k.removeprefix("lane_") for k in fs.STATE_KEYS} <= fields
 

@@ -110,26 +110,45 @@ def test_dependent_launches_set_the_attribute_where_asked(source, launcher, kern
 
 @pytest.mark.parametrize("source,kernel", [("cluster_streamed.cuh", "streamed_kernel"),
                                            ("fused_schedule.cu", "fused_step_kernel"),
-                                           ("fused_schedule.cu", "path_step_kernel")])
+                                           ("fused_schedule.cu", "path_step_kernel"),
+                                           ("bounce.cu", "bounce_kernel"),
+                                           ("nee.cu", "nee_kernel")])
 def test_launches_before_let_their_dependents_start_at_entry(source, kernel):
-    """The any-hit traversal (its instantiations only), kernel 7 and the
-    path step let their dependents start before any other statement that
-    touches memory, and are launched without the attribute."""
+    """The launches that a dependent follows (the any-hit traversal, its
+    instantiations only; kernel 7; the bounce kernel; and the links with
+    one behind them, the NEE kernel and the path step) let it start before
+    any other statement that touches memory.  The heads of the chains
+    (launch_order.cuh: the traversals, the bounce kernel, kernel 7, and
+    the sort before them) are launched without the attribute and never
+    wait; in fused_schedule.cu only the path step waits, and only it goes
+    through launch_order::launch."""
     first = body(source, kernel).split(TRIGGER)[0]
     assert TRIGGER in body(source, kernel)
-    assert re.sub(r"\s+", " ", first).strip() in ("", "extern __shared__ float4 rows[]; __shared__ unsigned int "
-                                                      "slots[3]; if constexpr (kAnyHit)")
+    assert re.sub(r"\s+", " ", first).strip() in (
+        "", "extern __shared__ float4 rows[]; __shared__ unsigned int slots[3]; if constexpr (kAnyHit)",
+        "using namespace shade;", "using namespace shade; namespace R = nee_record;")
     for src in ("cluster_streamed.cuh", "fused_schedule.cu", "ray_sort.cu", "bounce.cu"):
-        assert "ProgrammaticStreamSerialization" not in code(src) and WAIT not in code(src)
+        assert "ProgrammaticStreamSerialization" not in code(src)
+    for src in ("cluster_streamed.cuh", "ray_sort.cu", "bounce.cu"):
+        assert WAIT not in code(src) and "launch_order::launch(" not in code(src)
+    assert WAIT not in body("fused_schedule.cu", "fused_step_kernel")
+    launch = body("fused_schedule.cu", "fused_step_launch")
+    assert "fused_step_kernel<<<" in launch and "launch_order::launch(path_step_kernel," in launch
 
 
 def test_integrator_asks_for_dependents_after_the_traversal_and_the_steps():
-    """`dependent=True` at exactly three sites: the NEE kernel after the
-    any-hit traversal, the stream's respawn after kernel 7 and the regen
-    respawn after the path step; and the stream writes its counters after
-    the respawn, so that nothing runs between kernel 7 and the camera."""
+    """`dependent=True` at exactly two sites (the NEE kernel after the
+    any-hit traversal, the regen respawn after the path step), the
+    stream's respawn behind kernel 7 only, and the path step of render_rays
+    and render_pixels_regen behind the trace's last launch wherever the
+    bounce kernels ran (`_bounce_on_card`, the one rule `_trace_bounce`
+    takes them by); and the stream writes its counters after the respawn,
+    so that nothing runs between kernel 7 and the camera."""
     src = Path(integrator.__file__).read_text()
     assert src.count("dependent=True") == 2 and src.count("dependent=schedule_step is fused_stream_step") == 1
+    assert src.count('dependent=_bounce_on_card(cfg, st["seeds"].device)') == 2
+    trace = src[src.index("def _trace_bounce"):src.index("def _bounce_on_card")]
+    assert "if _bounce_on_card(cfg, origin.device):" in trace
     step = src[src.index("def _stream_step"):src.index("def _fused_stream_ok")]
     assert step.index("_respawn(st, regen") < step.index("_write(st, new)")
 

@@ -291,7 +291,7 @@ def path_buffers(n, seed, schedule, nee):
         buf.update(terminated=t(rs.rand(n) < 0.3), result=t(rs.rand(n, 3).astype(np.float32)))
     else:
         buf.update(exhausted=t(rs.rand(n) < 0.3), sample_i=t(rs.randint(0, 3, n).astype(np.int32)),
-                   accum=t(rs.rand(n, 3).astype(np.float32)))
+                   accum=t(rs.rand(n, 3).astype(np.float32)), regen=torch.zeros(n, dtype=torch.bool))
         buf["accum"][::7] = -0.0
     if nee:
         tb.update(hit=t(rs.rand(n) < 0.7), spec_last=t(rs.rand(n) < 0.5))
@@ -373,9 +373,9 @@ def grid_sum_launch(scratch, counts, rs):
 @pytest.mark.parametrize("tiles", [1, 7, 512])
 def test_grid_sum_model_clears_itself(tiles):
     """32 consecutive launches on one scratch, zeroed once, blocks in any
-    order: the last block to arrive reads exactly the launch's sums (the
-    path step's live lanes, hit lanes and lanes not ended: segments,
-    shadow and `done`), and leaves them 0 for the next launch; the
+    order: the last block to arrive reads exactly the launch's sums (as
+    the path step's live lanes, hit lanes and lanes not ended once were;
+    kernel 7's shadow count), and leaves them 0 for the next launch; the
     stream step's launches without NEE, which add and arrive nothing,
     may come between."""
     rs = np.random.RandomState(tiles)
@@ -390,6 +390,29 @@ def test_grid_sum_model_clears_itself(tiles):
         assert total is not None and (total == counts.sum(axis=0)).all()
         assert (total[2] == 0) == (counts[:, 2] == 0).all()
         assert (scratch[1:] == 0).all() and scratch[0] % tiles == 0
+
+
+@pytest.mark.parametrize("tiles", [1, 7, 512, 8100])
+def test_packed_count_model_clears_itself(tiles):
+    """The path step's totals (csrc/fused_schedule.cu: path_step_kernel),
+    each block's live lanes, whether it has a lane not ended and its
+    arrival packed into one atomic add on one word, its hit lanes added
+    into a second word first: over consecutive launches on one scratch,
+    zeroed once, blocks in any order, each tile's counts up to 256 (8,100
+    tiles: a 1080p frame's 2,073,600 lanes), the last block to arrive
+    reads exactly its launch's live and hit lanes and whether any lane is
+    not ended, and leaves both words 0: no memset, no host read."""
+    from test_torch_path_step_design import packed_sum
+
+    rs = np.random.RandomState(tiles)
+    scratch = np.zeros(2, dtype=np.int64)
+    for launch in range(32 if tiles < 1000 else 3):
+        counts = rs.randint(0, 257, (tiles, 3))
+        if launch % 3 == 0:
+            counts[:, 2] = 0  # every lane ended: done
+        total = packed_sum(scratch, counts, rs)
+        assert total[0] == counts[:, 0].sum() and total[1] == counts[:, 1].sum()
+        assert total[2] == (counts[:, 2] > 0).sum() and (scratch == 0).all()
 
 
 # ---------------------------------------------------------------------------

@@ -59,6 +59,7 @@
 
 #include <cuda_runtime.h>
 
+#include "launch_order.cuh"
 #include "rng.cuh"
 #include "shade_math.cuh"
 
@@ -474,6 +475,10 @@ __device__ __forceinline__ LaneState load_state(const BounceParams& p, int i) {
 // lanes, 1-2% faster at 131,072).
 __global__ void __launch_bounds__(kThreads, kMinBlocks) bounce_kernel(const __grid_constant__ BounceParams p) {
   using namespace shade;
+  // Without NEE the path step follows as a programmatic dependent
+  // (launch_order.cuh): its blocks may start once every block of this
+  // launch has; it reads the payload only after this launch is done.
+  launch_order::let_dependents_start();
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= p.n) return;
   const LaneState st = load_state(p, i);

@@ -31,13 +31,15 @@
 //
 // Its design: a programmatic dependent of the launch before it
 // (launch_order.cuh), which on the main path is kernel 7 or the path step
-// (fused_schedule.cu).  The lane's mask byte, pixel and sample are what
-// that launch writes; the camera's vectors, the seed counters and an
-// affine range's base are a frame's inputs, written at its set-up, many
-// launches back.  So the kernel reads those and the constants before its
-// wait, while the step drains, and after it issues the mask, pix and
-// sample loads together (every index is in range on every lane) before it
-// branches on the mask.  Nothing is stored before the wait.
+// (fused_schedule.cu; itself a dependent of the bounce or NEE kernel).
+// The lane's mask byte, pixel and sample are what that launch writes; the
+// camera's vectors, the seed counters and an affine range's base are a
+// frame's inputs, written at its set-up, before the nearest launch made
+// without the attribute began.  So the kernel reads those and the
+// constants before its wait, while the step drains, and after it issues
+// the mask, pix and sample loads together (every index is in range on
+// every lane) before it branches on the mask.  Nothing is stored before
+// the wait.
 
 #include <cstdint>
 

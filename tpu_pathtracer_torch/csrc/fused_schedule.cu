@@ -66,9 +66,15 @@
 //   leaves it, so every sector is written whole.  Stores predicated on
 //   each lane's fate write most sectors in part, and the card's L2 then
 //   has to fill them from memory: that measured slower, though it moves
-//   fewer bytes.  The path step rewrites its lanes' state the same way,
-//   but for the seed (live lanes) and render_rays' result (lanes whose
-//   path ends).
+//   fewer bytes.  The path step is the other way round (PERF.md, the
+//   path step's findings): it runs most of its launches on pools where
+//   nearly every lane has ended, so an ended lane reads its flag and
+//   nothing else and stores nothing, and a live lane stores only what its
+//   fate changes (whole warps of ended lanes skipped, and live lanes
+//   rewriting every field, measured slower on the 1-spp tiles and on the
+//   dense regen pools).  It loads before its wait what it can and the
+//   payload after it, as a programmatic dependent of the bounce or NEE
+//   kernel (launch_order.cuh).
 // - One lane a thread, coalesced scalar accesses, in tiles of 256 lanes
 //   (one block of 256 threads).  Measured against it and dropped: V lanes
 //   a thread (4 or 8) with 16-byte accesses, slower at every pool size,
@@ -95,13 +101,15 @@
 //   reads as not yet published.  A word is tag (12 bits), flag (2),
 //   retired lanes (25) and live lanes (25), published by one atomicExch
 //   and read by volatile loads, so lanes < 2^25.
-// - A total with no prefix (the shadow segments; the path step's live
-//   lanes, hit lanes and lanes not ended) is a self-clearing grid sum:
-//   each block adds its counts (__syncthreads_count) into the scratch's
-//   sums, fences, and takes an arrival number off a counter that only
-//   grows; the block that arrives T-th of its launch (arrival % T == T - 1)
-//   reads every sum and sets it back to 0 with one atomicExch each, so a
-//   graph replay needs no memset and the host reads nothing.
+// - A total with no prefix (the stream step's shadow segments) is a
+//   self-clearing grid sum: each block adds its counts
+//   (__syncthreads_count) into the scratch's sums, fences, and takes an
+//   arrival number off a counter that only grows; the block that arrives
+//   T-th of its launch (arrival % T == T - 1) reads every sum and sets it
+//   back to 0 with one atomicExch each, so a graph replay needs no memset
+//   and the host reads nothing.  The path step's three totals (live
+//   lanes, hit lanes, lanes not ended) travel in one packed arrival
+//   instead: one same-address atomic a block (path_step_kernel).
 // - head', segments' and the live count are written exactly, once, by the
 //   last tile, which holds the inclusive totals: head + retired, segments
 //   + live, and live - retired + min(max(n_pix - head, 0), retired) (the
@@ -441,99 +449,200 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(const __grid_const
   if (p.nee) set_spec(p, i, regen, p.tb_spec);
 }
 
+// The path step's count word (its scratch[0]): live lanes (25 bits: lanes
+// < 2^25), tiles with a lane not ended (18 bits: tiles <= 2^17) and the
+// launch's arrivals so far (18 bits).
+constexpr int kOpenShift = 25, kArrivalShift = 43;
+constexpr unsigned long long kLiveMask = (1ull << kOpenShift) - 1, kTileMask = (1ull << 18) - 1;
+
 // The path step of render_rays (schedule 0) and render_pixels_regen
-// (schedule 1): one lane a thread.
+// (schedule 1): one lane a thread, a programmatic dependent of the
+// bounce kernel (of the NEE kernel under NEE) where the caller asks.
+//
+// An ended lane (its flag set at entry) reads its flag and nothing else,
+// and stores nothing: path_step_plain leaves every field of such a lane
+// as it was, bit for bit, on every state the loop reaches.  Field by field
+// (live = !flag is false, so newly = adv = false):
+// * origin, direction, attenuation, radiance, depth: where(adv, .., st)
+//   and where(regen, .., ..) with regen = newly & .. false: the lane's own;
+// * seeds: where(live, .., st): its own; result (rays): where(newly, ..,
+//   st): its own; the flag: flag | newly: set;
+// * sample_i (regen): sample_i + newly: its own; accum (regen): accum +
+//   where(newly, result, 0.0) = accum + 0.0, its own unless it is -0.0
+//   (made +0.0).  accum starts at +0.0 and is only ever x + y, and a sum
+//   is -0.0 only where both terms are: so -0.0 never reaches it
+//   (tests/test_torch_path_step_design.py);
+// * the env credit (NEE): where(regen, 1, where(adv, .., st)): its own;
+// * the regen mask (regen): newly & ..: 0, which the lane's byte of the
+//   loop's mask already holds: the step that set the flag wrote it 0 (the
+//   wrapper's mask is the loop's buffer, zeroed at the frame's start);
+// * the counts: live, hit and not ended are all 0.
+// A live lane likewise stores only what its fate changes: the seed, the
+// flag, and in regen accum, sample_i and its regen byte; one that goes on
+// the payload's origin, direction and radiance, the attenuation it
+// carries, depth - 1 and (NEE) the payload's env credit; one that
+// respawns attenuation 1, radiance 0, max_depth and credit 1; one whose
+// path ends and does not respawn keeps origin, direction, attenuation,
+// radiance, depth and credit, so it reads none of them either.
+//
+// The order, against the launch before (launch_order.cuh).  Before the
+// wait the kernel reads only what the previous path step (or the frame's
+// set-up) wrote, before the nearest launch made without the attribute
+// began: the flag and a
+// live lane's depth (in regen also sample_i and accum).  After it, one
+// round: the payload the bounce kernel (and NEE's radiance and credit)
+// wrote: seed, done flag, attenuation, radiance, origin and direction,
+// under NEE the hit flag and the credit.  Every store, the counts'
+// included, comes after the wait: the bounce and NEE kernels read the
+// state it rewrites.
+//
+// The totals (segments, shadow, done) without a memset or a host read,
+// one same-address atomic a block (two under NEE): the block's counts
+// travel in its arrival, one atomicAdd of its live lanes, whether it has
+// a lane not ended, and 1 into the count word; under NEE its hit lanes
+// are added into scratch[1] first, fenced before the arrival.  The block
+// whose add finds T - 1 arrivals is the launch's last: its add's result
+// and its own are the totals, and it sets both words back to 0 for the
+// next launch.  Only the block's first thread waits for the add.
 __global__ void __launch_bounds__(kThreads) path_step_kernel(const __grid_constant__ StepParams p, int tiles) {
   launch_order::let_dependents_start();  // the regen schedule's camera kernel, as kernel 7's
+  __shared__ int warp_counts[kWarps][3];
   const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool in = i < p.n;
   const bool regen_schedule = p.schedule == 1;
-  bool live = false, hit = false, ended = true;
-  if (in) {
-    live = p.flag[i] == 0;
-    uint32_t seed = static_cast<uint32_t>(p.seeds[i]);
-    float a[3], r[3], res[3];
-    bool adv = false, newly = false;
-    if (live) {
-      seed = static_cast<uint32_t>(__ldg(p.tb_seeds + i));
-      for (int c = 0; c < 3; ++c) {
-        a[c] = __ldg(p.tb_attenuation + 3 * i + c);
-        r[c] = __ldg(p.tb_radiance + 3 * i + c);
-      }
-      adv = roulette(seed, __ldg(p.tb_done + i) != 0, a, r, res, p.rr_reference);
-      newly = !adv;
-      hit = p.nee && __ldg(p.tb_hit + i) != 0;
-      p.seeds[i] = static_cast<long long>(seed);
+  const bool live = i < p.n && p.flag[i] == 0;
+  int dp = 0, si = 0;
+  float acc[3];
+  if (live) {
+    dp = p.depth[i];
+    if (regen_schedule) {
+      si = p.sample_i[i];
+      for (int c = 0; c < 3; ++c) acc[c] = p.accum[3 * i + c];
     }
-    float po[3], pd[3];
-    if (adv) {  // goes on: the payload's origin, direction and radiance, the carried attenuation
-      for (int c = 0; c < 3; ++c) {
-        po[c] = __ldg(p.tb_origin + 3 * i + c);
-        pd[c] = __ldg(p.tb_direction + 3 * i + c);
-      }
-    } else {
-      for (int c = 0; c < 3; ++c) {
-        po[c] = p.origin[3 * i + c];
-        pd[c] = p.direction[3 * i + c];
-        a[c] = p.attenuation[3 * i + c];
-        r[c] = p.radiance[3 * i + c];
-      }
-    }
+  }
+
+  // The launch before writes the payload.
+  launch_order::wait_for_launch_before();
+  bool hit = false, ended = true;
+  if (live) {
+    uint32_t seed = static_cast<uint32_t>(p.tb_seeds[i]);
+    const bool tb_done = p.tb_done[i] != 0;
+    float a[3], r[3], o[3], d[3], res[3], spec_f = 0.f;
     for (int c = 0; c < 3; ++c) {
-      p.origin[3 * i + c] = po[c];
-      p.direction[3 * i + c] = pd[c];
+      a[c] = p.tb_attenuation[3 * i + c];
+      r[c] = p.tb_radiance[3 * i + c];
+      o[c] = p.tb_origin[3 * i + c];
+      d[c] = p.tb_direction[3 * i + c];
     }
-    const int dp = p.depth[i];
+    unsigned char spec_b = 0;
+    if (p.nee) {
+      hit = p.tb_hit[i] != 0;
+      if (p.nee == 2) {
+        spec_f = static_cast<const float*>(p.tb_spec)[i];
+      } else {
+        spec_b = static_cast<const unsigned char*>(p.tb_spec)[i];
+      }
+    }
+    const bool adv = roulette(seed, tb_done, a, r, res, p.rr_reference);  // a: the attenuation carried on
+    const bool newly = !adv;
+    p.seeds[i] = static_cast<long long>(seed);
     bool regen = false;
     if (regen_schedule) {
-      const int si = p.sample_i[i] + newly;
-      ended = !live || (newly && si >= p.spp);
+      si += newly;
+      ended = newly && si >= p.spp;
       regen = newly && !ended;
-      for (int c = 0; c < 3; ++c) p.accum[3 * i + c] = p.accum[3 * i + c] + (newly ? res[c] : 0.f);
+      for (int c = 0; c < 3; ++c) p.accum[3 * i + c] = acc[c] + (newly ? res[c] : 0.f);
       p.sample_i[i] = si;
       p.regen[i] = regen;
     } else {
-      ended = !live || newly;
+      ended = newly;
       if (newly) {
         for (int c = 0; c < 3; ++c) p.result[3 * i + c] = res[c];
       }
     }
     p.flag[i] = ended;
-    for (int c = 0; c < 3; ++c) {
-      p.attenuation[3 * i + c] = regen ? 1.f : a[c];
-      p.radiance[3 * i + c] = regen ? 0.f : r[c];
+    if (adv || regen) {
+      if (adv) {  // goes on: the payload's origin, direction and radiance
+        for (int c = 0; c < 3; ++c) {
+          p.origin[3 * i + c] = o[c];
+          p.direction[3 * i + c] = d[c];
+        }
+      }
+      for (int c = 0; c < 3; ++c) {
+        p.attenuation[3 * i + c] = regen ? 1.f : a[c];
+        p.radiance[3 * i + c] = regen ? 0.f : r[c];
+      }
+      p.depth[i] = regen ? p.max_depth : dp - 1;
+      if (p.nee == 2) {
+        static_cast<float*>(p.spec)[i] = regen ? 1.f : spec_f;
+      } else if (p.nee) {
+        static_cast<unsigned char*>(p.spec)[i] = regen ? 1 : spec_b;
+      }
     }
-    p.depth[i] = regen ? p.max_depth : (adv ? dp - 1 : dp);
-    if (p.nee) set_spec(p, i, regen, adv ? p.tb_spec : p.spec);
   }
-  const int counts[3] = {__syncthreads_count(live), __syncthreads_count(hit), __syncthreads_count(!ended)};
-  unsigned long long total[3];
-  if (threadIdx.x == 0 && grid_sum<3>(p.scratch, tiles, counts, total)) {
-    *p.segments += static_cast<long long>(total[0]);
-    if (p.nee) *p.shadow += static_cast<long long>(total[1]);
-    *p.done = total[2] == 0;
+
+  // The counts: each warp's by ballot, the block's in its arrival.
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned live_bits = __ballot_sync(0xffffffffu, live), hit_bits = __ballot_sync(0xffffffffu, hit),
+                 open_bits = __ballot_sync(0xffffffffu, !ended);
+  if (lane == 0) {
+    warp_counts[warp][0] = __popc(live_bits);
+    warp_counts[warp][1] = __popc(hit_bits);
+    warp_counts[warp][2] = __popc(open_bits);
   }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  unsigned long long count[3] = {0, 0, 0};
+  for (int w = 0; w < kWarps; ++w) {
+    for (int k = 0; k < 3; ++k) count[k] += warp_counts[w][k];
+  }
+  if (p.nee) {
+    if (count[1]) atomicAdd(p.scratch + 1, count[1]);
+    __threadfence();
+  }
+  const unsigned long long mine = count[0] | static_cast<unsigned long long>(count[2] != 0) << kOpenShift |
+                                  1ull << kArrivalShift;
+  const unsigned long long before = atomicAdd(p.scratch, mine);
+  if ((before >> kArrivalShift) != static_cast<unsigned long long>(tiles - 1)) return;
+  const unsigned long long total = before + mine;
+  atomicExch(p.scratch, 0ull);
+  *p.segments += static_cast<long long>(total & kLiveMask);
+  if (p.nee) {
+    __threadfence();
+    *p.shadow += static_cast<long long>(atomicExch(p.scratch + 1, 0ull));
+  }
+  *p.done = ((total >> kOpenShift) & kTileMask) == 0;
 }
 
 }  // namespace
 
 // entry 0: the stream step over p->n lanes (p->scratch: [3 + tiles]
 // int64, zero before its first launch; p->totals: [4] int64); entry 1: the
-// path step (p->scratch: [4] int64, zero before its first launch).  Tiles
-// of 256 lanes, one block a tile, on `stream`; a scratch is used only by
-// launches of one entry and tile count, one at a time.  n < 2^25.
-// Returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int fused_step_launch(const StepParams* p, int entry, void* stream) {
+// path step (p->scratch: [2] int64, zero before its first launch),
+// as a programmatic dependent of the launch before it on `stream` where
+// `dependent` (the caller vouches that that launch is the bounce or the
+// NEE kernel: launch_order.cuh).  Tiles of 256 lanes, one block a tile, on
+// `stream`; a scratch is used only by launches of one entry and tile
+// count, one at a time.  n < 2^25.  Returns the launch's error, or
+// cudaGetLastError() after it (0 = launched); the stream step is never a
+// dependent (cudaErrorInvalidValue).
+extern "C" int fused_step_launch(const StepParams* p, int entry, int dependent, void* stream) {
+  if (entry == 0 && dependent) return static_cast<int>(cudaErrorInvalidValue);
   if (p->n <= 0) return 0;
   const int tiles = (p->n + kThreads - 1) / kThreads;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (entry == 0) {
     fused_step_kernel<<<tiles, kThreads, 0, st>>>(*p, tiles);
-  } else {
-    path_step_kernel<<<tiles, kThreads, 0, st>>>(*p, tiles);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err = launch_order::launch(path_step_kernel, tiles, kThreads, st, dependent != 0, *p, tiles);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
+
+// The int64 words of the scratch that launches of `entry` over `tiles`
+// tiles take, which the wrapper allocates: the stream step's ticket,
+// arrivals, shadow sum and a status word a tile; the path step's count
+// word and hit sum.
+extern "C" int fused_step_scratch_words(int entry, int tiles) { return entry == 0 ? kStatus + tiles : 2; }
 
 // sizeof(StepParams), which the wrapper checks against its mirror.
 extern "C" int fused_schedule_params_size() { return static_cast<int>(sizeof(StepParams)); }

@@ -9,17 +9,39 @@
 // records the pair as a programmatic edge of the graph, so a replay
 // overlaps them as an eager stream does.
 //
-// The invariant every dependent kernel here keeps (nee.cu, camera.cu):
-// before its wait it reads only what was written two or more launches
-// back, and only while the launch just before it was made without the
-// attribute (that launch then began after everything before it was done
-// and visible); it stores nothing before its wait.  So the launches just
-// before the dependents (the any-hit traversal, cluster_streamed.cuh;
-// kernel 7 and the path step, fused_schedule.cu) stay ordinary launches
-// and only let their dependents start early.  The caller of a dependent
+// The invariant every dependent kernel here keeps (nee.cu, camera.cu and
+// the path step of fused_schedule.cu): before its wait it reads only what
+// was written before the nearest launch made without the attribute began,
+// and it stores nothing before its wait.
+//
+// Why that is enough, also for a chain of dependents.  A launch made
+// without the attribute begins after everything before it on the stream
+// is done and visible.  A dependent's blocks start only once the launch
+// before it has started, so every link of a chain behind that ordinary
+// launch starts after it began, and may run beside any earlier link:
+// what it reads before its wait was written before the chain's head
+// began, and no link writes before its own wait.  A link's wait returns
+// once the launch before it is complete, which that launch is only after
+// its own wait returned: after the wait every earlier link is done.  The
+// chains on the main path, each link's early reads in brackets:
+// * the any-hit traversal (ordinary, cluster_streamed.cuh) -> the NEE
+//   kernel (the record, the shadow rays and radiance that the bounce
+//   kernel wrote before the traversal, the lane state, the env tables) ->
+//   under NEE the path step (the flag and a live lane's own state, which
+//   the previous iteration's path step and camera kernel wrote before the
+//   iteration's first launch, an ordinary one) -> on render_pixels_regen
+//   the camera kernel (the camera's vectors and the seed counters, a
+//   frame's set-up);
+// * the bounce kernel (ordinary, bounce.cu) -> without NEE the path step
+//   -> on render_pixels_regen the camera kernel;
+// * kernel 7 (ordinary, fused_schedule.cu) -> the stream's camera kernel.
+// So the heads stay ordinary launches and, like every link that has a
+// dependent, let it start at their entry.  The caller of a dependent
 // launch vouches for the launch before it: the wrappers pass `dependent`
-// only where the integrator's order makes that launch the traversal or a
-// schedule step (ops/bounce.py: next_event, ops/camera.py: camera_paths).
+// only where the integrator's order makes that launch the link before
+// (ops/bounce.py: next_event, ops/camera.py: camera_paths,
+// ops/fused_schedule.py: path_step), and refuse an input that a copy or
+// fill just before the launch would make.
 
 #pragma once
 

@@ -46,8 +46,11 @@
 // any-hit byte, applied as a select (an occluded lane's contribution may
 // be inf or NaN, which a product with the flag would carry into
 // radiance), and the stores.  The invariant of launch_order.cuh holds:
-// nothing before the wait reads what the traversal writes, and nothing
-// is stored before it.
+// before the wait the kernel reads only what was written before the
+// nearest launch made without the attribute (the traversal) began, and
+// it stores nothing before it.  Under NEE the path step
+// (fused_schedule.cu) follows as its programmatic dependent, so the
+// kernel lets it start at entry.
 
 #include <cstdint>
 
@@ -86,6 +89,7 @@ namespace {
 __global__ void __launch_bounds__(kThreads) nee_kernel(const __grid_constant__ NeeParams p) {
   using namespace shade;
   namespace R = nee_record;
+  launch_order::let_dependents_start();  // the path step, under NEE
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= p.n) return;
   const ShadeConsts& c = p.c;

@@ -71,8 +71,10 @@ LAUNCHERS = {
         [_P] * 6 + [_I] * 5 + [_F] * 2 + [_I] * 2 + [_P] * 3,
     ),
     # the launch's arguments by pointer (a struct mirrored by ctypes), the
-    # entry point (the stream step or the path step), the stream
-    "fused_schedule.cu": ("fused_step_launch", [_P, _I, _P]),
+    # entry point (the stream step or the path step), whether it is a
+    # programmatic dependent of the launch before it (the path step only),
+    # the stream
+    "fused_schedule.cu": ("fused_step_launch", [_P, _I, _I, _P]),
     "unit_sphere.cu": ("unit_sphere_launch", [_P] * 3 + [_I] + [_P]),
     # the launch's arguments by pointer (a struct mirrored by ctypes), the
     # bounce kernel's entry point, the stream
@@ -109,6 +111,8 @@ HELPERS.update({f"{stem}.cu": {f"{stem}_params_size": []}
 HELPERS["bounce.cu"]["shade_math_probe"] = [_P] * 3 + [_I] * 2 + [_F] + [_P]
 # and the report of what the card made of its kernels (entry, int out[5])
 HELPERS["bounce.cu"]["bounce_attributes"] = [_I, ctypes.POINTER(ctypes.c_int)]
+# and the size of the schedule steps' scratch (entry, tiles)
+HELPERS["fused_schedule.cu"]["fused_step_scratch_words"] = [_I, _I]
 # The ray ordering's other kernel: the packet order (weights, packets,
 # order out, stream).
 HELPERS["ray_sort.cu"] = {"ray_sort_order_launch": [_P] + [_I] + [_P] * 2}

@@ -48,6 +48,7 @@ import functools
 
 import torch
 
+from tpu_pathtracer_torch.ops import bounce as bounce_ops
 from tpu_pathtracer_torch.ops.bounce import _launch, _params
 from tpu_pathtracer_torch.ops.cuda_build import kernel_arg, on_card
 from tpu_pathtracer_torch.utils import rng
@@ -167,8 +168,9 @@ def path_step_plain(tb, st, *, schedule: str, spp: int, max_depth: int, rr_refer
     with copy_): Russian roulette, the merges, the counters (segments, and
     under NEE shadow: the live lanes that hit) and the 0-d `done` flag.
     rays: result, terminated; regen: accum, sample_i, exhausted, and the
-    regen mask (the lanes whose next sample the caller spawns), which it
-    returns (rays: None)."""
+    regen mask (the lanes whose next sample the caller spawns) into the
+    loop's buffer st["regen"], which it returns (rays: None)."""
+    _check_schedule(st, schedule)
     if schedule == "rays":
         live = ~st["terminated"]
         seeds_new, newly, adv, result_t, att_new = roulette(tb, live, rr_reference)
@@ -189,7 +191,7 @@ def path_step_plain(tb, st, *, schedule: str, spp: int, max_depth: int, rr_refer
         if nee:
             new.update(spec_last=torch.where(adv, tb["spec_last"], st["spec_last"]),
                        shadow=st["shadow"] + (live & tb["hit"]).sum())
-    elif schedule == "regen":
+    else:
         live = ~st["exhausted"]
         seeds_new, newly, adv, result, att_new = roulette(tb, live, rr_reference)
         accum = st["accum"] + torch.where(newly[:, None], result, 0.0)
@@ -215,24 +217,40 @@ def path_step_plain(tb, st, *, schedule: str, spp: int, max_depth: int, rr_refer
             new.update(spec_last=torch.where(regen, torch.ones_like(spec_last),
                                              torch.where(adv, tb["spec_last"], spec_last)),
                        shadow=st["shadow"] + (live & tb["hit"]).sum())
-    else:
-        raise ValueError(f"no path step for schedule {schedule!r}: expected one of {PATH_SCHEDULES}")
     for k, v in new.items():
         st[k].copy_(v)
-    return regen
+    if regen is None:
+        return None
+    st["regen"].copy_(regen)
+    return st["regen"]
+
+
+def _check_schedule(st, schedule: str) -> None:
+    if schedule not in PATH_SCHEDULES:
+        raise ValueError(f"no path step for schedule {schedule!r}: expected one of {PATH_SCHEDULES}")
+    if schedule == "regen" and "regen" not in st:
+        raise ValueError('the regen schedule writes its mask into the loop\'s buffer st["regen"], which is missing')
+
+
+def _scratch(device: torch.device, entry: int, lanes: int) -> torch.Tensor:
+    """A kernel's scratch for launches of entry `entry` over `lanes` lanes
+    on `device`, of as many words as the kernel's library says
+    (csrc/fused_schedule.cu: fused_step_scratch_words).  The stream step's
+    (entry 0): a ticket counter, the grid sum's arrival counter and sum,
+    then a status word a tile; the path step's (entry 1): its packed count
+    word (live lanes, tiles not done, arrivals) and its hit count.  Zeroed
+    once and never again: a launch tags its status words with its own
+    number, read off the ticket counter, and the block that arrives last
+    sets the sums and the count words back to 0.  Launches that share one
+    run one at a time, on one stream."""
+    tiles = -(-lanes // TILE_LANES)
+    return _zeroed_scratch(device, entry, tiles, bounce_ops.library("fused_schedule.cu").fused_step_scratch_words(
+        entry, tiles))
 
 
 @functools.lru_cache(maxsize=None)
-def _scratch(device: torch.device, entry: int, tiles: int) -> torch.Tensor:
-    """A kernel's scratch for launches of entry `entry` over `tiles` tiles
-    on `device`.  The stream step's (entry 0): a ticket counter, the grid
-    sum's arrival counter and sum, then a status word a tile; the path
-    step's (entry 1): an arrival counter and three sums.  Zeroed once here
-    and never again: a launch tags its status words with its own number,
-    read off the ticket counter, and the block that arrives last sets the
-    sums back to 0 (csrc/fused_schedule.cu).  Launches that share one run
-    one at a time, on one stream."""
-    return torch.zeros(3 + tiles if entry == 0 else 4, dtype=torch.int64, device=device)
+def _zeroed_scratch(device: torch.device, entry: int, tiles: int, words: int) -> torch.Tensor:
+    return torch.zeros(words, dtype=torch.int64, device=device)
 
 
 def _lane_count(st) -> int:
@@ -269,8 +287,9 @@ def _payload_args(tb, st, lanes, dev) -> dict:
     return t
 
 
-def _launch_step(params, entry: int, dev) -> None:
-    _launch("fused_schedule.cu", "fused_step_launch", params, entry, stream=torch.cuda.current_stream(dev).cuda_stream)
+def _launch_step(params, entry: int, dev, dependent: bool = False) -> None:
+    _launch("fused_schedule.cu", "fused_step_launch", params, entry, int(dependent),
+            stream=torch.cuda.current_stream(dev).cuda_stream)
 
 
 def fused_stream_step_cuda(tb, st, out, head, segments, shadow=None, *, spp: int, n_pix: int, max_depth: int,
@@ -302,7 +321,7 @@ def fused_stream_step_cuda(tb, st, out, head, segments, shadow=None, *, spp: int
         t["ids"] = kernel_arg("ids", ids.to(torch.int32), torch.int32, (n_pix,), dev)
     regen = torch.empty(lanes, dtype=torch.bool, device=dev)
     totals = torch.empty(4, dtype=torch.int64, device=dev)  # head', segments', live', shadow'
-    t.update(scratch=_scratch(dev, 0, -(-lanes // TILE_LANES)), regen=regen, totals=totals)
+    t.update(scratch=_scratch(dev, 0, lanes), regen=regen, totals=totals)
     params = _params(StepParams, t, dict(
         n=lanes, spp=spp, n_pix=n_pix, max_depth=max_depth, rr_reference=int(rr_reference),
         pixel_map=0 if base is None and ids is None else 1 if base is not None else 2, nee=nee, schedule=0,
@@ -324,11 +343,26 @@ def fused_stream_step(tb, st, out, head, segments, shadow=None, **kw):
     return fused_stream_step_plain(tb, st, out, head, segments, shadow, **kw)
 
 
-def path_step_cuda(tb, st, *, schedule: str, spp: int, max_depth: int, rr_reference: bool, nee: bool):
+def path_step_cuda(tb, st, *, schedule: str, spp: int, max_depth: int, rr_reference: bool, nee: bool,
+                   dependent: bool = False):
     """Launch the path step on CUDA tensors; path_step_plain's contract,
-    with the buffers of `st` updated in place."""
-    if schedule not in PATH_SCHEDULES:
-        raise ValueError(f"no path step for schedule {schedule!r}: expected one of {PATH_SCHEDULES}")
+    with the buffers of `st` updated in place.
+
+    The regen schedule's mask is the loop's buffer st["regen"], written in
+    place and returned: an ended lane's byte is not written, and is 0 from
+    the step that ended it, so the buffer must hold the last step's mask,
+    zeros before the first.
+
+    `dependent`: launch it as a programmatic dependent of the launch just
+    before it on the stream (csrc/launch_order.cuh), which may then still
+    be running when the kernel starts: the caller vouches that that launch
+    is the bounce kernel (without NEE) or the NEE kernel (under NEE), so
+    that the payload is the last thing written; the kernel reads the flags
+    and the lanes' state before its wait."""
+    _check_schedule(st, schedule)
+    if dependent and not all(tb[k].is_contiguous() for k in TB_KEYS + (("hit", "spec_last") if nee else ())):
+        raise ValueError("a dependent path step reads the payload after its wait: it must be contiguous, not copied "
+                         "here just before the launch")
     dev = st["seeds"].device
     if not st["seeds"].is_cuda:
         raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
@@ -339,10 +373,10 @@ def path_step_cuda(tb, st, *, schedule: str, spp: int, max_depth: int, rr_refere
     t.update(flag=kernel_arg(f"st[{flag!r}]", st[flag], torch.bool, (lanes,), dev, written=True),
              done=kernel_arg("st['done']", st["done"], torch.bool, (), dev, written=True),
              segments=kernel_arg("st['segments']", st["segments"], torch.int64, (), dev, written=True),
-             scratch=_scratch(dev, 1, -(-lanes // TILE_LANES)))
+             scratch=_scratch(dev, 1, lanes))
     regen = None
     if regen_schedule:
-        regen = torch.empty(lanes, dtype=torch.bool, device=dev)
+        regen = kernel_arg("st['regen']", st["regen"], torch.bool, (lanes,), dev, written=True)
         t.update(accum=kernel_arg("st['accum']", st["accum"], torch.float32, (lanes, 3), dev, written=True),
                  sample_i=kernel_arg("st['sample_i']", st["sample_i"], torch.int32, (lanes,), dev, written=True),
                  regen=regen)
@@ -352,20 +386,25 @@ def path_step_cuda(tb, st, *, schedule: str, spp: int, max_depth: int, rr_refere
     if nee:
         nee_t, nee_kind = _nee_args(tb, st, lanes, dev)
         t.update(nee_t, shadow=kernel_arg("st['shadow']", st["shadow"], torch.int64, (), dev, written=True))
+    if not lanes:  # no launch: every lane of none has ended
+        st["done"].fill_(True)
+        return regen
     params = _params(StepParams, t, dict(
         n=lanes, spp=spp, n_pix=0, max_depth=max_depth, rr_reference=int(rr_reference), pixel_map=0, nee=nee_kind,
         schedule=PATH_SCHEDULES.index(schedule), inv_spp=0.0), None)
-    _launch_step(params, 1, dev)
+    _launch_step(params, 1, dev, dependent)
     path_step.launches += 1
     return regen
 
 
-def path_step(tb, st, **kw):
+def path_step(tb, st, dependent=False, **kw):
     """The path step of render_rays or render_pixels_regen (keywords as
     path_step_plain's): the kernel on a CUDA device outside
-    `ops.cuda_build.plain()`, else the plain version."""
-    step = path_step_cuda if on_card(st["seeds"].device) else path_step_plain
-    return step(tb, st, **kw)
+    `ops.cuda_build.plain()` (`dependent` as path_step_cuda takes it),
+    else the plain version."""
+    if on_card(st["seeds"].device):
+        return path_step_cuda(tb, st, dependent=dependent, **kw)
+    return path_step_plain(tb, st, **kw)
 
 
 # Kernel launches since each count was last set to 0.

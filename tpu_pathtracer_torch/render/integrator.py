@@ -439,9 +439,16 @@ def _trace_bounce(scene, cfg, origin, direction, attenuation, radiance, seeds, d
     chunks shaded by the bounce kernel's second entry point), the plain
     version elsewhere (`_bounce_plain`)."""
     hit = intersect_scene(scene, origin, direction, cfg.t_min, cfg.t_max, cfg)
-    if cuda_build.on_card(origin.device) and not _deferred(cfg):
+    if _bounce_on_card(cfg, origin.device):
         return _bounce_kernels(scene, cfg, hit, origin, direction, attenuation, radiance, seeds, depth, spec_last)
     return _bounce_plain(scene, cfg, hit, origin, direction, attenuation, radiance, seeds, depth, spec_last)
+
+
+def _bounce_on_card(cfg, device) -> bool:
+    """Whether `_trace_bounce` runs `_bounce_kernels`: then its last
+    launch is the bounce kernel, or under NEE the NEE kernel, and the path
+    step may run as that launch's programmatic dependent."""
+    return cuda_build.on_card(device) and not _deferred(cfg)
 
 
 def _bounce_kernels(scene, cfg, hit, origin, direction, attenuation, radiance, seeds, depth, spec_last):
@@ -629,9 +636,11 @@ def render_rays(scene: Scene, cfg: RenderConfig, origins, directions, seeds, ret
 
 def _rays_step(scene: Scene, cfg: RenderConfig, st: dict):
     """render_rays' bounce on its buffers `st`: the trace, then the path
-    step (ops/fused_schedule: one kernel launch on the card)."""
+    step (ops/fused_schedule: one kernel launch on the card, a
+    programmatic dependent of the bounce or NEE kernel, the trace's last
+    launch, where the kernels shade)."""
     kw = dict(schedule="rays", spp=1, max_depth=cfg.max_depth, rr_reference=cfg.rr_mode == "reference",
-              nee=cfg.env_importance_sampling)
+              nee=cfg.env_importance_sampling, dependent=_bounce_on_card(cfg, st["seeds"].device))
 
     def step():
         tb = _trace_bounce(scene, cfg, st["origin"], st["direction"], st["attenuation"], st["radiance"],
@@ -668,7 +677,8 @@ def render_pixels_regen(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids, s
         attenuation=torch.ones_like(origin), radiance=torch.zeros_like(origin),
         depth=torch.full((n,), cfg.max_depth, dtype=torch.int32, device=dev),
         sample_i=torch.zeros(n, dtype=torch.int32, device=dev), accum=torch.zeros_like(origin),
-        exhausted=exhausted, done=exhausted.all(), spec_last=_spec_start(cfg, n, dev), **_counters(dev),
+        exhausted=exhausted, regen=exhausted, done=exhausted.all(), spec_last=_spec_start(cfg, n, dev),
+        **_counters(dev),
     )
     plan = _plan(scene, cfg, ("regen", n, spp), fresh, functools.partial(_regen_step, scene, cfg, spp))
     st = plan.state
@@ -687,11 +697,13 @@ def render_pixels_regen(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids, s
 
 def _regen_step(scene: Scene, cfg: RenderConfig, spp: int, st: dict):
     """render_pixels_regen's iteration on its buffers `st`: the trace, the
-    path step (ops/fused_schedule: one kernel launch on the card), then
-    the next sample's camera path on the lanes that just finished one."""
+    path step (ops/fused_schedule: one kernel launch on the card, a
+    programmatic dependent of the trace's last launch as in `_rays_step`,
+    its regen mask the loop's buffer st["regen"]), then the next sample's
+    camera path on the lanes that just finished one."""
     spawn = _spawner(st, cfg, st["subframe"], st["sample_offset"])
     kw = dict(schedule="regen", spp=spp, max_depth=cfg.max_depth, rr_reference=cfg.rr_mode == "reference",
-              nee=cfg.env_importance_sampling)
+              nee=cfg.env_importance_sampling, dependent=_bounce_on_card(cfg, st["seeds"].device))
 
     def step():
         tb = _trace_bounce(scene, cfg, st["origin"], st["direction"], st["attenuation"], st["radiance"],
