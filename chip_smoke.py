@@ -14,6 +14,7 @@ the benchmark entry point.
     python3 chip_smoke.py --ray-order   # phases 1, 2 and 38 only
     python3 chip_smoke.py --nee-camera [--parent DIR]   # phases 1, 2, 36 and 37 only
     python3 chip_smoke.py --path-step [--parent DIR]   # phases 1, 2, 18c, 21 and 22 only
+    python3 chip_smoke.py --nee-quality   # phases 1, 2 and 39 only
 
 --parent DIR (the root of an older checkout, e.g. unpacked with git
 archive under build/) builds its NEE and camera kernels and the launches
@@ -244,7 +245,19 @@ Phases, each printing one line (any failure exits non-zero):
     plain ms, bound (bytes by lane class) and the PyTorch call that
     computes the same function (torch.sort of the int32 key for the
     sort, index_put_, argsort); the sort's and torch.sort's device ms and
-    device kernels a call (the profiler's, warm).
+    device kernels a call (the profiler's, warm);
+39. the NEE quality study (python -m tpu_pathtracer_torch.tools.
+    exp_nee_quality: three spheres under the procedural HDR, brute force,
+    render_rays at 1 spp, depth 6) at its defaults (160x120, 48 frames an
+    arm) with --timed for pure NEE, the defensive mixture, MIS-spec and
+    both, and pure NEE with --denoised: each JSON line beside the card's
+    name and power limit, every number finite, seconds a frame above 0;
+    in each arm the bounce kernel and the path step once an iteration, the
+    camera kernel once a frame, the NEE kernel once an iteration of the
+    NEE arm only, no traversal or other kernel; then the study at 32x24,
+    4 frames, on the card against the CPU, each arm's mean frame SSIM
+    above 0.995 after post_process; --scene monkey refused, naming
+    monkey.obj, before any render.
 Every render runs graphed (render/graph_loop.py: each schedule's
 iteration captured once as a CUDA graph and replayed) but deferred
 shading's, and its phase checks so: a CLI run, a bench preset and the
@@ -352,6 +365,7 @@ try:
     from tpu_pathtracer_torch import oracle
     from tpu_pathtracer_torch.parallel.shard import free_port, initialize_distributed, make_mesh, render_frame_sharded
     from tpu_pathtracer_torch.render.integrator import render_frame
+    from tpu_pathtracer_torch.tools import exp_nee_quality as nee_quality
 
     # the CPU tests' scene writer (it imports neither JAX nor PIL)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
@@ -3805,6 +3819,166 @@ def phase_bench_position(label, scene, cfg, early, late, smi):
           f"render {again['seconds'] / first:.3f}x, bench {bench_late / bench_early:.3f}x | {smi}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 39: the NEE quality study, python -m tpu_pathtracer_torch.tools.exp_nee_quality
+
+# (name, the study's arguments beside --timed at its defaults): the four NEE
+# arms, and pure NEE once more through the denoiser.
+NEE_QUALITY_RUNS = (
+    ("NEE", ()),
+    ("defensive", ("--defensive",)),
+    ("MIS", ("--mis",)),
+    ("defensive MIS", ("--defensive", "--mis")),
+    ("NEE denoised", ("--denoised",)),
+)
+# The study's brute-force renders run no traversal or ray-order kernel: the
+# bounce kernel and the path step once an iteration, the camera kernel once
+# a frame (render_rays' set-up), the NEE kernel once an iteration of the
+# NEE arm.
+NEE_QUALITY_KERNELS = ("kb", "kc", "kp")
+
+
+@contextlib.contextmanager
+def counting_arms():
+    """While open, the launch counts of each arm the NEE quality study
+    renders: the list it yields gets (nee, counts) an arm, the counts set to
+    0 just before the arm's run_arm and read just after."""
+    arms = []
+    run_arm = nee_quality.run_arm
+
+    def counted(scene_name, nee, *rest):
+        out, _, counts = timed(lambda: run_arm(scene_name, nee, *rest))
+        arms.append((bool(nee), counts))
+        return out
+
+    nee_quality.run_arm = counted
+    try:
+        yield arms
+    finally:
+        nee_quality.run_arm = run_arm
+
+
+def nee_quality_line(argv):
+    """The study's main on `argv` in this process: (its JSON line, each
+    arm's (nee, launch counts))."""
+    out = io.StringIO()
+    with counting_arms() as arms, contextlib.redirect_stdout(out):
+        nee_quality.main(list(argv))
+    return json.loads(out.getvalue().strip().splitlines()[-1]), arms
+
+
+def json_numbers(obj):
+    """Every float of a JSON object, nested ones included (booleans are
+    not numbers here)."""
+    if isinstance(obj, dict):
+        for v in obj.values():
+            yield from json_numbers(v)
+    elif isinstance(obj, list):
+        for v in obj:
+            yield from json_numbers(v)
+    elif isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        yield float(obj)
+
+
+def check_nee_quality_arms(label, arms, frames):
+    """Two arms, BSDF then NEE: the bounce kernel and the path step once an
+    iteration (the same count), the camera kernel once a frame, the NEE
+    kernel once an iteration of the NEE arm and never in the BSDF arm, no
+    other kernel."""
+    if [nee for nee, _ in arms] != [False, True]:
+        raise SystemExit(f"[{label}] FAIL: arms rendered {[nee for nee, _ in arms]}, not BSDF then NEE")
+    for nee, counts in arms:
+        want = NEE_QUALITY_KERNELS + (("kn",) if nee else ())
+        extra = {KERNELS[kid][0]: n for kid, n in counts.items() if n and kid not in want}
+        if extra or not counts["kb"] or counts["kp"] != counts["kb"] or counts["kc"] != frames or (
+                counts["kn"] != (counts["kb"] if nee else 0)):
+            raise SystemExit(f"[{label}] FAIL: {'NEE' if nee else 'BSDF'} arm of {frames} frames launched "
+                             f"{launched(counts) or 'nothing'}; other kernels {extra}")
+
+
+def nee_quality_parity(label, tmp, size="32x24", frames=4):
+    """The study's frames on the card against the same run on the CPU: each
+    arm's mean frame after post_process, SSIM above 0.995 (the rule of the
+    GPU-vs-CPU render phases)."""
+    frames_of, lines = {}, {}
+    for dev in ("cuda", "cpu"):
+        path = Path(tmp) / f"nee_quality_{dev}.npz"
+        lines[dev], arms = nee_quality_line(["--size", size, "--frames", str(frames), "--spp", "1",
+                                             "--device", dev, "--save-frames", str(path)])
+        if dev == "cuda":
+            check_nee_quality_arms(label, arms, frames)
+        elif any(n for _, counts in arms for n in counts.values()):
+            raise SystemExit(f"[{label}] FAIL: the CPU run launched {[launched(c) for _, c in arms]}")
+        with np.load(path) as f:
+            frames_of[dev] = {arm: f[arm] for arm in ("bsdf", "nee")}
+    w, h = (int(v) for v in size.split("x"))
+    cfg = nee_quality.build("spheres", False, (w, h), "cpu")[2]
+    parts = []
+    for arm in ("bsdf", "nee"):
+        gpu, cpu = (post_process(torch.as_tensor(frames_of[dev][arm].mean(axis=0)), cfg).numpy()
+                    for dev in ("cuda", "cpu"))
+        score = ssim(gpu, cpu)
+        close = np.isclose(frames_of["cuda"][arm], frames_of["cpu"][arm], rtol=1e-3, atol=1e-4)
+        pixels = float(close.all(axis=-1).mean())
+        if not score > 0.995:
+            raise SystemExit(f"[{label}] FAIL: {arm} arm's mean frame, GPU vs CPU SSIM {score:.6f} <= 0.995; "
+                             f"{1 - pixels:.4%} of the frames' pixels differ beyond rtol 1e-3 / atol 1e-4")
+        parts.append(f"{arm} SSIM {score:.6f}, {pixels:.4%} of pixels within rtol 1e-3/atol 1e-4")
+    var = {dev: (lines[dev]["var_bsdf_1spp"], lines[dev]["var_nee_1spp"]) for dev in lines}
+    print(f"[{label}] {size}, {frames} frames an arm, the card against the CPU: " + "; ".join(parts)
+          + f"; var_bsdf_1spp, var_nee_1spp {var['cuda'][0]:.6f}, {var['cuda'][1]:.6f} on the card, "
+          f"{var['cpu'][0]:.6f}, {var['cpu'][1]:.6f} on the CPU")
+
+
+def phase_nee_quality(label, tmp, smi):
+    """The NEE quality study on the card (tpu_pathtracer_torch/tools/
+    exp_nee_quality.py's main in this process): at its defaults (spheres,
+    160x120, 48 1-spp frames an arm, depth 6, brute force) with --timed for
+    the four NEE arms and once more for pure NEE with --denoised; each JSON
+    line printed beside the card's name and power limit, every number in it
+    finite, both seconds a frame above 0, each arm's launches as
+    check_nee_quality_arms says.  Then the study at 32x24, 4 frames, on the
+    card against the CPU (nee_quality_parity), and --scene monkey refused,
+    naming monkey.obj, without --reference (in a process of its own: a
+    non-zero exit) and with an empty one (naming the path), before any
+    render.  Returns the JSON lines by run."""
+    t0 = time.perf_counter()
+    results = {}
+    for name, extra in NEE_QUALITY_RUNS:
+        t_run = time.perf_counter()
+        line, arms = nee_quality_line(("--timed",) + extra)
+        check_nee_quality_arms(f"{label} {name}", arms, line["frames"])
+        bad = [x for x in json_numbers(line) if not math.isfinite(x)]
+        if bad or not min(line["sec_per_frame"].values()) > 0:
+            raise SystemExit(f"[{label} {name}] FAIL: numbers not finite {bad} or seconds a frame "
+                             f"{line['sec_per_frame']} not above 0")
+        print(f"[{label} {name}] {smi} | {time.perf_counter() - t_run:.1f} s; launches: BSDF arm "
+              f"{launched(arms[0][1])}; NEE arm {launched(arms[1][1])}")
+        print(json.dumps(line), flush=True)
+        results[name] = line
+    nee_quality_parity(f"{label} parity", tmp)
+    proc = subprocess.run([sys.executable, "-m", "tpu_pathtracer_torch.tools.exp_nee_quality", "--scene", "monkey"],
+                          cwd=REPO, capture_output=True, text=True, timeout=300)
+    if proc.returncode == 0 or "monkey.obj" not in proc.stderr:
+        raise SystemExit(f"[{label}] FAIL: --scene monkey without --reference exited {proc.returncode}: "
+                         f"{proc.stderr.strip()[-300:]}")
+    empty = Path(tmp) / "no_reference"
+    empty.mkdir()
+    with counting_arms() as arms:
+        try:
+            nee_quality.main(["--scene", "monkey", "--reference", str(empty)])
+        except SystemExit as e:
+            refused = str(e.code)
+        else:
+            refused = ""
+    if str(empty / "monkey.obj") not in refused or arms:
+        raise SystemExit(f"[{label}] FAIL: --scene monkey --reference {empty}: {refused!r}, {len(arms)} arms rendered")
+    print(f"[{label}] --scene monkey refused before any render: exit {proc.returncode}, "
+          f"{proc.stderr.strip().splitlines()[-1]!r}; with an empty --reference: {refused!r} | "
+          f"{time.perf_counter() - t0:.1f} s | {smi}", flush=True)
+    return results
+
+
 def ray_order_cases(scene, config4):
     """Phase 38's rays: (name, scene, RenderConfig, camera, camera rays,
     any hit) of the headline (`scene`) and config 4 (`config4`)."""
@@ -3850,6 +4024,8 @@ def main() -> int:
                         help="run phases 36 and 37 alone (after the device and build phases)")
     parser.add_argument("--path-step", action="store_true",
                         help="run phases 18c, 21 and 22 alone (after the device and build phases)")
+    parser.add_argument("--nee-quality", action="store_true",
+                        help="run phase 39 alone (after the device and build phases)")
     parser.add_argument("--shard-worker", nargs=3, metavar=("PORT", "RANK", "OUT"), help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.shard_worker:
@@ -3874,6 +4050,10 @@ def main() -> int:
                             ("21b render 1 spp NEE", dict(NEE, samples_per_launch=1, tile_pixels=345_600)),
                             ("22 render one lane per pixel", dict(stream_lanes=2_097_152))):
             phase_render(label, scene, RenderConfig(**{**HEADLINE, **over}), Camera(), 1, smi, warm=False)
+        return 0
+    if args.nee_quality:
+        with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR.parent, prefix="chip_smoke_") as tmp:
+            phase_nee_quality("39 NEE quality", tmp, smi)
         return 0
     cfg = RenderConfig(**HEADLINE)
     cfg_nee = RenderConfig(**{**HEADLINE, **NEE})
@@ -3968,6 +4148,7 @@ def main() -> int:
         ray_order = phase_ray_order("38 ray order", ray_order_cases(scene, config4), smi)
         numbers.update(zip(RAY_ORDER, (ray_order[k] for k in ("sort", "restore", "order"))))
         del config4
+        phase_nee_quality("39 NEE quality", root, smi)
     print("[launches on the CLI renders] " + "; ".join(
         f"{name}: " + ", ".join(f"{KERNELS[kid][0]} {n}" for kid, n in counts.items() if n)
         for name, counts in cli_counts.items()))

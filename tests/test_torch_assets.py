@@ -369,7 +369,8 @@ names = [m.name for m in pkgutil.walk_packages(tpu_pathtracer_torch.__path__, "t
 for n in names:
     importlib.import_module(n)
 assert {"tpu_pathtracer_torch.cli", "tpu_pathtracer_torch.viewer", "tpu_pathtracer_torch.bench",
-        "tpu_pathtracer_torch.tools.compare_images", "tpu_pathtracer_torch.render.graph_loop",
+        "tpu_pathtracer_torch.tools.compare_images", "tpu_pathtracer_torch.tools.exp_nee_quality",
+        "tpu_pathtracer_torch.render.graph_loop",
         "tpu_pathtracer_torch.ops.bounce", "tpu_pathtracer_torch.ops.camera"} <= set(names)
 assert not any(m.split(".")[0] in ("jax", "tpu_pathtracer", "PIL") for m in sys.modules)
 print(len(names))
@@ -377,8 +378,8 @@ print(len(names))
 
 
 def test_port_imports_without_jax_or_pil():
-    """Every module of the port, the cli, viewer, bench and comparison gate
-    included, imports in a process where jax, the JAX package and PIL
+    """Every module of the port, the cli, viewer, bench, comparison gate and
+    NEE quality study included, imports in a process where jax, the JAX package and PIL
     cannot be imported."""
     out = subprocess.run([sys.executable, "-c", _BLOCK], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
