@@ -15,6 +15,7 @@ the benchmark entry point.
     python3 chip_smoke.py --nee-camera [--parent DIR]   # phases 1, 2, 36 and 37 only
     python3 chip_smoke.py --path-step [--parent DIR]   # phases 1, 2, 18c, 21 and 22 only
     python3 chip_smoke.py --nee-quality   # phases 1, 2 and 39 only
+    python3 chip_smoke.py --brute   # phases 1, 2 and 40 only
 
 --parent DIR (the root of an older checkout, e.g. unpacked with git
 archive under build/) builds its NEE and camera kernels and the launches
@@ -179,6 +180,12 @@ Phases, each printing one line (any failure exits non-zero):
      frame at subframe 0 of phase 4, 14, 8, 15 or 20 (whose fused and
      unfused frames render subframe 0) on the same RenderConfig; each
      line names the card and its power limit as nvidia-smi gives them;
+     then config 0, config 3 with NEE and config 1 at their defaults
+     (--accel auto builds no accel for their procedural scenes: brute
+     force), graphed: one JSON line each; the brute-force closest hit once
+     an iteration (and the any hit under NEE), the step and the shading
+     kernels, nothing else, no call of a plain brute-force version, and
+     the device kernels an iteration of the bench's plan;
  33b. phase 4's render timed again (two frames): its s/launch and the
      bench's config 0 line of phase 33 beside phase 4's and phase 4b's,
      which tells an overhead of the bench's own from one of the process's
@@ -252,12 +259,29 @@ Phases, each printing one line (any failure exits non-zero):
     arm) with --timed for pure NEE, the defensive mixture, MIS-spec and
     both, and pure NEE with --denoised: each JSON line beside the card's
     name and power limit, every number finite, seconds a frame above 0;
-    in each arm the bounce kernel and the path step once an iteration, the
-    camera kernel once a frame, the NEE kernel once an iteration of the
-    NEE arm only, no traversal or other kernel; then the study at 32x24,
+    in each arm the brute-force closest hit, the bounce kernel and the
+    path step once an iteration, the camera kernel once a frame, the
+    brute-force any hit and the NEE kernel once an iteration of the NEE
+    arm only, no other kernel; then the study at 32x24,
     4 frames, on the card against the CPU, each arm's mean frame SSIM
     above 0.995 after post_process; --scene monkey refused, naming
-    monkey.obj, before any render.
+    monkey.obj, before any render;
+40. the brute-force kernels (csrc/brute.cu: closest hit with the Hit's
+    finalize, any hit with the active mask): nvcc's -Xptxas -v report and
+    the launch shape; each against its plain version at 0, 1, 19,200,
+    131,072 and 345,600 rays (camera rays and their first bounces; any hit
+    from their first hits, on the headline toward the NEE light draw with
+    its candidate mask) on the headline, config 1's sphere and the hero
+    stand-in (2,214 triangles): the Hit bit for bit, the flags on the
+    active lanes, False off them; exact ties (every triangle twice, in one
+    tile and in two); ms with the L2 flushed and warm, plain ms and the
+    bound at the main path's shapes (the headline's pool, the NEE study's
+    19,200 lanes, config 1's pool; any hit on the headline's and the
+    study's shadow rays); a graphed 320x240, 2-spp frame by brute force
+    without and with NEE, bit-equal between the kernels and
+    ops.cuda_build.plain(), one launch of each kernel an iteration; the
+    CLI without --scene (brute force) at the reference's defaults, two
+    launches with AOVs: its s/launch, no plain brute-force call.
 Every render runs graphed (render/graph_loop.py: each schedule's
 iteration captured once as a CUDA graph and replayed) but deferred
 shading's, and its phase checks so: a CLI run, a bench preset and the
@@ -319,6 +343,7 @@ try:
     from tpu_pathtracer_torch.ops import camera as camera_ops
     from tpu_pathtracer_torch.ops import cuda_build
     from tpu_pathtracer_torch.ops import fused_schedule as fs
+    from tpu_pathtracer_torch.ops import intersect as brute_ops
     from tpu_pathtracer_torch.ops import intersect_cluster as ic
     from tpu_pathtracer_torch.ops import ray_sort
     from tpu_pathtracer_torch.ops import unit_sphere
@@ -377,6 +402,7 @@ except ImportError as e:
 REPO = Path(__file__).resolve().parent
 PALLAS = "tpu_pathtracer/ops/intersect_pallas.py"
 RAY_SORT = "tpu_pathtracer_torch/csrc/ray_sort.cu"
+BRUTE = "tpu_pathtracer_torch/csrc/brute.cu"
 # id: (kernel name, source, TPU kernel replaced, route, any hit, wrapper, kernel entry, plain version)
 KERNELS = {
     "k1": ("cluster_intersect", "tpu_pathtracer_torch/csrc/cluster_intersect.cu", f"{PALLAS}:257", "flat",
@@ -430,6 +456,13 @@ KERNELS = {
            ray_sort.restore_hits_plain),
     "ko": ("packet_order", RAY_SORT, f"{PALLAS}:1512", None, False, ray_sort.packet_order,
            ray_sort.packet_order_cuda, ray_sort.packet_order_plain),
+    # No TPU kernel either: XLA's fusion of the JAX package's brute-force
+    # lax.scan, which scenes without an accel take: intersect_brute with its
+    # finalize_hit, and occluded_brute.
+    "kbc": ("brute_closest", BRUTE, "tpu_pathtracer/ops/intersect.py:117", None, False, brute_ops.intersect_brute,
+            brute_ops.intersect_brute_cuda, brute_ops.intersect_brute_plain),
+    "kba": ("brute_any", BRUTE, "tpu_pathtracer/ops/intersect.py:215", None, True, brute_ops.occluded_brute,
+            brute_ops.occluded_brute_cuda, brute_ops.occluded_brute_plain),
 }
 # The kernels each route's render launches, without and with NEE.
 ROUTE_KERNELS = {"flat": ("k1", "k4"), "hier": ("k2", "k5"), "streamed": ("k3", "k6")}
@@ -2285,20 +2318,21 @@ def phase_viewer(label, paths, smi):
 # ---------------------------------------------------------------------------
 
 # The device functions of the port's kernels (csrc/): the six traversals
-# (one body, with its packet-weight pre-pass), the schedule steps (kernel
+# (one body, with its packet-weight pre-pass) and brute force (closest and
+# any hit, one body), the schedule steps (kernel
 # 7 and the path step), the unit-ball sampler, and the shading kernels:
 # the bounce kernel (and its deferred entry point), the NEE kernel and the
 # camera kernel; and the ray ordering around the traversal.
 RAY_ORDER_FUNCTIONS = ("sort_cluster_kernel", "sort_keys_kernel", "sort_pass_kernel", "packet_order_kernel")
-DEVICE_FUNCTIONS = ("streamed_kernel", "packet_weight_kernel", "fused_step_kernel", "path_step_kernel",
-                    "unit_sphere_kernel", "bounce_kernel", "shade_lanes_kernel", "nee_kernel",
+DEVICE_FUNCTIONS = ("streamed_kernel", "packet_weight_kernel", "brute_kernel", "fused_step_kernel",
+                    "path_step_kernel", "unit_sphere_kernel", "bounce_kernel", "shade_lanes_kernel", "nee_kernel",
                     "camera_kernel") + RAY_ORDER_FUNCTIONS
 # kernel_label's families, for the device time split of --plain-ab; the
 # shading kernels each a family of its own.  A programmatic dependent's
 # traced time (the NEE and camera kernels') begins when its blocks start,
 # while the launch before it still runs, and holds its wait: what it adds
 # is its exposed time (exposed_by_family).
-FAMILIES = {"traversal": ("streamed_kernel", "packet_weight_kernel"),
+FAMILIES = {"traversal": ("streamed_kernel", "packet_weight_kernel", "brute_kernel"),
             "schedule step": ("fused_step_kernel", "path_step_kernel"),
             "sampler": ("unit_sphere_kernel",),
             "bounce": ("bounce_kernel", "shade_lanes_kernel"),
@@ -2312,8 +2346,11 @@ def kernel_label(key):
     None.  streamed_kernel<kAnyHit, kVisit, ...> is told apart by its first
     two template arguments: any hit or closest, and the visit order: flat
     (kernels 1 and 4), per packet (the hier route) or ascending (the
-    streamed route)."""
+    streamed route); brute_kernel<kAnyHit> by its one."""
     name = next((k for k in DEVICE_FUNCTIONS if k in key), None)
+    if name == "brute_kernel":
+        any_hit = key.split("brute_kernel<", 1)[-1].split(">")[0].strip()
+        return f"brute_kernel ({'any' if any_hit in ('true', '(bool)1') else 'closest'} hit)"
     if name == "streamed_kernel":
         any_hit, visit = (a.strip() for a in key.split("streamed_kernel<", 1)[-1].split(",")[:2])
         route = ("flat" if visit.endswith("2") or visit.endswith("kFlat")
@@ -3710,6 +3747,13 @@ BENCH_PRESETS = (
     (("--config", "4", "--nee", "--frames", "2"), "15", ("intersector",)),
     (("--config", "1", "--accel", "cluster", "--frames", "1"), "20", ("fused_schedule",)),
 )
+# The presets at their defaults (--accel auto) on the procedural scenes,
+# which build no accel: brute force.  (name, bench arguments)
+BENCH_BRUTE = (
+    ("config 0", ("--config", "0", "--frames", "2")),
+    ("config 3 NEE", ("--config", "3", "--nee", "--frames", "2")),
+    ("config 1", ("--config", "1", "--frames", "1")),
+)
 
 
 @contextlib.contextmanager
@@ -3795,13 +3839,90 @@ def bench_preset(name, argv, phase, differ, renders, smi):
     return line
 
 
+@contextlib.contextmanager
+def counting_plain_brute():
+    """While open, the calls of the brute-force plain versions
+    (ops/intersect.py) are counted: the Counter it yields, by function."""
+    calls = collections.Counter()
+    real = {name: getattr(brute_ops, name) for name in ("intersect_brute_plain", "occluded_brute_plain")}
+
+    def counted(name):
+        def call(*args, **kw):
+            calls[name] += 1
+            return real[name](*args, **kw)
+        return call
+
+    for name in real:
+        setattr(brute_ops, name, counted(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in real.items():
+            setattr(brute_ops, name, fn)
+
+
+def bench_brute(name, argv, smi):
+    """bench.main on the card at a preset that renders by brute force, in
+    this process, every launch count set to 0 just before and read just
+    after: one JSON line with a positive value, graphed, naming the card
+    and its power limit; the scene without an accel; the closest-hit
+    kernel once an iteration (and the any-hit kernel under NEE), the
+    schedule's step, the shading kernels as check_shading says, no
+    ray-order or other kernel, and no call of a plain brute-force version
+    (counting_plain_brute); the device kernels an iteration of the bench's
+    plan (its step's graph).  Returns (the line, the counts)."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    set_counts_zero()
+    with watching_bench() as (built, frames), counting_plain_brute() as plain_calls, \
+            contextlib.redirect_stdout(out):
+        rc = bench.main(list(argv))
+    torch.cuda.synchronize()
+    counts, seconds = read_counts(), time.perf_counter() - t0
+    lines = out.getvalue().strip().splitlines()
+    if rc != 0 or len(lines) != 1:
+        raise SystemExit(f"[{name}] FAIL: exit {rc}, output {lines}")
+    line = json.loads(lines[0])
+    detail = line["detail"]
+    card = (torch.cuda.get_device_name(0), float(smi.rsplit(",", 1)[1].split()[0]))
+    if not line["value"] > 0 or detail["graphed"] is not True or detail["captures"] != 1:
+        raise SystemExit(f"[{name}] FAIL: {line['value']} Mrays/s, graphed {detail['graphed']}, "
+                         f"{detail['captures']} captures")
+    if (detail["device"], detail["power_limit_w"]) != card:
+        raise SystemExit(f"[{name}] FAIL: the line names {detail['device']}, {detail['power_limit_w']} W")
+    (scene, _, cfg), = built
+    if scene.accel is not None:
+        raise SystemExit(f"[{name}] FAIL: the preset built an accel")
+    nee = cfg.env_importance_sampling
+    iters = sum(int(stats["iters"]) for stats in frames)
+    step = STEP_KERNEL[detail["schedule"]]
+    want = (("kbc", "kba") if nee else ("kbc",)) + (step,)
+    if counts["kbc"] != iters or counts["kba"] != (iters if nee else 0) or counts[step] < iters:
+        raise SystemExit(f"[{name}] FAIL: {launched(counts)} for {iters} iterations")
+    check_shading(name, counts, iters, nee)
+    others = {KERNELS[kid][0]: c for kid, c in counts.items() if kid not in want + shading_kernels(nee) and c}
+    if others or plain_calls:
+        raise SystemExit(f"[{name}] FAIL: other kernels launched {others}; plain brute force called {plain_calls}")
+    plan = next(reversed(graph_loop._plans.values()))
+    per_iter = graph_kernels(plan._step)
+    print(f"[{name}] {lines[0]} | {len(frames)} frames, {iters} iterations, launches {launched(counts)}; "
+          f"no plain brute-force call; {per_iter} device kernels an iteration (the plan's step graph); "
+          f"{seconds:.1f} s | {smi}", flush=True)
+    return line, counts
+
+
 def phase_bench(label, renders, smi):
-    """bench_preset at each of BENCH_PRESETS.  Returns the lines."""
+    """bench_preset at each of BENCH_PRESETS, then bench_brute at each of
+    BENCH_BRUTE.  Returns the cluster presets' lines and {name: launch
+    counts} of the brute-force presets."""
     t_phase = time.perf_counter()
     lines = [bench_preset(f"{label} {' '.join(argv)}", argv, phase, differ, renders, smi)
              for argv, phase, differ in BENCH_PRESETS]
-    print(f"[{label}] {len(BENCH_PRESETS)} presets in {time.perf_counter() - t_phase:.1f} s | {smi}")
-    return lines
+    brute_counts = {name: bench_brute(f"{label} {' '.join(argv)}", argv, smi)[1] for name, argv in BENCH_BRUTE}
+    print(f"[{label}] {len(BENCH_PRESETS) + len(BENCH_BRUTE)} presets in {time.perf_counter() - t_phase:.1f} s "
+          f"| {smi}")
+    return lines, brute_counts
 
 
 def phase_bench_position(label, scene, cfg, early, late, smi):
@@ -3831,11 +3952,12 @@ NEE_QUALITY_RUNS = (
     ("defensive MIS", ("--defensive", "--mis")),
     ("NEE denoised", ("--denoised",)),
 )
-# The study's brute-force renders run no traversal or ray-order kernel: the
+# The study's brute-force renders run the brute-force closest hit, the
 # bounce kernel and the path step once an iteration, the camera kernel once
-# a frame (render_rays' set-up), the NEE kernel once an iteration of the
-# NEE arm.
-NEE_QUALITY_KERNELS = ("kb", "kc", "kp")
+# a frame (render_rays' set-up), the brute-force any hit and the NEE kernel
+# once an iteration of the NEE arm; no cluster traversal or ray-order
+# kernel.
+NEE_QUALITY_KERNELS = ("kbc", "kb", "kc", "kp")
 
 
 @contextlib.contextmanager
@@ -3881,17 +4003,18 @@ def json_numbers(obj):
 
 
 def check_nee_quality_arms(label, arms, frames):
-    """Two arms, BSDF then NEE: the bounce kernel and the path step once an
-    iteration (the same count), the camera kernel once a frame, the NEE
-    kernel once an iteration of the NEE arm and never in the BSDF arm, no
-    other kernel."""
+    """Two arms, BSDF then NEE: the brute-force closest hit, the bounce
+    kernel and the path step once an iteration (the same count), the camera
+    kernel once a frame, the brute-force any hit and the NEE kernel once an
+    iteration of the NEE arm and never in the BSDF arm, no other kernel."""
     if [nee for nee, _ in arms] != [False, True]:
         raise SystemExit(f"[{label}] FAIL: arms rendered {[nee for nee, _ in arms]}, not BSDF then NEE")
     for nee, counts in arms:
-        want = NEE_QUALITY_KERNELS + (("kn",) if nee else ())
+        want = NEE_QUALITY_KERNELS + (("kba", "kn") if nee else ())
         extra = {KERNELS[kid][0]: n for kid, n in counts.items() if n and kid not in want}
-        if extra or not counts["kb"] or counts["kp"] != counts["kb"] or counts["kc"] != frames or (
-                counts["kn"] != (counts["kb"] if nee else 0)):
+        per_iter = counts["kb"] if nee else 0
+        if extra or not counts["kb"] or counts["kp"] != counts["kb"] or counts["kbc"] != counts["kb"] or (
+                counts["kc"] != frames or counts["kn"] != per_iter or counts["kba"] != per_iter):
             raise SystemExit(f"[{label}] FAIL: {'NEE' if nee else 'BSDF'} arm of {frames} frames launched "
                              f"{launched(counts) or 'nothing'}; other kernels {extra}")
 
@@ -3979,6 +4102,296 @@ def phase_nee_quality(label, tmp, smi):
     return results
 
 
+# ---------------------------------------------------------------------------
+# Phase 40: the brute-force kernels (csrc/brute.cu) against their plain
+# versions, timed, and in graphed renders
+
+# Rays a brute-force case runs: none, one, the NEE study's 160x120 lanes,
+# the headline's pool, a 1-spp tile (the plain versions' [N, 256]
+# temporaries keep every plain run at or below it).
+BRUTE_COUNTS = (0, 1, 19_200, 131_072, 345_600)
+STUDY_LANES = 19_200
+# Moller-Trumbore's float operations a test (mt_test in
+# csrc/cluster_common.cuh): 27 multiplications, 18 additions and
+# subtractions (u + v included), one IEEE division; the compares aside.
+MT_TEST_FLOPS = 46
+
+
+def brute_rays(scene, cfg, camera, n):
+    """n rays in lane order as a trace hands them to brute force:
+    ceil(n / 2) camera rays spread over the frame and each one's first
+    bounce (trace_rays, through the scene's accel), the first n."""
+    if n == 0:
+        empty = torch.zeros((0, 3), dtype=torch.float32, device=scene.device)
+        return empty, empty.clone()
+    o, d = trace_rays(scene, cfg, camera, n_cam=-(-n // 2))
+    return o[:n].contiguous(), d[:n].contiguous()
+
+
+def brute_shadow_rays(scene, cfg, camera, n, seed=41):
+    """n any-hit queries in lane order: from the first hit of each of
+    brute_rays' rays toward its NEE light draw, and the mask of the lanes
+    that trace one (shadow_rays' rule), on a scene whose sky has the alias
+    table; elsewhere along the bounce direction, the mask a seeded 60% of
+    the lanes that hit.  Returns (origins, directions, mask)."""
+    o, d = brute_rays(scene, cfg, camera, n)
+    if n == 0:
+        return o, d, torch.zeros(0, dtype=torch.bool, device=o.device)
+    idx = torch.arange(n, dtype=torch.int32, device=o.device)
+    seeds = rng.make_seeds(idx, torch.zeros_like(idx), 1)
+    depth = torch.full((n,), cfg.max_depth, dtype=torch.int32, device=o.device)
+    hit = scene.accel.intersect(scene.vertices, o, d, cfg.t_min, cfg.t_max, cfg)
+    sh = _shade(scene, cfg, hit, o, d, seeds, depth)
+    if cfg.env_importance_sampling:
+        _, env_dir, _, _, _ = _light_sample(scene, cfg, sh, sh["seeds"])
+        cand, _ = _shadow_candidates(hit.hit, sh, env_dir)
+        return sh["new_origin"].contiguous(), env_dir.contiguous(), cand
+    keep = torch.as_tensor(np.random.RandomState(seed).rand(n) < 0.6, device=o.device)
+    return sh["new_origin"].contiguous(), sh["new_direction"].contiguous(), hit.hit & keep
+
+
+def hit_bits_equal(a, b):
+    """Two Hits bit for bit (t, prim, bary, hit)."""
+    return all(same_bits(getattr(a, f), getattr(b, f)) for f in ("t", "prim", "bary", "hit"))
+
+
+def any_hit_tests(vertices, o, d, t_min, t_max, active):
+    """The ray-triangle tests an any-hit scan in triangle order needs on
+    these rays: each active ray up to its first occluding triangle (all T
+    where none does), an inactive ray none."""
+    t_count = vertices.shape[0]
+    first = torch.full((o.shape[0],), t_count, dtype=torch.int64, device=o.device)
+    for base in range(0, t_count, 256):
+        _, _, _, valid = brute_ops._mt_block(o, d, vertices[base:base + 256], t_min, t_max)
+        first = torch.where((first == t_count) & valid.any(dim=1), base + valid.int().argmax(dim=1), first)
+    return int(torch.where(active, torch.clamp(first + 1, max=t_count), 0).sum())
+
+
+def brute_bound(vertices, o, d, t_min, t_max, active):
+    """(bound ms, "bytes" or "operations", tests, bytes) of one call:
+    closest hit (active None) N x T tests, any hit any_hit_tests; bytes
+    the rays (24 B), the triangles (36 B), the mask and the outputs (17 B
+    a ray closest, 1 any) once each."""
+    n, t_count = o.shape[0], vertices.shape[0]
+    if active is None:
+        tests, out = n * t_count, 17 * n
+    else:
+        tests, out = any_hit_tests(vertices, o, d, t_min, t_max, active), 2 * n
+    n_bytes = 24 * n + 36 * t_count + out
+    t_ops, t_bytes = tests * MT_TEST_FLOPS / PEAK_FP32 * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", tests, n_bytes
+
+
+def brute_parity(label, cases):
+    """Each kernel against its plain version on every case's scene at each
+    of BRUTE_COUNTS: the Hit bit for bit, the flags on the active lanes
+    and False off them.  Returns a line's text."""
+    parts = []
+    for name, scene, cfg, camera in cases:
+        v, counts = scene.vertices, []
+        for n in BRUTE_COUNTS:
+            o, d = brute_rays(scene, cfg, camera, n)
+            got = brute_ops.intersect_brute_cuda(v, o, d, cfg.t_min, cfg.t_max)
+            want = brute_ops.intersect_brute_plain(v, o, d, cfg.t_min, cfg.t_max, cfg.intersect_block)
+            so, sd, active = brute_shadow_rays(scene, cfg, camera, n)
+            occ = brute_ops.occluded_brute_cuda(v, so, sd, cfg.t_min, cfg.t_max, active)
+            occ_p = brute_ops.occluded_brute_plain(v, so, sd, cfg.t_min, cfg.t_max, cfg.intersect_block)
+            torch.cuda.synchronize()
+            if not hit_bits_equal(got, want):
+                raise SystemExit(f"[{label}] FAIL: {name}, {n} rays: the closest-hit kernel and its plain version "
+                                 f"differ")
+            if not torch.equal(occ[active], occ_p[active]) or bool(occ[~active].any()):
+                raise SystemExit(f"[{label}] FAIL: {name}, {n} rays: the any-hit kernel's flags differ from the plain "
+                                 f"version's on {int((occ != occ_p)[active].sum())} active lanes, or an inactive lane "
+                                 f"is True")
+            counts.append(f"{n}: {int(got.hit.sum())} hits, {int(occ.sum())} of {int(active.sum())} occluded")
+            del o, d, got, want, so, sd, occ, occ_p
+        parts.append(f"{name} ({v.shape[0]} triangles) " + ", ".join(counts))
+    return "; ".join(parts)
+
+
+def brute_ties(label, scene, cfg, camera):
+    """Exact ties: the headline's triangles twice, each at 2k and 2k + 1
+    (one tile of the kernel; different threads of a ray where it has
+    several) and at k and k + T (different tiles), at the study's and the
+    headline's ray counts: each kernel bit-equal to its plain version, every
+    hit on the lower copy, with the single copy's t and bary."""
+    v = scene.vertices
+    parts = []
+    layouts = (("one tile", torch.repeat_interleave(v, 2, dim=0), lambda p: torch.where(p >= 0, 2 * p, p)),
+               ("two tiles", torch.cat([v, v]), lambda p: p))
+    for layout, v2, lower in layouts:
+        for n in (STUDY_LANES, 131_072):
+            o, d = brute_rays(scene, cfg, camera, n)
+            single = brute_ops.intersect_brute_cuda(v, o, d, cfg.t_min, cfg.t_max)
+            got = brute_ops.intersect_brute_cuda(v2, o, d, cfg.t_min, cfg.t_max)
+            want = brute_ops.intersect_brute_plain(v2, o, d, cfg.t_min, cfg.t_max, cfg.intersect_block)
+            occ = brute_ops.occluded_brute_cuda(v2, o, d, cfg.t_min, cfg.t_max)
+            occ_p = brute_ops.occluded_brute_plain(v2, o, d, cfg.t_min, cfg.t_max, cfg.intersect_block)
+            torch.cuda.synchronize()
+            ok = (hit_bits_equal(got, want) and torch.equal(got.prim, lower(single.prim))
+                  and all(same_bits(getattr(got, f), getattr(single, f)) for f in ("t", "bary", "hit"))
+                  and torch.equal(occ, occ_p))
+            if not ok:
+                raise SystemExit(f"[{label}] FAIL: ties ({layout}, {n} rays): kernel {hit_bits_equal(got, want)}, "
+                                 f"lower copy {torch.equal(got.prim, lower(single.prim))}, any hit "
+                                 f"{torch.equal(occ, occ_p)}")
+            parts.append(f"{layout} at {n}: {int(got.hit.sum())} hits on the lower copy")
+    return "; ".join(parts)
+
+
+def brute_timed(label, cases):
+    """Each kernel at the main path's shapes: ms with the L2 flushed before
+    each launch and warm (back to back), the plain version's ms, the bound
+    (brute_bound).  Returns {kind: numbers of its main-path case}, the
+    first case of each kind, and a line's text."""
+    numbers, parts = {}, []
+    for what, scene, cfg, camera, n, any_hit in cases:
+        v = scene.vertices
+        if any_hit:
+            o, d, active = brute_shadow_rays(scene, cfg, camera, n)
+        else:
+            (o, d), active = brute_rays(scene, cfg, camera, n), None
+
+        def kernel(_=None):
+            if any_hit:
+                return brute_ops.occluded_brute_cuda(v, o, d, cfg.t_min, cfg.t_max, active)
+            return brute_ops.intersect_brute_cuda(v, o, d, cfg.t_min, cfg.t_max)
+
+        def plain():
+            fn = brute_ops.occluded_brute_plain if any_hit else brute_ops.intersect_brute_plain
+            return fn(v, o, d, cfg.t_min, cfg.t_max, cfg.intersect_block)
+
+        cold = _time_cold(kernel, [None] * 11)
+        warm = _time_over(kernel, [None] * 21, device_only=True)
+        plain_ms = _time_ms(plain, 2)
+        bound_ms, bound_by, tests, n_bytes = brute_bound(v, o, d, cfg.t_min, cfg.t_max, active)
+        shape = brute_ops.brute_launch_shape(n, any_hit)
+        kind = "any" if any_hit else "closest"
+        if kind not in numbers:
+            numbers[kind] = dict(max_abs_err=0.0, ms=cold, warm_ms=warm, plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by, library_ms=None, rays=n, triangles=v.shape[0])
+        parts.append(f"{what}: {n} rays x {v.shape[0]} triangles, {shape['threads_per_ray']} threads a ray, "
+                     f"{shape['blocks']} blocks: kernel {cold:.4f} ms L2-flushed, {warm:.4f} warm; plain "
+                     f"{plain_ms:.4f}; bound {bound_ms:.4f} by {bound_by} ({tests} tests, {n_bytes} B); "
+                     f"roofline share {bound_ms / warm:.1%} warm")
+        del o, d
+    return numbers, "; ".join(parts)
+
+
+def brute_render_ab(label, scene, camera, smi):
+    """A graphed 320x240, 2-spp frame of the headline's scene without its
+    accel (brute force), without and with NEE, with the kernels and under
+    ops.cuda_build.plain(): images, iterations, segments and shadow
+    segments bit-equal; the kernels' arm one closest-hit launch an
+    iteration (and one any-hit launch under NEE), the plain arm none; the
+    programmatic edges of a step's graph (step_dependents); device kernels
+    an iteration of each arm (graph_kernels of the plan's step).  Returns
+    a line's text."""
+    parts = []
+    for nee in (False, True):
+        cfg = RenderConfig(**{**HEADLINE, **(NEE if nee else {}), "width": 320, "height": 240,
+                              "samples_per_launch": 2, "intersector": "auto"})
+        cam = camera_arrays(camera, cfg, "cuda")
+        runs = {}
+        for arm in ("kernels", "plain"):
+            with cuda_build.plain() if arm == "plain" else contextlib.nullcontext():
+                render_frame_stats(scene, cam, cfg, 0)  # captures the plan's graph
+                (img, stats), seconds, counts = timed(lambda: render_frame_stats(scene, cam, cfg, 1))
+                plan = next(reversed(graph_loop._plans.values()))
+                per_iter = graph_kernels(plan._step)
+                edges = step_dependents(label, stats["schedule"], nee) if arm == "kernels" else None
+            runs[arm] = (img, stats, counts, per_iter, seconds, edges)
+        (img, st, counts, k_iter, k_s, edges), (img_p, st_p, counts_p, p_iter, p_s, _) = runs["kernels"], runs["plain"]
+        iters = int(st["iters"])
+        if not same_bits(img, img_p) or any(int(st[k]) != int(st_p[k]) for k in ("iters", "segments",
+                                                                                  "shadow_segments")):
+            raise SystemExit(f"[{label}] FAIL: {'NEE ' if nee else ''}render with the kernels differs from plain()")
+        if not st["graphed"] or not st_p["graphed"]:
+            raise SystemExit(f"[{label}] FAIL: a render ran eagerly")
+        if (counts["kbc"], counts["kba"]) != (iters, iters if nee else 0) or counts_p["kbc"] or counts_p["kba"]:
+            raise SystemExit(f"[{label}] FAIL: brute launches {counts['kbc']}, {counts['kba']} for {iters} "
+                             f"iterations; plain arm {counts_p['kbc']}, {counts_p['kba']}")
+        if not float(img.max()) > 0 or not bool(torch.isfinite(img).all()):
+            raise SystemExit(f"[{label}] FAIL: the frame is black or not finite")
+        parts.append(f"{'NEE' if nee else 'no NEE'} ({st['schedule']}, {iters} iterations, {int(st['segments'])} "
+                     f"segments, {int(st['shadow_segments'])} shadow): bit-equal; kernels {k_s:.4f} s, "
+                     f"{k_iter} device kernels an iteration, launches {launched(counts)}, programmatic edges into "
+                     f"{edges}; plain() {p_s:.4f} s, {p_iter} device kernels an iteration")
+    return "; ".join(parts)
+
+
+def brute_cli(label, root):
+    """The CLI without --scene (the procedural three spheres: brute force)
+    at the reference's defaults, 1600x1200, depth 20, DOF, in two launches
+    of 10 spp, with AOVs: the brute-force closest hit once an iteration and
+    once for the AOV pass, the step and the shading kernels, nothing else,
+    and no call of a plain brute-force version.  Returns (a line's text,
+    the launch counts)."""
+    out, prefix = root / "cli_brute.png", root / "cli_brute"
+    with counting_plain_brute() as calls:
+        r, counts, log = cli_launches(label, ["--file", out, "--spp", "20", "--aov-prefix", prefix])
+    cfg = r.cfg
+    if r.scene.accel is not None or cfg.intersector != "brute" or r.subframe != 2 or len(log) != 2 or (
+            cfg.width, cfg.height, cfg.samples_per_launch, cfg.max_depth, cfg.dof) != (1600, 1200, 10, 20, True):
+        raise SystemExit(f"[{label}] FAIL: not brute force at the reference's defaults: {cfg}, {len(log)} launches")
+    iters = sum(e["iters"] for e in log)
+    step = STEP_KERNEL[log[0]["schedule"]]
+    if counts["kbc"] != iters + 1 or counts["kba"] or counts[step] < iters or calls:
+        raise SystemExit(f"[{label}] FAIL: {launched(counts)} for {iters} iterations and an AOV pass; plain "
+                         f"brute force called {dict(calls)}")
+    check_shading(label, counts, iters, False)
+    want = ("kbc", step) + shading_kernels(False)
+    others = {KERNELS[kid][0]: c for kid, c in counts.items() if c and kid not in want}
+    img = load_png(str(out))
+    if others or img.shape != (1200, 1600, 3) or not img.mean() > 0:
+        raise SystemExit(f"[{label}] FAIL: other kernels {others}; output {img.shape}, mean {img.mean()}")
+    return (f"CLI without --scene ({r.scene.num_triangles} triangles, {log[0]['schedule']}, 1600x1200 10 spp depth "
+            f"20 DOF, 2 launches and the AOV pass): s/launch {' '.join(f'{t:.4f}' for t in r.frame_times)}, "
+            f"{iters} iterations, launches {launched(counts)}, no plain brute-force call"), counts
+
+
+def phase_brute(label, scene, config1, hero, root, smi):
+    """The brute-force kernels (csrc/brute.cu): nvcc's -Xptxas -v report and
+    the launch shape at each ray count; brute_parity on the headline
+    (`scene`: (scene, cfg, camera), its sky with the alias table, under
+    NEE), config 1's sphere and the hero stand-in (2,214 triangles);
+    brute_ties; brute_timed at the main path's shapes (the headline's pool
+    and the NEE study's lanes, config 1's pool; any hit on the headline's
+    and the study's shadow rays); brute_render_ab; brute_cli, writing under
+    `root`.  Returns ({"kbc": ..., "kba": ...}, the kernels line's
+    numbers; the CLI's launch counts)."""
+    t0 = time.perf_counter()
+    report = cuda_build.ptxas_report(cuda_build.library_path("brute.cu").with_suffix(".log").read_text())
+    usage = "; ".join(f"{k}: {v['registers']} registers, {v.get('spill_stores', 0)} B spill stores, "
+                      f"{v.get('spill_loads', 0)} B spill loads, {v.get('stack', 0)} B stack"
+                      for k, v in report.items() if "brute_kernel" in k)
+    shapes = ", ".join(f"{n}: " + " / ".join(
+        f"{s['threads_per_ray']} a ray, {s['blocks']} blocks" for s in
+        (brute_ops.brute_launch_shape(n, any_hit) for any_hit in (False, True))) for n in BRUTE_COUNTS)
+    any_shape = brute_ops.brute_launch_shape(1, False)
+    print(f"[{label} shape] ptxas: {usage}; blocks of {any_shape['threads']}, {any_shape['registers']} registers, "
+          f"{any_shape['resident_blocks']} blocks an SM; rays: closest / any hit {shapes}", flush=True)
+    headline, cfg_nee, camera = scene
+    cases = (("headline", headline, cfg_nee, camera), ("config 1", *config1), ("hero", *hero))
+    print(f"[{label} parity] bit-equal at {BRUTE_COUNTS} rays: {brute_parity(label, cases)}", flush=True)
+    print(f"[{label} ties] {brute_ties(label, headline, cfg_nee, camera)}", flush=True)
+    cfg = cfg_nee.replace(env_importance_sampling=False, rr_mode="reference")
+    numbers, text = brute_timed(label, (
+        ("closest, headline pool", headline, cfg, camera, 131_072, False),
+        ("closest, NEE study", headline, cfg, camera, STUDY_LANES, False),
+        ("closest, config 1 pool", *config1, CONFIG1_POOL, False),
+        ("any, headline NEE", headline, cfg_nee, camera, 131_072, True),
+        ("any, NEE study", headline, cfg_nee, camera, STUDY_LANES, True),
+    ))
+    print(f"[{label} timed] {text} | {smi}", flush=True)
+    text = brute_render_ab(label, headline.replace(accel=None), camera, smi)
+    print(f"[{label} renders] {text} | {smi}", flush=True)
+    text, cli_counts = brute_cli(label, root)
+    print(f"[{label} CLI] {text} | {time.perf_counter() - t0:.1f} s | {smi}", flush=True)
+    return {"kbc": numbers["closest"], "kba": numbers["any"]}, cli_counts
+
+
 def ray_order_cases(scene, config4):
     """Phase 38's rays: (name, scene, RenderConfig, camera, camera rays,
     any hit) of the headline (`scene`) and config 4 (`config4`)."""
@@ -4006,6 +4419,11 @@ def nee_cases(scene, config4):
              CAMERA_RAYS, False))
 
 
+def brute_config1():
+    """Phase 40's config 1 case: (its sphere, RenderConfig, camera)."""
+    return config1_scene("cuda"), RenderConfig(**CONFIG1), Camera()
+
+
 def camera_pools(scene):
     """Phase 37's pools: the headline's 131,072 lanes and BASELINE config
     1's 16,384, mid-render."""
@@ -4026,6 +4444,8 @@ def main() -> int:
                         help="run phases 18c, 21 and 22 alone (after the device and build phases)")
     parser.add_argument("--nee-quality", action="store_true",
                         help="run phase 39 alone (after the device and build phases)")
+    parser.add_argument("--brute", action="store_true",
+                        help="run phase 40 alone (after the device and build phases)")
     parser.add_argument("--shard-worker", nargs=3, metavar=("PORT", "RANK", "OUT"), help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.shard_worker:
@@ -4054,6 +4474,13 @@ def main() -> int:
     if args.nee_quality:
         with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR.parent, prefix="chip_smoke_") as tmp:
             phase_nee_quality("39 NEE quality", tmp, smi)
+        return 0
+    if args.brute:
+        with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR.parent, prefix="chip_smoke_") as tmp:
+            hero = write_hero(Path(tmp))
+            hero_scene, hero_camera, hero_cfg = load_scene_file(str(hero), device="cuda", cache_dir=f"{tmp}/cache")
+            phase_brute("40 brute force", (headline_scene("cuda"), RenderConfig(**{**HEADLINE, **NEE}), Camera()),
+                        brute_config1(), (hero_scene, hero_cfg, hero_camera), Path(tmp), smi)
         return 0
     cfg = RenderConfig(**HEADLINE)
     cfg_nee = RenderConfig(**{**HEADLINE, **NEE})
@@ -4131,7 +4558,11 @@ def main() -> int:
         phase_shard_two("30 shard two ranks", root, paths, smi)
         phase_deferred("31 deferred", hero, root, smi)
         phase_oracle("32 oracle", smi)
-        late = phase_bench("33 bench", renders, smi)[0]
+        bench_lines, brute_counts = phase_bench("33 bench", renders, smi)
+        late = bench_lines[0]
+        # the brute-force kernels' main path: the bench's config 0 and config 3
+        # with NEE at their defaults
+        launches["kbc"], launches["kba"] = brute_counts["config 0"]["kbc"], brute_counts["config 3 NEE"]["kba"]
         phase_bench_position("33b bench position", scene, cfg, early, late, smi)
         plain_counts = phase_graph_ab("34 eager vs graphed", scene, hero, root, smi)
         plain_arm = {"ks": plain_counts["random_in_unit_sphere"]}  # the sampler runs on the plain versions' path
@@ -4149,6 +4580,9 @@ def main() -> int:
         numbers.update(zip(RAY_ORDER, (ray_order[k] for k in ("sort", "restore", "order"))))
         del config4
         phase_nee_quality("39 NEE quality", root, smi)
+        brute_numbers, brute_cli_counts = phase_brute("40 brute force", (scene, cfg_nee, Camera()), brute_config1(),
+                                                      (hero_scene, hero_cfg, hero_camera), root, smi)
+        numbers.update(brute_numbers)
     print("[launches on the CLI renders] " + "; ".join(
         f"{name}: " + ", ".join(f"{KERNELS[kid][0]} {n}" for kid, n in counts.items() if n)
         for name, counts in cli_counts.items()))
@@ -4160,7 +4594,11 @@ def main() -> int:
     # kernel 7 also gives its launches in phase 14's NEE render and its
     # numbers off the fused stream's envelope (phase 18b) as `widened`.
     # the ray-order kernels also give their launches in phase 14's NEE render.
+    # The brute-force kernels also give their launches on the bench's other
+    # brute-force presets.
     extra = {"ks": dict(plain_arm_launches=plain_arm["ks"]),
+             "kbc": dict(launches_config3_nee=brute_counts["config 3 NEE"]["kbc"],
+                         launches_config1=brute_counts["config 1"]["kbc"], launches_cli=brute_cli_counts["kbc"]),
              "k7": dict(launches_nee=renders["14"]["counts"]["k7"], widened=stream_steps),
              **{k: dict(launches_nee=renders["14"]["counts"][k]) for k in RAY_ORDER}}
     print(json.dumps({"kernels": [

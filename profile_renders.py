@@ -4,7 +4,11 @@ headline, config 4 and the 200k scene, without and with NEE, and the
 headline and BASELINE config 1 (512x512, 64 spp) with the schedule's tail
 fused (kernel 7) and unfused, 1 spp in six tiles (render_rays), without
 and with NEE, one lane a pixel (render_pixels_regen, 2,097,152 stream
-lanes), and chip_smoke.py's hero stand-in at its scene file's config.
+lanes), chip_smoke.py's hero stand-in at its scene file's config, and
+brute force (the brute-force kernels, csrc/brute.cu): the headline's
+scene and config 1's without an accel at the bench's configs 0, 3 (NEE)
+and 1 with --accel auto, and the NEE quality study's frame at its
+defaults, both arms.
 
     python3 profile_renders.py [--only NAME ...] [--out DIR] [--wall]
     python3 profile_renders.py --ab NAME ... [--frames N]
@@ -168,6 +172,15 @@ def renders():
         # the CLI's hero stand-in (chip_smoke's phase 25) at its scene file's config: camera and
         # config are the file's (None here)
         "hero": (hero_scene, None, None),
+        # brute force: the bench's configs 0, 3 (NEE) and 1 at --accel auto, which builds no accel for
+        # their procedural scenes; the NEE study's frame, each arm
+        "brute": (lambda: headline_scene("cuda").replace(accel=None), Camera(), {**cfg, "intersector": "auto"}),
+        "brute_nee": (lambda: headline_scene("cuda").replace(accel=None), Camera(),
+                      {**cfg_nee, "intersector": "auto"}),
+        "config1_brute": (lambda: config1_scene("cuda").replace(accel=None), Camera(),
+                          {**cfg1, "intersector": "auto"}),
+        "study": (lambda: study_frame(False), None, None),
+        "study_nee": (lambda: study_frame(True), None, None),
     }
 
 
@@ -177,6 +190,16 @@ def hero_scene():
     root = Path("build", "hero")
     root.mkdir(parents=True, exist_ok=True)
     return load_scene_file(str(write_hero(root)), device="cuda", cache_dir=str(root / "cache"))
+
+
+def study_frame(nee):
+    """The NEE quality study's spheres frame at its defaults (160x120, 1
+    spp, depth 6, brute force: tools/exp_nee_quality.py's build), BSDF or
+    NEE: (scene, camera, config)."""
+    from tpu_pathtracer_torch.tools import exp_nee_quality as study
+
+    scene, _, cfg = study.build("spheres", nee, (160, 120), "cuda")
+    return scene, Camera(eye=(0, 2, 8), lookat=(0, 1, 0)).with_aspect(160, 120), cfg
 
 
 def setup(make, camera, cfg_kw):

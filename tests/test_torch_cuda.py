@@ -2046,15 +2046,16 @@ def replays_differ(pair, check) -> int:
     return int(bad)
 
 
-@pytest.mark.parametrize("which", ["nee", "camera"])
+@pytest.mark.parametrize("which", ["nee", "camera", "nee_brute"])
 def test_dependent_kernel_bit_equal_through_replays(cuda, which):
     """Each dependent kernel behind the launch it depends on, captured as
     the graphed loop captures them and replayed 1,000 times: every replay
     bit-equal to the plain version.  Behind config 4's two-level any-hit
     traversal the NEE kernel's blocks wait ~2 ms, so a read of the flags
-    before its wait would show."""
-    if which == "nee":
-        pair, radiance, want_rad, want_spec, _ = nee_pair(str(cuda))
+    before its wait would show; "nee_brute": behind the brute-force any
+    hit on a scene without an accel."""
+    if which in ("nee", "nee_brute"):
+        pair, radiance, want_rad, want_spec, _ = (nee_pair if which == "nee" else brute_nee_pair)(str(cuda))
         spec = pair()
         torch.cuda.synchronize()
         assert same_bits(radiance, want_rad) and torch.equal(spec, want_spec)
@@ -2067,14 +2068,201 @@ def test_dependent_kernel_bit_equal_through_replays(cuda, which):
         assert replays_differ(pair, lambda _: [(s[k], want[k]) for k in want]) == 0
 
 
-@pytest.mark.parametrize("which", ["nee", "camera"])
+@pytest.mark.parametrize("which", ["nee", "camera", "nee_brute"])
 def test_dependent_kernel_captured_edge_is_programmatic(cuda, which):
     """A stream capture of each pair records the edge into the dependent
     kernel (the graph's last node, of its launch's shape) as a
     programmatic dependency, read through the driver API."""
     from chip_smoke import captured_edges
 
-    pair, *_, shape = (nee_pair if which == "nee" else camera_pair)(str(cuda))
+    pair, *_, shape = {"nee": nee_pair, "camera": camera_pair, "nee_brute": brute_nee_pair}[which](str(cuda))
     into = [e for e in captured_edges(pair) if e["sink"]]
     assert len(into) == 1 and into[0]["to"] == shape and into[0]["programmatic"]
     assert sum(e["programmatic"] for e in captured_edges(pair)) == 1
+
+
+# ---------------------------------------------------------------------------
+# Brute force (csrc/brute.cu) against its plain versions (ops/intersect.py),
+# bit for bit
+# ---------------------------------------------------------------------------
+
+BRUTE_COUNTS = (0, 1, 19_200, 131_072, 345_600)  # chip_smoke.py phase 40's
+
+
+@pytest.fixture(scope="module")
+def brute_scenes(tmp_path_factory):
+    """Phase 40's scenes on the card, each (scene with its accel, which
+    makes the rays; cfg; camera): the headline (3,074 triangles, its sky
+    with the alias table, NEE), config 1's sphere (4,098) and the hero
+    stand-in (2,214, written as chip_smoke.py writes it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import chip_smoke as cs
+    from tpu_pathtracer_torch.scene.scenefile import load_scene_file
+
+    root = tmp_path_factory.mktemp("brute")
+    hero, hero_camera, hero_cfg = load_scene_file(str(cs.write_hero(root)), device="cuda",
+                                                  cache_dir=str(root / "cache"))
+    return {"headline": (cs.headline_scene("cuda"), RenderConfig(**{**cs.HEADLINE, **cs.NEE}), Camera()),
+            "config1": cs.brute_config1(), "hero": (hero, hero_cfg, hero_camera)}
+
+
+@pytest.mark.parametrize("n", BRUTE_COUNTS)
+@pytest.mark.parametrize("name", ["headline", "config1", "hero"])
+def test_brute_kernels_match_plain(cuda, brute_scenes, name, n):
+    """The closest hit's Hit bit for bit (its finalize included); the any
+    hit's flags equal on the active lanes and False off them; one launch
+    counted a call (none at 0 rays)."""
+    import chip_smoke as cs
+    from tpu_pathtracer_torch.ops import intersect as isect
+
+    scene, cfg, camera = brute_scenes[name]
+    v = scene.vertices
+    o, d = cs.brute_rays(scene, cfg, camera, n)
+    before = isect.intersect_brute.launches, isect.occluded_brute.launches
+    got = isect.intersect_brute(v, o, d, cfg.t_min, cfg.t_max, cfg.intersect_block)
+    want = isect.intersect_brute_plain(v, o, d, cfg.t_min, cfg.t_max, cfg.intersect_block)
+    so, sd, active = cs.brute_shadow_rays(scene, cfg, camera, n)
+    occ = isect.occluded_brute(v, so, sd, cfg.t_min, cfg.t_max, cfg.intersect_block, active=active)
+    occ_p = isect.occluded_brute_plain(v, so, sd, cfg.t_min, cfg.t_max, cfg.intersect_block)
+    torch.cuda.synchronize()
+    assert cs.hit_bits_equal(got, want)
+    assert torch.equal(occ[active], occ_p[active]) and not bool(occ[~active].any())
+    launched = int(n > 0)
+    assert (isect.intersect_brute.launches, isect.occluded_brute.launches) == (before[0] + launched,
+                                                                              before[1] + launched)
+    if n >= 19_200:
+        assert 0.2 < float(got.hit.float().mean()) and 0 < int(occ.sum()) < int(active.sum())
+
+
+def test_brute_ties_match_plain(cuda, brute_scenes):
+    """Every headline triangle twice, in one tile and in two: each kernel
+    bit-equal to its plain version, every hit on the lower copy
+    (chip_smoke.py's brute_ties)."""
+    import chip_smoke as cs
+
+    scene, cfg, camera = brute_scenes["headline"]
+    assert "lower copy" in cs.brute_ties("test", scene, cfg, camera)
+
+
+def test_brute_wrappers_never_run_plain_on_card(cuda, brute_scenes):
+    """On the card outside plain() the dispatch launches the kernels and
+    never calls a plain version; under plain() it calls them and launches
+    nothing."""
+    import chip_smoke as cs
+    from tpu_pathtracer_torch.ops import intersect as isect
+
+    scene, cfg, camera = brute_scenes["headline"]
+    o, d = cs.brute_rays(scene, cfg, camera, 1000)
+    bare, brute_cfg = scene.replace(accel=None), cfg.replace(intersector="auto")
+    for arm in ("kernels", "plain"):
+        before = isect.intersect_brute.launches, isect.occluded_brute.launches
+        with cs.counting_plain_brute() as calls, (cuda_build.plain() if arm == "plain" else contextlib.nullcontext()):
+            isect.intersect_scene(bare, o, d, cfg.t_min, cfg.t_max, brute_cfg)
+            isect.occluded_scene(bare, o, d, cfg.t_min, cfg.t_max, brute_cfg,
+                                 active=torch.ones(o.shape[0], dtype=torch.bool, device=o.device))
+        added = (isect.intersect_brute.launches - before[0], isect.occluded_brute.launches - before[1])
+        if arm == "kernels":
+            assert added == (1, 1) and not calls
+        else:
+            assert added == (0, 0) and calls == {"intersect_brute_plain": 1, "occluded_brute_plain": 1}
+
+
+@pytest.mark.parametrize("nee", [False, True], ids=["plain", "nee"])
+@pytest.mark.parametrize("which", ["stream_fused", "stream", "regen", "rays"])
+def test_brute_render_graphed_equals_eager_and_plain(cuda, monkeypatch, which, nee):
+    """Three spheres without an accel (brute force) on each schedule,
+    graphed (its replays under torch.cuda.set_sync_debug_mode("error")),
+    eager, and graphed under ops.cuda_build.plain(): images, iterations,
+    segments and shadow segments bit-equal; with the kernels one
+    closest-hit launch an iteration (and one any-hit launch under NEE) and
+    no plain brute-force call, under plain() no launch."""
+    import chip_smoke as cs
+
+    overrides, pixels = GRAPH_SCHEDULES[which]
+    cfg = RenderConfig(**{**GRAPH_BASE, **(GRAPH_NEE if nee else {}), **overrides, "intersector": "auto"})
+    scene = graph_scene("flat", nee, cuda, monkeypatch).replace(accel=None)
+    real_step = graph_loop.Plan.step
+
+    def checked_step(plan):
+        torch.cuda.set_sync_debug_mode("error" if plan.graph is not None else 0)
+        try:
+            real_step(plan)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    monkeypatch.setattr(graph_loop.Plan, "step", checked_step)
+    graph_loop.clear()
+    runs = {}
+    for arm in ("graphed", "eager", "plain"):
+        with cs.counting_plain_brute() as calls, (cuda_build.plain() if arm == "plain" else contextlib.nullcontext()), \
+                (graph_loop.eager() if arm == "eager" else contextlib.nullcontext()):
+            runs[arm] = graph_frames(scene, cfg, pixels, GRAPH_FRAMES[:2]), dict(calls)
+    graph_loop.clear()
+    for arm, (frames, calls) in runs.items():
+        for (img, st, counts), (img_r, st_r, _) in zip(frames, runs["plain"][0]):
+            assert same_bits(img, img_r), arm
+            for k in ("iters", "segments", "shadow_segments"):
+                assert int(st[k]) == int(st_r[k]), (arm, k)
+            iters = int(st["iters"])
+            brute = (counts["intersect_brute"], counts["occluded_brute"])
+            if arm == "plain":
+                assert brute == (0, 0) and calls, arm
+            else:
+                assert st["graphed"] == (arm == "graphed")
+                assert brute == (iters, iters if nee else 0) and not calls, arm
+        assert float(frames[0][0].max()) > 0
+
+
+@functools.lru_cache(maxsize=None)
+def brute_nee_pair(device):
+    """nee_pair on a scene without an accel: the brute-force any hit of
+    the headline's shadow rays (65,536 camera rays of 1080p and their
+    closest hits by brute force) and the NEE kernel as its programmatic
+    dependent, as _bounce_kernels launches them; returns as nee_pair."""
+    from tpu_pathtracer_torch.ops import camera as camera_ops
+    from tpu_pathtracer_torch.ops import intersect as isect
+    from tpu_pathtracer_torch.render.envmap import with_importance_sampling
+    from tpu_pathtracer_torch.scene.scene import make_env
+    from tpu_pathtracer_torch.utils.image import procedural_hdr
+
+    dev = torch.device(device)
+    env = with_importance_sampling(make_env(procedural_hdr(64, 128), dev))
+    scene = procedural.three_spheres_scene(device=dev).replace(env=env)
+    cfg = RenderConfig(width=1920, height=1080, max_depth=8, intersector="auto", env_mode="equirect",
+                       rr_mode="standard", env_importance_sampling=True)
+    n = 65_536
+    pix = torch.arange(n, dtype=torch.int32, device=dev) * (1920 * 1080 // n)
+    o, d, seeds = camera_ops.camera_paths(camera_arrays(Camera(), cfg, dev), cfg, 0, 0, n, pix=pix)
+    hit = isect.intersect_scene(scene, o, d, cfg.t_min, cfg.t_max, cfg)
+    rs = np.random.RandomState(37)
+    att = torch.as_tensor((rs.rand(n, 3) + 0.2).astype(np.float32), device=dev)
+    rad = torch.as_tensor((rs.rand(n, 3) * 0.5).astype(np.float32), device=dev)
+    depth = torch.full((n,), 8, dtype=torch.int32, device=dev)
+    spec = torch.as_tensor(rs.rand(n) < 0.5, device=dev)
+    lanes = (hit, o, d, att, rad, seeds, depth, spec)
+    args = (scene, cfg, *lanes)
+    b = bounce_ops.bounce(*args)
+
+    def traverse():
+        return isect.occluded_scene(scene, b["shadow_origin"], b["shadow_dir"], cfg.t_min, cfg.t_max, cfg,
+                                    active=b["cand"])
+
+    occ = traverse()
+    real = integrator.occluded_scene
+    integrator.occluded_scene = lambda *a, **k: occ
+    try:
+        want = integrator._bounce_plain(*args)
+    finally:
+        integrator.occluded_scene = real
+    pre = b["radiance"].clone()
+    radiance = pre.clone()
+    x = dict(b, radiance=radiance)
+
+    def pair():
+        radiance.copy_(pre)
+        return bounce_ops.next_event(scene, cfg, x, traverse(), d, att, dependent=True)
+
+    blocked = occ[b["cand"]]
+    assert int(b["cand"].sum()) > 1000 and 0 < int(blocked.sum()) < blocked.shape[0]
+    return pair, radiance, want["radiance"], want["spec_last"], (-(-n // 128), 128)

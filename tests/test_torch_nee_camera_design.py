@@ -109,27 +109,30 @@ def test_dependent_launches_set_the_attribute_where_asked(source, launcher, kern
 
 
 @pytest.mark.parametrize("source,kernel", [("cluster_streamed.cuh", "streamed_kernel"),
+                                           ("brute.cu", "brute_kernel"),
                                            ("fused_schedule.cu", "fused_step_kernel"),
                                            ("fused_schedule.cu", "path_step_kernel"),
                                            ("bounce.cu", "bounce_kernel"),
                                            ("nee.cu", "nee_kernel")])
 def test_launches_before_let_their_dependents_start_at_entry(source, kernel):
-    """The launches that a dependent follows (the any-hit traversal, its
-    instantiations only; kernel 7; the bounce kernel; and the links with
-    one behind them, the NEE kernel and the path step) let it start before
-    any other statement that touches memory.  The heads of the chains
-    (launch_order.cuh: the traversals, the bounce kernel, kernel 7, and
-    the sort before them) are launched without the attribute and never
-    wait; in fused_schedule.cu only the path step waits, and only it goes
-    through launch_order::launch."""
+    """The launches that a dependent follows (the any-hit traversal, the
+    cluster accel's or brute force's, its instantiations only; kernel 7;
+    the bounce kernel; and the links with one behind them, the NEE kernel
+    and the path step) let it start before any other statement that
+    touches memory.  The heads of the chains (launch_order.cuh: the
+    traversals, the bounce kernel, kernel 7, and the sort before them) are
+    launched without the attribute and never wait; in fused_schedule.cu
+    only the path step waits, and only it goes through
+    launch_order::launch."""
     first = body(source, kernel).split(TRIGGER)[0]
     assert TRIGGER in body(source, kernel)
     assert re.sub(r"\s+", " ", first).strip() in (
         "", "extern __shared__ float4 rows[]; __shared__ unsigned int slots[3]; if constexpr (kAnyHit)",
+        "if constexpr (kAnyHit)",
         "using namespace shade;", "using namespace shade; namespace R = nee_record;")
-    for src in ("cluster_streamed.cuh", "fused_schedule.cu", "ray_sort.cu", "bounce.cu"):
+    for src in ("cluster_streamed.cuh", "brute.cu", "fused_schedule.cu", "ray_sort.cu", "bounce.cu"):
         assert "ProgrammaticStreamSerialization" not in code(src)
-    for src in ("cluster_streamed.cuh", "ray_sort.cu", "bounce.cu"):
+    for src in ("cluster_streamed.cuh", "brute.cu", "ray_sort.cu", "bounce.cu"):
         assert WAIT not in code(src) and "launch_order::launch(" not in code(src)
     assert WAIT not in body("fused_schedule.cu", "fused_step_kernel")
     launch = body("fused_schedule.cu", "fused_step_launch")

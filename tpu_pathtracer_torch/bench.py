@@ -14,7 +14,8 @@ default): configs 2 and 5 need them; configs 0 and 3 render its suitcase
 when DIR holds suitcase.obj, else the procedural three-spheres scene.
 `--accel auto` builds an accel only where `bench.py` does: for config 4
 and for the OBJ presets.  The three-spheres fallback and config 1 then
-render by brute force; pass `--accel cluster` to time the cluster kernels.
+render by brute force, on the card through the brute-force kernels
+(`csrc/brute.cu`); pass `--accel cluster` to time the cluster kernels.
 
 Prints ONE JSON line, last:
     {"metric": ..., "value": Mrays/s, "unit": "Mrays/s", "detail": {...}}

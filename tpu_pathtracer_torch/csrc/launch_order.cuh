@@ -24,8 +24,9 @@
 // once the launch before it is complete, which that launch is only after
 // its own wait returned: after the wait every earlier link is done.  The
 // chains on the main path, each link's early reads in brackets:
-// * the any-hit traversal (ordinary, cluster_streamed.cuh) -> the NEE
-//   kernel (the record, the shadow rays and radiance that the bounce
+// * the any-hit traversal (ordinary: cluster_streamed.cuh, or brute.cu on
+//   a scene without an accel) -> the NEE kernel (the record, the shadow
+//   rays and radiance that the bounce
 //   kernel wrote before the traversal, the lane state, the env tables) ->
 //   under NEE the path step (the flag and a live lane's own state, which
 //   the previous iteration's path step and camera kernel wrote before the

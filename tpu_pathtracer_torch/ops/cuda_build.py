@@ -11,8 +11,9 @@ sets the argument types of its launch function from `LAUNCHERS` and of
 its other functions from `HELPERS`.
 
 The wrappers of the kernels that stand in for the JAX package's fused
-eager work (the bounce's shading, NEE, the camera spawn, the schedule
-steps, the traversal's ray ordering) launch them where `on_card` says,
+eager work (the brute-force traversal, the bounce's shading, NEE, the
+camera spawn, the schedule steps, the traversal's ray ordering) launch
+them where `on_card` says,
 and take their tensors through `kernel_arg`; `plain()` is the A/B switch
 that runs their plain versions on the card too.
 """
@@ -43,7 +44,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # source: (its launch function, the function's argument types)
 LAUNCHERS = {
     "cluster_intersect.cu": (
@@ -89,6 +90,10 @@ LAUNCHERS = {
     # directions out, perm out, stream; the packet order is a HELPER of
     # the same library
     "ray_sort.cu": ("ray_sort_rays_launch", [_P] * 5 + [_I] * 4 + [_P] * 3 + [_I] * 2 + [_P] * 4),
+    # brute force: any hit (0 or 1), vertices, triangles, origins,
+    # directions, active (or null), n, t_min, t_max, t, prim, bary and hit
+    # out (any hit: the flags into hit), stream
+    "brute.cu": ("brute_launch", [_I, _P, _LL, _P, _P, _P, _LL, _F, _F] + [_P] * 5),
 }
 # source: {another function of its library: the function's argument types}.
 # The traversal kernels (flat, hier and streamed) have a packet-weight
@@ -116,6 +121,8 @@ HELPERS["fused_schedule.cu"]["fused_step_scratch_words"] = [_I, _I]
 # The ray ordering's other kernel: the packet order (weights, packets,
 # order out, stream).
 HELPERS["ray_sort.cu"] = {"ray_sort_order_launch": [_P] + [_I] + [_P] * 2}
+# The brute-force kernels' launch shape (n, any hit, int out[5]).
+HELPERS["brute.cu"] = {"brute_shape": [_LL, _I, ctypes.POINTER(ctypes.c_int)]}
 
 
 def check_tensor(name, x, dtype, shape, dev) -> None:

@@ -48,6 +48,7 @@ from tpu_pathtracer_torch.ops import intersect_cluster as ic
 from tpu_pathtracer_torch.ops import ray_sort
 from tpu_pathtracer_torch.ops.camera import camera_paths
 from tpu_pathtracer_torch.ops.fused_schedule import fused_stream_step, path_step
+from tpu_pathtracer_torch.ops.intersect import intersect_brute, occluded_brute
 from tpu_pathtracer_torch.ops.unit_sphere import random_in_unit_sphere
 
 # The wrappers whose `launches` count their kernel's launches.
@@ -55,7 +56,7 @@ COUNTED = (
     ic.intersect_clusters, ic.intersect_clusters_hier, ic.intersect_clusters_streamed,
     ic.occluded_clusters, ic.occluded_clusters_hier, ic.occluded_clusters_streamed,
     fused_stream_step, random_in_unit_sphere, bounce_ops.bounce, bounce_ops.next_event, camera_paths, path_step,
-    ray_sort.sort_rays, ic.caller_order_stores, ray_sort.packet_order,
+    ray_sort.sort_rays, ic.caller_order_stores, ray_sort.packet_order, intersect_brute, occluded_brute,
 )
 # Plans the cache holds.
 MAX_PLANS = 8

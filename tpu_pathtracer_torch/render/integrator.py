@@ -25,7 +25,9 @@ Deferred shading (cfg.deferred_shade, `_shade_deferred`) shades only the
 lanes that hit, in dense chunks; `render_pixels` also takes an affine
 pixel range (base, count), which sharded renders pass.
 
-On a CUDA device the bounce's work after the traversal runs as
+On a CUDA device the traversal runs as hand-written kernels (the
+cluster accel's, ops/intersect_cluster.py, or on a scene without one the
+brute-force kernels, ops/intersect.py), and the bounce's work after it as
 hand-written kernels (ops/bounce.py: the bounce kernel, with deferred
 shading's chunks as its second entry point, and the NEE kernel), and so
 does every camera spawn (ops/camera.py) and every schedule's step after
@@ -455,7 +457,8 @@ def _bounce_kernels(scene, cfg, hit, origin, direction, attenuation, radiance, s
     """`_bounce_plain` on the card: the bounce kernel, and under NEE the
     any-hit traversal of its shadow rays and the NEE kernel, launched as a
     programmatic dependent of the traversal (occluded_scene's last launch,
-    which writes only the flags)."""
+    the cluster accel's any-hit kernel or, on a scene without an accel,
+    the brute-force one, which writes only the flags)."""
     b = bounce_ops.bounce(scene, cfg, hit, origin, direction, attenuation, radiance, seeds, depth, spec_last)
     spec_next = spec_last
     if cfg.env_importance_sampling:

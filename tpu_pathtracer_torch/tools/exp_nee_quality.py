@@ -20,7 +20,8 @@ experiment measures both halves on the port's own renders:
     through the A-Trous denoiser.
 
 Scenes: three-spheres under the procedural HDR (bright sun blob — the
-case importance sampling exists for), rendered by brute force; the
+case importance sampling exists for), rendered by brute force (on the
+card the brute-force kernels, csrc/brute.cu); the
 textured monkey and the suitcase hero read the reference renderer's OBJs
 from --reference DIR and are refused, naming the file, where it is absent.
 Counterpart of the repository's `tools/exp_nee_quality.py`: the same flags
