@@ -274,10 +274,14 @@ Phases, each printing one line (any failure exits non-zero):
     its candidate mask) on the headline, config 1's sphere and the hero
     stand-in (2,214 triangles): the Hit bit for bit, the flags on the
     active lanes, False off them; exact ties (every triangle twice, in one
-    tile and in two); ms with the L2 flushed and warm, plain ms and the
-    bound at the main path's shapes (the headline's pool, the NEE study's
-    19,200 lanes, config 1's pool; any hit on the headline's and the
-    study's shadow rays); a graphed 320x240, 2-spp frame by brute force
+    tile and in two); grazing rays and segments (aimed at the triangles'
+    vertices and edges, from around the scene and from points on
+    triangles; segments ending on the edge: t_max 1) on the headline and
+    config 1's sphere, both kernels bit-equal; ms with the L2 flushed and
+    warm, plain ms and the bound at the main path's shapes (the
+    headline's pool, the NEE study's 19,200 lanes, config 1's pool, a
+    1-spp tile's 345,600; any hit on the headline's and the study's
+    shadow rays); a graphed 320x240, 2-spp frame by brute force
     without and with NEE, bit-equal between the kernels and
     ops.cuda_build.plain(), one launch of each kernel an iteration; the
     CLI without --scene (brute force) at the reference's defaults, two
@@ -665,8 +669,7 @@ def phase_build(parent_dir=None):
     without it)."""
     shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    jobs = start_builds({"floor.cu": None} | ({s: Path(parent_dir) / "tpu_pathtracer_torch" / "csrc" / s
-                                               for s in PARENT_SOURCES} if parent_dir else {}))
+    jobs = start_builds({"floor.cu": None} | (parent_sources(parent_dir) if parent_dir else {}))
     cuda_build.build_libraries()
     side = finish_builds(jobs)
     dt = time.perf_counter() - t0
@@ -695,11 +698,18 @@ def phase_build(parent_dir=None):
 
 # The sources --parent builds from an older checkout: the kernels launched
 # as programmatic dependents (the NEE and camera kernels, the path step)
-# and the launches they depend on (the any-hit traversals, kernel 7),
-# whose C interfaces are the change's (an older fused_schedule.cu's
-# adapted: load_library).
+# and the launches they depend on (the any-hit traversals, kernel 7), and
+# brute force, whose C interfaces are the change's (an older
+# fused_schedule.cu's adapted: load_library).
 PARENT_SOURCES = ("nee.cu", "camera.cu", "cluster_occluded.cu", "cluster_occluded_hier.cu",
-                  "cluster_occluded_streamed.cu", "fused_schedule.cu")
+                  "cluster_occluded_streamed.cu", "fused_schedule.cu", "brute.cu")
+
+
+def parent_sources(parent_dir):
+    """{source: its path} of PARENT_SOURCES in the checkout `parent_dir`
+    (one from before brute.cu has none)."""
+    paths = {s: Path(parent_dir) / "tpu_pathtracer_torch" / "csrc" / s for s in PARENT_SOURCES}
+    return {s: path for s, path in paths.items() if path.exists()}
 # The timing method's floor: an empty kernel, and one that loads 4 bytes a
 # lane (a value never found, so nothing is stored), at a kernel's grid.
 FLOOR_SOURCE = r"""
@@ -810,13 +820,14 @@ def using_libraries(libs):
     """Within the block the wrappers launch the kernels of `libs` ({source:
     library}, finish_builds') in place of the change's: the shading kernels
     and the steps through ops/bounce.py's `library`, the traversals
-    through ops/intersect_cluster.py's; the steps' scratch is sized by the
+    through ops/intersect_cluster.py's and ops/intersect.py's (brute
+    force); the steps' scratch is sized by the
     library in use.  None: the change's.  A graph captured within the
     block must not outlive it."""
     if not libs:
         yield
         return
-    mods = (bounce_ops, ic)
+    mods = (bounce_ops, ic, brute_ops)
     saved = [m.library for m in mods]
     pick = lambda source: libs[source] if source in libs else cuda_build.library(source)  # noqa: E731
     for m in mods:
@@ -2346,10 +2357,10 @@ def kernel_label(key):
     None.  streamed_kernel<kAnyHit, kVisit, ...> is told apart by its first
     two template arguments: any hit or closest, and the visit order: flat
     (kernels 1 and 4), per packet (the hier route) or ascending (the
-    streamed route); brute_kernel<kAnyHit> by its one."""
+    streamed route); brute_kernel<kAnyHit, ...> by its first."""
     name = next((k for k in DEVICE_FUNCTIONS if k in key), None)
     if name == "brute_kernel":
-        any_hit = key.split("brute_kernel<", 1)[-1].split(">")[0].strip()
+        any_hit = key.split("brute_kernel<", 1)[-1].split(">")[0].split(",")[0].strip()
         return f"brute_kernel ({'any' if any_hit in ('true', '(bool)1') else 'closest'} hit)"
     if name == "streamed_kernel":
         any_hit, visit = (a.strip() for a in key.split("streamed_kernel<", 1)[-1].split(",")[:2])
@@ -4167,6 +4178,74 @@ def any_hit_tests(vertices, o, d, t_min, t_max, active):
     return int(torch.where(active, torch.clamp(first + 1, max=t_count), 0).sum())
 
 
+def grazing_rays(vertices, n, seed):
+    """n rays aimed at the triangles' vertices and edges ([T,3,3] on the
+    card): each at a random triangle's vertex, an edge's midpoint or a
+    random point of an edge, from a point around the scene (half) or from
+    a random triangle's centroid (half, as a shadow ray leaves a surface),
+    in float32.  Returns (origins, unit directions, the segments from the
+    origin to the target: t = 1 at the edge)."""
+    rs = np.random.RandomState(seed)
+    v = vertices.cpu().numpy().astype(np.float32)
+    k, i = rs.randint(0, v.shape[0], n), rs.randint(0, 3, n)
+    kind = rs.randint(0, 3, n)
+    frac = np.where(kind == 0, 0.0, np.where(kind == 1, 0.5, rs.rand(n))).astype(np.float32)[:, None]
+    a, b = v[k, i], v[k, (i + 1) % 3]
+    target = a + frac * (b - a)
+    around = (rs.randn(n, 3) * np.array([5.0, 2.0, 5.0]) + np.array([0.0, 2.5, 0.0])).astype(np.float32)
+    on = v[rs.randint(0, v.shape[0], n)].mean(axis=1, dtype=np.float32)
+    o = np.where((rs.rand(n) < 0.5)[:, None], around, on).astype(np.float32)
+    seg = (target - o).astype(np.float32)
+    unit = (seg / np.linalg.norm(seg, axis=1, keepdims=True)).astype(np.float32)
+    dev = vertices.device
+    return tuple(torch.as_tensor(x, device=dev).contiguous() for x in (o, unit, seg))
+
+
+def brute_grazing(label, cases, n=131_072):
+    """Both kernels against their plain versions on grazing_rays of each
+    case's scene: rays (t_max the config's) and segments ending on the
+    edge (t_max 1); the any hit with a seeded 70% of the rays active.
+    Returns a line's text."""
+    parts = []
+    for name, scene, cfg, _ in cases:
+        v = scene.vertices
+        o, unit, seg = grazing_rays(v, n, 43)
+        active = torch.as_tensor(np.random.RandomState(44).rand(n) < 0.7, device=o.device)
+        counts = []
+        for what, d, t_max in (("rays", unit, cfg.t_max), ("segments", seg, 1.0)):
+            got = brute_ops.intersect_brute_cuda(v, o, d, cfg.t_min, t_max)
+            want = brute_ops.intersect_brute_plain(v, o, d, cfg.t_min, t_max, cfg.intersect_block)
+            occ = brute_ops.occluded_brute_cuda(v, o, d, cfg.t_min, t_max, active)
+            occ_p = brute_ops.occluded_brute_plain(v, o, d, cfg.t_min, t_max, cfg.intersect_block)
+            torch.cuda.synchronize()
+            if not hit_bits_equal(got, want):
+                raise SystemExit(f"[{label}] FAIL: grazing {what} on {name}: the closest-hit kernel and its plain "
+                                 f"version differ on {int((got.prim != want.prim).sum())} prims")
+            if not torch.equal(occ[active], occ_p[active]) or bool(occ[~active].any()):
+                raise SystemExit(f"[{label}] FAIL: grazing {what} on {name}: the any-hit kernel's flags differ from "
+                                 f"the plain version's on {int((occ != occ_p)[active].sum())} active lanes, or an "
+                                 f"inactive lane is True")
+            counts.append(f"{what} {int(got.hit.sum())} hits, {int(occ.sum())} of {int(active.sum())} occluded")
+        parts.append(f"{name} ({n} rays): " + ", ".join(counts))
+    return "; ".join(parts)
+
+
+def brute_timed_cases(scene, config1):
+    """The brute-force kernels' timed cases: (what, scene, cfg, camera, n,
+    any hit) at the main path's shapes: the closest hit on the headline's
+    pool, the NEE study's lanes, config 1's pool and a 1-spp tile, the any
+    hit on the headline's and the study's NEE shadow rays (`scene`:
+    (the headline, its NEE cfg, camera); `config1`: brute_config1())."""
+    headline, cfg_nee, camera = scene
+    cfg = cfg_nee.replace(env_importance_sampling=False, rr_mode="reference")
+    return (("closest, headline pool", headline, cfg, camera, 131_072, False),
+            ("closest, NEE study", headline, cfg, camera, STUDY_LANES, False),
+            ("closest, config 1 pool", *config1, CONFIG1_POOL, False),
+            ("closest, 1-spp tile", headline, cfg, camera, 345_600, False),
+            ("any, headline NEE", headline, cfg_nee, camera, 131_072, True),
+            ("any, NEE study", headline, cfg_nee, camera, STUDY_LANES, True))
+
+
 def brute_bound(vertices, o, d, t_min, t_max, active):
     """(bound ms, "bytes" or "operations", tests, bytes) of one call:
     closest hit (active None) N x T tests, any hit any_hit_tests; bytes
@@ -4272,7 +4351,7 @@ def brute_timed(label, cases):
             numbers[kind] = dict(max_abs_err=0.0, ms=cold, warm_ms=warm, plain_ms=plain_ms, bound_ms=bound_ms,
                                  bound_by=bound_by, library_ms=None, rays=n, triangles=v.shape[0])
         parts.append(f"{what}: {n} rays x {v.shape[0]} triangles, {shape['threads_per_ray']} threads a ray, "
-                     f"{shape['blocks']} blocks: kernel {cold:.4f} ms L2-flushed, {warm:.4f} warm; plain "
+                     f"{shape['rays_per_block']} rays a block, {shape['blocks']} blocks: kernel {cold:.4f} ms L2-flushed, {warm:.4f} warm; plain "
                      f"{plain_ms:.4f}; bound {bound_ms:.4f} by {bound_by} ({tests} tests, {n_bytes} B); "
                      f"roofline share {bound_ms / warm:.1%} warm")
         del o, d
@@ -4357,8 +4436,9 @@ def phase_brute(label, scene, config1, hero, root, smi):
     (`scene`: (scene, cfg, camera), its sky with the alias table, under
     NEE), config 1's sphere and the hero stand-in (2,214 triangles);
     brute_ties; brute_timed at the main path's shapes (the headline's pool
-    and the NEE study's lanes, config 1's pool; any hit on the headline's
-    and the study's shadow rays); brute_render_ab; brute_cli, writing under
+    and the NEE study's lanes, config 1's pool, a 1-spp tile; any hit on
+    the headline's and the study's shadow rays); brute_grazing on the
+    headline and config 1's sphere; brute_render_ab; brute_cli, writing under
     `root`.  Returns ({"kbc": ..., "kba": ...}, the kernels line's
     numbers; the CLI's launch counts)."""
     t0 = time.perf_counter()
@@ -4376,14 +4456,8 @@ def phase_brute(label, scene, config1, hero, root, smi):
     cases = (("headline", headline, cfg_nee, camera), ("config 1", *config1), ("hero", *hero))
     print(f"[{label} parity] bit-equal at {BRUTE_COUNTS} rays: {brute_parity(label, cases)}", flush=True)
     print(f"[{label} ties] {brute_ties(label, headline, cfg_nee, camera)}", flush=True)
-    cfg = cfg_nee.replace(env_importance_sampling=False, rr_mode="reference")
-    numbers, text = brute_timed(label, (
-        ("closest, headline pool", headline, cfg, camera, 131_072, False),
-        ("closest, NEE study", headline, cfg, camera, STUDY_LANES, False),
-        ("closest, config 1 pool", *config1, CONFIG1_POOL, False),
-        ("any, headline NEE", headline, cfg_nee, camera, 131_072, True),
-        ("any, NEE study", headline, cfg_nee, camera, STUDY_LANES, True),
-    ))
+    print(f"[{label} grazing] bit-equal: {brute_grazing(label, cases[:2])}", flush=True)
+    numbers, text = brute_timed(label, brute_timed_cases(scene, config1))
     print(f"[{label} timed] {text} | {smi}", flush=True)
     text = brute_render_ab(label, headline.replace(accel=None), camera, smi)
     print(f"[{label} renders] {text} | {smi}", flush=True)

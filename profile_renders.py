@@ -55,7 +55,8 @@ largest of the rest.
 --parent-ab NAME ... --parent DIR compares, on each named render at its
 full config, an older checkout's kernels (DIR: its root; chip_smoke's
 PARENT_SOURCES, the NEE and camera kernels and the launches before them,
-built from its csrc/ and launched through this tree's wrappers, whose
+and brute force (`brute`, `brute_nee`, `config1_brute`, `study`,
+`study_nee`), built from its csrc/ and launched through this tree's wrappers, whose
 launch order they then share) with this tree's, both graphed, in turns
 P C C P P C C P: each turn a first frame at subframe 0 (it captures,
 after every plan is dropped), an unprofiled frame at subframe 1
@@ -97,7 +98,6 @@ from chip_smoke import (
     FAMILIES,
     HEADLINE,
     NEE,
-    PARENT_SOURCES,
     ab_render,
     busy_seconds,
     config1_scene,
@@ -108,6 +108,7 @@ from chip_smoke import (
     high_poly,
     kernel_label,
     kernels_ab,
+    parent_sources,
     phase_device,
     profiled,
     same_bits,
@@ -313,7 +314,7 @@ def main() -> int:
     if args.parent_ab:
         if not args.parent:
             parser.error("--parent-ab needs --parent DIR")
-        jobs = start_builds({s: Path(args.parent) / "tpu_pathtracer_torch" / "csrc" / s for s in PARENT_SOURCES})
+        jobs = start_builds(parent_sources(args.parent))
         cuda_build.build_libraries()
         parent = finish_builds(jobs)
         for name in args.parent_ab:

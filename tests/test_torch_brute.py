@@ -2,11 +2,15 @@
 the port's intersect_brute and occluded_brute against the JAX package's
 on the same rays, exact ties, triangle counts around the kernel's tile
 and the plain version's block, the `active` contract of occluded_scene,
-the wrappers' refusal of CPU tensors and their lack of any fallback, a
-numpy model of how csrc/brute.cu splits a ray's triangles over its
-threads and merges their winners, and small renders through brute force
-against the JAX package.  The kernels against their plain versions on
+the wrappers' refusal of CPU tensors and their lack of any fallback,
+numpy models of how csrc/brute.cu splits the work (the closest hit: a
+ray's triangles over its threads, rays a thread, the gate's warp votes,
+the merge of the winners; the any hit: each block's listing of its live
+rays, tile by tile), and small renders through brute force against the
+JAX package.  The gate itself: tests/test_torch_brute_design.py.  The kernels against their plain versions on
 the card: tests/test_torch_cuda.py."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -19,6 +23,7 @@ torch.set_num_threads(1)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from test_torch_brute_design import gate_table  # noqa: E402
 from test_torch_intersect import assert_close_fma, random_rays  # noqa: E402
 from tpu_pathtracer.config import RenderConfig as JConfig  # noqa: E402
 from tpu_pathtracer.ops import intersect as j_isect  # noqa: E402
@@ -262,19 +267,36 @@ def test_plain_switch_and_other_devices():
 
 
 # ---------------------------------------------------------------------------
-# A numpy model of csrc/brute.cu's split of the triangles over a ray's
-# threads, and of the merge of their winners
+# Numpy models of csrc/brute.cu's split of the work: the closest hit's
+# threads a ray, rays a thread, votes and merge; the any hit's listing
 # ---------------------------------------------------------------------------
 
-def kernel_model(t, u, v, valid, p, active=None, tile=TILE):
-    """brute_kernel with p threads a ray, on the per-pair tests of
-    _mt_block ([N,T] numpy arrays): thread s of a ray scans the staged
-    tiles' triangles s, s + p, ... in order, keeping a strictly smaller
-    t; the p winners merge by the xor butterfly of the kernel's shuffles,
-    smaller t then lower id.  Any hit ORs the threads' flags, rays outside
-    `active` False.  Returns (t, prim, u, v), prim MISS on a miss, and
-    the flags."""
+def fired_votes(passes, p, r):
+    """[N, T] bool: whether the warp vote that covers each pair takes the
+    tail.  Lane l of warp w tests with its ray group 32w/p + l/p (rays
+    group * r + i, one vote for each i) the triangles j0 + l % p of a step
+    j0; a vote is the OR of the gate over its 32 lanes."""
+    n, t_count = passes.shape
+    g = 32 // p
+    pad_n, pad_t = (-n) % (g * r), (-t_count) % p
+    x = np.pad(passes, ((0, pad_n), (0, pad_t)))
+    w, c = x.shape[0] // (g * r), x.shape[1] // p
+    fired = x.reshape(w, g, r, c, p).any(axis=(1, 4), keepdims=True)
+    return np.broadcast_to(fired, (w, g, r, c, p)).reshape(x.shape)[:n, :t_count]
+
+
+def kernel_model(t, u, v, valid, p, passes=None, r=1, tile=TILE):
+    """brute_kernel's closest hit with p threads a ray and r rays a thread,
+    on the per-pair tests of _mt_block ([N,T] numpy arrays) and the gate
+    (`passes`, [N,T]; None: every pair runs the tail): a pair's tail runs
+    where its warp's vote takes it (fired_votes); thread s of a ray scans
+    the staged tiles' triangles s, s + p, ... in order, keeping a strictly
+    smaller t; the p winners merge by the xor butterfly of the kernel's
+    shuffles, smaller t then lower id.  Returns (t, prim, u, v), prim MISS
+    on a miss."""
     n, t_count = t.shape
+    if passes is not None:
+        valid = valid & fired_votes(passes, p, r)
     ids = np.arange(t_count)
     # thread s's triangles, in its scan order: tile by tile, j = s, s + p, ...
     order = [np.concatenate([base + np.arange(s, min(tile, t_count - base), p) for base in range(0, t_count, tile)]
@@ -301,35 +323,108 @@ def kernel_model(t, u, v, valid, p, active=None, tile=TILE):
             merged.append([np.where(take, o, m) for o, m in zip(other, mine)])
         best, offset = merged, offset * 2
     assert all(np.array_equal(best[0][1], b[1]) for b in best)  # every thread holds the winner
-    flags = valid.any(axis=1) if active is None else valid.any(axis=1) & active
-    return best[0], flags
+    return best[0]
+
+
+def any_hit_model(valid, passes, active, slice_, compact=True, tile=TILE):
+    """brute_kernel's any hit on the per-pair tests and gate ([N,T]):
+    block b of B = ceil(N / slice_) holds rays b, b + B, ...; it lists its
+    rays of `active` in lane order, and for each tile of triangles every
+    thread (one triangle) tests every listed ray, behind one vote of its
+    warp's 32 triangles a ray (a warp past the last triangle skips); a
+    ray's flag is the OR over every test; after a tile the rays not yet
+    occluded are listed again, the block stops when none is left.
+    compact=False lists every ray of the slice once and never drops one
+    (BRUTE_COMPACT 0).  Returns the flags (False off `active`) and the
+    tests run."""
+    n, t_count = valid.shape
+    blocks = -(-n // slice_)
+    flags, tests = np.zeros(n, bool), 0
+    for b in range(blocks):
+        rays = b + np.arange(slice_) * blocks
+        rays = rays[rays < n]
+        wanted = active[rays]
+        live = wanted.copy() if compact else np.ones(rays.size, bool)
+        occluded = np.zeros(rays.size, bool)
+        for base in range(0, t_count, tile):
+            listed = np.flatnonzero(live)
+            if listed.size == 0:
+                break
+            for w in range(base, min(base + tile, t_count), 32):
+                cols = np.arange(w, min(w + 32, t_count))
+                vote = passes[rays[listed]][:, cols].any(axis=1)
+                occluded[listed] |= (valid[rays[listed]][:, cols] & vote[:, None]).any(axis=1)
+                tests += 32 * listed.size
+            if compact:
+                live &= ~occluded
+        flags[rays] = wanted & occluded
+    return flags, tests
+
+
+@functools.lru_cache(maxsize=None)
+def model_case(t_count, seed, doubled=True):
+    """_mt_block's tests and the gate of 300 rays (rays_at) against the
+    headline's first t_count triangles, twice (ids k and k + T) where
+    `doubled`: (vertices, o, d, t, u, v, valid, passes) as numpy."""
+    tv = scene_pair("spheres")[1][:t_count]
+    if doubled:
+        tv = torch.cat([tv, tv])
+    o, d = (torch.as_tensor(x) for x in rays_at(tv.numpy(), seed, 300))
+    t, u, v, valid = (x.numpy() for x in isect._mt_block(o, d, tv, T_MIN, T_MAX))
+    passes = gate_table(tv.numpy(), o.numpy(), d.numpy())
+    return tv, o, d, t, u, v, valid, passes
 
 
 @pytest.mark.parametrize("t_count", [7, 257, 3074])
 @pytest.mark.parametrize("p", [1, 2, 4, 8, 16, 32])
 def test_kernel_split_and_merge_model(p, t_count):
-    """At every threads-a-ray count the kernel picks (1 to 32), the model's
-    winner is the plain version's Hit bit for bit: t and prim, and the
-    winner's u and v from the loop are the bits finalize_hit's second
-    test recomputes (the same operations on the same inputs).  Ties
-    included: the triangles twice, at k and k + T.  The any-hit model's
-    flags equal the plain version's on the active lanes, False off them."""
-    tv = scene_pair("spheres")[1][:t_count]
-    tv = torch.cat([tv, tv])
-    o, d = (torch.as_tensor(x) for x in rays_at(tv.numpy(), 10 + p, 300))
-    t, u, v, valid = (x.numpy() for x in isect._mt_block(o, d, tv, T_MIN, T_MAX))
-    active = np.random.RandomState(p).rand(300) < 0.6
-    (mt, mp, mu, mv), flags = kernel_model(t, u, v, valid, p, active)
+    """At every threads-a-ray count the kernel instantiates (1 to 32) and
+    every rays-a-thread count (1, 2 and 4), with the gate and the warp's
+    vote in front of the tail, the model's winner is the plain version's
+    Hit bit for bit: t and prim, and the winner's u and v from the loop
+    are the bits finalize_hit's second test recomputes (the same
+    operations on the same inputs).  Ties included: the triangles twice,
+    at k and k + T.  The gate passes every pair the test accepts."""
+    tv, o, d, t, u, v, valid, passes = model_case(t_count, 10 + p)
+    assert not (valid & ~passes).any()
     want = isect.intersect_brute_plain(tv, o, d, T_MIN, T_MAX)
-    hit = mp != MISS
-    assert np.array_equal(hit, want.hit.numpy()) and hit.sum() > 50
-    np.testing.assert_array_equal(np.where(hit, mp, -1), want.prim.numpy())
-    np.testing.assert_array_equal(mt.astype(np.float32).view(np.int32), want.t.numpy().view(np.int32))
-    bary = np.where(hit[:, None], np.stack([mu, mv], axis=-1), 0.0).astype(np.float32)
-    np.testing.assert_array_equal(bary.view(np.int32), want.bary.numpy().view(np.int32))
-    occ = isect.occluded_brute_plain(tv, o, d, T_MIN, T_MAX).numpy()
-    np.testing.assert_array_equal(flags[active], occ[active])
-    assert not flags[~active].any()
+    for r in (1, 2, 4):
+        mt, mp, mu, mv = kernel_model(t, u, v, valid, p, passes, r)
+        hit = mp != MISS
+        assert np.array_equal(hit, want.hit.numpy()) and hit.sum() > 50
+        np.testing.assert_array_equal(np.where(hit, mp, -1), want.prim.numpy())
+        np.testing.assert_array_equal(mt.astype(np.float32).view(np.int32), want.t.numpy().view(np.int32))
+        bary = np.where(hit[:, None], np.stack([mu, mv], axis=-1), 0.0).astype(np.float32)
+        np.testing.assert_array_equal(bary.view(np.int32), want.bary.numpy().view(np.int32))
+
+
+ACTIVE = {"none": lambda n: np.zeros(n, bool), "some": lambda n: np.random.RandomState(5).rand(n) < 0.4,
+          "all": lambda n: np.ones(n, bool)}
+
+
+@pytest.mark.parametrize("order", ["scene", "reversed"])
+@pytest.mark.parametrize("active", list(ACTIVE))
+@pytest.mark.parametrize("slice_,compact", [(32, True), (100, True), (256, True), (100, False)],
+                         ids=["slice32", "slice100", "slice256", "no_compact"])
+def test_any_hit_listing_model(slice_, compact, active, order):
+    """The any hit's listing and re-listing (any_hit_model) at slices of
+    32, 100 and 256 rays, and with every ray of a slice listed once
+    (BRUTE_COMPACT 0), for no, some and all rays active and the triangles
+    in the scene's order or reversed (occluders found early or late): the
+    flags equal occluded_brute_plain's on the active lanes and are False
+    off them.  With compaction, an inactive ray costs no test and a block
+    runs no more tests than one that lists every ray."""
+    tv, o, d, t, u, v, valid, passes = model_case(3074, 20, doubled=False)
+    if order == "reversed":
+        tv, valid, passes = torch.flip(tv, (0,)), valid[:, ::-1], passes[:, ::-1]
+    mask = ACTIVE[active](o.shape[0])
+    flags, tests = any_hit_model(valid, passes, mask, slice_, compact)
+    want = isect.occluded_brute_plain(tv, o, d, T_MIN, T_MAX).numpy()
+    np.testing.assert_array_equal(flags[mask], want[mask])
+    assert not flags[~mask].any() and 0 < want.sum() < want.size
+    if compact:
+        assert tests <= any_hit_model(valid, passes, np.ones_like(mask), slice_, compact=False)[1]
+        assert (tests == 0) == (active == "none")
 
 
 # ---------------------------------------------------------------------------

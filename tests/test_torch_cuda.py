@@ -2135,6 +2135,19 @@ def test_brute_kernels_match_plain(cuda, brute_scenes, name, n):
         assert 0.2 < float(got.hit.float().mean()) and 0 < int(occ.sum()) < int(active.sum())
 
 
+@pytest.mark.parametrize("name", ["headline", "config1"])
+def test_brute_grazing_match_plain(cuda, brute_scenes, name):
+    """Rays and segments aimed at the triangles' vertices and edges, from
+    around the scene and from points on triangles, the segments ending on
+    the edge (chip_smoke.py's brute_grazing): both kernels bit-equal to
+    their plain versions, where a wrong margin of the gate would drop a
+    hit."""
+    import chip_smoke as cs
+
+    scene, cfg, camera = brute_scenes[name]
+    assert "segments" in cs.brute_grazing("test", [(name, scene, cfg, camera)], n=65_536)
+
+
 def test_brute_ties_match_plain(cuda, brute_scenes):
     """Every headline triangle twice, in one tile and in two: each kernel
     bit-equal to its plain version, every hit on the lower copy

@@ -122,30 +122,52 @@ __device__ __forceinline__ void bw_test(const float4 r0, const float4 r1, const 
        rcp != 0.0f;
 }
 
-// The same for Moller-Trumbore rows r0 (v0.xyz, e1.x), r1 (e1.yz, e2.xy)
-// and r2 (e2.z).
-__device__ __forceinline__ void mt_test(const float4 r0, const float4 r1, const float4 r2,
-                                        const Ray& r, float t_min, float t_max, float& t, float& u,
-                                        float& v, bool& ok) {
+// Moller-Trumbore's quantities before its division: det = e1.p with
+// p = d x e2, u's numerator a = t.p with the t-vector t = o - v0, v's
+// numerator b = d.q with q = t x e1, and q itself (t's numerator e2.q
+// needs it).
+struct MtFront {
+  float det, a, b, qx, qy, qz;
+};
+
+// The front of the test for Moller-Trumbore rows r0 (v0.xyz, e1.x), r1
+// (e1.yz, e2.xy) and r2 (e2.z).
+__device__ __forceinline__ MtFront mt_front(const float4 r0, const float4 r1, const float4 r2, const Ray& r) {
   const float v0x = r0.x, v0y = r0.y, v0z = r0.z;
   const float e1x = r0.w, e1y = r1.x, e1z = r1.y;
   const float e2x = r1.z, e2y = r1.w, e2z = r2.x;
   const float px = r.dy * e2z - r.dz * e2y;
   const float py = r.dz * e2x - r.dx * e2z;
   const float pz = r.dx * e2y - r.dy * e2x;
-  const float det = e1x * px + e1y * py + e1z * pz;
-  const float inv_det = fabsf(det) > 1e-12f ? 1.0f / det : 0.0f;
+  MtFront f;
+  f.det = e1x * px + e1y * py + e1z * pz;
   const float tx = r.ox - v0x;
   const float ty = r.oy - v0y;
   const float tz = r.oz - v0z;
-  u = (tx * px + ty * py + tz * pz) * inv_det;
-  const float qx = ty * e1z - tz * e1y;
-  const float qy = tz * e1x - tx * e1z;
-  const float qz = tx * e1y - ty * e1x;
-  v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-  t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-  ok = fabsf(det) > 1e-12f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > t_min &&
-       t < t_max;
+  f.a = tx * px + ty * py + tz * pz;
+  f.qx = ty * e1z - tz * e1y;
+  f.qy = tz * e1x - tx * e1z;
+  f.qz = tx * e1y - ty * e1x;
+  f.b = r.dx * f.qx + r.dy * f.qy + r.dz * f.qz;
+  return f;
+}
+
+// The rest of the test on the front f and the triangle's e2: the
+// division, u, v, t and the compares; `ok` is false where the test fails.
+__device__ __forceinline__ void mt_tail(const MtFront& f, float e2x, float e2y, float e2z, float t_min,
+                                        float t_max, float& t, float& u, float& v, bool& ok) {
+  const float inv_det = fabsf(f.det) > 1e-12f ? 1.0f / f.det : 0.0f;
+  u = f.a * inv_det;
+  v = f.b * inv_det;
+  t = (e2x * f.qx + e2y * f.qy + e2z * f.qz) * inv_det;
+  ok = fabsf(f.det) > 1e-12f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > t_min && t < t_max;
+}
+
+// The whole test, _mt_block's operations in its order.
+__device__ __forceinline__ void mt_test(const float4 r0, const float4 r1, const float4 r2,
+                                        const Ray& r, float t_min, float t_max, float& t, float& u,
+                                        float& v, bool& ok) {
+  mt_tail(mt_front(r0, r1, r2, r), r1.z, r1.w, r2.x, t_min, t_max, t, u, v, ok);
 }
 
 struct Best {

@@ -6,7 +6,10 @@ Counterpart of `tpu_pathtracer/ops/intersect.py`.  Triangles are two-sided.
 Brute force tests every ray against every triangle.  On the card it is two
 kernels (`csrc/brute.cu`): the closest hit, which writes the Hit with its
 finalize folded in, and the any hit, which writes the flags
-(`intersect_brute_cuda`, `occluded_brute_cuda`).  Their plain versions
+(`intersect_brute_cuda`, `occluded_brute_cuda`).  Both put a
+division-free gate in front of the test, which skips the division and
+the rest wherever the test certainly fails; the any hit spends its
+threads only on the rays of `active` that are not yet occluded.  Their plain versions
 (`intersect_brute_plain`, `occluded_brute_plain`: blocked loops over the
 triangles, the JAX package's `lax.scan` written out) run on the CPU, and
 on the card under `ops.cuda_build.plain()`.  `intersect_brute` and
@@ -193,16 +196,18 @@ def occluded_brute_cuda(vertices, origins, directions, t_min: float, t_max: floa
     return occluded
 
 
-def brute_launch_shape(n: int, any_hit: bool = False) -> dict:
+def brute_launch_shape(n: int, any_hit: bool = False, lib=None) -> dict:
     """How the brute-force kernel lays out a launch of n rays on the current
-    CUDA device: "threads_per_ray", "blocks", "threads" (of a block),
-    "registers" (of a thread) and "resident_blocks" (per SM).  Builds the
-    kernel if need be; launches nothing."""
-    out = (ctypes.c_int * 5)()
-    err = library("brute.cu").brute_shape(n, int(any_hit), out)
+    CUDA device: "threads_per_ray" (the any hit: the block's, which each
+    listed ray gets), "blocks", "threads" (of a block), "registers" (of a
+    thread), "resident_blocks" (per SM) and "rays_per_block" (closest hit:
+    256 / threads a ray x rays a thread; any hit: its slice).  Builds the
+    kernel if need be (`lib`: another build's library); launches nothing."""
+    out = (ctypes.c_int * 6)()
+    err = (lib or library("brute.cu")).brute_shape(n, int(any_hit), out)
     if err:
         raise RuntimeError(f"brute_shape failed: CUDA error {err}")
-    return dict(zip(("threads_per_ray", "blocks", "threads", "registers", "resident_blocks"), out))
+    return dict(zip(("threads_per_ray", "blocks", "threads", "registers", "resident_blocks", "rays_per_block"), out))
 
 
 def intersect_brute(vertices, origins, directions, t_min: float, t_max: float, block: int = 256) -> Hit:
