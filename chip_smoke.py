@@ -16,6 +16,7 @@ the benchmark entry point.
     python3 chip_smoke.py --path-step [--parent DIR]   # phases 1, 2, 18c, 21 and 22 only
     python3 chip_smoke.py --nee-quality   # phases 1, 2 and 39 only
     python3 chip_smoke.py --brute   # phases 1, 2 and 40 only
+    python3 chip_smoke.py --large   # phases 1, 2 and 41 only
 
 --parent DIR (the root of an older checkout, e.g. unpacked with git
 archive under build/) builds its NEE and camera kernels and the launches
@@ -285,7 +286,25 @@ Phases, each printing one line (any failure exits non-zero):
     without and with NEE, bit-equal between the kernels and
     ops.cuda_build.plain(), one launch of each kernel an iteration; the
     CLI without --scene (brute force) at the reference's defaults, two
-    launches with AOVs: its s/launch, no plain brute-force call.
+    launches with AOVs: its s/launch, no plain brute-force call;
+41. frames past the old 32-bit counters, one render_rays batch each: the
+    headline on the cluster accel at 4096x2160 (DCI 4K), 1 spp, depth 8,
+    without and with NEE (8,847,360 lanes: one sort a trace of more rays
+    than 32-bit status words count), and config 1's sphere on the cluster
+    accel at 1920x1080, 17 spp, regenerate=False (35,251,200 lanes: the
+    path step's two-word count), each through render_frame_stats, graphed,
+    every launch counted, bit-equal to ops.cuda_build.plain() (image,
+    iterations, segments), s/launch, Mrays/s and the peak bytes a lane
+    (torch.cuda.max_memory_allocated), and from them the most lanes the
+    card holds; on the first trace's rays of the DCI-4K and the 17-spp
+    frames the sort (perm equal to torch.sort's stable order over all n,
+    rows to the gather) and the packet order (8,640 and 34,425 packets)
+    against their plain versions, timed with the L2 flushed beside their
+    bounds, torch.sort and argsort, and the traversal the order orders;
+    the path step at 35,251,200 lanes after two iterations against
+    path_step_plain, timed beside its bound; the CLI on the hero
+    stand-in's scene file at --dim 4096x2160, one sample a launch: one
+    capture, the PNG finite and not black.
 Every render runs graphed (render/graph_loop.py: each schedule's
 iteration captured once as a CUDA graph and replayed) but deferred
 shading's, and its phase checks so: a CLI run, a bench preset and the
@@ -698,11 +717,13 @@ def phase_build(parent_dir=None):
 
 # The sources --parent builds from an older checkout: the kernels launched
 # as programmatic dependents (the NEE and camera kernels, the path step)
-# and the launches they depend on (the any-hit traversals, kernel 7), and
-# brute force, whose C interfaces are the change's (an older
-# fused_schedule.cu's adapted: load_library).
-PARENT_SOURCES = ("nee.cu", "camera.cu", "cluster_occluded.cu", "cluster_occluded_hier.cu",
-                  "cluster_occluded_streamed.cu", "fused_schedule.cu", "brute.cu")
+# and the launches they depend on (the any-hit traversals, kernel 7), the
+# closest-hit traversals and the ray ordering, and brute force, whose C
+# interfaces are the change's (an older fused_schedule.cu's adapted:
+# load_library).
+PARENT_SOURCES = ("nee.cu", "camera.cu", "cluster_intersect.cu", "cluster_hier.cu", "cluster_streamed.cu",
+                  "cluster_occluded.cu", "cluster_occluded_hier.cu", "cluster_occluded_streamed.cu",
+                  "fused_schedule.cu", "ray_sort.cu", "brute.cu")
 
 
 def parent_sources(parent_dir):
@@ -821,13 +842,13 @@ def using_libraries(libs):
     library}, finish_builds') in place of the change's: the shading kernels
     and the steps through ops/bounce.py's `library`, the traversals
     through ops/intersect_cluster.py's and ops/intersect.py's (brute
-    force); the steps' scratch is sized by the
+    force), the ray ordering through ops/ray_sort.py's; the steps' scratch is sized by the
     library in use.  None: the change's.  A graph captured within the
     block must not outlive it."""
     if not libs:
         yield
         return
-    mods = (bounce_ops, ic, brute_ops)
+    mods = (bounce_ops, ic, brute_ops, ray_sort)
     saved = [m.library for m in mods]
     pick = lambda source: libs[source] if source in libs else cuda_build.library(source)  # noqa: E731
     for m in mods:
@@ -1276,22 +1297,9 @@ def phase_render(label, scene, cfg, camera, frames, smi, image_path=None, warm=T
     if stats["graphed"] != (not (cfg.deferred_shade and not nee)):
         raise SystemExit(f"[{label}] FAIL: the loop reports graphed {stats['graphed']}")
     captures = graph_loop.stats["captures"] - captures
-    step = STEP_KERNEL[sched]
-    want = (ROUTE_KERNELS[route] if nee else ROUTE_KERNELS[route][:1]) + shading_kernels(nee) + (step,)
-    for kid in want:
-        if counts[kid] < (iters if kid != "kc" else 1):
-            raise SystemExit(f"[{label}] FAIL: {counts[kid]} {KERNELS[kid][0]} launches for {iters} iterations")
-    if counts[step] != iters:
-        raise SystemExit(f"[{label}] FAIL: {counts[step]} {KERNELS[step][0]} launches for {iters} iterations of "
-                         f"the {sched} schedule, not one an iteration")
     n_pix = cfg.width * cfg.height
     spawn_calls = frames * (n_pix // cfg.tile_pixels if 0 < cfg.tile_pixels < n_pix else 1)
-    check_shading(label, counts, iters, nee, spawns=spawn_calls + (iters if sched != "rays" else 0))
-    check_ray_order(label, counts, iters * (2 if nee else 1), trace_sort_launches(scene, cfg, sched))
-    want += RAY_ORDER
-    others = {KERNELS[kid][0]: c for kid, c in counts.items() if kid not in want and c}
-    if others:
-        raise SystemExit(f"[{label}] FAIL: other kernels launched: {others}")
+    want = check_frame_launches(label, scene, cfg, counts, iters, sched, spawn_calls)
     dependents = step_dependents(label, sched, nee) if stats["graphed"] else []
     if not bool(torch.isfinite(img).all()) or not float(img.max()) > 0.0:
         raise SystemExit(f"[{label}] FAIL: timed frame is non-finite or black")
@@ -1316,6 +1324,33 @@ def phase_render(label, scene, cfg, camera, frames, smi, image_path=None, warm=T
             f.write(b"P6 %d %d 255\n" % (cfg.width, cfg.height) + rgb.tobytes())
     return dict(counts=counts, img=img, iters=iters, segments=seg_total, seconds=dt / frames, schedule=sched,
                 syncs=syncs, cfg=cfg, triangles=scene.num_triangles, first=first)
+
+
+def check_frame_launches(label, scene, cfg, counts, iters, sched, spawn_calls):
+    """The launches of `iters` iterations of frames of the schedule `sched`
+    that made `spawn_calls` render_pixels calls: the route's closest-hit
+    kernel (and under NEE its any-hit kernel) at least once an iteration,
+    the schedule's step (STEP_KERNEL) exactly once, the shading kernels as
+    check_shading says (the camera kernel once a call's set-up, and once
+    an iteration but on rays), the ray ordering as check_ray_order says,
+    and no other kernel.  Returns the kernels that launched."""
+    nee = cfg.env_importance_sampling
+    route = scene.accel.route(cfg)
+    step = STEP_KERNEL[sched]
+    want = (ROUTE_KERNELS[route] if nee else ROUTE_KERNELS[route][:1]) + shading_kernels(nee) + (step,)
+    for kid in want:
+        if counts[kid] < (iters if kid != "kc" else 1):
+            raise SystemExit(f"[{label}] FAIL: {counts[kid]} {KERNELS[kid][0]} launches for {iters} iterations")
+    if counts[step] != iters:
+        raise SystemExit(f"[{label}] FAIL: {counts[step]} {KERNELS[step][0]} launches for {iters} iterations of "
+                         f"the {sched} schedule, not one an iteration")
+    check_shading(label, counts, iters, nee, spawns=spawn_calls + (iters if sched != "rays" else 0))
+    check_ray_order(label, counts, iters * (2 if nee else 1), trace_sort_launches(scene, cfg, sched))
+    want += RAY_ORDER
+    others = {KERNELS[kid][0]: c for kid, c in counts.items() if kid not in want and c}
+    if others:
+        raise SystemExit(f"[{label}] FAIL: other kernels launched: {others}")
+    return want
 
 
 def accounting(stats):
@@ -1739,17 +1774,17 @@ def phase_stream_step(label, scene, smi):
     return numbers
 
 
-def path_lane_state(scene, cfg, camera, schedule, n, iters):
-    """render_rays' (schedule "rays": n camera rays, one a pixel) or
-    render_pixels_regen's ("regen": n lanes, one a pixel) buffers after
-    `iters` iterations of trace, plain path step and (regen) respawn, and
-    the payload of the next trace: (buffers, payload, the step's
-    keywords)."""
+def path_lane_state(scene, cfg, camera, schedule, n, iters, per=None):
+    """render_rays' (schedule "rays": n camera rays, one a pixel, or `per`
+    a pixel as render_pixels spawns them) or render_pixels_regen's
+    ("regen": n lanes, one a pixel) buffers after `iters` iterations of
+    trace, plain path step and (regen) respawn, and the payload of the
+    next trace: (buffers, payload, the step's keywords)."""
     dev = scene.device
     cam = camera_arrays(camera, cfg, dev)
     spp = cfg.samples_per_launch
     ids = torch.arange(n, dtype=torch.int32, device=dev)
-    o, d, seeds = camera_ops.camera_paths(cam, cfg, 0, 0, n, pix=ids)
+    o, d, seeds = camera_ops.camera_paths(cam, cfg, 0, 0, n, **(dict(per=per) if per else dict(pix=ids)))
     zeros = torch.zeros((), dtype=torch.int64, device=dev)
     st = dict(origin=o, direction=d, seeds=seeds, attenuation=torch.ones_like(o), radiance=torch.zeros_like(o),
               depth=torch.full((n,), cfg.max_depth, dtype=torch.int32, device=dev),
@@ -4466,6 +4501,243 @@ def phase_brute(label, scene, config1, hero, root, smi):
     return {"kbc": numbers["closest"], "kba": numbers["any"]}, cli_counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 41: frames past the old 32-bit counters
+# ---------------------------------------------------------------------------
+
+# A DCI-4K frame at 1 spp: 8,847,360 rays in one render_rays batch and one
+# sort a trace, past the 8,388,607 keys the sort's 32-bit status words count.
+DCI_4K = dict(width=4096, height=2160, samples_per_launch=1)
+# BASELINE config 1's sphere at 1080p, 17 spp, without regeneration:
+# 35,251,200 lanes in one render_rays batch (the path step's two-word
+# count from 2^25 lanes on; the sort's 64-bit status words).
+UNREGENERATED = dict(CONFIG1, width=1920, height=1080, samples_per_launch=17, regenerate=False)
+
+
+def large_cases():
+    """Phase 41's frames: (name, scene, RenderConfig, camera)."""
+    headline = headline_scene("cuda")
+    return (("DCI 4K", headline, RenderConfig(**{**HEADLINE, **DCI_4K}), Camera()),
+            ("DCI 4K NEE", headline, RenderConfig(**{**HEADLINE, **NEE, **DCI_4K}), Camera()),
+            ("1080p 17 spp unregenerated", config1_scene("cuda"), RenderConfig(**UNREGENERATED), Camera()))
+
+
+def large_ray_order(label, scene, cfg, camera, smi):
+    """The sort and the packet order on a large frame's first trace's rays
+    as the main path sorts and traverses them: the sort's perm equal to
+    torch.sort(key, stable=True).indices over all n and its rows to the
+    gather, its launches the wrapper's count; the packet order of the
+    route's pre-pass weights equal to its plain version.  Times with the
+    L2 flushed: the sort beside its bound (the rows' bytes, ray_order_bytes)
+    and the bytes its passes move through the keys and indices (16 B a ray
+    a pass), plain, torch.sort of the key; the packet order beside the
+    traversal it orders (that launch with its pre-pass and order), its
+    plain version and argsort.  Returns {"sort": ..., "order": ...}."""
+    acc = scene.accel
+    spp = cfg.samples_per_launch  # the first trace's rays as render_pixels spawns them: per pixel its samples
+    o, d, _ = camera_ops.camera_paths(camera_arrays(camera, cfg, scene.device), cfg, 0, 0,
+                                      cfg.width * cfg.height * spp, per=spp)
+    n = o.shape[0]
+    box = (acc.scene_lo, acc.scene_hi)
+    bits = (acc._spatial_bits(cfg) if acc._want_sort(cfg) == "spatial" else 0, acc._dir_bits(cfg))
+    set_counts_zero()
+    o_s, d_s, perm = ray_sort.sort_rays_cuda(o, d, *box, *bits)
+    launches = ray_sort.sort_rays.launches
+    key = ray_sort.sort_key_plain(o, d, *box, *bits)
+    want = torch.sort(key, stable=True).indices
+    o_p, d_p = ray_sort.gather_rays_plain(o, d, want)
+    if not (torch.equal(perm, want) and same_bits(o_s, o_p) and same_bits(d_s, d_p)):
+        raise SystemExit(f"[{label}] FAIL: the sort of {n} rays and torch.sort's stable order and gather differ")
+    if launches != ray_sort.sort_launches(n, *bits) or not ray_sort.wide_status(n):
+        raise SystemExit(f"[{label}] FAIL: {launches} sort launches for {n} rays")
+    del o_p, d_p, want
+    passes = ray_sort.digit_passes(*bits)
+    sort_ms = _time_cold(lambda _: ray_sort.sort_rays_cuda(o, d, *box, *bits), [None] * 6)
+    plain_ms = _time_ms(lambda: ray_sort.sort_rays_plain(o, d, *box, *bits), 2)
+    library_ms = _time_ms(lambda: torch.sort(key, stable=True), 3)
+    rows = ray_order_bytes(n, None, False)["sort"]
+    bound_ms, bound_by = bound(rows, 0)
+    pass_bytes = rows + 16 * n * passes
+    route, args = acc.traversal(o_s, d_s, cfg.t_min, cfg.t_max, cfg)
+    traverse = KERNELS[ROUTE_KERNELS[route][0]][6]
+    stem = ic._STEMS[route, False]
+    weights = ic.packet_weights(getattr(cuda_build.library(f"{stem}.cu"), f"{stem}_weights"),
+                                args[1] if route == "flat" else args[2], o_s, d_s, cfg.t_min, cfg.t_max,
+                                acc._rpt(cfg))
+    if not torch.equal(ray_sort.packet_order_cuda(weights), ray_sort.packet_order_plain(weights)):
+        raise SystemExit(f"[{label}] FAIL: the packet order kernel and its plain version differ")
+    packets = weights.shape[0]
+    order_ms = _time_cold(lambda _: ray_sort.packet_order_cuda(weights), [None] * 11)
+    order_plain_ms = _time_ms(lambda: ray_sort.packet_order_plain(weights), 5)
+    argsort_ms = _time_cold(lambda _: torch.argsort(weights, descending=True, stable=True), [None] * 11)
+    traversal_ms = _time_cold(lambda _: traverse(*args), [None] * 3)
+    order_bound_ms, order_by = bound(packets * 8, order_compares(packets))
+    print(f"[{label}] {n} rays, {bits[0]} spatial and {ray_sort.key_dir_bits(*bits)} direction bits, {passes} "
+          f"passes, 64-bit status words: perm equal to torch.sort's stable order, rows to the gather (0 ulp), "
+          f"{launches} launches; sort {sort_ms:.4f} ms ({sort_ms * 1e6 / n:.4f} ns a ray), plain {plain_ms:.4f}, "
+          f"torch.sort of the key {library_ms:.4f}; bound {bound_ms:.4f} ms by {bound_by} ({rows} B), with the "
+          f"passes' keys and indices {pass_bytes / PEAK_BYTES * 1e3:.4f} ms ({pass_bytes} B); packet order of "
+          f"{packets} packets bit-equal, {order_ms:.4f} ms, plain {order_plain_ms:.4f}, argsort {argsort_ms:.4f}, "
+          f"bound {order_bound_ms:.5f} by {order_by}, beside the {route} traversal it orders {traversal_ms:.4f} "
+          f"ms ({100 * order_ms / traversal_ms:.2f}%) | {smi}", flush=True)
+    return dict(sort=dict(rays=n, ms=sort_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, pass_bound_ms=pass_bytes / PEAK_BYTES * 1e3),
+                order=dict(packets=packets, ms=order_ms, plain_ms=order_plain_ms, library_ms=argsort_ms,
+                           bound_ms=order_bound_ms, bound_by=order_by, traversal_ms=traversal_ms))
+
+
+def large_render(label, scene, cfg, camera, smi):
+    """A large frame (one render_rays batch) with the kernels, graphed: the
+    frame at subframe 0 that captures the plan, then the same frame timed
+    (replays), every launch counted as phase_render counts them (the
+    route's closest hit, and any hit under NEE, the path step and the
+    bounce kernel once an iteration, the NEE kernel once an iteration
+    under NEE, the camera kernel once, the sort's launches for the whole
+    batch once a trace, the caller-order store, no other kernel); then the
+    frame under ops.cuda_build.plain(): image, iterations, segments and
+    shadow segments bit-equal.  The launches as check_frame_launches
+    counts them.  The peak bytes a lane of each arm
+    (torch.cuda.max_memory_allocated over the frame that builds the plan,
+    less what was allocated before it), and from the kernels' the most
+    lanes the card's memory holds.  Returns the numbers."""
+    nee = cfg.env_importance_sampling
+    cam = camera_arrays(camera, cfg, scene.device)
+    lanes = cfg.width * cfg.height * cfg.samples_per_launch
+
+    def peak_frame(plain=False):
+        graph_loop.clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with cuda_build.plain() if plain else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            img, stats = render_frame_stats(scene, cam, cfg, 0)
+            torch.cuda.synchronize()
+        return img, stats, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base, base
+
+    captures = graph_loop.stats["captures"]
+    _, _, first_s, peak, base = peak_frame()
+    set_counts_zero()
+    t0 = time.perf_counter()
+    img, stats = render_frame_stats(scene, cam, cfg, 0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    iters, segs, shadow = stats["iters"], int(stats["segments"]), int(stats["shadow_segments"])
+    if stats["schedule"] != "rays" or not stats["graphed"] or graph_loop.stats["captures"] - captures != 1:
+        raise SystemExit(f"[{label}] FAIL: schedule {stats['schedule']}, graphed {stats['graphed']}")
+    route = scene.accel.route(cfg)
+    check_frame_launches(label, scene, cfg, counts, iters, "rays", 1)
+    if not bool(torch.isfinite(img).all()) or not float(img.max()) > 0.0:
+        raise SystemExit(f"[{label}] FAIL: the frame is non-finite or black")
+    img = img.clone()
+    img_p, stats_p, plain_s, plain_peak, _ = peak_frame(plain=True)
+    same = (same_bits(img, img_p) and stats_p["iters"] == iters and int(stats_p["segments"]) == segs
+            and int(stats_p["shadow_segments"]) == shadow)
+    if not same:
+        raise SystemExit(f"[{label}] FAIL: the kernels' frame and plain()'s differ (iterations {iters} and "
+                         f"{stats_p['iters']}, segments {segs} and {int(stats_p['segments'])})")
+    del img_p
+    graph_loop.clear()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    per_lane = peak / lanes
+    most = int((total - base) // per_lane)
+    print(f"[{label}] {scene.num_triangles} triangles, {route} route{', NEE' if nee else ''}, {cfg.width}x"
+          f"{cfg.height} {cfg.samples_per_launch} spp depth {cfg.max_depth}: {lanes} lanes in one render_rays "
+          f"batch, graphed; {iters} iterations, {segs} segments, {shadow} shadow segments; "
+          f"{dt:.4f} s/launch (replays; {(segs + shadow) / dt / 1e6:.4f} Mrays/s), the capturing frame "
+          f"{first_s:.4f} s, plain() {plain_s:.4f} s; image, iterations and segments bit-equal to plain(); "
+          f"launches {launched(counts)}; peak {peak} B over the frame's set-up, {per_lane:.1f} B a lane "
+          f"(plain() {plain_peak / lanes:.1f}); {total} B on the card, {base} B before the frame: at most {most} "
+          f"lanes ({most // (1920 * 1080)} spp unregenerated at 1080p, a 1-spp frame of {most} pixels) | {smi}",
+          flush=True)
+    return dict(lanes=lanes, iters=iters, segments=segs, shadow_segments=shadow, seconds=dt,
+                mrays=(segs + shadow) / dt / 1e6, bytes_per_lane=per_lane, plain_bytes_per_lane=plain_peak / lanes,
+                most_lanes=most, counts=counts)
+
+
+def large_path_step(label, scene, cfg, camera, smi):
+    """The path step on the unregenerated frame's buffers after two
+    iterations (35,251,200 lanes: the two-word count), against
+    path_step_plain: every buffer bit-equal; ms with the L2 flushed beside
+    the plain version and the bound of the bytes it must move
+    (path_bytes)."""
+    n = cfg.width * cfg.height * cfg.samples_per_launch
+    st, tb, kw = path_lane_state(scene, cfg, camera, "rays", n, 2, per=cfg.samples_per_launch)
+    st_k, st_p = ({k: v.clone() for k, v in st.items()} for _ in range(2))
+    set_counts_zero()
+    fs.path_step_cuda(tb, st_k, **kw)
+    fs.path_step_plain(tb, st_p, **kw)
+    torch.cuda.synchronize()
+    bad = [k for k in st if not same_bits(st_k[k], st_p[k])]
+    if bad or fs.path_step.launches != 1:
+        raise SystemExit(f"[{label}] FAIL: the path step at {n} lanes and its plain version differ in {bad}")
+    del st_k, st_p
+    ms = _time_cold(lambda s_: fs.path_step_cuda(tb, s_, **kw), [{k: v.clone() for k, v in st.items()}
+                                                                  for _ in range(4)])
+    plain_ms = _time_over(lambda s_: fs.path_step_plain(tb, s_, **kw), [{k: v.clone() for k, v in st.items()}
+                                                                         for _ in range(3)])
+    n_bytes, n_live, n_newly = path_bytes(tb, st, kw)
+    bound_ms, bound_by = bound(n_bytes, 15 * n_live + 3 * n_newly)
+    print(f"[{label}] rays, {n} lanes after 2 iterations (two-word count): every buffer, done and segments "
+          f"bit-equal (0 ulp); {n_live} live lanes, {n_newly} paths ended; {ms:.4f} ms (L2 flushed), plain "
+          f"{plain_ms:.4f}; {n_bytes} B: bound {bound_ms:.4f} ms by {bound_by} | {smi}", flush=True)
+    return dict(lanes=n, live=n_live, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def large_cli(label, hero, root, smi):
+    """The CLI on the hero stand-in's scene file at 4096x2160, one sample a
+    launch (render_rays over 8,847,360 lanes, depth 20, DOF, the flat
+    route): one capture, every launch counted (check_launches), the PNG
+    and the accumulation finite and not black."""
+    out = root / "hero_dci.png"
+    r, counts, log = cli_launches(label, ["--scene-file", hero, "--dim", "4096x2160", "-s", "1", "--spp", "1",
+                                          "--file", out, "--no-scene-cache"])
+    cfg = r.cfg
+    if (cfg.width, cfg.height, cfg.samples_per_launch) != (4096, 2160, 1) or [e["schedule"] for e in log] != ["rays"]:
+        raise SystemExit(f"[{label}] FAIL: {cfg.width}x{cfg.height}, {cfg.samples_per_launch} spp, schedules "
+                         f"{[e['schedule'] for e in log]}")
+    iters = check_launches(label, counts, log, (ROUTE_KERNELS[r.scene.accel.route(cfg)][0], "kp"))
+    img = load_png(str(out))
+    if img.shape != (2160, 4096, 3) or not img.mean() > 0:
+        raise SystemExit(f"[{label}] FAIL: output {img.shape}, mean {img.mean()}")
+    if not bool(torch.isfinite(r.accum).all()) or not float(r.accum.max()) > 0.0:
+        raise SystemExit(f"[{label}] FAIL: the accumulation is non-finite or black")
+    print(f"[{label}] hero stand-in, {r.scene.accel.route(cfg)} route, 4096x2160, 1 spp a launch, depth "
+          f"{cfg.max_depth}, DOF {cfg.dof}: s/launch {' '.join(f'{t:.4f}' for t in r.frame_times)}; {iters} "
+          f"iterations, {sum(e['segments'] for e in log)} segments; launches {launched(counts)}; out {img.shape}, "
+          f"mean {img.mean():.4f}, finite | {smi}", flush=True)
+
+
+def phase_large(label, hero, root, smi):
+    """Frames past the old 32-bit counters (large_cases): the sort and the
+    packet order on the DCI-4K frame's and the unregenerated frame's rays
+    (large_ray_order); the three frames against plain() (large_render);
+    the path step at 35,251,200 lanes (large_path_step); the CLI at
+    4096x2160 (large_cli).  Returns the numbers for the kernels line."""
+    t0 = time.perf_counter()
+    graph_loop.clear()
+    torch.cuda.empty_cache()
+    cases = large_cases()
+    (_, dci, dci_cfg, cam), _, (_, c1, c1_cfg, cam1) = cases
+    out = {"order": {}, "renders": {}}
+    for name, sc, cfg_, camera in (cases[0], cases[2]):
+        got = large_ray_order(f"{label} ray order {name}", sc, cfg_, camera, smi)
+        out["sort_" + name], out["order"][name] = got["sort"], got["order"]
+        torch.cuda.empty_cache()
+    for name, sc, cfg_, camera in cases:
+        out["renders"][name] = large_render(f"{label} render {name}", sc, cfg_, camera, smi)
+    out["path_step"] = large_path_step(f"{label} path step", c1, c1_cfg, cam1, smi)
+    torch.cuda.empty_cache()
+    large_cli(f"{label} CLI", hero, root, smi)
+    graph_loop.clear()
+    torch.cuda.empty_cache()
+    print(f"[{label}] {time.perf_counter() - t0:.1f} s | {smi}", flush=True)
+    return out
+
+
 def ray_order_cases(scene, config4):
     """Phase 38's rays: (name, scene, RenderConfig, camera, camera rays,
     any hit) of the headline (`scene`) and config 4 (`config4`)."""
@@ -4520,6 +4792,8 @@ def main() -> int:
                         help="run phase 39 alone (after the device and build phases)")
     parser.add_argument("--brute", action="store_true",
                         help="run phase 40 alone (after the device and build phases)")
+    parser.add_argument("--large", action="store_true",
+                        help="run phase 41 alone (after the device and build phases)")
     parser.add_argument("--shard-worker", nargs=3, metavar=("PORT", "RANK", "OUT"), help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.shard_worker:
@@ -4555,6 +4829,10 @@ def main() -> int:
             hero_scene, hero_camera, hero_cfg = load_scene_file(str(hero), device="cuda", cache_dir=f"{tmp}/cache")
             phase_brute("40 brute force", (headline_scene("cuda"), RenderConfig(**{**HEADLINE, **NEE}), Camera()),
                         brute_config1(), (hero_scene, hero_cfg, hero_camera), Path(tmp), smi)
+        return 0
+    if args.large:
+        with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR.parent, prefix="chip_smoke_") as tmp:
+            phase_large("41 large frames", write_hero(Path(tmp)), Path(tmp), smi)
         return 0
     cfg = RenderConfig(**HEADLINE)
     cfg_nee = RenderConfig(**{**HEADLINE, **NEE})
@@ -4657,6 +4935,7 @@ def main() -> int:
         brute_numbers, brute_cli_counts = phase_brute("40 brute force", (scene, cfg_nee, Camera()), brute_config1(),
                                                       (hero_scene, hero_cfg, hero_camera), root, smi)
         numbers.update(brute_numbers)
+        large = phase_large("41 large frames", hero, root, smi)
     print("[launches on the CLI renders] " + "; ".join(
         f"{name}: " + ", ".join(f"{KERNELS[kid][0]} {n}" for kid, n in counts.items() if n)
         for name, counts in cli_counts.items()))
@@ -4669,12 +4948,20 @@ def main() -> int:
     # numbers off the fused stream's envelope (phase 18b) as `widened`.
     # the ray-order kernels also give their launches in phase 14's NEE render.
     # The brute-force kernels also give their launches on the bench's other
-    # brute-force presets.
+    # brute-force presets.  The sort, the packet order and the path step
+    # also give their numbers at phase 41's sizes as `large` (the sort and
+    # the packet order on the DCI-4K frame's and the unregenerated 17-spp
+    # frame's first trace, the path step at 35,251,200 lanes), and their
+    # launches in phase 41's DCI-4K render as `launches_dci_4k`.
+    dci_counts = large["renders"]["DCI 4K"]["counts"]
     extra = {"ks": dict(plain_arm_launches=plain_arm["ks"]),
              "kbc": dict(launches_config3_nee=brute_counts["config 3 NEE"]["kbc"],
                          launches_config1=brute_counts["config 1"]["kbc"], launches_cli=brute_cli_counts["kbc"]),
              "k7": dict(launches_nee=renders["14"]["counts"]["k7"], widened=stream_steps),
-             **{k: dict(launches_nee=renders["14"]["counts"][k]) for k in RAY_ORDER}}
+             **{k: dict(launches_nee=renders["14"]["counts"][k], launches_dci_4k=dci_counts[k]) for k in RAY_ORDER}}
+    extra["kx"]["large"] = {k: v for k, v in large.items() if k.startswith("sort_")}
+    extra["ko"]["large"] = large["order"]
+    extra["kp"] = dict(large=large["path_step"], launches_dci_4k=dci_counts["kp"])
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches[kid], **numbers[kid],
              **extra.get(kid, {}))

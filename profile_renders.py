@@ -55,8 +55,9 @@ largest of the rest.
 --parent-ab NAME ... --parent DIR compares, on each named render at its
 full config, an older checkout's kernels (DIR: its root; chip_smoke's
 PARENT_SOURCES, the NEE and camera kernels and the launches before them,
-and brute force (`brute`, `brute_nee`, `config1_brute`, `study`,
-`study_nee`), built from its csrc/ and launched through this tree's wrappers, whose
+the closest-hit traversals and the ray ordering, and brute force
+(`brute`, `brute_nee`, `config1_brute`, `study`, `study_nee`), built
+from its csrc/ and launched through this tree's wrappers, whose
 launch order they then share) with this tree's, both graphed, in turns
 P C C P P C C P: each turn a first frame at subframe 0 (it captures,
 after every plan is dropped), an unprofiled frame at subframe 1

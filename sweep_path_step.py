@@ -6,9 +6,11 @@ NEE, render_pixels_regen at 131,072 lanes without and with NEE and at a
 
 A build is "change" (csrc/ as it is), "parent" (--parent DIR, an older
 csrc/ directory), any other csrc/ directory (--build NAME=DIR, as often
-as wanted), or "no_grid_sum": csrc/'s path step without its counts and
+as wanted), "no_grid_sum": csrc/'s path step without its counts and
 their sum (its tiles' words; segments, shadow and done are then not
-written), to read the sum's share of the kernel.
+written), to read the sum's share of the kernel, or "wide": csrc/'s path
+step with its two-word count (the layout from 2^25 lanes) at every lane
+count, to read what the wide layout would cost on the main path's pools.
 
 Each build's path step is held bit-equal to path_step_plain on every
 case (no_grid_sum: every buffer but segments, shadow and done), then
@@ -18,7 +20,7 @@ and warm, back to back behind a spin (`chip_smoke._time_over`), alone
 (sweep_builds.in_turns).  One line a build and round, with the card's
 name and power limit.
 
-    python3 sweep_path_step.py [no_grid_sum] [--parent DIR] [--build NAME=DIR ...] [--rounds R]
+    python3 sweep_path_step.py [no_grid_sum] [wide] [--parent DIR] [--build NAME=DIR ...] [--rounds R]
 
 Needs a card.
 """
@@ -52,6 +54,16 @@ def without_grid_sum(text):
     return text[:start] + text[end:]
 
 
+def always_wide(text):
+    """fused_schedule.cu's text with the path step's two-word count at
+    every lane count (kNarrowLanes 0; the stream step then refuses every
+    launch, which this sweep never makes)."""
+    old = "constexpr int kNarrowLanes = 1 << 25;"
+    if old not in text:
+        raise SystemExit("kNarrowLanes was not found in fused_schedule.cu")
+    return text.replace(old, "constexpr int kNarrowLanes = 0;")
+
+
 def cases(scene):
     """(name, buffers, payload, keywords) of each of PATH_STEP_CASES."""
     out = []
@@ -63,7 +75,8 @@ def cases(scene):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("variants", nargs="*", choices=["no_grid_sum"], help="no_grid_sum: the path step's sum cut")
+    parser.add_argument("variants", nargs="*", choices=["no_grid_sum", "wide"],
+                        help="no_grid_sum: the path step's sum cut; wide: its two-word count at every lane count")
     parser.add_argument("--parent", help="an older csrc/ directory to time as well")
     parser.add_argument("--build", action="append", default=[], metavar="NAME=DIR",
                         help="another csrc/ directory to time as well, under NAME")
@@ -73,7 +86,8 @@ def main() -> int:
     start = lambda name, src_dir, edit=None: sweep_builds.start("path_step", name, src_dir, SOURCE, edit)  # noqa: E731
     jobs = ([start("parent", args.parent)] if args.parent else []) + [start("change", cuda_build.CSRC_DIR)]
     jobs += [start(name, d) for name, d in (b.split("=", 1) for b in args.build)]
-    jobs += [start("no_grid_sum", cuda_build.CSRC_DIR, without_grid_sum) for _ in set(args.variants)]
+    edits = dict(no_grid_sum=without_grid_sum, wide=always_wide)
+    jobs += [start(name, cuda_build.CSRC_DIR, edits[name]) for name in sorted(set(args.variants))]
     cuda_build.build_libraries()
     builds = sweep_builds.finish(jobs, ("path_step_kernel",))
     sets = cases(cs.headline_scene("cuda"))
@@ -91,7 +105,8 @@ def main() -> int:
                 raise SystemExit(f"sweep_path_step: {name} on {case} differs from path_step_plain in {bad}")
         live = int((~st["terminated" if kw["schedule"] == "rays" else "exhausted"]).sum())
         print(f"[{case}] {st['seeds'].shape[0]} lanes, {live} live; every build bit-equal to path_step_plain"
-              f"{' (no_grid_sum: but ' + ', '.join(NOT_SUMMED) + ')' if args.variants else ''}", flush=True)
+              f"{' (no_grid_sum: but ' + ', '.join(NOT_SUMMED) + ')' if 'no_grid_sum' in args.variants else ''}",
+              flush=True)
 
     def times(lib):
         line = []

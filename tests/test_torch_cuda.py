@@ -18,6 +18,7 @@ file imports no JAX, so it runs where only the port is installed:
 
 import contextlib
 import functools
+import gc
 import os
 import sys
 
@@ -2279,3 +2280,226 @@ def brute_nee_pair(device):
     blocked = occ[b["cand"]]
     assert int(b["cand"].sum()) > 1000 and 0 < int(blocked.sum()) < blocked.shape[0]
     return pair, radiance, want["radiance"], want["spec_last"], (-(-n // 128), 128)
+
+
+# ---------------------------------------------------------------------------
+# Batches past the old 32-bit counters: the sort's 64-bit status words
+# above 2^23 - 1 rays, the path step's wide count layout from 2^25 lanes,
+# the traversal's 64-bit row offsets past 715,827,882 rays
+# ---------------------------------------------------------------------------
+
+# around the narrow status word's last count, and 1080p at 17 spp without
+# regeneration (35,251,200 rays in one render_rays batch)
+WIDE_SORT_COUNTS = [2**23 - 1, 2**23, 35_251_200]
+# the main path's key (7 spatial and 2 direction bits: 4 passes), the widest
+WIDE_SORT_BITS = [(7, 2), (9, 4)]
+
+
+def device_rays(seed, n, dev):
+    """n rays made on the card from `seed` (a host pass at these sizes
+    takes seconds): origins around the three-spheres scene, directions at
+    random, the first tenth one ray (ties in every key setting)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    o = torch.randn((n, 3), generator=g, device=dev) * torch.tensor([5.0, 2.0, 5.0], device=dev)
+    o += torch.tensor([0.0, 2.5, 0.0], device=dev)
+    d = torch.nn.functional.normalize(torch.randn((n, 3), generator=g, device=dev), dim=1)
+    o[: n // 10], d[: n // 10] = o[0].clone(), d[0].clone()
+    return o, d
+
+
+@pytest.fixture(scope="module")
+def wide_sort_inputs():
+    """{n: (origins, directions, box)} for WIDE_SORT_COUNTS, on the card."""
+    if not torch.cuda.is_available():  # a module fixture is set up before the function's `cuda`
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    box = build_accel(procedural.three_spheres_scene(8, 16, device=dev)).accel
+    return {n: (*device_rays(n % 9973, n, dev), (box.scene_lo, box.scene_hi)) for n in WIDE_SORT_COUNTS}
+
+
+@pytest.mark.parametrize("mask", ["none", "some"])
+@pytest.mark.parametrize("n", WIDE_SORT_COUNTS)
+def test_sort_rays_past_the_narrow_status_word(cuda, wide_sort_inputs, n, mask):
+    """The radix sort one below and at the narrow status word's limit and
+    at 35,251,200 rays (64-bit status words from 2^23 on), with and
+    without a mask: perm equal to torch.sort(key, stable=True).indices
+    over all n, the sorted rays bit-equal to the gather
+    (sort_rays_plain), 1 + 4 launches."""
+    o, d, box = wide_sort_inputs[n]
+    active = sort_mask(mask, n, cuda)
+    assert ray_sort.wide_status(n) == (n > 2**23 - 1)
+    for bits in WIDE_SORT_BITS:
+        (o_s, d_s, perm), launched = launch_delta(ray_sort.sort_rays, o, d, *box, *bits, active=active)
+        key = ray_sort.sort_key_plain(o, d, *box, *bits, active)
+        want = torch.sort(key, stable=True).indices
+        o_p, d_p = ray_sort.gather_rays_plain(o, d, want, active, *box)
+        torch.cuda.synchronize()
+        assert launched == (1 + ray_sort.digit_passes(*bits), 0, 0) == (5, 0, 0), bits
+        assert torch.equal(perm, want), bits
+        assert same_bits(o_s, o_p) and same_bits(d_s, d_p), bits
+        del o_s, d_s, perm, key, want, o_p, d_p
+
+
+def test_sort_rays_wide_replayed_1000_times(cuda, wide_sort_inputs):
+    """At 8,388,608 rays (64-bit status words): a closest-hit sort and a
+    masked shadow sort on one scratch, captured in one CUDA graph and
+    replayed 1,000 times (8 pass launches a replay: the 127 tags wrap
+    every 16 replays), the inputs changed between replays: every checked
+    replay bit-equal to the plain version, under
+    set_sync_debug_mode("error")."""
+    n = 2**23
+    o, d, box = wide_sort_inputs[n]
+    bits = (7, 2)
+    masks = [sort_mask("some", n, cuda), ~sort_mask("some", n, cuda)]
+    src = [(o, d), (torch.flip(o, (0,)), torch.flip(d, (0,)))]
+    o_in, d_in, act_in = o.clone(), d.clone(), masks[0].clone()
+    ray_sort.sort_rays(o_in, d_in, *box, *bits)  # the library and the scratch, outside the capture
+    ray_sort.sort_rays(o_in, d_in, *box, *bits, active=act_in)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        closest = ray_sort.sort_rays(o_in, d_in, *box, *bits)
+        shadow = ray_sort.sort_rays(o_in, d_in, *box, *bits, active=act_in)
+    checked = 0
+    for r in range(1000):
+        k = r % 2
+        o_in.copy_(src[k][0])
+        d_in.copy_(src[k][1])
+        act_in.copy_(masks[k])
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            graph.replay()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if r < 6 or r % 97 == 0 or r >= 996:
+            want_c = ray_sort.sort_rays_plain(*src[k], *box, *bits)
+            want_s = ray_sort.sort_rays_plain(*src[k], *box, *bits, masks[k])
+            torch.cuda.synchronize()
+            for got, want in ((closest, want_c), (shadow, want_s)):
+                assert all(same_bits(g, w) for g, w in zip(got, want)), r
+            checked += 1
+    assert checked >= 20
+
+
+def wide_path_state(lanes, seed, dev, schedule, share, nee):
+    """path_state's buffers and payload at `lanes`, made on the card from
+    `seed`: exactly round(share * lanes) lanes ended, payload attenuations
+    with zeros, values above 1 and NaNs; reachable as the loop leaves them
+    (-0.0 in accum on live lanes only, which a step makes +0.0: a payload
+    radiance of -0.0 would keep it -0.0 on a lane that ends, which no loop
+    reaches; the regen buffer zeroed); under NEE ("mis"), float32 env
+    credits."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def vec3(lo, hi):
+        return torch.rand((lanes, 3), generator=g, device=dev) * (hi - lo) + lo
+
+    def coin(p):
+        return torch.rand(lanes, generator=g, device=dev) < p
+
+    def u32():
+        return torch.randint(0, 2**32, (lanes,), generator=g, device=dev, dtype=torch.int64)
+
+    att = vec3(0.0, 1.3)
+    att[coin(0.05)] = 0.0
+    att[coin(0.01), 1] = float("nan")
+    tb = dict(origin=vec3(-5, 5), direction=vec3(-1, 1), attenuation=att, radiance=vec3(0.0, 4.0), seeds=u32(),
+              done=coin(0.3))
+    ended = torch.zeros(lanes, dtype=torch.bool, device=dev)
+    ended[torch.randperm(lanes, generator=g, device=dev)[: int(round(share * lanes))]] = True
+    st = dict(origin=vec3(-5, 5), direction=vec3(-1, 1), attenuation=vec3(0, 1), radiance=vec3(0, 2), seeds=u32(),
+              depth=torch.randint(0, 5, (lanes,), generator=g, device=dev, dtype=torch.int32),
+              done=torch.tensor(False, device=dev), segments=torch.tensor(1000, device=dev),
+              shadow=torch.tensor(50, device=dev), spec_last=torch.ones(lanes, dtype=torch.bool, device=dev))
+    if schedule == "rays":
+        st.update(terminated=ended, result=vec3(0, 3))
+    else:
+        st.update(exhausted=ended, sample_i=torch.randint(0, 3, (lanes,), generator=g, device=dev,
+                                                          dtype=torch.int32),
+                  accum=vec3(0, 6), regen=torch.zeros(lanes, dtype=torch.bool, device=dev))
+        minus = torch.zeros(lanes, dtype=torch.bool, device=dev)
+        minus[::97] = True
+        st["accum"][minus & ~ended] = -0.0
+    if nee == "mis":
+        tb["hit"] = coin(0.7)
+        tb["spec_last"], st["spec_last"] = torch.rand(lanes, generator=g, device=dev), torch.rand(
+            lanes, generator=g, device=dev)
+    return tb, st
+
+
+WIDE_PATH_LANES = (2**25 - 1, 2**25, 2**25 + 1)  # the narrow count word's last grid, the wide one's first two
+# (lanes, share ended, schedule, NEE): every share without NEE; NEE with
+# float32 credits at half ended
+WIDE_PATH_CASES = [(n, share, schedule, "off") for n in WIDE_PATH_LANES for share in (0.0, 0.5, 1.0)
+                   for schedule in ("rays", "regen")] + [
+    (n, 0.5, schedule, "mis") for n in WIDE_PATH_LANES for schedule in ("rays", "regen")]
+
+
+@pytest.mark.parametrize("lanes,share,schedule,nee", WIDE_PATH_CASES,
+                         ids=[f"{n}-{s}-{c}-{e}" for n, s, c, e in WIDE_PATH_CASES])
+def test_path_step_at_the_wide_count_word(cuda, lanes, share, schedule, nee):
+    """The path step at 2^25 - 1 lanes (the one-word count's last grid)
+    and at 2^25 and 2^25 + 1 (live lanes and arrivals in one word, the
+    tiles not ended in another), with none, half and all of the lanes
+    ended, on both schedules, and at half ended under NEE with float32
+    credits (the hit sum beside the two words): every buffer, segments,
+    shadow, done and the regen mask bit-equal to path_step_plain; then a
+    second step on the same scratch (the words it left at 0) bit-equal
+    too; one launch counted a step."""
+    seed = lanes % 977 + int(10 * share) + 3 * (schedule == "regen") + 7 * (nee == "mis")
+    tb, st = wide_path_state(lanes, seed, cuda, schedule, share, nee)
+    kw = dict(schedule=schedule, spp=3, max_depth=4, rr_reference=False, nee=nee != "off")
+    st_k = {k: v.clone() for k, v in st.items()}
+    st_p = {k: v.clone() for k, v in st.items()}
+    del st
+    for step in range(2):
+        before = fs.path_step.launches
+        regen_k = fs.path_step(tb, st_k, **kw)
+        regen_p = fs.path_step_plain(tb, st_p, **kw)
+        torch.cuda.synchronize()
+        assert fs.path_step.launches == before + 1
+        assert_path_step_equal(st_k, st_p, regen_k, regen_p, (share, step))
+        tb = wide_path_state(lanes, seed + 100, cuda, schedule, 0.0, nee)[0]
+
+
+def far_rays(n, tail, dev):
+    """n rays whose last `tail` are rays() toward the three-spheres scene
+    and the rest parked at (3e37, 0, 0) pointing +x (they meet no box)."""
+    o = torch.empty((n, 3), device=dev)
+    d = torch.empty((n, 3), device=dev)
+    o[: n - tail] = torch.tensor([3.0e37, 0.0, 0.0], device=dev)
+    d[: n - tail] = torch.tensor([1.0, 0.0, 0.0], device=dev)
+    o_t, d_t = (x.to(dev) for x in rays(31, tail, parked=0))
+    o[n - tail:], d[n - tail:] = o_t, d_t
+    return o, d, o_t, d_t
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_traversal_past_a_32_bit_row_offset(cuda, any_hit):
+    """The flat traversal kernels (1 and 4) on 716,800,000 rays, where 3 i
+    (a ray's first float) passes 2^31 from ray 715,827,883 on: the last
+    131,072 rays' Hit (closest hit, restored in the kernel's store) and
+    occluded flags bit-equal to the same kernel on those rays alone (the
+    same packets of 1,024); the rest, parked, miss."""
+    gc.collect()  # ~30 GB: nothing of earlier tests may hold the card
+    torch.cuda.empty_cache()
+    n, tail = 700_000 * 1024, 131_072
+    assert 3 * (n - tail) > 2**31
+    acc = build_accel(procedural.three_spheres_scene(8, 16, device=cuda)).accel
+    o, d, o_t, d_t = far_rays(n, tail, cuda)
+    fn = ic.occluded_clusters_cuda if any_hit else ic.intersect_clusters_cuda
+    args = (acc.tris16bw, acc.aabb8, acc.order)
+    got = fn(*args, o, d, 0.01, 1e16, 1024, restore=True)
+    want = fn(*args, o_t, d_t, 0.01, 1e16, 1024, restore=True)
+    torch.cuda.synchronize()
+    if any_hit:
+        assert torch.equal(got[n - tail:], want) and not bool(got[: n - tail].any())
+        assert int(want.sum()) > 1000
+    else:
+        for f in ("t", "prim", "bary", "hit"):
+            assert same_bits(getattr(got, f)[n - tail:], getattr(want, f)), f
+        assert not bool(got.hit[: n - tail].any()) and int(want.hit.sum()) > 1000
+    del got, want, o, d
+    torch.cuda.empty_cache()

@@ -43,6 +43,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from tpu_pathtracer_torch.ops import cuda_build  # noqa: E402
 from tpu_pathtracer_torch.ops import fused_schedule as fs  # noqa: E402
 from tpu_pathtracer_torch.render import integrator  # noqa: E402
 
@@ -122,36 +123,50 @@ def max_nan(a, b):
 
 OPEN_SHIFT, ARRIVAL_SHIFT = 25, 43  # the kernel's kOpenShift, kArrivalShift
 TILE_BITS = ARRIVAL_SHIFT - OPEN_SHIFT  # the tiles-not-ended field, and the arrivals
+NARROW_LANES = 2**25  # kNarrowLanes: from here on the wide layout
+WIDE_ARRIVAL_SHIFT = 32  # kWideArrivalShift: live lanes below, arrivals above
+U64 = np.uint64
 
 
-def packed_sum(scratch, counts, rs):
+def packed_sum(scratch, counts, rs, wide=False):
     """The path step's totals over the blocks' counts ([tiles, 3]: live,
-    hit, not ended) on `scratch` ([the count word, the hit sum], zeroed
-    once): each block adds its hit lanes into the hit sum, then (after its
-    fence) adds its live lanes, whether it has a lane not ended, and one
-    arrival into the count word in one atomic; the block whose add finds
-    T - 1 arrivals reads the totals (its add's result and its own, and the
-    hit sum) and sets both words to 0.  The blocks' steps interleave at
-    random (each block's two in its order).  Returns (live lanes, hit
-    lanes, tiles with a lane not ended)."""
+    hit, not ended) on `scratch` ([the count word, the hit sum, the tiles
+    not ended], zeroed once; the narrow layout uses the first two): each
+    block adds its hit lanes into the hit sum (wide: and 1 into the tiles
+    not ended if it has such a lane), then, after its fence, adds its live
+    lanes, whether it has a lane not ended (narrow) and one arrival into
+    the count word in one atomic; the block whose add finds T - 1 arrivals
+    reads the totals (its add's result and its own, and the other words)
+    and sets them all to 0.  The blocks arrive in a random order; a
+    block's adds before its arrival are all in by the last one's.  The
+    count word in 64-bit arithmetic, as the card's: a field that
+    overflows carries into the next, and the word wraps.  Returns (live
+    lanes, hit lanes, tiles with a lane not ended), or None where no
+    block read the totals."""
     tiles = counts.shape[0]
-    # the 2T steps in a random order: block b's first step at the earlier of its two times
-    times = rs.permutation(2 * tiles).reshape(tiles, 2)
-    order = np.argsort(np.concatenate([times.min(axis=1), times.max(axis=1)]))
-    total = None
-    for event in order.tolist():
-        b = event % tiles
-        if event < tiles:
-            scratch[1] += counts[b, 1]
-            continue
-        mine = int(counts[b, 0]) | int(counts[b, 2] != 0) << OPEN_SHIFT | 1 << ARRIVAL_SHIFT
-        before = int(scratch[0])
-        scratch[0] = before + mine
-        if before >> ARRIVAL_SHIFT == tiles - 1:
-            assert total is None
-            word = before + mine
-            total = np.array([word & (1 << OPEN_SHIFT) - 1, scratch[1], word >> OPEN_SHIFT & (1 << TILE_BITS) - 1])
-            scratch[:] = 0
+    shift = WIDE_ARRIVAL_SHIFT if wide else ARRIVAL_SHIFT
+    open_ = counts[:, 2] != 0
+    mine = counts[:, 0].astype(U64) | U64(1 << shift)
+    if not wide:
+        mine |= open_.astype(U64) << U64(OPEN_SHIFT)
+    order = rs.permutation(tiles)  # the blocks by arrival
+    mine = mine[order]
+    word_after = np.cumsum(mine, dtype=U64) + U64(int(scratch[0]) % 2**64)  # wraps as the card's word
+    word_before = word_after - mine
+    last = np.flatnonzero(word_before >> U64(shift) == U64(tiles - 1))
+    assert last.size <= 1, "two blocks took themselves for the last"
+    scratch[1] += int(counts[:, 1].sum())
+    if wide:
+        scratch[2] += int(open_.sum())
+    if not last.size:
+        return None
+    word = int(word_after[last[0]])
+    if wide:
+        total = np.array([word & (1 << shift) - 1, scratch[1], scratch[2]])
+    else:
+        total = np.array([word & (1 << OPEN_SHIFT) - 1, scratch[1], word >> OPEN_SHIFT & (1 << TILE_BITS) - 1])
+    if last[0] == tiles - 1:  # the last block's read: it sets every word back to 0
+        scratch[:] = 0
     return total
 
 
@@ -227,7 +242,7 @@ def kernel_model(mem: Memory, n, schedule, nee, rr_reference, scratch, rs):
     # ---- the counts, and the totals by the block that arrives last ----------
     hit = live & pay["hit"] if nee != "off" else np.zeros(pad, dtype=bool)
     counts = np.stack([m.reshape(tiles, THREADS).sum(axis=1) for m in (live, hit, ~ended)], axis=1)
-    total = packed_sum(scratch, counts, rs)
+    total = packed_sum(scratch, counts, rs, wide=n >= NARROW_LANES)
     mem.arrays["segments"][...] += total[0]
     if nee != "off":
         mem.arrays["shadow"][...] += total[1]
@@ -321,9 +336,10 @@ def assert_same(got, want, what=""):
 # ---------------------------------------------------------------------------
 
 def scratch_for(n):
-    """A path step's scratch, zeroed once: the count word and the hit
-    sum."""
-    return np.zeros(2, dtype=np.int64)
+    """A path step's scratch, zeroed once: the count word, the hit sum
+    and the tiles not ended (csrc/fused_schedule.cu:
+    fused_step_scratch_words)."""
+    return np.zeros(3, dtype=np.int64)
 
 
 @pytest.mark.parametrize("nee", NEE_MODES)
@@ -402,37 +418,106 @@ def test_model_reads_before_the_wait_what_the_kernel_reads():
     assert loaded == {f for f in fields_read(post) if f.startswith("tb_")}
 
 
-MAX_LANES = 2**25 - 1  # the most lanes the wrapper takes (_lane_count)
+MAX_LANES = 2**31 - 1  # the most lanes the path step's wrapper takes (fs._path_lanes)
+GRIDS = [(MAX_LANES, "every"), (MAX_LANES, "the last"), (MAX_LANES, "none"),
+         (NARROW_LANES - 1, "every"), (NARROW_LANES, "every"), (NARROW_LANES + 1, "every")]
 
 
-@pytest.mark.parametrize("open_tiles", ["every", "the last", "none"])
-def test_count_word_holds_the_largest_grid(open_tiles):
-    """At the most lanes the wrapper takes (2^25 - 1: 2^17 tiles, the
-    last one lane short), every lane live and hit, and every tile, the
-    last or none with a lane not ended: the count word's fields do not
-    carry into each other, the last block to arrive reads exactly the
-    launch's totals, and both words are 0 after it."""
-    tiles = -(-MAX_LANES // THREADS)
-    assert tiles == 2**17 and fs._lane_count({"seeds": torch.empty(MAX_LANES, dtype=torch.int8)}) == MAX_LANES
-    counts = np.full((tiles, 3), THREADS, dtype=np.int64)
-    counts[-1, :2] = MAX_LANES - (tiles - 1) * THREADS
+@pytest.mark.parametrize("lanes,open_tiles", GRIDS, ids=[f"{n}-{o.replace(' ', '_')}" for n, o in GRIDS])
+def test_count_word_holds_the_largest_grid(lanes, open_tiles):
+    """At the most lanes the wrapper takes (2^31 - 1: 2^23 tiles, the last
+    one lane short), every lane live and hit, and every tile, the last or
+    none with a lane not ended; and at the largest grid of the narrow
+    layout (2^25 - 1 lanes, 2^17 tiles) and the two smallest of the wide
+    one (2^25 and 2^25 + 1): the count word's fields do not carry into
+    each other, the last block to arrive reads exactly the launch's
+    totals, and every word is 0 after it."""
+    tiles = -(-lanes // THREADS)
+    assert fs._path_lanes({"seeds": torch.zeros(1).expand(lanes)}) == lanes
+    counts = np.full((tiles, 3), THREADS, dtype=np.int16)
+    counts[-1, :2] = lanes - (tiles - 1) * THREADS
     counts[:, 2] = {"every": 1, "the last": np.arange(tiles) == tiles - 1, "none": 0}[open_tiles]
-    scratch = scratch_for(MAX_LANES)
-    total = packed_sum(scratch, counts, np.random.RandomState(17))
-    assert total is not None and total[0] == total[1] == MAX_LANES
+    scratch = scratch_for(lanes)
+    total = packed_sum(scratch, counts, np.random.RandomState(17), wide=lanes >= NARROW_LANES)
+    assert total is not None and total[0] == total[1] == lanes
     assert total[2] == (counts[:, 2] > 0).sum() and (scratch == 0).all()
 
 
+def test_narrow_word_would_carry_past_its_grid():
+    """The narrow layout at 2^25 lanes (every lane live, every tile open)
+    carries its live count into the tiles-not-ended field: why the kernel
+    takes the wide layout from there."""
+    tiles = NARROW_LANES // THREADS
+    counts = np.full((tiles, 3), THREADS, dtype=np.int16)
+    total = packed_sum(scratch_for(NARROW_LANES), counts, np.random.RandomState(5))
+    assert total is None or total[0] != NARROW_LANES or total[2] != tiles
+
+
 def test_count_word_layout_mirrors_the_source():
-    """The model's count word is the kernel's: the live lanes' field, then
-    the tiles-not-ended field, then the arrivals, each wide enough for the
-    most lanes the wrapper takes, the word's 64 bits not exceeded."""
+    """The model's count words are the kernel's: below 2^25 lanes the live
+    lanes' field, then the tiles-not-ended field, then the arrivals; from
+    2^25 on live lanes and arrivals, the tiles not ended in a word of
+    their own; each field wide enough for the most lanes its layout
+    takes, the word's 64 bits not exceeded; the wrappers' limits and the
+    scratch's size the kernel's."""
     text = code("fused_schedule.cu")
     shifts = re.search(r"kOpenShift = (\d+), kArrivalShift = (\d+);", text)
     assert tuple(map(int, shifts.groups())) == (OPEN_SHIFT, ARRIVAL_SHIFT)
     assert re.search(r"kTileMask = \(1ull << %d\) - 1;" % TILE_BITS, text)
-    tiles = -(-MAX_LANES // THREADS)
-    assert MAX_LANES < 1 << OPEN_SHIFT and tiles < 1 << TILE_BITS and ARRIVAL_SHIFT + tiles.bit_length() <= 64
+    assert "constexpr int kNarrowLanes = 1 << 25;" in text and NARROW_LANES == fs.NARROW_LANES
+    assert f"constexpr int kWideArrivalShift = {WIDE_ARRIVAL_SHIFT};" in text
+    assert "kWideLiveMask = (1ull << kWideArrivalShift) - 1;" in text
+    assert "p->n < kNarrowLanes" in text and "return entry == 0 ? kStatus + tiles : 3;" in text
+    narrow_tiles = -(-(NARROW_LANES - 1) // THREADS)
+    assert NARROW_LANES - 1 < 1 << OPEN_SHIFT and narrow_tiles < 1 << TILE_BITS
+    assert ARRIVAL_SHIFT + narrow_tiles.bit_length() <= 64
+    wide_tiles = -(-MAX_LANES // THREADS)
+    assert MAX_LANES < 1 << WIDE_ARRIVAL_SHIFT and WIDE_ARRIVAL_SHIFT + wide_tiles.bit_length() <= 64
+    assert cuda_build.MAX_LANES == MAX_LANES and fs.STREAM_MAX_LANES == NARROW_LANES - 1
+
+
+@pytest.mark.parametrize("lanes", [NARROW_LANES - 1, NARROW_LANES, 35_251_200, MAX_LANES])
+def test_path_step_wrapper_takes_every_grid_an_int32_index_reaches(lanes):
+    """path_step_cuda takes 2^25 lanes and more (1080p at 17 spp without
+    regeneration, 35,251,200) up to 2^31 - 1, stopping only at its check
+    that the buffers lie on a CUDA device; one lane more is refused,
+    naming the int32 index."""
+    st = {"seeds": torch.zeros(1, dtype=torch.int64).expand(lanes)}
+    kw = dict(schedule="rays", spp=1, max_depth=4, rr_reference=False, nee=False)
+    with pytest.raises(ValueError, match="CUDA"):
+        fs.path_step_cuda({}, st, **kw)
+    with pytest.raises(ValueError, match=r"path step's lanes: .*int32: at most 2147483647 \(2\^31 - 1\)"):
+        fs.path_step_cuda({}, {"seeds": torch.zeros(1, dtype=torch.int64).expand(MAX_LANES + 1)}, **kw)
+
+
+def test_kernel_int_fields_refuse_more_than_int32():
+    """Every argument struct's int field (lanes, slots, sizes) takes up to
+    2^31 - 1 and refuses more, naming the field, where ctypes would cut the
+    value silently (ops/bounce._params, which the shading kernels and the
+    steps share)."""
+    from tpu_pathtracer_torch.ops import bounce as bounce_ops
+
+    assert bounce_ops._params(fs.StepParams, {}, {"n": MAX_LANES}, None).n == MAX_LANES
+    with pytest.raises(ValueError, match=r"StepParams\.n: .*int32: at most 2147483647"):
+        bounce_ops._params(fs.StepParams, {}, {"n": MAX_LANES + 1}, None)
+
+
+def test_stream_step_keeps_its_refusal_at_2_25_lanes():
+    """Kernel 7 (the stream step) still counts a tile's retired and live
+    lanes in 25-bit fields of its status words: its wrapper takes 2^25 - 1
+    lanes (stopping at the CUDA check) and refuses 2^25 with a message of
+    its own, naming the stream step and its 25-bit fields."""
+    kw = dict(spp=1, n_pix=1, max_depth=4, rr_reference=False, inv_spp=1.0)
+
+    def state(n):
+        lanes = torch.zeros(1, dtype=torch.int32).expand(n)
+        return {"slot": lanes, "seeds": lanes}
+
+    with pytest.raises(ValueError, match="CUDA"):
+        fs.fused_stream_step_cuda({}, state(NARROW_LANES - 1), None, None, None, **kw)
+    with pytest.raises(ValueError, match=r"stream step \(kernel 7\).*25-bit fields.*2\^25 - 1"):
+        fs.fused_stream_step_cuda({}, state(NARROW_LANES), None, None, None, **kw)
+    assert "entry == 0 && (dependent || p->n >= kNarrowLanes)" in code("fused_schedule.cu")
 
 
 @pytest.mark.parametrize("step", ["plain", "kernel"])

@@ -273,10 +273,23 @@ def test_cuda_entries_refuse_cpu_tensors(scenes, kernel):
         call()
 
 
-def test_sort_rays_refuses_more_rays_than_a_status_word_counts():
-    """The sort kernel's 32-bit status words count up to 2^23 - 1 keys:
-    the entry refuses a larger batch before it touches a device."""
+@pytest.mark.parametrize("n", [2**23 - 1, 2**23, 35_251_200, 2**31 - 1])
+def test_sort_rays_takes_every_batch_an_int32_index_reaches(n):
+    """The sort kernel's status words are 64-bit above 2^23 - 1 keys, so
+    its entry takes any batch up to 2^31 - 1 rays (a 1-spp DCI-4K frame's
+    8,847,360; 1080p at 17 spp, 35,251,200) and stops only at the check
+    that its tensors lie on a CUDA device."""
+    o = torch.zeros((1, 3)).expand(n, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        ray_sort.sort_rays_cuda(o, o, o[0], o[0], 7, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        ray_sort.sort_rays_cuda(o, o, o[0], o[0], 0, 2, torch.ones(1, dtype=torch.bool).expand(n))
+
+
+def test_sort_rays_refuses_more_rays_than_an_int32_index():
+    """Past 2^31 - 1 rays the entry refuses the batch, naming the int32
+    index, before it touches a device."""
     n = ray_sort.MAX_RAYS + 1
     o = torch.zeros((1, 3)).expand(n, 3)
-    with pytest.raises(ValueError, match="at most"):
+    with pytest.raises(ValueError, match=r"rays: .*int32: at most 2147483647 \(2\^31 - 1\), got 2147483648"):
         ray_sort.sort_rays_cuda(o, o, o[0], o[0], 7, 2)

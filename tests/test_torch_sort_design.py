@@ -20,6 +20,10 @@ by a numpy model of them, since the kernels run only on the card:
   time, interleaved at random, on a scratch that is never cleared, past
   the wrap of the tags, and write each digit's keys from a tile staged in
   its sorted order;
+* the status words are 32-bit up to 2^23 - 1 keys and 64-bit above: the
+  wide word holds counts past 2^23 (tile counts synthesized, up to the
+  2^31 - 1 rays an int32 index reaches) with no carry into its flags or
+  tag, where the narrow word would carry, and runs past the tag wrap;
 * the model's permutation equals np.argsort(kind="stable") and JAX's
   lax.sort_key_val permutation of the keys of ray_sort_key (the sort
   inside sort_by_key), with many ties: every key equal, two values, two
@@ -49,9 +53,22 @@ SMALL_MAX = CLUSTER_MAX * TILE
 TILE_ITEMS = (4, 8, 16)                     # keys a thread of the launches over tiles
 WINDOW = 16                                 # earlier tiles' words a look-back step reads
 PAD = 0xFFFFFFFF
-# A status word (32 bits): tag << 25 | flag | count.
-TAG_SHIFT, TAGS = 25, 127
-AGGREGATE, INCLUSIVE, COUNT = 1 << 23, 2 << 23, (1 << 23) - 1
+TAG_BITS, TAGS = 7, 127
+MAX_RAYS = 2**31 - 1                        # an int32 ray index
+
+
+class Layout:
+    """A status word of `bits` bits: tag << shift | flag | count, the tag in
+    the top TAG_BITS bits, the two flags below it, the count below them."""
+
+    def __init__(self, bits):
+        self.dtype = {32: np.uint32, 64: np.uint64}[bits]
+        self.shift = bits - TAG_BITS
+        self.aggregate, self.inclusive = 1 << (self.shift - 2), 2 << (self.shift - 2)
+        self.count = (1 << (self.shift - 2)) - 1
+
+
+NARROW, WIDE = Layout(32), Layout(64)       # up to NARROW.count = 2^23 - 1 keys, and above
 SIZES = [0, 1, 255, 256, 257, 16_383, 16_384, 16_385, 131_072]
 ALL_BITS = [(s, d) for s in range(10) for d in range(5)]
 SCENE_LO, SCENE_HI = torch.tensor([-4.0, 0.0, -2.0]), torch.tensor([4.0, 3.0, 2.0])
@@ -73,9 +90,18 @@ def test_constants_match_the_cuda_source():
         <= set(TILE_ITEMS)
     assert (const("kClusterMax"), const("kWindow")) == (CLUSTER_MAX, WINDOW)
     assert ray_sort.SMALL_MAX == SMALL_MAX
-    assert (const("kTagShift"), const("kTags")) == (TAG_SHIFT, TAGS)
+    assert (const("kTagBits"), const("kTags")) == (TAG_BITS, TAGS)
+    # the status word's fields below its tag, and the word by n
+    assert "kTagShift = 8 * static_cast<int>(sizeof(Word)) - kTagBits;" in src
+    assert "kAggregate = Word{1} << (kTagShift - 2);" in src and "kInclusive = Word{2} << (kTagShift - 2);" in src
+    assert "kCountMask = (Word{1} << (kTagShift - 2)) - 1;" in src
+    assert "using NarrowWord = unsigned;" in src and "using WideWord = unsigned long long;" in src
+    assert "kNarrowMax = static_cast<int>(Status<NarrowWord>::kCountMask);" in src
+    assert "a.n > kNarrowMax ? launch_passes<Items, WideWord>(a, s) : launch_passes<Items, NarrowWord>(a, s)" in src
+    assert NARROW.count == ray_sort.NARROW_MAX == 2**23 - 1 and WIDE.count >= MAX_RAYS == ray_sort.MAX_RAYS
+    assert (NARROW.shift, WIDE.shift) == (25, 57)
     # the scratch: ticket, arrival, then the counts and starts of every pass
-    assert ray_sort.STATUS_OFFSET == 2 + 2 * MAX_PASSES * RADIX and ray_sort.MAX_RAYS == COUNT
+    assert ray_sort.STATUS_OFFSET == 2 + 2 * MAX_PASSES * RADIX
     assert "kStatus = kStarts + kMaxPasses * kRadix" in src and "kStarts = kCounts + kMaxPasses * kRadix" in src
 
 
@@ -176,20 +202,24 @@ def test_digit_passes_cover_the_key(spatial_bits):
 class Scratch:
     """The sort's scratch, zeroed once and never again: the pass
     launches' ticket counter, the keys launch's arrival counter, every
-    pass's digit counts and starts, a status word a tile a digit; for
-    launches over `tiles` tiles of `tile` keys."""
+    pass's digit counts and starts, a status word of `layout` a tile a
+    digit; for launches over `tiles` tiles of `tile` keys."""
 
-    def __init__(self, tiles, tile=TILE):
-        self.tiles, self.tile = tiles, tile
+    def __init__(self, tiles, tile=TILE, layout=NARROW):
+        self.tiles, self.tile, self.layout = tiles, tile, layout
         self.ticket = 0
         self.arrival = 0
         self.counts = np.zeros((MAX_PASSES, RADIX), np.int64)
         self.starts = np.zeros((MAX_PASSES, RADIX), np.int64)
-        self.words = np.zeros((tiles, RADIX), np.uint32)
+        self.words = np.zeros((tiles, RADIX), layout.dtype)
 
 
-def word(tag, flag, count):
-    return (np.uint32(tag) << np.uint32(TAG_SHIFT)) | np.uint32(flag) | count.astype(np.uint32)
+def word(layout, tag, flag, count):
+    """The status words tag << shift | flag | count, cut to the word's bits
+    as the kernel's casts cut them (a count past its field carries into
+    the flags and the tag)."""
+    t = layout.dtype
+    return (t(tag) << t(layout.shift)) | t(flag) | (np.asarray(count).astype(np.uint64) & t(~t(0))).astype(t)
 
 
 def keys_launch(scratch, keys, passes, rs):
@@ -210,7 +240,7 @@ def keys_launch(scratch, keys, passes, rs):
                 scratch.counts[p] = 0
 
 
-def look_back(scratch, totals, rs):
+def look_back(scratch, totals, rs, max_steps=None):
     """The tiles of one pass launch, interleaved at random: take a ticket
     (in start order; tile and tag from it), publish the tile's counts a
     digit (tile 0: inclusive), then, a thread a digit, read the earlier
@@ -218,12 +248,18 @@ def look_back(scratch, totals, rs):
     of this launch's words up to the first inclusive one, and reading
     again from the first word not yet this launch's; then publish the
     inclusive count.  Returns [tiles, digits]: the keys of each digit in
-    earlier tiles."""
+    earlier tiles.  `max_steps`: raise after that many steps (a look-back
+    that can never end)."""
     t = scratch.tiles
     before = np.full((t, RADIX), -1, np.int64)
     agents = []  # started tiles: dict(tile, tag, phase, q, acc, open)
     digit = np.arange(RADIX)
+    lay = scratch.layout
+    steps = 0
     while len(agents) < t or any(a["phase"] != "done" for a in agents):
+        steps += 1
+        if max_steps is not None and steps > max_steps:
+            raise AssertionError(f"the look-back did not end in {max_steps} steps")
         runnable = [a for a in agents if a["phase"] != "done"]
         if len(agents) < t and (not runnable or rs.rand() < 0.3):
             ticket = scratch.ticket
@@ -234,29 +270,29 @@ def look_back(scratch, totals, rs):
         tile, tag = a["tile"], a["tag"]
         if a["phase"] == "publish":
             if tile == 0:
-                scratch.words[0] = word(tag, INCLUSIVE, totals[0])
+                scratch.words[0] = word(lay, tag, lay.inclusive, totals[0])
                 before[0] = 0
                 a["phase"] = "done"
             else:
-                scratch.words[tile] = word(tag, AGGREGATE, totals[tile])
+                scratch.words[tile] = word(lay, tag, lay.aggregate, totals[tile])
                 a.update(phase="look", q=np.full(RADIX, tile - 1), acc=np.zeros(RADIX, np.int64),
                          open=np.ones(RADIX, bool))
             continue
         # one step of every digit still looking: its window, read at once
         window = np.stack([np.where(a["q"] - k >= 0, scratch.words[np.maximum(a["q"] - k, 0), digit],
-                                    word(tag, INCLUSIVE, np.zeros(RADIX, np.int64))) for k in range(WINDOW)])
+                                    word(lay, tag, lay.inclusive, np.zeros(RADIX, np.int64))) for k in range(WINDOW)])
         going, taken = a["open"].copy(), np.zeros(RADIX, np.int64)
         for w in window:
-            going &= (w >> np.uint32(TAG_SHIFT)) == tag
-            a["acc"][going] += (w[going] & np.uint32(COUNT)).astype(np.int64)
+            going &= (w >> lay.dtype(lay.shift)) == tag
+            a["acc"][going] += (w[going] & lay.dtype(lay.count)).astype(np.int64)
             taken += going
-            inclusive = going & ((w & np.uint32(INCLUSIVE)) != 0)
+            inclusive = going & ((w & lay.dtype(lay.inclusive)) != 0)
             a["open"] &= ~inclusive
             going &= ~inclusive
         a["q"] -= np.where(a["open"], taken, 0)
         if not a["open"].any():
             before[tile] = a["acc"]
-            scratch.words[tile] = word(tag, INCLUSIVE, a["acc"] + totals[tile])
+            scratch.words[tile] = word(lay, tag, lay.inclusive, a["acc"] + totals[tile])
             a["phase"] = "done"
     return before
 
@@ -373,6 +409,7 @@ def test_model_sort_equals_stable_argsort_and_jax(n, ties):
     settings = ALL_BITS if n <= 16_385 else [(0, 0), (0, 2), (0, 4), (5, 2), (7, 2), (5, 3), (9, 4)]
     rs = np.random.RandomState(n)
     tile = THREADS * ray_sort.tile_items(n)
+    assert not ray_sort.wide_status(n)
     scratch = Scratch(-(-n // tile), tile) if n > SMALL_MAX else None
     for bits in settings:
         keys = ray_sort.sort_key_plain(o, d, SCENE_LO, SCENE_HI, *bits, active).numpy()
@@ -389,17 +426,21 @@ def test_model_sort_equals_stable_argsort_and_jax(n, ties):
         assert (keys == np.bincount(keys).argmax()).mean() > 0.6  # the parked lanes' one key
 
 
+@pytest.mark.parametrize("layout", ["narrow", "wide"])
 @pytest.mark.parametrize("tiles", [1, 2, 3, 17])
-def test_look_back_past_the_tag_wrap(tiles):
+def test_look_back_past_the_tag_wrap(tiles, layout):
     """300 pass launches on one never-cleared scratch (past the 127 tags
     twice: a launch's tag repeats that of the launch 127 before it), the
     tiles of each interleaved at random: every tile's earlier keys of
     each digit are the exclusive cumsum over tiles, and a word left by the
-    previous launch is never taken as this launch's."""
+    previous launch is never taken as this launch's; with 32-bit words,
+    and with 64-bit words whose tiles' counts (synthesized, as a batch of
+    up to 2^31 - 1 rays makes them) run past 2^23."""
     rs = np.random.RandomState(tiles)
-    scratch = Scratch(tiles)
+    scratch = Scratch(tiles, layout=dict(narrow=NARROW, wide=WIDE)[layout])
+    top = TILE // 64 if layout == "narrow" else MAX_RAYS // (RADIX * 17)
     for launch in range(300):
-        totals = rs.randint(0, TILE // 64, (tiles, RADIX)) * (rs.rand(tiles, RADIX) < 0.3)
+        totals = rs.randint(0, top, (tiles, RADIX)) * (rs.rand(tiles, RADIX) < 0.3)
         before = look_back(scratch, totals, rs)
         np.testing.assert_array_equal(before, np.cumsum(totals, axis=0) - totals, err_msg=str(launch))
     assert scratch.ticket == 300 * tiles and (scratch.ticket // tiles - 1) % TAGS + 1 == 300 - 2 * TAGS
@@ -421,3 +462,84 @@ def test_consecutive_sorts_share_one_scratch(n, items):
         keys = ray_sort.sort_key_plain(o, d, SCENE_LO, SCENE_HI, *bits, active).numpy()
         perm = model_sort(keys, ray_sort.digit_passes(*bits), scratch, rs)
         np.testing.assert_array_equal(perm, np.argsort(keys, kind="stable"), err_msg=f"sort {k} {bits}")
+
+
+# ---------------------------------------------------------------------------
+# The status word's width: 32 bits up to 2^23 - 1 keys, 64 above
+# ---------------------------------------------------------------------------
+
+def big_totals(tiles, rs):
+    """[tiles, digits] tile counts a digit of MAX_RAYS keys in all, in
+    four digits, so that a tile's count of a digit and the running sums
+    pass 2^23 - 1: as a sort of 2^31 - 1 rays would publish them, without
+    the rays."""
+    totals = np.zeros((tiles, RADIX), np.int64)
+    digits = rs.choice(RADIX, 4, replace=False)
+    share = rs.dirichlet(np.full(tiles * 4, 20.0)) * MAX_RAYS
+    totals[:, digits] = np.floor(share).astype(np.int64).reshape(tiles, 4)
+    totals[-1, digits[0]] += MAX_RAYS - totals.sum()
+    assert totals.sum() == MAX_RAYS and (totals >= 0).all() and totals.max() > NARROW.count
+    return totals
+
+
+@pytest.mark.parametrize("tiles", [2, 5, 17])
+def test_wide_words_count_past_the_narrow_field(tiles):
+    """A pass launch whose tiles' counts a digit run past 2^23 - 1 (up to
+    2^31 - 1 keys in all), the tiles interleaved at random: with 64-bit
+    status words every tile's earlier keys of each digit are the exclusive
+    cumsum, each inclusive word's count its field exactly, its tag and
+    flag intact; with 32-bit words the counts carry into the flags and the
+    tag, and the look-back does not give the cumsum."""
+    rs = np.random.RandomState(tiles)
+    totals = big_totals(tiles, rs)
+    want = np.cumsum(totals, axis=0) - totals
+    assert want.max() > NARROW.count
+    wide = Scratch(tiles, layout=WIDE)
+    np.testing.assert_array_equal(look_back(wide, totals, rs), want)
+    w = wide.words
+    assert ((w >> np.uint64(WIDE.shift)) == 1).all() and ((w & np.uint64(3 << (WIDE.shift - 2))) ==
+                                                           np.uint64(WIDE.inclusive)).all()
+    np.testing.assert_array_equal((w & np.uint64(WIDE.count)).astype(np.int64), want + totals)
+    narrow = Scratch(tiles, layout=NARROW)
+    try:
+        got = look_back(narrow, totals, np.random.RandomState(tiles), max_steps=100 * tiles)
+    except AssertionError:
+        return  # a carried flag or tag can leave a digit looking forever or past tile 0
+    assert not np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("ties", ["spread", "parked"])
+@pytest.mark.parametrize("n", [16_385, 40_000, 131_072])
+def test_model_sort_with_wide_words_equals_stable_argsort_and_jax(n, ties):
+    """The sort over tiles with 64-bit status words (which the card takes
+    above 2^23 - 1 rays; here forced at smaller n, the rays real): its
+    permutation equals np.argsort(kind="stable"), JAX's lax.sort_key_val
+    and the plain sort's, on one scratch over every pass count."""
+    o, d, active = tie_rays(ties, n, seed=n + 5)
+    rs = np.random.RandomState(n + 1)
+    tile = THREADS * ray_sort.tile_items(n)
+    scratch = Scratch(-(-n // tile), tile, layout=WIDE)
+    for bits in [(0, 0), (0, 4), (5, 2), (9, 4)]:
+        keys = ray_sort.sort_key_plain(o, d, SCENE_LO, SCENE_HI, *bits, active).numpy()
+        perm = model_sort(keys, ray_sort.digit_passes(*bits), scratch, rs)
+        np.testing.assert_array_equal(perm, np.argsort(keys, kind="stable"), err_msg=str(bits))
+        np.testing.assert_array_equal(perm, jax_perm(keys), err_msg=str(bits))
+        got = ray_sort.sort_rays_plain(o, d, SCENE_LO, SCENE_HI, *bits, active)[2].numpy()
+        np.testing.assert_array_equal(perm, got, err_msg=str(bits))
+
+
+def test_status_word_width_by_n_and_scratch_by_width():
+    """The wrapper takes 64-bit words exactly above 2^23 - 1 rays, as the
+    kernel does; n = 2^23 - 1 and 2^23 take the same 2,048 tiles of 4,096
+    keys, so each width has a scratch of its own, of room for a 64-bit
+    word a tile a digit; a tile's last index (n rounded up to whole tiles)
+    stays below 2^31 up to MAX_RAYS."""
+    assert not ray_sort.wide_status(NARROW.count) and ray_sort.wide_status(NARROW.count + 1)
+    tiles = {n: -(-n // (THREADS * ray_sort.tile_items(n))) for n in (NARROW.count, NARROW.count + 1)}
+    assert set(tiles.values()) == {2048}
+    narrow, wide = (ray_sort._scratch(torch.device("cpu"), 2048, w) for w in (False, True))
+    assert narrow.data_ptr() != wide.data_ptr()
+    assert narrow.shape == wide.shape == (ray_sort.STATUS_OFFSET + 2048 * RADIX,)
+    for n in (NARROW.count + 1, 35_251_200, MAX_RAYS):
+        tile = THREADS * ray_sort.tile_items(n)
+        assert -(-n // tile) * tile - 1 <= MAX_RAYS and 3 * MAX_RAYS > 2**31  # 64-bit row products

@@ -38,6 +38,8 @@
 
 #pragma once
 
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 namespace cluster_traversal {
@@ -61,8 +63,18 @@ struct Ray {
   float ix, iy, iz;  // guarded inverse direction
 };
 
-// Ray i; past the end (i >= n) a padding ray that starts far out on +x and
-// points away, so it overlaps no box.
+// The most rays whose every float offset of an [n,3] row fits an int
+// (3 n - 1 < 2^31); above, a launch takes 64-bit offsets (RowOffset).
+constexpr int kIntRowsMax = 715827882;
+// A row's float offsets: int32 up to kIntRowsMax rays (the main path's
+// pools measured fastest so), 64-bit above.
+template <bool kWide>
+using RowOffset = typename std::conditional<kWide, long long, int>::type;
+
+// Ray i, its floats at offsets of type Off; past the end (i >= n) a
+// padding ray that starts far out on +x and points away, so it overlaps
+// no box.
+template <typename Off>
 __device__ __forceinline__ Ray load_ray(const float* origins, const float* dirs, int i, int n) {
   Ray r;
   r.ox = 3.0e37f;
@@ -72,12 +84,12 @@ __device__ __forceinline__ Ray load_ray(const float* origins, const float* dirs,
   r.dy = 0.0f;
   r.dz = 0.0f;
   if (i < n) {
-    r.ox = origins[3 * i];
-    r.oy = origins[3 * i + 1];
-    r.oz = origins[3 * i + 2];
-    r.dx = dirs[3 * i];
-    r.dy = dirs[3 * i + 1];
-    r.dz = dirs[3 * i + 2];
+    r.ox = origins[Off{3} * i];
+    r.oy = origins[Off{3} * i + 1];
+    r.oz = origins[Off{3} * i + 2];
+    r.dx = dirs[Off{3} * i];
+    r.dy = dirs[Off{3} * i + 1];
+    r.dz = dirs[Off{3} * i + 2];
   }
   const float big = 3.4e38f;
   r.ix = fabsf(r.dx) > 1e-12f ? 1.0f / r.dx : big;
@@ -176,12 +188,14 @@ struct Best {
   float u, v;
 };
 
-// The raw outputs of ray i: t, prim (kMissPrim on a miss) and uv.
+// The raw outputs of ray i: t, prim (kMissPrim on a miss) and uv, at
+// offsets of type Off.
+template <typename Off>
 __device__ __forceinline__ void store_best(const Best& best, int i, float* t_out, int* prim_out, float* uv_out) {
   t_out[i] = best.t;
   prim_out[i] = best.prim;
-  uv_out[2 * i] = best.u;
-  uv_out[2 * i + 1] = best.v;
+  uv_out[Off{2} * i] = best.u;
+  uv_out[Off{2} * i + 1] = best.v;
 }
 
 // The Hit of the ray in caller row `row` (restore_hits_plain): t, prim

@@ -320,8 +320,9 @@ __device__ __forceinline__ void occlude_cluster_split(const float4* rows, int cl
 // the traversal's store is the restore of the sorted outputs into caller
 // order, and needs no launch of its own.  The one thread of ray i with
 // sub == 0 stores it (the packet's other blocks hold other rays), and
-// padding rays (i >= n) store nothing.
-template <bool kAnyHit, VisitOrder kVisit, int kTest, int T>
+// padding rays (i >= n) store nothing.  kWide: 64-bit row offsets, for
+// launches of more than kIntRowsMax rays.
+template <bool kAnyHit, VisitOrder kVisit, int kTest, int T, bool kWide>
 __global__ void __launch_bounds__(kMaxThreads) streamed_kernel(
     const float4* __restrict__ tris,        // [C,K,4] float4
     const float* __restrict__ aabb_child,   // [S*branch,8]
@@ -352,7 +353,7 @@ __global__ void __launch_bounds__(kMaxThreads) streamed_kernel(
   const int sub = lane / Lanes<T>::kRays;
   const int ray = rank * (blockDim.x / T) + (threadIdx.x >> 5) * Lanes<T>::kRays + lane % Lanes<T>::kRays;
   const int i = packet * rays_per_packet + ray;
-  const Ray r = load_ray(origins, dirs, i, n);
+  const Ray r = load_ray<RowOffset<kWide>>(origins, dirs, i, n);
   // The row the store at the end writes (perm[i], else i), read now by the
   // thread that stores it, so that the packet's tail waits for no load
   // (PERF.md §6: it adds less to the traversal than a prefetch to L2 at
@@ -363,7 +364,8 @@ __global__ void __launch_bounds__(kMaxThreads) streamed_kernel(
   // picks the row of order_super (every block of the packet reads that ray).
   const int* visit = kVisit == kAscending
                          ? nullptr
-                         : order_super + octant_of(load_ray(origins, dirs, packet * rays_per_packet, n)) * num_supers;
+                         : order_super + octant_of(load_ray<RowOffset<kWide>>(origins, dirs, packet * rays_per_packet,
+                                                                                   n)) * num_supers;
   // The rows of child c: clamped to the last cluster in per-packet order,
   // where every child is voted on; the other orders never reach c >= C.
   auto row_of = [&](int c) { return kVisit == kPerPacket ? min(c, num_clusters - 1) : c; };
@@ -464,7 +466,7 @@ __global__ void __launch_bounds__(kMaxThreads) streamed_kernel(
     } else if (hit_out != nullptr) {
       store_hit(best, row, t_out, prim_out, uv_out, hit_out);
     } else {
-      store_best(best, i, t_out, prim_out, uv_out);
+      store_best<RowOffset<kWide>>(best, i, t_out, prim_out, uv_out);
     }
   }
 }
@@ -474,7 +476,8 @@ __global__ void __launch_bounds__(kMaxThreads) streamed_kernel(
 // block per packet, one thread per ray.  The traversal takes the packets
 // heaviest first (the wrapper sorts these weights), so that the few packets
 // that test hundreds of children start at once and not behind a queue of
-// light ones.
+// light ones.  kWide as streamed_kernel's.
+template <bool kWide>
 __global__ void __launch_bounds__(1024) packet_weight_kernel(
     const float* __restrict__ aabb_super,  // [S,8]
     const float* __restrict__ origins,     // [N,3]
@@ -485,7 +488,7 @@ __global__ void __launch_bounds__(1024) packet_weight_kernel(
   if (threadIdx.x < 3) slots[threadIdx.x] = 0u;
   __syncthreads();
   PacketVote vote = {slots, 0, 1};
-  const Ray r = load_ray(origins, dirs, blockIdx.x * blockDim.x + threadIdx.x, n);
+  const Ray r = load_ray<RowOffset<kWide>>(origins, dirs, blockIdx.x * blockDim.x + threadIdx.x, n);
   int count = 0;
   for (int s0 = 0; s0 < num_supers; s0 += 32) {
     const unsigned int supers = low_bits(min(32, num_supers - s0));
@@ -498,9 +501,10 @@ inline int launch_packet_weights(const float* aabb_super, const float* origins, 
                                  int n, int num_supers, float t_min, float t_max,
                                  int rays_per_packet, int* weights, void* stream) {
   if (n <= 0) return 0;
-  const int packets = (n + rays_per_packet - 1) / rays_per_packet;
-  packet_weight_kernel<<<packets, rays_per_packet, 0, static_cast<cudaStream_t>(stream)>>>(
-      aabb_super, origins, dirs, n, num_supers, t_min, t_max, weights);
+  const int packets = (n - 1) / rays_per_packet + 1;
+  const auto kernel = n > kIntRowsMax ? packet_weight_kernel<true> : packet_weight_kernel<false>;
+  kernel<<<packets, rays_per_packet, 0, static_cast<cudaStream_t>(stream)>>>(aabb_super, origins, dirs, n, num_supers,
+                                                                              t_min, t_max, weights);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -508,14 +512,22 @@ using StreamedKernel = void (*)(const float4*, const float*, const float*, const
                                 const float*, const int*, int, int, int, int, int, int, float, float,
                                 const long long*, float*, int*, float*, unsigned char*, unsigned char*);
 
-template <bool kAnyHit, VisitOrder kVisit, int kTest>
+template <bool kAnyHit, VisitOrder kVisit, int kTest, bool kWide>
 StreamedKernel streamed_kernel_for(int threads_per_ray) {
   switch (threads_per_ray) {
-    case 8: return streamed_kernel<kAnyHit, kVisit, kTest, 8>;
-    case 4: return streamed_kernel<kAnyHit, kVisit, kTest, 4>;
-    case 2: return streamed_kernel<kAnyHit, kVisit, kTest, 2>;
-    default: return streamed_kernel<kAnyHit, kVisit, kTest, 1>;
+    case 8: return streamed_kernel<kAnyHit, kVisit, kTest, 8, kWide>;
+    case 4: return streamed_kernel<kAnyHit, kVisit, kTest, 4, kWide>;
+    case 2: return streamed_kernel<kAnyHit, kVisit, kTest, 2, kWide>;
+    default: return streamed_kernel<kAnyHit, kVisit, kTest, 1, kWide>;
   }
+}
+
+// The kernel of a plan: the triangle test's, 64-bit row offsets above
+// kIntRowsMax rays.
+template <bool kAnyHit, VisitOrder kVisit, int kTest>
+StreamedKernel streamed_kernel_for(int threads_per_ray, int n) {
+  return n > kIntRowsMax ? streamed_kernel_for<kAnyHit, kVisit, kTest, true>(threads_per_ray)
+                         : streamed_kernel_for<kAnyHit, kVisit, kTest, false>(threads_per_ray);
 }
 
 // How a launch of n rays in packets of rays_per_packet (a multiple of 32, at
@@ -536,7 +548,7 @@ int plan_streamed(int n, int rays_per_packet, int cluster_k, int tri_test, Strea
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  plan.packets = (n + rays_per_packet - 1) / rays_per_packet;
+  plan.packets = (n - 1) / rays_per_packet + 1;
   const ShapeRule* rule = kShapeRules;
   while (rule->visit != kVisit || rule->kind == (kAnyHit ? kClosestOnly : kAnyOnly) ||
          plan.packets >= rule->packets_per_sm * sms) {
@@ -552,8 +564,8 @@ int plan_streamed(int n, int rays_per_packet, int cluster_k, int tri_test, Strea
   plan.threads = rays_per_packet / plan.blocks * plan.threads_per_ray;
   plan.shared_bytes = 2 * static_cast<size_t>(cluster_k) * 3 * sizeof(float4);
   plan.kernel = tri_test == kMollerTrumbore
-                    ? streamed_kernel_for<kAnyHit, kVisit, kMollerTrumbore>(plan.threads_per_ray)
-                    : streamed_kernel_for<kAnyHit, kVisit, kBaldwinWeber>(plan.threads_per_ray);
+                    ? streamed_kernel_for<kAnyHit, kVisit, kMollerTrumbore>(plan.threads_per_ray, n)
+                    : streamed_kernel_for<kAnyHit, kVisit, kBaldwinWeber>(plan.threads_per_ray, n);
   if (plan.shared_bytes > 48 * 1024) {
     err = cudaFuncSetAttribute(plan.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(plan.shared_bytes));

@@ -109,7 +109,8 @@
 //   back to 0 with one atomicExch each, so a graph replay needs no memset
 //   and the host reads nothing.  The path step's three totals (live
 //   lanes, hit lanes, lanes not ended) travel in one packed arrival
-//   instead: one same-address atomic a block (path_step_kernel).
+//   instead: one same-address atomic a block (path_step_kernel) below 2^25
+//   lanes; above, the tiles not ended take a word of their own.
 // - head', segments' and the live count are written exactly, once, by the
 //   last tile, which holds the inclusive totals: head + retired, segments
 //   + live, and live - retired + min(max(n_pix - head, 0), retired) (the
@@ -118,6 +119,7 @@
 // float32 running head and retire FIFO are not carried over.
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -449,11 +451,26 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(const __grid_const
   if (p.nee) set_spec(p, i, regen, p.tb_spec);
 }
 
-// The path step's count word (its scratch[0]): live lanes (25 bits: lanes
-// < 2^25), tiles with a lane not ended (18 bits: tiles <= 2^17) and the
-// launch's arrivals so far (18 bits).
+// The path step's count word (its scratch[0]) below kNarrowLanes lanes:
+// live lanes (25 bits: lanes < 2^25), tiles with a lane not ended (18
+// bits: tiles <= 2^17) and the launch's arrivals so far (18 bits), one
+// atomic a block.  From kNarrowLanes up to 2^31 - 1 lanes (2^23 tiles)
+// the three fields need 31 + 24 + 24 bits, more than a word: the count
+// word holds live lanes (32 bits) and arrivals (the high 32), and the
+// tiles with a lane not ended go into scratch[2], added before the
+// arrival by the blocks that have one (as the hit lanes into scratch[1]).
 constexpr int kOpenShift = 25, kArrivalShift = 43;
 constexpr unsigned long long kLiveMask = (1ull << kOpenShift) - 1, kTileMask = (1ull << 18) - 1;
+constexpr int kNarrowLanes = 1 << 25;
+constexpr int kWideArrivalShift = 32;
+constexpr unsigned long long kWideLiveMask = (1ull << kWideArrivalShift) - 1;
+// Float c of lane i's row of an [L,3] field: int32 in the narrow layout's
+// grids (the parent's arithmetic, measured fastest there), 64-bit in the
+// wide one's (3 x 2^31 overflows an int).
+template <bool Wide>
+__device__ __forceinline__ typename std::conditional<Wide, long long, int>::type at3(int i, int c) {
+  return typename std::conditional<Wide, long long, int>::type{3} * i + c;
+}
 
 // The path step of render_rays (schedule 0) and render_pixels_regen
 // (schedule 1): one lane a thread, a programmatic dependent of the
@@ -504,6 +521,7 @@ constexpr unsigned long long kLiveMask = (1ull << kOpenShift) - 1, kTileMask = (
 // whose add finds T - 1 arrivals is the launch's last: its add's result
 // and its own are the totals, and it sets both words back to 0 for the
 // next launch.  Only the block's first thread waits for the add.
+template <bool Wide>
 __global__ void __launch_bounds__(kThreads) path_step_kernel(const __grid_constant__ StepParams p, int tiles) {
   launch_order::let_dependents_start();  // the regen schedule's camera kernel, as kernel 7's
   __shared__ int warp_counts[kWarps][3];
@@ -516,7 +534,7 @@ __global__ void __launch_bounds__(kThreads) path_step_kernel(const __grid_consta
     dp = p.depth[i];
     if (regen_schedule) {
       si = p.sample_i[i];
-      for (int c = 0; c < 3; ++c) acc[c] = p.accum[3 * i + c];
+      for (int c = 0; c < 3; ++c) acc[c] = p.accum[at3<Wide>(i, c)];
     }
   }
 
@@ -528,10 +546,10 @@ __global__ void __launch_bounds__(kThreads) path_step_kernel(const __grid_consta
     const bool tb_done = p.tb_done[i] != 0;
     float a[3], r[3], o[3], d[3], res[3], spec_f = 0.f;
     for (int c = 0; c < 3; ++c) {
-      a[c] = p.tb_attenuation[3 * i + c];
-      r[c] = p.tb_radiance[3 * i + c];
-      o[c] = p.tb_origin[3 * i + c];
-      d[c] = p.tb_direction[3 * i + c];
+      a[c] = p.tb_attenuation[at3<Wide>(i, c)];
+      r[c] = p.tb_radiance[at3<Wide>(i, c)];
+      o[c] = p.tb_origin[at3<Wide>(i, c)];
+      d[c] = p.tb_direction[at3<Wide>(i, c)];
     }
     unsigned char spec_b = 0;
     if (p.nee) {
@@ -550,26 +568,26 @@ __global__ void __launch_bounds__(kThreads) path_step_kernel(const __grid_consta
       si += newly;
       ended = newly && si >= p.spp;
       regen = newly && !ended;
-      for (int c = 0; c < 3; ++c) p.accum[3 * i + c] = acc[c] + (newly ? res[c] : 0.f);
+      for (int c = 0; c < 3; ++c) p.accum[at3<Wide>(i, c)] = acc[c] + (newly ? res[c] : 0.f);
       p.sample_i[i] = si;
       p.regen[i] = regen;
     } else {
       ended = newly;
       if (newly) {
-        for (int c = 0; c < 3; ++c) p.result[3 * i + c] = res[c];
+        for (int c = 0; c < 3; ++c) p.result[at3<Wide>(i, c)] = res[c];
       }
     }
     p.flag[i] = ended;
     if (adv || regen) {
       if (adv) {  // goes on: the payload's origin, direction and radiance
         for (int c = 0; c < 3; ++c) {
-          p.origin[3 * i + c] = o[c];
-          p.direction[3 * i + c] = d[c];
+          p.origin[at3<Wide>(i, c)] = o[c];
+          p.direction[at3<Wide>(i, c)] = d[c];
         }
       }
       for (int c = 0; c < 3; ++c) {
-        p.attenuation[3 * i + c] = regen ? 1.f : a[c];
-        p.radiance[3 * i + c] = regen ? 0.f : r[c];
+        p.attenuation[at3<Wide>(i, c)] = regen ? 1.f : a[c];
+        p.radiance[at3<Wide>(i, c)] = regen ? 0.f : r[c];
       }
       p.depth[i] = regen ? p.max_depth : dp - 1;
       if (p.nee == 2) {
@@ -595,54 +613,60 @@ __global__ void __launch_bounds__(kThreads) path_step_kernel(const __grid_consta
   for (int w = 0; w < kWarps; ++w) {
     for (int k = 0; k < 3; ++k) count[k] += warp_counts[w][k];
   }
-  if (p.nee) {
-    if (count[1]) atomicAdd(p.scratch + 1, count[1]);
-    __threadfence();
-  }
-  const unsigned long long mine = count[0] | static_cast<unsigned long long>(count[2] != 0) << kOpenShift |
-                                  1ull << kArrivalShift;
+  if (p.nee && count[1]) atomicAdd(p.scratch + 1, count[1]);
+  if (Wide && count[2]) atomicAdd(p.scratch + 2, 1ull);
+  if (p.nee || Wide) __threadfence();
+  constexpr int arrival_shift = Wide ? kWideArrivalShift : kArrivalShift;
+  const unsigned long long mine =
+      count[0] | (Wide ? 0ull : static_cast<unsigned long long>(count[2] != 0) << kOpenShift) | 1ull << arrival_shift;
   const unsigned long long before = atomicAdd(p.scratch, mine);
-  if ((before >> kArrivalShift) != static_cast<unsigned long long>(tiles - 1)) return;
+  if ((before >> arrival_shift) != static_cast<unsigned long long>(tiles - 1)) return;
   const unsigned long long total = before + mine;
   atomicExch(p.scratch, 0ull);
-  *p.segments += static_cast<long long>(total & kLiveMask);
-  if (p.nee) {
-    __threadfence();
-    *p.shadow += static_cast<long long>(atomicExch(p.scratch + 1, 0ull));
-  }
-  *p.done = ((total >> kOpenShift) & kTileMask) == 0;
+  *p.segments += static_cast<long long>(total & (Wide ? kWideLiveMask : kLiveMask));
+  if (p.nee || Wide) __threadfence();
+  if (p.nee) *p.shadow += static_cast<long long>(atomicExch(p.scratch + 1, 0ull));
+  const unsigned long long open = Wide ? atomicExch(p.scratch + 2, 0ull) : (total >> kOpenShift) & kTileMask;
+  *p.done = open == 0;
 }
 
 }  // namespace
 
-// entry 0: the stream step over p->n lanes (p->scratch: [3 + tiles]
-// int64, zero before its first launch; p->totals: [4] int64); entry 1: the
-// path step (p->scratch: [2] int64, zero before its first launch),
-// as a programmatic dependent of the launch before it on `stream` where
+// entry 0: the stream step over p->n < 2^25 lanes (its status words'
+// fields; p->scratch: [3 + tiles] int64, zero before its first launch;
+// p->totals: [4] int64); entry 1: the path step over p->n <= 2^31 - 1
+// lanes (p->scratch: [3] int64, zero before its first launch; its count
+// word's layout by n: one atomic a block below kNarrowLanes), as a
+// programmatic dependent of the launch before it on `stream` where
 // `dependent` (the caller vouches that that launch is the bounce or the
 // NEE kernel: launch_order.cuh).  Tiles of 256 lanes, one block a tile, on
 // `stream`; a scratch is used only by launches of one entry and tile
-// count, one at a time.  n < 2^25.  Returns the launch's error, or
-// cudaGetLastError() after it (0 = launched); the stream step is never a
-// dependent (cudaErrorInvalidValue).
+// count, one at a time (both count word layouts leave theirs at 0).
+// Returns the launch's error, or cudaGetLastError() after it (0 =
+// launched); the stream step is never a dependent, nor over 2^25 lanes
+// (cudaErrorInvalidValue).
 extern "C" int fused_step_launch(const StepParams* p, int entry, int dependent, void* stream) {
-  if (entry == 0 && dependent) return static_cast<int>(cudaErrorInvalidValue);
+  if (entry == 0 && (dependent || p->n >= kNarrowLanes)) return static_cast<int>(cudaErrorInvalidValue);
   if (p->n <= 0) return 0;
-  const int tiles = (p->n + kThreads - 1) / kThreads;
+  const int tiles = (p->n - 1) / kThreads + 1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (entry == 0) {
     fused_step_kernel<<<tiles, kThreads, 0, st>>>(*p, tiles);
     return static_cast<int>(cudaGetLastError());
   }
-  const cudaError_t err = launch_order::launch(path_step_kernel, tiles, kThreads, st, dependent != 0, *p, tiles);
+  const cudaError_t err = p->n < kNarrowLanes
+                              ? launch_order::launch(path_step_kernel<false>, tiles, kThreads, st, dependent != 0, *p,
+                                                     tiles)
+                              : launch_order::launch(path_step_kernel<true>, tiles, kThreads, st, dependent != 0, *p,
+                                                     tiles);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // The int64 words of the scratch that launches of `entry` over `tiles`
 // tiles take, which the wrapper allocates: the stream step's ticket,
 // arrivals, shadow sum and a status word a tile; the path step's count
-// word and hit sum.
-extern "C" int fused_step_scratch_words(int entry, int tiles) { return entry == 0 ? kStatus + tiles : 2; }
+// word, hit sum and (wide layout) count of tiles with a lane not ended.
+extern "C" int fused_step_scratch_words(int entry, int tiles) { return entry == 0 ? kStatus + tiles : 3; }
 
 // sizeof(StepParams), which the wrapper checks against its mirror.
 extern "C" int fused_schedule_params_size() { return static_cast<int>(sizeof(StepParams)); }

@@ -70,7 +70,17 @@
 // e*T .. e*T+T-1, and a status word carries the launch's tag (e mod 127,
 // plus 1) beside its flag and count; every launch writes every word, so a
 // word left by the previous launch reads as not yet published.  A replayed
-// CUDA graph needs no memset, and the host reads nothing.
+// CUDA graph needs no memset, and the host reads nothing.  A status word
+// is 32 bits up to kNarrowMax = 2^23 - 1 keys (the main path's pools: a
+// look-back step reads 16 words in 64 bytes), 64 bits above (its count
+// field holds every key an int32 index reaches; the step reads 128
+// bytes); the launch picks the word from n, and a scratch serves launches
+// of one word width only (the wrapper keys it by width).  Ray and row
+// indices are int32 (n <= 2^31 - 1: a tile's last index, n rounded up to
+// whole tiles, stays below 2^31); with the 64-bit words every product of
+// an index and a row's width is 64-bit too (Offset), where 3 n passes
+// 2^31 from 715,827,883 rays, and with the 32-bit words int32, as the
+// main path's pools measured fastest.
 //
 // What bounds them.  Bytes, and at the main path's pools the launch:
 // the sort must read each ray (24 B, 1 for a parked lane's mask byte and
@@ -86,6 +96,7 @@
 // packets, spread over every SM).
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -116,20 +127,34 @@ constexpr int kWindow = 16;                // earlier tiles' words a look-back s
 constexpr uint32_t kPad = 0xFFFFFFFFu;     // past the last key: the largest digit in every pass
 // The scratch (64-bit words): the pass launches' ticket counter, the key
 // launch's arrival counter, the digit counts of every pass, the digit
-// starts of every pass, then a 32-bit status word a tile a digit.
+// starts of every pass, then a status word (of Status<Word>) a tile a
+// digit.
 constexpr int kTicket = 0;
 constexpr int kArrival = 1;
 constexpr int kCounts = 2;
 constexpr int kStarts = kCounts + kMaxPasses * kRadix;
 constexpr int kStatus = kStarts + kMaxPasses * kRadix;
-// A status word (32 bits): tag << 25 | flag | keys of the digit.  Every
-// launch writes every word of its scratch, so a word holds this launch's
-// tag or the previous launch's, which differ.
-constexpr int kTagShift = 25;
-constexpr unsigned kTags = 127;                  // tags 1..127; 0 is a fresh word
-constexpr unsigned kAggregate = 1u << 23;        // this tile's keys of the digit
-constexpr unsigned kInclusive = 2u << 23;        // every tile's up to this one's
-constexpr unsigned kCountMask = (1u << 23) - 1;  // so n < 2^23
+// A status word: tag << kTagShift | flag | keys of the digit, in the top
+// kTagBits bits, the two below and the rest.  Every launch writes every
+// word of its scratch, so a word holds this launch's tag or the previous
+// launch's, which differ.
+constexpr int kTagBits = 7;
+constexpr unsigned kTags = 127;  // tags 1..127; 0 is a fresh word
+template <typename Word>
+struct Status {
+  static constexpr int kTagShift = 8 * static_cast<int>(sizeof(Word)) - kTagBits;
+  static constexpr Word kAggregate = Word{1} << (kTagShift - 2);        // this tile's keys of the digit
+  static constexpr Word kInclusive = Word{2} << (kTagShift - 2);        // every tile's up to this one's
+  static constexpr Word kCountMask = (Word{1} << (kTagShift - 2)) - 1;  // keys a word counts
+};
+using NarrowWord = unsigned;            // tag 7 | flag 2 | count 23
+using WideWord = unsigned long long;    // tag 7 | flag 2 | count 55
+constexpr int kNarrowMax = static_cast<int>(Status<NarrowWord>::kCountMask);  // 2^23 - 1
+// A ray's or row's first float: int32 with the 32-bit words (n < 2^23),
+// 64-bit with the 64-bit ones.
+template <typename Word>
+using Offset = typename std::conditional<sizeof(Word) == 8, long long, int>::type;
+static_assert(kTags < (1u << kTagBits), "a tag fits its field");
 static_assert(kThreads == kRadix, "a thread a digit in the scans and the look-back");
 
 // Spread 10 bits of v so bit i lands at bit 3i (3-D Morton).
@@ -165,13 +190,15 @@ struct SortArgs {
   int n, spatial_bits, dir_bits, passes, tiles;
   int* keys[2];               // [n] int32 scratch each (more than kSmallMax keys)
   int* idx[2];                // [n]
-  unsigned long long* scratch;  // kStatus + tiles * kRadix / 2 words (the status words are 32-bit)
+  unsigned long long* scratch;  // kStatus + tiles * kRadix words (status words of 32 or 64 bits)
   float* origins_out;         // [n,3]
   float* directions_out;      // [n,3]
   long long* perm;            // [n]
 };
 
-// Ray i's key (ray_sort_key), parked first where `active` says.
+// Ray i's key (ray_sort_key), parked first where `active` says; `Off`
+// the type of its row's offsets.
+template <typename Off>
 __device__ __forceinline__ uint32_t ray_key(const SortArgs& a, int i) {
   float o[3], d[3];
   if (parked(a.active, i)) {
@@ -181,8 +208,8 @@ __device__ __forceinline__ uint32_t ray_key(const SortArgs& a, int i) {
     d[2] = 0.0f;
   } else {
     for (int k = 0; k < 3; ++k) {
-      o[k] = a.origins[3 * i + k];
-      d[k] = a.directions[3 * i + k];
+      o[k] = a.origins[Off{3} * i + k];
+      d[k] = a.directions[Off{3} * i + k];
     }
   }
   uint32_t key = (d[0] > 0.0f ? 1u : 0u) + (d[1] > 0.0f ? 2u : 0u) + (d[2] > 0.0f ? 4u : 0u);
@@ -211,8 +238,9 @@ __device__ __forceinline__ uint32_t ray_key(const SortArgs& a, int i) {
 
 // Sorted rows row[k] from rays j[k] (parked where `active` says), and
 // perm[row[k]] = j[k], for k < Items with row[k] >= 0: every load before
-// any store, so that a thread's loads are in flight together.
-template <int Items>
+// any store, so that a thread's loads are in flight together; `Off` the
+// type of a row's offsets.
+template <int Items, typename Off>
 __device__ __forceinline__ void write_rows(const SortArgs& a, const int (&row)[Items], const int (&j)[Items]) {
   float o[Items][3], d[Items][3];
 #pragma unroll
@@ -225,8 +253,8 @@ __device__ __forceinline__ void write_rows(const SortArgs& a, const int (&row)[I
       d[k][2] = 0.0f;
     } else {
       for (int c = 0; c < 3; ++c) {
-        o[k][c] = a.origins[3 * j[k] + c];
-        d[k][c] = a.directions[3 * j[k] + c];
+        o[k][c] = a.origins[Off{3} * j[k] + c];
+        d[k][c] = a.directions[Off{3} * j[k] + c];
       }
     }
   }
@@ -235,20 +263,20 @@ __device__ __forceinline__ void write_rows(const SortArgs& a, const int (&row)[I
     if (row[k] < 0) continue;
     a.perm[row[k]] = j[k];
     for (int c = 0; c < 3; ++c) {
-      a.origins_out[3 * row[k] + c] = o[k][c];
-      a.directions_out[3 * row[k] + c] = d[k][c];
+      a.origins_out[Off{3} * row[k] + c] = o[k][c];
+      a.directions_out[Off{3} * row[k] + c] = d[k][c];
     }
   }
 }
 
 // The keys of a tile's rays i0 + k * stride (k < Items; kPad past n),
 // every ray's loads before any key is used.
-template <int Items>
+template <int Items, typename Off>
 __device__ __forceinline__ void tile_keys(const SortArgs& a, int i0, int stride, uint32_t (&key)[Items]) {
 #pragma unroll
   for (int k = 0; k < Items; ++k) {
     const int i = i0 + k * stride;
-    key[k] = i < a.n ? ray_key(a, i) : kPad;
+    key[k] = i < a.n ? ray_key<Off>(a, i) : kPad;
   }
 }
 
@@ -318,47 +346,50 @@ __device__ __forceinline__ int warp_offsets(int* counts, int warps) {
   return total;
 }
 
-__device__ __forceinline__ unsigned status_word(unsigned tag, unsigned flag, long long count) {
-  return (tag << kTagShift) | flag | static_cast<unsigned>(count);
+template <typename Word>
+__device__ __forceinline__ Word status_word(unsigned tag, Word flag, int count) {
+  return (static_cast<Word>(tag) << Status<Word>::kTagShift) | flag | static_cast<Word>(count);
 }
 
 // Thread d of tile `tile`: publishes the tile's `count` keys of digit d,
 // looks back over the earlier tiles' words of d, kWindow at a time
 // (nearest first; reading again from a word not yet this launch's),
 // until it meets an inclusive one, publishes its inclusive count, and
-// returns the keys of d in the earlier tiles.
-__device__ __forceinline__ int look_back(unsigned* status, int tile, int count, unsigned tag) {
+// returns the keys of d in the earlier tiles.  A count is at most n.
+template <typename Word>
+__device__ __forceinline__ int look_back(Word* status, int tile, int count, unsigned tag) {
+  using S = Status<Word>;
   const int d = threadIdx.x;
-  unsigned* mine = status + static_cast<size_t>(tile) * kRadix + d;
+  Word* mine = status + static_cast<size_t>(tile) * kRadix + d;
   if (tile == 0) {
-    atomicExch(mine, status_word(tag, kInclusive, count));
+    atomicExch(mine, status_word<Word>(tag, S::kInclusive, count));
     return 0;
   }
-  atomicExch(mine, status_word(tag, kAggregate, count));
-  const volatile unsigned* words = status;
+  atomicExch(mine, status_word<Word>(tag, S::kAggregate, count));
+  const volatile Word* words = status;
   int before = 0;
   for (int q = tile - 1;;) {
-    unsigned w[kWindow];
+    Word w[kWindow];
 #pragma unroll
     for (int k = 0; k < kWindow; ++k) {
       // before tile 0: an inclusive count of nothing (never reached: tile 0's word is inclusive)
-      w[k] = q - k >= 0 ? words[static_cast<size_t>(q - k) * kRadix + d] : (tag << kTagShift) | kInclusive;
+      w[k] = q - k >= 0 ? words[static_cast<size_t>(q - k) * kRadix + d] : status_word<Word>(tag, S::kInclusive, 0);
     }
     bool open = true, inclusive = false;
     int taken = 0;
 #pragma unroll
     for (int k = 0; k < kWindow; ++k) {
-      open = open && !inclusive && (w[k] >> kTagShift) == tag;
+      open = open && !inclusive && (w[k] >> S::kTagShift) == tag;
       if (open) {
-        before += static_cast<int>(w[k] & kCountMask);
-        inclusive = (w[k] & kInclusive) != 0;
+        before += static_cast<int>(w[k] & S::kCountMask);
+        inclusive = (w[k] & S::kInclusive) != 0;
         ++taken;
       }
     }
     if (inclusive) break;
     q -= taken;  // a word not yet published: read again from it
   }
-  atomicExch(mine, status_word(tag, kInclusive, before + count));
+  atomicExch(mine, status_word<Word>(tag, S::kInclusive, before + count));
   return before;
 }
 
@@ -391,7 +422,7 @@ __global__ void __launch_bounds__(kThreads) sort_cluster_kernel(SortArgs a) {
   // The warp's keys: item k of lane l is tile key first + 32 k.
   const int first = warp * 32 * kItems + lane;
   uint32_t key[kItems];
-  tile_keys(a, base + first, 32, key);
+  tile_keys<kItems, int>(a, base + first, 32, key);
   for (int pass = 0; pass < a.passes; ++pass) {
     int from[kItems], rank[kItems];
 #pragma unroll
@@ -434,13 +465,14 @@ __global__ void __launch_bounds__(kThreads) sort_cluster_kernel(SortArgs a) {
     row[k] = base + t < n ? base + t : -1;
     j[k] = row[k] >= 0 ? idx[t] : 0;
   }
-  write_rows(a, row, j);
+  write_rows<kItems, int>(a, row, j);
 }
 
 // The first of 1 + passes launches: each tile's keys into a.keys[0] and
 // every pass's digit counts into the scratch; the block that arrives last
-// writes each pass's digit starts and sets the counts back to 0.
-template <int Items>
+// writes each pass's digit starts and sets the counts back to 0.  Word:
+// the pass launches' status words, whose width sets the offsets'.
+template <int Items, typename Word>
 __global__ void __launch_bounds__(kThreads) sort_keys_kernel(SortArgs a) {
   __shared__ int counts[kMaxPasses * kRadix];
   __shared__ int sums[kRadix / 32];
@@ -448,7 +480,7 @@ __global__ void __launch_bounds__(kThreads) sort_keys_kernel(SortArgs a) {
   for (int k = threadIdx.x; k < kMaxPasses * kRadix; k += kThreads) counts[k] = 0;
   uint32_t key[Items];
   const int i0 = blockIdx.x * kThreads * Items + threadIdx.x;
-  tile_keys(a, i0, kThreads, key);
+  tile_keys<Items, Offset<Word>>(a, i0, kThreads, key);
   __syncthreads();
 #pragma unroll
   for (int k = 0; k < Items; ++k) {
@@ -484,10 +516,11 @@ __global__ void __launch_bounds__(kThreads) sort_keys_kernel(SortArgs a) {
 }
 
 // Pass `pass` of the sort: a tile's keys ranked, the earlier tiles' keys
-// of each digit by look-back, the tile staged in shared memory in its
-// sorted order, and each digit's keys and indices written as one run in
-// the other buffer; the last pass writes the sorted rays and perm.
-template <int Items>
+// of each digit by look-back on status words of type Word, the tile
+// staged in shared memory in its sorted order, and each digit's keys and
+// indices written as one run in the other buffer; the last pass writes
+// the sorted rays and perm.
+template <int Items, typename Word>
 __global__ void __launch_bounds__(kThreads) sort_pass_kernel(SortArgs a, int pass) {
   constexpr int kTile = kThreads * Items;
   __shared__ int counts[kWarps * kRadix];
@@ -517,7 +550,7 @@ __global__ void __launch_bounds__(kThreads) sort_pass_kernel(SortArgs a, int pas
     from[k] = idx_in == nullptr ? i : (i < n ? idx_in[i] : 0);
   }
   const int total = rank_tile(counts, key, rank, pass);
-  const int before = look_back(reinterpret_cast<unsigned*>(a.scratch + kStatus), tile, total, tag);
+  const int before = look_back(reinterpret_cast<Word*>(a.scratch + kStatus), tile, total, tag);
   const int s = scan_digits(total, sums);
   start[threadIdx.x] = static_cast<int>(a.scratch[kStarts + pass * kRadix + threadIdx.x]) + before;
   local[threadIdx.x] = s;
@@ -544,7 +577,7 @@ __global__ void __launch_bounds__(kThreads) sort_pass_kernel(SortArgs a, int pas
     j[k] = stage_idx[t];
   }
   if (pass == a.passes - 1) {
-    write_rows(a, row, j);
+    write_rows<Items, Offset<Word>>(a, row, j);
     return;
   }
   int* keys_out = odd ? a.keys[0] : a.keys[1];
@@ -585,15 +618,21 @@ __global__ void __launch_bounds__(kThreads) packet_order_kernel(
   }
 }
 
-template <int Items>
-cudaError_t launch_tiles(const SortArgs& a, cudaStream_t s) {
-  sort_keys_kernel<Items><<<a.tiles, kThreads, 0, s>>>(a);
+template <int Items, typename Word>
+cudaError_t launch_passes(const SortArgs& a, cudaStream_t s) {
+  sort_keys_kernel<Items, Word><<<a.tiles, kThreads, 0, s>>>(a);
   cudaError_t err = cudaGetLastError();
   for (int pass = 0; pass < a.passes && err == cudaSuccess; ++pass) {
-    sort_pass_kernel<Items><<<a.tiles, kThreads, 0, s>>>(a, pass);
+    sort_pass_kernel<Items, Word><<<a.tiles, kThreads, 0, s>>>(a, pass);
     err = cudaGetLastError();
   }
   return err;
+}
+
+// The status words by n: 32 bits up to kNarrowMax keys, 64 above.
+template <int Items>
+cudaError_t launch_tiles(const SortArgs& a, cudaStream_t s) {
+  return a.n > kNarrowMax ? launch_passes<Items, WideWord>(a, s) : launch_passes<Items, NarrowWord>(a, s);
 }
 
 }  // namespace
@@ -602,7 +641,10 @@ cudaError_t launch_tiles(const SortArgs& a, cudaStream_t s) {
 // (0 = launched); n (or p) <= 0 launches nothing.
 
 // n <= kSmallMax: one launch (keys, idx, scratch null, tiles and items 0);
-// else tiles of 256 * items keys (items 4, 8 or 16), 1 + passes launches.
+// else tiles of 256 * items keys (items 4, 8 or 16), 1 + passes launches,
+// on a scratch of kStatus + tiles * kRadix words of 64 bits (the status
+// words 32-bit up to kNarrowMax keys: half of them used) that launches of
+// one status word width only share.  n <= 2^31 - 1.
 extern "C" int ray_sort_rays_launch(const float* origins, const float* directions, const float* lo, const float* hi,
                                     const unsigned char* active, int n, int spatial_bits, int dir_bits, int passes,
                                     int* keys, int* idx, unsigned long long* scratch, int tiles, int items,
@@ -610,7 +652,7 @@ extern "C" int ray_sort_rays_launch(const float* origins, const float* direction
   if (n <= 0) return 0;
   const bool small = n <= kSmallMax;
   const bool tiled =
-      (items == 4 || items == 8 || items == 16) && tiles == (n + kThreads * items - 1) / (kThreads * items);
+      (items == 4 || items == 8 || items == 16) && tiles == (n - 1) / (kThreads * items) + 1;
   if (passes < 1 || passes > kMaxPasses || (!small && !tiled)) return static_cast<int>(cudaErrorInvalidValue);
   SortArgs a{origins, directions, lo, hi, active, n, spatial_bits, dir_bits, passes, tiles,
              {keys, keys == nullptr ? nullptr : keys + n}, {idx, idx == nullptr ? nullptr : idx + n}, scratch,

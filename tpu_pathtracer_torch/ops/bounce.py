@@ -28,7 +28,7 @@ import math
 import numpy as np
 import torch
 
-from tpu_pathtracer_torch.ops.cuda_build import kernel_arg, library
+from tpu_pathtracer_torch.ops.cuda_build import check_lanes, kernel_arg, library
 from tpu_pathtracer_torch.utils import math as vm
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -165,7 +165,7 @@ def _params(cls, tensors: dict, ints: dict, consts):
     for k, v in tensors.items():
         setattr(p, k, v.data_ptr() if v is not None else None)
     for k, v in ints.items():
-        setattr(p, k, v)
+        setattr(p, k, check_lanes(f"{cls.__name__}.{k}", v))
     if consts is not None:
         p.c = consts
     return p

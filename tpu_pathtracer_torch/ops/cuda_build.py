@@ -169,6 +169,19 @@ def on_card(device) -> bool:
     raise ValueError(f"no kernels or plain versions for device {dev}")
 
 
+# The most lanes (rays, packets) a kernel's int32 count and index take.
+MAX_LANES = 2**31 - 1
+
+
+def check_lanes(what: str, n: int) -> int:
+    """n, refused above MAX_LANES with a message naming the int32 count
+    (ctypes would cut a larger int silently)."""
+    if n > MAX_LANES:
+        raise ValueError(f"{what}: the kernel counts and indexes them with int32: at most {MAX_LANES} (2^31 - 1), "
+                         f"got {n}")
+    return n
+
+
 def kernel_arg(name, x, dtype, shape, dev, written=False):
     """`x` as a kernel reads it: contiguous (a copy if not, unless the
     kernel writes it), of `dtype` and `shape`, on `dev`; anything else

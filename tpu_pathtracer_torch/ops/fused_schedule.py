@@ -50,7 +50,7 @@ import torch
 
 from tpu_pathtracer_torch.ops import bounce as bounce_ops
 from tpu_pathtracer_torch.ops.bounce import _launch, _params
-from tpu_pathtracer_torch.ops.cuda_build import kernel_arg, on_card
+from tpu_pathtracer_torch.ops.cuda_build import check_lanes, kernel_arg, on_card
 from tpu_pathtracer_torch.utils import rng
 
 TB_KEYS = ("origin", "direction", "attenuation", "radiance", "seeds", "done")
@@ -60,6 +60,12 @@ STATE_KEYS = ("origin", "direction", "attenuation", "radiance", "seeds",
 TILE_LANES = 256
 # The path step's schedules (StepParams.schedule).
 PATH_SCHEDULES = ("rays", "regen")
+# The most lanes the stream step (kernel 7) takes: its tile status words
+# count retired and live lanes in 25 bits each.  The path step takes
+# cuda_build.MAX_LANES (int32 lane indices), and from NARROW_LANES on counts
+# its totals in two words (csrc/fused_schedule.cu: kNarrowLanes).
+STREAM_MAX_LANES = 2**25 - 1
+NARROW_LANES = 2**25
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -238,7 +244,9 @@ def _scratch(device: torch.device, entry: int, lanes: int) -> torch.Tensor:
     (csrc/fused_schedule.cu: fused_step_scratch_words).  The stream step's
     (entry 0): a ticket counter, the grid sum's arrival counter and sum,
     then a status word a tile; the path step's (entry 1): its packed count
-    word (live lanes, tiles not done, arrivals) and its hit count.  Zeroed
+    word (live lanes, tiles not done, arrivals; from NARROW_LANES lanes
+    live lanes and arrivals), its hit count and (from NARROW_LANES) its
+    count of tiles not done.  Zeroed
     once and never again: a launch tags its status words with its own
     number, read off the ticket counter, and the block that arrives last
     sets the sums and the count words back to 0.  Launches that share one
@@ -253,11 +261,18 @@ def _zeroed_scratch(device: torch.device, entry: int, tiles: int, words: int) ->
     return torch.zeros(words, dtype=torch.int64, device=device)
 
 
-def _lane_count(st) -> int:
+def _stream_lanes(st) -> int:
+    """The stream step's lanes, refused above STREAM_MAX_LANES."""
     lanes = st["seeds"].shape[0]
-    if lanes >= 2**25:
-        raise ValueError(f"the kernels take fewer than 2^25 lanes: {lanes}")
+    if lanes > STREAM_MAX_LANES:
+        raise ValueError(f"the stream step (kernel 7) counts a tile's retired and live lanes in 25-bit fields of its "
+                         f"status words: at most {STREAM_MAX_LANES} (2^25 - 1) lanes, got {lanes}")
     return lanes
+
+
+def _path_lanes(st) -> int:
+    """The path step's lanes, refused above cuda_build.MAX_LANES."""
+    return check_lanes("the path step's lanes", st["seeds"].shape[0])
 
 
 def _nee_args(tb, st, lanes, dev) -> tuple[dict, int]:
@@ -297,9 +312,9 @@ def fused_stream_step_cuda(tb, st, out, head, segments, shadow=None, *, spp: int
     """Launch the stream step on CUDA tensors; the plain version's
     contract, with the state updated in place."""
     dev = st["slot"].device
+    lanes = _stream_lanes(st)
     if not st["slot"].is_cuda:
         raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
-    lanes = _lane_count(st)
     if n_pix + lanes >= 2**31:
         raise ValueError(f"the kernel takes slots below 2^31: {lanes} lanes, {n_pix} pixels")
     if base is not None and ids is not None:
@@ -364,9 +379,9 @@ def path_step_cuda(tb, st, *, schedule: str, spp: int, max_depth: int, rr_refere
         raise ValueError("a dependent path step reads the payload after its wait: it must be contiguous, not copied "
                          "here just before the launch")
     dev = st["seeds"].device
+    lanes = _path_lanes(st)
     if not st["seeds"].is_cuda:
         raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
-    lanes = _lane_count(st)
     regen_schedule = schedule == "regen"
     t = _payload_args(tb, st, lanes, dev)
     flag = "exhausted" if regen_schedule else "terminated"

@@ -35,7 +35,7 @@ import ctypes
 
 import torch
 
-from tpu_pathtracer_torch.ops.cuda_build import check_tensor, kernel_arg, library, on_card
+from tpu_pathtracer_torch.ops.cuda_build import check_lanes, check_tensor, kernel_arg, library, on_card
 from tpu_pathtracer_torch.ops.intersect import Hit
 from tpu_pathtracer_torch.ops.ray_sort import MISS_PRIM, packet_order, restore_hits_plain
 
@@ -425,7 +425,7 @@ def _check_launch(tris, origins, directions, rays_per_tile, tri_test, boxes):
     if not origins.is_cuda:
         raise ValueError(f"the kernel needs CUDA tensors, got {dev}")
     c_count, k, _ = tris.shape
-    n = origins.shape[0]
+    n = check_lanes("rays", origins.shape[0])
     check_tensor("tris", tris, torch.float32, (c_count, k, 16), dev)
     check_tensor("origins", origins, torch.float32, (n, 3), dev)
     check_tensor("directions", directions, torch.float32, (n, 3), dev)

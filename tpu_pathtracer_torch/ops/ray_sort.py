@@ -18,7 +18,9 @@ version here:
   `ray_sort_key` (the lanes outside an `active` mask parked first,
   `park`), and the permutation: a hand-written LSD radix sort that
   computes the keys in its first launch and gathers the rays in its last
-  pass (one launch up to `SMALL_MAX` rays, else 1 + `digit_passes`);
+  pass (one launch up to `SMALL_MAX` rays, else 1 + `digit_passes`; its
+  look-back's status words 64-bit above `NARROW_MAX` rays, so that one
+  sort takes every batch up to `MAX_RAYS`);
 * `packet_order`: the heaviest-first order of a traversal's packets.
 
 The key's value needs at most 30 bits (3 octant bits, up to 9 spatial
@@ -38,7 +40,7 @@ import functools
 
 import torch
 
-from tpu_pathtracer_torch.ops.cuda_build import kernel_arg, library, on_card
+from tpu_pathtracer_torch.ops.cuda_build import MAX_LANES, check_lanes, kernel_arg, library, on_card
 from tpu_pathtracer_torch.ops.intersect import Hit
 from tpu_pathtracer_torch.utils.device import constant
 
@@ -55,8 +57,11 @@ RADIX = 1 << RADIX_BITS
 # The sort's scratch before its status words (64-bit words): a ticket and
 # an arrival counter, four passes' digit counts and digit starts.
 STATUS_OFFSET = 2 + 2 * 4 * RADIX
-# A 32-bit status word counts up to 2^23 - 1 keys.
-MAX_RAYS = (1 << 23) - 1
+# The look-back's status words are 32-bit up to NARROW_MAX keys (their
+# count field's 23 bits: every pool of the main path), 64-bit above.
+NARROW_MAX = (1 << 23) - 1
+# The kernels index rays and rows with int32.
+MAX_RAYS = MAX_LANES
 
 
 # ---------------------------------------------------------------------------
@@ -96,6 +101,11 @@ def tile_items(n: int) -> int:
     2,073,600), the fastest on the main path's rays of each pool
     (`sweep_ray_sort.py`; PERF.md §6)."""
     return 4 if n <= 1 << 20 else 16
+
+
+def wide_status(n: int) -> bool:
+    """Whether a sort of n rays over tiles takes 64-bit status words."""
+    return n > NARROW_MAX
 
 
 def sort_launches(n: int, spatial_bits: int, dir_bits: int) -> int:
@@ -207,26 +217,27 @@ def _box(scene_lo, scene_hi, dev):
 
 
 @functools.lru_cache(maxsize=None)
-def _scratch(device: torch.device, tiles: int) -> torch.Tensor:
-    """The sort's scratch for launches over `tiles` tiles on `device`: a
-    ticket and an arrival counter, the digit counts and starts, then a
-    32-bit status word a tile a digit.  Zeroed once here and never again: a pass
+def _scratch(device: torch.device, tiles: int, wide: bool) -> torch.Tensor:
+    """The sort's scratch for launches over `tiles` tiles on `device` with
+    32-bit status words, or 64-bit ones where `wide`: a ticket and an
+    arrival counter, the digit counts and starts, then room for a 64-bit
+    status word a tile a digit.  Zeroed once here and never again: a pass
     tags its status words with its own number, read off the ticket
     counter, and the key launch's last block sets the counts back to 0
     (csrc/ray_sort.cu).  Sorts that share one run one at a time, on one
-    stream."""
-    return torch.zeros(STATUS_OFFSET + tiles * RADIX // 2, dtype=torch.int64, device=device)
+    stream, and with one word width: n = 2^23 - 1 and 2^23 both take 2,048
+    tiles, and a narrow launch would leave half of a wide launch's words
+    unwritten, so that one of them could still hold this launch's tag."""
+    return torch.zeros(STATUS_OFFSET + tiles * RADIX, dtype=torch.int64, device=device)
 
 
 def sort_rays_cuda(origins, directions, scene_lo, scene_hi, spatial_bits: int, dir_bits: int, active=None,
                    items=None):
     """`items`: keys a thread over tiles (one of TILE_ITEMS), in place of
     `tile_items(n)`, to compare tile sizes."""
-    dev, n = origins.device, origins.shape[0]
+    dev, n = origins.device, check_lanes("rays", origins.shape[0])
     if not 0 <= spatial_bits <= 9 or dir_bits < 0:
         raise ValueError(f"no sort key of {spatial_bits} spatial and {dir_bits} direction bits")
-    if n > MAX_RAYS:
-        raise ValueError(f"the sort kernel takes at most {MAX_RAYS} rays, got {n}")
     o = kernel_arg("origins", origins, torch.float32, (n, 3), dev)
     d = kernel_arg("directions", directions, torch.float32, (n, 3), dev)
     lo, hi = _box(scene_lo, scene_hi, dev) if spatial_bits or active is not None else (None, None)
@@ -240,7 +251,7 @@ def sort_rays_cuda(origins, directions, scene_lo, scene_hi, spatial_bits: int, d
             items = items or tile_items(n)
             tiles = -(-n // (TILE_THREADS * items))
             keys, idx = torch.empty((2, 2 * n), dtype=torch.int32, device=dev)
-            scratch = _scratch(dev, tiles)
+            scratch = _scratch(dev, tiles, wide_status(n))
         db = key_dir_bits(spatial_bits, dir_bits)
         _launch("ray_sort_rays_launch", o.data_ptr(), d.data_ptr(), _ptr(lo), _ptr(hi), _ptr(act), n, spatial_bits,
                 db, digit_passes(spatial_bits, dir_bits), _ptr(keys), _ptr(idx), _ptr(scratch), tiles,
