@@ -287,22 +287,35 @@ Phases, each printing one line (any failure exits non-zero):
     ops.cuda_build.plain(), one launch of each kernel an iteration; the
     CLI without --scene (brute force) at the reference's defaults, two
     launches with AOVs: its s/launch, no plain brute-force call;
-41. frames past the old 32-bit counters, one render_rays batch each: the
+41. frames past the old 32-bit counters and kernel 7's narrow status
+    words: the
     headline on the cluster accel at 4096x2160 (DCI 4K), 1 spp, depth 8,
     without and with NEE (8,847,360 lanes: one sort a trace of more rays
     than 32-bit status words count), and config 1's sphere on the cluster
     accel at 1920x1080, 17 spp, regenerate=False (35,251,200 lanes: the
-    path step's two-word count), each through render_frame_stats, graphed,
+    path step's two-word count), one render_rays batch each; the headline
+    at 8192x4320, 2 spp, depth 8, stream_lanes 2^25 (35,389,440 pixels:
+    the stream with a pool of 33,554,432 lanes, kernel 7's two status
+    words a tile), without NEE (the fused stream) and with it (the
+    unfused stream); each through render_frame_stats, graphed,
     every launch counted, bit-equal to ops.cuda_build.plain() (image,
-    iterations, segments), s/launch, Mrays/s and the peak bytes a lane
-    (torch.cuda.max_memory_allocated), and from them the most lanes the
-    card holds; on the first trace's rays of the DCI-4K and the 17-spp
-    frames the sort (perm equal to torch.sort's stable order over all n,
-    rows to the gather) and the packet order (8,640 and 34,425 packets)
-    against their plain versions, timed with the L2 flushed beside their
-    bounds, torch.sort and argsort, and the traversal the order orders;
-    the path step at 35,251,200 lanes after two iterations against
-    path_step_plain, timed beside its bound; the CLI on the hero
+    iterations, segments, shadow segments; the streams' plain arm the
+    unfused stream's plain step), s/launch, Mrays/s and the peak bytes a
+    lane (torch.cuda.max_memory_allocated), and from them the most lanes
+    the card holds; on the first trace's rays of the DCI-4K, the 17-spp
+    and the 8K frames the sort (perm equal to torch.sort's stable order
+    over all n, rows to the gather) and the packet order (8,640, 34,425
+    and 32,768 packets) against their plain versions, timed with the L2
+    flushed beside their bounds, torch.sort and argsort, and the
+    traversal the order orders; the path step at 35,251,200 lanes after
+    two iterations against path_step_plain, timed beside its bound;
+    kernel 7 on a pool of 2^25 lanes after 2 iterations of the unfused
+    stream (and until a step retires pixels): on the 8K frame's identity
+    map, and on a 16384x4320 panorama's second pixel shard of two (an
+    affine range) and its id list of every other pixel, both
+    rr_modes and under NEE, against fused_stream_step_plain with the real
+    head and one that sends lanes past n_pix, timed with the L2 flushed
+    beside the bound of the bytes the step must move; the CLI on the hero
     stand-in's scene file at --dim 4096x2160, one sample a launch: one
     capture, the PNG finite and not black.
 Every render runs graphed (render/graph_loop.py: each schedule's
@@ -392,6 +405,7 @@ try:
         render_frame_stats,
         resolve_stream_lanes,
     )
+    from tpu_pathtracer_torch.render.integrator import schedule as frame_schedule
     from tpu_pathtracer_torch.scene.procedural import high_poly_scene, single_sphere_scene, three_spheres_scene
     from tpu_pathtracer_torch.scene.scene import SCRAMBLE_MULT, make_env
     from tpu_pathtracer_torch.utils import rng
@@ -790,9 +804,11 @@ class _OlderStep:
     """A fused_schedule.cu library from before the path step took
     `dependent` and the library sized the steps' scratch (it has no
     fused_step_scratch_words), called as this tree's wrappers call it: the
-    argument dropped, a scratch of 3 + tiles words whatever the entry, as
-    many as any older layout used (kernel 7's; the path step's 4, or 1 +
-    tiles)."""
+    argument dropped, a scratch of 3 + n words for n lanes whatever the
+    entry, more than any older layout used (kernel 7's 3 + tiles; the path
+    step's 4, or 1 + tiles).  A library whose fused_step_scratch_words
+    reads its second argument as tiles (before kernel 7 took two words a
+    tile) is given lanes there, and sizes a scratch larger than it uses."""
 
     def __init__(self, lib):
         self._lib = lib
@@ -801,8 +817,8 @@ class _OlderStep:
         return self._lib.fused_step_launch(p, entry, stream)
 
     @staticmethod
-    def fused_step_scratch_words(entry, tiles):
-        return 3 + tiles
+    def fused_step_scratch_words(entry, n):
+        return 3 + n
 
     def __getattr__(self, name):
         return getattr(self._lib, name)
@@ -4512,14 +4528,35 @@ DCI_4K = dict(width=4096, height=2160, samples_per_launch=1)
 # 35,251,200 lanes in one render_rays batch (the path step's two-word
 # count from 2^25 lanes on; the sort's 64-bit status words).
 UNREGENERATED = dict(CONFIG1, width=1920, height=1080, samples_per_launch=17, regenerate=False)
+# The 8K full-format frame at 2 spp with an explicit pool of 2^25 lanes
+# (bench --lanes): 35,389,440 pixels, so the stream schedule runs with a
+# pool past kernel 7's narrow status words (two words a tile from 2^25).
+STREAM_8K = dict(width=8192, height=4320, samples_per_launch=2, stream_lanes=2**25)
+# Unfused iterations before kernel 7's lane states: the pool still full
+# (by the 8th of the frame's 18 iterations the queue is spent and fewer
+# than 1% of the lanes live).
+STREAM_8K_ITERS = 2
 
 
 def large_cases():
-    """Phase 41's frames: (name, scene, RenderConfig, camera)."""
+    """Phase 41's frames: (name, scene, RenderConfig, camera, the schedule
+    render_pixels takes)."""
     headline = headline_scene("cuda")
-    return (("DCI 4K", headline, RenderConfig(**{**HEADLINE, **DCI_4K}), Camera()),
-            ("DCI 4K NEE", headline, RenderConfig(**{**HEADLINE, **NEE, **DCI_4K}), Camera()),
-            ("1080p 17 spp unregenerated", config1_scene("cuda"), RenderConfig(**UNREGENERATED), Camera()))
+    return (("DCI 4K", headline, RenderConfig(**{**HEADLINE, **DCI_4K}), Camera(), "rays"),
+            ("DCI 4K NEE", headline, RenderConfig(**{**HEADLINE, **NEE, **DCI_4K}), Camera(), "rays"),
+            ("1080p 17 spp unregenerated", config1_scene("cuda"), RenderConfig(**UNREGENERATED), Camera(), "rays"),
+            ("8K stream", headline, RenderConfig(**{**HEADLINE, **STREAM_8K}), Camera(), "stream_fused"),
+            ("8K stream NEE", headline, RenderConfig(**{**HEADLINE, **NEE, **STREAM_8K}), Camera(), "stream"))
+
+
+def first_trace(cfg):
+    """The rays of a frame's first trace as render_pixels spawns them:
+    (count, samples a pixel): the stream's pool, one sample of each of
+    its first pixels; else every pixel's samples."""
+    n_pix, spp = cfg.width * cfg.height, cfg.samples_per_launch
+    if frame_schedule(cfg, None, n_pix, spp, "cuda").startswith("stream"):
+        return min(resolve_stream_lanes(cfg, n_pix), n_pix), 1
+    return n_pix * spp, spp
 
 
 def large_ray_order(label, scene, cfg, camera, smi):
@@ -4534,10 +4571,8 @@ def large_ray_order(label, scene, cfg, camera, smi):
     traversal it orders (that launch with its pre-pass and order), its
     plain version and argsort.  Returns {"sort": ..., "order": ...}."""
     acc = scene.accel
-    spp = cfg.samples_per_launch  # the first trace's rays as render_pixels spawns them: per pixel its samples
-    o, d, _ = camera_ops.camera_paths(camera_arrays(camera, cfg, scene.device), cfg, 0, 0,
-                                      cfg.width * cfg.height * spp, per=spp)
-    n = o.shape[0]
+    n, per = first_trace(cfg)
+    o, d, _ = camera_ops.camera_paths(camera_arrays(camera, cfg, scene.device), cfg, 0, 0, n, per=per)
     box = (acc.scene_lo, acc.scene_hi)
     bits = (acc._spatial_bits(cfg) if acc._want_sort(cfg) == "spatial" else 0, acc._dir_bits(cfg))
     set_counts_zero()
@@ -4586,23 +4621,27 @@ def large_ray_order(label, scene, cfg, camera, smi):
                            bound_ms=order_bound_ms, bound_by=order_by, traversal_ms=traversal_ms))
 
 
-def large_render(label, scene, cfg, camera, smi):
-    """A large frame (one render_rays batch) with the kernels, graphed: the
-    frame at subframe 0 that captures the plan, then the same frame timed
-    (replays), every launch counted as phase_render counts them (the
-    route's closest hit, and any hit under NEE, the path step and the
-    bounce kernel once an iteration, the NEE kernel once an iteration
-    under NEE, the camera kernel once, the sort's launches for the whole
-    batch once a trace, the caller-order store, no other kernel); then the
-    frame under ops.cuda_build.plain(): image, iterations, segments and
-    shadow segments bit-equal.  The launches as check_frame_launches
-    counts them.  The peak bytes a lane of each arm
+def large_render(label, scene, cfg, camera, sched, smi):
+    """A large frame with the kernels, graphed: the frame at subframe 0
+    that captures the plan, then the same frame timed (replays), its
+    schedule `sched` (one render_rays batch, or the stream over its pool),
+    every launch counted as phase_render counts them (check_frame_launches:
+    the route's closest hit, and any hit under NEE, the schedule's step
+    and the bounce kernel once an iteration, the NEE kernel once an
+    iteration under NEE, the camera kernel once and once a stream
+    iteration, the sort's launches for the trace's pool once a trace, the
+    caller-order store, no other kernel); then the frame under
+    ops.cuda_build.plain() (a stream with its unfused plain step, so that
+    no kernel 7 runs there): image, iterations, segments and shadow
+    segments bit-equal.  The peak bytes a lane of each arm
     (torch.cuda.max_memory_allocated over the frame that builds the plan,
     less what was allocated before it), and from the kernels' the most
     lanes the card's memory holds.  Returns the numbers."""
     nee = cfg.env_importance_sampling
     cam = camera_arrays(camera, cfg, scene.device)
-    lanes = cfg.width * cfg.height * cfg.samples_per_launch
+    n_pix = cfg.width * cfg.height
+    stream = sched.startswith("stream")
+    lanes = min(resolve_stream_lanes(cfg, n_pix), n_pix) if stream else n_pix * cfg.samples_per_launch
 
     def peak_frame(plain=False):
         graph_loop.clear()
@@ -4610,9 +4649,10 @@ def large_render(label, scene, cfg, camera, smi):
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
+        cfg_ = cfg.replace(fused_schedule="off") if plain and stream else cfg
         with cuda_build.plain() if plain else contextlib.nullcontext():
             t0 = time.perf_counter()
-            img, stats = render_frame_stats(scene, cam, cfg, 0)
+            img, stats = render_frame_stats(scene, cam, cfg_, 0)
             torch.cuda.synchronize()
         return img, stats, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - base, base
 
@@ -4625,33 +4665,40 @@ def large_render(label, scene, cfg, camera, smi):
     dt = time.perf_counter() - t0
     counts = read_counts()
     iters, segs, shadow = stats["iters"], int(stats["segments"]), int(stats["shadow_segments"])
-    if stats["schedule"] != "rays" or not stats["graphed"] or graph_loop.stats["captures"] - captures != 1:
-        raise SystemExit(f"[{label}] FAIL: schedule {stats['schedule']}, graphed {stats['graphed']}")
+    if stats["schedule"] != sched or not stats["graphed"] or graph_loop.stats["captures"] - captures != 1:
+        raise SystemExit(f"[{label}] FAIL: schedule {stats['schedule']}, not {sched}; graphed {stats['graphed']}")
     route = scene.accel.route(cfg)
-    check_frame_launches(label, scene, cfg, counts, iters, "rays", 1)
+    check_frame_launches(label, scene, cfg, counts, iters, sched, 1)
     if not bool(torch.isfinite(img).all()) or not float(img.max()) > 0.0:
         raise SystemExit(f"[{label}] FAIL: the frame is non-finite or black")
     img = img.clone()
+    set_counts_zero()
     img_p, stats_p, plain_s, plain_peak, _ = peak_frame(plain=True)
+    plain_steps = read_counts()["k7"]
     same = (same_bits(img, img_p) and stats_p["iters"] == iters and int(stats_p["segments"]) == segs
             and int(stats_p["shadow_segments"]) == shadow)
-    if not same:
+    if not same or plain_steps:
         raise SystemExit(f"[{label}] FAIL: the kernels' frame and plain()'s differ (iterations {iters} and "
-                         f"{stats_p['iters']}, segments {segs} and {int(stats_p['segments'])})")
+                         f"{stats_p['iters']}, segments {segs} and {int(stats_p['segments'])}; {plain_steps} kernel 7 "
+                         f"launches under plain())")
     del img_p
     graph_loop.clear()
     torch.cuda.empty_cache()
     total = torch.cuda.get_device_properties(0).total_memory
     per_lane = peak / lanes
     most = int((total - base) // per_lane)
+    holds = (f"at most {most} lanes in a pool" if stream else
+             f"at most {most} lanes ({most // (1920 * 1080)} spp unregenerated at 1080p, a 1-spp frame of {most} "
+             f"pixels)")
+    batch = (f"the {sched} schedule with a pool of {lanes} lanes over {n_pix} pixels" if stream else
+             f"{lanes} lanes in one render_rays batch")
     print(f"[{label}] {scene.num_triangles} triangles, {route} route{', NEE' if nee else ''}, {cfg.width}x"
-          f"{cfg.height} {cfg.samples_per_launch} spp depth {cfg.max_depth}: {lanes} lanes in one render_rays "
-          f"batch, graphed; {iters} iterations, {segs} segments, {shadow} shadow segments; "
+          f"{cfg.height} {cfg.samples_per_launch} spp depth {cfg.max_depth}: {batch}, graphed; {iters} iterations, "
+          f"{segs} segments, {shadow} shadow segments; "
           f"{dt:.4f} s/launch (replays; {(segs + shadow) / dt / 1e6:.4f} Mrays/s), the capturing frame "
           f"{first_s:.4f} s, plain() {plain_s:.4f} s; image, iterations and segments bit-equal to plain(); "
           f"launches {launched(counts)}; peak {peak} B over the frame's set-up, {per_lane:.1f} B a lane "
-          f"(plain() {plain_peak / lanes:.1f}); {total} B on the card, {base} B before the frame: at most {most} "
-          f"lanes ({most // (1920 * 1080)} spp unregenerated at 1080p, a 1-spp frame of {most} pixels) | {smi}",
+          f"(plain() {plain_peak / lanes:.1f}); {total} B on the card, {base} B before the frame: {holds} | {smi}",
           flush=True)
     return dict(lanes=lanes, iters=iters, segments=segs, shadow_segments=shadow, seconds=dt,
                 mrays=(segs + shadow) / dt / 1e6, bytes_per_lane=per_lane, plain_bytes_per_lane=plain_peak / lanes,
@@ -4687,6 +4734,109 @@ def large_path_step(label, scene, cfg, camera, smi):
     return dict(lanes=n, live=n_live, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
+# Kernel 7 on a pool of 2^25 lanes: (name, RenderConfig fields over the 8K
+# frame's, pixels as render_pixels takes them).  A map's pixels must
+# outnumber the pool, so the range and the id list are a 16384x4320
+# panorama's (70,778,880 pixels): "range" the second of its two pixel
+# shards, "ids" every other pixel of it, last first.
+PANORAMA = dict(width=16384)
+STREAM_8K_STEPS = (("identity", {}, None), ("range", PANORAMA, "range"), ("ids", PANORAMA, "ids"),
+                   ("NEE identity", NEE, None), ("NEE range", {**NEE, **PANORAMA}, "range"),
+                   ("NEE ids", {**NEE, **PANORAMA}, "ids"))
+
+
+def large_stream_step(label, scene, cfg, smi):
+    """Kernel 7 alone on real lane states of the 8K frame's pool (2^25
+    lanes, two status words a tile): the unfused stream's lanes after
+    STREAM_8K_ITERS iterations and until a step retires pixels, on the 8K
+    frame's identity map, and on a 16384x4320 panorama's second pixel
+    shard of two (an affine range whose base the kernel reads on the
+    card) and id list (every other pixel, last first), without NEE in
+    both rr_modes and under NEE (the shadow
+    count and the env credit); state, image, regen mask, head, segments,
+    live and shadow counts bit-equal to fused_stream_step_plain with the
+    real head and with one that sends lanes past n_pix.  The identity's
+    reference mode and each map under NEE timed with the L2 flushed before
+    each launch beside the plain version and the bound of the bytes the
+    step must move (step_bytes); the identity's also beside the narrow
+    layout's kernel on the same lanes but the last (2^25 - 1: one status
+    word a tile, the same tiles).  Returns the numbers of each."""
+    numbers = {}
+    for name, over, kind in STREAM_8K_STEPS:
+        n_frame = over.get("width", cfg.width) * cfg.height
+        pixels = (None if kind is None else
+                  (torch.tensor(n_frame // 2, dtype=torch.int64, device="cuda"), n_frame - n_frame // 2)
+                  if kind == "range" else torch.arange(n_frame - 1, -1, -2, dtype=torch.int32, device="cuda"))
+        nee = "env_importance_sampling" in over
+        for rr_mode in ("standard",) if nee else ("reference", "standard"):
+            cfg_ = cfg.replace(**{**over, "rr_mode": rr_mode})
+            st, tb, head, _, *shadow = lane_state(scene, cfg_, Camera(), STREAM_8K_ITERS, retiring=True,
+                                                  pixels=pixels)
+            shadow = shadow[0] if shadow else None
+            kw, keys, dev = step_kw(cfg_, pixels), state_keys(cfg_), scene.device
+            n_pix, lanes = kw["n_pix"], st["slot"].shape[0]
+            seg = torch.tensor(12345, dtype=torch.int64, device=dev)
+
+            def copy():
+                return {k: st[k].clone() for k in keys}
+
+            probe = fs.fused_stream_step_plain(tb, copy(), torch.zeros((n_pix + 1, 3), device=dev), head, seg,
+                                               shadow, **kw)
+            done = int(probe[1]) - int(head)
+            if not done or lanes < fs.NARROW_LANES:
+                raise SystemExit(f"[{label} {name}] FAIL: {done} pixels retire in the step at {lanes} lanes")
+            lines = []
+            for head_in in (head, torch.tensor(n_pix - done // 2, dtype=torch.int64, device=dev)):
+                st_k, st_p = copy(), copy()
+                out_k, out_p = (torch.zeros((n_pix + 1, 3), device=dev) for _ in range(2))
+                set_counts_zero()
+                got = fs.fused_stream_step(tb, st_k, out_k, head_in, seg, shadow, **kw)
+                launches = fs.fused_stream_step.launches
+                want = fs.fused_stream_step_plain(tb, st_p, out_p, head_in, seg, shadow, **kw)
+                torch.cuda.synchronize()
+                bad = [k for k in keys if not same_bits(st_k[k], st_p[k])]
+                bad += ["out"] * (not same_bits(out_k, out_p)) + ["regen"] * (not torch.equal(got[0], want[0]))
+                bad += [w for w, a, b in zip(("head", "segments", "live", "shadow"), got[1:], want[1:])
+                        if int(a) != int(b)]
+                if bad or len(got) != len(want) or launches != 1:
+                    raise SystemExit(f"[{label} {name}] FAIL: fused_step ({rr_mode}, {lanes} lanes) and its plain "
+                                     f"version differ in {bad}")
+                past = int((st_k["slot"] >= n_pix).sum()) - int((st["slot"] >= n_pix).sum())
+                lines.append(f"head {int(head_in)}: {done} retired, {past} past n_pix, {int(got[0].sum())} regen, "
+                             f"{int(got[3])} live" + (f", shadow {int(got[4]) - int(shadow)}" if nee else ""))
+                del st_k, st_p, out_k, out_p
+            timing = ""
+            if rr_mode == ("standard" if nee else "reference") and (nee or kind is None):
+                out_k = torch.zeros((n_pix + 1, 3), device=dev)
+                ms = _time_cold(lambda s_: fs.fused_stream_step_cuda(tb, s_, out_k, head, seg, shadow, **kw),
+                                [copy() for _ in range(5)])
+                plain_ms = _time_over(lambda s_: fs.fused_stream_step_plain(tb, s_, out_k, head, seg, shadow, **kw),
+                                      [copy() for _ in range(3)])
+                n_bytes, n_live, n_done = step_bytes(tb, st, probe[0], n_pix, cfg_.samples_per_launch,
+                                                     rr_mode == "reference", nee=nee, ids=kind == "ids")
+                flops = 15 * n_live + 6 * n_done
+                bound_ms, bound_by = bound(n_bytes, flops)
+                numbers[name] = dict(lanes=lanes, max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                     bound_by=bound_by, library_ms=None)
+                timing = (f"; kernel {ms:.4f} ms (L2 flushed before each launch), plain {plain_ms:.4f} ms; "
+                          f"{n_live} live lanes, {n_done} pixels done, {n_bytes} bytes the step must move, {flops} "
+                          f"FLOP: bound {bound_ms:.4f} ms by {bound_by}")
+                if kind is None and not nee:  # the narrow layout at one lane fewer, the same tiles
+                    fewer = {k: v[:-1] for k, v in tb.items()}
+                    narrow_ms = _time_cold(
+                        lambda s_: fs.fused_stream_step_cuda(fewer, s_, out_k, head, seg, shadow, **kw),
+                        [{k: v[:-1].clone() for k, v in st.items() if k in keys} for _ in range(5)])
+                    numbers[name]["narrow_ms_one_lane_fewer"] = narrow_ms
+                    timing += f"; the narrow layout at {lanes - 1} lanes {narrow_ms:.4f} ms"
+                del out_k
+            print(f"[{label} {name}] {lanes} lanes (two status words a tile) over {n_pix} pixels, {rr_mode}: state, "
+                  f"image, regen mask, head, segments, live{' and shadow' if nee else ''} count bit-equal (0 ulp): "
+                  f"{'; '.join(lines)}{timing} | {smi}", flush=True)
+            del st, tb, probe
+            torch.cuda.empty_cache()
+    return numbers
+
+
 def large_cli(label, hero, root, smi):
     """The CLI on the hero stand-in's scene file at 4096x2160, one sample a
     launch (render_rays over 8,847,360 lanes, depth 20, DOF, the flat
@@ -4712,24 +4862,28 @@ def large_cli(label, hero, root, smi):
 
 
 def phase_large(label, hero, root, smi):
-    """Frames past the old 32-bit counters (large_cases): the sort and the
-    packet order on the DCI-4K frame's and the unregenerated frame's rays
-    (large_ray_order); the three frames against plain() (large_render);
-    the path step at 35,251,200 lanes (large_path_step); the CLI at
-    4096x2160 (large_cli).  Returns the numbers for the kernels line."""
+    """Frames past the old 32-bit counters and kernel 7's narrow status
+    words (large_cases): the sort and the packet order on the DCI-4K, the
+    unregenerated and the 8K frame's first trace (large_ray_order); the
+    five frames against plain() (large_render); the path step at
+    35,251,200 lanes (large_path_step); kernel 7 on the 8K frame's pool
+    (large_stream_step); the CLI at 4096x2160 (large_cli).  Returns the
+    numbers for the kernels line."""
     t0 = time.perf_counter()
     graph_loop.clear()
     torch.cuda.empty_cache()
     cases = large_cases()
-    (_, dci, dci_cfg, cam), _, (_, c1, c1_cfg, cam1) = cases
+    c1, c1_cfg, cam1 = cases[2][1:4]
     out = {"order": {}, "renders": {}}
-    for name, sc, cfg_, camera in (cases[0], cases[2]):
+    for name, sc, cfg_, camera, _ in (cases[0], cases[2], cases[3]):
         got = large_ray_order(f"{label} ray order {name}", sc, cfg_, camera, smi)
         out["sort_" + name], out["order"][name] = got["sort"], got["order"]
         torch.cuda.empty_cache()
-    for name, sc, cfg_, camera in cases:
-        out["renders"][name] = large_render(f"{label} render {name}", sc, cfg_, camera, smi)
+    for name, sc, cfg_, camera, sched in cases:
+        out["renders"][name] = large_render(f"{label} render {name}", sc, cfg_, camera, sched, smi)
     out["path_step"] = large_path_step(f"{label} path step", c1, c1_cfg, cam1, smi)
+    torch.cuda.empty_cache()
+    out["stream_step"] = large_stream_step(f"{label} kernel 7", cases[3][1], cases[3][2], smi)
     torch.cuda.empty_cache()
     large_cli(f"{label} CLI", hero, root, smi)
     graph_loop.clear()
@@ -4952,7 +5106,10 @@ def main() -> int:
     # also give their numbers at phase 41's sizes as `large` (the sort and
     # the packet order on the DCI-4K frame's and the unregenerated 17-spp
     # frame's first trace, the path step at 35,251,200 lanes), and their
-    # launches in phase 41's DCI-4K render as `launches_dci_4k`.
+    # launches in phase 41's DCI-4K render as `launches_dci_4k`.  Kernel 7
+    # also gives its numbers on the 8K frame's pool of 2^25 lanes (two
+    # status words a tile) as `large`, and its launches in phase 41's 8K
+    # stream renders as `launches_8k`, `launches_8k_nee`.
     dci_counts = large["renders"]["DCI 4K"]["counts"]
     extra = {"ks": dict(plain_arm_launches=plain_arm["ks"]),
              "kbc": dict(launches_config3_nee=brute_counts["config 3 NEE"]["kbc"],
@@ -4962,6 +5119,8 @@ def main() -> int:
     extra["kx"]["large"] = {k: v for k, v in large.items() if k.startswith("sort_")}
     extra["ko"]["large"] = large["order"]
     extra["kp"] = dict(large=large["path_step"], launches_dci_4k=dci_counts["kp"])
+    extra["k7"].update(large=large["stream_step"], launches_8k=large["renders"]["8K stream"]["counts"]["k7"],
+                       launches_8k_nee=large["renders"]["8K stream NEE"]["counts"]["k7"])
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches[kid], **numbers[kid],
              **extra.get(kid, {}))

@@ -1,7 +1,8 @@
 """What the sweeps of one kernel by build share (sweep_bounce.py,
-sweep_path_step.py): builds of one csrc/ source, each from a copy of a
-csrc/ directory with the source's text edited or not, compiled all at
-once; each library loaded as chip_smoke.py loads a parent's
+sweep_path_step.py, sweep_stream_step.py): builds of one csrc/ source,
+each from a copy of a csrc/ directory with the source's text edited or
+not (always_wide: fused_schedule.cu's wide layouts at every lane count),
+compiled all at once; each library loaded as chip_smoke.py loads a parent's
 (`chip_smoke.load_library`), with its kernels' registers, stack and
 spills from nvcc's -Xptxas -v report; and the builds timed in turns,
 each round forwards, then backwards, one line a build and round.
@@ -17,6 +18,16 @@ import chip_smoke as cs
 from tpu_pathtracer_torch.ops import cuda_build
 
 ROOT = cuda_build.BUILD_DIR / "sweeps"
+
+
+def always_wide(text):
+    """fused_schedule.cu's text with the wide layouts at every lane count
+    (kNarrowLanes 0): the path step's two-word count and kernel 7's two
+    status words a tile."""
+    old = "constexpr int kNarrowLanes = 1 << 25;"
+    if old not in text:
+        raise SystemExit("kNarrowLanes was not found in fused_schedule.cu")
+    return text.replace(old, "constexpr int kNarrowLanes = 0;")
 
 
 def start(sweep, name, src_dir, source, edit=None):

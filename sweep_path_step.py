@@ -54,16 +54,6 @@ def without_grid_sum(text):
     return text[:start] + text[end:]
 
 
-def always_wide(text):
-    """fused_schedule.cu's text with the path step's two-word count at
-    every lane count (kNarrowLanes 0; the stream step then refuses every
-    launch, which this sweep never makes)."""
-    old = "constexpr int kNarrowLanes = 1 << 25;"
-    if old not in text:
-        raise SystemExit("kNarrowLanes was not found in fused_schedule.cu")
-    return text.replace(old, "constexpr int kNarrowLanes = 0;")
-
-
 def cases(scene):
     """(name, buffers, payload, keywords) of each of PATH_STEP_CASES."""
     out = []
@@ -86,7 +76,7 @@ def main() -> int:
     start = lambda name, src_dir, edit=None: sweep_builds.start("path_step", name, src_dir, SOURCE, edit)  # noqa: E731
     jobs = ([start("parent", args.parent)] if args.parent else []) + [start("change", cuda_build.CSRC_DIR)]
     jobs += [start(name, d) for name, d in (b.split("=", 1) for b in args.build)]
-    edits = dict(no_grid_sum=without_grid_sum, wide=always_wide)
+    edits = dict(no_grid_sum=without_grid_sum, wide=sweep_builds.always_wide)
     jobs += [start(name, cuda_build.CSRC_DIR, edits[name]) for name in sorted(set(args.variants))]
     cuda_build.build_libraries()
     builds = sweep_builds.finish(jobs, ("path_step_kernel",))

@@ -2464,6 +2464,165 @@ def test_path_step_at_the_wide_count_word(cuda, lanes, share, schedule, nee):
         tb = wide_path_state(lanes, seed + 100, cuda, schedule, 0.0, nee)[0]
 
 
+WIDE_STEP_LANES = (2**25 - 1, 2**25, 2**25 + 1)  # kernel 7's narrow status words' last pool, the wide ones' first two
+STEP_RETIRING = ("none", "some", "every")  # lanes whose pixel the step retires
+
+
+def wide_step_state(lanes, seed, dev, retiring, nee):
+    """step_state's lane pool and payload at `lanes`, made on the card from
+    `seed`: distinct live slots below a head near n_pix = 4 lanes, a tenth
+    of the lanes retired before (but with `retiring` "every", where every
+    lane is live, its path ends and its pixel is done: 2^25 lanes retire
+    at once); "none": no pixel is done (every sample count 0 of 3);
+    "some": sample counts at random; under NEE the payload's hit flags and
+    env credits, bool, and the lanes' credits.  Returns (tb, st, n_pix,
+    head, segments, shadow or None)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def vec3(lo, hi):
+        return torch.rand((lanes, 3), generator=g, device=dev) * (hi - lo) + lo
+
+    def coin(p):
+        return torch.rand(lanes, generator=g, device=dev) < p
+
+    def ints(lo, hi, dtype=torch.int32):
+        return torch.randint(lo, hi, (lanes,), generator=g, device=dev, dtype=dtype)
+
+    n_pix = 4 * lanes
+    head = n_pix - lanes // 16
+    slot = torch.randperm(head, generator=g, device=dev)[:lanes].to(torch.int32)
+    dead = coin(0.1) if retiring != "every" else torch.zeros(lanes, dtype=torch.bool, device=dev)
+    slot[dead] = n_pix + ints(0, 3)[dead]
+    pix = torch.where(dead, ints(0, n_pix), slot)
+    att = vec3(0.0, 1.3)
+    att[coin(0.05)] = 0.0
+    att[coin(0.01), 1] = float("nan")
+    tb = dict(origin=vec3(-5, 5), direction=vec3(-1, 1), attenuation=att, radiance=vec3(0, 4),
+              seeds=ints(0, 2**32, torch.int64), done=coin(0.3) | (retiring == "every"))
+    sample_i = {"none": torch.zeros(lanes, dtype=torch.int32, device=dev), "some": ints(0, 3),
+                "every": torch.full((lanes,), 2, dtype=torch.int32, device=dev)}[retiring]
+    st = dict(origin=vec3(-5, 5), direction=vec3(-1, 1), attenuation=vec3(0, 1), radiance=vec3(0, 2),
+              seeds=ints(0, 2**32, torch.int64), slot=slot, pix=pix, sample_i=sample_i, depth=ints(0, 5),
+              lane_accum=vec3(0, 6))
+    st["lane_accum"][::97] = -0.0  # the plain version's + 0.0 makes them +0.0
+    shadow = None
+    if nee == "on":
+        tb["hit"], tb["spec_last"], st["spec_last"] = coin(0.7), coin(0.5), coin(0.5)
+        shadow = torch.tensor(77, device=dev)
+    return tb, st, n_pix, torch.tensor(head, device=dev), torch.tensor(1000, device=dev), shadow
+
+
+def wide_pixel_map(kind, n_pix, seed, dev):
+    """pixel_map's keywords made on the card: the identity, an affine
+    range's 0-d base, or an id table (a permutation of the pixels)."""
+    if kind != "ids":
+        return pixel_map(kind, n_pix, seed, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return dict(ids=torch.randperm(n_pix, generator=g, device=dev).to(torch.int32))
+
+
+WIDE_STEP_CASES = [(n, pixels, nee, retiring) for n in WIDE_STEP_LANES for pixels in ("identity", "range", "ids")
+                   for nee in ("off", "on") for retiring in STEP_RETIRING]
+
+
+@pytest.mark.parametrize("lanes,pixels,nee,retiring", WIDE_STEP_CASES,
+                         ids=[f"{n}-{p}-{e}-{r}" for n, p, e, r in WIDE_STEP_CASES])
+def test_stream_step_wide_matches_plain(cuda, lanes, pixels, nee, retiring):
+    """Kernel 7 at 2^25 - 1 lanes (the narrow status words' last pool) and
+    at 2^25 and 2^25 + 1 (two words a tile), on every pixel map, NEE off
+    and on, with no lane, some and every lane retiring its pixel: the
+    state, the image, the regen mask, head, segments, the live count and
+    the shadow count bit-equal to the plain version; then a second step
+    from each one's result on the same scratch, with a new payload,
+    bit-equal too; one launch counted a step."""
+    case = WIDE_STEP_CASES.index((lanes, pixels, nee, retiring))
+    tb, st, n_pix, head, segments, shadow = wide_step_state(lanes, case, cuda, retiring, nee)
+    kw = dict(spp=3, n_pix=n_pix, max_depth=4, rr_reference=case % 2 == 0, inv_spp=1.0 / 3,
+              **wide_pixel_map(pixels, n_pix, case, cuda))
+    st_k = {k: v.clone() for k, v in st.items()}
+    st_p = st
+    out_k = torch.zeros((n_pix + 1, 3), device=cuda)
+    out_p = torch.zeros_like(out_k)
+    res_k = res_p = (None, head, segments, None, shadow)
+    for step in range(2):
+        before = fs.fused_stream_step.launches
+        res_k = fs.fused_stream_step(tb, st_k, out_k, res_k[1], res_k[2], res_k[4] if nee == "on" else None, **kw)
+        res_p = fs.fused_stream_step_plain(tb, st_p, out_p, res_p[1], res_p[2], res_p[4] if nee == "on" else None,
+                                           **kw)
+        torch.cuda.synchronize()
+        assert fs.fused_stream_step.launches == before + 1
+        assert_stream_step_equal(st_k, st_p, out_k, out_p, res_k, res_p, step)
+        if step == 0:
+            retired = int(res_k[1]) - int(head)
+            assert retired == {"none": 0, "every": lanes}.get(retiring, retired) and (retiring != "some" or retired)
+        tb = wide_step_state(lanes, case + 1000, cuda, "some", nee)[0]
+    del st_k, st_p, out_k, out_p, tb
+    torch.cuda.empty_cache()
+
+
+def test_stream_step_wide_repeated_past_the_tag_wrap(cuda):
+    """One step at 2^25 lanes launched 4,100 times on one never-cleared
+    scratch (more than the 4,095 tags a status word cycles through), each
+    from a fresh copy of the state: every launch's slots, regen mask,
+    head', segments', live and shadow counts equal the plain version's,
+    and the last three launches equal it in every field and the image."""
+    lanes = 2**25
+    tb, st, n_pix, head, segments, shadow = wide_step_state(lanes, 4100, cuda, "some", "on")
+    kw = dict(spp=3, n_pix=n_pix, max_depth=4, rr_reference=False, inv_spp=1.0 / 3,
+              **wide_pixel_map("ids", n_pix, 5, cuda))
+    st_p = {k: v.clone() for k, v in st.items()}
+    out_p = torch.zeros((n_pix + 1, 3), device=cuda)
+    want = fs.fused_stream_step_plain(tb, st_p, out_p, head, segments, shadow, **kw)
+    st_k = {k: v.clone() for k, v in st.items()}
+    out_k = torch.zeros_like(out_p)
+    bad = torch.zeros((), dtype=torch.int64, device=cuda)
+    launches = 4100
+    for r in range(launches):
+        for k, v in st.items():
+            st_k[k].copy_(v)
+        if r >= launches - 3:
+            out_k.zero_()
+        got = fs.fused_stream_step_cuda(tb, st_k, out_k, head, segments, shadow, **kw)
+        bad += (st_k["slot"] != st_p["slot"]).sum() + (got[0] != want[0]).sum()
+        bad += sum((a != b).long() for a, b in zip(got[1:], want[1:]))
+        if r >= launches - 3:
+            torch.cuda.synchronize()
+            assert_stream_step_equal(st_k, st_p, out_k, out_p, got, want, r)
+    assert int(bad) == 0 and int(want[1]) > int(head)
+    del st_k, st_p, out_k, out_p
+    torch.cuda.empty_cache()
+
+
+def test_stream_step_narrow_and_wide_alternated(cuda):
+    """2^25 - 1 and 2^25 lanes take the same 131,072 tiles in the two
+    layouts: the wrapper gives each its own scratch (fs._scratch, of
+    3 + 131,072 and 3 + 262,144 words), and six steps alternated between
+    the two, each from its own state's last result, stay bit-equal to the
+    plain version."""
+    dev = cuda
+    pools = {}
+    for lanes in (2**25 - 1, 2**25):
+        tb, st, n_pix, head, segments, _ = wide_step_state(lanes, lanes % 101, dev, "some", "off")
+        pools[lanes] = dict(tb=tb, st_k={k: v.clone() for k, v in st.items()}, st_p=st, head_k=head, head_p=head,
+                            seg_k=segments, seg_p=segments, n_pix=n_pix,
+                            out_k=torch.zeros((n_pix + 1, 3), device=dev), out_p=torch.zeros((n_pix + 1, 3), device=dev))
+    narrow, wide = fs._scratch(dev, 0, 2**25 - 1), fs._scratch(dev, 0, 2**25)
+    assert narrow is not wide and (narrow.shape[0], wide.shape[0]) == (3 + 131_072, 3 + 2 * 131_072)
+    for step in range(6):
+        lanes = (2**25 - 1, 2**25)[step % 2]
+        p = pools[lanes]
+        kw = dict(spp=3, n_pix=p["n_pix"], max_depth=4, rr_reference=True, inv_spp=1.0 / 3)
+        got = fs.fused_stream_step_cuda(p["tb"], p["st_k"], p["out_k"], p["head_k"], p["seg_k"], **kw)
+        want = fs.fused_stream_step_plain(p["tb"], p["st_p"], p["out_p"], p["head_p"], p["seg_p"], **kw)
+        torch.cuda.synchronize()
+        assert_stream_step_equal(p["st_k"], p["st_p"], p["out_k"], p["out_p"], got, want, step)
+        p.update(head_k=got[1], seg_k=got[2], head_p=want[1], seg_p=want[2])
+    del pools
+    torch.cuda.empty_cache()
+
+
 def far_rays(n, tail, dev):
     """n rays whose last `tail` are rays() toward the three-spheres scene
     and the rest parked at (3e37, 0, 0) pointing +x (they meet no box)."""

@@ -459,7 +459,8 @@ def test_count_word_layout_mirrors_the_source():
     2^25 on live lanes and arrivals, the tiles not ended in a word of
     their own; each field wide enough for the most lanes its layout
     takes, the word's 64 bits not exceeded; the wrappers' limits and the
-    scratch's size the kernel's."""
+    scratch's size the kernel's (the path step's three words at every
+    lane count)."""
     text = code("fused_schedule.cu")
     shifts = re.search(r"kOpenShift = (\d+), kArrivalShift = (\d+);", text)
     assert tuple(map(int, shifts.groups())) == (OPEN_SHIFT, ARRIVAL_SHIFT)
@@ -467,13 +468,13 @@ def test_count_word_layout_mirrors_the_source():
     assert "constexpr int kNarrowLanes = 1 << 25;" in text and NARROW_LANES == fs.NARROW_LANES
     assert f"constexpr int kWideArrivalShift = {WIDE_ARRIVAL_SHIFT};" in text
     assert "kWideLiveMask = (1ull << kWideArrivalShift) - 1;" in text
-    assert "p->n < kNarrowLanes" in text and "return entry == 0 ? kStatus + tiles : 3;" in text
+    assert "p->n < kNarrowLanes" in text and "? kStatus + (n < kNarrowLanes ? 1 : 2) * tiles : 3;" in text
     narrow_tiles = -(-(NARROW_LANES - 1) // THREADS)
     assert NARROW_LANES - 1 < 1 << OPEN_SHIFT and narrow_tiles < 1 << TILE_BITS
     assert ARRIVAL_SHIFT + narrow_tiles.bit_length() <= 64
     wide_tiles = -(-MAX_LANES // THREADS)
     assert MAX_LANES < 1 << WIDE_ARRIVAL_SHIFT and WIDE_ARRIVAL_SHIFT + wide_tiles.bit_length() <= 64
-    assert cuda_build.MAX_LANES == MAX_LANES and fs.STREAM_MAX_LANES == NARROW_LANES - 1
+    assert cuda_build.MAX_LANES == MAX_LANES == fs.STREAM_MAX_LANES
 
 
 @pytest.mark.parametrize("lanes", [NARROW_LANES - 1, NARROW_LANES, 35_251_200, MAX_LANES])
@@ -503,21 +504,26 @@ def test_kernel_int_fields_refuse_more_than_int32():
 
 
 def test_stream_step_keeps_its_refusal_at_2_25_lanes():
-    """Kernel 7 (the stream step) still counts a tile's retired and live
-    lanes in 25-bit fields of its status words: its wrapper takes 2^25 - 1
-    lanes (stopping at the CUDA check) and refuses 2^25 with a message of
-    its own, naming the stream step and its 25-bit fields."""
+    """Kernel 7 (the stream step) no longer refuses 2^25 lanes: its tiles
+    publish two status words each from there (csrc/fused_schedule.cu:
+    kNarrowLanes).  Its wrapper takes 2^25 - 1, 2^25 and 2^25 + 1 lanes
+    and 2^31 - 1 (stopping at the CUDA check), and refuses one lane more
+    with a message naming the stream step's int32 lanes; its launcher
+    still refuses a dependent launch, and no longer a lane count."""
     kw = dict(spp=1, n_pix=1, max_depth=4, rr_reference=False, inv_spp=1.0)
 
     def state(n):
         lanes = torch.zeros(1, dtype=torch.int32).expand(n)
         return {"slot": lanes, "seeds": lanes}
 
-    with pytest.raises(ValueError, match="CUDA"):
-        fs.fused_stream_step_cuda({}, state(NARROW_LANES - 1), None, None, None, **kw)
-    with pytest.raises(ValueError, match=r"stream step \(kernel 7\).*25-bit fields.*2\^25 - 1"):
-        fs.fused_stream_step_cuda({}, state(NARROW_LANES), None, None, None, **kw)
-    assert "entry == 0 && (dependent || p->n >= kNarrowLanes)" in code("fused_schedule.cu")
+    for n in (NARROW_LANES - 1, NARROW_LANES, NARROW_LANES + 1, MAX_LANES):
+        with pytest.raises(ValueError, match="CUDA"):
+            fs.fused_stream_step_cuda({}, state(n), None, None, None, **kw)
+    with pytest.raises(ValueError, match=r"stream step's lanes: .*int32: at most 2147483647 \(2\^31 - 1\)"):
+        fs.fused_stream_step_cuda({}, state(MAX_LANES + 1), None, None, None, **kw)
+    launcher = code("fused_schedule.cu")
+    assert "if (entry == 0 && dependent) return static_cast<int>(cudaErrorInvalidValue);" in launcher
+    assert "p->n >= kNarrowLanes" not in launcher and "fused_step_kernel<true><<<" in launcher
 
 
 @pytest.mark.parametrize("step", ["plain", "kernel"])

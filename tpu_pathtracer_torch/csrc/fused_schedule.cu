@@ -98,9 +98,25 @@
 //   tickets e*T .. e*T+T-1: tile = ticket % T, and a status word carries
 //   the launch's tag (e mod 4095, plus 1) beside its flag and counts, so a
 //   word left by the previous launch (every launch writes every word)
-//   reads as not yet published.  A word is tag (12 bits), flag (2),
-//   retired lanes (25) and live lanes (25), published by one atomicExch
-//   and read by volatile loads, so lanes < 2^25.
+//   reads as not yet published.  Below kNarrowLanes = 2^25 lanes (every
+//   pool of the main path) a word is tag (12 bits), flag (2), retired
+//   lanes (25) and live lanes (25), published by one atomicExch and read
+//   by volatile loads.  From 2^25 lanes up to 2^31 - 1 the two counts
+//   need 31 bits each, 76 bits with the tag and flag: the wide layout
+//   (fused_step_kernel<true>) gives a tile two words, each tag (12) | flag
+//   (2) | one count (50), retired lanes then live lanes, published and
+//   read as the narrow word.  Each word carries its own flag, so the two
+//   look-backs are independent and each is exact by itself: the first
+//   warp reads both words of its window, spins until both are this
+//   launch's, and stops each sum at that word's own nearest inclusive
+//   prefix; the retired lanes' prefix places the lanes in the queue, and
+//   the last tile takes the live lanes' inclusive total.  A 16-byte word
+//   would need its load to be single-copy atomic, which CUDA does not
+//   promise for a volatile 128-bit load; two 8-byte words need nothing
+//   but what the narrow layout already relies on.  A scratch is used by
+//   one layout only (its size is the layout's: fused_step_scratch_words),
+//   since a narrow launch would leave the wide words it does not write
+//   holding tags that go live again 4,095 launches later.
 // - A total with no prefix (the stream step's shadow segments) is a
 //   self-clearing grid sum: each block adds its counts
 //   (__syncthreads_count) into the scratch's sums, fences, and takes an
@@ -182,6 +198,11 @@ constexpr unsigned long long kAggregate = 1ull << 50;  // counts of this tile on
 constexpr unsigned long long kInclusive = 2ull << 50;  // counts of every lane up to this tile's last
 constexpr int kDoneShift = 25;
 constexpr unsigned long long kCountMask = (1ull << 25) - 1;
+// The wide layout's two words a tile: tag << 52 | flag | one count.
+constexpr unsigned long long kWideCountMask = kAggregate - 1;
+// From here on the stream step takes the wide layout and the path step its
+// two-word count.
+constexpr int kNarrowLanes = 1 << 25;
 constexpr float kInvU32 = 2.3283064365386963e-10f;     // 2^-32
 constexpr int kThreads = 256;                          // lanes (threads) a tile (block)
 constexpr int kWarps = kThreads / 32;
@@ -201,6 +222,19 @@ __device__ __forceinline__ unsigned long long status_word(unsigned long long tag
                                                           long long done, long long live) {
   return (tag << kTagShift) | flag | (static_cast<unsigned long long>(done) << kDoneShift) |
          static_cast<unsigned long long>(live);
+}
+
+__device__ __forceinline__ unsigned long long wide_word(unsigned long long tag, unsigned long long flag,
+                                                        long long count) {
+  return (tag << kTagShift) | flag | static_cast<unsigned long long>(count);
+}
+
+// Float c of lane i's row of an [L,3] field: int32 in the narrow layouts'
+// grids (the parent's arithmetic, measured fastest there), 64-bit in the
+// wide ones' (3 x 2^31 overflows an int).
+template <bool Wide>
+__device__ __forceinline__ typename std::conditional<Wide, long long, int>::type at3(int i, int c) {
+  return typename std::conditional<Wide, long long, int>::type{3} * i + c;
 }
 
 // One live lane's Russian roulette, as the plain version's roulette
@@ -260,11 +294,65 @@ __device__ __forceinline__ void take_ticket(Tile& sh, unsigned long long* scratc
   tag = (sh.ticket / tiles) % kTags + 1ull;  // never 0: a fresh word
 }
 
+// One window of the wide layout's look-back over one count: the first
+// warp's words `s` (lane 0 the nearest predecessor), each this launch's.
+// Returns the window's sum up to and including the nearest inclusive
+// word; `open` turns false once a window held one.
+__device__ __forceinline__ long long wide_window(unsigned long long s, int lane, bool& open) {
+  const unsigned inclusive = __ballot_sync(0xffffffffu, (s & kInclusive) != 0);
+  const int stop = inclusive ? __ffs(inclusive) - 1 : 31;  // nearest inclusive word
+  long long c = lane <= stop ? static_cast<long long>(s & kWideCountMask) : 0;
+  for (int k = 16; k > 0; k >>= 1) c += __shfl_xor_sync(0xffffffffu, c, k);
+  if (inclusive) open = false;
+  return c;
+}
+
+// The wide layout's publish and look-back (the first warp): the tile's
+// two words (status[2 tile]: retired lanes, status[2 tile + 1]: live
+// lanes), each look-back stopped at its own nearest inclusive word.
+// Returns the retired and live lanes of earlier tiles.
+__device__ __forceinline__ void wide_look_back(int lane, int tile, unsigned long long tag,
+                                               unsigned long long* status, long long agg_done, long long agg_live,
+                                               long long& excl_done, long long& excl_live) {
+  unsigned long long* mine = status + 2 * tile;
+  if (tile == 0) {
+    if (lane == 0) {
+      atomicExch(&mine[0], wide_word(tag, kInclusive, agg_done));
+      atomicExch(&mine[1], wide_word(tag, kInclusive, agg_live));
+    }
+    return;
+  }
+  if (lane == 0) {
+    atomicExch(&mine[0], wide_word(tag, kAggregate, agg_done));
+    atomicExch(&mine[1], wide_word(tag, kAggregate, agg_live));
+  }
+  const volatile unsigned long long* words = status;
+  // Before tile 0, and for a count whose look-back has ended: an inclusive
+  // prefix of nothing.
+  const unsigned long long nothing = kInclusive | (tag << kTagShift);
+  bool open_done = true, open_live = true;
+  for (int base = tile - 1; open_done || open_live; base -= 32) {
+    const int q = base - lane;  // lane 0 reads the nearest predecessor
+    unsigned long long sd, sl;
+    do {  // the warp spins as one until both words of every lane are this launch's
+      sd = q >= 0 && open_done ? words[2 * q] : nothing;
+      sl = q >= 0 && open_live ? words[2 * q + 1] : nothing;
+    } while (!__all_sync(0xffffffffu, (sd >> kTagShift) == tag && (sl >> kTagShift) == tag));
+    excl_done += wide_window(sd, lane, open_done);
+    excl_live += wide_window(sl, lane, open_live);
+  }
+  if (lane == 0) {
+    atomicExch(&mine[0], wide_word(tag, kInclusive, excl_done + agg_done));
+    atomicExch(&mine[1], wide_word(tag, kInclusive, excl_live + agg_live));
+  }
+}
+
 // The tile's counts and the queue's prefix: every thread passes its
 // retired and live lanes and gets the retired lanes of this tile before
 // its own; the first warp publishes the tile, looks back, and leaves the
 // retired lanes of earlier tiles in sh.before (read after the next
 // __syncthreads); the last tile writes head', segments' and the live count.
+template <bool Wide>
 __device__ __forceinline__ int tile_prefix(Tile& sh, int done_count, int live_count, int tile, int tiles,
                                            unsigned long long tag, unsigned long long* status,
                                            const long long* head_in, const long long* seg_in, int n_pix,
@@ -295,7 +383,9 @@ __device__ __forceinline__ int tile_prefix(Tile& sh, int done_count, int live_co
       agg_live += sh.warp_live[w];
     }
     long long excl_done = 0, excl_live = 0;
-    if (tile == 0) {
+    if (Wide) {
+      wide_look_back(lane, tile, tag, status, agg_done, agg_live, excl_done, excl_live);
+    } else if (tile == 0) {
       if (lane == 0) atomicExch(&status[0], status_word(tag, kInclusive, agg_done, agg_live));
     } else {
       if (lane == 0) atomicExch(&status[tile], status_word(tag, kAggregate, agg_done, agg_live));
@@ -349,7 +439,9 @@ __device__ __forceinline__ void set_spec(const StepParams& p, int i, bool reset,
   }
 }
 
-// The stream step: one lane a thread, coalesced scalar accesses.
+// The stream step: one lane a thread, coalesced scalar accesses; the
+// narrow layout below kNarrowLanes lanes, the wide one from there.
+template <bool Wide>
 __global__ void __launch_bounds__(kThreads) fused_step_kernel(const __grid_constant__ StepParams p, int tiles) {
   // The camera kernel, launched next as a programmatic dependent of this
   // launch, may start its blocks once every block of this one has
@@ -373,12 +465,12 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(const __grid_const
     uint32_t seed = static_cast<uint32_t>(p.seeds[i]);
     int si = p.sample_i[i];
     dp = p.depth[i];
-    for (int c = 0; c < 3; ++c) acc[c] = p.accum[3 * i + c];
+    for (int c = 0; c < 3; ++c) acc[c] = p.accum[at3<Wide>(i, c)];
     if (live) {
       seed = static_cast<uint32_t>(__ldg(p.tb_seeds + i));
       for (int c = 0; c < 3; ++c) {
-        a[c] = __ldg(p.tb_attenuation + 3 * i + c);
-        r[c] = __ldg(p.tb_radiance + 3 * i + c);
+        a[c] = __ldg(p.tb_attenuation + at3<Wide>(i, c));
+        r[c] = __ldg(p.tb_radiance + at3<Wide>(i, c));
       }
       float res[3];
       if (roulette(seed, __ldg(p.tb_done + i) != 0, a, r, res, p.rr_reference)) {
@@ -397,24 +489,24 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(const __grid_const
     float po[3], pd[3];
     if (fate == 1) {  // goes on: the payload's origin and direction
       for (int c = 0; c < 3; ++c) {
-        po[c] = __ldg(p.tb_origin + 3 * i + c);
-        pd[c] = __ldg(p.tb_direction + 3 * i + c);
+        po[c] = __ldg(p.tb_origin + at3<Wide>(i, c));
+        pd[c] = __ldg(p.tb_direction + at3<Wide>(i, c));
       }
     } else {  // keeps its origin, direction, attenuation and radiance
       for (int c = 0; c < 3; ++c) {
-        po[c] = p.origin[3 * i + c];
-        pd[c] = p.direction[3 * i + c];
-        a[c] = p.attenuation[3 * i + c];
-        r[c] = p.radiance[3 * i + c];
+        po[c] = p.origin[at3<Wide>(i, c)];
+        pd[c] = p.direction[at3<Wide>(i, c)];
+        a[c] = p.attenuation[at3<Wide>(i, c)];
+        r[c] = p.radiance[at3<Wide>(i, c)];
       }
     }
     for (int c = 0; c < 3; ++c) {  // every lane rewrites what any fate may change: whole sectors
-      p.origin[3 * i + c] = po[c];
-      p.direction[3 * i + c] = pd[c];
+      p.origin[at3<Wide>(i, c)] = po[c];
+      p.direction[at3<Wide>(i, c)] = pd[c];
     }
     p.seeds[i] = static_cast<long long>(seed);
     p.sample_i[i] = fate == 3 ? 0 : si;
-    for (int c = 0; c < 3; ++c) p.accum[3 * i + c] = fate == 3 ? 0.f : acc[c];
+    for (int c = 0; c < 3; ++c) p.accum[at3<Wide>(i, c)] = fate == 3 ? 0.f : acc[c];
   }
   if (p.nee) {  // shadow segments: the live lanes that hit
     const int hits[1] = {__syncthreads_count(hit)};
@@ -422,7 +514,7 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(const __grid_const
     if (threadIdx.x == 0 && grid_sum<1>(p.scratch + 1, tiles, hits, total))
       p.totals[3] = *p.shadow + static_cast<long long>(total[0]);
   }
-  const int before_me = tile_prefix(sh, fate == 3, live, tile, tiles, tag, p.scratch + kStatus, p.head,
+  const int before_me = tile_prefix<Wide>(sh, fate == 3, live, tile, tiles, tag, p.scratch + kStatus, p.head,
                                     p.segments, n_pix, p.totals);
   if (fate == 3) {  // the pixel's mean into its image row
     float* row = p.out + 3 * static_cast<size_t>(slot_old);
@@ -443,8 +535,8 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(const __grid_const
   p.slot[i] = new_slot;
   p.pix[i] = new_pix;
   for (int c = 0; c < 3; ++c) {
-    p.attenuation[3 * i + c] = regen ? 1.f : a[c];
-    p.radiance[3 * i + c] = regen ? 0.f : r[c];
+    p.attenuation[at3<Wide>(i, c)] = regen ? 1.f : a[c];
+    p.radiance[at3<Wide>(i, c)] = regen ? 0.f : r[c];
   }
   p.depth[i] = regen ? p.max_depth : dp;
   p.regen[i] = regen;
@@ -461,16 +553,8 @@ __global__ void __launch_bounds__(kThreads) fused_step_kernel(const __grid_const
 // arrival by the blocks that have one (as the hit lanes into scratch[1]).
 constexpr int kOpenShift = 25, kArrivalShift = 43;
 constexpr unsigned long long kLiveMask = (1ull << kOpenShift) - 1, kTileMask = (1ull << 18) - 1;
-constexpr int kNarrowLanes = 1 << 25;
 constexpr int kWideArrivalShift = 32;
 constexpr unsigned long long kWideLiveMask = (1ull << kWideArrivalShift) - 1;
-// Float c of lane i's row of an [L,3] field: int32 in the narrow layout's
-// grids (the parent's arithmetic, measured fastest there), 64-bit in the
-// wide one's (3 x 2^31 overflows an int).
-template <bool Wide>
-__device__ __forceinline__ typename std::conditional<Wide, long long, int>::type at3(int i, int c) {
-  return typename std::conditional<Wide, long long, int>::type{3} * i + c;
-}
 
 // The path step of render_rays (schedule 0) and render_pixels_regen
 // (schedule 1): one lane a thread, a programmatic dependent of the
@@ -632,26 +716,31 @@ __global__ void __launch_bounds__(kThreads) path_step_kernel(const __grid_consta
 
 }  // namespace
 
-// entry 0: the stream step over p->n < 2^25 lanes (its status words'
-// fields; p->scratch: [3 + tiles] int64, zero before its first launch;
-// p->totals: [4] int64); entry 1: the path step over p->n <= 2^31 - 1
-// lanes (p->scratch: [3] int64, zero before its first launch; its count
+// entry 0: the stream step over p->n <= 2^31 - 1 lanes (p->scratch:
+// fused_step_scratch_words(0, n) int64, zero before its first launch; its
+// status words' layout by n: one word a tile below kNarrowLanes, two from
+// there; p->totals: [4] int64); entry 1: the path step over p->n <= 2^31
+// - 1 lanes (p->scratch: [3] int64, zero before its first launch; its count
 // word's layout by n: one atomic a block below kNarrowLanes), as a
 // programmatic dependent of the launch before it on `stream` where
 // `dependent` (the caller vouches that that launch is the bounce or the
 // NEE kernel: launch_order.cuh).  Tiles of 256 lanes, one block a tile, on
-// `stream`; a scratch is used only by launches of one entry and tile
-// count, one at a time (both count word layouts leave theirs at 0).
-// Returns the launch's error, or cudaGetLastError() after it (0 =
-// launched); the stream step is never a dependent, nor over 2^25 lanes
-// (cudaErrorInvalidValue).
+// `stream`; a scratch is used only by launches of one entry, tile count
+// and layout, one at a time (both count word layouts leave theirs at 0;
+// the stream step's two status word layouts do not).  Returns the
+// launch's error, or cudaGetLastError() after it (0 = launched); the
+// stream step is never a dependent (cudaErrorInvalidValue).
 extern "C" int fused_step_launch(const StepParams* p, int entry, int dependent, void* stream) {
-  if (entry == 0 && (dependent || p->n >= kNarrowLanes)) return static_cast<int>(cudaErrorInvalidValue);
+  if (entry == 0 && dependent) return static_cast<int>(cudaErrorInvalidValue);
   if (p->n <= 0) return 0;
   const int tiles = (p->n - 1) / kThreads + 1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (entry == 0) {
-    fused_step_kernel<<<tiles, kThreads, 0, st>>>(*p, tiles);
+    if (p->n < kNarrowLanes) {
+      fused_step_kernel<false><<<tiles, kThreads, 0, st>>>(*p, tiles);
+    } else {
+      fused_step_kernel<true><<<tiles, kThreads, 0, st>>>(*p, tiles);
+    }
     return static_cast<int>(cudaGetLastError());
   }
   const cudaError_t err = p->n < kNarrowLanes
@@ -662,11 +751,15 @@ extern "C" int fused_step_launch(const StepParams* p, int entry, int dependent, 
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// The int64 words of the scratch that launches of `entry` over `tiles`
-// tiles take, which the wrapper allocates: the stream step's ticket,
-// arrivals, shadow sum and a status word a tile; the path step's count
-// word, hit sum and (wide layout) count of tiles with a lane not ended.
-extern "C" int fused_step_scratch_words(int entry, int tiles) { return entry == 0 ? kStatus + tiles : 3; }
+// The int64 words of the scratch that launches of `entry` over `n` lanes
+// take, which the wrapper allocates: the stream step's ticket, arrivals,
+// shadow sum and a status word a tile (two in the wide layout); the path
+// step's count word, hit sum and (wide layout) count of tiles with a lane
+// not ended.
+extern "C" int fused_step_scratch_words(int entry, int n) {
+  const int tiles = n > 0 ? (n - 1) / kThreads + 1 : 0;
+  return entry == 0 ? kStatus + (n < kNarrowLanes ? 1 : 2) * tiles : 3;
+}
 
 // sizeof(StepParams), which the wrapper checks against its mirror.
 extern "C" int fused_schedule_params_size() { return static_cast<int>(sizeof(StepParams)); }

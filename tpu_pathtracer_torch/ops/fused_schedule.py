@@ -50,7 +50,7 @@ import torch
 
 from tpu_pathtracer_torch.ops import bounce as bounce_ops
 from tpu_pathtracer_torch.ops.bounce import _launch, _params
-from tpu_pathtracer_torch.ops.cuda_build import check_lanes, kernel_arg, on_card
+from tpu_pathtracer_torch.ops.cuda_build import MAX_LANES, check_lanes, kernel_arg, on_card
 from tpu_pathtracer_torch.utils import rng
 
 TB_KEYS = ("origin", "direction", "attenuation", "radiance", "seeds", "done")
@@ -60,11 +60,12 @@ STATE_KEYS = ("origin", "direction", "attenuation", "radiance", "seeds",
 TILE_LANES = 256
 # The path step's schedules (StepParams.schedule).
 PATH_SCHEDULES = ("rays", "regen")
-# The most lanes the stream step (kernel 7) takes: its tile status words
-# count retired and live lanes in 25 bits each.  The path step takes
-# cuda_build.MAX_LANES (int32 lane indices), and from NARROW_LANES on counts
-# its totals in two words (csrc/fused_schedule.cu: kNarrowLanes).
-STREAM_MAX_LANES = 2**25 - 1
+# The most lanes the stream step (kernel 7) takes: cuda_build.MAX_LANES
+# (int32 lane indices), as the path step.  From NARROW_LANES on the stream
+# step's tiles publish two status words each (retired lanes, live lanes),
+# below it one word with both in 25-bit fields; the path step counts its
+# totals in two words from there (csrc/fused_schedule.cu: kNarrowLanes).
+STREAM_MAX_LANES = MAX_LANES
 NARROW_LANES = 2**25
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -243,31 +244,30 @@ def _scratch(device: torch.device, entry: int, lanes: int) -> torch.Tensor:
     on `device`, of as many words as the kernel's library says
     (csrc/fused_schedule.cu: fused_step_scratch_words).  The stream step's
     (entry 0): a ticket counter, the grid sum's arrival counter and sum,
-    then a status word a tile; the path step's (entry 1): its packed count
-    word (live lanes, tiles not done, arrivals; from NARROW_LANES lanes
-    live lanes and arrivals), its hit count and (from NARROW_LANES) its
-    count of tiles not done.  Zeroed
+    then a status word a tile (two from NARROW_LANES lanes on); the path
+    step's (entry 1): its packed count word (live lanes, tiles not done,
+    arrivals; from NARROW_LANES lanes live lanes and arrivals), its hit
+    count and (from NARROW_LANES) its count of tiles not done.  Zeroed
     once and never again: a launch tags its status words with its own
     number, read off the ticket counter, and the block that arrives last
     sets the sums and the count words back to 0.  Launches that share one
-    run one at a time, on one stream."""
+    run one at a time, on one stream, in one layout: 2^25 - 1 and 2^25
+    lanes take the same tiles, and a narrow launch would leave the wide
+    words it does not write holding tags that go live again 4,095
+    launches later."""
     tiles = -(-lanes // TILE_LANES)
-    return _zeroed_scratch(device, entry, tiles, bounce_ops.library("fused_schedule.cu").fused_step_scratch_words(
-        entry, tiles))
+    return _zeroed_scratch(device, entry, tiles, lanes >= NARROW_LANES,
+                           bounce_ops.library("fused_schedule.cu").fused_step_scratch_words(entry, lanes))
 
 
 @functools.lru_cache(maxsize=None)
-def _zeroed_scratch(device: torch.device, entry: int, tiles: int, words: int) -> torch.Tensor:
+def _zeroed_scratch(device: torch.device, entry: int, tiles: int, wide: bool, words: int) -> torch.Tensor:
     return torch.zeros(words, dtype=torch.int64, device=device)
 
 
 def _stream_lanes(st) -> int:
     """The stream step's lanes, refused above STREAM_MAX_LANES."""
-    lanes = st["seeds"].shape[0]
-    if lanes > STREAM_MAX_LANES:
-        raise ValueError(f"the stream step (kernel 7) counts a tile's retired and live lanes in 25-bit fields of its "
-                         f"status words: at most {STREAM_MAX_LANES} (2^25 - 1) lanes, got {lanes}")
-    return lanes
+    return check_lanes("the stream step's lanes", st["seeds"].shape[0])
 
 
 def _path_lanes(st) -> int:
