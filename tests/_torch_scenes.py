@@ -10,7 +10,8 @@ with per-face normals and uvs and albedo/roughness/metallic/normal maps
 normals.  `write_convention_scene(dir)`: two OBJ files, one with the
 four `<stem>_<kind>.png` maps (sizes given per kind) and one without.
 `oracle_case(name, device)`: a case of tests/test_oracle.py on the
-port's procedural scenes.
+port's procedural scenes.  `SCHEDULES`: a config for each frame
+schedule on a 64x48 frame (the host-sync and span tests).
 """
 
 from __future__ import annotations
@@ -136,6 +137,21 @@ def write_convention_scene(d: str, seed: int = 0, sizes=None) -> list:
         f.write(_fmt("v", sv) + _fmt("vt", svt))  # no normals: the (0,1,0) fallback
         f.write("".join("f " + " ".join(f"{i + 1}/{i + 1}" for i in face) + "\n" for face in sfaces))
     return [os.path.join(d, "box.obj"), os.path.join(d, "ball.obj")]
+
+
+# The port's frame schedules: BASE with each one's overrides takes it on a
+# 64x48 frame (NEE's scene needs an environment with its alias table).
+BASE = dict(width=64, height=48, samples_per_launch=2, max_depth=4, dof=False, intersector="cluster",
+            env_mode="sunsky", stream_lanes=512)
+NEE = dict(env_mode="equirect", rr_mode="standard", env_importance_sampling=True)
+SCHEDULES = {
+    "stream_fused": dict(fused_schedule="on"),
+    "stream": dict(fused_schedule="off"),
+    "stream_nee": NEE,
+    "stream_deferred": dict(fused_schedule="off", deferred_shade=True),
+    "regen": dict(stream_lanes=4096),
+    "rays": dict(samples_per_launch=1),
+}
 
 
 # tests/test_oracle.py's cases, which the port's renders are held against

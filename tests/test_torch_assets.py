@@ -6,6 +6,7 @@ JAX, the JAX package and PIL made unimportable."""
 
 import dataclasses
 import io
+import json
 import os
 import struct
 import subprocess
@@ -26,7 +27,8 @@ from tpu_pathtracer.utils import image as j_image  # noqa: E402
 from tpu_pathtracer_torch.assets import native, obj  # noqa: E402
 from tpu_pathtracer_torch.render import film  # noqa: E402
 from tpu_pathtracer_torch.render.camera import Camera  # noqa: E402
-from tpu_pathtracer_torch.runtime.profiler import FrameStats, xla_trace  # noqa: E402
+from tpu_pathtracer_torch.runtime import profiler  # noqa: E402
+from tpu_pathtracer_torch.runtime.profiler import xla_trace  # noqa: E402
 from tpu_pathtracer_torch.utils import image, logging as plog  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(__file__))
@@ -302,18 +304,32 @@ def test_logging_format_and_levels(capsys):
 
 
 def test_profiler(tmp_path):
-    st = FrameStats()
-    with st.bucket("render"):
+    """The span recorder: off by default, spans with their parents while
+    on, clear(); xla_trace writes the Chrome trace and the spans beside
+    it, and leaves the recorder as it found it."""
+    profiler.clear()
+    with profiler.span("render"):
         pass
-    with st.bucket("render"):
-        pass
-    assert st.counts["render"] == 2 and "render:" in st.summary()
-    st.reset()
-    assert not st.totals
+    assert profiler.spans() == [] and not profiler.enabled()
+    profiler.enable()
+    with profiler.span("render"):
+        with profiler.span("read"):
+            pass
+    profiler.disable()
+    (render, read) = profiler.spans()
+    assert render[0] == "render" and render[3] is None and read[3] == 0 and render[1] <= read[1] <= read[2] <= render[2]
+    assert set(profiler.self_times()) == {"render", "read"}
+    profiler.clear()
+    assert not profiler.spans()
     with xla_trace(str(tmp_path / "trace")):
-        torch.ones(8).sum()
-    traces = os.listdir(tmp_path / "trace")
-    assert len(traces) == 1 and traces[0].endswith(".json")
+        with profiler.span("render"):
+            torch.ones(8).sum()
+    files = sorted(os.listdir(tmp_path / "trace"))
+    assert len(files) == 2 and files[0].startswith("spans-") and files[1].startswith("trace-")
+    with open(tmp_path / "trace" / files[0]) as f:
+        assert [s[0] for s in json.load(f)["spans"]] == ["render"]
+    assert not profiler.enabled()
+    profiler.clear()
 
 
 @pytest.mark.parametrize("move", ["orbit", "orbit_clamped", "zoom", "pan"])

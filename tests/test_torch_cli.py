@@ -155,6 +155,7 @@ def test_cli_procedural_debug_nans_profile_ppm(tmp_path):
     data = out.read_bytes()
     assert data.startswith(b"P6\n24 16\n255\n") and len(data) == 13 + 24 * 16 * 3
     assert any(n.endswith(".json") for n in os.listdir(tmp_path / "prof"))
+    assert any(n.startswith("spans-") for n in os.listdir(tmp_path / "prof"))
 
 
 def test_cli_defaults_match_jax():

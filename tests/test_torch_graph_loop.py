@@ -166,10 +166,10 @@ def test_replays_add_the_captured_increments(monkeypatch):
     named = dict(zip((f.__name__ for f in graph_loop.COUNTED), increments))
     assert named == {**dict.fromkeys(named, 0), "intersect_clusters": 1, "random_in_unit_sphere": 1}
     plan.graphed, plan.graph, plan.increments = True, FakeGraph(), increments
-    replays = graph_loop.stats["replays"]
+    iterations = graph_loop.stats["iterations"]
     for _ in range(5):
         plan.step()
-    assert plan.graph.replays == 5 and graph_loop.stats["replays"] == replays + 5
+    assert plan.graph.replays == 5 and graph_loop.stats["iterations"] == iterations + 5
     assert graph_loop.launch_counts() == tuple(b + 5 * n for b, n in zip(before, increments))
     graph_loop.clear()
 
@@ -204,9 +204,9 @@ def test_deferred_shading_is_not_captured(monkeypatch, nee):
     asked = []
     real = graph_loop.plan
 
-    def spy(key, scene, build, capturable=True):
+    def spy(key, scene, build, capturable=True, **kw):
         asked.append(capturable)
-        return real(key, scene, build, capturable)
+        return real(key, scene, build, capturable, **kw)
 
     monkeypatch.setattr(graph_loop, "plan", spy)
     cfg = RenderConfig(**{**BASE, **(NEE if nee else {}), "deferred_shade": True})

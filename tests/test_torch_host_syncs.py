@@ -6,6 +6,9 @@ stream sync) and nothing reads a tensor back, except the loop's own read
 are counted where they are made.  Also the unit-ball sampler's dispatch
 and its plain version against the JAX package."""
 
+import os
+import sys
+
 import numpy as np
 import pytest
 
@@ -24,23 +27,15 @@ from tpu_pathtracer_torch.ops import unit_sphere  # noqa: E402
 from tpu_pathtracer_torch.render import integrator  # noqa: E402
 from tpu_pathtracer_torch.render.camera import Camera, camera_arrays  # noqa: E402
 from tpu_pathtracer_torch.render.envmap import with_importance_sampling  # noqa: E402
+from tpu_pathtracer_torch.runtime import profiler  # noqa: E402
 from tpu_pathtracer_torch.scene import procedural  # noqa: E402
 from tpu_pathtracer_torch.scene.scene import make_env  # noqa: E402
 from tpu_pathtracer_torch.utils import rng  # noqa: E402
 from tpu_pathtracer_torch.utils.image import procedural_hdr  # noqa: E402
 
-BASE = dict(width=64, height=48, samples_per_launch=2, max_depth=4, dof=False, intersector="cluster",
-            env_mode="sunsky", stream_lanes=512)
-NEE = dict(env_mode="equirect", rr_mode="standard", env_importance_sampling=True)
+sys.path.insert(0, os.path.dirname(__file__))
 # schedule: the config that takes it on a 64x48 frame
-SCHEDULES = {
-    "stream_fused": dict(fused_schedule="on"),
-    "stream": dict(fused_schedule="off"),
-    "stream_nee": NEE,
-    "stream_deferred": dict(fused_schedule="off", deferred_shade=True),
-    "regen": dict(stream_lanes=4096),
-    "rays": dict(samples_per_launch=1),
-}
+from _torch_scenes import BASE, SCHEDULES  # noqa: E402
 
 
 class HostCalls:
@@ -66,12 +61,11 @@ class HostCalls:
         monkeypatch.setattr(owner, name, spy)
 
 
-@pytest.mark.parametrize("which", list(SCHEDULES))
-def test_iterations_build_nothing_from_host_data(monkeypatch, which):
-    """A 64x48 CPU render of each schedule: from the loop's first read
-    after the first traced bounce to the end of the render, the only host
-    read is `_read`, once an iteration, and no tensor is built from host
-    data."""
+def host_calls(monkeypatch, which, traced=False):
+    """A 64x48 CPU render of schedule `which`, the span recorder on if
+    `traced`: (the host calls made from the loop's first read after the
+    first traced bounce to the end of the render, whether each `_read`
+    was armed, the traces, the render's stats)."""
     overrides = SCHEDULES[which]
     cfg = RenderConfig(**{**BASE, **overrides})
     scene = procedural.three_spheres_scene(8, 16, device="cpu")
@@ -109,12 +103,45 @@ def test_iterations_build_nothing_from_host_data(monkeypatch, which):
     monkeypatch.setattr(integrator, "_trace_bounce", counted_trace)
     monkeypatch.setattr(integrator, "_read", checked_read)
     monkeypatch.setattr(rng, "random_in_unit_sphere_plain", unchecked(rng.random_in_unit_sphere_plain))
-    _, stats = integrator.render_frame_stats(scene, cam, cfg, 1)
-    spy.armed = False
+    if traced:
+        profiler.enable()
+    try:
+        _, stats = integrator.render_frame_stats(scene, cam, cfg, 1)
+    finally:
+        profiler.disable()
+        spy.armed = False
+    return spy.calls, reads, len(traces), stats
+
+
+@pytest.mark.parametrize("which", list(SCHEDULES))
+def test_iterations_build_nothing_from_host_data(monkeypatch, which):
+    """A 64x48 CPU render of each schedule: from the loop's first read
+    after the first traced bounce to the end of the render, the only host
+    read is `_read`, once an iteration, and no tensor is built from host
+    data."""
+    calls, reads, traces, stats = host_calls(monkeypatch, which)
     assert stats["schedule"] == which.removesuffix("_nee").removesuffix("_deferred")
-    assert stats["iters"] == len(traces) > 3
-    assert sum(reads) >= len(traces) - 1  # one read an iteration, every one after the first armed
-    assert spy.calls == []
+    assert stats["iters"] == traces > 3
+    assert sum(reads) >= traces - 1  # one read an iteration, every one after the first armed
+    assert calls == []
+
+
+@pytest.mark.parametrize("which", list(SCHEDULES))
+def test_tracing_on_adds_no_host_call(monkeypatch, which):
+    """With the span recorder on (runtime/profiler.py), each schedule's
+    render makes the same reads and no more host calls than with it off:
+    its spans and device totals read nothing back and build nothing from
+    host data."""
+    runs = {}
+    for traced in (False, True):
+        profiler.clear()
+        with monkeypatch.context() as m:
+            calls, reads, traces, stats = host_calls(m, which, traced)
+        runs[traced] = (calls, reads, traces, stats["iters"])
+        recorded = len(profiler.spans())
+        assert recorded > 2 * traces if traced else recorded == 0
+    assert runs[True] == runs[False] and runs[True][0] == []
+    profiler.clear()
 
 
 @pytest.mark.parametrize("which", ["stream_fused", "stream", "regen", "rays"])

@@ -28,6 +28,12 @@ code, without capture), as does a plan whose step reads the device
 which also bypasses the cache.  A failed capture or replay raises; the
 loop never falls back to eager by itself.
 
+`stats` counts, whether or not the recorder of runtime/profiler.py is
+on: `iterations` (calls of `Plan.step`), `lanes` (each plan's lane count,
+added once an iteration: the lanes it traced), `reads` (the loops' reads
+of the card, `integrator._read`) and the graphs captured.  `Plan.step`
+is the `loop.step` span, `Plan._capture` the `loop.capture` span.
+
 The kernels' launch counters (`launches` on each wrapper) advance when
 Python calls a wrapper, which a replay does not do: a plan records each
 counter's increment over the captured call (taking the capture's own
@@ -50,6 +56,7 @@ from tpu_pathtracer_torch.ops.camera import camera_paths
 from tpu_pathtracer_torch.ops.fused_schedule import fused_stream_step, path_step
 from tpu_pathtracer_torch.ops.intersect import intersect_brute, occluded_brute
 from tpu_pathtracer_torch.ops.unit_sphere import random_in_unit_sphere
+from tpu_pathtracer_torch.runtime import profiler
 
 # The wrappers whose `launches` count their kernel's launches.
 COUNTED = (
@@ -63,9 +70,10 @@ MAX_PLANS = 8
 
 _plans: collections.OrderedDict = collections.OrderedDict()
 _eager = False
-# Process-wide totals: graphs captured, their capture seconds, replays,
-# and the captures of each key (a key captured twice was evicted between).
-stats = dict(captures=0, capture_seconds=0.0, replays=0)
+# Process-wide totals: graphs captured, their capture seconds, the loops'
+# iterations, their lanes and reads, and the captures of each key (a key
+# captured twice was evicted between).
+stats = dict(captures=0, capture_seconds=0.0, iterations=0, lanes=0, reads=0)
 captured: collections.Counter = collections.Counter()
 
 
@@ -110,10 +118,11 @@ def clear() -> None:
 
 class Plan:
     """A schedule's static buffers (`state`) and its step, run directly or
-    as a captured graph (`graphed`)."""
+    as a captured graph (`graphed`), over `lanes` lanes."""
 
-    def __init__(self, key, scene, state: dict, step, graphed: bool):
+    def __init__(self, key, scene, state: dict, step, graphed: bool, lanes: int = 0):
         self.key = key
+        self.lanes = lanes
         self.scene = scene
         self.state = state
         self._step = step
@@ -128,17 +137,20 @@ class Plan:
     def step(self) -> None:
         """One iteration: the step itself, or on a graphed plan its first
         call eagerly on the side stream, then capture, then replays."""
-        if not self.graphed:
-            self._step()
-            return
-        if self.graph is None:
-            if not self._warm:
-                self._warm_up()
+        stats["iterations"] += 1
+        stats["lanes"] += self.lanes
+        with profiler.span("loop.step"):
+            if not self.graphed:
+                self._step()
                 return
-            self._capture()
-        self.graph.replay()
-        add_launches(self.increments)
-        stats["replays"] += 1
+            if self.graph is None:
+                if not self._warm:
+                    self._warm_up()
+                    return
+                with profiler.span("loop.capture"):
+                    self._capture()
+            self.graph.replay()
+            add_launches(self.increments)
 
     def _warm_up(self) -> None:
         device = self.scene.device
@@ -174,19 +186,20 @@ class Plan:
         captured[self.key] += 1
 
 
-def plan(key, scene, build, capturable: bool = True) -> Plan:
-    """The plan of `key`: cached, or made by build() -> (state, step).  It
-    is graphed on a CUDA device when the step is `capturable` (no read of
-    the device inside it); under `eager()` it is fresh and never graphed."""
+def plan(key, scene, build, capturable: bool = True, lanes: int = 0) -> Plan:
+    """The plan of `key`, over `lanes` lanes: cached, or made by build() ->
+    (state, step).  It is graphed on a CUDA device when the step is
+    `capturable` (no read of the device inside it); under `eager()` it is
+    fresh and never graphed."""
     if _eager:
-        return Plan(key, scene, *build(), graphed=False)
+        return Plan(key, scene, *build(), graphed=False, lanes=lanes)
     found = _plans.get(key)
     if found is not None:
         _plans.move_to_end(key)
         return found
     state, step = build()
     graphed = capturable and scene.device.type == "cuda"
-    made = _plans[key] = Plan(key, scene, state, step, graphed)
+    made = _plans[key] = Plan(key, scene, state, step, graphed, lanes)
     while len(_plans) > MAX_PLANS:
         _plans.popitem(last=False)
     return made

@@ -45,6 +45,12 @@ value from the device per iteration (whether any lane is still live, or
 how many are: `_read`, the iteration's only stream sync) and caps the
 iterations.  Deferred shading adds its count of hit lanes, a read inside
 the step, so its loop stays eager.
+
+The frame and loop layers record the spans of runtime/profiler.py:
+`frame.render` (render_frame_stats), `frame.setup` (render_pixels up to
+its schedule's loop), `loop.run` (each schedule's loop) and `loop.read`
+(`_read`); `_read` counts `graph_loop.stats["reads"]`, and each
+schedule hands its stats' segment counts to the recorder.
 """
 
 from __future__ import annotations
@@ -65,6 +71,7 @@ from tpu_pathtracer_torch.ops.unit_sphere import random_in_unit_sphere
 from tpu_pathtracer_torch.render import bsdf, graph_loop
 from tpu_pathtracer_torch.render.envmap import direction_to_uv, env_pdf_alias, eval_env, sample_env_alias
 from tpu_pathtracer_torch.render.texsample import material_property, sample_bundle
+from tpu_pathtracer_torch.runtime import profiler
 from tpu_pathtracer_torch.scene import scene as S
 from tpu_pathtracer_torch.scene.scene import Scene
 from tpu_pathtracer_torch.utils import math as vm
@@ -527,7 +534,9 @@ def _read(x: torch.Tensor) -> int:
     an iteration: everything else the loop runs is queued without waiting
     for the card (on the card, one graph launch), so the host can run
     ahead of it."""
-    return int(x)
+    graph_loop.stats["reads"] += 1
+    with profiler.span("loop.read"):
+        return int(x)
 
 
 def _spawner(cam: dict, cfg: RenderConfig, subframe, sample_offset):
@@ -568,12 +577,12 @@ def _write(st: dict, values: dict) -> None:
             st[k].fill_(v)
 
 
-def _plan(scene: Scene, cfg: RenderConfig, key: tuple, fresh: dict, make_step) -> graph_loop.Plan:
+def _plan(scene: Scene, cfg: RenderConfig, key: tuple, fresh: dict, make_step, lanes: int) -> graph_loop.Plan:
     """The plan of this scene, config and `key` (the schedule and its
-    shapes), its buffers set to `fresh`: the frame's inputs and the loop's
-    state at its start.  make_step(buffers) -> the iteration, which reads
-    and writes only the buffers.  A Python number in `fresh` gets a 0-d
-    int64 buffer."""
+    shapes) over `lanes` lanes, its buffers set to `fresh`: the frame's
+    inputs and the loop's state at its start.  make_step(buffers) -> the
+    iteration, which reads and writes only the buffers.  A Python number
+    in `fresh` gets a 0-d int64 buffer."""
     dev = scene.device
 
     def build():
@@ -583,7 +592,8 @@ def _plan(scene: Scene, cfg: RenderConfig, key: tuple, fresh: dict, make_step) -
 
     # The key names the arm of an A/B against the plain versions: a plan
     # never replays the other arm's graph.
-    plan = graph_loop.plan((id(scene), cfg, cuda_build.is_plain()) + key, scene, build, capturable=not _deferred(cfg))
+    plan = graph_loop.plan((id(scene), cfg, cuda_build.is_plain()) + key, scene, build, capturable=not _deferred(cfg),
+                           lanes=lanes)
     _write(plan.state, fresh)
     return plan
 
@@ -598,8 +608,10 @@ def _stats(iters: int, st: dict, plan: graph_loop.Plan) -> dict:
     """A schedule's stats: iterations run, segments and shadow segments
     (copies: the buffers are the next frame's), and whether the loop
     replayed a captured graph."""
-    return dict(iters=iters, segments=st["segments"].clone(), shadow_segments=st["shadow"].clone(),
-                graphed=plan.graphed)
+    stats = dict(iters=iters, segments=st["segments"].clone(), shadow_segments=st["shadow"].clone(),
+                 graphed=plan.graphed)
+    profiler.add_totals(stats["segments"], stats["shadow_segments"])
+    return stats
 
 
 # ---------------------------------------------------------------------------
@@ -623,14 +635,16 @@ def render_rays(scene: Scene, cfg: RenderConfig, origins, directions, seeds, ret
         terminated=terminated, done=terminated.all(), result=torch.zeros_like(origins),
         spec_last=_spec_start(cfg, n, dev), **_counters(dev),
     )
-    plan = _plan(scene, cfg, ("rays", n), fresh, functools.partial(_rays_step, scene, cfg))
+    plan = _plan(scene, cfg, ("rays", n), fresh, functools.partial(_rays_step, scene, cfg), n)
     st = plan.state
     max_traces = cfg.max_depth + 2  # depth <= 0 forces done; +1 safety
 
     bounce = 0
-    while bounce < max_traces and not _read(st["done"]):
-        plan.step()
-        bounce += 1
+    profiler.end("frame.setup")
+    with profiler.span("loop.run"):
+        while bounce < max_traces and not _read(st["done"]):
+            plan.step()
+            bounce += 1
 
     # Lanes that never ended (the bounce cap) give their radiance so far.
     out = torch.where(st["terminated"][:, None], st["result"], st["radiance"])
@@ -683,14 +697,16 @@ def render_pixels_regen(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids, s
         exhausted=exhausted, regen=exhausted, done=exhausted.all(), spec_last=_spec_start(cfg, n, dev),
         **_counters(dev),
     )
-    plan = _plan(scene, cfg, ("regen", n, spp), fresh, functools.partial(_regen_step, scene, cfg, spp))
+    plan = _plan(scene, cfg, ("regen", n, spp), fresh, functools.partial(_regen_step, scene, cfg, spp), n)
     st = plan.state
     max_iters = spp * (cfg.max_depth + 2) + 4
 
     it = 0
-    while it < max_iters and not _read(st["done"]):
-        plan.step()
-        it += 1
+    profiler.end("frame.setup")
+    with profiler.span("loop.run"):
+        while it < max_iters and not _read(st["done"]):
+            plan.step()
+            it += 1
 
     # A float32 tensor on the card: a Python scalar divisor would be
     # multiplied by its reciprocal there, a different rounding.
@@ -815,15 +831,17 @@ def render_pixels_stream(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids, 
                  head=torch.full((), lanes, dtype=torch.int64, device=dev),
                  n_live=torch.full((), lanes, dtype=torch.int64, device=dev), **_counters(dev))
     plan = _plan(scene, cfg, ("stream_fused" if fused else "stream", kind, n_pix, spp, lanes), fresh,
-                 functools.partial(_stream_step, scene, cfg, kind, n_pix, spp, fused))
+                 functools.partial(_stream_step, scene, cfg, kind, n_pix, spp, fused), lanes)
     st = plan.state
     max_iters = (n_pix * spp * (cfg.max_depth + 2)) // lanes + cfg.max_depth + 16
 
     it, n_live = 0, lanes
-    while it < max_iters and n_live:
-        plan.step()
-        n_live = _read(st["n_live"])
-        it += 1
+    profiler.end("frame.setup")
+    with profiler.span("loop.run"):
+        while it < max_iters and n_live:
+            plan.step()
+            n_live = _read(st["n_live"])
+            it += 1
 
     img = st["out"][:n_pix].clone()
     return (img, _stats(it, st, plan)) if return_stats else img
@@ -944,6 +962,12 @@ def render_pixels(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids=None, su
     stream (fused where `_fused_stream_ok` allows) when the pixels
     outnumber the lane pool, else one lane per pixel; otherwise one lane
     per sample (render_rays)."""
+    with profiler.span("frame.setup"):  # ended by the schedule where its loop starts
+        img, stats = _render_pixels(scene, cam, cfg, pixel_ids, subframe, sample_offset, spp)
+    return (img, stats) if return_stats else img
+
+
+def _render_pixels(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids, subframe, sample_offset: int, spp):
     if spp is None:
         spp = cfg.samples_per_launch
     dev = scene.device
@@ -972,7 +996,7 @@ def render_pixels(scene: Scene, cam: dict, cfg: RenderConfig, pixel_ids=None, su
             radiance, stats = render_rays(scene, cfg, origins, directions, seeds, return_stats=True)
             img = radiance.reshape(n_pix, spp, 3).mean(dim=1)
     stats["schedule"] = which
-    return (img, stats) if return_stats else img
+    return img, stats
 
 
 def render_frame_stats(scene: Scene, cam: dict, cfg: RenderConfig, subframe):
@@ -981,6 +1005,12 @@ def render_frame_stats(scene: Scene, cam: dict, cfg: RenderConfig, subframe):
     "shadow_segments"}, summed over the tiles of cfg.tile_pixels,
     "schedule", the one render_pixels took for the frame or each tile, and
     "graphed", whether its loop replayed a captured graph)."""
+    profiler.follow()
+    with profiler.span("frame.render"):
+        return _render_frame_stats(scene, cam, cfg, subframe)
+
+
+def _render_frame_stats(scene: Scene, cam: dict, cfg: RenderConfig, subframe):
     n_pix = cfg.width * cfg.height
     tile = cfg.tile_pixels
     if not tile or tile >= n_pix:

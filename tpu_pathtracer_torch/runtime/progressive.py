@@ -15,6 +15,10 @@ Host and device: the buffer lives on the scene's device.  A step queues
 its launch and the accumulation and then waits for the device once, for
 its timing (`torch.cuda.synchronize`); the image comes to the host only
 at output (`image_u8`, `image_hdr`), checkpoint and fingerprint.
+
+The entry layer's spans (runtime/profiler.py): `entry.step` (a step or
+a preview, each a launch of the recorder), `entry.set_camera`,
+`entry.accumulate` and `entry.sync` (`_wait`).
 """
 
 from __future__ import annotations
@@ -31,15 +35,18 @@ import torch
 
 from tpu_pathtracer_torch.config import RenderConfig
 from tpu_pathtracer_torch.render.camera import Camera, camera_arrays
+from tpu_pathtracer_torch.render import graph_loop
 from tpu_pathtracer_torch.render.film import accumulate_weighted, post_process, to_uint8
 from tpu_pathtracer_torch.render.integrator import render_frame
+from tpu_pathtracer_torch.runtime import profiler
 from tpu_pathtracer_torch.utils import logging as plog
 
 
 def _wait(t: torch.Tensor) -> None:
     """Wait for the device's queued work (the step's one sync)."""
-    if t.is_cuda:
-        torch.cuda.synchronize(t.device)
+    with profiler.span("entry.sync"):
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
 
 
 class ProgressiveRenderer:
@@ -132,11 +139,13 @@ class ProgressiveRenderer:
     # -- camera interaction ----------------------------------------------
     def set_camera(self, camera: Camera) -> None:
         """A camera change resets the accumulation."""
-        self.camera = camera.with_aspect(self.cfg.width, self.cfg.height)
-        self._cam_arrays = camera_arrays(self.camera, self.cfg, self.device)
-        self._pv_cams.clear()
-        self._aov = None            # the G-buffer is per camera
-        self.reset()
+        profiler.follow()
+        with profiler.span("entry.set_camera"):
+            self.camera = camera.with_aspect(self.cfg.width, self.cfg.height)
+            self._cam_arrays = camera_arrays(self.camera, self.cfg, self.device)
+            self._pv_cams.clear()
+            self._aov = None            # the G-buffer is per camera
+            self.reset()
 
     def reset(self) -> None:
         self.accum = torch.zeros_like(self.accum)
@@ -158,6 +167,11 @@ class ProgressiveRenderer:
         pcfg = self._preview_cfg
         if pcfg is None:
             return False
+        with profiler.launch(graph_loop.stats):
+            self._step_preview(pcfg)
+        return True
+
+    def _step_preview(self, pcfg: RenderConfig) -> None:
         t0 = time.perf_counter()
         size = (pcfg.width, pcfg.height)
         if size not in self._pv_cams:
@@ -176,7 +190,6 @@ class ProgressiveRenderer:
         self._preview_img = frame
         if self._pv_auto:
             self._pv_update(time.perf_counter() - t0)
-        return True
 
     # -- the per-launch step ------------------------------------------------
     def step(self, spp: Optional[int] = None) -> torch.Tensor:
@@ -185,6 +198,10 @@ class ProgressiveRenderer:
         converge ramp); accumulation weighs by sample count, so mixed
         launches stay an unbiased mean and constant-spp histories equal
         the plain EWMA bit for bit (film.accumulate_weighted)."""
+        with profiler.launch(graph_loop.stats):
+            return self._step(spp)
+
+    def _step(self, spp: Optional[int]) -> torch.Tensor:
         launch_spp = spp or self.cfg.samples_per_launch
         cfg_l = (self.cfg if launch_spp == self.cfg.samples_per_launch
                  else self.cfg.replace(samples_per_launch=launch_spp))
@@ -197,7 +214,8 @@ class ProgressiveRenderer:
         else:
             frame = render_frame(self.scene, self._cam_arrays, cfg_l, self.subframe)
         self._check(frame)
-        self.accum = accumulate_weighted(self.accum, frame, self._accum_spp, launch_spp)
+        with profiler.span("entry.accumulate"):
+            self.accum = accumulate_weighted(self.accum, frame, self._accum_spp, launch_spp)
         _wait(self.accum)
         self.frame_times.append(time.perf_counter() - t0)
         self._frame_paths.append(self.cfg.width * self.cfg.height * launch_spp)
